@@ -1,8 +1,10 @@
 """Unified architecture config — an exact copy of ``repro.configs.base``'s
 ``ArchConfig`` fields, derived properties and ``reduced()``.
 
-``validate()`` is not copied: it checks names against the sampler and
-estimator registries, which arrive with the training slice.
+``validate()`` checks names against the port's own registries (sampler,
+estimator, head impl) and the knob ranges; the family-specific checks of
+unported samplers (rff, tapas, midx) and the sharding modes join with
+their slices.
 """
 from __future__ import annotations
 
@@ -133,6 +135,67 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     remat: bool = True
     scan_layers: bool = True
+
+    # ---- validation ---------------------------------------------------------
+    HEAD_IMPLS = ("auto", "fused", "pallas", "chunked", "einsum")
+
+    def validate(self, tp: int = 1) -> "ArchConfig":
+        """Fail fast on unknown names / inconsistent head knobs, at the
+        construction seams (``make_train_step``), with the list of choices.
+        A sampler the reference registers but the port does not have yet
+        raises ``NotImplementedError``.  Returns self."""
+        # Lazy imports: configs sit below core in the layering.
+        from repro_torch.core.estimators import (
+            estimator_names,
+            make_estimator,
+        )
+        from repro_torch.core.samplers import sampler_from_config
+
+        def bad(msg: str):
+            raise ValueError(f"ArchConfig '{self.name}': {msg}")
+
+        try:
+            smp = sampler_from_config(self)
+        except (KeyError, ValueError) as e:
+            bad(str(e.args[0] if e.args else e))
+        if self.estimator not in estimator_names():
+            bad(f"unknown estimator '{self.estimator}'; "
+                f"have {estimator_names()}")
+        if self.head_impl not in self.HEAD_IMPLS:
+            bad(f"unknown head_impl '{self.head_impl}'; "
+                f"have {list(self.HEAD_IMPLS)}")
+        if self.midx_bits not in (8, 32):
+            bad(f"midx_bits must be 8 (int8 rows) or 32 (fp32 rows), got "
+                f"{self.midx_bits}")
+        samples = make_estimator(self.estimator).needs_sampling
+        if samples and not smp.supports_head_loss():
+            bad(f"sampler '{self.sampler}' cannot drive the head loss")
+        if samples and self.m_negatives <= 0:
+            bad(f"m_negatives must be positive, got {self.m_negatives}")
+        if self.sampler_block <= 0:
+            bad(f"sampler_block must be positive, got {self.sampler_block}")
+        if self.sampler_refresh_every <= 0:
+            bad("sampler_refresh_every must be >= 1, got "
+                f"{self.sampler_refresh_every}")
+        if self.refresh_mode not in ("sync", "overlap"):
+            bad(f"unknown refresh_mode '{self.refresh_mode}'; "
+                "have ['sync', 'overlap']")
+        if self.refresh_stale_steps < 1:
+            bad("refresh_stale_steps must be >= 1, got "
+                f"{self.refresh_stale_steps}")
+        if (self.refresh_mode == "overlap"
+                and self.refresh_stale_steps >= self.sampler_refresh_every
+                and self.sampler_refresh_every > 1):
+            bad(f"refresh_stale_steps={self.refresh_stale_steps} must be < "
+                f"sampler_refresh_every={self.sampler_refresh_every} in "
+                "overlap mode: a rebuild must land before the next one "
+                "dispatches")
+        if samples and tp > 1 and self.m_negatives % tp:
+            bad(f"m_negatives={self.m_negatives} must divide by the "
+                f"vocab-parallel degree tp={tp}")
+        if self.microbatches < 1:
+            bad(f"microbatches must be >= 1, got {self.microbatches}")
+        return self
 
     # ---- derived -----------------------------------------------------------
     @property

@@ -32,3 +32,17 @@ def leaf_scores_ref(h: Tensor, rows: Tensor, alpha: float) -> Tensor:
 def leaf_dots_ref(h: Tensor, rows: Tensor) -> Tensor:
     """h: (G, r); rows: (G, B, r) -> (G, B) raw dot products (logits)."""
     return torch.einsum("gbr,gr->gb", rows.float(), h.float())
+
+
+def fused_lse_ref(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,
+                  biasg: Tensor, abs_mode: bool = False) -> Tensor:
+    """Dense oracle of the fused-head logsumexp (``kernels/fused_head.py``).
+
+    w: (n, d); h: (T, d); ids/corr/biasg: (T, K) -> (T,) fp32
+    logsumexp_k(transform(<h_t, w_{ids[t,k]}> + biasg[t,k]) - corr[t,k]).
+    Gathers the rows before it upcasts (no fp32 copy of the whole table);
+    materializes the (T, K, d) gather the kernel exists to avoid."""
+    rows = w[ids.long()].float()                                # (T, K, d)
+    o = torch.einsum("tkd,td->tk", rows, h.float()) + biasg
+    tl = torch.abs(o) if abs_mode else o
+    return torch.logsumexp(tl - corr, dim=-1)

@@ -2,6 +2,12 @@
 
     init_params(cfg, gen, device)       -> model (with head table)
     backbone_hidden(model, batch, cfg)  -> (h (T, d_h), labels (T,), aux)
+    head_table(model, cfg)              -> (n, d_h) class-embedding table
+
+``backbone_hidden`` and ``head_table`` carry gradients: the train step
+differentiates its loss through both (the tower's weights and the head
+rows), while serving and the sampler's statistics call them under
+``torch.no_grad()`` or detach the result.
 
 Only the ``recsys`` family (youtube-dnn) is ported; the others raise
 ``NotImplementedError`` until their slices land.
@@ -32,7 +38,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def head_table(model: recsys.RecsysTower, cfg: ArchConfig) -> torch.Tensor:
-    """The class-embedding table the sampler/loss/index operate on."""
+    """The class-embedding table the sampler/loss/index operate on: the
+    parameter itself, so a loss through it reaches its gradient."""
     _require_recsys(cfg)
     if cfg.tie_embeddings:
         return model.embed_table
@@ -50,8 +57,9 @@ def hidden_width(cfg: ArchConfig) -> int:
 def backbone_hidden(model: recsys.RecsysTower, batch: dict[str, torch.Tensor],
                     cfg: ArchConfig
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Forward to the last hidden layer.  recsys batch keys: history (B, H),
-    user_feats (B, F), labels (B,)."""
+    """Forward to the last hidden layer, differentiable wrt the tower's
+    parameters.  recsys batch keys: history (B, H), user_feats (B, F),
+    labels (B,)."""
     _require_recsys(cfg)
     h, aux = recsys.hidden_states(model, batch["history"], batch["user_feats"])
     return h, batch["labels"].reshape(-1), aux

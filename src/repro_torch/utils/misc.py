@@ -19,6 +19,13 @@ def log2_int(x: int) -> int:
     return int(math.log2(x))
 
 
+def fold_in(seed: int, i: int) -> int:
+    """A generator seed derived from (seed, i), distinct for every pair
+    with 0 <= i < 2**31 — the port's counterpart of
+    ``jax.random.fold_in(PRNGKey(seed), i)``."""
+    return (seed * 0x9E3779B1 + i) % (1 << 62)
+
+
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """The device an entry point creates its tensors on.
 

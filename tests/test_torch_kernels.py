@@ -99,7 +99,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
     assert kernels.launch_counts() == {"zstats": 0, "block_scores": 0,
-                                       "leaf_scores": 0}
+                                       "leaf_scores": 0, "fused_lse": 0,
+                                       "fused_lse_bwd": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -114,12 +115,15 @@ def test_ops_refuse_mixed_devices():
 
 
 def test_build_library_path_tracks_source_and_flags():
-    """Libraries are cached by a hash of source + flags, one per kernel, in
-    build/repro_torch/ (a directory .gitignore lists)."""
+    """Libraries are cached by a hash of source + flags, one per source
+    (the two fused-head kernels share one), in build/repro_torch/ (a
+    directory .gitignore lists)."""
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
+    assert paths["fused_lse"] == paths["fused_lse_bwd"]
     for name, p in paths.items():
+        src = _build.source(name)
         assert p.parent == _build.BUILD_DIR
-        assert p.name.startswith(name + "-") and p.suffix == ".so"
-        assert _build.source(name).is_file()
+        assert p.name.startswith(src.stem + "-") and p.suffix == ".so"
+        assert src.is_file() and src.parent.name == "csrc"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

@@ -20,9 +20,12 @@ from repro.sharding.rules import local_ctx
 from repro.utils import misc as jmisc
 from repro_torch import convert
 from repro_torch.configs import get_config, list_archs
+from repro_torch.data.pipeline import batch_iterator_for
 from repro_torch.models import api
 from repro_torch.models.layers import dense_init
+from repro_torch.optim import make_optimizer
 from repro_torch.serve import retrieval
+from repro_torch.train import loop, step
 from repro_torch.utils import misc
 
 torch.set_num_threads(1)
@@ -119,6 +122,16 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         retrieval.build_index(np.zeros((64, 8), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.params_from_jax({}, cfg)
+    # the training slice's entry points
+    opt = make_optimizer("adamw", 1e-2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_iterator_for(cfg, None, 4, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step.init_train_state(torch.Generator(), cfg, None, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.fit(cfg, None, opt, iter(()), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.train_state_from_jax({}, ((), {}), {}, 0, cfg)
 
 
 def test_unported_families_raise():
@@ -134,9 +147,22 @@ def test_index_from_jax_refuses_sharded_indexes():
         convert.index_from_jax({"tp": 2}, device="cpu")
 
 
+#: modules of the training slice, which the walk below must reach
+TRAINING_MODULES = (
+    "repro_torch.kernels.fused_head", "repro_torch.core.kernel_fns",
+    "repro_torch.core.blocks", "repro_torch.core.samplers",
+    "repro_torch.core.sampled_softmax", "repro_torch.core.estimators",
+    "repro_torch.optim.transform", "repro_torch.optim.clip",
+    "repro_torch.optim.adamw", "repro_torch.optim.sgd",
+    "repro_torch.optim.schedule", "repro_torch.data.synthetic",
+    "repro_torch.data.pipeline", "repro_torch.train.step",
+    "repro_torch.train.loop")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every repro_torch module, and chip_smoke.py's imports, load without
-    jax or any module of the JAX package."""
+    """Every repro_torch module (the training slice's included), and
+    chip_smoke.py's imports, load without jax or any module of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -148,6 +174,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {TRAINING_MODULES!r} "
+        "if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules "
         "if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO}")
@@ -155,4 +184,4 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 20
+    assert int(out.stdout.split()[1]) >= 40
