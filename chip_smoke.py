@@ -44,12 +44,34 @@ result line):
                  by kernel, device busy share: the union of the device
                  intervals over the host wall), and host-clock times of one
                  decode's stages per bucket.
-Phases 4-5 and phase 6 are the two main paths: the kernel launch counters
-are zeroed just before each and read just after; serving must launch
-zstats, block_scores and leaf_scores, training all five kernels.
-The line before the last is {"kernels": [...]} (training-shape numbers and
-training launches; the serving ones beside them under serving_*) and the
-last is {"ok": true, "device": {...}}.
+  8. hierarchical kernels — rff_features (512 leaves of 256 rows, d = 128,
+                 D = 128), midx_pair_masses (T = 256 x 512 lists) and
+                 midx_member_scores (32,768 draws x 256 rows) against their
+                 plain versions at the training shapes, padded rows and
+                 empty lists present, with the same times as phase 3; and
+                 two earlier kernels at shapes only these paths give them:
+                 block_scores at T = 256 on each of the tree's nine dense
+                 levels (2 to 512 nodes, true counts, alpha = 100) and
+                 leaf_scores' dot mode at rff's leaf step (32768, 256, 128).
+  9. hierarchical training — youtube-dnn at full width through fit with
+                 sampler tree-quadratic, rff and midx in turn (60 steps each
+                 on the pool of phase 6): the loss must fall, the launch
+                 counts must be exact, and on 4 held-out queries the logq
+                 each sampler reports for its draws must equal its
+                 all_class_logq at those ids within 1e-4, no id at or past
+                 n_valid; then per family the host ms of its refresh,
+                 sampler and whole step and a torch.profiler trace of one
+                 step.
+Phases 4-5, 6 and each family of 9 are main paths: the kernel launch
+counters are zeroed just before each and read just after; serving must
+launch zstats, block_scores and leaf_scores, block-quadratic training the
+five kernels of phase 3, and each family its own kernels exactly
+(``expected_launches``).
+The line before the last is {"kernels": [...]} (training-shape numbers;
+``launches`` summed over the training paths, each path's count under
+``launches_by_path``; the other shapes' numbers under serving_*,
+tree_levels_* and rff_leaf_dots_*) and the last is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -73,7 +95,18 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import blocks, estimators, hierarchy  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    blocks,
+    estimators,
+    hierarchy,
+    midx,
+    tree,
+)
+from repro_torch.core.kernel_fns import (  # noqa: E402
+    quadratic_kernel,
+    rff_directions,
+    rff_logshift_bound,
+)
 from repro_torch.core.sampled_softmax import (  # noqa: E402
     full_softmax_loss,
     fused_plan,
@@ -83,6 +116,11 @@ from repro_torch.data.pipeline import batch_iterator_for  # noqa: E402
 from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
 from repro_torch.kernels.leaf_scores import leaf_scores  # noqa: E402
+from repro_torch.kernels.midx_scores import (  # noqa: E402
+    midx_member_scores,
+    midx_pair_masses,
+)
+from repro_torch.kernels.rff_features import rff_features  # noqa: E402
 from repro_torch.kernels.zstats import zstats  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
@@ -102,6 +140,8 @@ RTOL = 1e-5
 REPS = 25
 #: back-to-back calls per CUDA-event pair in ``event_ms``
 EVENT_CALLS = 10
+#: host pause (s) that sets the timed calls of a ``device_ms`` trace apart
+GAP_S = 0.005
 
 REPLACES = {
     "zstats": "src/repro/kernels/zstats.py:31",
@@ -109,10 +149,16 @@ REPLACES = {
     "leaf_scores": "src/repro/kernels/leaf_scores.py:56",
     "fused_lse": "src/repro/kernels/fused_head.py:107",
     "fused_lse_bwd": "src/repro/kernels/fused_head.py:178",
+    "rff_features": "src/repro/kernels/rff_features.py:69",
+    "midx_pair_masses": "src/repro/kernels/midx_scores.py:63",
+    "midx_member_scores": "src/repro/kernels/midx_scores.py:94",
 }
 #: kernels each main path must launch
 SERVING_KERNELS = ("zstats", "block_scores", "leaf_scores")
-TRAINING_KERNELS = tuple(REPLACES)
+TRAINING_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
+                    "fused_lse_bwd")
+#: the hierarchical sampler families of phase 9
+FAMILIES = ("tree-quadratic", "rff", "midx")
 TRAIN_STEPS = 60
 TRAIN_BATCH = 256
 #: batches in the training phase's fixed pool, cycled for TRAIN_STEPS: at
@@ -150,26 +196,48 @@ def device_ms(fn) -> float:
     """Device time of one call: the card's busy time over REPS calls
     (torch.profiler, device activities only), divided by REPS.
 
-    Every timed function launches the same activities on each call, so a
-    trace whose activity count is not a multiple of REPS lost some (a
-    short trace sometimes records none): it is taken again, up to three
-    times."""
+    A trace can drop an activity at its start or end (after the training
+    profiles, most traces of a one-kernel call recorded 24 activities for
+    25 calls), so the REPS calls are bracketed by an untimed call on each
+    side, each set apart by a sync and a host pause of GAP_S; the pauses
+    split the trace into stretches, and only the longest stretch, the REPS
+    calls, is timed.  Every timed function launches the same activities on
+    each call, so a stretch whose activity count is not a multiple of REPS
+    lost some: the trace is taken again, up to three times."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+
+    def pause():
+        torch.cuda.synchronize()
+        time.sleep(GAP_S)
+
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            pause()
             for _ in range(REPS):
                 fn()
+            pause()
+            fn()
             torch.cuda.synchronize()
-        events = device_events(prof)
-        if events and len(events) % REPS == 0:
+        events = sorted(device_events(prof),
+                        key=lambda e: e.time_range.start)
+        stretches, end = [], -math.inf
+        for e in events:
+            if not stretches or e.time_range.start - end >= 0.8 * GAP_S * 1e6:
+                stretches.append([])
+            stretches[-1].append(e)
+            end = max(end, e.time_range.end)
+        middle = max(stretches, key=len)
+        if middle and len(middle) % REPS == 0:
             break
         log(f"  trace {attempt + 1} recorded {len(events)} device "
-            f"activities for {REPS} calls")
-    if not events:
+            f"activities in stretches of {[len(x) for x in stretches]} "
+            f"for {REPS} calls")
+    if not middle:
         raise AssertionError("torch.profiler recorded no device activity")
-    return busy_us(events) / REPS / 1e3
+    return busy_us(middle) / REPS / 1e3
 
 
 def event_ms(fn) -> float:
@@ -494,6 +562,165 @@ def phase_kernels_training(gen: torch.Generator, cfg) -> dict[str, dict]:
     return out
 
 
+def phase_kernels_hier(gen: torch.Generator, cfg
+                       ) -> tuple[dict[str, dict], dict[str, dict]]:
+    """The kernels of the hierarchical samplers at the training path's
+    shapes (youtube-dnn: 100,000 items, d = 128, T = 256, m = 128, alpha =
+    100), over a 512-leaf tree of 256-row leaves whose last 121 leaves are
+    padding only and whose leaf 390 holds 160 real rows.
+
+    Returns the rows of the three new kernels (rff's leaf feature sums;
+    midx's stage-1 masses over 512 posting lists, 121 of them empty, and
+    stage-2 scores over 32,768 drawn lists) and, by shape tag, the rows of
+    two earlier kernels at shapes only these paths give them: the tree's
+    ``block_scores`` on its nine dense levels and rff's leaf step through
+    ``leaf_scores``' dot mode.  Bounds count the valid rows' work."""
+    dev = DEV
+    out = {}
+    n, d, leaf = cfg.vocab_size, api.hidden_width(cfg), cfg.sampler_block
+    t, m, alpha = TRAIN_BATCH, cfg.m_negatives, cfg.sampler_alpha
+    g = t * m
+    head = 0.05 * torch.randn((n, d), generator=gen, device=dev)
+    hq = torch.randn((t, d), generator=gen, device=dev)
+
+    # block_scores as the tree's descent calls it: every level of at most
+    # dense_cap nodes (levels 1-9, 2 to 512 nodes), the level's true
+    # counts, alpha = 100; one call below runs all of them
+    ts = tree.build(head, quadratic_kernel(alpha), leaf)
+    dense_cap = max(256, 4 * m)
+    lv = [(z, c) for z, c in zip(ts.levels_z[1:], ts.levels_cnt[1:])
+          if z.shape[0] <= dense_cap]
+    err, n_bytes, flops = 0.0, 0.0, 0.0
+    for z, c in lv:
+        nodes = z.shape[0]
+        err = max(err, compare(
+            f"block_scores tree level T={t} N={nodes}",
+            block_scores(hq, z, c, alpha=alpha),
+            ref.block_scores_ref(hq, z, c, alpha)))
+        n_bytes += 4 * (t * d + nodes * d * d + nodes + t * nodes)
+        flops += 2 * t * nodes * (d * d + d)
+    bms, by = bound_ms(n_bytes, flops)
+
+    def per_level(fn):
+        return lambda: [fn(z, c) for z, c in lv]
+
+    earlier = {"tree_levels": {"block_scores": dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by, **times(
+            per_level(lambda z, c: block_scores(hq, z, c, alpha=alpha)),
+            per_level(lambda z, c: ref.block_scores_ref(hq, z, c, alpha)),
+            per_level(lambda z, c: torch.einsum("nij,ti,tj->tn", z, hq,
+                                                hq))))}}
+    log_rows(f"tree levels 1-{len(lv)}", earlier["tree_levels"])
+
+    # leaf_scores' dot mode at rff's leaf step: raw queries against the
+    # gathered rows of drawn leaves (the last live leaf holds padding rows)
+    live = -(-n // leaf)
+    leaves = torch.randint(0, live, (g,), generator=gen, device=dev)
+    leaves[::97] = live - 1
+    rows = ts.wq[leaves]
+    hg = hq.repeat_interleave(m, dim=0)
+    h3 = hg[:, :, None]
+    err = compare(f"leaf_scores dot ({g}, {leaf}, {d})",
+                  leaf_scores(hg, rows, square=False),
+                  ref.leaf_dots_ref(hg, rows))
+    bms, by = bound_ms(4 * (g * d + g * leaf * d + g * leaf), 2 * g * leaf * d)
+    earlier["rff_leaf_dots"] = {"leaf_scores": dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **times(lambda: leaf_scores(hg, rows, square=False),
+                lambda: ref.leaf_dots_ref(hg, rows),
+                lambda: torch.bmm(rows, h3)))}
+    log_rows("rff leaf step", earlier["rff_leaf_dots"])
+    del ts, lv, rows, hg, h3
+    torch.cuda.empty_cache()
+
+    # rff_features: the rff refresh's leaf level, as build_features lays it
+    # out (padding rows zero and masked out)
+    n_feat, tau = cfg.rff_dim, cfg.rff_tau
+    n_leaves = 1 << (-(-n // leaf) - 1).bit_length()
+    pad = n_leaves * leaf - n
+    wq = torch.nn.functional.pad(head, (0, 0, 0, pad))
+    mask = (torch.arange(n_leaves * leaf, device=dev) < n).float().reshape(
+        n_leaves, leaf)
+    omega = rff_directions(gen, n_feat, d)
+    shift = rff_logshift_bound(wq, omega, tau)
+    wq = wq.reshape(n_leaves, leaf, d)
+    err = compare(f"rff_features ({n_leaves}, {leaf}, {d}) D={n_feat}",
+                  rff_features(wq, omega, mask, shift, tau=tau),
+                  ref.rff_features_ref(wq, omega, mask, shift, tau))
+    w2 = torch.randn((37, 50, 126), generator=gen, device=dev) * 0.3
+    om2 = torch.randn((100, 126), generator=gen, device=dev)
+    m2 = (torch.rand((37, 50), generator=gen, device=dev) < 0.7).float()
+    s2 = rff_logshift_bound(w2.reshape(-1, 126), om2, 0.7)
+    err = max(err, compare("rff_features (37, 50, 126) D=100 tau=0.7",
+                           rff_features(w2, om2, m2, s2, tau=0.7),
+                           ref.rff_features_ref(w2, om2, m2, s2, 0.7)))
+    bms, by = bound_ms(4 * (n_leaves * leaf * (d + 1) + n_feat * d + 1
+                            + n_leaves * n_feat),
+                       n * n_feat * (2 * d + 4) + 2 * n * d)
+    out["rff_features"] = dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **times(lambda: rff_features(wq, omega, mask, shift, tau=tau),
+                lambda: ref.rff_features_ref(wq, omega, mask, shift, tau)))
+    del wq, mask
+
+    # midx: a real index of the head (pc-bisection + two k-means), so the
+    # codes, counts and empty lists are the sampler's
+    st = midx.build(head, codewords=cfg.midx_codewords,
+                    codebooks=cfg.midx_codebooks, list_size=leaf)
+    n_lists = st.num_lists
+    empty = int((st.cnt == 0).sum())
+    got = ops.midx_list_masses(hq, st.c1, st.c2, st.codes, st.cnt, alpha)
+    err = compare(f"midx_pair_masses T={t} P={n_lists} ({empty} empty) "
+                  f"d={d}", got,
+                  ref.midx_list_masses_ref(hq, st.c1, st.c2, st.codes,
+                                           st.cnt, alpha))
+    if float(got[:, st.cnt == 0].abs().max()) != 0.0:
+        raise AssertionError("midx_pair_masses: an empty list has mass")
+    ct = st.c1[st.codes[:, 0].long()] + st.c2[st.codes[:, 1].long()]
+    h2 = torch.randn((37, 126), generator=gen, device=dev)
+    ct2 = torch.randn((100, 126), generator=gen, device=dev) * 0.1
+    cnt2 = torch.clamp(1000.0 - 16.0 * torch.arange(100, device=dev), 0, 16)
+    err = max(err, compare("midx_pair_masses T=37 P=100 d=126",
+                           midx_pair_masses(h2, ct2, cnt2, alpha=alpha),
+                           ref.midx_pair_masses_ref(h2, ct2, cnt2, alpha)))
+    bms, by = bound_ms(4 * (t * d + n_lists * d + n_lists + t * n_lists),
+                       t * n_lists * (2 * d + 3))
+    out["midx_pair_masses"] = dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **times(lambda: midx_pair_masses(hq, ct, st.cnt, alpha=alpha),
+                lambda: ref.midx_pair_masses_ref(hq, ct, st.cnt, alpha),
+                lambda: hq @ ct.T))
+
+    # midx_member_scores: stage 2 over lists drawn among the live ones (the
+    # last live list holds padding rows)
+    live = int((st.cnt > 0).sum())
+    lists = torch.randint(0, live, (g,), generator=gen, device=dev)
+    lists[::97] = live - 1
+    rows = st.wq[lists]
+    hg = hq.repeat_interleave(m, dim=0)
+    err = compare(f"midx_member_scores ({g}, {leaf}, {d})",
+                  midx_member_scores(hg, rows, alpha=alpha),
+                  ref.midx_member_scores_ref(hg, rows, alpha))
+    for gg, ll, dd in ((4093, 256, 128), (37, 50, 126)):
+        h3 = torch.randn((gg, dd), generator=gen, device=dev)
+        r3 = torch.randn((gg, ll, dd), generator=gen, device=dev)
+        err = max(err, compare(f"midx_member_scores ({gg}, {ll}, {dd})",
+                               midx_member_scores(h3, r3, alpha=alpha),
+                               ref.midx_member_scores_ref(h3, r3, alpha)))
+    h3 = hg[:, :, None]
+    bms, by = bound_ms(4 * (g * d + g * leaf * d + g * leaf),
+                       g * leaf * (2 * d + 2))
+    out["midx_member_scores"] = dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **times(lambda: midx_member_scores(hg, rows, alpha=alpha),
+                lambda: ref.midx_member_scores_ref(hg, rows, alpha),
+                lambda: torch.bmm(rows, h3)))
+    log_rows("training shapes", out)
+    del rows, hg, h3, st, head
+    torch.cuda.empty_cache()
+    return out, earlier
+
+
 def tower_queries(model, cfg, rng: np.random.Generator, n: int
                   ) -> torch.Tensor:
     """n (history, user_feats) pairs through the tower on the card."""
@@ -771,6 +998,124 @@ def phase_fresh(cfg) -> None:
             f"ln(n) = {math.log(cfg.vocab_size)}")
 
 
+def expected_launches(cfg) -> dict[str, int]:
+    """Exact launches of TRAIN_STEPS steps of ``fit`` with a hierarchical
+    sampler: ``init_train_state`` builds the statistics once and every step
+    refreshes them (refresh every step), samples once and runs the fused
+    head forward and backward once.  The tree's descent scores each level
+    with at most ``dense_cap = max(256, 4m)`` nodes through block_scores:
+    levels 1-9 (2 to 512 nodes) of the 512-leaf tree at full width."""
+    s = TRAIN_STEPS
+    counts = dict.fromkeys(REPLACES, 0)
+    counts.update(fused_lse=s, fused_lse_bwd=s)
+    if cfg.sampler == "tree-quadratic":
+        leaves = 1 << (-(-cfg.vocab_size // cfg.sampler_block) - 1
+                       ).bit_length()
+        dense = sum(1 for lvl in range(1, leaves.bit_length())
+                    if (1 << lvl) <= max(256, 4 * cfg.m_negatives))
+        counts.update(zstats=s + 1, block_scores=dense * s, leaf_scores=s)
+    elif cfg.sampler == "rff":
+        counts.update(rff_features=s + 1, leaf_scores=s)
+    elif cfg.sampler == "midx":
+        counts.update(midx_pair_masses=s, midx_member_scores=s)
+    else:
+        raise ValueError(f"no launch plan for sampler {cfg.sampler!r}")
+    return counts
+
+
+def check_draw_logq(cfg, state, held) -> None:
+    """The eq. 2 exactness contract on the card: on 4 held-out queries the
+    logq the sampler reports for its draws equals its ``all_class_logq``
+    at the drawn ids within 1e-4, and no id is at or past n_valid.  For
+    rff, also the share of live nodes whose feature mass underflows to 0."""
+    sampler = sampler_from_config(cfg)
+    gen = torch.Generator(DEV).manual_seed(17)
+    with torch.no_grad():
+        h, _, _ = api.backbone_hidden(
+            state.params, {k: v[:4] for k, v in held.items()}, cfg)
+        runtime = sampler.hydrate(state.sampler_state, cfg.vocab_size)
+        ids, logq = sampler.sample_batch(runtime, h, cfg.m_negatives, gen)
+        worst, mass = 0.0, []
+        for t in range(h.shape[0]):
+            oracle = sampler.all_class_logq(runtime, h[t])
+            worst = max(worst, float((logq[t] - oracle[ids[t]]).abs().max()))
+            mass.append(float(torch.logsumexp(oracle, 0).exp()))
+    top = int(ids.max())
+    log(f"[{cfg.sampler}] 4 held-out queries x {cfg.m_negatives} draws: max "
+        f"|logq - all_class_logq[ids]| = {worst}; oracle total mass "
+        f"{mass}; max id {top} (n_valid {cfg.vocab_size})")
+    if not torch.isfinite(logq).all() or top >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.sampler}: a draw has a non-finite logq "
+                             "or an id past n_valid")
+    if worst > 1e-4:
+        raise AssertionError(f"{cfg.sampler}: reported logq differs from "
+                             f"all_class_logq by {worst} > 1e-4")
+    if cfg.sampler == "rff":
+        st = runtime["stats"]
+        counts = hierarchy.count_levels(st.n_valid, st.num_leaves,
+                                        st.leaf_size, st.depth)
+        phi_h = hierarchy._query_features(h, runtime["proj"], cfg.rff_tau)
+        dead = live = dead_q = 0
+        for f, c in zip(st.levels_f, counts):
+            on = c > 0
+            live += int(on.sum())
+            dead += int((f[on].amax(dim=-1) == 0).sum())
+            dead_q += int(((phi_h @ f.T)[:, on] == 0).sum())
+        log(f"[rff] live nodes whose feature sum underflowed to 0: {dead} "
+            f"of {live}; (query, live node) masses that are 0: {dead_q} of "
+            f"{live * h.shape[0]}; logshift {float(st.logshift)}")
+
+
+def phase_family(cfg, pool, held) -> tuple[dict[str, int], object]:
+    """One hierarchical family through fit at full width: the pool run, its
+    exact launch counts and falling loss, then the exactness check."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res, first, last = run_fit(cfg, itertools.cycle(pool),
+                               f"{cfg.sampler}, pool of {TRAIN_POOL} batches")
+    counts = kernels.launch_counts()
+    log(f"[{cfg.sampler}] launches {counts}")
+    want = expected_launches(cfg)
+    if counts != want:
+        raise AssertionError(f"{cfg.sampler}: launches {counts} != {want}")
+    if not all(math.isfinite(x) for x in res.losses) or not last < first:
+        raise AssertionError(f"{cfg.sampler}: training loss did not fall: "
+                             f"{first} -> {last}")
+    check_draw_logq(cfg, res.state, held)
+    return counts, res.state
+
+
+def phase_family_breakdown(cfg, state) -> None:
+    """Host ms (median of 9, synced) of one family's refresh, sampler and
+    whole step at T = 256, then a torch.profiler trace of one step."""
+    sampler = sampler_from_config(cfg)
+    refresh = step.make_refresh_fn(cfg)
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    train_step = step.make_train_step(cfg, None, opt)
+    batch = next(batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=2000,
+                                    device=DEV))
+    gen = torch.Generator(DEV).manual_seed(11)
+    head = api.head_table(state.params, cfg).detach()
+    with torch.no_grad():
+        h, _, _ = api.backbone_hidden(state.params, batch, cfg)
+    runtime = sampler.hydrate(state.sampler_state, cfg.vocab_size)
+    holder = {"state": state}
+
+    def whole():
+        holder["state"], _ = train_step(holder["state"], batch, gen)
+
+    with torch.no_grad():
+        row = dict(
+            refresh=host_ms(lambda: refresh(head, state.sampler_state)),
+            sampler=host_ms(lambda: sampler.sample_batch(
+                runtime, h, cfg.m_negatives, gen)))
+    row["step"] = host_ms(whole)
+    log(f"[breakdown] {cfg.sampler} training step, T={TRAIN_BATCH}, "
+        f"m={cfg.m_negatives}: host ms (median of 9, synced): "
+        + ", ".join(f"{name} {ms}" for name, ms in row.items()))
+    phase_profile(cfg, holder["state"], steps=1)
+
+
 def host_ms_split(setup, fn) -> float:
     """Median host-clock time of ``fn(setup())``, only ``fn`` timed."""
     times = []
@@ -852,19 +1197,24 @@ def phase_training_breakdown(cfg, state) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_profile(cfg, state) -> None:
-    """Device time by kernel over three training steps (torch.profiler,
+#: substrings of the hand-written kernels' names in a device trace
+HAND_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
+                "rff_features", "pair_masses", "member_scores")
+
+
+def phase_profile(cfg, state, steps: int = 3) -> None:
+    """Device time by kernel over ``steps`` training steps (torch.profiler,
     device activities only).  The busy time is the union of the device
-    intervals; the host wall of the same three steps is taken once traced
-    and once untraced, and the busy share is given against each."""
+    intervals; the host wall of the same steps is taken once traced and
+    once untraced, and the busy share is given against each."""
     opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
     train_step = step.make_train_step(cfg, None, opt)
     data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=3000,
                               device=DEV)
-    batches = [next(data) for _ in range(3)]
+    batches = [next(data) for _ in range(steps)]
     gen = torch.Generator(DEV).manual_seed(13)
 
-    def three_steps(st):
+    def run(st):
         t0 = time.perf_counter()
         for b in batches:
             st, _ = train_step(st, b, gen)
@@ -872,23 +1222,48 @@ def phase_profile(cfg, state) -> None:
         return st, (time.perf_counter() - t0) * 1e6
 
     state, _ = train_step(state, batches[0], gen)
-    state, untraced_us = three_steps(state)
+    state, untraced_us = run(state)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, wall_us = three_steps(state)
+        state, wall_us = run(state)
     events = device_events(prof)
     busy = busy_us(events)
-    log(f"[profile] 3 training steps: device busy {busy:.0f} us (union of "
-        f"{len(events)} device activities); host wall {wall_us:.0f} us "
-        f"traced ({100 * busy / wall_us:.1f}% busy), {untraced_us:.0f} us "
-        f"untraced ({100 * busy / untraced_us:.1f}%)")
+    log(f"[profile] {cfg.sampler}, {steps} training step(s): device busy "
+        f"{busy:.0f} us (union of {len(events)} device activities); host "
+        f"wall {wall_us:.0f} us traced ({100 * busy / wall_us:.1f}% busy), "
+        f"{untraced_us:.0f} us untraced ({100 * busy / untraced_us:.1f}%)")
     by_name: dict[str, list[float]] = {}
     for e in events:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    for name, durs in ranked[:15] + [kv for kv in ranked[15:]
-                                     if "fused_lse" in kv[0]]:
+    hand = [kv for kv in ranked[15:]
+            if any(k in kv[0] for k in HAND_KERNELS)]
+    for name, durs in ranked[:15] + hand:
         log(f"[profile]   {name[:70]}: {sum(durs):.0f} us over {len(durs)} "
             "calls")
+
+
+def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
+                 by_path: dict[str, dict[str, int]]) -> list[dict]:
+    """The kernels line: every kernel's training-shape numbers, its
+    launches summed over the training paths and per path, and its numbers
+    at the other shapes it was held at, each key prefixed by the shape's
+    tag (``serving_ms``, ``tree_levels_ms``, ...)."""
+    root = Path(__file__).resolve().parent
+    line = []
+    for name in REPLACES:
+        launches = {path: c[name] for path, c in by_path.items()}
+        entry = dict(name=name, route="cuda",
+                     source=str(_build.source(name).relative_to(root)),
+                     replaces=REPLACES[name],
+                     launches=sum(n for path, n in launches.items()
+                                  if path != "serving"),
+                     launches_by_path=launches, **rows[name])
+        for tag, tagged in shapes.items():
+            if name in tagged:
+                entry.update({f"{tag}_{k}": v
+                              for k, v in tagged[name].items()})
+        line.append(entry)
+    return line
 
 
 def main() -> int:
@@ -935,21 +1310,25 @@ def main() -> int:
     phase_training_breakdown(cfg, state)
     phase_profile(cfg, state)
     phase_breakdown(cfg, model, head, index, rng)
+    del state, model, index
+    torch.cuda.empty_cache()
 
-    root = Path(__file__).resolve().parent
-    line = []
-    for name in TRAINING_KERNELS:
-        entry = dict(name=name, route="cuda",
-                     source=str(_build.source(name).relative_to(root)),
-                     replaces=REPLACES[name], launches=counts[name],
-                     **rows[name])
-        if name in serving_rows:
-            entry.update(serving_launches=serving_counts[name],
-                         **{f"serving_{k}": v
-                            for k, v in serving_rows[name].items()})
-        line.append(entry)
+    hier_rows, shapes = phase_kernels_hier(gen, cfg)
+    rows.update(hier_rows)
+    shapes["serving"] = serving_rows
+    by_path = {"serving": serving_counts, "block-quadratic": counts}
+    held = held_out_batch(cfg)
+    data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=0, device=DEV)
+    pool = [next(data) for _ in range(TRAIN_POOL)]
+    for family in FAMILIES:
+        fcfg = dataclasses.replace(cfg, sampler=family)
+        by_path[family], fstate = phase_family(fcfg, pool, held)
+        phase_family_breakdown(fcfg, fstate)
+        del fstate
+        torch.cuda.empty_cache()
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": line}))
+    log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

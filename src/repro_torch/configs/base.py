@@ -2,9 +2,9 @@
 ``ArchConfig`` fields, derived properties and ``reduced()``.
 
 ``validate()`` checks names against the port's own registries (sampler,
-estimator, head impl) and the knob ranges; the family-specific checks of
-unported samplers (rff, tapas, midx) and the sharding modes join with
-their slices.
+estimator, head impl), the knob ranges and the rff and midx knobs; the
+checks of unported families (tapas) and the sharding modes join with their
+slices.
 """
 from __future__ import annotations
 
@@ -164,6 +164,16 @@ class ArchConfig:
         if self.head_impl not in self.HEAD_IMPLS:
             bad(f"unknown head_impl '{self.head_impl}'; "
                 f"have {list(self.HEAD_IMPLS)}")
+        if self.sampler == "rff" and (self.rff_dim <= 0 or self.rff_tau <= 0):
+            bad(f"sampler='rff' needs rff_dim > 0 and rff_tau > 0, "
+                f"got rff_dim={self.rff_dim} rff_tau={self.rff_tau}")
+        if self.sampler in ("midx", "midx-oracle"):
+            if self.midx_codebooks not in (1, 2):
+                bad(f"midx_codebooks must be 1 or 2, got "
+                    f"{self.midx_codebooks}")
+            if self.midx_codewords <= 0:
+                bad(f"midx_codewords must be positive, got "
+                    f"{self.midx_codewords}")
         if self.midx_bits not in (8, 32):
             bad(f"midx_bits must be 8 (int8 rows) or 32 (fp32 rows), got "
                 f"{self.midx_bits}")

@@ -1,6 +1,8 @@
 """Kernel functions for kernel-based sampling (paper §3.1, §3.3) —
-``repro.core.kernel_fns`` without the rff functions (they arrive with the
-rff slice).
+``repro.core.kernel_fns``: the quadratic and quartic kernels, Gram-sum
+statistics, and the positive random features of the rff family.  The
+reference's self-contained ``rff_kernel`` (used by its ``rff-oracle``)
+arrives with that family.
 
 A sampling kernel is a non-negative function ``K(h, w) = f(<h, w>)`` with a
 feature map ``phi`` such that ``K(a, b) = <phi(a), phi(b)>``.  For the
@@ -116,3 +118,54 @@ def gram_set_mass_batch(kernel: SamplingKernel, z: Tensor, cnt: Tensor,
     assert kernel.degree == 2
     frob = torch.einsum("...ij,ij->...", z, hh)
     return kernel.alpha * frob + total * cnt
+
+
+# --- positive random Fourier features for the exp kernel (DESIGN.md §2.7) ----
+#
+# Rawat et al. 2019: with Gaussian directions omega ~ N(0, I_d), the feature
+#
+#   phi_k(x) = D^{-1/2} exp( <omega_k, x>/sqrt(tau) - |x|^2/(2 tau) )     (*)
+#
+# is NON-NEGATIVE and E[<phi(a), phi(b)>] = exp(<a,b>/tau), so feature sums
+# z(C) = sum_j phi(w_j) are valid sampling statistics.  Everything works in
+# the log domain and exponentiates after a shift (the per-query max on the h
+# side, a build-time bound on the w side); shifts scale every mass of a
+# level alike and cancel in the sampling probabilities.
+
+
+def rff_directions(gen: torch.Generator, dim: int, d: int) -> Tensor:
+    """Gaussian feature directions omega: (D, d), omega_k ~ N(0, I_d), on
+    the generator's device."""
+    return torch.randn((dim, d), generator=gen, device=gen.device)
+
+
+def rff_log_phi(x: Tensor, omega: Tensor, tau: float) -> Tensor:
+    """log of the UNNORMALIZED positive features (*) (no D^{-1/2}, no
+    shift).  x: (..., d); omega: (D, d) -> (..., D) fp32."""
+    x32 = x.float()
+    proj = torch.einsum("...d,kd->...k", x32, omega.float()) / math.sqrt(tau)
+    nrm = torch.sum(x32 * x32, dim=-1, keepdim=True) / (2.0 * tau)
+    return proj - nrm
+
+
+def rff_logshift_bound(w: Tensor, omega: Tensor, tau: float) -> Tensor:
+    """Cheap analytic upper bound on the max log-feature over rows of w:
+
+        max_{i,k} log phi <= max_i ( g |w_i| / sqrt(tau) - |w_i|^2 / (2 tau) )
+
+    with g = max_k |omega_k|; O(n d + D d), no (n, D) product.  Features
+    built as exp(log phi - shift) stay <= 1.  Returns a 0-dim fp32 tensor
+    on w's device (never read on the host); an all-padding table gives 0."""
+    w32 = w.float()
+    g = torch.sqrt(torch.max(torch.sum(omega.float() ** 2, dim=-1)))
+    nrm = torch.sqrt(torch.sum(w32 * w32, dim=-1))
+    per_row = g * nrm / math.sqrt(tau) - nrm * nrm / (2.0 * tau)
+    return torch.clamp(torch.max(per_row), min=0.0)
+
+
+def rff_phi(x: Tensor, omega: Tensor, tau: float,
+            logshift: Tensor | float = 0.0) -> Tensor:
+    """The positive feature map (*), shifted by ``logshift`` in the log
+    domain.  x: (..., d) -> (..., D) fp32 non-negative features."""
+    lphi = rff_log_phi(x, omega, tau) - logshift
+    return torch.exp(lphi) / math.sqrt(omega.shape[0])

@@ -20,10 +20,13 @@ The reference's runtime-form ``init`` / ``refresh`` (used by its
 from — what eq. 2 needs.  Randomness comes from the caller's
 ``torch.Generator``.
 
-Ported families: ``uniform``, ``block-quadratic`` and
+Ported families: ``uniform``, ``block-quadratic``,
 ``block-quadratic-shared`` (whose ``sample_batch`` waits for the
-batch-shared slice).  The reference's other registered names raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+batch-shared slice), and the hierarchical families ``tree-quadratic`` (the
+paper's §3.2 tree), ``rff`` (the tree over positive random-feature sums)
+and ``midx`` (the quantized inverted multi-index).  The reference's other
+registered names raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them.
 """
 from __future__ import annotations
 
@@ -34,8 +37,13 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core import blocks
-from repro_torch.core.kernel_fns import SamplingKernel, quadratic_kernel
+from repro_torch.core import blocks, hierarchy, midx, tree
+from repro_torch.core.kernel_fns import (
+    SamplingKernel,
+    quadratic_kernel,
+    rff_directions,
+)
+from repro_torch.utils.misc import next_pow2
 
 Tensor = torch.Tensor
 
@@ -192,16 +200,14 @@ class BlockSampler(Sampler):
                 "proj": state.const.get("proj")}
 
     def state_shapes(self, cfg, tp=1):
-        v_l = -(-cfg.vocab_size // tp)
-        d = _hidden_width(cfg)
+        v_l, d = _head_dims(cfg, tp)
         r = self.proj_rank or d
         bs = self.block_size
         n_blocks_l = -(-v_l // bs)
-        meta = partial(torch.empty, dtype=torch.float32, device="meta")
-        stats = {"z": meta((tp * n_blocks_l, r, r)),
-                 "cnt": meta((tp * n_blocks_l,)),
-                 "wq": meta((tp * n_blocks_l, bs, r))}
-        const = ({"proj": meta((self.proj_rank, d))}
+        stats = {"z": _meta((tp * n_blocks_l, r, r)),
+                 "cnt": _meta((tp * n_blocks_l,)),
+                 "wq": _meta((tp * n_blocks_l, bs, r))}
+        const = ({"proj": _meta((self.proj_rank, d))}
                  if self.proj_rank else {})
         return SamplerState(stats=stats, const=const)
 
@@ -214,10 +220,189 @@ class BlockSampler(Sampler):
                              state["proj"])
 
 
-def _hidden_width(cfg) -> int:
+def _head_dims(cfg, tp: int) -> tuple[int, int]:
+    """(vocab rows per shard, head width d)."""
     from repro_torch.models import api
 
-    return api.hidden_width(cfg)
+    return -(-cfg.vocab_size // tp), api.hidden_width(cfg)
+
+
+def _tree_dims(cfg, tp: int, leaf_size: int) -> tuple[int, int, int]:
+    """(leaves per shard, padded leaf size, heap rows per shard)."""
+    v_l, _ = _head_dims(cfg, tp)
+    leaf = next_pow2(leaf_size)
+    num_leaves_l = next_pow2(max(1, -(-v_l // leaf)))
+    return num_leaves_l, leaf, hierarchy.heap_rows(num_leaves_l)
+
+
+_meta = partial(torch.empty, dtype=torch.float32, device="meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeSampler(Sampler):
+    """Paper §3.2: divide & conquer over a binary tree of Gram statistics
+    (``core/tree.py``).  ``sample_batch`` is the level-synchronous batched
+    descent; the train step carries the statistics heap-packed, like the
+    block sampler's."""
+
+    kernel: SamplingKernel = dataclasses.field(
+        default_factory=quadratic_kernel)
+    leaf_size: int | None = None
+    proj_rank: int | None = None
+    name: str = "tree-quadratic"
+    carries_state = True
+
+    def _carried_leaf(self, n: int, d: int) -> int:
+        if self.leaf_size is not None:
+            return self.leaf_size
+        return tree.default_leaf_size(n, self.proj_rank or d)
+
+    def init_const(self, gen, d):
+        if self.proj_rank is None:
+            return {}
+        return {"proj": blocks.make_projection(gen, d, self.proj_rank)}
+
+    def build_stats(self, w, n_valid, const):
+        hs = tree.build(w, self.kernel,
+                        next_pow2(self._carried_leaf(*w.shape)),
+                        proj=const.get("proj"), n_valid=n_valid)
+        z, cnt = hierarchy.to_heap(hs)
+        return {"z": z, "cnt": cnt, "wq": hs.wq}
+
+    def hydrate(self, state, n_valid):
+        st = state.stats
+        return {"stats": hierarchy.from_heap(st["z"], st["cnt"], st["wq"],
+                                             n_valid),
+                "proj": state.const.get("proj")}
+
+    def state_shapes(self, cfg, tp=1):
+        v_l, d = _head_dims(cfg, tp)
+        r = self.proj_rank or d
+        num_leaves_l, leaf, rows = _tree_dims(
+            cfg, tp, self._carried_leaf(v_l, d))
+        stats = {"z": _meta((tp * rows, r, r)),
+                 "cnt": _meta((tp * rows,)),
+                 "wq": _meta((tp * num_leaves_l, leaf, r))}
+        const = ({"proj": _meta((self.proj_rank, d))}
+                 if self.proj_rank else {})
+        return SamplerState(stats=stats, const=const)
+
+    def all_class_logq(self, state, h):
+        """Exact per-class log q of the tree (test oracle, O(n r^2))."""
+        return tree.all_class_logq(state["stats"], self.kernel, h,
+                                   state["proj"])
+
+    def sample_batch(self, state, h, m, gen):
+        return tree.sample_batch(state["stats"], self.kernel, h, m, gen,
+                                 state["proj"])
+
+
+@dataclasses.dataclass(frozen=True)
+class RFFSampler(Sampler):
+    """Exp-kernel sampling through a positive-RFF feature-sum tree
+    (``hierarchy.build_features`` / ``descend_features``): node masses are
+    one product per level, the within-leaf categorical uses the EXACT exp
+    kernel, so logq is exact under the distribution sampled.  The carried
+    constant ``omega`` (D, d) is drawn once at init, like a projection."""
+
+    dim: int = 128
+    tau: float = 1.0
+    leaf_size: int | None = None
+    name: str = "rff"
+    carries_state = True
+
+    def _leaf_size(self, n: int, d: int) -> int:
+        """ONE fallback formula for build_stats and state_shapes."""
+        if self.leaf_size is not None:
+            return self.leaf_size
+        # Stop splitting once exact leaf scoring costs what a level does.
+        return max(2, min(n, d))
+
+    def init_const(self, gen, d):
+        return {"omega": rff_directions(gen, self.dim, d)}
+
+    def build_stats(self, w, n_valid, const):
+        fs = hierarchy.build_features(
+            w, next_pow2(self._leaf_size(*w.shape)), const["omega"],
+            self.tau, n_valid=n_valid)
+        f, aux = hierarchy.to_feature_heap(fs)
+        return {"features": f, "aux": aux, "wq": fs.wq}
+
+    def hydrate(self, state, n_valid):
+        st = state.stats
+        return {"stats": hierarchy.from_feature_heap(
+                    st["features"], st["aux"], st["wq"], n_valid),
+                "proj": state.const["omega"]}
+
+    def state_shapes(self, cfg, tp=1):
+        v_l, d = _head_dims(cfg, tp)
+        num_leaves_l, leaf, rows = _tree_dims(cfg, tp,
+                                              self._leaf_size(v_l, d))
+        return SamplerState(
+            stats={"features": _meta((tp * rows, self.dim)),
+                   "aux": _meta((tp * rows,)),
+                   "wq": _meta((tp * num_leaves_l, leaf, d))},
+            const={"omega": _meta((self.dim, d))})
+
+    def all_class_logq(self, state, h):
+        """Exact per-class log q of the hierarchy (test oracle, O(n D))."""
+        return hierarchy.all_class_logq_features(state["stats"],
+                                                 state["proj"], self.tau, h)
+
+    def sample_batch(self, state, h, m, gen):
+        return hierarchy.descend_features(state["stats"], state["proj"],
+                                          self.tau, h, m, gen)
+
+
+@dataclasses.dataclass(frozen=True)
+class MIDXSampler(Sampler):
+    """Quantized inverted multi-index sampler (``core/midx.py``): stage 1
+    draws a posting list from codeword-pair masses, stage 2 a member with
+    the exact kernel; logq is the exact composed probability.  The carried
+    state is the whole index, rebuilt on the refresh cadence; the
+    codebooks are deterministic, so there are no constants."""
+
+    kernel: SamplingKernel = dataclasses.field(
+        default_factory=quadratic_kernel)
+    codewords: int = 16
+    codebooks: int = 2
+    list_size: int | None = None
+    name: str = "midx"
+    carries_state = True
+
+    def build_stats(self, w, n_valid, const):
+        s = midx.build(w, codewords=self.codewords, codebooks=self.codebooks,
+                       list_size=self.list_size, n_valid=n_valid)
+        return {"c1": s.c1, "c2": s.c2, "codes": s.codes, "cnt": s.cnt,
+                "perm": s.perm, "wq": s.wq}
+
+    def hydrate(self, state, n_valid):
+        st = state.stats
+        return midx.MidxStats(
+            c1=st["c1"], c2=st["c2"], codes=st["codes"], cnt=st["cnt"],
+            perm=st["perm"], wq=st["wq"],
+            n_valid=_n_valid_tensor(n_valid, st["wq"].device))
+
+    def state_shapes(self, cfg, tp=1):
+        v_l, d = _head_dims(cfg, tp)
+        num_lists_l, leaf = midx.list_dims(v_l, d, self.list_size)
+        k2 = self.codewords if self.codebooks == 2 else 1
+        i32 = partial(torch.empty, dtype=torch.int32, device="meta")
+        stats = {"c1": _meta((tp * self.codewords, d)),
+                 "c2": _meta((tp * k2, d)),
+                 "codes": i32((tp * num_lists_l, 2)),
+                 "cnt": _meta((tp * num_lists_l,)),
+                 "perm": i32((tp * num_lists_l * leaf,)),
+                 "wq": _meta((tp * num_lists_l, leaf, d))}
+        return SamplerState(stats=stats, const={})
+
+    def all_class_logq(self, state, h):
+        """Exact per-class log q of the composed two-stage distribution
+        (test oracle, O(n d)), indexed by ORIGINAL class id."""
+        return midx.all_class_logq(state, self.kernel, h)
+
+    def sample_batch(self, state, h, m, gen):
+        return midx.sample_batch(state, self.kernel, h, m, gen)
 
 
 # --- registry ----------------------------------------------------------------
@@ -227,6 +412,32 @@ def _block_from_cfg(cfg, shared: bool) -> Sampler:
     return BlockSampler(kernel=quadratic_kernel(cfg.sampler_alpha),
                         block_size=cfg.sampler_block,
                         proj_rank=cfg.sampler_proj_rank, shared=shared)
+
+
+def _tree_from_cfg(cfg) -> Sampler:
+    return TreeSampler(kernel=quadratic_kernel(cfg.sampler_alpha),
+                       leaf_size=cfg.sampler_block,
+                       proj_rank=cfg.sampler_proj_rank)
+
+
+def _rff_from_cfg(cfg) -> Sampler:
+    if cfg.sampler_proj_rank:
+        raise ValueError(
+            "sampler='rff' ignores sampler_proj_rank — omega (rff_dim, d) "
+            "IS the projection; set sampler_proj_rank=None")
+    return RFFSampler(dim=cfg.rff_dim, tau=cfg.rff_tau,
+                      leaf_size=cfg.sampler_block)
+
+
+def _midx_from_cfg(cfg) -> Sampler:
+    if cfg.sampler_proj_rank:
+        raise ValueError(
+            "sampler='midx' ignores sampler_proj_rank — the codebooks ARE "
+            "the compression; set sampler_proj_rank=None")
+    return MIDXSampler(kernel=quadratic_kernel(cfg.sampler_alpha),
+                       codewords=cfg.midx_codewords,
+                       codebooks=cfg.midx_codebooks,
+                       list_size=cfg.sampler_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +454,9 @@ _REGISTRY: dict[str, _Family] = {
     "block-quadratic-shared": _Family(
         partial(BlockSampler, shared=True),
         partial(_block_from_cfg, shared=True)),
+    "tree-quadratic": _Family(TreeSampler, _tree_from_cfg),
+    "rff": _Family(RFFSampler, _rff_from_cfg),
+    "midx": _Family(MIDXSampler, _midx_from_cfg),
 }
 
 #: the reference's other registered families -> the ROADMAP.md item that
@@ -250,8 +464,7 @@ _REGISTRY: dict[str, _Family] = {
 _NOT_PORTED: dict[str, str] = {
     "unigram": "A5", "softmax": "A5", "abs-softmax": "A5",
     "quadratic-oracle": "A5", "quartic-oracle": "A5",
-    "tree-quadratic": "A3 and A5", "rff": "A12", "rff-oracle": "A12",
-    "midx": "A13", "midx-oracle": "A13", "tapas": "A14",
+    "rff-oracle": "A12", "midx-oracle": "A13", "tapas": "A14",
 }
 
 #: registered families that do NOT satisfy the Sampler protocol.

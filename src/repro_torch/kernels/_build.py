@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 Each ``csrc/<source>.cu`` exposes one plain C function per kernel (the
-fused head's source holds two) and is compiled on first use, by ``nvcc``
-alone (no PyTorch headers, so a build takes seconds), into
-``build/repro_torch/<source>-<hash>.so`` under the repository root, where
-the hash covers the source and the flags: an edited source rebuilds, an
+fused head's and the midx scores' sources hold two each) and is compiled
+on first use, by ``nvcc`` alone (no PyTorch headers, so a build takes
+seconds), into ``build/repro_torch/<source>-<hash>.so`` under the
+repository root, where the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags: an edited source or header rebuilds, an
 unchanged one loads the cached library.  ``build_all`` starts one ``nvcc``
 per source, all at once, and waits for them together.
 
@@ -45,6 +46,13 @@ SIGNATURES = {
     "fused_lse_bwd": ("fused_head", "fused_lse_bwd_f32",
                       (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P)),
+    "rff_features": ("rff_features", "rff_features_f32",
+                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+                      _P)),
+    "midx_pair_masses": ("midx_scores", "midx_pair_masses_f32",
+                         (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
+                           (_P, _P, _P, _I, _I, _I, _F, _I, _P)),
 }
 
 _lock = threading.Lock()
@@ -70,8 +78,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """The shared library of kernel ``name``'s source."""
     src = source(name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

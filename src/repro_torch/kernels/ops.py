@@ -13,6 +13,9 @@ import torch
 from repro_torch.kernels import fused_head, ref
 from repro_torch.kernels.block_scores import block_scores as _block_scores
 from repro_torch.kernels.leaf_scores import leaf_scores as _leaf_scores
+from repro_torch.kernels.midx_scores import midx_member_scores as _midx_member
+from repro_torch.kernels.midx_scores import midx_pair_masses as _midx_pair
+from repro_torch.kernels.rff_features import rff_features as _rff_features
 from repro_torch.kernels.zstats import zstats as _zstats
 
 Tensor = torch.Tensor
@@ -63,6 +66,42 @@ def leaf_dots(h: Tensor, rows: Tensor) -> Tensor:
         return _leaf_scores(h.contiguous(), rows.contiguous(), alpha=0.0,
                             square=False)
     return ref.leaf_dots_ref(h, rows)
+
+
+def midx_list_masses(h: Tensor, c1: Tensor, c2: Tensor, codes: Tensor,
+                     cnt: Tensor, alpha: float = 100.0) -> Tensor:
+    """h: (T, d); c1: (K1, d); c2: (K2, d); codes: (P, 2); cnt: (P,)
+    -> (T, P) stage-1 midx masses ``cnt_j * (alpha <h, ct_j>^2 + 1)``.
+
+    The codeword-pair expansion ``ct = c1[a1] + c2[a2]`` is a gather here,
+    outside the kernel, as in the reference's wrapper; lists with cnt 0 get
+    mass exactly 0."""
+    if _on_cuda(h, c1, c2, codes, cnt):
+        ct = c1[codes[:, 0].long()] + c2[codes[:, 1].long()]
+        return _midx_pair(h.contiguous(), ct.contiguous(), cnt.contiguous(),
+                          alpha=alpha)
+    return ref.midx_list_masses_ref(h, c1, c2, codes, cnt, alpha)
+
+
+def midx_member_scores(h: Tensor, rows: Tensor, alpha: float = 100.0
+                       ) -> Tensor:
+    """h: (G, d); rows: (G, L, d) gathered posting lists -> (G, L) exact
+    within-list quadratic-kernel scores."""
+    if _on_cuda(h, rows):
+        return _midx_member(h.contiguous(), rows.contiguous(), alpha=alpha)
+    return ref.midx_member_scores_ref(h, rows, alpha)
+
+
+def rff_features(w: Tensor, omega: Tensor, mask: Tensor, logshift: Tensor,
+                 *, tau: float = 1.0) -> Tensor:
+    """w: (L, B, d); omega: (D, d); mask: (L, B); logshift: one-element
+    tensor -> (L, D) fp32 masked per-leaf positive-RFF feature sums; the
+    (n, D) feature matrix never exists on the card."""
+    if _on_cuda(w, omega, mask, logshift):
+        return _rff_features(w.contiguous(), omega.contiguous(),
+                             mask.contiguous(), logshift.contiguous(),
+                             tau=tau)
+    return ref.rff_features_ref(w, omega, mask, logshift, tau)
 
 
 # --- fused sampled-softmax head (kernels/fused_head.py) ----------------------

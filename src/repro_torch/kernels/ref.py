@@ -4,6 +4,8 @@
 kernel against them on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -32,6 +34,41 @@ def leaf_scores_ref(h: Tensor, rows: Tensor, alpha: float) -> Tensor:
 def leaf_dots_ref(h: Tensor, rows: Tensor) -> Tensor:
     """h: (G, r); rows: (G, B, r) -> (G, B) raw dot products (logits)."""
     return torch.einsum("gbr,gr->gb", rows.float(), h.float())
+
+
+def midx_pair_masses_ref(h: Tensor, ct: Tensor, cnt: Tensor, alpha: float
+                         ) -> Tensor:
+    """h: (T, d); ct: (P, d) pair-expanded codewords; cnt: (P,) -> (T, P)
+    stage-1 masses cnt_p * (alpha * <h_t, ct_p>^2 + 1)."""
+    dots = h.float() @ ct.float().T
+    return cnt[None, :] * (alpha * torch.square(dots) + 1.0)
+
+
+def midx_list_masses_ref(h: Tensor, c1: Tensor, c2: Tensor, codes: Tensor,
+                         cnt: Tensor, alpha: float) -> Tensor:
+    """h: (T, d); c1: (K1, d); c2: (K2, d); codes: (P, 2); cnt: (P,)
+    -> (T, P) masses cnt_j * (alpha * <h, c1[a1_j] + c2[a2_j]>^2 + 1)."""
+    ct = c1.float()[codes[:, 0].long()] + c2.float()[codes[:, 1].long()]
+    return midx_pair_masses_ref(h, ct, cnt, alpha)
+
+
+def midx_member_scores_ref(h: Tensor, rows: Tensor, alpha: float) -> Tensor:
+    """h: (G, d); rows: (G, L, d) -> (G, L) exact within-list kernel
+    scores alpha * dot^2 + 1: the function of ``leaf_scores_ref``."""
+    return leaf_scores_ref(h, rows, alpha)
+
+
+def rff_features_ref(w: Tensor, omega: Tensor, mask: Tensor,
+                     logshift: Tensor, tau: float) -> Tensor:
+    """w: (L, B, d); omega: (D, d); mask: (L, B); logshift: one element
+    -> (L, D) masked per-leaf sums of the positive random features.
+    Materializes the (L, B, D) features the kernel never writes."""
+    w32 = w.float()
+    dots = torch.einsum("lbd,kd->lbk", w32, omega.float()) / math.sqrt(tau)
+    nrm = torch.sum(w32 * w32, dim=-1, keepdim=True) / (2.0 * tau)
+    feats = torch.exp(dots - nrm - logshift.reshape(()))
+    feats = feats / math.sqrt(omega.shape[0])
+    return torch.einsum("lbk,lb->lk", feats, mask.float())
 
 
 def fused_lse_ref(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,

@@ -19,6 +19,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.block_scores import block_scores
 from repro_torch.kernels.leaf_scores import leaf_scores
+from repro_torch.kernels.midx_scores import (
+    midx_member_scores,
+    midx_pair_masses,
+)
+from repro_torch.kernels.rff_features import rff_features
 from repro_torch.kernels.zstats import zstats
 
 torch.set_num_threads(1)
@@ -91,16 +96,23 @@ def test_cpu_ops_upcast_bf16_like_the_reference():
     lambda: block_scores(torch.zeros(2, 4), torch.zeros(3, 4, 4),
                          torch.zeros(3)),
     lambda: leaf_scores(torch.zeros(2, 4), torch.zeros(2, 3, 4)),
-], ids=["zstats", "block_scores", "leaf_scores"])
+    lambda: rff_features(torch.zeros(2, 3, 4), torch.zeros(5, 4),
+                         torch.ones(2, 3), torch.zeros(())),
+    lambda: midx_pair_masses(torch.zeros(2, 4), torch.zeros(3, 4),
+                             torch.ones(3)),
+    lambda: midx_member_scores(torch.zeros(2, 4), torch.zeros(2, 3, 4)),
+], ids=["zstats", "block_scores", "leaf_scores", "rff_features",
+        "midx_pair_masses", "midx_member_scores"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its CUDA kernel or raises: a CPU tensor is refused
     before anything is built, and no launch is counted."""
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
-    assert kernels.launch_counts() == {"zstats": 0, "block_scores": 0,
-                                       "leaf_scores": 0, "fused_lse": 0,
-                                       "fused_lse_bwd": 0}
+    assert kernels.launch_counts() == {
+        "zstats": 0, "block_scores": 0, "leaf_scores": 0, "fused_lse": 0,
+        "fused_lse_bwd": 0, "rff_features": 0, "midx_pair_masses": 0,
+        "midx_member_scores": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -116,14 +128,32 @@ def test_ops_refuse_mixed_devices():
 
 def test_build_library_path_tracks_source_and_flags():
     """Libraries are cached by a hash of source + flags, one per source
-    (the two fused-head kernels share one), in build/repro_torch/ (a
-    directory .gitignore lists)."""
+    (the two fused-head kernels share one, as do the two midx kernels), in
+    build/repro_torch/ (a directory .gitignore lists)."""
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 6
     assert paths["fused_lse"] == paths["fused_lse_bwd"]
+    assert paths["midx_pair_masses"] == paths["midx_member_scores"]
     for name, p in paths.items():
         src = _build.source(name)
         assert p.parent == _build.BUILD_DIR
         assert p.name.startswith(src.stem + "-") and p.suffix == ".so"
         assert src.is_file() and src.parent.name == "csrc"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+def test_build_library_path_tracks_shared_headers(tmp_path, monkeypatch):
+    """A source that includes a shared header (``csrc/*.cuh``) rebuilds when
+    the header changes: the cache hash covers the headers too."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    header = csrc / "row_dots.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    for name in ("leaf_scores", "midx_member_scores"):
+        assert after[name] != before[name]
+        assert after[name].name.startswith(_build.source(name).stem + "-")

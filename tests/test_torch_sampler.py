@@ -7,6 +7,8 @@ orders).  Draws come from ``torch.Generator``s, not ``jax.random``, so they
 are held to the reference's distribution by the chi-square/TV gate of
 ``tests/test_sampler_stats.py``, and their ``logq`` to the port's own
 all-class oracle."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,13 +165,19 @@ def test_kernel_functions_match_reference():
 
 
 def test_registry_lists_the_ported_families():
-    assert samplers.sampler_names() == ["block-quadratic",
-                                        "block-quadratic-shared", "uniform"]
+    assert samplers.sampler_names() == [
+        "block-quadratic", "block-quadratic-shared", "midx", "rff",
+        "tree-quadratic", "uniform"]
     assert set(samplers.sampler_names()) < set(jsamplers.sampler_names())
+    for name in ("tree-quadratic", "rff", "midx"):
+        smp = samplers.make_sampler(name)
+        assert smp.name == name and smp.carries_state
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+        samplers.make_sampler("midx-oracle")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        samplers.make_sampler("tapas")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        samplers.make_sampler("rff")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        samplers.make_sampler("tree-quadratic")
+        samplers.make_sampler("rff-oracle")
     with pytest.raises(KeyError, match="unknown sampler"):
         samplers.make_sampler("block-quadratc")
     with pytest.raises(ValueError, match="Sampler protocol"):
@@ -181,17 +189,31 @@ def test_registry_lists_the_ported_families():
                             torch.zeros(2, 4), 3, torch.Generator())
 
 
-@pytest.mark.parametrize("tp", [1, 2])
-def test_state_shapes_match_reference(tp):
-    cfg = get_config("youtube-dnn").reduced(vocab_size=500)
-    jcfg = jget_config("youtube-dnn").reduced(vocab_size=500)
-    mine = samplers.sampler_from_config(cfg).state_shapes(cfg, tp)
-    theirs = jsamplers.sampler_from_config(jcfg).state_shapes(jcfg, tp)
-    for part in ("stats", "const"):
-        got = {k: tuple(v.shape) for k, v in getattr(mine, part).items()}
-        want = {k: tuple(v.shape) for k, v in getattr(theirs, part).items()}
-        assert got == want
-    assert all(v.device.type == "meta" for v in mine.stats.values())
+@pytest.mark.parametrize("tp,sampler", [
+    pytest.param(tp, name, id=str(tp) if name == "block-quadratic"
+                 else f"{name}-{tp}")
+    for name in ("block-quadratic", "tree-quadratic", "rff", "midx")
+    for tp in (1, 2)])
+def test_state_shapes_match_reference(tp, sampler):
+    """Shapes and types of the carried state, at a reduced width and at
+    youtube-dnn's full width (100,000 items: 391 blocks, or 512 leaves or
+    lists of 256)."""
+    for full in (False, True):
+        base = get_config("youtube-dnn")
+        jbase = jget_config("youtube-dnn")
+        cfg, jcfg = ((dataclasses.replace(base, sampler=sampler),
+                      dataclasses.replace(jbase, sampler=sampler)) if full
+                     else (base.reduced(vocab_size=500, sampler=sampler),
+                           jbase.reduced(vocab_size=500, sampler=sampler)))
+        mine = samplers.sampler_from_config(cfg).state_shapes(cfg, tp)
+        theirs = jsamplers.sampler_from_config(jcfg).state_shapes(jcfg, tp)
+        for part in ("stats", "const"):
+            got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                   for k, v in getattr(mine, part).items()}
+            want = {k: (tuple(v.shape), str(v.dtype))
+                    for k, v in getattr(theirs, part).items()}
+            assert got == want, (full, part)
+        assert all(v.device.type == "meta" for v in mine.stats.values())
 
 
 def test_block_sampler_protocol_round_trip():

@@ -3,9 +3,12 @@ and ``fit`` — against the JAX package, on the CPU.
 
 Deterministic parts are compared on the same numpy inputs: estimator
 losses and gradients at fixed negatives within rtol 1e-5 (fp32 sums in
-other orders), optimizer updates within 1e-6, and one dense-estimator
-train step from one carried state within 1e-5.  Sampled training is
-random in both packages and is checked by its loss falling.
+other orders), optimizer updates within 1e-6, one dense-estimator train
+step from one carried state within 1e-5, and for each hierarchical sampler
+family (tree-quadratic, rff, midx) the refresh, the logq of given draws and
+the sampled loss and gradients at those draws, from one carried state,
+within 1e-5.  Sampled training is random in both packages and is checked by
+its loss falling.
 """
 import dataclasses
 import types
@@ -18,15 +21,18 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.core import estimators as jest
+from repro.core import samplers as jsamplers
+from repro.core import tree as jtree
 from repro.data.pipeline import batch_iterator_for as jbatch_iterator_for
 from repro.data.synthetic import SyntheticRecsys as JSyntheticRecsys
+from repro.models import api as japi
 from repro.optim import cosine_schedule as jcosine
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.sharding.rules import local_ctx
 from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.core import estimators
+from repro_torch.core import estimators, samplers
 from repro_torch.data.pipeline import batch_iterator_for
 from repro_torch.data.synthetic import SyntheticRecsys
 from repro_torch.models import api
@@ -222,6 +228,106 @@ def test_block_sampler_state_is_carried_and_refreshed_like_reference():
                                    atol=1e-6, err_msg=k)
 
 
+HIER = ["tree-quadratic", "rff", "midx"]
+
+
+def _close_stats(got: dict, want: dict, rtol=1e-5, atol=1e-6):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        v = np.asarray(v)
+        if v.dtype.kind == "i":
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k].numpy(), v, rtol=rtol,
+                                       atol=atol, err_msg=k)
+
+
+def _jall_class_logq(jsmp, runtime, h):
+    if isinstance(jsmp, jsamplers.TreeSampler):
+        return jtree.all_class_logq(runtime["stats"], jsmp.kernel, h,
+                                    runtime["proj"])
+    return jsmp.all_class_logq(runtime, h)
+
+
+@pytest.mark.parametrize("family", HIER)
+def test_hierarchical_step_from_a_carried_state_matches_reference(family):
+    """A reference state (params, AdamW state, the family's carried
+    statistics and constants) carried into the port: its statistics arrive
+    unchanged, the port's refresh rebuilds the reference's from the same
+    head, the port's draws report the reference's exact logq at their ids,
+    and the sampled loss and every gradient at those draws agree."""
+    jcfg = jget_config("youtube-dnn").reduced(sampler=family)
+    cfg = get_config("youtube-dnn").reduced(sampler=family)
+    jopt = jmake_optimizer("adamw", 1e-2)
+    state_j = jax.jit(lambda k: jstep.init_train_state(k, jcfg, CTX, jopt))(
+        jax.random.PRNGKey(0))
+    mine = _carried(state_j, cfg)
+    ss = state_j.sampler_state
+    _close_stats(mine.sampler_state.stats, ss.stats, rtol=0, atol=0)
+    _close_stats(mine.sampler_state.const, ss.const, rtol=0, atol=0)
+
+    head_j = japi.head_table(state_j.params, jcfg)
+    want = jax.jit(jstep.make_refresh_fn(jcfg, CTX))(head_j, ss)
+    head = api.head_table(mine.params, cfg)
+    got = step.make_refresh_fn(cfg, None)(head, mine.sampler_state)
+    _close_stats(got.stats, want.stats)
+
+    batch_np = _batches(jcfg, 1)[0]
+    batch = {k: _t(v) for k, v in batch_np.items()}
+    smp, jsmp = (samplers.sampler_from_config(cfg),
+                 jsamplers.sampler_from_config(jcfg))
+    runtime = smp.hydrate(got, cfg.vocab_size)
+    jruntime = jsmp.hydrate(want, cfg.vocab_size)
+    with torch.no_grad():
+        h, labels, _ = api.backbone_hidden(mine.params, batch, cfg)
+        neg, logq = smp.sample_batch(runtime, h, cfg.m_negatives,
+                                     torch.Generator().manual_seed(3))
+    jh, _, _ = japi.backbone_hidden(state_j.params, batch_np, jcfg, CTX)
+    joracle = jax.jit(lambda r, h_: _jall_class_logq(jsmp, r, h_))
+    jlogq = np.stack([np.asarray(joracle(jruntime, jh[t]))[neg[t].numpy()]
+                      for t in range(h.shape[0])])
+    np.testing.assert_allclose(logq.numpy(), jlogq, rtol=1e-5, atol=1e-5)
+
+    est = estimators.make_estimator(cfg.estimator)
+    jneg = neg.numpy().astype(np.int32)
+
+    def jloss(params):
+        hh, lab, _ = japi.backbone_hidden(params, batch_np, jcfg, CTX)
+        return jnp.mean(jest.loss_from_embeddings(
+            jest.make_estimator(jcfg.estimator),
+            japi.head_table(params, jcfg), hh, lab, jneg, jlogq,
+            abs_mode=jcfg.abs_softmax))
+    jl, jgrads = jax.jit(jax.value_and_grad(jloss))(state_j.params)
+    hh, lab, _ = api.backbone_hidden(mine.params, batch, cfg)
+    loss = torch.mean(estimators.loss_from_embeddings(
+        est, api.head_table(mine.params, cfg), hh, lab, neg, logq,
+        abs_mode=cfg.abs_softmax))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    want_g = convert.params_from_jax(_np_tree(jgrads), cfg, device="cpu")
+    for name, p in mine.params.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(),
+                                   getattr(want_g, name).detach().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("family", HIER)
+def test_reduced_youtube_dnn_trains_with_hierarchical_samplers(family):
+    """30 steps of ``fit`` with the family's sync refresh every step on the
+    CPU (the kernels' plain versions): the loss falls."""
+    cfg = get_config("youtube-dnn").reduced(sampler=family)
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    data = batch_iterator_for(cfg, None, 128, 1, seed=0, device="cpu")
+    res = loop.fit(cfg, None, opt, data, 30, log_every=0, device="cpu")
+    losses = np.asarray(res.losses)
+    assert losses.shape == (30,) and np.isfinite(losses).all()
+    assert losses[-10:].mean() < losses[:10].mean()
+    assert res.state.step == 30
+    shapes = samplers.sampler_from_config(cfg).state_shapes(cfg)
+    assert {k: tuple(v.shape) for k, v in shapes.stats.items()} == \
+        {k: tuple(v.shape) for k, v in res.state.sampler_state.stats.items()}
+
+
 def test_microbatched_step_equals_one_batch():
     """microbatches=2 averages the two halves' gradients: with the dense
     estimator (no sampling) one step equals the unsplit step."""
@@ -316,7 +422,19 @@ def test_validate_checks_ported_names_and_knobs():
         with pytest.raises(ValueError, match=match):
             dataclasses.replace(cfg, **bad).validate()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dataclasses.replace(cfg, sampler="tree-quadratic").validate()
+        dataclasses.replace(cfg, sampler="midx-oracle").validate()
+    for ported in ("tree-quadratic", "rff", "midx"):
+        assert dataclasses.replace(cfg, sampler=ported).validate()
+    for bad, match in ((dict(sampler="rff", rff_dim=0), "rff_dim"),
+                       (dict(sampler="rff", rff_tau=0.0), "rff_tau"),
+                       (dict(sampler="midx", midx_codewords=0),
+                        "midx_codewords"),
+                       (dict(sampler="midx", midx_codebooks=3),
+                        "midx_codebooks"),
+                       (dict(sampler="midx", sampler_proj_rank=16),
+                        "sampler_proj_rank")):
+        with pytest.raises(ValueError, match=match):
+            dataclasses.replace(cfg, **bad).validate()
 
 
 def test_synthetic_recsys_batches_and_resumable_iterator():
