@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU and
-check them.
+check them: youtube-dnn serving and training, and llama3-8b serving.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -62,16 +62,48 @@ result line):
                  n_valid; then per family the host ms of its refresh,
                  sampler and whole step and a torch.profiler trace of one
                  step.
-Phases 4-5, 6 and each family of 9 are main paths: the kernel launch
-counters are zeroed just before each and read just after; serving must
-launch zstats, block_scores and leaf_scores, block-quadratic training the
-five kernels of phase 3, and each family its own kernels exactly
-(``expected_launches``).
+ 10. llama kernels — flash_attention against its plain version in bf16 at
+                 llama3-8b's prefill shape (B 4, S 512, H 32, KV 8, hd 128,
+                 causal) and at (B 1, S 4096), each element within one bf16
+                 ulp (BF16_ELEM_RTOL), and in fp32 with ragged S,
+                 causal and not, groups 1 and 4, hd 33 to 256 and an
+                 s_valid; sampled_loss at (T 1024, m 512, d 128), (T 256,
+                 m 128, d 128), ragged (T 1000, m 500) and in bf16; with the
+                 times of phase 3 (library calls: SDPA with is_causal and
+                 enable_gqa; logsumexp over cat([pos, h w^T - logq -
+                 log m])).
+ 11. llama serving — llama3-8b at full width and depth (32 layers, d 4096,
+                 vocab 128,256, bf16, seeded random weights): the retrieval
+                 index over its head (zstats; build seconds with the eigh
+                 share), prefill of 4 x 512 prompts (flash_attention once
+                 per layer), 32 greedy decode steps, a top-k step through
+                 the index at full beam (ids equal to the dense top-k, ties
+                 aside; top-1 equal to the greedy token) and one at beam 8;
+                 then, outside the counted run, prefill and each decode
+                 step's h against a full forward (tolerances DECODE_RTOL
+                 and DECODE_REL_RMS), zstats against its plain version on
+                 the index's (32, 4096, 4096) leaf table and leaf_scores'
+                 dot mode on the full-beam gather (128, 4096, 4096), both
+                 timed, prefill / decode / top-k times, tokens/s, peak
+                 memory and the device busy share of 32 decode steps.
+ 12. sampled_loss entry — ops.sampled_loss once, at llama width, on the
+                 forward's hidden states with 512 shared uniform negatives,
+                 held against its plain version.
+Phases 4-5, 6, each family of 9, 11 and 12 are main paths: the kernel
+launch counters are zeroed just before each and read just after; serving
+must launch zstats, block_scores and leaf_scores, block-quadratic training
+the five kernels of phase 3, each family its own kernels exactly
+(``expected_launches``), llama serving zstats once, flash_attention once
+per layer and leaf_scores once per index top-k step, and the entry run
+sampled_loss once.
 The line before the last is {"kernels": [...]} (training-shape numbers;
-``launches`` summed over the training paths, each path's count under
+flash_attention at the prefill shape, sampled_loss at kernel_bench's;
+``launches`` summed over every path but youtube-dnn serving (whose count
+follows the engine's batching), each path's count under
 ``launches_by_path``; the other shapes' numbers under serving_*,
-tree_levels_* and rff_leaf_dots_*) and the last is {"ok": true, "device":
-{...}}.
+tree_levels_*, rff_leaf_dots_*, long_*, youtube_* and llama_index_*) and
+the last is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -115,24 +147,30 @@ from repro_torch.core.samplers import sampler_from_config  # noqa: E402
 from repro_torch.data.pipeline import batch_iterator_for  # noqa: E402
 from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+)
 from repro_torch.kernels.leaf_scores import leaf_scores  # noqa: E402
 from repro_torch.kernels.midx_scores import (  # noqa: E402
     midx_member_scores,
     midx_pair_masses,
 )
 from repro_torch.kernels.rff_features import rff_features  # noqa: E402
+from repro_torch.kernels.sampled_loss import sampled_loss  # noqa: E402
 from repro_torch.kernels.zstats import zstats  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.transform import apply_updates  # noqa: E402
 from repro_torch.serve import engine, retrieval  # noqa: E402
 from repro_torch.serve.server import ServingEngine, payload_bytes  # noqa: E402
 from repro_torch.train import loop, step  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the fp32
-# rate outside the tensor cores (the kernels run fp32 FMAs).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
+# rate outside the tensor cores (the kernels run fp32 FMAs) and the dense
+# bf16 tensor-core rate (the bound of work whose inputs are bf16).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 #: max |kernel - plain| allowed, as a fraction of max |plain|: both sum
 #: 128-term fp32 products (r^2 = 16384 terms for block_scores) in
 #: different orders.
@@ -152,6 +190,8 @@ REPLACES = {
     "rff_features": "src/repro/kernels/rff_features.py:69",
     "midx_pair_masses": "src/repro/kernels/midx_scores.py:63",
     "midx_member_scores": "src/repro/kernels/midx_scores.py:94",
+    "sampled_loss": "src/repro/kernels/sampled_loss.py:73",
+    "flash_attention": "src/repro/kernels/flash_attention.py:92",
 }
 #: kernels each main path must launch
 SERVING_KERNELS = ("zstats", "block_scores", "leaf_scores")
@@ -192,18 +232,22 @@ def busy_us(events) -> float:
     return total
 
 
-def device_ms(fn) -> float:
-    """Device time of one call: the card's busy time over REPS calls
-    (torch.profiler, device activities only), divided by REPS.
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call: the card's busy time over ``reps`` calls
+    (torch.profiler, device activities only), divided by ``reps``.
 
     A trace can drop an activity at its start or end (after the training
     profiles, most traces of a one-kernel call recorded 24 activities for
     25 calls), so the REPS calls are bracketed by an untimed call on each
     side, each set apart by a sync and a host pause of GAP_S; the pauses
-    split the trace into stretches, and only the longest stretch, the REPS
-    calls, is timed.  Every timed function launches the same activities on
-    each call, so a stretch whose activity count is not a multiple of REPS
-    lost some: the trace is taken again, up to three times."""
+    split the trace into stretches, and only the longest stretch, the
+    ``reps`` calls, is timed.  Every timed function launches the same
+    activities on each call, so a stretch whose activity count is not a
+    multiple of ``reps`` lost some: the trace is taken again, up to three
+    times.  If all three lose some (calls of 100 ms or more lost two of
+    five activities in every trace on the H100), the time per call is
+    taken by CUDA events around single calls instead, and the log says
+    so."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -216,7 +260,7 @@ def device_ms(fn) -> float:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             pause()
-            for _ in range(REPS):
+            for _ in range(reps):
                 fn()
             pause()
             fn()
@@ -230,64 +274,81 @@ def device_ms(fn) -> float:
             stretches[-1].append(e)
             end = max(end, e.time_range.end)
         middle = max(stretches, key=len)
-        if middle and len(middle) % REPS == 0:
+        if middle and len(middle) % reps == 0:
             break
         log(f"  trace {attempt + 1} recorded {len(events)} device "
             f"activities in stretches of {[len(x) for x in stretches]} "
-            f"for {REPS} calls")
-    if not middle:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return busy_us(middle) / REPS / 1e3
+            f"for {reps} calls")
+    else:
+        ms = event_ms(fn, reps, 1)
+        log(f"  no whole trace in 3: {ms} ms per call by CUDA events")
+        return ms
+    return busy_us(middle) / reps / 1e3
 
 
-def event_ms(fn) -> float:
+def event_ms(fn, reps: int = REPS, calls: int = EVENT_CALLS) -> float:
     """Time per call as a caller sees it, host work included: CUDA events
-    around EVENT_CALLS back-to-back calls, median of REPS, per call."""
+    around ``calls`` back-to-back calls, median of ``reps``, per call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(EVENT_CALLS):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / EVENT_CALLS)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def times(kernel, plain, library=None) -> dict[str, float | None]:
+def times(kernel, plain, library=None, reps: int = REPS,
+          calls: int = EVENT_CALLS) -> dict[str, float | None]:
     """A kernel row's times: device ms per call of the kernel, its plain
-    version and the library call, and the kernel's per-call event time."""
-    return dict(ms=device_ms(kernel), event_ms=event_ms(kernel),
-                plain_ms=device_ms(plain),
-                library_ms=None if library is None else device_ms(library))
+    version and the library call, and the kernel's per-call event time
+    (``reps`` and ``calls`` cut for calls that take 100 ms or more)."""
+    return dict(ms=device_ms(kernel, reps),
+                event_ms=event_ms(kernel, reps, calls),
+                plain_ms=device_ms(plain, reps),
+                library_ms=None if library is None
+                else device_ms(library, reps))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            rtol: float = RTOL, elem_rtol: float = 0.0) -> float:
+    """max |got - want|, each element held to ``elem_rtol`` x |want| plus
+    ``rtol`` x max |want| (in fp32)."""
     torch.cuda.synchronize()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
-    err = float((got - want).abs().max())
+    diff = (got - want).abs()
+    err = float(diff.max())
     scale = float(want.abs().max())
-    rel = float(((got - want).abs() / (want.abs() + 1e-30)).max())
-    log(f"  {name}: max_abs_err={err} max_rel_err={rel} "
-        f"(tolerance {RTOL} x max|plain| = {RTOL * scale})")
-    if err > RTOL * scale:
+    rel = float((diff / (want.abs() + 1e-30)).max())
+    excess = float((diff - elem_rtol * want.abs()).max())
+    rule = (f"{elem_rtol} x |plain| + " if elem_rtol else "") + \
+        f"{rtol} x max|plain|"
+    log(f"  {name}: max_abs_err={err} max_rel_err={rel} max excess over "
+        f"{elem_rtol} x |plain|={excess} (tolerance {rule}: "
+        f"{rtol * scale})")
+    if excess > rtol * scale:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version: {err} > {RTOL * scale}")
+                             f"version: {excess} > {rtol * scale} "
+                             f"({rule})")
     return err
 
 
@@ -309,6 +370,11 @@ def phase_build() -> None:
         f"sources in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
+            if "Function properties for" in line:
+                # the mangled kernel name, from its own name on (template
+                # arguments included), past the anonymous namespace's hash
+                mangled = line.split("for", 1)[1].strip()
+                log(f"  {name}: {mangled.split('_cu_', 1)[-1][:72]}")
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
@@ -1242,6 +1308,491 @@ def phase_profile(cfg, state, steps: int = 3) -> None:
             "calls")
 
 
+# --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
+
+LLAMA_BATCH = 4
+LLAMA_PROMPT = 512
+LLAMA_DECODE = 32
+LLAMA_MAX_LEN = LLAMA_PROMPT + LLAMA_DECODE + 1
+#: the flash kernel's bf16 tolerance, element by element: one bf16 ulp of
+#: the element, at most 2^-7 x |plain|, plus RTOL x max|plain|.  Both
+#: versions compute in fp32 from the same bf16 inputs and differ in
+#: summation order by ~1e-6 (the fp32 cases' errors), which can move an
+#: output across a bf16 rounding boundary: one ulp apart, never more.
+BF16_ELEM_RTOL = 2.0 ** -7
+#: decode-vs-forward tolerances on the final (RMS-normalized) hidden state
+#: of llama3-8b in bf16.  The two runs multiply the same bf16 weights with
+#: activations of M = 4 and M = 2,180 rows (different GEMM kernels,
+#: different fp32 summation orders), so each of the 32 layers' bf16
+#: outputs can round one ulp (2^-8 relative) apart, and 32 residual layers
+#: carry those differences forward.  DECODE_RTOL bounds the worst element,
+#: as a fraction of max |h_forward| (measured 0.125 / 4.97); DECODE_REL_RMS
+#: bounds each step's RMS difference, as a fraction of h_forward's RMS,
+#: at three times the 0.0175 measured on the H100.
+DECODE_RTOL = 2.0 ** -3
+DECODE_REL_RMS = 0.05
+
+
+def attn_inputs(gen: torch.Generator, b: int, s: int, h: int, kv: int,
+                hd: int, dtype: torch.dtype):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of unit-variance entries,
+    in the serving path's layout and dtype."""
+    def draw(heads):
+        return torch.randn((b, s, heads, hd), generator=gen, device=DEV
+                           ).to(dtype)
+    return draw(h), draw(kv), draw(kv)
+
+
+def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
+                dtype: torch.dtype) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, cuda_core_floor_ms) of one attention call:
+    q, k, v read once, o written once; 4·hd flops per (query, key) pair
+    that the mask keeps, at the inputs' peak rate (the bf16 tensor cores
+    for bf16) and at the fp32 CUDA-core rate the kernel runs at."""
+    esize = torch.finfo(dtype).bits // 8
+    n_bytes = esize * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4.0 * b * h * pairs * hd
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bms, by = bound_ms(n_bytes, flops, rate)
+    return bms, by, flops / FP32_FLOPS_PER_S * 1e3
+
+
+def flash_row(gen: torch.Generator, b: int, s: int) -> dict:
+    """flash_attention at llama3-8b's heads (32 / 8, hd 128), causal bf16:
+    held against the plain version, then timed beside it and SDPA."""
+    h, kv, hd = 32, 8, 128
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
+    err = compare(f"flash_attention bf16 causal (B {b}, S {s}, H {h}, "
+                  f"KV {kv}, hd {hd})", flash_attention(q, k, v),
+                  ref.flash_attention_ref(q, k, v, causal=True),
+                  elem_rtol=BF16_ELEM_RTOL)
+    bms, by, floor = flash_bound(b, s, h, kv, hd, True, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+               cuda_core_floor_ms=floor, **times(
+                   lambda: flash_attention(q, k, v),
+                   lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                   lambda: sdpa(qt, kt, vt, is_causal=True,
+                                enable_gqa=True)))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def sampled_loss_inputs(gen: torch.Generator, t: int, m: int, d: int,
+                        dtype: torch.dtype = torch.float32):
+    """h (T, d), w_neg (m, d), logq (m,) a normalized log-proposal, and
+    pos (T,) — kernel_bench.py's sampled-loss inputs, seeded."""
+    h = (0.3 * torch.randn((t, d), generator=gen, device=DEV)).to(dtype)
+    w = (0.3 * torch.randn((m, d), generator=gen, device=DEV)).to(dtype)
+    logq = torch.log_softmax(torch.randn(m, generator=gen, device=DEV), 0)
+    pos = torch.randn(t, generator=gen, device=DEV)
+    return h, w, logq, pos
+
+
+def sampled_loss_row(gen: torch.Generator, t: int, m: int, d: int) -> dict:
+    h, w, logq, pos = sampled_loss_inputs(gen, t, m, d)
+    err = compare(f"sampled_loss fp32 (T {t}, m {m}, d {d})",
+                  sampled_loss(h, w, logq, pos, m_total=m),
+                  ref.sampled_loss_ref(h, w, logq, pos, m))
+    bms, by = bound_ms(4 * (t * d + m * d + m + 2 * t), 2.0 * t * m * d)
+    log_m = math.log(m)
+
+    def library():
+        return torch.logsumexp(torch.cat([pos[:, None],
+                                          h @ w.T - logq - log_m], 1),
+                               1) - pos
+
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
+        lambda: sampled_loss(h, w, logq, pos, m_total=m),
+        lambda: ref.sampled_loss_ref(h, w, logq, pos, m), library))
+
+
+def phase_kernels_llama(gen: torch.Generator
+                        ) -> tuple[dict[str, dict], dict[str, dict]]:
+    """flash_attention and sampled_loss against their plain versions:
+    flash at the prefill's shape (B 4, S 512) and at (B 1, S 4096), both
+    bf16 causal with llama3-8b's heads, then fp32 with ragged S, causal and
+    not, groups 1 and 4, widths from 33 to 256 and an s_valid;
+    sampled_loss at (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged
+    (T 1000, m 500) and in bf16.  Returns (rows at the prefill / kernel
+    bench shapes, rows at the other shapes by tag)."""
+    rows = {"flash_attention": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT)}
+    shapes = {"long": {"flash_attention": flash_row(gen, 1, 4096)}}
+    err = rows["flash_attention"]["max_abs_err"]
+    err32 = 0.0
+    for b, s, h, kv, hd in ((2, 300, 4, 4, 128), (2, 300, 8, 2, 64),
+                            (1, 300, 4, 1, 256), (1, 77, 2, 2, 33)):
+        q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.float32)
+        for causal in (True, False):
+            err32 = max(err32, compare(
+                f"flash_attention fp32 causal={causal} (B {b}, S {s}, H {h}, "
+                f"KV {kv}, hd {hd})", flash_attention(q, k, v, causal=causal),
+                ref.flash_attention_ref(q, k, v, causal=causal)))
+        err32 = max(err32, compare(
+            f"flash_attention fp32 s_valid 250 (B {b}, S {s}, H {h}, "
+            f"KV {kv}, hd {hd})",
+            flash_attention(q, k, v, causal=False, s_valid=250),
+            ref.flash_attention_ref(q, k, v, causal=False, s_valid=250)))
+    rows["flash_attention"]["fp32_max_abs_err"] = err32
+    log(f"[kernels] flash_attention: max abs err bf16 {err}, fp32 {err32}")
+
+    rows["sampled_loss"] = sampled_loss_row(gen, 1024, 512, 128)
+    shapes["youtube"] = {"sampled_loss": sampled_loss_row(gen, 256, 128,
+                                                          128)}
+    h, w, logq, pos = sampled_loss_inputs(gen, 1000, 500, 128)
+    err = compare("sampled_loss fp32 ragged (T 1000, m 500, d 128), "
+                  "m_total 2048", sampled_loss(h, w, logq, pos,
+                                               m_total=2048),
+                  ref.sampled_loss_ref(h, w, logq, pos, 2048))
+    h, w, logq, pos = sampled_loss_inputs(gen, 1024, 512, 128,
+                                          torch.bfloat16)
+    err = max(err, compare("sampled_loss bf16 (T 1024, m 512, d 128)",
+                           sampled_loss(h, w, logq, pos, m_total=512),
+                           ref.sampled_loss_ref(h, w, logq, pos, 512)))
+    rows["sampled_loss"]["max_abs_err"] = max(
+        err, rows["sampled_loss"]["max_abs_err"])
+    log_rows("llama prefill / kernel-bench shapes", rows)
+    log_rows("other shapes", {f"{n} ({t})": r for t, x in shapes.items()
+                              for n, r in x.items()})
+    return rows, shapes
+
+
+def timed_spectral(record: dict):
+    """retrieval.spectral_stats wrapped to record its seconds (synced):
+    the index build's eigh share."""
+    inner = retrieval.spectral_stats
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        record["spectral_s"] = time.perf_counter() - t0
+        return out
+
+    return inner, wrapped
+
+
+def check_topk_ties(tag: str, ids, dids, dlog, k: int) -> int:
+    """ids equal the dense top-k ids rank by rank, except where the dense
+    logit at that rank ties (within 1e-5 relative) a neighbour.  Returns
+    the number of tie swaps."""
+    near = lambda a, b: abs(a - b) <= 1e-5 * abs(b)  # noqa: E731
+    ids_c, dids_c, dlog_c = ids.cpu(), dids.cpu(), dlog.cpu().tolist()
+    swaps = 0
+    for t in range(ids_c.shape[0]):
+        for j in range(k):
+            if ids_c[t, j] == dids_c[t, j]:
+                continue
+            lt = dlog_c[t]
+            if not (near(lt[j], lt[j - 1]) if j else False) and \
+                    not near(lt[j], lt[j + 1]):
+                raise AssertionError(
+                    f"{tag}: id {int(ids_c[t, j])} != dense "
+                    f"{int(dids_c[t, j])} at row {t} rank {j} without a tie")
+            swaps += 1
+    return swaps
+
+
+def llama_index_rows(index, h: torch.Tensor) -> dict[str, dict]:
+    """zstats and leaf_scores held against their plain versions at the
+    shapes the llama3-8b main path gives them, and timed there: the leaf
+    Grams that ``build_index`` took from zstats, and one more zstats call,
+    against zstats_ref of the index's own (32, 4096, 4096) leaf table; then
+    leaf_scores' dot mode on the full-beam leaf gather (every leaf for each
+    of the T queries: G = 128 leaves of 4096 rows, r = 4096, h repeated per
+    leaf as ``retrieval.leaf_topk`` does), at RTOL x max|plain|."""
+    wq = index.wq
+    nb, b, r = wq.shape
+    want = ref.zstats_ref(wq)
+    err = compare(f"zstats ({nb}, {b}, {r}) leaf Grams of build_index",
+                  retrieval.index_stats(index).levels_z[-1], want)
+    err = max(err, compare(f"zstats ({nb}, {b}, {r})", zstats(wq), want))
+    del want
+    torch.cuda.empty_cache()
+    wt = wq.transpose(1, 2)
+    bms, by = bound_ms(4 * (nb * b * r + nb * r * r), nb * b * r * (r + 1))
+    out = {"zstats": dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
+        lambda: zstats(wq), lambda: ref.zstats_ref(wq),
+        lambda: torch.bmm(wt, wq), reps=3, calls=1))}
+    torch.cuda.empty_cache()
+
+    g = h.shape[0] * nb
+    rows = wq.repeat(h.shape[0], 1, 1)  # (G, leaf, r), 8.6 GB at llama
+    hg = torch.repeat_interleave(h.float(), nb, dim=0)
+    err = compare(f"leaf_scores dot full beam ({g}, {b}, {r})",
+                  leaf_scores(hg, rows, square=False),
+                  ref.leaf_dots_ref(hg, rows))
+    h3 = hg[:, :, None]
+    bms, by = bound_ms(4 * (g * r + g * b * r + g * b), 2 * g * b * r)
+    out["leaf_scores"] = dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **times(lambda: leaf_scores(hg, rows, square=False),
+                lambda: ref.leaf_dots_ref(hg, rows),
+                lambda: torch.bmm(rows, h3)))
+    del rows, hg, h3
+    torch.cuda.empty_cache()
+    log_rows("llama3-8b index shapes", out)
+    return out
+
+
+def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
+                        ) -> tuple[dict[str, int], dict, dict[str, dict]]:
+    """llama3-8b at full width and depth through the port's serving steps:
+    seeded random bf16 weights, the retrieval index over the head, prefill
+    of 4 x 512 prompts, 32 greedy decode steps, a top-k step through the
+    index at full beam (equal to the dense top-k, ties aside, its top-1
+    the greedy token) and beam-8 top-k steps.  Launch counts are read
+    around exactly that.  Then, outside the counted run: decode against a
+    full forward, zstats and leaf_scores against their plain versions at
+    the index's shapes, timings, memory and the device busy share of a
+    chain of decode steps.  Returns (the path's launch counts, the
+    forward's last hidden states and their tokens for the sampled-loss
+    entry run, the index-shape kernel rows)."""
+    cfg = get_config("llama3-8b")
+    b, s, n_dec, k = LLAMA_BATCH, LLAMA_PROMPT, LLAMA_DECODE, 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[llama] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    head = api.head_table(params, cfg)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                               ).to(DEV)
+    timing: dict = {}
+
+    # -- the counted main path ---------------------------------------------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    inner, wrapped = timed_spectral(timing)
+    retrieval.spectral_stats = wrapped
+    try:
+        t0 = time.perf_counter()
+        index = retrieval.build_index(head)
+        torch.cuda.synchronize()
+        timing["index_build_s"] = time.perf_counter() - t0
+    finally:
+        retrieval.spectral_stats = inner
+    prefill = engine.make_prefill_step(cfg, None, LLAMA_MAX_LEN)
+    decode = engine.make_decode_step(cfg, None)
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    timing["first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+        tok, caches = decode(params, tok[:, None].long(), caches, pos)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    pos = torch.full((b,), s + n_dec, dtype=torch.long, device=DEV)
+    last = tok[:, None].long()
+    ids, logits, caches = engine.make_topk_step(cfg, None, k, index=index)(
+        params, last, caches, pos)
+    dids, dlog, caches = engine.make_topk_step(cfg, None, k + 1)(
+        params, last, caches, pos)
+    greedy, caches = decode(params, last, caches, pos)
+    beam8 = engine.make_topk_step(cfg, None, k, index=index, beam=8)
+    b8_ids, b8_logits, caches = beam8(params, last, caches, pos)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[llama] main path launches {counts}")
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(zstats=1, flash_attention=cfg.n_layers, leaf_scores=2)
+    if counts != want:
+        raise AssertionError(f"llama3-8b serving launches {counts} != {want}")
+
+    # -- checks ---------------------------------------------------------------
+    if not torch.allclose(logits, dlog[:, :k], rtol=1e-5, atol=0.0):
+        raise AssertionError("full-beam logits differ from the dense top-k")
+    swaps = check_topk_ties("llama full beam", ids, dids, dlog, k)
+    if not torch.equal(ids[:, 0], greedy):
+        swaps1 = check_topk_ties("llama top-1 vs greedy", ids[:, :1],
+                                 greedy[:, None], dlog, 1)
+        log(f"[llama] top-1 differs from greedy by {swaps1} tie(s)")
+    h = _decode_h(params, cfg, last, caches, pos)
+    exact8 = torch.einsum("tkd,td->tk", head.float()[b8_ids.long()], h)
+    if not torch.allclose(b8_logits, exact8, rtol=1e-5, atol=1e-5):
+        raise AssertionError("beam-8 logits differ from their exact dots")
+    log(f"[llama] full beam ({index.num_leaves_shard} leaves of "
+        f"{index.leaf_size}): ids equal the dense top-{k} ({swaps} tie "
+        f"swaps), top-1 = greedy token {greedy.tolist()}; beam 8 logits "
+        f"exact")
+    tokens = torch.cat([prompts] + [g[:, None].long() for g in generated],
+                       dim=1)  # (B, 512 + 33)
+    h_full = check_decode_matches_forward(params, cfg, tokens)
+    agree = _greedy_agreement(h_full, head, cfg, tokens)
+    log(f"[llama] greedy tokens equal the full forward's argmax at "
+        f"{agree} of {b * (n_dec + 1)} positions (bf16, not gated)")
+    index_rows = llama_index_rows(index, h)
+
+    # -- timings --------------------------------------------------------------
+    timing["prefill_ms"] = host_ms(lambda: prefill(params,
+                                                   {"tokens": prompts}))
+    timing["decode_ms_per_token_chain"] = chain_s / n_dec * 1e3
+    timing["decode_step_ms"] = host_ms(
+        lambda: decode(params, last, caches, pos))
+    timing["tokens_per_s"] = b * n_dec / chain_s
+    timing["topk_full_beam_step_ms"] = host_ms(
+        lambda: engine.make_topk_step(cfg, None, k, index=index)(
+            params, last, caches, pos))
+    timing["topk_beam8_step_ms"] = host_ms(
+        lambda: beam8(params, last, caches, pos))
+    timing["retrieval_beam8_ms"] = host_ms(
+        lambda: retrieval.decode_topk(index, h, k, 8))
+    timing["retrieval_full_beam_ms"] = host_ms(
+        lambda: retrieval.decode_topk(index, h, k, None))
+    timing["dense_topk_ms"] = host_ms(
+        lambda: retrieval.dense_topk(head, h, k, n_valid=cfg.vocab_size))
+    timing["recall_at_10_beam8"] = retrieval.recall_at_k(index, head, h, k, 8)
+    timing["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                         / 1e9)
+    busy, wall = profile_busy(lambda: decode(params, last, caches, pos),
+                              n_dec)
+    timing["decode_chain_device_busy_share"] = busy / wall
+    timing["decode_chain_device_busy_ms_per_step"] = busy / n_dec / 1e3
+    timing["decode_chain_wall_ms_per_step"] = wall / n_dec / 1e3
+    log(f"[llama] timings (host ms medians of 9, synced; H100 per "
+        f"nvidia-smi line): " + json.dumps(timing))
+    out = {"h": h_full[:, :-1].reshape(-1, cfg.d_model),
+           "labels": tokens[:, 1:].reshape(-1), "head": head}
+    del params, index, caches
+    return counts, out, index_rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _decode_h(params, cfg, token, caches, pos) -> torch.Tensor:
+    """The (B, d) hidden state of one decode step, in fp32 (rewrites the
+    same K/V at ``pos``)."""
+    h, _ = transformer.decode_step(params, token, caches, pos, cfg)
+    return h[:, 0].float()
+
+
+def check_decode_matches_forward(params, cfg, tokens) -> torch.Tensor:
+    """tests/test_serve.py's contract at full width on the card: prefill's
+    h equals a full forward's first 512 positions and each of 32 decode
+    steps' h the forward's at its position, within DECODE_RTOL of max
+    |h_forward| element by element and within DECODE_REL_RMS in relative
+    RMS.  Returns the forward's hidden states (B, 545, d)."""
+    b, s = tokens.shape[0], LLAMA_PROMPT
+    with torch.no_grad():
+        h_full, _ = transformer.hidden_states(params, tokens, cfg)
+    h_pre, caches = transformer.prefill(params, tokens[:, :s], cfg,
+                                        max_len=LLAMA_MAX_LEN)
+    errs = [compare("llama prefill h vs forward", h_pre, h_full[:, :s],
+                    rtol=DECODE_RTOL)]
+    rms = [float(_rel_rms(h_pre, h_full[:, :s]))]
+    for i in range(LLAMA_DECODE):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+        h_dec, caches = transformer.decode_step(
+            params, tokens[:, s + i:s + i + 1], caches, pos, cfg)
+        want = h_full[:, s + i]
+        err = float((h_dec[:, 0].float() - want.float()).abs().max())
+        if err > DECODE_RTOL * float(want.float().abs().max()):
+            compare(f"llama decode step {i} h vs forward", h_dec[:, 0],
+                    want, rtol=DECODE_RTOL)
+        errs.append(err)
+        rms.append(float(_rel_rms(h_dec[:, 0], want)))
+    log(f"[llama] decode vs forward: prefill + {LLAMA_DECODE} steps, max "
+        f"abs err {max(errs)} (max |h| {float(h_full.float().abs().max())}), "
+        f"relative RMS err max {max(rms)} mean {statistics.mean(rms)}; "
+        f"tolerances {DECODE_RTOL} x max|h|, relative RMS {DECODE_REL_RMS}")
+    worst = max(range(len(rms)), key=rms.__getitem__)
+    if rms[worst] > DECODE_REL_RMS:
+        raise AssertionError(
+            f"llama {'prefill' if worst == 0 else f'decode step {worst - 1}'}"
+            f" h vs forward: relative RMS {rms[worst]} > {DECODE_REL_RMS}")
+    return h_full
+
+
+def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a.float() - b.float()
+    return torch.sqrt(torch.mean(d * d) / torch.mean(b.float() ** 2))
+
+
+def _greedy_agreement(h_full, head, cfg, tokens) -> int:
+    """Positions where the generated token is the full forward's argmax."""
+    s = LLAMA_PROMPT
+    hs = h_full[:, s - 1:-1].reshape(-1, cfg.d_model)
+    arg = engine._argmax_island(cfg, None, head, hs).reshape(
+        tokens.shape[0], -1)
+    return int((arg.long() == tokens[:, s:]).sum())
+
+
+def profile_busy(fn, n: int) -> tuple[float, float]:
+    """(device busy us, untraced host wall us) of ``n`` back-to-back calls:
+    the union of the device intervals of n traced calls, and the host wall
+    of n untraced calls, each chain synced at its end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return busy_us(device_events(prof)), wall
+
+
+def phase_sampled_loss_entry(gen: torch.Generator, llama: dict
+                             ) -> dict[str, int]:
+    """sampled_loss's entry point (no reference path calls it) driven at
+    llama3-8b's width: the corrected sampled-softmax loss (eq. 2-3) of the
+    prompts' next tokens from the forward's bf16 hidden states, with 512
+    negatives shared across tokens, drawn uniformly from the vocab (logq =
+    -log n), through ``ops.sampled_loss`` once.  Counts are read around
+    that one call; the result is held against the plain version and shown
+    beside the exact full-softmax loss of the same tokens."""
+    cfg = get_config("llama3-8b")
+    h, labels, head = llama["h"], llama["labels"], llama["head"]
+    m = 512
+    neg = torch.randint(0, cfg.vocab_size, (m,), generator=gen, device=DEV)
+    w_neg = head[neg].contiguous()
+    logq = torch.full((m,), -math.log(cfg.vocab_size), device=DEV)
+    pos = torch.einsum("td,td->t", h.float(), head[labels].float())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    loss = ops.sampled_loss(h, w_neg, logq, pos, m_total=m)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(sampled_loss=1)
+    if counts != want:
+        raise AssertionError(f"sampled_loss entry launches {counts} != {want}")
+    compare(f"sampled_loss bf16 entry (T {h.shape[0]}, m {m}, d "
+            f"{cfg.d_model})", loss,
+            ref.sampled_loss_ref(h, w_neg, logq, pos, m))
+    full = torch.logsumexp(h.float() @ head.float().T, dim=-1) - pos
+    log(f"[sampled_loss] entry run at llama width: mean sampled loss "
+        f"{float(loss.mean())} vs exact full softmax {float(full.mean())} "
+        f"(uniform proposal, m = {m}, not gated); launches {counts}")
+    return counts
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -1282,6 +1833,8 @@ def main() -> int:
     serving_rows = phase_kernels(gen)
     cfg = get_config("youtube-dnn")
     rows = phase_kernels_training(gen, cfg)
+    llama_rows, llama_shapes = phase_kernels_llama(gen)
+    rows.update(llama_rows)
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -1326,6 +1879,15 @@ def main() -> int:
         phase_family_breakdown(fcfg, fstate)
         del fstate
         torch.cuda.empty_cache()
+    del pool, held, data
+    torch.cuda.empty_cache()
+
+    shapes.update(llama_shapes)
+    by_path["llama3-8b"], llama, shapes["llama_index"] = phase_llama_serving(
+        torch.Generator(device="cuda").manual_seed(15), rng)
+    by_path["sampled_loss entry"] = phase_sampled_loss_entry(gen, llama)
+    del llama
+    torch.cuda.empty_cache()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

@@ -1,7 +1,7 @@
-"""Config registry of the port: the paper's own models.
+"""Config registry of the port: the paper's own models and llama3-8b.
 
-The reference registers the ten assigned architectures as well; each joins
-here with the slice that ports its family."""
+The reference registers the other assigned architectures as well; each
+joins here with the slice that ports its family."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
+    "llama3-8b": "llama3_8b",
     "ptb-lstm": "ptb_lstm",
     "youtube-dnn": "youtube_dnn",
 }

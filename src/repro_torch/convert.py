@@ -3,9 +3,13 @@
 Both functions take plain numpy arrays (the JAX side converts with
 ``np.asarray``), so this module needs neither jax nor ``repro``:
 
-  * ``params_from_jax`` — the reference's recsys params dict
-    (``{"embed": {"table"}, "head": {"w"}, "tower": {"w0", "b0", ...}}``)
-    into the port's ``RecsysTower``.  Same layouts, so it is a copy.
+  * ``params_from_jax`` — the reference's params, by family: the recsys
+    dict (``{"embed": {"table"}, "head": {"w"}, "tower": {"w0", "b0",
+    ...}}``) into the port's ``RecsysTower``, the dense LM's ``init_lm``
+    tree through ``lm_params_from_jax``.  Same layouts, so both copy.
+  * ``lm_params_from_jax`` — the reference's dense LM params (nested dicts,
+    each segment stacked on a leading layer axis) into the same tree of
+    tensors.
   * ``index_from_jax`` — a reference ``RetrievalIndex``, field by field,
     into the port's ``RetrievalIndex``.
   * ``train_state_from_jax`` — a reference ``TrainState`` (params, the
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
 from repro_torch.models.recsys import RecsysTower
+from repro_torch.models.transformer import require_dense, segments_of
 from repro_torch.serve.retrieval import RetrievalIndex
 from repro_torch.train.step import TrainState
 from repro_torch.utils.misc import resolve_device
@@ -39,14 +44,49 @@ def _tensor(arr, dev: torch.device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device=dev, dtype=dtype)
 
 
-def params_from_jax(np_params: dict, cfg: ArchConfig,
-                    device: str | torch.device | None = None) -> RecsysTower:
-    """Reference recsys params (numpy leaves) -> the port's module on
-    ``device`` (the card unless ``device="cpu"``)."""
+def _leaf(arr, dev: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype; bf16 (numpy has none:
+    ``ml_dtypes``) crosses as fp32, exactly, and is cast back."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return _tensor(arr.astype(np.float32), dev, torch.bfloat16)
+    return _tensor(arr, dev)
+
+
+def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
+                       device: str | torch.device | None = None) -> dict:
+    """Reference dense-LM params (``transformer.init_lm``'s tree, numpy
+    leaves) -> the port's tree of tensors on ``device`` (the card unless
+    ``device="cpu"``), leaf for leaf."""
     dev = resolve_device(device)
+    require_dense(cfg)
+    n_segs = len(segments_of(cfg))
+    if len(np_params.get("segments", ())) != n_segs:
+        raise ValueError(f"{cfg.name} has {n_segs} segments, the params "
+                         f"{len(np_params.get('segments', ()))}")
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return _leaf(tree, dev)
+
+    return conv(np_params)
+
+
+def params_from_jax(np_params: dict, cfg: ArchConfig,
+                    device: str | torch.device | None = None):
+    """Reference params (numpy leaves) -> the port's on ``device`` (the
+    card unless ``device="cpu"``): a ``RecsysTower`` for recsys, the
+    stacked tensor tree for the dense family."""
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        return lm_params_from_jax(np_params, cfg, dev)
     if cfg.family != "recsys":
         raise NotImplementedError(
-            f"family '{cfg.family}' is not ported yet (only 'recsys')")
+            f"family '{cfg.family}' is not ported yet (only 'recsys', "
+            "'dense')")
     # Built on the meta device, so nothing is allocated or drawn before
     # the copies are assigned.
     model = RecsysTower(cfg, torch.device("meta"))

@@ -3,10 +3,12 @@ from __future__ import annotations
 
 from repro_torch.kernels import (
     block_scores,
+    flash_attention,
     fused_head,
     leaf_scores,
     midx_scores,
     rff_features,
+    sampled_loss,
     zstats,
 )
 
@@ -18,7 +20,9 @@ _WRAPPERS = {"zstats": (zstats, "launches"),
              "fused_lse_bwd": (fused_head, "bwd_launches"),
              "rff_features": (rff_features, "launches"),
              "midx_pair_masses": (midx_scores, "pair_launches"),
-             "midx_member_scores": (midx_scores, "member_launches")}
+             "midx_member_scores": (midx_scores, "member_launches"),
+             "sampled_loss": (sampled_loss, "launches"),
+             "flash_attention": (flash_attention, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

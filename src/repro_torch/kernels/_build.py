@@ -53,6 +53,11 @@ SIGNATURES = {
                          (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
                            (_P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "flash_attention": ("flash_attention", "flash_attention_fwd",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _I, _P)),
+    "sampled_loss": ("sampled_loss", "sampled_loss_fwd",
+                     (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
 }
 
 _lock = threading.Lock()
@@ -136,8 +141,9 @@ def load(name: str) -> ctypes.CDLL:
 def check(name: str, t: torch.Tensor, ndim: int,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is what the kernels take: a contiguous CUDA tensor
-    of ``ndim`` dims and type ``dtype`` — fp32 for values (bf16 kernels are
-    later work), int32 for row ids."""
+    of ``ndim`` dims and type ``dtype`` — fp32 for values (only
+    ``flash_attention`` and ``sampled_loss`` also take bf16), int32 for row
+    ids."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

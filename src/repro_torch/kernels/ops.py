@@ -12,10 +12,12 @@ import torch
 
 from repro_torch.kernels import fused_head, ref
 from repro_torch.kernels.block_scores import block_scores as _block_scores
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.leaf_scores import leaf_scores as _leaf_scores
 from repro_torch.kernels.midx_scores import midx_member_scores as _midx_member
 from repro_torch.kernels.midx_scores import midx_pair_masses as _midx_pair
 from repro_torch.kernels.rff_features import rff_features as _rff_features
+from repro_torch.kernels.sampled_loss import sampled_loss as _sampled_loss
 from repro_torch.kernels.zstats import zstats as _zstats
 
 Tensor = torch.Tensor
@@ -102,6 +104,40 @@ def rff_features(w: Tensor, omega: Tensor, mask: Tensor, logshift: Tensor,
                              mask.contiguous(), logshift.contiguous(),
                              tau=tau)
     return ref.rff_features_ref(w, omega, mask, logshift, tau)
+
+
+def sampled_loss(h: Tensor, w_neg: Tensor, logq: Tensor, pos_logit: Tensor,
+                 m_total: int | None = None) -> Tensor:
+    """Fused corrected sampled-softmax loss, shared negatives.  -> (T,) fp32.
+
+    h: (T, d); w_neg: (m, d); logq: (m,); pos_logit: (T,); m_total
+    (default m) sets the ``log m_total`` correction.  Any T and m: the
+    kernel masks its ragged tiles, and a negative the caller pads with
+    ``logq = 1e30`` carries no mass.  Forward only (no backward), as in
+    the reference.  h and w_neg of different dtypes are both taken as
+    fp32."""
+    m_total = m_total or w_neg.shape[0]
+    if _on_cuda(h, w_neg, logq, pos_logit):
+        if h.dtype != w_neg.dtype:
+            h, w_neg = h.float(), w_neg.float()
+        return _sampled_loss(h.contiguous(), w_neg.contiguous(),
+                             logq.float().contiguous(),
+                             pos_logit.float().contiguous(), m_total=m_total)
+    return ref.sampled_loss_ref(h, w_neg, logq, pos_logit, m_total)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
+                    ) -> Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) GQA -> (B, S, H, hd).
+
+    fp32 or bf16 in, computed in fp32 (q scaled by 1/sqrt(hd) after its
+    fp32 cast), written in q's dtype.  The reference's ``q_tile`` and
+    ``kv_tile`` are not taken: the CUDA kernel's tiles (64 queries, 32
+    keys) are fixed when it is compiled and it masks ragged S itself."""
+    if _on_cuda(q, k, v):
+        return _flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
 
 
 # --- fused sampled-softmax head (kernels/fused_head.py) ----------------------

@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -83,3 +84,69 @@ def fused_lse_ref(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,
     o = torch.einsum("tkd,td->tk", rows, h.float()) + biasg
     tl = torch.abs(o) if abs_mode else o
     return torch.logsumexp(tl - corr, dim=-1)
+
+
+def sampled_loss_ref(h: Tensor, w_neg: Tensor, logq: Tensor,
+                     pos_logit: Tensor, m_total: int) -> Tensor:
+    """Corrected sampled softmax with shared negatives (paper eq. 2-3).
+
+    h: (T, d); w_neg: (m, d); logq: (m,); pos_logit: (T,) -> (T,) fp32
+    logsumexp([pos, h.w_neg^T - logq - log m_total]) - pos.  Materializes
+    the (T, m) adjusted logits the kernel never writes."""
+    o_neg = h.float() @ w_neg.float().T
+    o_adj = o_neg - logq.float()[None, :] - math.log(m_total)
+    pos = pos_logit.float()
+    return torch.logsumexp(torch.cat([pos[:, None], o_adj], dim=-1),
+                           dim=-1) - pos
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                        s_valid: int | None = None, q_offset: int = 0,
+                        chunk: int = 128) -> Tensor:
+    """Online-softmax attention over KV chunks: the plain version of the
+    flash kernel and the reference's pure-tensor ``chunked_attention``.
+
+    q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, hv) with H a
+    multiple of KV (GQA: query head h reads KV head h // (H / KV)); hv may
+    differ from hd.  Query i sits at position ``q_offset + i``; keys at or
+    after ``s_valid`` (default Sk), and after the query when causal, carry
+    no mass.  Computes in fp32 with q scaled by 1/sqrt(hd) after the cast
+    (the reference's ``q * scale`` takes a numpy-float64 scale, which
+    promotes a bf16 q to fp32 first) -> (B, Sq, H, hv) in q's dtype.
+    Materializes (B, Sq, H, chunk) scores per chunk."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    hv = v.shape[-1]
+    group = h // kv
+    n_valid = sk if s_valid is None else min(s_valid, sk)
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(b, sq, kv, group, hd)
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    kf = kf.reshape(b, n_chunks, chunk, kv, hd)
+    vf = vf.reshape(b, n_chunks, chunk, kv, hv)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+
+    m = torch.full((b, sq, kv, group), -torch.inf, device=q.device)
+    l = torch.zeros((b, sq, kv, group), device=q.device)
+    acc = torch.zeros((b, sq, kv, group, hv), device=q.device)
+    for c in range(n_chunks):
+        k_pos = c * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, kf[:, c])
+        mask = (k_pos < n_valid)[None, :].expand(sq, chunk)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.exp(torch.where(torch.isneginf(m), m_new, m - m_new))
+        corr = torch.where(torch.isneginf(m_new), 1.0, corr)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p,
+                                                   vf[:, c])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, hv).to(q.dtype)

@@ -1,49 +1,61 @@
 """Family dispatch: one API over the ported backbones (``repro.models.api``).
 
-    init_params(cfg, gen, device)       -> model (with head table)
-    backbone_hidden(model, batch, cfg)  -> (h (T, d_h), labels (T,), aux)
-    head_table(model, cfg)              -> (n, d_h) class-embedding table
+    init_params(cfg, gen, device)       -> params (with head table)
+    backbone_hidden(params, batch, cfg) -> (h (T, d_h), labels (T,), aux)
+    head_table(params, cfg)             -> (n, d_h) class-embedding table
 
-``backbone_hidden`` and ``head_table`` carry gradients: the train step
-differentiates its loss through both (the tower's weights and the head
-rows), while serving and the sampler's statistics call them under
-``torch.no_grad()`` or detach the result.
-
-Only the ``recsys`` family (youtube-dnn) is ported; the others raise
+Ported families: ``recsys`` (youtube-dnn; params are a ``RecsysTower``
+module) and ``dense`` (llama3-8b; params are the reference's nested dict
+of stacked tensors, ``models/transformer.py``).  The others raise
 ``NotImplementedError`` until their slices land.
+
+For recsys, ``backbone_hidden`` and ``head_table`` carry gradients: the
+train step differentiates its loss through both, while serving and the
+sampler's statistics call them under ``torch.no_grad()`` or detach the
+result.  The dense family's forward runs its attention through
+``ops.flash_attention``, whose CUDA kernel has no backward: it serves, and
+training it is a later slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.utils.misc import resolve_device
 
+PORTED_FAMILIES = ("recsys", "dense")
 
-def _require_recsys(cfg: ArchConfig) -> None:
-    if cfg.family != "recsys":
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family '{cfg.family}' is not ported yet (only 'recsys')")
+            f"family '{cfg.family}' is not ported yet (only "
+            f"{', '.join(PORTED_FAMILIES)})")
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                device: str | torch.device | None = None
-                ) -> recsys.RecsysTower:
+                device: str | torch.device | None = None):
     """Random weights from ``gen`` on ``device`` — the card unless
     ``device="cpu"``; no device and no CUDA raises."""
-    _require_recsys(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "dense":
+        return transformer.init_lm(gen, cfg, dev)
     return recsys.init_recsys(gen, cfg, dev)
 
 
-def head_table(model: recsys.RecsysTower, cfg: ArchConfig) -> torch.Tensor:
+def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     """The class-embedding table the sampler/loss/index operate on: the
     parameter itself, so a loss through it reaches its gradient."""
-    _require_recsys(cfg)
+    _require_ported(cfg)
+    if cfg.family == "dense":
+        if cfg.tie_embeddings or "head" not in params:
+            return params["embed"]["table"]
+        return params["head"]["w"]
     if cfg.tie_embeddings:
-        return model.embed_table
-    return model.head_w
+        return params.embed_table
+    return params.head_w
 
 
 def hidden_width(cfg: ArchConfig) -> int:
@@ -54,12 +66,17 @@ def hidden_width(cfg: ArchConfig) -> int:
     return cfg.d_model
 
 
-def backbone_hidden(model: recsys.RecsysTower, batch: dict[str, torch.Tensor],
-                    cfg: ArchConfig
+def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Forward to the last hidden layer, differentiable wrt the tower's
-    parameters.  recsys batch keys: history (B, H), user_feats (B, F),
-    labels (B,)."""
-    _require_recsys(cfg)
-    h, aux = recsys.hidden_states(model, batch["history"], batch["user_feats"])
+    """Forward to the last hidden layer; flatten (example, feature).
+
+    batch keys: recsys — history (B, H), user_feats (B, F), labels (B,);
+    dense — tokens (B, S), labels (B, S)."""
+    _require_ported(cfg)
+    if cfg.family == "dense":
+        h, aux = transformer.hidden_states(params, batch["tokens"], cfg)
+        return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
+                aux)
+    h, aux = recsys.hidden_states(params, batch["history"],
+                                  batch["user_feats"])
     return h, batch["labels"].reshape(-1), aux

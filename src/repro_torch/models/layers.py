@@ -1,10 +1,43 @@
-"""Model primitives of the port: ``dense_init`` so far.  Norms, attention
-and the rest of ``repro.models.layers`` arrive with the transformer slice."""
+"""Model primitives of the port (``repro.models.layers``): init, norms,
+embeddings, RoPE, GQA attention and the MLP.
+
+Conventions, as in the reference:
+  * params are nested dicts of tensors; init functions return them;
+  * compute dtype = cfg.dtype; storage dtype = cfg.param_dtype; norms,
+    softmax statistics and logits in fp32;
+  * unsharded: the reference's ``ShardCtx`` activation constraints have no
+    counterpart on one device, so these functions take no ``ctx``.
+
+Full-sequence attention (``attn_forward``) goes through
+``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors.  ``chunked_attention`` keeps the reference's name
+and signature for that plain version (``ref.flash_attention_ref``, which
+also takes hv != hd and a query offset).  MLA, cross attention and learned
+positions arrive with their families (ROADMAP.md A16).
+"""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops, ref
+
+Tensor = torch.Tensor
+Params = dict
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _pdtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
 
 
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -20,3 +53,230 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * scale
     return x.to(device=device, dtype=dtype)
+
+
+# --- norms -------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, device: torch.device,
+              dim: int | None = None) -> Params:
+    dim = dim or cfg.d_model
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """RMSNorm (eps 1e-6) or LayerNorm (eps 1e-5), computed in fp32 and
+    cast back to x's dtype."""
+    x32 = x.float()
+    if cfg.norm == "layernorm" and "bias" in p:
+        mean = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+        out = (x32 - mean) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:
+        ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return out.to(x.dtype)
+
+
+def rms_norm_only(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    x32 = x.float()
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# --- embeddings / positions --------------------------------------------------
+
+
+def init_embed(gen: torch.Generator, cfg: ArchConfig,
+               device: torch.device) -> Params:
+    return {"table": dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                _pdtype(cfg), device, scale=0.02)}
+
+
+def apply_embed(p: Params, ids: Tensor, cfg: ArchConfig) -> Tensor:
+    """Rows of the table, cast to the compute dtype (gathered first, then
+    cast: the same values as the reference's cast-then-gather)."""
+    return p["table"][ids].to(_dtype(cfg))
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, H, hd); positions: (..., S).  Rotates the two HALVES of
+    hd against each other (not interleaved pairs), as the reference."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs  # (.., S, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- attention (GQA) ---------------------------------------------------------
+
+
+def padded_heads(cfg: ArchConfig, tp: int = 1) -> tuple[int, int]:
+    """Head counts padded up to TP divisibility (zero-weight heads); at
+    tp = 1 the true counts."""
+    def up(h):
+        return max(tp, ((h + tp - 1) // tp) * tp)
+    nh = up(cfg.n_heads)
+    nkv = up(cfg.n_kv_heads) if cfg.n_kv_heads else nh
+    while nh % nkv:  # q heads per kv group must stay integral
+        nkv += tp
+    return nh, nkv
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig,
+                   device: torch.device, tp: int = 1,
+                   d_model: int | None = None) -> Params:
+    d = d_model or cfg.d_model
+    hd = cfg.resolved_head_dim
+    nh, nkv = padded_heads(cfg, tp)
+    pd = _pdtype(cfg)
+    p = {
+        "wq": dense_init(gen, (d, nh * hd), pd, device),
+        "wk": dense_init(gen, (d, nkv * hd), pd, device),
+        "wv": dense_init(gen, (d, nkv * hd), pd, device),
+        "wo": dense_init(gen, (nh * hd, d), pd, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((width * hd,), dtype=pd, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32,
+                                           device=device)}
+        p["k_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32,
+                                           device=device)}
+    return p
+
+
+def _qkv(p: Params, x: Tensor, cfg: ArchConfig, positions: Tensor,
+         rope_on: bool = True) -> tuple[Tensor, Tensor, Tensor]:
+    """x: (B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd)."""
+    dt = _dtype(cfg)
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    b, s = x.shape[0], x.shape[1]
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm_only(q, p["q_norm"]["scale"])
+        k = rms_norm_only(k, p["k_norm"]["scale"])
+    if rope_on and cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                      chunk: int, q_offset: int = 0) -> Tensor:
+    """The reference's online-softmax attention over KV chunks: q (B, Sq,
+    H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hv), query i at position
+    ``q_offset + i``.  One plain version serves both this and the flash
+    kernel: ``ref.flash_attention_ref``."""
+    return ref.flash_attention_ref(q, k, v, causal=causal, chunk=chunk,
+                                   q_offset=q_offset)
+
+
+def attn_prefill(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
+                 *, causal: bool = True) -> tuple[Tensor, Tensor, Tensor]:
+    """Full-sequence self-attention through ``ops.flash_attention``.
+    x: (B, S, d) -> (y (B, S, d), k and v (B, S, KV, hd) for a cache)."""
+    q, k, v = _qkv(p, x, cfg, positions, rope_on=not cfg.learned_pos)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    b, s = x.shape[0], x.shape[1]
+    return out.reshape(b, s, -1) @ p["wo"].to(_dtype(cfg)), k, v
+
+
+def attn_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
+                 *, causal: bool = True) -> Tensor:
+    """Full-sequence self-attention (forward).  x: (B, S, d) -> (B, S, d)."""
+    return attn_prefill(p, x, positions, cfg, causal=causal)[0]
+
+
+def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
+                pos: Tensor, cfg: ArchConfig, *, update_cache: bool = True,
+                rope_on: bool = True) -> tuple[Tensor, Tensor, Tensor]:
+    """One-token decode against a KV cache.
+
+    x: (B, 1, d); cache_k/v: (B, S, KV, hd); pos: (B,) current positions.
+    Returns (y, cache_k, cache_v).  With ``update_cache`` the new token's
+    K/V are written into the caches IN PLACE (the reference returns
+    updated copies; writing in place saves a copy of the cache per layer
+    and step), and the same tensors are returned."""
+    dt = _dtype(cfg)
+    hd = cfg.resolved_head_dim
+    b = x.shape[0]
+    q = (x @ p["wq"].to(dt)).reshape(b, 1, -1, hd)
+    k = (x @ p["wk"].to(dt)).reshape(b, 1, -1, hd)
+    v = (x @ p["wv"].to(dt)).reshape(b, 1, -1, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt).reshape(1, 1, *q.shape[2:])
+        k = k + p["bk"].to(dt).reshape(1, 1, *k.shape[2:])
+        v = v + p["bv"].to(dt).reshape(1, 1, *v.shape[2:])
+    if cfg.qk_norm:
+        q = rms_norm_only(q, p["q_norm"]["scale"])
+        k = rms_norm_only(k, p["k_norm"]["scale"])
+    if rope_on and not cfg.learned_pos and cfg.rope_theta > 0:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
+
+    if update_cache:
+        # the cache may hold fewer KV heads than a TP-padded projection
+        nkv_c = cache_k.shape[2]
+        bidx = torch.arange(b, device=x.device)
+        cache_k[bidx, pos] = k[:, 0, :nkv_c].to(cache_k.dtype)
+        cache_v[bidx, pos] = v[:, 0, :nkv_c].to(cache_v.dtype)
+
+    kv = cache_k.shape[2]
+    h = q.shape[2]
+    group = h // kv
+    qf = q.float().reshape(b, kv, group, hd) / math.sqrt(hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, cache_k.float())
+    valid = (torch.arange(cache_k.shape[1], device=x.device)[None, :]
+             <= pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", w, cache_v.float())
+    y = o.reshape(b, 1, h * hd).to(dt) @ p["wo"].to(dt)
+    return y, cache_k, cache_v
+
+
+# --- MLP ----------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
+             d_ff: int | None = None, d_model: int | None = None) -> Params:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    pd = _pdtype(cfg)
+    p = {"w_up": dense_init(gen, (d, f), pd, device),
+         "w_down": dense_init(gen, (f, d), pd, device)}
+    if cfg.act == "silu":
+        p["w_gate"] = dense_init(gen, (d, f), pd, device)
+    return p
+
+
+def apply_mlp(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """SwiGLU (with ``w_gate``) or a plain MLP with the TANH-approximated
+    gelu, which is ``jax.nn.gelu``'s default."""
+    dt = _dtype(cfg)
+    up = x @ p["w_up"].to(dt)
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(dt)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["w_down"].to(dt)

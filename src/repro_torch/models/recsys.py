@@ -15,9 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense_init
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from repro_torch.models.layers import _pdtype, dense_init
 
 
 class RecsysTower(nn.Module):
@@ -30,7 +28,7 @@ class RecsysTower(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
-        pd = _DTYPES[cfg.param_dtype]
+        pd = _pdtype(cfg)
         self.n_layers = len(cfg.tower_dims)
         shapes = {"embed_table": (cfg.vocab_size, cfg.d_model),
                   "head_w": (cfg.vocab_size, cfg.tower_dims[-1])}

@@ -1,0 +1,247 @@
+"""Decoder-only LM of the port (``repro.models.transformer``), the dense
+family: forward, KV caches, prefill and one-token decode.
+
+Layers are grouped into homogeneous *segments* (consecutive layers of the
+same kind) and each segment's params are stacked on a leading layer axis,
+as in the reference, so converted params and caches compare like with
+like: params ``{"embed": {"table"}, "final_norm": {...}, "head": {"w"},
+"segments": [stacked layer dicts]}`` and caches ``[{"k", "v"}]`` of
+``(count, B, max_len, KV, hd)``.  The reference scans a segment with
+``lax.scan``; here a Python loop runs its layers, each a view of the
+stacked tensors.
+
+Full-sequence attention (``hidden_states``, ``prefill``) goes through
+``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors.  Decode attends with plain tensor ops and
+writes the new token's K/V into the caches in place.  ``hidden_states`` is
+the forward only: training the dense family needs the attention's
+gradient, a later slice.  MoE, MLA, mamba and ``mtp`` raise
+``NotImplementedError`` (ROADMAP.md A16).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.serve.retrieval import require_unsharded
+from repro_torch.utils.misc import resolve_device
+
+Tensor = torch.Tensor
+Params = dict
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    unported = [name for name, on in (
+        ("moe", bool(cfg.n_experts)), ("mla", cfg.mla),
+        ("mamba", cfg.family in ("ssm", "hybrid")), ("mtp", cfg.mtp),
+        ("learned_pos", cfg.learned_pos)) if on]
+    if cfg.family != "dense" or unported:
+        raise NotImplementedError(
+            f"'{cfg.name}' (family '{cfg.family}', {unported or 'no'} "
+            "unported parts) is not ported yet: only dense attention + MLP "
+            "layers are (ROADMAP.md A16)")
+
+
+def cache_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
+    """KV heads stored in decode caches: the true count for GQA, padded
+    only for MHA, where padded q heads need 1:1 kv."""
+    nh_p, _ = L.padded_heads(cfg, tp)
+    if cfg.n_kv_heads == cfg.n_heads:
+        return nh_p
+    return cfg.n_kv_heads
+
+
+def segments_of(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """[(kind, n_layers), ...] with consecutive same-kind layers merged."""
+    segs: list[tuple[str, int]] = []
+    for kind in cfg.layer_kinds():
+        if segs and segs[-1][0] == kind:
+            segs[-1] = (kind, segs[-1][1] + 1)
+        else:
+            segs.append((kind, 1))
+    return segs
+
+
+def padded_vocab(cfg: ArchConfig, tp: int = 1) -> int:
+    return -(-cfg.vocab_size // tp) * tp
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(seg_p: Params, i: int) -> Params:
+    """Layer i of a stacked segment: views, so in-place writes reach it."""
+    return _map(lambda t: t[i], seg_p)
+
+
+# --- init --------------------------------------------------------------------
+
+
+def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig,
+                device: torch.device, tp: int = 1) -> Params:
+    mixer, ffn = kind.split("+")
+    if mixer != "attn" or ffn not in ("mlp", "none"):
+        raise NotImplementedError(f"layer kind '{kind}' is not ported yet "
+                                  "(ROADMAP.md A16)")
+    p: Params = {"norm1": L.init_norm(cfg, device),
+                 "attn": L.init_attention(gen, cfg, device, tp)}
+    if ffn == "mlp":
+        p["norm2"] = L.init_norm(cfg, device)
+        p["mlp"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def _init_segment(gen: torch.Generator, kind: str, count: int,
+                  cfg: ArchConfig, device: torch.device, tp: int) -> Params:
+    """``count`` layers drawn one at a time into stacked tensors (no
+    second copy of the segment is ever held)."""
+    first = _init_layer(gen, kind, cfg, device, tp)
+    stacked = _map(lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
+                                         device=t.device), first)
+    for i in range(count):
+        layer = first if i == 0 else _init_layer(gen, kind, cfg, device, tp)
+        _copy_into(_layer(stacked, i), layer)
+    return stacked
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig,
+            device: str | torch.device | None = None, tp: int = 1) -> Params:
+    """Random weights from ``gen`` on ``device`` (the card unless
+    ``device="cpu"``).  Vocab rows at and after ``vocab_size`` (TP padding)
+    are zero, as in the reference."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    nvp = padded_vocab(cfg, tp)
+    pd = L._pdtype(cfg)
+    emb = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
+    emb[cfg.vocab_size:] = 0
+    params: Params = {"embed": {"table": emb},
+                      "final_norm": L.init_norm(cfg, dev)}
+    if not cfg.tie_embeddings:
+        head = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
+        head[cfg.vocab_size:] = 0
+        params["head"] = {"w": head}
+    params["segments"] = [_init_segment(gen, kind, count, cfg, dev, tp)
+                          for kind, count in segments_of(cfg)]
+    return params
+
+
+# --- apply -------------------------------------------------------------------
+
+
+def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
+                 cfg: ArchConfig) -> Tensor:
+    ffn = kind.split("+")[1]
+    x = x + L.attn_forward(p["attn"], L.apply_norm(p["norm1"], x, cfg),
+                           positions, cfg)
+    if ffn != "none":
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg)
+    return x
+
+
+def _positions(b: int, s: int, device: torch.device) -> Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def hidden_states(params: Params, tokens: Tensor, cfg: ArchConfig,
+                  ctx=None) -> tuple[Tensor, Tensor]:
+    """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss (0))."""
+    require_dense(cfg)
+    require_unsharded(ctx)
+    b, s = tokens.shape
+    x = L.apply_embed(params["embed"], tokens, cfg)
+    positions = _positions(b, s, tokens.device)
+    for (kind, count), seg_p in zip(segments_of(cfg), params["segments"]):
+        for i in range(count):
+            x = _apply_layer(kind, _layer(seg_p, i), x, positions, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --- caches / serving --------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
+               dtype: torch.dtype | None = None,
+               device: str | torch.device | None = None) -> list[Params]:
+    """Per-segment stacked zero caches sized for max_len tokens, on
+    ``device`` (the card unless ``device="cpu"``)."""
+    require_dense(cfg)
+    require_unsharded(ctx)
+    dev = resolve_device(device)
+    dt = dtype or L._dtype(cfg)
+    nkv = cache_kv_heads(cfg)
+    hd = cfg.resolved_head_dim
+    return [{"k": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
+                              device=dev),
+             "v": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
+                              device=dev)}
+            for _, count in segments_of(cfg)]
+
+
+@torch.no_grad()
+def decode_step(params: Params, token: Tensor, caches: list[Params],
+                pos: Tensor, cfg: ArchConfig, ctx=None
+                ) -> tuple[Tensor, list[Params]]:
+    """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
+    d), caches), the caches written at ``pos`` IN PLACE and returned."""
+    require_dense(cfg)
+    require_unsharded(ctx)
+    x = L.apply_embed(params["embed"], token, cfg)
+    for (kind, count), seg_p, cache in zip(segments_of(cfg),
+                                           params["segments"], caches):
+        ffn = kind.split("+")[1]
+        for i in range(count):
+            lp = _layer(seg_p, i)
+            y, _, _ = L.attn_decode(lp["attn"],
+                                    L.apply_norm(lp["norm1"], x, cfg),
+                                    cache["k"][i], cache["v"][i], pos, cfg)
+            x = x + y
+            if ffn != "none":
+                x = x + L.apply_mlp(lp["mlp"],
+                                    L.apply_norm(lp["norm2"], x, cfg), cfg)
+    return L.apply_norm(params["final_norm"], x, cfg), caches
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, ctx=None,
+            max_len: int | None = None) -> tuple[Tensor, list[Params]]:
+    """Full-sequence prefill: (h (B, S, d), caches filled to S and zero
+    after it, of length ``max_len`` (default S)).  Every layer's attention
+    is one ``ops.flash_attention`` call."""
+    require_dense(cfg)
+    require_unsharded(ctx)
+    b, s = tokens.shape
+    max_len = max_len or s
+    dt = L._dtype(cfg)
+    x = L.apply_embed(params["embed"], tokens, cfg)
+    positions = _positions(b, s, tokens.device)
+    caches = init_cache(cfg, b, max_len, dtype=dt, device=tokens.device)
+    nkv_c = caches[0]["k"].shape[3] if caches else 0
+    for (kind, count), seg_p, cache in zip(segments_of(cfg),
+                                           params["segments"], caches):
+        ffn = kind.split("+")[1]
+        for i in range(count):
+            lp = _layer(seg_p, i)
+            y, k, v = L.attn_prefill(lp["attn"],
+                                     L.apply_norm(lp["norm1"], x, cfg),
+                                     positions, cfg)
+            x = x + y
+            cache["k"][i, :, :s] = k[:, :, :nkv_c].to(dt)
+            cache["v"][i, :, :s] = v[:, :, :nkv_c].to(dt)
+            if ffn != "none":
+                x = x + L.apply_mlp(lp["mlp"],
+                                    L.apply_norm(lp["norm2"], x, cfg), cfg)
+    return L.apply_norm(params["final_norm"], x, cfg), caches

@@ -1,14 +1,44 @@
-"""Serving decode — the unsharded top-k head of ``repro.serve.engine``.
+"""Serving: the unsharded prefill, decode and top-k steps of
+``repro.serve.engine`` (inference never samples the softmax — the paper's
+technique is training-only, paper §5.2).
 
 Two head paths: the dense full-head MIPS (``index=None``) and the
 hierarchy-backed beam retrieval over a ``RetrievalIndex``
-(``serve/retrieval.py``).  The quantized (midx) index, the mesh path and
-the transformer decode steps arrive with their slices.
+(``serve/retrieval.py``).  The step constructors serve the dense transformer
+family (``models/transformer.py``): ``make_prefill_step`` runs the prompt
+through every layer's flash attention and picks the first token,
+``make_decode_step`` takes one greedy step against the KV caches (written
+in place) and ``make_topk_step`` one step with a top-k over the vocabulary.
+The encoder-decoder family, the quantized (midx) index and the mesh path
+arrive with their slices.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api, transformer
 from repro_torch.serve import retrieval
+
+
+def _require_decoder(cfg: ArchConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "the encoder-decoder family is not ported yet (ROADMAP.md A16)")
+
+
+def _argmax_island(cfg: ArchConfig, ctx, head, h2d):
+    """Greedy next token over the (unsharded) head.
+
+    head: (n, d); h2d: (B, d) -> (B,) int32 argmax ids of the fp32 logits
+    ``h @ head^T`` over the true vocab — the k = 1 case of the dense
+    ``decode_topk`` path, with its tie-breaking: the lowest class id
+    wins (``torch.argmax`` returns the first maximal index)."""
+    retrieval.require_unsharded(ctx)
+    logits = h2d.float() @ head.float().T
+    if cfg.vocab_size < head.shape[0]:
+        logits[:, cfg.vocab_size:] = -torch.inf
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def decode_topk(cfg: ArchConfig, ctx, head, h2d, k: int, *,
@@ -42,3 +72,60 @@ def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
         return decode_topk(cfg, ctx, head, h2d, k, index=index, beam=beam)
 
     return decode
+
+
+def make_topk_step(cfg: ArchConfig, ctx, k: int, *,
+                   index: retrieval.RetrievalIndex | None = None,
+                   beam: int | None = None):
+    """topk_step(params, token (B, 1), caches, pos (B,)) ->
+    (ids (B, k), logits (B, k), caches).
+
+    One decoder step, then top-k over the vocab through the retrieval
+    index (or the dense head when ``index`` is None).  ``ids[:, 0]``
+    equals ``make_decode_step``'s greedy token when the beam is full (or
+    the index absent), ties aside."""
+    _require_decoder(cfg)
+    retrieval.require_unsharded(ctx)
+
+    @torch.no_grad()
+    def step(params, token, caches, pos):
+        h, caches = transformer.decode_step(params, token, caches, pos, cfg,
+                                            ctx)
+        head = api.head_table(params, cfg)
+        ids, logits = decode_topk(cfg, ctx, head, h[:, 0, :], k,
+                                  index=index, beam=beam)
+        return ids, logits, caches
+
+    return step
+
+
+def make_decode_step(cfg: ArchConfig, ctx):
+    """decode_step(params, token (B, 1), caches, pos (B,)) ->
+    (next_token (B,), caches)."""
+    _require_decoder(cfg)
+    retrieval.require_unsharded(ctx)
+
+    @torch.no_grad()
+    def step(params, token, caches, pos):
+        h, caches = transformer.decode_step(params, token, caches, pos, cfg,
+                                            ctx)
+        head = api.head_table(params, cfg)
+        return _argmax_island(cfg, ctx, head, h[:, 0, :]), caches
+
+    return step
+
+
+def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
+    """prefill(params, {"tokens": (B, S)}) -> (first generated token (B,),
+    caches of length ``max_len``)."""
+    _require_decoder(cfg)
+    retrieval.require_unsharded(ctx)
+
+    @torch.no_grad()
+    def step(params, batch):
+        h, caches = transformer.prefill(params, batch["tokens"], cfg, ctx,
+                                        max_len=max_len)
+        head = api.head_table(params, cfg)
+        return _argmax_island(cfg, ctx, head, h[:, -1, :]), caches
+
+    return step

@@ -18,12 +18,14 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.block_scores import block_scores
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.leaf_scores import leaf_scores
 from repro_torch.kernels.midx_scores import (
     midx_member_scores,
     midx_pair_masses,
 )
 from repro_torch.kernels.rff_features import rff_features
+from repro_torch.kernels.sampled_loss import sampled_loss
 from repro_torch.kernels.zstats import zstats
 
 torch.set_num_threads(1)
@@ -101,8 +103,13 @@ def test_cpu_ops_upcast_bf16_like_the_reference():
     lambda: midx_pair_masses(torch.zeros(2, 4), torch.zeros(3, 4),
                              torch.ones(3)),
     lambda: midx_member_scores(torch.zeros(2, 4), torch.zeros(2, 3, 4)),
+    lambda: sampled_loss(torch.zeros(2, 4), torch.zeros(3, 4), torch.zeros(3),
+                         torch.zeros(2), m_total=3),
+    lambda: flash_attention(torch.zeros(1, 3, 2, 4), torch.zeros(1, 3, 1, 4),
+                            torch.zeros(1, 3, 1, 4)),
 ], ids=["zstats", "block_scores", "leaf_scores", "rff_features",
-        "midx_pair_masses", "midx_member_scores"])
+        "midx_pair_masses", "midx_member_scores", "sampled_loss",
+        "flash_attention"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its CUDA kernel or raises: a CPU tensor is refused
     before anything is built, and no launch is counted."""
@@ -112,7 +119,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     assert kernels.launch_counts() == {
         "zstats": 0, "block_scores": 0, "leaf_scores": 0, "fused_lse": 0,
         "fused_lse_bwd": 0, "rff_features": 0, "midx_pair_masses": 0,
-        "midx_member_scores": 0}
+        "midx_member_scores": 0, "sampled_loss": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -131,7 +138,7 @@ def test_build_library_path_tracks_source_and_flags():
     (the two fused-head kernels share one, as do the two midx kernels), in
     build/repro_torch/ (a directory .gitignore lists)."""
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert len(set(paths.values())) == 6
+    assert len(set(paths.values())) == 8
     assert paths["fused_lse"] == paths["fused_lse_bwd"]
     assert paths["midx_pair_masses"] == paths["midx_member_scores"]
     for name, p in paths.items():
@@ -157,3 +164,20 @@ def test_build_library_path_tracks_shared_headers(tmp_path, monkeypatch):
     for name in ("leaf_scores", "midx_member_scores"):
         assert after[name] != before[name]
         assert after[name].name.startswith(_build.source(name).stem + "-")
+
+
+@pytest.mark.parametrize("r", [3625, 4096])
+def test_block_scores_refuses_widths_past_shared_memory(r, monkeypatch):
+    """The kernel stages 16 queries of r fp32 in shared memory beside a
+    512-byte reduction buffer: past r = 3,624 that exceeds the 232,448
+    bytes an H100 block may take, so the wrapper raises before it launches
+    (llama3-8b's r = 4096 head is such a case)."""
+    from repro_torch.kernels import block_scores as bs_mod
+
+    assert bs_mod.MAX_WIDTH == 3624
+    monkeypatch.setattr(_build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="r <= 3624"):
+        block_scores(torch.zeros(2, r), torch.zeros(1, r, r), torch.zeros(1))
+    assert kernels.launch_counts()["block_scores"] == 0
