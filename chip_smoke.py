@@ -9,7 +9,8 @@ result line):
   1. device    — the card's name and power limit (nvidia-smi).
   2. build     — nvcc builds every CUDA source of both paths from
                  src/repro_torch/kernels/csrc/ into build/repro_torch/, one
-                 nvcc per source, all started together.
+                 nvcc per source, all started together; the tensor-core
+                 flash and the zstats instantiations must not spill.
   3. kernels   — each kernel against its plain PyTorch version on the card,
                  with kernel / plain / library device times per call
                  (torch.profiler's device activities over 25 calls after
@@ -62,16 +63,20 @@ result line):
                  n_valid; then per family the host ms of its refresh,
                  sampler and whole step and a torch.profiler trace of one
                  step.
- 10. llama kernels — flash_attention against its plain version in bf16 at
-                 llama3-8b's prefill shape (B 4, S 512, H 32, KV 8, hd 128,
-                 causal) and at (B 1, S 4096), each element within one bf16
-                 ulp (BF16_ELEM_RTOL), and in fp32 with ragged S,
-                 causal and not, groups 1 and 4, hd 33 to 256 and an
-                 s_valid; sampled_loss at (T 1024, m 512, d 128), (T 256,
-                 m 128, d 128), ragged (T 1000, m 500) and in bf16; with the
-                 times of phase 3 (library calls: SDPA with is_causal and
-                 enable_gqa; logsumexp over cat([pos, h w^T - logq -
-                 log m])).
+ 10. llama kernels — flash_attention (the tensor-core kernel) against
+                 its plain version in bf16 at llama3-8b's prefill shape (B
+                 4, S 512, H 32, KV 8, hd 128, causal) and at (B 1, S
+                 4096), each element within one bf16 ulp (BF16_ELEM_RTOL),
+                 and flash_attention_simt (the CUDA-core kernel) at the
+                 prefill shape; both with ragged S 300 and 77, causal and
+                 not, groups 1 and 4 and an s_valid: bf16 hd 64 and 128
+                 through the tensor-core kernel, fp32 hd 33 to 256 through
+                 the CUDA-core one (launch counts checked); sampled_loss at
+                 (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T
+                 1000, m 500) and in bf16; block_scores at r = 4,096 (N 8,
+                 T 16 and 40); with the times of phase 3 (library calls:
+                 SDPA with is_causal and enable_gqa; logsumexp over
+                 cat([pos, h w^T - logq - log m]); einsum).
  11. llama serving — llama3-8b at full width and depth (32 layers, d 4096,
                  vocab 128,256, bf16, seeded random weights): the retrieval
                  index over its head (zstats; build seconds with the eigh
@@ -93,15 +98,17 @@ Phases 4-5, 6, each family of 9, 11 and 12 are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 the five kernels of phase 3, each family its own kernels exactly
-(``expected_launches``), llama serving zstats once, flash_attention once
-per layer and leaf_scores once per index top-k step, and the entry run
-sampled_loss once.
+(``expected_launches``), llama serving zstats once, flash_attention (the
+tensor-core kernel) once per layer, flash_attention_simt never, and
+leaf_scores once per index top-k step, and the entry run sampled_loss
+once.
 The line before the last is {"kernels": [...]} (training-shape numbers;
-flash_attention at the prefill shape, sampled_loss at kernel_bench's;
+both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 ``launches`` summed over every path but youtube-dnn serving (whose count
 follows the engine's batching), each path's count under
 ``launches_by_path``; the other shapes' numbers under serving_*,
-tree_levels_*, rff_leaf_dots_*, long_*, youtube_* and llama_index_*) and
+tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_* and
+llama_index_*) and
 the last is
 {"ok": true, "device": {...}}.
 """
@@ -112,6 +119,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +157,7 @@ from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_simt,
 )
 from repro_torch.kernels.leaf_scores import leaf_scores  # noqa: E402
 from repro_torch.kernels.midx_scores import (  # noqa: E402
@@ -192,6 +201,7 @@ REPLACES = {
     "midx_member_scores": "src/repro/kernels/midx_scores.py:94",
     "sampled_loss": "src/repro/kernels/sampled_loss.py:73",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
+    "flash_attention_simt": "src/repro/kernels/flash_attention.py:92",
 }
 #: kernels each main path must launch
 SERVING_KERNELS = ("zstats", "block_scores", "leaf_scores")
@@ -363,20 +373,73 @@ def phase_device() -> str:
     return line
 
 
+#: kernels whose every instantiation must compile without spills (ptxas)
+NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel")
+
+
 def phase_build() -> None:
+    """Build every source; log each kernel instantiation's ptxas register
+    and spill lines, and fail if one of NO_SPILL_KERNELS spills."""
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] {len(_build.SIGNATURES)} kernels from {len(logs)} "
         f"sources in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
+    spills = {}
     for name, text in logs.items():
+        kernel = ""
         for line in text.splitlines():
             if "Function properties for" in line:
                 # the mangled kernel name, from its own name on (template
                 # arguments included), past the anonymous namespace's hash
                 mangled = line.split("for", 1)[1].strip()
-                log(f"  {name}: {mangled.split('_cu_', 1)[-1][:72]}")
+                kernel = mangled.split("_cu_", 1)[-1][:72]
+                log(f"  {name}: {kernel}")
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if found and any(k in kernel for k in NO_SPILL_KERNELS):
+                spills[kernel] = int(found[1]) + int(found[2])
+    if logs and not all(logs.values()):
+        log("[build] some libraries came from the cache: no spill check")
+    elif len(spills) < 5:  # flash_mma_kernel<32, 64, 128>, zstats<64, 128>
+        raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
+                             f" only, not every instantiation of "
+                             f"{NO_SPILL_KERNELS}")
+    bad = {k: n for k, n in spills.items() if n}
+    log(f"[build] spill bytes (stores + loads) of {NO_SPILL_KERNELS}: "
+        f"{spills}")
+    if bad:
+        raise AssertionError(f"kernels that must not spill do: {bad}")
+    hmma = sass_count("flash_attention", "flash_mma_kernel", "HMMA")
+    log(f"[build] HMMA instructions in the SASS of each flash_mma_kernel "
+        f"instantiation: {hmma}")
+    if hmma is not None and (len(hmma) != 3 or not all(hmma.values())):
+        raise AssertionError("the tensor-core flash kernel has no HMMA")
+
+
+def sass_count(kernel: str, function: str, opcode: str
+               ) -> dict[str, int] | None:
+    """How many instructions of ``opcode`` the SASS of each function whose
+    name holds ``function`` has, in kernel ``kernel``'s library
+    (``cuobjdump -sass``); None without cuobjdump."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")  # beside nvcc
+    if not tool.exists():
+        log(f"[build] no {tool}: SASS not read")
+        return None
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path(kernel))], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            name = name if function in name else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
@@ -389,11 +452,13 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     w = torch.randn((nb, b, r), generator=gen, device=dev)
     z = zstats(w)
     err = compare("zstats (1024, 128, 128)", z, ref.zstats_ref(w))
-    # ragged edges: rows and width off the 32-wide tiles (r = 200 is
-    # ptb-lstm's width)
-    w2 = torch.randn((7, 50, 200), generator=gen, device=dev)
-    err = max(err, compare("zstats (7, 50, 200)", zstats(w2),
-                           ref.zstats_ref(w2)))
+    # ragged edges: rows and width off the tiles (r = 200 is ptb-lstm's
+    # width); r = 130 (r % 4 != 0) takes the 4-byte copies, r = 1100 the
+    # 128-wide tiles, 70,000 class blocks two launches (65,535 at most each)
+    for shape in ((7, 50, 200), (3, 37, 130), (2, 70, 1100), (70000, 8, 8)):
+        w2 = torch.randn(shape, generator=gen, device=dev)
+        err = max(err, compare(f"zstats {shape}", zstats(w2),
+                               ref.zstats_ref(w2)))
     wt = w.transpose(1, 2)
     # Z_b is symmetric, so the function needs only its r(r+1)/2 distinct
     # entries: 2 * nb * B * r(r+1)/2 flops (a SYRK, not a full GEMM).
@@ -1358,25 +1423,111 @@ def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
     return bms, by, flops / FP32_FLOPS_PER_S * 1e3
 
 
-def flash_row(gen: torch.Generator, b: int, s: int) -> dict:
-    """flash_attention at llama3-8b's heads (32 / 8, hd 128), causal bf16:
-    held against the plain version, then timed beside it and SDPA."""
+def flash_row(gen: torch.Generator, b: int, s: int,
+              kernel=flash_attention) -> dict:
+    """A flash kernel (the tensor-core one through ``flash_attention``'s
+    dispatch, or ``flash_attention_simt``) at llama3-8b's heads (32 / 8,
+    hd 128), causal bf16: held against the plain version, then timed
+    beside it and SDPA.  ``flash_attention`` must reach the tensor-core
+    entry point."""
     h, kv, hd = 32, 8, 128
     q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
-    err = compare(f"flash_attention bf16 causal (B {b}, S {s}, H {h}, "
-                  f"KV {kv}, hd {hd})", flash_attention(q, k, v),
+    before = kernels.launch_counts()
+    got = kernel(q, k, v)
+    after = kernels.launch_counts()
+    if kernel is flash_attention and (
+            after["flash_attention"] != before["flash_attention"] + 1
+            or after["flash_attention_simt"]
+            != before["flash_attention_simt"]):
+        raise AssertionError("bf16 hd 128 flash did not take the "
+                             "tensor-core entry point")
+    err = compare(f"{kernel.__name__} bf16 causal (B {b}, S {s}, H {h}, "
+                  f"KV {kv}, hd {hd})", got,
                   ref.flash_attention_ref(q, k, v, causal=True),
                   elem_rtol=BF16_ELEM_RTOL)
     bms, by, floor = flash_bound(b, s, h, kv, hd, True, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
-               cuda_core_floor_ms=floor, **times(
-                   lambda: flash_attention(q, k, v),
-                   lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                   lambda: sdpa(qt, kt, vt, is_causal=True,
-                                enable_gqa=True)))
-    del q, k, v, qt, kt, vt
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
+        lambda: kernel(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    if kernel is flash_attention_simt:
+        row["cuda_core_floor_ms"] = floor
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_ragged_gates(gen: torch.Generator) -> tuple[float, float]:
+    """Both flash kernels off llama's shape, causal and not, with an
+    s_valid: ragged S (300 and 77), groups 1 and 4.  bf16 at hd 64 and
+    128 goes through the tensor-core kernel (each element within
+    BF16_ELEM_RTOL x |plain| + RTOL x max|plain|), fp32 at hd 33 to 256
+    through the CUDA-core one (RTOL x max|plain|); the launch counts must
+    show that.  Returns the worst bf16 and fp32 errors."""
+    cases = {torch.bfloat16: ((2, 300, 4, 4, 128), (2, 300, 8, 2, 64),
+                              (1, 77, 4, 1, 128), (1, 77, 2, 2, 64)),
+             torch.float32: ((2, 300, 4, 4, 128), (2, 300, 8, 2, 64),
+                             (1, 300, 4, 1, 256), (1, 77, 2, 2, 33))}
+    errs = {}
+    for dtype, shapes in cases.items():
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        rule = dict(elem_rtol=BF16_ELEM_RTOL) if tag == "bf16" else {}
+        before = kernels.launch_counts()
+        calls = 0
+        err = 0.0
+        for b, s, h, kv, hd in shapes:
+            q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
+            s_valid = 250 if s > 250 else 50
+            for causal, sv in itertools.product((True, False),
+                                                (None, s_valid)):
+                calls += 1
+                err = max(err, compare(
+                    f"flash_attention {tag} causal={causal} s_valid={sv} "
+                    f"(B {b}, S {s}, H {h}, KV {kv}, hd {hd})",
+                    flash_attention(q, k, v, causal=causal, s_valid=sv),
+                    ref.flash_attention_ref(q, k, v, causal=causal,
+                                            s_valid=sv), **rule))
+        after = kernels.launch_counts()
+        took = {n: after[n] - before[n]
+                for n in ("flash_attention", "flash_attention_simt")}
+        want = ({"flash_attention": calls, "flash_attention_simt": 0}
+                if tag == "bf16" else
+                {"flash_attention": 0, "flash_attention_simt": calls})
+        if took != want:
+            raise AssertionError(f"{tag} flash launches {took} != {want}")
+        errs[tag] = err
+    return errs["bf16"], errs["fp32"]
+
+
+def block_scores_wide_row(gen: torch.Generator) -> dict:
+    """block_scores at llama3-8b's index width, r = 4,096 (past the 3,624
+    its query tile once had to fit in shared memory), against its plain
+    version: N = 8 Grams of 256 rows, T = 16 (one query tile) and 40 (a
+    partial third tile), alpha 1 and cnt 0 as the gram bound calls it, and
+    alpha 100 with counts; timed at T = 16 beside its einsum."""
+    n, r = 8, 4096
+    z = ref.zstats_ref(0.05 * torch.randn((n, 256, r), generator=gen,
+                                          device=DEV))
+    cnt = torch.arange(1, n + 1, dtype=torch.float32, device=DEV)
+    zero = torch.zeros(n, device=DEV)
+    err = 0.0
+    for t in (16, 40):
+        h = torch.randn((t, r), generator=gen, device=DEV)
+        for alpha, c in ((1.0, zero), (100.0, cnt)):
+            err = max(err, compare(
+                f"block_scores T={t} N={n} r={r} alpha={alpha}",
+                block_scores(h, z, c, alpha=alpha),
+                ref.block_scores_ref(h, z, c, alpha)))
+    h = h[:16].contiguous()
+    bms, by = bound_ms(4 * (16 * r + n * r * r + n + 16 * n),
+                       2 * 16 * n * (r * r + r))
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
+        lambda: block_scores(h, z, zero, alpha=1.0),
+        lambda: ref.block_scores_ref(h, z, zero, 1.0),
+        lambda: torch.einsum("nij,ti,tj->tn", z, h, h)))
+    del z
     torch.cuda.empty_cache()
     return row
 
@@ -1413,31 +1564,25 @@ def sampled_loss_row(gen: torch.Generator, t: int, m: int, d: int) -> dict:
 def phase_kernels_llama(gen: torch.Generator
                         ) -> tuple[dict[str, dict], dict[str, dict]]:
     """flash_attention and sampled_loss against their plain versions:
-    flash at the prefill's shape (B 4, S 512) and at (B 1, S 4096), both
-    bf16 causal with llama3-8b's heads, then fp32 with ragged S, causal and
-    not, groups 1 and 4, widths from 33 to 256 and an s_valid;
-    sampled_loss at (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged
-    (T 1000, m 500) and in bf16.  Returns (rows at the prefill / kernel
-    bench shapes, rows at the other shapes by tag)."""
-    rows = {"flash_attention": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT)}
-    shapes = {"long": {"flash_attention": flash_row(gen, 1, 4096)}}
-    err = rows["flash_attention"]["max_abs_err"]
-    err32 = 0.0
-    for b, s, h, kv, hd in ((2, 300, 4, 4, 128), (2, 300, 8, 2, 64),
-                            (1, 300, 4, 1, 256), (1, 77, 2, 2, 33)):
-        q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.float32)
-        for causal in (True, False):
-            err32 = max(err32, compare(
-                f"flash_attention fp32 causal={causal} (B {b}, S {s}, H {h}, "
-                f"KV {kv}, hd {hd})", flash_attention(q, k, v, causal=causal),
-                ref.flash_attention_ref(q, k, v, causal=causal)))
-        err32 = max(err32, compare(
-            f"flash_attention fp32 s_valid 250 (B {b}, S {s}, H {h}, "
-            f"KV {kv}, hd {hd})",
-            flash_attention(q, k, v, causal=False, s_valid=250),
-            ref.flash_attention_ref(q, k, v, causal=False, s_valid=250)))
-    rows["flash_attention"]["fp32_max_abs_err"] = err32
-    log(f"[kernels] flash_attention: max abs err bf16 {err}, fp32 {err32}")
+    the tensor-core flash at the prefill's shape (B 4, S 512) and at (B 1,
+    S 4096), both bf16 causal with llama3-8b's heads, and the CUDA-core
+    flash at the prefill's shape (the kernel the tensor-core one replaced
+    there); both with ragged S (``flash_ragged_gates``); sampled_loss at
+    (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T 1000, m 500)
+    and in bf16; block_scores at r = 4,096.  Returns (rows at the prefill
+    / kernel bench shapes, rows at the other shapes by tag)."""
+    rows = {"flash_attention": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT),
+            "flash_attention_simt": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT,
+                                              flash_attention_simt)}
+    shapes = {"long": {"flash_attention": flash_row(gen, 1, 4096)},
+              "r4096": {"block_scores": block_scores_wide_row(gen)}}
+    err16, err32 = flash_ragged_gates(gen)
+    rows["flash_attention"]["ragged_max_abs_err"] = err16
+    rows["flash_attention_simt"]["fp32_max_abs_err"] = err32
+    log(f"[kernels] flash_attention: max abs err bf16 "
+        f"{rows['flash_attention']['max_abs_err']} (ragged {err16}); "
+        f"flash_attention_simt: bf16 "
+        f"{rows['flash_attention_simt']['max_abs_err']}, fp32 {err32}")
 
     rows["sampled_loss"] = sampled_loss_row(gen, 1024, 512, 128)
     shapes["youtube"] = {"sampled_loss": sampled_loss_row(gen, 256, 128,
@@ -1612,6 +1757,9 @@ def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
     want.update(zstats=1, flash_attention=cfg.n_layers, leaf_scores=2)
     if counts != want:
         raise AssertionError(f"llama3-8b serving launches {counts} != {want}")
+    log(f"[llama] all {counts['flash_attention']} prefill attentions went "
+        f"through the tensor-core flash kernel, none through the CUDA-core "
+        f"one")
 
     # -- checks ---------------------------------------------------------------
     if not torch.allclose(logits, dlog[:, :k], rtol=1e-5, atol=0.0):

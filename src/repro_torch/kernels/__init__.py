@@ -22,7 +22,8 @@ _WRAPPERS = {"zstats": (zstats, "launches"),
              "midx_pair_masses": (midx_scores, "pair_launches"),
              "midx_member_scores": (midx_scores, "member_launches"),
              "sampled_loss": (sampled_loss, "launches"),
-             "flash_attention": (flash_attention, "launches")}
+             "flash_attention": (flash_attention, "launches"),
+             "flash_attention_simt": (flash_attention, "simt_launches")}
 
 
 def launch_counts() -> dict[str, int]:

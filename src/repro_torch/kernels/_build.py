@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 Each ``csrc/<source>.cu`` exposes one plain C function per kernel (the
-fused head's and the midx scores' sources hold two each) and is compiled
-on first use, by ``nvcc`` alone (no PyTorch headers, so a build takes
-seconds), into ``build/repro_torch/<source>-<hash>.so`` under the
+fused head's, the midx scores' and the attention's sources hold two each)
+and is compiled on first use, by ``nvcc`` alone (no PyTorch headers, so a
+build takes seconds), into ``build/repro_torch/<source>-<hash>.so`` under the
 repository root, where the hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags: an edited source or header rebuilds, an
 unchanged one loads the cached library.  ``build_all`` starts one ``nvcc``
@@ -36,7 +36,7 @@ _F = ctypes.c_float
 #: kernel -> (source stem, C function, argtypes); every function returns a
 #: cudaError_t.
 SIGNATURES = {
-    "zstats": ("zstats", "zstats_f32", (_P, _P, _I, _I, _I, _I, _P)),
+    "zstats": ("zstats", "zstats_f32", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "block_scores": ("block_scores", "block_scores_f32",
                      (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "leaf_scores": ("leaf_scores", "leaf_scores_f32",
@@ -53,9 +53,12 @@ SIGNATURES = {
                          (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
                            (_P, _P, _P, _I, _I, _I, _F, _I, _P)),
-    "flash_attention": ("flash_attention", "flash_attention_fwd",
+    "flash_attention": ("flash_attention", "flash_attention_mma_bf16",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                         _I, _P)),
+                         _P)),
+    "flash_attention_simt": ("flash_attention", "flash_attention_fwd",
+                             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _P)),
     "sampled_loss": ("sampled_loss", "sampled_loss_fwd",
                      (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
 }

@@ -2,7 +2,8 @@
 ``out[t, n] = alpha * h_t^T Z_n h_t + cnt_n``.
 
 Counterpart of ``repro.kernels.block_scores`` (a Pallas kernel); the kernel
-is ``csrc/block_scores.cu``.  ``launches`` counts the kernel's launches."""
+is ``csrc/block_scores.cu``, which stages its query tile in column chunks
+and so takes any width r.  ``launches`` counts the kernel's launches."""
 from __future__ import annotations
 
 import torch
@@ -10,15 +11,6 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
-
-#: shared memory one block may take on an H100 (bytes)
-MAX_SHARED_BYTES = 232_448
-#: queries the kernel stages per block: 16 rows of r fp32 in dynamic
-#: shared memory, beside its static 8 x 16 fp32 reduction buffer
-QUERIES_PER_BLOCK = 16
-_STATIC_BYTES = 8 * QUERIES_PER_BLOCK * 4
-#: the widest r that fits: (232,448 - 512) // 64 = 3,624
-MAX_WIDTH = (MAX_SHARED_BYTES - _STATIC_BYTES) // (QUERIES_PER_BLOCK * 4)
 
 
 def block_scores(h: torch.Tensor, z: torch.Tensor, cnt: torch.Tensor, *,
@@ -35,12 +27,6 @@ def block_scores(h: torch.Tensor, z: torch.Tensor, cnt: torch.Tensor, *,
                          f"{tuple(z.shape)}, cnt {tuple(cnt.shape)}")
     if not (h.device == z.device == cnt.device):
         raise ValueError("h, z and cnt must be on one device")
-    if r > MAX_WIDTH:
-        raise ValueError(f"block_scores takes r <= {MAX_WIDTH}: the kernel "
-                         f"stages {QUERIES_PER_BLOCK} queries of r fp32 in "
-                         f"shared memory ({QUERIES_PER_BLOCK * 4 * r} bytes "
-                         f"at r = {r}, plus {_STATIC_BYTES} static, over "
-                         f"the {MAX_SHARED_BYTES} a block may take)")
     out = torch.empty((t, n), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out

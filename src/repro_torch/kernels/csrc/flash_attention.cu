@@ -14,28 +14,58 @@
 // attention in the transformer prefill (models/transformer.py::prefill
 // through kernels/ops.py::flash_attention).
 //
+// Two entry points, picked by the wrapper from dtype and hd (never on
+// failure): flash_attention_mma_bf16, the tensor-core kernel, for bf16
+// with hd a multiple of 16 up to 128 (llama3-8b's prefill); and
+// flash_attention_fwd, the CUDA-core kernel, for fp32 and for the other
+// widths up to 256.
+//
 // Bound on an H100 at the prefill's shape (B 4, S 512, H 32, KV 8, hd 128,
 // causal, bf16): 8.6 GFLOP of the causal half, which the bf16 tensor cores
 // could do in 8.7 us, under the 42 MB of q/k/v/o traffic, 12.5 us at 3.35
-// TB/s: bytes bound the function.  This kernel runs fp32 FMAs on the CUDA
-// cores, whose 67 TFLOP/s make 128 us its own floor.
+// TB/s: bytes bound the function.  At (B 1, S 4096) the 137 GFLOP take
+// 139 us: operations.
 //
-// Simple design.  One thread block of 256 threads per (b*h, 64-query tile);
-// four threads share a query row.  The block stages its 64 query rows in
-// shared memory once (converted to fp32, then scaled, as the Pallas kernel
-// scales after its fp32 cast), then walks the KV tiles of 32 keys up to the
-// tile's diagonal (causal) or to the end, each staged in shared memory as
-// fp32 and read from KV head h / g in place: no repeated-KV copy.  A
-// thread scores 8 keys of its row (16-byte shared loads along hd), the
-// four threads of a row merge the tile's max and sum with shuffles, keep
-// the running (max, sum) in registers, pass the row's probabilities
-// through shared memory, and each accumulates a quarter of the row's
-// (hd,) output in fp32 registers.  Keys at or after s_valid, and after the
-// query when causal, carry no mass; rows and keys past S are masked, so S
-// need not be a multiple of a tile.  Staged rows are zero-padded to the
-// next compiled width (32, 64, 128 or 256), so any hd <= 256 runs.
-// Tensor cores (mma.sync / wgmma), TMA and a pipelined K/V ring are later
-// work.
+// Tensor-core design (flash_mma_kernel).  One block of 4 warps per (b*h,
+// 64-query tile); each warp owns 16 query rows.  S = Q K^T comes from
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) with Q and K fed from
+// shared memory by ldmatrix; S, the running (max, sum) and O stay in
+// registers in the mma fragment layout, and the four lanes of a fragment
+// row merge the max and the sum with two shuffles.  K and V tiles of 64
+// keys are staged as bf16 in a two-stage cp.async ring, the next tile
+// loading while this one computes; staged rows are padded by 16 bytes, so
+// the eight rows an ldmatrix reads fall in distinct banks.  The fp32
+// scores are scaled by log2(e) / sqrt(hd) after the product (the
+// reference scales q after its fp32 cast: the two orders differ by an fp32
+// ulp, where a bf16 q * scale would round by 2^-9) and exponentiated with
+// exp2.  O += P V takes P as two bf16 halves, P_hi = bf16(P) and P_lo =
+// bf16(P - P_hi), in two mmas into one fp32 accumulator (V through
+// ldmatrix.trans), so P keeps ~16 bits where one bf16 P would carry a
+// 2^-9 relative error into every output: the reference multiplies fp32 P
+// by V.  Causal tiles past the query tile's diagonal are skipped, and only
+// a tile that holds the diagonal, s_valid or S is masked element by
+// element; a row with no valid key yet adds nothing, with no NaN.  Query
+// tiles run longest first (reversed blockIdx.y).  Columns past hd are
+// zero-filled to the next compiled width (32, 64 or 128).  wgmma with TMA
+// and warp specialisation, and one K/V tile shared by the g query heads of
+// a KV head, are later work.
+//
+// CUDA-core design (flash_kernel).  One thread block of 256
+// threads per (b*h, 64-query tile); four threads share a query row.  The
+// block stages its 64 query rows in shared memory once (converted to fp32,
+// then scaled, as the Pallas kernel scales after its fp32 cast), then
+// walks the KV tiles of 32 keys up to the tile's diagonal (causal) or to
+// the end, each staged in shared memory as fp32 and read from KV head h /
+// g in place: no repeated-KV copy.  A thread scores 8 keys of its row
+// (16-byte shared loads along hd), the four threads of a row merge the
+// tile's max and sum with shuffles, keep the running (max, sum) in
+// registers, pass the row's probabilities through shared memory, and each
+// accumulates a quarter of the row's (hd,) output in fp32 registers.  Its
+// fp32 FMAs make 128 us its own floor at the prefill's shape.  Keys at or
+// after s_valid, and after the query when causal, carry no mass; rows and
+// keys past S are masked, so S need not be a multiple of a tile.  Staged
+// rows are zero-padded to the next compiled width (32, 64, 128 or 256), so
+// any hd <= 256 runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -241,8 +271,9 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, all fp32
-// (bf16 = 0) or all bf16 (bf16 = 1); H a multiple of KV; 1 <= hd <= 256;
+// The CUDA-core entry point: q, o: (B, S, H, hd); k, v: (B, S, KV, hd);
+// contiguous, all fp32 (bf16 = 0) or all bf16 (bf16 = 1); H a multiple of
+// KV; 1 <= hd <= 256;
 // keys at or after s_valid carry no mass.  Launches on `stream` of
 // `device`; returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -258,4 +289,326 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                        causal, scale, st);
   return launch_typed<float>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
                              scale, st);
+}
+
+namespace {
+namespace tc {  // the bf16 tensor-core kernel
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;  // query rows per block: 16 per warp
+constexpr int kBK = 64;  // keys per staged K/V tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+
+// bf16 per staged row: hd padded to HDP plus 16 bytes, so that the eight
+// 16-byte rows one ldmatrix reads start in eight different bank groups
+template <int HDP>
+__host__ __device__ constexpr int pitch() {
+  return HDP + 8;
+}
+
+template <int HDP>
+constexpr size_t smem_bytes() {  // Q tile, then two K and two V stages
+  return static_cast<size_t>(kBQ + 4 * kBK) * pitch<HDP>() * sizeof(bf16);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst; ok = false zero-fills dst without
+// reading src
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(const bf16* p, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const bf16* p,
+                                              unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as a bf16 pair hi, and what hi leaves out as a bf16 pair lo
+__device__ __forceinline__ void split(float x, float y, unsigned& hi,
+                                      unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// Stage keys [k0, k0 + kBK) of K and V into ks and vs; keys at or past
+// kv_end and columns past hd are zero.
+template <int HDP>
+__device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
+                                        const bf16* kb, const bf16* vb,
+                                        int k0, int kv_end, size_t kv_row,
+                                        int hd) {
+  constexpr int P = pitch<HDP>();
+  constexpr int kChunks = HDP / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < kBK * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool ok = k0 + r < kv_end && c < hd;
+    const size_t off = static_cast<size_t>(k0 + r) * kv_row + c;
+    cp_async16(ks + r * P + c, ok ? kb + off : kb, ok);
+    cp_async16(vs + r * P + c, ok ? vb + off : vb, ok);
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     int S, int H, int KV, int hd, int s_valid, int causal,
+                     float scale_log2) {
+  constexpr int P = pitch<HDP>();
+  constexpr int kChunks = HDP / 8;
+  constexpr int kDSteps = HDP / 16;  // k-steps of Q K^T over hd
+  constexpr int kSTiles = kBK / 8;   // n-tiles of S (8 keys each)
+  constexpr int kOTiles = HDP / 8;   // n-tiles of O (8 columns each)
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [kBQ][P]
+  bf16* k_s = q_s + kBQ * P;                   // [2][kBK][P]
+  bf16* v_s = k_s + 2 * kBK * P;               // [2][kBK][P]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int qi0 = q0 + warp * 16 + g;  // this thread's rows: qi0, qi0 + 8
+
+  const size_t q_row = static_cast<size_t>(H) * hd;  // elements per token
+  const size_t kv_row = static_cast<size_t>(KV) * hd;
+  const bf16* qb = q + static_cast<size_t>(b) * S * q_row +
+                   static_cast<size_t>(h) * hd;
+  const bf16* kb = k + static_cast<size_t>(b) * S * kv_row +
+                   static_cast<size_t>(kvh) * hd;
+  const bf16* vb = v + static_cast<size_t>(b) * S * kv_row +
+                   static_cast<size_t>(kvh) * hd;
+
+  const int kv_lim = min(S, s_valid);
+  const int kv_end = causal ? min(kv_lim, q0 + kBQ) : kv_lim;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  for (int e = threadIdx.x; e < kBQ * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool ok = q0 + r < S && c < hd;
+    cp_async16(q_s + r * P + c,
+               ok ? qb + static_cast<size_t>(q0 + r) * q_row + c : qb, ok);
+  }
+  load_kv<HDP>(k_s, v_s, kb, vb, 0, kv_end, kv_row, hd);
+  cp_async_commit();
+
+  float o_acc[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles)
+      load_kv<HDP>(k_s + ((t + 1) & 1) * kBK * P,
+                   v_s + ((t + 1) & 1) * kBK * P, kb, vb, (t + 1) * kBK,
+                   kv_end, kv_row, hd);
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait1();   // tile t (and Q) have landed
+    __syncthreads();
+    const bf16* ks = k_s + (t & 1) * kBK * P;
+    const bf16* vs = v_s + (t & 1) * kBK * P;
+    const int k0 = t * kBK;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, fp32 in fragment layout
+    float s[kSTiles][4];
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDSteps; ++d) {
+      unsigned a[4];
+      ldsm_x4(q_s + (warp * 16 + (lane & 15)) * P + d * 16 + (lane >> 4) * 8,
+              a);
+#pragma unroll
+      for (int n = 0; n < kSTiles / 2; ++n) {
+        unsigned kf[4];
+        ldsm_x4(ks + (n * 16 + (lane & 7) + (lane >> 4) * 8) * P + d * 16 +
+                    ((lane >> 3) & 1) * 8,
+                kf);
+        mma(s[2 * n], a, kf[0], kf[1]);
+        mma(s[2 * n + 1], a, kf[2], kf[3]);
+      }
+    }
+
+    // scale after the product, mask the tiles that need it, new max
+    const bool edge = k0 + kBK > kv_lim || (causal && k0 + kBK > q0 + 1);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * tig + (e & 1);
+          if (key >= kv_lim || (causal && key > qi0 + (e >> 1) * 8))
+            x = -CUDART_INF_F;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      // a row with no valid key yet (m_new = -inf) adds nothing
+      m_use[i] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float corr =
+          m_run[i] == -CUDART_INF_F ? 0.f : exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+      l_run[i] *= corr;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        o_acc[n][2 * i] *= corr;
+        o_acc[n][2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V over 16 keys at a time, P as P_hi + P_lo
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      float p[2][4];  // n-tiles 2j and 2j + 1 of S
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[u][e] = exp2f(s[2 * j + u][e] - m_use[e >> 1]);
+          l_run[e >> 1] += p[u][e];
+        }
+      unsigned hi[4], lo[4];  // the A fragment: rows g, g + 8; keys 0-7, 8-15
+      split(p[0][0], p[0][1], hi[0], lo[0]);
+      split(p[0][2], p[0][3], hi[1], lo[1]);
+      split(p[1][0], p[1][1], hi[2], lo[2]);
+      split(p[1][2], p[1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int n = 0; n < kOTiles / 2; ++n) {
+        unsigned vf[4];
+        ldsm_x4_trans(vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                          n * 16 + (lane >> 4) * 8,
+                      vf);
+        mma(o_acc[2 * n], hi, vf[0], vf[1]);
+        mma(o_acc[2 * n], lo, vf[0], vf[1]);
+        mma(o_acc[2 * n + 1], hi, vf[2], vf[3]);
+        mma(o_acc[2 * n + 1], lo, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float denom = fmaxf(l, 1e-30f);
+    const int qi = qi0 + 8 * i;
+    if (qi < S) {
+      bf16* orow = o + (static_cast<size_t>(b) * S + qi) * q_row +
+                   static_cast<size_t>(h) * hd;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        const int c = n * 8 + 2 * tig;
+        if (c < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(o_acc[n][2 * i] / denom,
+                                    o_acc[n][2 * i + 1] / denom);
+      }
+    }
+  }
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KV, int hd, int s_valid, int causal,
+           float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HDP>();
+  auto kernel = flash_mma_kernel<HDP>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, hd,
+      s_valid, causal, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace
+
+// The tensor-core entry point: q, o: (B, S, H, hd); k, v: (B, S, KV, hd);
+// contiguous bf16 with 16-byte aligned bases; H a multiple of KV; hd a
+// multiple of 16 up to 128; keys at or after s_valid carry no mass.
+// Launches on `stream` of `device`; returns the launch's cudaError_t.
+extern "C" int flash_attention_mma_bf16(const void* q, const void* k,
+                                        const void* v, void* o, int B,
+                                        int S, int H, int KV, int hd,
+                                        int s_valid, int causal, float scale,
+                                        int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (hd < 16 || hd > 128 || hd % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd <= 32)
+    return tc::launch<32>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
+                          scale, st);
+  if (hd <= 64)
+    return tc::launch<64>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
+                          scale, st);
+  return tc::launch<128>(q, k, v, o, B, S, H, KV, hd, s_valid, causal, scale,
+                         st);
 }

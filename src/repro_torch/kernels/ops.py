@@ -130,10 +130,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
                     ) -> Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) GQA -> (B, S, H, hd).
 
-    fp32 or bf16 in, computed in fp32 (q scaled by 1/sqrt(hd) after its
-    fp32 cast), written in q's dtype.  The reference's ``q_tile`` and
-    ``kv_tile`` are not taken: the CUDA kernel's tiles (64 queries, 32
-    keys) are fixed when it is compiled and it masks ragged S itself."""
+    fp32 or bf16 in, computed in fp32 (scaled by 1/sqrt(hd) in fp32),
+    written in q's dtype.  The reference's ``q_tile`` and ``kv_tile`` are
+    not taken: the CUDA kernels' tiles are fixed when they are compiled
+    (64 queries and 64 keys for bf16 with hd a multiple of 16 up to 128,
+    on the tensor cores; 64 queries and 32 keys otherwise) and they mask
+    ragged S themselves."""
     if _on_cuda(q, k, v):
         return _flash(q.contiguous(), k.contiguous(), v.contiguous(),
                       causal=causal)

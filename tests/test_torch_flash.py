@@ -9,10 +9,16 @@ numpy inputs, at the shapes of ``tests/test_kernels_pallas.py``'s flash
 test (S = 64, 100 and 33), causal and not.  Tolerances: fp32 1e-5 (rtol
 and atol; both compute in fp32 and differ in summation order), bf16 2e-2
 as the reference's own test states (the outputs round to bf16 after fp32
-sums in different orders).  The CUDA kernel is held against the same plain
-version on the card by ``chip_smoke.py``.
+sums in different orders).  The CUDA kernels are held against the same plain
+version on the card by ``chip_smoke.py``; here their dispatch is checked
+with the launch stubbed, and the tensor-core kernel's numerics (64-key
+tiles, exp2 of scaled fp32 scores, P split into two bf16 halves for the P V
+product) are replayed in plain PyTorch against the card's bf16 gate.
 """
+import ctypes
 import functools
+import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +30,8 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as jflash_raw
 from repro.models import layers as JL
 from repro_torch import kernels
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -140,3 +147,115 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_other_dtypes():
     with pytest.raises(TypeError, match="float16"):
         flash_attention(q.half(), q.half(), q.half())
     assert kernels.launch_counts()["flash_attention"] == 0
+
+
+def test_build_signatures_hold_both_flash_entry_points():
+    """The tensor-core entry point takes q, k, v, o, seven ints (B, S, H,
+    KV, hd, s_valid, causal), the scale, the device and the stream; the
+    CUDA-core one also its bf16 flag.  Both live in one source."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert _build.SIGNATURES["flash_attention"] == (
+        "flash_attention", "flash_attention_mma_bf16",
+        (p,) * 4 + (i,) * 7 + (f, i, p))
+    assert _build.SIGNATURES["flash_attention_simt"] == (
+        "flash_attention", "flash_attention_fwd",
+        (p,) * 4 + (i,) * 7 + (f, i, i, p))
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte line."""
+    n = math.prod(shape)
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,entry", [
+    (torch.bfloat16, 64, True, "flash_attention"),
+    (torch.bfloat16, 128, True, "flash_attention"),
+    (torch.bfloat16, 16, True, "flash_attention"),
+    (torch.float32, 128, True, "flash_attention_simt"),
+    (torch.float32, 33, True, "flash_attention_simt"),
+    (torch.bfloat16, 33, True, "flash_attention_simt"),
+    (torch.bfloat16, 256, True, "flash_attention_simt"),
+    (torch.bfloat16, 128, False, "flash_attention_simt"),
+])
+def test_flash_dispatch_picks_the_entry_point_by_dtype_and_width(
+        dtype, hd, aligned, entry, monkeypatch):
+    """bf16 with hd a multiple of 16 up to 128 (and 16-byte aligned bases,
+    for its 16-byte copies) reaches the tensor-core kernel, anything else
+    the CUDA-core one; each launch counts in its own counter."""
+    calls = []
+    monkeypatch.setattr(_build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=5))
+    kernels.reset_launch_counts()
+    shapes = ((2, 40, 8, hd), (2, 40, 2, hd), (2, 40, 2, hd))
+    make = torch.zeros if aligned else _misaligned
+    q, k, v = (make(sh, dtype=dtype) for sh in shapes)
+    out = flash_attention(q, k, v, causal=False, s_valid=30)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert [c[0] for c in calls] == [entry]
+    args = calls[0][5:]
+    scale = 1.0 / math.sqrt(hd)
+    want = (2, 40, 8, 2, hd, 30, 0, scale)
+    want += (None, 5) if entry == "flash_attention" else (
+        int(dtype == torch.bfloat16), None, 5)
+    assert args == want
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == int(entry == "flash_attention")
+    assert counts["flash_attention_simt"] == int(
+        entry == "flash_attention_simt")
+    assert flash_mod.uses_tensor_cores(q, k, v) == (
+        entry == "flash_attention")
+
+
+def _split_p_flash(q, k, v, split):
+    """The tensor-core kernel's arithmetic in plain PyTorch, causal: 64-key
+    tiles, fp32 scores scaled by log2(e) / sqrt(hd) after the product,
+    exp2 against the running max, and P V with P rounded to bf16 either
+    once or as P_hi + P_lo (``split``), V bf16, sums in fp32."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, 2) for x in (k, v))
+    c = torch.tensor(1.4426950408889634 / math.sqrt(hd), dtype=torch.float32)
+    m = torch.full((b, s, h), -math.inf)
+    l = torch.zeros(b, s, h)
+    acc = torch.zeros(b, s, h, hd)
+    pos = torch.arange(s)
+    for k0 in range(0, s, 64):
+        sc = torch.einsum("bqhd,bkhd->bqhk", qf, kf[:, k0:k0 + 64]) * c
+        later = pos[k0:k0 + 64][None, :] > pos[:, None]
+        sc = sc.masked_fill(later[None, :, None, :], -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp2(m - m_new))
+        p = torch.exp2(sc - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        parts = [hi, (p - hi).bfloat16().float()] if split else [hi]
+        pv = sum(torch.einsum("bqhk,bkhd->bqhd", x, vf[:, k0:k0 + 64])
+                 for x in parts)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
+def test_split_p_keeps_bf16_outputs_within_the_chip_gate():
+    """chip_smoke.py holds the bf16 kernel to 2^-7 x |plain| + 1e-5 x
+    max|plain| per element.  With P as two bf16 halves the kernel's
+    arithmetic stays within it (excess ~1e-6 against an allowance of
+    ~3e-5); with P rounded to bf16 once, outputs near 0 carry a 2^-9
+    relative error of P and miss it by two orders of magnitude."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((1, 256, n, 128), generator=gen).bfloat16()
+               for n in (4, 1, 1))
+    want = ref.flash_attention_ref(q, k, v, causal=True).float()
+    allowed = 1e-5 * float(want.abs().max())
+
+    def excess(got):
+        diff = (got.float() - want).abs()
+        return float((diff - 2.0 ** -7 * want.abs()).max())
+
+    assert excess(_split_p_flash(q, k, v, split=True)) <= allowed
+    assert excess(_split_p_flash(q, k, v, split=False)) > 10 * allowed

@@ -119,7 +119,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     assert kernels.launch_counts() == {
         "zstats": 0, "block_scores": 0, "leaf_scores": 0, "fused_lse": 0,
         "fused_lse_bwd": 0, "rff_features": 0, "midx_pair_masses": 0,
-        "midx_member_scores": 0, "sampled_loss": 0, "flash_attention": 0}
+        "midx_member_scores": 0, "sampled_loss": 0, "flash_attention": 0,
+        "flash_attention_simt": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -135,12 +136,14 @@ def test_ops_refuse_mixed_devices():
 
 def test_build_library_path_tracks_source_and_flags():
     """Libraries are cached by a hash of source + flags, one per source
-    (the two fused-head kernels share one, as do the two midx kernels), in
-    build/repro_torch/ (a directory .gitignore lists)."""
+    (the two fused-head kernels share one, as do the two midx kernels and
+    the two flash kernels), in build/repro_torch/ (a directory .gitignore
+    lists)."""
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert len(set(paths.values())) == 8
     assert paths["fused_lse"] == paths["fused_lse_bwd"]
     assert paths["midx_pair_masses"] == paths["midx_member_scores"]
+    assert paths["flash_attention"] == paths["flash_attention_simt"]
     for name, p in paths.items():
         src = _build.source(name)
         assert p.parent == _build.BUILD_DIR
@@ -167,17 +170,25 @@ def test_build_library_path_tracks_shared_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("r", [3625, 4096])
-def test_block_scores_refuses_widths_past_shared_memory(r, monkeypatch):
-    """The kernel stages 16 queries of r fp32 in shared memory beside a
-    512-byte reduction buffer: past r = 3,624 that exceeds the 232,448
-    bytes an H100 block may take, so the wrapper raises before it launches
-    (llama3-8b's r = 4096 head is such a case)."""
-    from repro_torch.kernels import block_scores as bs_mod
+def test_block_scores_launches_at_any_width(r, monkeypatch):
+    """The kernel stages its 16-query tile in column chunks of 1,024, so a
+    width past the 3,624 whose whole tile would fill a block's shared
+    memory (llama3-8b's r = 4096 among them) launches like any other: once,
+    with (T, N, r, alpha) as given, and counted."""
+    import types
 
-    assert bs_mod.MAX_WIDTH == 3624
+    calls = []
     monkeypatch.setattr(_build, "check", lambda *a, **k: None)
-    monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
+    monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=7))
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="r <= 3624"):
-        block_scores(torch.zeros(2, r), torch.zeros(1, r, r), torch.zeros(1))
-    assert kernels.launch_counts()["block_scores"] == 0
+    out = block_scores(torch.zeros(3, r), torch.zeros(2, r, r),
+                       torch.zeros(2), alpha=2.5)
+    assert out.shape == (3, 2) and out.dtype == torch.float32
+    assert len(calls) == 1
+    name, *ptrs, t, n, width, alpha, _, stream = calls[0]
+    assert name == "block_scores" and len(ptrs) == 4
+    assert (t, n, width, alpha, stream) == (3, 2, r, 2.5, 7)
+    assert kernels.launch_counts()["block_scores"] == 1
