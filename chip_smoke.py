@@ -10,13 +10,19 @@ result line):
   2. build     — nvcc builds every CUDA source of both paths from
                  src/repro_torch/kernels/csrc/ into build/repro_torch/, one
                  nvcc per source, all started together; the tensor-core
-                 flash and the zstats instantiations must not spill.
+                 flash, the zstats and the block_scores tile instantiations
+                 must not spill.
   3. kernels   — each kernel against its plain PyTorch version on the card,
                  with kernel / plain / library device times per call
                  (torch.profiler's device activities over 25 calls after
                  warm-up) and the kernel's per-call time as a caller sees
                  it (CUDA events around 10 back-to-back calls, median of
-                 25): at the serving path's shapes, then
+                 25): at the serving path's shapes (block_scores also
+                 ragged: T 19 at r 200, T 257 (a partial 64-query tile),
+                 r 1,100 at T 16 and 19 (ragged row and column tiles),
+                 and Z's 4-byte copies: r 1,101 at T 19, and a Z not
+                 16-byte aligned at T 16;
+                 its times cover both its kernels), then
                  at the training path's (zstats (391, 256, 128),
                  block_scores T = 256 x 391 blocks, leaf_scores square
                  (32768, 256, 128), fused_lse / fused_lse_bwd at T = 256,
@@ -74,7 +80,9 @@ result line):
                  the CUDA-core one (launch counts checked); sampled_loss at
                  (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T
                  1000, m 500) and in bf16; block_scores at r = 4,096 (N 8,
-                 T 16 and 40); with the times of phase 3 (library calls:
+                 T 16 and 40; N 1), two calls bitwise equal; leaf_scores
+                 at wide ragged shapes (3, 4097, 4096) and (5, 300, 4094);
+                 with the times of phase 3 (library calls:
                  SDPA with is_causal and enable_gqa; logsumexp over
                  cat([pos, h w^T - logq - log m]); einsum).
  11. llama serving — llama3-8b at full width and depth (32 layers, d 4096,
@@ -89,8 +97,10 @@ result line):
                  and DECODE_REL_RMS), zstats against its plain version on
                  the index's (32, 4096, 4096) leaf table and leaf_scores'
                  dot mode on the full-beam gather (128, 4096, 4096), both
-                 timed, prefill / decode / top-k times, tokens/s, peak
-                 memory and the device busy share of 32 decode steps.
+                 timed (leaf_scores beside rows.sum(), a plain streaming
+                 read of the rows), prefill / decode / top-k times,
+                 tokens/s, peak memory and the device busy share of 32
+                 decode steps.
  12. sampled_loss entry — ops.sampled_loss once, at llama width, on the
                  forward's hidden states with 512 shared uniform negatives,
                  held against its plain version.
@@ -374,7 +384,8 @@ def phase_device() -> str:
 
 
 #: kernels whose every instantiation must compile without spills (ptxas)
-NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel")
+NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel",
+                    "block_scores_tile_kernel")
 
 
 def phase_build() -> None:
@@ -402,7 +413,9 @@ def phase_build() -> None:
                 spills[kernel] = int(found[1]) + int(found[2])
     if logs and not all(logs.values()):
         log("[build] some libraries came from the cache: no spill check")
-    elif len(spills) < 5:  # flash_mma_kernel<32, 64, 128>, zstats<64, 128>
+    elif len(spills) < 5 + len(kernels.block_scores.TILINGS):
+        # flash_mma_kernel<32, 64, 128>, zstats<64, 128>, one block_scores
+        # tile kernel per tiling
         raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
                              f" only, not every instantiation of "
                              f"{NO_SPILL_KERNELS}")
@@ -490,6 +503,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     err = max(err, compare("block_scores T=19 N=5 r=200",
                            block_scores(h2, z2, c2, alpha=100.0),
                            ref.block_scores_ref(h2, z2, c2, 100.0)))
+    err = max(err, block_scores_ragged_gates())
     # h (T = 16) from the loop above; one call below runs all 9 levels, so
     # times and bound are one decode's worth of block_scores calls.
     cnts = [torch.zeros(zl.shape[0], device=dev) for zl in levels]
@@ -500,6 +514,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         n_bytes += 4 * (t * r + n * r * r + n + t * n)
         flops += 2 * t * n * (r * r + r)
     bms, by = bound_ms(n_bytes, flops)
+    log_plans(f"serving levels T={t}", t, [zl.shape[0] for zl in levels], r)
 
     def per_level(fn):
         return lambda: [fn(zl, cnt) for zl, cnt in zip(levels, cnts)]
@@ -545,8 +560,50 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     return out
 
 
+def block_scores_ragged_gates() -> float:
+    """block_scores at ragged shapes of its tiles, against its plain
+    version (counts, alpha 100; inputs from a generator of their own): a
+    partial 64-query tile (T 257, r 128) and r = 1,100, whose row tiles
+    (of 96) and 128-column tiles are both ragged, at T 16 and 19; then Z's
+    4-byte copies, at both query tilings: r = 1,101 (r % 4 != 0) at T 19,
+    and r = 1,100 at T 16 with Z a contiguous view one float into a larger
+    buffer (not 16-byte aligned).  Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    err = 0.0
+    for t, n, r, offset in ((257, 5, 128, 0), (16, 3, 1100, 0),
+                            (19, 3, 1100, 0), (19, 3, 1101, 0),
+                            (16, 3, 1100, 1)):
+        h = torch.randn((t, r), generator=gen, device=DEV)
+        z = ref.zstats_ref(torch.randn((n, 40, r), generator=gen,
+                                       device=DEV))
+        if offset:
+            buf = torch.empty(offset + z.numel(), device=DEV)
+            buf[offset:] = z.flatten()
+            z = buf[offset:].view(z.shape)
+            if z.data_ptr() % 16 == 0:
+                raise AssertionError("block_scores: the offset Z is aligned")
+        c = torch.arange(1, n + 1, dtype=torch.float32, device=DEV)
+        tiles = kernels.block_scores.plan(t, n, r)
+        err = max(err, compare(
+            f"block_scores T={t} N={n} r={r} Z offset {offset} {tiles}",
+            block_scores(h, z, c, alpha=100.0),
+            ref.block_scores_ref(h, z, c, 100.0)))
+    return err
+
+
+def log_plans(tag: str, t: int, nodes: list[int], r: int) -> None:
+    """The block_scores tiling of each call of a timed row."""
+    log(f"[kernels] block_scores plans ({tag}): "
+        + "; ".join(f"N={n}: {tuple(kernels.block_scores.plan(t, n, r))}"
+                    for n in nodes))
+
+
 def log_rows(tag: str, rows: dict[str, dict]) -> None:
     for name, row in rows.items():
+        if name.startswith("block_scores"):
+            log(f"[kernels] {name} ({tag}): device ms cover both its "
+                "kernels (tiles, and the combine where a node has more "
+                "than one tile)")
         log(f"[kernels] {name} ({tag}): device ms per call: kernel "
             f"{row['ms']}, plain {row['plain_ms']}, library "
             f"{row['library_ms']}, bound {row['bound_ms']} "
@@ -630,6 +687,7 @@ def phase_kernels_training(gen: torch.Generator, cfg) -> dict[str, dict]:
                   ref.block_scores_ref(hq, z, cnt, alpha))
     bms, by = bound_ms(4 * (t * r + nb * r * r + nb + t * nb),
                        2 * t * nb * (r * r + r))
+    log_plans("training root", t, [nb], r)
     out["block_scores"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
         **times(lambda: block_scores(hq, z, cnt, alpha=alpha),
@@ -731,6 +789,7 @@ def phase_kernels_hier(gen: torch.Generator, cfg
         n_bytes += 4 * (t * d + nodes * d * d + nodes + t * nodes)
         flops += 2 * t * nodes * (d * d + d)
     bms, by = bound_ms(n_bytes, flops)
+    log_plans(f"tree levels T={t}", t, [z.shape[0] for z, _ in lv], d)
 
     def per_level(fn):
         return lambda: [fn(z, c) for z, c in lv]
@@ -1505,8 +1564,10 @@ def block_scores_wide_row(gen: torch.Generator) -> dict:
     """block_scores at llama3-8b's index width, r = 4,096 (past the 3,624
     its query tile once had to fit in shared memory), against its plain
     version: N = 8 Grams of 256 rows, T = 16 (one query tile) and 40 (a
-    partial third tile), alpha 1 and cnt 0 as the gram bound calls it, and
-    alpha 100 with counts; timed at T = 16 beside its einsum."""
+    partial 64-query tile), alpha 1 and cnt 0 as the gram bound calls it,
+    and alpha 100 with counts; N = 1 at T = 16 (512 row-and-column tiles
+    of one node); two calls bitwise equal (no atomics: the tiles' partials
+    are summed in a fixed order); timed at T = 16 beside its einsum."""
     n, r = 8, 4096
     z = ref.zstats_ref(0.05 * torch.randn((n, 256, r), generator=gen,
                                           device=DEV))
@@ -1521,6 +1582,14 @@ def block_scores_wide_row(gen: torch.Generator) -> dict:
                 block_scores(h, z, c, alpha=alpha),
                 ref.block_scores_ref(h, z, c, alpha)))
     h = h[:16].contiguous()
+    err = max(err, compare(f"block_scores T=16 N=1 r={r} alpha=100.0",
+                           block_scores(h, z[:1], cnt[:1], alpha=100.0),
+                           ref.block_scores_ref(h, z[:1], cnt[:1], 100.0)))
+    first = block_scores(h, z, zero, alpha=1.0)
+    if not torch.equal(first, block_scores(h, z, zero, alpha=1.0)):
+        raise AssertionError("block_scores: two calls at r = 4,096 differ")
+    log(f"[kernels] block_scores T=16 N={n} r={r}: two calls bitwise equal")
+    log_plans(f"r={r} T=16", 16, [n], r)
     bms, by = bound_ms(4 * (16 * r + n * r * r + n + 16 * n),
                        2 * 16 * n * (r * r + r))
     row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
@@ -1530,6 +1599,25 @@ def block_scores_wide_row(gen: torch.Generator) -> dict:
     del z
     torch.cuda.empty_cache()
     return row
+
+
+def leaf_scores_wide_gates() -> float:
+    """leaf_scores, both modes, at ragged shapes of llama3-8b's width
+    against its plain version (inputs from a generator of their own): (3,
+    4097, 4096) ends in a partial row chunk, and (5, 300, 4094) (r % 4 !=
+    0) takes the scalar path.  Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    err = 0.0
+    for g, b, r in ((3, 4097, 4096), (5, 300, 4094)):
+        h = torch.randn((g, r), generator=gen, device=DEV)
+        rows = torch.randn((g, b, r), generator=gen, device=DEV)
+        err = max(err, compare(f"leaf_scores dot ({g}, {b}, {r})",
+                               leaf_scores(h, rows, square=False),
+                               ref.leaf_dots_ref(h, rows)))
+        err = max(err, compare(f"leaf_scores square ({g}, {b}, {r})",
+                               leaf_scores(h, rows, alpha=100.0),
+                               ref.leaf_scores_ref(h, rows, 100.0)))
+    return err
 
 
 def sampled_loss_inputs(gen: torch.Generator, t: int, m: int, d: int,
@@ -1569,13 +1657,16 @@ def phase_kernels_llama(gen: torch.Generator
     flash at the prefill's shape (the kernel the tensor-core one replaced
     there); both with ragged S (``flash_ragged_gates``); sampled_loss at
     (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T 1000, m 500)
-    and in bf16; block_scores at r = 4,096.  Returns (rows at the prefill
+    and in bf16; block_scores at r = 4,096; leaf_scores at wide ragged
+    shapes.  Returns (rows at the prefill
     / kernel bench shapes, rows at the other shapes by tag)."""
     rows = {"flash_attention": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT),
             "flash_attention_simt": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT,
                                               flash_attention_simt)}
     shapes = {"long": {"flash_attention": flash_row(gen, 1, 4096)},
-              "r4096": {"block_scores": block_scores_wide_row(gen)}}
+              "r4096": {"block_scores": block_scores_wide_row(gen),
+                        "leaf_scores": {
+                            "max_abs_err": leaf_scores_wide_gates()}}}
     err16, err32 = flash_ragged_gates(gen)
     rows["flash_attention"]["ragged_max_abs_err"] = err16
     rows["flash_attention_simt"]["fp32_max_abs_err"] = err32
@@ -1601,7 +1692,7 @@ def phase_kernels_llama(gen: torch.Generator
         err, rows["sampled_loss"]["max_abs_err"])
     log_rows("llama prefill / kernel-bench shapes", rows)
     log_rows("other shapes", {f"{n} ({t})": r for t, x in shapes.items()
-                              for n, r in x.items()})
+                              for n, r in x.items() if "ms" in r})
     return rows, shapes
 
 
@@ -1649,7 +1740,8 @@ def llama_index_rows(index, h: torch.Tensor) -> dict[str, dict]:
     against zstats_ref of the index's own (32, 4096, 4096) leaf table; then
     leaf_scores' dot mode on the full-beam leaf gather (every leaf for each
     of the T queries: G = 128 leaves of 4096 rows, r = 4096, h repeated per
-    leaf as ``retrieval.leaf_topk`` does), at RTOL x max|plain|."""
+    leaf as ``retrieval.leaf_topk`` does), at RTOL x max|plain|, and timed
+    beside ``rows.sum()``, a plain streaming read of the same rows."""
     wq = index.wq
     nb, b, r = wq.shape
     want = ref.zstats_ref(wq)
@@ -1678,6 +1770,11 @@ def llama_index_rows(index, h: torch.Tensor) -> dict[str, dict]:
         **times(lambda: leaf_scores(hg, rows, square=False),
                 lambda: ref.leaf_dots_ref(hg, rows),
                 lambda: torch.bmm(rows, h3)))
+    # a yardstick of the byte bound: one plain streaming read of the rows
+    out["leaf_scores"]["stream_read_ms"] = device_ms(lambda: rows.sum())
+    log(f"[kernels] leaf_scores ({g}, {b}, {r}): rows.sum() over the same "
+        f"{4 * g * b * r / 1e9:.2f} GB, device ms per call "
+        f"{out['leaf_scores']['stream_read_ms']}")
     del rows, hg, h3
     torch.cuda.empty_cache()
     log_rows("llama3-8b index shapes", out)

@@ -38,9 +38,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "zstats": ("zstats", "zstats_f32", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "block_scores": ("block_scores", "block_scores_f32",
-                     (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+                     (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                      _I, _P)),
     "leaf_scores": ("leaf_scores", "leaf_scores_f32",
-                    (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
+                    (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     "fused_lse": ("fused_head", "fused_lse_f32",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "fused_lse_bwd": ("fused_head", "fused_lse_bwd_f32",
@@ -52,7 +53,7 @@ SIGNATURES = {
     "midx_pair_masses": ("midx_scores", "midx_pair_masses_f32",
                          (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
-                           (_P, _P, _P, _I, _I, _I, _F, _I, _P)),
+                           (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention", "flash_attention_mma_bf16",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                          _P)),

@@ -22,10 +22,11 @@
 //  * member scores, G = T*m = 32,768 draws of L = 256 rows, d = 128: 4.3 GB
 //    of gathered rows read for 2 FLOPs per 4-byte element, 1.28 ms at 3.35
 //    TB/s — bound by bytes.  Design: leaf_scores' square mode, whose body
-//    it shares (row_dots.cuh): one block of 8 warps per draw, h[g] staged in
-//    shared memory, one warp per output (g, l) reading the row 16 bytes a
-//    lane, a shuffle reduction.  Reading the rows of wq in place, instead
-//    of the caller's gathered copy, removes the copy and most of the bound:
+//    and plan it shares (row_dots.cuh): a block per (draw, chunk of rows),
+//    h[g] staged in shared memory, each warp eight rows per pass with one
+//    16-byte streaming load of each in flight per lane, a shuffle
+//    reduction per row.  Reading the rows of wq in place, instead of the
+//    caller's gathered copy, removes the copy and most of the bound:
 //    later work.
 #include <cuda_runtime.h>
 
@@ -85,11 +86,14 @@ pair_masses_kernel(const float* __restrict__ h, const float* __restrict__ ct,
   }
 }
 
+template <int U>
 __global__ void member_scores_kernel(const float* __restrict__ h,
                                      const float* __restrict__ rows,
                                      float* __restrict__ out, int L, int d,
-                                     float alpha, int square, int vec) {
-  row_dots::score_rows(h, rows, out, L, d, alpha, square, vec);
+                                     float alpha, int square, int chunk,
+                                     int n_chunks, int vec) {
+  row_dots::score_rows<U>(h, rows, out, L, d, alpha, square, chunk, n_chunks,
+                          vec);
 }
 
 }  // namespace
@@ -109,11 +113,15 @@ extern "C" int midx_pair_masses_f32(const float* h, const float* ct,
   return static_cast<int>(cudaGetLastError());
 }
 
-// h: (G, d); rows: (G, L, d); out: (G, L) — fp32, contiguous, on `device`.
-// Launches on `stream`; returns the launch's cudaError_t.
+// h: (G, d); rows: (G, L, d); out: (G, L) — fp32, contiguous, on `device`;
+// chunk and unroll from kernels/leaf_scores.py::plan.  Launches on
+// `stream`; returns the launch's cudaError_t.
 extern "C" int midx_member_scores_f32(const float* h, const float* rows,
                                       float* out, int G, int L, int d,
-                                      float alpha, int device, void* stream) {
-  return row_dots::launch(member_scores_kernel, h, rows, out, G, L, d, alpha,
-                          /*square=*/1, device, stream);
+                                      float alpha, int chunk, int unroll,
+                                      int device, void* stream) {
+  static const row_dots::Kernel kernels[2] = {member_scores_kernel<1>,
+                                              member_scores_kernel<8>};
+  return row_dots::launch(kernels, h, rows, out, G, L, d, alpha,
+                          /*square=*/1, chunk, unroll, device, stream);
 }

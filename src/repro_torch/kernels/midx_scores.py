@@ -5,13 +5,15 @@ ct[p]>^2 + 1)`` against the pair-expanded codewords ``ct``;
 ``midx_member_scores``: stage-2 scores ``alpha * <rows[g, l], h[g]>^2 + 1``
 over each draw's gathered posting list.  Counterparts of
 ``repro.kernels.midx_scores`` (Pallas kernels); the kernels are
-``csrc/midx_scores.cu``.  ``pair_launches`` and ``member_launches`` count
-their launches."""
+``csrc/midx_scores.cu`` (stage 2 over ``csrc/row_dots.cuh`` with
+``leaf_scores.plan``'s chunks).  ``pair_launches`` and ``member_launches``
+count their launches."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.leaf_scores import plan
 
 pair_launches = 0
 member_launches = 0
@@ -58,9 +60,10 @@ def midx_member_scores(h: torch.Tensor, rows: torch.Tensor, *,
     out = torch.empty((g, n_list), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out
+    p = plan(g, n_list, d)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     _build.launch("midx_member_scores", h.data_ptr(), rows.data_ptr(),
-                  out.data_ptr(), g, n_list, d, float(alpha), h.device.index,
-                  stream)
+                  out.data_ptr(), g, n_list, d, float(alpha), p.chunk,
+                  p.unroll, h.device.index, stream)
     member_launches += 1
     return out

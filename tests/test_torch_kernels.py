@@ -169,12 +169,9 @@ def test_build_library_path_tracks_shared_headers(tmp_path, monkeypatch):
         assert after[name].name.startswith(_build.source(name).stem + "-")
 
 
-@pytest.mark.parametrize("r", [3625, 4096])
-def test_block_scores_launches_at_any_width(r, monkeypatch):
-    """The kernel stages its 16-query tile in column chunks of 1,024, so a
-    width past the 3,624 whose whole tile would fill a block's shared
-    memory (llama3-8b's r = 4096 among them) launches like any other: once,
-    with (T, N, r, alpha) as given, and counted."""
+def _capture_launches(monkeypatch) -> list:
+    """Stand in for the card: the wrappers' launches are recorded, not
+    made (their checks pass CPU tensors, the stream is 7)."""
     import types
 
     calls = []
@@ -184,11 +181,54 @@ def test_block_scores_launches_at_any_width(r, monkeypatch):
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=7))
     kernels.reset_launch_counts()
+    return calls
+
+
+@pytest.mark.parametrize("r", [3625, 4096])
+def test_block_scores_launches_at_any_width(r, monkeypatch):
+    """The kernel tiles Z_n as ``block_scores.plan`` says, so a width past
+    the 3,624 whose whole 16-query tile once had to fill a block's shared
+    memory (llama3-8b's r = 4096 among them) launches like any other: one
+    call of the entry point (its tile and combine kernels both behind it),
+    with (T, N, r, alpha) as given, the plan's tiling, a workspace for the
+    tiles' partials, and counted once."""
+    from repro_torch.kernels.block_scores import plan
+
+    calls = _capture_launches(monkeypatch)
     out = block_scores(torch.zeros(3, r), torch.zeros(2, r, r),
                        torch.zeros(2), alpha=2.5)
     assert out.shape == (3, 2) and out.dtype == torch.float32
     assert len(calls) == 1
-    name, *ptrs, t, n, width, alpha, _, stream = calls[0]
-    assert name == "block_scores" and len(ptrs) == 4
+    name, *ptrs, t, n, width, alpha, tq, bj, m, bi, _, stream = calls[0]
+    assert name == "block_scores" and len(ptrs) == 5
     assert (t, n, width, alpha, stream) == (3, 2, r, 2.5, 7)
+    p = plan(3, 2, r)
+    assert (tq, bj, m, bi) == (p.tq, p.bj, p.m, p.bi) and p.n_i * p.n_j > 1
     assert kernels.launch_counts()["block_scores"] == 1
+
+
+@pytest.mark.parametrize("g,b,r", [(128, 4096, 4096), (32768, 256, 128),
+                                   (4096, 128, 128), (3, 4097, 4096),
+                                   (5, 300, 4094)])
+@pytest.mark.parametrize("name", ["leaf_scores", "midx_member_scores"])
+def test_row_dots_launch_with_the_plan(name, g, b, r, monkeypatch):
+    """leaf_scores and midx_member_scores launch once per call with (G, B,
+    r) as given and ``leaf_scores.plan``'s chunk and unroll (tensors are
+    empty-strided stand-ins: nothing is read)."""
+    from repro_torch.kernels.leaf_scores import plan
+
+    calls = _capture_launches(monkeypatch)
+    h = torch.zeros(g, r)
+    rows = torch.zeros(1).expand(g, b, r)
+    if name == "leaf_scores":
+        out = leaf_scores(h, rows, alpha=2.5, square=False)
+    else:
+        out = midx_member_scores(h, rows, alpha=2.5)
+    assert out.shape == (g, b) and len(calls) == 1
+    got, *ptrs, gg, bb, rr, alpha = calls[0][:8]
+    chunk, unroll, _, stream = calls[0][-4:]
+    assert got == name and len(ptrs) == 3
+    assert (gg, bb, rr, alpha, stream) == (g, b, r, 2.5, 7)
+    p = plan(g, b, r)
+    assert (chunk, unroll) == (p.chunk, p.unroll)
+    assert kernels.launch_counts()[name] == 1
