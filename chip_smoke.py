@@ -10,8 +10,9 @@ result line):
   2. build     — nvcc builds every CUDA source of both paths from
                  src/repro_torch/kernels/csrc/ into build/repro_torch/, one
                  nvcc per source, all started together; the tensor-core
-                 flash, the zstats and the block_scores tile instantiations
-                 must not spill.
+                 flash, the zstats, the block_scores tile, the tensor-core
+                 sampled_loss and the rff_features instantiations must not
+                 spill, and the tensor-core ones' SASS must hold HMMA.
   3. kernels   — each kernel against its plain PyTorch version on the card,
                  with kernel / plain / library device times per call
                  (torch.profiler's device activities over 25 calls after
@@ -79,7 +80,11 @@ result line):
                  through the tensor-core kernel, fp32 hd 33 to 256 through
                  the CUDA-core one (launch counts checked); sampled_loss at
                  (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T
-                 1000, m 500) and in bf16; block_scores at r = 4,096 (N 8,
+                 1000, m 500) and in bf16, and at llama3-8b's entry run
+                 (T 2,176, m 512, d 4,096, bf16, timed; two calls bitwise
+                 equal) with the tensor-core route at ragged T, m and d
+                 and the CUDA-core route in bf16, split over m and not
+                 (``sampled_loss_llama_row``); block_scores at r = 4,096 (N 8,
                  T 16 and 40; N 1), two calls bitwise equal; leaf_scores
                  at wide ragged shapes (3, 4097, 4096) and (5, 300, 4094);
                  with the times of phase 3 (library calls:
@@ -117,8 +122,8 @@ both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 ``launches`` summed over every path but youtube-dnn serving (whose count
 follows the engine's batching), each path's count under
 ``launches_by_path``; the other shapes' numbers under serving_*,
-tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_* and
-llama_index_*) and
+tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
+llama_entry_* and llama_index_*) and
 the last is
 {"ok": true, "device": {...}}.
 """
@@ -185,11 +190,15 @@ from repro_torch.serve.server import ServingEngine, payload_bytes  # noqa: E402
 from repro_torch.train import loop, step  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
-# rate outside the tensor cores (the kernels run fp32 FMAs) and the dense
-# bf16 tensor-core rate (the bound of work whose inputs are bf16).
+# rate outside the tensor cores (the kernels that run fp32 FMAs) and the
+# dense bf16 tensor-core rate (the bound of work whose inputs are bf16).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+#: the dense TF32 tensor-core rate, and the rate of fp32-accurate products
+#: made of three TF32 ones (3xTF32: a_hi b_hi + a_hi b_lo + a_lo b_hi)
+TF32_FLOPS_PER_S = 495e12
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 #: max |kernel - plain| allowed, as a fraction of max |plain|: both sum
 #: 128-term fp32 products (r^2 = 16384 terms for block_scores) in
 #: different orders.
@@ -385,7 +394,14 @@ def phase_device() -> str:
 
 #: kernels whose every instantiation must compile without spills (ptxas)
 NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel",
-                    "block_scores_tile_kernel")
+                    "block_scores_tile_kernel", "sampled_loss_mma_kernel",
+                    "rff_features_kernel")
+#: (source's kernel, function, instantiations) that must hold tensor-core
+#: (HMMA) instructions in their SASS
+HMMA_KERNELS = (("flash_attention", "flash_mma_kernel", 3),
+                ("sampled_loss", "sampled_loss_mma_kernel",
+                 len(kernels.sampled_loss.TILINGS["mma"])),
+                ("rff_features", "rff_features_kernel", 1))
 
 
 def phase_build() -> None:
@@ -413,9 +429,11 @@ def phase_build() -> None:
                 spills[kernel] = int(found[1]) + int(found[2])
     if logs and not all(logs.values()):
         log("[build] some libraries came from the cache: no spill check")
-    elif len(spills) < 5 + len(kernels.block_scores.TILINGS):
+    elif len(spills) < 5 + len(kernels.block_scores.TILINGS) + sum(
+            n for _, f, n in HMMA_KERNELS if f != "flash_mma_kernel"):
         # flash_mma_kernel<32, 64, 128>, zstats<64, 128>, one block_scores
-        # tile kernel per tiling
+        # tile kernel per tiling, one sampled_loss_mma_kernel per
+        # tensor-core tiling, rff_features_kernel
         raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
                              f" only, not every instantiation of "
                              f"{NO_SPILL_KERNELS}")
@@ -424,11 +442,12 @@ def phase_build() -> None:
         f"{spills}")
     if bad:
         raise AssertionError(f"kernels that must not spill do: {bad}")
-    hmma = sass_count("flash_attention", "flash_mma_kernel", "HMMA")
-    log(f"[build] HMMA instructions in the SASS of each flash_mma_kernel "
-        f"instantiation: {hmma}")
-    if hmma is not None and (len(hmma) != 3 or not all(hmma.values())):
-        raise AssertionError("the tensor-core flash kernel has no HMMA")
+    for kernel, function, n in HMMA_KERNELS:
+        hmma = sass_count(kernel, function, "HMMA")
+        log(f"[build] HMMA instructions in the SASS of each {function} "
+            f"instantiation: {hmma}")
+        if hmma is not None and (len(hmma) != n or not all(hmma.values())):
+            raise AssertionError(f"a tensor-core {function} has no HMMA")
 
 
 def sass_count(kernel: str, function: str, opcode: str
@@ -844,9 +863,12 @@ def phase_kernels_hier(gen: torch.Generator, cfg
     err = max(err, compare("rff_features (37, 50, 126) D=100 tau=0.7",
                            rff_features(w2, om2, m2, s2, tau=0.7),
                            ref.rff_features_ref(w2, om2, m2, s2, 0.7)))
+    # the kernel's products are 3xTF32 on the tensor cores: its operations
+    # bound is the rate of fp32-accurate products made that way
     bms, by = bound_ms(4 * (n_leaves * leaf * (d + 1) + n_feat * d + 1
                             + n_leaves * n_feat),
-                       n * n_feat * (2 * d + 4) + 2 * n * d)
+                       n * n_feat * (2 * d + 4) + 2 * n * d,
+                       TF32X3_FLOPS_PER_S)
     out["rff_features"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
         **times(lambda: rff_features(wq, omega, mask, shift, tau=tau),
@@ -1631,12 +1653,18 @@ def sampled_loss_inputs(gen: torch.Generator, t: int, m: int, d: int,
     return h, w, logq, pos
 
 
-def sampled_loss_row(gen: torch.Generator, t: int, m: int, d: int) -> dict:
-    h, w, logq, pos = sampled_loss_inputs(gen, t, m, d)
-    err = compare(f"sampled_loss fp32 (T {t}, m {m}, d {d})",
+def sampled_loss_row(gen: torch.Generator, t: int, m: int, d: int,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """sampled_loss at (T, m, d) in ``dtype`` against its plain version,
+    timed beside logsumexp over cat([pos, h w^T - logq - log m]); the
+    bound counts bf16 work at the tensor-core rate."""
+    h, w, logq, pos = sampled_loss_inputs(gen, t, m, d, dtype)
+    err = compare(f"sampled_loss {str(dtype)[6:]} (T {t}, m {m}, d {d})",
                   sampled_loss(h, w, logq, pos, m_total=m),
                   ref.sampled_loss_ref(h, w, logq, pos, m))
-    bms, by = bound_ms(4 * (t * d + m * d + m + 2 * t), 2.0 * t * m * d)
+    bms, by = bound_ms(h.element_size() * (t * d + m * d) + 4 * (m + 2 * t),
+                       2.0 * t * m * d, BF16_FLOPS_PER_S
+                       if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
     log_m = math.log(m)
 
     def library():
@@ -1649,6 +1677,77 @@ def sampled_loss_row(gen: torch.Generator, t: int, m: int, d: int) -> dict:
         lambda: ref.sampled_loss_ref(h, w, logq, pos, m), library))
 
 
+#: sampled_loss's entry run (phase 12): the hidden states of LLAMA_BATCH
+#: sequences of LLAMA_PROMPT + LLAMA_DECODE tokens against 512 shared
+#: negatives of llama3-8b's width
+LLAMA_ENTRY = (LLAMA_BATCH * (LLAMA_PROMPT + LLAMA_DECODE), 512, 4096)
+
+
+def sampled_loss_plan(t: int, m: int, d: int, dtype: torch.dtype,
+                      route: str, split: bool | None = None,
+                      aligned: bool = True):
+    """sampled_loss's plan at (T, m, d, dtype), logged; raises unless it
+    takes ``route`` and, where ``split`` is given, splits m (or not)."""
+    p = kernels.sampled_loss.plan(t, m, d, dtype, aligned)
+    log(f"[kernels] sampled_loss plan (T {t}, m {m}, d {d}, "
+        f"{str(dtype)[6:]}{'' if aligned else ', unaligned'}): {tuple(p)}")
+    if p.route != route or (split is not None and (p.splits > 1) != split):
+        raise AssertionError(f"sampled_loss plan {tuple(p)}: not route "
+                             f"{route}" + ("" if split is None else
+                                           f" with split {split}"))
+    return p
+
+
+def sampled_loss_llama_row() -> dict:
+    """sampled_loss at llama3-8b's width against its plain version (inputs
+    from a generator of their own): timed at the entry run's shape
+    (LLAMA_ENTRY, bf16, split over m) beside ``sampled_loss_row``'s
+    library call, bound at the bf16 tensor-core rate; two calls there
+    bitwise equal (the splits' partials are folded in a fixed order); the
+    tensor-core route at ragged T and m (1,000 and 500 at d 4,096) and at
+    d 136 (a partial 64-column chunk); the CUDA-core route in bf16 at d
+    126 (d % 8 != 0) and at d 136 with h one element off 16-byte
+    alignment; both routes unsplit at T 100, m 150 (the first kernel
+    writes the loss); m_total 2,048 in these.  Each plan must take the
+    route and the split named."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    t, m, d = LLAMA_ENTRY
+    sampled_loss_plan(t, m, d, torch.bfloat16, "mma", split=True)
+    row = sampled_loss_row(gen, t, m, d, torch.bfloat16)
+    h, w, logq, pos = sampled_loss_inputs(gen, t, m, d, torch.bfloat16)
+    first = sampled_loss(h, w, logq, pos, m_total=m)
+    if not torch.equal(first, sampled_loss(h, w, logq, pos, m_total=m)):
+        raise AssertionError("sampled_loss: two calls at llama's entry shape "
+                             "differ")
+    log(f"[kernels] sampled_loss (T {t}, m {m}, d {d}) bf16: two calls "
+        "bitwise equal")
+    err = 0.0
+    for t, m, d, dtype, route, split in (
+            (1000, 500, 4096, torch.bfloat16, "mma", True),
+            (300, 200, 136, torch.bfloat16, "mma", True),
+            (300, 200, 126, torch.bfloat16, "simt", True),
+            (100, 150, 136, torch.bfloat16, "mma", False),
+            (100, 150, 126, torch.bfloat16, "simt", False),
+            (100, 150, 128, torch.float32, "simt", False)):
+        h, w, logq, pos = sampled_loss_inputs(gen, t, m, d, dtype)
+        sampled_loss_plan(t, m, d, dtype, route, split)
+        err = max(err, compare(
+            f"sampled_loss {str(dtype)[6:]} {route} (T {t}, m {m}, d {d}), "
+            "m_total 2048", sampled_loss(h, w, logq, pos, m_total=2048),
+            ref.sampled_loss_ref(h, w, logq, pos, 2048)))
+    h, w, logq, pos = sampled_loss_inputs(gen, 300, 200, 136, torch.bfloat16)
+    hu = torch.empty(h.numel() + 1, dtype=h.dtype, device=DEV)[1:].view(
+        h.shape)
+    hu.copy_(h)
+    sampled_loss_plan(300, 200, 136, torch.bfloat16, "simt", aligned=False)
+    err = max(err, compare(
+        "sampled_loss bf16 simt (T 300, m 200, d 136), h unaligned, "
+        "m_total 2048", sampled_loss(hu, w, logq, pos, m_total=2048),
+        ref.sampled_loss_ref(h, w, logq, pos, 2048)))
+    row["ragged_max_abs_err"] = err
+    return row
+
+
 def phase_kernels_llama(gen: torch.Generator
                         ) -> tuple[dict[str, dict], dict[str, dict]]:
     """flash_attention and sampled_loss against their plain versions:
@@ -1657,8 +1756,9 @@ def phase_kernels_llama(gen: torch.Generator
     flash at the prefill's shape (the kernel the tensor-core one replaced
     there); both with ragged S (``flash_ragged_gates``); sampled_loss at
     (T 1024, m 512, d 128), (T 256, m 128, d 128), ragged (T 1000, m 500)
-    and in bf16; block_scores at r = 4,096; leaf_scores at wide ragged
-    shapes.  Returns (rows at the prefill
+    and in bf16, each split over m, and at llama3-8b's width
+    (``sampled_loss_llama_row``); block_scores at r = 4,096; leaf_scores at
+    wide ragged shapes.  Returns (rows at the prefill
     / kernel bench shapes, rows at the other shapes by tag)."""
     rows = {"flash_attention": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT),
             "flash_attention_simt": flash_row(gen, LLAMA_BATCH, LLAMA_PROMPT,
@@ -1675,9 +1775,12 @@ def phase_kernels_llama(gen: torch.Generator
         f"flash_attention_simt: bf16 "
         f"{rows['flash_attention_simt']['max_abs_err']}, fp32 {err32}")
 
+    sampled_loss_plan(1024, 512, 128, torch.float32, "simt", split=True)
+    sampled_loss_plan(256, 128, 128, torch.float32, "simt", split=True)
     rows["sampled_loss"] = sampled_loss_row(gen, 1024, 512, 128)
     shapes["youtube"] = {"sampled_loss": sampled_loss_row(gen, 256, 128,
                                                           128)}
+    shapes["llama_entry"] = {"sampled_loss": sampled_loss_llama_row()}
     h, w, logq, pos = sampled_loss_inputs(gen, 1000, 500, 128)
     err = compare("sampled_loss fp32 ragged (T 1000, m 500, d 128), "
                   "m_total 2048", sampled_loss(h, w, logq, pos,

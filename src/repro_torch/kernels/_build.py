@@ -61,7 +61,8 @@ SIGNATURES = {
                              (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _I, _P)),
     "sampled_loss": ("sampled_loss", "sampled_loss_fwd",
-                     (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
+                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -54,6 +54,8 @@
 
 #include <climits>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kK = 32;       // rows of Z (i) per staged chunk
@@ -61,36 +63,9 @@ constexpr int kStages = 3;   // chunks in the ring
 constexpr int kCombineThreads = 256;
 constexpr int kMaxDevices = 64;  // per-device launch sizes kept
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// n bytes (4 or 16) from src to shared dst; ok = false zero-fills dst
-// without reading src
-template <int N>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-  const int bytes = ok ? N : 0;
-  if (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {  // <= N groups pending
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using tcore::cp_async;  // 4 or 16 bytes; ok = false zero-fills
+using tcore::cp_async_commit;
+using tcore::cp_async_wait;
 
 // A block of TQ queries x BJ columns: (TQ / 4M) x (BJ / 8M) warps; in a
 // warp 4 x 8 lanes, each with an M x M micro-tile of (M / 4)^2 float4

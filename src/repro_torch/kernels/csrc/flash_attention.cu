@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
@@ -302,6 +304,11 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
+using tcore::cp_async_commit;
+using tcore::ldsm_x4;
+using tcore::ldsm_x4_trans;
+using tcore::mma;
+
 // bf16 per staged row: hd padded to HDP plus 16 bytes, so that the eight
 // 16-byte rows one ldmatrix reads start in eight different bank groups
 template <int HDP>
@@ -312,54 +319,6 @@ __host__ __device__ constexpr int pitch() {
 template <int HDP>
 constexpr size_t smem_bytes() {  // Q tile, then two K and two V stages
   return static_cast<size_t>(kBQ + 4 * kBK) * pitch<HDP>() * sizeof(bf16);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to shared dst; ok = false zero-fills dst without
-// reading src
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(const bf16* p, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const bf16* p,
-                                              unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // (x, y) as a bf16 pair hi, and what hi leaves out as a bf16 pair lo
@@ -385,8 +344,8 @@ __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool ok = k0 + r < kv_end && c < hd;
     const size_t off = static_cast<size_t>(k0 + r) * kv_row + c;
-    cp_async16(ks + r * P + c, ok ? kb + off : kb, ok);
-    cp_async16(vs + r * P + c, ok ? vb + off : vb, ok);
+    tcore::cp_async<16>(ks + r * P + c, ok ? kb + off : kb, ok);
+    tcore::cp_async<16>(vs + r * P + c, ok ? vb + off : vb, ok);
   }
 }
 
@@ -430,8 +389,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int e = threadIdx.x; e < kBQ * kChunks; e += kThreads) {
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool ok = q0 + r < S && c < hd;
-    cp_async16(q_s + r * P + c,
-               ok ? qb + static_cast<size_t>(q0 + r) * q_row + c : qb, ok);
+    tcore::cp_async<16>(
+        q_s + r * P + c,
+        ok ? qb + static_cast<size_t>(q0 + r) * q_row + c : qb, ok);
   }
   load_kv<HDP>(k_s, v_s, kb, vb, 0, kv_end, kv_row, hd);
   cp_async_commit();
@@ -450,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                    v_s + ((t + 1) & 1) * kBK * P, kb, vb, (t + 1) * kBK,
                    kv_end, kv_row, hd);
     cp_async_commit();  // possibly empty: one group per tile
-    cp_async_wait1();   // tile t (and Q) have landed
+    tcore::cp_async_wait<1>();  // tile t (and Q) have landed
     __syncthreads();
     const bf16* ks = k_s + (t & 1) * kBK * P;
     const bf16* vs = v_s + (t & 1) * kBK * P;

@@ -11,115 +11,249 @@
 // feature-sum tree through it, once per refresh.
 //
 // Bound on an H100 at the training shape (L = 512 leaves of B = 256 rows,
-// d = 128, D = 128 features): L*B*D*d = 2.1 G fp32 FMAs (4.3 GFLOP), 64 us
-// at 67 TFLOP/s without the tensor cores, against 67 MB read (20 us at 3.35
-// TB/s).  The kernel is bound by operations.
+// d = 128, D = 128 features), for the route it takes: the (L*B, d) x (d, D)
+// product is 4.3 GFLOP, and 3xTF32 spends three TF32 products on each
+// fp32-accurate one, so 12.9 GFLOP at the 495 TFLOP/s TF32 tensor-core
+// rate = 26 us (the same work on the CUDA cores at 67 TFLOP/s: 64 us),
+// against 67 MB read = 20 us at 3.35 TB/s.  Operations bound it, closely
+// followed by bytes.
 //
-// Simple design: the function is a (L*B, d) x (d, D) product whose epilogue
+// Design.  The function is a (L*B, d) x (d, D) product whose epilogue
 // (exp, mask, sum over each leaf's B rows) never leaves the block, so the
-// (L*B, D) feature matrix is never written.  One block of 256 threads per
-// (leaf, tile of 64 features) walks its leaf's rows 64 at a time; each
-// (64 rows x 64 features) tile is a shared-memory GEMM over d in chunks of
-// 32, every thread holding a 4 x 4 register tile.  The squared row norms
-// ride along on the staged row chunks.  After a tile's dots, each thread
-// adds exp(...) * mask of its 4 rows into 4 per-feature partial sums; the
-// 16 row groups are summed through shared memory at the end.  Ragged rows,
-// features and widths are masked (zero-filled) in the loads.  logshift is
-// read from device memory, so the caller never syncs on it.  expf, not
-// __expf: the plain version is held at 1e-5.  Tensor cores (TF32 would
-// lose the digits the exp amplifies; 3xTF32 keeps them) are later work.
+// (L*B, D) feature matrix is never written.  What held the kernel this one
+// replaced back (fp32 FMAs in 4 x 4 micro-tiles, loads not overlapped with
+// the math, transposed scalar stores that conflicted on banks, omega read
+// once per 64 features), and what this one does about it:
+//  1. The product runs on the tensor cores in 3xTF32: mma.sync m16n8k8
+//     .tf32 with each fp32 operand split as x = hi + lo (hi = x rounded to
+//     TF32, lo = the remainder rounded to TF32) and a_lo b_hi + a_hi b_lo +
+//     a_hi b_hi summed in fp32, which keeps about fp32's digits.  One TF32
+//     product keeps about 3, and the exp amplifies what it loses: the gate
+//     holds the sums to 1e-5 of their largest.  The tensor cores' own
+//     accumulation truncates, so each 32-column chunk's products go into
+//     fresh fragments that fp32 adds (round to nearest) fold into the
+//     running sums: a running sum kept in the tensor cores failed the
+//     ragged gate (37, 50, 126) on the card.
+//  2. One block of 8 warps per (leaf, 128 features), 4 x 2 warps of 32
+//     rows x 64 features (2 m16 x 8 n8 tiles) over the leaf's rows 128
+//     at a time (acc and the chunk's fresh fragments take ~240 registers
+//     a thread, so one block per SM).  Every warp splits the values it
+//     multiplies as it loads them, by integer adds and masks (see
+//     tensor_core.cuh::split_tf32): a split pass into shared memory once
+//     per chunk cost a second barrier per chunk and was slower.  omega's
+//     chunk is staged once per block and pass: read twice per 256-row
+//     leaf, against four times before.
+//  3. 32-column chunks of the rows and of omega, in their natural layout,
+//     go through a kStages-deep cp.async ring (16-byte copies; 4-byte ones
+//     where d % 4 != 0 or a base is not 16-byte aligned).  Rows are padded
+//     to 36 floats, so a warp's fragment reads (8 rows x 4 columns) fall
+//     in 32 distinct banks.
+// The squared row norms ride along on the A fragments (each row's values
+// pass through its quad of lanes once).  After a pass each thread sums
+// exp(...) * mask of its rows per feature straight from the accumulator
+// fragments; shuffles sum a warp's rows into shared memory, and the row
+// warps are summed in a fixed order at the end.  Ragged rows, widths and
+// features are zero-filled in the copies and masked in the epilogue.
+// logshift is read from device memory, so the caller never syncs on it.
+// expf, not __expf: the plain version is held at 1e-5.
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kRows = 64;   // rows of a leaf per tile
-constexpr int kFeat = 64;   // features per block
-constexpr int kDc = 32;     // width chunk staged in shared memory
-constexpr int kPad = 4;     // keeps the float4 reads 16-byte aligned
-constexpr int kThreads = 256;
+constexpr int kRows = 128;  // rows of a leaf per pass
+constexpr int kFeat = 128;  // features per block
+constexpr int kWarpsR = 4;  // warps over rows
+constexpr int kWarpsF = 2;  // warps over features
+constexpr int kThreads = 32 * kWarpsR * kWarpsF;
+constexpr int kWR = kRows / kWarpsR;  // rows per warp
+constexpr int kWF = kFeat / kWarpsF;  // features per warp
+constexpr int kMi = kWR / 16;         // m16 tiles per warp
+constexpr int kNj = kWF / 8;          // n8 tiles per warp
+constexpr int kDc = 32;               // columns per staged chunk
+constexpr int kPitch = kDc + 4;       // = 4 (mod 32) floats per staged row
+constexpr int kStages = 3;
+constexpr int kStage = (kRows + kFeat) * kPitch;  // floats per ring slot
+constexpr size_t kSmem = static_cast<size_t>(kStages) * kStage * 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
-rff_features_kernel(const float* __restrict__ w,
-                    const float* __restrict__ omega,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ logshift,
-                    float* __restrict__ out, int B, int d, int D,
-                    float inv_sqrt_tau, float inv_2tau, float inv_sqrt_d) {
-  __shared__ __align__(16) float w_s[kDc][kRows + kPad];   // [c][row]
-  __shared__ __align__(16) float om_s[kDc][kFeat + kPad];  // [c][feature]
-  __shared__ float nrm_s[kRows];
-  __shared__ float mask_s[kRows];
-  __shared__ float red_s[kThreads / 16][kFeat];
+__global__ void __launch_bounds__(kThreads, 1)
+    rff_features_kernel(const float* __restrict__ w,
+                        const float* __restrict__ omega,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ logshift,
+                        float* __restrict__ out, int B, int d, int D,
+                        float inv_sqrt_tau, float inv_2tau, float inv_sqrt_d,
+                        int vec) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // [kStages][kStage]
+  __shared__ float red[kWarpsR][kFeat];  // per-feature sums by row warp
 
   const int l = blockIdx.x;
   const int k0 = blockIdx.y * kFeat;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // features tx*4 .. tx*4+3
-  const int ty = tid >> 4;   // rows ty*4 .. ty*4+3
-  const float shift = *logshift;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int wr = warp / kWarpsF;
+  const int wr0 = wr * kWR, wf0 = (warp % kWarpsF) * kWF;
   const float* wl = w + static_cast<size_t>(l) * B * d;
+  const int n_dc = (d + kDc - 1) / kDc;
+  const int n_chunks = (B + kRows - 1) / kRows * n_dc;
 
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b0 = 0; b0 < B; b0 += kRows) {
-    float acc[4][4] = {};
-    float nrm = 0.f;  // thread tid < kRows: squared norm of row b0 + tid
-    for (int c0 = 0; c0 < d; c0 += kDc) {
-      for (int i = tid; i < kRows * kDc; i += kThreads) {
-        const int row = i / kDc, c = i % kDc;
-        const int b = b0 + row, cc = c0 + c;
-        w_s[c][row] = (b < B && cc < d)
-                          ? __ldg(wl + static_cast<size_t>(b) * d + cc)
-                          : 0.f;
+  // chunk c: columns (c % n_dc) * kDc .. of the leaf's rows (c / n_dc) *
+  // kRows .. and of omega's features k0 ..; past B, D or d zero-filled
+  auto load = [&](int c, int slot) {
+    const int b0 = (c / n_dc) * kRows, c0 = (c % n_dc) * kDc;
+    float* s = ring + slot * kStage;
+    if (vec) {
+      for (int e = threadIdx.x; e < (kRows + kFeat) * (kDc / 4);
+           e += kThreads) {
+        const int r = e / (kDc / 4), cc = (e % (kDc / 4)) * 4;
+        const bool is_w = r < kRows;
+        const int row = is_w ? b0 + r : k0 + r - kRows;
+        const float* base = is_w ? wl : omega;
+        const bool ok = row < (is_w ? B : D) && c0 + cc < d;
+        tcore::cp_async<16>(
+            s + r * kPitch + cc,
+            ok ? base + static_cast<size_t>(row) * d + c0 + cc : base, ok);
       }
-      for (int i = tid; i < kFeat * kDc; i += kThreads) {
-        const int f = i / kDc, c = i % kDc;
-        const int k = k0 + f, cc = c0 + c;
-        om_s[c][f] = (k < D && cc < d)
-                         ? __ldg(omega + static_cast<size_t>(k) * d + cc)
-                         : 0.f;
+    } else {
+      for (int e = threadIdx.x; e < (kRows + kFeat) * kDc; e += kThreads) {
+        const int r = e / kDc, cc = e % kDc;
+        const bool is_w = r < kRows;
+        const int row = is_w ? b0 + r : k0 + r - kRows;
+        const float* base = is_w ? wl : omega;
+        const bool ok = row < (is_w ? B : D) && c0 + cc < d;
+        tcore::cp_async<4>(
+            s + r * kPitch + cc,
+            ok ? base + static_cast<size_t>(row) * d + c0 + cc : base, ok);
       }
-      __syncthreads();
-      if (tid < kRows) {
-        for (int c = 0; c < kDc; ++c) nrm = fmaf(w_s[c][tid], w_s[c][tid], nrm);
-      }
-#pragma unroll 8
-      for (int c = 0; c < kDc; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(&w_s[c][ty * 4]);
-        const float4 o = *reinterpret_cast<const float4*>(&om_s[c][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float ov[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], ov[j], acc[i][j]);
-      }
-      __syncthreads();
     }
-    if (tid < kRows) {
-      const int b = b0 + tid;
-      nrm_s[tid] = nrm;
-      mask_s[tid] = b < B ? mask[static_cast<size_t>(l) * B + b] : 0.f;
-    }
-    __syncthreads();
+  };
+  int pc = 0;  // the next chunk to stage
+  auto prefetch = [&](int slot) {
+    if (pc < n_chunks) load(pc, slot);
+    ++pc;
+    tcore::cp_async_commit();  // possibly empty: one group per chunk
+  };
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      const float base = nrm_s[row] * inv_2tau + shift;
-      const float mk = mask_s[row];
+  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
+
+  for (int f = threadIdx.x; f < kWarpsR * kFeat; f += kThreads)
+    red[f / kFeat][f % kFeat] = 0.f;  // read after the loop's barriers
+  const float shift = *logshift;
+  float acc[kMi][kNj][4];
+  float nrm[kMi][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        part[j] += expf(acc[i][j] * inv_sqrt_tau - base) * mk;
-    }
-    __syncthreads();  // nrm_s / mask_s are rewritten by the next row tile
+  for (int i = 0; i < kMi; ++i) {
+    nrm[i][0] = nrm[i][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNj; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
   }
 
+  for (int c = 0; c < n_chunks; ++c) {
+    tcore::cp_async_wait<kStages - 2>();  // chunk c has landed
+    __syncthreads();  // ... for every thread; the slot read last is free
+    prefetch((c + kStages - 1) % kStages);
+    const float* chunk = ring + (c % kStages) * kStage;
+    const float* ws = chunk + (wr0 + g) * kPitch;
+    const float* os = chunk + (kRows + wf0 + g) * kPitch;
+    // the chunk's products go into fresh fragments, added to the running
+    // sums by fp32 adds, which round to nearest: the tensor cores' own
+    // accumulation truncates, and a running sum kept there over d = 126
+    // drifted past the ragged gate
+    float t[kMi][kNj][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red_s[ty][tx * 4 + j] = part[j];
+    for (int i = 0; i < kMi; ++i)
+#pragma unroll
+      for (int n = 0; n < kNj; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[i][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDc; kk += 8) {
+      unsigned ahi[kMi][4], alo[kMi][4];
+#pragma unroll
+      for (int i = 0; i < kMi; ++i) {
+        // rows g, g + 8 of m16 tile i; columns kk + tig, kk + tig + 4
+        const float* p = ws + i * 16 * kPitch + kk + tig;
+        const float x[4] = {p[0], p[8 * kPitch], p[4],
+                            p[8 * kPitch + 4]};
+        nrm[i][0] = fmaf(x[0], x[0], fmaf(x[2], x[2], nrm[i][0]));
+        nrm[i][1] = fmaf(x[1], x[1], fmaf(x[3], x[3], nrm[i][1]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tcore::split_tf32(x[e], ahi[i][e], alo[i][e]);
+      }
+#pragma unroll
+      for (int n = 0; n < kNj; ++n) {
+        // feature g of n8 tile n, split here by every warp that uses it
+        const float* o = os + n * 8 * kPitch + kk;
+        uint2 b0, b1;  // (hi, lo) at columns kk + tig, kk + tig + 4
+        tcore::split_tf32(o[tig], b0.x, b0.y);
+        tcore::split_tf32(o[tig + 4], b1.x, b1.y);
+#pragma unroll
+        for (int i = 0; i < kMi; ++i) {
+          tcore::mma_tf32(t[i][n], alo[i], b0.x, b1.x);
+          tcore::mma_tf32(t[i][n], ahi[i], b0.y, b1.y);
+          tcore::mma_tf32(t[i][n], ahi[i], b0.x, b1.x);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMi; ++i)
+#pragma unroll
+      for (int n = 0; n < kNj; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] += t[i][n][e];
+    if (c % n_dc != n_dc - 1) continue;
+
+    // the pass's rows are done: this thread's rows g, g + 8 of each m16
+    // tile (norms summed over the quad), summed per feature over the
+    // warp's rows (lanes of one tig: xor 4, 8, 16) into red[wr]
+    const int b0 = (c / n_dc) * kRows + wr0;
+    float base[kMi][2], mk[kMi][2];
+#pragma unroll
+    for (int i = 0; i < kMi; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float n2 = nrm[i][hh];
+        n2 += __shfl_xor_sync(kFull, n2, 1);
+        n2 += __shfl_xor_sync(kFull, n2, 2);
+        nrm[i][hh] = 0.f;
+        const int b = b0 + i * 16 + g + 8 * hh;
+        mk[i][hh] = b < B ? mask[static_cast<size_t>(l) * B + b] : 0.f;
+        base[i][hh] = n2 * inv_2tau + shift;
+      }
+#pragma unroll
+    for (int n = 0; n < kNj; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMi; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            s += expf(acc[i][n][2 * hh + e] * inv_sqrt_tau - base[i][hh]) *
+                 mk[i][hh];
+            acc[i][n][2 * hh + e] = 0.f;
+          }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          s += __shfl_xor_sync(kFull, s, off);
+        if (g == 0) red[wr][wf0 + n * 8 + 2 * tig + e] += s;
+      }
+  }
+
   __syncthreads();
-  if (tid < kFeat && k0 + tid < D) {
-    float s = 0.f;
-    for (int g = 0; g < kThreads / 16; ++g) s += red_s[g][tid];
-    out[static_cast<size_t>(l) * D + k0 + tid] = s * inv_sqrt_d;
+  for (int f = threadIdx.x; f < kFeat; f += kThreads) {
+    if (k0 + f >= D) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kWarpsR; ++r) sum += red[r][f];
+    out[static_cast<size_t>(l) * D + k0 + f] = sum * inv_sqrt_d;
   }
 }
 
@@ -135,10 +269,22 @@ extern "C" int rff_features_f32(const float* w, const float* omega,
                                 float inv_sqrt_d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  static bool ready[kMaxDevices] = {};  // shared-memory limit set
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(rff_features_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[device] = true;
+  }
+  const int vec = d % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
+                  reinterpret_cast<size_t>(omega) % 16 == 0;
   const dim3 grid(L, (D + kFeat - 1) / kFeat);
-  rff_features_kernel<<<grid, kThreads, 0,
+  rff_features_kernel<<<grid, kThreads, kSmem,
                         static_cast<cudaStream_t>(stream)>>>(
       w, omega, mask, logshift, out, B, d, D, inv_sqrt_tau, inv_2tau,
-      inv_sqrt_d);
+      inv_sqrt_d, vec);
   return static_cast<int>(cudaGetLastError());
 }

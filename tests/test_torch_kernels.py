@@ -7,6 +7,8 @@ held against these plain versions by ``chip_smoke.py``.  Tolerance: rtol
 1e-5 (both sides sum fp32 products, in different orders), with an atol of
 1e-5 where outputs pass through zero (raw dots).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -232,3 +234,120 @@ def test_row_dots_launch_with_the_plan(name, g, b, r, monkeypatch):
     p = plan(g, b, r)
     assert (chunk, unroll) == (p.chunk, p.unroll)
     assert kernels.launch_counts()[name] == 1
+
+
+#: sampled_loss's shapes in chip_smoke.py, with the route and the split
+#: its plan must take: (T, m, d, dtype, route, split)
+SAMPLED_LOSS_SHAPES = [
+    (1024, 512, 128, torch.float32, "simt", True),
+    (256, 128, 128, torch.float32, "simt", True),
+    (2176, 512, 4096, torch.bfloat16, "mma", True),
+    (1000, 500, 128, torch.float32, "simt", True),
+    (1000, 500, 4096, torch.bfloat16, "mma", True),
+    (1024, 512, 128, torch.bfloat16, "mma", True),
+    (300, 200, 136, torch.bfloat16, "mma", True),
+    (300, 200, 126, torch.bfloat16, "simt", True),
+    (100, 150, 136, torch.bfloat16, "mma", False),
+    (100, 150, 126, torch.bfloat16, "simt", False),
+    (100, 150, 128, torch.float32, "simt", False),
+]
+
+
+@pytest.mark.parametrize("t,m,d,dtype,route,split", SAMPLED_LOSS_SHAPES)
+def test_sampled_loss_launches_with_the_plan(t, m, d, dtype, route, split,
+                                             monkeypatch):
+    """sampled_loss launches once per call, counted once, with (T, m, d)
+    as given and ``sampled_loss.plan``'s route, tiling and m-splits, and a
+    (2, splits, T) fp32 workspace exactly where m is split (tensors are
+    empty-strided stand-ins: nothing is read)."""
+    from repro_torch.kernels.sampled_loss import TILINGS, plan
+
+    calls = _capture_launches(monkeypatch)
+    h = torch.zeros(1, dtype=dtype).expand(t, d)
+    w = torch.zeros(1, dtype=dtype).expand(m, d)
+    out = sampled_loss(h, w, torch.zeros(m), torch.zeros(t), m_total=2048)
+    assert out.shape == (t,) and out.dtype == torch.float32
+    assert len(calls) == 1
+    name, *ptrs, tt, mm, dd, log_m, bf16, mma, bt, bn, e1, e2, splits, _, \
+        stream = calls[0]
+    assert name == "sampled_loss" and len(ptrs) == 6
+    assert (tt, mm, dd, stream) == (t, m, d, 7)
+    assert log_m == pytest.approx(math.log(2048))
+    assert bf16 == int(dtype == torch.bfloat16)
+    p = plan(t, m, d, dtype)
+    assert p.route == route and mma == int(route == "mma")
+    assert (bt, bn, e1, e2) == (p.bt, p.bn, p.e1, p.e2)
+    assert (bt, bn, e1, e2) in TILINGS[route]
+    assert splits == p.splits and (splits > 1) == split
+    assert p.n_tt == -(-t // bt) and p.per_split * (splits - 1) < -(-m // bn)
+    assert p.workspace == ((2, splits, t) if split else (0,))
+    assert (ptrs[5] != 0) == split  # the workspace, where m is split
+    assert kernels.launch_counts()["sampled_loss"] == 1
+
+
+def test_sampled_loss_entry_shape_takes_one_wave_of_80_token_tiles():
+    """At llama3-8b's entry run (T 2,176 = 17 x 128) 64- and 128-token
+    tiles leave blocks over whole waves of 132; the plan takes 80 x 128
+    tiles, 28 x 4 = 112 blocks."""
+    from repro_torch.kernels.sampled_loss import SLOTS, plan
+
+    p = plan(2176, 512, 4096, torch.bfloat16)
+    assert (p.bt, p.bn, p.n_tt, p.splits) == (80, 128, 28, 4)
+    assert p.n_tt * p.splits <= SLOTS["mma"]
+    assert p.workspace == (2, 4, 2176)
+
+
+@pytest.mark.parametrize("dtype,d,aligned,route", [
+    (torch.bfloat16, 4096, True, "mma"), (torch.bfloat16, 136, True, "mma"),
+    (torch.bfloat16, 4096, False, "simt"), (torch.bfloat16, 126, True, "simt"),
+    (torch.float32, 128, True, "simt"), (torch.float32, 4096, True, "simt")])
+def test_sampled_loss_route_follows_dtype_width_and_alignment(dtype, d,
+                                                              aligned, route):
+    from repro_torch.kernels.sampled_loss import plan
+
+    assert plan(512, 256, d, dtype, aligned).route == route
+
+
+def test_sampled_loss_takes_an_unaligned_bf16_h_on_the_cuda_cores(
+        monkeypatch):
+    """A bf16 h one element past a 16-byte boundary goes to the CUDA-core
+    route (the TMA needs 16-byte aligned rows)."""
+    calls = _capture_launches(monkeypatch)
+    h = torch.zeros(300 * 136 + 1, dtype=torch.bfloat16)[1:].view(300, 136)
+    w = torch.zeros(200, 136, dtype=torch.bfloat16)
+    sampled_loss(h, w, torch.zeros(200), torch.zeros(300), m_total=200)
+    assert calls[0][11] == 1 and calls[0][12] == 0  # bf16, not mma
+
+
+def test_sampled_loss_mixed_dtypes_go_through_ops_as_fp32(monkeypatch):
+    """ops.sampled_loss takes h and w_neg of different dtypes as fp32: one
+    launch on the CUDA-core route."""
+    calls = _capture_launches(monkeypatch)
+    monkeypatch.setattr(ops, "_on_cuda", lambda *ts: True)
+    ops.sampled_loss(torch.zeros(1024, 128, dtype=torch.bfloat16),
+                     torch.zeros(512, 128), torch.zeros(512),
+                     torch.zeros(1024))
+    assert len(calls) == 1 and calls[0][11:13] == (0, 0)  # fp32, simt
+    assert kernels.launch_counts()["sampled_loss"] == 1
+
+
+@pytest.mark.parametrize("n_leaves,b,d,n_feat,tau", [(512, 256, 128, 128, 1.0),
+                                                     (37, 50, 126, 100, 0.7)])
+def test_rff_features_launch_arguments(n_leaves, b, d, n_feat, tau,
+                                       monkeypatch):
+    """rff_features launches once per call with (L, B, d, D) as given and
+    1 / sqrt(tau), 1 / (2 tau) and D^{-1/2}; counted once."""
+    calls = _capture_launches(monkeypatch)
+    out = rff_features(torch.zeros(1).expand(n_leaves, b, d),
+                       torch.zeros(1).expand(n_feat, d),
+                       torch.zeros(1).expand(n_leaves, b), torch.zeros(1),
+                       tau=tau)
+    assert out.shape == (n_leaves, n_feat) and len(calls) == 1
+    name, *ptrs, ll, bb, dd, ff, inv_sqrt_tau, inv_2tau, inv_sqrt_d, _, \
+        stream = calls[0]
+    assert name == "rff_features" and len(ptrs) == 5
+    assert (ll, bb, dd, ff, stream) == (n_leaves, b, d, n_feat, 7)
+    assert inv_sqrt_tau == pytest.approx(tau ** -0.5)
+    assert inv_2tau == pytest.approx(0.5 / tau)
+    assert inv_sqrt_d == pytest.approx(n_feat ** -0.5)
+    assert kernels.launch_counts()["rff_features"] == 1
