@@ -11,8 +11,9 @@ result line):
                  src/repro_torch/kernels/csrc/ into build/repro_torch/, one
                  nvcc per source, all started together; the tensor-core
                  flash, the zstats, the block_scores tile, the tensor-core
-                 sampled_loss and the rff_features instantiations must not
-                 spill, and the tensor-core ones' SASS must hold HMMA.
+                 sampled_loss, the rff_features and every fused-head
+                 instantiation must not spill, and the tensor-core ones'
+                 SASS must hold HMMA.
   3. kernels   — each kernel against its plain PyTorch version on the card,
                  with kernel / plain / library device times per call
                  (torch.profiler's device activities over 25 calls after
@@ -27,8 +28,10 @@ result line):
                  at the training path's (zstats (391, 256, 128),
                  block_scores T = 256 x 391 blocks, leaf_scores square
                  (32768, 256, 128), fused_lse / fused_lse_bwd at T = 256,
-                 K = 129 over a 100,000 x 128 head, both abs modes, plus
-                 ragged shapes).
+                 K = 129 over a 100,000 x 128 head, both abs modes, with
+                 90% of the slots on 3 rows, in bf16, plus ragged widths;
+                 every case also two calls bitwise equal, and the
+                 backward's device ms split by its three kernels).
   4. serving   — youtube-dnn at full width (100,000 items, 128-wide head):
                  random seeded weights, retrieval index build, and 96
                  requests (watch history + user features -> the port's tower
@@ -41,9 +44,11 @@ result line):
                  eq. 2/3 loss through the fused head, clip + AdamW) over a
                  cycled pool of 8 batches, where the loss must fall;
                  full-softmax loss of a held-out batch before and after;
-                 the fused head's kernels against its plain path on a real
-                 step's inputs; the trained head exported as a retrieval
-                 index that decodes 16 queries.
+                 the fused head's kernels against its plain path (and two
+                 calls bitwise equal) on a real step's inputs from the
+                 initial state and from the trained one (its ids timed
+                 too, as skewed_*); the trained head exported as a
+                 retrieval index that decodes 16 queries.
  6b. fresh     — only with --fresh: 60 steps over fresh batches with the
                  sampled loss and with the exact full softmax, reported,
                  not gated.
@@ -123,7 +128,8 @@ both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 follows the engine's batching), each path's count under
 ``launches_by_path``; the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
-llama_entry_* and llama_index_*) and
+llama_entry_*, llama_index_*, and the fused head's bf16_*, skew3_* (90%
+of the slots on 3 rows) and skewed_* (the trained state's step)) and
 the last is
 {"ok": true, "device": {...}}.
 """
@@ -334,6 +340,25 @@ def event_ms(fn, reps: int = REPS, calls: int = EVENT_CALLS) -> float:
     return statistics.median(times)
 
 
+def device_split(fn, reps: int = REPS) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (torch.profiler's device activities over ``reps`` calls, summed per
+    name and divided by ``reps``): where an entry point's time goes."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in device_events(prof):
+        found = re.search(r"(\w+_kernel)\b", e.name)
+        name = found[1] if found else e.name[:40]
+        split[name] = split.get(name, 0.0) + (e.time_range.end
+                                              - e.time_range.start)
+    return {k: v / reps / 1e3 for k, v in split.items()}
+
+
 def times(kernel, plain, library=None, reps: int = REPS,
           calls: int = EVENT_CALLS) -> dict[str, float | None]:
     """A kernel row's times: device ms per call of the kernel, its plain
@@ -395,7 +420,13 @@ def phase_device() -> str:
 #: kernels whose every instantiation must compile without spills (ptxas)
 NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel",
                     "block_scores_tile_kernel", "sampled_loss_mma_kernel",
-                    "rff_features_kernel")
+                    "rff_features_kernel", "fused_lse_kernel",
+                    "fused_bwd_front_kernel", "fused_bwd_scan_kernel",
+                    "fused_bwd_dw_kernel")
+#: instantiations of the fused head's kernels: fused_lse_kernel and
+#: fused_bwd_dw_kernel per (fp32 | bf16, vector loads or not), the front
+#: kernel also per (d <= 128 or wider), one scan kernel
+FUSED_HEAD_INSTANCES = 4 + 4 + 8 + 1
 #: (source's kernel, function, instantiations) that must hold tensor-core
 #: (HMMA) instructions in their SASS
 HMMA_KERNELS = (("flash_attention", "flash_mma_kernel", 3),
@@ -430,10 +461,11 @@ def phase_build() -> None:
     if logs and not all(logs.values()):
         log("[build] some libraries came from the cache: no spill check")
     elif len(spills) < 5 + len(kernels.block_scores.TILINGS) + sum(
-            n for _, f, n in HMMA_KERNELS if f != "flash_mma_kernel"):
+            n for _, f, n in HMMA_KERNELS if f != "flash_mma_kernel") + \
+            FUSED_HEAD_INSTANCES:
         # flash_mma_kernel<32, 64, 128>, zstats<64, 128>, one block_scores
         # tile kernel per tiling, one sampled_loss_mma_kernel per
-        # tensor-core tiling, rff_features_kernel
+        # tensor-core tiling, rff_features_kernel, the fused head's
         raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
                              f" only, not every instantiation of "
                              f"{NO_SPILL_KERNELS}")
@@ -660,25 +692,86 @@ def check_fused(tag: str, gen: torch.Generator, w, h, ids, corr, biasg,
                 abs_mode: bool) -> tuple[float, float]:
     """fused_lse and fused_lse_bwd against the plain chunked path on the
     same inputs; the backward gets the plain lse and a per-token cotangent,
-    so it is held on its own."""
+    so it is held on its own.  A second call of each, back to back, must
+    give bitwise the same outputs (dL/dw is summed in a fixed order)."""
     lse = fused_head.fused_lse(w, h, ids, corr, biasg, abs_mode=abs_mode)
+    again = fused_head.fused_lse(w, h, ids, corr, biasg, abs_mode=abs_mode)
     lse_p = ops._chunked_lse(w, h, ids, corr, biasg, abs_mode)
     e_fwd = compare(f"fused_lse {tag}", lse, lse_p)
     gbar = torch.randn(h.shape[0], generator=gen, device=h.device)
     got = fused_head.fused_lse_bwd(w, h, ids, corr, biasg, lse_p, gbar,
                                    abs_mode=abs_mode)
+    got2 = fused_head.fused_lse_bwd(w, h, ids, corr, biasg, lse_p, gbar,
+                                    abs_mode=abs_mode)
     want = ops._chunked_lse_bwd(w, h, ids, corr, biasg, lse_p, gbar,
                                 abs_mode)
+    names = ("dw", "dh", "dcoef", "dcorr")
     e_bwd = max(compare(f"fused_lse_bwd {name} {tag}", a, b)
-                for name, a, b in zip(("dw", "dh", "dcoef", "dcorr"), got,
-                                      want))
+                for name, a, b in zip(names, got, want))
+    differ = [name for name, a, b in zip(("lse",) + names, (lse,) + got,
+                                         (again,) + got2)
+              if not torch.equal(a, b)]
+    log(f"  fused head {tag}: two calls bitwise equal: "
+        f"{'no, ' + str(differ) if differ else 'yes'}")
+    if differ:
+        raise AssertionError(f"fused head {tag}: two calls differ in "
+                             f"{differ}")
     return e_fwd, e_bwd
 
 
-def phase_kernels_training(gen: torch.Generator, cfg) -> dict[str, dict]:
+def fused_rows(tag: str, w, h, ids, corr, biasg, errs: tuple[float, float]
+               ) -> dict[str, dict]:
+    """The fused-head kernels' rows (abs mode, as training calls them) on
+    these inputs: device / call / plain times and bounds, the backward's
+    time by kernel and a zero fill of its dL/dw (the floor of its one
+    dense write).  The bound counts the distinct rows the ids read, h, the
+    (T, K) inputs and outputs, and dL/dw's write; 2 FLOPs a slot and
+    column forward, 6 back."""
+    t, k = ids.shape
+    n, r = w.shape
+    el = w.element_size()
+    uniq = int(torch.unique(ids).numel())
+    hits = torch.bincount(ids.reshape(-1).long(), minlength=n)
+    lse = ops._chunked_lse(w, h, ids, corr, biasg, True)
+    gbar = torch.full((t,), 1.0 / t, device=h.device)
+    tk = t * k
+    out = {}
+    bms, by = bound_ms(el * (uniq * r + t * r) + 4 * (3 * tk + t), 2 * tk * r)
+    out["fused_lse"] = dict(
+        max_abs_err=errs[0], bound_ms=bms, bound_by=by,
+        **times(lambda: fused_head.fused_lse(w, h, ids, corr, biasg,
+                                             abs_mode=True),
+                lambda: ops._chunked_lse(w, h, ids, corr, biasg, True)))
+    bms, by = bound_ms(el * (uniq * r + t * r) + 4 * (3 * tk + 2 * t + n * r
+                                                      + t * r + 2 * tk),
+                       6 * tk * r)
+    out["fused_lse_bwd"] = dict(
+        max_abs_err=errs[1], bound_ms=bms, bound_by=by,
+        **times(lambda: fused_head.fused_lse_bwd(
+                    w, h, ids, corr, biasg, lse, gbar, abs_mode=True),
+                lambda: ops._chunked_lse_bwd(
+                    w, h, ids, corr, biasg, lse, gbar, True)))
+    out["fused_lse_bwd"]["kernels_ms"] = device_split(
+        lambda: fused_head.fused_lse_bwd(w, h, ids, corr, biasg, lse, gbar,
+                                         abs_mode=True))
+    # the floor of dL/dw's one dense write: a zero fill of the same table
+    dw = torch.empty((n, r), dtype=torch.float32, device=h.device)
+    out["fused_lse_bwd"]["dw_fill_ms"] = device_ms(dw.zero_)
+    del dw
+    log(f"[kernels] fused head {tag}: {uniq} distinct rows of {tk} slots, "
+        f"most on one row {int(hits.max())}, {w.dtype}; fused_lse_bwd's "
+        f"kernels, device ms per call: {out['fused_lse_bwd']['kernels_ms']}"
+        f"; a zero fill of dL/dw {out['fused_lse_bwd']['dw_fill_ms']} ms")
+    log_rows(tag, out)
+    return out
+
+
+def phase_kernels_training(gen: torch.Generator, cfg
+                           ) -> tuple[dict[str, dict], dict[str, dict]]:
     """All five kernels at the training path's shapes (youtube-dnn: 100,000
     items in 391 blocks of 256 (160 real rows in the last), r = d = 128,
-    T = 256, m = 128, alpha = 100)."""
+    T = 256, m = 128, alpha = 100); the fused head's other shapes' rows
+    apart, by tag."""
     dev = DEV
     out = {}
     n, r, bsz = cfg.vocab_size, api.hidden_width(cfg), cfg.sampler_block
@@ -732,8 +825,23 @@ def phase_kernels_training(gen: torch.Generator, cfg) -> dict[str, dict]:
     del rows, hg, h3, stats, w, wt, z
     torch.cuda.empty_cache()
 
-    # fused_lse / fused_lse_bwd: the loss and its VJP
-    k = 1 + m
+    log_rows("training shapes", out)
+    del head
+    torch.cuda.empty_cache()
+    fused, fused_shapes = phase_kernels_fused(gen, cfg)
+    out.update(fused)
+    return out, fused_shapes
+
+
+def phase_kernels_fused(gen: torch.Generator, cfg
+                        ) -> tuple[dict[str, dict], dict[str, dict]]:
+    """fused_lse / fused_lse_bwd, the loss and its VJP, at the training
+    shape (T 256, K 129 over a 100,000 x 128 head) in both abs modes, with
+    90% of the slots on 3 rows, at two ragged widths, and in bf16; each
+    case held against the plain path and repeated bitwise.  Returns the
+    fp32 rows and, by shape tag, the bf16 and the 3-row-skew rows."""
+    n, r = cfg.vocab_size, api.hidden_width(cfg)
+    t, k = TRAIN_BATCH, 1 + cfg.m_negatives
     w, h, ids, corr, biasg = head_inputs(gen, t, k, n, r)
     e_fwd = e_bwd = 0.0
     for abs_mode in (True, False):
@@ -745,29 +853,25 @@ def phase_kernels_training(gen: torch.Generator, cfg) -> dict[str, dict]:
         ef, eb = check_fused(f"T={tt} K={kk} n={nn} d={dd} abs=True", gen,
                              *args, True)
         e_fwd, e_bwd = max(e_fwd, ef), max(e_bwd, eb)
-    uniq = int(torch.unique(ids).numel())  # rows this call's ids need
-    lse = ops._chunked_lse(w, h, ids, corr, biasg, True)
-    gbar = torch.full((t,), 1.0 / t, device=dev)
-    tk = t * k
-    bms, by = bound_ms(4 * (uniq * r + t * r + 3 * tk + t), 2 * tk * r)
-    out["fused_lse"] = dict(
-        max_abs_err=e_fwd, bound_ms=bms, bound_by=by,
-        **times(lambda: fused_head.fused_lse(w, h, ids, corr, biasg,
-                                             abs_mode=True),
-                lambda: ops._chunked_lse(w, h, ids, corr, biasg, True)))
-    bms, by = bound_ms(4 * (uniq * r + t * r + 3 * tk + 2 * t + n * r + t * r
-                            + 2 * tk), 6 * tk * r)
-    out["fused_lse_bwd"] = dict(
-        max_abs_err=e_bwd, bound_ms=bms, bound_by=by,
-        **times(lambda: fused_head.fused_lse_bwd(
-                    w, h, ids, corr, biasg, lse, gbar, abs_mode=True),
-                lambda: ops._chunked_lse_bwd(
-                    w, h, ids, corr, biasg, lse, gbar, True)))
-    log(f"[kernels] fused head: {uniq} distinct rows of {tk} slots")
-    log_rows("training shapes", out)
-    del w, h, ids, corr, biasg, lse, head
+    hot = torch.randint(0, n, (3,), generator=gen, device=ids.device,
+                        dtype=torch.int32)
+    on = torch.rand(ids.shape, generator=gen, device=ids.device) < 0.9
+    skew = torch.where(on, hot[torch.randint(0, 3, ids.shape, generator=gen,
+                                             device=ids.device)], ids)
+    errs = check_fused(f"T={t} K={k} n={n} d={r} abs=True, 90% of the "
+                       f"slots on 3 rows", gen, w, h, skew, corr, biasg,
+                       True)
+    skew3 = fused_rows("90% of the slots on 3 rows", w, h, skew, corr, biasg,
+                       errs)
+    rows = fused_rows("training shape", w, h, ids, corr, biasg,
+                      (e_fwd, e_bwd))
+    wb, hb = w.bfloat16(), h.bfloat16()
+    errs = check_fused(f"T={t} K={k} n={n} d={r} abs=True bf16", gen, wb,
+                       hb, ids, corr, biasg, True)
+    bf16 = fused_rows("training shape, bf16", wb, hb, ids, corr, biasg, errs)
+    del w, h, ids, corr, biasg, wb, hb, skew
     torch.cuda.empty_cache()
-    return out
+    return rows, {"bf16": bf16, "skew3": skew3}
 
 
 def phase_kernels_hier(gen: torch.Generator, cfg
@@ -1128,7 +1232,7 @@ def held_out_batch(cfg) -> dict[str, torch.Tensor]:
                                    device=DEV))
 
 
-def phase_training(cfg) -> tuple[dict[str, int], object]:
+def phase_training(cfg) -> tuple[dict[str, int], object, dict[str, dict]]:
     """youtube-dnn at full width through fit: the training main path, on a
     cycled pool of TRAIN_POOL batches."""
     dev = DEV
@@ -1158,9 +1262,6 @@ def phase_training(cfg) -> tuple[dict[str, int], object]:
 
     # The fused head's kernels against its plain path on the inputs of the
     # first step fit takes (its initial state, a batch it has not seen).
-    # (The pool run's overfit head makes the sampler send thousands of
-    # draws to a few rows, so dL/dw sums thousands of terms per row and the
-    # fp32 summation order alone uses half the tolerance.)
     gen = torch.Generator(dev).manual_seed(7)
     head, h, ids, corr, *_ = real_step_inputs(init, cfg, held, gen)
     biasg = torch.zeros(ids.shape, device=dev)
@@ -1168,6 +1269,15 @@ def phase_training(cfg) -> tuple[dict[str, int], object]:
     uniq = int(torch.unique(ids).numel())
     check_fused(f"real step ({masked} masked slots, {uniq} distinct ids)",
                 gen, head, h, ids, corr, biasg, cfg.abs_softmax)
+    # ... and on a step of the trained state, whose sampler draws from the
+    # pool-fitted head (the log gives the most draws one row takes; phase
+    # 3's 90%-on-3-rows case is the extreme skew): held, repeated bitwise
+    # and timed as a second shape of both kernels
+    head, h, ids, corr, *_ = real_step_inputs(res.state, cfg, held, gen)
+    errs = check_fused("trained state's step", gen, head, h, ids, corr,
+                       biasg, cfg.abs_softmax)
+    skewed = fused_rows("trained state's step", head, h, ids, corr, biasg,
+                        errs)
     del init, head, h, ids, corr
 
     # the trained head served: export the index and decode 16 queries
@@ -1189,7 +1299,7 @@ def phase_training(cfg) -> tuple[dict[str, int], object]:
     log(f"[training] exported index in {build_s:.3f} s; 16 held-out "
         f"queries decoded at beam 256: logits exact and sorted, recall@10 "
         f"{rec}")
-    return counts, res.state
+    return counts, res.state, skewed
 
 
 def phase_fresh(cfg) -> None:
@@ -2180,7 +2290,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     serving_rows = phase_kernels(gen)
     cfg = get_config("youtube-dnn")
-    rows = phase_kernels_training(gen, cfg)
+    rows, fused_shapes = phase_kernels_training(gen, cfg)
     llama_rows, llama_shapes = phase_kernels_llama(gen)
     rows.update(llama_rows)
 
@@ -2205,7 +2315,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"serving path never launched {missing}")
 
-    counts, state = phase_training(cfg)
+    counts, state, skewed_rows = phase_training(cfg)
     if args.fresh:
         phase_fresh(cfg)
     phase_training_breakdown(cfg, state)
@@ -2217,6 +2327,8 @@ def main() -> int:
     hier_rows, shapes = phase_kernels_hier(gen, cfg)
     rows.update(hier_rows)
     shapes["serving"] = serving_rows
+    shapes.update(fused_shapes)
+    shapes["skewed"] = skewed_rows
     by_path = {"serving": serving_counts, "block-quadratic": counts}
     held = held_out_batch(cfg)
     data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=0, device=DEV)

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: kernel -> (source stem, C function, argtypes); every function returns a
 #: cudaError_t.
 SIGNATURES = {
@@ -43,10 +44,10 @@ SIGNATURES = {
     "leaf_scores": ("leaf_scores", "leaf_scores_f32",
                     (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     "fused_lse": ("fused_head", "fused_lse_f32",
-                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "fused_lse_bwd": ("fused_head", "fused_lse_bwd_f32",
-                      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P)),
+                      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P)),
     "rff_features": ("rff_features", "rff_features_f32",
                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
                       _P)),
@@ -147,8 +148,8 @@ def check(name: str, t: torch.Tensor, ndim: int,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is what the kernels take: a contiguous CUDA tensor
     of ``ndim`` dims and type ``dtype`` — fp32 for values (only
-    ``flash_attention`` and ``sampled_loss`` also take bf16), int32 for row
-    ids."""
+    ``flash_attention``, ``sampled_loss`` and the fused head also take
+    bf16), int32 for row ids."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -240,8 +240,10 @@ def fused_head_lse(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,
     the backward scatter-adds dL/dw and accumulates dL/dh; the kernels never
     materialize the (T, K, d) gather, the plain path one (128, K, d) chunk
     at a time.  ``impl``: see ``FUSED_HEAD_IMPLS``.
-    On the card the kernels take fp32 only: bf16 ``w`` or ``h`` raises
-    ``TypeError`` (bf16 kernels are later work)."""
+    On the card the kernels read fp32 or bf16 ``w`` and ``h`` as they are
+    and compute in fp32, as the Pallas kernels cast each loaded row; a
+    head and hidden states of different dtypes (or another float type) are
+    both taken as fp32."""
     if impl not in FUSED_HEAD_IMPLS:
         raise ValueError(f"fused_head_lse impl={impl!r} not in "
                          f"{FUSED_HEAD_IMPLS}")
@@ -253,6 +255,9 @@ def fused_head_lse(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,
     # converted once per call, never per slot.
     ids = ids.to(torch.int32 if kernel else torch.int64).contiguous()
     if kernel:
+        if w.dtype != h.dtype or w.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            w, h = w.float(), h.float()
         w, h = w.contiguous(), h.contiguous()
     return _FusedHeadLSE.apply(w, h, ids, corr.float().contiguous(),
                                biasg.float().contiguous(), bool(abs_mode),

@@ -9,6 +9,8 @@ and ids repeated within and across tokens.  Tolerances: forward rtol 1e-5
 and gradients rtol 1e-5 / atol 1e-6 (fp32 sums of d-term products in
 other orders).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,20 +147,74 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     assert not any(kernels.launch_counts().values())
 
 
-def test_bf16_head_on_the_card_raises_type_error(monkeypatch):
-    """bf16 kernels are later work: the dtype check refuses a bf16 head
-    before any launch (the device check is bypassed for the test)."""
-    def dtype_only(name, t, ndim, dtype=torch.float32):
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-
+def test_bf16_head_on_the_card_launches_with_the_bf16_flag(monkeypatch):
+    """A bf16 head and bf16 hidden states reach both kernels as they are,
+    with the bf16 flag set (the device check and the launches are stood
+    in for: nothing is computed), the gradients come back in bf16, and
+    each entry counts one launch."""
+    calls = []
     monkeypatch.setattr(ops, "_on_cuda", lambda *ts: True)
-    monkeypatch.setattr(fused_head._build, "check", dtype_only)
+    monkeypatch.setattr(fused_head._build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(fused_head._build, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=7))
     kernels.reset_launch_counts()
     w, h, ids, corr, biasg = (torch.from_numpy(x) for x in _inputs(2, 3, 8))
-    with pytest.raises(TypeError, match="bfloat16"):
-        ops.fused_head_lse(w.bfloat16(), h, ids, corr, biasg)
-    assert not any(kernels.launch_counts().values())
+    wb = w.bfloat16().requires_grad_()
+    hb = h.bfloat16().requires_grad_()
+    lse = ops.fused_head_lse(wb, hb, ids, corr, biasg, abs_mode=True)
+    lse.sum().backward()
+    assert [c[0] for c in calls] == ["fused_lse", "fused_lse_bwd"]
+    fwd, bwd = calls[0][1], calls[1][1]
+    assert fwd[6:10] == (2, 3, 8, 1) and fwd[10] == 1  # T, K, d, abs; bf16
+    assert bwd[12:18] == (2, 3, 8, N_ROWS, 1, 1)  # T, K, d, n, abs, bf16
+    assert wb.grad.dtype == hb.grad.dtype == torch.bfloat16
+    assert kernels.launch_counts()["fused_lse"] == 1
+    assert kernels.launch_counts()["fused_lse_bwd"] == 1
+
+
+@pytest.mark.parametrize("abs_mode", [False, True])
+def test_bf16_inputs_match_the_reference(abs_mode):
+    """bf16 w and h through ``ops.fused_head_lse`` (the plain path here, the
+    kernels' plain version on the card) against the reference on the same
+    bf16 values: lse and the fp32 corr / biasg cotangents within rtol
+    1e-5; dL/dw and dL/dh, returned in bf16 by both, within one bf16 ulp
+    (their fp32 sums round to bf16 apart where they straddle a step)."""
+    w, h, ids, corr, biasg = _inputs(9, 8, 16, seed=21)
+    wb = torch.from_numpy(w).bfloat16()
+    hb = torch.from_numpy(h).bfloat16()
+
+    @jax.jit
+    def run(w_, h_, c_, b_):
+        def loss(w_, h_, c_, b_):
+            lse = jops.fused_head_lse(w_, h_, ids, c_, b_,
+                                      abs_mode=abs_mode, impl="chunked")
+            return jnp.sum(jnp.cos(lse)), lse
+        return jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
+                                  has_aux=True)(w_, h_, c_, b_)
+
+    (_, want), wgrads = run(jnp.asarray(wb.float().numpy(), jnp.bfloat16),
+                            jnp.asarray(hb.float().numpy(), jnp.bfloat16),
+                            corr, biasg)
+    ts = [wb.requires_grad_(), hb.requires_grad_()] + [
+        torch.from_numpy(x).requires_grad_() for x in (corr, biasg)]
+    lse = ops.fused_head_lse(ts[0], ts[1], torch.from_numpy(ids).long(),
+                             ts[2], ts[3], abs_mode=abs_mode)
+    torch.sum(torch.cos(lse)).backward()
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want),
+                               rtol=1e-5)
+    for x, g, name in zip(ts, wgrads, ["dw", "dh", "dcorr", "dbiasg"]):
+        got = x.grad.float().numpy()
+        ref_g = np.asarray(g.astype(jnp.float32))
+        if name in ("dw", "dh"):
+            assert x.grad.dtype == torch.bfloat16
+            np.testing.assert_allclose(got, ref_g, rtol=2**-8, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(got, ref_g, rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("abs_mode", [False, True])
