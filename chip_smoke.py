@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU and
-check them: youtube-dnn serving and training, and llama3-8b serving.
+check them: youtube-dnn serving and training, ptb-lstm training, and
+llama3-8b serving.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -58,7 +59,11 @@ result line):
                  intervals over the host wall), and host-clock times of one
                  decode's stages per bucket.
   8. hierarchical kernels — rff_features (512 leaves of 256 rows, d = 128,
-                 D = 128), midx_pair_masses (T = 256 x 512 lists) and
+                 D = 128), midx_pair_masses (T = 256 x 512 lists, both
+                 entries, fp32 and bf16, also at T 37, P 100, d 126; empty
+                 lists exactly 0, two calls bitwise equal; timed beside
+                 its ct entry, bf16 and the call with the codeword-pair
+                 expansion outside the kernel) and
                  midx_member_scores (32,768 draws x 256 rows) against their
                  plain versions at the training shapes, padded rows and
                  empty lists present, with the same times as phase 3; and
@@ -75,6 +80,21 @@ result line):
                  n_valid; then per family the host ms of its refresh,
                  sampler and whole step and a torch.profiler trace of one
                  step.
+ 9b. ptb-lstm    — the paper's own language model at full width (vocab
+                 10,000, 2 LSTM layers of 200, block-quadratic over 79
+                 blocks of 128, m = 128, abs mode, fp32) through fit at
+                 Zaremba et al.'s medium batch, 20 x 35 tokens (T = 700):
+                 60 steps on a cycled pool of 8 batches with exact launch
+                 counts, a finite loss at every step that falls, peak
+                 memory; then one step of the trained state with each of
+                 its five kernels held against its plain version on the
+                 step's own inputs and timed there (zstats (79, 128, 200),
+                 block_scores 700 x 79, leaf_scores (89,600, 128, 200),
+                 the fused head at T 700, K 129, n 10,000, d 200, two calls
+                 bitwise equal, its split lists logged), the step's loss
+                 and gradients at fixed negatives through the kernels
+                 against the plain path, the step's stages and a profile of
+                 three steps (busy share).
  10. llama kernels — flash_attention (the tensor-core kernel) against
                  its plain version in bf16 at llama3-8b's prefill shape (B
                  4, S 512, H 32, KV 8, hd 128, causal) and at (B 1, S
@@ -114,10 +134,10 @@ result line):
  12. sampled_loss entry — ops.sampled_loss once, at llama width, on the
                  forward's hidden states with 512 shared uniform negatives,
                  held against its plain version.
-Phases 4-5, 6, each family of 9, 11 and 12 are main paths: the kernel
+Phases 4-5, 6, each family of 9, 9b, 11 and 12 are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
-the five kernels of phase 3, each family its own kernels exactly
+(youtube-dnn and ptb-lstm) and each family its own kernels exactly
 (``expected_launches``), llama serving zstats once, flash_attention (the
 tensor-core kernel) once per layer, flash_attention_simt never, and
 leaf_scores once per index top-k step, and the entry run sampled_loss
@@ -128,8 +148,11 @@ both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 follows the engine's batching), each path's count under
 ``launches_by_path``; the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
-llama_entry_*, llama_index_*, and the fused head's bf16_*, skew3_* (90%
-of the slots on 3 rows) and skewed_* (the trained state's step)) and
+llama_entry_*, llama_index_*, ptb_* (the five kernels at ptb-lstm's
+step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
+ct entry, bf16, and the call with the expansion outside the kernel), and
+the fused head's bf16_*, skew3_* (90% of the slots on 3 rows) and
+skewed_* (the trained state's step)) and
 the last is
 {"ok": true, "device": {...}}.
 """
@@ -174,6 +197,7 @@ from repro_torch.core.sampled_softmax import (  # noqa: E402
 )
 from repro_torch.core.samplers import sampler_from_config  # noqa: E402
 from repro_torch.data.pipeline import batch_iterator_for  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -228,10 +252,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:92",
 }
-#: kernels each main path must launch
+#: kernels the serving path must launch (its counts follow the engine's
+#: batching; the training paths' are exact, ``expected_launches``)
 SERVING_KERNELS = ("zstats", "block_scores", "leaf_scores")
-TRAINING_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
-                    "fused_lse_bwd")
 #: the hierarchical sampler families of phase 9
 FAMILIES = ("tree-quadratic", "rff", "midx")
 TRAIN_STEPS = 60
@@ -980,32 +1003,79 @@ def phase_kernels_hier(gen: torch.Generator, cfg
     del wq, mask
 
     # midx: a real index of the head (pc-bisection + two k-means), so the
-    # codes, counts and empty lists are the sampler's
+    # codes, counts and empty lists are the sampler's.  Both stage-1
+    # entries are held: the codes entry (the sampler's, through ops) and
+    # the ct entry (the Pallas kernel's signature), in fp32 and bf16, at
+    # the training shape and at a ragged one; empty lists exactly 0, two
+    # calls bitwise equal.
     st = midx.build(head, codewords=cfg.midx_codewords,
                     codebooks=cfg.midx_codebooks, list_size=leaf)
     n_lists = st.num_lists
     empty = int((st.cnt == 0).sum())
-    got = ops.midx_list_masses(hq, st.c1, st.c2, st.codes, st.cnt, alpha)
-    err = compare(f"midx_pair_masses T={t} P={n_lists} ({empty} empty) "
-                  f"d={d}", got,
-                  ref.midx_list_masses_ref(hq, st.c1, st.c2, st.codes,
-                                           st.cnt, alpha))
-    if float(got[:, st.cnt == 0].abs().max()) != 0.0:
-        raise AssertionError("midx_pair_masses: an empty list has mass")
     ct = st.c1[st.codes[:, 0].long()] + st.c2[st.codes[:, 1].long()]
     h2 = torch.randn((37, 126), generator=gen, device=dev)
-    ct2 = torch.randn((100, 126), generator=gen, device=dev) * 0.1
+    c12 = [torch.randn((5, 126), generator=gen, device=dev) * s
+           for s in (0.1, 0.05)]
+    codes2 = torch.randint(0, 5, (100, 2), generator=gen, device=dev,
+                           dtype=torch.int32)
     cnt2 = torch.clamp(1000.0 - 16.0 * torch.arange(100, device=dev), 0, 16)
-    err = max(err, compare("midx_pair_masses T=37 P=100 d=126",
-                           midx_pair_masses(h2, ct2, cnt2, alpha=alpha),
-                           ref.midx_pair_masses_ref(h2, ct2, cnt2, alpha)))
-    bms, by = bound_ms(4 * (t * d + n_lists * d + n_lists + t * n_lists),
-                       t * n_lists * (2 * d + 3))
+    ct2 = c12[0][codes2[:, 0].long()] + c12[1][codes2[:, 1].long()]
+    err = 0.0
+    for tag, hh, c1, c2, codes, cnt, ctt in (
+            (f"T={t} P={n_lists} ({empty} empty) d={d}", hq, st.c1, st.c2,
+             st.codes, st.cnt, ct),
+            ("T=37 P=100 (37 empty) d=126", h2, *c12, codes2, cnt2, ct2)):
+        for dt in (torch.float32, torch.bfloat16):
+            hd, c1d, c2d, ctd = (x.to(dt) for x in (hh, c1, c2, ctt))
+            for entry, fn, want in (
+                    ("codes", lambda: ops.midx_list_masses(
+                        hd, c1d, c2d, codes, cnt, alpha),
+                     ref.midx_list_masses_ref(hd, c1d, c2d, codes, cnt,
+                                              alpha)),
+                    ("ct", lambda: midx_pair_masses(hd, ctd, cnt,
+                                                    alpha=alpha),
+                     ref.midx_pair_masses_ref(hd, ctd, cnt, alpha))):
+                got = fn()
+                name = f"midx_pair_masses {entry} entry {tag} {dt}"
+                err = max(err, compare(name, got, want))
+                if bool(got[:, cnt == 0].any()):
+                    raise AssertionError(f"{name}: an empty list has mass")
+                if not torch.equal(got, fn()):
+                    raise AssertionError(f"{name}: two calls differ")
+    n_codewords = st.c1.shape[0] + st.c2.shape[0]
+    bms, by = bound_ms(4 * (t * d + n_codewords * d + 3 * n_lists
+                            + t * n_lists),
+                       t * n_lists * (2 * d + 3) + n_lists * d)
+    hb, c1b, c2b, ctb = (x.bfloat16() for x in (hq, st.c1, st.c2, ct))
     out["midx_pair_masses"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
-        **times(lambda: midx_pair_masses(hq, ct, st.cnt, alpha=alpha),
-                lambda: ref.midx_pair_masses_ref(hq, ct, st.cnt, alpha),
+        **times(lambda: ops.midx_list_masses(hq, st.c1, st.c2, st.codes,
+                                             st.cnt, alpha),
+                lambda: ref.midx_list_masses_ref(hq, st.c1, st.c2, st.codes,
+                                                 st.cnt, alpha),
                 lambda: hq @ ct.T))
+    # the ct entry, bf16, and the call with its expansion outside the
+    # kernel as the sampler made it before the codes entry
+    earlier["midx_ct_entry"] = {"midx_pair_masses": dict(
+        ms=device_ms(lambda: midx_pair_masses(hq, ct, st.cnt, alpha=alpha)),
+        event_ms=event_ms(lambda: midx_pair_masses(hq, ct, st.cnt,
+                                                   alpha=alpha)))}
+    earlier["midx_bf16"] = {"midx_pair_masses": dict(
+        ms=device_ms(lambda: ops.midx_list_masses(hb, c1b, c2b, st.codes,
+                                                  st.cnt, alpha)),
+        ct_entry_ms=device_ms(lambda: midx_pair_masses(hb, ctb, st.cnt,
+                                                       alpha=alpha)))}
+
+    def expanded():
+        ce = st.c1[st.codes[:, 0].long()] + st.c2[st.codes[:, 1].long()]
+        return midx_pair_masses(hq, ce, st.cnt, alpha=alpha)
+
+    earlier["midx_expanded"] = {"midx_pair_masses": dict(
+        ms=device_ms(expanded), event_ms=event_ms(expanded))}
+    for tag in ("midx_ct_entry", "midx_bf16", "midx_expanded"):
+        log(f"[kernels] midx_pair_masses ({tag}): "
+            + ", ".join(f"{k} {v}" for k, v in
+                        earlier[tag]["midx_pair_masses"].items()))
 
     # midx_member_scores: stage 2 over lists drawn among the live ones (the
     # last live list holds padding rows)
@@ -1207,7 +1277,7 @@ def real_step_inputs(state, cfg, batch, gen):
         labels, runtime
 
 
-def run_fit(cfg, data, tag: str):
+def run_fit(cfg, data, tag: str, batch: str = f"batch {TRAIN_BATCH}"):
     """60 steps of ``fit`` from seed 0; logs the loss means of the first and
     last 10 steps and returns them with the result."""
     opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
@@ -1218,8 +1288,8 @@ def run_fit(cfg, data, tag: str):
     wall = time.perf_counter() - t0
     first = statistics.mean(res.losses[:10])
     last = statistics.mean(res.losses[-10:])
-    log(f"[training] {tag}: youtube-dnn {cfg.vocab_size} items, batch "
-        f"{TRAIN_BATCH}, m {cfg.m_negatives}, {TRAIN_STEPS} steps in "
+    log(f"[training] {tag}: {cfg.name} {cfg.vocab_size} classes, {batch}, "
+        f"m {cfg.m_negatives}, {TRAIN_STEPS} steps in "
         f"{wall:.3f} s ({wall / TRAIN_STEPS * 1e3:.3f} ms/step, first step "
         f"included); sampled loss mean of steps 0-9 {first}, of steps "
         f"{TRAIN_STEPS - 10}-{TRAIN_STEPS - 1} {last}; stragglers "
@@ -1250,9 +1320,9 @@ def phase_training(cfg) -> tuple[dict[str, int], object, dict[str, dict]]:
                                f"pool of {TRAIN_POOL} batches")
     counts = kernels.launch_counts()
     log(f"[training] launches {counts}")
-    missing = [k for k in TRAINING_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"training path never launched {missing}")
+    want = expected_launches(cfg)
+    if counts != want:
+        raise AssertionError(f"training launches {counts} != {want}")
     if not all(math.isfinite(x) for x in res.losses) or not last < first:
         raise AssertionError(f"training loss did not fall: {first} -> "
                              f"{last}")
@@ -1321,16 +1391,20 @@ def phase_fresh(cfg) -> None:
 
 
 def expected_launches(cfg) -> dict[str, int]:
-    """Exact launches of TRAIN_STEPS steps of ``fit`` with a hierarchical
-    sampler: ``init_train_state`` builds the statistics once and every step
+    """Exact launches of TRAIN_STEPS steps of ``fit`` with a kernel sampler:
+    ``init_train_state`` builds the statistics once and every step
     refreshes them (refresh every step), samples once and runs the fused
-    head forward and backward once.  The tree's descent scores each level
+    head forward and backward once.  The block sampler scores its root
+    once (block_scores) and the drawn blocks once (leaf_scores); the tree's
+    descent scores each level
     with at most ``dense_cap = max(256, 4m)`` nodes through block_scores:
     levels 1-9 (2 to 512 nodes) of the 512-leaf tree at full width."""
     s = TRAIN_STEPS
     counts = dict.fromkeys(REPLACES, 0)
     counts.update(fused_lse=s, fused_lse_bwd=s)
-    if cfg.sampler == "tree-quadratic":
+    if cfg.sampler == "block-quadratic":
+        counts.update(zstats=s + 1, block_scores=s, leaf_scores=s)
+    elif cfg.sampler == "tree-quadratic":
         leaves = 1 << (-(-cfg.vocab_size // cfg.sampler_block) - 1
                        ).bit_length()
         dense = sum(1 for lvl in range(1, leaves.bit_length())
@@ -1452,19 +1526,20 @@ def host_ms_split(setup, fn) -> float:
     return statistics.median(times)
 
 
-def phase_training_breakdown(cfg, state) -> None:
+def phase_training_breakdown(cfg, state, batch=None) -> None:
     """Where one training step's time goes: host ms per stage, each ending
     in a device sync, median of 9, beside the whole step and the dense
     full-softmax head's forward + backward at the same T.  The sampler is
     timed whole (``sample_batch``), with its leaf step's block gather
-    alone beside it; the profile phase splits its device time by kernel."""
+    alone beside it; the profile phase splits its device time by kernel.
+    ``batch`` defaults to a fresh youtube-dnn batch of TRAIN_BATCH."""
     dev = DEV
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
-    data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=2000,
-                              device=dev)
-    batch = next(data)
+    if batch is None:
+        batch = next(batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=2000,
+                                        device=dev))
     gen = torch.Generator(dev).manual_seed(11)
     refresh = step.make_refresh_fn(cfg)
     head_p = api.head_table(state.params, cfg)
@@ -1512,8 +1587,8 @@ def phase_training_breakdown(cfg, state) -> None:
         clip_adamw=host_ms(optimizer),
         step=host_ms(whole),
         dense_head_fwd_bwd=host_ms_split(dense_setup, dense))
-    log(f"[breakdown] training step, T={TRAIN_BATCH}, m={m}: host ms "
-        "(median of 9, synced): "
+    log(f"[breakdown] {cfg.name} training step, T={h.shape[0]}, m={m}: "
+        "host ms (median of 9, synced): "
         + ", ".join(f"{name} {ms}" for name, ms in row.items()))
     log(f"[breakdown] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1521,19 +1596,21 @@ def phase_training_breakdown(cfg, state) -> None:
 
 #: substrings of the hand-written kernels' names in a device trace
 HAND_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
-                "rff_features", "pair_masses", "member_scores")
+                "fused_bwd", "rff_features", "pair_masses", "member_scores")
 
 
-def phase_profile(cfg, state, steps: int = 3) -> None:
+def phase_profile(cfg, state, steps: int = 3, batches=None) -> None:
     """Device time by kernel over ``steps`` training steps (torch.profiler,
     device activities only).  The busy time is the union of the device
     intervals; the host wall of the same steps is taken once traced and
-    once untraced, and the busy share is given against each."""
+    once untraced, and the busy share is given against each.  ``batches``
+    defaults to ``steps`` fresh youtube-dnn batches of TRAIN_BATCH."""
     opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
     train_step = step.make_train_step(cfg, None, opt)
-    data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=3000,
-                              device=DEV)
-    batches = [next(data) for _ in range(steps)]
+    if batches is None:
+        data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=3000,
+                                  device=DEV)
+        batches = [next(data) for _ in range(steps)]
     gen = torch.Generator(DEV).manual_seed(13)
 
     def run(st):
@@ -1549,7 +1626,8 @@ def phase_profile(cfg, state, steps: int = 3) -> None:
         state, wall_us = run(state)
     events = device_events(prof)
     busy = busy_us(events)
-    log(f"[profile] {cfg.sampler}, {steps} training step(s): device busy "
+    log(f"[profile] {cfg.name} {cfg.sampler}, {len(batches)} training "
+        f"step(s): device busy "
         f"{busy:.0f} us (union of {len(events)} device activities); host "
         f"wall {wall_us:.0f} us traced ({100 * busy / wall_us:.1f}% busy), "
         f"{untraced_us:.0f} us untraced ({100 * busy / untraced_us:.1f}%)")
@@ -1562,6 +1640,199 @@ def phase_profile(cfg, state, steps: int = 3) -> None:
     for name, durs in ranked[:15] + hand:
         log(f"[profile]   {name[:70]}: {sum(durs):.0f} us over {len(durs)} "
             "calls")
+
+
+# --- ptb-lstm training (the paper's own language model) -----------------------
+
+#: Zaremba et al. 2014's "medium" setting (batch_size 20, num_steps 35):
+#: T = 700 hidden states a step
+PTB_BATCH = 20
+PTB_SEQ = 35
+
+
+def ptb_split_lists(ids: torch.Tensor, n: int, d: int) -> str:
+    """How the fused backward's plan lays out this step's slots: lists of
+    rows, slots a list, and the lists longer than one run (split, then
+    folded)."""
+    t, k = ids.shape
+    pl = fused_head.plan(t, k, d, n)
+    rows = pl.q * fused_head.TILE_ROWS
+    per = torch.bincount(ids.reshape(-1).long() // rows,
+                         minlength=pl.n_lists)
+    split = int((per > pl.run).sum())
+    runs = int((-(-per // pl.run)).sum())
+    return (f"{pl.n_lists} lists of {rows} rows, run {pl.run}: slots a list "
+            f"mean {float(per.float().mean()):.1f}, max {int(per.max())}; "
+            f"{split} lists split, {runs} runs in all")
+
+
+def ptb_step_check(cfg, state, batch, gen: torch.Generator
+                   ) -> dict[str, dict]:
+    """One ptb-lstm step of ``state`` on ``batch``, each kernel held against
+    its plain version on that step's own inputs and timed there: the
+    refresh's zstats over the head's 79 blocks (the last holds 16 real
+    rows), the root's block_scores (T 700 x 79), leaf_scores over the
+    89,600 drawn blocks (padding rows of the last block score exactly 1),
+    the fused head on the step's gather plan (two calls bitwise equal);
+    then the loss and every gradient at the step's fixed negatives through
+    the kernels and through the plain path, each within RTOL of its plain
+    value's largest entry.  Returns the kernels' rows."""
+    sampler = sampler_from_config(cfg)
+    m, alpha, bsz = cfg.m_negatives, cfg.sampler_alpha, cfg.sampler_block
+    n, r = cfg.vocab_size, api.hidden_width(cfg)
+    head = api.head_table(state.params, cfg).detach()
+    rows: dict[str, dict] = {}
+    with torch.no_grad():
+        sstate = step.make_refresh_fn(cfg)(head, state.sampler_state)
+        runtime = sampler.hydrate(sstate, n)
+        st = runtime["stats"]
+        w, z, cnt = st.wq, st.z, st.cnt
+        nb = w.shape[0]
+        err = compare(f"ptb zstats ({nb}, {bsz}, {r}), the refresh's", z,
+                      ref.zstats_ref(w))
+        bms, by = bound_ms(4 * (nb * bsz * r + nb * r * r),
+                           nb * bsz * r * (r + 1))
+        wt = w.transpose(1, 2)
+        rows["zstats"] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            **times(lambda: zstats(w), lambda: ref.zstats_ref(w),
+                    lambda: torch.bmm(wt, w)))
+
+        h, labels, _ = api.backbone_hidden(state.params, batch, cfg)
+        hq = hierarchy.project(h, runtime["proj"]).contiguous()
+        t = hq.shape[0]
+        err = compare(f"ptb block_scores root T={t} N={nb}",
+                      block_scores(hq, z, cnt, alpha=alpha),
+                      ref.block_scores_ref(hq, z, cnt, alpha))
+        bms, by = bound_ms(4 * (t * r + nb * r * r + nb + t * nb),
+                           2 * t * nb * (r * r + r))
+        log_plans("ptb root", t, [nb], r)
+        rows["block_scores"] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            **times(lambda: block_scores(hq, z, cnt, alpha=alpha),
+                    lambda: ref.block_scores_ref(hq, z, cnt, alpha),
+                    lambda: torch.einsum("nij,ti,tj->tn", z, hq, hq)))
+
+        neg, logq = sampler.sample_batch(runtime, h, m, gen)
+        blk = torch.div(neg.reshape(-1), bsz, rounding_mode="floor")
+        blk[::97] = nb - 1  # the last block, 16 real rows, present
+        gathered = w[blk]
+        hg = hq.repeat_interleave(m, dim=0)
+        g = hg.shape[0]
+        got = leaf_scores(hg, gathered, alpha=alpha)
+        want = ref.leaf_scores_ref(hg, gathered, alpha)
+        err = compare(f"ptb leaf_scores ({g}, {bsz}, {r})", got, want)
+        pad = (blk[:, None] * bsz + torch.arange(bsz, device=DEV)) >= n
+        if not (bool((got[pad] == 1.0).all())
+                and bool((want[pad] == 1.0).all())):
+            raise AssertionError("ptb leaf_scores: a padding row of the "
+                                 "last block does not score exactly 1")
+        log(f"  ptb leaf_scores: {int(pad.sum())} padding-row scores, all "
+            "exactly 1 in both")
+        del got, want, pad
+        h3 = hg[:, :, None]
+        bms, by = bound_ms(4 * (g * r + g * bsz * r + g * bsz),
+                           g * bsz * (2 * r + 2))
+        rows["leaf_scores"] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            **times(lambda: leaf_scores(hg, gathered, alpha=alpha),
+                    lambda: ref.leaf_scores_ref(hg, gathered, alpha),
+                    lambda: torch.bmm(gathered, h3)))
+        del gathered, hg, h3, wt
+        torch.cuda.empty_cache()
+
+        ids, corr = fused_plan(labels, neg, logq)
+        ids = ids.to(torch.int32)
+        biasg = torch.zeros(ids.shape, device=DEV)
+        log(f"[ptb] fused backward's plan at T {t}, K {ids.shape[1]}, n "
+            f"{n}, d {r}: {ptb_split_lists(ids, n, r)}")
+        h32 = h.contiguous()
+        errs = check_fused(f"ptb-lstm step T={t} K={ids.shape[1]} n={n} "
+                           f"d={r}", gen, head, h32, ids, corr, biasg,
+                           cfg.abs_softmax)
+        rows.update(fused_rows("ptb-lstm step", head, h32, ids, corr, biasg,
+                               errs))
+
+    # the step's loss and gradients at these negatives: kernels vs plain
+    est = estimators.make_estimator(cfg.estimator)
+    params = dict(state.params.named_parameters())
+
+    def loss_grads(impl):
+        for p_ in params.values():
+            p_.grad = None
+        hh, lab, _ = api.backbone_hidden(state.params, batch, cfg)
+        loss = torch.mean(estimators.loss_from_embeddings(
+            est, api.head_table(state.params, cfg), hh, lab, neg, logq,
+            abs_mode=cfg.abs_softmax, impl=impl))
+        loss.backward()
+        return loss.detach(), {k: p_.grad.clone() for k, p_ in
+                               params.items()}
+
+    before = kernels.launch_counts()
+    loss_k, grads_k = loss_grads(cfg.head_impl)
+    after = kernels.launch_counts()
+    if (after["fused_lse"] - before["fused_lse"],
+            after["fused_lse_bwd"] - before["fused_lse_bwd"]) != (1, 1):
+        raise AssertionError("ptb step check: the kernel step did not "
+                             "launch the fused head once each way")
+    loss_p, grads_p = loss_grads("chunked")
+    compare("ptb step loss at fixed negatives, kernels vs plain",
+            loss_k[None], loss_p[None])
+    for name in params:
+        compare(f"ptb step grad {name}", grads_k[name], grads_p[name])
+    for p_ in params.values():
+        p_.grad = None
+    log(f"[ptb] step at fixed negatives: loss {float(loss_k)} (kernels) vs "
+        f"{float(loss_p)} (plain)")
+    return rows
+
+
+def phase_ptb(gen: torch.Generator
+              ) -> tuple[dict[str, int], dict[str, dict]]:
+    """ptb-lstm at full width through fit: vocab 10,000, 2 LSTM layers of
+    200, block-quadratic over 79 blocks of 128, m = 128, abs mode, fp32,
+    batch 20 x 35 (T = 700): TRAIN_STEPS steps on a cycled pool of
+    TRAIN_POOL batches with exact launch counts, a finite loss at every
+    step that falls, peak memory; then a step of the trained state held
+    against its plain kernels (``ptb_step_check``), the step's stages and a
+    profile of three steps.  Returns the counts and the kernels' rows at
+    the ptb shapes."""
+    cfg = get_config("ptb-lstm")
+    data = batch_iterator_for(cfg, None, PTB_BATCH, PTB_SEQ, seed=0,
+                              device=DEV)
+    pool = [next(data) for _ in range(TRAIN_POOL)]
+    held = next(batch_iterator_for(cfg, None, PTB_BATCH, PTB_SEQ, seed=1000,
+                                   device=DEV))
+    floor = SyntheticLM(cfg.vocab_size, seed=0, device=str(DEV)).chain_entropy()
+    init = step.init_train_state(
+        torch.Generator(DEV).manual_seed(0), cfg, None,
+        make_optimizer("adamw", 1e-2, weight_decay=0.0), device=DEV)
+    before = eval_loss(init, cfg, held)
+    del init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res, first, last = run_fit(cfg, itertools.cycle(pool),
+                               f"pool of {TRAIN_POOL} batches",
+                               f"batch {PTB_BATCH} x {PTB_SEQ}")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[ptb] launches {counts}; peak device memory of the run "
+        f"{peak / 2**30:.2f} GiB")
+    want = expected_launches(cfg)
+    if counts != want:
+        raise AssertionError(f"ptb-lstm launches {counts} != {want}")
+    if not all(math.isfinite(x) for x in res.losses) or not last < first:
+        raise AssertionError(f"ptb-lstm: loss not finite at every step or "
+                             f"did not fall: {first} -> {last}")
+    log(f"[ptb] held-out full-softmax loss (batch {PTB_BATCH} x {PTB_SEQ})"
+        f": before {before}, after the pool {eval_loss(res.state, cfg, held)}"
+        f"; the chain's entropy {floor}; ln(n) = {math.log(cfg.vocab_size)}")
+    rows = ptb_step_check(cfg, res.state, pool[0], gen)
+    phase_training_breakdown(cfg, res.state, pool[1])
+    phase_profile(cfg, res.state, batches=pool[2:5])
+    return counts, rows
 
 
 # --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
@@ -2340,6 +2611,9 @@ def main() -> int:
         del fstate
         torch.cuda.empty_cache()
     del pool, held, data
+    torch.cuda.empty_cache()
+
+    by_path["ptb-lstm"], shapes["ptb"] = phase_ptb(gen)
     torch.cuda.empty_cache()
 
     shapes.update(llama_shapes)

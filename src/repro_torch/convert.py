@@ -5,17 +5,19 @@ Both functions take plain numpy arrays (the JAX side converts with
 
   * ``params_from_jax`` — the reference's params, by family: the recsys
     dict (``{"embed": {"table"}, "head": {"w"}, "tower": {"w0", "b0",
-    ...}}``) into the port's ``RecsysTower``, the dense LM's ``init_lm``
-    tree through ``lm_params_from_jax``.  Same layouts, so both copy.
+    ...}}``) into the port's ``RecsysTower``, the lstm dict (``{"embed",
+    "head", "lstm0": {"kernel", "recurrent", "bias"}, ...}``) into its
+    ``LSTMLM``, the dense LM's ``init_lm`` tree through
+    ``lm_params_from_jax``.  Same layouts, so all three copy.
   * ``lm_params_from_jax`` — the reference's dense LM params (nested dicts,
     each segment stacked on a leading layer axis) into the same tree of
     tensors.
   * ``index_from_jax`` — a reference ``RetrievalIndex``, field by field,
     into the port's ``RetrievalIndex``.
-  * ``train_state_from_jax`` — a reference ``TrainState`` (params, the
-    ``chain(clip, adamw)`` state, the sampler's carried state and the step)
-    into the port's ``TrainState``, so both packages can take a step from
-    one state.
+  * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys or
+    lstm model (params, the ``chain(clip, adamw)`` state, the sampler's
+    carried state and the step) into the port's ``TrainState``, so both
+    packages can take a step from one state.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
+from repro_torch.models.lstm_lm import LSTMLM
 from repro_torch.models.recsys import RecsysTower
 from repro_torch.models.transformer import require_dense, segments_of
 from repro_torch.serve.retrieval import RetrievalIndex
@@ -31,12 +34,21 @@ from repro_torch.train.step import TrainState
 from repro_torch.utils.misc import resolve_device
 
 
+#: family -> the port's module of that family's params
+_MODULES = {"recsys": RecsysTower, "lstm": LSTMLM}
+
+
 def _flat_params(np_params: dict) -> dict:
-    """Reference recsys param tree -> the port's parameter names."""
-    flat = {"embed_table": np_params["embed"]["table"],
-            "head_w": np_params["head"]["w"]}
-    for name, arr in np_params["tower"].items():
-        flat[f"tower_{name}"] = arr
+    """Reference recsys or lstm param tree -> the port's parameter names:
+    the path's keys joined by ``_`` (``embed.table`` -> ``embed_table``,
+    ``tower.w0`` -> ``tower_w0``, ``lstm1.kernel`` -> ``lstm1_kernel``)."""
+    flat = {}
+    for key, val in np_params.items():
+        if isinstance(val, dict):
+            flat.update({f"{key}_{k}": v
+                         for k, v in _flat_params(val).items()})
+        else:
+            flat[key] = val
     return flat
 
 
@@ -78,18 +90,18 @@ def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
 def params_from_jax(np_params: dict, cfg: ArchConfig,
                     device: str | torch.device | None = None):
     """Reference params (numpy leaves) -> the port's on ``device`` (the
-    card unless ``device="cpu"``): a ``RecsysTower`` for recsys, the
-    stacked tensor tree for the dense family."""
+    card unless ``device="cpu"``): a ``RecsysTower`` for recsys, an
+    ``LSTMLM`` for lstm, the stacked tensor tree for the dense family."""
     dev = resolve_device(device)
     if cfg.family == "dense":
         return lm_params_from_jax(np_params, cfg, dev)
-    if cfg.family != "recsys":
+    if cfg.family not in _MODULES:
         raise NotImplementedError(
             f"family '{cfg.family}' is not ported yet (only 'recsys', "
-            "'dense')")
+            "'lstm', 'dense')")
     # Built on the meta device, so nothing is allocated or drawn before
     # the copies are assigned.
-    model = RecsysTower(cfg, torch.device("meta"))
+    model = _MODULES[cfg.family](cfg, torch.device("meta"))
     state = _flat_params(np_params)
     own = model.state_dict()
     if set(state) != set(own):
@@ -106,7 +118,7 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
                          ) -> TrainState:
     """A reference ``TrainState`` as numpy -> the port's, on ``device``.
 
-    np_params: the recsys param tree; np_opt_state: the state of
+    np_params: the recsys or lstm param tree; np_opt_state: the state of
     ``make_optimizer("adamw", ...)``, i.e. ``((), {"m": tree, "v": tree,
     "step": int32})``; np_sampler: ``{"stats": {...}, "const": {...}}`` of
     the sampler's carried state (``{}`` dicts for none); step: the train

@@ -12,7 +12,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.data.synthetic import SyntheticRecsys
+from repro_torch.data.synthetic import SyntheticLM, SyntheticRecsys
 from repro_torch.utils.misc import fold_in, resolve_device
 
 
@@ -51,13 +51,19 @@ def batch_iterator_for(cfg: ArchConfig, ctx, global_batch: int,
                        device: str | torch.device | None = None
                        ) -> ShardedBatchIterator:
     """Synthetic batches for ``cfg`` on ``device`` (the card unless
-    ``device="cpu"``).  Only the recsys family is ported; ``seq_len`` is
-    unused by it."""
-    if cfg.family != "recsys":
+    ``device="cpu"``): recsys (``seq_len`` unused) and lstm (``SyntheticLM``
+    token sequences of ``seq_len``) are ported."""
+    if cfg.family not in ("recsys", "lstm"):
         raise NotImplementedError(
             f"synthetic data for family '{cfg.family}' is not ported yet "
-            "(only 'recsys')")
+            "(only 'recsys', 'lstm')")
     dev = resolve_device(device)
+    if cfg.family == "lstm":
+        lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed,
+                         device=str(dev))
+        return ShardedBatchIterator(
+            lambda g: lm.sample_batch(g, global_batch, seq_len), ctx,
+            seed=seed, device=dev)
     task = SyntheticRecsys(n_items=cfg.vocab_size,
                            history_len=cfg.history_len,
                            user_feature_dim=cfg.user_feature_dim, seed=seed,

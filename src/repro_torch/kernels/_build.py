@@ -52,7 +52,11 @@ SIGNATURES = {
                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
                       _P)),
     "midx_pair_masses": ("midx_scores", "midx_pair_masses_f32",
-                         (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+                         (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                          _P)),
+    "midx_list_masses": ("midx_scores", "midx_list_masses_f32",
+                         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                          _I, _I, _I, _P)),
     "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
                            (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention", "flash_attention_mma_bf16",
@@ -148,8 +152,8 @@ def check(name: str, t: torch.Tensor, ndim: int,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is what the kernels take: a contiguous CUDA tensor
     of ``ndim`` dims and type ``dtype`` — fp32 for values (only
-    ``flash_attention``, ``sampled_loss`` and the fused head also take
-    bf16), int32 for row ids."""
+    ``flash_attention``, ``sampled_loss``, the fused head and the midx
+    stage-1 entries also take bf16), int32 for row ids."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -14,8 +14,8 @@ from repro_torch.kernels import fused_head, ref
 from repro_torch.kernels.block_scores import block_scores as _block_scores
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.leaf_scores import leaf_scores as _leaf_scores
+from repro_torch.kernels.midx_scores import midx_list_masses as _midx_lists
 from repro_torch.kernels.midx_scores import midx_member_scores as _midx_member
-from repro_torch.kernels.midx_scores import midx_pair_masses as _midx_pair
 from repro_torch.kernels.rff_features import rff_features as _rff_features
 from repro_torch.kernels.sampled_loss import sampled_loss as _sampled_loss
 from repro_torch.kernels.zstats import zstats as _zstats
@@ -75,13 +75,17 @@ def midx_list_masses(h: Tensor, c1: Tensor, c2: Tensor, codes: Tensor,
     """h: (T, d); c1: (K1, d); c2: (K2, d); codes: (P, 2); cnt: (P,)
     -> (T, P) stage-1 midx masses ``cnt_j * (alpha <h, ct_j>^2 + 1)``.
 
-    The codeword-pair expansion ``ct = c1[a1] + c2[a2]`` is a gather here,
-    outside the kernel, as in the reference's wrapper; lists with cnt 0 get
-    mass exactly 0."""
+    On the card the kernel forms each codeword pair ``ct = c1[a1] +
+    c2[a2]`` while it stages it (the reference's wrapper gathers it
+    first); fp32 or bf16 h and codewords are read as they are, other or
+    mixed types as fp32.  Lists with cnt 0 get mass exactly 0."""
     if _on_cuda(h, c1, c2, codes, cnt):
-        ct = c1[codes[:, 0].long()] + c2[codes[:, 1].long()]
-        return _midx_pair(h.contiguous(), ct.contiguous(), cnt.contiguous(),
-                          alpha=alpha)
+        if not h.dtype == c1.dtype == c2.dtype or h.dtype not in (
+                torch.float32, torch.bfloat16):
+            h, c1, c2 = h.float(), c1.float(), c2.float()
+        return _midx_lists(h.contiguous(), c1.contiguous(), c2.contiguous(),
+                           codes.to(torch.int32).contiguous(),
+                           cnt.float().contiguous(), alpha=alpha)
     return ref.midx_list_masses_ref(h, c1, c2, codes, cnt, alpha)
 
 

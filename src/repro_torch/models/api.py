@@ -5,14 +5,15 @@
     head_table(params, cfg)             -> (n, d_h) class-embedding table
 
 Ported families: ``recsys`` (youtube-dnn; params are a ``RecsysTower``
-module) and ``dense`` (llama3-8b; params are the reference's nested dict
-of stacked tensors, ``models/transformer.py``).  The others raise
+module), ``lstm`` (ptb-lstm; an ``LSTMLM`` module, ``models/lstm_lm.py``)
+and ``dense`` (llama3-8b; params are the reference's nested dict of
+stacked tensors, ``models/transformer.py``).  The others raise
 ``NotImplementedError`` until their slices land.
 
-For recsys, ``backbone_hidden`` and ``head_table`` carry gradients: the
-train step differentiates its loss through both, while serving and the
-sampler's statistics call them under ``torch.no_grad()`` or detach the
-result.  The dense family's forward runs its attention through
+For recsys and lstm, ``backbone_hidden`` and ``head_table`` carry
+gradients: the train step differentiates its loss through both, while
+serving and the sampler's statistics call them under ``torch.no_grad()``
+or detach the result.  The dense family's forward runs its attention through
 ``ops.flash_attention``, whose CUDA kernel has no backward: it serves, and
 training it is a later slice.
 """
@@ -21,10 +22,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import recsys, transformer
+from repro_torch.models import lstm_lm, recsys, transformer
 from repro_torch.utils.misc import resolve_device
 
-PORTED_FAMILIES = ("recsys", "dense")
+PORTED_FAMILIES = ("recsys", "lstm", "dense")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -42,6 +43,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     dev = resolve_device(device)
     if cfg.family == "dense":
         return transformer.init_lm(gen, cfg, dev)
+    if cfg.family == "lstm":
+        return lstm_lm.init_lstm_lm(gen, cfg, dev)
     return recsys.init_recsys(gen, cfg, dev)
 
 
@@ -71,10 +74,11 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
     """Forward to the last hidden layer; flatten (example, feature).
 
     batch keys: recsys — history (B, H), user_feats (B, F), labels (B,);
-    dense — tokens (B, S), labels (B, S)."""
+    dense and lstm — tokens (B, S), labels (B, S)."""
     _require_ported(cfg)
-    if cfg.family == "dense":
-        h, aux = transformer.hidden_states(params, batch["tokens"], cfg)
+    if cfg.family in ("dense", "lstm"):
+        mod = transformer if cfg.family == "dense" else lstm_lm
+        h, aux = mod.hidden_states(params, batch["tokens"], cfg)
         return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
                 aux)
     h, aux = recsys.hidden_states(params, batch["history"],

@@ -6,7 +6,9 @@ Deterministic parts on the same numpy inputs: the build (``perm`` and
 the quantized dots, both stages' log-scores and ``all_class_logq`` within
 rtol 1e-5 (fp32 sums in other orders), and ``ops.midx_list_masses`` /
 ``ops.midx_member_scores`` against the reference's Pallas kernels in
-interpret mode on ragged shapes with empty lists.  Draws are held to the
+interpret mode on ragged shapes with empty lists (stage 1 also in bf16 and
+at ragged widths), the stage-1 wrappers' type checks and ``plan``'s
+tiling.  Draws are held to the
 reference's ``all_class_logq`` by the chi-square/TV gate of
 ``tests/test_sampler_stats.py``.
 
@@ -25,7 +27,8 @@ from repro.core.blocks import categorical_rows
 from repro.kernels import ops as jops
 from repro_torch.core import kernel_fns as kf
 from repro_torch.core import midx, samplers
-from repro_torch.kernels import ops, ref
+from repro_torch import kernels
+from repro_torch.kernels import midx_scores, ops, ref
 from test_sampler_stats import _check_against
 
 torch.set_num_threads(1)
@@ -149,6 +152,89 @@ def test_ops_midx_list_masses_matches_jax(t, k, p):
         assert got.shape == (t, p)
         _close(got.numpy(), want)
         assert float(got[:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,k,p,d", [(16, 4, 16, 8), (37, 5, 100, 126),
+                                     (3, 3, 9, 7), (33, 6, 65, 130)])
+def test_midx_list_masses_entry_matches_jax(t, k, p, d, dtype):
+    """The kernel's second entry (codeword pairs formed from c1, c2 and
+    codes) through its plain version, against the reference's wrapper and
+    Pallas kernel in interpret mode: fp32 and bf16 inputs (upcast to fp32
+    by both), ragged T, P and d (d = 130 spans two of the kernel's
+    128-column rounds), the last lists empty at exactly 0."""
+    rng = np.random.default_rng(t * 7 + d)
+    h = (rng.normal(size=(t, d)) * 0.3).astype(np.float32)
+    c1 = (rng.normal(size=(k, d)) * 0.3).astype(np.float32)
+    c2 = (rng.normal(size=(k, d)) * 0.1).astype(np.float32)
+    codes = rng.integers(0, k, (p, 2)).astype(np.int32)
+    cnt = np.clip(p * 5.0 - np.arange(p) * 8.0, 0, 8).astype(np.float32)
+    jt = getattr(jnp, dtype)
+    want = np.asarray(jops.midx_list_masses(
+        jnp.asarray(h, jt), jnp.asarray(c1, jt), jnp.asarray(c2, jt),
+        jnp.asarray(codes), jnp.asarray(cnt), alpha=100.0))
+    tt = getattr(torch, dtype)
+    args = (torch.from_numpy(h).to(tt), torch.from_numpy(c1).to(tt),
+            torch.from_numpy(c2).to(tt), torch.from_numpy(codes),
+            torch.from_numpy(cnt))
+    empty = cnt == 0
+    assert empty.any()
+    for got in (ops.midx_list_masses(*args, alpha=100.0),
+                ref.midx_list_masses_ref(*args, 100.0)):
+        assert got.shape == (t, p) and got.dtype == torch.float32
+        _close(got.numpy(), want)
+        assert float(got[:, torch.from_numpy(empty)].abs().max()) == 0.0
+
+
+def test_pair_mass_wrappers_check_types_before_the_device():
+    """Both stage-1 entries take fp32 or bf16 h and codewords of one type
+    and fp32 counts; a refused type raises TypeError before the device is
+    looked at, an accepted one reaches the device check (these tensors lie
+    on the CPU), and nothing is launched."""
+    kernels.reset_launch_counts()
+    cnt = torch.ones(3)
+    codes = torch.zeros((3, 2), dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        h, c = torch.zeros((2, 8), dtype=dt), torch.zeros((3, 8), dtype=dt)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            midx_scores.midx_pair_masses(h, c, cnt)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            midx_scores.midx_list_masses(h, c, c, codes, cnt)
+    h, c = torch.zeros((2, 8)), torch.zeros((3, 8))
+    mixed = c.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="h's type"):
+        midx_scores.midx_pair_masses(h, mixed, cnt)
+    with pytest.raises(TypeError, match="h's type"):
+        midx_scores.midx_list_masses(h, c, mixed, codes, cnt)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        midx_scores.midx_pair_masses(h.half(), c.half(), cnt)
+    with pytest.raises(TypeError, match="cnt"):
+        midx_scores.midx_pair_masses(h, c, cnt.double())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        midx_scores.midx_pair_masses(h, torch.zeros((3, 7)), cnt)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        midx_scores.midx_list_masses(h, c, c, codes[:2], cnt)
+    assert kernels.launch_counts()["midx_pair_masses"] == 0
+
+
+@pytest.mark.parametrize("t,p", [(256, 512), (37, 100), (1, 1), (700, 79),
+                                 (4096, 512), (129, 33)])
+def test_pair_mass_plan_covers_every_output_once(t, p):
+    """The plan's blocks, the launch's grid, tile (T, P) exactly once."""
+    pl = midx_scores.plan(t, p)
+    tq, tp = midx_scores.QUERIES, midx_scores.LISTS
+    seen = np.zeros((t, p), dtype=np.int64)
+    for by in range(pl.grid_t):
+        for bx in range(pl.grid_p):
+            seen[by * tq:(by + 1) * tq, bx * tp:(bx + 1) * tp] += 1
+    assert (seen == 1).all()
+    assert (pl.grid_t - 1) * tq < t and (pl.grid_p - 1) * tp < p
+
+
+def test_pair_mass_plan_refuses_too_many_query_tiles():
+    midx_scores.plan(65535 * 32, 8)
+    with pytest.raises(ValueError, match="query tiles"):
+        midx_scores.plan(65535 * 32 + 1, 8)
 
 
 @pytest.mark.parametrize("g,lsize,d", [(16, 8, 16), (37, 5, 12),

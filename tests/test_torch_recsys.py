@@ -135,11 +135,12 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 
 def test_unported_families_raise():
-    lstm = get_config("ptb-lstm").reduced()
-    with pytest.raises(NotImplementedError, match="lstm"):
-        api.init_params(lstm, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="lstm"):
-        convert.params_from_jax({}, lstm, device="cpu")
+    moe = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              family="moe")
+    with pytest.raises(NotImplementedError, match="moe"):
+        api.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="moe"):
+        convert.params_from_jax({}, moe, device="cpu")
 
 
 def test_index_from_jax_refuses_sharded_indexes():

@@ -400,12 +400,13 @@ def test_unported_training_options_raise():
                              None, opt)
     with pytest.raises(NotImplementedError, match="mesh"):
         step.make_train_step(cfg, types.SimpleNamespace(mesh="m"), opt)
-    lstm = get_config("ptb-lstm").reduced()
-    with pytest.raises(NotImplementedError, match="lstm"):
-        step.init_train_state(torch.Generator(), lstm, None, opt,
+    moe = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              family="moe")
+    with pytest.raises(NotImplementedError, match="moe"):
+        step.init_train_state(torch.Generator(), moe, None, opt,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="lstm"):
-        batch_iterator_for(lstm, None, 4, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="moe"):
+        batch_iterator_for(moe, None, 4, 8, device="cpu")
 
 
 def test_validate_checks_ported_names_and_knobs():
