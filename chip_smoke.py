@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU and
-check them: youtube-dnn serving and training, ptb-lstm training, and
-llama3-8b serving.
+check them: youtube-dnn serving and training, ptb-lstm training,
+llama3-8b serving, and the SoftmaxHead facade, the sparse refresh,
+checkpoint/restart and the overlapped refresh island.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -134,14 +135,47 @@ result line):
  12. sampled_loss entry — ops.sampled_loss once, at llama width, on the
                  forward's hidden states with 512 shared uniform negatives,
                  held against its plain version.
-Phases 4-5, 6, each family of 9, 9b, 11 and 12 are main paths: the kernel
+ 13. facade    — repro_torch.api.SoftmaxHead at youtube-dnn's full width
+                 (100,000 x 128 head, batch 256, m = 128) with
+                 block-quadratic, tree-quadratic, rff and midx: init and
+                 refresh equal make_refresh_fn bitwise, sample's logq equals
+                 all_class_logq within 1e-4, loss and dL/dw equal
+                 estimators.local_sampled_loss from the same generator seed
+                 bitwise, full and nce run, each call launches exactly its
+                 kernels; export_index + decode_topk at full beam equal the
+                 dense top-k, ties aside.
+ 14. sparse    — the Fig. 1b sparse refresh: the unique labels of one batch
+                 get new rows; update_rows of block-quadratic,
+                 tree-quadratic and rff equals a full rebuild after the same
+                 write within rtol = atol = 1e-4 (wq and counts bitwise);
+                 host and device ms of both, not gated.
+ 15. checkpoint — fit 40 steps saving every 10, the same run killed at 25
+                 and relaunched: restored_from 20, the restored leaves
+                 bitwise what was saved, the resumed losses equal the
+                 uninterrupted run's (bitwise when the two runs' step-20
+                 states are, else within 1e-3 relative);
+                 serving_index_source serves step 40 with
+                 export_retrieval_index's full-beam decode, a second poll
+                 returns None; checkpoint bytes, save blocking and writer
+                 ms; a ptb-lstm state round-trips bitwise.
+ 16. overlap   — refresh_mode="overlap" for block-quadratic and midx: 40
+                 steps at cadence 4, k 2 give the reference's staleness
+                 sawtooth and 10 swaps, finite falling losses, the step's
+                 launches exact and the island's counted apart; the stats
+                 swapped in at step 2 equal make_refresh_fn of the same
+                 snapshots on the main stream bitwise; whether two runs are
+                 bitwise equal; host and wall ms a step and the busy share
+                 at cadence 1, k 1 against sync, beside the refresh alone.
+Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15 and each family of 16
+are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
 (``expected_launches``), llama serving zstats once, flash_attention (the
 tensor-core kernel) once per layer, flash_attention_simt never, and
-leaf_scores once per index top-k step, and the entry run sampled_loss
-once.
+leaf_scores once per index top-k step, the entry run sampled_loss
+once, and the facade, checkpoint and overlap runs exactly what their
+calls and steps need.
 The line before the last is {"kernels": [...]} (training-shape numbers;
 both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 ``launches`` summed over every path but youtube-dnn serving (whose count
@@ -163,11 +197,15 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -178,6 +216,9 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.api import SoftmaxHead  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     blocks,
@@ -302,8 +343,9 @@ def device_ms(fn, reps: int = REPS) -> float:
     ``reps`` calls, is timed.  Every timed function launches the same
     activities on each call, so a stretch whose activity count is not a
     multiple of ``reps`` lost some: the trace is taken again, up to three
-    times.  If all three lose some (calls of 100 ms or more lost two of
-    five activities in every trace on the H100), the time per call is
+    times.  If all three lose some (calls of 60 ms or more lost three of
+    five activities in most traces on the H100, and one trace of 80 ms
+    calls held none), the time per call is
     taken by CUDA events around single calls instead, and the log says
     so."""
     for _ in range(3):
@@ -331,7 +373,8 @@ def device_ms(fn, reps: int = REPS) -> float:
                 stretches.append([])
             stretches[-1].append(e)
             end = max(end, e.time_range.end)
-        middle = max(stretches, key=len)
+        # a trace can also come back with no device activity at all
+        middle = max(stretches, key=len) if stretches else []
         if middle and len(middle) % reps == 0:
             break
         log(f"  trace {attempt + 1} recorded {len(events)} device "
@@ -1352,7 +1395,7 @@ def phase_training(cfg) -> tuple[dict[str, int], object, dict[str, dict]]:
 
     # the trained head served: export the index and decode 16 queries
     t0 = time.perf_counter()
-    index = step.export_retrieval_index(res.state, cfg)
+    index = step.export_retrieval_index(res.state, cfg, None)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     with torch.no_grad():
@@ -1390,50 +1433,76 @@ def phase_fresh(cfg) -> None:
             f"ln(n) = {math.log(cfg.vocab_size)}")
 
 
-def expected_launches(cfg) -> dict[str, int]:
-    """Exact launches of TRAIN_STEPS steps of ``fit`` with a kernel sampler:
-    ``init_train_state`` builds the statistics once and every step
-    refreshes them (refresh every step), samples once and runs the fused
-    head forward and backward once.  The block sampler scores its root
-    once (block_scores) and the drawn blocks once (leaf_scores); the tree's
-    descent scores each level
-    with at most ``dense_cap = max(256, 4m)`` nodes through block_scores:
-    levels 1-9 (2 to 512 nodes) of the 512-leaf tree at full width."""
-    s = TRAIN_STEPS
-    counts = dict.fromkeys(REPLACES, 0)
-    counts.update(fused_lse=s, fused_lse_bwd=s)
+def sampler_launches(cfg) -> tuple[dict[str, int], dict[str, int]]:
+    """(launches of one refresh, of one ``sample_batch``) of ``cfg``'s
+    sampler at full width.  The block sampler scores its root once
+    (block_scores) and the drawn blocks once (leaf_scores); the tree's
+    descent scores each level with at most ``dense_cap = max(256, 4m)``
+    nodes through block_scores: levels 1-9 (2 to 512 nodes) of the
+    512-leaf tree at full width; midx rebuilds with no hand-written
+    kernel."""
     if cfg.sampler == "block-quadratic":
-        counts.update(zstats=s + 1, block_scores=s, leaf_scores=s)
-    elif cfg.sampler == "tree-quadratic":
+        return {"zstats": 1}, {"block_scores": 1, "leaf_scores": 1}
+    if cfg.sampler == "tree-quadratic":
         leaves = 1 << (-(-cfg.vocab_size // cfg.sampler_block) - 1
                        ).bit_length()
         dense = sum(1 for lvl in range(1, leaves.bit_length())
                     if (1 << lvl) <= max(256, 4 * cfg.m_negatives))
-        counts.update(zstats=s + 1, block_scores=dense * s, leaf_scores=s)
-    elif cfg.sampler == "rff":
-        counts.update(rff_features=s + 1, leaf_scores=s)
-    elif cfg.sampler == "midx":
-        counts.update(midx_pair_masses=s, midx_member_scores=s)
-    else:
-        raise ValueError(f"no launch plan for sampler {cfg.sampler!r}")
+        return {"zstats": 1}, {"block_scores": dense, "leaf_scores": 1}
+    if cfg.sampler == "rff":
+        return {"rff_features": 1}, {"leaf_scores": 1}
+    if cfg.sampler == "midx":
+        return {}, {"midx_pair_masses": 1, "midx_member_scores": 1}
+    raise ValueError(f"no launch plan for sampler {cfg.sampler!r}")
+
+
+def expected_launches(cfg, steps: int = TRAIN_STEPS,
+                      refreshes: int | None = None) -> dict[str, int]:
+    """Exact launches of ``steps`` steps of ``fit`` with a kernel sampler:
+    ``init_train_state`` builds the statistics once and every step
+    refreshes them (refresh every step; ``refreshes`` overrides the
+    count), samples once and runs the fused head forward and backward
+    once (``sampler_launches``)."""
+    refresh, sample = sampler_launches(cfg)
+    counts = dict.fromkeys(REPLACES, 0)
+    counts.update(fused_lse=steps, fused_lse_bwd=steps)
+    for name, n in refresh.items():
+        counts[name] += n * (steps + 1 if refreshes is None else refreshes)
+    for name, n in sample.items():
+        counts[name] += n * steps
     return counts
 
 
-def check_draw_logq(cfg, state, held) -> None:
+def all_class_logq(sampler, runtime, h_t: torch.Tensor) -> torch.Tensor:
+    """The sampler's exact log q of every class for one query (the block
+    sampler's through ``blocks.all_class_logq``)."""
+    if sampler.name == "block-quadratic":
+        return blocks.all_class_logq(runtime["stats"], sampler.kernel, h_t,
+                                     runtime["proj"])
+    return sampler.all_class_logq(runtime, h_t)
+
+
+def check_draw_logq(cfg, state, held, draws=None) -> None:
     """The eq. 2 exactness contract on the card: on 4 held-out queries the
     logq the sampler reports for its draws equals its ``all_class_logq``
     at the drawn ids within 1e-4, and no id is at or past n_valid.  For
-    rff, also the share of live nodes whose feature mass underflows to 0."""
+    rff, also the share of live nodes whose feature mass underflows to 0.
+    ``draws``: (h, ids, logq) of 4 queries drawn elsewhere (the facade's),
+    in place of drawing from ``held``."""
     sampler = sampler_from_config(cfg)
     gen = torch.Generator(DEV).manual_seed(17)
     with torch.no_grad():
-        h, _, _ = api.backbone_hidden(
-            state.params, {k: v[:4] for k, v in held.items()}, cfg)
         runtime = sampler.hydrate(state.sampler_state, cfg.vocab_size)
-        ids, logq = sampler.sample_batch(runtime, h, cfg.m_negatives, gen)
+        if draws is None:
+            h, _, _ = api.backbone_hidden(
+                state.params, {k: v[:4] for k, v in held.items()}, cfg)
+            ids, logq = sampler.sample_batch(runtime, h, cfg.m_negatives,
+                                             gen)
+        else:
+            h, ids, logq = draws
         worst, mass = 0.0, []
         for t in range(h.shape[0]):
-            oracle = sampler.all_class_logq(runtime, h[t])
+            oracle = all_class_logq(sampler, runtime, h[t])
             worst = max(worst, float((logq[t] - oracle[ids[t]]).abs().max()))
             mass.append(float(torch.logsumexp(oracle, 0).exp()))
     top = int(ids.max())
@@ -1833,6 +1902,564 @@ def phase_ptb(gen: torch.Generator
     phase_training_breakdown(cfg, res.state, pool[1])
     phase_profile(cfg, res.state, batches=pool[2:5])
     return counts, rows
+
+
+# --- the facade, the sparse refresh, checkpoint/restart, the island ---------
+
+#: the facade's sampler families (phase 13)
+FACADE_FAMILIES = ("block-quadratic",) + FAMILIES
+#: the families with a Fig. 1b sparse refresh (phase 14)
+SPARSE_FAMILIES = ("block-quadratic", "tree-quadratic", "rff")
+#: phase 15: runs of CKPT_STEPS steps saved every CKPT_EVERY; the second is
+#: killed at CKPT_KILL and relaunched
+CKPT_STEPS, CKPT_EVERY, CKPT_KILL = 40, 10, 25
+#: phase 16: steps of each overlap run; the families it runs
+OVERLAP_STEPS = 40
+OVERLAP_FAMILIES = ("block-quadratic", "midx")
+#: phase 16's timed steps per mode
+OVERLAP_TIMED = 20
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made, the nonzero counts only)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def check_launches(tag: str, got: dict[str, int], want: dict[str, int]
+                   ) -> None:
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got} != {want}")
+
+
+def check_bitwise(tag: str, got: dict, want: dict) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: keys {sorted(got)} != {sorted(want)}")
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            raise AssertionError(f"{tag}: {k} differs")
+
+
+def add_counts(total: dict[str, int], got: dict[str, int]) -> None:
+    for k, v in got.items():
+        total[k] += v
+
+
+def facade_inputs(cfg):
+    """The facade's inputs at full width: a seeded youtube-dnn model, its
+    head (100,000 x 128), the tower's h of one batch of TRAIN_BATCH and
+    the batch's labels."""
+    model = api.init_params(cfg, torch.Generator(DEV).manual_seed(3),
+                            device=DEV)
+    batch = next(batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=4000,
+                                    device=DEV))
+    with torch.no_grad():
+        h, labels, _ = api.backbone_hidden(model, batch, cfg)
+    return api.head_table(model, cfg).detach(), h, labels
+
+
+def phase_facade(cfg) -> dict[str, int]:
+    """SoftmaxHead at full width with each kernel family: init and
+    refresh equal make_refresh_fn bitwise, sample's logq equals
+    all_class_logq within 1e-4, loss and its backward equal
+    local_sampled_loss from the same generator seed bitwise, the full and
+    nce estimators run, and every call launches exactly its kernels; then
+    export_index + decode_topk at full beam equal the dense top-k, ties
+    aside, with the launches of the retrieval calls they wrap.  Returns
+    the phase's launches."""
+    w, h, labels = facade_inputs(cfg)
+    total = dict.fromkeys(REPLACES, 0)
+    for family in FACADE_FAMILIES:
+        fcfg = dataclasses.replace(cfg, sampler=family)
+        head = SoftmaxHead(fcfg)
+        refresh, sample = sampler_launches(fcfg)
+        fused = dict(sample, fused_lse=1, fused_lse_bwd=1)
+
+        def gen(seed):
+            return torch.Generator(DEV).manual_seed(seed)
+
+        init, got = counted(lambda: head.init(gen(21), w))
+        check_launches(f"{family} init", got, refresh)
+        add_counts(total, got)
+        state, got = counted(lambda: head.refresh(init, w))
+        check_launches(f"{family} refresh", got, refresh)
+        add_counts(total, got)
+        want = step.make_refresh_fn(fcfg)(w, init)
+        check_bitwise(f"{family} init", init.stats, want.stats)
+        check_bitwise(f"{family} refresh", state.stats, want.stats)
+
+        (ids, logq), got = counted(lambda: head.sample(state, h, gen(5)))
+        check_launches(f"{family} sample", got, sample)
+        add_counts(total, got)
+        check_draw_logq(fcfg, types.SimpleNamespace(sampler_state=state),
+                        None, draws=(h[:4], ids[:4], logq[:4]))
+
+        wp = w.clone().requires_grad_()
+
+        def loss_and_grad(fn):
+            loss = fn()
+            loss.mean().backward()
+            grad, wp.grad = wp.grad, None
+            return loss.detach(), grad
+
+        (loss, grad), got = counted(lambda: loss_and_grad(
+            lambda: head.loss(wp, h, labels, state=state, key=gen(7))))
+        check_launches(f"{family} loss", got, fused)
+        add_counts(total, got)
+        want_loss, want_grad = loss_and_grad(
+            lambda: estimators.local_sampled_loss(
+                head.estimator, head.sampler, wp, h, labels, state,
+                fcfg.m_negatives, gen(7), n_valid=fcfg.vocab_size,
+                abs_mode=fcfg.abs_softmax, impl=fcfg.head_impl))
+        check_bitwise(f"{family} loss", {"loss": loss, "dL/dw": grad},
+                      {"loss": want_loss, "dL/dw": want_grad})
+
+        others = {}
+        for est, launches in (("full", {}), ("nce", sample)):
+            other = SoftmaxHead(dataclasses.replace(fcfg, estimator=est))
+            out, got = counted(lambda: other.loss(w, h, labels, state=state,
+                                                  key=gen(9)))
+            check_launches(f"{family} {est}", got, launches)
+            add_counts(total, got)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{family}: {est} loss not finite")
+            others[est] = float(out.mean())
+        log(f"[facade] {family}: init and refresh equal make_refresh_fn "
+            f"bitwise; loss and dL/dw equal local_sampled_loss bitwise "
+            f"(mean {float(loss.mean())}); full {others['full']}, nce "
+            f"{others['nce']}; launches per call exact (refresh {refresh}, "
+            f"sample {sample}, loss {fused})")
+
+    head = SoftmaxHead(cfg)
+    index, built = counted(lambda: head.export_index(w))
+    direct, want = counted(lambda: retrieval.build_index(
+        w, vocab_size=cfg.vocab_size))
+    check_launches("export_index", built, want)
+    add_counts(total, built)
+    hq = h[:16]
+    (ids, logits), got = counted(lambda: head.decode_topk(w, hq, 10,
+                                                          index=index))
+    _, want = counted(lambda: retrieval.decode_topk(direct, hq, 10))
+    check_launches("decode_topk", got, want)
+    add_counts(total, got)
+    dids, dlog = head.decode_topk(w, hq, 11)
+    if not torch.allclose(logits, dlog[:, :10], rtol=1e-5, atol=0.0):
+        raise AssertionError("facade full-beam logits differ from the dense "
+                             "top-k")
+    swaps = check_topk_ties("facade decode_topk", ids, dids, dlog, 10)
+    log(f"[facade] export_index launches {built}; full-beam decode_topk "
+        f"of 16 queries equals the dense top-10 ({swaps} tie swaps), "
+        f"launches {got}; phase launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+def stats_tensors(stats) -> dict[str, torch.Tensor]:
+    """Every tensor of a runtime statistics object, by field (and level)."""
+    out = {}
+    for f in dataclasses.fields(stats):
+        v = getattr(stats, f.name)
+        if isinstance(v, tuple):
+            out.update({f"{f.name}[{i}]": x for i, x in enumerate(v)})
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v
+    return out
+
+
+def phase_sparse(cfg) -> None:
+    """The Fig. 1b sparse refresh at full width: the k unique labels of one
+    batch get new rows, and each family's update_rows equals a full
+    rebuild after the same write within rtol = atol = 1e-4 (wq and the
+    counts bitwise; rff's features up to the rebuild's re-derived shift);
+    host and device ms of both, not gated."""
+    w, _, labels = facade_inputs(cfg)
+    ids = torch.unique(labels)
+    g = torch.Generator(DEV).manual_seed(31)
+    w_new = w[ids] + 0.05 * torch.randn((ids.numel(), w.shape[1]),
+                                        generator=g, device=DEV)
+    w2 = w.clone()
+    w2[ids] = w_new
+    for family in SPARSE_FAMILIES:
+        fcfg = dataclasses.replace(cfg, sampler=family)
+        head = SoftmaxHead(fcfg)
+        sampler = head.sampler
+        state = head.init(torch.Generator(DEV).manual_seed(21), w)
+        runtime = sampler.hydrate(state, cfg.vocab_size)
+
+        def sparse():
+            return sampler.update_rows(runtime, ids, w_new)
+
+        upd = sparse()["stats"]
+        full = sampler.hydrate(head.refresh(state, w2),
+                               cfg.vocab_size)["stats"]
+        got, want = stats_tensors(upd), stats_tensors(full)
+        scale = (torch.exp(full.logshift - upd.logshift)
+                 if family == "rff" else 1.0)
+        worst = 0.0
+        for k, v in want.items():
+            if k == "logshift":
+                continue
+            if k == "wq" or "cnt" in k or k == "n_valid":
+                if not torch.equal(got[k], v):
+                    raise AssertionError(f"sparse {family}: {k} differs "
+                                         "from the rebuild")
+                continue
+            mine = got[k] / scale if k.startswith("levels_f") else got[k]
+            worst = max(worst, float((mine - v).abs().max()))
+            if not torch.allclose(mine, v, rtol=1e-4, atol=1e-4):
+                raise AssertionError(
+                    f"sparse {family}: {k} differs from the rebuild beyond "
+                    f"rtol = atol = 1e-4 (max |err| "
+                    f"{float((mine - v).abs().max())})")
+        row = dict(sparse_host_ms=host_ms(sparse),
+                   sparse_device_ms=device_ms(sparse),
+                   full_host_ms=host_ms(lambda: head.refresh(state, w2)),
+                   full_device_ms=device_ms(lambda: head.refresh(state, w2)))
+        log(f"[sparse] {family}: {ids.numel()} rows rewritten; update_rows "
+            f"equals the full rebuild (max |err| {worst}; wq and counts "
+            f"bitwise); " + ", ".join(f"{k} {v}" for k, v in row.items()))
+
+
+def ckpt_bytes(state) -> int:
+    """Bytes of a train state's arrays as the checkpoint stores them."""
+    return sum(t.numel() * t.element_size() for _, t in
+               ckpt_manager._leaves(ckpt_manager._reference_form(state)))
+
+
+def phase_checkpoint(cfg) -> dict[str, int]:
+    """Checkpoint/restart at full width: fit CKPT_STEPS steps saving every
+    CKPT_EVERY, and the same run killed at CKPT_KILL and relaunched; the
+    relaunch restores step 20, every restored leaf bitwise what was
+    saved, and its losses equal the uninterrupted run's (bitwise when the
+    two runs saved bitwise equal step-20 states, else within 1e-3
+    relative); serving_index_source serves the last step with the
+    decode of export_retrieval_index, and a second poll returns None;
+    checkpoint bytes and save ms; a ptb-lstm state round-trips bitwise.
+    Returns the fits' launches."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+
+    def run(name, fail_at=None):
+        data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=0,
+                                  device=DEV)
+        return loop.fit(cfg, None, opt, data, CKPT_STEPS,
+                        checkpoint_dir=str(root / name),
+                        checkpoint_every=CKPT_EVERY, fail_at_step=fail_at,
+                        log_every=0, device=DEV)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_a = run("a")
+    try:
+        run("b", CKPT_KILL)
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("fail_at_step did not stop the run")
+    res_b = run("b")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    resumed = CKPT_STEPS - 2 * CKPT_EVERY
+    steps = CKPT_STEPS + CKPT_KILL + resumed
+    check_launches("checkpoint runs", {k: v for k, v in counts.items() if v},
+                   expected_launches(cfg, steps, refreshes=steps + 3))
+    if res_b.restored_from != 2 * CKPT_EVERY:
+        raise AssertionError(f"relaunch restored {res_b.restored_from}, not "
+                             f"{2 * CKPT_EVERY}")
+
+    like = step.abstract_train_state(cfg, None, opt)
+    restored, _ = CheckpointManager(str(root / "b")).restore(
+        like=like, step=2 * CKPT_EVERY, device=DEV)
+    got = ckpt_manager._flatten(restored)
+    same_runs = True
+    for run_dir, base in (("b", True), ("a", False)):
+        path = root / run_dir / f"step_{2 * CKPT_EVERY:08d}" / "arrays.npz"
+        with np.load(path) as saved:
+            if sorted(saved.files) != sorted(got):
+                raise AssertionError("restored keys differ from the saved")
+            for k in saved.files:
+                equal = np.array_equal(saved[k], got[k])
+                if base and not equal:
+                    raise AssertionError(f"restored {k} is not bitwise what "
+                                         "was saved")
+                same_runs &= equal
+    tail = res_a.losses[-resumed:]
+    diff = max(abs(a - b) / abs(a) for a, b in zip(tail, res_b.losses))
+    log(f"[checkpoint] youtube-dnn {CKPT_STEPS} steps saving every "
+        f"{CKPT_EVERY}, killed at {CKPT_KILL} and relaunched: "
+        f"{wall:.3f} s for the three runs; restored_from "
+        f"{res_b.restored_from}; restored leaves bitwise equal to the saved "
+        f"({len(got)} arrays); the two runs' step-{2 * CKPT_EVERY} states "
+        f"bitwise equal: {same_runs}; resumed losses vs uninterrupted: "
+        f"bitwise {tail == res_b.losses}, max relative diff {diff}; "
+        f"launches {counts}")
+    if same_runs and tail != res_b.losses:
+        raise AssertionError("deterministic runs, yet the resumed losses "
+                             "differ from the uninterrupted run's")
+    if diff > 1e-3:
+        raise AssertionError(f"resumed losses differ by {diff} > 1e-3")
+
+    poll = step.serving_index_source(str(root / "a"), cfg, None, opt,
+                                     device=DEV)
+    t0 = time.perf_counter()
+    index, served = poll()
+    torch.cuda.synchronize()
+    poll_s = time.perf_counter() - t0
+    if served != CKPT_STEPS or poll() is not None:
+        raise AssertionError(f"serving_index_source served {served} then "
+                             "something again")
+    want = step.export_retrieval_index(res_a.state, cfg, None)
+    hq = facade_inputs(cfg)[1][:16]
+    ids, logits = retrieval.decode_topk(index, hq, 10)
+    wids, wlogits = retrieval.decode_topk(want, hq, 10)
+    if not torch.equal(ids, wids) or not torch.allclose(
+            logits, wlogits, rtol=1e-6, atol=0.0):
+        raise AssertionError("the served index decodes differently from "
+                             "export_retrieval_index's")
+
+    mgr = CheckpointManager(str(root / "timing"), keep=1)
+    blocking, writer = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(i, res_a.state, extra={"step": i})
+        t1 = time.perf_counter()
+        mgr.wait()
+        blocking.append((t1 - t0) * 1e3)
+        writer.append((time.perf_counter() - t1) * 1e3)
+    file_bytes = os.path.getsize(root / "timing" / "step_00000002" /
+                                 "arrays.npz")
+
+    pcfg = get_config("ptb-lstm")
+    pstate = step.init_train_state(torch.Generator(DEV).manual_seed(0), pcfg,
+                                   None, opt, device=DEV)
+    pmgr = CheckpointManager(str(root / "ptb"))
+    pmgr.save(0, pstate, blocking=True)
+    back, _ = pmgr.restore(like=step.abstract_train_state(pcfg, None, opt),
+                           device=DEV)
+    pwant, pgot = ckpt_manager._flatten(pstate), ckpt_manager._flatten(back)
+    if sorted(pwant) != sorted(pgot) or not all(
+            np.array_equal(pwant[k], pgot[k]) for k in pwant):
+        raise AssertionError("the ptb-lstm state does not round-trip")
+    log(f"[checkpoint] serving_index_source served step {served} in "
+        f"{poll_s:.3f} s (restore on the card + index build); its full-beam "
+        f"decode of 16 queries equals export_retrieval_index's (bitwise: "
+        f"{torch.equal(logits, wlogits)}); a second poll returned None")
+    log(f"[checkpoint] youtube-dnn state {ckpt_bytes(res_a.state)} bytes of "
+        f"arrays ({file_bytes} bytes of arrays.npz); save blocking ms "
+        f"{blocking}, writer ms (npz + fsyncs + rename) {writer}; ptb-lstm "
+        f"state of {ckpt_bytes(pstate)} bytes round-trips bitwise "
+        f"({len(pwant)} arrays)")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def sawtooth(steps: int) -> list[int]:
+    """The staleness the reference's island reports at cadence 4, k 2:
+    0, 1, 2, 3, then 4, 5, 2, 3 repeated."""
+    return [i if i < 4 else (4, 5, 2, 3)[i % 4] for i in range(steps)]
+
+
+def overlap_cfg(cfg, family: str, cadence: int, k: int):
+    return dataclasses.replace(cfg, sampler=family, refresh_mode="overlap",
+                               sampler_refresh_every=cadence,
+                               refresh_stale_steps=k)
+
+
+def check_swap(ocfg, pool) -> None:
+    """Drive the island by hand: the statistics it swaps in at step 2 are
+    bitwise those of make_refresh_fn on the main stream from the same
+    snapshots it dispatched at step 0."""
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    state = step.init_train_state(torch.Generator(DEV).manual_seed(0), ocfg,
+                                  None, opt, device=DEV)
+    step_fn = step.make_train_step(ocfg, None, opt)
+    island = loop.RefreshIsland(ocfg, None, DEV)
+    state = island.prime(state)
+    for i in range(ocfg.refresh_stale_steps + 1):
+        state, _ = island.before_step(i, state)
+        if i == 0:
+            _, head, snap, new, _ = island._inflight
+        state, _ = step_fn(state, pool[i], loop.step_generator(0, i, DEV))
+    torch.cuda.synchronize()
+    if state.sampler_state is not new:
+        raise AssertionError("the island did not swap its rebuild in")
+    want = step.make_refresh_fn(ocfg)(head, snap)
+    check_bitwise(f"{ocfg.sampler} swap", new.stats, want.stats)
+
+
+def overlap_timing(cfg, family: str, pool) -> dict[str, dict[str, float]]:
+    """Per mode (sync, overlap) at cadence 1, k 1: host ms per step to
+    enqueue OVERLAP_TIMED steps (the island's share of it apart), the wall
+    ms per step once the device is done, the device busy ms per step
+    (union of the device intervals, traced) and the busy share of the
+    traced wall; then the refresh alone and ``thread_probe``."""
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    out = {}
+    for mode in ("sync", "overlap"):
+        c = dataclasses.replace(cfg, sampler=family, refresh_mode=mode,
+                                sampler_refresh_every=1,
+                                refresh_stale_steps=1)
+        state = step.init_train_state(torch.Generator(DEV).manual_seed(0), c,
+                                      None, opt, device=DEV)
+        step_fn = step.make_train_step(c, None, opt)
+        island = loop.RefreshIsland(c, None, DEV) if mode == "overlap" \
+            else None
+        if island is not None:
+            state = island.prime(state)
+        holder = {"state": state, "i": 0, "island_s": 0.0}
+        gen = torch.Generator(DEV).manual_seed(13)
+
+        def steps(n, rebuild=True):
+            st = holder["state"]
+            for _ in range(n):
+                i = holder["i"]
+                if island is not None and rebuild:
+                    t0 = time.perf_counter()
+                    st, _ = island.before_step(i, st)
+                    holder["island_s"] += time.perf_counter() - t0
+                st, _ = step_fn(st, pool[i % len(pool)], gen)
+                holder["i"] = i + 1
+            holder["state"] = st
+
+        steps(3)
+        torch.cuda.synchronize()
+        holder["island_s"] = 0.0
+        t0 = time.perf_counter()
+        steps(OVERLAP_TIMED)
+        host = (time.perf_counter() - t0) * 1e3 / OVERLAP_TIMED
+        island_ms = holder["island_s"] * 1e3 / OVERLAP_TIMED
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / OVERLAP_TIMED
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(OVERLAP_TIMED)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3 / OVERLAP_TIMED
+        busy = busy_us(device_events(prof)) / 1e3 / OVERLAP_TIMED
+        out[mode] = dict(host_ms=host, wall_ms=wall, busy_ms=busy,
+                         busy_share=busy / traced)
+        if island is not None:
+            out[mode]["island_host_ms"] = island_ms
+    refresh = step.make_refresh_fn(c)
+    head = api.head_table(holder["state"].params, c).detach().clone()
+    sstate = holder["state"].sampler_state
+    out["refresh"] = dict(host_ms=host_ms(lambda: refresh(head, sstate)),
+                          device_ms=device_ms(lambda: refresh(head, sstate)))
+    out["threads"] = thread_probe(refresh, head, sstate, steps)
+    return out
+
+
+def thread_probe(refresh, head, sstate, steps) -> dict[str, float]:
+    """What a worker thread would hide: wall ms per step of OVERLAP_TIMED
+    overlap-mode steps that rebuild nothing (``steps``), and of the same
+    steps each beside one rebuild on a side stream, launched from the
+    steps' thread (``inline``) or from a worker thread at the same time
+    (``worker``).  A measurement for the island's design, not a path of
+    the port."""
+    side = torch.cuda.Stream(DEV)
+
+    def rebuilds():
+        with torch.cuda.stream(side):
+            for _ in range(OVERLAP_TIMED):
+                refresh(head, sstate)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / OVERLAP_TIMED
+
+    def inline():
+        for _ in range(OVERLAP_TIMED):
+            with torch.cuda.stream(side):
+                refresh(head, sstate)
+            steps(1, rebuild=False)
+
+    def worker():
+        th = threading.Thread(target=rebuilds)
+        th.start()
+        steps(OVERLAP_TIMED, rebuild=False)
+        th.join()
+
+    return dict(steps=timed(lambda: steps(OVERLAP_TIMED, rebuild=False)),
+                inline=timed(inline), worker=timed(worker))
+
+
+def phase_overlap(cfg) -> dict[str, dict[str, int]]:
+    """refresh_mode="overlap" at full width for block-quadratic and midx:
+    fit OVERLAP_STEPS steps at cadence 4, k 2 with the reference's
+    staleness sawtooth and swap count, finite and falling losses, the
+    step's launches exact and the island's counted apart; a swap bitwise
+    equal to a main-stream rebuild of the same snapshots; whether two runs
+    are bitwise equal; step host ms, wall ms and busy share at cadence 1,
+    k 1 against sync, beside the refresh's own host and device ms.
+    Returns each run's launches."""
+    data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=0, device=DEV)
+    pool = [next(data) for _ in range(TRAIN_POOL)]
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    by_path = {}
+    for family in OVERLAP_FAMILIES:
+        ocfg = overlap_cfg(cfg, family, 4, 2)
+
+        def run():
+            return loop.fit(ocfg, None, opt, itertools.cycle(pool),
+                            OVERLAP_STEPS, seed=0, log_every=0, device=DEV)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = run()
+        counts = kernels.launch_counts()
+        by_path[f"overlap {family}"] = counts
+        swaps = sum(1 for i in range(OVERLAP_STEPS) if i % 4 == 2)
+        if res.refresh_staleness != sawtooth(OVERLAP_STEPS) or \
+                res.refresh_swaps != swaps:
+            raise AssertionError(
+                f"overlap {family}: staleness {res.refresh_staleness}, "
+                f"swaps {res.refresh_swaps}; want {sawtooth(OVERLAP_STEPS)}"
+                f", {swaps}")
+        first = statistics.mean(res.losses[:10])
+        last = statistics.mean(res.losses[-10:])
+        if not all(math.isfinite(x) for x in res.losses) or not last < first:
+            raise AssertionError(f"overlap {family}: loss did not fall: "
+                                 f"{first} -> {last}")
+        refresh, _ = sampler_launches(ocfg)
+        dispatches = -(-OVERLAP_STEPS // 4)
+        island = {k: n * (dispatches + 1) for k, n in refresh.items()}
+        check_launches(f"overlap {family} island", {
+            k: v for k, v in res.refresh_launches.items() if v}, island)
+        check_launches(f"overlap {family} step", {
+            k: v - res.refresh_launches[k] for k, v in counts.items()
+            if v - res.refresh_launches[k]},
+            expected_launches(ocfg, OVERLAP_STEPS, refreshes=1))
+        check_swap(ocfg, pool)
+        again = run()
+        log(f"[overlap] {family} cadence 4, k 2, {OVERLAP_STEPS} steps: "
+            f"staleness sawtooth and {swaps} swaps as the reference's; loss "
+            f"mean of steps 0-9 {first}, of the last 10 {last}; island "
+            f"launches {island}, step launches exact; the swap at step 2 "
+            f"equals a main-stream rebuild of its snapshots bitwise; two "
+            f"runs bitwise equal: {again.losses == res.losses}")
+        timing = overlap_timing(cfg, family, pool)
+        log(f"[overlap] {family} cadence 1, k 1, {OVERLAP_TIMED} steps: "
+            + "; ".join(f"{mode} " + ", ".join(f"{k} {v}"
+                                               for k, v in row.items())
+                        for mode, row in timing.items()))
+        hid = timing["sync"]["wall_ms"] - timing["overlap"]["wall_ms"]
+        log(f"[overlap] {family}: overlap saves {hid} ms of wall a step "
+            f"against sync; the refresh alone takes "
+            f"{timing['refresh']['host_ms']} host ms, "
+            f"{timing['refresh']['device_ms']} device ms")
+    return by_path
 
 
 # --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
@@ -2614,6 +3241,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     by_path["ptb-lstm"], shapes["ptb"] = phase_ptb(gen)
+    torch.cuda.empty_cache()
+
+    by_path["facade"] = phase_facade(cfg)
+    phase_sparse(cfg)
+    by_path["checkpoint"] = phase_checkpoint(cfg)
+    by_path.update(phase_overlap(cfg))
     torch.cuda.empty_cache()
 
     shapes.update(llama_shapes)

@@ -18,24 +18,30 @@ Both functions take plain numpy arrays (the JAX side converts with
     lstm model (params, the ``chain(clip, adamw)`` state, the sampler's
     carried state and the step) into the port's ``TrainState``, so both
     packages can take a step from one state.
+
+And back, numpy out:
+
+  * ``params_to_jax`` — a ``RecsysTower`` or ``LSTMLM`` into the
+    reference's param tree (each name split at its first ``_``).
+  * ``train_state_to_jax`` — the port's ``TrainState`` into the four
+    arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
+    the same tree with the port's own tensors as leaves (no copy): what
+    the checkpoint manager flattens into the reference's keys.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
-from repro_torch.models.lstm_lm import LSTMLM
-from repro_torch.models.recsys import RecsysTower
+from repro_torch.models import api
 from repro_torch.models.transformer import require_dense, segments_of
 from repro_torch.serve.retrieval import RetrievalIndex
 from repro_torch.train.step import TrainState
 from repro_torch.utils.misc import resolve_device
-
-
-#: family -> the port's module of that family's params
-_MODULES = {"recsys": RecsysTower, "lstm": LSTMLM}
 
 
 def _flat_params(np_params: dict) -> dict:
@@ -50,6 +56,115 @@ def _flat_params(np_params: dict) -> dict:
         else:
             flat[key] = val
     return flat
+
+
+def _nest_params(flat: dict) -> dict:
+    """The inverse of ``_flat_params`` for the recsys and lstm trees: each
+    name split at its first ``_`` (``head_w`` -> ``head.w``, ``lstm0_kernel``
+    -> ``lstm0.kernel``); their top-level keys hold no ``_``."""
+    nested: dict = {}
+    for name, val in flat.items():
+        top, _, rest = name.partition("_")
+        if rest:
+            nested.setdefault(top, {})[rest] = val
+        else:
+            nested[top] = val
+    return nested
+
+
+def host_copy(t) -> np.ndarray:
+    """A copy of a tensor (or number) on the host: the caller's tensor may
+    change in place afterwards (the optimizer updates params in place)."""
+    if not isinstance(t, torch.Tensor):
+        return np.array(t)
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bf16 leaves (the transformer families' training states) are "
+            "not ported yet (ROADMAP.md A16)")
+    t = t.detach()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def _map_tree(fn, tree):
+    """``fn`` applied to every tensor of a tree of dicts, tuples and
+    lists; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return tree if tree is None else fn(tree)
+
+
+def _module_of(state: TrainState) -> torch.nn.Module:
+    if not isinstance(state.params, tuple(api.PARAM_MODULES.values())):
+        raise NotImplementedError(
+            f"{type(state.params).__name__} training states are not ported "
+            "yet (ROADMAP.md A16); only "
+            f"{', '.join(m.__name__ for m in api.PARAM_MODULES.values())}")
+    return state.params
+
+
+def reference_tree(state: TrainState) -> TrainState:
+    """The port's ``TrainState`` in the reference's tree, leaves untouched
+    (``meta`` tensors stay ``meta``): params nested by name, every dict
+    of the optimizer state keyed by the parameter names nested the same
+    way, the step a 0-d int32 tensor."""
+    model = _module_of(state)
+    names = {n for n, _ in model.named_parameters()}
+
+    def opt_tree(node):
+        if isinstance(node, dict):
+            node = {k: opt_tree(v) for k, v in node.items()}
+            return _nest_params(node) if set(node) == names else node
+        if isinstance(node, (tuple, list)):
+            return type(node)(opt_tree(v) for v in node)
+        return node
+
+    return TrainState(
+        params=_nest_params(dict(model.named_parameters())),
+        opt_state=opt_tree(state.opt_state),
+        sampler_state=SamplerState(stats=dict(state.sampler_state.stats),
+                                   const=dict(state.sampler_state.const)),
+        step=torch.tensor(state.step, dtype=torch.int32))
+
+
+def from_reference_tree(tree: TrainState, like: TrainState) -> TrainState:
+    """The inverse of ``reference_tree``: ``like`` gives the module (its
+    class and configuration; ``meta`` is fine), the tree the tensors."""
+    model = copy.deepcopy(_module_of(like))
+    model.load_state_dict(_flat_params(tree.params), assign=True)
+
+    def opt_tree(node):
+        if isinstance(node, dict):
+            flat = _flat_params(node) if set(node) == set(tree.params) \
+                else node
+            return {k: opt_tree(v) for k, v in flat.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(opt_tree(v) for v in node)
+        return node
+
+    return TrainState(params=model, opt_state=opt_tree(tree.opt_state),
+                      sampler_state=tree.sampler_state, step=int(tree.step))
+
+
+def params_to_jax(model: torch.nn.Module) -> dict:
+    """A ``RecsysTower`` or ``LSTMLM`` -> the reference's param tree of
+    numpy arrays (the inverse of ``params_from_jax``)."""
+    return _nest_params({k: host_copy(p)
+                         for k, p in model.named_parameters()})
+
+
+def train_state_to_jax(state: TrainState
+                       ) -> tuple[dict, tuple, dict, int]:
+    """The port's ``TrainState`` -> ``(np_params, np_opt_state,
+    np_sampler, step)``, numpy copies on the host: the arguments
+    ``train_state_from_jax`` takes."""
+    tree = reference_tree(state)
+    return (_map_tree(host_copy, tree.params),
+            _map_tree(host_copy, tree.opt_state),
+            {"stats": _map_tree(host_copy, tree.sampler_state.stats),
+             "const": _map_tree(host_copy, tree.sampler_state.const)},
+            state.step)
 
 
 def _tensor(arr, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -95,13 +210,13 @@ def params_from_jax(np_params: dict, cfg: ArchConfig,
     dev = resolve_device(device)
     if cfg.family == "dense":
         return lm_params_from_jax(np_params, cfg, dev)
-    if cfg.family not in _MODULES:
+    if cfg.family not in api.PARAM_MODULES:
         raise NotImplementedError(
             f"family '{cfg.family}' is not ported yet (only 'recsys', "
             "'lstm', 'dense')")
     # Built on the meta device, so nothing is allocated or drawn before
     # the copies are assigned.
-    model = _MODULES[cfg.family](cfg, torch.device("meta"))
+    model = api.abstract_params(cfg)
     state = _flat_params(np_params)
     own = model.state_dict()
     if set(state) != set(own):

@@ -61,6 +61,12 @@ class BlockStats:
     def n_pad(self) -> int:
         return self.n_blocks * self.block_size
 
+    def as_hierarchy(self) -> hierarchy.HierarchyStats:
+        """The shared-core view: a depth-0 hierarchy (leaf level only)."""
+        return hierarchy.HierarchyStats((self.z,), (self.cnt,),
+                                        (hierarchy.leaf_ub(self.wq),),
+                                        self.wq, self.n_valid, self.n_pad)
+
 
 def _from_hierarchy(hs: hierarchy.HierarchyStats) -> BlockStats:
     return BlockStats(hs.levels_z[-1], hs.levels_cnt[-1], hs.wq, hs.n_valid)
@@ -79,6 +85,14 @@ def build(w: Tensor, block_size: int, proj: Tensor | None = None,
     classes (rows beyond it carry no mass)."""
     return _from_hierarchy(hierarchy.build(w, block_size, proj=proj,
                                            n_valid=n_valid, full_tree=False))
+
+
+def update_rows(stats: BlockStats, ids: Tensor, w_new: Tensor,
+                proj: Tensor | None = None) -> BlockStats:
+    """Sparse refresh (paper Fig. 1b): add Delta(w w^T) to the touched
+    blocks.  ids must be unique.  Cost O(k r^2)."""
+    return _from_hierarchy(
+        hierarchy.update_rows(stats.as_hierarchy(), ids, w_new, proj))
 
 
 def _block_logits(kernel: SamplingKernel, stats: BlockStats,

@@ -26,9 +26,10 @@ both)``, which keeps its digits where the reference's ``log(1 - p_r)``
 cancels (p_r near 1).  A zero-mass child (a padding-only subtree) is never
 taken: a uniform in [0, 1) is never below p = 0.
 
-``update_rows`` / ``update_feature_rows`` (the sparse path refresh that
-only the reference's ``SoftmaxHead`` facade calls) arrive with that facade
-(ROADMAP.md A11).
+``update_rows`` / ``update_feature_rows`` are the paper's Fig. 1b sparse
+refresh: after the rows of ``ids`` change, each level along the touched
+leaf-to-root paths gets the rows' delta (a scatter-add) instead of a
+rebuild.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from repro_torch.core.kernel_fns import (
     gram_set_mass,
     rff_log_phi,
     rff_logshift_bound,
+    rff_phi,
 )
 from repro_torch.kernels import ops
 from repro_torch.utils.misc import log2_int, next_pow2
@@ -171,6 +173,40 @@ def build(w: Tensor, leaf_size: int, *, proj: Tensor | None = None,
             levels_ub.insert(0, torch.maximum(child_u[0::2], child_u[1::2]))
     return HierarchyStats(tuple(levels_z), tuple(levels_cnt),
                           tuple(levels_ub), wq, n_valid, n_rows)
+
+
+def update_rows(stats: HierarchyStats, ids: Tensor, w_new: Tensor,
+                proj: Tensor | None = None) -> HierarchyStats:
+    """Paper Fig. 1b: after the embeddings of ``ids`` change to ``w_new``,
+    add ``Delta(w w^T)`` to every level along each leaf-to-root path.
+
+    ids: (k,) class indices; w_new: (k, d).  Cost O(k * depth * r^2) for
+    the Gram sums; the max-norm bound cannot be decremented sparsely, so
+    touched leaves recompute theirs from ``wq`` and the max propagates up
+    the same paths.  Duplicate ids are NOT allowed (which old row a
+    duplicate reads is undefined)."""
+    wq_new = project(w_new, proj)
+    ids = ids.long()
+    leaf_of = torch.div(ids, stats.leaf_size, rounding_mode="floor")
+    off = ids % stats.leaf_size
+    wq_old = stats.wq[leaf_of, off]
+    delta = (torch.einsum("ki,kj->kij", wq_new, wq_new)
+             - torch.einsum("ki,kj->kij", wq_old, wq_old))
+    wq = stats.wq.index_put((leaf_of, off), wq_new)
+
+    depth = stats.depth
+    new_z = tuple(z.index_add(0, leaf_of >> (depth - lvl), delta)
+                  for lvl, z in enumerate(stats.levels_z))
+    new_ub = list(stats.levels_ub)
+    new_ub[depth] = new_ub[depth].index_put((leaf_of,), leaf_ub(wq[leaf_of]))
+    for lvl in range(depth - 1, -1, -1):
+        node_of = leaf_of >> (depth - lvl)
+        child = new_ub[lvl + 1]
+        new_ub[lvl] = new_ub[lvl].index_put(
+            (node_of,), torch.maximum(child[2 * node_of],
+                                      child[2 * node_of + 1]))
+    return HierarchyStats(new_z, stats.levels_cnt, tuple(new_ub), wq,
+                          stats.n_valid, stats.n)
 
 
 # --- flat heap packing (DESIGN.md §2.5) --------------------------------------
@@ -443,6 +479,28 @@ def build_features(w: Tensor, leaf_size: int, omega: Tensor, tau: float, *,
         child = levels_f[0]
         levels_f.insert(0, child[0::2] + child[1::2])
     return FeatureStats(tuple(levels_f), wq, logshift, n_valid, n_rows)
+
+
+def update_feature_rows(stats: FeatureStats, ids: Tensor, w_new: Tensor,
+                        omega: Tensor, tau: float) -> FeatureStats:
+    """Paper Fig. 1b for the feature hierarchy: add ``Delta phi(w)`` along
+    each leaf-to-root path after the embeddings of ``ids`` change to
+    ``w_new``.
+
+    ids: (k,) class indices; w_new: (k, d).  Cost O(k * D * (d + depth)).
+    New features reuse the stored ``logshift`` (a grown row may exceed
+    exp(0) = 1, far below fp32 overflow).  Duplicate ids are NOT allowed."""
+    ids = ids.long()
+    leaf_of = torch.div(ids, stats.leaf_size, rounding_mode="floor")
+    off = ids % stats.leaf_size
+    w32 = w_new.float()
+    delta = (rff_phi(w32, omega, tau, stats.logshift)
+             - rff_phi(stats.wq[leaf_of, off], omega, tau, stats.logshift))
+    wq = stats.wq.index_put((leaf_of, off), w32)
+    depth = stats.depth
+    new_f = tuple(f.index_add(0, leaf_of >> (depth - lvl), delta)
+                  for lvl, f in enumerate(stats.levels_f))
+    return FeatureStats(new_f, wq, stats.logshift, stats.n_valid, stats.n)
 
 
 def count_levels(n_valid: Tensor, num_leaves: int, leaf_size: int,

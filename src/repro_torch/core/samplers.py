@@ -13,8 +13,11 @@ Two state forms, as in the reference:
         ids, logq = sampler.sample(state, h, m, gen)        # one query (m,)
         ids, logq = sampler.sample_batch(state, H, m, gen)  # (T, m)
 
-The reference's runtime-form ``init`` / ``refresh`` (used by its
-``SoftmaxHead`` facade) arrive with that facade (ROADMAP.md A11).
+The block, tree and rff samplers also update their runtime state in place
+of a rebuild, after the rows of some ids changed (``update_rows``, the
+paper's Fig. 1b sparse refresh).  The reference's runtime-form ``init`` /
+``refresh`` have no counterpart: ``init_state`` / ``build_stats`` then
+``hydrate`` give the same runtime state.
 
 ``logq`` is always the EXACT log-probability under the distribution sampled
 from — what eq. 2 needs.  Randomness comes from the caller's
@@ -60,6 +63,9 @@ class SamplerState:
 
     stats: dict[str, Tensor]
     const: dict[str, Tensor]
+
+    def replace_stats(self, stats: dict[str, Tensor]) -> "SamplerState":
+        return SamplerState(stats=stats, const=self.const)
 
 
 def empty_state() -> SamplerState:
@@ -211,6 +217,12 @@ class BlockSampler(Sampler):
                  if self.proj_rank else {})
         return SamplerState(stats=stats, const=const)
 
+    def update_rows(self, state, ids, w_new):
+        """Runtime state after the rows ``ids`` (unique) became ``w_new``."""
+        return {"stats": blocks.update_rows(state["stats"], ids, w_new,
+                                            state["proj"]),
+                "proj": state["proj"]}
+
     def sample_batch(self, state, h, m, gen):
         if self.shared:
             raise NotImplementedError(
@@ -292,6 +304,12 @@ class TreeSampler(Sampler):
         return tree.all_class_logq(state["stats"], self.kernel, h,
                                    state["proj"])
 
+    def update_rows(self, state, ids, w_new):
+        """Runtime state after the rows ``ids`` (unique) became ``w_new``."""
+        return {"stats": tree.update_path(state["stats"], self.kernel, ids,
+                                          w_new, state["proj"]),
+                "proj": state["proj"]}
+
     def sample_batch(self, state, h, m, gen):
         return tree.sample_batch(state["stats"], self.kernel, h, m, gen,
                                  state["proj"])
@@ -348,6 +366,12 @@ class RFFSampler(Sampler):
         """Exact per-class log q of the hierarchy (test oracle, O(n D))."""
         return hierarchy.all_class_logq_features(state["stats"],
                                                  state["proj"], self.tau, h)
+
+    def update_rows(self, state, ids, w_new):
+        """Runtime state after the rows ``ids`` (unique) became ``w_new``."""
+        return {"stats": hierarchy.update_feature_rows(
+                    state["stats"], ids, w_new, state["proj"], self.tau),
+                "proj": state["proj"]}
 
     def sample_batch(self, state, h, m, gen):
         return hierarchy.descend_features(state["stats"], state["proj"],

@@ -12,9 +12,9 @@ An optional fixed projection ``P: (r, d)`` moves sampling into a rank-r
 space; ``proj=None`` is the paper-exact sampler.  Draws come from the
 caller's ``torch.Generator``.
 
+``update_path`` is the Fig. 1b sparse refresh along the touched paths.
 The reference's per-draw ``sample_sequential`` (its equivalence and
-benchmark reference) and ``update_path`` (the Fig. 1b sparse refresh, used
-only by its ``SoftmaxHead`` facade) are not ported (ROADMAP.md A3, A11).
+benchmark reference) is not ported (ROADMAP.md A3).
 """
 from __future__ import annotations
 
@@ -73,3 +73,14 @@ def all_class_logq(stats: TreeStats, kernel: SamplingKernel, h: Tensor,
     O(n r^2)).  h: (d,) -> (n,)."""
     hq = _project(h[None], proj)[0]
     return hierarchy.all_class_logq(stats, kernel, hq)
+
+
+def update_path(stats: TreeStats, kernel: SamplingKernel, ids: Tensor,
+                w_new: Tensor, proj: Tensor | None = None) -> TreeStats:
+    """Paper Fig. 1b: after the embeddings of ``ids`` change to ``w_new``,
+    update the statistics along each leaf-to-root path with Delta phi(w).
+    ids: (k,) unique class indices; w_new: (k, d).  Cost
+    O(k * depth * r^2)."""
+    if kernel.degree != 2:
+        raise ValueError("tree statistics require the quadratic kernel")
+    return hierarchy.update_rows(stats, ids, w_new, proj)

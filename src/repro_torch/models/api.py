@@ -48,6 +48,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return recsys.init_recsys(gen, cfg, dev)
 
 
+#: family -> the module of its params (the dense family's are a dict tree)
+PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM}
+
+
+def abstract_params(cfg: ArchConfig) -> torch.nn.Module:
+    """The recsys or lstm parameters on the ``meta`` device: their names,
+    shapes and dtypes, nothing allocated or drawn."""
+    if cfg.family not in PARAM_MODULES:
+        raise NotImplementedError(
+            f"abstract params of family '{cfg.family}' are not ported yet "
+            "(ROADMAP.md A16)")
+    return PARAM_MODULES[cfg.family](cfg, torch.device("meta"))
+
+
 def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     """The class-embedding table the sampler/loss/index operate on: the
     parameter itself, so a loss through it reaches its gradient."""

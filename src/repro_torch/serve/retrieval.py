@@ -46,7 +46,8 @@ Tensor = torch.Tensor
 def require_unsharded(ctx) -> None:
     if ctx is not None and getattr(ctx, "mesh", None) is not None:
         raise NotImplementedError(
-            "the mesh (vocab-sharded) path is not ported yet")
+            "the mesh (vocab-sharded) path is not ported yet (ROADMAP.md "
+            "A17)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,12 +16,19 @@ Sampler statistics are carried in ``TrainState.sampler_state``, a
 statistics actually sampled from, so staleness costs bias-of-q only.
 
 The refresh branches on the host (the reference computes both sides and
-selects with ``jnp.where``; the result is the same).  A mesh, or
-``refresh_mode="overlap"``, raises ``NotImplementedError``.
+selects with ``jnp.where``; the result is the same).  Under
+``refresh_mode="overlap"`` the step never rebuilds: the loop's
+``RefreshIsland`` rebuilds from a snapshot of the head on a side stream
+and swaps the result in.  A mesh raises ``NotImplementedError``.
+
+``serving_index_source`` is the seam between training and serving: it
+restores the newest complete checkpoint and exports a fresh retrieval index
+from its head.
 """
 from __future__ import annotations
 
 import dataclasses
+import zipfile
 from typing import Any, Callable
 
 import torch
@@ -53,14 +60,6 @@ class TrainState:
     opt_state: Any
     sampler_state: SamplerState
     step: int
-
-
-def _require_sync(cfg: ArchConfig, ctx) -> None:
-    retrieval.require_unsharded(ctx)
-    if cfg.refresh_mode == "overlap":
-        raise NotImplementedError(
-            "refresh_mode='overlap' is not ported yet (the refresh-island "
-            "slice, ROADMAP.md A9)")
 
 
 def param_dict(model: torch.nn.Module) -> dict[str, Tensor]:
@@ -105,13 +104,15 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
                                   tuple[TrainState, dict]]:
     """``train_step(state, batch, gen) -> (state, metrics)``; ``gen``
     draws the step's negatives."""
-    _require_sync(cfg, ctx)
+    retrieval.require_unsharded(ctx)
     cfg.validate()
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     m = cfg.m_negatives
     refresh_fn = make_refresh_fn(cfg, ctx)
     every = max(cfg.sampler_refresh_every, 1)
+    # overlap: the loop's RefreshIsland rebuilds and swaps the statistics in
+    in_step_refresh = cfg.refresh_mode != "overlap"
 
     def loss_fn(model, mb, sstate, gen):
         h2d, labels, aux = api.backbone_hidden(model, mb, cfg)
@@ -135,7 +136,7 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
     def train_step(state: TrainState, batch: dict, gen: torch.Generator
                    ) -> tuple[TrainState, dict]:
         sstate = state.sampler_state
-        if state.step % every == 0:
+        if in_step_refresh and state.step % every == 0:
             sstate = refresh_fn(api.head_table(state.params, cfg), sstate)
         mu = max(cfg.microbatches, 1)
         if mu == 1:
@@ -166,7 +167,7 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
     return train_step
 
 
-def export_retrieval_index(state: TrainState, cfg: ArchConfig, ctx=None,
+def export_retrieval_index(state: TrainState, cfg: ArchConfig, ctx,
                            leaf_size: int | None = None
                            ) -> retrieval.RetrievalIndex:
     """Packed serving index from a trained state: UNPROJECTED statistics
@@ -178,28 +179,93 @@ def export_retrieval_index(state: TrainState, cfg: ArchConfig, ctx=None,
                                  vocab_size=cfg.vocab_size)
 
 
-def init_train_state(gen: torch.Generator, cfg: ArchConfig, ctx,
-                     opt: GradientTransform,
+def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
+                     opt: GradientTransform, max_len: int = 4096, *,
                      device: str | torch.device | None = None) -> TrainState:
     """Concrete init on ``device`` (the card unless ``device="cpu"``):
-    weights drawn from ``gen``, the optimizer's zero state, and the
-    sampler's statistics built from the initial head.  The sampler's
-    constants come from a generator seeded off ``gen``'s seed, as the
-    reference folds 7 into its key."""
-    _require_sync(cfg, ctx)
+    weights drawn from the generator ``key``, the optimizer's zero state,
+    and the sampler's statistics built from the initial head.  The
+    sampler's constants come from a generator seeded off ``key``'s seed, as
+    the reference folds 7 into its key.  ``max_len`` sizes the dense
+    family's positions in the reference; the ported families have none."""
+    retrieval.require_unsharded(ctx)
     cfg.validate()
     dev = resolve_device(device)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.init_params(cfg, gen, device=dev)
+    model = api.init_params(cfg, key, device=dev)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
         const_gen = torch.Generator(dev).manual_seed(
-            fold_in(gen.initial_seed(), 7))
+            fold_in(key.initial_seed(), 7))
         with torch.no_grad():
             sstate = sampler.init_state(const_gen,
                                         api.head_table(model, cfg).detach(),
                                         n_valid=cfg.vocab_size)
     return TrainState(params=model, opt_state=opt_state,
                       sampler_state=sstate, step=0)
+
+
+def abstract_train_state(cfg: ArchConfig, ctx, opt: GradientTransform,
+                         max_len: int = 4096) -> TrainState:
+    """The train state's structure on the ``meta`` device, nothing
+    allocated: the restore template of ``CheckpointManager.restore``.
+    Shapes and dtypes are those ``init_train_state`` gives."""
+    retrieval.require_unsharded(ctx)
+    cfg.validate()
+    sampler = sampler_from_config(cfg)
+    estimator = estimators.make_estimator(cfg.estimator)
+    model = api.abstract_params(cfg)
+    sstate = empty_state()
+    if sampler.carries_state and estimator.needs_sampling:
+        sstate = sampler.state_shapes(cfg)
+    return TrainState(params=model, opt_state=opt.init(param_dict(model)),
+                      sampler_state=sstate, step=0)
+
+
+def serving_index_source(checkpoint_dir: str, cfg: ArchConfig, ctx,
+                         opt: GradientTransform, *, max_len: int = 4096,
+                         leaf_size: int | None = None,
+                         quantized: bool = False,
+                         device: str | torch.device | None = None
+                         ) -> Callable[[], tuple | None]:
+    """The serving half of the train -> serve refresh seam.
+
+    Returns ``poll() -> (RetrievalIndex, step) | None``: when a step newer
+    than the last one served has landed COMPLETE in ``checkpoint_dir``
+    (the manager lists only renamed, manifest-bearing steps), restore it
+    on ``device`` (the card unless ``device="cpu"``) from an
+    ``abstract_train_state`` template and export a fresh index from its
+    head; None when training has not advanced.  Built for
+    ``serve.server.IndexRefresher``: the restore and the build run
+    wherever ``poll`` is called, never on the decode path.
+
+    A poll can still catch a directory mid-write (manifest landed, arrays
+    not yet): a failed restore reports "nothing new" and leaves the last
+    step served untouched, so the next poll retries it."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    if quantized:
+        raise NotImplementedError(
+            "the quantized serving index is not ported yet (ROADMAP.md "
+            "A15)")
+    dev = resolve_device(device)
+    mgr = CheckpointManager(checkpoint_dir)
+    like = abstract_train_state(cfg, ctx, opt, max_len=max_len)
+    last: dict[str, int | None] = {"step": None}
+
+    def poll():
+        step = mgr.latest_step()
+        if step is None or step == last["step"]:
+            return None
+        try:
+            state, _ = mgr.restore(like=like, step=step, device=dev)
+        except (OSError, KeyError, ValueError, EOFError,
+                zipfile.BadZipFile):
+            return None  # torn read: retry this step on the next poll
+        last["step"] = step
+        return export_retrieval_index(state, cfg, ctx,
+                                      leaf_size=leaf_size), step
+
+    return poll

@@ -157,7 +157,8 @@ TRAINING_MODULES = (
     "repro_torch.optim.adamw", "repro_torch.optim.sgd",
     "repro_torch.optim.schedule", "repro_torch.data.synthetic",
     "repro_torch.data.pipeline", "repro_torch.train.step",
-    "repro_torch.train.loop")
+    "repro_torch.train.loop", "repro_torch.api",
+    "repro_torch.checkpoint.manager")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -366,7 +366,7 @@ def test_reduced_youtube_dnn_trains_with_block_quadratic():
     assert losses.shape == (30,) and np.isfinite(losses).all()
     assert losses[-10:].mean() < losses[:10].mean()
     assert res.state.step == 30 and res.refresh_staleness == [0] * 30
-    index = step.export_retrieval_index(res.state, cfg)
+    index = step.export_retrieval_index(res.state, cfg, None)
     head = api.head_table(res.state.params, cfg).detach()
     h = torch.randn((4, head.shape[1]), generator=torch.Generator()
                     .manual_seed(0))
@@ -391,13 +391,9 @@ def test_fit_flags_an_injected_straggler():
 def test_unported_training_options_raise():
     cfg = get_config("youtube-dnn").reduced()
     opt = make_optimizer("adamw", 1e-2)
-    data = batch_iterator_for(cfg, None, 4, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        loop.fit(cfg, None, opt, data, 1, checkpoint_dir="ckpt",
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="overlap"):
-        step.make_train_step(dataclasses.replace(cfg, refresh_mode="overlap"),
-                             None, opt)
+    with pytest.raises(NotImplementedError, match="A15"):
+        step.serving_index_source("ckpt", cfg, None, opt, quantized=True,
+                                  device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         step.make_train_step(cfg, types.SimpleNamespace(mesh="m"), opt)
     moe = dataclasses.replace(get_config("llama3-8b").reduced(),
