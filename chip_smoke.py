@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU and
 check them: youtube-dnn serving and training, ptb-lstm training,
-llama3-8b serving, and the SoftmaxHead facade, the sparse refresh,
-checkpoint/restart and the overlapped refresh island.
+llama3-8b serving, the SoftmaxHead facade, the sparse refresh,
+checkpoint/restart, the overlapped refresh island, and the rest of the
+sampler registry (the batch-shared sampler, tapas, the paper's oracles).
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -166,8 +167,36 @@ result line):
                  snapshots on the main stream bitwise; whether two runs are
                  bitwise equal; host and wall ms a step and the busy share
                  at cadence 1, k 1 against sync, beside the refresh alone.
-Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15 and each family of 16
-are main paths: the kernel
+ 17. samplers  — (a) youtube-dnn at full width through fit, 60 steps on
+                 phase 6's pool for each of block-quadratic-shared, tapas
+                 (a pool of 1,024 over the shared base), quadratic-oracle,
+                 softmax, abs-softmax, quartic-oracle, rff-oracle and
+                 midx-oracle: falling loss, exact launches (shared: zstats
+                 61 and nothing else, its (m,) negatives take the loss's
+                 einsum path; tapas: zstats 61 and the fused head 60 each
+                 way; each oracle the fused head only), and on 4 held-out
+                 queries every draw's logq equal to the family's exact
+                 all-class log q within 1e-4, no id at or past n_valid;
+                 the shared family's logq and tapas' pool logq also equal
+                 to a plain fp64 sum over h @ W.T of the head (tapas: at
+                 tau = 1 the corrected logit o[ids] - logq constant along
+                 each row, and its logq equal to a plain recomputation over
+                 the pool's distinct classes); then host ms and busy share
+                 of the shared step beside block-quadratic's on one state;
+                 (b) the shared sampler's mega branch at m = 2,048 (>= 4 x
+                 391 blocks): logq against all_class_logq(shared) and the
+                 plain sum within 1e-4, ids < n_valid, and on the drawn
+                 blocks its
+                 within-block log-probabilities equal to the per-draw
+                 branch's within 1e-5; (c) ptb-lstm at full width, 60
+                 steps each of the shared family and of tapas (its pool
+                 takes the mega branch over 79 blocks), the gates of (a);
+                 (d) bench.bias_vs_samples.grad_bias at the reference's
+                 arguments: at each m softmax < quadratic-oracle < uniform
+                 and tapas < block-quadratic-shared, each row logged beside
+                 BENCH_grad_bias.json's.
+Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16
+and each run of 17 are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -188,7 +217,9 @@ ct entry, bf16, and the call with the expansion outside the kernel), and
 the fused head's bf16_*, skew3_* (90% of the slots on 3 rows) and
 skewed_* (the trained state's step)) and
 the last is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  ``[time]`` lines give the script's clock
+at the end of each group of phases, so that each group's cost reads off
+the differences.
 """
 from __future__ import annotations
 
@@ -236,6 +267,7 @@ from repro_torch.core.sampled_softmax import (  # noqa: E402
     full_softmax_loss,
     fused_plan,
 )
+from repro_torch.bench import bias_vs_samples  # noqa: E402
 from repro_torch.core.samplers import sampler_from_config  # noqa: E402
 from repro_torch.data.pipeline import batch_iterator_for  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
@@ -1440,7 +1472,17 @@ def sampler_launches(cfg) -> tuple[dict[str, int], dict[str, int]]:
     descent scores each level with at most ``dense_cap = max(256, 4m)``
     nodes through block_scores: levels 1-9 (2 to 512 nodes) of the
     512-leaf tree at full width; midx rebuilds with no hand-written
-    kernel."""
+    kernel.  The batch-shared family refreshes through zstats and samples
+    by einsums (no kernel); tapas refreshes and draws its pool as its base
+    does and resamples by a product; the oracles rebuild and score in plain
+    products."""
+    if cfg.sampler == "tapas":
+        return sampler_launches(dataclasses.replace(cfg,
+                                                    sampler=cfg.tapas_base))
+    if cfg.sampler == "block-quadratic-shared":
+        return {"zstats": 1}, {}
+    if cfg.sampler in ORACLE_FAMILIES:
+        return {}, {}
     if cfg.sampler == "block-quadratic":
         return {"zstats": 1}, {"block_scores": 1, "leaf_scores": 1}
     if cfg.sampler == "tree-quadratic":
@@ -1462,24 +1504,17 @@ def expected_launches(cfg, steps: int = TRAIN_STEPS,
     ``init_train_state`` builds the statistics once and every step
     refreshes them (refresh every step; ``refreshes`` overrides the
     count), samples once and runs the fused head forward and backward
-    once (``sampler_launches``)."""
+    once (``sampler_launches``) — but for shared (m,) negatives, which take
+    the loss's einsum path."""
     refresh, sample = sampler_launches(cfg)
     counts = dict.fromkeys(REPLACES, 0)
-    counts.update(fused_lse=steps, fused_lse_bwd=steps)
+    head = 0 if sampler_from_config(cfg).shares_negatives else steps
+    counts.update(fused_lse=head, fused_lse_bwd=head)
     for name, n in refresh.items():
         counts[name] += n * (steps + 1 if refreshes is None else refreshes)
     for name, n in sample.items():
         counts[name] += n * steps
     return counts
-
-
-def all_class_logq(sampler, runtime, h_t: torch.Tensor) -> torch.Tensor:
-    """The sampler's exact log q of every class for one query (the block
-    sampler's through ``blocks.all_class_logq``)."""
-    if sampler.name == "block-quadratic":
-        return blocks.all_class_logq(runtime["stats"], sampler.kernel, h_t,
-                                     runtime["proj"])
-    return sampler.all_class_logq(runtime, h_t)
 
 
 def check_draw_logq(cfg, state, held, draws=None) -> None:
@@ -1490,6 +1525,10 @@ def check_draw_logq(cfg, state, held, draws=None) -> None:
     ``draws``: (h, ids, logq) of 4 queries drawn elsewhere (the facade's),
     in place of drawing from ``held``."""
     sampler = sampler_from_config(cfg)
+    if draws is None and (sampler.shares_negatives or sampler.two_stage
+                          or not sampler.carries_state):
+        check_sampler_logq(cfg, state, held)
+        return
     gen = torch.Generator(DEV).manual_seed(17)
     with torch.no_grad():
         runtime = sampler.hydrate(state.sampler_state, cfg.vocab_size)
@@ -1502,7 +1541,7 @@ def check_draw_logq(cfg, state, held, draws=None) -> None:
             h, ids, logq = draws
         worst, mass = 0.0, []
         for t in range(h.shape[0]):
-            oracle = all_class_logq(sampler, runtime, h[t])
+            oracle = sampler.all_class_logq(runtime, h[t])
             worst = max(worst, float((logq[t] - oracle[ids[t]]).abs().max()))
             mass.append(float(torch.logsumexp(oracle, 0).exp()))
     top = int(ids.max())
@@ -1531,13 +1570,15 @@ def check_draw_logq(cfg, state, held, draws=None) -> None:
             f"{live * h.shape[0]}; logshift {float(st.logshift)}")
 
 
-def phase_family(cfg, pool, held) -> tuple[dict[str, int], object]:
-    """One hierarchical family through fit at full width: the pool run, its
+def phase_family(cfg, pool, held, batch: str = f"batch {TRAIN_BATCH}"
+                 ) -> tuple[dict[str, int], object]:
+    """One sampler family through fit at full width: the pool run, its
     exact launch counts and falling loss, then the exactness check."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     res, first, last = run_fit(cfg, itertools.cycle(pool),
-                               f"{cfg.sampler}, pool of {TRAIN_POOL} batches")
+                               f"{cfg.sampler}, pool of {TRAIN_POOL} batches",
+                               batch)
     counts = kernels.launch_counts()
     log(f"[{cfg.sampler}] launches {counts}")
     want = expected_launches(cfg)
@@ -1550,9 +1591,10 @@ def phase_family(cfg, pool, held) -> tuple[dict[str, int], object]:
     return counts, res.state
 
 
-def phase_family_breakdown(cfg, state) -> None:
+def phase_family_breakdown(cfg, state, steps: int = 1) -> None:
     """Host ms (median of 9, synced) of one family's refresh, sampler and
-    whole step at T = 256, then a torch.profiler trace of one step."""
+    whole step at T = 256, then a torch.profiler trace of ``steps``
+    steps."""
     sampler = sampler_from_config(cfg)
     refresh = step.make_refresh_fn(cfg)
     opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
@@ -1578,7 +1620,7 @@ def phase_family_breakdown(cfg, state) -> None:
     log(f"[breakdown] {cfg.sampler} training step, T={TRAIN_BATCH}, "
         f"m={cfg.m_negatives}: host ms (median of 9, synced): "
         + ", ".join(f"{name} {ms}" for name, ms in row.items()))
-    phase_profile(cfg, holder["state"], steps=1)
+    phase_profile(cfg, holder["state"], steps=steps)
 
 
 def host_ms_split(setup, fn) -> float:
@@ -2462,6 +2504,254 @@ def phase_overlap(cfg) -> dict[str, dict[str, int]]:
     return by_path
 
 
+# --- phase 17: the batch-shared sampler, tapas and the oracle samplers -------
+
+#: phase 17's youtube-dnn families; the oracles among them
+SAMPLER_FAMILIES = ("block-quadratic-shared", "tapas", "quadratic-oracle",
+                    "softmax", "abs-softmax", "quartic-oracle", "rff-oracle",
+                    "midx-oracle")
+ORACLE_FAMILIES = SAMPLER_FAMILIES[2:]
+#: phase 17's ptb-lstm families
+PTB_SAMPLER_FAMILIES = ("block-quadratic-shared", "tapas")
+#: the mega branch's draw count: the base config's m_negatives, past
+#: 4 x 391 youtube-dnn blocks
+MEGA_M = 2048
+#: eq. 2 exactness of every draw's logq, and the tapas row spread
+LOGQ_TOL = 1e-4
+
+
+def held_queries(cfg, state, held, k: int = 4) -> torch.Tensor:
+    """The hidden states of the first ``k`` held-out queries."""
+    with torch.no_grad():
+        h, _, _ = api.backbone_hidden(state.params, held, cfg)
+    return h[:k].contiguous()
+
+
+def dense_shared_logq(head, h, alpha: float, n: int, proj=None):
+    """The batch-shared q in plain fp64, independent of the sampler's block
+    statistics: q_i ∝ sum_p (alpha (h_p . w_i)^2 + 1) over the n live rows
+    of the head, from one h @ W.T (both projected when the sampler is).
+    Returns log q (n,)."""
+    if proj is not None:
+        h, head = h.float() @ proj.float().T, head.float() @ proj.float().T
+    dots = h.double() @ head[:n].double().T
+    s = torch.sum(alpha * dots.square() + 1.0, dim=0)
+    return torch.log(s) - torch.log(s.sum())
+
+
+def tapas_draw_check(sampler, runtime, head, h, m, gen, dense_q):
+    """Tapas' draws for the queries h as ``sample_batch`` makes them (pool,
+    then resample), held in fp64 against plain recomputations: the pool's
+    base logq1 against ``dense_q`` (the shared base's plain log q); the
+    composed logq against o_j - logsumexp over the pool's DISTINCT classes
+    k of (o_k - log pi_k), with pi_k = 1 - (1 - q_k)^P from ``dense_q``;
+    and, at tau = 1, o[ids] - logq constant along each row.  Returns (ids,
+    logq, worst |logq - dense|, worst |logq1 - dense_q[pool]|, the largest
+    row spread, the pool's top id)."""
+    pool, lq1 = sampler.draw_pool(runtime, h, gen)
+    ids, logq = sampler.resample_from_pool(runtime, pool, lq1, h, m, gen)
+    worst_lq1 = float((lq1.double() - dense_q[pool]).abs().max())
+    w64, h64 = head.double(), h.double()
+    corrected = torch.einsum("td,tmd->tm", h64, w64[ids]) - logq.double()
+    spread = float((corrected.amax(1) - corrected.amin(1)).max())
+    distinct = torch.unique(pool)
+    q = dense_q[distinct].exp()
+    logpi = torch.log(-torch.expm1(sampler.pool * torch.log1p(-q)))
+    lse = torch.logsumexp(h64 @ w64[distinct].T / sampler.tau - logpi,
+                          dim=-1, keepdim=True)
+    want = torch.einsum("td,tmd->tm", h64, w64[ids]) / sampler.tau - lse
+    worst = float((logq.double() - want).abs().max())
+    return ids, logq, worst, worst_lq1, spread, int(pool.max())
+
+
+def check_sampler_logq(cfg, state, held) -> None:
+    """The eq. 2 exactness contract for phase 17's families on 4 held-out
+    queries: the logq of every draw equals the family's exact all-class
+    log q at the drawn ids within LOGQ_TOL — the shared family's (m,) set
+    against ``all_class_logq(shared=True)`` over the same 4 queries and
+    against ``dense_shared_logq``, each oracle's (4, m) against its
+    ``logq_all``, tapas by ``tapas_draw_check`` — and no id is at or past
+    n_valid.  Carrying families are checked on statistics rebuilt from the
+    current head, so that the plain sums read the same table."""
+    sampler = sampler_from_config(cfg)
+    gen = torch.Generator(DEV).manual_seed(17)
+    n, m = cfg.vocab_size, cfg.m_negatives
+    spread, top_pool, plain = 0.0, -1, 0.0
+    with torch.no_grad():
+        head = api.head_table(state.params, cfg).detach()
+        h = held_queries(cfg, state, held)
+        sstate = state.sampler_state
+        if sampler.carries_state:
+            sstate = sstate.replace_stats(
+                sampler.build_stats(head, n, sstate.const))
+        runtime = sampler.island_runtime(sstate, head, n)
+        if sampler.shares_negatives or sampler.two_stage:
+            base = sampler.base if sampler.two_stage else sampler
+            base_rt = runtime["base"] if sampler.two_stage else runtime
+            dense_q = dense_shared_logq(head, h, base.kernel.alpha, n,
+                                        base_rt["proj"])
+        if sampler.two_stage:
+            ids, logq, worst, plain, spread, top_pool = tapas_draw_check(
+                sampler, runtime, head, h, m, gen, dense_q)
+        else:
+            ids, logq = sampler.sample_batch(runtime, h, m, gen)
+            if sampler.shares_negatives:
+                want = sampler.all_class_logq(runtime, h)[ids]
+                plain = float((logq.double() - dense_q[ids]).abs().max())
+            else:
+                want = torch.gather(sampler.logq_all(runtime, h), 1, ids)
+            worst = float((logq - want).abs().max())
+    top = max(int(ids.max()), top_pool)
+    log(f"[{cfg.name} {cfg.sampler}] 4 held-out queries, draws "
+        f"{tuple(ids.shape)}: max |logq - exact logq[ids]| = {worst}"
+        + (f"; max |{'logq1' if sampler.two_stage else 'logq'} - plain "
+           f"dense sum over h @ W.T| = {plain}"
+           if sampler.shares_negatives or sampler.two_stage else "")
+        + (f"; tau = 1 row spread of o - logq {spread}"
+           if sampler.two_stage else "")
+        + f"; max id {top} (n_valid {n})")
+    if not torch.isfinite(logq).all() or top >= n:
+        raise AssertionError(f"{cfg.sampler}: a draw has a non-finite logq "
+                             "or an id past n_valid")
+    if worst > LOGQ_TOL or plain > LOGQ_TOL or spread > LOGQ_TOL:
+        raise AssertionError(f"{cfg.sampler}: logq off by {worst}, by "
+                             f"{plain} from the plain dense sum, row "
+                             f"spread {spread} (> {LOGQ_TOL})")
+
+
+def phase_mega(cfg, state, held, gen: torch.Generator) -> None:
+    """The shared sampler's mega branch at full width, on statistics rebuilt
+    from the current head: MEGA_M draws for a held-out batch (391 blocks:
+    mega from 1,564 draws on) against ``all_class_logq(shared=True)`` and
+    ``dense_shared_logq`` within LOGQ_TOL, no id past n_valid;
+    on the drawn blocks its within-block log-probabilities equal the
+    per-draw branch's within RTOL; host ms of both draw counts."""
+    sampler = sampler_from_config(cfg)
+    n = cfg.vocab_size
+    with torch.no_grad():
+        head = api.head_table(state.params, cfg).detach()
+        sstate = state.sampler_state.replace_stats(sampler.build_stats(
+            head, n, state.sampler_state.const))
+        rt = sampler.hydrate(sstate, n)
+        st, proj, kernel = rt["stats"], rt["proj"], sampler.kernel
+        h, _, _ = api.backbone_hidden(state.params, held, cfg)
+        if not blocks.is_mega(st, MEGA_M) or blocks.is_mega(
+                st, cfg.m_negatives):
+            raise AssertionError("mega: the draw counts do not straddle "
+                                 "the branch threshold")
+        ids, logq = blocks.sample_shared(st, kernel, h, MEGA_M, gen, proj)
+        oracle = blocks.all_class_logq(st, kernel, h, proj, shared=True)
+        worst = float((logq - oracle[ids]).abs().max())
+        plain = float((logq.double() - dense_shared_logq(
+            head, h, kernel.alpha, n, proj)[ids]).abs().max())
+        hh, t = blocks.shared_context(h, proj), h.shape[0]
+        blk = torch.div(ids, st.block_size, rounding_mode="floor")
+        mega, per = (torch.log_softmax(blocks.shared_within_logits(
+            st, kernel, hh, t, blk, mega=flag), dim=-1)
+            for flag in (True, False))
+        same_inf = bool(torch.equal(torch.isinf(mega), torch.isinf(per)))
+        live = torch.isfinite(per)
+        branch = float((mega[live] - per[live]).abs().max())
+        ms = {k: host_ms(lambda k=k: blocks.sample_shared(
+            st, kernel, h, k, gen, proj)) for k in (cfg.m_negatives, MEGA_M)}
+    log(f"[mega] shared sample at m = {MEGA_M} over {st.n_blocks} blocks, "
+        f"T {t}: max |logq - all_class_logq[ids]| = {worst}, - the plain "
+        f"dense sum over h @ W.T {plain}; max id "
+        f"{int(ids.max())} (n_valid {n}); within-block log p, mega vs "
+        f"per-draw branch on the {MEGA_M} drawn blocks: max |diff| "
+        f"{branch}, -inf slots equal {same_inf}; host ms (median of 9, "
+        f"synced): " + ", ".join(f"m {k} {v}" for k, v in ms.items()))
+    if not torch.isfinite(logq).all() or int(ids.max()) >= n:
+        raise AssertionError("mega: a non-finite logq or an id past n_valid")
+    if (worst > LOGQ_TOL or plain > LOGQ_TOL or branch > RTOL
+            or not same_inf):
+        raise AssertionError(f"mega: logq off by {worst} (plain {plain}) "
+                             f"or the branches "
+                             f"differ by {branch} (-inf equal {same_inf})")
+
+
+def phase_grad_bias() -> None:
+    """``bench.bias_vs_samples.grad_bias`` on the card at the reference's
+    arguments (n 256, d 12, 4 queries, 8,000 repetitions, m 16 and 64), its
+    rows logged beside ``BENCH_grad_bias.json``'s (the reference's CPU run
+    of its own draw of the problem); at each m softmax < quadratic-oracle <
+    uniform and tapas < block-quadratic-shared in bias_linf."""
+    t0 = time.perf_counter()
+    rows = bias_vs_samples.grad_bias(device=DEV, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bench_path = Path(__file__).resolve().parent / "BENCH_grad_bias.json"
+    bench = {(r["sampler"], r["m"]): r["bias_linf"]
+             for r in json.loads(bench_path.read_text())["rows"]}
+    for r in rows:
+        log(f"[grad_bias] {r['sampler']:22s} m={r['m']:3d}: bias_linf "
+            f"{r['bias_linf']} (mc se {r['mc_se_linf']}), bias_l2 "
+            f"{r['bias_l2']}; BENCH_grad_bias.json's CPU row "
+            f"{bench.get((r['sampler'], r['m']))}")
+    log(f"[grad_bias] {len(rows)} rows in {wall:.3f} s")
+    by = {(r["sampler"], r["m"]): r["bias_linf"] for r in rows}
+    for m in sorted({r["m"] for r in rows}):
+        if not (by[("softmax", m)] < by[("quadratic-oracle", m)]
+                < by[("uniform", m)]):
+            raise AssertionError(f"grad_bias m={m}: softmax < "
+                                 "quadratic-oracle < uniform fails")
+        if not by[("tapas", m)] < by[("block-quadratic-shared", m)]:
+            raise AssertionError(f"grad_bias m={m}: tapas < "
+                                 "block-quadratic-shared fails")
+
+
+def phase_samplers(cfg, gen: torch.Generator) -> dict[str, dict[str, int]]:
+    """Phase 17: the batch-shared sampler, tapas and the paper's oracle
+    samplers through ``fit`` at full width.  (a) youtube-dnn, 60 steps on
+    the pool per family in SAMPLER_FAMILIES (exact launches, falling loss,
+    ``check_sampler_logq``), then host ms and busy share of the shared
+    family's step beside block-quadratic's on the same state; (b) the mega
+    branch (``phase_mega``); (c) ptb-lstm, 60 steps of the shared family
+    and of tapas (its pool of 1,024 takes the mega branch over 79 blocks);
+    (d) ``phase_grad_bias``.  Returns each run's launch counts."""
+    t0 = time.perf_counter()
+    by_path: dict[str, dict[str, int]] = {}
+    held = held_out_batch(cfg)
+    data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=0, device=DEV)
+    pool = [next(data) for _ in range(TRAIN_POOL)]
+    shared_state = None
+    for family in SAMPLER_FAMILIES:
+        fcfg = dataclasses.replace(cfg, sampler=family)
+        by_path[f"samplers {family}"], fstate = phase_family(fcfg, pool,
+                                                             held)
+        if family == "block-quadratic-shared":
+            shared_state = fstate
+        del fstate
+        torch.cuda.empty_cache()
+    # the shared step beside the per-example one, on one state (the two
+    # families carry the same block statistics)
+    for family in ("block-quadratic", "block-quadratic-shared"):
+        phase_family_breakdown(dataclasses.replace(cfg, sampler=family),
+                               shared_state, steps=3)
+    phase_mega(dataclasses.replace(cfg, sampler="block-quadratic-shared"),
+               shared_state, held, gen)
+    del shared_state, pool, held, data
+    torch.cuda.empty_cache()
+
+    pcfg = get_config("ptb-lstm")
+    data = batch_iterator_for(pcfg, None, PTB_BATCH, PTB_SEQ, seed=0,
+                              device=DEV)
+    pool = [next(data) for _ in range(TRAIN_POOL)]
+    held = next(batch_iterator_for(pcfg, None, PTB_BATCH, PTB_SEQ,
+                                   seed=1000, device=DEV))
+    for family in PTB_SAMPLER_FAMILIES:
+        fcfg = dataclasses.replace(pcfg, sampler=family)
+        by_path[f"ptb {family}"], fstate = phase_family(
+            fcfg, pool, held, f"batch {PTB_BATCH} x {PTB_SEQ}")
+        del fstate
+        torch.cuda.empty_cache()
+    del pool, held, data
+
+    phase_grad_bias()
+    log(f"[samplers] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 # --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
 
 LLAMA_BATCH = 4
@@ -3183,14 +3473,20 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def lap(stage: str) -> None:
+        log(f"[time] {stage} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     phase_build()
+    lap("device and build (phases 1-2)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     serving_rows = phase_kernels(gen)
     cfg = get_config("youtube-dnn")
     rows, fused_shapes = phase_kernels_training(gen, cfg)
     llama_rows, llama_shapes = phase_kernels_llama(gen)
     rows.update(llama_rows)
+    lap("kernel checks (phases 3, 10)")
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -3212,6 +3508,7 @@ def main() -> int:
     missing = [k for k in SERVING_KERNELS if serving_counts[k] == 0]
     if missing:
         raise AssertionError(f"serving path never launched {missing}")
+    lap("serving (phases 4-5)")
 
     counts, state, skewed_rows = phase_training(cfg)
     if args.fresh:
@@ -3221,6 +3518,7 @@ def main() -> int:
     phase_breakdown(cfg, model, head, index, rng)
     del state, model, index
     torch.cuda.empty_cache()
+    lap("block-quadratic training (phases 6-7)")
 
     hier_rows, shapes = phase_kernels_hier(gen, cfg)
     rows.update(hier_rows)
@@ -3239,15 +3537,23 @@ def main() -> int:
         torch.cuda.empty_cache()
     del pool, held, data
     torch.cuda.empty_cache()
+    lap("hierarchical kernels and families (phases 8-9)")
 
     by_path["ptb-lstm"], shapes["ptb"] = phase_ptb(gen)
     torch.cuda.empty_cache()
+    lap("ptb-lstm (phase 9b)")
 
     by_path["facade"] = phase_facade(cfg)
     phase_sparse(cfg)
+    lap("facade and sparse refresh (phases 13-14)")
     by_path["checkpoint"] = phase_checkpoint(cfg)
+    lap("checkpoint (phase 15)")
     by_path.update(phase_overlap(cfg))
     torch.cuda.empty_cache()
+    lap("overlap (phase 16)")
+    by_path.update(phase_samplers(cfg, gen))
+    torch.cuda.empty_cache()
+    lap("samplers (phase 17)")
 
     shapes.update(llama_shapes)
     by_path["llama3-8b"], llama, shapes["llama_index"] = phase_llama_serving(
@@ -3255,6 +3561,7 @@ def main() -> int:
     by_path["sampled_loss entry"] = phase_sampled_loss_entry(gen, llama)
     del llama
     torch.cuda.empty_cache()
+    lap("llama3-8b serving (phases 11-12)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

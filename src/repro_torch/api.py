@@ -26,8 +26,7 @@ defaults are the reference's; a ``key`` is a ``torch.Generator``.  The
 train-step factories and ``fit`` (re-exported here) consume the same
 config and carry the same ``SamplerState``.
 
-A mesh ``ctx`` raises (ROADMAP.md A17), as do the two-stage samplers
-(tapas, A14).
+A mesh ``ctx`` raises (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -141,20 +140,31 @@ class SoftmaxHead:
     def sample(self, state: SamplerState, h: Tensor, key: torch.Generator,
                m: int | None = None, *, w: Tensor | None = None
                ) -> tuple[Tensor, Tensor]:
-        """Draw negatives for a batch: ids + EXACT log q, (T, m) each.
-        Carrying samplers only — the others derive their runtime state from
-        ``w`` at loss time (use ``loss(...)``).  ``w`` is the class table
-        of the two-stage samplers (tapas, ROADMAP.md A14), whose names
-        the registry refuses until then."""
+        """Draw negatives for a batch: ids + EXACT log q ((T, m), or (m,)
+        for batch-shared families).  Carrying samplers only — the
+        non-carrying families derive their runtime state from ``w`` at loss
+        time (use ``loss(...)``).  Two-stage samplers (tapas) also need the
+        class table ``w`` itself: pass 2 re-scores the pool against live
+        logits."""
         sampler = self.sampler
-        if not sampler.carries_state:
+        if sampler.two_stage:
+            if w is None:
+                raise ValueError(
+                    f"sampler '{sampler.name}' re-scores its candidate "
+                    "pool against the class table; pass w=")
+            self._check_table(w)
+        elif not sampler.carries_state:
             raise TypeError(
                 f"sampler '{sampler.name}' carries no state; draw through "
                 "loss(...)")
         m = m if m is not None else self.cfg.m_negatives
         if m <= 0:
             raise ValueError(f"m must be positive, got {m}")
-        runtime = sampler.hydrate(state, self.cfg.vocab_size)
+        if sampler.two_stage:
+            runtime = sampler.island_runtime(state, w.detach(),
+                                             self.cfg.vocab_size)
+        else:
+            runtime = sampler.hydrate(state, self.cfg.vocab_size)
         return sampler.sample_batch(runtime, h.detach(), m, key)
 
     def loss(self, w: Tensor, h: Tensor, labels: Tensor, *,

@@ -1,10 +1,14 @@
 """Unified architecture config — an exact copy of ``repro.configs.base``'s
 ``ArchConfig`` fields, derived properties and ``reduced()``.
 
+One dataclass covers every assigned family (dense / moe / ssm / hybrid /
+encdec / lstm / recsys); family-specific fields default to "off".  Configs
+are frozen and hashable.  ``reduced()`` derives the CPU smoke-test variant:
+same family and wiring, tiny dims.
+
 ``validate()`` checks names against the port's own registries (sampler,
-estimator, head impl), the knob ranges and the rff and midx knobs; the
-checks of unported families (tapas) and the sharding modes join with their
-slices.
+estimator, head impl), the knob ranges and the rff, tapas and midx knobs;
+the sharding modes' checks join with the mesh (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -142,8 +146,7 @@ class ArchConfig:
     def validate(self, tp: int = 1) -> "ArchConfig":
         """Fail fast on unknown names / inconsistent head knobs, at the
         construction seams (``make_train_step``), with the list of choices.
-        A sampler the reference registers but the port does not have yet
-        raises ``NotImplementedError``.  Returns self."""
+        ``tp`` is the vocab-parallel degree when known.  Returns self."""
         # Lazy imports: configs sit below core in the layering.
         from repro_torch.core.estimators import (
             estimator_names,
@@ -167,6 +170,14 @@ class ArchConfig:
         if self.sampler == "rff" and (self.rff_dim <= 0 or self.rff_tau <= 0):
             bad(f"sampler='rff' needs rff_dim > 0 and rff_tau > 0, "
                 f"got rff_dim={self.rff_dim} rff_tau={self.rff_tau}")
+        if self.sampler == "tapas":
+            if self.tapas_pool <= 0 or self.tapas_tau <= 0:
+                bad(f"sampler='tapas' needs tapas_pool > 0 and tapas_tau "
+                    f"> 0, got tapas_pool={self.tapas_pool} "
+                    f"tapas_tau={self.tapas_tau}")
+            if tp > 1 and self.tapas_pool % tp:
+                bad(f"tapas_pool={self.tapas_pool} must divide by the "
+                    f"vocab-parallel degree tp={tp}")
         if self.sampler in ("midx", "midx-oracle"):
             if self.midx_codebooks not in (1, 2):
                 bad(f"midx_codebooks must be 1 or 2, got "

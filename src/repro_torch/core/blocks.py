@@ -10,13 +10,18 @@ within-block scores ``alpha * <w, h>^2 + 1`` through ``ops.leaf_scores``
 over the gathered rows ``wq[blk]``.  Only degree-2 kernels take that route;
 the quartic kernel keeps the plain ``of_dot``, a different function.
 
-``sample`` is batched over the T queries (the reference vmaps one query);
-draws come from the caller's ``torch.Generator`` (block, then within
-block), so they match the reference in distribution, not bit for bit.
-``logq`` is always the exact log-probability of the draw.
+Two sampling modes:
+  * per-example (``sample``, the paper's): each query draws its own
+    negatives, batched over the T queries (the reference vmaps one query);
+  * batch-shared (``sample_shared``): ONE negative set per batch, drawn from
+    the batch-summed kernel  Q_i = sum_p K(h_p, w_i), which factors through
+    the same Gram statistics by a Frobenius product, so its cost does not
+    grow with T.  Its root and leaf scores are einsums (the reference's),
+    no hand-written kernel.
 
-``update_rows``, ``batch_context_gram``, ``categorical_rows`` and
-``sample_shared`` arrive with the batch-shared slice.
+Draws come from the caller's ``torch.Generator``, so they match the
+reference in distribution, not bit for bit.  ``logq`` is always the exact
+log-probability of the draw.
 """
 from __future__ import annotations
 
@@ -146,6 +151,108 @@ def sample(stats: BlockStats, kernel: SamplingKernel, h: Tensor, m: int,
             + torch.gather(log_p_within, 1, within).reshape(t, m))
     ids = flat * stats.block_size + within[:, 0]
     return ids.reshape(t, m), logq
+
+
+def batch_context_gram(h: Tensor) -> tuple[Tensor, Tensor]:
+    """Context Gram for batch-shared sampling: (sum_p h_p h_p^T, T as a
+    0-dim fp32 tensor).  h: (T, d) raw (unprojected) hidden states."""
+    h32 = h.float()
+    return (torch.einsum("ti,tj->ij", h32, h32),
+            torch.tensor(float(h.shape[0]), device=h.device))
+
+
+def categorical_rows(gen: torch.Generator | None, logits: Tensor,
+                     m: int) -> Tensor:
+    """m categorical draws per row of ``logits`` (T, P) -> slots (T, m)
+    int64, by the inverse CDF: ONE uniform per draw (the reference's
+    rationale: ~T*m random numbers where a Gumbel draw takes ~T*m*P).
+
+    Unlike the reference, which clips a uniform past the fp32 ``cdf[-1]``
+    to the last slot whatever its mass, a draw never lands on a zero-mass
+    slot: u is scaled by the row's ``cdf[-1]`` and a slot of zero mass
+    gives way to the live slot before it."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    cdf = torch.cumsum(probs, dim=-1)
+    u = torch.rand((logits.shape[0], m), generator=gen, device=logits.device)
+    idx = torch.searchsorted(cdf, (u * cdf[:, -1:]).contiguous(),
+                             right=True)
+    idx = torch.clamp(idx, max=logits.shape[-1] - 1)
+    # the last live slot at or before each slot (a row has one at least)
+    slots = torch.arange(logits.shape[-1], device=logits.device)
+    live_at = torch.cummax(torch.where(probs > 0, slots, 0), dim=-1).values
+    return torch.gather(live_at, 1, idx)
+
+
+def shared_context(h: Tensor, proj: Tensor | None) -> Tensor:
+    """The (projected) context Gram HH = sum_p hq_p hq_p^T: (r, r)."""
+    return batch_context_gram(hierarchy.project(h, proj))[0]
+
+
+def shared_block_log_probs(stats: BlockStats, kernel: SamplingKernel,
+                           hh: Tensor, t: int) -> Tensor:
+    """log p of every block under the batch-summed kernel:
+    log_softmax(log(alpha * <Z_b, HH>_F + T * cnt_b)), (n_blocks,)."""
+    mass = (kernel.alpha * torch.einsum("nij,ij->n", stats.z, hh)
+            + t * stats.cnt)
+    return torch.log_softmax(torch.log(torch.clamp(mass, min=1e-30)), dim=-1)
+
+
+def shared_within_logits(stats: BlockStats, kernel: SamplingKernel,
+                         hh: Tensor, t: int, blk: Tensor, *,
+                         mega: bool) -> Tensor:
+    """Exact batch-summed log-scores inside the blocks ``blk`` (m,):
+    log(alpha * w^T HH w + T), padding at -inf -> (m, block).  ``mega``
+    scores every block once (O(n r^2)) and gathers; otherwise the drawn
+    blocks' rows are gathered and scored (O(m B r^2))."""
+    if mega:
+        quad = torch.einsum("nbr,rs,nbs->nb", stats.wq, hh, stats.wq)[blk]
+    else:
+        rows = stats.wq[blk]  # (m, block, r)
+        quad = torch.sum((rows @ hh) * rows, dim=-1)
+    scores = kernel.alpha * quad + t
+    bs = stats.block_size
+    ids = blk[:, None] * bs + torch.arange(bs, device=blk.device)
+    scores = torch.where(ids < stats.n_valid, scores, 0.0)
+    return torch.where(scores > 0, torch.log(torch.clamp(scores, min=1e-30)),
+                       -math.inf)
+
+
+def is_mega(stats: BlockStats, m: int) -> bool:
+    """The mega-batch regime (tapas pools): far more draws than blocks, so
+    every block is drawn repeatedly and is scored once."""
+    return m >= 4 * stats.n_blocks
+
+
+def sample_shared(stats: BlockStats, kernel: SamplingKernel, h: Tensor,
+                  m: int, gen: torch.Generator, proj: Tensor | None = None
+                  ) -> tuple[Tensor, Tensor]:
+    """Batch-shared sampling from the batch-summed kernel.
+
+    h: (T, d) all hidden states of the batch.  Draws ONE set of m negatives
+    with q_i ∝ sum_p K(h_p, w_i), exactly, through the same statistics:
+
+      block mass:  alpha * <Z_b, HH>_F + T * cnt_b        (one contraction)
+      leaf score:  alpha * w^T HH w + T                    (rows @ HH)
+
+    with HH the (projected) context Gram.  In the mega-batch regime
+    (``is_mega``) every block is scored once and the within-block draw takes
+    one uniform per draw (``categorical_rows``); otherwise one categorical
+    per draw over its gathered block.  Returns (ids (m,) int64, logq (m,)),
+    logq exact."""
+    t = h.shape[0]
+    hh = shared_context(h, proj)
+    log_p_blk = shared_block_log_probs(stats, kernel, hh, t)
+    blk = torch.multinomial(log_p_blk.exp(), m, replacement=True,
+                            generator=gen)  # (m,)
+    mega = is_mega(stats, m)
+    log_p_within = torch.log_softmax(
+        shared_within_logits(stats, kernel, hh, t, blk, mega=mega), dim=-1)
+    if mega:
+        within = categorical_rows(gen, log_p_within, 1)
+    else:
+        within = torch.multinomial(log_p_within.exp(), 1, generator=gen)
+    logq = log_p_blk[blk] + torch.gather(log_p_within, 1, within)[:, 0]
+    return blk * stats.block_size + within[:, 0], logq
 
 
 def all_class_logq(stats: BlockStats, kernel: SamplingKernel, h: Tensor,

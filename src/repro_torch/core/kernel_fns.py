@@ -1,8 +1,7 @@
 """Kernel functions for kernel-based sampling (paper §3.1, §3.3) —
 ``repro.core.kernel_fns``: the quadratic and quartic kernels, Gram-sum
-statistics, and the positive random features of the rff family.  The
-reference's self-contained ``rff_kernel`` (used by its ``rff-oracle``)
-arrives with that family.
+statistics, the positive random features of the rff family and the
+self-contained exp kernel ``rff_kernel`` behind ``rff-oracle``.
 
 A sampling kernel is a non-negative function ``K(h, w) = f(<h, w>)`` with a
 feature map ``phi`` such that ``K(a, b) = <phi(a), phi(b)>``.  For the
@@ -34,7 +33,9 @@ class SamplingKernel:
         statistics are exact only for degree 2, and only degree-2 kernels
         route through the CUDA scoring kernels.
       alpha: scale inside f (kept for reporting; already baked into of_dot).
-      feature_dim, tau, phi_fn: random-feature kernels (the rff slice).
+      feature_dim, tau, phi_fn: random-feature kernels (``rff_kernel``):
+        the feature dimension D, the exp kernel's temperature and the
+        explicit feature map ``phi`` dispatches to.
     """
 
     name: str
@@ -169,3 +170,42 @@ def rff_phi(x: Tensor, omega: Tensor, tau: float,
     domain.  x: (..., d) -> (..., D) fp32 non-negative features."""
     lphi = rff_log_phi(x, omega, tau) - logshift
     return torch.exp(lphi) / math.sqrt(omega.shape[0])
+
+
+def rff_kernel(dim: int = 128, tau: float = 1.0, seed: int = 0, *,
+               gen: torch.Generator | None = None,
+               omega: Tensor | None = None) -> SamplingKernel:
+    """Exp kernel K = exp(t / tau) with a D-dim positive RFF feature map.
+
+    ``of_dot`` is the EXACT exp kernel; ``phi`` is the Monte-Carlo feature
+    map (*).  Its directions are ``omega`` when given (a (dim, d) tensor,
+    used on the input's device), else drawn once per input width from
+    ``gen``, or from a generator seeded with ``seed`` on the input's device.
+    The reference draws them from ``PRNGKey(seed)``, which no torch
+    generator reproduces: parity tests pass the reference's ``omega``."""
+    if omega is not None and omega.shape[0] != dim:
+        raise ValueError(f"omega has {omega.shape[0]} rows, dim is {dim}")
+    omega_by_d: dict[int, Tensor] = {}
+    if omega is not None:
+        omega_by_d[omega.shape[1]] = omega.float()
+
+    def of_dot(t: Tensor) -> Tensor:
+        return torch.exp(t / tau)
+
+    def phi_fn(a: Tensor) -> Tensor:
+        d = a.shape[-1]
+        if d not in omega_by_d:
+            g = gen if gen is not None else torch.Generator(
+                a.device).manual_seed(seed)
+            omega_by_d[d] = rff_directions(g, dim, d)
+        return rff_phi(a, omega_by_d[d].to(a.device), tau)
+
+    return SamplingKernel(
+        name=f"rff(D={dim},tau={tau:g})",
+        of_dot=of_dot,
+        degree=0,
+        alpha=1.0,
+        feature_dim=dim,
+        tau=tau,
+        phi_fn=phi_fn,
+    )

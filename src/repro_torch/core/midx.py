@@ -263,12 +263,13 @@ def sample(stats: MidxStats, kernel: SamplingKernel, h: Tensor, m: int,
 def all_class_logq(stats: MidxStats, kernel: SamplingKernel,
                    h: Tensor) -> Tensor:
     """Exact log-probability of EVERY original class id under the two-stage
-    sampler (test oracle, O(n d)), from the plain quantized dots.  Returns
-    (n_pad,) indexed by ORIGINAL row id; padding rows are -inf."""
-    h32 = h.float()
-    mass = stats.cnt * kernel.of_dot(quantized_dots(stats, h32[None])[0])
-    log_p_list = torch.log_softmax(_log_mass(mass), dim=-1)       # (P,)
-    scores = kernel.of_dot(torch.einsum("pld,d->pl", stats.wq, h32))
+    sampler (test oracle and ``midx-oracle``, O(n d) a query), from the
+    plain quantized dots.  h: (d,) -> (n_pad,), or (T, d) -> (T, n_pad),
+    indexed by ORIGINAL row id; padding rows are -inf."""
+    h32 = h.float().reshape(-1, h.shape[-1])                      # (T, d)
+    mass = stats.cnt * kernel.of_dot(quantized_dots(stats, h32))
+    log_p_list = torch.log_softmax(_log_mass(mass), dim=-1)       # (T, P)
+    scores = kernel.of_dot(torch.einsum("pld,td->tpl", stats.wq, h32))
     pos = (torch.arange(stats.num_lists, device=h.device)[:, None]
            * stats.list_size
            + torch.arange(stats.list_size, device=h.device)[None, :])
@@ -280,6 +281,8 @@ def all_class_logq(stats: MidxStats, kernel: SamplingKernel,
         live, torch.log_softmax(torch.where(live, logit, 0.0), dim=-1),
         -math.inf)
     log_within = torch.where(logit == -math.inf, -math.inf, log_within)
-    out = torch.full((stats.n_pad,), -math.inf, device=h.device)
-    out[stats.perm.long()] = (log_p_list[:, None] + log_within).reshape(-1)
-    return out
+    out = torch.full((h32.shape[0], stats.n_pad), -math.inf,
+                     device=h.device)
+    out[:, stats.perm.long()] = (log_p_list[:, :, None]
+                                 + log_within).reshape(h32.shape[0], -1)
+    return out.reshape(*h.shape[:-1], stats.n_pad)

@@ -11,25 +11,43 @@ Two state forms, as in the reference:
     (``hydrate``, or ``island_runtime`` for any family):
 
         ids, logq = sampler.sample(state, h, m, gen)        # one query (m,)
-        ids, logq = sampler.sample_batch(state, H, m, gen)  # (T, m)
+        ids, logq = sampler.sample_batch(state, H, m, gen)  # (T,m)/shared(m,)
 
 The block, tree and rff samplers also update their runtime state in place
 of a rebuild, after the rows of some ids changed (``update_rows``, the
 paper's Fig. 1b sparse refresh).  The reference's runtime-form ``init`` /
 ``refresh`` have no counterpart: ``init_state`` / ``build_stats`` then
-``hydrate`` give the same runtime state.
+``hydrate`` (or ``island_state`` for the families that carry nothing) give
+the same runtime state; only the frequency samplers, which no train step
+drives, keep an ``init``.
 
 ``logq`` is always the EXACT log-probability under the distribution sampled
 from — what eq. 2 needs.  Randomness comes from the caller's
 ``torch.Generator``.
 
-Ported families: ``uniform``, ``block-quadratic``,
-``block-quadratic-shared`` (whose ``sample_batch`` waits for the
-batch-shared slice), and the hierarchical families ``tree-quadratic`` (the
-paper's §3.2 tree), ``rff`` (the tree over positive random-feature sums)
-and ``midx`` (the quantized inverted multi-index).  The reference's other
-registered names raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them.
+Distributions (paper §4.1.2 and Fig. 2, plus the rff, midx and tapas
+families):
+  uniform            q ∝ 1
+  unigram            q ∝ class frequency
+  bigram             q ∝ P(class | previous class)   (outside the registry)
+  softmax (oracle)   q ∝ exp(o)
+  abs-softmax oracle q ∝ exp(|o|)
+  quadratic (oracle) q ∝ alpha o^2 + 1   — brute force, for bias studies
+  quartic (oracle)   q ∝ alpha o^4 + 1
+  tree-quadratic     the paper's §3.2 tree
+  block-quadratic    the two-level form; ``-shared`` draws one set per batch
+                     from the batch-summed kernel
+  rff / rff-oracle   q ≈ exp(o / tau) through positive random features:
+                     the feature-sum tree, and its brute-force twin
+  midx / midx-oracle the quantized inverted multi-index, and the dense
+                     categorical of its exact composed distribution
+  tapas              two passes: a shared pool of P candidates from a
+                     single-stage base, then m per example resampled from
+                     q2 ∝ exp(o / tau) / pi over the pool; logq is the
+                     composed log pi_j + log q2(j | pool)
+
+The oracles draw a batch as ONE (T, n) product and one ``torch.multinomial``
+(the reference vmaps a per-query ``sample``).
 """
 from __future__ import annotations
 
@@ -41,10 +59,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import blocks, hierarchy, midx, tree
+from repro_torch.core.blocks import categorical_rows
 from repro_torch.core.kernel_fns import (
     SamplingKernel,
     quadratic_kernel,
     rff_directions,
+    rff_kernel,
 )
 from repro_torch.utils.misc import next_pow2
 
@@ -86,11 +106,16 @@ class Sampler:
     #: True when the train step carries and refreshes this sampler's
     #: statistics in TrainState.
     carries_state: bool = False
+    #: True for multi-stage samplers whose runtime state needs the head
+    #: table itself (tapas' pool re-scoring) on top of any carried state.
+    two_stage: bool = False
 
     def sample(self, state: Any, h: Tensor, m: int, gen: torch.Generator
                ) -> tuple[Tensor, Tensor]:
         """m draws for one query h: (d,) -> (ids (m,), logq (m,))."""
         ids, logq = self.sample_batch(state, h[None], m, gen)
+        if self.shares_negatives:  # one query's shared set is its own
+            return ids, logq
         return ids[0], logq[0]
 
     def sample_batch(self, state: Any, h: Tensor, m: int,
@@ -171,11 +196,126 @@ class UniformSampler(Sampler):
         return {"n": max(int(n_valid), 1)}
 
 
+def _multinomial_rows(logq: Tensor, m: int, gen: torch.Generator
+                      ) -> tuple[Tensor, Tensor]:
+    """m draws with replacement per row of a log-probability table (T, n)
+    -> (ids (T, m) int64, their logq)."""
+    ids = torch.multinomial(logq.exp(), m, replacement=True, generator=gen)
+    return ids, torch.gather(logq, 1, ids)
+
+
+def _normalized_log(log_s: Tensor, n_valid) -> Tensor:
+    """log(s / sum s) over the last axis from log s, rows at or past
+    ``n_valid`` (when given) at -inf."""
+    if n_valid is not None:
+        ok = torch.arange(log_s.shape[-1], device=log_s.device) < n_valid
+        log_s = torch.where(ok, log_s, -math.inf)
+    return torch.log_softmax(log_s, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnigramSampler(Sampler):
+    """q ∝ empirical class frequency (optionally distorted, as in
+    word2vec).  Experiment-only: no train step drives it."""
+
+    distortion: float = 1.0
+    name: str = "unigram"
+
+    def init(self, gen, w):
+        n = w.shape[0]
+        return {"logp": torch.full((n,), -math.log(n), device=w.device)}
+
+    def set_counts(self, state, counts: Tensor):
+        logits = self.distortion * torch.log(counts.float() + 1.0)
+        return {"logp": torch.log_softmax(logits, dim=-1)}
+
+    def sample_batch(self, state, h, m, gen):
+        logp = state["logp"]
+        ids = torch.multinomial(logp.exp(), h.shape[0] * m,
+                                replacement=True, generator=gen)
+        ids = ids.reshape(h.shape[0], m)
+        return ids, logp[ids]
+
+
+@dataclasses.dataclass(frozen=True)
+class BigramSampler(Sampler):
+    """q ∝ P(class | prev class); dense (n, n) table — paper-scale vocab
+    only.  Conditions on a previous class id, not a hidden vector, so it
+    stays out of the registry: use ``sample_ctx``."""
+
+    name: str = "bigram"
+
+    def init(self, gen, w):
+        n = w.shape[0]
+        if n > 65536:
+            raise ValueError("the dense bigram table is for paper-scale "
+                             f"vocabularies, got {n}")
+        return {"logp": torch.full((n, n), -math.log(n), device=w.device)}
+
+    def set_counts(self, state, counts: Tensor):
+        logits = torch.log(counts.float() + 1.0)
+        return {"logp": torch.log_softmax(logits, dim=-1)}
+
+    def sample_ctx(self, state, prev_id, m: int, gen: torch.Generator):
+        """m draws after the previous class ``prev_id`` (a 0-dim or (T,)
+        id tensor, or an int) -> (ids, logq) of shape (m,) or (T, m)."""
+        prev = torch.as_tensor(prev_id, device=state["logp"].device).long()
+        logp = state["logp"][prev.reshape(-1)]
+        ids, logq = _multinomial_rows(logp, m, gen)
+        return ids.reshape(*prev.shape, m), logq.reshape(*prev.shape, m)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogitOracleSampler(Sampler):
+    """Brute-force sampler: computes ALL logits o = W h (O(nd)) and samples
+    from q ∝ exp(log_score_fn(o)).  The paper's softmax / quadratic /
+    quartic comparison points (Fig. 2) and the statistical test oracle.
+    Scores are taken in the log domain (the reference's ``score_fn`` is
+    its exp), so the exp families cannot overflow at large logits."""
+
+    log_score_fn: Callable[[Tensor], Tensor] = lambda o: o
+    name: str = "oracle"
+
+    def logq_all(self, state, h):
+        """Exact log q of every class: h (d,) -> (n,), or (T, d) -> (T, n)."""
+        o = h.float() @ state["w"].float().T
+        return _normalized_log(self.log_score_fn(o), state.get("n_valid"))
+
+    def sample_batch(self, state, h, m, gen):
+        return _multinomial_rows(self.logq_all(state, h), m, gen)
+
+    def island_state(self, head_full, n_valid):
+        return {"w": head_full, "n_valid": n_valid}
+
+
+def softmax_oracle() -> LogitOracleSampler:
+    return LogitOracleSampler(log_score_fn=lambda o: o, name="softmax")
+
+
+def abs_softmax_oracle() -> LogitOracleSampler:
+    return LogitOracleSampler(log_score_fn=torch.abs, name="abs-softmax")
+
+
+def quadratic_oracle(alpha: float = 100.0) -> LogitOracleSampler:
+    """log(alpha o^2 + 1), the log of ``quadratic_kernel(alpha)``."""
+    return LogitOracleSampler(
+        log_score_fn=lambda o: torch.log1p(alpha * torch.square(o)),
+        name="quadratic-oracle")
+
+
+def quartic_oracle(alpha: float = 1.0) -> LogitOracleSampler:
+    """log(alpha o^4 + 1), the log of ``quartic_kernel(alpha)``."""
+    return LogitOracleSampler(
+        log_score_fn=lambda o: torch.log1p(
+            alpha * torch.square(torch.square(o))),
+        name="quartic-oracle")
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSampler(Sampler):
     """Two-level sampler (``core/blocks.py``).  shared=True draws one
-    negative set per batch from the batch-summed kernel — the batch-shared
-    slice; until then its ``sample_batch`` raises."""
+    negative set per batch from the batch-summed kernel: ``sample_batch``
+    then returns (m,) ids and logq."""
 
     kernel: SamplingKernel = dataclasses.field(
         default_factory=quadratic_kernel)
@@ -223,11 +363,16 @@ class BlockSampler(Sampler):
                                             state["proj"]),
                 "proj": state["proj"]}
 
+    def all_class_logq(self, state, h):
+        """Exact per-class log q (test oracle): h (d,), or the batch (T, d)
+        of the shared family."""
+        return blocks.all_class_logq(state["stats"], self.kernel, h,
+                                     state["proj"], shared=self.shared)
+
     def sample_batch(self, state, h, m, gen):
         if self.shared:
-            raise NotImplementedError(
-                "block-quadratic-shared sampling is not ported yet (the "
-                "batch-shared slice, ROADMAP.md A3)")
+            return blocks.sample_shared(state["stats"], self.kernel, h, m,
+                                        gen, state["proj"])
         return blocks.sample(state["stats"], self.kernel, h, m, gen,
                              state["proj"])
 
@@ -429,6 +574,201 @@ class MIDXSampler(Sampler):
         return midx.sample_batch(state, self.kernel, h, m, gen)
 
 
+@dataclasses.dataclass(frozen=True)
+class FeatureOracleSampler(Sampler):
+    """Brute-force feature-space oracle: q_i ∝ <phi(h), phi(w_i)> over ALL
+    classes (O(n D) a query) — the statistical reference of the rff
+    family.  ``phi(w)`` is recomputed from the head at every rebuild."""
+
+    kernel: SamplingKernel = dataclasses.field(default_factory=rff_kernel)
+    name: str = "rff-oracle"
+
+    def logq_all(self, state, h):
+        """Exact log q of every class: h (d,) -> (n,), or (T, d) -> (T, n)."""
+        s = self.kernel.phi(h.float()) @ self.kernel.phi(state["w"].float()).T
+        return _normalized_log(torch.log(torch.clamp(s, min=1e-30)),
+                               state.get("n_valid"))
+
+    def sample_batch(self, state, h, m, gen):
+        return _multinomial_rows(self.logq_all(state, h), m, gen)
+
+    def island_state(self, head_full, n_valid):
+        return {"w": head_full, "n_valid": n_valid}
+
+
+def rff_oracle(dim: int = 512, tau: float = 1.0, seed: int = 0, *,
+               omega: Tensor | None = None) -> FeatureOracleSampler:
+    """``rff-oracle`` over ``kernel_fns.rff_kernel(dim, tau, seed)``; its
+    directions are ``omega`` when given, else drawn from ``seed``."""
+    return FeatureOracleSampler(kernel=rff_kernel(dim, tau, seed,
+                                                  omega=omega))
+
+
+@dataclasses.dataclass(frozen=True)
+class MIDXOracleSampler(Sampler):
+    """Brute-force midx twin: builds the SAME quantized index, then draws
+    dense categoricals from its exact composed all-class distribution —
+    the statistical reference ``"midx"`` must match draw for logq.  The
+    train step rebuilds the index from the head every step."""
+
+    kernel: SamplingKernel = dataclasses.field(
+        default_factory=quadratic_kernel)
+    codewords: int = 16
+    codebooks: int = 2
+    list_size: int | None = None
+    name: str = "midx-oracle"
+
+    def _build(self, w, n_valid=None):
+        return midx.build(w, codewords=self.codewords,
+                          codebooks=self.codebooks,
+                          list_size=self.list_size, n_valid=n_valid)
+
+    def logq_all(self, state, h):
+        """Exact composed log q of every ORIGINAL class id: h (d,) ->
+        (n_pad,), or (T, d) -> (T, n_pad)."""
+        return midx.all_class_logq(state, self.kernel, h)
+
+    def sample_batch(self, state, h, m, gen):
+        return _multinomial_rows(self.logq_all(state, h), m, gen)
+
+    def island_state(self, head_full, n_valid):
+        return self._build(head_full, n_valid)
+
+
+def pool_log_inclusion(logq1: Tensor, pool_size: int) -> Tensor:
+    """log pi_j = log(1 - (1 - q1_j)^P): the probability class j appears in
+    a pool of P i.i.d. draws from q1, given per-draw log q1 at the drawn
+    classes.  Stable at both ends: q1 -> 0 gives log(P q1) (log1p + expm1,
+    no cancellation), q1 -> 1 gives 0."""
+    log1m_q1 = torch.log1p(-torch.clamp(torch.exp(logq1), max=1.0))
+    return torch.log(-torch.expm1(pool_size * log1m_q1))
+
+
+def _pool_multiplicity(pool_ids: Tensor, n: int) -> Tensor:
+    """How often each slot's class occurs in its own pool: pool_ids (P,) or
+    (R, P) -> the same shape, by one scatter-add (O(P), not P^2)."""
+    rows = pool_ids.reshape(-1, pool_ids.shape[-1])
+    flat = rows + n * torch.arange(rows.shape[0], device=rows.device)[:, None]
+    counts = torch.bincount(flat.reshape(-1), minlength=rows.shape[0] * n)
+    return counts[flat].reshape(pool_ids.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class TapasSampler(Sampler):
+    """TAPAS-style two-pass mega-batch sampler (Bai et al. 2017, arXiv
+    1707.03073).
+
+    Pass 1 draws ``pool`` i.i.d. candidates through the single-stage
+    ``base`` family; pass 2 re-scores the pool against each example's
+    hidden state and resamples ``m`` slots per example from the per-slot
+    categorical
+
+        s_k = o_k / tau - log pi_k - log c_k
+
+    with ``pi_k`` the pool-inclusion probability of slot k's class
+    (``pool_log_inclusion``) and ``c_k`` its multiplicity in the pool.  The
+    per-CLASS conditional is q2(j | pool) ∝ exp(o_j / tau) / pi_j, so the
+    composed probability reported as ``logq`` is
+
+        log pi_j + log q2(j | pool) = o_j / tau - logsumexp(s),
+
+    a Horvitz-Thompson composition under which the eq. 2 partition estimate
+    is exactly unbiased for any pool size and base q; at tau = 1 the
+    corrected logit o_j - logq_j is constant across draws.
+
+    Runtime state is ``{"base": <base runtime>, "w": (n, d) scoring table,
+    "n_valid"}`` from ``island_runtime`` (``hydrate`` raises); the CARRIED
+    state is the base family's, delegated verbatim."""
+
+    base: Sampler = dataclasses.field(
+        default_factory=lambda: BlockSampler(shared=True))
+    pool: int = 1024
+    tau: float = 1.0
+    name: str = "tapas"
+    two_stage = True
+
+    def __post_init__(self):
+        if getattr(self.base, "two_stage", False):
+            raise ValueError(
+                "tapas pools cannot nest: base must be a single-stage "
+                f"sampler, got '{self.base.name}'")
+        if self.pool <= 0:
+            raise ValueError(f"tapas pool size must be > 0, got {self.pool}")
+        if self.tau <= 0:
+            raise ValueError(f"tapas tau must be > 0, got {self.tau}")
+
+    # -- carried-state protocol: delegated to the base family ----------------
+    @property
+    def carries_state(self) -> bool:  # type: ignore[override]
+        return self.base.carries_state
+
+    def init_const(self, gen, d):
+        return self.base.init_const(gen, d)
+
+    def build_stats(self, w, n_valid, const):
+        return self.base.build_stats(w, n_valid, const)
+
+    def state_shapes(self, cfg, tp=1):
+        return self.base.state_shapes(cfg, tp)
+
+    def hydrate(self, state, n_valid):
+        raise TypeError(
+            "tapas pass 2 re-scores against the head table; build runtime "
+            "state with island_runtime(state, head, n_valid)")
+
+    def supports_head_loss(self) -> bool:
+        return self.base.supports_head_loss()
+
+    def island_runtime(self, state, head_full, n_valid):
+        return {"base": self.base.island_runtime(state, head_full, n_valid),
+                "w": head_full, "n_valid": n_valid}
+
+    # -- sampling ------------------------------------------------------------
+    def draw_pool(self, state, h: Tensor, gen: torch.Generator
+                  ) -> tuple[Tensor, Tensor]:
+        """Pass 1: (pool,) candidate ids + exact per-draw log q1.
+
+        Batch-shared bases draw their native batch-summed shared set;
+        per-example bases draw one pool from the mean query."""
+        if self.base.shares_negatives:
+            return self.base.sample_batch(state["base"], h, self.pool, gen)
+        return self.base.sample(state["base"], torch.mean(h, dim=0),
+                                self.pool, gen)
+
+    def slot_logits(self, state, pool_ids: Tensor, logq1: Tensor,
+                    h: Tensor) -> tuple[Tensor, Tensor]:
+        """Pass 2's re-scored logits o = h w[pool]^T / tau and the per-slot
+        categorical s = o - log pi - log c, each (T, P); pool_ids / logq1
+        as in ``resample_from_pool``."""
+        logpi = pool_log_inclusion(logq1, self.pool)
+        mult = _pool_multiplicity(pool_ids, state["w"].shape[0])
+        w = state["w"].float()
+        if pool_ids.dim() == 1:
+            o = (h.float() @ w[pool_ids].T) / self.tau
+        else:
+            o = torch.einsum("td,tpd->tp", h.float(), w[pool_ids]) / self.tau
+        return o, o - (logpi + torch.log(mult.float()))
+
+    def resample_from_pool(self, state, pool_ids: Tensor, logq1: Tensor,
+                           h: Tensor, m: int, gen: torch.Generator
+                           ) -> tuple[Tensor, Tensor]:
+        """Pass 2: (T, m) ids + the composed pool x resample logq.
+
+        pool_ids / logq1: one (P,) pool for the whole batch, or (T, P), one
+        pool per row of h (independent repetitions)."""
+        o, s = self.slot_logits(state, pool_ids, logq1, h)
+        slots = categorical_rows(gen, s, m)
+        logq = (torch.gather(o, 1, slots)
+                - torch.logsumexp(s, dim=-1, keepdim=True))
+        ids = (pool_ids[slots] if pool_ids.dim() == 1
+               else torch.gather(pool_ids, 1, slots))
+        return ids, logq
+
+    def sample_batch(self, state, h, m, gen):
+        pool_ids, logq1 = self.draw_pool(state, h, gen)
+        return self.resample_from_pool(state, pool_ids, logq1, h, m, gen)
+
+
 # --- registry ----------------------------------------------------------------
 
 
@@ -464,6 +804,23 @@ def _midx_from_cfg(cfg) -> Sampler:
                        list_size=cfg.sampler_block)
 
 
+def _midx_oracle_from_cfg(cfg) -> Sampler:
+    return MIDXOracleSampler(kernel=quadratic_kernel(cfg.sampler_alpha),
+                             codewords=cfg.midx_codewords,
+                             codebooks=cfg.midx_codebooks,
+                             list_size=cfg.sampler_block)
+
+
+def _tapas_from_cfg(cfg) -> Sampler:
+    if cfg.tapas_base == "tapas":
+        raise ValueError(
+            "tapas pools cannot nest: cfg.tapas_base must name a "
+            "single-stage family")
+    fam = _lookup(cfg.tapas_base)
+    base = fam.from_cfg(cfg) if fam.from_cfg is not None else fam.ctor()
+    return TapasSampler(base=base, pool=cfg.tapas_pool, tau=cfg.tapas_tau)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Family:
     ctor: Callable[..., Sampler]
@@ -473,44 +830,42 @@ class _Family:
 
 _REGISTRY: dict[str, _Family] = {
     "uniform": _Family(UniformSampler),
+    "unigram": _Family(UnigramSampler),
+    "softmax": _Family(softmax_oracle),
+    "abs-softmax": _Family(abs_softmax_oracle),
+    "quadratic-oracle": _Family(
+        quadratic_oracle, lambda cfg: quadratic_oracle(cfg.sampler_alpha)),
+    "quartic-oracle": _Family(quartic_oracle),
+    "rff-oracle": _Family(rff_oracle),
+    "tree-quadratic": _Family(TreeSampler, _tree_from_cfg),
     "block-quadratic": _Family(
         BlockSampler, partial(_block_from_cfg, shared=False)),
     "block-quadratic-shared": _Family(
         partial(BlockSampler, shared=True),
         partial(_block_from_cfg, shared=True)),
-    "tree-quadratic": _Family(TreeSampler, _tree_from_cfg),
     "rff": _Family(RFFSampler, _rff_from_cfg),
     "midx": _Family(MIDXSampler, _midx_from_cfg),
-}
-
-#: the reference's other registered families -> the ROADMAP.md item that
-#: ports them.
-_NOT_PORTED: dict[str, str] = {
-    "unigram": "A5", "softmax": "A5", "abs-softmax": "A5",
-    "quadratic-oracle": "A5", "quartic-oracle": "A5",
-    "rff-oracle": "A12", "midx-oracle": "A13", "tapas": "A14",
+    "midx-oracle": _Family(MIDXOracleSampler, _midx_oracle_from_cfg),
+    "tapas": _Family(TapasSampler, _tapas_from_cfg),
 }
 
 #: registered families that do NOT satisfy the Sampler protocol.
 _EXCLUDED: dict[str, str] = {
     "bigram": "BigramSampler does not satisfy the Sampler protocol: it "
               "conditions on a discrete previous-class id, not a hidden "
-              "vector.",
+              "vector.  Construct BigramSampler() directly and use "
+              "sample_ctx(state, prev_id, m, gen).",
 }
 
 
 def sampler_names() -> list[str]:
-    """Names accepted by make_sampler / cfg.sampler (ported families)."""
+    """Names accepted by make_sampler / cfg.sampler."""
     return sorted(_REGISTRY)
 
 
 def _lookup(name: str) -> _Family:
     if name in _EXCLUDED:
         raise ValueError(_EXCLUDED[name])
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sampler '{name}' is not ported yet (ROADMAP.md "
-            f"{_NOT_PORTED[name]}); ported: {sampler_names()}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown sampler '{name}'; have {sampler_names()}")
     return _REGISTRY[name]

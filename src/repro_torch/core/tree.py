@@ -13,16 +13,20 @@ space; ``proj=None`` is the paper-exact sampler.  Draws come from the
 caller's ``torch.Generator``.
 
 ``update_path`` is the Fig. 1b sparse refresh along the touched paths.
-The reference's per-draw ``sample_sequential`` (its equivalence and
-benchmark reference) is not ported (ROADMAP.md A3).
+``sample_sequential`` keeps the paper's per-draw descent (one Bernoulli a
+level, then the leaf) as the equivalence and benchmark reference of the
+batched descent; the two consume a generator differently, so they agree in
+distribution.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core import hierarchy
 from repro_torch.core.hierarchy import HierarchyStats as TreeStats
-from repro_torch.core.kernel_fns import SamplingKernel
+from repro_torch.core.kernel_fns import SamplingKernel, gram_set_mass
 
 Tensor = torch.Tensor
 
@@ -65,6 +69,61 @@ def sample(stats: TreeStats, kernel: SamplingKernel, h: Tensor, m: int,
     ids, logq = sample_batch(stats, kernel, h[None], m, gen, proj,
                              dense_cap=dense_cap)
     return ids[0], logq[0]
+
+
+# --- sequential reference (the paper's per-draw descent) ---------------------
+
+
+def _leaf_scores_one(stats: TreeStats, kernel: SamplingKernel, hq: Tensor,
+                     leaf_idx: int) -> Tensor:
+    """Exact kernel scores of one leaf block, padding masked to 0."""
+    rows = stats.wq[leaf_idx]  # (leaf_size, r)
+    scores = kernel.of_dot(rows @ hq)  # (leaf_size,)
+    ids = leaf_idx * stats.leaf_size + torch.arange(stats.leaf_size,
+                                                    device=hq.device)
+    return torch.where(ids < stats.n_valid, scores, 0.0)
+
+
+def _descend_one(stats: TreeStats, kernel: SamplingKernel, hq: Tensor,
+                 gen: torch.Generator) -> tuple[int, Tensor]:
+    """Sample a single class: root-to-leaf descent + exact leaf step.
+
+    Returns (class_id, log_q) with log_q the exact log-probability of the
+    draw under the tree's distribution (the telescoping product of eq. 9).
+    """
+    idx = 0
+    logq = torch.zeros((), device=hq.device)
+    for lvl in range(1, stats.depth + 1):
+        z, cnt = stats.levels_z[lvl], stats.levels_cnt[lvl]
+        left, right = 2 * idx, 2 * idx + 1
+        mass_l = gram_set_mass(kernel, z[left], cnt[left], hq)
+        mass_r = gram_set_mass(kernel, z[right], cnt[right], hq)
+        # Numerical floor: padding-only subtrees have exactly zero mass.
+        p_r = mass_r / torch.clamp(mass_l + mass_r, min=1e-30)
+        go_right = bool(torch.rand((), generator=gen, device=hq.device)
+                        < p_r)
+        idx = right if go_right else left
+        logq = logq + torch.log(p_r if go_right else 1.0 - p_r)
+    scores = _leaf_scores_one(stats, kernel, hq, idx)
+    logits = torch.where(scores > 0, torch.log(torch.clamp(scores,
+                                                           min=1e-30)),
+                         -math.inf)
+    log_p = torch.log_softmax(logits, dim=-1)
+    within = int(torch.multinomial(log_p.exp(), 1, generator=gen))
+    return idx * stats.leaf_size + within, logq + log_p[within]
+
+
+def sample_sequential(stats: TreeStats, kernel: SamplingKernel, h: Tensor,
+                      m: int, gen: torch.Generator,
+                      proj: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """The original per-draw, per-query descent (equivalence + benchmark
+    reference): m independent root-to-leaf walks for one query h: (d,).
+    Returns ids (m,) int64 and logq (m,)."""
+    hq = _project(h[None], proj)[0]
+    draws = [_descend_one(stats, kernel, hq, gen) for _ in range(m)]
+    ids = torch.tensor([i for i, _ in draws], dtype=torch.int64,
+                       device=hq.device)
+    return ids, torch.stack([lq for _, lq in draws])
 
 
 def all_class_logq(stats: TreeStats, kernel: SamplingKernel, h: Tensor,

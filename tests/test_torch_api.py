@@ -135,8 +135,18 @@ def test_facade_refusals():
     with pytest.raises(NotImplementedError, match="A17"):
         head.export_index(torch.zeros((512, 32)),
                           ctx=dataclasses.make_dataclass("C", ["mesh"])(1))
-    with pytest.raises(NotImplementedError, match="A14"):
-        SoftmaxHead(_quick_cfg(sampler="tapas"))
+    tapas = SoftmaxHead(_quick_cfg(sampler="tapas"))
+    state = tapas.init(torch.Generator(), torch.zeros((512, 32)))
+    with pytest.raises(ValueError, match="pass w="):
+        tapas.sample(state, torch.zeros((2, 32)), torch.Generator())
+    with pytest.raises(TypeError, match="carries no state"):
+        SoftmaxHead(_quick_cfg(sampler="softmax")).sample(
+            state, torch.zeros((2, 32)), torch.Generator())
+    shared = SoftmaxHead(_quick_cfg(sampler="block-quadratic-shared"))
+    w = torch.randn((512, 32), generator=torch.Generator().manual_seed(1))
+    ids, logq = shared.sample(shared.init(torch.Generator(), w),
+                              torch.randn((2, 32)), torch.Generator(), m=5)
+    assert ids.shape == logq.shape == (5,)
     with pytest.raises(ValueError, match="explicit `key`"):
         head.loss(torch.zeros((512, 32)), torch.zeros((2, 32)),
                   torch.zeros((2,), dtype=torch.int64), state=None)

@@ -165,28 +165,31 @@ def test_kernel_functions_match_reference():
 
 
 def test_registry_lists_the_ported_families():
-    assert samplers.sampler_names() == [
-        "block-quadratic", "block-quadratic-shared", "midx", "rff",
-        "tree-quadratic", "uniform"]
-    assert set(samplers.sampler_names()) < set(jsamplers.sampler_names())
+    """The registry is the reference's: the same 14 names, the same
+    refusals; the shared family draws one (m,) set; bigram stays out."""
+    assert samplers.sampler_names() == jsamplers.sampler_names()
     for name in ("tree-quadratic", "rff", "midx"):
         smp = samplers.make_sampler(name)
         assert smp.name == name and smp.carries_state
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        samplers.make_sampler("midx-oracle")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        samplers.make_sampler("tapas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        samplers.make_sampler("rff-oracle")
+    for name in samplers.sampler_names():
+        mine, theirs = samplers.make_sampler(name), jsamplers.make_sampler(name)
+        assert (mine.name, mine.carries_state, mine.shares_negatives,
+                mine.two_stage) == (theirs.name, theirs.carries_state,
+                                    theirs.shares_negatives,
+                                    theirs.two_stage), name
     with pytest.raises(KeyError, match="unknown sampler"):
         samplers.make_sampler("block-quadratc")
     with pytest.raises(ValueError, match="Sampler protocol"):
         samplers.make_sampler("bigram")
-    shared = samplers.make_sampler("block-quadratic-shared")
+    shared = samplers.make_sampler("block-quadratic-shared", block_size=8)
     assert shared.shares_negatives and shared.carries_state
-    with pytest.raises(NotImplementedError, match="shared"):
-        shared.sample_batch({"stats": None, "proj": None},
-                            torch.zeros(2, 4), 3, torch.Generator())
+    w, _ = _table(40)
+    gen = torch.Generator().manual_seed(0)
+    runtime = shared.hydrate(shared.init_state(gen, torch.from_numpy(w)), 40)
+    ids, logq = shared.sample_batch(runtime, torch.randn(5, D, generator=gen),
+                                    3, gen)
+    assert ids.shape == logq.shape == (3,)
+    assert int(ids.max()) < 40 and torch.isfinite(logq).all()
 
 
 @pytest.mark.parametrize("tp,sampler", [

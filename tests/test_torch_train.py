@@ -418,11 +418,15 @@ def test_validate_checks_ported_names_and_knobs():
                        (dict(refresh_mode="async"), "refresh_mode")):
         with pytest.raises(ValueError, match=match):
             dataclasses.replace(cfg, **bad).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dataclasses.replace(cfg, sampler="midx-oracle").validate()
-    for ported in ("tree-quadratic", "rff", "midx"):
+    for ported in ("tree-quadratic", "rff", "midx", "midx-oracle", "tapas",
+                   "softmax", "rff-oracle"):
         assert dataclasses.replace(cfg, sampler=ported).validate()
-    for bad, match in ((dict(sampler="rff", rff_dim=0), "rff_dim"),
+    with pytest.raises(ValueError, match="cannot drive the head loss"):
+        dataclasses.replace(cfg, sampler="unigram").validate()
+    for bad, match in ((dict(sampler="tapas", tapas_pool=0), "tapas"),
+                       (dict(sampler="tapas", tapas_tau=0.0), "tapas"),
+                       (dict(sampler="tapas", tapas_base="tapas"), "nest"),
+                       (dict(sampler="rff", rff_dim=0), "rff_dim"),
                        (dict(sampler="rff", rff_tau=0.0), "rff_tau"),
                        (dict(sampler="midx", midx_codewords=0),
                         "midx_codewords"),
