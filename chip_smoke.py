@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU and
 check them: youtube-dnn serving and training, ptb-lstm training,
 llama3-8b serving, the SoftmaxHead facade, the sparse refresh,
-checkpoint/restart, the overlapped refresh island, and the rest of the
-sampler registry (the batch-shared sampler, tapas, the paper's oracles).
+checkpoint/restart, the overlapped refresh island, the rest of the
+sampler registry (the batch-shared sampler, tapas, the paper's oracles),
+and starcoder2-3b training through the flash attention's backward kernel,
+served through the quantized index.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -195,13 +197,51 @@ result line):
                  arguments: at each m softmax < quadratic-oracle < uniform
                  and tapas < block-quadratic-shared, each row logged beside
                  BENCH_grad_bias.json's.
-Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16
-and each run of 17 are main paths: the kernel
+ 18. dense     — (a) flash_attention_bwd against its plain version
+                 (autograd through ref.flash_attention_ref): at
+                 starcoder2-3b's training shape (B 4, S 1,024, H 24 over KV
+                 2, hd 128, causal, bf16; timed beside SDPA forward +
+                 backward and split by its two kernels), ragged S 1,000,
+                 llama3-8b's (1, 2,048, 32 / 8, 128; timed), s_valid < S
+                 causal and not, hd 64, and fp32 and bf16 hd 96 through the
+                 CUDA-core route (its path-shape row timed): dq, dk, dv
+                 within BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x
+                 max|plain|, the forward's lse within RTOL, two calls
+                 bitwise equal, the route the launch counts show; then
+                 ops.flash_attention on inputs that require grad returns a
+                 graph whose gradients match.  (b) starcoder2-3b at full
+                 width (30 layers, d 3,072, vocab 49,152, bf16, seeded random
+                 weights): the first fit step's gradients at its own fixed
+                 shared negatives through the kernels against the plain
+                 attention's, within DENSE_GRAD_FLOOR_FACTOR x the
+                 difference between two plain versions; 30 steps of fit
+                 with its default sampler (block-quadratic-shared, m 2,048,
+                 rank 64, blocks of 512) on a cycled pool of 4 batches of 4
+                 x 1,024, checkpointing the last (DENSE_CKPT_EVERY: the
+                 disk cap): exact launches (flash_attention and
+                 flash_attention_bwd 30 a step, zstats 31), a falling loss,
+                 peak memory under the card's; a profile of two steps; (c)
+                 serving_index_source(quantized=True) polled by an
+                 IndexRefresher into a ServingEngine: the payload gauge
+                 equals payload_bytes of the int8 index, which is at most
+                 INT8_PAYLOAD_RATIO (0.26) x a bits-32 index; on 16 queries of the trained model
+                 the bits-32 index at full beam equals the dense top-10,
+                 ties aside, a beam-8 decode's logits equal their
+                 dequantized dots within 1e-4 relative, served ids equal a
+                 direct decode, recall@10 at beams 8, 16, 32 logged; (d)
+                 prefill of 4 x 512 and 16 top-10 steps through the int8
+                 index at beam 16 (agreement with the dense argmax logged),
+                 and 16 through the bits-32 index at full beam equal to the
+                 dense head's top-10, ties aside.
+Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
+each run of 17 and 18's fit are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
 (``expected_launches``), llama serving zstats once, flash_attention (the
-tensor-core kernel) once per layer, flash_attention_simt never, and
+tensor-core kernel) once per layer, flash_attention_simt never,
+starcoder2-3b training flash_attention and flash_attention_bwd once per
+layer and step and zstats once per refresh, and
 leaf_scores once per index top-k step, the entry run sampled_loss
 once, and the facade, checkpoint and overlap runs exactly what their
 calls and steps need.
@@ -243,6 +283,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.utils.checkpoint  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -275,6 +316,7 @@ from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd,
     flash_attention_simt,
 )
 from repro_torch.kernels.leaf_scores import leaf_scores  # noqa: E402
@@ -285,11 +327,15 @@ from repro_torch.kernels.midx_scores import (  # noqa: E402
 from repro_torch.kernels.rff_features import rff_features  # noqa: E402
 from repro_torch.kernels.sampled_loss import sampled_loss  # noqa: E402
 from repro_torch.kernels.zstats import zstats  # noqa: E402
-from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.models import api, layers, transformer  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.transform import apply_updates  # noqa: E402
-from repro_torch.serve import engine, retrieval  # noqa: E402
-from repro_torch.serve.server import ServingEngine, payload_bytes  # noqa: E402
+from repro_torch.serve import engine, quantized_index, retrieval  # noqa: E402
+from repro_torch.serve.server import (  # noqa: E402
+    IndexRefresher,
+    ServingEngine,
+    payload_bytes,
+)
 from repro_torch.train import loop, step  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
@@ -324,6 +370,10 @@ REPLACES = {
     "sampled_loss": "src/repro/kernels/sampled_loss.py:73",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:92",
+    # the Pallas kernel has no backward: the reference differentiates its
+    # pure-jnp layers.chunked_attention (src/repro/models/layers.py:169)
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:92",
+    "flash_attention_bwd_simt": "src/repro/kernels/flash_attention.py:92",
 }
 #: kernels the serving path must launch (its counts follow the engine's
 #: batching; the training paths' are exact, ``expected_launches``)
@@ -1707,7 +1757,8 @@ def phase_training_breakdown(cfg, state, batch=None) -> None:
 
 #: substrings of the hand-written kernels' names in a device trace
 HAND_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
-                "fused_bwd", "rff_features", "pair_masses", "member_scores")
+                "fused_bwd", "rff_features", "pair_masses", "member_scores",
+                "flash_mma", "dkv_mma", "dq_mma", "dkv_kernel", "dq_kernel")
 
 
 def phase_profile(cfg, state, steps: int = 3, batches=None) -> None:
@@ -2754,6 +2805,25 @@ def phase_samplers(cfg, gen: torch.Generator) -> dict[str, dict[str, int]]:
 
 # --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
 
+#: the dense training path (phase 18): starcoder2-3b at full width, 4
+#: sequences of 1,024 tokens a step, a cycled pool of 4 batches
+DENSE_ARCH = "starcoder2-3b"
+DENSE_BATCH = 4
+DENSE_SEQ = 1024
+DENSE_STEPS = 30
+DENSE_POOL = 4
+#: the dense run checkpoints once, at its last step: a full-width save
+#: writes 31.8 GB (bf16 parameters and fp32 AdamW moments), and the whole
+#: script keeps its disk writes under 45 GiB, the most the H100 machines
+#: it is run on accept (a run saving at steps 10 and 20 was ended there
+#: during the second save)
+DENSE_CKPT_EVERY = DENSE_STEPS
+#: AdamW's learning rate of the dense run
+DENSE_LR = 3e-4
+#: the int8 quantized index's payload over the bits-32 one's, at most: at
+#: d = 3,072 a row is 3,072 int8 + a 4-byte scale + a 4-byte perm entry
+#: against 4 x 3,072 + 8 bytes, 0.2505, plus the codebooks
+INT8_PAYLOAD_RATIO = 0.26
 LLAMA_BATCH = 4
 LLAMA_PROMPT = 512
 LLAMA_DECODE = 32
@@ -3439,6 +3509,544 @@ def phase_sampled_loss_entry(gen: torch.Generator, llama: dict
     return counts
 
 
+# --- phase 18: starcoder2-3b training -> quantized serving -------------------
+
+#: flash_attention_bwd's gates: each gradient element within this fraction
+#: of the gradient's max |plain|.  bf16: the kernel writes bf16 gradients
+#: (2^-9 relative rounding) from fp32 sums in another order than the plain
+#: version's, and it forms D = rowsum(dO o O) from the forward's bf16
+#: output where autograd uses the fp32 one; fp32: summation order only.
+BWD_BF16_RTOL = 2.0 ** -7
+BWD_FP32_RTOL = 1e-4
+#: the dense first step's gradients through the kernels against the plain
+#: attention's: the worst and the median over the parameters of
+#: max|diff| / max|plain| and of the relative norm, each at most this
+#: multiple of the same statistic between two plain versions (128- and
+#: 64-key chunks).  Through 30 bf16 layers the two plain versions already
+#: differ by 1.7% of max|plain| at worst and 0.53% at the median (an H100
+#: 80GB HBM3 at 700 W), so a per-element 2^-7 bound holds for no
+#: implementation there; the kernels are held to it per call instead
+#: (phase 18a)
+DENSE_GRAD_FLOOR_FACTOR = 2.0
+
+
+def kept_pairs(s: int, causal: bool, s_valid: int | None) -> int:
+    """(query, key) pairs the mask keeps in one (batch, head)."""
+    sv = s if s_valid is None else min(s, s_valid)
+    if not causal:
+        return s * sv
+    return sum(min(i + 1, sv) for i in range(s))
+
+
+def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
+                    dtype: torch.dtype, s_valid: int | None = None
+                    ) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one backward call: q, k, v, dO and lse read
+    once, dq, dk and dv written once; 10·hd flops per kept (query, key)
+    pair (the five products QK^T, P^T dO, dO V^T, dS^T Q, dS K), at the
+    inputs' peak rate."""
+    esize = torch.finfo(dtype).bits // 8
+    n_bytes = esize * (3 * b * s * h * hd + 4 * b * s * kv * hd) + \
+        4 * b * h * s
+    flops = 10.0 * hd * b * h * kept_pairs(s, causal, s_valid)
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
+                   hd: int, dtype: torch.dtype, causal: bool = True,
+                   s_valid: int | None = None, timed: bool = False) -> dict:
+    """flash_attention_bwd on random inputs against its plain version
+    (autograd through ``ref.flash_attention_ref``): the forward kernel's
+    lse within RTOL of the plain log-sum-exp, dq, dk and dv each within
+    BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x max|plain|, two calls
+    bitwise equal, and the route the launch counts show (bf16 at hd 128:
+    the tensor cores).  ``timed`` adds the kernel, plain and library
+    (SDPA forward + backward with enable_gqa, a yardstick only) device
+    times, the bound, and the device ms of the backward's two kernels."""
+    tag = (f"flash_attention_bwd {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+           f" causal={causal} s_valid={s_valid} (B {b}, S {s}, H {h}, "
+           f"KV {kv}, hd {hd})")
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
+    o, lse = flash_attention(q, k, v, causal=causal, s_valid=s_valid,
+                             with_lse=True)
+    dout = torch.randn(o.shape, generator=gen, device=DEV).to(dtype)
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          s_valid=s_valid, with_lse=True)
+    compare(f"{tag} lse", lse, want_lse)
+
+    def call():
+        return flash_attention_bwd(q, k, v, dout, lse, causal=causal,
+                                   s_valid=s_valid)
+
+    before = kernels.launch_counts()
+    got, again = call(), call()
+    after = kernels.launch_counts()
+    tc = dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+    took = {n: after[n] - before[n]
+            for n in ("flash_attention_bwd", "flash_attention_bwd_simt")}
+    want_took = {"flash_attention_bwd": 2 * tc,
+                 "flash_attention_bwd_simt": 2 * (not tc)}
+    if took != want_took:
+        raise AssertionError(f"{tag}: launches {took} != {want_took}")
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: two calls' {name} differ")
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       s_valid=s_valid)
+    rtol = BWD_BF16_RTOL if dtype == torch.bfloat16 else BWD_FP32_RTOL
+    err = max(compare(f"{tag} {name}", x, y, rtol=rtol)
+              for name, x, y in zip(("dq", "dk", "dv"), got, want))
+    row = {"max_abs_err": err}
+    if timed:
+        bms, by = flash_bwd_bound(b, s, h, kv, hd, causal, dtype, s_valid)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = dout.transpose(1, 2)
+
+        def library():
+            out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        row.update(bound_ms=bms, bound_by=by, **times(
+            call, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, dout, causal=causal, s_valid=s_valid), library))
+        row["kernel_split_ms"] = device_split(call)
+        log(f"  {tag}: {json.dumps(row)}")
+    del q, k, v, o, lse, dout, got, again, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_flash_autograd(gen: torch.Generator) -> float:
+    """``ops.flash_attention`` on CUDA inputs that require a gradient
+    returns an output with a graph, and its gradients (the kernels' with
+    lse) match the plain version's."""
+    q, k, v = (x.requires_grad_(True) for x in attn_inputs(
+        gen, 2, 300, 24, 2, 128, torch.bfloat16))
+    out = ops.flash_attention(q, k, v, causal=True)
+    if out.grad_fn is None:
+        raise AssertionError("ops.flash_attention on CUDA inputs that "
+                             "require grad returned no graph")
+    dout = torch.randn(out.shape, generator=gen, device=DEV).to(out.dtype)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=True)
+    return max(compare(f"ops.flash_attention autograd d{n}", x, y,
+                       rtol=BWD_BF16_RTOL)
+               for n, x, y in zip("qkv", got, want))
+
+
+def phase_flash_bwd(gen: torch.Generator) -> tuple[dict[str, dict],
+                                                   dict[str, dict]]:
+    """flash_attention_bwd against its plain version: at the dense
+    training path's shape (starcoder2-3b: B 4, S 1,024, H 24 over KV 2, hd
+    128, causal bf16; timed), ragged S 1,000, llama3-8b's (1, 2,048, 32 /
+    8, 128; timed), s_valid < S causal and not, and fp32 (the CUDA-core
+    route; its path-shape row timed); then ``ops.flash_attention``'s
+    autograd.  Returns (rows at the path shape, rows at other shapes)."""
+    cfg = get_config(DENSE_ARCH)
+    b, s, h, kv, hd = (DENSE_BATCH, DENSE_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim)
+    bf = torch.bfloat16
+    row = flash_bwd_case(gen, b, s, h, kv, hd, bf, timed=True)
+    errs = [flash_bwd_case(gen, b, 1000, h, kv, hd, bf)["max_abs_err"],
+            flash_bwd_case(gen, 2, 512, 8, 2, 128, bf, causal=False,
+                           s_valid=400)["max_abs_err"],
+            flash_bwd_case(gen, 2, 512, 8, 2, 128, bf,
+                           s_valid=400)["max_abs_err"],
+            flash_bwd_case(gen, 1, 300, 4, 2, 64, bf)["max_abs_err"],
+            check_flash_autograd(gen)]
+    row["other_max_abs_err"] = max(errs)
+    llama = flash_bwd_case(gen, 1, 2048, 32, 8, 128, bf, timed=True)
+    f32 = torch.float32
+    simt = flash_bwd_case(gen, b, s, h, kv, hd, f32, timed=True)
+    simt["other_max_abs_err"] = max(
+        flash_bwd_case(gen, 2, 300, 8, 2, 64, f32)["max_abs_err"],
+        flash_bwd_case(gen, 2, 300, 4, 4, 33, f32, causal=False,
+                       s_valid=250)["max_abs_err"],
+        flash_bwd_case(gen, 1, 77, 4, 1, 256, f32,
+                       s_valid=50)["max_abs_err"],
+        flash_bwd_case(gen, 1, 200, 8, 2, 96, bf)["max_abs_err"])
+    log_rows("dense training path's attention shape",
+             {"flash_attention_bwd": row,
+              "flash_attention_bwd_simt (fp32)": simt})
+    return ({"flash_attention_bwd": row, "flash_attention_bwd_simt": simt},
+            {"llama_prefill": {"flash_attention_bwd": llama}})
+
+
+class CycledPool:
+    """A fixed pool of batches served in turn, with the iterator state that
+    ``fit``'s checkpoints record (``state_dict`` / ``load_state``)."""
+
+    def __init__(self, pool: list):
+        self.pool, self.i = pool, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        batch = self.pool[self.i % len(self.pool)]
+        self.i += 1
+        return batch
+
+    def state_dict(self) -> dict:
+        return {"step": self.i}
+
+    def load_state(self, state: dict) -> None:
+        self.i = int(state["step"])
+
+
+def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """``transformer.hidden_states`` with each layer checkpointed
+    (``torch.utils.checkpoint``), for the plain attention's gradients: its
+    fp32 scores for 30 layers would not fit on the card beside the model,
+    so each layer's are recomputed in the backward."""
+    top = model.tree()
+    b, s = tokens.shape
+    x = layers.apply_embed(top["embed"], tokens, cfg)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    for (kind, _), seg in zip(transformer.segments_of(cfg),
+                              top["segments"]):
+        for lp in seg:
+            x = torch.utils.checkpoint.checkpoint(
+                transformer._apply_layer, kind, lp, x, positions, cfg,
+                use_reentrant=False)
+    return layers.apply_norm(top["final_norm"], x, cfg)
+
+
+def dense_grad_check(cfg, batch) -> float:
+    """The first step of phase 18's fit (seed 0, the pool's first batch,
+    its refresh and its draw of shared negatives) differentiated at those
+    fixed negatives three ways: through the flash kernels, with every
+    layer's attention run by its plain version (autograd through
+    ``ref.flash_attention_ref``, 128-key chunks), and by the plain version
+    over 64-key chunks (another valid order of the same fp32 sums: the
+    bf16 noise floor of the comparison).  The losses within 1e-3 relative;
+    the kernels' gradient errors within DENSE_GRAD_FLOOR_FACTOR x the
+    floor's, by worst and median parameter, max-based and by norm.
+    Returns the worst kernel error over max|plain|."""
+    opt = make_optimizer("sgd", 0.0)
+    state = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
+                                  None, opt, device=DEV)
+    model = state.params
+    sampler = sampler_from_config(cfg)
+    est = estimators.make_estimator(cfg.estimator)
+    with torch.no_grad():
+        head = api.head_table(model, cfg).detach()
+        sstate = step.make_refresh_fn(cfg)(head, state.sampler_state)
+        h0, labels, _ = api.backbone_hidden(model, batch, cfg)
+        runtime = sampler.island_runtime(sstate, head, cfg.vocab_size)
+        neg, logq = sampler.sample_batch(runtime, h0,
+                                         cfg.m_negatives,
+                                         loop.step_generator(0, 0, DEV))
+    del h0
+    params = step.param_dict(model)
+
+    def grads_of(h2d):
+        loss = torch.mean(estimators.loss_from_embeddings(
+            est, api.head_table(model, cfg), h2d, labels, neg, logq,
+            abs_mode=cfg.abs_softmax, impl=cfg.head_impl))
+        return loss.item(), torch.autograd.grad(loss, list(params.values()))
+
+    def plain_grads(chunk):
+        kernel_flash = ops.flash_attention
+        ops.flash_attention = lambda q, k, v, *, causal=True: \
+            ref.flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
+        try:
+            hp = plain_hidden(model, batch["tokens"], cfg)
+            return grads_of(hp.reshape(-1, hp.shape[-1]))
+        finally:
+            ops.flash_attention = kernel_flash
+
+    h, _, _ = api.backbone_hidden(model, batch, cfg)
+    loss_k, grads_k = grads_of(h)
+    del h
+    loss_p, grads_p = plain_grads(128)
+    loss_q, grads_q = plain_grads(64)
+
+    def rel(ga, gb):
+        out = {}
+        for name, a, b in zip(params, ga, gb):
+            a, b = a.float(), b.float()
+            scale = max(float(b.abs().max()), 1e-30)
+            out[name] = (float((a - b).abs().max()) / scale,
+                         float(torch.linalg.vector_norm(a - b)
+                               / torch.linalg.vector_norm(b).clamp(
+                                   min=1e-30)))
+        return out
+
+    kern, floor = rel(grads_k, grads_p), rel(grads_q, grads_p)
+    for tag, errs in (("kernels", kern), ("plain over 64-key chunks",
+                                          floor)):
+        worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
+        log(f"[dense] first-step gradients, {tag} against the plain "
+            f"attention (128-key chunks), over {len(errs)} parameters: "
+            f"max|diff| / max|plain| worst {worst[:4]}, median "
+            f"{statistics.median(e[0] for e in errs.values())}; relative "
+            f"norm worst {max(e[1] for e in errs.values())}, median "
+            f"{statistics.median(e[1] for e in errs.values())}")
+    log(f"[dense] first step at fixed shared negatives (m {neg.numel()}): "
+        f"loss through the kernels {loss_k}, plain {loss_p}, plain over "
+        f"64-key chunks {loss_q}")
+    if abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
+        raise AssertionError(f"dense loss through the kernels {loss_k} != "
+                             f"plain {loss_p}")
+    for i, measure in enumerate(("max|diff| / max|plain|",
+                                 "relative norm")):
+        for stat in (max, statistics.median):
+            got = stat(v[i] for v in kern.values())
+            floor_val = stat(v[i] for v in floor.values())
+            if got > DENSE_GRAD_FLOOR_FACTOR * floor_val:
+                raise AssertionError(
+                    f"dense gradients through the kernels: {stat.__name__}"
+                    f" {measure} {got} > {DENSE_GRAD_FLOOR_FACTOR} x the "
+                    f"two plain versions' {floor_val}")
+    del state, model, params, grads_k, grads_p, grads_q
+    torch.cuda.empty_cache()
+    return max(v[0] for v in kern.values())
+
+
+def dense_fit(cfg, pool, ckpt: str) -> tuple[dict[str, int], object]:
+    """DENSE_STEPS steps of ``fit`` on the cycled pool, saving every
+    DENSE_CKPT_EVERY steps (the last step's only): exact launches
+    (flash_attention and flash_attention_bwd once per layer and step,
+    zstats once per refresh),
+    a finite loss that falls (the mean of the last pass over the pool
+    below the first's), peak memory under the card's.  Returns the counts
+    and the final state."""
+    opt = make_optimizer("adamw", DENSE_LR)
+    free = shutil.disk_usage(Path(ckpt).parent).free
+    log(f"[dense] {shutil.disk_usage(Path(ckpt).parent).total / 1e9:.1f} GB "
+        f"disk, {free / 1e9:.1f} GB free under {Path(ckpt).parent}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, None, opt, CycledPool(pool), DENSE_STEPS, seed=0,
+                   checkpoint_dir=ckpt, checkpoint_every=DENSE_CKPT_EVERY,
+                   keep=1, log_every=10, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    n = len(pool)
+    first = statistics.mean(res.losses[:n])
+    last = statistics.mean(res.losses[-n:])
+    log(f"[dense] {cfg.name}: {DENSE_STEPS} steps of {DENSE_BATCH} x "
+        f"{DENSE_SEQ} tokens in {wall:.3f} s ({wall / DENSE_STEPS * 1e3:.1f}"
+        f" ms/step, the first step and the final save included); losses {res.losses}; mean of the first pass over the "
+        f"pool {first}, of the last {last}; peak device memory "
+        f"{peak / 2**30:.2f} GiB of {card / 2**30:.2f}; launches {counts}")
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(zstats=DENSE_STEPS + 1,
+                flash_attention=DENSE_STEPS * cfg.n_layers,
+                flash_attention_bwd=DENSE_STEPS * cfg.n_layers)
+    if counts != want:
+        raise AssertionError(f"dense launches {counts} != {want}")
+    if not all(math.isfinite(x) for x in res.losses) or not last < first:
+        raise AssertionError(f"dense loss not finite or did not fall: "
+                             f"{first} -> {last}")
+    if peak >= card:
+        raise AssertionError(f"dense peak memory {peak} >= the card's {card}")
+    mgr = CheckpointManager(ckpt)
+    if mgr.all_steps() != [DENSE_STEPS]:
+        raise AssertionError(f"checkpoints {mgr.all_steps()} != "
+                             f"[{DENSE_STEPS}]")
+    size = sum(f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file())
+    log(f"[dense] checkpoint of step {DENSE_STEPS}: {size / 1e9:.3f} GB")
+    return counts, res.state
+
+
+def dense_index_checks(cfg, params, ckpt: str) -> tuple:
+    """The train -> serve seam at full width: ``serving_index_source(
+    quantized=True)`` polls the checkpoint into an ``IndexRefresher`` and a
+    ``ServingEngine``; the engine's payload gauge equals ``payload_bytes``
+    of the shipped int8 index, which is at most INT8_PAYLOAD_RATIO x a
+    bits-32 index of the same head; on 16 queries of the trained model the bits-32 index at
+    full beam equals the dense top-k (ties aside), a narrow beam's logits
+    are their dequantized dots (1e-4 relative), and requests served
+    through the engine equal a direct decode; recall@10 at beams 8, 16,
+    32 and the build and poll times are logged.  Returns the int8 and
+    the bits-32 index."""
+    k = 10
+    opt = make_optimizer("adamw", DENSE_LR)
+    head = api.head_table(params, cfg).detach()
+    shipped = []
+    poll = step.serving_index_source(ckpt, cfg, None, opt, quantized=True,
+                                     device=DEV)
+
+    def poll_keep():
+        got = poll()
+        if got is not None:
+            shipped.append(got[0])
+        return got
+
+    eng = ServingEngine(engine.make_decode_fn(cfg, None, head, k),
+                        cfg.d_model, k, buckets=(1, 4, 16),
+                        device=DEV).start()
+    refresher = None
+    t0 = time.perf_counter()
+    try:
+        refresher = IndexRefresher(eng, poll_keep, poll_s=0.05)
+        refresher.start()
+        while refresher.swaps == 0 and time.perf_counter() - t0 < 300:
+            if refresher.error is not None:
+                raise AssertionError(f"refresher failed: {refresher.error}")
+            time.sleep(0.05)
+        poll_s = time.perf_counter() - t0
+        if refresher.swaps != 1:
+            raise AssertionError("the checkpoint was never shipped")
+        idx8 = shipped[0]
+        counters = eng.counters()
+        with torch.no_grad():
+            tokens = next(batch_iterator_for(cfg, None, 4, 256, seed=1000,
+                                             device=DEV))["tokens"]
+            hq, _ = transformer.hidden_states(params, tokens, cfg)
+            hq = hq[:, -4:].reshape(16, -1)
+        served = [eng.decode(x) for x in hq.float().cpu().numpy()]
+    finally:
+        if refresher is not None:
+            refresher.stop()
+        eng.stop()
+    t1 = time.perf_counter()
+    idx32 = quantized_index.build_quantized_index(
+        head, codewords=cfg.midx_codewords, codebooks=cfg.midx_codebooks,
+        list_size=cfg.sampler_block, bits=32, vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    p8, p32 = payload_bytes(idx8), payload_bytes(idx32)
+    log(f"[dense] quantized index: {idx8.num_lists_shard} lists of "
+        f"{idx8.list_size} ({int((idx8.cnt == 0).sum())} empty), int8 "
+        f"payload {p8} bytes, bits-32 {p32} ({p8 / p32:.4f}); gauge "
+        f"{counters['index_payload_bytes']}; poll to swap {poll_s:.3f} s "
+        f"(restore + build), bits-32 build {build_s:.3f} s")
+    if counters["index_payload_bytes"] != p8 or not isinstance(
+            idx8, quantized_index.QuantizedRetrievalIndex) or idx8.bits != 8:
+        raise AssertionError(f"payload gauge {counters['index_payload_bytes']}"
+                             f" != payload_bytes {p8}")
+    if p8 > INT8_PAYLOAD_RATIO * p32:
+        raise AssertionError(f"int8 index {p8} > {INT8_PAYLOAD_RATIO} x "
+                             f"bits-32 {p32}")
+    ids32, _ = quantized_index.decode_topk(idx32, hq, k)
+    dids, dlog = retrieval.dense_topk(head, hq, k, n_valid=cfg.vocab_size)
+    swaps = check_topk_ties("bits-32 full beam", ids32, dids, dlog, k)
+    ids8, log8 = quantized_index.decode_topk(idx8, hq, k, beam=8)
+    where = torch.argsort(idx8.perm.long())
+    pos = where[ids8.long()]
+    rows = idx8.rows.reshape(-1, cfg.d_model)[pos].float() * \
+        idx8.scale.reshape(-1)[pos][..., None]
+    dots = torch.einsum("tkd,td->tk", rows, hq.float())
+    rel = float(((log8 - dots).abs() / dots.abs().clamp(min=1e-30)).max())
+    if rel > 1e-4:
+        raise AssertionError(f"narrow-beam logits off their dequantized "
+                             f"dots by {rel} relative")
+    direct, _ = quantized_index.decode_topk(idx8, hq, k)
+    got = np.stack([r.ids for r in served])
+    if not all(r.ok for r in served) or not np.array_equal(
+            got, direct.cpu().numpy()):
+        raise AssertionError("served ids != a direct decode of the index")
+    recall = {b: quantized_index.recall_at_k(idx8, head, hq, k, b)
+              for b in (8, 16, 32)}
+    log(f"[dense] bits-32 full beam = dense top-{k} on 16 queries ({swaps} "
+        f"tie swaps); int8 beam 8 logits vs dequantized dots: max rel "
+        f"{rel}; recall@{k} of the int8 index at beams 8 / 16 / 32: "
+        f"{recall}; 16 requests served through the engine")
+    return idx8, idx32
+
+
+def dense_decode(cfg, params, idx8, idx32) -> None:
+    """Prefill of 4 prompts of 512 (flash_attention once per layer), then
+    16 top-k steps (k 10) through the int8 index at beam 16, and the same
+    16 steps through the bits-32 index at full beam beside the dense head
+    fed the same tokens: greedy ids equal, ties aside.  Times and the
+    int8 chain's agreement with the dense argmax are logged."""
+    k, steps, s = 10, 16, 512
+    tokens = next(batch_iterator_for(cfg, None, 4, s, seed=77,
+                                     device=DEV))["tokens"]
+    max_len = s + steps + 1
+    prefill = engine.make_prefill_step(cfg, None, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pos = torch.full((4,), s, dtype=torch.long, device=DEV)
+    served = engine.make_topk_step(cfg, None, k, index=idx8, beam=16)
+    t8, c8, agree8, times = tok[:, None].long(), caches, 0, []
+    dense_step = engine.make_topk_step(cfg, None, k)
+    for i in range(steps):
+        c_dense = [{n: x.clone() for n, x in c.items()} for c in c8]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, _, c8 = served(params, t8, c8, pos + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        dids, _, _ = dense_step(params, t8, c_dense, pos + i)
+        agree8 += int((ids[:, 0] == dids[:, 0]).sum())
+        t8 = ids[:, :1].long()
+    tok32, caches32 = prefill(params, {"tokens": tokens})
+    tok_d, caches_d = tok32[:, None].long(), [
+        {n: x.clone() for n, x in c.items()} for c in caches32]
+    step32 = engine.make_topk_step(cfg, None, k, index=idx32)
+    swaps = 0
+    t32 = tok_d
+    for i in range(steps):
+        ids32, _, caches32 = step32(params, t32, caches32, pos + i)
+        dids, dlog, caches_d = dense_step(params, t32, caches_d, pos + i)
+        swaps += check_topk_ties(f"bits-32 top-k step {i}", ids32, dids,
+                                 dlog, k)
+        t32 = dids[:, :1].long()
+    step_ms = statistics.median(times)
+    log(f"[dense] prefill 4 x {s}: {prefill_ms:.2f} ms; {steps} top-{k} "
+        f"steps through the int8 index at beam 16: median {step_ms:.2f} ms "
+        f"({4e3 / step_ms:.1f} tokens/s), greedy ids equal to the dense "
+        f"head's at {agree8} of {4 * steps}; bits-32 full-beam chain equal "
+        f"to the dense top-{k} at every step ({swaps} tie swaps)")
+
+
+def phase_dense() -> dict[str, int]:
+    """Phase 18: starcoder2-3b at full width (30 layers, d 3,072, 24 / 2
+    heads of 128, d_ff 12,288, vocab 49,152, bf16, layernorm, tanh gelu,
+    QKV bias) trained through ``fit`` with its default sampler
+    (block-quadratic-shared, m 2,048, rank 64, blocks of 512) on a cycled
+    pool of DENSE_POOL batches of DENSE_BATCH x DENSE_SEQ, checkpointing,
+    then served through the quantized index.  Returns the fit's counts."""
+    cfg = get_config(DENSE_ARCH)
+    data = batch_iterator_for(cfg, None, DENSE_BATCH, DENSE_SEQ, seed=0,
+                              device=DEV)
+    pool = [next(data) for _ in range(DENSE_POOL)]
+    err = dense_grad_check(cfg, pool[0])
+    ckpt = str(Path(__file__).resolve().parent / "build" / "chip_smoke_dense")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        counts, state = dense_fit(cfg, pool, ckpt)
+        n_params = sum(p.numel() for p in state.params.parameters())
+        log(f"[dense] {n_params} parameters "
+            f"({n_params * 2 / 1e9:.2f} GB in bf16)")
+        params = state.params
+        with torch.no_grad():  # the profile's steps move the parameters
+            trained = [p.detach().clone() for p in params.parameters()]
+        phase_profile(cfg, state, steps=2, batches=pool[1:3])
+        del state
+        with torch.no_grad():
+            for p, t in zip(params.parameters(), trained):
+                p.copy_(t)
+        del trained
+        torch.cuda.empty_cache()
+        idx8, idx32 = dense_index_checks(cfg, params, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dense_decode(cfg, params, idx8, idx32)
+    del params, idx8, idx32
+    torch.cuda.empty_cache()
+    log(f"[dense] worst first-step gradient error over max|plain| {err}")
+    return counts
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -3486,7 +4094,14 @@ def main() -> int:
     rows, fused_shapes = phase_kernels_training(gen, cfg)
     llama_rows, llama_shapes = phase_kernels_llama(gen)
     rows.update(llama_rows)
-    lap("kernel checks (phases 3, 10)")
+    # its own generator: the other phases draw the inputs they drew
+    # before phase 18 existed (phase 8's ragged rff_features case fails
+    # its RTOL on another draw; ROADMAP.md C)
+    bwd_rows, bwd_shapes = phase_flash_bwd(
+        torch.Generator(device="cuda").manual_seed(18))
+    rows.update(bwd_rows)
+    llama_shapes.update(bwd_shapes)
+    lap("kernel checks (phases 3, 10, 18a)")
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -3554,6 +4169,9 @@ def main() -> int:
     by_path.update(phase_samplers(cfg, gen))
     torch.cuda.empty_cache()
     lap("samplers (phase 17)")
+    by_path[DENSE_ARCH] = phase_dense()
+    torch.cuda.empty_cache()
+    lap("dense training -> quantized serving (phase 18)")
 
     shapes.update(llama_shapes)
     by_path["llama3-8b"], llama, shapes["llama_index"] = phase_llama_serving(

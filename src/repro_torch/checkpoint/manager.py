@@ -11,7 +11,10 @@ other's checkpoints: a dataclass field is ``.name``, a dict key its name,
 a tuple or list entry its index, joined by ``/``.  A port ``TrainState``
 is flattened in the reference's tree (``convert.reference_tree``: params
 nested by name, ``.step`` a 0-d int32 array), e.g.
-``.params/head/w``, ``.opt_state/1/m/head/w``, ``.sampler_state/.stats/z``.
+``.params/head/w``, ``.opt_state/1/m/head/w``, ``.sampler_state/.stats/z``;
+a ``DenseLM``'s layers stacked per segment as the reference holds them
+(``.params/segments/0/attn/wq``), on the host only.  bf16 arrays are
+stored as numpy stores the reference's: 2-byte voids holding their bits.
 
 Contracts:
 
@@ -110,6 +113,9 @@ class CheckpointManager:
     # -- write ---------------------------------------------------------------
     def save(self, step: int, state: Any, extra: dict | None = None,
              blocking: bool = False) -> None:
+        # The previous write lands first, so one state's host copies are
+        # held at a time (a 3B-parameter model's train state is 32 GB).
+        self.wait()
         arrays = _flatten(state)  # host copies now: a consistent snapshot
         manifest = {"step": int(step), "extra": extra or {},
                     "keys": sorted(arrays)}
@@ -215,9 +221,9 @@ class CheckpointManager:
                         "different sampler family's SamplerState, or a "
                         "checkpoint from before a state-layout change).  "
                         f"Stored keys: {manifest['keys']}")
-                arr = torch.from_numpy(np.array(data[key]))
-                dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
-                    else arr.dtype
+                arr = convert.from_numpy(data[key])
+                dtype = leaf.dtype if isinstance(
+                    leaf, (torch.Tensor, convert.Stacked)) else arr.dtype
                 new[key] = arr.to(device=dev, dtype=dtype)
         out = _map_leaves(lambda k, _: new[k], tree)
         if isinstance(like, TrainState):

@@ -1,7 +1,10 @@
-"""Config registry of the port: the paper's own models and llama3-8b.
+"""Config registry of the port: the paper's own models and the dense
+transformer family (llama3-8b, starcoder2-3b, mistral-nemo-12b, qwen2-72b,
+chameleon-34b).
 
-The reference registers the other assigned architectures as well; each
-joins here with the slice that ports its family."""
+The reference registers the other assigned architectures as well (moe,
+mla, mamba, encdec); each joins here with the slice that ports its
+family."""
 from __future__ import annotations
 
 import importlib
@@ -9,8 +12,12 @@ import importlib
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
+    "chameleon-34b": "chameleon_34b",
     "llama3-8b": "llama3_8b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
     "ptb-lstm": "ptb_lstm",
+    "qwen2-72b": "qwen2_72b",
+    "starcoder2-3b": "starcoder2_3b",
     "youtube-dnn": "youtube_dnn",
 }
 

@@ -12,25 +12,32 @@ Both functions take plain numpy arrays (the JAX side converts with
   * ``lm_params_from_jax`` — the reference's dense LM params (nested dicts,
     each segment stacked on a leading layer axis) into the same tree of
     tensors.
-  * ``index_from_jax`` — a reference ``RetrievalIndex``, field by field,
-    into the port's ``RetrievalIndex``.
-  * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys or
-    lstm model (params, the ``chain(clip, adamw)`` state, the sampler's
-    carried state and the step) into the port's ``TrainState``, so both
-    packages can take a step from one state.
+  * ``index_from_jax`` — a reference ``RetrievalIndex`` or
+    ``QuantizedRetrievalIndex``, field by field, into the port's.
+  * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
+    lstm or dense model (params, the ``chain(clip, adamw)`` state, the
+    sampler's carried state and the step) into the port's ``TrainState``,
+    so both packages can take a step from one state.
 
 And back, numpy out:
 
-  * ``params_to_jax`` — a ``RecsysTower`` or ``LSTMLM`` into the
-    reference's param tree (each name split at its first ``_``).
+  * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM`` or ``DenseLM`` into
+    the reference's param tree (recsys and lstm names split at their first
+    ``_``; a ``DenseLM``'s layers stacked per segment).
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
-    the same tree with the port's own tensors as leaves (no copy): what
+    the same tree with the port's own tensors as leaves (no copy; a
+    ``DenseLM`` layer stack as a ``Stacked`` of its layers' tensors): what
     the checkpoint manager flattens into the reference's keys.
+  * ``index_to_jax`` — a port index's fields as numpy.
+
+bf16 tensors cross as numpy's 2-byte void type (``|V2``), their raw bits:
+what numpy writes for the reference's bf16 arrays in an ``.npz``.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,7 +45,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
-from repro_torch.models.transformer import require_dense, segments_of
+from repro_torch.models.transformer import (
+    DenseLM,
+    require_dense,
+    segments_of,
+)
+from repro_torch.serve.quantized_index import QuantizedRetrievalIndex
 from repro_torch.serve.retrieval import RetrievalIndex
 from repro_torch.train.step import TrainState
 from repro_torch.utils.misc import resolve_device
@@ -72,17 +84,41 @@ def _nest_params(flat: dict) -> dict:
     return nested
 
 
+class Stacked:
+    """Tensors the reference keeps stacked on a leading layer axis and the
+    port holds apart (a ``DenseLM`` segment's layers, or their optimizer
+    moments): a leaf of ``reference_tree``, stacked only when copied to the
+    host (``host_copy``), so the card never holds a second copy."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+
 def host_copy(t) -> np.ndarray:
-    """A copy of a tensor (or number) on the host: the caller's tensor may
-    change in place afterwards (the optimizer updates params in place)."""
+    """A copy of a tensor (or number, or ``Stacked``) on the host: the
+    caller's tensor may change in place afterwards (the optimizer updates
+    params in place).  bf16 comes back as ``|V2``, its raw bits."""
+    if isinstance(t, Stacked):
+        return np.stack([host_copy(p) for p in t.parts])
     if not isinstance(t, torch.Tensor):
         return np.array(t)
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bf16 leaves (the transformer families' training states) are "
-            "not ported yet (ROADMAP.md A16)")
     t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return host_copy(t.view(torch.int16)).view(np.dtype("V2"))
     return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def from_numpy(arr) -> torch.Tensor:
+    """A host array as a tensor; a 2-byte void array (``|V2``, bf16's bits
+    as numpy stores them) or an ``ml_dtypes`` bfloat16 one as bf16."""
+    arr = np.array(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _map_tree(fn, tree):
@@ -93,6 +129,73 @@ def _map_tree(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_tree(fn, v) for v in tree)
     return tree if tree is None else fn(tree)
+
+
+def _set_path(tree: dict, path, val) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = val
+
+
+def _dense_tree(named: dict, counts: list[int]) -> dict:
+    """A ``DenseLM``'s parameter names (or a dict keyed by them: its
+    optimizer moments) -> the reference's tree: ``embed.table`` ->
+    ``{"embed": {"table"}}``, and segment s's per-layer entries
+    ``segments.<s>.<i>.attn.wq`` -> ``segments[s]["attn"]["wq"]``, a
+    ``Stacked`` of the layers in order."""
+    out: dict = {}
+    layers: dict = {}
+    for name, val in named.items():
+        parts = name.split(".")
+        if parts[0] == "segments":
+            key = (int(parts[1]), tuple(parts[3:]))
+            layers.setdefault(key, {})[int(parts[2])] = val
+        else:
+            _set_path(out, parts, val)
+    segs: list[dict] = [{} for _ in counts]
+    for (seg, path), by_layer in layers.items():
+        _set_path(segs[seg], path, Stacked(by_layer[i]
+                                           for i in range(counts[seg])))
+    out["segments"] = segs
+    return out
+
+
+def _dense_named(tree: dict) -> dict:
+    """The inverse of ``_dense_tree``: a reference dense tree (stacked
+    leaves: arrays, tensors or ``Stacked``) -> ``DenseLM`` names, each
+    layer's entry a row of its stacked leaf."""
+    named = {}
+
+    def walk(node, prefix, seg):
+        for key, val in node.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, dict):
+                walk(val, name, seg)
+            elif seg is None:
+                named[name] = val
+            else:
+                parts = val.parts if isinstance(val, Stacked) else val
+                for i in range(len(parts)):
+                    named[f"segments.{seg}.{i}.{name}"] = parts[i]
+
+    walk({k: v for k, v in tree.items() if k != "segments"}, "", None)
+    for seg, seg_tree in enumerate(tree["segments"]):
+        walk(seg_tree, "", seg)
+    return named
+
+
+def _to_reference(named: dict, model: torch.nn.Module) -> dict:
+    """Parameter names -> the reference's param tree, by model."""
+    if isinstance(model, DenseLM):
+        return _dense_tree(named, model.counts)
+    return _nest_params(named)
+
+
+def _from_reference(tree: dict, model: torch.nn.Module) -> dict:
+    """The reference's param tree -> the model's parameter names."""
+    if isinstance(model, DenseLM):
+        return _dense_named(tree)
+    return _flat_params(tree)
 
 
 def _module_of(state: TrainState) -> torch.nn.Module:
@@ -106,22 +209,24 @@ def _module_of(state: TrainState) -> torch.nn.Module:
 
 def reference_tree(state: TrainState) -> TrainState:
     """The port's ``TrainState`` in the reference's tree, leaves untouched
-    (``meta`` tensors stay ``meta``): params nested by name, every dict
-    of the optimizer state keyed by the parameter names nested the same
-    way, the step a 0-d int32 tensor."""
+    (``meta`` tensors stay ``meta``): params nested by name (a
+    ``DenseLM``'s layers as ``Stacked`` leaves), every dict of the
+    optimizer state keyed by the parameter names nested the same way, the
+    step a 0-d int32 tensor."""
     model = _module_of(state)
     names = {n for n, _ in model.named_parameters()}
 
     def opt_tree(node):
         if isinstance(node, dict):
             node = {k: opt_tree(v) for k, v in node.items()}
-            return _nest_params(node) if set(node) == names else node
+            return _to_reference(node, model) if set(node) == names \
+                else node
         if isinstance(node, (tuple, list)):
             return type(node)(opt_tree(v) for v in node)
         return node
 
     return TrainState(
-        params=_nest_params(dict(model.named_parameters())),
+        params=_to_reference(dict(model.named_parameters()), model),
         opt_state=opt_tree(state.opt_state),
         sampler_state=SamplerState(stats=dict(state.sampler_state.stats),
                                    const=dict(state.sampler_state.const)),
@@ -132,12 +237,12 @@ def from_reference_tree(tree: TrainState, like: TrainState) -> TrainState:
     """The inverse of ``reference_tree``: ``like`` gives the module (its
     class and configuration; ``meta`` is fine), the tree the tensors."""
     model = copy.deepcopy(_module_of(like))
-    model.load_state_dict(_flat_params(tree.params), assign=True)
+    model.load_state_dict(_from_reference(tree.params, model), assign=True)
 
     def opt_tree(node):
         if isinstance(node, dict):
-            flat = _flat_params(node) if set(node) == set(tree.params) \
-                else node
+            flat = _from_reference(node, model) \
+                if set(node) == set(tree.params) else node
             return {k: opt_tree(v) for k, v in flat.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(opt_tree(v) for v in node)
@@ -148,10 +253,16 @@ def from_reference_tree(tree: TrainState, like: TrainState) -> TrainState:
 
 
 def params_to_jax(model: torch.nn.Module) -> dict:
-    """A ``RecsysTower`` or ``LSTMLM`` -> the reference's param tree of
-    numpy arrays (the inverse of ``params_from_jax``)."""
-    return _nest_params({k: host_copy(p)
-                         for k, p in model.named_parameters()})
+    """A ``RecsysTower``, ``LSTMLM`` or ``DenseLM`` -> the reference's
+    param tree of numpy arrays (the inverse of ``params_from_jax``)."""
+    return named_to_jax(model, dict(model.named_parameters()))
+
+
+def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
+    """Tensors keyed by ``model``'s parameter names (the parameters, their
+    gradients, an optimizer moment) -> the reference's tree of that
+    model's params, numpy leaves."""
+    return _map_tree(host_copy, _to_reference(named, model))
 
 
 def train_state_to_jax(state: TrainState
@@ -168,7 +279,7 @@ def train_state_to_jax(state: TrainState
 
 
 def _tensor(arr, dev: torch.device, dtype=None) -> torch.Tensor:
-    return torch.from_numpy(np.array(arr)).to(device=dev, dtype=dtype)
+    return from_numpy(arr).to(device=dev, dtype=dtype)
 
 
 def _leaf(arr, dev: torch.device) -> torch.Tensor:
@@ -233,22 +344,24 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
                          ) -> TrainState:
     """A reference ``TrainState`` as numpy -> the port's, on ``device``.
 
-    np_params: the recsys or lstm param tree; np_opt_state: the state of
-    ``make_optimizer("adamw", ...)``, i.e. ``((), {"m": tree, "v": tree,
-    "step": int32})``; np_sampler: ``{"stats": {...}, "const": {...}}`` of
-    the sampler's carried state (``{}`` dicts for none); step: the train
-    step count."""
+    np_params: the recsys, lstm or dense param tree; np_opt_state: the
+    state of ``make_optimizer("adamw", ...)``, i.e. ``((), {"m": tree,
+    "v": tree, "step": int32})``; np_sampler: ``{"stats": {...}, "const":
+    {...}}`` of the sampler's carried state (``{}`` dicts for none); step:
+    the train step count."""
     dev = resolve_device(device)
     model = params_from_jax(np_params, cfg, device=dev)
+    if cfg.family == "dense":
+        model = DenseLM(cfg, dev, tree=model)
     clip_state, adam = np_opt_state
     if clip_state != () or set(adam) != {"m", "v", "step"}:
         raise NotImplementedError(
             "only the chain(clip_by_global_norm, adamw) state is carried")
     opt_state = ((), {
         "m": {k: _tensor(v, dev) for k, v in
-              _flat_params(adam["m"]).items()},
+              _from_reference(adam["m"], model).items()},
         "v": {k: _tensor(v, dev) for k, v in
-              _flat_params(adam["v"]).items()},
+              _from_reference(adam["v"], model).items()},
         "step": _tensor(adam["step"], dev, torch.int32)})
     sampler_state = SamplerState(
         stats={k: _tensor(v, dev) for k, v in np_sampler["stats"].items()},
@@ -259,14 +372,24 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
 
 def index_from_jax(np_fields: dict,
                    device: str | torch.device | None = None
-                   ) -> RetrievalIndex:
-    """Reference ``RetrievalIndex`` fields (numpy tensors plus the ints
-    ``n``, ``tp``, ``v_shard``) -> the port's index on ``device``."""
+                   ) -> RetrievalIndex | QuantizedRetrievalIndex:
+    """Reference ``RetrievalIndex`` or ``QuantizedRetrievalIndex`` fields
+    (numpy tensors plus the ints ``n``, ``tp``, ``v_shard`` and, for the
+    quantized one, ``bits``) -> the port's index on ``device``."""
     dev = resolve_device(device)
     if int(np_fields["tp"]) != 1:
         raise NotImplementedError("sharded (tp > 1) indexes are not ported "
                                   "yet")
-    tensors = {f: _tensor(np_fields[f], dev) for f in RetrievalIndex.TENSORS}
-    return RetrievalIndex(**tensors, n=int(np_fields["n"]),
-                          tp=int(np_fields["tp"]),
-                          v_shard=int(np_fields["v_shard"]))
+    cls = QuantizedRetrievalIndex if "bits" in np_fields else RetrievalIndex
+    statics = {f: int(np_fields[f]) for f in ("n", "tp", "v_shard", "bits")
+               if f in np_fields}
+    return cls(**{f: _tensor(np_fields[f], dev) for f in cls.TENSORS},
+               **statics)
+
+
+def index_to_jax(index: RetrievalIndex | QuantizedRetrievalIndex) -> dict:
+    """A port index's fields as host copies (numpy tensors, ints): the
+    keyword arguments of the reference's index class."""
+    return {f.name: host_copy(getattr(index, f.name))
+            if f.name in index.TENSORS else getattr(index, f.name)
+            for f in dataclasses.fields(index)}

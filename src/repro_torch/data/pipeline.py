@@ -51,14 +51,14 @@ def batch_iterator_for(cfg: ArchConfig, ctx, global_batch: int,
                        device: str | torch.device | None = None
                        ) -> ShardedBatchIterator:
     """Synthetic batches for ``cfg`` on ``device`` (the card unless
-    ``device="cpu"``): recsys (``seq_len`` unused) and lstm (``SyntheticLM``
-    token sequences of ``seq_len``) are ported."""
-    if cfg.family not in ("recsys", "lstm"):
+    ``device="cpu"``): recsys (``seq_len`` unused), and the dense and lstm
+    LMs (``SyntheticLM`` token sequences of ``seq_len``) are ported."""
+    if cfg.family not in ("recsys", "lstm", "dense"):
         raise NotImplementedError(
             f"synthetic data for family '{cfg.family}' is not ported yet "
-            "(only 'recsys', 'lstm')")
+            "(only 'recsys', 'lstm', 'dense')")
     dev = resolve_device(device)
-    if cfg.family == "lstm":
+    if cfg.family in ("lstm", "dense"):
         lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed,
                          device=str(dev))
         return ShardedBatchIterator(

@@ -23,7 +23,10 @@ _WRAPPERS = {"zstats": (zstats, "launches"),
              "midx_member_scores": (midx_scores, "member_launches"),
              "sampled_loss": (sampled_loss, "launches"),
              "flash_attention": (flash_attention, "launches"),
-             "flash_attention_simt": (flash_attention, "simt_launches")}
+             "flash_attention_simt": (flash_attention, "simt_launches"),
+             "flash_attention_bwd": (flash_attention, "bwd_launches"),
+             "flash_attention_bwd_simt": (flash_attention,
+                                          "bwd_simt_launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 Each ``csrc/<source>.cu`` exposes one plain C function per kernel (the
-fused head's, the midx scores' and the attention's sources hold two each)
-and is compiled on first use, by ``nvcc`` alone (no PyTorch headers, so a
+fused head's, the midx scores' and the attention backward's sources hold
+two each, the attention forward's four: each route with and without its
+log-sum-exp output) and is compiled on first use, by ``nvcc`` alone (no PyTorch headers, so a
 build takes seconds), into ``build/repro_torch/<source>-<hash>.so`` under the
 repository root, where the hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags: an edited source or header rebuilds, an
@@ -65,6 +66,19 @@ SIGNATURES = {
     "flash_attention_simt": ("flash_attention", "flash_attention_fwd",
                              (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _I, _P)),
+    "flash_attention_lse": ("flash_attention",
+                            "flash_attention_mma_bf16_lse",
+                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _I, _P)),
+    "flash_attention_simt_lse": ("flash_attention", "flash_attention_fwd_lse",
+                                 (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _P)),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_mma_bf16",
+                            (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)),
+    "flash_attention_bwd_simt": ("flash_attention_bwd",
+                                 "flash_attention_bwd_simt",
+                                 (_P,) * 9 + (_I,) * 7 + (_F, _I, _I, _P)),
     "sampled_loss": ("sampled_loss", "sampled_loss_fwd",
                      (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P)),
@@ -152,8 +166,8 @@ def check(name: str, t: torch.Tensor, ndim: int,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is what the kernels take: a contiguous CUDA tensor
     of ``ndim`` dims and type ``dtype`` — fp32 for values (only
-    ``flash_attention``, ``sampled_loss``, the fused head and the midx
-    stage-1 entries also take bf16), int32 for row ids."""
+    ``flash_attention`` and its backward, ``sampled_loss``, the fused head
+    and the midx stage-1 entries also take bf16), int32 for row ids."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

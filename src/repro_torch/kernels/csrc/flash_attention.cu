@@ -99,8 +99,9 @@ constexpr size_t smem_bytes() {
 template <int HDMAX, typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, int hd, int s_valid, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int KV, int hd,
+                 int s_valid, int causal, float scale) {
   constexpr int kStride = HDMAX + 4;   // floats per staged row, 16B aligned
   constexpr int kCols = HDMAX / kQuad;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -217,6 +218,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if (qi < S && lse != nullptr && quad == 0)  // +inf: a row with no key
+    lse[(static_cast<size_t>(b) * H + h) * S + qi] =
+        l_run > 0.f ? m_run + logf(l_run) : CUDART_INF_F;
   if (qi < S) {
     const float denom = fmaxf(l_run, 1e-30f);
     T* orow = o + (static_cast<size_t>(b) * S + qi) * q_row +
@@ -233,9 +237,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int HDMAX, typename T>
-int launch_width(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KV, int hd, int s_valid, int causal,
-                 float scale, cudaStream_t stream) {
+int launch_width(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int H, int KV, int hd, int s_valid,
+                 int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDMAX>();
   auto kernel = flash_kernel<HDMAX, T>;
   if (smem > 48 * 1024) {
@@ -247,27 +251,27 @@ int launch_width(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, s_valid,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, hd,
+      s_valid, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KV, int hd, int s_valid, int causal,
-                 float scale, cudaStream_t stream) {
+int launch_typed(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int H, int KV, int hd, int s_valid,
+                 int causal, float scale, cudaStream_t stream) {
   if (hd <= 32)
-    return launch_width<32, T>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
-                               scale, stream);
+    return launch_width<32, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
+                               causal, scale, stream);
   if (hd <= 64)
-    return launch_width<64, T>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
-                               scale, stream);
+    return launch_width<64, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
+                               causal, scale, stream);
   if (hd <= 128)
-    return launch_width<128, T>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
-                                scale, stream);
+    return launch_width<128, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
+                                causal, scale, stream);
   if (hd <= 256)
-    return launch_width<256, T>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
-                                scale, stream);
+    return launch_width<256, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
+                                causal, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -278,19 +282,33 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
 // KV; 1 <= hd <= 256;
 // keys at or after s_valid carry no mass.  Launches on `stream` of
 // `device`; returns the launch's cudaError_t.
+// flash_attention_fwd_lse also writes lse (B, H, S) fp32, each row's
+// natural-log sum of exp(scale * q.k) over its keys (+inf for a row with
+// none): the residual of the backward (flash_attention_bwd.cu).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int B, int S, int H, int KV, int hd,
+                                       int s_valid, int causal, float scale,
+                                       int bf16, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (bf16)
+    return launch_typed<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd,
+                                       s_valid, causal, scale, st);
+  return launch_typed<float>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
+                             scale, st);
+}
+
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KV, int hd, int s_valid,
                                    int causal, float scale, int bf16,
                                    int device, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_typed<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, s_valid,
-                                       causal, scale, st);
-  return launch_typed<float>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
-                             scale, st);
+  return flash_attention_fwd_lse(q, k, v, o, nullptr, B, S, H, KV, hd,
+                                 s_valid, causal, scale, bf16, device,
+                                 stream);
 }
 
 namespace {
@@ -353,8 +371,8 @@ template <int HDP>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     int S, int H, int KV, int hd, int s_valid, int causal,
-                     float scale_log2) {
+                     float* __restrict__ lse, int S, int H, int KV, int hd,
+                     int s_valid, int causal, float scale_log2) {
   constexpr int P = pitch<HDP>();
   constexpr int kChunks = HDP / 8;
   constexpr int kDSteps = HDP / 16;  // k-steps of Q K^T over hd
@@ -511,6 +529,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     l += __shfl_xor_sync(kFull, l, 2);
     const float denom = fmaxf(l, 1e-30f);
     const int qi = qi0 + 8 * i;
+    if (qi < S && lse != nullptr && tig == 0)  // natural log; +inf: no key
+      lse[(static_cast<size_t>(b) * H + h) * S + qi] =
+          l > 0.f ? (m_run[i] + log2f(l)) * 0.69314718055994531f
+                  : CUDART_INF_F;
     if (qi < S) {
       bf16* orow = o + (static_cast<size_t>(b) * S + qi) * q_row +
                    static_cast<size_t>(h) * hd;
@@ -527,8 +549,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int hd, int s_valid, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int hd, int s_valid, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   auto kernel = flash_mma_kernel<HDP>;
@@ -541,8 +563,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, hd,
-      s_valid, causal, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
+      hd, s_valid, causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,23 +574,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // The tensor-core entry point: q, o: (B, S, H, hd); k, v: (B, S, KV, hd);
 // contiguous bf16 with 16-byte aligned bases; H a multiple of KV; hd a
 // multiple of 16 up to 128; keys at or after s_valid carry no mass.
-// Launches on `stream` of `device`; returns the launch's cudaError_t.
-extern "C" int flash_attention_mma_bf16(const void* q, const void* k,
-                                        const void* v, void* o, int B,
-                                        int S, int H, int KV, int hd,
-                                        int s_valid, int causal, float scale,
-                                        int device, void* stream) {
+// flash_attention_mma_bf16_lse also writes lse (B, H, S) fp32, as
+// flash_attention_fwd_lse does.  Launches on `stream` of `device`;
+// returns the launch's cudaError_t.
+extern "C" int flash_attention_mma_bf16_lse(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            void* lse, int B, int S, int H,
+                                            int KV, int hd, int s_valid,
+                                            int causal, float scale,
+                                            int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (hd < 16 || hd > 128 || hd % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd <= 32)
-    return tc::launch<32>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
+    return tc::launch<32>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
                           scale, st);
   if (hd <= 64)
-    return tc::launch<64>(q, k, v, o, B, S, H, KV, hd, s_valid, causal,
+    return tc::launch<64>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
                           scale, st);
-  return tc::launch<128>(q, k, v, o, B, S, H, KV, hd, s_valid, causal, scale,
-                         st);
+  return tc::launch<128>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
+                         scale, st);
+}
+
+extern "C" int flash_attention_mma_bf16(const void* q, const void* k,
+                                        const void* v, void* o, int B,
+                                        int S, int H, int KV, int hd,
+                                        int s_valid, int causal, float scale,
+                                        int device, void* stream) {
+  return flash_attention_mma_bf16_lse(q, k, v, o, nullptr, B, S, H, KV, hd,
+                                      s_valid, causal, scale, device,
+                                      stream);
 }

@@ -1,17 +1,24 @@
-"""CUDA kernel wrapper: causal (or full) online-softmax GQA attention,
-forward only.
+"""CUDA kernel wrappers: causal (or full) online-softmax GQA attention,
+forward (``flash_attention``, optionally with its log-sum-exp) and
+backward (``flash_attention_bwd``).
 
-Counterpart of ``repro.kernels.flash_attention`` (a Pallas kernel); the
-kernels are in ``csrc/flash_attention.cu``.  They take the reference's
+Counterpart of ``repro.kernels.flash_attention`` (a Pallas kernel, forward
+only; the reference differentiates its pure-jnp ``chunked_attention``);
+the kernels are in ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``.  They take the reference's
 ``ops.flash_attention`` layout directly, q (B, S, H, hd) and k, v (B, S,
-KV, hd), and read KV head ``h // (H // KV)`` in place, so neither the
-reference's repeated-KV copy nor its head-major transposes exist here.
+KV, hd), and read (and the backward writes) KV head ``h // (H // KV)`` in
+place, so neither the reference's repeated-KV copy nor its head-major
+transposes exist here.
 
-Two entry points, picked by dtype and width (``uses_tensor_cores``):
-bf16 with hd a multiple of 16 up to 128 goes to the tensor-core kernel
-(``mma.sync``, counted in ``launches``), everything else (fp32, other
-widths up to 256) to the CUDA-core kernel (``flash_attention_simt``,
-counted in ``simt_launches``)."""
+Two routes each way, picked by dtype and width (``uses_tensor_cores``):
+bf16 with hd a multiple of 16 up to 128 goes to the tensor-core kernels
+(``mma.sync``, counted in ``launches`` and ``bwd_launches``), everything
+else (fp32, other widths up to 256) to the CUDA-core kernels
+(``flash_attention_simt``, counted in ``simt_launches`` and
+``bwd_simt_launches``).  The backward's two kernels (dQ, whose first pass
+sums D = rowsum(P o dP); then dK/dV) sit behind one entry point and count
+as one launch."""
 from __future__ import annotations
 
 import math
@@ -24,6 +31,10 @@ from repro_torch.kernels import _build
 launches = 0
 #: launches of the CUDA-core kernel
 simt_launches = 0
+#: launches of the tensor-core backward
+bwd_launches = 0
+#: launches of the CUDA-core backward
+bwd_simt_launches = 0
 
 #: widest head the CUDA-core kernel's shared-memory tiles take
 MAX_HEAD_DIM = 256
@@ -69,44 +80,102 @@ def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
 
 
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, s_valid: int, *extra) -> torch.Tensor:
+            causal: bool, s_valid: int, *extra,
+            lse: torch.Tensor | None = None) -> torch.Tensor:
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, s, h, k.shape[2], hd, s_valid,
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is not None:
+        name, ptrs = name + "_lse", ptrs + (lse.data_ptr(),)
+    _build.launch(name, *ptrs, b, s, h, k.shape[2], hd, s_valid,
                   int(causal), 1.0 / math.sqrt(hd), *extra, q.device.index,
                   stream)
     return out
 
 
+def _lse_out(q: torch.Tensor) -> torch.Tensor:
+    b, s, h, _ = q.shape
+    return torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, s_valid: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, s_valid: int | None = None,
+                    with_lse: bool = False):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) CUDA, all fp32 or all bf16,
     H a multiple of KV -> (B, S, H, hd) in q's dtype.  Keys at or after
-    ``s_valid`` (default S) carry no mass."""
+    ``s_valid`` (default S) carry no mass.  ``with_lse`` also returns the
+    (B, H, S) fp32 natural-log sum of exp(q.k / sqrt(hd)) over each row's
+    keys, the backward's residual: ``(out, lse)``."""
     global launches
     s_valid = _checked(q, k, v, s_valid)
     if not uses_tensor_cores(q, k, v):
-        return flash_attention_simt(q, k, v, causal=causal, s_valid=s_valid)
+        return flash_attention_simt(q, k, v, causal=causal, s_valid=s_valid,
+                                    with_lse=with_lse)
+    lse = _lse_out(q) if with_lse else None
     if q.numel() == 0:
-        return torch.empty_like(q)
-    out = _launch("flash_attention", q, k, v, causal, s_valid)
-    launches += 1
-    return out
+        out = torch.empty_like(q)
+    else:
+        out = _launch("flash_attention", q, k, v, causal, s_valid, lse=lse)
+        launches += 1
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, s_valid: int | None = None
-                         ) -> torch.Tensor:
+                         *, causal: bool = True, s_valid: int | None = None,
+                         with_lse: bool = False):
     """The CUDA-core kernel alone, for any input ``flash_attention`` takes
     (fp32 or bf16, hd up to 256)."""
     global simt_launches
     s_valid = _checked(q, k, v, s_valid)
+    lse = _lse_out(q) if with_lse else None
     if q.numel() == 0:
-        return torch.empty_like(q)
-    out = _launch("flash_attention_simt", q, k, v, causal, s_valid,
-                  int(q.dtype == torch.bfloat16))
-    simt_launches += 1
-    return out
+        out = torch.empty_like(q)
+    else:
+        out = _launch("flash_attention_simt", q, k, v, causal, s_valid,
+                      int(q.dtype == torch.bfloat16), lse=lse)
+        simt_launches += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True, s_valid: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
+    output gradient ``dout``, given the forward's ``lse`` (from
+    ``with_lse=True``): q, dout (B, S, H, hd), k, v (B, S, KV, hd) in one
+    dtype, lse (B, H, S) fp32.  The probabilities are recomputed from lse,
+    and D = rowsum(dout o out) as rowsum(P o dP) from them in fp32, so the
+    forward's output is not read (its rounding to q's dtype would enter
+    every dS).  Every gradient element is summed by one thread in a fixed
+    order, so two calls give the same bits.  bf16 at the tensor-core widths
+    takes the tensor-core kernels, anything else the CUDA-core ones."""
+    global bwd_launches, bwd_simt_launches
+    s_valid = _checked(q, k, v, s_valid)
+    _build.check("dout", dout, 4, q.dtype)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    b, s, h, hd = q.shape
+    _build.check("lse", lse, 3)
+    if lse.shape != (b, h, s):
+        raise ValueError(f"lse {tuple(lse.shape)} != {(b, h, s)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    tc = uses_tensor_cores(q, k, v) and all(
+        t.data_ptr() % 16 == 0 for t in (dout, dq, dk, dv))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, h, k.shape[2], hd, s_valid, int(causal),
+            1.0 / math.sqrt(hd)]
+    if tc:
+        _build.launch("flash_attention_bwd", *args, q.device.index, stream)
+        bwd_launches += 1
+    else:
+        _build.launch("flash_attention_bwd_simt", *args,
+                      int(q.dtype == torch.bfloat16), q.device.index, stream)
+        bwd_simt_launches += 1
+    return dq, dk, dv

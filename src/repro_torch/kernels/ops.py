@@ -13,6 +13,9 @@ import torch
 from repro_torch.kernels import fused_head, ref
 from repro_torch.kernels.block_scores import block_scores as _block_scores
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd as _flash_bwd,
+)
 from repro_torch.kernels.leaf_scores import leaf_scores as _leaf_scores
 from repro_torch.kernels.midx_scores import midx_list_masses as _midx_lists
 from repro_torch.kernels.midx_scores import midx_member_scores as _midx_member
@@ -130,6 +133,26 @@ def sampled_loss(h: Tensor, w_neg: Tensor, logq: Tensor, pos_logit: Tensor,
     return ref.sampled_loss_ref(h, w_neg, logq, pos_logit, m_total)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel with its backward kernel: the forward keeps its
+    inputs and per-row log-sum-exp, the backward recomputes the
+    probabilities from them (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash(q, k, v, causal=causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, dout.contiguous(), lse,
+                                causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
                     ) -> Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) GQA -> (B, S, H, hd).
@@ -139,10 +162,20 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
     not taken: the CUDA kernels' tiles are fixed when they are compiled
     (64 queries and 64 keys for bf16 with hd a multiple of 16 up to 128,
     on the tensor cores; 64 queries and 32 keys otherwise) and they mask
-    ragged S themselves."""
+    ragged S themselves.
+
+    Differentiable on either device: for CUDA tensors under autograd with
+    any input requiring a gradient, the forward kernel also writes its
+    log-sum-exp and the backward is ``flash_attention_bwd`` (a
+    ``torch.autograd.Function``); without a gradient the forward kernel
+    runs alone, as serving calls it.  CPU tensors take the plain version,
+    which autograd differentiates as it is."""
     if _on_cuda(q, k, v):
-        return _flash(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, causal)
+        return _flash(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)
 
 

@@ -102,7 +102,7 @@ def sampled_loss_ref(h: Tensor, w_neg: Tensor, logq: Tensor,
 
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                         s_valid: int | None = None, q_offset: int = 0,
-                        chunk: int = 128) -> Tensor:
+                        chunk: int = 128, with_lse: bool = False):
     """Online-softmax attention over KV chunks: the plain version of the
     flash kernel and the reference's pure-tensor ``chunked_attention``.
 
@@ -113,7 +113,9 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     no mass.  Computes in fp32 with q scaled by 1/sqrt(hd) after the cast
     (the reference's ``q * scale`` takes a numpy-float64 scale, which
     promotes a bf16 q to fp32 first) -> (B, Sq, H, hv) in q's dtype.
-    Materializes (B, Sq, H, chunk) scores per chunk."""
+    Materializes (B, Sq, H, chunk) scores per chunk.  ``with_lse`` also
+    returns the (B, H, Sq) fp32 log-sum-exp of each row's scaled scores
+    (+inf for a row with no key), as the kernels' ``with_lse`` does."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     hv = v.shape[-1]
@@ -149,4 +151,20 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                                                    vf[:, c])
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, sq, h, hv).to(q.dtype)
+    out = out.reshape(b, sq, h, hv).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+    return out, lse.reshape(b, sq, h).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
+                            *, causal: bool, s_valid: int | None = None
+                            ) -> tuple[Tensor, Tensor, Tensor]:
+    """The plain version of the attention's backward: (dq, dk, dv) in the
+    inputs' dtypes, by ``torch.autograd`` through ``flash_attention_ref``
+    (the forward recomputed in fp32)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, s_valid=s_valid)
+        return torch.autograd.grad(out, leaves, dout)

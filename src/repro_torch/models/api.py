@@ -1,21 +1,22 @@
 """Family dispatch: one API over the ported backbones (``repro.models.api``).
 
     init_params(cfg, gen, device)       -> params (with head table)
+    init_module(cfg, gen, device)       -> the same as an ``nn.Module``
     backbone_hidden(params, batch, cfg) -> (h (T, d_h), labels (T,), aux)
     head_table(params, cfg)             -> (n, d_h) class-embedding table
 
 Ported families: ``recsys`` (youtube-dnn; params are a ``RecsysTower``
 module), ``lstm`` (ptb-lstm; an ``LSTMLM`` module, ``models/lstm_lm.py``)
-and ``dense`` (llama3-8b; params are the reference's nested dict of
-stacked tensors, ``models/transformer.py``).  The others raise
+and ``dense`` (llama3-8b, starcoder2-3b, ...; params are the reference's
+nested dict of stacked tensors, ``models/transformer.py``, and for
+training a ``DenseLM`` module over the same tensors).  The others raise
 ``NotImplementedError`` until their slices land.
 
-For recsys and lstm, ``backbone_hidden`` and ``head_table`` carry
-gradients: the train step differentiates its loss through both, while
-serving and the sampler's statistics call them under ``torch.no_grad()``
-or detach the result.  The dense family's forward runs its attention through
-``ops.flash_attention``, whose CUDA kernel has no backward: it serves, and
-training it is a later slice.
+``backbone_hidden`` and ``head_table`` carry gradients: the train step
+differentiates its loss through both (the dense family's attention
+through the flash kernel's backward on the card), while serving and the
+sampler's statistics call them under ``torch.no_grad()`` or detach the
+result.
 """
 from __future__ import annotations
 
@@ -48,13 +49,24 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return recsys.init_recsys(gen, cfg, dev)
 
 
-#: family -> the module of its params (the dense family's are a dict tree)
-PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM}
+def init_module(cfg: ArchConfig, gen: torch.Generator,
+                device: str | torch.device | None = None) -> torch.nn.Module:
+    """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
+    the dense family's tree wrapped in a ``DenseLM`` (no copy)."""
+    params = init_params(cfg, gen, device)
+    if cfg.family == "dense":
+        return transformer.DenseLM(cfg, resolve_device(device), tree=params)
+    return params
+
+
+#: family -> the module of its params
+PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM,
+                 "dense": transformer.DenseLM}
 
 
 def abstract_params(cfg: ArchConfig) -> torch.nn.Module:
-    """The recsys or lstm parameters on the ``meta`` device: their names,
-    shapes and dtypes, nothing allocated or drawn."""
+    """The parameters' module on the ``meta`` device: their names, shapes
+    and dtypes, nothing allocated or drawn."""
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
             f"abstract params of family '{cfg.family}' are not ported yet "
@@ -67,6 +79,7 @@ def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     parameter itself, so a loss through it reaches its gradient."""
     _require_ported(cfg)
     if cfg.family == "dense":
+        params = transformer._top(params)
         if cfg.tie_embeddings or "head" not in params:
             return params["embed"]["table"]
         return params["head"]["w"]

@@ -9,10 +9,12 @@ Conventions, as in the reference:
     counterpart on one device, so these functions take no ``ctx``.
 
 Full-sequence attention (``attn_forward``) goes through
-``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors.  ``chunked_attention`` keeps the reference's name
-and signature for that plain version (``ref.flash_attention_ref``, which
-also takes hv != hd and a query offset).  MLA, cross attention and learned
+``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors (with its
+backward kernel under autograd), its plain version for CPU tensors; both
+are differentiable, so ``attn_forward`` trains.  ``chunked_attention``
+keeps the reference's name and signature for that plain version
+(``ref.flash_attention_ref``, which also takes hv != hd and a query
+offset).  MLA, cross attention and learned
 positions arrive with their families (ROADMAP.md A16).
 """
 from __future__ import annotations
@@ -47,7 +49,10 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     from ``gen`` on the generator's own device, then placed on ``device``.
 
     The numbers differ from ``jax.random``'s for the same seed: parity
-    tests carry weights across with ``convert.params_from_jax``."""
+    tests carry weights across with ``convert.params_from_jax``.  On the
+    ``meta`` device nothing is drawn (``gen`` may be None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(shape, generator=gen, device=gen.device,
@@ -203,7 +208,8 @@ def attn_prefill(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
 
 def attn_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
                  *, causal: bool = True) -> Tensor:
-    """Full-sequence self-attention (forward).  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d);
+    differentiable in x and every parameter of ``p``."""
     return attn_prefill(p, x, positions, cfg, causal=causal)[0]
 
 

@@ -10,17 +10,25 @@ like: params ``{"embed": {"table"}, "final_norm": {...}, "head": {"w"},
 ``lax.scan``; here a Python loop runs its layers, each a view of the
 stacked tensors.
 
+Training holds the same tree as a ``DenseLM`` module whose layers are
+parameters of their own, views of the stacked tensors: autograd then
+gives each layer its own gradient (the gradient of a layer that indexes a
+stacked parameter would be a zero-filled tensor of the whole stack, per
+layer and step).  Every function here takes either form.  The reference
+rematerializes each layer in the backward (``cfg.remat``); the port keeps
+the activations, which at starcoder2-3b's 4 x 1,024 tokens fit the card.
+
 Full-sequence attention (``hidden_states``, ``prefill``) goes through
-``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors.  Decode attends with plain tensor ops and
-writes the new token's K/V into the caches in place.  ``hidden_states`` is
-the forward only: training the dense family needs the attention's
-gradient, a later slice.  MoE, MLA, mamba and ``mtp`` raise
+``kernels.ops.flash_attention``: the CUDA kernels for CUDA tensors (under
+autograd with their backward kernel), the plain version for CPU tensors.
+Decode attends with plain tensor ops and writes the new token's K/V into
+the caches in place.  MoE, MLA, mamba and ``mtp`` raise
 ``NotImplementedError`` (ROADMAP.md A16).
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -70,12 +78,91 @@ def padded_vocab(cfg: ArchConfig, tp: int = 1) -> int:
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def _layer(seg_p: Params, i: int) -> Params:
     """Layer i of a stacked segment: views, so in-place writes reach it."""
     return _map(lambda t: t[i], seg_p)
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors as a module: each dict a submodule, each
+    tensor a parameter (the same storage), in the dict's key order."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        self._keys = list(tree)
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, _Tree(val))
+            else:
+                self.register_parameter(key, nn.Parameter(val))
+
+    def tree(self) -> Params:
+        out = {}
+        for key in self._keys:
+            val = getattr(self, key)
+            out[key] = val.tree() if isinstance(val, _Tree) else val
+        return out
+
+
+class DenseLM(nn.Module):
+    """A dense LM's parameters as a module, for training.
+
+    ``tree`` is ``init_lm``'s (or ``convert.lm_params_from_jax``'s) stacked
+    tree; each layer of a segment becomes a submodule whose parameters are
+    views of the stacked tensors, so nothing is copied.  Without a tree
+    the parameters are allocated (``torch.empty``; on the ``meta`` device
+    nothing at all).  Parameter names follow the tree: ``embed.table``,
+    ``final_norm.scale``, ``head.w``, ``segments.<s>.<layer>.attn.wq``...
+    ``convert`` stacks them back into the reference's layout."""
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device,
+                 tree: Params | None = None, tp: int = 1):
+        super().__init__()
+        require_dense(cfg)
+        if tree is None:
+            dev = torch.device(device)
+            tree = _map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=dev),
+                        init_lm(None, cfg, "meta", tp))
+        self.counts = [count for _, count in segments_of(cfg)]
+        self.embed = _Tree(tree["embed"])
+        self.final_norm = _Tree(tree["final_norm"])
+        if "head" in tree:
+            self.head = _Tree(tree["head"])
+        self.segments = nn.ModuleList(
+            nn.ModuleList(_Tree(_layer(seg, i)) for i in range(count))
+            for seg, count in zip(tree["segments"], self.counts))
+
+    def tree(self) -> Params:
+        """The parameters as the reference's tree, each segment a list of
+        per-layer dicts."""
+        out = {"embed": self.embed.tree(),
+               "final_norm": self.final_norm.tree()}
+        if hasattr(self, "head"):
+            out["head"] = self.head.tree()
+        out["segments"] = [[layer.tree() for layer in seg]
+                           for seg in self.segments]
+        return out
+
+
+def _top(params) -> Params:
+    """The embed / final_norm / head entries of either form."""
+    return params.tree() if isinstance(params, DenseLM) else params
+
+
+def _layers_of(params, cfg: ArchConfig) -> list[list[Params]]:
+    """Per segment, its layers' param dicts: a ``DenseLM``'s own, or
+    views of a stacked tree."""
+    if isinstance(params, DenseLM):
+        return params.tree()["segments"]
+    return [[_layer(seg_p, i) for i in range(count)]
+            for (_, count), seg_p in zip(segments_of(cfg),
+                                         params["segments"])]
 
 
 # --- init --------------------------------------------------------------------
@@ -116,11 +203,12 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig,
+def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
             device: str | torch.device | None = None, tp: int = 1) -> Params:
     """Random weights from ``gen`` on ``device`` (the card unless
     ``device="cpu"``).  Vocab rows at and after ``vocab_size`` (TP padding)
-    are zero, as in the reference."""
+    are zero, as in the reference.  On the ``meta`` device nothing is drawn
+    (``gen`` may be None): the tree's shapes and dtypes."""
     require_dense(cfg)
     dev = resolve_device(device)
     nvp = padded_vocab(cfg, tp)
@@ -155,18 +243,20 @@ def _positions(b: int, s: int, device: torch.device) -> Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def hidden_states(params: Params, tokens: Tensor, cfg: ArchConfig,
+def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
                   ctx=None) -> tuple[Tensor, Tensor]:
-    """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss (0))."""
+    """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss (0)).
+    ``params``: the stacked tree or a ``DenseLM``; differentiable."""
     require_dense(cfg)
     require_unsharded(ctx)
     b, s = tokens.shape
-    x = L.apply_embed(params["embed"], tokens, cfg)
+    top = _top(params)
+    x = L.apply_embed(top["embed"], tokens, cfg)
     positions = _positions(b, s, tokens.device)
-    for (kind, count), seg_p in zip(segments_of(cfg), params["segments"]):
-        for i in range(count):
-            x = _apply_layer(kind, _layer(seg_p, i), x, positions, cfg)
-    x = L.apply_norm(params["final_norm"], x, cfg)
+    for (kind, _), layers in zip(segments_of(cfg), _layers_of(params, cfg)):
+        for lp in layers:
+            x = _apply_layer(kind, lp, x, positions, cfg)
+    x = L.apply_norm(top["final_norm"], x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -192,19 +282,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
 
 
 @torch.no_grad()
-def decode_step(params: Params, token: Tensor, caches: list[Params],
+def decode_step(params, token: Tensor, caches: list[Params],
                 pos: Tensor, cfg: ArchConfig, ctx=None
                 ) -> tuple[Tensor, list[Params]]:
     """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
     d), caches), the caches written at ``pos`` IN PLACE and returned."""
     require_dense(cfg)
     require_unsharded(ctx)
-    x = L.apply_embed(params["embed"], token, cfg)
-    for (kind, count), seg_p, cache in zip(segments_of(cfg),
-                                           params["segments"], caches):
+    top = _top(params)
+    x = L.apply_embed(top["embed"], token, cfg)
+    for (kind, _), layers, cache in zip(segments_of(cfg),
+                                        _layers_of(params, cfg), caches):
         ffn = kind.split("+")[1]
-        for i in range(count):
-            lp = _layer(seg_p, i)
+        for i, lp in enumerate(layers):
             y, _, _ = L.attn_decode(lp["attn"],
                                     L.apply_norm(lp["norm1"], x, cfg),
                                     cache["k"][i], cache["v"][i], pos, cfg)
@@ -212,11 +302,11 @@ def decode_step(params: Params, token: Tensor, caches: list[Params],
             if ffn != "none":
                 x = x + L.apply_mlp(lp["mlp"],
                                     L.apply_norm(lp["norm2"], x, cfg), cfg)
-    return L.apply_norm(params["final_norm"], x, cfg), caches
+    return L.apply_norm(top["final_norm"], x, cfg), caches
 
 
 @torch.no_grad()
-def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, ctx=None,
+def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
             max_len: int | None = None) -> tuple[Tensor, list[Params]]:
     """Full-sequence prefill: (h (B, S, d), caches filled to S and zero
     after it, of length ``max_len`` (default S)).  Every layer's attention
@@ -226,15 +316,15 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, ctx=None,
     b, s = tokens.shape
     max_len = max_len or s
     dt = L._dtype(cfg)
-    x = L.apply_embed(params["embed"], tokens, cfg)
+    top = _top(params)
+    x = L.apply_embed(top["embed"], tokens, cfg)
     positions = _positions(b, s, tokens.device)
     caches = init_cache(cfg, b, max_len, dtype=dt, device=tokens.device)
     nkv_c = caches[0]["k"].shape[3] if caches else 0
-    for (kind, count), seg_p, cache in zip(segments_of(cfg),
-                                           params["segments"], caches):
+    for (kind, _), layers, cache in zip(segments_of(cfg),
+                                        _layers_of(params, cfg), caches):
         ffn = kind.split("+")[1]
-        for i in range(count):
-            lp = _layer(seg_p, i)
+        for i, lp in enumerate(layers):
             y, k, v = L.attn_prefill(lp["attn"],
                                      L.apply_norm(lp["norm1"], x, cfg),
                                      positions, cfg)
@@ -244,4 +334,4 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, ctx=None,
             if ffn != "none":
                 x = x + L.apply_mlp(lp["mlp"],
                                     L.apply_norm(lp["norm2"], x, cfg), cfg)
-    return L.apply_norm(params["final_norm"], x, cfg), caches
+    return L.apply_norm(top["final_norm"], x, cfg), caches

@@ -3,7 +3,13 @@
 The reference's defaults (b2 = 0.95, weight decay 0.1), not
 ``torch.optim.AdamW``'s (0.999, 0.01).  The bias corrections use
 ``b ** step`` in fp32 tensors, as the reference does, so nothing syncs with
-the host."""
+the host.
+
+``update`` writes the moments IN PLACE and returns the same dicts (the
+reference returns new arrays): a second copy of the fp32 moments would
+not fit beside a 3B-parameter model's (25 GB) on one card.  The values
+are the reference's, operation for operation; a caller that keeps an
+earlier state sees it updated."""
 from __future__ import annotations
 
 import torch
@@ -29,13 +35,14 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         s32 = step.float()
         c1 = 1.0 - torch.pow(torch.tensor(b1, device=s32.device), s32)
         c2 = 1.0 - torch.pow(torch.tensor(b2, device=s32.device), s32)
-        m = {k: b1 * state["m"][k] + (1 - b1) * g.float()
-             for k, g in grads.items()}
-        v = {k: b2 * state["v"][k] + (1 - b2) * torch.square(g.float())
-             for k, g in grads.items()}
-        upd = {k: -lr_t * ((m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
-                           + weight_decay * params[k].detach().float())
-               for k in grads}
+        m, v = state["m"], state["v"]
+        upd = {}
+        for k, g in grads.items():  # one parameter's temporaries at a time
+            g32 = g.float()
+            m[k].mul_(b1).add_((1 - b1) * g32)
+            v[k].mul_(b2).add_((1 - b2) * torch.square(g32))
+            upd[k] = -lr_t * ((m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
+                              + weight_decay * params[k].detach().float())
         return upd, {"m": m, "v": v, "step": step}
 
     return GradientTransform(init, update)

@@ -2,15 +2,16 @@
 ``repro.serve.engine`` (inference never samples the softmax — the paper's
 technique is training-only, paper §5.2).
 
-Two head paths: the dense full-head MIPS (``index=None``) and the
+Three head paths: the dense full-head MIPS (``index=None``), the
 hierarchy-backed beam retrieval over a ``RetrievalIndex``
-(``serve/retrieval.py``).  The step constructors serve the dense transformer
+(``serve/retrieval.py``) and the two-stage midx beam over a
+``QuantizedRetrievalIndex`` (``serve/quantized_index.py``), picked by the
+index's type as the reference picks by its treedef.  The step constructors serve the dense transformer
 family (``models/transformer.py``): ``make_prefill_step`` runs the prompt
 through every layer's flash attention and picks the first token,
 ``make_decode_step`` takes one greedy step against the KV caches (written
 in place) and ``make_topk_step`` one step with a top-k over the vocabulary.
-The encoder-decoder family, the quantized (midx) index and the mesh path
-arrive with their slices.
+The encoder-decoder family and the mesh path arrive with their slices.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api, transformer
-from repro_torch.serve import retrieval
+from repro_torch.serve import quantized_index, retrieval
 
 
 def _require_decoder(cfg: ArchConfig) -> None:
@@ -41,23 +42,31 @@ def _argmax_island(cfg: ArchConfig, ctx, head, h2d):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+#: serving index type -> its top-k decode
+_DECODERS = {retrieval.RetrievalIndex: retrieval.decode_topk,
+             quantized_index.QuantizedRetrievalIndex:
+             quantized_index.decode_topk}
+
+
 def decode_topk(cfg: ArchConfig, ctx, head, h2d, k: int, *,
-                index: retrieval.RetrievalIndex | None = None,
-                beam: int | None = None):
+                index=None, beam: int | None = None):
     """Top-k (ids, logits) for a batch of hidden states (DESIGN.md §5).
 
     head: (n, d) head table (dense path only); h2d: (B, d) hidden states ->
     ids (B, k) int32 class ids and logits (B, k) fp32, sorted descending,
-    ties to the lowest class id.  With an ``index`` the beam retrieval path
-    runs (exact at full beam, ``beam`` = recall knob)."""
+    ties to the lowest class id.  With an ``index`` its beam path runs: a
+    ``RetrievalIndex``'s hierarchy descent or a ``QuantizedRetrievalIndex``'s
+    two stages (exact at full beam, up to row quantization for int8 rows;
+    ``beam`` = recall knob)."""
     retrieval.require_unsharded(ctx)
     if index is None:
         return retrieval.dense_topk(head, h2d, k, n_valid=cfg.vocab_size)
-    if not isinstance(index, retrieval.RetrievalIndex):
+    decoder = _DECODERS.get(type(index))
+    if decoder is None:
         raise NotImplementedError(
-            f"{type(index).__name__} is not ported yet; only the fp32 "
-            "RetrievalIndex serves")
-    return retrieval.decode_topk(index, h2d, k, beam, ctx)
+            f"{type(index).__name__} is not a serving index of the port "
+            f"(only {', '.join(t.__name__ for t in _DECODERS)})")
+    return decoder(index, h2d, k, beam, ctx)
 
 
 def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
@@ -74,14 +83,13 @@ def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
     return decode
 
 
-def make_topk_step(cfg: ArchConfig, ctx, k: int, *,
-                   index: retrieval.RetrievalIndex | None = None,
+def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
                    beam: int | None = None):
     """topk_step(params, token (B, 1), caches, pos (B,)) ->
     (ids (B, k), logits (B, k), caches).
 
-    One decoder step, then top-k over the vocab through the retrieval
-    index (or the dense head when ``index`` is None).  ``ids[:, 0]``
+    One decoder step, then top-k over the vocab through the serving index
+    (either type; the dense head when ``index`` is None).  ``ids[:, 0]``
     equals ``make_decode_step``'s greedy token when the beam is full (or
     the index absent), ties aside."""
     _require_decoder(cfg)

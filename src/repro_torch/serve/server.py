@@ -8,10 +8,11 @@ hot-query cache, SLO observability — port of ``repro.serve.server``
     OR the oldest queued request has waited ``max_wait_ms``.
   * **per-request deadlines** — a request whose deadline passes while it
     is still queued fails fast (``ok=False, error='deadline exceeded'``).
-  * **double-buffered index** — the ``RetrievalIndex`` (or ``None`` for
-    the dense head) lives behind one atomically swapped reference that the
-    worker reads EXACTLY ONCE per microbatch: every request is served
-    entirely by one index version.
+  * **double-buffered index** — the ``RetrievalIndex`` or
+    ``QuantizedRetrievalIndex`` (or ``None`` for the dense head) lives
+    behind one atomically swapped reference that the worker reads EXACTLY
+    ONCE per microbatch: every request is served entirely by one index
+    version.
   * **hot-query cache** — repeated (quantized) hidden states short-circuit
     decode; keys are scoped by index version, so a swap invalidates them.
   * **observability** — counters (queue depth, batch occupancy, cache hit
@@ -36,6 +37,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.serve.quantized_index import payload_bytes
 from repro_torch.utils.misc import resolve_device
 
 __all__ = [
@@ -45,13 +47,6 @@ __all__ = [
     "LatencyHistogram",
     "payload_bytes",
 ]
-
-
-def payload_bytes(index) -> int:
-    """Serialized size of an index: the bytes the train->serve seam ships
-    per swap (the engine's ``index_payload_bytes`` counter)."""
-    return int(sum(getattr(index, f).numel() * getattr(index, f).element_size()
-                   for f in index.TENSORS))
 
 
 # --- observability ----------------------------------------------------------

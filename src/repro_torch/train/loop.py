@@ -196,8 +196,8 @@ def fit(cfg: ArchConfig, ctx, opt: GradientTransform,
     """Train up to step ``steps`` on ``device`` (the card unless
     ``device="cpu"``): from the latest checkpoint in ``checkpoint_dir`` if
     there is one, else from a fresh state drawn from ``seed``.
-    ``max_len`` is the reference's dense-family knob; the ported families
-    have no positions."""
+    ``max_len`` sizes learned positions in the reference; the ported
+    families have none."""
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, ctx, opt)
     island = RefreshIsland(cfg, ctx, dev) \
@@ -265,7 +265,9 @@ def fit(cfg: ArchConfig, ctx, opt: GradientTransform,
                                      step_generator(seed, i, dev))
             metrics = {**metrics, **rmetrics}
             pending = (i, metrics, t0, state)
-            if mgr is not None and (i + 1) % checkpoint_every == 0:
+            # the last step's state is the final save's, below
+            if mgr is not None and (i + 1) % checkpoint_every == 0 \
+                    and i + 1 < steps:
                 mgr.save(i + 1, state, extra={
                     "step": i + 1, "data_state": data.state_dict()})
     except BaseException:

@@ -1,6 +1,7 @@
 """The train step, unsharded (``repro.train.step`` with ``mesh=None``).
 
-Data flow per step (youtube-dnn):
+Data flow per step (youtube-dnn; the LMs' backbones give h (B*S, d) the
+same way, the dense family's attention through the flash kernels):
 
   batch --> tower --> h (B, d)
   sampler-stat refresh from the head on the cadence
@@ -22,8 +23,9 @@ selects with ``jnp.where``; the result is the same).  Under
 and swaps the result in.  A mesh raises ``NotImplementedError``.
 
 ``serving_index_source`` is the seam between training and serving: it
-restores the newest complete checkpoint and exports a fresh retrieval index
-from its head.
+restores the newest complete checkpoint and exports a fresh serving index
+from its head, the hierarchy's ``RetrievalIndex`` or (``quantized=True``)
+the midx ``QuantizedRetrievalIndex``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from repro_torch.core.samplers import (
 )
 from repro_torch.models import api
 from repro_torch.optim.transform import GradientTransform, apply_updates
-from repro_torch.serve import retrieval
+from repro_torch.serve import quantized_index, retrieval
 from repro_torch.utils.misc import fold_in, resolve_device
 
 Tensor = torch.Tensor
@@ -52,8 +54,9 @@ Tensor = torch.Tensor
 class TrainState:
     """Carried training state.
 
-    ``params`` is the model (an ``nn.Module``, updated in place by each
-    step); ``opt_state`` the optimizer's state; ``sampler_state`` the
+    ``params`` is the model (an ``nn.Module``: ``RecsysTower``,
+    ``LSTMLM`` or ``DenseLM``, updated in place by each step);
+    ``opt_state`` the optimizer's state; ``sampler_state`` the
     sampler-owned ``SamplerState``; ``step`` the host step count."""
 
     params: torch.nn.Module
@@ -179,6 +182,23 @@ def export_retrieval_index(state: TrainState, cfg: ArchConfig, ctx,
                                  vocab_size=cfg.vocab_size)
 
 
+def export_quantized_index(state: TrainState, cfg: ArchConfig, ctx,
+                           bits: int | None = None
+                           ) -> quantized_index.QuantizedRetrievalIndex:
+    """Quantized serving index from a trained state: the midx codebook
+    structure over the current head table (never the carried sampler
+    state), with ``cfg.midx_bits``-wide member rows unless ``bits`` says
+    otherwise.  The knobs ride the config (``midx_codewords``,
+    ``midx_codebooks``, ``sampler_block``), so the serving index mirrors the
+    training-time midx sampler's structure."""
+    head = api.head_table(state.params, cfg).detach()
+    return quantized_index.build_quantized_index(
+        head, ctx, codewords=cfg.midx_codewords,
+        codebooks=cfg.midx_codebooks, list_size=cfg.sampler_block,
+        bits=bits if bits is not None else cfg.midx_bits,
+        vocab_size=cfg.vocab_size)
+
+
 def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
                      opt: GradientTransform, max_len: int = 4096, *,
                      device: str | torch.device | None = None) -> TrainState:
@@ -186,14 +206,14 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
     weights drawn from the generator ``key``, the optimizer's zero state,
     and the sampler's statistics built from the initial head.  The
     sampler's constants come from a generator seeded off ``key``'s seed, as
-    the reference folds 7 into its key.  ``max_len`` sizes the dense
-    family's positions in the reference; the ported families have none."""
+    the reference folds 7 into its key.  ``max_len`` sizes learned
+    positions in the reference; the ported families have none."""
     retrieval.require_unsharded(ctx)
     cfg.validate()
     dev = resolve_device(device)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.init_params(cfg, key, device=dev)
+    model = api.init_module(cfg, key, device=dev)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
@@ -232,12 +252,14 @@ def serving_index_source(checkpoint_dir: str, cfg: ArchConfig, ctx,
                          ) -> Callable[[], tuple | None]:
     """The serving half of the train -> serve refresh seam.
 
-    Returns ``poll() -> (RetrievalIndex, step) | None``: when a step newer
-    than the last one served has landed COMPLETE in ``checkpoint_dir``
-    (the manager lists only renamed, manifest-bearing steps), restore it
-    on ``device`` (the card unless ``device="cpu"``) from an
-    ``abstract_train_state`` template and export a fresh index from its
-    head; None when training has not advanced.  Built for
+    Returns ``poll() -> (index, step) | None``: when a step newer than the
+    last one served has landed COMPLETE in ``checkpoint_dir`` (the manager
+    lists only renamed, manifest-bearing steps), restore it on ``device``
+    (the card unless ``device="cpu"``) from an ``abstract_train_state``
+    template and export a fresh index from its head: a ``RetrievalIndex``,
+    or with ``quantized=True`` a ``QuantizedRetrievalIndex`` (knobs from
+    ``cfg``; int8 rows at ``midx_bits=8``, about a quarter of the fp32
+    payload); None when training has not advanced.  Built for
     ``serve.server.IndexRefresher``: the restore and the build run
     wherever ``poll`` is called, never on the decode path.
 
@@ -246,10 +268,6 @@ def serving_index_source(checkpoint_dir: str, cfg: ArchConfig, ctx,
     step served untouched, so the next poll retries it."""
     from repro_torch.checkpoint.manager import CheckpointManager
 
-    if quantized:
-        raise NotImplementedError(
-            "the quantized serving index is not ported yet (ROADMAP.md "
-            "A15)")
     dev = resolve_device(device)
     mgr = CheckpointManager(checkpoint_dir)
     like = abstract_train_state(cfg, ctx, opt, max_len=max_len)
@@ -265,6 +283,8 @@ def serving_index_source(checkpoint_dir: str, cfg: ArchConfig, ctx,
                 zipfile.BadZipFile):
             return None  # torn read: retry this step on the next poll
         last["step"] = step
+        if quantized:
+            return export_quantized_index(state, cfg, ctx), step
         return export_retrieval_index(state, cfg, ctx,
                                       leaf_size=leaf_size), step
 

@@ -40,6 +40,7 @@ from repro_torch.data.pipeline import batch_iterator_for
 from repro_torch.models import api
 from repro_torch.optim import make_optimizer
 from repro_torch.serve import retrieval
+from repro_torch.serve.quantized_index import QuantizedRetrievalIndex
 from repro_torch.train import loop, step
 
 torch.set_num_threads(1)
@@ -327,9 +328,12 @@ def test_serving_index_source_skips_a_torn_step(tmp_path):
     CheckpointManager(str(tmp_path), keep=5).save(6, res.state,
                                                   blocking=True)
     assert poll()[1] == 6 and poll() is None
-    with pytest.raises(NotImplementedError, match="A15"):
-        step.serving_index_source(str(tmp_path), cfg, None, opt,
-                                  quantized=True, device="cpu")
+    qpoll = step.serving_index_source(str(tmp_path), cfg, None, opt,
+                                      quantized=True, device="cpu")
+    qindex, served = qpoll()
+    assert served == 6 and qpoll() is None
+    assert isinstance(qindex, QuantizedRetrievalIndex)
+    assert qindex.bits == cfg.midx_bits == 8
 
 
 # -- checkpoints across the two packages --------------------------------------

@@ -122,7 +122,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
         "zstats": 0, "block_scores": 0, "leaf_scores": 0, "fused_lse": 0,
         "fused_lse_bwd": 0, "rff_features": 0, "midx_pair_masses": 0,
         "midx_member_scores": 0, "sampled_loss": 0, "flash_attention": 0,
-        "flash_attention_simt": 0}
+        "flash_attention_simt": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_simt": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -138,14 +139,17 @@ def test_ops_refuse_mixed_devices():
 
 def test_build_library_path_tracks_source_and_flags():
     """Libraries are cached by a hash of source + flags, one per source
-    (the two fused-head kernels share one, as do the two midx kernels and
-    the two flash kernels), in build/repro_torch/ (a directory .gitignore
-    lists)."""
+    (the two fused-head kernels share one, as do the two midx kernels, the
+    four flash forward entries and the two flash backward entries), in
+    build/repro_torch/ (a directory .gitignore lists)."""
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert len(set(paths.values())) == 8
+    assert len(set(paths.values())) == 9
     assert paths["fused_lse"] == paths["fused_lse_bwd"]
     assert paths["midx_pair_masses"] == paths["midx_member_scores"]
-    assert paths["flash_attention"] == paths["flash_attention_simt"]
+    assert paths["flash_attention"] == paths["flash_attention_simt"] == \
+        paths["flash_attention_lse"] == paths["flash_attention_simt_lse"]
+    assert paths["flash_attention_bwd"] == paths["flash_attention_bwd_simt"]
+    assert paths["flash_attention_bwd"] != paths["flash_attention"]
     for name, p in paths.items():
         src = _build.source(name)
         assert p.parent == _build.BUILD_DIR

@@ -391,9 +391,11 @@ def test_fit_flags_an_injected_straggler():
 def test_unported_training_options_raise():
     cfg = get_config("youtube-dnn").reduced()
     opt = make_optimizer("adamw", 1e-2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        step.serving_index_source("ckpt", cfg, None, opt, quantized=True,
-                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="A17"):
+        step.export_quantized_index(
+            step.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                  None, opt, device="cpu"), cfg,
+            types.SimpleNamespace(mesh="m"))
     with pytest.raises(NotImplementedError, match="mesh"):
         step.make_train_step(cfg, types.SimpleNamespace(mesh="m"), opt)
     moe = dataclasses.replace(get_config("llama3-8b").reduced(),
