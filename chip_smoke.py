@@ -16,9 +16,10 @@ result line):
                  src/repro_torch/kernels/csrc/ into build/repro_torch/, one
                  nvcc per source, all started together; the tensor-core
                  flash, the zstats, the block_scores tile, the tensor-core
-                 sampled_loss, the rff_features and every fused-head
-                 instantiation must not spill, and the tensor-core ones'
-                 SASS must hold HMMA.
+                 sampled_loss, the rff_features, every fused-head and the
+                 attention backward's wgmma instantiations must not spill;
+                 the mma.sync ones' SASS must hold HMMA, the wgmma ones'
+                 HGMMA.
   3. kernels   — each kernel against its plain PyTorch version on the card,
                  with kernel / plain / library device times per call
                  (torch.profiler's device activities over 25 calls after
@@ -63,7 +64,10 @@ result line):
                  intervals over the host wall), and host-clock times of one
                  decode's stages per bucket.
   8. hierarchical kernels — rff_features (512 leaves of 256 rows, d = 128,
-                 D = 128), midx_pair_masses (T = 256 x 512 lists, both
+                 D = 128; and 33 draws of 37 leaves of 50 rows, d 126, D
+                 100, tau 0.7; each against its plain version evaluated in
+                 float64, RTOL, the fp32 plain version's own distance
+                 logged beside), midx_pair_masses (T = 256 x 512 lists, both
                  entries, fp32 and bf16, also at T 37, P 100, d 126; empty
                  lists exactly 0, two calls bitwise equal; timed beside
                  its ct entry, bf16 and the call with the codeword-pair
@@ -200,11 +204,14 @@ result line):
  18. dense     — (a) flash_attention_bwd against its plain version
                  (autograd through ref.flash_attention_ref): at
                  starcoder2-3b's training shape (B 4, S 1,024, H 24 over KV
-                 2, hd 128, causal, bf16; timed beside SDPA forward +
-                 backward and split by its two kernels), ragged S 1,000,
+                 2, hd 128, causal, bf16; timed beside SDPA's backward
+                 alone and its forward + backward, split by its two
+                 kernels; its plan splits the group), ragged S 1,000,
                  llama3-8b's (1, 2,048, 32 / 8, 128; timed), s_valid < S
-                 causal and not, hd 64, and fp32 and bf16 hd 96 through the
-                 CUDA-core route (its path-shape row timed): dq, dk, dv
+                 causal and not, a group of one whose plan splits nothing,
+                 every tensor-core width (hd 16-128 by 16; each case's plan
+                 logged), and fp32 through the CUDA-core route (its
+                 path-shape row timed): dq, dk, dv
                  within BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x
                  max|plain|, the forward's lse within RTOL, two calls
                  bitwise equal, the route the launch counts show; then
@@ -554,6 +561,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
+def rel_dist(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in want's precision."""
+    want = want.detach()
+    return float((got.to(want.dtype) - want).abs().max() / want.abs().max())
+
+
 def phase_device() -> str:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -570,7 +583,8 @@ NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel",
                     "block_scores_tile_kernel", "sampled_loss_mma_kernel",
                     "rff_features_kernel", "fused_lse_kernel",
                     "fused_bwd_front_kernel", "fused_bwd_scan_kernel",
-                    "fused_bwd_dw_kernel")
+                    "fused_bwd_dw_kernel", "dq_wgmma_kernel",
+                    "dkv_wgmma_kernel")
 #: instantiations of the fused head's kernels: fused_lse_kernel and
 #: fused_bwd_dw_kernel per (fp32 | bf16, vector loads or not), the front
 #: kernel also per (d <= 128 or wider), one scan kernel
@@ -581,6 +595,11 @@ HMMA_KERNELS = (("flash_attention", "flash_mma_kernel", 3),
                 ("sampled_loss", "sampled_loss_mma_kernel",
                  len(kernels.sampled_loss.TILINGS["mma"])),
                 ("rff_features", "rff_features_kernel", 1))
+#: (source's kernel, function, instantiations) that must hold wgmma
+#: (HGMMA) instructions in their SASS: the attention backward's, at hd
+#: <= 64 and <= 128
+HGMMA_KERNELS = (("flash_attention_bwd", "dq_wgmma_kernel", 2),
+                 ("flash_attention_bwd", "dkv_wgmma_kernel", 2))
 
 
 def phase_build() -> None:
@@ -600,7 +619,8 @@ def phase_build() -> None:
                 mangled = line.split("for", 1)[1].strip()
                 kernel = mangled.split("_cu_", 1)[-1][:72]
                 log(f"  {name}: {kernel}")
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "wgmma" in line or "setmaxnreg" in line):
                 log(f"  {name}: {line.strip()}")
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
@@ -609,11 +629,12 @@ def phase_build() -> None:
     if logs and not all(logs.values()):
         log("[build] some libraries came from the cache: no spill check")
     elif len(spills) < 5 + len(kernels.block_scores.TILINGS) + sum(
-            n for _, f, n in HMMA_KERNELS if f != "flash_mma_kernel") + \
-            FUSED_HEAD_INSTANCES:
+            n for _, f, n in HMMA_KERNELS + HGMMA_KERNELS
+            if f != "flash_mma_kernel") + FUSED_HEAD_INSTANCES:
         # flash_mma_kernel<32, 64, 128>, zstats<64, 128>, one block_scores
         # tile kernel per tiling, one sampled_loss_mma_kernel per
-        # tensor-core tiling, rff_features_kernel, the fused head's
+        # tensor-core tiling, rff_features_kernel, the attention
+        # backward's dq and dkv_wgmma_kernel<64, 128>, the fused head's
         raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
                              f" only, not every instantiation of "
                              f"{NO_SPILL_KERNELS}")
@@ -622,12 +643,15 @@ def phase_build() -> None:
         f"{spills}")
     if bad:
         raise AssertionError(f"kernels that must not spill do: {bad}")
-    for kernel, function, n in HMMA_KERNELS:
-        hmma = sass_count(kernel, function, "HMMA")
-        log(f"[build] HMMA instructions in the SASS of each {function} "
-            f"instantiation: {hmma}")
-        if hmma is not None and (len(hmma) != n or not all(hmma.values())):
-            raise AssertionError(f"a tensor-core {function} has no HMMA")
+    for opcode, table in (("HMMA", HMMA_KERNELS), ("HGMMA", HGMMA_KERNELS)):
+        for kernel, function, n in table:
+            found = sass_count(kernel, function, opcode)
+            log(f"[build] {opcode} instructions in the SASS of each "
+                f"{function} instantiation: {found}")
+            if found is not None and (len(found) != n
+                                      or not all(found.values())):
+                raise AssertionError(f"a tensor-core {function} has no "
+                                     f"{opcode}")
 
 
 def sass_count(kernel: str, function: str, opcode: str
@@ -1105,16 +1129,42 @@ def phase_kernels_hier(gen: torch.Generator, cfg
     omega = rff_directions(gen, n_feat, d)
     shift = rff_logshift_bound(wq, omega, tau)
     wq = wq.reshape(n_leaves, leaf, d)
-    err = compare(f"rff_features ({n_leaves}, {leaf}, {d}) D={n_feat}",
+    # held against the float64 evaluation of the same function: two fp32
+    # implementations of exponents near -50 can each be ~1e-5 off it in
+    # opposite directions (one fp32 ulp of the argument is ~4e-6 of the
+    # feature), so 1e-5 x max between them is not a sound gate
+    f64 = torch.float64
+    err = compare(f"rff_features ({n_leaves}, {leaf}, {d}) D={n_feat} "
+                  f"(against float64)",
                   rff_features(wq, omega, mask, shift, tau=tau),
-                  ref.rff_features_ref(wq, omega, mask, shift, tau))
-    w2 = torch.randn((37, 50, 126), generator=gen, device=dev) * 0.3
-    om2 = torch.randn((100, 126), generator=gen, device=dev)
-    m2 = (torch.rand((37, 50), generator=gen, device=dev) < 0.7).float()
-    s2 = rff_logshift_bound(w2.reshape(-1, 126), om2, 0.7)
-    err = max(err, compare("rff_features (37, 50, 126) D=100 tau=0.7",
-                           rff_features(w2, om2, m2, s2, tau=0.7),
-                           ref.rff_features_ref(w2, om2, m2, s2, 0.7)))
+                  ref.rff_features_ref(wq, omega, mask, shift, tau, f64))
+    plain_train = rel_dist(ref.rff_features_ref(wq, omega, mask, shift,
+                                                tau),
+                           ref.rff_features_ref(wq, omega, mask, shift, tau,
+                                                f64))
+    log(f"  rff_features training shape: the fp32 plain version's own "
+        f"max|plain - float64| / max|float64| = {plain_train}")
+    # the ragged case: the draw from `gen` (as before, so later data stays
+    # the same) and 32 draws from a generator of its own
+    rgen = torch.Generator(device=dev).manual_seed(808)
+    ragged = [(gen, "gen")] + [(rgen, f"draw {i}") for i in range(32)]
+    kernel_rel, plain_rel = [], []
+    for g2, label in ragged:
+        w2 = torch.randn((37, 50, 126), generator=g2, device=dev) * 0.3
+        om2 = torch.randn((100, 126), generator=g2, device=dev)
+        m2 = (torch.rand((37, 50), generator=g2, device=dev) < 0.7).float()
+        s2 = rff_logshift_bound(w2.reshape(-1, 126), om2, 0.7)
+        exact = ref.rff_features_ref(w2, om2, m2, s2, 0.7, f64)
+        got = rff_features(w2, om2, m2, s2, tau=0.7)
+        err = max(err, compare(f"rff_features (37, 50, 126) D=100 tau=0.7 "
+                               f"{label} (against float64)", got, exact))
+        kernel_rel.append(rel_dist(got, exact))
+        plain_rel.append(rel_dist(ref.rff_features_ref(w2, om2, m2, s2, 0.7),
+                                  exact))
+    log(f"  rff_features ragged, {len(ragged)} draws: max|x - float64| / "
+        f"max|float64| of the kernel: worst {max(kernel_rel)} median "
+        f"{statistics.median(kernel_rel)}; of the fp32 plain version: worst "
+        f"{max(plain_rel)} median {statistics.median(plain_rel)} (gate 1e-5)")
     # the kernel's products are 3xTF32 on the tensor cores: its operations
     # bound is the rate of fp32-accurate products made that way
     bms, by = bound_ms(4 * (n_leaves * leaf * (d + 1) + n_feat * d + 1
@@ -1758,7 +1808,7 @@ def phase_training_breakdown(cfg, state, batch=None) -> None:
 #: substrings of the hand-written kernels' names in a device trace
 HAND_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
                 "fused_bwd", "rff_features", "pair_masses", "member_scores",
-                "flash_mma", "dkv_mma", "dq_mma", "dkv_kernel", "dq_kernel")
+                "flash_mma", "dkv_wgmma", "dq_wgmma", "dkv_kernel", "dq_kernel")
 
 
 def phase_profile(cfg, state, steps: int = 3, batches=None) -> None:
@@ -3514,8 +3564,8 @@ def phase_sampled_loss_entry(gen: torch.Generator, llama: dict
 #: flash_attention_bwd's gates: each gradient element within this fraction
 #: of the gradient's max |plain|.  bf16: the kernel writes bf16 gradients
 #: (2^-9 relative rounding) from fp32 sums in another order than the plain
-#: version's, and it forms D = rowsum(dO o O) from the forward's bf16
-#: output where autograd uses the fp32 one; fp32: summation order only.
+#: version's, with P and dS as bf16 hi + lo in its products; fp32:
+#: summation order only.
 BWD_BF16_RTOL = 2.0 ** -7
 BWD_FP32_RTOL = 1e-4
 #: the dense first step's gradients through the kernels against the plain
@@ -3555,15 +3605,19 @@ def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
 
 def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
                    hd: int, dtype: torch.dtype, causal: bool = True,
-                   s_valid: int | None = None, timed: bool = False) -> dict:
+                   s_valid: int | None = None, timed: bool = False,
+                   splits: bool | None = None) -> dict:
     """flash_attention_bwd on random inputs against its plain version
     (autograd through ``ref.flash_attention_ref``): the forward kernel's
     lse within RTOL of the plain log-sum-exp, dq, dk and dv each within
-    BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x max|plain|, two calls
-    bitwise equal, and the route the launch counts show (bf16 at hd 128:
-    the tensor cores).  ``timed`` adds the kernel, plain and library
-    (SDPA forward + backward with enable_gqa, a yardstick only) device
-    times, the bound, and the device ms of the backward's two kernels."""
+    BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x max|plain|,
+    two calls bitwise equal, and the route the launch counts show (bf16 at
+    hd a multiple of 16 up to 128: the tensor cores, whose plan is logged;
+    ``splits`` asserts whether it splits a key tile's group).  ``timed``
+    adds the kernel, plain and library device times (the library: SDPA's
+    backward alone after one forward, with enable_gqa; its forward +
+    backward beside it; yardsticks only), the bound, and the device ms of
+    the backward's two kernels."""
     tag = (f"flash_attention_bwd {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
            f" causal={causal} s_valid={s_valid} (B {b}, S {s}, H {h}, "
            f"KV {kv}, hd {hd})")
@@ -3574,6 +3628,19 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
     _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
                                           s_valid=s_valid, with_lse=True)
     compare(f"{tag} lse", lse, want_lse)
+    tc = dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+    pl = None
+    if tc:
+        pl = kernels.flash_attention.plan(
+            b, s, h, kv, hd, causal,
+            sms=torch.cuda.get_device_properties(DEV).multi_processor_count)
+        log(f"  {tag}: plan chunk {pl.chunk}, steps {pl.steps}, splits "
+            f"{pl.splits}, dK/dV blocks {pl.blocks} ({pl.waves} waves), dQ "
+            f"blocks {pl.dq_blocks}, longest {pl.longest:.2f} steps, fold "
+            f"{pl.fold_bytes} bytes")
+    if splits is not None and (pl is None or (max(pl.splits) > 1) != splits):
+        raise AssertionError(f"{tag}: plan {pl} does not "
+                             f"{'split' if splits else 'keep'} the group")
 
     def call():
         return flash_attention_bwd(q, k, v, dout, lse, causal=causal,
@@ -3582,7 +3649,6 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
     before = kernels.launch_counts()
     got, again = call(), call()
     after = kernels.launch_counts()
-    tc = dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
     took = {n: after[n] - before[n]
             for n in ("flash_attention_bwd", "flash_attention_bwd_simt")}
     want_took = {"flash_attention_bwd": 2 * tc,
@@ -3605,16 +3671,28 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         dot = dout.transpose(1, 2)
+        out_lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-        def library():
+        def library_bwd():
+            return torch.autograd.grad(out_lib, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def library_fwd_bwd():
             out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
             return torch.autograd.grad(out, (qt, kt, vt), dot)
 
         row.update(bound_ms=bms, bound_by=by, **times(
             call, lambda: ref.flash_attention_bwd_ref(
-                q, k, v, dout, causal=causal, s_valid=s_valid), library))
+                q, k, v, dout, causal=causal, s_valid=s_valid), library_bwd))
+        row["library_fwd_bwd_ms"] = device_ms(library_fwd_bwd)
         row["kernel_split_ms"] = device_split(call)
+        if pl is not None:
+            row["plan"] = dict(chunk=pl.chunk, splits=list(pl.splits),
+                               blocks=pl.blocks, waves=pl.waves,
+                               dq_blocks=pl.dq_blocks,
+                               fold_bytes=pl.fold_bytes)
         log(f"  {tag}: {json.dumps(row)}")
+        del out_lib, qt, kt, vt
     del q, k, v, o, lse, dout, got, again, want
     torch.cuda.empty_cache()
     return row
@@ -3642,22 +3720,33 @@ def phase_flash_bwd(gen: torch.Generator) -> tuple[dict[str, dict],
                                                    dict[str, dict]]:
     """flash_attention_bwd against its plain version: at the dense
     training path's shape (starcoder2-3b: B 4, S 1,024, H 24 over KV 2, hd
-    128, causal bf16; timed), ragged S 1,000, llama3-8b's (1, 2,048, 32 /
-    8, 128; timed), s_valid < S causal and not, and fp32 (the CUDA-core
-    route; its path-shape row timed); then ``ops.flash_attention``'s
-    autograd.  Returns (rows at the path shape, rows at other shapes)."""
+    128, causal bf16; timed; its plan splits the group), ragged S 1,000,
+    llama3-8b's (1, 2,048, 32 / 8, 128; timed), s_valid < S causal and
+    not, a group of 1 whose plan splits nothing, every tensor-core width
+    (hd 16-128 by 16), and fp32 (the CUDA-core route; its path-shape row
+    timed); then ``ops.flash_attention``'s autograd.  Returns (rows at the
+    path shape, rows at other shapes)."""
     cfg = get_config(DENSE_ARCH)
     b, s, h, kv, hd = (DENSE_BATCH, DENSE_SEQ, cfg.n_heads, cfg.n_kv_heads,
                        cfg.resolved_head_dim)
     bf = torch.bfloat16
-    row = flash_bwd_case(gen, b, s, h, kv, hd, bf, timed=True)
+    row = flash_bwd_case(gen, b, s, h, kv, hd, bf, timed=True, splits=True)
     errs = [flash_bwd_case(gen, b, 1000, h, kv, hd, bf)["max_abs_err"],
             flash_bwd_case(gen, 2, 512, 8, 2, 128, bf, causal=False,
                            s_valid=400)["max_abs_err"],
             flash_bwd_case(gen, 2, 512, 8, 2, 128, bf,
                            s_valid=400)["max_abs_err"],
             flash_bwd_case(gen, 1, 300, 4, 2, 64, bf)["max_abs_err"],
+            # group 1 (MHA), one wave without a split
+            flash_bwd_case(gen, 4, 512, 8, 8, 128, bf,
+                           splits=False)["max_abs_err"],
             check_flash_autograd(gen)]
+    # every width the tensor-core route takes (hd 16-128 by 16; 64, 96 and
+    # 128 above), ragged S
+    errs += [flash_bwd_case(gen, 1, 200, 4, 2, w, bf)["max_abs_err"]
+             for w in (16, 32, 48, 80, 112)]
+    errs.append(flash_bwd_case(gen, 2, 256, 8, 2, 32, bf, causal=False,
+                               s_valid=190)["max_abs_err"])
     row["other_max_abs_err"] = max(errs)
     llama = flash_bwd_case(gen, 1, 2048, 32, 8, 128, bf, timed=True)
     f32 = torch.float32
@@ -4095,8 +4184,7 @@ def main() -> int:
     llama_rows, llama_shapes = phase_kernels_llama(gen)
     rows.update(llama_rows)
     # its own generator: the other phases draw the inputs they drew
-    # before phase 18 existed (phase 8's ragged rff_features case fails
-    # its RTOL on another draw; ROADMAP.md C)
+    # before phase 18 existed
     bwd_rows, bwd_shapes = phase_flash_bwd(
         torch.Generator(device="cuda").manual_seed(18))
     rows.update(bwd_rows)

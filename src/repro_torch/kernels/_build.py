@@ -75,7 +75,7 @@ SIGNATURES = {
                                   _I, _F, _I, _I, _P)),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "flash_attention_bwd_mma_bf16",
-                            (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)),
+                            (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P)),
     "flash_attention_bwd_simt": ("flash_attention_bwd",
                                  "flash_attention_bwd_simt",
                                  (_P,) * 9 + (_I,) * 7 + (_F, _I, _I, _P)),

@@ -29,41 +29,57 @@
 // this kernel (kernels/ops.py::flash_attention's autograd Function).
 //
 // Deterministic, with no float atomics: every gradient element is summed
-// by one thread in a fixed order.  Two kernels behind one entry point
-// (counted as one launch), launched in this order:
-//   dQ       one block per (b, head, 64-query tile): a first pass over
-//            the key tiles the queries see sums D (and writes it), a
-//            second forms dS and dQ;
-//   dK, dV   one block per (b, KV head, 64-key tile), looping over the
-//            group's g query heads and the query tiles that see the keys;
-//            dK and dV stay in registers and are written once.
+// in a fixed order.  Two kernels behind one entry point (counted as one
+// launch), launched in this order:
+//   dQ       a block per (b, head, 128-query tile): a first sweep over the
+//            key tiles the queries see sums D (and writes it), a second
+//            forms dS and dQ;
+//   dK, dV   a block per (b, KV head, 128-key tile, share): the key
+//            tile's (query head, 64-query tile) steps are cut into shares
+//            of at most `chunk` steps (kernels/flash_attention.py::plan);
+//            each share's block sums fp32 partials of dK and dV, and the
+//            last of a tile's blocks to end (an integer counter) folds
+//            them in share order and writes the tile once.
 //
 // Bound on an H100 at starcoder2-3b's training shape (B 4, S 1,024, H 24,
 // KV 2, hd 128, causal, bf16): the five products over the causal half
 // (QK^T, P^T dO, dO V^T, dS^T Q, dS K) are 2.5 x the forward's 2, 6.4e10
 // FLOP, 65 us at 989 TFLOP/s, over the ~85 MB of q, k, v, dO, lse in and
 // dq, dk, dv out (25 us at 3.35 TB/s): operations bound the function.
-// The dQ kernel's first pass recomputes QK^T and dO V^T once more.
+// The kernels run 12 products a (query, key) pair against those 5: QK^T
+// and dO V^T three times (the dK/dV kernel's, and the dQ kernel's two
+// sweeps), P and dS each as bf16 hi + lo into dV, dK and dQ; so 2.4 x
+// the bound is their floor at the tensor cores' rate, and the fold's fp32
+// partials (128 KB a split block at hd 128) travel through L2.  D from
+// the forward's bf16 output plus its bf16 remainder would drop the first
+// sweep, but keeps dQ 2.4e-6-2.2e-5 off the exact chain rule against
+// rowsum(P o dP)'s 1.3e-7-7.7e-7 (tools/flash_bwd_delta_error.py).
 //
-// Tensor-core design (bf16, hd a multiple of 16 up to 128; the forward's
-// tiles and copies: tensor_core.cuh).  Each product is mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) fed by ldmatrix from rows padded by 16 bytes;
-// the K and V (or Q and dO) tiles of the next loop step stream in through a
-// two-stage cp.async ring while this one computes.  In the dK/dV kernel a
-// warp owns 16 keys and walks each staged 64-query tile in halves of 32:
-// S^T = K Q^T, P^T from lse, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T
-// Q.  In the dQ kernel a warp owns 16 queries: S = Q K^T, P, dP = dO V^T,
-// then D (first pass) or dS and dQ += dS K (second).  P and dS enter the
-// products as A operands straight from the accumulator registers, each as
-// two bf16 halves (hi = bf16(x), lo = bf16(x - hi)) in two mmas into one
-// fp32 sum, as the forward's P V does, so they keep ~16 bits where one
-// bf16 would carry a 2^-9 relative error into every gradient.  Key tiles
-// of the dK/dV kernel run longest first (key tile 0 sees every query tile
-// when causal), query tiles of the dQ kernel too.  The dK/dV grid is only
-// B * KV * S / 64 blocks (128 at the training shape, one wave on 132 SMs,
-// with the causal work spread 16:1 over them): splitting a block's query
-// heads over several blocks, with a fixed-order sum of their partials, is
-// later work, as are wgmma and TMA.
+// Tensor-core design (bf16, hd a multiple of 16 up to 128, compiled at 64
+// and 128 columns; Hopper's wgmma, TMA, mbarrier and setmaxnreg helpers in
+// tensor_core.cuh).  A block is three warpgroups: a producer, whose first
+// warp keeps a 3-stage ring of TMA copies in flight behind full / empty
+// mbarriers and gives up its registers (24), and two consumers of 64 rows
+// each (240 registers).  Tiles land 128-byte swizzled (rows of 64 bf16;
+// columns past hd and rows past S zero-filled by the TMA), the layout the
+// wgmma descriptors read.  In the dK/dV kernel the block holds its 128
+// keys' K and V; each stage brings one 64-query Q and dO tile with its lse
+// and D, and each consumer forms S^T = K Q^T and dP^T = V dO^T (SS
+// products, both operands from shared memory), P^T and dS^T in fp32
+// registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as A
+// operands straight from the registers (the RS form), each as two bf16
+// halves (hi = bf16(x), lo = bf16(x - hi)) in two products into one fp32
+// sum, so they keep ~16 bits where one bf16 would carry a 2^-9 relative
+// error into every gradient.  dK and dV stay in registers and are written
+// once.  The dQ kernel holds 128 queries' Q and dO, and each stage brings
+// one 64-key K and V tile: S = Q K^T and dP = dO V^T, then (second sweep)
+// dQ += dS K in the RS form.  The dK/dV grid runs key tiles in order, the
+// causal sweep's longest first, and the plan cuts every tile into near-
+// equal shares, so the grid fills the card (256 blocks at the training
+// shape, where one block per key tile gave 128 with the work spread 16:1);
+// the dQ kernel's query tiles run longest first.  Fully masked causal
+// steps are skipped; only a step that holds the diagonal, s_valid or S is
+// masked element by element.
 //
 // CUDA-core design (fp32, and bf16 at other widths up to 256): 256 threads
 // per block, tiles of 32 keys and 32 queries staged in shared memory as
@@ -392,30 +408,46 @@ int launch_typed(const void* q, const void* k, const void* v,
 
 }  // namespace simt
 
-// --- tensor-core kernels -----------------------------------------------------
+// --- tensor-core kernels ----------------------------------------------------
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using tcore::fence_regs;
+using tcore::mbar_wait;
+using tcore::wgmma_desc;
 
-constexpr int kBQ = 64;  // queries per staged tile
-constexpr int kBK = 64;  // keys per staged tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 64;       // keys (dK/dV) or queries (dQ) a consumer owns
+constexpr int kConsumers = 2;   // consumer warpgroups a block
+constexpr int kBlockRows = kRows * kConsumers;
+constexpr int kStep = 64;       // queries (dK/dV) or keys (dQ) a ring stage
+constexpr int kStages = 3;
+constexpr int kAtom = 64;       // bf16 columns of a 128-byte swizzled row
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kProducerRegs = 24;   // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+constexpr int kFoldSync = 1;        // named barrier of the consumers
+constexpr int kMaxDevices = 64;
 
-using tcore::cp_async_commit;
-using tcore::ldsm_x4;
-using tcore::ldsm_x4_trans;
-using tcore::mma;
-
+// dynamic shared memory of either kernel: two 128-row tiles held for the
+// block, a ring of kStages pairs of 64-row tiles, and 1,024 bytes to align
 template <int HDP>
-__host__ __device__ constexpr int pitch() {  // bf16 per staged row
-  return HDP + 8;
+constexpr size_t smem_bytes() {
+  return 1024 + static_cast<size_t>(HDP) *
+                    (2 * kBlockRows + 2 * kStages * kStep) * sizeof(bf16);
 }
 
-template <int HDP>
-constexpr size_t smem_bytes() {  // two single and two double-buffered
-  return static_cast<size_t>(6 * 64) * pitch<HDP>() * sizeof(bf16) +
-         4 * 64 * sizeof(float);  // tiles, then lse and D (two stages)
+// this thread's warpgroup, read from lane 0 so that the compiler knows it
+// is one value across the warp: the roles branch on it, and ptxas gives a
+// role the registers its setmaxnreg sets only on a warp-uniform branch
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+__device__ __forceinline__ bf16* align1024(void* p) {
+  const unsigned a = tcore::smem_addr(p);
+  return reinterpret_cast<bf16*>(static_cast<char*>(p) +
+                                 (((a + 1023) & ~1023u) - a));
 }
 
 // (x, y) as a bf16 pair hi, and what hi leaves out as a bf16 pair lo
@@ -428,378 +460,565 @@ __device__ __forceinline__ void split(float x, float y, unsigned& hi,
   lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
-// the A fragments (hi and lo) of columns 16j..16j+15 of a 16-row block
-// held as n-tiles of 8 columns in accumulator layout
-__device__ __forceinline__ void a_frag(const float (&x0)[4],
-                                       const float (&x1)[4], unsigned (&hi)[4],
-                                       unsigned (&lo)[4]) {
-  split(x0[0], x0[1], hi[0], lo[0]);
-  split(x0[2], x0[3], hi[1], lo[1]);
-  split(x1[0], x1[1], hi[2], lo[2]);
-  split(x1[2], x1[3], hi[3], lo[3]);
-}
-
-// rows [r0, r0 + 64) of x (row stride ld, head offset applied) into xs;
-// rows at or past n and columns past hd are zero
-template <int HDP>
-__device__ __forceinline__ void load_rows(bf16* xs, const bf16* x, size_t ld,
-                                          int r0, int n, int hd) {
-  constexpr int P = pitch<HDP>();
-  constexpr int kChunks = HDP / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < 64 * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const bool ok = r0 + r < n && c < hd;
-    tcore::cp_async<16>(xs + r * P + c,
-                        ok ? x + static_cast<size_t>(r0 + r) * ld + c : x, ok);
-  }
-}
-
-// lse and D of rows [r0, r0 + 64) (those at or past S zero)
-__device__ __forceinline__ void load_stats(float* ls, float* ds,
-                                           const float* lse_h,
-                                           const float* d_h, int r0, int S) {
-  const int t = threadIdx.x;  // 128 threads: 64 for lse, 64 for D
-  const int r = t % 64;
-  const bool ok = r0 + r < S;
-  if (t < 64)
-    tcore::cp_async<4>(ls + r, ok ? lse_h + r0 + r : lse_h, ok);
-  else
-    tcore::cp_async<4>(ds + r, ok ? d_h + r0 + r : d_h, ok);
-}
-
-// acc (16 rows x 8 n-tiles of keys/queries) += rows16 (A, 16 rows of a tile
-// at row0) . cols^T (B, 64 rows of a tile: its rows are the n dim), over
-// the width HDP
-template <int HDP, int NT>
-__device__ __forceinline__ void qk_product(float (&acc)[NT][4],
-                                           const bf16* arow, const bf16* brow,
-                                           int lane) {
-  constexpr int P = pitch<HDP>();
+// x (a 64 x 64 accumulator) as the A operands (hi and lo) of the 4
+// depth-16 steps of a product whose depth is x's columns
+__device__ __forceinline__ void a_operands(const float (&x)[32],
+                                           unsigned (&hi)[4][4],
+                                           unsigned (&lo)[4][4]) {
 #pragma unroll
-  for (int d = 0; d < HDP / 16; ++d) {
-    unsigned a[4];
-    ldsm_x4(arow + (lane & 15) * P + d * 16 + (lane >> 4) * 8, a);
+  for (int j = 0; j < 16; ++j)
+    split(x[2 * j], x[2 * j + 1], hi[j / 4][j % 4], lo[j / 4][j % 4]);
+}
+
+// acc (kA atoms of 64 x 64) += x B as hi + lo, B the 64-row tile `b` (its
+// rows the depth, kA atoms of 64 columns, `rows` rows an atom) MN-major;
+// at 128 columns one product spans both atoms, `rows` x 128 bytes apart
+// (the descriptor's LBO)
+template <int kA>
+__device__ __forceinline__ void product_rs(float (&acc)[kA][32],
+                                           const unsigned (&hi)[4][4],
+                                           const unsigned (&lo)[4][4],
+                                           const bf16* b, int rows) {
+  static_assert(kA == 1 || kA == 2, "64 or 128 columns");
+  uint64_t db = wgmma_desc(b);
+  if constexpr (kA == 2)
+    db = (db & ~(0x3fffull << 16)) |
+         (static_cast<uint64_t>(rows * kAtom * 2 / 16) << 16);
 #pragma unroll
-    for (int n = 0; n < NT / 2; ++n) {
-      unsigned bf[4];
-      ldsm_x4(brow + (n * 16 + (lane & 7) + (lane >> 4) * 8) * P + d * 16 +
-                  ((lane >> 3) & 1) * 8,
-              bf);
-      mma(acc[2 * n], a, bf[0], bf[1]);
-      mma(acc[2 * n + 1], a, bf[2], bf[3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = db + kk * 16 * kAtom * 2 / 16;  // 16 rows
+    if constexpr (kA == 2) {
+      tcore::wgmma_rs_n128(acc[0], acc[1], hi[kk], desc);
+      tcore::wgmma_rs_n128(acc[0], acc[1], lo[kk], desc);
+    } else {
+      tcore::wgmma_rs(acc[0], hi[kk], desc);
+      tcore::wgmma_rs(acc[0], lo[kk], desc);
     }
   }
 }
 
-// out (16 rows x HDP) += x (16 rows x 16*KS columns, accumulator layout,
-// split hi/lo) . rows [0, 16*KS) of a tile whose rows are the k dim
-template <int HDP, int KS>
-__device__ __forceinline__ void pv_product(float (&out)[HDP / 8][4],
-                                           const float (&x)[2 * KS][4],
-                                           const bf16* brow, int lane) {
-  constexpr int P = pitch<HDP>();
+// d = A B^T over the width HDP: A the 64 rows at `a` of a tile of
+// `a_rows` rows an atom, B the 64 rows at `b` of a tile of `b_rows`, both
+// K-major (their columns the depth).  A descriptor counts 16 bytes a unit.
+template <int HDP>
+__device__ __forceinline__ void product_ss(float (&d)[32], const bf16* a,
+                                           int a_rows, const bf16* b,
+                                           int b_rows) {
+  const uint64_t da = wgmma_desc(a), db = wgmma_desc(b);
 #pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    unsigned hi[4], lo[4];
-    a_frag(x[2 * j], x[2 * j + 1], hi, lo);
-#pragma unroll
-    for (int n = 0; n < HDP / 16; ++n) {
-      unsigned bf[4];
-      ldsm_x4_trans(brow + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                        n * 16 + (lane >> 4) * 8,
-                    bf);
-      mma(out[2 * n], hi, bf[0], bf[1]);
-      mma(out[2 * n], lo, bf[0], bf[1]);
-      mma(out[2 * n + 1], hi, bf[2], bf[3]);
-      mma(out[2 * n + 1], lo, bf[2], bf[3]);
-    }
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int atom = kk / 4, c = (kk % 4) * 16;  // c: bf16 along the row
+    tcore::wgmma_ss(d, da + (atom * a_rows * kAtom + c) * 2 / 16,
+                    db + (atom * b_rows * kAtom + c) * 2 / 16, kk > 0);
   }
 }
 
-// one block per (b * KV + kv head, 64-key tile); warp w owns keys 16w..
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-    dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int S, int H, int KV, int hd,
-                   int s_valid, int causal, float scale, float scale_log2) {
-  constexpr int P = pitch<HDP>();
-  constexpr int kOT = HDP / 8;  // n-tiles of a gradient row block
-  extern __shared__ float4 smem4[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem4);  // [kBK][P]
-  bf16* v_s = k_s + kBK * P;                   // [kBK][P]
-  bf16* q_s = v_s + kBK * P;                   // [2][kBQ][P]
-  bf16* do_s = q_s + 2 * kBQ * P;              // [2][kBQ][P]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * P);  // [2][kBQ]
-  float* d_s = lse_s + 2 * kBQ;                                 // [2][kBQ]
+template <int kA>
+__device__ __forceinline__ void zero(float (&acc)[kA][32]) {
+#pragma unroll
+  for (int a = 0; a < kA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+}
 
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+template <int kA>
+__device__ __forceinline__ void fence_acc(float (&acc)[kA][32]) {
+#pragma unroll
+  for (int a = 0; a < kA; ++a) fence_regs(acc[a]);
+}
+
+__device__ __forceinline__ void fence_ops(unsigned (&x)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(x[kk]);
+}
+
+// rows row0, row0 + 8 of acc (times mul) as bf16 into out (row stride ld,
+// the tile's first row at out); rows at or past n, columns past hd skipped
+template <int kA>
+__device__ __forceinline__ void store_rows(bf16* out, size_t ld,
+                                           const float (&acc)[kA][32],
+                                           float mul, int row0, int n,
+                                           int hd, int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int a = 0; a < kA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = a * kAtom + j * 8 + 2 * tq;
+        if (c < hd)
+          *reinterpret_cast<__nv_bfloat162*>(out + row * ld + c) =
+              __floats2bfloat162_rn(acc[a][4 * j + 2 * r] * mul,
+                                    acc[a][4 * j + 2 * r + 1] * mul);
+      }
+  }
+}
+
+// The dK/dV kernel.  Block: the 128 keys [k0, k0 + 128) of KV head kvh in
+// batch b (consumer warpgroup w owns [k0 + 64 w, +64)) and the steps
+// [t_begin, t_end) of that key tile's (query head, 64-query tile) sweep:
+// step t is query head kvh * group + t / per_head, query tile qt_first + t
+// % per_head.  Blocks run key tile by key tile (the causal sweep's longest
+// first); a tile's sweep is cut into ns = ceil(steps / chunk) near-equal
+// shares, one block each, whose fp32 partials the last of them to finish
+// folds in split order (an integer counter finds it).
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, float* __restrict__ ws,
+                     int* __restrict__ counters, int B, int S, int H, int KV,
+                     int hd, int s_valid, int causal, float scale,
+                     float scale_log2, int chunk) {
+  constexpr int kA = HDP / kAtom;
+  constexpr int kKV = kBlockRows * HDP;  // bf16 of the K (or V) tile
+  constexpr int kQ = kStep * HDP;        // bf16 of a Q (or dO) stage
+  constexpr int kPart = 2 * kA * 32;     // partial floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  bf16* k_s = align1024(smem_raw);
+  bf16* v_s = k_s + kKV;
+  bf16* q_s = v_s + kKV;             // [kStages][kQ]
+  bf16* do_s = q_s + kStages * kQ;   // [kStages][kQ]
+  __shared__ float lse_s[kStages][kStep], d_s[kStages][kStep];
+  __shared__ uint64_t kv_bar, full[kStages], empty[kStages];
+  __shared__ int last;
+
   const int group = H / KV;
-  const int k0 = blockIdx.y * kBK;  // causal: the low key tiles work longest
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
+  const int n_qt = (S + kStep - 1) / kStep;
+  const int n_kt = (S + kBlockRows - 1) / kBlockRows;
+  constexpr int kTilesPerKey = kBlockRows / kStep;
+  int idx = blockIdx.x, kt = 0, steps = 0, ns = 1;
+  for (;; ++kt) {
+    steps = group * (n_qt - (causal ? kt * kTilesPerKey : 0));
+    ns = max(1, (steps + chunk - 1) / chunk);
+    if (idx < B * KV * ns || kt == n_kt - 1) break;
+    idx -= B * KV * ns;
+  }
+  const int bkv = idx / ns, split_i = idx % ns;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const int k0 = kt * kBlockRows;
+  const int qt_first = causal ? kt * kTilesPerKey : 0;
+  const int per_head = n_qt - qt_first;
+  const int t_begin = static_cast<int>(static_cast<long long>(split_i) *
+                                       steps / ns);
+  const int t_end = static_cast<int>(static_cast<long long>(split_i + 1) *
+                                     steps / ns);
   const int kv_lim = min(S, s_valid);
-  const size_t q_row = static_cast<size_t>(H) * hd;
-  const size_t kv_row = static_cast<size_t>(KV) * hd;
-  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
-                        static_cast<size_t>(kvh) * hd;
-  const int qt_first = causal ? k0 / kBQ : 0;
-  const int per_head = k0 < kv_lim ? (S + kBQ - 1) / kBQ - qt_first : 0;
-  const int n_iter = group * per_head;
+  const int wg = warpgroup();
 
-  // iteration t: query head kvh * group + t / per_head, query tile
-  // qt_first + t % per_head
-  auto stage = [&](int t, int buf) {
-    const int h = kvh * group + t / per_head;
-    const int q0 = (qt_first + t % per_head) * kBQ;
-    const size_t q_off = static_cast<size_t>(b) * S * q_row +
-                         static_cast<size_t>(h) * hd;
-    load_rows<HDP>(q_s + buf * kBQ * P, q + q_off, q_row, q0, S, hd);
-    load_rows<HDP>(do_s + buf * kBQ * P, dout + q_off, q_row, q0, S, hd);
-    const size_t st = (static_cast<size_t>(b) * H + h) * S;
-    load_stats(lse_s + buf * kBQ, d_s + buf * kBQ, lse + st, delta + st, q0,
-               S);
-  };
-
-  float dk_acc[kOT][4], dv_acc[kOT][4];
-#pragma unroll
-  for (int n = 0; n < kOT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  if (n_iter > 0) {
-    load_rows<HDP>(k_s, k + kv_off, kv_row, k0, kv_lim, hd);
-    load_rows<HDP>(v_s, v + kv_off, kv_row, k0, kv_lim, hd);
-    stage(0, 0);
-  }
-  cp_async_commit();
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  for (int t = 0; t < n_iter; ++t) {
-    if (t + 1 < n_iter) stage(t + 1, (t + 1) & 1);
-    cp_async_commit();  // possibly empty: one group per iteration
-    tcore::cp_async_wait<1>();  // K, V and tile t have landed
-    __syncthreads();
-    const int buf = t & 1;
-    const bf16* qs = q_s + buf * kBQ * P;
-    const bf16* dos = do_s + buf * kBQ * P;
-    const float* ls = lse_s + buf * kBQ;
-    const float* dd = d_s + buf * kBQ;
-    const int q0 = (qt_first + t % per_head) * kBQ;
-    const bool edge = q0 + kBQ > S || k0 + kBK > kv_lim ||
-                      (causal && q0 < k0 + kBK - 1);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qh = half * 32;  // this pass's 32 queries of the tile
-      float st[4][4], dpt[4][4];  // S^T then P^T; dP^T then dS^T
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      qk_product<HDP, 4>(st, k_s + warp * 16 * P, qs + qh * P, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qq = qh + n * 8 + 2 * tig + (e & 1);
-          const int key = key0 + 8 * (e >> 1), qi = q0 + qq;
-          float p = exp2f(st[n][e] * scale_log2 - ls[qq] * kLog2e);
-          if (edge && (key >= kv_lim || qi >= S || (causal && key > qi)))
-            p = 0.f;
-          st[n][e] = p;
-        }
-      pv_product<HDP, 2>(dv_acc, st, dos + qh * P, lane);
-      qk_product<HDP, 4>(dpt, v_s + warp * 16 * P, dos + qh * P, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dpt[n][e] = st[n][e] * (dpt[n][e] - dd[qh + n * 8 + 2 * tig +
-                                                 (e & 1)]);
-      pv_product<HDP, 2>(dk_acc, dpt, qs + qh * P, lane);
+  if (threadIdx.x == 0) {
+    tcore::mbar_init(&kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      tcore::mbar_init(&full[s], 32);  // the producer warp's lanes
+      tcore::mbar_init(&empty[s], 4 * kConsumers);  // the consumer warps
     }
-    __syncthreads();  // the next iteration refills this stage
+    tcore::fence_mbar_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 8 * i;
-    if (key >= S) continue;
-    const size_t off = kv_off + static_cast<size_t>(key) * kv_row;
-#pragma unroll
-    for (int n = 0; n < kOT; ++n) {
-      const int c = n * 8 + 2 * tig;
-      if (c < hd) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
-            __floats2bfloat162_rn(dk_acc[n][2 * i] * scale,
-                                  dk_acc[n][2 * i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
-            __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+  if (wg == kConsumers) {  // producer: its first warp stages the tiles
+    tcore::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      tcore::mbar_arrive_expect_tx(&kv_bar, 2 * kKV * sizeof(bf16));
+      for (int a = 0; a < kA; ++a) {
+        tcore::tma_load_4d(k_s + a * kBlockRows * kAtom, &map_k, a * kAtom,
+                           kvh, k0, b, &kv_bar);
+        tcore::tma_load_4d(v_s + a * kBlockRows * kAtom, &map_v, a * kAtom,
+                           kvh, k0, b, &kv_bar);
       }
     }
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int s = i % kStages, n = i / kStages;
+      if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+      const int h = kvh * group + t / per_head;
+      const int q0 = (qt_first + t % per_head) * kStep;
+      const size_t st = (static_cast<size_t>(b) * H + h) * S;
+#pragma unroll
+      for (int e = 0; e < kStep / 32; ++e) {
+        const int r = lane + 32 * e, qi = q0 + r;
+        lse_s[s][r] = qi < S ? lse[st + qi] * kLog2e : 0.f;
+        d_s[s][r] = qi < S ? delta[st + qi] : 0.f;
+      }
+      if (lane == 0) {
+        tcore::mbar_arrive_expect_tx(&full[s], 2 * kQ * sizeof(bf16));
+        for (int a = 0; a < kA; ++a) {
+          tcore::tma_load_4d(q_s + s * kQ + a * kStep * kAtom, &map_q,
+                             a * kAtom, h, q0, b, &full[s]);
+          tcore::tma_load_4d(do_s + s * kQ + a * kStep * kAtom, &map_do,
+                             a * kAtom, h, q0, b, &full[s]);
+        }
+      } else {
+        tcore::mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
+
+  // consumer warpgroup wg: keys [kw0, kw0 + 64)
+  tcore::setmaxnreg_inc<kConsumerRegs>();
+  const int t_in = threadIdx.x % 128, warp = t_in / 32, lane = t_in % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int kw0 = k0 + wg * kRows;
+  const int key_a = kw0 + warp * 16 + g;  // this thread's keys: +0, +8
+  const bf16* k_w = k_s + wg * kRows * kAtom;
+  const bf16* v_w = v_s + wg * kRows * kAtom;
+  float dk_acc[kA][32], dv_acc[kA][32];
+  zero(dk_acc);
+  zero(dv_acc);
+  mbar_wait(&kv_bar, 0);
+  for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const int q0 = (qt_first + t % per_head) * kStep;
+    if (kw0 < kv_lim && !(causal && kw0 > q0 + kStep - 1)) {
+      const bf16* qs = q_s + s * kQ;
+      const bf16* dos = do_s + s * kQ;
+      float st[32], dpt[32];  // S^T = K Q^T, dP^T = V dO^T
+      tcore::wgmma_fence();
+      product_ss<HDP>(st, k_w, kBlockRows, qs, kStep);
+      product_ss<HDP>(dpt, v_w, kBlockRows, dos, kStep);
+      tcore::wgmma_commit();
+      tcore::wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const bool edge = q0 + kStep > S || kw0 + kRows > kv_lim ||
+                        (causal && q0 < kw0 + kRows - 1);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = (e / 4) * 8 + 2 * tq + (e & 1);  // query q0 + col
+        const int key = key_a + 8 * ((e >> 1) & 1);
+        float p = exp2f(st[e] * scale_log2 - lse_s[s][col]);
+        if (edge &&
+            (key >= kv_lim || q0 + col >= S || (causal && key > q0 + col)))
+          p = 0.f;
+        st[e] = p;                                  // P^T
+        dpt[e] = p * (dpt[e] - d_s[s][col]);  // dS^T
+      }
+      // dV's product, then dK's: P^T's halves are dead before dS^T's are
+      // formed (as fast on the card as issuing both in one group)
+      unsigned hi[4][4], lo[4][4];
+      a_operands(st, hi, lo);
+      tcore::wgmma_fence();
+      product_rs<kA>(dv_acc, hi, lo, dos, kStep);  // dV += P^T dO
+      tcore::wgmma_commit();
+      tcore::wgmma_wait<0>();
+      fence_ops(hi);
+      fence_ops(lo);
+      fence_acc(dv_acc);
+      a_operands(dpt, hi, lo);
+      tcore::wgmma_fence();
+      product_rs<kA>(dk_acc, hi, lo, qs, kStep);   // dK += dS^T Q
+      tcore::wgmma_commit();
+      tcore::wgmma_wait<0>();
+      fence_ops(hi);
+      fence_ops(lo);
+      fence_acc(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) tcore::mbar_arrive(&empty[s]);  // the stage is read
+  }
+
+  const size_t ld = static_cast<size_t>(KV) * hd;
+  bf16* dk_t = dk + (static_cast<size_t>(b) * S * KV + kvh) * hd;
+  bf16* dv_t = dv + (static_cast<size_t>(b) * S * KV + kvh) * hd;
+  if (ns > 1) {  // partial of this share; the last share to end folds
+    float4* mine = reinterpret_cast<float4*>(ws) +
+                   (static_cast<size_t>(blockIdx.x) * kConsumers + wg) *
+                       (kPart / 4) * 128;
+#pragma unroll
+    for (int a = 0; a < kA; ++a)  // dk_acc then dv_acc, 4 floats a lane
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mine[(a * 8 + j) * 128 + t_in] =
+            make_float4(dk_acc[a][4 * j], dk_acc[a][4 * j + 1],
+                        dk_acc[a][4 * j + 2], dk_acc[a][4 * j + 3]);
+        mine[((kA + a) * 8 + j) * 128 + t_in] =
+            make_float4(dv_acc[a][4 * j], dv_acc[a][4 * j + 1],
+                        dv_acc[a][4 * j + 2], dv_acc[a][4 * j + 3]);
+      }
+    __threadfence();
+    tcore::named_sync(kFoldSync, kConsumerThreads);
+    if (threadIdx.x == 0)
+      last = atomicAdd(&counters[kt * B * KV + bkv], 1) == ns - 1;
+    tcore::named_sync(kFoldSync, kConsumerThreads);
+    if (!last) return;
+    __threadfence();
+    zero(dk_acc);
+    zero(dv_acc);
+    for (int sp = 0; sp < ns; ++sp) {  // split order, whoever ended last
+      const float4* part = reinterpret_cast<const float4*>(ws) +
+                           (static_cast<size_t>(blockIdx.x - split_i + sp) *
+                                kConsumers + wg) * (kPart / 4) * 128;
+#pragma unroll
+      for (int a = 0; a < kA; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = __ldcg(part + (a * 8 + j) * 128 + t_in);
+          const float4 y = __ldcg(part + ((kA + a) * 8 + j) * 128 + t_in);
+          dk_acc[a][4 * j] += x.x;
+          dk_acc[a][4 * j + 1] += x.y;
+          dk_acc[a][4 * j + 2] += x.z;
+          dk_acc[a][4 * j + 3] += x.w;
+          dv_acc[a][4 * j] += y.x;
+          dv_acc[a][4 * j + 1] += y.y;
+          dv_acc[a][4 * j + 2] += y.z;
+          dv_acc[a][4 * j + 3] += y.w;
+        }
+    }
+  }
+  store_rows<kA>(dk_t, ld, dk_acc, scale, key_a, S, hd, tq);
+  store_rows<kA>(dv_t, ld, dv_acc, 1.f, key_a, S, hd, tq);
 }
 
-// one block per (b * H + head, 64-query tile); warp w owns queries 16w..;
-// the key tiles stream through twice: the first pass sums D = rowsum(P o
-// dP) (and writes it for the dK/dV kernel), the second forms dS and dQ
+// The dQ kernel.  Block: the 128 queries [q0, q0 + 128) of head h in batch
+// b (consumer warpgroup w owns [q0 + 64 w, +64)), query tiles longest
+// first; the key tiles the queries see stream through the ring twice.  The
+// first sweep sums D = rowsum(P o dP) from the fp32 P and dP and writes it
+// for the dK/dV kernel; the second forms dS and dQ.  Block 0 also zeroes
+// the dK/dV kernel's fold counters.
 template <int HDP>
-__global__ void __launch_bounds__(kThreads, 2)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, float* __restrict__ delta,
-                  bf16* __restrict__ dq,
-                  int S, int H, int KV, int hd, int s_valid, int causal,
-                  float scale, float scale_log2) {
-  constexpr int P = pitch<HDP>();
-  constexpr int kOT = HDP / 8;
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [kBQ][P]
-  bf16* do_s = q_s + kBQ * P;                  // [kBQ][P]
-  bf16* k_s = do_s + kBQ * P;                  // [2][kBK][P]
-  bf16* v_s = k_s + 2 * kBK * P;               // [2][kBK][P]
-  float* lse_s = reinterpret_cast<float*>(v_s + 2 * kBK * P);  // [kBQ]
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    bf16* __restrict__ dq, int* __restrict__ counters,
+                    int n_counters, int B, int S, int H, int KV, int hd,
+                    int s_valid, int causal, float scale, float scale_log2) {
+  constexpr int kA = HDP / kAtom;
+  constexpr int kQ = kBlockRows * HDP;  // bf16 of the Q (or dO) tile
+  constexpr int kK = kStep * HDP;       // bf16 of a K (or V) stage
+  extern __shared__ uint8_t smem_raw[];
+  bf16* q_s = align1024(smem_raw);
+  bf16* do_s = q_s + kQ;
+  bf16* k_s = do_s + kQ;            // [kStages][kK]
+  bf16* v_s = k_s + kStages * kK;   // [kStages][kK]
+  __shared__ float lse_s[kBlockRows];
+  __shared__ uint64_t qd_bar, full[kStages], empty[kStages];
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
+  const int n_qt = (S + kBlockRows - 1) / kBlockRows;
+  const int bh = blockIdx.x % (B * H);
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / (B * H)) *
+                 kBlockRows;  // longest rows first
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int kv_lim = min(S, s_valid);
-  const int kv_end = causal ? min(kv_lim, q0 + kBQ) : kv_lim;
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-  const size_t q_row = static_cast<size_t>(H) * hd;
-  const size_t kv_row = static_cast<size_t>(KV) * hd;
-  const size_t q_off = static_cast<size_t>(b) * S * q_row +
-                       static_cast<size_t>(h) * hd;
-  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
-                        static_cast<size_t>(kvh) * hd;
-  const size_t st_off = (static_cast<size_t>(b) * H + h) * S;
+  const int kv_end = causal ? min(kv_lim, q0 + kBlockRows) : kv_lim;
+  const int n_kt = (kv_end + kStep - 1) / kStep;
+  const int wg = warpgroup();
 
-  load_rows<HDP>(q_s, q + q_off, q_row, q0, S, hd);
-  load_rows<HDP>(do_s, dout + q_off, q_row, q0, S, hd);
-  if (threadIdx.x < kBQ) {
-    const bool ok = q0 + static_cast<int>(threadIdx.x) < S;
-    tcore::cp_async<4>(lse_s + threadIdx.x,
-                       ok ? lse + st_off + q0 + threadIdx.x : lse, ok);
-  }
-  if (n_tiles > 0) {
-    load_rows<HDP>(k_s, k + kv_off, kv_row, 0, kv_lim, hd);
-    load_rows<HDP>(v_s, v + kv_off, kv_row, 0, kv_lim, hd);
-  }
-  cp_async_commit();
-
-  float dq_acc[kOT][4];
-#pragma unroll
-  for (int n = 0; n < kOT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0, r0 + 8
-  float lse2[2], dr[2], dsum[2] = {0.f, 0.f};
-
-  for (int t = 0; t < 2 * n_tiles; ++t) {  // pass t / n_tiles, tile t % n
-    if (t + 1 < 2 * n_tiles) {
-      const int nx = (t + 1) % n_tiles;
-      load_rows<HDP>(k_s + ((t + 1) & 1) * kBK * P, k + kv_off, kv_row,
-                     nx * kBK, kv_lim, hd);
-      load_rows<HDP>(v_s + ((t + 1) & 1) * kBK * P, v + kv_off, kv_row,
-                     nx * kBK, kv_lim, hd);
+  if (threadIdx.x == 0) {
+    tcore::mbar_init(&qd_bar, 32);  // the producer warp's lanes
+    for (int s = 0; s < kStages; ++s) {
+      tcore::mbar_init(&full[s], 1);
+      tcore::mbar_init(&empty[s], 4 * kConsumers);
     }
-    cp_async_commit();
-    tcore::cp_async_wait<1>();  // tile t (and Q, dO, lse) have landed
-    __syncthreads();
-    if (t == 0) {
+    tcore::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // producer
+    tcore::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (blockIdx.x == 0)
+      for (int c = lane; c < n_counters; c += 32) counters[c] = 0;
+    const size_t st = (static_cast<size_t>(b) * H + h) * S;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) lse2[i] = lse_s[r0 + 8 * i] * kLog2e;
+    for (int e = 0; e < kBlockRows / 32; ++e) {
+      const int r = lane + 32 * e, qi = q0 + r;
+      lse_s[r] = qi < S ? lse[st + qi] * kLog2e : 0.f;
     }
-    const bool second = t >= n_tiles;
-    const bf16* ks = k_s + (t & 1) * kBK * P;
-    const bf16* vs = v_s + (t & 1) * kBK * P;
-    const int k0 = (t % n_tiles) * kBK;
-    const bool edge = q0 + kBQ > S || k0 + kBK > kv_lim ||
-                      (causal && k0 + kBK > q0 + 1);
-    float s[8][4], dp[8][4];
+    if (lane != 0) {
+      tcore::mbar_arrive(&qd_bar);
+      return;
+    }
+    tcore::mbar_arrive_expect_tx(&qd_bar, 2 * kQ * sizeof(bf16));
+    for (int a = 0; a < kA; ++a) {
+      tcore::tma_load_4d(q_s + a * kBlockRows * kAtom, &map_q, a * kAtom, h,
+                         q0, b, &qd_bar);
+      tcore::tma_load_4d(do_s + a * kBlockRows * kAtom, &map_do, a * kAtom,
+                         h, q0, b, &qd_bar);
+    }
+    for (int i = 0; i < 2 * n_kt; ++i) {  // key tile i % n_kt, twice
+      const int s = i % kStages, n = i / kStages, k0 = (i % n_kt) * kStep;
+      if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+      tcore::mbar_arrive_expect_tx(&full[s], 2 * kK * sizeof(bf16));
+      for (int a = 0; a < kA; ++a) {
+        tcore::tma_load_4d(k_s + s * kK + a * kStep * kAtom, &map_k,
+                           a * kAtom, kvh, k0, b, &full[s]);
+        tcore::tma_load_4d(v_s + s * kK + a * kStep * kAtom, &map_v,
+                           a * kAtom, kvh, k0, b, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: queries [qw0, qw0 + 64)
+  tcore::setmaxnreg_inc<kConsumerRegs>();
+  const int t_in = threadIdx.x % 128, warp = t_in / 32, lane = t_in % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int qw0 = q0 + wg * kRows;
+  const int qi_a = qw0 + warp * 16 + g;  // this thread's rows: +0, +8
+  const bf16* q_w = q_s + wg * kRows * kAtom;
+  const bf16* do_w = do_s + wg * kRows * kAtom;
+  mbar_wait(&qd_bar, 0);
+  const float l2[2] = {lse_s[qi_a - q0], lse_s[qi_a + 8 - q0]};
+  float dr[2] = {0.f, 0.f};  // the rows' D: partial sums, then whole
+  float dq_acc[kA][32];
+  zero(dq_acc);
+  for (int i = 0; i < 2 * n_kt; ++i) {
+    const int s = i % kStages;
+    const bool second = i >= n_kt;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const int k0 = (i % n_kt) * kStep;
+    if (qw0 < S && !(causal && k0 > qw0 + kRows - 1)) {
+      const bf16* ks = k_s + s * kK;
+      const bf16* vs = v_s + s * kK;
+      float sc[32], dp[32];  // S = Q K^T, dP = dO V^T
+      tcore::wgmma_fence();
+      product_ss<HDP>(sc, q_w, kBlockRows, ks, kStep);
+      product_ss<HDP>(dp, do_w, kBlockRows, vs, kStep);
+      tcore::wgmma_commit();
+      tcore::wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool edge = qw0 + kRows > S || k0 + kStep > kv_lim ||
+                        (causal && k0 + kStep - 1 > qw0);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    qk_product<HDP, 8>(s, q_s + warp * 16 * P, ks, lane);
-    qk_product<HDP, 8>(dp, do_s + warp * 16 * P, vs, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * tig + (e & 1);
-        const int qi = q0 + r0 + 8 * (e >> 1);
-        float p = exp2f(s[n][e] * scale_log2 - lse2[e >> 1]);
+      for (int e = 0; e < 32; ++e) {
+        const int key = k0 + (e / 4) * 8 + 2 * tq + (e & 1);
+        const int r = (e >> 1) & 1;
+        const int qi = qi_a + 8 * r;
+        float p = exp2f(sc[e] * scale_log2 - l2[r]);
         if (edge && (key >= kv_lim || qi >= S || (causal && key > qi)))
           p = 0.f;
         if (second)
-          s[n][e] = p * (dp[n][e] - dr[e >> 1]);  // dS
+          sc[e] = p * (dp[e] - dr[r]);  // dS
         else
-          dsum[e >> 1] = fmaf(p, dp[n][e], dsum[e >> 1]);
+          dr[r] = fmaf(p, dp[e], dr[r]);
       }
-    if (second) {
-      pv_product<HDP, 4>(dq_acc, s, ks, lane);
-    } else if (t == n_tiles - 1) {  // D of rows r0, r0 + 8: quad sums
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float x = dsum[i];
-        x += __shfl_xor_sync(kFull, x, 1);
-        x += __shfl_xor_sync(kFull, x, 2);
-        dr[i] = x;
-        const int qi = q0 + r0 + 8 * i;
-        if (tig == 0 && qi < S) delta[st_off + qi] = x;
+      if (second) {
+        unsigned sh[4][4], sl[4][4];
+        a_operands(sc, sh, sl);
+        tcore::wgmma_fence();
+        product_rs<kA>(dq_acc, sh, sl, ks, kStep);  // dQ += dS K
+        tcore::wgmma_commit();
+        tcore::wgmma_wait<0>();
+        fence_ops(sh);
+        fence_ops(sl);
+        fence_acc(dq_acc);
       }
     }
-    __syncthreads();  // the next iteration refills this stage
+    if (i == n_kt - 1) {  // the first sweep is done: D of the two rows
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the quad's lanes, a fixed tree
+        dr[r] += __shfl_xor_sync(kFull, dr[r], 1);
+        dr[r] += __shfl_xor_sync(kFull, dr[r], 2);
+        const int qi = qi_a + 8 * r;
+        if (tq == 0 && qi < S)
+          delta[(static_cast<size_t>(b) * H + h) * S + qi] = dr[r];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) tcore::mbar_arrive(&empty[s]);
   }
+  const size_t ld = static_cast<size_t>(H) * hd;
+  store_rows<kA>(dq + (static_cast<size_t>(b) * S * H + h) * hd, ld, dq_acc,
+                 scale, qi_a, S, hd, tq);
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + 8 * i;
-    if (qi >= S) continue;
-    bf16* row = dq + q_off + static_cast<size_t>(qi) * q_row;
-#pragma unroll
-    for (int n = 0; n < kOT; ++n) {
-      const int c = n * 8 + 2 * tig;
-      if (c < hd)
-        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
-            dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
-    }
+// A (B, S, heads, hd) bf16 tensor's map for the TMA: boxes of 64 columns
+// (128 bytes, swizzled) of one head and `rows` tokens; columns past hd and
+// tokens past S read as zeros
+bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
+            int hd, int rows) {
+  const tcore::EncodeTiled fn = tcore::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * sizeof(bf16);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {kAtom, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// blocks of the dK/dV grid: every key tile of every (b, KV head) cut into
+// max(1, ceil(steps / chunk)) shares (kernels/flash_attention.py::plan)
+int dkv_blocks(int B, int S, int H, int KV, int causal, int chunk) {
+  const int group = H / KV, n_qt = (S + kStep - 1) / kStep;
+  const int n_kt = (S + kBlockRows - 1) / kBlockRows;
+  int blocks = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int steps =
+        group * (n_qt - (causal ? kt * (kBlockRows / kStep) : 0));
+    blocks += B * KV * max(1, (steps + chunk - 1) / chunk);
   }
+  return blocks;
 }
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
-           int B, int S, int H, int KV, int hd, int s_valid, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HDP>();
-  auto dkv = dkv_mma_kernel<HDP>;
-  auto dqk = dq_mma_kernel<HDP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+           float* ws, int* counters, int B, int S, int H, int KV, int hd,
+           int s_valid, int causal, float scale, int chunk, int device,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HDP>();
+  auto dqk = dq_wgmma_kernel<HDP>;
+  auto dkv = dkv_wgmma_kernel<HDP>;
+  static bool ready[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(dkv,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[device] = true;
+  }
   const float scale_log2 = scale * kLog2e;
-  const int tiles = (S + kBQ - 1) / kBQ;
-  dqk<<<dim3(B * H, tiles), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), S, H, KV, hd, s_valid, causal, scale,
-      scale_log2);
-  err = cudaGetLastError();
+  const int n_counters = B * KV * ((S + kBlockRows - 1) / kBlockRows);
+  CUtensorMap mq{}, mdo{}, mk{}, mv{};
+  // dQ: the block's 128 queries held, 64-key stages
+  if (!encode(&mq, q, B, S, H, hd, kBlockRows) ||
+      !encode(&mdo, dout, B, S, H, hd, kBlockRows) ||
+      !encode(&mk, k, B, S, KV, hd, kStep) ||
+      !encode(&mv, v, B, S, KV, hd, kStep))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q_tiles = (S + kBlockRows - 1) / kBlockRows;
+  dqk<<<B * H * q_tiles, kThreads, smem, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), counters,
+      n_counters, B, S, H, KV, hd, s_valid, causal, scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv<<<dim3(B * KV, tiles), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, hd, s_valid,
-      causal, scale, scale_log2);
+  // dK/dV: the block's 128 keys held, 64-query stages
+  if (!encode(&mq, q, B, S, H, hd, kStep) ||
+      !encode(&mdo, dout, B, S, H, hd, kStep) ||
+      !encode(&mk, k, B, S, KV, hd, kBlockRows) ||
+      !encode(&mv, v, B, S, KV, hd, kBlockRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dkv<<<dkv_blocks(B, S, H, KV, causal, chunk), kThreads, smem, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ws, counters, B, S, H, KV, hd, s_valid, causal,
+      scale, scale_log2, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -809,29 +1028,33 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // The tensor-core entry point: q, dout, dq: (B, S, H, hd); k, v, dk, dv:
 // (B, S, KV, hd); contiguous bf16 with 16-byte aligned bases; lse: (B, H,
 // S) fp32 from flash_attention_mma_bf16_lse; delta: (B, H, S) fp32
-// scratch; H a multiple of KV; hd a multiple of 16 up to 128.  Launches
-// the dQ then the dK/dV kernel on `stream` of `device`; returns the first
-// failing launch's cudaError_t (0 when both launched).
+// scratch; H a multiple of KV; hd a multiple of 16 up to 128.  chunk: the
+// most (query head, 64-query tile) steps a dK/dV block takes
+// (kernels/flash_attention.py::plan); ws: fp32 scratch of 2 * 64 * hd_p *
+// 2 floats per dK/dV block (hd_p = 64 for hd <= 64, else 128), read only
+// where a key tile is split; counters: B * KV * ceil(S / 128) ints, zeroed
+// by the dQ kernel.  Launches the dQ then the dK/dV kernel on `stream` of
+// `device`; returns the first failing launch's cudaError_t (0 when both
+// launched).
 extern "C" int flash_attention_bwd_mma_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S,
-    int H, int KV, int hd, int s_valid, int causal, float scale, int device,
-    void* stream) {
+    const void* lse, void* delta, void* dq, void* dk, void* dv, void* ws,
+    void* counters, int B, int S, int H, int KV, int hd, int s_valid,
+    int causal, float scale, int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd < 16 || hd > 128 || hd % 16 != 0)
+  if (hd < 16 || hd > 128 || hd % 16 != 0 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* d = static_cast<float*>(delta);
   const float* l = static_cast<const float*>(lse);
-  if (hd <= 32)
-    return tc::launch<32>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, hd,
-                          s_valid, causal, scale, st);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
   if (hd <= 64)
-    return tc::launch<64>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, hd,
-                          s_valid, causal, scale, st);
-  return tc::launch<128>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, hd,
-                         s_valid, causal, scale, st);
+    return tc::launch<64>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S, H, KV,
+                          hd, s_valid, causal, scale, chunk, device, st);
+  return tc::launch<128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S, H, KV,
+                         hd, s_valid, causal, scale, chunk, device, st);
 }
 
 // The CUDA-core entry point: the same arguments, all fp32 (bf16 = 0) or all

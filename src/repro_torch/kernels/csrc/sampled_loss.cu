@@ -497,33 +497,11 @@ __global__ void __launch_bounds__(kCombineThreads)
   out[t] = logf(total) + c - p;
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime in the
-// libcuda it has loaded (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A (rows, d) row-major bf16 tensor's map for the TMA: boxes of box_rows
 // rows x kDC columns, 128-byte swizzled, zeros past its edges
 bool encode(CUtensorMap* map, const void* base, int rows, int d,
             int box_rows) {
-  const EncodeTiled fn = encode_tiled();
+  const tcore::EncodeTiled fn = tcore::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};

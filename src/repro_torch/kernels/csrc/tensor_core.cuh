@@ -1,8 +1,9 @@
 // Copies into shared memory and tensor-core products for Hopper (sm_90a),
 // shared by the kernels that stage tiles with cp.async or the TMA and
 // multiply them with mma.sync: flash_attention.cu and sampled_loss.cu
-// (bf16), and rff_features.cu (3xTF32).  block_scores.cu stages fp32
-// chunks with the same copies.
+// (bf16), and rff_features.cu (3xTF32); and with wgmma in warp-specialised
+// blocks: flash_attention_bwd.cu.  block_scores.cu stages fp32 chunks with
+// the same copies.
 #pragma once
 #include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
@@ -146,6 +147,195 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// 4-D box at (x, y, z, w) of `map`, as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z, int w,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a plain arrival on bar (release: this thread's earlier accesses first)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// barrier `id` (1..15) over the first n threads that reach it (n a
+// multiple of 32): warp-specialised blocks sync a role, never the block
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Warp specialisation: a warpgroup gives up or takes registers, so that a
+// producer that only starts copies runs on few and the consumers that hold
+// the accumulators on many.  Every warp of the warpgroup runs it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// wgmma (sm_90a): a warpgroup's asynchronous 64-row product, B (and A in
+// the SS form) read from shared memory through a matrix descriptor, the
+// fp32 sum in registers: thread t of the warpgroup holds, for each
+// 8-column block j, d[4j + 2r + e] = row 16 (t / 32) + t % 32 / 4 + 8r,
+// column 8j + 2 (t % 4) + e, the layout of mma.sync's m16n8 tiles.  The
+// A operand in registers (the RS form) is the m16n8k16 A fragment of the
+// warp's 16 rows, so a product's accumulator, packed to bf16 pairs, is
+// the next product's A with its columns as the depth.
+
+// The descriptor of a tile the TMA wrote with 128-byte swizzling (rows of
+// 64 bf16, 8-row groups 1,024 bytes apart, the tile on a 1,024-byte
+// boundary): 8-row group stride (SBO) 1,024 bytes, layout SWIZZLE_128B.  A
+// K-major operand (depth contiguous) steps 16 deep by moving the start 32
+// bytes along the row; an MN-major one (rows are the depth) by moving it
+// 16 rows (2,048 bytes).  LBO, the stride between 64-column atoms, is read
+// only by an MN-major product wider than 64 (wgmma_rs_n128): its caller
+// sets it; here it is 16 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// wgmma.fence: registers written since are visible to the next products
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin a register across an asynchronous product: the compiler may neither
+// read an accumulator before the wait nor reuse an A operand's register
+// while a product in flight still reads it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// d (64 x 64 fp32) = [d +] A B: A (64 x 16) and B (16 x 64) bf16, both
+// K-major in shared memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) += A B: A (64 x 16 bf16) in registers, B (16 x 64
+// bf16) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// d (64 x 128 fp32: d0 columns 0-63, d1 64-127) += A B: A (64 x 16 bf16)
+// in registers, B (16 x 128 bf16) MN-major in shared memory as two
+// 64-column atoms, the descriptor's LBO apart
+__device__ __forceinline__ void wgmma_rs_n128(float (&d0)[32],
+                                              float (&d1)[32],
+                                              const unsigned (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime in the libcuda
+// it has loaded (no link against libcuda); null where libcuda has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 // the shared-memory address of bf16 column `col` of row `row` in a tile of

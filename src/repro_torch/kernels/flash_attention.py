@@ -1,6 +1,7 @@
 """CUDA kernel wrappers: causal (or full) online-softmax GQA attention,
 forward (``flash_attention``, optionally with its log-sum-exp) and
-backward (``flash_attention_bwd``).
+backward (``flash_attention_bwd``, whose tensor-core grid ``plan``
+picks).
 
 Counterpart of ``repro.kernels.flash_attention`` (a Pallas kernel, forward
 only; the reference differentiates its pure-jnp ``chunked_attention``);
@@ -13,14 +14,38 @@ transposes exist here.
 
 Two routes each way, picked by dtype and width (``uses_tensor_cores``):
 bf16 with hd a multiple of 16 up to 128 goes to the tensor-core kernels
-(``mma.sync``, counted in ``launches`` and ``bwd_launches``), everything
-else (fp32, other widths up to 256) to the CUDA-core kernels
-(``flash_attention_simt``, counted in ``simt_launches`` and
-``bwd_simt_launches``).  The backward's two kernels (dQ, whose first pass
-sums D = rowsum(P o dP); then dK/dV) sit behind one entry point and count
-as one launch."""
+(counted in ``launches`` and ``bwd_launches``), everything else (fp32,
+other widths up to 256) to the CUDA-core kernels (``flash_attention_simt``,
+counted in ``simt_launches`` and ``bwd_simt_launches``).  Each backward's
+two kernels sit behind one entry point and count as one launch.
+
+The tensor-core backward (wgmma with TMA, warp-specialised: one producer
+warp keeps a 3-stage ring of tile copies in flight behind mbarriers, two
+consumer warpgroups of 64 rows take the registers ``setmaxnreg`` gives
+them).  Its dQ kernel holds 128 queries a block and sweeps the 64-key
+tiles they see twice: the first sums D = rowsum(P o dP) from the fp32 P
+and dP (D from the forward's bf16 output, even with its bf16 remainder,
+keeps dQ 20-30x further off the exact chain rule:
+``tools/flash_bwd_delta_error.py``), the second forms S = Q K^T and dP =
+dO V^T from shared memory, then dQ += dS K with dS as two bf16 halves
+from the registers.  Its dK/dV kernel holds 128 keys a block and sweeps
+(query head, 64-query tile) steps: S^T = K Q^T, dP^T = V dO^T, then dV +=
+P^T dO and dK += dS^T Q with P^T and dS^T as bf16 halves.  A KV head's
+group of query heads is split over several blocks per key tile
+(``plan``): each sums an fp32 partial, and the last of a tile's blocks to
+end (an integer counter finds it) folds them in split order, so two calls
+give the same bits with no float atomics.  It runs 12 products per kept
+(query, key) pair against the bound's 5 (QK^T and dO V^T three times; P
+and dS each as hi + lo into dV, dK and dQ), all bf16 at the tensor cores'
+rate, so 2.4 x the bound's time is its own floor; the fold's partials
+(128 KB a split block at hd 128) travel through L2.  Operations bound
+the function on an H100 at the training shapes (65 us of the bound's 5
+products at starcoder2-3b's (4, 1,024, 24 / 2, 128), under 25 us of
+bytes)."""
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -138,6 +163,98 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
+# --- the backward's plan ------------------------------------------------------
+
+#: the dK/dV kernel's block holds KEY_TILE keys (two consumer warpgroups of
+#: 64) and sweeps QUERY_STEP queries of one head a step; the dQ kernel's
+#: holds DQ_QUERY_TILE queries and sweeps the keys 64 a step
+KEY_TILE = 128
+QUERY_STEP = 64
+DQ_QUERY_TILE = 128
+#: an H100 SXM's streaming multiprocessors; either kernel fits one block an
+#: SM (384 threads, ~161 KB of shared memory)
+H100_SMS = 132
+#: the plan's model of a dK/dV block's time, in steps (one 64-query step
+#: of its 128 keys: 6 bf16 products of 64 x 64 x hd a warpgroup), from
+#: peak rates of one SM: 989 TFLOP/s / 132 for the products and an
+#: assumed 100 GB/s of L2 traffic an SM for the copies.  Every block first
+#: loads its K and V tiles; a split tile's blocks each write an fp32
+#: partial, and the last one reads them all back.
+SM_FLOPS = 989e12 / H100_SMS
+SM_L2_BYTES_PER_S = 100e9
+
+
+def _hd_p(hd: int) -> int:
+    """The compiled width a head of hd columns runs at (64 or 128)."""
+    return 64 if hd <= 64 else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the tensor-core backward covers one call.
+
+    steps[kt]: the (query head, query step) steps of key tile kt (each
+    batch and KV head alike); splits[kt]: the blocks they are cut into,
+    ceil(steps / chunk), each taking steps [j n / ns, (j + 1) n / ns)."""
+    chunk: int
+    steps: tuple[int, ...]
+    splits: tuple[int, ...]
+    blocks: int             # the dK/dV grid: key tiles in order, each
+    #                         (b, KV head)'s shares together
+    dq_blocks: int
+    waves: int              # of the dK/dV grid over the SMs
+    longest: float          # the longest dK/dV block's modelled steps
+    fold_bytes: int         # partials written and read by the folds
+    workspace_floats: int   # fp32 partials, one slot per dK/dV block
+    counters: int           # fold counters, one per (key tile, b, KV head)
+
+    def shares(self, kt: int) -> list[tuple[int, int]]:
+        """Key tile kt's step ranges, one per block, in split order."""
+        n, ns = self.steps[kt], self.splits[kt]
+        return [(j * n // ns, (j + 1) * n // ns) for j in range(ns)]
+
+
+def plan(b: int, s: int, h: int, kv: int, hd: int, causal: bool, *,
+         sms: int = H100_SMS) -> Plan:
+    """The dK/dV grid of ``flash_attention_bwd``'s tensor-core route: the
+    step limit ``chunk`` with the least waves x longest block (in modelled
+    steps, the fold's copies counted; ties to fewer blocks)."""
+    group = h // kv
+    n_qt = -(-s // QUERY_STEP)
+    n_kt = -(-s // KEY_TILE)
+    steps = tuple(group * (n_qt - (kt * KEY_TILE // QUERY_STEP
+                                   if causal else 0)) for kt in range(n_kt))
+    hd_p = _hd_p(hd)
+    step_s = 2 * 6 * 2 * 64 * QUERY_STEP * hd_p / SM_FLOPS
+    partial = 2 * 64 * hd_p * 2 * 4  # dK and dV in fp32, two warpgroups
+    partial_steps = partial / SM_L2_BYTES_PER_S / step_s
+    kv_steps = 2 * KEY_TILE * hd_p * 2 / SM_L2_BYTES_PER_S / step_s
+    best = None
+    for chunk in range(max(steps), 0, -1):
+        splits = tuple(max(1, -(-n // chunk)) for n in steps)
+        blocks = b * kv * sum(splits)
+        longest = max(-(-n // ns) + kv_steps
+                      + ((ns + 1) * partial_steps if ns > 1 else 0.0)
+                      for n, ns in zip(steps, splits))
+        waves = -(-blocks // sms)
+        cost = waves * longest
+        if best is None or cost < best[0]:
+            best = (cost, chunk, splits, blocks, waves, longest)
+    _, chunk, splits, blocks, waves, longest = best
+    split_blocks = b * kv * sum(ns for ns in splits if ns > 1)
+    return Plan(chunk=chunk, steps=steps, splits=splits, blocks=blocks,
+                dq_blocks=b * h * -(-s // DQ_QUERY_TILE), waves=waves,
+                longest=longest, fold_bytes=2 * split_blocks * partial,
+                workspace_floats=(blocks * partial // 4
+                                  if split_blocks else 0),
+                counters=b * kv * n_kt)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, lse: torch.Tensor, *,
                         causal: bool = True, s_valid: int | None = None
@@ -148,9 +265,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, lse (B, H, S) fp32.  The probabilities are recomputed from lse,
     and D = rowsum(dout o out) as rowsum(P o dP) from them in fp32, so the
     forward's output is not read (its rounding to q's dtype would enter
-    every dS).  Every gradient element is summed by one thread in a fixed
-    order, so two calls give the same bits.  bf16 at the tensor-core widths
-    takes the tensor-core kernels, anything else the CUDA-core ones."""
+    every dS).  Every gradient element is summed in a fixed order, so two
+    calls give the same bits.  bf16 at the tensor-core widths takes the
+    tensor-core kernels (grid from ``plan``), anything else the CUDA-core
+    ones."""
     global bwd_launches, bwd_simt_launches
     s_valid = _checked(q, k, v, s_valid)
     _build.check("dout", dout, 4, q.dtype)
@@ -167,15 +285,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t.data_ptr() % 16 == 0 for t in (dout, dq, dk, dv))
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    kv = k.shape[2]
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, s, h, k.shape[2], hd, s_valid, int(causal),
-            1.0 / math.sqrt(hd)]
+            dv.data_ptr()]
+    ints = [b, s, h, kv, hd, s_valid, int(causal), 1.0 / math.sqrt(hd)]
     if tc:
-        _build.launch("flash_attention_bwd", *args, q.device.index, stream)
+        p = plan(b, s, h, kv, hd, causal, sms=_sms(q.device.index))
+        ws = torch.empty(p.workspace_floats, dtype=torch.float32,
+                         device=q.device)
+        counters = torch.empty(p.counters, dtype=torch.int32,
+                               device=q.device)
+        _build.launch("flash_attention_bwd", *args, ws.data_ptr(),
+                      counters.data_ptr(), *ints, p.chunk, q.device.index,
+                      stream)
         bwd_launches += 1
     else:
-        _build.launch("flash_attention_bwd_simt", *args,
+        _build.launch("flash_attention_bwd_simt", *args, *ints,
                       int(q.dtype == torch.bfloat16), q.device.index, stream)
         bwd_simt_launches += 1
     return dq, dk, dv

@@ -60,16 +60,19 @@ def midx_member_scores_ref(h: Tensor, rows: Tensor, alpha: float) -> Tensor:
 
 
 def rff_features_ref(w: Tensor, omega: Tensor, mask: Tensor,
-                     logshift: Tensor, tau: float) -> Tensor:
+                     logshift: Tensor, tau: float,
+                     dtype: torch.dtype = torch.float32) -> Tensor:
     """w: (L, B, d); omega: (D, d); mask: (L, B); logshift: one element
-    -> (L, D) masked per-leaf sums of the positive random features.
+    -> (L, D) masked per-leaf sums of the positive random features,
+    computed and returned in ``dtype`` (fp32, the plain version; float64
+    evaluates the same function exactly enough to hold fp32 versions to).
     Materializes the (L, B, D) features the kernel never writes."""
-    w32 = w.float()
-    dots = torch.einsum("lbd,kd->lbk", w32, omega.float()) / math.sqrt(tau)
-    nrm = torch.sum(w32 * w32, dim=-1, keepdim=True) / (2.0 * tau)
-    feats = torch.exp(dots - nrm - logshift.reshape(()))
+    wx = w.to(dtype)
+    dots = torch.einsum("lbd,kd->lbk", wx, omega.to(dtype)) / math.sqrt(tau)
+    nrm = torch.sum(wx * wx, dim=-1, keepdim=True) / (2.0 * tau)
+    feats = torch.exp(dots - nrm - logshift.to(dtype).reshape(()))
     feats = feats / math.sqrt(omega.shape[0])
-    return torch.einsum("lbk,lb->lk", feats, mask.float())
+    return torch.einsum("lbk,lb->lk", feats, mask.to(dtype))
 
 
 def fused_lse_ref(w: Tensor, h: Tensor, ids: Tensor, corr: Tensor,

@@ -152,7 +152,11 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_other_dtypes():
 def test_build_signatures_hold_both_flash_entry_points():
     """The tensor-core entry point takes q, k, v, o, seven ints (B, S, H,
     KV, hd, s_valid, causal), the scale, the device and the stream; the
-    CUDA-core one also its bf16 flag.  Both live in one source."""
+    CUDA-core one also its bf16 flag.  Both live in one source.  The
+    backward's tensor-core entry takes q, k, v, dout, lse, delta, dq, dk,
+    dv, its fold workspace and counters, the same seven ints and scale,
+    the plan's chunk, the device and the stream; its CUDA-core entry the
+    nine tensors, the ints, the scale and the bf16 flag."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert _build.SIGNATURES["flash_attention"] == (
         "flash_attention", "flash_attention_mma_bf16",
@@ -160,6 +164,12 @@ def test_build_signatures_hold_both_flash_entry_points():
     assert _build.SIGNATURES["flash_attention_simt"] == (
         "flash_attention", "flash_attention_fwd",
         (p,) * 4 + (i,) * 7 + (f, i, i, p))
+    assert _build.SIGNATURES["flash_attention_bwd"] == (
+        "flash_attention_bwd", "flash_attention_bwd_mma_bf16",
+        (p,) * 11 + (i,) * 7 + (f, i, i, p))
+    assert _build.SIGNATURES["flash_attention_bwd_simt"] == (
+        "flash_attention_bwd", "flash_attention_bwd_simt",
+        (p,) * 9 + (i,) * 7 + (f, i, i, p))
 
 
 def _misaligned(shape, dtype):

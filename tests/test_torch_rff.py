@@ -92,6 +92,30 @@ def test_ops_rff_features_matches_jax(leaves, b, dim):
         _close(got.numpy(), want)
 
 
+def test_rff_features_fp32_plain_holds_the_float64_function():
+    """chip_smoke.py's phase 8 holds the kernel to ``rff_features_ref``
+    evaluated in float64, at 1e-5 x max, on 32 draws of its ragged case
+    (37 leaves of 50 rows, d 126, D 100, tau 0.7: exponents near -50,
+    where one fp32 ulp of the argument is ~4e-6 of the feature).  The fp32
+    plain version sits under that gate on every draw, so the gate is one
+    an fp32 implementation can meet."""
+    worst = 0.0
+    for seed in range(32):
+        rng = np.random.default_rng(1000 + seed)
+        w = torch.from_numpy((rng.normal(size=(37, 50, 126)) * 0.3)
+                             .astype(np.float32))
+        om = torch.from_numpy(rng.normal(size=(100, 126)).astype(np.float32))
+        mask = torch.from_numpy((rng.random((37, 50)) < 0.7)
+                                .astype(np.float32))
+        shift = kf.rff_logshift_bound(w.reshape(-1, 126), om, 0.7)
+        exact = ref.rff_features_ref(w, om, mask, shift, 0.7, torch.float64)
+        plain = ref.rff_features_ref(w, om, mask, shift, 0.7)
+        assert exact.dtype == torch.float64 and plain.dtype == torch.float32
+        err = float((plain.double() - exact).abs().max() / exact.abs().max())
+        worst = max(worst, err)
+    assert worst <= 1e-5, worst
+
+
 @pytest.mark.parametrize("n,leaf", [(64, 8), (60, 8), (40, 8)])
 def test_build_features_matches_reference(n, leaf):
     """Levels and logshift of the RFF tree, with padding rows (n = 60) and

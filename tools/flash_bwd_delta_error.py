@@ -8,10 +8,21 @@ dQ = scale * dS K then carries that amount along the attention-weighted
 mean key: the larger the keys' shared mean (a key bias, a trained model's
 keys), the larger dQ's error against the exact chain rule.  D summed as
 rowsum(P o dP) from the fp32 P and dP (what ``flash_attention_bwd`` does)
-has no such term.  This script computes, in fp64 on one causal head of
-256 queries and 64 dims with bf16-representable inputs, max |dQ(D from
-bf16 O) - dQ(exact)| / max |dQ(exact)| for key means 0, 1, 3 and 10,
-beside the same with D = rowsum(P o dP) in fp32.  CPU only; a second.
+has no such term.
+
+This script computes, in fp64 on one causal head of 256 queries and 64
+dims with bf16-representable inputs, max |dQ(D) - dQ(exact)| / max
+|dQ(exact)| for key means 0, 1, 3 and 10, with D from:
+
+* the bf16 O;
+* the bf16 O plus its bf16 remainder O_lo = bf16(O_fp32 - bf16(O_fp32)),
+  O_fp32 formed as the forward kernel forms it (the unnormalised P as bf16
+  hi + lo in P V, fp32 sums): the route that would let the backward skip
+  its D sweep;
+* the same O_fp32 unrounded (an fp32 remainder);
+* rowsum(P o dP) in fp32.
+
+CPU only; a second.
 
 Run from the repo root:  PYTHONPATH=src python3 tools/flash_bwd_delta_error.py
 """
@@ -20,9 +31,10 @@ import math
 import torch
 
 B, H, S, HD = 1, 4, 256, 64
+ROUTES = ("bf16 O", "bf16 O + O_lo", "fp32 O", "rowsum(P dP) fp32")
 
 
-def dq_errors(key_mean: float, seed: int = 0) -> tuple[float, float]:
+def dq_errors(key_mean: float, seed: int = 0) -> dict[str, float]:
     gen = torch.Generator().manual_seed(seed)
 
     def draw(shift=0.0):
@@ -40,21 +52,31 @@ def dq_errors(key_mean: float, seed: int = 0) -> tuple[float, float]:
     def dq_with(d):
         return (p * (dp - d[..., None])) @ k * scale
 
+    # O_fp32 as the forward kernel forms it: exp(s - max) as bf16 hi + lo
+    pu = torch.exp(s - s.amax(-1, keepdim=True)).float()
+    hi = pu.bfloat16().float()
+    lo = (pu - hi).bfloat16().float()
+    o32 = ((hi.double() + lo.double()) @ v / pu.sum(-1, keepdim=True).double()
+           ).float()
+    o_hi = o32.bfloat16().float()
+    o_lo = (o32 - o_hi).bfloat16().float()
+    d32 = do.float()
+    ds = {"bf16 O": (do * o.bfloat16().double()).sum(-1),
+          "bf16 O + O_lo": (d32 * (o_hi + o_lo)).sum(-1).double(),
+          "fp32 O": (d32 * o32).sum(-1).double(),
+          "rowsum(P dP) fp32": (p.float() * dp.float()).sum(-1).double()}
     exact = dq_with((do * o).sum(-1))
-    from_bf16_o = dq_with((do * o.bfloat16().double()).sum(-1))
-    p32, dp32 = p.float(), dp.float()
-    from_p_dp = dq_with((p32 * dp32).sum(-1).double())
     top = float(exact.abs().max())
-    return (float((from_bf16_o - exact).abs().max()) / top,
-            float((from_p_dp - exact).abs().max()) / top)
+    return {name: float((dq_with(d) - exact).abs().max()) / top
+            for name, d in ds.items()}
 
 
 def main() -> None:
+    print("max|dq err| / max|dq| with D from: " + "; ".join(ROUTES))
     for mean in (0.0, 1.0, 3.0, 10.0):
-        bf16_o, p_dp = dq_errors(mean)
-        print(f"key mean {mean:4.1f}: max|dq err| / max|dq| with D from "
-              f"bf16 O {bf16_o:.2e}, with D = rowsum(P dP) in fp32 "
-              f"{p_dp:.2e}")
+        errs = dq_errors(mean)
+        print(f"key mean {mean:4.1f}: " + "  ".join(
+            f"{errs[name]:.2e}" for name in ROUTES))
 
 
 if __name__ == "__main__":
