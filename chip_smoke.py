@@ -4,8 +4,9 @@ check them: youtube-dnn serving and training, ptb-lstm training,
 llama3-8b serving, the SoftmaxHead facade, the sparse refresh,
 checkpoint/restart, the overlapped refresh island, the rest of the
 sampler registry (the batch-shared sampler, tapas, the paper's oracles),
-and starcoder2-3b training through the flash attention's backward kernel,
-served through the quantized index.
+starcoder2-3b training through the flash attention's backward kernel,
+served through the quantized index, and falcon-mamba-7b and
+jamba-v0.1-52b serving (the SSM, hybrid and MoE layers).
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -240,15 +241,44 @@ result line):
                  index at beam 16 (agreement with the dense argmax logged),
                  and 16 through the bits-32 index at full beam equal to the
                  dense head's top-10, ties aside.
+ 19. MoE, SSM and hybrid serving — phase 11's run (4 x 512 prompts, 32
+                 greedy steps, top-k through the index at full beam and
+                 beam 8, timings, busy share, peak memory) for (a)
+                 falcon-mamba-7b at full width and depth (64 mamba layers,
+                 d 4,096, d_inner 8,192, state 16, vocab 65,024; 7.27 B
+                 bf16 parameters), then (b) jamba-v0.1-52b at full width
+                 and 16 of its 32 layers (attention at 4 and 12 over 8 KV
+                 heads of 128, no RoPE; 16 experts top-2 at every odd
+                 layer, capacity factor 1.25; mamba elsewhere; 26.05 B
+                 parameters, 52 GB: the whole model fits no 80 GB card),
+                 the first freed before the second is built.  Outside the
+                 counted runs: falcon-mamba's decode against its forward
+                 in bf16 (DECODE_RTOL, decode_rel_rms: DECODE_REL_RMS
+                 scaled to 64 layers) and in fp32 compute from the same
+                 weights (FP32_DECODE_*), the padded-state check in fp32
+                 (a 300-token prefill's SSM states against a token-by-token
+                 decode chain's, and the next h against the forward), its
+                 index's zstats (16, 4,096, 4,096) and leaf_scores' full
+                 beam (64, 4,096, 4,096) against their plain versions,
+                 timed; jamba's prefill against its forward at capacity
+                 1.25 (the same T), decode against the forward at capacity
+                 factor 16 with the forward's routing imposed (``Routes``;
+                 the flips it prevents logged), and its first MoE layer on
+                 the prefill's and a decode step's inputs (T 2,048,
+                 capacity 320; T 4, capacity 2) against a per-expert fp32
+                 evaluation of the same kept assignments (MOE_RTOL), the
+                 drops logged.  jamba's attention shape is phase 10's.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
-each run of 17 and 18's fit are main paths: the kernel
+each run of 17, 18's fit and both runs of 19 are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
 (``expected_launches``), llama serving zstats once, flash_attention (the
 tensor-core kernel) once per layer, flash_attention_simt never,
 starcoder2-3b training flash_attention and flash_attention_bwd once per
-layer and step and zstats once per refresh, and
+layer and step and zstats once per refresh, falcon-mamba-7b and
+jamba-v0.1-52b serving zstats once and jamba flash_attention once per
+attention layer (2, tensor-core), and
 leaf_scores once per index top-k step, the entry run sampled_loss
 once, and the facade, checkpoint and overlap runs exactly what their
 calls and steps need.
@@ -256,9 +286,11 @@ The line before the last is {"kernels": [...]} (training-shape numbers;
 both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 ``launches`` summed over every path but youtube-dnn serving (whose count
 follows the engine's batching), each path's count under
-``launches_by_path``; the other shapes' numbers under serving_*,
+``launches_by_path`` (phase 19's as "falcon-mamba-7b" and
+"jamba-v0.1-52b"); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
-llama_entry_*, llama_index_*, ptb_* (the five kernels at ptb-lstm's
+llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
+ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
 the fused head's bf16_*, skew3_* (90% of the slots on 3 rows) and
@@ -271,6 +303,7 @@ the differences.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -334,7 +367,7 @@ from repro_torch.kernels.midx_scores import (  # noqa: E402
 from repro_torch.kernels.rff_features import rff_features  # noqa: E402
 from repro_torch.kernels.sampled_loss import sampled_loss  # noqa: E402
 from repro_torch.kernels.zstats import zstats  # noqa: E402
-from repro_torch.models import api, layers, transformer  # noqa: E402
+from repro_torch.models import api, layers, moe, transformer  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.transform import apply_updates  # noqa: E402
 from repro_torch.serve import engine, quantized_index, retrieval  # noqa: E402
@@ -2895,6 +2928,21 @@ BF16_ELEM_RTOL = 2.0 ** -7
 #: at three times the 0.0175 measured on the H100.
 DECODE_RTOL = 2.0 ** -3
 DECODE_REL_RMS = 0.05
+#: the same contract with the compute in fp32 (the bf16 weights cast per
+#: use): only summation orders differ, ~2e-5 of max|h| and in relative RMS
+#: through falcon-mamba-7b's 64 layers (an H100 80GB HBM3 at 700 W); 1e-3
+#: keeps a 45x margin and sits far below any fault of the path (the
+#: reference's padded state is 88% of max off)
+FP32_DECODE_RTOL = 1e-3
+FP32_DECODE_REL_RMS = 1e-3
+
+
+def decode_rel_rms(cfg) -> float:
+    """DECODE_REL_RMS for a model of ``cfg.n_layers`` residual layers: it
+    was set for llama3-8b's 32, and each layer's one-ulp differences add
+    on, so a deeper model's bound grows in proportion (falcon-mamba-7b's
+    64 layers: 0.1)."""
+    return DECODE_REL_RMS * max(1.0, cfg.n_layers / 32)
 
 
 def attn_inputs(gen: torch.Generator, b: int, s: int, h: int, kv: int,
@@ -3254,9 +3302,11 @@ def check_topk_ties(tag: str, ids, dids, dlog, k: int) -> int:
     return swaps
 
 
-def llama_index_rows(index, h: torch.Tensor) -> dict[str, dict]:
+def index_kernel_rows(index, h: torch.Tensor, tag: str = "llama3-8b"
+                      ) -> dict[str, dict]:
     """zstats and leaf_scores held against their plain versions at the
-    shapes the llama3-8b main path gives them, and timed there: the leaf
+    shapes an LM's serving main path gives them (llama3-8b's unless
+    ``tag`` names another), and timed there: the leaf
     Grams that ``build_index`` took from zstats, and one more zstats call,
     against zstats_ref of the index's own (32, 4096, 4096) leaf table; then
     leaf_scores' dot mode on the full-beam leaf gather (every leaf for each
@@ -3298,39 +3348,25 @@ def llama_index_rows(index, h: torch.Tensor) -> dict[str, dict]:
         f"{out['leaf_scores']['stream_read_ms']}")
     del rows, hg, h3
     torch.cuda.empty_cache()
-    log_rows("llama3-8b index shapes", out)
+    log_rows(f"{tag} index shapes", out)
     return out
 
 
-def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
-                        ) -> tuple[dict[str, int], dict, dict[str, dict]]:
-    """llama3-8b at full width and depth through the port's serving steps:
-    seeded random bf16 weights, the retrieval index over the head, prefill
-    of 4 x 512 prompts, 32 greedy decode steps, a top-k step through the
-    index at full beam (equal to the dense top-k, ties aside, its top-1
-    the greedy token) and beam-8 top-k steps.  Launch counts are read
-    around exactly that.  Then, outside the counted run: decode against a
-    full forward, zstats and leaf_scores against their plain versions at
-    the index's shapes, timings, memory and the device busy share of a
-    chain of decode steps.  Returns (the path's launch counts, the
-    forward's last hidden states and their tokens for the sampled-loss
-    entry run, the index-shape kernel rows)."""
-    cfg = get_config("llama3-8b")
-    b, s, n_dec, k = LLAMA_BATCH, LLAMA_PROMPT, LLAMA_DECODE, 10
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, gen, device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[llama] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
-        f"{time.perf_counter() - t0:.2f} s")
+def lm_serving(cfg, params, prompts: torch.Tensor, tag: str,
+               want: dict[str, int]) -> types.SimpleNamespace:
+    """An LM's serving main path through the port's steps, at full width:
+    the retrieval index over its head (zstats), prefill of the prompts,
+    LLAMA_DECODE greedy decode steps, a top-k step through the index at
+    full beam (equal to the dense top-k, ties aside, its top-1 the greedy
+    token) and beam-8 top-k steps.  Launch counts are read around exactly
+    that and must equal ``want`` (every other kernel 0).  Then, outside the
+    counted run, the checks and the timings (prefill / decode / top-k
+    times, tokens/s, peak memory, the device busy share of a chain of
+    decode steps).  Returns the run's counts, index, tokens, caches, last
+    token and position, the last step's h and its timings."""
+    b, s = prompts.shape
+    n_dec, k = LLAMA_DECODE, 10
     head = api.head_table(params, cfg)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
-                               ).to(DEV)
     timing: dict = {}
 
     # -- the counted main path ---------------------------------------------
@@ -3361,47 +3397,44 @@ def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
     chain_s = time.perf_counter() - t0
     pos = torch.full((b,), s + n_dec, dtype=torch.long, device=DEV)
     last = tok[:, None].long()
-    ids, logits, caches = engine.make_topk_step(cfg, None, k, index=index)(
+    # every step below starts from the same caches: K/V are rewritten with
+    # the same values at pos, mamba states are returned, not written
+    ids, logits, _ = engine.make_topk_step(cfg, None, k, index=index)(
         params, last, caches, pos)
-    dids, dlog, caches = engine.make_topk_step(cfg, None, k + 1)(
+    dids, dlog, _ = engine.make_topk_step(cfg, None, k + 1)(
         params, last, caches, pos)
-    greedy, caches = decode(params, last, caches, pos)
+    greedy, _ = decode(params, last, caches, pos)
     beam8 = engine.make_topk_step(cfg, None, k, index=index, beam=8)
-    b8_ids, b8_logits, caches = beam8(params, last, caches, pos)
+    b8_ids, b8_logits, _ = beam8(params, last, caches, pos)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"[llama] main path launches {counts}")
-    want = dict.fromkeys(REPLACES, 0)
-    want.update(zstats=1, flash_attention=cfg.n_layers, leaf_scores=2)
-    if counts != want:
-        raise AssertionError(f"llama3-8b serving launches {counts} != {want}")
-    log(f"[llama] all {counts['flash_attention']} prefill attentions went "
-        f"through the tensor-core flash kernel, none through the CUDA-core "
-        f"one")
+    log(f"[{tag}] main path launches {counts}")
+    full_want = dict.fromkeys(REPLACES, 0)
+    full_want.update(want)
+    if counts != full_want:
+        raise AssertionError(f"{tag} serving launches {counts} != "
+                             f"{full_want}")
 
     # -- checks ---------------------------------------------------------------
     if not torch.allclose(logits, dlog[:, :k], rtol=1e-5, atol=0.0):
-        raise AssertionError("full-beam logits differ from the dense top-k")
-    swaps = check_topk_ties("llama full beam", ids, dids, dlog, k)
+        raise AssertionError(f"{tag}: full-beam logits differ from the "
+                             "dense top-k")
+    swaps = check_topk_ties(f"{tag} full beam", ids, dids, dlog, k)
     if not torch.equal(ids[:, 0], greedy):
-        swaps1 = check_topk_ties("llama top-1 vs greedy", ids[:, :1],
+        swaps1 = check_topk_ties(f"{tag} top-1 vs greedy", ids[:, :1],
                                  greedy[:, None], dlog, 1)
-        log(f"[llama] top-1 differs from greedy by {swaps1} tie(s)")
+        log(f"[{tag}] top-1 differs from greedy by {swaps1} tie(s)")
     h = _decode_h(params, cfg, last, caches, pos)
     exact8 = torch.einsum("tkd,td->tk", head.float()[b8_ids.long()], h)
     if not torch.allclose(b8_logits, exact8, rtol=1e-5, atol=1e-5):
-        raise AssertionError("beam-8 logits differ from their exact dots")
-    log(f"[llama] full beam ({index.num_leaves_shard} leaves of "
+        raise AssertionError(f"{tag}: beam-8 logits differ from their "
+                             "exact dots")
+    log(f"[{tag}] full beam ({index.num_leaves_shard} leaves of "
         f"{index.leaf_size}): ids equal the dense top-{k} ({swaps} tie "
         f"swaps), top-1 = greedy token {greedy.tolist()}; beam 8 logits "
         f"exact")
     tokens = torch.cat([prompts] + [g[:, None].long() for g in generated],
                        dim=1)  # (B, 512 + 33)
-    h_full = check_decode_matches_forward(params, cfg, tokens)
-    agree = _greedy_agreement(h_full, head, cfg, tokens)
-    log(f"[llama] greedy tokens equal the full forward's argmax at "
-        f"{agree} of {b * (n_dec + 1)} positions (bf16, not gated)")
-    index_rows = llama_index_rows(index, h)
 
     # -- timings --------------------------------------------------------------
     timing["prefill_ms"] = host_ms(lambda: prefill(params,
@@ -3422,21 +3455,73 @@ def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
     timing["dense_topk_ms"] = host_ms(
         lambda: retrieval.dense_topk(head, h, k, n_valid=cfg.vocab_size))
     timing["recall_at_10_beam8"] = retrieval.recall_at_k(index, head, h, k, 8)
-    timing["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
-                                         / 1e9)
     busy, wall = profile_busy(lambda: decode(params, last, caches, pos),
                               n_dec)
     timing["decode_chain_device_busy_share"] = busy / wall
     timing["decode_chain_device_busy_ms_per_step"] = busy / n_dec / 1e3
     timing["decode_chain_wall_ms_per_step"] = wall / n_dec / 1e3
-    log(f"[llama] timings (host ms medians of 9, synced; H100 per "
+    return types.SimpleNamespace(counts=counts, index=index, tokens=tokens,
+                                 caches=caches, last=last, pos=pos, h=h,
+                                 head=head, timing=timing)
+
+
+def log_timing(tag: str, timing: dict) -> None:
+    timing["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                         / 1e9)
+    log(f"[{tag}] timings (host ms medians of 9, synced; H100 per "
         f"nvidia-smi line): " + json.dumps(timing))
+
+
+def init_lm_params(cfg, gen: torch.Generator, tag: str):
+    """Seeded random weights of ``cfg`` on the card, logged with their
+    count and size; the peak memory statistics reset first."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
+        f"{[kind for kind, _ in transformer.segments_of(cfg)][:8]}..., d "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, experts {cfg.n_experts} x {cfg.moe_d_ff} top-"
+        f"{cfg.moe_top_k}, ssm state {cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
+                        ) -> tuple[dict[str, int], dict, dict[str, dict]]:
+    """llama3-8b at full width and depth (seeded random bf16 weights)
+    through ``lm_serving``: zstats once, flash_attention (the tensor-core
+    kernel) once per layer, leaf_scores once per index top-k step; then
+    decode against a full forward, and zstats and leaf_scores against their
+    plain versions at the index's shapes.  Returns (the path's launch
+    counts, the forward's last hidden states and their tokens for the
+    sampled-loss entry run, the index-shape kernel rows)."""
+    cfg = get_config("llama3-8b")
+    params = init_lm_params(cfg, gen, "llama")
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_PROMPT))).to(DEV)
+    run = lm_serving(cfg, params, prompts, "llama", dict(
+        zstats=1, flash_attention=cfg.n_layers, leaf_scores=2))
+    log(f"[llama] all {run.counts['flash_attention']} prefill attentions "
+        f"went through the tensor-core flash kernel, none through the "
+        f"CUDA-core one")
+    h_full = check_decode_matches_forward(params, cfg, run.tokens)
+    agree = _greedy_agreement(h_full, run.head, cfg, run.tokens)
+    log(f"[llama] greedy tokens equal the full forward's argmax at "
+        f"{agree} of {LLAMA_BATCH * (LLAMA_DECODE + 1)} positions (bf16, "
+        f"not gated)")
+    index_rows = index_kernel_rows(run.index, run.h)
+    log_timing("llama", run.timing)
     out = {"h": h_full[:, :-1].reshape(-1, cfg.d_model),
-           "labels": tokens[:, 1:].reshape(-1), "head": head}
-    del params, index, caches
+           "labels": run.tokens[:, 1:].reshape(-1), "head": run.head}
+    counts = run.counts
+    del params, run
     return counts, out, index_rows
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3455,40 +3540,106 @@ def _decode_h(params, cfg, token, caches, pos) -> torch.Tensor:
     return h[:, 0].float()
 
 
-def check_decode_matches_forward(params, cfg, tokens) -> torch.Tensor:
+class Routes:
+    """The MoE layers' routing of a forward, recorded call by call (one
+    call per MoE layer), then imposed on a prefill or a decode step at the
+    same positions.  An MoE layer's top-k is discontinuous: where two
+    experts' scores nearly tie, bf16 rounding differences between two
+    computations of the same token (GEMMs of M = 4 and of M = 2,180) flip
+    the choice and move that token's output by O(|y|), and the mamba state
+    carries it on.  With the forward's routing imposed, decode = forward
+    holds up to rounding; ``flips`` counts the (token, layer) pairs whose
+    own top-k differed from the forward's."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self.flips = 0
+        self.routed = 0
+
+    @contextlib.contextmanager
+    def recording(self, b: int, s: int):
+        real = moe._route
+
+        def spy(p, x2d, cfg):
+            ids, w, aux = real(p, x2d, cfg)
+            self.calls.append((ids.reshape(b, s, -1), w.reshape(b, s, -1)))
+            return ids, w, aux
+
+        moe._route = spy
+        try:
+            yield
+        finally:
+            moe._route = real
+
+    @contextlib.contextmanager
+    def imposing(self, positions: slice):
+        real = moe._route
+        calls = iter(self.calls)
+
+        def spy(p, x2d, cfg):
+            ids, w, aux = real(p, x2d, cfg)
+            f_ids, f_w = next(calls)
+            f_ids = f_ids[:, positions].reshape(ids.shape)
+            self.flips += int((ids != f_ids).any(dim=-1).sum())
+            self.routed += ids.shape[0]
+            return f_ids, f_w[:, positions].reshape(w.shape), aux
+
+        moe._route = spy
+        try:
+            yield
+        finally:
+            moe._route = real
+
+
+def check_decode_matches_forward(params, cfg, tokens, tag: str = "llama",
+                                 rtol: float = DECODE_RTOL,
+                                 rel_rms: float = DECODE_REL_RMS
+                                 ) -> torch.Tensor:
     """tests/test_serve.py's contract at full width on the card: prefill's
     h equals a full forward's first 512 positions and each of 32 decode
-    steps' h the forward's at its position, within DECODE_RTOL of max
-    |h_forward| element by element and within DECODE_REL_RMS in relative
-    RMS.  Returns the forward's hidden states (B, 545, d)."""
+    steps' h the forward's at its position, within ``rtol`` of max
+    |h_forward| element by element and within ``rel_rms`` in relative
+    RMS.  An MoE model's prefill and decode take the forward's routing
+    (``Routes``), its flips logged.  Returns the forward's hidden states
+    (B, 545, d)."""
     b, s = tokens.shape[0], LLAMA_PROMPT
-    with torch.no_grad():
+    routes = Routes()
+
+    def routed(ctx):
+        return ctx if cfg.n_experts else contextlib.nullcontext()
+
+    with torch.no_grad(), routed(routes.recording(*tokens.shape)):
         h_full, _ = transformer.hidden_states(params, tokens, cfg)
-    h_pre, caches = transformer.prefill(params, tokens[:, :s], cfg,
-                                        max_len=LLAMA_MAX_LEN)
-    errs = [compare("llama prefill h vs forward", h_pre, h_full[:, :s],
-                    rtol=DECODE_RTOL)]
+    with routed(routes.imposing(slice(0, s))):
+        h_pre, caches = transformer.prefill(params, tokens[:, :s], cfg,
+                                            max_len=LLAMA_MAX_LEN)
+    errs = [compare(f"{tag} prefill h vs forward", h_pre, h_full[:, :s],
+                    rtol=rtol)]
     rms = [float(_rel_rms(h_pre, h_full[:, :s]))]
     for i in range(LLAMA_DECODE):
         pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
-        h_dec, caches = transformer.decode_step(
-            params, tokens[:, s + i:s + i + 1], caches, pos, cfg)
+        with routed(routes.imposing(slice(s + i, s + i + 1))):
+            h_dec, caches = transformer.decode_step(
+                params, tokens[:, s + i:s + i + 1], caches, pos, cfg)
         want = h_full[:, s + i]
         err = float((h_dec[:, 0].float() - want.float()).abs().max())
-        if err > DECODE_RTOL * float(want.float().abs().max()):
-            compare(f"llama decode step {i} h vs forward", h_dec[:, 0],
-                    want, rtol=DECODE_RTOL)
+        if err > rtol * float(want.float().abs().max()):
+            compare(f"{tag} decode step {i} h vs forward", h_dec[:, 0],
+                    want, rtol=rtol)
         errs.append(err)
         rms.append(float(_rel_rms(h_dec[:, 0], want)))
-    log(f"[llama] decode vs forward: prefill + {LLAMA_DECODE} steps, max "
+    flips = (f"; the forward's routing imposed: {routes.flips} of "
+             f"{routes.routed} (token, MoE layer) pairs would have routed "
+             f"otherwise" if cfg.n_experts else "")
+    log(f"[{tag}] decode vs forward: prefill + {LLAMA_DECODE} steps, max "
         f"abs err {max(errs)} (max |h| {float(h_full.float().abs().max())}), "
         f"relative RMS err max {max(rms)} mean {statistics.mean(rms)}; "
-        f"tolerances {DECODE_RTOL} x max|h|, relative RMS {DECODE_REL_RMS}")
+        f"tolerances {rtol} x max|h|, relative RMS {rel_rms}{flips}")
     worst = max(range(len(rms)), key=rms.__getitem__)
-    if rms[worst] > DECODE_REL_RMS:
+    if rms[worst] > rel_rms:
         raise AssertionError(
-            f"llama {'prefill' if worst == 0 else f'decode step {worst - 1}'}"
-            f" h vs forward: relative RMS {rms[worst]} > {DECODE_REL_RMS}")
+            f"{tag} {'prefill' if worst == 0 else f'decode step {worst - 1}'}"
+            f" h vs forward: relative RMS {rms[worst]} > {rel_rms}")
     return h_full
 
 
@@ -3799,7 +3950,7 @@ def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
     for (kind, _), seg in zip(transformer.segments_of(cfg),
                               top["segments"]):
         for lp in seg:
-            x = torch.utils.checkpoint.checkpoint(
+            x, _ = torch.utils.checkpoint.checkpoint(
                 transformer._apply_layer, kind, lp, x, positions, cfg,
                 use_reentrant=False)
     return layers.apply_norm(top["final_norm"], x, cfg)
@@ -4136,6 +4287,204 @@ def phase_dense() -> dict[str, int]:
     return counts
 
 
+# --- phase 19: the MoE, SSM and hybrid families' serving ---------------------
+
+#: jamba-v0.1-52b's depth on one card: its first two attention periods (16
+#: of 32 layers: attention at 4 and 12, MoE at every odd layer), ~26 B
+#: bf16 parameters, ~52 GB; the whole model, ~105 GB, fits no 80 GB card
+JAMBA_LAYERS = 16
+#: decode = forward for an MoE model needs a capacity at which no
+#: assignment drops at either T (the reference's tests/test_serve.py:16-23)
+NO_DROP_FACTOR = 16.0
+#: the MoE layer in bf16 against a plain per-expert fp32 evaluation of the
+#: same kept assignments, as a fraction of max|plain|: the bf16 path
+#: rounds gate, up, silu(gate), their product, the down product, its
+#: weighting and the sum of the k = 2 contributions to bf16, seven
+#: roundings of 2^-9 of their own values (7 x 2^-9 < 2^-6), and twice
+#: that where the two contributions partly cancel
+MOE_RTOL = 2.0 ** -5
+#: the ragged prompt of the mamba state check: longer than the scan's
+#: 256-step chunk and not a multiple of it
+RAGGED_PROMPT = 300
+
+
+def attn_layers(cfg) -> int:
+    return sum(n for kind, n in transformer.segments_of(cfg)
+               if kind.startswith("attn"))
+
+
+def moe_plain(p: dict, x2d: torch.Tensor, cfg) -> tuple[torch.Tensor, int]:
+    """The MoE layer (without shared experts: jamba has none) evaluated
+    per expert in fp32 over the assignments that ``moe``'s own routing and
+    slotting keep.  Returns (y (T, d) fp32, the dropped assignments)."""
+    cap = moe.capacity(x2d.shape[0], cfg)
+    ids, w, _ = moe._route(p, x2d, cfg)
+    _, keep = moe._slots(ids, cfg.n_experts, cap)
+    y = torch.zeros(x2d.shape, dtype=torch.float32, device=x2d.device)
+    for e in range(cfg.n_experts):
+        t, j = ((ids == e) & keep).nonzero(as_tuple=True)
+        xe = x2d[t].float()
+        h = torch.nn.functional.silu(xe @ p["w_gate"][e].float()) * (
+            xe @ p["w_up"][e].float())
+        y.index_add_(0, t, (h @ p["w_down"][e].float())
+                     * w[t, j].float()[:, None])
+    return y, int((~keep).sum())
+
+
+def moe_layer_checks(cfg, params, prompts: torch.Tensor, tag: str) -> None:
+    """The first MoE layer held against ``moe_plain`` on the inputs the
+    path gives it: its input in a prefill of the prompts (T 2,048) and in
+    the decode step after it (T 4), captured on the way."""
+    seen = []
+    real = moe.apply_moe
+
+    def spy(p, x, cfg_, ctx=None):
+        if len(seen) < len(calls):
+            seen.append((p, x.detach().clone()))
+        return real(p, x, cfg_, ctx)
+
+    calls = []
+    moe.apply_moe = spy
+    try:
+        calls.append("prefill")
+        _, caches = transformer.prefill(params, prompts, cfg,
+                                        max_len=LLAMA_MAX_LEN)
+        calls.append("decode")
+        pos = torch.full((prompts.shape[0],), prompts.shape[1],
+                         dtype=torch.long, device=DEV)
+        transformer.decode_step(params, prompts[:, -1:], caches, pos, cfg)
+    finally:
+        moe.apply_moe = real
+    for (p, x), what in zip(seen, calls):
+        x2d = x.reshape(-1, cfg.d_model)
+        t = x2d.shape[0]
+        y, _ = moe.apply_moe(p, x, cfg)
+        want, dropped = moe_plain(p, x2d, cfg)
+        compare(f"{tag} MoE layer at the {what}'s shape (T {t}, capacity "
+                f"{moe.capacity(t, cfg)}; {dropped} of "
+                f"{t * cfg.moe_top_k} assignments dropped)",
+                y.reshape(t, -1), want, rtol=MOE_RTOL)
+
+
+def mamba_state_check(cfg, params, rng: np.random.Generator, tag: str,
+                      rtol: float = DECODE_RTOL,
+                      rel_rms: float = DECODE_REL_RMS) -> None:
+    """The reference's padded-state fault (ROADMAP.md C) on the card: after
+    a RAGGED_PROMPT-token prefill, every mamba layer's SSM cache equals the
+    state a token-by-token decode chain reaches over the same tokens, and
+    the next decode step's h equals the forward at that position, each
+    within ``rtol`` x max|want| per element and ``rel_rms`` (each layer's
+    state, and h)."""
+    s, b = RAGGED_PROMPT, LLAMA_BATCH
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s + 1))).to(DEV)
+    _, caches = transformer.prefill(params, tokens[:, :s], cfg,
+                                    max_len=s + 1)
+    chain = transformer.init_cache(cfg, b, s + 1, device=DEV)
+    for t in range(s):
+        pos = torch.full((b,), t, dtype=torch.long, device=DEV)
+        _, chain = transformer.decode_step(params, tokens[:, t:t + 1], chain,
+                                           pos, cfg)
+    rms = []
+    for got, want in zip(caches, chain):
+        if "ssm" in got:
+            compare(f"{tag} prefill's SSM state after {s} tokens vs the "
+                    "decode chain's", got["ssm"], want["ssm"], rtol=rtol)
+            rms += [float(_rel_rms(g, w))
+                    for g, w in zip(got["ssm"], want["ssm"])]
+    pos = torch.full((b,), s, dtype=torch.long, device=DEV)
+    h_dec, _ = transformer.decode_step(params, tokens[:, s:], caches, pos,
+                                       cfg)
+    with torch.no_grad():
+        h_full, _ = transformer.hidden_states(params, tokens, cfg)
+    compare(f"{tag} decode h at position {s} vs forward", h_dec[:, 0],
+            h_full[:, s], rtol=rtol)
+    rms_h = float(_rel_rms(h_dec[:, 0], h_full[:, s]))
+    log(f"[{tag}] padded-state check at S {s}: per-layer state relative "
+        f"RMS max {max(rms)} mean {statistics.mean(rms)}, next h relative "
+        f"RMS {rms_h} (tolerance {rel_rms})")
+    if max(rms + [rms_h]) > rel_rms:
+        raise AssertionError(f"{tag}: the state after {s} tokens or the "
+                             f"next h is off by a relative RMS above "
+                             f"{rel_rms}")
+
+
+def phase_hybrid_serving(gen: torch.Generator, rng: np.random.Generator
+                         ) -> tuple[dict[str, dict[str, int]],
+                                    dict[str, dict]]:
+    """Phase 19: falcon-mamba-7b at full width and depth, then
+    jamba-v0.1-52b at full width and JAMBA_LAYERS of its layers, each
+    through ``lm_serving`` (the first freed before the second is built):
+    zstats once, leaf_scores once per index top-k step, jamba's
+    flash_attention once per attention layer on the tensor-core entry.
+    Then falcon-mamba's decode against its forward, the padded-state
+    check and its index's kernels against their plain versions; jamba's
+    prefill against its forward at its own capacity factor, decode
+    against the forward at NO_DROP_FACTOR, and its MoE layer against a
+    plain fp32 evaluation.  Returns (launch counts by path, falcon-mamba's
+    index-shape kernel rows)."""
+    by_path: dict[str, dict[str, int]] = {}
+
+    tag = "falcon-mamba-7b"
+    cfg = get_config(tag)
+    params = init_lm_params(cfg, gen, tag)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_PROMPT))).to(DEV)
+    run = lm_serving(cfg, params, prompts, tag,
+                     dict(zstats=1, leaf_scores=2))
+    by_path[tag] = run.counts
+    h_full = check_decode_matches_forward(params, cfg, run.tokens, tag,
+                                          rel_rms=decode_rel_rms(cfg))
+    agree = _greedy_agreement(h_full, run.head, cfg, run.tokens)
+    log(f"[{tag}] greedy tokens equal the full forward's argmax at {agree} "
+        f"of {LLAMA_BATCH * (LLAMA_DECODE + 1)} positions (bf16, not "
+        f"gated)")
+    del h_full
+    # the same weights computed in fp32: the path's logic, apart from bf16
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    check_decode_matches_forward(params, cfg32, run.tokens, f"{tag} fp32",
+                                 rtol=FP32_DECODE_RTOL,
+                                 rel_rms=FP32_DECODE_REL_RMS)
+    mamba_state_check(cfg32, params, rng, f"{tag} fp32",
+                      rtol=FP32_DECODE_RTOL, rel_rms=FP32_DECODE_REL_RMS)
+    index_rows = index_kernel_rows(run.index, run.h, tag)
+    log_timing(tag, run.timing)
+    del params, run
+    torch.cuda.empty_cache()
+
+    tag = "jamba-v0.1-52b"
+    cfg = dataclasses.replace(get_config(tag), n_layers=JAMBA_LAYERS)
+    params = init_lm_params(cfg, gen, tag)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_PROMPT))).to(DEV)
+    run = lm_serving(cfg, params, prompts, tag, dict(
+        zstats=1, flash_attention=attn_layers(cfg), leaf_scores=2))
+    by_path[tag] = run.counts
+    log(f"[{tag}] all {run.counts['flash_attention']} prefill attentions "
+        f"went through the tensor-core flash kernel, none through the "
+        f"CUDA-core one")
+    with torch.no_grad():
+        h_full, _ = transformer.hidden_states(params, prompts, cfg)
+    h_pre, _ = transformer.prefill(params, prompts, cfg)
+    compare(f"{tag} prefill h vs forward at capacity factor "
+            f"{cfg.capacity_factor} (the same T: the same drops)", h_pre,
+            h_full, rtol=DECODE_RTOL)
+    rms = float(_rel_rms(h_pre, h_full))
+    if rms > DECODE_REL_RMS:
+        raise AssertionError(f"{tag} prefill h vs forward: relative RMS "
+                             f"{rms} > {DECODE_REL_RMS}")
+    del h_full, h_pre
+    check_decode_matches_forward(
+        params, dataclasses.replace(cfg, capacity_factor=NO_DROP_FACTOR),
+        run.tokens, f"{tag} at capacity factor {NO_DROP_FACTOR}",
+        rel_rms=decode_rel_rms(cfg))
+    moe_layer_checks(cfg, params, prompts, tag)
+    log_timing(tag, run.timing)
+    del params, run
+    torch.cuda.empty_cache()
+    return by_path, index_rows
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -4268,6 +4617,11 @@ def main() -> int:
     del llama
     torch.cuda.empty_cache()
     lap("llama3-8b serving (phases 11-12)")
+    hybrid_paths, shapes["falcon_index"] = phase_hybrid_serving(
+        torch.Generator(device="cuda").manual_seed(19),
+        np.random.default_rng(19))
+    by_path.update(hybrid_paths)
+    lap("MoE, SSM and hybrid serving (phase 19)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

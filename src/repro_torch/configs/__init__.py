@@ -1,10 +1,11 @@
-"""Config registry of the port: the paper's own models and the dense
+"""Config registry of the port: the paper's own models, the dense
 transformer family (llama3-8b, starcoder2-3b, mistral-nemo-12b, qwen2-72b,
-chameleon-34b).
+chameleon-34b), the MoE one (dbrx-132b), the SSM one (falcon-mamba-7b) and
+the hybrid one (jamba-v0.1-52b).
 
-The reference registers the other assigned architectures as well (moe,
-mla, mamba, encdec); each joins here with the slice that ports its
-family."""
+The reference registers two more assigned architectures (deepseek-v3-671b:
+MLA and mtp; whisper-large-v3: encdec); each joins here with the slice
+that ports its parts."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,9 @@ from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
     "chameleon-34b": "chameleon_34b",
+    "dbrx-132b": "dbrx_132b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llama3-8b": "llama3_8b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "ptb-lstm": "ptb_lstm",

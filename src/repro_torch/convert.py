@@ -7,11 +7,14 @@ Both functions take plain numpy arrays (the JAX side converts with
     dict (``{"embed": {"table"}, "head": {"w"}, "tower": {"w0", "b0",
     ...}}``) into the port's ``RecsysTower``, the lstm dict (``{"embed",
     "head", "lstm0": {"kernel", "recurrent", "bias"}, ...}``) into its
-    ``LSTMLM``, the dense LM's ``init_lm`` tree through
-    ``lm_params_from_jax``.  Same layouts, so all three copy.
-  * ``lm_params_from_jax`` — the reference's dense LM params (nested dicts,
-    each segment stacked on a leading layer axis) into the same tree of
-    tensors.
+    ``LSTMLM``, the decoder LMs' ``init_lm`` tree (dense, moe, ssm,
+    hybrid) through ``lm_params_from_jax``.  Same layouts, so all copy.
+  * ``lm_params_from_jax`` — the reference's LM params (nested dicts, each
+    segment stacked on a leading layer axis) into the same tree of
+    tensors, each leaf in its own dtype (the router, ``a_log``, ``d``,
+    ``dt_bias`` and the norms fp32).
+  * ``caches_from_jax`` — the reference's decode caches (per segment
+    ``{"k", "v"}`` or ``{"conv", "ssm"}``) into the port's.
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's.
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
@@ -23,7 +26,9 @@ And back, numpy out:
 
   * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM`` or ``DenseLM`` into
     the reference's param tree (recsys and lstm names split at their first
-    ``_``; a ``DenseLM``'s layers stacked per segment).
+    ``_``; a ``DenseLM``'s layers stacked per segment); an LM's stacked
+    tree leaf for leaf.
+  * ``caches_to_jax`` — the port's decode caches as numpy.
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
     the same tree with the port's own tensors as leaves (no copy; a
@@ -46,8 +51,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
 from repro_torch.models.transformer import (
+    LM_FAMILIES,
     DenseLM,
-    require_dense,
+    require_ported,
     segments_of,
 )
 from repro_torch.serve.quantized_index import QuantizedRetrievalIndex
@@ -252,9 +258,12 @@ def from_reference_tree(tree: TrainState, like: TrainState) -> TrainState:
                       sampler_state=tree.sampler_state, step=int(tree.step))
 
 
-def params_to_jax(model: torch.nn.Module) -> dict:
-    """A ``RecsysTower``, ``LSTMLM`` or ``DenseLM`` -> the reference's
-    param tree of numpy arrays (the inverse of ``params_from_jax``)."""
+def params_to_jax(model: torch.nn.Module | dict) -> dict:
+    """A ``RecsysTower``, ``LSTMLM``, ``DenseLM`` or an LM's stacked tree
+    -> the reference's param tree of numpy arrays (the inverse of
+    ``params_from_jax``)."""
+    if isinstance(model, dict):
+        return _map_tree(host_copy, model)
     return named_to_jax(model, dict(model.named_parameters()))
 
 
@@ -291,40 +300,59 @@ def _leaf(arr, dev: torch.device) -> torch.Tensor:
     return _tensor(arr, dev)
 
 
+def _tensor_tree(tree, dev: torch.device):
+    """A tree of numpy leaves in dicts and lists -> the same of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensor_tree(v, dev) for v in tree]
+    return _leaf(tree, dev)
+
+
 def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
                        device: str | torch.device | None = None) -> dict:
-    """Reference dense-LM params (``transformer.init_lm``'s tree, numpy
-    leaves) -> the port's tree of tensors on ``device`` (the card unless
+    """Reference LM params (``transformer.init_lm``'s tree, numpy leaves)
+    -> the port's tree of tensors on ``device`` (the card unless
     ``device="cpu"``), leaf for leaf."""
     dev = resolve_device(device)
-    require_dense(cfg)
+    require_ported(cfg)
     n_segs = len(segments_of(cfg))
     if len(np_params.get("segments", ())) != n_segs:
         raise ValueError(f"{cfg.name} has {n_segs} segments, the params "
                          f"{len(np_params.get('segments', ()))}")
+    return _tensor_tree(np_params, dev)
 
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [conv(v) for v in tree]
-        return _leaf(tree, dev)
 
-    return conv(np_params)
+def caches_from_jax(np_caches: list, cfg: ArchConfig,
+                    device: str | torch.device | None = None) -> list:
+    """Reference decode caches (``transformer.init_cache`` / ``prefill``'s
+    list, one dict per segment, numpy leaves) -> the port's on
+    ``device`` (the card unless ``device="cpu"``), leaf for leaf."""
+    dev = resolve_device(device)
+    n_segs = len(segments_of(cfg))
+    if len(np_caches) != n_segs:
+        raise ValueError(f"{cfg.name} has {n_segs} segments, the caches "
+                         f"{len(np_caches)}")
+    return _tensor_tree(list(np_caches), dev)
+
+
+def caches_to_jax(caches: list) -> list:
+    """The port's decode caches -> numpy copies, the reference's layout."""
+    return _map_tree(host_copy, list(caches))
 
 
 def params_from_jax(np_params: dict, cfg: ArchConfig,
                     device: str | torch.device | None = None):
     """Reference params (numpy leaves) -> the port's on ``device`` (the
     card unless ``device="cpu"``): a ``RecsysTower`` for recsys, an
-    ``LSTMLM`` for lstm, the stacked tensor tree for the dense family."""
+    ``LSTMLM`` for lstm, the stacked tensor tree for the decoder LMs."""
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         return lm_params_from_jax(np_params, cfg, dev)
     if cfg.family not in api.PARAM_MODULES:
         raise NotImplementedError(
             f"family '{cfg.family}' is not ported yet (only 'recsys', "
-            "'lstm', 'dense')")
+            f"'lstm', {', '.join(repr(f) for f in LM_FAMILIES)})")
     # Built on the meta device, so nothing is allocated or drawn before
     # the copies are assigned.
     model = api.abstract_params(cfg)

@@ -7,10 +7,13 @@
 
 Ported families: ``recsys`` (youtube-dnn; params are a ``RecsysTower``
 module), ``lstm`` (ptb-lstm; an ``LSTMLM`` module, ``models/lstm_lm.py``)
-and ``dense`` (llama3-8b, starcoder2-3b, ...; params are the reference's
-nested dict of stacked tensors, ``models/transformer.py``, and for
-training a ``DenseLM`` module over the same tensors).  The others raise
-``NotImplementedError`` until their slices land.
+and the decoder LMs, ``dense`` (llama3-8b, starcoder2-3b, ...), ``moe``
+(dbrx-132b), ``ssm`` (falcon-mamba-7b) and ``hybrid`` (jamba-v0.1-52b):
+params are the reference's nested dict of stacked tensors
+(``models/transformer.py``), and for training a dense LM a ``DenseLM``
+module over the same tensors.  The moe, ssm and hybrid families serve
+but do not train yet (``init_module`` raises), and encdec raises
+``NotImplementedError`` until its slice lands (ROADMAP.md A16).
 
 ``backbone_hidden`` and ``head_table`` carry gradients: the train step
 differentiates its loss through both (the dense family's attention
@@ -26,7 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lstm_lm, recsys, transformer
 from repro_torch.utils.misc import resolve_device
 
-PORTED_FAMILIES = ("recsys", "lstm", "dense")
+PORTED_FAMILIES = ("recsys", "lstm") + transformer.LM_FAMILIES
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -42,7 +45,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     ``device="cpu"``; no device and no CUDA raises."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in transformer.LM_FAMILIES:
         return transformer.init_lm(gen, cfg, dev)
     if cfg.family == "lstm":
         return lstm_lm.init_lstm_lm(gen, cfg, dev)
@@ -52,7 +55,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 def init_module(cfg: ArchConfig, gen: torch.Generator,
                 device: str | torch.device | None = None) -> torch.nn.Module:
     """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
-    the dense family's tree wrapped in a ``DenseLM`` (no copy)."""
+    the dense family's tree wrapped in a ``DenseLM`` (no copy).  The moe,
+    ssm and hybrid families raise: training them is not ported yet."""
+    if cfg.family in transformer.LM_FAMILIES:
+        transformer.require_dense(cfg)
     params = init_params(cfg, gen, device)
     if cfg.family == "dense":
         return transformer.DenseLM(cfg, resolve_device(device), tree=params)
@@ -64,9 +70,12 @@ PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM,
                  "dense": transformer.DenseLM}
 
 
-def abstract_params(cfg: ArchConfig) -> torch.nn.Module:
-    """The parameters' module on the ``meta`` device: their names, shapes
-    and dtypes, nothing allocated or drawn."""
+def abstract_params(cfg: ArchConfig):
+    """The parameters on the ``meta`` device: their names, shapes and
+    dtypes, nothing allocated or drawn.  The family's module, or for the
+    moe, ssm and hybrid families (serving only) the stacked tree."""
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        return transformer.init_lm(None, cfg, "meta")
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
             f"abstract params of family '{cfg.family}' are not ported yet "
@@ -78,7 +87,7 @@ def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     """The class-embedding table the sampler/loss/index operate on: the
     parameter itself, so a loss through it reaches its gradient."""
     _require_ported(cfg)
-    if cfg.family == "dense":
+    if cfg.family in transformer.LM_FAMILIES:
         params = transformer._top(params)
         if cfg.tie_embeddings or "head" not in params:
             return params["embed"]["table"]
@@ -101,10 +110,11 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
     """Forward to the last hidden layer; flatten (example, feature).
 
     batch keys: recsys — history (B, H), user_feats (B, F), labels (B,);
-    dense and lstm — tokens (B, S), labels (B, S)."""
+    the LMs and lstm — tokens (B, S), labels (B, S).  aux is the MoE
+    layers' load-balance loss (0 for the other families)."""
     _require_ported(cfg)
-    if cfg.family in ("dense", "lstm"):
-        mod = transformer if cfg.family == "dense" else lstm_lm
+    if cfg.family in transformer.LM_FAMILIES + ("lstm",):
+        mod = lstm_lm if cfg.family == "lstm" else transformer
         h, aux = mod.hidden_states(params, batch["tokens"], cfg)
         return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
                 aux)

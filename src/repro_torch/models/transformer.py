@@ -1,29 +1,35 @@
-"""Decoder-only LM of the port (``repro.models.transformer``), the dense
-family: forward, KV caches, prefill and one-token decode.
+"""Decoder-only LM of the port (``repro.models.transformer``): the dense,
+MoE, SSM and hybrid families' forward, caches, prefill and one-token
+decode.
 
 Layers are grouped into homogeneous *segments* (consecutive layers of the
-same kind) and each segment's params are stacked on a leading layer axis,
-as in the reference, so converted params and caches compare like with
-like: params ``{"embed": {"table"}, "final_norm": {...}, "head": {"w"},
-"segments": [stacked layer dicts]}`` and caches ``[{"k", "v"}]`` of
-``(count, B, max_len, KV, hd)``.  The reference scans a segment with
-``lax.scan``; here a Python loop runs its layers, each a view of the
-stacked tensors.
+same mixer + ffn kind: ``attn+mlp``, ``attn+moe``, ``mamba+none``,
+``mamba+mlp``, ``mamba+moe``) and each segment's params are stacked on a
+leading layer axis, as in the reference, so converted params and caches
+compare like with like: params ``{"embed": {"table"}, "final_norm":
+{...}, "head": {"w"}, "segments": [stacked layer dicts]}`` and caches per
+segment ``{"k", "v"}`` of ``(count, B, max_len, KV, hd)`` (attention) or
+``{"conv": (count, B, K-1, d_inner), "ssm": (count, B, d_inner, N) fp32}``
+(mamba).  The reference scans a segment with ``lax.scan``; here a Python
+loop runs its layers, each a view of the stacked tensors.
 
-Training holds the same tree as a ``DenseLM`` module whose layers are
-parameters of their own, views of the stacked tensors: autograd then
-gives each layer its own gradient (the gradient of a layer that indexes a
-stacked parameter would be a zero-filled tensor of the whole stack, per
-layer and step).  Every function here takes either form.  The reference
-rematerializes each layer in the backward (``cfg.remat``); the port keeps
-the activations, which at starcoder2-3b's 4 x 1,024 tokens fit the card.
+Training holds the dense family's tree as a ``DenseLM`` module whose
+layers are parameters of their own, views of the stacked tensors: autograd
+then gives each layer its own gradient (the gradient of a layer that
+indexes a stacked parameter would be a zero-filled tensor of the whole
+stack, per layer and step).  Every function here takes either form.  The
+reference rematerializes each layer in the backward (``cfg.remat``); the
+port keeps the activations, which at starcoder2-3b's 4 x 1,024 tokens fit
+the card.  Training the MoE, SSM and hybrid families arrives with
+ROADMAP.md A16, as do MLA, ``mtp``, learned positions and encdec.
 
 Full-sequence attention (``hidden_states``, ``prefill``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernels for CUDA tensors (under
 autograd with their backward kernel), the plain version for CPU tensors.
 Decode attends with plain tensor ops and writes the new token's K/V into
-the caches in place.  MoE, MLA, mamba and ``mtp`` raise
-``NotImplementedError`` (ROADMAP.md A16).
+the caches in place; a mamba layer's decode returns a new state instead
+(``models/mamba.py``), so a step repeated on the same caches gives the
+same result.
 """
 from __future__ import annotations
 
@@ -32,23 +38,39 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.serve.retrieval import require_unsharded
 from repro_torch.utils.misc import resolve_device
 
 Tensor = torch.Tensor
 Params = dict
 
+#: the families this module serves
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
-def require_dense(cfg: ArchConfig) -> None:
+
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise for the parts of an LM the port has not reached yet."""
     unported = [name for name, on in (
-        ("moe", bool(cfg.n_experts)), ("mla", cfg.mla),
-        ("mamba", cfg.family in ("ssm", "hybrid")), ("mtp", cfg.mtp),
-        ("learned_pos", cfg.learned_pos)) if on]
-    if cfg.family != "dense" or unported:
+        ("mla", cfg.mla), ("mtp", cfg.mtp),
+        ("learned_pos", cfg.learned_pos),
+        ("encdec", cfg.family == "encdec")) if on]
+    if cfg.family not in LM_FAMILIES or unported:
         raise NotImplementedError(
             f"'{cfg.name}' (family '{cfg.family}', {unported or 'no'} "
-            "unported parts) is not ported yet: only dense attention + MLP "
-            "layers are (ROADMAP.md A16)")
+            "unported parts) is not ported yet: only attention, mamba, MLP "
+            "and MoE layers of the dense, moe, ssm and hybrid families are "
+            "(ROADMAP.md A16)")
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    """Training (``DenseLM``) takes the dense family only."""
+    require_ported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training family '{cfg.family}' is not ported yet: only "
+            "'dense' LMs train (ROADMAP.md A16)")
 
 
 def cache_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
@@ -171,22 +193,31 @@ def _layers_of(params, cfg: ArchConfig) -> list[list[Params]]:
 def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig,
                 device: torch.device, tp: int = 1) -> Params:
     mixer, ffn = kind.split("+")
-    if mixer != "attn" or ffn not in ("mlp", "none"):
-        raise NotImplementedError(f"layer kind '{kind}' is not ported yet "
+    if cfg.mla:
+        raise NotImplementedError("MLA attention is not ported yet "
                                   "(ROADMAP.md A16)")
-    p: Params = {"norm1": L.init_norm(cfg, device),
-                 "attn": L.init_attention(gen, cfg, device, tp)}
-    if ffn == "mlp":
+    p: Params = {"norm1": L.init_norm(cfg, device)}
+    if mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg, device, tp)
+    else:
+        p["mamba"] = M.init_mamba_full(gen, cfg, device)
+    if ffn != "none":
         p["norm2"] = L.init_norm(cfg, device)
-        p["mlp"] = L.init_mlp(gen, cfg, device)
+        if ffn == "moe":
+            p["moe"] = MOE.init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, device)
     return p
 
 
 def _init_segment(gen: torch.Generator, kind: str, count: int,
                   cfg: ArchConfig, device: torch.device, tp: int) -> Params:
     """``count`` layers drawn one at a time into stacked tensors (no
-    second copy of the segment is ever held)."""
+    second copy of the segment is ever held; a one-layer segment is its
+    layer's tensors with a leading axis, no copy at all)."""
     first = _init_layer(gen, kind, cfg, device, tp)
+    if count == 1:
+        return _map(lambda t: t[None], first)
     stacked = _map(lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
                                          device=t.device), first)
     for i in range(count):
@@ -209,7 +240,7 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
     ``device="cpu"``).  Vocab rows at and after ``vocab_size`` (TP padding)
     are zero, as in the reference.  On the ``meta`` device nothing is drawn
     (``gen`` may be None): the tree's shapes and dtypes."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     nvp = padded_vocab(cfg, tp)
     pd = L._pdtype(cfg)
@@ -229,14 +260,28 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
 # --- apply -------------------------------------------------------------------
 
 
+def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig
+               ) -> tuple[Tensor, Tensor | None]:
+    """x + the layer's FFN (MLP, MoE or none) of norm2(x), and the MoE's
+    aux loss (None for the others)."""
+    if ffn == "none":
+        return x, None
+    h = L.apply_norm(p["norm2"], x, cfg)
+    if ffn == "moe":
+        y, aux = MOE.apply_moe(p["moe"], h, cfg)
+        return x + y, aux
+    return x + L.apply_mlp(p["mlp"], h, cfg), None
+
+
 def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
-                 cfg: ArchConfig) -> Tensor:
-    ffn = kind.split("+")[1]
-    x = x + L.attn_forward(p["attn"], L.apply_norm(p["norm1"], x, cfg),
-                           positions, cfg)
-    if ffn != "none":
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg)
-    return x
+                 cfg: ArchConfig) -> tuple[Tensor, Tensor | None]:
+    mixer, ffn = kind.split("+")
+    h = L.apply_norm(p["norm1"], x, cfg)
+    if mixer == "attn":
+        x = x + L.attn_forward(p["attn"], h, positions, cfg)
+    else:
+        x = x + M.apply_mamba(p["mamba"], h, cfg)
+    return _apply_ffn(ffn, p, x, cfg)
 
 
 def _positions(b: int, s: int, device: torch.device) -> Tensor:
@@ -245,19 +290,23 @@ def _positions(b: int, s: int, device: torch.device) -> Tensor:
 
 def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
                   ctx=None) -> tuple[Tensor, Tensor]:
-    """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss (0)).
-    ``params``: the stacked tree or a ``DenseLM``; differentiable."""
-    require_dense(cfg)
+    """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss: the MoE
+    layers' summed, 0 without them).  ``params``: the stacked tree or a
+    ``DenseLM``; differentiable."""
+    require_ported(cfg)
     require_unsharded(ctx)
     b, s = tokens.shape
     top = _top(params)
     x = L.apply_embed(top["embed"], tokens, cfg)
     positions = _positions(b, s, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _), layers in zip(segments_of(cfg), _layers_of(params, cfg)):
         for lp in layers:
-            x = _apply_layer(kind, lp, x, positions, cfg)
+            x, a = _apply_layer(kind, lp, x, positions, cfg)
+            if a is not None:
+                aux = aux + a
     x = L.apply_norm(top["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # --- caches / serving --------------------------------------------------------
@@ -267,18 +316,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> list[Params]:
     """Per-segment stacked zero caches sized for max_len tokens, on
-    ``device`` (the card unless ``device="cpu"``)."""
-    require_dense(cfg)
+    ``device`` (the card unless ``device="cpu"``): K/V in ``dtype`` for
+    attention, the conv window in ``dtype`` and the fp32 state for mamba."""
+    require_ported(cfg)
     require_unsharded(ctx)
     dev = resolve_device(device)
     dt = dtype or L._dtype(cfg)
     nkv = cache_kv_heads(cfg)
     hd = cfg.resolved_head_dim
-    return [{"k": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
-                              device=dev),
-             "v": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
-                              device=dev)}
-            for _, count in segments_of(cfg)]
+    caches = []
+    for kind, count in segments_of(cfg):
+        if kind.startswith("attn"):
+            caches.append({
+                "k": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
+                                 device=dev),
+                "v": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
+                                 device=dev)})
+        else:
+            one = M.init_mamba_cache(cfg, batch, dt, dev)
+            caches.append({k: v.new_zeros((count, *v.shape))
+                           for k, v in one.items()})
+    return caches
 
 
 @torch.no_grad()
@@ -286,32 +344,42 @@ def decode_step(params, token: Tensor, caches: list[Params],
                 pos: Tensor, cfg: ArchConfig, ctx=None
                 ) -> tuple[Tensor, list[Params]]:
     """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
-    d), caches), the caches written at ``pos`` IN PLACE and returned."""
-    require_dense(cfg)
+    d), caches): attention segments' K/V written at ``pos`` IN PLACE (the
+    same dicts returned; the given list itself without mamba segments),
+    mamba segments' states in new tensors (the given ones untouched)."""
+    require_ported(cfg)
     require_unsharded(ctx)
     top = _top(params)
     x = L.apply_embed(top["embed"], token, cfg)
+    new_caches = []
     for (kind, _), layers, cache in zip(segments_of(cfg),
                                         _layers_of(params, cfg), caches):
-        ffn = kind.split("+")[1]
+        mixer, ffn = kind.split("+")
+        if mixer == "mamba":
+            new = {k: torch.empty_like(v) for k, v in cache.items()}
         for i, lp in enumerate(layers):
-            y, _, _ = L.attn_decode(lp["attn"],
-                                    L.apply_norm(lp["norm1"], x, cfg),
-                                    cache["k"][i], cache["v"][i], pos, cfg)
-            x = x + y
-            if ffn != "none":
-                x = x + L.apply_mlp(lp["mlp"],
-                                    L.apply_norm(lp["norm2"], x, cfg), cfg)
-    return L.apply_norm(top["final_norm"], x, cfg), caches
+            h = L.apply_norm(lp["norm1"], x, cfg)
+            if mixer == "attn":
+                y, _, _ = L.attn_decode(lp["attn"], h, cache["k"][i],
+                                        cache["v"][i], pos, cfg)
+            else:
+                y, c = M.mamba_decode(lp["mamba"], h, _layer(cache, i), cfg)
+                _copy_into(_layer(new, i), c)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg)
+        new_caches.append(cache if mixer == "attn" else new)
+    if all(n is c for n, c in zip(new_caches, caches)):
+        new_caches = caches
+    return L.apply_norm(top["final_norm"], x, cfg), new_caches
 
 
 @torch.no_grad()
 def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
             max_len: int | None = None) -> tuple[Tensor, list[Params]]:
     """Full-sequence prefill: (h (B, S, d), caches filled to S and zero
-    after it, of length ``max_len`` (default S)).  Every layer's attention
-    is one ``ops.flash_attention`` call."""
-    require_dense(cfg)
+    after it, of length ``max_len`` (default S)).  Every attention layer is
+    one ``ops.flash_attention`` call; a mamba layer's cache is its conv
+    window and its state after the last token."""
+    require_ported(cfg)
     require_unsharded(ctx)
     b, s = tokens.shape
     max_len = max_len or s
@@ -320,18 +388,18 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
     x = L.apply_embed(top["embed"], tokens, cfg)
     positions = _positions(b, s, tokens.device)
     caches = init_cache(cfg, b, max_len, dtype=dt, device=tokens.device)
-    nkv_c = caches[0]["k"].shape[3] if caches else 0
+    nkv_c = cache_kv_heads(cfg)
     for (kind, _), layers, cache in zip(segments_of(cfg),
                                         _layers_of(params, cfg), caches):
-        ffn = kind.split("+")[1]
+        mixer, ffn = kind.split("+")
         for i, lp in enumerate(layers):
-            y, k, v = L.attn_prefill(lp["attn"],
-                                     L.apply_norm(lp["norm1"], x, cfg),
-                                     positions, cfg)
-            x = x + y
-            cache["k"][i, :, :s] = k[:, :, :nkv_c].to(dt)
-            cache["v"][i, :, :s] = v[:, :, :nkv_c].to(dt)
-            if ffn != "none":
-                x = x + L.apply_mlp(lp["mlp"],
-                                    L.apply_norm(lp["norm2"], x, cfg), cfg)
+            h = L.apply_norm(lp["norm1"], x, cfg)
+            if mixer == "attn":
+                y, k, v = L.attn_prefill(lp["attn"], h, positions, cfg)
+                cache["k"][i, :, :s] = k[:, :, :nkv_c].to(dt)
+                cache["v"][i, :, :s] = v[:, :, :nkv_c].to(dt)
+            else:
+                y, c = M.mamba_prefill(lp["mamba"], h, cfg)
+                _copy_into(_layer(cache, i), c)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg)
     return L.apply_norm(top["final_norm"], x, cfg), caches

@@ -6,12 +6,15 @@ Three head paths: the dense full-head MIPS (``index=None``), the
 hierarchy-backed beam retrieval over a ``RetrievalIndex``
 (``serve/retrieval.py``) and the two-stage midx beam over a
 ``QuantizedRetrievalIndex`` (``serve/quantized_index.py``), picked by the
-index's type as the reference picks by its treedef.  The step constructors serve the dense transformer
-family (``models/transformer.py``): ``make_prefill_step`` runs the prompt
-through every layer's flash attention and picks the first token,
-``make_decode_step`` takes one greedy step against the KV caches (written
-in place) and ``make_topk_step`` one step with a top-k over the vocabulary.
-The encoder-decoder family and the mesh path arrive with their slices.
+index's type as the reference picks by its treedef.  The step
+constructors serve the decoder LMs (``models/transformer.py``: the dense,
+moe, ssm and hybrid families): ``make_prefill_step`` runs the prompt
+through every layer (attention through the flash kernel, mamba through its
+chunked scan, MoE through its capacity dispatch) and picks the first
+token, ``make_decode_step`` takes one greedy step against the caches (K/V
+written in place, mamba states replaced) and ``make_topk_step`` one step
+with a top-k over the vocabulary.  The encoder-decoder family and the mesh
+path arrive with their slices.
 """
 from __future__ import annotations
 

@@ -135,12 +135,13 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 
 def test_unported_families_raise():
-    moe = dataclasses.replace(get_config("llama3-8b").reduced(),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        api.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        convert.params_from_jax({}, moe, device="cpu")
+    encdec = dataclasses.replace(get_config("llama3-8b").reduced(),
+                                 family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        api.init_params(encdec, torch.Generator().manual_seed(0),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        convert.params_from_jax({}, encdec, device="cpu")
 
 
 def test_index_from_jax_refuses_sharded_indexes():

@@ -267,15 +267,38 @@ def test_attention_layer_matches_jax():
 
 @pytest.mark.parametrize("change", [
     dict(n_experts=4, moe_top_k=2, moe_d_ff=64), dict(mla=True),
-    dict(mtp=True), dict(family="moe"), dict(family="hybrid")],
-    ids=["moe", "mla", "mtp", "family-moe", "family-hybrid"])
+    dict(mtp=True), dict(family="moe"),
+    dict(family="hybrid", attn_layer_period=2, ssm_state=8),
+    dict(learned_pos=True), dict(family="encdec")],
+    ids=["moe", "mla", "mtp", "family-moe", "family-hybrid", "learned_pos",
+         "encdec"])
 def test_unported_transformer_parts_raise(change):
+    """MLA, mtp, learned positions and encdec still raise; MoE layers and
+    the moe and hybrid families run, against the reference (1e-4 x max:
+    four fp32 layers)."""
     cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.hidden_states({}, torch.zeros((1, 2), dtype=torch.long),
-                                  cfg)
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.init_cache(cfg, 1, 4, device="cpu")
+    if cfg.mla or cfg.mtp or cfg.learned_pos or cfg.family == "encdec":
+        with pytest.raises(NotImplementedError, match="A16"):
+            transformer.hidden_states(
+                {}, torch.zeros((1, 2), dtype=torch.long), cfg)
+        with pytest.raises(NotImplementedError, match="A16"):
+            transformer.init_cache(cfg, 1, 4, device="cpu")
+        return
+    jcfg = dataclasses.replace(JCFG, **change)
+    jp = jax.jit(lambda k: japi.init_params(k, jcfg, CTX))(
+        jax.random.PRNGKey(0))
+    tp = convert.params_from_jax(_np_tree(jp), cfg, device="cpu")
+    tok = _tokens(12)
+    jh, jaux = jax.jit(lambda p, t: jtf.hidden_states(p, t, jcfg, CTX))(
+        jp, jnp.asarray(tok))
+    h, aux = transformer.hidden_states(tp, torch.from_numpy(tok).long(), cfg)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=0,
+                               atol=1e-4 * float(np.abs(jh).max()))
+    np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), rtol=1e-5)
+    want = jtf.init_cache(jcfg, B, 4, CTX, dtype=jnp.float32)
+    got = transformer.init_cache(cfg, B, 4, device="cpu")
+    assert [{k: tuple(v.shape) for k, v in c.items()} for c in got] == [
+        {k: v.shape for k, v in c.items()} for c in want]
 
 
 def test_backbone_hidden_flattens_tokens(params):
