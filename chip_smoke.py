@@ -5,8 +5,9 @@ llama3-8b serving, the SoftmaxHead facade, the sparse refresh,
 checkpoint/restart, the overlapped refresh island, the rest of the
 sampler registry (the batch-shared sampler, tapas, the paper's oracles),
 starcoder2-3b training through the flash attention's backward kernel,
-served through the quantized index, and falcon-mamba-7b and
-jamba-v0.1-52b serving (the SSM, hybrid and MoE layers).
+served through the quantized index, falcon-mamba-7b and jamba-v0.1-52b
+serving (the SSM, hybrid and MoE layers), and their training with
+Adafactor and remat.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -227,8 +228,10 @@ result line):
                  rank 64, blocks of 512) on a cycled pool of 4 batches of 4
                  x 1,024, checkpointing the last (DENSE_CKPT_EVERY: the
                  disk cap): exact launches (flash_attention and
-                 flash_attention_bwd 30 a step, zstats 31), a falling loss,
-                 peak memory under the card's; a profile of two steps; (c)
+                 flash_attention_bwd 30 a step, flash_attention 60: the
+                 config's remat runs each layer's forward again in the
+                 backward; zstats 31), a falling loss, peak memory under
+                 the card's; a profile of two steps; (c)
                  serving_index_source(quantized=True) polled by an
                  IndexRefresher into a ServingEngine: the payload gauge
                  equals payload_bytes of the int8 index, which is at most
@@ -240,7 +243,8 @@ result line):
                  prefill of 4 x 512 and 16 top-10 steps through the int8
                  index at beam 16 (agreement with the dense argmax logged),
                  and 16 through the bits-32 index at full beam equal to the
-                 dense head's top-10, ties aside.
+                 dense head's top-10, ties aside.  The phase must leave at
+                 most LEFTOVER_GB more allocated than it found.
  19. MoE, SSM and hybrid serving — phase 11's run (4 x 512 prompts, 32
                  greedy steps, top-k through the index at full beam and
                  beam 8, timings, busy share, peak memory) for (a)
@@ -268,15 +272,38 @@ result line):
                  capacity 320; T 4, capacity 2) against a per-expert fp32
                  evaluation of the same kept assignments (MOE_RTOL), the
                  drops logged.  jamba's attention shape is phase 10's.
+ 20. MoE, SSM and hybrid training — (a) falcon-mamba-7b at full width and
+                 depth, then (b) jamba-v0.1-52b at full width and 8 of its
+                 32 layers (its first attention period: every layer kind;
+                 13.30 B parameters), each through fit with its default
+                 sampler (block-quadratic-shared), clip + Adafactor and the
+                 config's remat (each layer's forward again in the
+                 backward; the scan's chunks always) for HYBRID_STEPS
+                 steps on a cycled pool of 4 batches of 512-token
+                 sequences (falcon 4 in one microbatch, jamba 8 in its
+                 own 8): exact launches (zstats once per refresh; jamba's
+                 flash_attention twice and flash_attention_bwd once per
+                 microbatch), a falling loss, peak memory under the
+                 card's, Adafactor's state bytes, the MoE aux; a profile
+                 of one step.  Before each fit, at a cut depth (falcon 2
+                 layers, jamba 5: its attention last), the first step's
+                 gradients with remat and without: bitwise equal, or
+                 within REMAT_RTOL with the parameters that differ logged;
+                 and jamba's attention gradients through the kernels
+                 against the plain attention's (phase 18's check).
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
-each run of 17, 18's fit and both runs of 19 are main paths: the kernel
+each run of 17, 18's fit, both runs of 19 and both fits of 20 are main
+paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
 (``expected_launches``), llama serving zstats once, flash_attention (the
 tensor-core kernel) once per layer, flash_attention_simt never,
-starcoder2-3b training flash_attention and flash_attention_bwd once per
-layer and step and zstats once per refresh, falcon-mamba-7b and
+starcoder2-3b training flash_attention twice (remat) and
+flash_attention_bwd once per layer and step and zstats once per refresh,
+falcon-mamba-7b and jamba-v0.1-52b training zstats once per refresh and
+jamba flash_attention twice and flash_attention_bwd once per attention
+layer and microbatch, falcon-mamba-7b and
 jamba-v0.1-52b serving zstats once and jamba flash_attention once per
 attention layer (2, tensor-core), and
 leaf_scores once per index top-k step, the entry run sampled_loss
@@ -287,7 +314,8 @@ both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 ``launches`` summed over every path but youtube-dnn serving (whose count
 follows the engine's batching), each path's count under
 ``launches_by_path`` (phase 19's as "falcon-mamba-7b" and
-"jamba-v0.1-52b"); the other shapes' numbers under serving_*,
+"jamba-v0.1-52b", phase 20's as "falcon-mamba-7b training" and
+"jamba-v0.1-52b training"); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 ptb_* (the five kernels at ptb-lstm's
@@ -305,6 +333,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -1844,13 +1873,15 @@ HAND_KERNELS = ("zstats", "block_scores", "leaf_scores", "fused_lse",
                 "flash_mma", "dkv_wgmma", "dq_wgmma", "dkv_kernel", "dq_kernel")
 
 
-def phase_profile(cfg, state, steps: int = 3, batches=None) -> None:
+def phase_profile(cfg, state, steps: int = 3, batches=None,
+                  opt=None) -> None:
     """Device time by kernel over ``steps`` training steps (torch.profiler,
     device activities only).  The busy time is the union of the device
     intervals; the host wall of the same steps is taken once traced and
     once untraced, and the busy share is given against each.  ``batches``
-    defaults to ``steps`` fresh youtube-dnn batches of TRAIN_BATCH."""
-    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    defaults to ``steps`` fresh youtube-dnn batches of TRAIN_BATCH;
+    ``opt`` (the state's optimizer) to AdamW."""
+    opt = opt or make_optimizer("adamw", 1e-2, weight_decay=0.0)
     train_step = step.make_train_step(cfg, None, opt)
     if batches is None:
         data = batch_iterator_for(cfg, None, TRAIN_BATCH, 1, seed=3000,
@@ -2903,6 +2934,10 @@ DENSE_POOL = 4
 DENSE_CKPT_EVERY = DENSE_STEPS
 #: AdamW's learning rate of the dense run
 DENSE_LR = 3e-4
+#: device memory a training phase may leave allocated behind it (GB): its
+#: train state, checkpoints and index must all be gone (a 3B model's
+#: train state is 31.8 GB)
+LEFTOVER_GB = 0.5
 #: the int8 quantized index's payload over the bits-32 one's, at most: at
 #: d = 3,072 a row is 3,072 int8 + a 4-byte scale + a 4-byte perm entry
 #: against 4 x 3,072 + 8 bytes, 0.2505, plus the codebooks
@@ -3956,7 +3991,23 @@ def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return layers.apply_norm(top["final_norm"], x, cfg)
 
 
-def dense_grad_check(cfg, batch) -> float:
+def fixed_negatives(cfg, model, sstate, batch) -> tuple:
+    """The first step's refresh of ``sstate`` from ``model``'s head and its
+    draw of shared negatives on ``batch`` (step 0's generator): (labels,
+    neg, logq), the step's loss inputs held fixed."""
+    sampler = sampler_from_config(cfg)
+    with torch.no_grad():
+        head = api.head_table(model, cfg).detach()
+        sstate = step.make_refresh_fn(cfg)(head, sstate)
+        h0, labels, _ = api.backbone_hidden(model, batch, cfg)
+        runtime = sampler.island_runtime(sstate, head, cfg.vocab_size)
+        neg, logq = sampler.sample_batch(runtime, h0,
+                                         cfg.m_negatives,
+                                         loop.step_generator(0, 0, DEV))
+    return labels, neg, logq
+
+
+def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
     """The first step of phase 18's fit (seed 0, the pool's first batch,
     its refresh and its draw of shared negatives) differentiated at those
     fixed negatives three ways: through the flash kernels, with every
@@ -3971,17 +4022,9 @@ def dense_grad_check(cfg, batch) -> float:
     state = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
                                   None, opt, device=DEV)
     model = state.params
-    sampler = sampler_from_config(cfg)
     est = estimators.make_estimator(cfg.estimator)
-    with torch.no_grad():
-        head = api.head_table(model, cfg).detach()
-        sstate = step.make_refresh_fn(cfg)(head, state.sampler_state)
-        h0, labels, _ = api.backbone_hidden(model, batch, cfg)
-        runtime = sampler.island_runtime(sstate, head, cfg.vocab_size)
-        neg, logq = sampler.sample_batch(runtime, h0,
-                                         cfg.m_negatives,
-                                         loop.step_generator(0, 0, DEV))
-    del h0
+    labels, neg, logq = fixed_negatives(cfg, model, state.sampler_state,
+                                        batch)
     params = step.param_dict(model)
 
     def grads_of(h2d):
@@ -4018,20 +4061,20 @@ def dense_grad_check(cfg, batch) -> float:
         return out
 
     kern, floor = rel(grads_k, grads_p), rel(grads_q, grads_p)
-    for tag, errs in (("kernels", kern), ("plain over 64-key chunks",
-                                          floor)):
+    for what, errs in (("kernels", kern), ("plain over 64-key chunks",
+                                           floor)):
         worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
-        log(f"[dense] first-step gradients, {tag} against the plain "
+        log(f"[{tag}] first-step gradients, {what} against the plain "
             f"attention (128-key chunks), over {len(errs)} parameters: "
             f"max|diff| / max|plain| worst {worst[:4]}, median "
             f"{statistics.median(e[0] for e in errs.values())}; relative "
             f"norm worst {max(e[1] for e in errs.values())}, median "
             f"{statistics.median(e[1] for e in errs.values())}")
-    log(f"[dense] first step at fixed shared negatives (m {neg.numel()}): "
+    log(f"[{tag}] first step at fixed shared negatives (m {neg.numel()}): "
         f"loss through the kernels {loss_k}, plain {loss_p}, plain over "
         f"64-key chunks {loss_q}")
     if abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
-        raise AssertionError(f"dense loss through the kernels {loss_k} != "
+        raise AssertionError(f"{tag} loss through the kernels {loss_k} != "
                              f"plain {loss_p}")
     for i, measure in enumerate(("max|diff| / max|plain|",
                                  "relative norm")):
@@ -4040,7 +4083,7 @@ def dense_grad_check(cfg, batch) -> float:
             floor_val = stat(v[i] for v in floor.values())
             if got > DENSE_GRAD_FLOOR_FACTOR * floor_val:
                 raise AssertionError(
-                    f"dense gradients through the kernels: {stat.__name__}"
+                    f"{tag} gradients through the kernels: {stat.__name__}"
                     f" {measure} {got} > {DENSE_GRAD_FLOOR_FACTOR} x the "
                     f"two plain versions' {floor_val}")
     del state, model, params, grads_k, grads_p, grads_q
@@ -4048,11 +4091,64 @@ def dense_grad_check(cfg, batch) -> float:
     return max(v[0] for v in kern.values())
 
 
+def forwards(cfg) -> int:
+    """Forward runs of each layer a training step makes: 2 under
+    ``cfg.remat`` (the recompute in the backward), else 1."""
+    return 2 if cfg.remat else 1
+
+
+def params_gb(model) -> float:
+    return sum(p.nbytes for p in model.parameters()) / 1e9
+
+
+def allocated_gb() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _holders(obj, skip, depth: int = 3) -> str:
+    """Who refers to ``obj``, ``depth`` levels up: type names (a frame by
+    its function), the first three referrers at each level (``skip``: the
+    caller's own lists)."""
+    if depth == 0:
+        return ""
+    out = []
+    for r in [r for r in gc.get_referrers(obj) if id(r) not in skip][:3]:
+        name = (f"frame {r.f_code.co_name}" if isinstance(r, types.FrameType)
+                else type(r).__name__)
+        out.append(name + (f" <- ({_holders(r, skip, depth - 1)})"
+                           if depth > 1 else ""))
+    return ", ".join(out) or "nothing in Python"
+
+
+def leftover_report(tag: str, top: int = 6) -> None:
+    """What a phase left allocated: the largest live CUDA tensors (type,
+    storage bytes, whether a view, autograd state) and who holds them,
+    then the allocation after a full collection of reference cycles (what
+    only a cycle held)."""
+    live = sorted((o for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor) and o.is_cuda),
+                  key=lambda t: -t.untyped_storage().nbytes())
+    log(f"[{tag}] {len(live)} live CUDA tensors in Python, storages "
+        f"{sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in live}.values()) / 1e9:.3f} GB")
+    skip = {id(live)}
+    for t in live[:top]:
+        log(f"[{tag}] live {type(t).__name__} {tuple(t.shape)} {t.dtype}, "
+            f"storage {t.untyped_storage().nbytes() / 1e9:.3f} GB, view "
+            f"{t._base is not None}, requires_grad {t.requires_grad}, "
+            f"grad_fn {type(t.grad_fn).__name__}, refcount "
+            f"{sys.getrefcount(t) - 2}, held by {_holders(t, skip)}")
+    del live
+    gc.collect()
+    log(f"[{tag}] {allocated_gb():.3f} GB allocated after gc.collect()")
+
+
 def dense_fit(cfg, pool, ckpt: str) -> tuple[dict[str, int], object]:
     """DENSE_STEPS steps of ``fit`` on the cycled pool, saving every
     DENSE_CKPT_EVERY steps (the last step's only): exact launches
-    (flash_attention and flash_attention_bwd once per layer and step,
-    zstats once per refresh),
+    (flash_attention once per layer and forward run (``forwards``: twice
+    under remat), flash_attention_bwd once per layer and step, zstats once
+    per refresh),
     a finite loss that falls (the mean of the last pass over the pool
     below the first's), peak memory under the card's.  Returns the counts
     and the final state."""
@@ -4083,7 +4179,7 @@ def dense_fit(cfg, pool, ckpt: str) -> tuple[dict[str, int], object]:
         f"{peak / 2**30:.2f} GiB of {card / 2**30:.2f}; launches {counts}")
     want = dict.fromkeys(REPLACES, 0)
     want.update(zstats=DENSE_STEPS + 1,
-                flash_attention=DENSE_STEPS * cfg.n_layers,
+                flash_attention=DENSE_STEPS * cfg.n_layers * forwards(cfg),
                 flash_attention_bwd=DENSE_STEPS * cfg.n_layers)
     if counts != want:
         raise AssertionError(f"dense launches {counts} != {want}")
@@ -4248,6 +4344,16 @@ def dense_decode(cfg, params, idx8, idx32) -> None:
         f"to the dense top-{k} at every step ({swaps} tie swaps)")
 
 
+def copy_params(model, values) -> None:
+    """Each parameter of ``model`` set to its value in ``values``, in
+    place.  A function of its own: a loop variable left in the caller
+    would keep the last parameter, a view of its whole stacked segment,
+    allocated (2.3 GB of starcoder2-3b's ``w_down``)."""
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), values):
+            p.copy_(v)
+
+
 def phase_dense() -> dict[str, int]:
     """Phase 18: starcoder2-3b at full width (30 layers, d 3,072, 24 / 2
     heads of 128, d_ff 12,288, vocab 49,152, bf16, layernorm, tanh gelu,
@@ -4256,10 +4362,15 @@ def phase_dense() -> dict[str, int]:
     pool of DENSE_POOL batches of DENSE_BATCH x DENSE_SEQ, checkpointing,
     then served through the quantized index.  Returns the fit's counts."""
     cfg = get_config(DENSE_ARCH)
+    torch.cuda.empty_cache()
+    before = allocated_gb()
+    log(f"[dense] {before:.3f} GB allocated before the phase")
     data = batch_iterator_for(cfg, None, DENSE_BATCH, DENSE_SEQ, seed=0,
                               device=DEV)
     pool = [next(data) for _ in range(DENSE_POOL)]
     err = dense_grad_check(cfg, pool[0])
+    log(f"[dense] {allocated_gb():.3f} GB allocated after the gradient "
+        "check")
     ckpt = str(Path(__file__).resolve().parent / "build" / "chip_smoke_dense")
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
@@ -4272,18 +4383,27 @@ def phase_dense() -> dict[str, int]:
             trained = [p.detach().clone() for p in params.parameters()]
         phase_profile(cfg, state, steps=2, batches=pool[1:3])
         del state
-        with torch.no_grad():
-            for p, t in zip(params.parameters(), trained):
-                p.copy_(t)
+        copy_params(params, trained)
         del trained
         torch.cuda.empty_cache()
+        log(f"[dense] {allocated_gb():.3f} GB allocated after the fit and "
+            f"the profile ({params_gb(params):.3f} GB of parameters)")
         idx8, idx32 = dense_index_checks(cfg, params, ckpt)
+        log(f"[dense] {allocated_gb():.3f} GB allocated after the index "
+            "checks")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     dense_decode(cfg, params, idx8, idx32)
-    del params, idx8, idx32
+    log(f"[dense] {allocated_gb():.3f} GB allocated after the decode")
+    del params, idx8, idx32, pool, data
     torch.cuda.empty_cache()
-    log(f"[dense] worst first-step gradient error over max|plain| {err}")
+    after = allocated_gb()
+    log(f"[dense] worst first-step gradient error over max|plain| {err}; "
+        f"{after:.3f} GB allocated after the phase ({before:.3f} before)")
+    if after - before > LEFTOVER_GB:
+        leftover_report("dense")
+        raise AssertionError(f"phase 18 left {after - before:.3f} GB "
+                             f"allocated (over {LEFTOVER_GB})")
     return counts
 
 
@@ -4485,6 +4605,200 @@ def phase_hybrid_serving(gen: torch.Generator, rng: np.random.Generator
     return by_path, index_rows
 
 
+# --- phase 20: training the SSM, hybrid and MoE families --------------------
+
+#: jamba-v0.1-52b's training depth on one card: its first attention period,
+#: 8 of 32 layers, the fewest that hold every layer kind (mamba+mlp,
+#: mamba+moe, the attention at 4); 13.30 B parameters, 26.6 GB of bf16
+#: weights and as much again of gradients
+JAMBA_TRAIN_LAYERS = 8
+#: the gradient checks' depths: falcon-mamba's first 2 layers; jamba's
+#: first 5, whose last is its attention layer, so no MoE routing after the
+#: attention can turn the plain attention's rounding into a routing flip
+CHECK_LAYERS = {"falcon-mamba-7b": 2, "jamba-v0.1-52b": 5}
+#: sequences of HYBRID_SEQ tokens a step: falcon-mamba's config trains in
+#: one microbatch, jamba's in its own 8 (one sequence each)
+HYBRID_BATCH = {"falcon-mamba-7b": 4, "jamba-v0.1-52b": 8}
+HYBRID_SEQ = 512
+HYBRID_STEPS = 8
+HYBRID_POOL = 4
+#: Adafactor's learning rate: its updates are clipped to an RMS of 1, so
+#: each weight moves by about this much a step, ~0.6% of a bf16 weight
+#: of ~1/64 at d 4,096 (at 1e-3, 6% a step, falcon-mamba's 64 layers
+#: diverged within four steps on the card)
+HYBRID_LR = 1e-4
+#: the gradients with cfg.remat against without, where they are not
+#: bitwise equal, as a fraction of max|without|: the recompute runs the
+#: same kernels on the same inputs, so only a kernel that sums in an order
+#: of its own choosing (atomics) can differ, by its rounding in the
+#: gradient's dtype (bf16: 2^-8)
+REMAT_RTOL = 2.0 ** -8
+
+
+def hybrid_cfg(tag: str, layers: int | None = None):
+    cfg = get_config(tag)
+    if tag == "jamba-v0.1-52b":
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_TRAIN_LAYERS)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def remat_grad_check(cfg, batch, tag: str) -> None:
+    """The first step's loss (with the MoE aux, the step's weight 0.01) at
+    its own fixed shared negatives differentiated with ``cfg.remat`` and
+    without, on the same weights: the losses equal and every parameter's
+    gradient bitwise equal, or within REMAT_RTOL x max|without| with the
+    parameters that differ logged."""
+    opt = make_optimizer("sgd", 0.0)
+    state = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
+                                  None, opt, device=DEV)
+    model = state.params
+    labels, neg, logq = fixed_negatives(cfg, model, state.sampler_state,
+                                        batch)
+    params = step.param_dict(model)
+    est = estimators.make_estimator(cfg.estimator)
+
+    def grads(remat: bool):
+        c = dataclasses.replace(cfg, remat=remat)
+        h, _, aux = api.backbone_hidden(model, batch, c)
+        loss = torch.mean(estimators.loss_from_embeddings(
+            est, api.head_table(model, c), h, labels, neg, logq,
+            abs_mode=c.abs_softmax, impl=c.head_impl)) + 0.01 * aux
+        return loss.item(), torch.autograd.grad(loss, list(params.values()))
+
+    def peak_over(fn):
+        """fn()'s result and its peak device memory over what was
+        allocated when it began (the other run's gradients aside)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        out = fn()
+        return out, torch.cuda.max_memory_allocated() - start
+
+    (loss_a, ga), peak_a = peak_over(lambda: grads(False))
+    (loss_b, gb), peak_b = peak_over(lambda: grads(True))
+    differ = {}
+    for name, a, b in zip(params, ga, gb):
+        if not torch.equal(a, b):
+            differ[name] = float((a.float() - b.float()).abs().max()) / max(
+                float(a.float().abs().max()), 1e-30)
+    log(f"[{tag}] remat check at {cfg.n_layers} layers: loss without remat "
+        f"{loss_a}, with {loss_b}; {len(params) - len(differ)} of "
+        f"{len(params)} parameter gradients bitwise equal"
+        + (f", the others within {max(differ.values())} of max|grad| "
+           f"({sorted(differ.items(), key=lambda kv: -kv[1])[:6]}): a "
+           "kernel summing in its own order" if differ else "")
+        + f"; peak over the run's start {peak_a / 2**30:.2f} GiB without, "
+        f"{peak_b / 2**30:.2f} with")
+    if loss_a != loss_b and abs(loss_a - loss_b) > 1e-6 * abs(loss_a):
+        raise AssertionError(f"{tag} loss with remat {loss_b} != without "
+                             f"{loss_a}")
+    if differ and max(differ.values()) > REMAT_RTOL:
+        raise AssertionError(f"{tag} gradients with remat differ from "
+                             f"without by {max(differ.values())} > "
+                             f"{REMAT_RTOL} of max|grad|")
+    del state, model, params, ga, gb
+    torch.cuda.empty_cache()
+
+
+def state_bytes(tree) -> int:
+    """Bytes of every tensor in a nested optimizer state."""
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(state_bytes(v) for v in tree)
+    return tree.nbytes if isinstance(tree, torch.Tensor) else 0
+
+
+def hybrid_fit(cfg, pool, tag: str) -> tuple[dict[str, int], object]:
+    """HYBRID_STEPS steps of ``fit`` with clip + Adafactor on the cycled
+    pool: exact launches (zstats once per refresh; each attention layer's
+    flash_attention once per microbatch and forward run, its
+    flash_attention_bwd once per microbatch), finite losses whose mean
+    over the last pass of the pool is below the first's, peak memory under
+    the card's.  Returns the counts, the optimizer and the final state."""
+    opt = make_optimizer("adafactor", HYBRID_LR)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, None, opt, CycledPool(pool), HYBRID_STEPS, seed=0,
+                   log_every=1, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    n = len(pool)
+    first = statistics.mean(res.losses[:n])
+    last = statistics.mean(res.losses[-n:])
+    state = res.state
+    n_params = sum(p.numel() for p in state.params.parameters())
+    mu = max(cfg.microbatches, 1)
+    b, s = pool[0]["tokens"].shape
+    log(f"[{tag} training] {cfg.n_layers} layers, {n_params} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB in bf16); {HYBRID_STEPS} steps of "
+        f"{b} x {s} tokens in {mu} microbatch(es), clip + Adafactor (lr "
+        f"{HYBRID_LR}), remat {cfg.remat}: {wall:.3f} s ({wall / HYBRID_STEPS * 1e3:.1f}"
+        f" ms/step, the first step included); losses {res.losses}; mean of "
+        f"the first pass over the pool {first}, of the last {last}; peak "
+        f"device memory {peak / 2**30:.2f} GiB of {card / 2**30:.2f}; "
+        f"Adafactor state {state_bytes(state.opt_state)} bytes; launches "
+        f"{counts}")
+    with torch.no_grad():
+        _, aux = transformer.hidden_states(state.params, pool[0]["tokens"],
+                                           cfg)
+    log(f"[{tag} training] the MoE aux on the pool's first batch after "
+        f"training: {float(aux)}")
+    attn = attn_layers(cfg)
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(zstats=HYBRID_STEPS + 1,
+                flash_attention=HYBRID_STEPS * mu * attn * forwards(cfg),
+                flash_attention_bwd=HYBRID_STEPS * mu * attn)
+    if counts != want:
+        raise AssertionError(f"{tag} training launches {counts} != {want}")
+    if not all(math.isfinite(x) for x in res.losses) or not last < first:
+        raise AssertionError(f"{tag} training loss not finite or did not "
+                             f"fall: {first} -> {last}")
+    if peak >= card:
+        raise AssertionError(f"{tag} training peak memory {peak} >= the "
+                             f"card's {card}")
+    del res
+    return counts, opt, state
+
+
+def phase_hybrid_train() -> dict[str, dict[str, int]]:
+    """Phase 20: falcon-mamba-7b whole, then jamba-v0.1-52b at
+    JAMBA_TRAIN_LAYERS of its layers (the first freed before the second is
+    built), each trained through ``fit`` with its default sampler
+    (block-quadratic-shared, zstats each refresh) and clip + Adafactor,
+    remat on (the configs'): first the remat check at CHECK_LAYERS (and
+    jamba's attention gradients through the kernels against the plain
+    attention's, ``dense_grad_check``), then ``hybrid_fit`` and a profile
+    of one step.  Returns the fits' launch counts by path."""
+    by_path: dict[str, dict[str, int]] = {}
+    for tag in ("falcon-mamba-7b", "jamba-v0.1-52b"):
+        cfg = hybrid_cfg(tag)
+        data = batch_iterator_for(cfg, None, HYBRID_BATCH[tag], HYBRID_SEQ,
+                                  seed=0, device=DEV)
+        pool = [next(data) for _ in range(HYBRID_POOL)]
+        check = hybrid_cfg(tag, CHECK_LAYERS[tag])
+        probe = {k: v[:4] for k, v in pool[0].items()}
+        remat_grad_check(check, probe, tag)
+        if attn_layers(check):
+            err = dense_grad_check(check, probe, tag=tag)
+            log(f"[{tag}] worst first-step gradient error over max|plain| "
+                f"{err} ({check.n_layers} layers)")
+        torch.cuda.empty_cache()
+        counts, opt, state = hybrid_fit(cfg, pool, tag)
+        by_path[f"{tag} training"] = counts
+        phase_profile(cfg, state, steps=1, batches=pool[1:2], opt=opt)
+        del state, opt, pool, data
+        torch.cuda.empty_cache()
+        log(f"[{tag} training] {allocated_gb():.3f} GB allocated after")
+    return by_path
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -4622,6 +4936,8 @@ def main() -> int:
         np.random.default_rng(19))
     by_path.update(hybrid_paths)
     lap("MoE, SSM and hybrid serving (phase 19)")
+    by_path.update(phase_hybrid_train())
+    lap("MoE, SSM and hybrid training (phase 20)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

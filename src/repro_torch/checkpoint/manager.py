@@ -12,7 +12,7 @@ a tuple or list entry its index, joined by ``/``.  A port ``TrainState``
 is flattened in the reference's tree (``convert.reference_tree``: params
 nested by name, ``.step`` a 0-d int32 array), e.g.
 ``.params/head/w``, ``.opt_state/1/m/head/w``, ``.sampler_state/.stats/z``;
-a ``DenseLM``'s layers stacked per segment as the reference holds them
+a ``StackedLM``'s layers stacked per segment as the reference holds them
 (``.params/segments/0/attn/wq``), on the host only.  bf16 arrays are
 stored as numpy stores the reference's: 2-byte voids holding their bits.
 

@@ -18,22 +18,23 @@ Both functions take plain numpy arrays (the JAX side converts with
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's.
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
-    lstm or dense model (params, the ``chain(clip, adamw)`` state, the
-    sampler's carried state and the step) into the port's ``TrainState``,
-    so both packages can take a step from one state.
+    lstm or LM model (params, the ``chain(clip, adamw)`` or ``chain(clip,
+    adafactor)`` state, the sampler's carried state and the step) into
+    the port's ``TrainState``, so both packages can take a step from one
+    state.
 
 And back, numpy out:
 
-  * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM`` or ``DenseLM`` into
-    the reference's param tree (recsys and lstm names split at their first
-    ``_``; a ``DenseLM``'s layers stacked per segment); an LM's stacked
-    tree leaf for leaf.
+  * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM`` or ``StackedLM``
+    into the reference's param tree (recsys and lstm names split at their
+    first ``_``; a ``StackedLM``'s layers stacked per segment); an LM's
+    stacked tree leaf for leaf.
   * ``caches_to_jax`` — the port's decode caches as numpy.
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
     the same tree with the port's own tensors as leaves (no copy; a
-    ``DenseLM`` layer stack as a ``Stacked`` of its layers' tensors): what
-    the checkpoint manager flattens into the reference's keys.
+    ``StackedLM`` layer stack as a ``Stacked`` of its layers' tensors):
+    what the checkpoint manager flattens into the reference's keys.
   * ``index_to_jax`` — a port index's fields as numpy.
 
 bf16 tensors cross as numpy's 2-byte void type (``|V2``), their raw bits:
@@ -52,10 +53,12 @@ from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
 from repro_torch.models.transformer import (
     LM_FAMILIES,
-    DenseLM,
+    StackedLM,
     require_ported,
     segments_of,
 )
+from repro_torch.optim import adafactor, adamw, chain, clip_by_global_norm
+from repro_torch.optim.adafactor import stacks as adafactor_stacks
 from repro_torch.serve.quantized_index import QuantizedRetrievalIndex
 from repro_torch.serve.retrieval import RetrievalIndex
 from repro_torch.train.step import TrainState
@@ -76,23 +79,9 @@ def _flat_params(np_params: dict) -> dict:
     return flat
 
 
-def _nest_params(flat: dict) -> dict:
-    """The inverse of ``_flat_params`` for the recsys and lstm trees: each
-    name split at its first ``_`` (``head_w`` -> ``head.w``, ``lstm0_kernel``
-    -> ``lstm0.kernel``); their top-level keys hold no ``_``."""
-    nested: dict = {}
-    for name, val in flat.items():
-        top, _, rest = name.partition("_")
-        if rest:
-            nested.setdefault(top, {})[rest] = val
-        else:
-            nested[top] = val
-    return nested
-
-
 class Stacked:
     """Tensors the reference keeps stacked on a leading layer axis and the
-    port holds apart (a ``DenseLM`` segment's layers, or their optimizer
+    port holds apart (a ``StackedLM`` segment's layers, or their optimizer
     moments): a leaf of ``reference_tree``, stacked only when copied to the
     host (``host_copy``), so the card never holds a second copy."""
 
@@ -137,103 +126,121 @@ def _map_tree(fn, tree):
     return tree if tree is None else fn(tree)
 
 
-def _set_path(tree: dict, path, val) -> None:
+def _set_path(tree, path, val) -> None:
     for key in path[:-1]:
-        tree = tree.setdefault(key, {})
+        tree = tree[key] if isinstance(tree, list) else tree.setdefault(
+            key, {})
     tree[path[-1]] = val
 
 
-def _dense_tree(named: dict, counts: list[int]) -> dict:
-    """A ``DenseLM``'s parameter names (or a dict keyed by them: its
-    optimizer moments) -> the reference's tree: ``embed.table`` ->
-    ``{"embed": {"table"}}``, and segment s's per-layer entries
-    ``segments.<s>.<i>.attn.wq`` -> ``segments[s]["attn"]["wq"]``, a
-    ``Stacked`` of the layers in order."""
-    out: dict = {}
-    layers: dict = {}
-    for name, val in named.items():
+def _path(name: str, model: torch.nn.Module) -> tuple[list, int | None]:
+    """Where a parameter name, or a stack key of the optimizer's state
+    (``optim.adafactor.stacks``), sits in the reference's tree: (the path
+    to the leaf, the layer's row of it or None).  A ``StackedLM``'s
+    ``segments.<s>.<i>.<path>`` is row i of ``segments[s][path]``, its
+    stack key ``segments.<s>.<path>`` the whole leaf; a recsys or lstm
+    name splits at its first ``_`` (their top-level keys hold none)."""
+    if isinstance(model, StackedLM):
         parts = name.split(".")
-        if parts[0] == "segments":
-            key = (int(parts[1]), tuple(parts[3:]))
-            layers.setdefault(key, {})[int(parts[2])] = val
-        else:
-            _set_path(out, parts, val)
-    segs: list[dict] = [{} for _ in counts]
-    for (seg, path), by_layer in layers.items():
-        _set_path(segs[seg], path, Stacked(by_layer[i]
-                                           for i in range(counts[seg])))
-    out["segments"] = segs
-    return out
-
-
-def _dense_named(tree: dict) -> dict:
-    """The inverse of ``_dense_tree``: a reference dense tree (stacked
-    leaves: arrays, tensors or ``Stacked``) -> ``DenseLM`` names, each
-    layer's entry a row of its stacked leaf."""
-    named = {}
-
-    def walk(node, prefix, seg):
-        for key, val in node.items():
-            name = f"{prefix}.{key}" if prefix else key
-            if isinstance(val, dict):
-                walk(val, name, seg)
-            elif seg is None:
-                named[name] = val
-            else:
-                parts = val.parts if isinstance(val, Stacked) else val
-                for i in range(len(parts)):
-                    named[f"segments.{seg}.{i}.{name}"] = parts[i]
-
-    walk({k: v for k, v in tree.items() if k != "segments"}, "", None)
-    for seg, seg_tree in enumerate(tree["segments"]):
-        walk(seg_tree, "", seg)
-    return named
+        if parts[0] != "segments":
+            return parts, None
+        if parts[2].isdigit():
+            return ["segments", int(parts[1]), *parts[3:]], int(parts[2])
+        return ["segments", int(parts[1]), *parts[2:]], None
+    top, _, rest = name.partition("_")
+    return ([top, rest] if rest else [top]), None
 
 
 def _to_reference(named: dict, model: torch.nn.Module) -> dict:
-    """Parameter names -> the reference's param tree, by model."""
-    if isinstance(model, DenseLM):
-        return _dense_tree(named, model.counts)
-    return _nest_params(named)
+    """A dict keyed by ``model``'s parameter names (the parameters, a
+    moment) or by stack keys (Adafactor's statistics) -> the reference's
+    tree: each value at its path, a ``StackedLM`` segment's per-layer
+    entries as one ``Stacked`` of the layers in order."""
+    out: dict = ({"segments": [{} for _ in model.counts]}
+                 if isinstance(model, StackedLM) else {})
+    rows: dict = {}
+    for name, val in named.items():
+        path, i = _path(name, model)
+        if i is None:
+            _set_path(out, path, val)
+        else:
+            rows.setdefault(tuple(path), {})[i] = val
+    for path, by_layer in rows.items():
+        _set_path(out, path, Stacked(by_layer[i]
+                                     for i in range(len(by_layer))))
+    return out
 
 
-def _from_reference(tree: dict, model: torch.nn.Module) -> dict:
-    """The reference's param tree -> the model's parameter names."""
-    if isinstance(model, DenseLM):
-        return _dense_named(tree)
-    return _flat_params(tree)
+def _from_reference(tree: dict, keys, model: torch.nn.Module) -> dict:
+    """The inverse of ``_to_reference`` for the given keys: each key's
+    value read at its path, a per-layer name's as its row of the stacked
+    leaf (a ``Stacked``'s part, or a view of the tensor)."""
+    out = {}
+    for key in keys:
+        path, i = _path(key, model)
+        node = tree
+        for k in path:
+            node = node[k]
+        if i is not None:
+            node = node.parts[i] if isinstance(node, Stacked) else node[i]
+        out[key] = node
+    return out
 
 
 def _module_of(state: TrainState) -> torch.nn.Module:
+    modules = sorted({m.__name__ for m in api.PARAM_MODULES.values()})
     if not isinstance(state.params, tuple(api.PARAM_MODULES.values())):
         raise NotImplementedError(
             f"{type(state.params).__name__} training states are not ported "
-            "yet (ROADMAP.md A16); only "
-            f"{', '.join(m.__name__ for m in api.PARAM_MODULES.values())}")
+            f"yet (ROADMAP.md A16); only {', '.join(modules)}")
     return state.params
+
+
+def _key_sets(model: torch.nn.Module) -> tuple[set, set]:
+    """``model``'s parameter names and the optimizer's stack keys: the
+    key sets of the optimizer-state dicts that follow the params."""
+    names = [n for n, _ in model.named_parameters()]
+    return set(names), set(adafactor_stacks(names))
+
+
+def _opt_to_reference(node, model: torch.nn.Module, keys: tuple[set, set]):
+    """An optimizer state with every dict keyed by parameter names or
+    stack keys put in the reference's tree, bottom up."""
+    if isinstance(node, dict):
+        node = {k: _opt_to_reference(v, model, keys) for k, v in node.items()}
+        return _to_reference(node, model) if set(node) in keys else node
+    if isinstance(node, (tuple, list)):
+        return type(node)(_opt_to_reference(v, model, keys) for v in node)
+    return node
+
+
+def _opt_from_reference(node, like, model: torch.nn.Module,
+                        keys: tuple[set, set]):
+    """The inverse of ``_opt_to_reference``, shaped by the port-form state
+    ``like`` (``meta`` leaves are fine): the reference-form ``node``'s
+    values at ``like``'s keys."""
+    if isinstance(like, dict):
+        if set(like) in keys:
+            node = _from_reference(node, like, model)
+        return {k: _opt_from_reference(node[k], v, model, keys)
+                for k, v in like.items()}
+    if isinstance(like, (tuple, list)):
+        return type(like)(_opt_from_reference(n, v, model, keys)
+                          for n, v in zip(node, like))
+    return node
 
 
 def reference_tree(state: TrainState) -> TrainState:
     """The port's ``TrainState`` in the reference's tree, leaves untouched
     (``meta`` tensors stay ``meta``): params nested by name (a
-    ``DenseLM``'s layers as ``Stacked`` leaves), every dict of the
-    optimizer state keyed by the parameter names nested the same way, the
-    step a 0-d int32 tensor."""
+    ``StackedLM``'s layers as ``Stacked`` leaves), every dict of the
+    optimizer state keyed by the parameter names or by stack keys nested
+    the same way, the step a 0-d int32 tensor."""
     model = _module_of(state)
-    names = {n for n, _ in model.named_parameters()}
-
-    def opt_tree(node):
-        if isinstance(node, dict):
-            node = {k: opt_tree(v) for k, v in node.items()}
-            return _to_reference(node, model) if set(node) == names \
-                else node
-        if isinstance(node, (tuple, list)):
-            return type(node)(opt_tree(v) for v in node)
-        return node
-
     return TrainState(
         params=_to_reference(dict(model.named_parameters()), model),
-        opt_state=opt_tree(state.opt_state),
+        opt_state=_opt_to_reference(state.opt_state, model,
+                                    _key_sets(model)),
         sampler_state=SamplerState(stats=dict(state.sampler_state.stats),
                                    const=dict(state.sampler_state.const)),
         step=torch.tensor(state.step, dtype=torch.int32))
@@ -241,25 +248,21 @@ def reference_tree(state: TrainState) -> TrainState:
 
 def from_reference_tree(tree: TrainState, like: TrainState) -> TrainState:
     """The inverse of ``reference_tree``: ``like`` gives the module (its
-    class and configuration; ``meta`` is fine), the tree the tensors."""
+    class and configuration; ``meta`` is fine) and the optimizer state's
+    form, the tree the tensors."""
     model = copy.deepcopy(_module_of(like))
-    model.load_state_dict(_from_reference(tree.params, model), assign=True)
-
-    def opt_tree(node):
-        if isinstance(node, dict):
-            flat = _from_reference(node, model) \
-                if set(node) == set(tree.params) else node
-            return {k: opt_tree(v) for k, v in flat.items()}
-        if isinstance(node, (tuple, list)):
-            return type(node)(opt_tree(v) for v in node)
-        return node
-
-    return TrainState(params=model, opt_state=opt_tree(tree.opt_state),
+    keys = _key_sets(model)
+    model.load_state_dict(_from_reference(tree.params, keys[0], model),
+                          assign=True)
+    return TrainState(params=model,
+                      opt_state=_opt_from_reference(tree.opt_state,
+                                                    like.opt_state, model,
+                                                    keys),
                       sampler_state=tree.sampler_state, step=int(tree.step))
 
 
 def params_to_jax(model: torch.nn.Module | dict) -> dict:
-    """A ``RecsysTower``, ``LSTMLM``, ``DenseLM`` or an LM's stacked tree
+    """A ``RecsysTower``, ``LSTMLM``, ``StackedLM`` or an LM's stacked tree
     -> the reference's param tree of numpy arrays (the inverse of
     ``params_from_jax``)."""
     if isinstance(model, dict):
@@ -301,11 +304,12 @@ def _leaf(arr, dev: torch.device) -> torch.Tensor:
 
 
 def _tensor_tree(tree, dev: torch.device):
-    """A tree of numpy leaves in dicts and lists -> the same of tensors."""
+    """A tree of numpy leaves in dicts, tuples and lists -> the same of
+    tensors."""
     if isinstance(tree, dict):
         return {k: _tensor_tree(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tensor_tree(v, dev) for v in tree]
+        return type(tree)(_tensor_tree(v, dev) for v in tree)
     return _leaf(tree, dev)
 
 
@@ -366,31 +370,40 @@ def params_from_jax(np_params: dict, cfg: ArchConfig,
     return model
 
 
+#: the reference optimizer's state keys -> the port's transform, for the
+#: template of a carried state
+_OPTIMIZERS = {frozenset({"m", "v", "step"}): adamw,
+               frozenset({"v", "step"}): adafactor}
+
+
 def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
                          step: int, cfg: ArchConfig,
                          device: str | torch.device | None = None
                          ) -> TrainState:
     """A reference ``TrainState`` as numpy -> the port's, on ``device``.
 
-    np_params: the recsys, lstm or dense param tree; np_opt_state: the
-    state of ``make_optimizer("adamw", ...)``, i.e. ``((), {"m": tree,
-    "v": tree, "step": int32})``; np_sampler: ``{"stats": {...}, "const":
-    {...}}`` of the sampler's carried state (``{}`` dicts for none); step:
-    the train step count."""
+    np_params: the recsys, lstm or LM param tree; np_opt_state: the state
+    of ``make_optimizer("adamw", ...)``, i.e. ``((), {"m": tree, "v":
+    tree, "step": int32})``, or of ``make_optimizer("adafactor", ...)``,
+    ``((), {"v": tree of {"vr", "vc"} or {"v"}, "step": int32})``;
+    np_sampler: ``{"stats": {...}, "const": {...}}`` of the sampler's
+    carried state (``{}`` dicts for none); step: the train step count."""
     dev = resolve_device(device)
     model = params_from_jax(np_params, cfg, device=dev)
-    if cfg.family == "dense":
-        model = DenseLM(cfg, dev, tree=model)
-    clip_state, adam = np_opt_state
-    if clip_state != () or set(adam) != {"m", "v", "step"}:
+    if cfg.family in LM_FAMILIES:
+        model = StackedLM(cfg, dev, tree=model)
+    clip_state, core = np_opt_state
+    opt = _OPTIMIZERS.get(frozenset(core)) \
+        if isinstance(core, dict) else None
+    if clip_state != () or opt is None:
         raise NotImplementedError(
-            "only the chain(clip_by_global_norm, adamw) state is carried")
-    opt_state = ((), {
-        "m": {k: _tensor(v, dev) for k, v in
-              _from_reference(adam["m"], model).items()},
-        "v": {k: _tensor(v, dev) for k, v in
-              _from_reference(adam["v"], model).items()},
-        "step": _tensor(adam["step"], dev, torch.int32)})
+            "only the chain(clip_by_global_norm, adamw) and chain("
+            "clip_by_global_norm, adafactor) states are carried")
+    meta = api.abstract_params(cfg)
+    like = chain(clip_by_global_norm(1.0), opt(0.0)).init(
+        dict(meta.named_parameters()))
+    opt_state = _opt_from_reference(_tensor_tree(np_opt_state, dev), like,
+                                    model, _key_sets(model))
     sampler_state = SamplerState(
         stats={k: _tensor(v, dev) for k, v in np_sampler["stats"].items()},
         const={k: _tensor(v, dev) for k, v in np_sampler["const"].items()})

@@ -15,6 +15,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import SyntheticLM, SyntheticRecsys
 from repro_torch.utils.misc import fold_in, resolve_device
 
+#: the families whose batches are ``SyntheticLM`` token chains
+TOKEN_FAMILIES = ("lstm", "dense", "moe", "ssm", "hybrid")
+
 
 class ShardedBatchIterator:
     def __init__(self, sample_fn: Callable[[torch.Generator], dict],
@@ -51,14 +54,15 @@ def batch_iterator_for(cfg: ArchConfig, ctx, global_batch: int,
                        device: str | torch.device | None = None
                        ) -> ShardedBatchIterator:
     """Synthetic batches for ``cfg`` on ``device`` (the card unless
-    ``device="cpu"``): recsys (``seq_len`` unused), and the dense and lstm
-    LMs (``SyntheticLM`` token sequences of ``seq_len``) are ported."""
-    if cfg.family not in ("recsys", "lstm", "dense"):
+    ``device="cpu"``): recsys (``seq_len`` unused), and the lstm and
+    decoder LMs (``SyntheticLM`` token sequences of ``seq_len``, the
+    reference's non-recsys, non-encdec branch) are ported."""
+    if cfg.family not in ("recsys",) + TOKEN_FAMILIES:
         raise NotImplementedError(
             f"synthetic data for family '{cfg.family}' is not ported yet "
-            "(only 'recsys', 'lstm', 'dense')")
+            f"(only {', '.join(('recsys',) + TOKEN_FAMILIES)})")
     dev = resolve_device(device)
-    if cfg.family in ("lstm", "dense"):
+    if cfg.family in TOKEN_FAMILIES:
         lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed,
                          device=str(dev))
         return ShardedBatchIterator(

@@ -10,10 +10,9 @@ module), ``lstm`` (ptb-lstm; an ``LSTMLM`` module, ``models/lstm_lm.py``)
 and the decoder LMs, ``dense`` (llama3-8b, starcoder2-3b, ...), ``moe``
 (dbrx-132b), ``ssm`` (falcon-mamba-7b) and ``hybrid`` (jamba-v0.1-52b):
 params are the reference's nested dict of stacked tensors
-(``models/transformer.py``), and for training a dense LM a ``DenseLM``
-module over the same tensors.  The moe, ssm and hybrid families serve
-but do not train yet (``init_module`` raises), and encdec raises
-``NotImplementedError`` until its slice lands (ROADMAP.md A16).
+(``models/transformer.py``), and for training a ``StackedLM`` module over
+the same tensors.  encdec raises ``NotImplementedError`` until its slice
+lands (ROADMAP.md A16).
 
 ``backbone_hidden`` and ``head_table`` carry gradients: the train step
 differentiates its loss through both (the dense family's attention
@@ -55,27 +54,23 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 def init_module(cfg: ArchConfig, gen: torch.Generator,
                 device: str | torch.device | None = None) -> torch.nn.Module:
     """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
-    the dense family's tree wrapped in a ``DenseLM`` (no copy).  The moe,
-    ssm and hybrid families raise: training them is not ported yet."""
-    if cfg.family in transformer.LM_FAMILIES:
-        transformer.require_dense(cfg)
+    an LM's tree wrapped in a ``StackedLM`` (no copy)."""
     params = init_params(cfg, gen, device)
-    if cfg.family == "dense":
-        return transformer.DenseLM(cfg, resolve_device(device), tree=params)
+    if cfg.family in transformer.LM_FAMILIES:
+        return transformer.StackedLM(cfg, resolve_device(device),
+                                     tree=params)
     return params
 
 
 #: family -> the module of its params
 PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM,
-                 "dense": transformer.DenseLM}
+                 **dict.fromkeys(transformer.LM_FAMILIES,
+                                 transformer.StackedLM)}
 
 
 def abstract_params(cfg: ArchConfig):
-    """The parameters on the ``meta`` device: their names, shapes and
-    dtypes, nothing allocated or drawn.  The family's module, or for the
-    moe, ssm and hybrid families (serving only) the stacked tree."""
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        return transformer.init_lm(None, cfg, "meta")
+    """The parameters on the ``meta`` device, as the family's module:
+    their names, shapes and dtypes, nothing allocated or drawn."""
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
             f"abstract params of family '{cfg.family}' are not ported yet "

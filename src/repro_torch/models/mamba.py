@@ -7,7 +7,11 @@ and within a chunk a work-efficient log-step scan (``_scan_chunk``: pairs
 combined level by level, then the even steps filled in) computes every
 step's state, so the transient (B, chunk, d_inner, N) tensors stay a
 chunk long instead of the whole sequence.  All of it is plain tensor ops:
-the reference has no Pallas kernel here.
+the reference has no Pallas kernel here.  Under autograd each chunk's
+body is checkpointed (``torch.utils.checkpoint``, non-reentrant), as the
+reference wraps it in ``jax.checkpoint``: a chunk keeps only its inputs
+and its log-step scan runs again in the backward, so the scan's
+(B, chunk, d_inner, N) fp32 levels are held for one chunk at a time.
 
 One difference, on purpose: the reference pads the sequence with zeros up
 to a multiple of the chunk, and its final state is the state AFTER that
@@ -23,7 +27,15 @@ from __future__ import annotations
 import math
 
 import torch
+# ``torch.utils.checkpoint`` imports ``torch._dynamo`` at its first call,
+# and that import leaves a reference cycle over the calling frames (a
+# module-level ``torch.fx.wrap`` keeps its own frame): the first remat
+# caller's tensors, a model's weights among them, would stay allocated
+# until the cyclic collector happened to run.  Imported here, at module
+# level, the cycle holds import frames only.
+import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import _pdtype, dense_init
@@ -125,13 +137,25 @@ def _scan(a: Tensor, b: Tensor) -> Tensor:
     return h
 
 
+def _chunk_body(h: Tensor, delta: Tensor, dx: Tensor, b_ssm: Tensor,
+                c_ssm: Tensor, a_mat: Tensor) -> tuple[Tensor, Tensor]:
+    """One chunk of the scan from the state h: (y (B, L, di), the state
+    after its last step)."""
+    da = torch.exp(delta[..., None] * a_mat)
+    dbx = dx[..., None] * b_ssm[:, :, None, :]
+    h_all, h = _scan_chunk(da, dbx, h)
+    del da, dbx
+    return torch.einsum("bldn,bln->bld", h_all, c_ssm), h
+
+
 def _scan_noskip(p: Params, xc: Tensor, cfg: ArchConfig,
                  h0: Tensor | None = None, chunk: int = 256
                  ) -> tuple[Tensor, Tensor]:
     """The selective scan minus the skip term (D * x is added outside).
 
     xc: (B, S, di).  Returns (y (B, S, di) fp32, the state after the last
-    token (B, di, n) fp32)."""
+    token (B, di, n) fp32).  Each chunk is checkpointed when autograd
+    records it."""
     b, s, di = xc.shape
     n = cfg.ssm_state
     a_mat = -torch.exp(p["a_log"])
@@ -140,15 +164,19 @@ def _scan_noskip(p: Params, xc: Tensor, cfg: ArchConfig,
     delta, b_ssm, c_ssm = _ssm_params(p, xc, cfg)
     dx = delta * xc.float()
     chunk = min(chunk, s)
+    remat = torch.is_grad_enabled() and (delta.requires_grad
+                                         or a_mat.requires_grad)
     ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        da = torch.exp(delta[:, sl, :, None] * a_mat)
-        dbx = dx[:, sl, :, None] * b_ssm[:, sl, None, :]
-        h_all, h = _scan_chunk(da, dbx, h)
-        del da, dbx
-        ys.append(torch.einsum("bldn,bln->bld", h_all, c_ssm[:, sl]))
-        del h_all
+        args = (h, delta[:, sl], dx[:, sl], b_ssm[:, sl], c_ssm[:, sl],
+                a_mat)
+        if remat:
+            y, h = torch.utils.checkpoint.checkpoint(
+                _chunk_body, *args, use_reentrant=False)
+        else:
+            y, h = _chunk_body(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

@@ -13,15 +13,17 @@ segment ``{"k", "v"}`` of ``(count, B, max_len, KV, hd)`` (attention) or
 (mamba).  The reference scans a segment with ``lax.scan``; here a Python
 loop runs its layers, each a view of the stacked tensors.
 
-Training holds the dense family's tree as a ``DenseLM`` module whose
-layers are parameters of their own, views of the stacked tensors: autograd
-then gives each layer its own gradient (the gradient of a layer that
-indexes a stacked parameter would be a zero-filled tensor of the whole
-stack, per layer and step).  Every function here takes either form.  The
-reference rematerializes each layer in the backward (``cfg.remat``); the
-port keeps the activations, which at starcoder2-3b's 4 x 1,024 tokens fit
-the card.  Training the MoE, SSM and hybrid families arrives with
-ROADMAP.md A16, as do MLA, ``mtp``, learned positions and encdec.
+Training holds an LM's tree (any of the four families) as a
+``StackedLM`` module whose layers are parameters of their own, views of
+the stacked tensors: autograd then gives each layer its own gradient (the
+gradient of a layer that indexes a stacked parameter would be a
+zero-filled tensor of the whole stack, per layer and step).  Every
+function here takes either form.  With ``cfg.remat`` set and grad enabled,
+``hidden_states`` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), as the reference rematerializes each layer's body with
+``jax.checkpoint``: a layer keeps its input for the backward and runs its
+forward again there.  MLA, ``mtp``, learned positions and encdec arrive
+with ROADMAP.md A16.
 
 Full-sequence attention (``hidden_states``, ``prefill``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernels for CUDA tensors (under
@@ -34,6 +36,8 @@ same result.
 from __future__ import annotations
 
 import torch
+import torch._dynamo  # noqa: F401  (why: models/mamba.py)
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -62,15 +66,6 @@ def require_ported(cfg: ArchConfig) -> None:
             "unported parts) is not ported yet: only attention, mamba, MLP "
             "and MoE layers of the dense, moe, ssm and hybrid families are "
             "(ROADMAP.md A16)")
-
-
-def require_dense(cfg: ArchConfig) -> None:
-    """Training (``DenseLM``) takes the dense family only."""
-    require_ported(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training family '{cfg.family}' is not ported yet: only "
-            "'dense' LMs train (ROADMAP.md A16)")
 
 
 def cache_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
@@ -131,8 +126,9 @@ class _Tree(nn.Module):
         return out
 
 
-class DenseLM(nn.Module):
-    """A dense LM's parameters as a module, for training.
+class StackedLM(nn.Module):
+    """An LM's parameters as a module, for training (the dense, moe, ssm
+    and hybrid families).
 
     ``tree`` is ``init_lm``'s (or ``convert.lm_params_from_jax``'s) stacked
     tree; each layer of a segment becomes a submodule whose parameters are
@@ -145,7 +141,7 @@ class DenseLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: str | torch.device,
                  tree: Params | None = None, tp: int = 1):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         if tree is None:
             dev = torch.device(device)
             tree = _map(lambda t: torch.empty(t.shape, dtype=t.dtype,
@@ -174,13 +170,13 @@ class DenseLM(nn.Module):
 
 def _top(params) -> Params:
     """The embed / final_norm / head entries of either form."""
-    return params.tree() if isinstance(params, DenseLM) else params
+    return params.tree() if isinstance(params, StackedLM) else params
 
 
 def _layers_of(params, cfg: ArchConfig) -> list[list[Params]]:
-    """Per segment, its layers' param dicts: a ``DenseLM``'s own, or
+    """Per segment, its layers' param dicts: a ``StackedLM``'s own, or
     views of a stacked tree."""
-    if isinstance(params, DenseLM):
+    if isinstance(params, StackedLM):
         return params.tree()["segments"]
     return [[_layer(seg_p, i) for i in range(count)]
             for (_, count), seg_p in zip(segments_of(cfg),
@@ -292,7 +288,8 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
                   ctx=None) -> tuple[Tensor, Tensor]:
     """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss: the MoE
     layers' summed, 0 without them).  ``params``: the stacked tree or a
-    ``DenseLM``; differentiable."""
+    ``StackedLM``; differentiable.  With ``cfg.remat`` and grad enabled
+    each layer is checkpointed: its forward runs again in the backward."""
     require_ported(cfg)
     require_unsharded(ctx)
     b, s = tokens.shape
@@ -300,9 +297,15 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     x = L.apply_embed(top["embed"], tokens, cfg)
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for (kind, _), layers in zip(segments_of(cfg), _layers_of(params, cfg)):
         for lp in layers:
-            x, a = _apply_layer(kind, lp, x, positions, cfg)
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _apply_layer, kind, lp, x, positions, cfg,
+                    use_reentrant=False)
+            else:
+                x, a = _apply_layer(kind, lp, x, positions, cfg)
             if a is not None:
                 aux = aux + a
     x = L.apply_norm(top["final_norm"], x, cfg)

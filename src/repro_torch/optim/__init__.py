@@ -1,7 +1,10 @@
-"""Optimizers of the port (``repro.optim``): clip, AdamW, SGD, schedules.
+"""Optimizers of the port (``repro.optim``): clip, AdamW, Adafactor, SGD,
+schedules.
 
-``adafactor`` and gradient compression arrive with ROADMAP.md A17."""
+Gradient compression (``bf16_compress``, ``topk_error_feedback``) arrives
+with the multi-device slice (ROADMAP.md A17)."""
 from repro_torch.optim.transform import GradientTransform, chain  # noqa: F401
+from repro_torch.optim.adafactor import adafactor  # noqa: F401
 from repro_torch.optim.adamw import adamw  # noqa: F401
 from repro_torch.optim.sgd import sgd  # noqa: F401
 from repro_torch.optim.clip import clip_by_global_norm  # noqa: F401
@@ -13,11 +16,7 @@ from repro_torch.optim.schedule import (  # noqa: F401
 
 def make_optimizer(name: str, lr, **kw) -> GradientTransform:
     """Build the standard production stack: clip -> optimizer."""
-    if name == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP.md A17)")
-    opts = {"adamw": adamw, "sgd": sgd}
+    opts = {"adamw": adamw, "adafactor": adafactor, "sgd": sgd}
     if name not in opts:
-        raise KeyError(f"unknown optimizer '{name}'; have "
-                       f"{sorted(opts) + ['adafactor']}")
+        raise KeyError(f"unknown optimizer '{name}'; have {sorted(opts)}")
     return chain(clip_by_global_norm(1.0), opts[name](lr, **kw))

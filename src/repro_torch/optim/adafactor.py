@@ -1,0 +1,169 @@
+"""Adafactor (Shazeer & Stern 2018): factored second moments
+(``repro.optim.adafactor``).
+
+The reference's defaults and math: decay 0.99, eps 1e-30, update clipping
+at RMS 1, no weight decay.  A leaf of two or more dimensions keeps row and
+column statistics (``vr`` over its last axis, ``vc`` over its second to
+last), any other leaf the full ``v``; the update's RMS is taken over the
+whole leaf.
+
+The reference factors each STACKED leaf of an LM (a segment's layers on a
+leading axis).  The port trains a ``StackedLM``, whose parameter
+``segments.<s>.<i>.<path>`` is layer i's view of the stacked leaf
+``segments.<s>.<path>``; this transform groups the views back into their
+stack by that name and keeps the state in the reference's shapes, keyed
+by stack (``{"v": {stack: {"vr", "vc"} or {"v"}}, "step"}``; a parameter
+outside a segment is its own stack).  So a (count, a, b) leaf keeps
+(count, a) and (count, b) statistics, layer by layer; a (count, d) leaf
+(a norm scale, mamba's ``d``) is factored ACROSS its layers, ``vr``
+(count,) and one ``vc`` (d,) shared by them; and the update's RMS is the
+stack's.
+
+Memory: nothing of a stack's size is materialised.  The statistics are
+gathered one 2-D matrix (a layer, or one expert of it) at a time; the
+update is computed twice, once for the stack's sum of squares and once to
+apply, and ``update`` adds it to the parameters IN PLACE (an fp32 update
+of falcon-mamba-7b's ``in_proj`` stack would take 17 GB) and returns no
+updates, so ``apply_updates`` after it adds nothing."""
+from __future__ import annotations
+
+import re
+
+import torch
+
+from repro_torch.optim.transform import GradientTransform
+
+_LAYER = re.compile(r"^(segments\.\d+)\.(\d+)\.(.+)$")
+
+
+def stacks(names) -> dict[str, list[str]]:
+    """Parameter names grouped by the stacked leaf they are views of,
+    layers in order: ``segments.<s>.<i>.<path>`` under
+    ``segments.<s>.<path>``, any other name alone under itself."""
+    out: dict[str, dict[int, str]] = {}
+    for name in names:
+        m = _LAYER.match(name)
+        key, i = (f"{m[1]}.{m[3]}", int(m[2])) if m else (name, -1)
+        out.setdefault(key, {})[i] = name
+    return {k: [by[i] for i in sorted(by)] for k, by in out.items()}
+
+
+def _stack_shape(key: str, members: list[str], params) -> tuple[int, ...]:
+    shape = tuple(params[members[0]].shape)
+    return (len(members), *shape) if key != members[0] else shape
+
+
+def _matrices(t: torch.Tensor) -> torch.Tensor:
+    """A tensor of two or more dims as a (n, a, b) view of its matrices
+    (a view: in-place writes reach ``t``)."""
+    return t.view(-1, *t.shape[-2:])
+
+
+def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              weight_decay: float = 0.0) -> GradientTransform:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+    beta = decay
+
+    def init(params):
+        v = {}
+        for key, members in stacks(params).items():
+            shape = _stack_shape(key, members, params)
+            dev = params[members[0]].device
+            if len(shape) >= 2:
+                v[key] = {"vr": torch.zeros(shape[:-1], dtype=torch.float32,
+                                            device=dev),
+                          "vc": torch.zeros(shape[:-2] + shape[-1:],
+                                            dtype=torch.float32, device=dev)}
+            else:
+                v[key] = {"v": torch.zeros(shape, dtype=torch.float32,
+                                           device=dev)}
+        device = next(iter(params.values())).device
+        return {"v": v,
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def ema(old: torch.Tensor, new: torch.Tensor) -> None:
+        old.copy_(beta * old + (1 - beta) * new)
+
+    def sq(g: torch.Tensor) -> torch.Tensor:
+        return torch.square(g.float()) + eps
+
+    def layer_parts(key, members, grads, params, v, cross):
+        """The stack in pieces, each (g, p, state views): per layer
+        ``(g, p, v)`` of an unfactored stack; per layer ``(g, p, vr[i],
+        vc)`` of a cross-layer one; else per 2-D matrix (a layer, or one
+        expert of it) ``(g, p, vr, vc)`` with its rows' and columns'
+        statistics."""
+        stacked = key != members[0]
+
+        def row(t, i):
+            return t[i] if stacked else t
+
+        for i, name in enumerate(members):
+            g, p = grads[name], params[name]
+            if "v" in v:
+                yield g, p, row(v["v"], i)
+            elif cross:
+                yield g, p, v["vr"][i], v["vc"]
+            else:
+                vr, vc = row(v["vr"], i), row(v["vc"], i)
+                yield from zip(_matrices(g.contiguous()), _matrices(p),
+                               vr.view(-1, vr.shape[-1]),
+                               vc.view(-1, vc.shape[-1]))
+
+    def group_update(key, members, grads, params, v, lr_t):
+        # a (count, d) stack: its rows factored across the layers
+        cross = "vr" in v and v["vr"].dim() == 1 and key != members[0]
+        parts = list(layer_parts(key, members, grads, params, v, cross))
+        # 1. the statistics
+        if "v" in v:
+            for g, _, vv in parts:
+                ema(vv, sq(g))
+        elif cross:
+            col = torch.zeros_like(v["vc"])
+            for g, _, r, _ in parts:
+                g2 = sq(g)
+                ema(r, g2.mean())
+                col += g2
+            ema(v["vc"], col / len(parts))
+        else:
+            for g, _, r, c in parts:
+                g2 = sq(g)
+                ema(r, g2.mean(-1))
+                ema(c, g2.mean(-2))
+        rmean = torch.clamp(v["vr"].mean(), min=eps) if cross else None
+
+        def upd_of(part):
+            g32 = part[0].float()
+            if "v" in v:
+                return g32 * torch.rsqrt(torch.clamp(part[2], min=eps))
+            _, _, r, c = part
+            if cross:
+                precond = (r / rmean) * c
+            else:
+                precond = (r / torch.clamp(r.mean(-1, keepdim=True),
+                                           min=eps))[..., None] * c[None, :]
+            return g32 * torch.rsqrt(torch.clamp(precond, min=eps))
+
+        # 2. the stack's RMS; 3. the clipped update, into the parameters
+        sumsq = sum(torch.sum(torch.square(upd_of(part))) for part in parts)
+        numel = sum(part[0].numel() for part in parts)
+        rms = torch.sqrt(sumsq / numel + 1e-30)
+        div = torch.clamp(rms / clip_threshold, min=1.0)
+        for part in parts:
+            u = -lr_t * (upd_of(part) / div)
+            p = part[1]
+            if weight_decay:
+                u = u - lr_t * weight_decay * p.float()
+            p.add_(u.to(p.dtype))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = lr_fn(step)
+        v = state["v"]
+        for key, members in stacks(params).items():
+            group_update(key, members, grads, params, v[key], lr_t)
+        return {}, {"v": v, "step": step}
+
+    return GradientTransform(init, update)

@@ -10,7 +10,9 @@ same way, the dense family's attention through the flash kernels):
       ``leaf_scores`` within-block step], under ``torch.no_grad()``
   estimator-routed corrected loss               [eq. 2-3 through the fused
       head: ``fused_lse`` forward, ``fused_lse_bwd`` backward]
-  loss --> autograd --> clip + AdamW, applied to the parameters in place
+  loss --> autograd (summed into each parameter's ``.grad`` over the
+      microbatches, then taken off it) --> clip + AdamW or Adafactor,
+      applied to the parameters in place
 
 Sampler statistics are carried in ``TrainState.sampler_state``, a
 ``SamplerState`` owned by the sampler.  The correction always uses the
@@ -55,7 +57,7 @@ class TrainState:
     """Carried training state.
 
     ``params`` is the model (an ``nn.Module``: ``RecsysTower``,
-    ``LSTMLM`` or ``DenseLM``, updated in place by each step);
+    ``LSTMLM`` or ``StackedLM``, updated in place by each step);
     ``opt_state`` the optimizer's state; ``sampler_state`` the
     sampler-owned ``SamplerState``; ``step`` the host step count."""
 
@@ -101,6 +103,15 @@ def _split_microbatches(batch: dict, mu: int) -> list[dict]:
     return [{k: x[i::mu] for k, x in batch.items()} for i in range(mu)]
 
 
+def _take_grad(p: torch.nn.Parameter, mu: int) -> Tensor:
+    """``p``'s summed gradient over ``mu`` microbatches as their mean
+    (zeros where ``p`` was unused), taken off ``p`` so the optimizer
+    holds the only reference."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    p.grad = None
+    return g.div_(mu) if mu > 1 else g
+
+
 def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
                     aux_coef: float = 0.01
                     ) -> Callable[[TrainState, dict, torch.Generator],
@@ -127,36 +138,40 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         loss = lsum / h2d.shape[0]
         return loss + aux_coef * aux, loss, aux
 
-    def grads_of(model, mb, sstate, gen):
-        params = param_dict(model)
+    def accumulate(model, params, mb, sstate, gen):
+        """One (micro)batch's loss, its gradients ADDED into each
+        parameter's ``.grad`` (autograd frees each incoming gradient as
+        it lands, so one set of gradients is held, not two)."""
         total, loss, aux = loss_fn(model, mb, sstate, gen)
-        grads = torch.autograd.grad(total, list(params.values()),
-                                    allow_unused=True)
-        return total, loss, aux, {
-            k: g if g is not None else torch.zeros_like(p)
-            for (k, p), g in zip(params.items(), grads)}
+        torch.autograd.backward(total, inputs=list(params.values()))
+        return total.detach(), loss.detach(), aux.detach()
 
     def train_step(state: TrainState, batch: dict, gen: torch.Generator
                    ) -> tuple[TrainState, dict]:
         sstate = state.sampler_state
         if in_step_refresh and state.step % every == 0:
             sstate = refresh_fn(api.head_table(state.params, cfg), sstate)
+        params = param_dict(state.params)
+        for p in params.values():
+            p.grad = None
         mu = max(cfg.microbatches, 1)
         if mu == 1:
-            total, loss, aux, grads = grads_of(state.params, batch, sstate,
-                                               gen)
+            total, loss, aux = accumulate(state.params, params, batch,
+                                          sstate, gen)
         else:
+            # The reference sums the microbatches' gradients in fp32; the
+            # port sums them in the parameters' dtype (the same sums for
+            # fp32 parameters; for bf16 ones an fp32 sum would be twice
+            # the parameters' bytes).
             total = loss = aux = 0.0
-            grads = None
             for mb in _split_microbatches(batch, mu):
-                t_i, l_i, a_i, g_i = grads_of(state.params, mb, sstate, gen)
+                t_i, l_i, a_i = accumulate(state.params, params, mb, sstate,
+                                           gen)
                 total, loss, aux = total + t_i, loss + l_i, aux + a_i
-                grads = g_i if grads is None else {
-                    k: grads[k] + g.float() for k, g in g_i.items()}
             total, loss, aux = total / mu, loss / mu, aux / mu
-            grads = {k: g / mu for k, g in grads.items()}
-        params = param_dict(state.params)
+        grads = {k: _take_grad(p, mu) for k, p in params.items()}
         updates, opt_state = opt.update(grads, state.opt_state, params)
+        del grads
         apply_updates(params, updates)
         new_state = TrainState(
             params=state.params, opt_state=opt_state,

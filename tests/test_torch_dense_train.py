@@ -157,7 +157,7 @@ def test_config_matches_reference(name):
 
 
 def test_hidden_states_and_param_grads_match_jax(backbone):
-    """h and d(sum(h * r))/d(every parameter), DenseLM against the
+    """h and d(sum(h * r))/d(every parameter), StackedLM against the
     reference's stacked tree, leaf for leaf."""
     name, jcfg, cfg, np_params = backbone
     tokens = np.random.default_rng(2).integers(
@@ -170,7 +170,7 @@ def test_hidden_states_and_param_grads_match_jax(backbone):
     (_, jh), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         jax.tree_util.tree_map(jnp.asarray, np_params))
 
-    model = transformer.DenseLM(cfg, "cpu", tree=convert.params_from_jax(
+    model = transformer.StackedLM(cfg, "cpu", tree=convert.params_from_jax(
         np_params, cfg, device="cpu"))
     h, aux = transformer.hidden_states(model, torch.from_numpy(tokens), cfg)
     assert float(aux) == 0.0
@@ -190,11 +190,11 @@ def test_hidden_states_and_param_grads_match_jax(backbone):
 
 
 def test_dense_lm_module_shares_the_tree_and_stacks_back(backbone):
-    """A DenseLM's parameters are views of the stacked tree (no copy), and
+    """A StackedLM's parameters are views of the stacked tree (no copy), and
     convert stacks them back into the reference's tree exactly."""
     name, _, cfg, np_params = backbone
     tree = convert.params_from_jax(np_params, cfg, device="cpu")
-    model = transformer.DenseLM(cfg, "cpu", tree=tree)
+    model = transformer.StackedLM(cfg, "cpu", tree=tree)
     wq = tree["segments"][0]["attn"]["wq"]
     layer1 = model.tree()["segments"][0][1]["attn"]["wq"]
     assert layer1.data_ptr() == wq[1].data_ptr()
@@ -246,7 +246,7 @@ def test_train_step_at_fixed_negatives_matches_jax(ref_state):
         {"stats": _np_tree(jstate.sampler_state.stats),
          "const": _np_tree(jstate.sampler_state.const)}, 0, cfg,
         device="cpu")
-    assert isinstance(mine.params, transformer.DenseLM)
+    assert isinstance(mine.params, transformer.StackedLM)
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -318,7 +318,7 @@ def test_dense_checkpoints_cross_both_ways(dtype, tmp_path):
     mine, extra = CheckpointManager(jdir).restore(
         like=step.abstract_train_state(cfg, None, opt), device="cpu")
     assert extra == {"step": 3} and mine.step == int(jstate.step)
-    assert isinstance(mine.params, transformer.DenseLM)
+    assert isinstance(mine.params, transformer.StackedLM)
     assert all(p.dtype == getattr(torch, dtype)
                for p in mine.params.parameters()
                if p.dim() > 1)

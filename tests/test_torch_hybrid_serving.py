@@ -244,17 +244,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
                                   "dbrx-132b"])
 def test_the_new_families_serve_but_do_not_train(arch):
-    """init_module, the training entry, refuses them (ROADMAP.md A16);
-    abstract_params gives their stacked tree on the meta device."""
+    """Since the families train, init_module, the training entry, gives
+    their StackedLM over the stacked tree (no copy), and abstract_params
+    the same module on the meta device."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        api.init_module(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        transformer.DenseLM(cfg, "cpu")
-    tree = api.abstract_params(cfg)
+    model = api.init_module(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert isinstance(model, transformer.StackedLM)
+    meta = api.abstract_params(cfg)
+    assert isinstance(meta, transformer.StackedLM)
     real = api.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    flat_m = jax.tree_util.tree_leaves(tree)
     flat_r = jax.tree_util.tree_leaves(real)
-    assert [t.shape for t in flat_m] == [t.shape for t in flat_r]
+    flat_m = [p for _, p in meta.named_parameters()]
+    assert sorted((n, p.shape, p.dtype) for n, p in meta.named_parameters()
+                  ) == sorted((n, p.shape, p.dtype)
+                              for n, p in model.named_parameters())
+    assert sum(p.numel() for p in flat_m) == sum(t.numel() for t in flat_r)
     assert {t.device.type for t in flat_m} == {"meta"}
