@@ -6,8 +6,9 @@ checkpoint/restart, the overlapped refresh island, the rest of the
 sampler registry (the batch-shared sampler, tapas, the paper's oracles),
 starcoder2-3b training through the flash attention's backward kernel,
 served through the quantized index, falcon-mamba-7b and jamba-v0.1-52b
-serving (the SSM, hybrid and MoE layers), and their training with
-Adafactor and remat.
+serving (the SSM, hybrid and MoE layers), their training with
+Adafactor and remat, and deepseek-v3-671b's MLA and multi-token
+prediction, served and trained at 4 of its 61 layers.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -291,9 +292,34 @@ result line):
                  within REMAT_RTOL with the parameters that differ logged;
                  and jamba's attention gradients through the kernels
                  against the plain attention's (phase 18's check).
+ 21. deepseek-v3-671b's MLA and mtp — (a) in the kernel checks (its own
+                 generator): flash_attention and flash_attention_bwd at
+                 MLA's widths (q/k 192, v 128, 128 heads with no KV
+                 sharing) on the tensor cores at the paths' shapes (4 x
+                 512, 1 x 512, and the mtp block's 1 x 511), against their
+                 plain versions, timed beside SDPA (its backend named);
+                 then a group of 4, non-causal s_valid, narrower pairs
+                 zero-padded to (192, 128), and the CUDA-core route at hv
+                 != hd; (b) serving at full width and 4 of its 61 layers (the
+                 3 dense layers and the first MoE one: 15.80 B parameters,
+                 31.6 GB) through phase 11's run: prefill through
+                 flash_attention at (192, 128), the absorbed decode over
+                 the latent cache (its bytes a token checked), prefill and
+                 decode against the forward (bf16 at capacity factor 16
+                 with the forward's routing imposed; fp32 compute over the
+                 dense layers); (c) training at the same 4 layers with the
+                 mtp module through fit (block-quadratic-shared, clip +
+                 Adafactor, its 2 microbatches of one 512-token sequence,
+                 remat; HYBRID_STEPS steps on a pool of 4): the remat check
+                 at 4 layers (the first gradients in host memory), the
+                 attention's gradients over the dense layers and the mtp
+                 block against the plain attention's, exact launches
+                 (flash_attention twice a backbone layer and once for the
+                 mtp block, flash_attention_bwd once each, a microbatch),
+                 a falling pool loss, peak memory, a profile of one step.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
-each run of 17, 18's fit, both runs of 19 and both fits of 20 are main
-paths: the kernel
+each run of 17, 18's fit, both runs of 19, both fits of 20 and 21's
+serving run and fit are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -305,7 +331,9 @@ falcon-mamba-7b and jamba-v0.1-52b training zstats once per refresh and
 jamba flash_attention twice and flash_attention_bwd once per attention
 layer and microbatch, falcon-mamba-7b and
 jamba-v0.1-52b serving zstats once and jamba flash_attention once per
-attention layer (2, tensor-core), and
+attention layer (2, tensor-core), deepseek-v3-671b serving zstats once
+and flash_attention once per layer (4, tensor-core at (192, 128)) and
+its training as phase 20's with the mtp block's attention beside, and
 leaf_scores once per index top-k step, the entry run sampled_loss
 once, and the facade, checkpoint and overlap runs exactly what their
 calls and steps need.
@@ -315,9 +343,11 @@ both flash kernels at the prefill shape, sampled_loss at kernel_bench's;
 follows the engine's batching), each path's count under
 ``launches_by_path`` (phase 19's as "falcon-mamba-7b" and
 "jamba-v0.1-52b", phase 20's as "falcon-mamba-7b training" and
-"jamba-v0.1-52b training"); the other shapes' numbers under serving_*,
+"jamba-v0.1-52b training", phase 21's as "deepseek-v3-671b" and
+"deepseek-v3-671b training"); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
+mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -653,15 +683,15 @@ NO_SPILL_KERNELS = ("flash_mma_kernel", "zstats_kernel",
 FUSED_HEAD_INSTANCES = 4 + 4 + 8 + 1
 #: (source's kernel, function, instantiations) that must hold tensor-core
 #: (HMMA) instructions in their SASS
-HMMA_KERNELS = (("flash_attention", "flash_mma_kernel", 3),
+HMMA_KERNELS = (("flash_attention", "flash_mma_kernel", 4),
                 ("sampled_loss", "sampled_loss_mma_kernel",
                  len(kernels.sampled_loss.TILINGS["mma"])),
                 ("rff_features", "rff_features_kernel", 1))
 #: (source's kernel, function, instantiations) that must hold wgmma
-#: (HGMMA) instructions in their SASS: the attention backward's, at hd
-#: <= 64 and <= 128
-HGMMA_KERNELS = (("flash_attention_bwd", "dq_wgmma_kernel", 2),
-                 ("flash_attention_bwd", "dkv_wgmma_kernel", 2))
+#: (HGMMA) instructions in their SASS: the attention backward's, at (hd,
+#: hv) compiled as (64, 64), (128, 128) and (192, 128)
+HGMMA_KERNELS = (("flash_attention_bwd", "dq_wgmma_kernel", 3),
+                 ("flash_attention_bwd", "dkv_wgmma_kernel", 3))
 
 
 def phase_build() -> None:
@@ -690,13 +720,14 @@ def phase_build() -> None:
                 spills[kernel] = int(found[1]) + int(found[2])
     if logs and not all(logs.values()):
         log("[build] some libraries came from the cache: no spill check")
-    elif len(spills) < 5 + len(kernels.block_scores.TILINGS) + sum(
+    elif len(spills) < 6 + len(kernels.block_scores.TILINGS) + sum(
             n for _, f, n in HMMA_KERNELS + HGMMA_KERNELS
             if f != "flash_mma_kernel") + FUSED_HEAD_INSTANCES:
-        # flash_mma_kernel<32, 64, 128>, zstats<64, 128>, one block_scores
-        # tile kernel per tiling, one sampled_loss_mma_kernel per
-        # tensor-core tiling, rff_features_kernel, the attention
-        # backward's dq and dkv_wgmma_kernel<64, 128>, the fused head's
+        # flash_mma_kernel at (32, 32), (64, 64), (128, 128) and (192,
+        # 128), zstats<64, 128>, one block_scores tile kernel per tiling,
+        # one sampled_loss_mma_kernel per tensor-core tiling,
+        # rff_features_kernel, the attention backward's dq and
+        # dkv_wgmma_kernel at their three width pairs, the fused head's
         raise AssertionError(f"ptxas printed spill lines for {sorted(spills)}"
                              f" only, not every instantiation of "
                              f"{NO_SPILL_KERNELS}")
@@ -2981,25 +3012,29 @@ def decode_rel_rms(cfg) -> float:
 
 
 def attn_inputs(gen: torch.Generator, b: int, s: int, h: int, kv: int,
-                hd: int, dtype: torch.dtype):
-    """q (B, S, H, hd), k and v (B, S, KV, hd) of unit-variance entries,
-    in the serving path's layout and dtype."""
-    def draw(heads):
-        return torch.randn((b, s, heads, hd), generator=gen, device=DEV
+                hd: int, dtype: torch.dtype, hv: int | None = None):
+    """q (B, S, H, hd), k (B, S, KV, hd) and v (B, S, KV, hv; hv defaults
+    to hd) of unit-variance entries, in the serving path's layout and
+    dtype."""
+    def draw(heads, width=hd):
+        return torch.randn((b, s, heads, width), generator=gen, device=DEV
                            ).to(dtype)
-    return draw(h), draw(kv), draw(kv)
+    return draw(h), draw(kv), draw(kv, hv or hd)
 
 
 def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
-                dtype: torch.dtype) -> tuple[float, str, float]:
+                dtype: torch.dtype, hv: int | None = None
+                ) -> tuple[float, str, float]:
     """(bound_ms, bound_by, cuda_core_floor_ms) of one attention call:
-    q, k, v read once, o written once; 4·hd flops per (query, key) pair
-    that the mask keeps, at the inputs' peak rate (the bf16 tensor cores
-    for bf16) and at the fp32 CUDA-core rate the kernel runs at."""
+    q, k, v read once, o written once; 2·(hd + hv) flops per (query, key)
+    pair that the mask keeps (hv defaults to hd), at the inputs' peak rate
+    (the bf16 tensor cores for bf16) and at the fp32 CUDA-core rate the
+    kernel runs at."""
+    hv = hv or hd
     esize = torch.finfo(dtype).bits // 8
-    n_bytes = esize * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    n_bytes = esize * (b * s * h * (hd + hv) + b * s * kv * (hd + hv))
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * b * h * pairs * hd
+    flops = 2.0 * b * h * pairs * (hd + hv)
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     bms, by = bound_ms(n_bytes, flops, rate)
     return bms, by, flops / FP32_FLOPS_PER_S * 1e3
@@ -3775,16 +3810,18 @@ def kept_pairs(s: int, causal: bool, s_valid: int | None) -> int:
 
 
 def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
-                    dtype: torch.dtype, s_valid: int | None = None
-                    ) -> tuple[float, str]:
+                    dtype: torch.dtype, s_valid: int | None = None,
+                    hv: int | None = None) -> tuple[float, str]:
     """(bound_ms, bound_by) of one backward call: q, k, v, dO and lse read
-    once, dq, dk and dv written once; 10·hd flops per kept (query, key)
-    pair (the five products QK^T, P^T dO, dO V^T, dS^T Q, dS K), at the
-    inputs' peak rate."""
+    once, dq, dk and dv written once; 2·(3 hd + 2 hv) flops per kept
+    (query, key) pair (the five products QK^T, dS^T Q and dS K over hd,
+    P^T dO and dO V^T over hv; hv defaults to hd), at the inputs' peak
+    rate."""
+    hv = hv or hd
     esize = torch.finfo(dtype).bits // 8
-    n_bytes = esize * (3 * b * s * h * hd + 4 * b * s * kv * hd) + \
-        4 * b * h * s
-    flops = 10.0 * hd * b * h * kept_pairs(s, causal, s_valid)
+    n_bytes = esize * (b * s * h * (2 * hd + hv)
+                       + 2 * b * s * kv * (hd + hv)) + 4 * b * h * s
+    flops = 2.0 * (3 * hd + 2 * hv) * b * h * kept_pairs(s, causal, s_valid)
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     return bound_ms(n_bytes, flops, rate)
 
@@ -3792,35 +3829,38 @@ def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
 def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
                    hd: int, dtype: torch.dtype, causal: bool = True,
                    s_valid: int | None = None, timed: bool = False,
-                   splits: bool | None = None) -> dict:
+                   splits: bool | None = None, hv: int | None = None
+                   ) -> dict:
     """flash_attention_bwd on random inputs against its plain version
     (autograd through ``ref.flash_attention_ref``): the forward kernel's
     lse within RTOL of the plain log-sum-exp, dq, dk and dv each within
     BWD_BF16_RTOL (bf16) or BWD_FP32_RTOL (fp32) x max|plain|,
     two calls bitwise equal, and the route the launch counts show (bf16 at
-    hd a multiple of 16 up to 128: the tensor cores, whose plan is logged;
-    ``splits`` asserts whether it splits a key tile's group).  ``timed``
+    hd and hv (default hd) multiples of 16, hd up to 192 and hv up to
+    128: the tensor cores, whose plan is logged; ``splits`` asserts
+    whether it splits a key tile's group).  ``timed``
     adds the kernel, plain and library device times (the library: SDPA's
     backward alone after one forward, with enable_gqa; its forward +
     backward beside it; yardsticks only), the bound, and the device ms of
     the backward's two kernels."""
     tag = (f"flash_attention_bwd {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
            f" causal={causal} s_valid={s_valid} (B {b}, S {s}, H {h}, "
-           f"KV {kv}, hd {hd})")
-    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
+           f"KV {kv}, hd {hd}" + (f", hv {hv})" if hv else ")"))
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype, hv)
     o, lse = flash_attention(q, k, v, causal=causal, s_valid=s_valid,
                              with_lse=True)
     dout = torch.randn(o.shape, generator=gen, device=DEV).to(dtype)
     _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
                                           s_valid=s_valid, with_lse=True)
     compare(f"{tag} lse", lse, want_lse)
-    tc = dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+    tc = kernels.flash_attention.uses_tensor_cores(q, k, v)
     pl = None
     if tc:
         pl = kernels.flash_attention.plan(
-            b, s, h, kv, hd, causal,
+            b, s, h, kv, hd, causal, hv=hv,
             sms=torch.cuda.get_device_properties(DEV).multi_processor_count)
-        log(f"  {tag}: plan chunk {pl.chunk}, steps {pl.steps}, splits "
+        log(f"  {tag}: plan key tile {pl.key_tile}, chunk {pl.chunk}, "
+            f"steps {pl.steps}, splits "
             f"{pl.splits}, dK/dV blocks {pl.blocks} ({pl.waves} waves), dQ "
             f"blocks {pl.dq_blocks}, longest {pl.longest:.2f} steps, fold "
             f"{pl.fold_bytes} bytes")
@@ -3852,7 +3892,8 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
               for name, x, y in zip(("dq", "dk", "dv"), got, want))
     row = {"max_abs_err": err}
     if timed:
-        bms, by = flash_bwd_bound(b, s, h, kv, hd, causal, dtype, s_valid)
+        bms, by = flash_bwd_bound(b, s, h, kv, hd, causal, dtype, s_valid,
+                                  hv)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
@@ -3873,7 +3914,8 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
         row["library_fwd_bwd_ms"] = device_ms(library_fwd_bwd)
         row["kernel_split_ms"] = device_split(call)
         if pl is not None:
-            row["plan"] = dict(chunk=pl.chunk, splits=list(pl.splits),
+            row["plan"] = dict(key_tile=pl.key_tile, chunk=pl.chunk,
+                               splits=list(pl.splits),
                                blocks=pl.blocks, waves=pl.waves,
                                dq_blocks=pl.dq_blocks,
                                fold_bytes=pl.fold_bytes)
@@ -3951,6 +3993,107 @@ def phase_flash_bwd(gen: torch.Generator) -> tuple[dict[str, dict],
             {"llama_prefill": {"flash_attention_bwd": llama}})
 
 
+# --- phase 21a: the attention kernels at MLA's shapes ------------------------
+
+#: deepseek-v3-671b's expanded MLA attention: 128 heads with no KV sharing,
+#: a q/k width of 192 (nope 128 + rope 64) and a value width of 128
+MLA_HEADS, MLA_HD, MLA_HV = 128, 192, 128
+#: (B, S) of the MLA attention calls on this slice's paths: the serving
+#: prefill (4 prompts of 512), the training microbatch (one sequence of
+#: 512) and the mtp block's attention in training (S - 1 = 511)
+MLA_SHAPES = {"mla_serving": (4, 512), "mla_train": (1, 512),
+              "mla_train_mtp": (1, 511)}
+
+
+def sdpa_backend(qt, kt, vt, causal: bool) -> str:
+    """The backend PyTorch's SDPA dispatcher picks for these (B, H, S, *)
+    inputs (``torch._fused_sdp_choice``)."""
+    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal,
+                                     enable_gqa=True)
+    return torch.nn.attention.SDPBackend(choice).name
+
+
+def flash_mla_row(gen: torch.Generator, b: int, s: int) -> dict:
+    """``flash_attention`` at MLA's widths, causal bf16: it must take the
+    tensor-core entry point; held against the plain version element by
+    element (BF16_ELEM_RTOL), then timed beside it and SDPA (whose backend
+    is named)."""
+    h, hd, hv = MLA_HEADS, MLA_HD, MLA_HV
+    q, k, v = attn_inputs(gen, b, s, h, h, hd, torch.bfloat16, hv)
+    before = kernels.launch_counts()
+    got = flash_attention(q, k, v)
+    after = kernels.launch_counts()
+    if (after["flash_attention"] != before["flash_attention"] + 1
+            or after["flash_attention_simt"]
+            != before["flash_attention_simt"]):
+        raise AssertionError("bf16 (192, 128) flash did not take the "
+                             "tensor-core entry point")
+    err = compare(f"flash_attention bf16 causal (B {b}, S {s}, H = KV {h},"
+                  f" hd {hd}, hv {hv})", got,
+                  ref.flash_attention_ref(q, k, v, causal=True),
+                  elem_rtol=BF16_ELEM_RTOL)
+    bms, by, _ = flash_bound(b, s, h, h, hd, True, torch.bfloat16, hv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+               library=f"SDPA {sdpa_backend(qt, kt, vt, True)}", **times(
+                   lambda: flash_attention(q, k, v),
+                   lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                   lambda: sdpa(qt, kt, vt, is_causal=True)))
+    log(f"  flash_attention MLA (B {b}, S {s}): {json.dumps(row)}")
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_mla(gen: torch.Generator) -> dict[str, dict]:
+    """Phase 21a: both attention kernels at MLA's widths (hd 192, hv 128)
+    on the tensor cores against their plain versions, at every MLA shape
+    of this slice's paths (MLA_SHAPES; timed, with the bound and SDPA's
+    time and backend); then off those shapes: the backward at a group of 4
+    and not causal with s_valid, two narrower pairs zero-padded to (192,
+    128) (hd 160, hv 96; hd 64, hv 32), and the CUDA-core route at hv !=
+    hd (fp32 at the reduced config's (24, 16) and at (192,
+    128), forward and backward).  Returns rows by shape tag."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h, hd, hv = MLA_HEADS, MLA_HD, MLA_HV
+    rows: dict[str, dict] = {}
+    for tag, (b, s) in MLA_SHAPES.items():
+        bwd = flash_bwd_case(gen, b, s, h, h, hd, bf, timed=True, hv=hv)
+        q, k, v = attn_inputs(gen, b, s, h, h, hd, bf, hv)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bwd["library"] = f"SDPA backward {sdpa_backend(qt, kt, vt, True)}"
+        del q, k, v, qt, kt, vt
+        rows[tag] = {"flash_attention": flash_mla_row(gen, b, s),
+                     "flash_attention_bwd": bwd}
+    errs = [flash_bwd_case(gen, 2, 200, 8, 2, hd, bf, hv=hv)["max_abs_err"],
+            flash_bwd_case(gen, 1, 300, 8, 8, hd, bf, causal=False,
+                           s_valid=250, hv=hv)["max_abs_err"],
+            flash_bwd_case(gen, 1, 200, 4, 2, 160, bf, hv=96)["max_abs_err"],
+            flash_bwd_case(gen, 1, 200, 4, 2, 64, bf, hv=32)["max_abs_err"]]
+    simt = [flash_bwd_case(gen, 1, 77, 4, 2, 24, f32, hv=16)["max_abs_err"],
+            flash_bwd_case(gen, 1, 100, 4, 4, hd, f32, causal=False,
+                           s_valid=90, hv=hv)["max_abs_err"],
+            flash_bwd_case(gen, 1, 100, 4, 2, 24, bf, hv=16)["max_abs_err"]]
+    for b, s, hh, kv, d, dv, dt in ((1, 77, 4, 2, 24, 16, f32),
+                                    (1, 100, 4, 4, hd, hv, f32),
+                                    (2, 200, 8, 2, 160, 96, bf)):
+        q, k, v = attn_inputs(gen, b, s, hh, kv, d, dt, dv)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        fn = flash_attention if dt == bf else flash_attention_simt
+        err = compare(f"{fn.__name__} {dt} (B {b}, S {s}, H {hh}, KV {kv}, "
+                      f"hd {d}, hv {dv})", fn(q, k, v), want,
+                      elem_rtol=BF16_ELEM_RTOL if dt == bf else 0.0)
+        (errs if dt == bf else simt).append(err)
+    log(f"[mla kernels] off the path's shapes: tensor-core max err "
+        f"{max(errs)}, CUDA-core {max(simt)}")
+    rows["mla_serving"]["flash_attention_bwd"]["other_max_abs_err"] = \
+        max(errs)
+    rows["mla_serving"]["flash_attention_bwd"]["simt_max_abs_err"] = \
+        max(simt)
+    return rows
+
+
 class CycledPool:
     """A fixed pool of batches served in turn, with the iterator state that
     ``fit``'s checkpoints record (``state_dict`` / ``load_state``)."""
@@ -3974,7 +4117,8 @@ class CycledPool:
 
 
 def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """``transformer.hidden_states`` with each layer checkpointed
+    """``api.backbone_hidden``'s rows (the mtp rows after the backbone's
+    where ``cfg.mtp``) with each backbone layer checkpointed
     (``torch.utils.checkpoint``), for the plain attention's gradients: its
     fp32 scores for 30 layers would not fit on the card beside the model,
     so each layer's are recomputed in the backward."""
@@ -3988,7 +4132,12 @@ def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
             x, _ = torch.utils.checkpoint.checkpoint(
                 transformer._apply_layer, kind, lp, x, positions, cfg,
                 use_reentrant=False)
-    return layers.apply_norm(top["final_norm"], x, cfg)
+    h = layers.apply_norm(top["final_norm"], x, cfg)
+    rows = h.reshape(-1, h.shape[-1])
+    if cfg.mtp:
+        h_mtp = transformer.mtp_hidden(model, h, tokens, cfg)
+        rows = torch.cat([rows, h_mtp[:, :-1].reshape(-1, h.shape[-1])])
+    return rows
 
 
 def fixed_negatives(cfg, model, sstate, batch) -> tuple:
@@ -4005,6 +4154,20 @@ def fixed_negatives(cfg, model, sstate, batch) -> tuple:
                                          cfg.m_negatives,
                                          loop.step_generator(0, 0, DEV))
     return labels, neg, logq
+
+
+def grads_or_zeros(loss, params: dict) -> list:
+    """d loss / d each parameter, zeros for an MoE router's bias (it only
+    picks the top-k, so the loss does not reach it), as the train step
+    takes them.  Any other parameter the loss does not reach raises."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    unused = [n for n, g in zip(params, grads) if g is None
+              and not n.endswith(".moe.router_bias")]
+    if unused:
+        raise AssertionError(f"the loss does not reach {unused}")
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params.values(), grads)]
 
 
 def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
@@ -4031,7 +4194,7 @@ def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
         loss = torch.mean(estimators.loss_from_embeddings(
             est, api.head_table(model, cfg), h2d, labels, neg, logq,
             abs_mode=cfg.abs_softmax, impl=cfg.head_impl))
-        return loss.item(), torch.autograd.grad(loss, list(params.values()))
+        return loss.item(), grads_or_zeros(loss, params)
 
     def plain_grads(chunk):
         kernel_flash = ops.flash_attention
@@ -4642,12 +4805,14 @@ def hybrid_cfg(tag: str, layers: int | None = None):
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
 
-def remat_grad_check(cfg, batch, tag: str) -> None:
+def remat_grad_check(cfg, batch, tag: str, host: bool = False) -> None:
     """The first step's loss (with the MoE aux, the step's weight 0.01) at
     its own fixed shared negatives differentiated with ``cfg.remat`` and
     without, on the same weights: the losses equal and every parameter's
     gradient bitwise equal, or within REMAT_RTOL x max|without| with the
-    parameters that differ logged."""
+    parameters that differ logged.  ``host`` keeps the first run's
+    gradients in host memory while the second runs (a model whose two
+    gradient sets and weights would not fit on the card together)."""
     opt = make_optimizer("sgd", 0.0)
     state = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
                                   None, opt, device=DEV)
@@ -4663,7 +4828,7 @@ def remat_grad_check(cfg, batch, tag: str) -> None:
         loss = torch.mean(estimators.loss_from_embeddings(
             est, api.head_table(model, c), h, labels, neg, logq,
             abs_mode=c.abs_softmax, impl=c.head_impl)) + 0.01 * aux
-        return loss.item(), torch.autograd.grad(loss, list(params.values()))
+        return loss.item(), grads_or_zeros(loss, params)
 
     def peak_over(fn):
         """fn()'s result and its peak device memory over what was
@@ -4675,9 +4840,13 @@ def remat_grad_check(cfg, batch, tag: str) -> None:
         return out, torch.cuda.max_memory_allocated() - start
 
     (loss_a, ga), peak_a = peak_over(lambda: grads(False))
+    if host:
+        ga = [g.cpu() for g in ga]
+        torch.cuda.empty_cache()
     (loss_b, gb), peak_b = peak_over(lambda: grads(True))
     differ = {}
     for name, a, b in zip(params, ga, gb):
+        a = a.to(b.device)
         if not torch.equal(a, b):
             differ[name] = float((a.float() - b.float()).abs().max()) / max(
                 float(a.float().abs().max()), 1e-30)
@@ -4750,11 +4919,14 @@ def hybrid_fit(cfg, pool, tag: str) -> tuple[dict[str, int], object]:
                                            cfg)
     log(f"[{tag} training] the MoE aux on the pool's first batch after "
         f"training: {float(aux)}")
-    attn = attn_layers(cfg)
+    # the mtp block's attention runs once a microbatch (never
+    # rematerialized), beside the backbone's
+    attn, mtp = attn_layers(cfg), int(cfg.mtp)
     want = dict.fromkeys(REPLACES, 0)
     want.update(zstats=HYBRID_STEPS + 1,
-                flash_attention=HYBRID_STEPS * mu * attn * forwards(cfg),
-                flash_attention_bwd=HYBRID_STEPS * mu * attn)
+                flash_attention=HYBRID_STEPS * mu * (attn * forwards(cfg)
+                                                     + mtp),
+                flash_attention_bwd=HYBRID_STEPS * mu * (attn + mtp))
     if counts != want:
         raise AssertionError(f"{tag} training launches {counts} != {want}")
     if not all(math.isfinite(x) for x in res.losses) or not last < first:
@@ -4797,6 +4969,129 @@ def phase_hybrid_train() -> dict[str, dict[str, int]]:
         torch.cuda.empty_cache()
         log(f"[{tag} training] {allocated_gb():.3f} GB allocated after")
     return by_path
+
+
+# --- phases 21b-21c: deepseek-v3-671b's MLA and multi-token prediction ------
+
+#: deepseek-v3-671b's depth on one card: its three dense layers and its
+#: first MoE layer, the fewest that hold every layer kind, 4 of 61 layers:
+#: 15.8 B parameters, 31.6 GB of bf16 weights (5 layers would take 54.6 GB
+#: before the serving index, or the training gradients)
+DEEPSEEK_LAYERS = 4
+#: training: the config's 2 microbatches of one 512-token sequence
+DEEPSEEK_BATCH = 2
+
+
+def deepseek_cfg(layers: int = DEEPSEEK_LAYERS, **changes):
+    return dataclasses.replace(get_config("deepseek-v3-671b"),
+                               n_layers=layers, **changes)
+
+
+def phase_deepseek_serving(gen: torch.Generator, rng: np.random.Generator
+                           ) -> dict[str, int]:
+    """Phase 21b: deepseek-v3-671b at full width and DEEPSEEK_LAYERS of
+    its layers through ``lm_serving`` (zstats once, flash_attention once
+    per MLA layer on the tensor-core entry at (192, 128), leaf_scores once
+    per index top-k step; decode runs the absorbed form over the latent
+    cache): the latent cache's bytes a token, prefill against the forward
+    at the config's capacity factor, decode against the forward in bf16 at
+    NO_DROP_FACTOR with the forward's routing imposed, and in fp32 compute
+    over the dense layers (MLA's absorbed decode against the expanded
+    forward; the MoE layer's bf16 expert stacks cast to fp32 would take 45
+    GB beside the weights).  Returns the path's launch counts."""
+    tag = "deepseek-v3-671b"
+    cfg = deepseek_cfg()
+    params = init_lm_params(cfg, gen, tag)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_PROMPT))).to(DEV)
+    run = lm_serving(cfg, params, prompts, tag, dict(
+        zstats=1, flash_attention=attn_layers(cfg), leaf_scores=2))
+    log(f"[{tag}] all {run.counts['flash_attention']} prefill attentions "
+        f"went through the tensor-core flash kernel at (hd 192, hv 128), "
+        f"none through the CUDA-core one")
+    # a layer's latent row against an MHA cache of the expanded form (each
+    # head's key and value) and llama3-8b's GQA cache (8 KV heads of 128,
+    # K and V), all bf16
+    latent = cfg.kv_lora_rank + cfg.qk_rope_dim
+    per_token = sum(c.nbytes for c in run.caches) / (
+        LLAMA_BATCH * LLAMA_MAX_LEN)
+    want = latent * 2 * attn_layers(cfg)
+    mha = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                         + cfg.v_head_dim) * 2 * attn_layers(cfg)
+    gqa = 2 * 8 * 128 * 2 * attn_layers(cfg)
+    log(f"[{tag}] latent cache {per_token:.0f} bytes a token over "
+        f"{attn_layers(cfg)} layers ({latent} bf16 a layer); the "
+        f"expanded form's MHA cache would hold {mha} ({mha / want:.1f}x), "
+        f"llama3-8b's GQA cache {gqa} ({gqa / want:.2f}x)")
+    if per_token != want:
+        raise AssertionError(f"{tag}: latent cache {per_token} bytes a "
+                             f"token != {want}")
+    with torch.no_grad():
+        h_full, _ = transformer.hidden_states(params, prompts, cfg)
+    h_pre, _ = transformer.prefill(params, prompts, cfg)
+    compare(f"{tag} prefill h vs forward at capacity factor "
+            f"{cfg.capacity_factor} (the same T: the same drops)", h_pre,
+            h_full, rtol=DECODE_RTOL)
+    rms = float(_rel_rms(h_pre, h_full))
+    if rms > DECODE_REL_RMS:
+        raise AssertionError(f"{tag} prefill h vs forward: relative RMS "
+                             f"{rms} > {DECODE_REL_RMS}")
+    del h_full, h_pre
+    h_full = check_decode_matches_forward(
+        params, dataclasses.replace(cfg, capacity_factor=NO_DROP_FACTOR),
+        run.tokens, f"{tag} at capacity factor {NO_DROP_FACTOR}",
+        rel_rms=decode_rel_rms(cfg))
+    agree = _greedy_agreement(h_full, run.head, cfg, run.tokens)
+    log(f"[{tag}] greedy tokens equal the full forward's argmax at {agree} "
+        f"of {LLAMA_BATCH * (LLAMA_DECODE + 1)} positions (bf16, not "
+        f"gated)")
+    del h_full
+    torch.cuda.empty_cache()
+    # the dense layers computed in fp32 from the same bf16 weights: the
+    # absorbed decode's logic against the expanded forward, apart from bf16
+    cfg32 = deepseek_cfg(cfg.first_dense_layers, dtype="float32")
+    dense = {**params, "segments": params["segments"][:1]}
+    check_decode_matches_forward(dense, cfg32, run.tokens,
+                                 f"{tag} fp32 at {cfg32.n_layers} layers",
+                                 rtol=FP32_DECODE_RTOL,
+                                 rel_rms=FP32_DECODE_REL_RMS)
+    log_timing(tag, run.timing)
+    counts = run.counts
+    del params, run, dense
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_deepseek_train() -> dict[str, dict[str, int]]:
+    """Phase 21c: deepseek-v3-671b at DEEPSEEK_LAYERS with its mtp module,
+    trained through ``fit`` with the config's sampler
+    (block-quadratic-shared, m 2,048), clip + Adafactor at HYBRID_LR, its
+    2 microbatches of one 512-token sequence and remat: first the remat
+    check at the full depth (the first run's gradients in host memory),
+    then the attention's gradients through the kernels against the plain
+    attention's and the mtp block's (S 511, a ragged
+    S at hd 192) over the dense layers (no MoE routing follows an
+    attention whose plain version rounds otherwise), then ``hybrid_fit``
+    (exact launches, falling pool loss,
+    peak) and a profile of one step.  Returns the fit's launch counts."""
+    tag = "deepseek-v3-671b"
+    cfg = deepseek_cfg()
+    data = batch_iterator_for(cfg, None, DEEPSEEK_BATCH, HYBRID_SEQ, seed=0,
+                              device=DEV)
+    pool = [next(data) for _ in range(HYBRID_POOL)]
+    remat_grad_check(cfg, pool[0], tag, host=True)
+    torch.cuda.empty_cache()
+    check = deepseek_cfg(cfg.first_dense_layers)
+    err = dense_grad_check(check, pool[0], tag=tag)
+    log(f"[{tag}] worst first-step gradient error over max|plain| {err} "
+        f"({check.n_layers} layers and the mtp block)")
+    torch.cuda.empty_cache()
+    counts, opt, state = hybrid_fit(cfg, pool, tag)
+    phase_profile(cfg, state, steps=1, batches=pool[1:2], opt=opt)
+    del state, opt, pool, data
+    torch.cuda.empty_cache()
+    log(f"[{tag} training] {allocated_gb():.3f} GB allocated after")
+    return {f"{tag} training": counts}
 
 
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
@@ -4852,7 +5147,9 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(18))
     rows.update(bwd_rows)
     llama_shapes.update(bwd_shapes)
-    lap("kernel checks (phases 3, 10, 18a)")
+    llama_shapes.update(phase_flash_mla(
+        torch.Generator(device="cuda").manual_seed(21)))
+    lap("kernel checks (phases 3, 10, 18a, 21a)")
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -4938,6 +5235,12 @@ def main() -> int:
     lap("MoE, SSM and hybrid serving (phase 19)")
     by_path.update(phase_hybrid_train())
     lap("MoE, SSM and hybrid training (phase 20)")
+    by_path["deepseek-v3-671b"] = phase_deepseek_serving(
+        torch.Generator(device="cuda").manual_seed(21),
+        np.random.default_rng(21))
+    lap("deepseek-v3-671b serving (phase 21b)")
+    by_path.update(phase_deepseek_train())
+    lap("deepseek-v3-671b training (phase 21c)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

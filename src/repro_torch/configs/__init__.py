@@ -1,11 +1,11 @@
 """Config registry of the port: the paper's own models, the dense
 transformer family (llama3-8b, starcoder2-3b, mistral-nemo-12b, qwen2-72b,
-chameleon-34b), the MoE one (dbrx-132b), the SSM one (falcon-mamba-7b) and
-the hybrid one (jamba-v0.1-52b).
+chameleon-34b), the MoE ones (dbrx-132b; deepseek-v3-671b, with MLA and
+multi-token prediction), the SSM one (falcon-mamba-7b) and the hybrid one
+(jamba-v0.1-52b).
 
-The reference registers two more assigned architectures (deepseek-v3-671b:
-MLA and mtp; whisper-large-v3: encdec); each joins here with the slice
-that ports its parts."""
+The reference registers one more assigned architecture (whisper-large-v3:
+encdec); it joins here with the slice that ports its parts."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,7 @@ from repro_torch.configs.base import ArchConfig  # noqa: F401
 _MODULES = {
     "chameleon-34b": "chameleon_34b",
     "dbrx-132b": "dbrx_132b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llama3-8b": "llama3_8b",

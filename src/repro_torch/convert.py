@@ -8,13 +8,15 @@ Both functions take plain numpy arrays (the JAX side converts with
     ...}}``) into the port's ``RecsysTower``, the lstm dict (``{"embed",
     "head", "lstm0": {"kernel", "recurrent", "bias"}, ...}``) into its
     ``LSTMLM``, the decoder LMs' ``init_lm`` tree (dense, moe, ssm,
-    hybrid) through ``lm_params_from_jax``.  Same layouts, so all copy.
+    hybrid; MLA layers and the ``mtp`` subtree too) through
+    ``lm_params_from_jax``.  Same layouts, so all copy.
   * ``lm_params_from_jax`` — the reference's LM params (nested dicts, each
     segment stacked on a leading layer axis) into the same tree of
     tensors, each leaf in its own dtype (the router, ``a_log``, ``d``,
     ``dt_bias`` and the norms fp32).
   * ``caches_from_jax`` — the reference's decode caches (per segment
-    ``{"k", "v"}`` or ``{"conv", "ssm"}``) into the port's.
+    ``{"k", "v"}``, ``{"conv", "ssm"}`` or MLA's one latent tensor) into
+    the port's.
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's.
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,

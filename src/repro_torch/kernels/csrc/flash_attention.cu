@@ -3,8 +3,10 @@
 //   o[b, i, h, :] = sum_j softmax_j(scale * <q[b, i, h], k[b, j, h / g]>) v[b, j, h / g]
 //
 // over keys j < s_valid (and j <= i when causal), scale = 1 / sqrt(hd),
-// g = H / KV query heads per KV head.  q, o: (B, S, H, hd); k, v: (B, S,
-// KV, hd); fp32 or bf16 in, computed in fp32, written in q's type.
+// g = H / KV query heads per KV head.  q: (B, S, H, hd); k: (B, S, KV, hd);
+// v: (B, S, KV, hv); o: (B, S, H, hv), the value width hv apart from the
+// q/k width hd (MLA's expanded form: hd 192, hv 128); fp32 or bf16 in,
+// computed in fp32, written in q's type.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas kernel over a (B*H, q tiles, kv tiles) grid whose running (max,
@@ -14,17 +16,20 @@
 // attention in the transformer prefill (models/transformer.py::prefill
 // through kernels/ops.py::flash_attention).
 //
-// Two entry points, picked by the wrapper from dtype and hd (never on
+// Two entry points, picked by the wrapper from dtype and widths (never on
 // failure): flash_attention_mma_bf16, the tensor-core kernel, for bf16
-// with hd a multiple of 16 up to 128 (llama3-8b's prefill); and
-// flash_attention_fwd, the CUDA-core kernel, for fp32 and for the other
-// widths up to 256.
+// with hd and hv multiples of 16, hd up to 192 and hv up to 128
+// (llama3-8b's prefill at (128, 128), deepseek-v3-671b's MLA at (192,
+// 128)); and flash_attention_fwd, the CUDA-core kernel, for fp32 and for
+// the other widths up to 256 each.
 //
 // Bound on an H100 at the prefill's shape (B 4, S 512, H 32, KV 8, hd 128,
 // causal, bf16): 8.6 GFLOP of the causal half, which the bf16 tensor cores
 // could do in 8.7 us, under the 42 MB of q/k/v/o traffic, 12.5 us at 3.35
 // TB/s: bytes bound the function.  At (B 1, S 4096) the 137 GFLOP take
-// 139 us: operations.
+// 139 us: operations.  At MLA's serving shape (B 4, S 512, H = KV 128, hd
+// 192, hv 128) the 42.9 GFLOP take 43 us and the 335 MB of q/k/v/o 100
+// us: bytes, since MLA's expanded form shares no K/V between heads.
 //
 // Tensor-core design (flash_mma_kernel).  One block of 4 warps per (b*h,
 // 64-query tile); each warp owns 16 query rows.  S = Q K^T comes from
@@ -45,8 +50,14 @@
 // by V.  Causal tiles past the query tile's diagonal are skipped, and only
 // a tile that holds the diagonal, s_valid or S is masked element by
 // element; a row with no valid key yet adds nothing, with no NaN.  Query
-// tiles run longest first (reversed blockIdx.y).  Columns past hd are
-// zero-filled to the next compiled width (32, 64 or 128).  wgmma with TMA
+// tiles run longest first (reversed blockIdx.y).  Q and K are staged at
+// the compiled q/k width HDP and V at the value width HVP, columns past
+// hd (hv) zero-filled: (32, 32), (64, 64) and (128, 128) for hd = hv (the
+// dense family's calls, compiled as before the value width existed), and
+// (192, 128) for any hv != hd.  At (192, 128) S = Q K^T takes 12 k-steps
+// of 16 where (128, 128) takes 8; the O accumulator stays 64 x 128 fp32,
+// and the Q, K and V tiles take 109 KB of shared memory (two stages of K
+// and V), so two blocks still share an SM.  wgmma with TMA
 // and warp specialisation, and one K/V tile shared by the g query heads of
 // a KV head, are later work.
 //
@@ -60,12 +71,12 @@
 // (16-byte shared loads along hd), the four threads of a row merge the
 // tile's max and sum with shuffles, keep the running (max, sum) in
 // registers, pass the row's probabilities through shared memory, and each
-// accumulates a quarter of the row's (hd,) output in fp32 registers.  Its
+// accumulates a quarter of the row's (hv,) output in fp32 registers.  Its
 // fp32 FMAs make 128 us its own floor at the prefill's shape.  Keys at or
 // after s_valid, and after the query when causal, carry no mass; rows and
 // keys past S are masked, so S need not be a multiple of a tile.  Staged
-// rows are zero-padded to the next compiled width (32, 64, 128 or 256), so
-// any hd <= 256 runs.
+// rows are zero-padded to the next compiled width (32, 64, 128 or 256) of
+// hd = hv, or to 256 for any hv != hd, so any hd and hv <= 256 run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -96,12 +107,15 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(kBQ) * kPStride) * sizeof(float);
 }
 
-template <int HDMAX, typename T>
+// kOwnV: v and o carry a width hv of their own; without it hv = hd, and
+// the kernel is the one the dense family's calls (hd = hv) always ran
+template <int HDMAX, typename T, bool kOwnV>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int KV, int hd,
-                 int s_valid, int causal, float scale) {
+                 int hv_arg, int s_valid, int causal, float scale) {
+  const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;   // floats per staged row, 16B aligned
   constexpr int kCols = HDMAX / kQuad;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -121,12 +135,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const size_t q_row = static_cast<size_t>(H) * hd;   // elements per token
   const size_t kv_row = static_cast<size_t>(KV) * hd;
+  const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
+  const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const T* qb = q + static_cast<size_t>(b) * S * q_row +
                 static_cast<size_t>(h) * hd;
   const T* kb = k + static_cast<size_t>(b) * S * kv_row +
                 static_cast<size_t>(kvh) * hd;
-  const T* vb = v + static_cast<size_t>(b) * S * kv_row +
-                static_cast<size_t>(kvh) * hd;
+  const T* vb = v + static_cast<size_t>(b) * S * v_row +
+                static_cast<size_t>(kvh) * hv;
 
   for (int idx = tid; idx < kBQ * kStride; idx += kThreads) {
     const int r = idx / kStride, c = idx % kStride, s = q0 + r;
@@ -149,10 +165,19 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // q_s staged; the previous tile's reads are done
     for (int idx = tid; idx < kBK * kStride; idx += kThreads) {
       const int r = idx / kStride, c = idx % kStride, s = k0 + r;
-      const bool ok = s < kv_end && c < hd;
-      const size_t off = static_cast<size_t>(s) * kv_row + c;
-      k_s[idx] = ok ? to_f32(kb[off]) : 0.f;
-      v_s[idx] = ok ? to_f32(vb[off]) : 0.f;
+      if constexpr (kOwnV) {
+        k_s[idx] = s < kv_end && c < hd
+                       ? to_f32(kb[static_cast<size_t>(s) * kv_row + c])
+                       : 0.f;
+        v_s[idx] = s < kv_end && c < hv
+                       ? to_f32(vb[static_cast<size_t>(s) * v_row + c])
+                       : 0.f;
+      } else {
+        const bool ok = s < kv_end && c < hd;
+        const size_t off = static_cast<size_t>(s) * kv_row + c;
+        k_s[idx] = ok ? to_f32(kb[off]) : 0.f;
+        v_s[idx] = ok ? to_f32(vb[off]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -223,25 +248,25 @@ __global__ void __launch_bounds__(kThreads)
         l_run > 0.f ? m_run + logf(l_run) : CUDART_INF_F;
   if (qi < S) {
     const float denom = fmaxf(l_run, 1e-30f);
-    T* orow = o + (static_cast<size_t>(b) * S + qi) * q_row +
-              static_cast<size_t>(h) * hd;
+    T* orow = o + (static_cast<size_t>(b) * S + qi) * o_row +
+              static_cast<size_t>(h) * hv;
 #pragma unroll
     for (int j4 = 0; j4 < kCols / 4; ++j4) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * (quad + kQuad * j4) + e;
-        if (c < hd) store(orow + c, acc[4 * j4 + e] / denom);
+        if (c < hv) store(orow + c, acc[4 * j4 + e] / denom);
       }
     }
   }
 }
 
-template <int HDMAX, typename T>
+template <int HDMAX, typename T, bool kOwnV = false>
 int launch_width(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int H, int KV, int hd, int s_valid,
-                 int causal, float scale, cudaStream_t stream) {
+                 float* lse, int B, int S, int H, int KV, int hd, int hv,
+                 int s_valid, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDMAX>();
-  auto kernel = flash_kernel<HDMAX, T>;
+  auto kernel = flash_kernel<HDMAX, T, kOwnV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,34 +277,37 @@ int launch_width(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, hd,
-      s_valid, causal, scale);
+      hv, s_valid, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int H, int KV, int hd, int s_valid,
-                 int causal, float scale, cudaStream_t stream) {
+                 float* lse, int B, int S, int H, int KV, int hd, int hv,
+                 int s_valid, int causal, float scale, cudaStream_t stream) {
+  if (hd < 1 || hv < 1 || hd > 256 || hv > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != hv)  // a value width of its own: one instantiation takes all
+    return launch_width<256, T, true>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+                                      s_valid, causal, scale, stream);
   if (hd <= 32)
-    return launch_width<32, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
-                               causal, scale, stream);
+    return launch_width<32, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+                               s_valid, causal, scale, stream);
   if (hd <= 64)
-    return launch_width<64, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
-                               causal, scale, stream);
+    return launch_width<64, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+                               s_valid, causal, scale, stream);
   if (hd <= 128)
-    return launch_width<128, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
-                                causal, scale, stream);
-  if (hd <= 256)
-    return launch_width<256, T>(q, k, v, o, lse, B, S, H, KV, hd, s_valid,
-                                causal, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_width<128, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+                                s_valid, causal, scale, stream);
+  return launch_width<256, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+                              s_valid, causal, scale, stream);
 }
 
 }  // namespace
 
-// The CUDA-core entry point: q, o: (B, S, H, hd); k, v: (B, S, KV, hd);
-// contiguous, all fp32 (bf16 = 0) or all bf16 (bf16 = 1); H a multiple of
-// KV; 1 <= hd <= 256;
+// The CUDA-core entry point: q: (B, S, H, hd); k: (B, S, KV, hd); v: (B,
+// S, KV, hv); o: (B, S, H, hv); contiguous, all fp32 (bf16 = 0) or all
+// bf16 (bf16 = 1); H a multiple of KV; 1 <= hd, hv <= 256;
 // keys at or after s_valid carry no mass.  Launches on `stream` of
 // `device`; returns the launch's cudaError_t.
 // flash_attention_fwd_lse also writes lse (B, H, S) fp32, each row's
@@ -288,25 +316,26 @@ int launch_typed(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int S, int H, int KV, int hd,
-                                       int s_valid, int causal, float scale,
-                                       int bf16, int device, void* stream) {
+                                       int hv, int s_valid, int causal,
+                                       float scale, int bf16, int device,
+                                       void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_typed<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd,
+    return launch_typed<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, hv,
                                        s_valid, causal, scale, st);
-  return launch_typed<float>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
-                             scale, st);
+  return launch_typed<float>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
+                             causal, scale, st);
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
-                                   int H, int KV, int hd, int s_valid,
-                                   int causal, float scale, int bf16,
-                                   int device, void* stream) {
-  return flash_attention_fwd_lse(q, k, v, o, nullptr, B, S, H, KV, hd,
+                                   int H, int KV, int hd, int hv,
+                                   int s_valid, int causal, float scale,
+                                   int bf16, int device, void* stream) {
+  return flash_attention_fwd_lse(q, k, v, o, nullptr, B, S, H, KV, hd, hv,
                                  s_valid, causal, scale, bf16, device,
                                  stream);
 }
@@ -334,9 +363,11 @@ __host__ __device__ constexpr int pitch() {
   return HDP + 8;
 }
 
-template <int HDP>
+template <int HDP, int HVP>
 constexpr size_t smem_bytes() {  // Q tile, then two K and two V stages
-  return static_cast<size_t>(kBQ + 4 * kBK) * pitch<HDP>() * sizeof(bf16);
+  return (static_cast<size_t>(kBQ + 2 * kBK) * pitch<HDP>() +
+          static_cast<size_t>(2 * kBK) * pitch<HVP>()) *
+         sizeof(bf16);
 }
 
 // (x, y) as a bf16 pair hi, and what hi leaves out as a bf16 pair lo
@@ -349,15 +380,30 @@ __device__ __forceinline__ void split(float x, float y, unsigned& hi,
   lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
-// Stage keys [k0, k0 + kBK) of K and V into ks and vs; keys at or past
-// kv_end and columns past hd are zero.
+// Stage keys [k0, k0 + kBK) of a K (or V) tile of W columns, row stride
+// `row`, into xs; keys at or past kv_end and columns past w are zero.
+template <int W>
+__device__ __forceinline__ void load_rows(bf16* xs, const bf16* xb, int k0,
+                                          int kv_end, size_t row, int w) {
+  constexpr int P = pitch<W>();
+  constexpr int kChunks = W / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < kBK * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool ok = k0 + r < kv_end && c < w;
+    const size_t off = static_cast<size_t>(k0 + r) * row + c;
+    tcore::cp_async<16>(xs + r * P + c, ok ? xb + off : xb, ok);
+  }
+}
+
+// K and V tiles of one width (hv = hd), in one pass: the same rows and
+// offsets for both
 template <int HDP>
 __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
                                         const bf16* kb, const bf16* vb,
                                         int k0, int kv_end, size_t kv_row,
                                         int hd) {
   constexpr int P = pitch<HDP>();
-  constexpr int kChunks = HDP / 8;  // 16-byte chunks per row
+  constexpr int kChunks = HDP / 8;
   for (int e = threadIdx.x; e < kBK * kChunks; e += kThreads) {
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool ok = k0 + r < kv_end && c < hd;
@@ -367,21 +413,42 @@ __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
   }
 }
 
-template <int HDP>
+// keys [k0, k0 + kBK) of K and V into ks and vs
+template <int HDP, int HVP>
+__device__ __forceinline__ void load_tiles(bf16* ks, bf16* vs,
+                                           const bf16* kb, const bf16* vb,
+                                           int k0, int kv_end,
+                                           size_t kv_row, size_t v_row,
+                                           int hd, int hv) {
+  if constexpr (HDP == HVP) {
+    load_kv<HDP>(ks, vs, kb, vb, k0, kv_end, kv_row, hd);
+  } else {
+    load_rows<HDP>(ks, kb, k0, kv_end, kv_row, hd);
+    load_rows<HVP>(vs, vb, k0, kv_end, v_row, hv);
+  }
+}
+
+// (HDP, HVP): the compiled q/k and value widths; at HDP = HVP the value
+// width is hd (the dense family's calls), else hv
+template <int HDP, int HVP>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int S, int H, int KV, int hd,
-                     int s_valid, int causal, float scale_log2) {
-  constexpr int P = pitch<HDP>();
+                     int hv_arg, int s_valid, int causal,
+                     float scale_log2) {
+  constexpr bool kOwnV = HDP != HVP;
+  const int hv = kOwnV ? hv_arg : hd;
+  constexpr int P = pitch<HDP>();    // Q and K rows
+  constexpr int PV = pitch<HVP>();   // V rows
   constexpr int kChunks = HDP / 8;
   constexpr int kDSteps = HDP / 16;  // k-steps of Q K^T over hd
   constexpr int kSTiles = kBK / 8;   // n-tiles of S (8 keys each)
-  constexpr int kOTiles = HDP / 8;   // n-tiles of O (8 columns each)
+  constexpr int kOTiles = HVP / 8;   // n-tiles of O (8 columns each)
   extern __shared__ float4 smem4[];
   bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [kBQ][P]
   bf16* k_s = q_s + kBQ * P;                   // [2][kBK][P]
-  bf16* v_s = k_s + 2 * kBK * P;               // [2][kBK][P]
+  bf16* v_s = k_s + 2 * kBK * P;               // [2][kBK][PV]
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -393,12 +460,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const size_t q_row = static_cast<size_t>(H) * hd;  // elements per token
   const size_t kv_row = static_cast<size_t>(KV) * hd;
+  const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
+  const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const bf16* qb = q + static_cast<size_t>(b) * S * q_row +
                    static_cast<size_t>(h) * hd;
   const bf16* kb = k + static_cast<size_t>(b) * S * kv_row +
                    static_cast<size_t>(kvh) * hd;
-  const bf16* vb = v + static_cast<size_t>(b) * S * kv_row +
-                   static_cast<size_t>(kvh) * hd;
+  const bf16* vb = v + static_cast<size_t>(b) * S * v_row +
+                   static_cast<size_t>(kvh) * hv;
 
   const int kv_lim = min(S, s_valid);
   const int kv_end = causal ? min(kv_lim, q0 + kBQ) : kv_lim;
@@ -411,7 +480,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         q_s + r * P + c,
         ok ? qb + static_cast<size_t>(q0 + r) * q_row + c : qb, ok);
   }
-  load_kv<HDP>(k_s, v_s, kb, vb, 0, kv_end, kv_row, hd);
+  load_tiles<HDP, HVP>(k_s, v_s, kb, vb, 0, kv_end, kv_row, v_row, hd, hv);
   cp_async_commit();
 
   float o_acc[kOTiles][4];
@@ -424,14 +493,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles)
-      load_kv<HDP>(k_s + ((t + 1) & 1) * kBK * P,
-                   v_s + ((t + 1) & 1) * kBK * P, kb, vb, (t + 1) * kBK,
-                   kv_end, kv_row, hd);
+      load_tiles<HDP, HVP>(k_s + ((t + 1) & 1) * kBK * P,
+                           v_s + ((t + 1) & 1) * kBK * PV, kb, vb,
+                           (t + 1) * kBK, kv_end, kv_row, v_row, hd, hv);
     cp_async_commit();  // possibly empty: one group per tile
     tcore::cp_async_wait<1>();  // tile t (and Q) have landed
     __syncthreads();
     const bf16* ks = k_s + (t & 1) * kBK * P;
-    const bf16* vs = v_s + (t & 1) * kBK * P;
+    const bf16* vs = v_s + (t & 1) * kBK * PV;
     const int k0 = t * kBK;
 
     // S = Q K^T: 16 rows x 64 keys per warp, fp32 in fragment layout
@@ -510,7 +579,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int n = 0; n < kOTiles / 2; ++n) {
         unsigned vf[4];
-        ldsm_x4_trans(vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+        ldsm_x4_trans(vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PV +
                           n * 16 + (lane >> 4) * 8,
                       vf);
         mma(o_acc[2 * n], hi, vf[0], vf[1]);
@@ -534,12 +603,12 @@ __global__ void __launch_bounds__(kThreads, 2)
           l > 0.f ? (m_run[i] + log2f(l)) * 0.69314718055994531f
                   : CUDART_INF_F;
     if (qi < S) {
-      bf16* orow = o + (static_cast<size_t>(b) * S + qi) * q_row +
-                   static_cast<size_t>(h) * hd;
+      bf16* orow = o + (static_cast<size_t>(b) * S + qi) * o_row +
+                   static_cast<size_t>(h) * hv;
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
         const int c = n * 8 + 2 * tig;
-        if (c < hd)
+        if (c < hv)
           *reinterpret_cast<__nv_bfloat162*>(orow + c) =
               __floats2bfloat162_rn(o_acc[n][2 * i] / denom,
                                     o_acc[n][2 * i + 1] / denom);
@@ -548,12 +617,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HDP>
+template <int HDP, int HVP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int KV, int hd, int s_valid, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HDP>();
-  auto kernel = flash_mma_kernel<HDP>;
+           int B, int S, int H, int KV, int hd, int hv, int s_valid,
+           int causal, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HDP, HVP>();
+  auto kernel = flash_mma_kernel<HDP, HVP>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -564,47 +633,53 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
-      hd, s_valid, causal, scale * 1.4426950408889634f);
+      hd, hv, s_valid, causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 }  // namespace
 
-// The tensor-core entry point: q, o: (B, S, H, hd); k, v: (B, S, KV, hd);
-// contiguous bf16 with 16-byte aligned bases; H a multiple of KV; hd a
-// multiple of 16 up to 128; keys at or after s_valid carry no mass.
+// The tensor-core entry point: q: (B, S, H, hd); k: (B, S, KV, hd); v:
+// (B, S, KV, hv); o: (B, S, H, hv); contiguous bf16 with 16-byte aligned
+// bases; H a multiple of KV; hd and hv multiples of 16, hd up to 192 and
+// hv up to 128; keys at or after s_valid carry no mass.
 // flash_attention_mma_bf16_lse also writes lse (B, H, S) fp32, as
 // flash_attention_fwd_lse does.  Launches on `stream` of `device`;
 // returns the launch's cudaError_t.
 extern "C" int flash_attention_mma_bf16_lse(const void* q, const void* k,
                                             const void* v, void* o,
                                             void* lse, int B, int S, int H,
-                                            int KV, int hd, int s_valid,
-                                            int causal, float scale,
-                                            int device, void* stream) {
+                                            int KV, int hd, int hv,
+                                            int s_valid, int causal,
+                                            float scale, int device,
+                                            void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd < 16 || hd > 128 || hd % 16 != 0)
+  if (hd < 16 || hd > 192 || hd % 16 != 0 || hv < 16 || hv > 128 ||
+      hv % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (hd != hv)  // a value width of its own: the (192, 128) pair
+    return tc::launch<192, 128>(q, k, v, o, l, B, S, H, KV, hd, hv,
+                                s_valid, causal, scale, st);
   if (hd <= 32)
-    return tc::launch<32>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
-                          scale, st);
+    return tc::launch<32, 32>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
+                              causal, scale, st);
   if (hd <= 64)
-    return tc::launch<64>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
-                          scale, st);
-  return tc::launch<128>(q, k, v, o, l, B, S, H, KV, hd, s_valid, causal,
-                         scale, st);
+    return tc::launch<64, 64>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
+                              causal, scale, st);
+  return tc::launch<128, 128>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
+                              causal, scale, st);
 }
 
 extern "C" int flash_attention_mma_bf16(const void* q, const void* k,
                                         const void* v, void* o, int B,
-                                        int S, int H, int KV, int hd,
+                                        int S, int H, int KV, int hd, int hv,
                                         int s_valid, int causal, float scale,
                                         int device, void* stream) {
   return flash_attention_mma_bf16_lse(q, k, v, o, nullptr, B, S, H, KV, hd,
-                                      s_valid, causal, scale, device,
+                                      hv, s_valid, causal, scale, device,
                                       stream);
 }

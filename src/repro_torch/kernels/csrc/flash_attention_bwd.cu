@@ -8,8 +8,10 @@
 //   dK  = scale * dS^T Q
 //   dQ  = scale * dS K
 //
-// over keys j < s_valid (and j <= i when causal); q, dO, dQ: (B, S, H,
-// hd); k, v, dK, dV: (B, S, KV, hd); lse: (B, H, S) fp32 from the forward
+// over keys j < s_valid (and j <= i when causal); q, dQ: (B, S, H, hd);
+// dO: (B, S, H, hv); k, dK: (B, S, KV, hd); v, dV: (B, S, KV, hv), the
+// value width hv apart from the q/k width hd (MLA's expanded form: hd
+// 192, hv 128); lse: (B, H, S) fp32 from the forward
 // (flash_attention.cu's *_lse entries); fp32 or bf16 in, fp32 sums,
 // gradients written in q's type.  A query head h reads and writes the
 // gradients of KV head h / (H / KV) in place: no repeated-KV copy.
@@ -55,9 +57,10 @@
 // sweep, but keeps dQ 2.4e-6-2.2e-5 off the exact chain rule against
 // rowsum(P o dP)'s 1.3e-7-7.7e-7 (tools/flash_bwd_delta_error.py).
 //
-// Tensor-core design (bf16, hd a multiple of 16 up to 128, compiled at 64
-// and 128 columns; Hopper's wgmma, TMA, mbarrier and setmaxnreg helpers in
-// tensor_core.cuh).  A block is three warpgroups: a producer, whose first
+// Tensor-core design (bf16, hd and hv multiples of 16, hd up to 192 and
+// hv up to 128, compiled at (64, 64) and (128, 128) columns for hd = hv
+// and at (192, 128) for any hv != hd; Hopper's wgmma, TMA, mbarrier and
+// setmaxnreg helpers in tensor_core.cuh).  A block is three warpgroups: a producer, whose first
 // warp keeps a 3-stage ring of TMA copies in flight behind full / empty
 // mbarriers and gives up its registers (24), and two consumers of 64 rows
 // each (240 registers).  Tiles land 128-byte swizzled (rows of 64 bf16;
@@ -79,14 +82,23 @@
 // shape, where one block per key tile gave 128 with the work spread 16:1);
 // the dQ kernel's query tiles run longest first.  Fully masked causal
 // steps are skipped; only a step that holds the diagonal, s_valid or S is
-// masked element by element.
+// masked element by element.  At (192, 128) a consumer holding both a 64 x
+// 192 dK and a 64 x 128 dV in fp32 would need 160 registers a thread for
+// them alone, and would spill past setmaxnreg's 240 once S^T, dP^T and the
+// bf16 halves are live; so there a dK/dV block holds 64 keys, and its two
+// consumers split the work by role: both form S^T and dP^T, consumer 0
+// sums dK (96 accumulator registers) and consumer 1 dV (64).  The Q and
+// dO ring keeps its 3 stages (120 KB; 160 KB in all for the dK/dV
+// kernel, 200 KB for the dQ kernel, whose dQ takes 96 registers), the
+// products over 192 columns take 12 depth steps in the SS form and an N =
+// 128 plus an N = 64 product in the RS form.
 //
 // CUDA-core design (fp32, and bf16 at other widths up to 256): 256 threads
 // per block, tiles of 32 keys and 32 queries staged in shared memory as
 // fp32; each thread scores 4 (key, query) pairs of a tile (S and dP as
-// float4 dot products over hd), the tile's P and dS pass through shared
-// memory, and each thread accumulates a 32-key (or 32-query) row's float4
-// column chunks of dK and dV (or dQ) in registers.  D takes the same two
+// float4 dot products over hd and hv), the tile's P and dS pass through
+// shared memory, and each thread accumulates a 32-key (or 32-query) row's
+// float4 column chunks of dK and dV (or dQ) in registers.  D takes the same two
 // passes in its dQ kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,14 +189,17 @@ __device__ __forceinline__ void write_row(T* out, const float (&acc)[HDMAX / 8],
     }
 }
 
-// one block per (b * KV + kv head, 32-key tile)
-template <int HDMAX, typename T>
+// one block per (b * KV + kv head, 32-key tile).  kOwnV: v, dO and dV
+// carry a width hv of their own; without it hv = hd, and the kernel is the
+// one the dense family's calls (hd = hv) always ran
+template <int HDMAX, typename T, bool kOwnV>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-               int hd, int s_valid, int causal, float scale) {
+               int hd, int hv_arg, int s_valid, int causal, float scale) {
+  const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);  // [kT][kStride]
@@ -202,10 +217,15 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, row = tid / 8, lane8 = tid % 8;
   const int kv_lim = min(S, s_valid);
   const size_t q_row = static_cast<size_t>(H) * hd;
+  const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const size_t kv_row = static_cast<size_t>(KV) * hd;
+  const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
   const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
                         static_cast<size_t>(kvh) * hd;
-  const int hd4 = (hd + 3) / 4;
+  const size_t v_off = kOwnV ? static_cast<size_t>(b) * S * v_row +
+                                   static_cast<size_t>(kvh) * hv
+                             : kv_off;
+  const int hd4 = (hd + 3) / 4, hv4 = kOwnV ? (hv + 3) / 4 : hd4;
 
   float dk_acc[HDMAX / 8], dv_acc[HDMAX / 8];
 #pragma unroll
@@ -213,20 +233,23 @@ __global__ void __launch_bounds__(kThreads)
 
   if (k0 < kv_lim) {
     stage<HDMAX>(k_s, k + kv_off, kv_row, k0, kv_lim, hd);
-    stage<HDMAX>(v_s, v + kv_off, kv_row, k0, kv_lim, hd);
+    stage<HDMAX>(v_s, v + v_off, v_row, k0, kv_lim, hv);
     const int qt_first = causal ? k0 / kT : 0;
     const int n_qt = (S + kT - 1) / kT;
     for (int hh = 0; hh < group; ++hh) {
       const int h = kvh * group + hh;
       const size_t q_off = static_cast<size_t>(b) * S * q_row +
                            static_cast<size_t>(h) * hd;
+      const size_t o_off = kOwnV ? static_cast<size_t>(b) * S * o_row +
+                                       static_cast<size_t>(h) * hv
+                                 : q_off;
       const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
       const float* d_h = delta + (static_cast<size_t>(b) * H + h) * S;
       for (int qt = qt_first; qt < n_qt; ++qt) {
         const int q0 = qt * kT;
         __syncthreads();  // the previous tile's reads are done
         stage<HDMAX>(q_s, q + q_off, q_row, q0, S, hd);
-        stage<HDMAX>(do_s, dout + q_off, q_row, q0, S, hd);
+        stage<HDMAX>(do_s, dout + o_off, o_row, q0, S, hv);
         if (tid < kT) {
           lse_s[tid] = q0 + tid < S ? lse_h[q0 + tid] : 0.f;
           d_s[tid] = q0 + tid < S ? d_h[q0 + tid] : 0.f;
@@ -242,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
             const float s = dot4(k_s + row * kStride, q_s + qq * kStride,
                                  hd4);
             const float dp = dot4(v_s + row * kStride, do_s + qq * kStride,
-                                  hd4);
+                                  hv4);
             p = expf(s * scale - lse_s[qq]);
             ds = p * (dp - d_s[qq]);
           }
@@ -261,21 +284,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int key = k0 + row;
   if (key < S) {
-    const size_t off = kv_off + static_cast<size_t>(key) * kv_row;
-    write_row<HDMAX>(dk + off, dk_acc, scale, lane8, hd);
-    write_row<HDMAX>(dv + off, dv_acc, 1.f, lane8, hd);
+    write_row<HDMAX>(dk + kv_off + static_cast<size_t>(key) * kv_row, dk_acc,
+                     scale, lane8, hd);
+    write_row<HDMAX>(dv + v_off + static_cast<size_t>(key) * v_row, dv_acc,
+                     1.f, lane8, hv);
   }
 }
 
 // one block per (b * H + head, 32-query tile): a first pass over the key
 // tiles sums D = rowsum(P o dP) and writes it, a second forms dS and dQ
-template <int HDMAX, typename T>
+template <int HDMAX, typename T, bool kOwnV>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta,
-              T* __restrict__ dq, int S, int H, int KV, int hd, int s_valid,
-              int causal, float scale) {
+              T* __restrict__ dq, int S, int H, int KV, int hd, int hv_arg,
+              int s_valid, int causal, float scale) {
+  const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
@@ -293,17 +318,25 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_lim = min(S, s_valid);
   const int kv_end = causal ? min(kv_lim, q0 + kT) : kv_lim;
   const size_t q_row = static_cast<size_t>(H) * hd;
+  const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const size_t kv_row = static_cast<size_t>(KV) * hd;
+  const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
   const size_t q_off = static_cast<size_t>(b) * S * q_row +
                        static_cast<size_t>(h) * hd;
+  const size_t o_off = kOwnV ? static_cast<size_t>(b) * S * o_row +
+                                   static_cast<size_t>(h) * hv
+                             : q_off;
   const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
                         static_cast<size_t>(kvh) * hd;
+  const size_t v_off = kOwnV ? static_cast<size_t>(b) * S * v_row +
+                                   static_cast<size_t>(kvh) * hv
+                             : kv_off;
   const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
   float* d_h = delta + (static_cast<size_t>(b) * H + h) * S;
-  const int hd4 = (hd + 3) / 4;
+  const int hd4 = (hd + 3) / 4, hv4 = kOwnV ? (hv + 3) / 4 : hd4;
 
   stage<HDMAX>(q_s, q + q_off, q_row, q0, S, hd);
-  stage<HDMAX>(do_s, dout + q_off, q_row, q0, S, hd);
+  stage<HDMAX>(do_s, dout + o_off, o_row, q0, S, hv);
   if (tid < kT) lse_s[tid] = q0 + tid < S ? lse_h[q0 + tid] : 0.f;
   float dq_acc[HDMAX / 8];
 #pragma unroll
@@ -315,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k0 = 0; k0 < kv_end; k0 += kT) {
       __syncthreads();  // Q staged; the previous tile's reads are done
       stage<HDMAX>(k_s, k + kv_off, kv_row, k0, kv_lim, hd);
-      stage<HDMAX>(v_s, v + kv_off, kv_row, k0, kv_lim, hd);
+      stage<HDMAX>(v_s, v + v_off, v_row, k0, kv_lim, hv);
       __syncthreads();
       // query `row`, keys lane8 + 8 * j
 #pragma unroll
@@ -325,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
         float p = 0.f, dp = 0.f;
         if (key < kv_lim && qi < S && !(causal && key > qi)) {
           const float s = dot4(q_s + row * kStride, k_s + kk * kStride, hd4);
-          dp = dot4(do_s + row * kStride, v_s + kk * kStride, hd4);
+          dp = dot4(do_s + row * kStride, v_s + kk * kStride, hv4);
           p = expf(s * scale - lse_s[row]);
         }
         if (pass == 0)
@@ -353,14 +386,14 @@ __global__ void __launch_bounds__(kThreads)
                      scale, lane8, hd);
 }
 
-template <int HDMAX, typename T>
+template <int HDMAX, typename T, bool kOwnV = false>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
-           int B, int S, int H, int KV, int hd, int s_valid, int causal,
-           float scale, cudaStream_t stream) {
+           int B, int S, int H, int KV, int hd, int hv, int s_valid,
+           int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDMAX>();
-  auto dkv = dkv_kernel<HDMAX, T>;
-  auto dqk = dq_kernel<HDMAX, T>;
+  auto dkv = dkv_kernel<HDMAX, T, kOwnV>;
+  auto dqk = dq_kernel<HDMAX, T, kOwnV>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -375,13 +408,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   dqk<<<dim3(B * H, tiles), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, KV, hd, s_valid, causal, scale);
+      static_cast<T*>(dq), S, H, KV, hd, hv, s_valid, causal, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkv<<<dim3(B * KV, tiles), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, hd, s_valid,
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, hd, hv, s_valid,
       causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -390,20 +423,25 @@ template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int B, int S, int H, int KV, int hd,
-                 int s_valid, int causal, float scale, cudaStream_t stream) {
+                 int hv, int s_valid, int causal, float scale,
+                 cudaStream_t stream) {
+  if (hd < 1 || hv < 1 || hd > 256 || hv > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != hv)  // a value width of its own: one instantiation takes all
+    return launch<256, T, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, S,
+                                H, KV, hd, hv, s_valid, causal, scale,
+                                stream);
   if (hd <= 32)
     return launch<32, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                         hd, s_valid, causal, scale, stream);
+                         hd, hv, s_valid, causal, scale, stream);
   if (hd <= 64)
     return launch<64, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                         hd, s_valid, causal, scale, stream);
+                         hd, hv, s_valid, causal, scale, stream);
   if (hd <= 128)
     return launch<128, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
-                          KV, hd, s_valid, causal, scale, stream);
-  if (hd <= 256)
-    return launch<256, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
-                          KV, hd, s_valid, causal, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+                          KV, hd, hv, s_valid, causal, scale, stream);
+  return launch<256, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
+                        hd, hv, s_valid, causal, scale, stream);
 }
 
 }  // namespace simt
@@ -429,12 +467,31 @@ constexpr int kConsumerRegs = 240;
 constexpr int kFoldSync = 1;        // named barrier of the consumers
 constexpr int kMaxDevices = 64;
 
+// Whether the dK/dV kernel at the compiled widths (HDP, HVP) splits its
+// consumers by role: at (192, 128) a consumer holding both a 64 x 192 dK
+// and a 64 x 128 dV in fp32 (160 registers a thread) would pass the 240
+// that setmaxnreg grants once S^T, dP^T and the bf16 halves are live, so
+// the two consumers take the same 64 keys, one summing dK and the other
+// dV (96 and 64 accumulator registers).
+template <int HDP, int HVP>
+__host__ __device__ constexpr bool split_roles() {
+  return HDP + HVP > 256;
+}
+
+// keys a dK/dV block holds
+template <int HDP, int HVP>
+__host__ __device__ constexpr int dkv_keys() {
+  return split_roles<HDP, HVP>() ? kRows : kBlockRows;
+}
+
 // dynamic shared memory of either kernel: two 128-row tiles held for the
-// block, a ring of kStages pairs of 64-row tiles, and 1,024 bytes to align
-template <int HDP>
+// block (Q at HDP columns and dO at HVP, or the dK/dV kernel's K and V,
+// at most as large), a ring of kStages pairs of 64-row tiles, and 1,024
+// bytes to align
+template <int HDP, int HVP>
 constexpr size_t smem_bytes() {
-  return 1024 + static_cast<size_t>(HDP) *
-                    (2 * kBlockRows + 2 * kStages * kStep) * sizeof(bf16);
+  return 1024 + static_cast<size_t>(HDP + HVP) *
+                    (kBlockRows + kStages * kStep) * sizeof(bf16);
 }
 
 // this thread's warpgroup, read from lane 0 so that the compiler knows it
@@ -470,43 +527,47 @@ __device__ __forceinline__ void a_operands(const float (&x)[32],
     split(x[2 * j], x[2 * j + 1], hi[j / 4][j % 4], lo[j / 4][j % 4]);
 }
 
-// acc (kA atoms of 64 x 64) += x B as hi + lo, B the 64-row tile `b` (its
-// rows the depth, kA atoms of 64 columns, `rows` rows an atom) MN-major;
-// at 128 columns one product spans both atoms, `rows` x 128 bytes apart
-// (the descriptor's LBO)
-template <int kA>
-__device__ __forceinline__ void product_rs(float (&acc)[kA][32],
+// acc's first kA atoms of 64 x 64 += x B as hi + lo, B the 64-row tile `b`
+// (its rows the depth, kA atoms of 64 columns, `rows` rows an atom)
+// MN-major.  Atoms 0 and 1 go in one product of 128 columns, the atoms
+// `rows` x 128 bytes apart (the descriptor's LBO); a third atom (192
+// columns) in a product of its own.
+template <int kA, int kN>
+__device__ __forceinline__ void product_rs(float (&acc)[kN][32],
                                            const unsigned (&hi)[4][4],
                                            const unsigned (&lo)[4][4],
                                            const bf16* b, int rows) {
-  static_assert(kA == 1 || kA == 2, "64 or 128 columns");
-  uint64_t db = wgmma_desc(b);
-  if constexpr (kA == 2)
-    db = (db & ~(0x3fffull << 16)) |
-         (static_cast<uint64_t>(rows * kAtom * 2 / 16) << 16);
+  static_assert(kA >= 1 && kA <= 3 && kA <= kN, "64, 128 or 192 columns");
+  const uint64_t atom = static_cast<uint64_t>(rows * kAtom * 2 / 16);
+  const uint64_t db = wgmma_desc(b);
+  const uint64_t d2 = (db & ~(0x3fffull << 16)) | (atom << 16);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = db + kk * 16 * kAtom * 2 / 16;  // 16 rows
-    if constexpr (kA == 2) {
-      tcore::wgmma_rs_n128(acc[0], acc[1], hi[kk], desc);
-      tcore::wgmma_rs_n128(acc[0], acc[1], lo[kk], desc);
+    const uint64_t step = kk * 16 * kAtom * 2 / 16;  // 16 rows
+    if constexpr (kA >= 2) {
+      tcore::wgmma_rs_n128(acc[0], acc[1], hi[kk], d2 + step);
+      tcore::wgmma_rs_n128(acc[0], acc[1], lo[kk], d2 + step);
     } else {
-      tcore::wgmma_rs(acc[0], hi[kk], desc);
-      tcore::wgmma_rs(acc[0], lo[kk], desc);
+      tcore::wgmma_rs(acc[0], hi[kk], db + step);
+      tcore::wgmma_rs(acc[0], lo[kk], db + step);
+    }
+    if constexpr (kA == 3) {
+      tcore::wgmma_rs(acc[2], hi[kk], db + 2 * atom + step);
+      tcore::wgmma_rs(acc[2], lo[kk], db + 2 * atom + step);
     }
   }
 }
 
-// d = A B^T over the width HDP: A the 64 rows at `a` of a tile of
-// `a_rows` rows an atom, B the 64 rows at `b` of a tile of `b_rows`, both
-// K-major (their columns the depth).  A descriptor counts 16 bytes a unit.
-template <int HDP>
+// d = A B^T over the width W: A the 64 rows at `a` of a tile of `a_rows`
+// rows an atom, B the 64 rows at `b` of a tile of `b_rows`, both K-major
+// (their columns the depth).  A descriptor counts 16 bytes a unit.
+template <int W>
 __device__ __forceinline__ void product_ss(float (&d)[32], const bf16* a,
                                            int a_rows, const bf16* b,
                                            int b_rows) {
   const uint64_t da = wgmma_desc(a), db = wgmma_desc(b);
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
+  for (int kk = 0; kk < W / 16; ++kk) {
     const int atom = kk / 4, c = (kk % 4) * 16;  // c: bf16 along the row
     tcore::wgmma_ss(d, da + (atom * a_rows * kAtom + c) * 2 / 16,
                     db + (atom * b_rows * kAtom + c) * 2 / 16, kk > 0);
@@ -532,13 +593,14 @@ __device__ __forceinline__ void fence_ops(unsigned (&x)[4][4]) {
   for (int kk = 0; kk < 4; ++kk) fence_regs(x[kk]);
 }
 
-// rows row0, row0 + 8 of acc (times mul) as bf16 into out (row stride ld,
-// the tile's first row at out); rows at or past n, columns past hd skipped
-template <int kA>
+// rows row0, row0 + 8 of acc's first kA atoms (times mul) as bf16 into out
+// (row stride ld, the tile's first row at out); rows at or past n,
+// columns past w skipped
+template <int kA, int kN>
 __device__ __forceinline__ void store_rows(bf16* out, size_t ld,
-                                           const float (&acc)[kA][32],
+                                           const float (&acc)[kN][32],
                                            float mul, int row0, int n,
-                                           int hd, int tq) {
+                                           int w, int tq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -548,7 +610,7 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t ld,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = a * kAtom + j * 8 + 2 * tq;
-        if (c < hd)
+        if (c < w)
           *reinterpret_cast<__nv_bfloat162*>(out + row * ld + c) =
               __floats2bfloat162_rn(acc[a][4 * j + 2 * r] * mul,
                                     acc[a][4 * j + 2 * r + 1] * mul);
@@ -556,15 +618,80 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t ld,
   }
 }
 
-// The dK/dV kernel.  Block: the 128 keys [k0, k0 + 128) of KV head kvh in
-// batch b (consumer warpgroup w owns [k0 + 64 w, +64)) and the steps
-// [t_begin, t_end) of that key tile's (query head, 64-query tile) sweep:
-// step t is query head kvh * group + t / per_head, query tile qt_first + t
-// % per_head.  Blocks run key tile by key tile (the causal sweep's longest
-// first); a tile's sweep is cut into ns = ceil(steps / chunk) near-equal
-// shares, one block each, whose fp32 partials the last of them to finish
-// folds in split order (an integer counter finds it).
-template <int HDP>
+// acc's first n atoms into (put) or added from (add) a fold slot, from
+// the slot's atom `at` on: a float4 a lane, 8 an atom
+template <int kN>
+__device__ __forceinline__ void put(float4* slot, const float (&acc)[kN][32],
+                                    int n, int at, int t_in) {
+#pragma unroll
+  for (int a = 0; a < kN; ++a)
+    if (a < n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        slot[((at + a) * 8 + j) * 128 + t_in] =
+            make_float4(acc[a][4 * j], acc[a][4 * j + 1], acc[a][4 * j + 2],
+                        acc[a][4 * j + 3]);
+}
+
+template <int kN>
+__device__ __forceinline__ void add(const float4* slot, float (&acc)[kN][32],
+                                    int n, int at, int t_in) {
+#pragma unroll
+  for (int a = 0; a < kN; ++a)
+    if (a < n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = __ldcg(slot + ((at + a) * 8 + j) * 128 + t_in);
+        acc[a][4 * j] += x.x;
+        acc[a][4 * j + 1] += x.y;
+        acc[a][4 * j + 2] += x.z;
+        acc[a][4 * j + 3] += x.w;
+      }
+}
+
+// The fold of a split key tile, run by both consumers: this share's sums
+// (n1 atoms of x, then n2 of y) into its slot of `slot4` float4s; the last
+// share of the tile to end (the counter finds it) sums every share's slot
+// into x and y in split order and returns true, the others false.
+template <int kN1, int kN2>
+__device__ __forceinline__ bool fold(float (&x)[kN1][32], int n1,
+                                     float (&y)[kN2][32], int n2,
+                                     float4* ws, size_t slot4, int split_i,
+                                     int ns, int* counter, int* last,
+                                     int wg, int t_in) {
+  const size_t first = static_cast<size_t>(blockIdx.x) - split_i;
+  put(ws + (static_cast<size_t>(blockIdx.x) * kConsumers + wg) * slot4, x,
+      n1, 0, t_in);
+  put(ws + (static_cast<size_t>(blockIdx.x) * kConsumers + wg) * slot4, y,
+      n2, n1, t_in);
+  __threadfence();
+  tcore::named_sync(kFoldSync, kConsumerThreads);
+  if (threadIdx.x == 0) *last = atomicAdd(counter, 1) == ns - 1;
+  tcore::named_sync(kFoldSync, kConsumerThreads);
+  if (!*last) return false;
+  __threadfence();
+  zero(x);
+  zero(y);
+  for (int sp = 0; sp < ns; ++sp) {  // split order, whoever ended last
+    const float4* part = ws + ((first + sp) * kConsumers + wg) * slot4;
+    add(part, x, n1, 0, t_in);
+    add(part, y, n2, n1, t_in);
+  }
+  return true;
+}
+
+// The dK/dV kernel.  Block: the kKeys keys [k0, k0 + kKeys) of KV head kvh
+// in batch b and the steps [t_begin, t_end) of that key tile's (query
+// head, 64-query tile) sweep: step t is query head kvh * group + t /
+// per_head, query tile qt_first + t % per_head.  kKeys is 128, consumer
+// warpgroup w owning keys [k0 + 64 w, +64) and summing their dK and dV,
+// or, where the roles split (split_roles), 64 keys that both consumers
+// take, consumer 0 summing dK and consumer 1 dV.  Blocks run key tile by
+// key tile (the causal sweep's longest first); a tile's sweep is cut into
+// ns = ceil(steps / chunk) near-equal shares, one block each, whose fp32
+// partials the last of them to finish folds in split order (an integer
+// counter finds it).
+template <int HDP, int HVP>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_do,
@@ -574,25 +701,32 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, float* __restrict__ ws,
                      int* __restrict__ counters, int B, int S, int H, int KV,
-                     int hd, int s_valid, int causal, float scale,
-                     float scale_log2, int chunk) {
-  constexpr int kA = HDP / kAtom;
-  constexpr int kKV = kBlockRows * HDP;  // bf16 of the K (or V) tile
-  constexpr int kQ = kStep * HDP;        // bf16 of a Q (or dO) stage
-  constexpr int kPart = 2 * kA * 32;     // partial floats a thread
+                     int hd, int hv_arg, int s_valid, int causal,
+                     float scale, float scale_log2, int chunk) {
+  // at HDP = HVP the value width is hd (the dense family's calls)
+  const int hv = HDP == HVP ? hd : hv_arg;
+  constexpr bool kRoles = split_roles<HDP, HVP>();
+  constexpr int kKeys = dkv_keys<HDP, HVP>();
+  constexpr int kAd = HDP / kAtom, kAv = HVP / kAtom;
+  constexpr int kK = kKeys * HDP;  // bf16 of the K tile
+  constexpr int kV = kKeys * HVP;  // bf16 of the V tile
+  constexpr int kQ = kStep * HDP;  // bf16 of a Q stage
+  constexpr int kO = kStep * HVP;  // bf16 of a dO stage
+  // float4s of a consumer's fold slot: its dK and dV, or its role's sum
+  constexpr size_t kSlot4 = (kRoles ? kAd : kAd + kAv) * 8 * 128;
   extern __shared__ uint8_t smem_raw[];
   bf16* k_s = align1024(smem_raw);
-  bf16* v_s = k_s + kKV;
-  bf16* q_s = v_s + kKV;             // [kStages][kQ]
-  bf16* do_s = q_s + kStages * kQ;   // [kStages][kQ]
+  bf16* v_s = k_s + kK;
+  bf16* q_s = v_s + kV;              // [kStages][kQ]
+  bf16* do_s = q_s + kStages * kQ;   // [kStages][kO]
   __shared__ float lse_s[kStages][kStep], d_s[kStages][kStep];
   __shared__ uint64_t kv_bar, full[kStages], empty[kStages];
   __shared__ int last;
 
   const int group = H / KV;
   const int n_qt = (S + kStep - 1) / kStep;
-  const int n_kt = (S + kBlockRows - 1) / kBlockRows;
-  constexpr int kTilesPerKey = kBlockRows / kStep;
+  const int n_kt = (S + kKeys - 1) / kKeys;
+  constexpr int kTilesPerKey = kKeys / kStep;
   int idx = blockIdx.x, kt = 0, steps = 0, ns = 1;
   for (;; ++kt) {
     steps = group * (n_qt - (causal ? kt * kTilesPerKey : 0));
@@ -602,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int bkv = idx / ns, split_i = idx % ns;
   const int b = bkv / KV, kvh = bkv % KV;
-  const int k0 = kt * kBlockRows;
+  const int k0 = kt * kKeys;
   const int qt_first = causal ? kt * kTilesPerKey : 0;
   const int per_head = n_qt - qt_first;
   const int t_begin = static_cast<int>(static_cast<long long>(split_i) *
@@ -627,13 +761,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x % 128 >= 32) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      tcore::mbar_arrive_expect_tx(&kv_bar, 2 * kKV * sizeof(bf16));
-      for (int a = 0; a < kA; ++a) {
-        tcore::tma_load_4d(k_s + a * kBlockRows * kAtom, &map_k, a * kAtom,
-                           kvh, k0, b, &kv_bar);
-        tcore::tma_load_4d(v_s + a * kBlockRows * kAtom, &map_v, a * kAtom,
-                           kvh, k0, b, &kv_bar);
-      }
+      tcore::mbar_arrive_expect_tx(&kv_bar, (kK + kV) * sizeof(bf16));
+      for (int a = 0; a < kAd; ++a)
+        tcore::tma_load_4d(k_s + a * kKeys * kAtom, &map_k, a * kAtom, kvh,
+                           k0, b, &kv_bar);
+      for (int a = 0; a < kAv; ++a)
+        tcore::tma_load_4d(v_s + a * kKeys * kAtom, &map_v, a * kAtom, kvh,
+                           k0, b, &kv_bar);
     }
     for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
       const int s = i % kStages, n = i / kStages;
@@ -648,13 +782,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         d_s[s][r] = qi < S ? delta[st + qi] : 0.f;
       }
       if (lane == 0) {
-        tcore::mbar_arrive_expect_tx(&full[s], 2 * kQ * sizeof(bf16));
-        for (int a = 0; a < kA; ++a) {
+        tcore::mbar_arrive_expect_tx(&full[s], (kQ + kO) * sizeof(bf16));
+        for (int a = 0; a < kAd; ++a)
           tcore::tma_load_4d(q_s + s * kQ + a * kStep * kAtom, &map_q,
                              a * kAtom, h, q0, b, &full[s]);
-          tcore::tma_load_4d(do_s + s * kQ + a * kStep * kAtom, &map_do,
+        for (int a = 0; a < kAv; ++a)
+          tcore::tma_load_4d(do_s + s * kO + a * kStep * kAtom, &map_do,
                              a * kAtom, h, q0, b, &full[s]);
-        }
       } else {
         tcore::mbar_arrive(&full[s]);
       }
@@ -662,15 +796,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // consumer warpgroup wg: keys [kw0, kw0 + 64)
+  // consumer warpgroup wg: keys [kw0, kw0 + 64), and with split roles dK
+  // (wg 0) or dV (wg 1) alone
   tcore::setmaxnreg_inc<kConsumerRegs>();
   const int t_in = threadIdx.x % 128, warp = t_in / 32, lane = t_in % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int kw0 = k0 + wg * kRows;
+  const int kw0 = k0 + (kRoles ? 0 : wg * kRows);
   const int key_a = kw0 + warp * 16 + g;  // this thread's keys: +0, +8
-  const bf16* k_w = k_s + wg * kRows * kAtom;
-  const bf16* v_w = v_s + wg * kRows * kAtom;
-  float dk_acc[kA][32], dv_acc[kA][32];
+  const bf16* k_w = k_s + (kw0 - k0) * kAtom;
+  const bf16* v_w = v_s + (kw0 - k0) * kAtom;
+  const bool want_dk = !kRoles || wg == 0, want_dv = !kRoles || wg == 1;
+  // dK's sum and dV's; with split roles dk_acc holds this role's sum
+  float dk_acc[kAd][32], dv_acc[kRoles ? 1 : kAv][32];
   zero(dk_acc);
   zero(dv_acc);
   mbar_wait(&kv_bar, 0);
@@ -680,11 +817,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = (qt_first + t % per_head) * kStep;
     if (kw0 < kv_lim && !(causal && kw0 > q0 + kStep - 1)) {
       const bf16* qs = q_s + s * kQ;
-      const bf16* dos = do_s + s * kQ;
+      const bf16* dos = do_s + s * kO;
       float st[32], dpt[32];  // S^T = K Q^T, dP^T = V dO^T
       tcore::wgmma_fence();
-      product_ss<HDP>(st, k_w, kBlockRows, qs, kStep);
-      product_ss<HDP>(dpt, v_w, kBlockRows, dos, kStep);
+      product_ss<HDP>(st, k_w, kKeys, qs, kStep);
+      product_ss<HVP>(dpt, v_w, kKeys, dos, kStep);
       tcore::wgmma_commit();
       tcore::wgmma_wait<0>();
       fence_regs(st);
@@ -705,77 +842,53 @@ __global__ void __launch_bounds__(kThreads, 1)
       // dV's product, then dK's: P^T's halves are dead before dS^T's are
       // formed (as fast on the card as issuing both in one group)
       unsigned hi[4][4], lo[4][4];
-      a_operands(st, hi, lo);
-      tcore::wgmma_fence();
-      product_rs<kA>(dv_acc, hi, lo, dos, kStep);  // dV += P^T dO
-      tcore::wgmma_commit();
-      tcore::wgmma_wait<0>();
-      fence_ops(hi);
-      fence_ops(lo);
-      fence_acc(dv_acc);
-      a_operands(dpt, hi, lo);
-      tcore::wgmma_fence();
-      product_rs<kA>(dk_acc, hi, lo, qs, kStep);   // dK += dS^T Q
-      tcore::wgmma_commit();
-      tcore::wgmma_wait<0>();
-      fence_ops(hi);
-      fence_ops(lo);
-      fence_acc(dk_acc);
+      if (want_dv) {
+        a_operands(st, hi, lo);
+        tcore::wgmma_fence();
+        if constexpr (kRoles)  // dV += P^T dO
+          product_rs<kAv>(dk_acc, hi, lo, dos, kStep);
+        else
+          product_rs<kAv>(dv_acc, hi, lo, dos, kStep);
+        tcore::wgmma_commit();
+        tcore::wgmma_wait<0>();
+        fence_ops(hi);
+        fence_ops(lo);
+        fence_acc(dk_acc);
+        fence_acc(dv_acc);
+      }
+      if (want_dk) {
+        a_operands(dpt, hi, lo);
+        tcore::wgmma_fence();
+        product_rs<kAd>(dk_acc, hi, lo, qs, kStep);   // dK += dS^T Q
+        tcore::wgmma_commit();
+        tcore::wgmma_wait<0>();
+        fence_ops(hi);
+        fence_ops(lo);
+        fence_acc(dk_acc);
+      }
     }
     __syncwarp();
     if (lane == 0) tcore::mbar_arrive(&empty[s]);  // the stage is read
   }
 
-  const size_t ld = static_cast<size_t>(KV) * hd;
+  if (ns > 1 &&
+      !fold(dk_acc, kRoles ? (wg == 0 ? kAd : kAv) : kAd, dv_acc,
+            kRoles ? 0 : kAv, reinterpret_cast<float4*>(ws), kSlot4, split_i,
+            ns, &counters[kt * B * KV + bkv], &last, wg, t_in))
+    return;
   bf16* dk_t = dk + (static_cast<size_t>(b) * S * KV + kvh) * hd;
-  bf16* dv_t = dv + (static_cast<size_t>(b) * S * KV + kvh) * hd;
-  if (ns > 1) {  // partial of this share; the last share to end folds
-    float4* mine = reinterpret_cast<float4*>(ws) +
-                   (static_cast<size_t>(blockIdx.x) * kConsumers + wg) *
-                       (kPart / 4) * 128;
-#pragma unroll
-    for (int a = 0; a < kA; ++a)  // dk_acc then dv_acc, 4 floats a lane
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mine[(a * 8 + j) * 128 + t_in] =
-            make_float4(dk_acc[a][4 * j], dk_acc[a][4 * j + 1],
-                        dk_acc[a][4 * j + 2], dk_acc[a][4 * j + 3]);
-        mine[((kA + a) * 8 + j) * 128 + t_in] =
-            make_float4(dv_acc[a][4 * j], dv_acc[a][4 * j + 1],
-                        dv_acc[a][4 * j + 2], dv_acc[a][4 * j + 3]);
-      }
-    __threadfence();
-    tcore::named_sync(kFoldSync, kConsumerThreads);
-    if (threadIdx.x == 0)
-      last = atomicAdd(&counters[kt * B * KV + bkv], 1) == ns - 1;
-    tcore::named_sync(kFoldSync, kConsumerThreads);
-    if (!last) return;
-    __threadfence();
-    zero(dk_acc);
-    zero(dv_acc);
-    for (int sp = 0; sp < ns; ++sp) {  // split order, whoever ended last
-      const float4* part = reinterpret_cast<const float4*>(ws) +
-                           (static_cast<size_t>(blockIdx.x - split_i + sp) *
-                                kConsumers + wg) * (kPart / 4) * 128;
-#pragma unroll
-      for (int a = 0; a < kA; ++a)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 x = __ldcg(part + (a * 8 + j) * 128 + t_in);
-          const float4 y = __ldcg(part + ((kA + a) * 8 + j) * 128 + t_in);
-          dk_acc[a][4 * j] += x.x;
-          dk_acc[a][4 * j + 1] += x.y;
-          dk_acc[a][4 * j + 2] += x.z;
-          dk_acc[a][4 * j + 3] += x.w;
-          dv_acc[a][4 * j] += y.x;
-          dv_acc[a][4 * j + 1] += y.y;
-          dv_acc[a][4 * j + 2] += y.z;
-          dv_acc[a][4 * j + 3] += y.w;
-        }
-    }
+  bf16* dv_t = dv + (static_cast<size_t>(b) * S * KV + kvh) * hv;
+  if (want_dk)
+    store_rows<kAd>(dk_t, static_cast<size_t>(KV) * hd, dk_acc, scale,
+                    key_a, S, hd, tq);
+  if (want_dv) {
+    if constexpr (kRoles)
+      store_rows<kAv>(dv_t, static_cast<size_t>(KV) * hv, dk_acc, 1.f,
+                      key_a, S, hv, tq);
+    else
+      store_rows<kAv>(dv_t, static_cast<size_t>(KV) * hv, dv_acc, 1.f,
+                      key_a, S, hv, tq);
   }
-  store_rows<kA>(dk_t, ld, dk_acc, scale, key_a, S, hd, tq);
-  store_rows<kA>(dv_t, ld, dv_acc, 1.f, key_a, S, hd, tq);
 }
 
 // The dQ kernel.  Block: the 128 queries [q0, q0 + 128) of head h in batch
@@ -784,7 +897,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // first sweep sums D = rowsum(P o dP) from the fp32 P and dP and writes it
 // for the dK/dV kernel; the second forms dS and dQ.  Block 0 also zeroes
 // the dK/dV kernel's fold counters.
-template <int HDP>
+template <int HDP, int HVP>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
@@ -794,14 +907,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                     bf16* __restrict__ dq, int* __restrict__ counters,
                     int n_counters, int B, int S, int H, int KV, int hd,
                     int s_valid, int causal, float scale, float scale_log2) {
-  constexpr int kA = HDP / kAtom;
-  constexpr int kQ = kBlockRows * HDP;  // bf16 of the Q (or dO) tile
-  constexpr int kK = kStep * HDP;       // bf16 of a K (or V) stage
+  constexpr int kAd = HDP / kAtom, kAv = HVP / kAtom;
+  constexpr int kQ = kBlockRows * HDP;  // bf16 of the Q tile
+  constexpr int kO = kBlockRows * HVP;  // bf16 of the dO tile
+  constexpr int kK = kStep * HDP;       // bf16 of a K stage
+  constexpr int kV = kStep * HVP;       // bf16 of a V stage
   extern __shared__ uint8_t smem_raw[];
   bf16* q_s = align1024(smem_raw);
   bf16* do_s = q_s + kQ;
-  bf16* k_s = do_s + kQ;            // [kStages][kK]
-  bf16* v_s = k_s + kStages * kK;   // [kStages][kK]
+  bf16* k_s = do_s + kO;            // [kStages][kK]
+  bf16* v_s = k_s + kStages * kK;   // [kStages][kV]
   __shared__ float lse_s[kBlockRows];
   __shared__ uint64_t qd_bar, full[kStages], empty[kStages];
 
@@ -841,23 +956,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       tcore::mbar_arrive(&qd_bar);
       return;
     }
-    tcore::mbar_arrive_expect_tx(&qd_bar, 2 * kQ * sizeof(bf16));
-    for (int a = 0; a < kA; ++a) {
+    tcore::mbar_arrive_expect_tx(&qd_bar, (kQ + kO) * sizeof(bf16));
+    for (int a = 0; a < kAd; ++a)
       tcore::tma_load_4d(q_s + a * kBlockRows * kAtom, &map_q, a * kAtom, h,
                          q0, b, &qd_bar);
+    for (int a = 0; a < kAv; ++a)
       tcore::tma_load_4d(do_s + a * kBlockRows * kAtom, &map_do, a * kAtom,
                          h, q0, b, &qd_bar);
-    }
     for (int i = 0; i < 2 * n_kt; ++i) {  // key tile i % n_kt, twice
       const int s = i % kStages, n = i / kStages, k0 = (i % n_kt) * kStep;
       if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-      tcore::mbar_arrive_expect_tx(&full[s], 2 * kK * sizeof(bf16));
-      for (int a = 0; a < kA; ++a) {
+      tcore::mbar_arrive_expect_tx(&full[s], (kK + kV) * sizeof(bf16));
+      for (int a = 0; a < kAd; ++a)
         tcore::tma_load_4d(k_s + s * kK + a * kStep * kAtom, &map_k,
                            a * kAtom, kvh, k0, b, &full[s]);
-        tcore::tma_load_4d(v_s + s * kK + a * kStep * kAtom, &map_v,
+      for (int a = 0; a < kAv; ++a)
+        tcore::tma_load_4d(v_s + s * kV + a * kStep * kAtom, &map_v,
                            a * kAtom, kvh, k0, b, &full[s]);
-      }
     }
     return;
   }
@@ -873,7 +988,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   mbar_wait(&qd_bar, 0);
   const float l2[2] = {lse_s[qi_a - q0], lse_s[qi_a + 8 - q0]};
   float dr[2] = {0.f, 0.f};  // the rows' D: partial sums, then whole
-  float dq_acc[kA][32];
+  float dq_acc[kAd][32];
   zero(dq_acc);
   for (int i = 0; i < 2 * n_kt; ++i) {
     const int s = i % kStages;
@@ -882,11 +997,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k0 = (i % n_kt) * kStep;
     if (qw0 < S && !(causal && k0 > qw0 + kRows - 1)) {
       const bf16* ks = k_s + s * kK;
-      const bf16* vs = v_s + s * kK;
+      const bf16* vs = v_s + s * kV;
       float sc[32], dp[32];  // S = Q K^T, dP = dO V^T
       tcore::wgmma_fence();
       product_ss<HDP>(sc, q_w, kBlockRows, ks, kStep);
-      product_ss<HDP>(dp, do_w, kBlockRows, vs, kStep);
+      product_ss<HVP>(dp, do_w, kBlockRows, vs, kStep);
       tcore::wgmma_commit();
       tcore::wgmma_wait<0>();
       fence_regs(sc);
@@ -910,7 +1025,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         unsigned sh[4][4], sl[4][4];
         a_operands(sc, sh, sl);
         tcore::wgmma_fence();
-        product_rs<kA>(dq_acc, sh, sl, ks, kStep);  // dQ += dS K
+        product_rs<kAd>(dq_acc, sh, sl, ks, kStep);  // dQ += dS K
         tcore::wgmma_commit();
         tcore::wgmma_wait<0>();
         fence_ops(sh);
@@ -932,22 +1047,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) tcore::mbar_arrive(&empty[s]);
   }
   const size_t ld = static_cast<size_t>(H) * hd;
-  store_rows<kA>(dq + (static_cast<size_t>(b) * S * H + h) * hd, ld, dq_acc,
-                 scale, qi_a, S, hd, tq);
+  store_rows<kAd>(dq + (static_cast<size_t>(b) * S * H + h) * hd, ld,
+                  dq_acc, scale, qi_a, S, hd, tq);
 }
 
-// A (B, S, heads, hd) bf16 tensor's map for the TMA: boxes of 64 columns
-// (128 bytes, swizzled) of one head and `rows` tokens; columns past hd and
+// A (B, S, heads, w) bf16 tensor's map for the TMA: boxes of 64 columns
+// (128 bytes, swizzled) of one head and `rows` tokens; columns past w and
 // tokens past S read as zeros
 bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
-            int hd, int rows) {
+            int w, int rows) {
   const tcore::EncodeTiled fn = tcore::encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(w),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * sizeof(bf16);
+  const cuuint64_t row = static_cast<cuuint64_t>(w) * sizeof(bf16);
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
   const cuuint32_t box[4] = {kAtom, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
@@ -957,29 +1072,31 @@ bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// blocks of the dK/dV grid: every key tile of every (b, KV head) cut into
-// max(1, ceil(steps / chunk)) shares (kernels/flash_attention.py::plan)
-int dkv_blocks(int B, int S, int H, int KV, int causal, int chunk) {
+// blocks of the dK/dV grid: every `keys`-key tile of every (b, KV head)
+// cut into max(1, ceil(steps / chunk)) shares
+// (kernels/flash_attention.py::plan)
+int dkv_blocks(int B, int S, int H, int KV, int causal, int chunk,
+               int keys) {
   const int group = H / KV, n_qt = (S + kStep - 1) / kStep;
-  const int n_kt = (S + kBlockRows - 1) / kBlockRows;
+  const int n_kt = (S + keys - 1) / keys;
   int blocks = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int steps =
-        group * (n_qt - (causal ? kt * (kBlockRows / kStep) : 0));
+    const int steps = group * (n_qt - (causal ? kt * (keys / kStep) : 0));
     blocks += B * KV * max(1, (steps + chunk - 1) / chunk);
   }
   return blocks;
 }
 
-template <int HDP>
+template <int HDP, int HVP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
            float* ws, int* counters, int B, int S, int H, int KV, int hd,
-           int s_valid, int causal, float scale, int chunk, int device,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HDP>();
-  auto dqk = dq_wgmma_kernel<HDP>;
-  auto dkv = dkv_wgmma_kernel<HDP>;
+           int hv, int s_valid, int causal, float scale, int chunk,
+           int device, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HDP, HVP>();
+  constexpr int kKeys = dkv_keys<HDP, HVP>();
+  auto dqk = dq_wgmma_kernel<HDP, HVP>;
+  auto dkv = dkv_wgmma_kernel<HDP, HVP>;
   static bool ready[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
@@ -995,13 +1112,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     ready[device] = true;
   }
   const float scale_log2 = scale * kLog2e;
-  const int n_counters = B * KV * ((S + kBlockRows - 1) / kBlockRows);
+  const int n_counters = B * KV * ((S + kKeys - 1) / kKeys);
   CUtensorMap mq{}, mdo{}, mk{}, mv{};
   // dQ: the block's 128 queries held, 64-key stages
   if (!encode(&mq, q, B, S, H, hd, kBlockRows) ||
-      !encode(&mdo, dout, B, S, H, hd, kBlockRows) ||
+      !encode(&mdo, dout, B, S, H, hv, kBlockRows) ||
       !encode(&mk, k, B, S, KV, hd, kStep) ||
-      !encode(&mv, v, B, S, KV, hd, kStep))
+      !encode(&mv, v, B, S, KV, hv, kStep))
     return static_cast<int>(cudaErrorInvalidValue);
   const int q_tiles = (S + kBlockRows - 1) / kBlockRows;
   dqk<<<B * H * q_tiles, kThreads, smem, stream>>>(
@@ -1009,61 +1126,73 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       n_counters, B, S, H, KV, hd, s_valid, causal, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dK/dV: the block's 128 keys held, 64-query stages
+  // dK/dV: the block's kKeys keys held, 64-query stages
   if (!encode(&mq, q, B, S, H, hd, kStep) ||
-      !encode(&mdo, dout, B, S, H, hd, kStep) ||
-      !encode(&mk, k, B, S, KV, hd, kBlockRows) ||
-      !encode(&mv, v, B, S, KV, hd, kBlockRows))
+      !encode(&mdo, dout, B, S, H, hv, kStep) ||
+      !encode(&mk, k, B, S, KV, hd, kKeys) ||
+      !encode(&mv, v, B, S, KV, hv, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  dkv<<<dkv_blocks(B, S, H, KV, causal, chunk), kThreads, smem, stream>>>(
-      mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ws, counters, B, S, H, KV, hd, s_valid, causal,
-      scale, scale_log2, chunk);
+  dkv<<<dkv_blocks(B, S, H, KV, causal, chunk, kKeys), kThreads, smem,
+        stream>>>(mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv), ws, counters, B, S, H, KV, hd, hv,
+                  s_valid, causal, scale, scale_log2, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 }  // namespace
 
-// The tensor-core entry point: q, dout, dq: (B, S, H, hd); k, v, dk, dv:
-// (B, S, KV, hd); contiguous bf16 with 16-byte aligned bases; lse: (B, H,
-// S) fp32 from flash_attention_mma_bf16_lse; delta: (B, H, S) fp32
-// scratch; H a multiple of KV; hd a multiple of 16 up to 128.  chunk: the
-// most (query head, 64-query tile) steps a dK/dV block takes
-// (kernels/flash_attention.py::plan); ws: fp32 scratch of 2 * 64 * hd_p *
-// 2 floats per dK/dV block (hd_p = 64 for hd <= 64, else 128), read only
-// where a key tile is split; counters: B * KV * ceil(S / 128) ints, zeroed
-// by the dQ kernel.  Launches the dQ then the dK/dV kernel on `stream` of
-// `device`; returns the first failing launch's cudaError_t (0 when both
-// launched).
+// The tensor-core entry point: q, dq: (B, S, H, hd); dout: (B, S, H, hv);
+// k, dk: (B, S, KV, hd); v, dv: (B, S, KV, hv); contiguous bf16 with
+// 16-byte aligned bases; lse: (B, H, S) fp32 from
+// flash_attention_mma_bf16_lse; delta: (B, H, S) fp32 scratch; H a
+// multiple of KV; hd and hv multiples of 16, hd up to 192 and hv up to
+// 128, compiled at (64, 64) or (128, 128) for hd = hv and (192, 128) for
+// any hv != hd.
+// chunk: the most (query head, 64-query tile) steps a dK/dV block takes
+// (kernels/flash_attention.py::plan); ws: fp32 scratch of 2 * 128 * 32 *
+// atoms floats per dK/dV block (atoms = 2 * hd_p / 64 at (64, 64) and
+// (128, 128), 3 at (192, 128)), read only where a key tile is split;
+// counters: B * KV * ceil(S / keys) ints (keys = 128, or 64 at (192,
+// 128)), zeroed by the dQ kernel.  Launches the dQ then the dK/dV kernel
+// on `stream` of `device`; returns the first failing launch's cudaError_t
+// (0 when both launched).
 extern "C" int flash_attention_bwd_mma_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, void* ws,
-    void* counters, int B, int S, int H, int KV, int hd, int s_valid,
-    int causal, float scale, int chunk, int device, void* stream) {
+    void* counters, int B, int S, int H, int KV, int hd, int hv,
+    int s_valid, int causal, float scale, int chunk, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd < 16 || hd > 128 || hd % 16 != 0 || chunk < 1)
+  if (hd < 16 || hd > 192 || hd % 16 != 0 || hv < 16 || hv > 128 ||
+      hv % 16 != 0 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* d = static_cast<float*>(delta);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
+  if (hd != hv)  // a value width of its own: the (192, 128) pair
+    return tc::launch<192, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
+                                H, KV, hd, hv, s_valid, causal, scale, chunk,
+                                device, st);
   if (hd <= 64)
-    return tc::launch<64>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S, H, KV,
-                          hd, s_valid, causal, scale, chunk, device, st);
-  return tc::launch<128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S, H, KV,
-                         hd, s_valid, causal, scale, chunk, device, st);
+    return tc::launch<64, 64>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
+                              H, KV, hd, hv, s_valid, causal, scale, chunk,
+                              device, st);
+  return tc::launch<128, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
+                              H, KV, hd, hv, s_valid, causal, scale, chunk,
+                              device, st);
 }
 
 // The CUDA-core entry point: the same arguments, all fp32 (bf16 = 0) or all
-// bf16 (bf16 = 1), 1 <= hd <= 256, lse from flash_attention_fwd_lse.
+// bf16 (bf16 = 1), 1 <= hd, hv <= 256, lse from flash_attention_fwd_lse.
 extern "C" int flash_attention_bwd_simt(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S,
-    int H, int KV, int hd, int s_valid, int causal, float scale, int bf16,
-    int device, void* stream) {
+    int H, int KV, int hd, int hv, int s_valid, int causal, float scale,
+    int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1071,8 +1200,8 @@ extern "C" int flash_attention_bwd_simt(
   const float* l = static_cast<const float*>(lse);
   if (bf16)
     return simt::launch_typed<__nv_bfloat16>(q, k, v, dout, l, d, dq, dk, dv,
-                                             B, S, H, KV, hd, s_valid,
+                                             B, S, H, KV, hd, hv, s_valid,
                                              causal, scale, st);
   return simt::launch_typed<float>(q, k, v, dout, l, d, dq, dk, dv, B, S, H,
-                                   KV, hd, s_valid, causal, scale, st);
+                                   KV, hd, hv, s_valid, causal, scale, st);
 }

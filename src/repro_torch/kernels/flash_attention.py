@@ -7,17 +7,20 @@ Counterpart of ``repro.kernels.flash_attention`` (a Pallas kernel, forward
 only; the reference differentiates its pure-jnp ``chunked_attention``);
 the kernels are in ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``.  They take the reference's
-``ops.flash_attention`` layout directly, q (B, S, H, hd) and k, v (B, S,
-KV, hd), and read (and the backward writes) KV head ``h // (H // KV)`` in
-place, so neither the reference's repeated-KV copy nor its head-major
-transposes exist here.
+``ops.flash_attention`` layout directly, q (B, S, H, hd), k (B, S, KV, hd)
+and v (B, S, KV, hv), with a value width hv that may differ from the q/k
+width hd (MLA's expanded form: hd 192, hv 128, as the reference's
+``chunked_attention`` takes it), and read (and the backward writes) KV
+head ``h // (H // KV)`` in place, so neither the reference's repeated-KV
+copy nor its head-major transposes exist here.
 
-Two routes each way, picked by dtype and width (``uses_tensor_cores``):
-bf16 with hd a multiple of 16 up to 128 goes to the tensor-core kernels
-(counted in ``launches`` and ``bwd_launches``), everything else (fp32,
-other widths up to 256) to the CUDA-core kernels (``flash_attention_simt``,
-counted in ``simt_launches`` and ``bwd_simt_launches``).  Each backward's
-two kernels sit behind one entry point and count as one launch.
+Two routes each way, picked by dtype and widths (``uses_tensor_cores``):
+bf16 with hd and hv multiples of 16, hd up to 192 and hv up to 128, goes
+to the tensor-core kernels (counted in ``launches`` and ``bwd_launches``),
+everything else (fp32, other widths up to 256 each) to the CUDA-core
+kernels (``flash_attention_simt``, counted in ``simt_launches`` and
+``bwd_simt_launches``).  Each backward's two kernels sit behind one entry
+point and count as one launch.
 
 The tensor-core backward (wgmma with TMA, warp-specialised: one producer
 warp keeps a 3-stage ring of tile copies in flight behind mbarriers, two
@@ -30,7 +33,9 @@ keeps dQ 20-30x further off the exact chain rule:
 dO V^T from shared memory, then dQ += dS K with dS as two bf16 halves
 from the registers.  Its dK/dV kernel holds 128 keys a block and sweeps
 (query head, 64-query tile) steps: S^T = K Q^T, dP^T = V dO^T, then dV +=
-P^T dO and dK += dS^T Q with P^T and dS^T as bf16 halves.  A KV head's
+P^T dO and dK += dS^T Q with P^T and dS^T as bf16 halves.  At (192, 128)
+its block holds 64 keys (``key_tile``), one consumer summing dK and the
+other dV, where one consumer holding both would spill.  A KV head's
 group of query heads is split over several blocks per key tile
 (``plan``): each sums an fp32 partial, and the last of a tile's blocks to
 end (an integer counter finds it) folds them in split order, so two calls
@@ -61,10 +66,13 @@ bwd_launches = 0
 #: launches of the CUDA-core backward
 bwd_simt_launches = 0
 
-#: widest head the CUDA-core kernel's shared-memory tiles take
+#: widest head (q/k and value alike) the CUDA-core kernels' shared-memory
+#: tiles take
 MAX_HEAD_DIM = 256
-#: widest head the tensor-core kernel takes (hd a multiple of MMA_K)
-MMA_MAX_HEAD_DIM = 128
+#: widest q/k head and value head the tensor-core kernels take (each a
+#: multiple of MMA_K)
+MMA_MAX_HEAD_DIM = 192
+MMA_MAX_VALUE_DIM = 128
 MMA_K = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -77,14 +85,16 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check(name, t, 4, q.dtype)
     b, s, h, hd = q.shape
-    kv = k.shape[2]
-    if k.shape != (b, s, kv, hd) or v.shape != k.shape:
+    kv, hv = k.shape[2], v.shape[-1]
+    if k.shape != (b, s, kv, hd) or v.shape != (b, s, kv, hv):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if kv == 0 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if not 1 <= hv <= MAX_HEAD_DIM:
+        raise ValueError(f"value head dim {hv} outside 1..{MAX_HEAD_DIM}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     s_valid = s if s_valid is None else int(s_valid)
@@ -95,12 +105,14 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> bool:
-    """Whether ``flash_attention`` takes the tensor-core kernel: bf16, hd a
-    multiple of 16 up to 128, and 16-byte aligned bases (its copies move
-    16 bytes at a time)."""
-    hd = q.shape[-1]
+    """Whether ``flash_attention`` (and its backward) takes the tensor-core
+    kernels: bf16, hd and hv multiples of 16, hd up to 192 and hv up to
+    128, and 16-byte aligned bases (their copies move 16 bytes at a
+    time)."""
+    hd, hv = q.shape[-1], v.shape[-1]
     return (q.dtype == torch.bfloat16 and hd % MMA_K == 0
-            and hd <= MMA_MAX_HEAD_DIM
+            and hv % MMA_K == 0 and hd <= MMA_MAX_HEAD_DIM
+            and hv <= MMA_MAX_VALUE_DIM
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
@@ -108,12 +120,13 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, s_valid: int, *extra,
             lse: torch.Tensor | None = None) -> torch.Tensor:
     b, s, h, hd = q.shape
-    out = torch.empty_like(q)
+    hv = v.shape[-1]
+    out = q.new_empty((b, s, h, hv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if lse is not None:
         name, ptrs = name + "_lse", ptrs + (lse.data_ptr(),)
-    _build.launch(name, *ptrs, b, s, h, k.shape[2], hd, s_valid,
+    _build.launch(name, *ptrs, b, s, h, k.shape[2], hd, hv, s_valid,
                   int(causal), 1.0 / math.sqrt(hd), *extra, q.device.index,
                   stream)
     return out
@@ -127,11 +140,11 @@ def _lse_out(q: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, s_valid: int | None = None,
                     with_lse: bool = False):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) CUDA, all fp32 or all bf16,
-    H a multiple of KV -> (B, S, H, hd) in q's dtype.  Keys at or after
-    ``s_valid`` (default S) carry no mass.  ``with_lse`` also returns the
-    (B, H, S) fp32 natural-log sum of exp(q.k / sqrt(hd)) over each row's
-    keys, the backward's residual: ``(out, lse)``."""
+    """q: (B, S, H, hd); k: (B, S, KV, hd); v: (B, S, KV, hv) CUDA, all
+    fp32 or all bf16, H a multiple of KV -> (B, S, H, hv) in q's dtype.
+    Keys at or after ``s_valid`` (default S) carry no mass.  ``with_lse``
+    also returns the (B, H, S) fp32 natural-log sum of exp(q.k / sqrt(hd))
+    over each row's keys, the backward's residual: ``(out, lse)``."""
     global launches
     s_valid = _checked(q, k, v, s_valid)
     if not uses_tensor_cores(q, k, v):
@@ -139,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     with_lse=with_lse)
     lse = _lse_out(q) if with_lse else None
     if q.numel() == 0:
-        out = torch.empty_like(q)
+        out = q.new_empty((*q.shape[:3], v.shape[-1]))
     else:
         out = _launch("flash_attention", q, k, v, causal, s_valid, lse=lse)
         launches += 1
@@ -150,12 +163,12 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, s_valid: int | None = None,
                          with_lse: bool = False):
     """The CUDA-core kernel alone, for any input ``flash_attention`` takes
-    (fp32 or bf16, hd up to 256)."""
+    (fp32 or bf16, hd and hv up to 256)."""
     global simt_launches
     s_valid = _checked(q, k, v, s_valid)
     lse = _lse_out(q) if with_lse else None
     if q.numel() == 0:
-        out = torch.empty_like(q)
+        out = q.new_empty((*q.shape[:3], v.shape[-1]))
     else:
         out = _launch("flash_attention_simt", q, k, v, causal, s_valid,
                       int(q.dtype == torch.bfloat16), lse=lse)
@@ -166,9 +179,11 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --- the backward's plan ------------------------------------------------------
 
 #: the dK/dV kernel's block holds KEY_TILE keys (two consumer warpgroups of
-#: 64) and sweeps QUERY_STEP queries of one head a step; the dQ kernel's
-#: holds DQ_QUERY_TILE queries and sweeps the keys 64 a step
+#: 64; WIDE_KEY_TILE at (192, 128), where the two split dK and dV) and
+#: sweeps QUERY_STEP queries of one head a step; the dQ kernel's holds
+#: DQ_QUERY_TILE queries and sweeps the keys 64 a step
 KEY_TILE = 128
+WIDE_KEY_TILE = 64
 QUERY_STEP = 64
 DQ_QUERY_TILE = 128
 #: an H100 SXM's streaming multiprocessors; either kernel fits one block an
@@ -184,9 +199,23 @@ SM_FLOPS = 989e12 / H100_SMS
 SM_L2_BYTES_PER_S = 100e9
 
 
-def _hd_p(hd: int) -> int:
-    """The compiled width a head of hd columns runs at (64 or 128)."""
+def _hd_p(hd: int, hv: int | None = None) -> int:
+    """The compiled q/k width the tensor-core backward runs a head of hd
+    columns (and hv value columns, default hd) at: 64 or 128 for hv = hd,
+    192 for any hv != hd."""
+    if hv is not None and hv != hd:
+        return 192
     return 64 if hd <= 64 else 128
+
+
+def _hv_p(hd: int, hv: int | None = None) -> int:
+    """The compiled value width beside ``_hd_p``: 64, 128, or 128 at 192."""
+    return min(_hd_p(hd, hv), 128)
+
+
+def key_tile(hd: int, hv: int | None = None) -> int:
+    """Keys a dK/dV block of the tensor-core backward holds."""
+    return WIDE_KEY_TILE if _hd_p(hd, hv) + _hv_p(hd, hv) > 256 else KEY_TILE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +226,7 @@ class Plan:
     batch and KV head alike); splits[kt]: the blocks they are cut into,
     ceil(steps / chunk), each taking steps [j n / ns, (j + 1) n / ns)."""
     chunk: int
+    key_tile: int           # keys a dK/dV block holds
     steps: tuple[int, ...]
     splits: tuple[int, ...]
     blocks: int             # the dK/dV grid: key tiles in order, each
@@ -215,20 +245,31 @@ class Plan:
 
 
 def plan(b: int, s: int, h: int, kv: int, hd: int, causal: bool, *,
-         sms: int = H100_SMS) -> Plan:
-    """The dK/dV grid of ``flash_attention_bwd``'s tensor-core route: the
-    step limit ``chunk`` with the least waves x longest block (in modelled
-    steps, the fold's copies counted; ties to fewer blocks)."""
+         hv: int | None = None, sms: int = H100_SMS) -> Plan:
+    """The dK/dV grid of ``flash_attention_bwd``'s tensor-core route for a
+    q/k width hd and a value width hv (default hd): the step limit
+    ``chunk`` with the least waves x longest block (in modelled steps, the
+    fold's copies counted; ties to fewer blocks)."""
     group = h // kv
+    hd_p, hv_p = _hd_p(hd, hv), _hv_p(hd, hv)
+    tile = key_tile(hd, hv)
     n_qt = -(-s // QUERY_STEP)
-    n_kt = -(-s // KEY_TILE)
-    steps = tuple(group * (n_qt - (kt * KEY_TILE // QUERY_STEP
+    n_kt = -(-s // tile)
+    steps = tuple(group * (n_qt - (kt * tile // QUERY_STEP
                                    if causal else 0)) for kt in range(n_kt))
-    hd_p = _hd_p(hd)
-    step_s = 2 * 6 * 2 * 64 * QUERY_STEP * hd_p / SM_FLOPS
-    partial = 2 * 64 * hd_p * 2 * 4  # dK and dV in fp32, two warpgroups
+    # a step's products, in units of 64 x 64 x 1: each consumer's S^T and
+    # dP^T (depth hd_p and hv_p), and dV's and dK's hi + lo (widths hv_p
+    # and hd_p), each consumer both over its own 64 keys, or (the wide
+    # tile) one each over the block's 64
+    units = 2 * (hd_p + hv_p) + (2 if tile == WIDE_KEY_TILE else 4) * (
+        hd_p + hv_p)
+    step_s = 2 * 64 * QUERY_STEP * units / SM_FLOPS
+    # the fold's fp32 partial of a block: every consumer's slot
+    atoms = (hd_p // 64 if tile == WIDE_KEY_TILE
+             else (hd_p + hv_p) // 64)
+    partial = 2 * 128 * 32 * atoms * 4
     partial_steps = partial / SM_L2_BYTES_PER_S / step_s
-    kv_steps = 2 * KEY_TILE * hd_p * 2 / SM_L2_BYTES_PER_S / step_s
+    kv_steps = tile * (hd_p + hv_p) * 2 / SM_L2_BYTES_PER_S / step_s
     best = None
     for chunk in range(max(steps), 0, -1):
         splits = tuple(max(1, -(-n // chunk)) for n in steps)
@@ -242,7 +283,8 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, causal: bool, *,
             best = (cost, chunk, splits, blocks, waves, longest)
     _, chunk, splits, blocks, waves, longest = best
     split_blocks = b * kv * sum(ns for ns in splits if ns > 1)
-    return Plan(chunk=chunk, steps=steps, splits=splits, blocks=blocks,
+    return Plan(chunk=chunk, key_tile=tile, steps=steps, splits=splits,
+                blocks=blocks,
                 dq_blocks=b * h * -(-s // DQ_QUERY_TILE), waves=waves,
                 longest=longest, fold_bytes=2 * split_blocks * partial,
                 workspace_floats=(blocks * partial // 4
@@ -261,20 +303,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
     output gradient ``dout``, given the forward's ``lse`` (from
-    ``with_lse=True``): q, dout (B, S, H, hd), k, v (B, S, KV, hd) in one
-    dtype, lse (B, H, S) fp32.  The probabilities are recomputed from lse,
-    and D = rowsum(dout o out) as rowsum(P o dP) from them in fp32, so the
-    forward's output is not read (its rounding to q's dtype would enter
-    every dS).  Every gradient element is summed in a fixed order, so two
-    calls give the same bits.  bf16 at the tensor-core widths takes the
-    tensor-core kernels (grid from ``plan``), anything else the CUDA-core
-    ones."""
+    ``with_lse=True``): q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV,
+    hv) and dout (B, S, H, hv) in one dtype, lse (B, H, S) fp32.  The
+    probabilities are recomputed from lse, and D = rowsum(dout o out) as
+    rowsum(P o dP) from them in fp32, so the forward's output is not read
+    (its rounding to q's dtype would enter every dS).  Every gradient
+    element is summed in a fixed order, so two calls give the same bits.
+    bf16 at the tensor-core widths takes the tensor-core kernels (grid
+    from ``plan``), anything else the CUDA-core ones."""
     global bwd_launches, bwd_simt_launches
     s_valid = _checked(q, k, v, s_valid)
     _build.check("dout", dout, 4, q.dtype)
-    if dout.shape != q.shape:
-        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
     b, s, h, hd = q.shape
+    hv = v.shape[-1]
+    if dout.shape != (b, s, h, hv):
+        raise ValueError(f"dout {tuple(dout.shape)} != {(b, s, h, hv)}")
     _build.check("lse", lse, 3)
     if lse.shape != (b, h, s):
         raise ValueError(f"lse {tuple(lse.shape)} != {(b, h, s)}")
@@ -289,9 +332,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr()]
-    ints = [b, s, h, kv, hd, s_valid, int(causal), 1.0 / math.sqrt(hd)]
+    ints = [b, s, h, kv, hd, hv, s_valid, int(causal), 1.0 / math.sqrt(hd)]
     if tc:
-        p = plan(b, s, h, kv, hd, causal, sms=_sms(q.device.index))
+        p = plan(b, s, h, kv, hd, causal, hv=hv, sms=_sms(q.device.index))
         ws = torch.empty(p.workspace_floats, dtype=torch.float32,
                          device=q.device)
         counters = torch.empty(p.counters, dtype=torch.int32,

@@ -155,14 +155,15 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
                     ) -> Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) GQA -> (B, S, H, hd).
+    """q: (B, S, H, hd); k: (B, S, KV, hd); v: (B, S, KV, hv) GQA -> (B,
+    S, H, hv); the value width hv may differ from hd (MLA).
 
     fp32 or bf16 in, computed in fp32 (scaled by 1/sqrt(hd) in fp32),
     written in q's dtype.  The reference's ``q_tile`` and ``kv_tile`` are
     not taken: the CUDA kernels' tiles are fixed when they are compiled
-    (64 queries and 64 keys for bf16 with hd a multiple of 16 up to 128,
-    on the tensor cores; 64 queries and 32 keys otherwise) and they mask
-    ragged S themselves.
+    (64 queries and 64 keys for bf16 with hd and hv multiples of 16, hd up
+    to 192 and hv up to 128, on the tensor cores; 64 queries and 32 keys
+    otherwise) and they mask ragged S themselves.
 
     Differentiable on either device: for CUDA tensors under autograd with
     any input requiring a gradient, the forward kernel also writes its

@@ -8,11 +8,11 @@
 Ported families: ``recsys`` (youtube-dnn; params are a ``RecsysTower``
 module), ``lstm`` (ptb-lstm; an ``LSTMLM`` module, ``models/lstm_lm.py``)
 and the decoder LMs, ``dense`` (llama3-8b, starcoder2-3b, ...), ``moe``
-(dbrx-132b), ``ssm`` (falcon-mamba-7b) and ``hybrid`` (jamba-v0.1-52b):
-params are the reference's nested dict of stacked tensors
-(``models/transformer.py``), and for training a ``StackedLM`` module over
-the same tensors.  encdec raises ``NotImplementedError`` until its slice
-lands (ROADMAP.md A16).
+(dbrx-132b; deepseek-v3-671b with MLA and multi-token prediction), ``ssm``
+(falcon-mamba-7b) and ``hybrid`` (jamba-v0.1-52b): params are the
+reference's nested dict of stacked tensors (``models/transformer.py``),
+and for training a ``StackedLM`` module over the same tensors.  encdec
+raises ``NotImplementedError`` until its slice lands (ROADMAP.md A16).
 
 ``backbone_hidden`` and ``head_table`` carry gradients: the train step
 differentiates its loss through both (the dense family's attention
@@ -106,13 +106,21 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
 
     batch keys: recsys — history (B, H), user_feats (B, F), labels (B,);
     the LMs and lstm — tokens (B, S), labels (B, S).  aux is the MoE
-    layers' load-balance loss (0 for the other families)."""
+    layers' load-balance loss (0 for the other families).  With
+    ``cfg.mtp`` the multi-token-prediction rows follow the B * S rows in
+    the reference's order: ``mtp_hidden``'s h[:, :-1] (predicting token
+    t+2) flattened, with labels[:, 2:], so T = B * (2S - 2)."""
     _require_ported(cfg)
     if cfg.family in transformer.LM_FAMILIES + ("lstm",):
         mod = lstm_lm if cfg.family == "lstm" else transformer
         h, aux = mod.hidden_states(params, batch["tokens"], cfg)
-        return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
-                aux)
+        d = h.shape[-1]
+        hf, labels = h.reshape(-1, d), batch["labels"].reshape(-1)
+        if cfg.mtp and cfg.family != "lstm":
+            h_mtp = transformer.mtp_hidden(params, h, batch["tokens"], cfg)
+            hf = torch.cat([hf, h_mtp[:, :-1].reshape(-1, d)], dim=0)
+            labels = torch.cat([labels, batch["labels"][:, 2:].reshape(-1)])
+        return hf, labels, aux
     h, aux = recsys.hidden_states(params, batch["history"],
                                   batch["user_feats"])
     return h, batch["labels"].reshape(-1), aux

@@ -1,17 +1,21 @@
 """Decoder-only LM of the port (``repro.models.transformer``): the dense,
 MoE, SSM and hybrid families' forward, caches, prefill and one-token
-decode.
+decode, with MLA attention and the multi-token-prediction trunk
+(deepseek-v3-671b).
 
 Layers are grouped into homogeneous *segments* (consecutive layers of the
 same mixer + ffn kind: ``attn+mlp``, ``attn+moe``, ``mamba+none``,
 ``mamba+mlp``, ``mamba+moe``) and each segment's params are stacked on a
 leading layer axis, as in the reference, so converted params and caches
 compare like with like: params ``{"embed": {"table"}, "final_norm":
-{...}, "head": {"w"}, "segments": [stacked layer dicts]}`` and caches per
-segment ``{"k", "v"}`` of ``(count, B, max_len, KV, hd)`` (attention) or
-``{"conv": (count, B, K-1, d_inner), "ssm": (count, B, d_inner, N) fp32}``
-(mamba).  The reference scans a segment with ``lax.scan``; here a Python
-loop runs its layers, each a view of the stacked tensors.
+{...}, "head": {"w"}, "segments": [stacked layer dicts]}`` (and
+``"mtp"``, one unstacked ``attn+mlp`` block with its projection and norms,
+where ``cfg.mtp``) and caches per segment ``{"k", "v"}`` of ``(count, B,
+max_len, KV, hd)`` (attention), one latent tensor ``(count, B, max_len,
+kv_lora_rank + qk_rope_dim)`` (MLA attention) or ``{"conv": (count, B,
+K-1, d_inner), "ssm": (count, B, d_inner, N) fp32}`` (mamba).  The
+reference scans a segment with ``lax.scan``; here a Python loop runs its
+layers, each a view of the stacked tensors.
 
 Training holds an LM's tree (any of the four families) as a
 ``StackedLM`` module whose layers are parameters of their own, views of
@@ -22,16 +26,17 @@ function here takes either form.  With ``cfg.remat`` set and grad enabled,
 ``hidden_states`` runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), as the reference rematerializes each layer's body with
 ``jax.checkpoint``: a layer keeps its input for the backward and runs its
-forward again there.  MLA, ``mtp``, learned positions and encdec arrive
-with ROADMAP.md A16.
+forward again there.  Learned positions and encdec arrive with ROADMAP.md
+A16.
 
-Full-sequence attention (``hidden_states``, ``prefill``) goes through
+Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
+GQA and MLA's expanded form alike) goes through
 ``kernels.ops.flash_attention``: the CUDA kernels for CUDA tensors (under
 autograd with their backward kernel), the plain version for CPU tensors.
-Decode attends with plain tensor ops and writes the new token's K/V into
-the caches in place; a mamba layer's decode returns a new state instead
-(``models/mamba.py``), so a step repeated on the same caches gives the
-same result.
+Decode attends with plain tensor ops and writes the new token's K/V (or
+MLA latent row) into the caches in place; a mamba layer's decode returns a
+new state instead (``models/mamba.py``), so a step repeated on the same
+caches gives the same result.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.serve.retrieval import require_unsharded
 from repro_torch.utils.misc import resolve_device
@@ -57,15 +63,14 @@ LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 def require_ported(cfg: ArchConfig) -> None:
     """Raise for the parts of an LM the port has not reached yet."""
     unported = [name for name, on in (
-        ("mla", cfg.mla), ("mtp", cfg.mtp),
         ("learned_pos", cfg.learned_pos),
         ("encdec", cfg.family == "encdec")) if on]
     if cfg.family not in LM_FAMILIES or unported:
         raise NotImplementedError(
             f"'{cfg.name}' (family '{cfg.family}', {unported or 'no'} "
-            "unported parts) is not ported yet: only attention, mamba, MLP "
-            "and MoE layers of the dense, moe, ssm and hybrid families are "
-            "(ROADMAP.md A16)")
+            "unported parts) is not ported yet: only attention (GQA and "
+            "MLA), mamba, MLP and MoE layers and the mtp trunk of the "
+            "dense, moe, ssm and hybrid families are (ROADMAP.md A16)")
 
 
 def cache_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
@@ -132,7 +137,8 @@ class StackedLM(nn.Module):
 
     ``tree`` is ``init_lm``'s (or ``convert.lm_params_from_jax``'s) stacked
     tree; each layer of a segment becomes a submodule whose parameters are
-    views of the stacked tensors, so nothing is copied.  Without a tree
+    views of the stacked tensors, so nothing is copied; the ``mtp`` subtree
+    (unstacked) is one submodule beside them.  Without a tree
     the parameters are allocated (``torch.empty``; on the ``meta`` device
     nothing at all).  Parameter names follow the tree: ``embed.table``,
     ``final_norm.scale``, ``head.w``, ``segments.<s>.<layer>.attn.wq``...
@@ -155,6 +161,8 @@ class StackedLM(nn.Module):
         self.segments = nn.ModuleList(
             nn.ModuleList(_Tree(_layer(seg, i)) for i in range(count))
             for seg, count in zip(tree["segments"], self.counts))
+        if "mtp" in tree:
+            self.mtp = _Tree(tree["mtp"])
 
     def tree(self) -> Params:
         """The parameters as the reference's tree, each segment a list of
@@ -165,11 +173,13 @@ class StackedLM(nn.Module):
             out["head"] = self.head.tree()
         out["segments"] = [[layer.tree() for layer in seg]
                            for seg in self.segments]
+        if hasattr(self, "mtp"):
+            out["mtp"] = self.mtp.tree()
         return out
 
 
 def _top(params) -> Params:
-    """The embed / final_norm / head entries of either form."""
+    """The embed / final_norm / head (/ mtp) entries of either form."""
     return params.tree() if isinstance(params, StackedLM) else params
 
 
@@ -189,12 +199,10 @@ def _layers_of(params, cfg: ArchConfig) -> list[list[Params]]:
 def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig,
                 device: torch.device, tp: int = 1) -> Params:
     mixer, ffn = kind.split("+")
-    if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP.md A16)")
     p: Params = {"norm1": L.init_norm(cfg, device)}
     if mixer == "attn":
-        p["attn"] = L.init_attention(gen, cfg, device, tp)
+        p["attn"] = (MLA.init_mla(gen, cfg, device, tp) if cfg.mla
+                     else L.init_attention(gen, cfg, device, tp))
     else:
         p["mamba"] = M.init_mamba_full(gen, cfg, device)
     if ffn != "none":
@@ -250,6 +258,15 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
         params["head"] = {"w": head}
     params["segments"] = [_init_segment(gen, kind, count, cfg, dev, tp)
                           for kind, count in segments_of(cfg)]
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": L.dense_init(gen, (2 * cfg.d_model, cfg.d_model), pd,
+                                 dev),
+            "norm_h": L.init_norm(cfg, dev),
+            "norm_e": L.init_norm(cfg, dev),
+            "block": _init_layer(gen, "attn+mlp", cfg, dev, tp),
+            "final_norm": L.init_norm(cfg, dev),
+        }
     return params
 
 
@@ -274,7 +291,8 @@ def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
     mixer, ffn = kind.split("+")
     h = L.apply_norm(p["norm1"], x, cfg)
     if mixer == "attn":
-        x = x + L.attn_forward(p["attn"], h, positions, cfg)
+        x = x + (MLA.mla_forward(p["attn"], h, positions, cfg) if cfg.mla
+                 else L.attn_forward(p["attn"], h, positions, cfg))
     else:
         x = x + M.apply_mamba(p["mamba"], h, cfg)
     return _apply_ffn(ffn, p, x, cfg)
@@ -312,6 +330,25 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     return x, aux
 
 
+def mtp_hidden(params, h: Tensor, tokens: Tensor, cfg: ArchConfig,
+               ctx=None) -> Tensor:
+    """DeepSeek-style multi-token-prediction trunk: h_t (the backbone's
+    final hidden state) with the embedding of token t+1, to predict token
+    t+2.  h: (B, S, d); tokens: (B, S) -> (B, S-1, d); differentiable (its
+    block is never rematerialized, as in the reference)."""
+    require_unsharded(ctx)
+    top = _top(params)
+    p = top["mtp"]
+    b, s = tokens.shape
+    emb_next = L.apply_embed(top["embed"], tokens[:, 1:], cfg)
+    hh = L.apply_norm(p["norm_h"], h[:, :-1], cfg)
+    ee = L.apply_norm(p["norm_e"], emb_next, cfg)
+    x = torch.cat([hh, ee], dim=-1) @ p["proj"].to(h.dtype)
+    positions = _positions(b, s - 1, tokens.device)
+    x, _ = _apply_layer("attn+mlp", p["block"], x, positions, cfg)
+    return L.apply_norm(p["final_norm"], x, cfg)
+
+
 # --- caches / serving --------------------------------------------------------
 
 
@@ -320,7 +357,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
                device: str | torch.device | None = None) -> list[Params]:
     """Per-segment stacked zero caches sized for max_len tokens, on
     ``device`` (the card unless ``device="cpu"``): K/V in ``dtype`` for
-    attention, the conv window in ``dtype`` and the fp32 state for mamba."""
+    attention (one latent tensor of kv_lora_rank + qk_rope_dim a token for
+    MLA), the conv window in ``dtype`` and the fp32 state for mamba."""
     require_ported(cfg)
     require_unsharded(ctx)
     dev = resolve_device(device)
@@ -329,7 +367,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
     hd = cfg.resolved_head_dim
     caches = []
     for kind, count in segments_of(cfg):
-        if kind.startswith("attn"):
+        if kind.startswith("attn") and cfg.mla:
+            caches.append(torch.zeros(
+                (count, batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                dtype=dt, device=dev))
+        elif kind.startswith("attn"):
             caches.append({
                 "k": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
                                  device=dev),
@@ -347,9 +389,10 @@ def decode_step(params, token: Tensor, caches: list[Params],
                 pos: Tensor, cfg: ArchConfig, ctx=None
                 ) -> tuple[Tensor, list[Params]]:
     """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
-    d), caches): attention segments' K/V written at ``pos`` IN PLACE (the
-    same dicts returned; the given list itself without mamba segments),
-    mamba segments' states in new tensors (the given ones untouched)."""
+    d), caches): attention segments' K/V (MLA's latent rows) written at
+    ``pos`` IN PLACE (the same dicts or tensors returned; the given list
+    itself without mamba segments), mamba segments' states in new tensors
+    (the given ones untouched)."""
     require_ported(cfg)
     require_unsharded(ctx)
     top = _top(params)
@@ -362,7 +405,9 @@ def decode_step(params, token: Tensor, caches: list[Params],
             new = {k: torch.empty_like(v) for k, v in cache.items()}
         for i, lp in enumerate(layers):
             h = L.apply_norm(lp["norm1"], x, cfg)
-            if mixer == "attn":
+            if mixer == "attn" and cfg.mla:
+                y, _ = MLA.mla_decode(lp["attn"], h, cache[i], pos, cfg)
+            elif mixer == "attn":
                 y, _, _ = L.attn_decode(lp["attn"], h, cache["k"][i],
                                         cache["v"][i], pos, cfg)
             else:
@@ -380,8 +425,9 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
             max_len: int | None = None) -> tuple[Tensor, list[Params]]:
     """Full-sequence prefill: (h (B, S, d), caches filled to S and zero
     after it, of length ``max_len`` (default S)).  Every attention layer is
-    one ``ops.flash_attention`` call; a mamba layer's cache is its conv
-    window and its state after the last token."""
+    one ``ops.flash_attention`` call (an MLA layer's cache its latent
+    rows); a mamba layer's cache is its conv window and its state after
+    the last token."""
     require_ported(cfg)
     require_unsharded(ctx)
     b, s = tokens.shape
@@ -397,7 +443,11 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
         mixer, ffn = kind.split("+")
         for i, lp in enumerate(layers):
             h = L.apply_norm(lp["norm1"], x, cfg)
-            if mixer == "attn":
+            if mixer == "attn" and cfg.mla:
+                y = MLA.mla_forward(lp["attn"], h, positions, cfg)
+                cache[i, :, :s] = MLA.mla_latent_cache(lp["attn"], h,
+                                                       positions, cfg).to(dt)
+            elif mixer == "attn":
                 y, k, v = L.attn_prefill(lp["attn"], h, positions, cfg)
                 cache["k"][i, :, :s] = k[:, :, :nkv_c].to(dt)
                 cache["v"][i, :, :s] = v[:, :, :nkv_c].to(dt)

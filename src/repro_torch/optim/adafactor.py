@@ -20,10 +20,13 @@ outside a segment is its own stack).  So a (count, a, b) leaf keeps
 stack's.
 
 Memory: nothing of a stack's size is materialised.  The statistics are
-gathered one 2-D matrix (a layer, or one expert of it) at a time; the
-update is computed twice, once for the stack's sum of squares and once to
-apply, and ``update`` adds it to the parameters IN PLACE (an fp32 update
-of falcon-mamba-7b's ``in_proj`` stack would take 17 GB) and returns no
+gathered one 2-D matrix (a layer, or one expert of it) at a time, and a
+matrix's fp32 temporaries a piece of its rows at a time
+(``transform.PIECE`` elements: deepseek-v3-671b's 129,280 x 7,168 head is
+3.5 GB in fp32); the update is
+computed twice, once for the stack's sum of squares and once to apply,
+and ``update`` adds it to the parameters IN PLACE (an fp32 update of
+falcon-mamba-7b's ``in_proj`` stack would take 17 GB) and returns no
 updates, so ``apply_updates`` after it adds nothing."""
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import re
 
 import torch
 
+from repro_torch.optim import transform
 from repro_torch.optim.transform import GradientTransform
 
 _LAYER = re.compile(r"^(segments\.\d+)\.(\d+)\.(.+)$")
@@ -51,6 +55,13 @@ def stacks(names) -> dict[str, list[str]]:
 def _stack_shape(key: str, members: list[str], params) -> tuple[int, ...]:
     shape = tuple(params[members[0]].shape)
     return (len(members), *shape) if key != members[0] else shape
+
+
+def _row_pieces(m: torch.Tensor) -> list[slice]:
+    """Slices of a matrix's rows of about ``transform.PIECE`` elements
+    each."""
+    step = max(1, transform.PIECE // max(m.shape[-1], 1))
+    return [slice(i, i + step) for i in range(0, m.shape[0], step)]
 
 
 def _matrices(t: torch.Tensor) -> torch.Tensor:
@@ -128,31 +139,41 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
             ema(v["vc"], col / len(parts))
         else:
             for g, _, r, c in parts:
-                g2 = sq(g)
-                ema(r, g2.mean(-1))
-                ema(c, g2.mean(-2))
-        rmean = torch.clamp(v["vr"].mean(), min=eps) if cross else None
+                col = torch.zeros_like(c)
+                for rows in _row_pieces(g):
+                    g2 = sq(g[rows])
+                    ema(r[rows], g2.mean(-1))
+                    col += g2.sum(-2)
+                ema(c, col / g.shape[0])
+        # the update's pieces, each (g, p, its preconditioner): a matrix's
+        # rows a piece at a time, its row statistics over their mean
+        if "v" in v:
+            pieces = [(g, p, vv) for g, p, vv in parts]
+        elif cross:
+            rmean = torch.clamp(v["vr"].mean(), min=eps)
+            pieces = [(g, p, (r / rmean) * c) for g, p, r, c in parts]
+        else:
+            pieces = []
+            for g, p, r, c in parts:
+                rs = r / torch.clamp(r.mean(-1, keepdim=True), min=eps)
+                pieces += [(g[rows], p[rows], (rs, rows, c))
+                           for rows in _row_pieces(g)]
 
-        def upd_of(part):
-            g32 = part[0].float()
-            if "v" in v:
-                return g32 * torch.rsqrt(torch.clamp(part[2], min=eps))
-            _, _, r, c = part
-            if cross:
-                precond = (r / rmean) * c
-            else:
-                precond = (r / torch.clamp(r.mean(-1, keepdim=True),
-                                           min=eps))[..., None] * c[None, :]
-            return g32 * torch.rsqrt(torch.clamp(precond, min=eps))
+        def upd_of(piece):
+            g, _, pre = piece
+            if isinstance(pre, tuple):  # a piece of a factored matrix
+                rs, rows, c = pre
+                pre = rs[rows][:, None] * c[None, :]
+            return g.float() * torch.rsqrt(torch.clamp(pre, min=eps))
 
         # 2. the stack's RMS; 3. the clipped update, into the parameters
-        sumsq = sum(torch.sum(torch.square(upd_of(part))) for part in parts)
+        sumsq = sum(torch.sum(torch.square(upd_of(pc))) for pc in pieces)
         numel = sum(part[0].numel() for part in parts)
         rms = torch.sqrt(sumsq / numel + 1e-30)
         div = torch.clamp(rms / clip_threshold, min=1.0)
-        for part in parts:
-            u = -lr_t * (upd_of(part) / div)
-            p = part[1]
+        for piece in pieces:
+            u = -lr_t * (upd_of(piece) / div)
+            p = piece[1]
             if weight_decay:
                 u = u - lr_t * weight_decay * p.float()
             p.add_(u.to(p.dtype))

@@ -15,6 +15,10 @@ Params = dict[str, torch.Tensor]
 State = Any
 Updates = dict[str, torch.Tensor]
 
+#: elements of a gradient or a matrix that an optimizer takes at a time in
+#: fp32 (256 MB): its temporaries never hold a whole leaf
+PIECE = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class GradientTransform:

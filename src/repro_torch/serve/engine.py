@@ -12,9 +12,9 @@ moe, ssm and hybrid families): ``make_prefill_step`` runs the prompt
 through every layer (attention through the flash kernel, mamba through its
 chunked scan, MoE through its capacity dispatch) and picks the first
 token, ``make_decode_step`` takes one greedy step against the caches (K/V
-written in place, mamba states replaced) and ``make_topk_step`` one step
-with a top-k over the vocabulary.  The encoder-decoder family and the mesh
-path arrive with their slices.
+or MLA's latent rows written in place, mamba states replaced) and
+``make_topk_step`` one step with a top-k over the vocabulary.  The
+encoder-decoder family and the mesh path arrive with their slices.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ from repro.data.synthetic import SyntheticRecsys as JSyntheticRecsys
 from repro.models import api as japi
 from repro.optim import cosine_schedule as jcosine
 from repro.optim import make_optimizer as jmake_optimizer
+from repro.optim.clip import clip_by_global_norm as jclip_by_global_norm
 from repro.sharding.rules import local_ctx
 from repro.train import step as jstep
 from repro_torch import convert
@@ -36,7 +37,8 @@ from repro_torch.core import estimators, samplers
 from repro_torch.data.pipeline import batch_iterator_for
 from repro_torch.data.synthetic import SyntheticRecsys
 from repro_torch.models import api
-from repro_torch.optim import cosine_schedule, make_optimizer
+from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
+                               make_optimizer)
 from repro_torch.optim.transform import apply_updates
 from repro_torch.serve import retrieval
 from repro_torch.train import loop, step
@@ -138,7 +140,9 @@ def test_five_clipped_updates_match_reference(name):
     state, jstate = opt.init(mine), jopt.init(theirs)
     jupdate = jax.jit(jopt.update)
     for g in grads:
-        upd, state = opt.update({k: torch.from_numpy(v) for k, v in
+        # the port's clip scales its input in place: hand it copies, so
+        # that the reference gets the gradients unclipped
+        upd, state = opt.update({k: torch.from_numpy(v.copy()) for k, v in
                                  g.items()}, state, mine)
         apply_updates(mine, upd)
         jupd, jstate = jupdate({k: jnp.asarray(v) for k, v in g.items()},
@@ -148,6 +152,36 @@ def test_five_clipped_updates_match_reference(name):
             np.testing.assert_allclose(mine[k].numpy(),
                                        np.asarray(theirs[k]), rtol=1e-6,
                                        atol=1e-6, err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", [3.0, 0.1])
+def test_clip_scales_its_input_in_place_as_the_reference_clips(dtype, norm):
+    """``clip_by_global_norm(1.0).update`` on gradients of global norm
+    above and below 1: the port scales the very tensors it is given and
+    returns them; the reference, on its own copy, gives the same values
+    (1e-6 relative in fp32; in bf16 within one rounding, 2^-7)."""
+    rng = np.random.default_rng(1)
+    g = {"a": rng.normal(size=(40, 30)), "b": rng.normal(size=(7,))}
+    total = np.sqrt(sum(np.sum(v ** 2) for v in g.values()))
+    g = {k: (v * norm / total).astype(np.float32) for k, v in g.items()}
+    mine = {k: torch.from_numpy(v.copy()).to(getattr(torch, dtype))
+            for k, v in g.items()}
+    given = {k: (v, v.data_ptr(), v.clone()) for k, v in mine.items()}
+    out, _ = clip_by_global_norm(1.0).update(mine, (), None)
+    want, _ = jclip_by_global_norm(1.0).update(
+        {k: jnp.asarray(v).astype(dtype) for k, v in g.items()}, (), None)
+    assert out is mine
+    rtol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    for k, (t, ptr, before) in given.items():
+        assert out[k] is t and t.data_ptr() == ptr
+        assert torch.equal(t, before) == (norm <= 1.0), k
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(want[k], np.float32),
+                                   rtol=rtol, atol=0, err_msg=k)
+    got_norm = float(torch.sqrt(sum(torch.sum(v.float() ** 2)
+                                    for v in out.values())))
+    np.testing.assert_allclose(got_norm, min(norm, 1.0), rtol=1e-2)
 
 
 def test_make_optimizer_names():

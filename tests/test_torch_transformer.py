@@ -265,19 +265,24 @@ def test_attention_layer_matches_jax():
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
 
 
+#: MLA at the reduced deepseek-v3-671b's widths
+MLA = dict(mla=True, q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
+           qk_rope_dim=8, v_head_dim=16, head_dim=0)
+
+
 @pytest.mark.parametrize("change", [
-    dict(n_experts=4, moe_top_k=2, moe_d_ff=64), dict(mla=True),
+    dict(n_experts=4, moe_top_k=2, moe_d_ff=64), MLA,
     dict(mtp=True), dict(family="moe"),
     dict(family="hybrid", attn_layer_period=2, ssm_state=8),
     dict(learned_pos=True), dict(family="encdec")],
     ids=["moe", "mla", "mtp", "family-moe", "family-hybrid", "learned_pos",
          "encdec"])
 def test_unported_transformer_parts_raise(change):
-    """MLA, mtp, learned positions and encdec still raise; MoE layers and
-    the moe and hybrid families run, against the reference (1e-4 x max:
-    four fp32 layers)."""
+    """Learned positions and encdec still raise; MoE layers, MLA layers,
+    the mtp subtree and the moe and hybrid families run, against the
+    reference (1e-4 x max: four fp32 layers)."""
     cfg = dataclasses.replace(CFG, **change)
-    if cfg.mla or cfg.mtp or cfg.learned_pos or cfg.family == "encdec":
+    if cfg.learned_pos or cfg.family == "encdec":
         with pytest.raises(NotImplementedError, match="A16"):
             transformer.hidden_states(
                 {}, torch.zeros((1, 2), dtype=torch.long), cfg)
@@ -297,8 +302,8 @@ def test_unported_transformer_parts_raise(change):
     np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), rtol=1e-5)
     want = jtf.init_cache(jcfg, B, 4, CTX, dtype=jnp.float32)
     got = transformer.init_cache(cfg, B, 4, device="cpu")
-    assert [{k: tuple(v.shape) for k, v in c.items()} for c in got] == [
-        {k: v.shape for k, v in c.items()} for c in want]
+    assert jax.tree_util.tree_map(lambda v: tuple(v.shape), got) == \
+        jax.tree_util.tree_map(lambda v: v.shape, want)
 
 
 def test_backbone_hidden_flattens_tokens(params):
