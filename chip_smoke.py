@@ -7,8 +7,11 @@ sampler registry (the batch-shared sampler, tapas, the paper's oracles),
 starcoder2-3b training through the flash attention's backward kernel,
 served through the quantized index, falcon-mamba-7b and jamba-v0.1-52b
 serving (the SSM, hybrid and MoE layers), their training with
-Adafactor and remat, and deepseek-v3-671b's MLA and multi-token
-prediction, served and trained at 4 of its 61 layers.
+Adafactor and remat, deepseek-v3-671b's MLA and multi-token
+prediction, served and trained at 4 of its 61 layers, and
+whisper-large-v3's encoder-decoder, served and trained whole, its
+cross attention through both attention kernels at a key length apart
+from the query length.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -317,9 +320,37 @@ result line):
                  (flash_attention twice a backbone layer and once for the
                  mtp block, flash_attention_bwd once each, a microbatch),
                  a falling pool loss, peak memory, a profile of one step.
+ 22. whisper-large-v3's encoder-decoder — (a) in the kernel checks (its
+                 own generator): flash_attention and flash_attention_bwd
+                 at whisper's shapes (20 heads of 64, bf16, tensor cores):
+                 the encoder's (4, 1,500) and (8, 1,500) not causal, the
+                 decoder's (8, 448) causal and the cross attention's (8,
+                 Sq 448 over Sk 1,500) not causal, each against its plain
+                 version and timed beside SDPA (its backend named) with
+                 its bound; then the decode check's (4, 33 / 1,500), a
+                 ragged Sk below Sq, an s_valid inside Sk, the CUDA-core
+                 route (fp32) at Sk != Sq both ways, and a causal call
+                 with Sk != Sq refused; (b) serving whole (32 + 32 layers,
+                 d 1,280, 1.61 B parameters) through phase 11's run on 4
+                 clips of 1,500 frames: the prefill encodes them (32
+                 tensor-core flash launches), fills the cross K/V of every
+                 decoder layer and decodes token 0; decoder context 448;
+                 then decode against the teacher-forced decoder over the
+                 same tokens and encoder output in bf16 (DECODE_RTOL,
+                 WHISPER_DECODE_REL_RMS) and in fp32 compute
+                 (FP32_DECODE_*), each check's 96 attention launches
+                 exact; (c) training whole through fit (block-quadratic-
+                 shared, clip + AdamW at WHISPER_LR, remat;
+                 HYBRID_STEPS steps on a pool of 4 batches of 8 clips of
+                 1,500 frames with 448 tokens): the remat check and the
+                 attention's gradients against the plain attention's
+                 (the cross attention's parameters gated on their own) on
+                 4 clips, exact launches (flash_attention 192 and
+                 flash_attention_bwd 96 a step), a falling pool loss,
+                 peak memory, a profile of one step.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
-each run of 17, 18's fit, both runs of 19, both fits of 20 and 21's
-serving run and fit are main paths: the kernel
+each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
+22's serving runs and fits are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -333,7 +364,11 @@ layer and microbatch, falcon-mamba-7b and
 jamba-v0.1-52b serving zstats once and jamba flash_attention once per
 attention layer (2, tensor-core), deepseek-v3-671b serving zstats once
 and flash_attention once per layer (4, tensor-core at (192, 128)) and
-its training as phase 20's with the mtp block's attention beside, and
+its training as phase 20's with the mtp block's attention beside,
+whisper-large-v3 serving zstats once and flash_attention once per
+encoder layer (32) and its training zstats once per refresh,
+flash_attention twice and flash_attention_bwd once per attention call
+(96 a forward), and
 leaf_scores once per index top-k step, the entry run sampled_loss
 once, and the facade, checkpoint and overlap runs exactly what their
 calls and steps need.
@@ -344,10 +379,13 @@ follows the engine's batching), each path's count under
 ``launches_by_path`` (phase 19's as "falcon-mamba-7b" and
 "jamba-v0.1-52b", phase 20's as "falcon-mamba-7b training" and
 "jamba-v0.1-52b training", phase 21's as "deepseek-v3-671b" and
-"deepseek-v3-671b training"); the other shapes' numbers under serving_*,
+"deepseek-v3-671b training", phase 22's as "whisper-large-v3" and
+"whisper-large-v3 training"); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
+whisper_enc_serving_*, whisper_enc_train_*, whisper_dec_train_*,
+whisper_cross_train_* (phase 22a),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -409,7 +447,10 @@ from repro_torch.core.sampled_softmax import (  # noqa: E402
 )
 from repro_torch.bench import bias_vs_samples  # noqa: E402
 from repro_torch.core.samplers import sampler_from_config  # noqa: E402
-from repro_torch.data.pipeline import batch_iterator_for  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    ShardedBatchIterator,
+    batch_iterator_for,
+)
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, fused_head, ops, ref  # noqa: E402
 from repro_torch.kernels.block_scores import block_scores  # noqa: E402
@@ -426,7 +467,13 @@ from repro_torch.kernels.midx_scores import (  # noqa: E402
 from repro_torch.kernels.rff_features import rff_features  # noqa: E402
 from repro_torch.kernels.sampled_loss import sampled_loss  # noqa: E402
 from repro_torch.kernels.zstats import zstats  # noqa: E402
-from repro_torch.models import api, layers, moe, transformer  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    api,
+    encdec,
+    layers,
+    moe,
+    transformer,
+)
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.transform import apply_updates  # noqa: E402
 from repro_torch.serve import engine, quantized_index, retrieval  # noqa: E402
@@ -3012,28 +3059,30 @@ def decode_rel_rms(cfg) -> float:
 
 
 def attn_inputs(gen: torch.Generator, b: int, s: int, h: int, kv: int,
-                hd: int, dtype: torch.dtype, hv: int | None = None):
-    """q (B, S, H, hd), k (B, S, KV, hd) and v (B, S, KV, hv; hv defaults
-    to hd) of unit-variance entries, in the serving path's layout and
-    dtype."""
-    def draw(heads, width=hd):
-        return torch.randn((b, s, heads, width), generator=gen, device=DEV
+                hd: int, dtype: torch.dtype, hv: int | None = None,
+                sk: int | None = None):
+    """q (B, S, H, hd), k (B, Sk, KV, hd) and v (B, Sk, KV, hv; hv
+    defaults to hd, Sk to S) of unit-variance entries, in the serving
+    path's layout and dtype."""
+    def draw(heads, width=hd, n=s):
+        return torch.randn((b, n, heads, width), generator=gen, device=DEV
                            ).to(dtype)
-    return draw(h), draw(kv), draw(kv, hv or hd)
+    sk = sk or s
+    return draw(h), draw(kv, n=sk), draw(kv, hv or hd, sk)
 
 
 def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
-                dtype: torch.dtype, hv: int | None = None
-                ) -> tuple[float, str, float]:
+                dtype: torch.dtype, hv: int | None = None,
+                sk: int | None = None) -> tuple[float, str, float]:
     """(bound_ms, bound_by, cuda_core_floor_ms) of one attention call:
     q, k, v read once, o written once; 2·(hd + hv) flops per (query, key)
-    pair that the mask keeps (hv defaults to hd), at the inputs' peak rate
-    (the bf16 tensor cores for bf16) and at the fp32 CUDA-core rate the
-    kernel runs at."""
-    hv = hv or hd
+    pair that the mask keeps (hv defaults to hd, the key length sk to s),
+    at the inputs' peak rate (the bf16 tensor cores for bf16) and at the
+    fp32 CUDA-core rate the kernel runs at."""
+    hv, sk = hv or hd, sk or s
     esize = torch.finfo(dtype).bits // 8
-    n_bytes = esize * (b * s * h * (hd + hv) + b * s * kv * (hd + hv))
-    pairs = s * (s + 1) // 2 if causal else s * s
+    n_bytes = esize * (b * s * h * (hd + hv) + b * sk * kv * (hd + hv))
+    pairs = s * (s + 1) // 2 if causal else s * sk
     flops = 2.0 * b * h * pairs * (hd + hv)
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     bms, by = bound_ms(n_bytes, flops, rate)
@@ -3423,17 +3472,22 @@ def index_kernel_rows(index, h: torch.Tensor, tag: str = "llama3-8b"
 
 
 def lm_serving(cfg, params, prompts: torch.Tensor, tag: str,
-               want: dict[str, int]) -> types.SimpleNamespace:
+               want: dict[str, int], frames: torch.Tensor | None = None,
+               max_len: int = LLAMA_MAX_LEN) -> types.SimpleNamespace:
     """An LM's serving main path through the port's steps, at full width:
-    the retrieval index over its head (zstats), prefill of the prompts,
-    LLAMA_DECODE greedy decode steps, a top-k step through the index at
-    full beam (equal to the dense top-k, ties aside, its top-1 the greedy
-    token) and beam-8 top-k steps.  Launch counts are read around exactly
-    that and must equal ``want`` (every other kernel 0).  Then, outside the
-    counted run, the checks and the timings (prefill / decode / top-k
-    times, tokens/s, peak memory, the device busy share of a chain of
-    decode steps).  Returns the run's counts, index, tokens, caches, last
-    token and position, the last step's h and its timings."""
+    the retrieval index over its head (zstats), prefill of the prompts
+    (an encoder-decoder's: of ``frames``, its prompt the (B, 1) token 0
+    that its prefill step decodes at position 0), LLAMA_DECODE greedy
+    decode steps, a top-k step through the index at full beam (equal to
+    the dense top-k, ties aside, its top-1 the greedy token) and beam-8
+    top-k steps; caches of ``max_len`` positions.  Launch counts are read
+    around exactly that and must equal ``want`` (every other kernel 0).
+    Then, outside the counted run, the checks and the timings (prefill /
+    decode / top-k times, tokens/s, peak memory, the device busy share of
+    a chain of decode steps).  Returns the run's counts, index, tokens,
+    caches, last token and position, the last step's h and its
+    timings."""
+    batch = {"tokens": prompts} if frames is None else {"frames": frames}
     b, s = prompts.shape
     n_dec, k = LLAMA_DECODE, 10
     head = api.head_table(params, cfg)
@@ -3451,10 +3505,10 @@ def lm_serving(cfg, params, prompts: torch.Tensor, tag: str,
         timing["index_build_s"] = time.perf_counter() - t0
     finally:
         retrieval.spectral_stats = inner
-    prefill = engine.make_prefill_step(cfg, None, LLAMA_MAX_LEN)
+    prefill = engine.make_prefill_step(cfg, None, max_len)
     decode = engine.make_decode_step(cfg, None)
     t0 = time.perf_counter()
-    tok, caches = prefill(params, {"tokens": prompts})
+    tok, caches = prefill(params, batch)
     torch.cuda.synchronize()
     timing["first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
     generated = [tok]
@@ -3507,8 +3561,7 @@ def lm_serving(cfg, params, prompts: torch.Tensor, tag: str,
                        dim=1)  # (B, 512 + 33)
 
     # -- timings --------------------------------------------------------------
-    timing["prefill_ms"] = host_ms(lambda: prefill(params,
-                                                   {"tokens": prompts}))
+    timing["prefill_ms"] = host_ms(lambda: prefill(params, batch))
     timing["decode_ms_per_token_chain"] = chain_s / n_dec * 1e3
     timing["decode_step_ms"] = host_ms(
         lambda: decode(params, last, caches, pos))
@@ -3606,7 +3659,7 @@ def _leaves(tree):
 def _decode_h(params, cfg, token, caches, pos) -> torch.Tensor:
     """The (B, d) hidden state of one decode step, in fp32 (rewrites the
     same K/V at ``pos``)."""
-    h, _ = transformer.decode_step(params, token, caches, pos, cfg)
+    h, _ = engine._decode_step(cfg)(params, token, caches, pos, cfg)
     return h[:, 0].float()
 
 
@@ -3801,9 +3854,12 @@ BWD_FP32_RTOL = 1e-4
 DENSE_GRAD_FLOOR_FACTOR = 2.0
 
 
-def kept_pairs(s: int, causal: bool, s_valid: int | None) -> int:
-    """(query, key) pairs the mask keeps in one (batch, head)."""
-    sv = s if s_valid is None else min(s, s_valid)
+def kept_pairs(s: int, causal: bool, s_valid: int | None,
+               sk: int | None = None) -> int:
+    """(query, key) pairs the mask keeps in one (batch, head) of s
+    queries over sk keys (default s)."""
+    sk = sk or s
+    sv = sk if s_valid is None else min(sk, s_valid)
     if not causal:
         return s * sv
     return sum(min(i + 1, sv) for i in range(s))
@@ -3811,17 +3867,19 @@ def kept_pairs(s: int, causal: bool, s_valid: int | None) -> int:
 
 def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
                     dtype: torch.dtype, s_valid: int | None = None,
-                    hv: int | None = None) -> tuple[float, str]:
+                    hv: int | None = None, sk: int | None = None
+                    ) -> tuple[float, str]:
     """(bound_ms, bound_by) of one backward call: q, k, v, dO and lse read
     once, dq, dk and dv written once; 2·(3 hd + 2 hv) flops per kept
     (query, key) pair (the five products QK^T, dS^T Q and dS K over hd,
-    P^T dO and dO V^T over hv; hv defaults to hd), at the inputs' peak
-    rate."""
-    hv = hv or hd
+    P^T dO and dO V^T over hv; hv defaults to hd, the key length sk to
+    s), at the inputs' peak rate."""
+    hv, sk = hv or hd, sk or s
     esize = torch.finfo(dtype).bits // 8
     n_bytes = esize * (b * s * h * (2 * hd + hv)
-                       + 2 * b * s * kv * (hd + hv)) + 4 * b * h * s
-    flops = 2.0 * (3 * hd + 2 * hv) * b * h * kept_pairs(s, causal, s_valid)
+                       + 2 * b * sk * kv * (hd + hv)) + 4 * b * h * s
+    flops = 2.0 * (3 * hd + 2 * hv) * b * h * kept_pairs(s, causal, s_valid,
+                                                         sk)
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     return bound_ms(n_bytes, flops, rate)
 
@@ -3829,8 +3887,8 @@ def flash_bwd_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
 def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
                    hd: int, dtype: torch.dtype, causal: bool = True,
                    s_valid: int | None = None, timed: bool = False,
-                   splits: bool | None = None, hv: int | None = None
-                   ) -> dict:
+                   splits: bool | None = None, hv: int | None = None,
+                   sk: int | None = None) -> dict:
     """flash_attention_bwd on random inputs against its plain version
     (autograd through ``ref.flash_attention_ref``): the forward kernel's
     lse within RTOL of the plain log-sum-exp, dq, dk and dv each within
@@ -3838,15 +3896,17 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
     two calls bitwise equal, and the route the launch counts show (bf16 at
     hd and hv (default hd) multiples of 16, hd up to 192 and hv up to
     128: the tensor cores, whose plan is logged; ``splits`` asserts
-    whether it splits a key tile's group).  ``timed``
+    whether it splits a key tile's group).  ``sk`` gives the keys a length
+    of their own (default S: a cross attention, not causal).  ``timed``
     adds the kernel, plain and library device times (the library: SDPA's
     backward alone after one forward, with enable_gqa; its forward +
     backward beside it; yardsticks only), the bound, and the device ms of
     the backward's two kernels."""
     tag = (f"flash_attention_bwd {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
-           f" causal={causal} s_valid={s_valid} (B {b}, S {s}, H {h}, "
-           f"KV {kv}, hd {hd}" + (f", hv {hv})" if hv else ")"))
-    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype, hv)
+           f" causal={causal} s_valid={s_valid} (B {b}, S {s}"
+           + (f", Sk {sk}" if sk else "") + f", H {h}, KV {kv}, hd {hd}"
+           + (f", hv {hv})" if hv else ")"))
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype, hv, sk)
     o, lse = flash_attention(q, k, v, causal=causal, s_valid=s_valid,
                              with_lse=True)
     dout = torch.randn(o.shape, generator=gen, device=DEV).to(dtype)
@@ -3857,7 +3917,7 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
     pl = None
     if tc:
         pl = kernels.flash_attention.plan(
-            b, s, h, kv, hd, causal, hv=hv,
+            b, s, h, kv, hd, causal, hv=hv, sk=sk,
             sms=torch.cuda.get_device_properties(DEV).multi_processor_count)
         log(f"  {tag}: plan key tile {pl.key_tile}, chunk {pl.chunk}, "
             f"steps {pl.steps}, splits "
@@ -3893,7 +3953,7 @@ def flash_bwd_case(gen: torch.Generator, b: int, s: int, h: int, kv: int,
     row = {"max_abs_err": err}
     if timed:
         bms, by = flash_bwd_bound(b, s, h, kv, hd, causal, dtype, s_valid,
-                                  hv)
+                                  hv, sk)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
@@ -4094,6 +4154,151 @@ def phase_flash_mla(gen: torch.Generator) -> dict[str, dict]:
     return rows
 
 
+# --- phase 22a: the attention kernels at whisper-large-v3's shapes -----------
+
+#: whisper-large-v3's attention: 20 heads of 64 with no KV sharing, over
+#: 1,500 audio frames (30 s) in the encoder and 448 text tokens (the
+#: decoder's context) in the decoder
+WHISPER_HEADS, WHISPER_HD = 20, 64
+WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
+WHISPER_SERVE_BATCH, WHISPER_TRAIN_BATCH = 4, 8
+#: (B, Sq, Sk, causal) of the attention calls on this slice's paths: the
+#: encoder's self-attention in serving and in training, the decoder's
+#: causal self-attention and its cross attention over the frames in
+#: training
+WHISPER_SHAPES = {
+    "whisper_enc_serving": (WHISPER_SERVE_BATCH, WHISPER_FRAMES,
+                            WHISPER_FRAMES, False),
+    "whisper_enc_train": (WHISPER_TRAIN_BATCH, WHISPER_FRAMES,
+                          WHISPER_FRAMES, False),
+    "whisper_dec_train": (WHISPER_TRAIN_BATCH, WHISPER_TEXT, WHISPER_TEXT,
+                          True),
+    "whisper_cross_train": (WHISPER_TRAIN_BATCH, WHISPER_TEXT,
+                            WHISPER_FRAMES, False)}
+
+
+def flash_cross_row(gen: torch.Generator, b: int, s: int, sk: int,
+                    causal: bool, h: int = WHISPER_HEADS,
+                    kv: int = WHISPER_HEADS, hd: int = WHISPER_HD,
+                    dtype: torch.dtype = torch.bfloat16,
+                    s_valid: int | None = None, timed: bool = True) -> dict:
+    """``flash_attention`` on s queries over sk keys: bf16 at hd 64 must
+    take the tensor-core entry point (fp32 the CUDA-core one), held
+    against the plain version (BF16_ELEM_RTOL element by element in bf16,
+    RTOL in fp32); ``timed`` adds its times beside the plain version's and
+    SDPA's (whose backend is named) and its bound."""
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype, sk=sk)
+    tc = dtype == torch.bfloat16
+    entry = "flash_attention" if tc else "flash_attention_simt"
+    before = kernels.launch_counts()
+    got = flash_attention(q, k, v, causal=causal, s_valid=s_valid)
+    after = kernels.launch_counts()
+    took = {n: after[n] - before[n]
+            for n in ("flash_attention", "flash_attention_simt")}
+    if took != {n: int(n == entry) for n in took}:
+        raise AssertionError(f"flash (B {b}, S {s}, Sk {sk}) {dtype} took "
+                             f"{took}, not {entry}")
+    tag = (f"{entry} {dtype} causal={causal} s_valid={s_valid} (B {b}, "
+           f"Sq {s}, Sk {sk}, H {h}, KV {kv}, hd {hd})")
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       s_valid=s_valid)
+
+    err = compare(tag, got, plain(), elem_rtol=BF16_ELEM_RTOL if tc else 0.0)
+    row = {"max_abs_err": err}
+    if timed:
+        bms, by, _ = flash_bound(b, s, h, kv, hd, causal, dtype, sk=sk)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row.update(bound_ms=bms, bound_by=by,
+                   library=f"SDPA {sdpa_backend(qt, kt, vt, causal)}",
+                   **times(lambda: flash_attention(q, k, v, causal=causal),
+                           plain,
+                           lambda: sdpa(qt, kt, vt, is_causal=causal)))
+        log(f"  {tag}: {json.dumps(row)}")
+        del qt, kt, vt
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_causal_cross_refused(gen: torch.Generator) -> None:
+    """A causal call whose keys are not as many as its queries raises
+    ``ValueError`` in the forward, the backward and ``ops``, on the card."""
+    q, k, v = attn_inputs(gen, 1, 64, 4, 4, WHISPER_HD, torch.bfloat16,
+                          sk=128)
+    lse = torch.zeros((1, 4, 64), device=DEV)
+    for name, call in (
+            ("flash_attention", lambda: flash_attention(q, k, v)),
+            ("flash_attention_bwd",
+             lambda: flash_attention_bwd(q, k, v, torch.zeros_like(q), lse)),
+            ("ops.flash_attention", lambda: ops.flash_attention(q, k, v))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} took a causal call with Sq 64 and "
+                             f"Sk 128")
+
+
+def phase_flash_whisper(gen: torch.Generator) -> dict[str, dict]:
+    """Phase 22a: both attention kernels at whisper-large-v3's shapes
+    (WHISPER_SHAPES: 20 heads of 64, bf16, on the tensor cores) against
+    their plain versions, each timed beside SDPA (its backend named) with
+    its bound; then off those shapes: the decode check's cross attention
+    (4 x 33 queries over 1,500 frames), a ragged key length below the
+    query length, an s_valid inside the keys, the CUDA-core route (fp32)
+    with Sk != Sq both ways, and a causal call with Sk != Sq refused.
+    Returns rows by shape tag."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h, hd = WHISPER_HEADS, WHISPER_HD
+    rows: dict[str, dict] = {}
+    for tag, (b, s, sk, causal) in WHISPER_SHAPES.items():
+        fwd = flash_cross_row(gen, b, s, sk, causal)
+        if tag == "whisper_enc_serving":  # serving runs no backward
+            rows[tag] = {"flash_attention": fwd}
+            continue
+        bwd = flash_bwd_case(gen, b, s, h, h, hd, bf, causal=causal,
+                             timed=True, sk=sk)
+        q, k, v = attn_inputs(gen, 1, s, h, h, hd, bf, sk=sk)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bwd["library"] = (f"SDPA backward "
+                          f"{sdpa_backend(qt, kt, vt, causal)}")
+        del q, k, v, qt, kt, vt
+        rows[tag] = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+    errs = [
+        flash_cross_row(gen, WHISPER_SERVE_BATCH, 33, WHISPER_FRAMES, False,
+                        timed=False)["max_abs_err"],
+        flash_cross_row(gen, 2, 300, 77, False, 8, 2,
+                        timed=False)["max_abs_err"],
+        flash_cross_row(gen, 2, 200, 500, False, 8, 2, s_valid=300,
+                        timed=False)["max_abs_err"],
+        flash_bwd_case(gen, WHISPER_SERVE_BATCH, 33, h, h, hd, bf,
+                       causal=False, sk=WHISPER_FRAMES)["max_abs_err"],
+        flash_bwd_case(gen, 2, 300, 8, 2, hd, bf, causal=False,
+                       sk=77)["max_abs_err"],
+        flash_bwd_case(gen, 2, 200, 8, 2, 128, bf, causal=False, s_valid=300,
+                       sk=500)["max_abs_err"]]
+    simt = [
+        flash_cross_row(gen, 2, 100, 300, False, 8, 2, dtype=f32,
+                        timed=False)["max_abs_err"],
+        flash_cross_row(gen, 1, 77, 33, False, 4, 4, 33, dtype=f32,
+                        timed=False)["max_abs_err"],
+        flash_bwd_case(gen, 2, 100, 8, 2, hd, f32, causal=False,
+                       sk=300)["max_abs_err"],
+        flash_bwd_case(gen, 1, 77, 4, 4, 33, f32, causal=False, s_valid=20,
+                       sk=33)["max_abs_err"]]
+    check_causal_cross_refused(gen)
+    log(f"[whisper kernels] off the path's shapes: tensor-core max err "
+        f"{max(errs)}, CUDA-core {max(simt)}; a causal call with Sk != Sq "
+        f"raised ValueError")
+    cross = rows["whisper_cross_train"]
+    cross["flash_attention"]["other_max_abs_err"] = max(errs)
+    cross["flash_attention"]["simt_max_abs_err"] = max(simt)
+    return rows
+
+
 class CycledPool:
     """A fixed pool of batches served in turn, with the iterator state that
     ``fit``'s checkpoints record (``state_dict`` / ``load_state``)."""
@@ -4116,12 +4321,17 @@ class CycledPool:
         self.i = int(state["step"])
 
 
-def plain_hidden(model, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def plain_hidden(model, batch: dict, cfg) -> torch.Tensor:
     """``api.backbone_hidden``'s rows (the mtp rows after the backbone's
     where ``cfg.mtp``) with each backbone layer checkpointed
-    (``torch.utils.checkpoint``), for the plain attention's gradients: its
-    fp32 scores for 30 layers would not fit on the card beside the model,
-    so each layer's are recomputed in the backward."""
+    (``torch.utils.checkpoint``; an encoder-decoder's every encoder and
+    decoder layer, by ``cfg.remat``), for the plain attention's gradients:
+    its fp32 scores for 30 layers would not fit on the card beside the
+    model, so each layer's are recomputed in the backward."""
+    if cfg.family == "encdec":
+        return api.backbone_hidden(model, batch,
+                                   dataclasses.replace(cfg, remat=True))[0]
+    tokens = batch["tokens"]
     top = model.tree()
     b, s = tokens.shape
     x = layers.apply_embed(top["embed"], tokens, cfg)
@@ -4170,7 +4380,8 @@ def grads_or_zeros(loss, params: dict) -> list:
             for p, g in zip(params.values(), grads)]
 
 
-def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
+def dense_grad_check(cfg, batch, tag: str = "dense",
+                     own_gates: tuple = ()) -> float:
     """The first step of phase 18's fit (seed 0, the pool's first batch,
     its refresh and its draw of shared negatives) differentiated at those
     fixed negatives three ways: through the flash kernels, with every
@@ -4179,8 +4390,10 @@ def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
     over 64-key chunks (another valid order of the same fp32 sums: the
     bf16 noise floor of the comparison).  The losses within 1e-3 relative;
     the kernels' gradient errors within DENSE_GRAD_FLOOR_FACTOR x the
-    floor's, by worst and median parameter, max-based and by norm.
-    Returns the worst kernel error over max|plain|."""
+    floor's, by worst and median parameter, max-based and by norm; each
+    (label, predicate on the parameter name) of ``own_gates`` gates its
+    parameters on their own the same way.  Returns the worst kernel error
+    over max|plain|."""
     opt = make_optimizer("sgd", 0.0)
     state = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
                                   None, opt, device=DEV)
@@ -4201,7 +4414,7 @@ def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
         ops.flash_attention = lambda q, k, v, *, causal=True: \
             ref.flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
         try:
-            hp = plain_hidden(model, batch["tokens"], cfg)
+            hp = plain_hidden(model, batch, cfg)
             return grads_of(hp.reshape(-1, hp.shape[-1]))
         finally:
             ops.flash_attention = kernel_flash
@@ -4239,16 +4452,27 @@ def dense_grad_check(cfg, batch, tag: str = "dense") -> float:
     if abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
         raise AssertionError(f"{tag} loss through the kernels {loss_k} != "
                              f"plain {loss_p}")
-    for i, measure in enumerate(("max|diff| / max|plain|",
-                                 "relative norm")):
-        for stat in (max, statistics.median):
-            got = stat(v[i] for v in kern.values())
-            floor_val = stat(v[i] for v in floor.values())
-            if got > DENSE_GRAD_FLOOR_FACTOR * floor_val:
-                raise AssertionError(
-                    f"{tag} gradients through the kernels: {stat.__name__}"
-                    f" {measure} {got} > {DENSE_GRAD_FLOOR_FACTOR} x the "
-                    f"two plain versions' {floor_val}")
+    for label, keep in (("all", lambda n: True),) + tuple(own_gates):
+        kern_g = {n: v for n, v in kern.items() if keep(n)}
+        floor_g = {n: v for n, v in floor.items() if keep(n)}
+        if not kern_g:
+            raise AssertionError(f"{tag}: no parameter in the {label} "
+                                 "gate")
+        for i, measure in enumerate(("max|diff| / max|plain|",
+                                     "relative norm")):
+            for stat in (max, statistics.median):
+                got = stat(v[i] for v in kern_g.values())
+                floor_val = stat(v[i] for v in floor_g.values())
+                if label != "all":
+                    log(f"[{tag}] {label} ({len(kern_g)} parameters): "
+                        f"{stat.__name__} {measure} through the kernels "
+                        f"{got}, between the plain versions {floor_val}")
+                if got > DENSE_GRAD_FLOOR_FACTOR * floor_val:
+                    raise AssertionError(
+                        f"{tag} {label} gradients through the kernels: "
+                        f"{stat.__name__} {measure} {got} > "
+                        f"{DENSE_GRAD_FLOOR_FACTOR} x the two plain "
+                        f"versions' {floor_val}")
     del state, model, params, grads_k, grads_p, grads_q
     torch.cuda.empty_cache()
     return max(v[0] for v in kern.values())
@@ -4878,14 +5102,25 @@ def state_bytes(tree) -> int:
     return tree.nbytes if isinstance(tree, torch.Tensor) else 0
 
 
-def hybrid_fit(cfg, pool, tag: str) -> tuple[dict[str, int], object]:
-    """HYBRID_STEPS steps of ``fit`` with clip + Adafactor on the cycled
-    pool: exact launches (zstats once per refresh; each attention layer's
-    flash_attention once per microbatch and forward run, its
-    flash_attention_bwd once per microbatch), finite losses whose mean
-    over the last pass of the pool is below the first's, peak memory under
-    the card's.  Returns the counts, the optimizer and the final state."""
-    opt = make_optimizer("adafactor", HYBRID_LR)
+def attn_calls(cfg) -> int:
+    """Attention calls of one forward: each attention layer's one; an
+    encoder-decoder's encoder layer one, its decoder layer two (self and
+    cross)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    return attn_layers(cfg)
+
+
+def hybrid_fit(cfg, pool, tag: str, opt_name: str = "adafactor",
+               lr: float = HYBRID_LR) -> tuple[dict[str, int], object]:
+    """HYBRID_STEPS steps of ``fit`` with clip + Adafactor (or
+    ``opt_name`` at ``lr``) on the cycled pool: exact launches (zstats
+    once per refresh; each attention call's flash_attention once per
+    microbatch and forward run, its flash_attention_bwd once per
+    microbatch), finite losses whose mean over the last pass of the pool
+    is below the first's, peak memory under the card's.  Returns the
+    counts, the optimizer and the final state."""
+    opt = make_optimizer(opt_name, lr)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4907,21 +5142,22 @@ def hybrid_fit(cfg, pool, tag: str) -> tuple[dict[str, int], object]:
     b, s = pool[0]["tokens"].shape
     log(f"[{tag} training] {cfg.n_layers} layers, {n_params} parameters "
         f"({n_params * 2 / 1e9:.2f} GB in bf16); {HYBRID_STEPS} steps of "
-        f"{b} x {s} tokens in {mu} microbatch(es), clip + Adafactor (lr "
-        f"{HYBRID_LR}), remat {cfg.remat}: {wall:.3f} s ({wall / HYBRID_STEPS * 1e3:.1f}"
+        f"{b} x {s} tokens in {mu} microbatch(es), clip + {opt_name} (lr "
+        f"{lr}), remat {cfg.remat}: {wall:.3f} s ({wall / HYBRID_STEPS * 1e3:.1f}"
         f" ms/step, the first step included); losses {res.losses}; mean of "
         f"the first pass over the pool {first}, of the last {last}; peak "
         f"device memory {peak / 2**30:.2f} GiB of {card / 2**30:.2f}; "
-        f"Adafactor state {state_bytes(state.opt_state)} bytes; launches "
+        f"{opt_name} state {state_bytes(state.opt_state)} bytes; launches "
         f"{counts}")
-    with torch.no_grad():
-        _, aux = transformer.hidden_states(state.params, pool[0]["tokens"],
-                                           cfg)
-    log(f"[{tag} training] the MoE aux on the pool's first batch after "
-        f"training: {float(aux)}")
+    if cfg.family != "encdec":
+        with torch.no_grad():
+            _, aux = transformer.hidden_states(state.params,
+                                               pool[0]["tokens"], cfg)
+        log(f"[{tag} training] the MoE aux on the pool's first batch after "
+            f"training: {float(aux)}")
     # the mtp block's attention runs once a microbatch (never
     # rematerialized), beside the backbone's
-    attn, mtp = attn_layers(cfg), int(cfg.mtp)
+    attn, mtp = attn_calls(cfg), int(cfg.mtp)
     want = dict.fromkeys(REPLACES, 0)
     want.update(zstats=HYBRID_STEPS + 1,
                 flash_attention=HYBRID_STEPS * mu * (attn * forwards(cfg)
@@ -5094,6 +5330,197 @@ def phase_deepseek_train() -> dict[str, dict[str, int]]:
     return {f"{tag} training": counts}
 
 
+# --- phases 22b-22c: whisper-large-v3's encoder-decoder -----------------------
+
+#: whisper's decoder context (448 text tokens): the self cache's positions
+WHISPER_MAX_LEN = WHISPER_TEXT
+#: AdamW's learning rate of the whisper run, starcoder2-3b's
+WHISPER_LR = DENSE_LR
+#: the decode-vs-teacher-forced RMS bound: decode_rel_rms's rule over the
+#: decoder's 32 layers (the encoder's output is one tensor on both sides),
+#: DECODE_REL_RMS itself
+WHISPER_DECODE_REL_RMS = DECODE_REL_RMS
+
+
+def whisper_frames(gen: torch.Generator, cfg, b: int) -> torch.Tensor:
+    """(B, WHISPER_FRAMES, d) unit-normal frame embeddings (the frontend
+    stub's output) in the compute dtype."""
+    return torch.randn((b, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                       device=DEV).to(layers._dtype(cfg))
+
+
+def init_whisper(cfg, gen: torch.Generator, tag: str):
+    """Seeded random weights of the whole model on the card (position
+    tables of the reference's 4,096 rows), logged with the parameters of
+    an encoder layer, a decoder layer, the embedding, the head and a
+    position table; the peak memory statistics reset first."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+
+    def count(tree):
+        return sum(t.numel() for t in _leaves(tree))
+
+    log(f"[{tag}] {cfg.name}: {cfg.n_enc_layers} + {cfg.n_dec_layers} "
+        f"layers, d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.norm}, {cfg.act}, learned positions, {cfg.dtype}: "
+        f"{count(params)} parameters (an encoder layer "
+        f"{count(params['enc_blocks']) // cfg.n_enc_layers}, a decoder layer "
+        f"{count(params['dec_blocks']) // cfg.n_dec_layers}, the embedding "
+        f"{count(params['embed'])}, the head {count(params['head'])}, a "
+        f"position table {count(params['enc_pos'])}), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def check_whisper_decode(params, cfg, frames: torch.Tensor,
+                         tokens: torch.Tensor, tag: str, rtol: float,
+                         rel_rms: float) -> dict[str, int]:
+    """The reference's ``tests/test_serve.py`` contract at full width: a
+    chain of LLAMA_DECODE + 1 decode steps (the prefill's step from token
+    0, then the greedy ones) from ``init_dec_cache`` against
+    ``decode_train`` over the same tokens and the same encoder output,
+    each step's h within ``rtol`` of max |h_forward| element by element
+    and ``rel_rms`` in relative RMS.  The attention launches of the check
+    (the encoder's, the teacher-forced decoder's self and cross attention
+    at Sq 33, Sk 1,500) are counted apart: returned."""
+    n, b = LLAMA_DECODE + 1, tokens.shape[0]
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        enc = encdec.encode(params, frames, cfg)
+        h_tf = encdec.decode_train(params, tokens[:, :n], enc, cfg)
+        cache = encdec.init_dec_cache(params, cfg, b, WHISPER_MAX_LEN, enc)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    errs, rms = [], []
+    for t in range(n):
+        pos = torch.full((b,), t, dtype=torch.long, device=DEV)
+        h_t, cache = encdec.decode_step(params, tokens[:, t:t + 1], cache,
+                                        pos, cfg)
+        want = h_tf[:, t]
+        err = float((h_t[:, 0].float() - want.float()).abs().max())
+        if err > rtol * float(want.float().abs().max()):
+            compare(f"{tag} decode step {t} h vs teacher-forced", h_t[:, 0],
+                    want, rtol=rtol)
+        errs.append(err)
+        rms.append(float(_rel_rms(h_t[:, 0], want)))
+    log(f"[{tag}] decode vs teacher-forced ({cfg.dtype} compute): {n} "
+        f"steps, max abs err {max(errs)} (max |h| "
+        f"{float(h_tf.float().abs().max())}), relative RMS err max "
+        f"{max(rms)} mean {statistics.mean(rms)}; tolerances {rtol} x "
+        f"max|h|, relative RMS {rel_rms}; the check's launches {counts}")
+    worst = max(range(n), key=rms.__getitem__)
+    if rms[worst] > rel_rms:
+        raise AssertionError(f"{tag} decode step {worst} h vs teacher-"
+                             f"forced: relative RMS {rms[worst]} > "
+                             f"{rel_rms}")
+    del enc, h_tf, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_whisper_serving(gen: torch.Generator) -> dict[str, int]:
+    """Phase 22b: whisper-large-v3 whole (32 + 32 layers, full width)
+    through ``lm_serving`` on WHISPER_SERVE_BATCH clips of WHISPER_FRAMES
+    frames: the prefill encodes them (flash_attention once per encoder
+    layer, tensor-core, not causal), fills every decoder layer's cross
+    K/V and decodes token 0; then the greedy steps and top-k through the
+    index (zstats once, leaf_scores once per index top-k step).  Outside
+    the counted run: the caches' bytes, decode against the teacher-forced
+    decoder in bf16 (its launches exact: every encoder and decoder
+    attention on the tensor-core kernel) and in fp32 compute from the same
+    weights (the CUDA-core kernel), the encoder's time.  Returns the
+    path's launch counts."""
+    tag = "whisper-large-v3"
+    cfg = get_config(tag)
+    params = init_whisper(cfg, gen, tag)
+    frames = whisper_frames(gen, cfg, WHISPER_SERVE_BATCH)
+    prompts = torch.zeros((WHISPER_SERVE_BATCH, 1), dtype=torch.long,
+                          device=DEV)
+    run = lm_serving(cfg, params, prompts, tag, dict(
+        zstats=1, flash_attention=cfg.n_enc_layers, leaf_scores=2),
+        frames=frames, max_len=WHISPER_MAX_LEN)
+    log(f"[{tag}] all {run.counts['flash_attention']} encoder attentions "
+        f"of the prefill went through the tensor-core flash kernel, none "
+        f"through the CUDA-core one")
+    cross = run.caches["cross_k"].nbytes + run.caches["cross_v"].nbytes
+    own = run.caches["self_k"].nbytes + run.caches["self_v"].nbytes
+    log(f"[{tag}] decoder cache: cross K/V {cross / 1e9:.3f} GB "
+        f"({tuple(run.caches['cross_k'].shape)} each), self K/V "
+        f"{own / 1e9:.3f} GB ({WHISPER_MAX_LEN} positions)")
+    calls = attn_calls(cfg)
+    got = check_whisper_decode(params, cfg, frames, run.tokens, tag,
+                               DECODE_RTOL, WHISPER_DECODE_REL_RMS)
+    check_launches(f"{tag} bf16 decode check", got, {
+        **dict.fromkeys(REPLACES, 0), "flash_attention": calls})
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    got = check_whisper_decode(params, cfg32, frames.float(), run.tokens,
+                               f"{tag} fp32", FP32_DECODE_RTOL,
+                               FP32_DECODE_REL_RMS)
+    check_launches(f"{tag} fp32 decode check", got, {
+        **dict.fromkeys(REPLACES, 0), "flash_attention_simt": calls})
+    with torch.no_grad():
+        run.timing["encode_ms"] = host_ms(
+            lambda: encdec.encode(params, frames, cfg))
+    log_timing(tag, run.timing)
+    counts = run.counts
+    del params, run, frames
+    torch.cuda.empty_cache()
+    return counts
+
+
+def whisper_pool(cfg, seed: int = 0) -> list[dict]:
+    """HYBRID_POOL training batches of WHISPER_TRAIN_BATCH clips: frames (B,
+    WHISPER_FRAMES, d) and SyntheticLM's tokens and labels (B,
+    WHISPER_TEXT), from a ``ShardedBatchIterator`` over this sample
+    function (``batch_iterator_for`` gives frames and tokens one
+    length)."""
+    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed, device=str(DEV))
+
+    def sample(g: torch.Generator) -> dict:
+        batch = lm.sample_batch(g, WHISPER_TRAIN_BATCH, WHISPER_TEXT)
+        return {"frames": whisper_frames(g, cfg, WHISPER_TRAIN_BATCH),
+                **batch}
+
+    data = ShardedBatchIterator(sample, None, seed=seed, device=DEV)
+    return [next(data) for _ in range(HYBRID_POOL)]
+
+
+def phase_whisper_train() -> dict[str, dict[str, int]]:
+    """Phase 22c: whisper-large-v3 whole through ``fit`` with the config's
+    sampler (block-quadratic-shared, m 2,048), clip + AdamW at WHISPER_LR
+    and the config's remat (every encoder and decoder layer's forward
+    again in the backward), HYBRID_STEPS steps on a pool of HYBRID_POOL
+    batches of 8 clips of 1,500 frames with 448 tokens: first, on the
+    pool's first 4 clips, the remat check and the attention's gradients
+    through the kernels against the plain attention's (the cross
+    attention's parameters gated on their own), then ``hybrid_fit``
+    (exact launches: 3 x 32 attention calls a forward, twice under remat,
+    once each in the backward; falling pool loss; peak) and a profile of
+    one step.  Returns the fit's launch counts."""
+    tag = "whisper-large-v3"
+    cfg = get_config(tag)
+    pool = whisper_pool(cfg)
+    probe = {k: v[:4] for k, v in pool[0].items()}
+    remat_grad_check(cfg, probe, tag)
+    torch.cuda.empty_cache()
+    err = dense_grad_check(cfg, probe, tag=tag, own_gates=(
+        ("cross attention", lambda n: ".xattn." in n),))
+    log(f"[{tag}] worst first-step gradient error over max|plain| {err} "
+        f"({cfg.n_enc_layers} + {cfg.n_dec_layers} layers)")
+    torch.cuda.empty_cache()
+    counts, opt, state = hybrid_fit(cfg, pool, tag, "adamw", WHISPER_LR)
+    phase_profile(cfg, state, steps=1, batches=pool[1:2], opt=opt)
+    del state, opt, pool, probe
+    torch.cuda.empty_cache()
+    log(f"[{tag} training] {allocated_gb():.3f} GB allocated after")
+    return {f"{tag} training": counts}
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -5149,7 +5576,9 @@ def main() -> int:
     llama_shapes.update(bwd_shapes)
     llama_shapes.update(phase_flash_mla(
         torch.Generator(device="cuda").manual_seed(21)))
-    lap("kernel checks (phases 3, 10, 18a, 21a)")
+    llama_shapes.update(phase_flash_whisper(
+        torch.Generator(device="cuda").manual_seed(22)))
+    lap("kernel checks (phases 3, 10, 18a, 21a, 22a)")
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -5241,6 +5670,11 @@ def main() -> int:
     lap("deepseek-v3-671b serving (phase 21b)")
     by_path.update(phase_deepseek_train())
     lap("deepseek-v3-671b training (phase 21c)")
+    by_path["whisper-large-v3"] = phase_whisper_serving(
+        torch.Generator(device="cuda").manual_seed(22))
+    lap("whisper-large-v3 serving (phase 22b)")
+    by_path.update(phase_whisper_train())
+    lap("whisper-large-v3 training (phase 22c)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

@@ -1,11 +1,9 @@
 """Config registry of the port: the paper's own models, the dense
 transformer family (llama3-8b, starcoder2-3b, mistral-nemo-12b, qwen2-72b,
 chameleon-34b), the MoE ones (dbrx-132b; deepseek-v3-671b, with MLA and
-multi-token prediction), the SSM one (falcon-mamba-7b) and the hybrid one
-(jamba-v0.1-52b).
-
-The reference registers one more assigned architecture (whisper-large-v3:
-encdec); it joins here with the slice that ports its parts."""
+multi-token prediction), the SSM one (falcon-mamba-7b), the hybrid one
+(jamba-v0.1-52b) and the encoder-decoder one (whisper-large-v3): every
+architecture the reference registers."""
 from __future__ import annotations
 
 import importlib
@@ -23,6 +21,7 @@ _MODULES = {
     "ptb-lstm": "ptb_lstm",
     "qwen2-72b": "qwen2_72b",
     "starcoder2-3b": "starcoder2_3b",
+    "whisper-large-v3": "whisper_large_v3",
     "youtube-dnn": "youtube_dnn",
 }
 

@@ -9,28 +9,33 @@ Both functions take plain numpy arrays (the JAX side converts with
     "head", "lstm0": {"kernel", "recurrent", "bias"}, ...}``) into its
     ``LSTMLM``, the decoder LMs' ``init_lm`` tree (dense, moe, ssm,
     hybrid; MLA layers and the ``mtp`` subtree too) through
-    ``lm_params_from_jax``.  Same layouts, so all copy.
+    ``lm_params_from_jax``, and the encoder-decoder's ``init_encdec``
+    tree (``enc_blocks`` and ``dec_blocks`` stacked, both position
+    tables).  Same layouts, so all copy.
   * ``lm_params_from_jax`` — the reference's LM params (nested dicts, each
     segment stacked on a leading layer axis) into the same tree of
     tensors, each leaf in its own dtype (the router, ``a_log``, ``d``,
     ``dt_bias`` and the norms fp32).
   * ``caches_from_jax`` — the reference's decode caches (per segment
-    ``{"k", "v"}``, ``{"conv", "ssm"}`` or MLA's one latent tensor) into
-    the port's.
+    ``{"k", "v"}``, ``{"conv", "ssm"}`` or MLA's one latent tensor; the
+    encoder-decoder's one dict ``{"self_k", "self_v", "cross_k",
+    "cross_v"}``) into the port's.
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's.
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
-    lstm or LM model (params, the ``chain(clip, adamw)`` or ``chain(clip,
-    adafactor)`` state, the sampler's carried state and the step) into
+    lstm, LM or encoder-decoder model (params, the ``chain(clip, adamw)``
+    or ``chain(clip, adafactor)`` state, the sampler's carried state and
+    the step) into
     the port's ``TrainState``, so both packages can take a step from one
     state.
 
 And back, numpy out:
 
-  * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM`` or ``StackedLM``
-    into the reference's param tree (recsys and lstm names split at their
-    first ``_``; a ``StackedLM``'s layers stacked per segment); an LM's
-    stacked tree leaf for leaf.
+  * ``params_to_jax`` — a ``RecsysTower``, ``LSTMLM``, ``StackedLM`` or
+    ``EncDec`` into the reference's param tree (recsys and lstm names
+    split at their first ``_``; a ``StackedLM``'s layers stacked per
+    segment, an ``EncDec``'s per block stack); a stacked tree leaf for
+    leaf.
   * ``caches_to_jax`` — the port's decode caches as numpy.
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
@@ -53,6 +58,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
+from repro_torch.models.encdec import STACKS as ENCDEC_STACKS
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import (
     LM_FAMILIES,
     StackedLM,
@@ -140,8 +147,16 @@ def _path(name: str, model: torch.nn.Module) -> tuple[list, int | None]:
     (``optim.adafactor.stacks``), sits in the reference's tree: (the path
     to the leaf, the layer's row of it or None).  A ``StackedLM``'s
     ``segments.<s>.<i>.<path>`` is row i of ``segments[s][path]``, its
-    stack key ``segments.<s>.<path>`` the whole leaf; a recsys or lstm
-    name splits at its first ``_`` (their top-level keys hold none)."""
+    stack key ``segments.<s>.<path>`` the whole leaf; an ``EncDec``'s
+    ``enc_blocks.<i>.<path>`` row i of ``enc_blocks[path]`` (and
+    ``dec_blocks`` so), its stack key ``enc_blocks.<path>`` the whole
+    leaf; a recsys or lstm name splits at its first ``_`` (their
+    top-level keys hold none)."""
+    if isinstance(model, EncDec):
+        parts = name.split(".")
+        if parts[0] in ENCDEC_STACKS and parts[1].isdigit():
+            return [parts[0], *parts[2:]], int(parts[1])
+        return parts, None
     if isinstance(model, StackedLM):
         parts = name.split(".")
         if parts[0] != "segments":
@@ -193,8 +208,8 @@ def _module_of(state: TrainState) -> torch.nn.Module:
     modules = sorted({m.__name__ for m in api.PARAM_MODULES.values()})
     if not isinstance(state.params, tuple(api.PARAM_MODULES.values())):
         raise NotImplementedError(
-            f"{type(state.params).__name__} training states are not ported "
-            f"yet (ROADMAP.md A16); only {', '.join(modules)}")
+            f"{type(state.params).__name__} training states are not "
+            f"ported; only {', '.join(modules)}")
     return state.params
 
 
@@ -317,10 +332,19 @@ def _tensor_tree(tree, dev: torch.device):
 
 def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
                        device: str | torch.device | None = None) -> dict:
-    """Reference LM params (``transformer.init_lm``'s tree, numpy leaves)
-    -> the port's tree of tensors on ``device`` (the card unless
-    ``device="cpu"``), leaf for leaf."""
+    """Reference LM params (``transformer.init_lm``'s tree, numpy leaves;
+    or an encoder-decoder's ``init_encdec`` tree) -> the port's tree of
+    tensors on ``device`` (the card unless ``device="cpu"``), leaf for
+    leaf."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        counts = {"enc_blocks": cfg.n_enc_layers,
+                  "dec_blocks": cfg.n_dec_layers}
+        got = {k: _first_dim(np_params.get(k)) for k in counts}
+        if got != counts:
+            raise ValueError(f"{cfg.name} stacks {counts} layers, the "
+                             f"params {got}")
+        return _tensor_tree(np_params, dev)
     require_ported(cfg)
     n_segs = len(segments_of(cfg))
     if len(np_params.get("segments", ())) != n_segs:
@@ -329,12 +353,27 @@ def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
     return _tensor_tree(np_params, dev)
 
 
-def caches_from_jax(np_caches: list, cfg: ArchConfig,
-                    device: str | torch.device | None = None) -> list:
+def _first_dim(tree) -> int | None:
+    """The leading dim of a tree's first leaf (a stack's layer count)."""
+    while isinstance(tree, dict) and tree:
+        tree = next(iter(tree.values()))
+    return None if tree is None or isinstance(tree, dict) \
+        else np.shape(tree)[0]
+
+
+def caches_from_jax(np_caches, cfg: ArchConfig,
+                    device: str | torch.device | None = None):
     """Reference decode caches (``transformer.init_cache`` / ``prefill``'s
-    list, one dict per segment, numpy leaves) -> the port's on
-    ``device`` (the card unless ``device="cpu"``), leaf for leaf."""
+    list, one dict per segment; an encoder-decoder's one dict of four
+    (L, B, S, KV, hd) arrays; numpy leaves) -> the port's on ``device``
+    (the card unless ``device="cpu"``), leaf for leaf."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        want = {"self_k", "self_v", "cross_k", "cross_v"}
+        if set(np_caches) != want:
+            raise ValueError(f"an encoder-decoder's cache holds "
+                             f"{sorted(want)}, not {sorted(np_caches)}")
+        return _tensor_tree(dict(np_caches), dev)
     n_segs = len(segments_of(cfg))
     if len(np_caches) != n_segs:
         raise ValueError(f"{cfg.name} has {n_segs} segments, the caches "
@@ -342,8 +381,11 @@ def caches_from_jax(np_caches: list, cfg: ArchConfig,
     return _tensor_tree(list(np_caches), dev)
 
 
-def caches_to_jax(caches: list) -> list:
-    """The port's decode caches -> numpy copies, the reference's layout."""
+def caches_to_jax(caches):
+    """The port's decode caches -> numpy copies, the reference's layout
+    (a list per segment, or an encoder-decoder's dict)."""
+    if isinstance(caches, dict):
+        return _map_tree(host_copy, caches)
     return _map_tree(host_copy, list(caches))
 
 
@@ -351,14 +393,15 @@ def params_from_jax(np_params: dict, cfg: ArchConfig,
                     device: str | torch.device | None = None):
     """Reference params (numpy leaves) -> the port's on ``device`` (the
     card unless ``device="cpu"``): a ``RecsysTower`` for recsys, an
-    ``LSTMLM`` for lstm, the stacked tensor tree for the decoder LMs."""
+    ``LSTMLM`` for lstm, the stacked tensor tree for the decoder LMs and
+    the encoder-decoder."""
     dev = resolve_device(device)
-    if cfg.family in LM_FAMILIES:
+    if cfg.family in LM_FAMILIES + ("encdec",):
         return lm_params_from_jax(np_params, cfg, dev)
     if cfg.family not in api.PARAM_MODULES:
         raise NotImplementedError(
-            f"family '{cfg.family}' is not ported yet (only 'recsys', "
-            f"'lstm', {', '.join(repr(f) for f in LM_FAMILIES)})")
+            f"family '{cfg.family}' is not ported (only 'recsys', 'lstm', "
+            f"{', '.join(repr(f) for f in LM_FAMILIES)}, 'encdec')")
     # Built on the meta device, so nothing is allocated or drawn before
     # the copies are assigned.
     model = api.abstract_params(cfg)
@@ -394,6 +437,8 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
     model = params_from_jax(np_params, cfg, device=dev)
     if cfg.family in LM_FAMILIES:
         model = StackedLM(cfg, dev, tree=model)
+    elif cfg.family == "encdec":
+        model = EncDec(cfg, dev, tree=model)
     clip_state, core = np_opt_state
     opt = _OPTIMIZERS.get(frozenset(core)) \
         if isinstance(core, dict) else None
@@ -401,7 +446,9 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
         raise NotImplementedError(
             "only the chain(clip_by_global_norm, adamw) and chain("
             "clip_by_global_norm, adafactor) states are carried")
-    meta = api.abstract_params(cfg)
+    meta = api.abstract_params(cfg, **(
+        {"max_len": np.shape(np_params["enc_pos"]["table"])[0]}
+        if cfg.family == "encdec" else {}))
     like = chain(clip_by_global_norm(1.0), opt(0.0)).init(
         dict(meta.named_parameters()))
     opt_state = _opt_from_reference(_tensor_tree(np_opt_state, dev), like,

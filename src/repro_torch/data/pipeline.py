@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import SyntheticLM, SyntheticRecsys
+from repro_torch.models import layers as L
 from repro_torch.utils.misc import fold_in, resolve_device
 
 #: the families whose batches are ``SyntheticLM`` token chains
@@ -54,14 +55,29 @@ def batch_iterator_for(cfg: ArchConfig, ctx, global_batch: int,
                        device: str | torch.device | None = None
                        ) -> ShardedBatchIterator:
     """Synthetic batches for ``cfg`` on ``device`` (the card unless
-    ``device="cpu"``): recsys (``seq_len`` unused), and the lstm and
-    decoder LMs (``SyntheticLM`` token sequences of ``seq_len``, the
-    reference's non-recsys, non-encdec branch) are ported."""
-    if cfg.family not in ("recsys",) + TOKEN_FAMILIES:
+    ``device="cpu"``): recsys (``seq_len`` unused); the lstm and decoder
+    LMs, ``SyntheticLM`` token sequences of ``seq_len``; encdec, such a
+    batch plus ``frames`` (B, seq_len, d_model) drawn normal from the
+    batch's generator in ``cfg.dtype`` (the frontend stub's embeddings;
+    the reference's encdec branch).  Frames and tokens of two lengths
+    come from a ``ShardedBatchIterator`` over a sample function of the
+    caller's."""
+    if cfg.family not in ("recsys", "encdec") + TOKEN_FAMILIES:
         raise NotImplementedError(
-            f"synthetic data for family '{cfg.family}' is not ported yet "
-            f"(only {', '.join(('recsys',) + TOKEN_FAMILIES)})")
+            f"synthetic data for family '{cfg.family}' is not ported "
+            f"(only {', '.join(('recsys', 'encdec') + TOKEN_FAMILIES)})")
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed,
+                         device=str(dev))
+
+        def sample(g: torch.Generator) -> dict:
+            b = lm.sample_batch(g, global_batch, seq_len)
+            frames = torch.randn((global_batch, seq_len, cfg.d_model),
+                                 generator=g, device=dev)
+            return {"frames": frames.to(L._dtype(cfg)), **b}
+
+        return ShardedBatchIterator(sample, ctx, seed=seed, device=dev)
     if cfg.family in TOKEN_FAMILIES:
         lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed,
                          device=str(dev))

@@ -61,20 +61,20 @@ SIGNATURES = {
     "midx_member_scores": ("midx_scores", "midx_member_scores_f32",
                            (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention", "flash_attention_mma_bf16",
-                        (_P,) * 4 + (_I,) * 8 + (_F, _I, _P)),
+                        (_P,) * 4 + (_I,) * 9 + (_F, _I, _P)),
     "flash_attention_simt": ("flash_attention", "flash_attention_fwd",
-                             (_P,) * 4 + (_I,) * 8 + (_F, _I, _I, _P)),
+                             (_P,) * 4 + (_I,) * 9 + (_F, _I, _I, _P)),
     "flash_attention_lse": ("flash_attention",
                             "flash_attention_mma_bf16_lse",
-                            (_P,) * 5 + (_I,) * 8 + (_F, _I, _P)),
+                            (_P,) * 5 + (_I,) * 9 + (_F, _I, _P)),
     "flash_attention_simt_lse": ("flash_attention", "flash_attention_fwd_lse",
-                                 (_P,) * 5 + (_I,) * 8 + (_F, _I, _I, _P)),
+                                 (_P,) * 5 + (_I,) * 9 + (_F, _I, _I, _P)),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "flash_attention_bwd_mma_bf16",
-                            (_P,) * 11 + (_I,) * 8 + (_F, _I, _I, _P)),
+                            (_P,) * 11 + (_I,) * 9 + (_F, _I, _I, _P)),
     "flash_attention_bwd_simt": ("flash_attention_bwd",
                                  "flash_attention_bwd_simt",
-                                 (_P,) * 9 + (_I,) * 8 + (_F, _I, _I, _P)),
+                                 (_P,) * 9 + (_I,) * 9 + (_F, _I, _I, _P)),
     "sampled_loss": ("sampled_loss", "sampled_loss_fwd",
                      (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P)),

@@ -3,10 +3,13 @@
 //   o[b, i, h, :] = sum_j softmax_j(scale * <q[b, i, h], k[b, j, h / g]>) v[b, j, h / g]
 //
 // over keys j < s_valid (and j <= i when causal), scale = 1 / sqrt(hd),
-// g = H / KV query heads per KV head.  q: (B, S, H, hd); k: (B, S, KV, hd);
-// v: (B, S, KV, hv); o: (B, S, H, hv), the value width hv apart from the
-// q/k width hd (MLA's expanded form: hd 192, hv 128); fp32 or bf16 in,
-// computed in fp32, written in q's type.
+// g = H / KV query heads per KV head.  q: (B, Sq, H, hd); k: (B, Sk, KV,
+// hd); v: (B, Sk, KV, hv); o: (B, Sq, H, hv), the value width hv apart
+// from the q/k width hd (MLA's expanded form: hd 192, hv 128) and the key
+// length Sk apart from the query length Sq (an encoder-decoder's cross
+// attention: whisper's 448 text tokens over 1,500 audio frames; a causal
+// call has Sk = Sq); fp32 or bf16 in, computed in fp32, written in q's
+// type.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas kernel over a (B*H, q tiles, kv tiles) grid whose running (max,
@@ -29,7 +32,10 @@
 // TB/s: bytes bound the function.  At (B 1, S 4096) the 137 GFLOP take
 // 139 us: operations.  At MLA's serving shape (B 4, S 512, H = KV 128, hd
 // 192, hv 128) the 42.9 GFLOP take 43 us and the 335 MB of q/k/v/o 100
-// us: bytes, since MLA's expanded form shares no K/V between heads.
+// us: bytes, since MLA's expanded form shares no K/V between heads.  At
+// whisper-large-v3's cross attention in training (B 8, Sq 448, Sk 1,500,
+// H = KV 20, hd 64, not causal) the 27.5 GFLOP take 28 us and the 80 MB
+// 24 us: operations.
 //
 // Tensor-core design (flash_mma_kernel).  One block of 4 warps per (b*h,
 // 64-query tile); each warp owns 16 query rows.  S = Q K^T comes from
@@ -48,9 +54,11 @@
 // ldmatrix.trans), so P keeps ~16 bits where one bf16 P would carry a
 // 2^-9 relative error into every output: the reference multiplies fp32 P
 // by V.  Causal tiles past the query tile's diagonal are skipped, and only
-// a tile that holds the diagonal, s_valid or S is masked element by
+// a tile that holds the diagonal, s_valid or Sk is masked element by
 // element; a row with no valid key yet adds nothing, with no NaN.  Query
-// tiles run longest first (reversed blockIdx.y).  Q and K are staged at
+// tiles run longest first (reversed blockIdx.y).  K and V are addressed by
+// their own length Sk (batch offsets, key tiles, the s_valid clip), so a
+// cross attention reads them as they are: nothing pads them to Sq.  Q and K are staged at
 // the compiled q/k width HDP and V at the value width HVP, columns past
 // hd (hv) zero-filled: (32, 32), (64, 64) and (128, 128) for hd = hv (the
 // dense family's calls, compiled as before the value width existed), and
@@ -73,10 +81,11 @@
 // registers, pass the row's probabilities through shared memory, and each
 // accumulates a quarter of the row's (hv,) output in fp32 registers.  Its
 // fp32 FMAs make 128 us its own floor at the prefill's shape.  Keys at or
-// after s_valid, and after the query when causal, carry no mass; rows and
-// keys past S are masked, so S need not be a multiple of a tile.  Staged
-// rows are zero-padded to the next compiled width (32, 64, 128 or 256) of
-// hd = hv, or to 256 for any hv != hd, so any hd and hv <= 256 run.
+// after s_valid, and after the query when causal, carry no mass; rows past
+// Sq and keys past Sk are masked, so neither need be a multiple of a tile.
+// Staged rows are zero-padded to the next compiled width (32, 64, 128 or
+// 256) of hd = hv, or to 256 for any hv != hd, so any hd and hv <= 256
+// run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -113,8 +122,8 @@ template <int HDMAX, typename T, bool kOwnV>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KV, int hd,
-                 int hv_arg, int s_valid, int causal, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int hd, int hv_arg, int s_valid, int causal, float scale) {
   const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;   // floats per staged row, 16B aligned
   constexpr int kCols = HDMAX / kQuad;  // output columns per thread
@@ -137,21 +146,21 @@ __global__ void __launch_bounds__(kThreads)
   const size_t kv_row = static_cast<size_t>(KV) * hd;
   const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
   const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
-  const T* qb = q + static_cast<size_t>(b) * S * q_row +
+  const T* qb = q + static_cast<size_t>(b) * Sq * q_row +
                 static_cast<size_t>(h) * hd;
-  const T* kb = k + static_cast<size_t>(b) * S * kv_row +
+  const T* kb = k + static_cast<size_t>(b) * Sk * kv_row +
                 static_cast<size_t>(kvh) * hd;
-  const T* vb = v + static_cast<size_t>(b) * S * v_row +
+  const T* vb = v + static_cast<size_t>(b) * Sk * v_row +
                 static_cast<size_t>(kvh) * hv;
 
   for (int idx = tid; idx < kBQ * kStride; idx += kThreads) {
     const int r = idx / kStride, c = idx % kStride, s = q0 + r;
-    q_s[idx] = (s < S && c < hd)
+    q_s[idx] = (s < Sq && c < hd)
                    ? to_f32(qb[static_cast<size_t>(s) * q_row + c]) * scale
                    : 0.f;
   }
 
-  int kv_end = causal ? min(S, q0 + kBQ) : S;
+  int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   kv_end = min(kv_end, s_valid);
   const int hd4 = (hd + 3) / 4;
 
@@ -243,12 +252,12 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  if (qi < S && lse != nullptr && quad == 0)  // +inf: a row with no key
-    lse[(static_cast<size_t>(b) * H + h) * S + qi] =
+  if (qi < Sq && lse != nullptr && quad == 0)  // +inf: a row with no key
+    lse[(static_cast<size_t>(b) * H + h) * Sq + qi] =
         l_run > 0.f ? m_run + logf(l_run) : CUDART_INF_F;
-  if (qi < S) {
+  if (qi < Sq) {
     const float denom = fmaxf(l_run, 1e-30f);
-    T* orow = o + (static_cast<size_t>(b) * S + qi) * o_row +
+    T* orow = o + (static_cast<size_t>(b) * Sq + qi) * o_row +
               static_cast<size_t>(h) * hv;
 #pragma unroll
     for (int j4 = 0; j4 < kCols / 4; ++j4) {
@@ -263,8 +272,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HDMAX, typename T, bool kOwnV = false>
 int launch_width(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int H, int KV, int hd, int hv,
-                 int s_valid, int causal, float scale, cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+                 int hv, int s_valid, int causal, float scale,
+                 cudaStream_t stream) {
   const size_t smem = smem_bytes<HDMAX>();
   auto kernel = flash_kernel<HDMAX, T, kOwnV>;
   if (smem > 48 * 1024) {
@@ -273,70 +283,72 @@ int launch_width(const void* q, const void* k, const void* v, void* o,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, hd,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, hd,
       hv, s_valid, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int H, int KV, int hd, int hv,
-                 int s_valid, int causal, float scale, cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+                 int hv, int s_valid, int causal, float scale,
+                 cudaStream_t stream) {
   if (hd < 1 || hv < 1 || hd > 256 || hv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd != hv)  // a value width of its own: one instantiation takes all
-    return launch_width<256, T, true>(q, k, v, o, lse, B, S, H, KV, hd, hv,
-                                      s_valid, causal, scale, stream);
+    return launch_width<256, T, true>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                      hd, hv, s_valid, causal, scale,
+                                      stream);
   if (hd <= 32)
-    return launch_width<32, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+    return launch_width<32, T>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hv,
                                s_valid, causal, scale, stream);
   if (hd <= 64)
-    return launch_width<64, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+    return launch_width<64, T>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hv,
                                s_valid, causal, scale, stream);
   if (hd <= 128)
-    return launch_width<128, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+    return launch_width<128, T>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hv,
                                 s_valid, causal, scale, stream);
-  return launch_width<256, T>(q, k, v, o, lse, B, S, H, KV, hd, hv,
+  return launch_width<256, T>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hv,
                               s_valid, causal, scale, stream);
 }
 
 }  // namespace
 
-// The CUDA-core entry point: q: (B, S, H, hd); k: (B, S, KV, hd); v: (B,
-// S, KV, hv); o: (B, S, H, hv); contiguous, all fp32 (bf16 = 0) or all
-// bf16 (bf16 = 1); H a multiple of KV; 1 <= hd, hv <= 256;
-// keys at or after s_valid carry no mass.  Launches on `stream` of
-// `device`; returns the launch's cudaError_t.
-// flash_attention_fwd_lse also writes lse (B, H, S) fp32, each row's
+// The CUDA-core entry point: q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v:
+// (B, Sk, KV, hv); o: (B, Sq, H, hv); contiguous, all fp32 (bf16 = 0) or
+// all bf16 (bf16 = 1); H a multiple of KV; 1 <= hd, hv <= 256; Sk = Sq
+// when causal; keys at or after s_valid carry no mass.  Launches on
+// `stream` of `device`; returns the launch's cudaError_t.
+// flash_attention_fwd_lse also writes lse (B, H, Sq) fp32, each row's
 // natural-log sum of exp(scale * q.k) over its keys (+inf for a row with
 // none): the residual of the backward (flash_attention_bwd.cu).
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
-                                       int B, int S, int H, int KV, int hd,
-                                       int hv, int s_valid, int causal,
-                                       float scale, int bf16, int device,
-                                       void* stream) {
+                                       int B, int Sq, int Sk, int H,
+                                       int KV, int hd, int hv, int s_valid,
+                                       int causal, float scale, int bf16,
+                                       int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_typed<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, hv,
-                                       s_valid, causal, scale, st);
-  return launch_typed<float>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
-                             causal, scale, st);
+    return launch_typed<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, KV, hd,
+                                       hv, s_valid, causal, scale, st);
+  return launch_typed<float>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, hv,
+                             s_valid, causal, scale, st);
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int KV, int hd, int hv,
+                                   const void* v, void* o, int B, int Sq,
+                                   int Sk, int H, int KV, int hd, int hv,
                                    int s_valid, int causal, float scale,
                                    int bf16, int device, void* stream) {
-  return flash_attention_fwd_lse(q, k, v, o, nullptr, B, S, H, KV, hd, hv,
-                                 s_valid, causal, scale, bf16, device,
+  return flash_attention_fwd_lse(q, k, v, o, nullptr, B, Sq, Sk, H, KV, hd,
+                                 hv, s_valid, causal, scale, bf16, device,
                                  stream);
 }
 
@@ -434,8 +446,8 @@ template <int HDP, int HVP>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int KV, int hd,
-                     int hv_arg, int s_valid, int causal,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                     int hd, int hv_arg, int s_valid, int causal,
                      float scale_log2) {
   constexpr bool kOwnV = HDP != HVP;
   const int hv = kOwnV ? hv_arg : hd;
@@ -462,20 +474,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t kv_row = static_cast<size_t>(KV) * hd;
   const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
   const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
-  const bf16* qb = q + static_cast<size_t>(b) * S * q_row +
+  const bf16* qb = q + static_cast<size_t>(b) * Sq * q_row +
                    static_cast<size_t>(h) * hd;
-  const bf16* kb = k + static_cast<size_t>(b) * S * kv_row +
+  const bf16* kb = k + static_cast<size_t>(b) * Sk * kv_row +
                    static_cast<size_t>(kvh) * hd;
-  const bf16* vb = v + static_cast<size_t>(b) * S * v_row +
+  const bf16* vb = v + static_cast<size_t>(b) * Sk * v_row +
                    static_cast<size_t>(kvh) * hv;
 
-  const int kv_lim = min(S, s_valid);
+  const int kv_lim = min(Sk, s_valid);
   const int kv_end = causal ? min(kv_lim, q0 + kBQ) : kv_lim;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   for (int e = threadIdx.x; e < kBQ * kChunks; e += kThreads) {
     const int r = e / kChunks, c = (e % kChunks) * 8;
-    const bool ok = q0 + r < S && c < hd;
+    const bool ok = q0 + r < Sq && c < hd;
     tcore::cp_async<16>(
         q_s + r * P + c,
         ok ? qb + static_cast<size_t>(q0 + r) * q_row + c : qb, ok);
@@ -598,12 +610,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     l += __shfl_xor_sync(kFull, l, 2);
     const float denom = fmaxf(l, 1e-30f);
     const int qi = qi0 + 8 * i;
-    if (qi < S && lse != nullptr && tig == 0)  // natural log; +inf: no key
-      lse[(static_cast<size_t>(b) * H + h) * S + qi] =
+    if (qi < Sq && lse != nullptr && tig == 0)  // natural log; +inf: no key
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] =
           l > 0.f ? (m_run[i] + log2f(l)) * 0.69314718055994531f
                   : CUDART_INF_F;
-    if (qi < S) {
-      bf16* orow = o + (static_cast<size_t>(b) * S + qi) * o_row +
+    if (qi < Sq) {
+      bf16* orow = o + (static_cast<size_t>(b) * Sq + qi) * o_row +
                    static_cast<size_t>(h) * hv;
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
@@ -619,8 +631,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <int HDP, int HVP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int KV, int hd, int hv, int s_valid,
-           int causal, float scale, cudaStream_t stream) {
+           int B, int Sq, int Sk, int H, int KV, int hd, int hv,
+           int s_valid, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP, HVP>();
   auto kernel = flash_mma_kernel<HDP, HVP>;
   if (smem > 48 * 1024) {
@@ -629,29 +641,29 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
-      hd, hv, s_valid, causal, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      KV, hd, hv, s_valid, causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 }  // namespace
 
-// The tensor-core entry point: q: (B, S, H, hd); k: (B, S, KV, hd); v:
-// (B, S, KV, hv); o: (B, S, H, hv); contiguous bf16 with 16-byte aligned
+// The tensor-core entry point: q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v:
+// (B, Sk, KV, hv); o: (B, Sq, H, hv); contiguous bf16 with 16-byte aligned
 // bases; H a multiple of KV; hd and hv multiples of 16, hd up to 192 and
-// hv up to 128; keys at or after s_valid carry no mass.
-// flash_attention_mma_bf16_lse also writes lse (B, H, S) fp32, as
+// hv up to 128; Sk = Sq when causal; keys at or after s_valid carry no
+// mass.  flash_attention_mma_bf16_lse also writes lse (B, H, Sq) fp32, as
 // flash_attention_fwd_lse does.  Launches on `stream` of `device`;
 // returns the launch's cudaError_t.
 extern "C" int flash_attention_mma_bf16_lse(const void* q, const void* k,
                                             const void* v, void* o,
-                                            void* lse, int B, int S, int H,
-                                            int KV, int hd, int hv,
-                                            int s_valid, int causal,
+                                            void* lse, int B, int Sq,
+                                            int Sk, int H, int KV, int hd,
+                                            int hv, int s_valid, int causal,
                                             float scale, int device,
                                             void* stream) {
   const cudaError_t err = cudaSetDevice(device);
@@ -662,24 +674,25 @@ extern "C" int flash_attention_mma_bf16_lse(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (hd != hv)  // a value width of its own: the (192, 128) pair
-    return tc::launch<192, 128>(q, k, v, o, l, B, S, H, KV, hd, hv,
+    return tc::launch<192, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, hv,
                                 s_valid, causal, scale, st);
   if (hd <= 32)
-    return tc::launch<32, 32>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
-                              causal, scale, st);
+    return tc::launch<32, 32>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, hv,
+                              s_valid, causal, scale, st);
   if (hd <= 64)
-    return tc::launch<64, 64>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
-                              causal, scale, st);
-  return tc::launch<128, 128>(q, k, v, o, l, B, S, H, KV, hd, hv, s_valid,
-                              causal, scale, st);
+    return tc::launch<64, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, hv,
+                              s_valid, causal, scale, st);
+  return tc::launch<128, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, hv,
+                              s_valid, causal, scale, st);
 }
 
 extern "C" int flash_attention_mma_bf16(const void* q, const void* k,
                                         const void* v, void* o, int B,
-                                        int S, int H, int KV, int hd, int hv,
-                                        int s_valid, int causal, float scale,
-                                        int device, void* stream) {
-  return flash_attention_mma_bf16_lse(q, k, v, o, nullptr, B, S, H, KV, hd,
-                                      hv, s_valid, causal, scale, device,
-                                      stream);
+                                        int Sq, int Sk, int H, int KV,
+                                        int hd, int hv, int s_valid,
+                                        int causal, float scale, int device,
+                                        void* stream) {
+  return flash_attention_mma_bf16_lse(q, k, v, o, nullptr, B, Sq, Sk, H,
+                                      KV, hd, hv, s_valid, causal, scale,
+                                      device, stream);
 }

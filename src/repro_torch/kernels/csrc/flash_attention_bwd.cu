@@ -2,16 +2,18 @@
 //
 //   P   = exp(scale * Q K^T - lse)          recomputed, never stored
 //   dP  = dO V^T
-//   D   = rowsum(P o dP)  (= rowsum(dO o O), (B, H, S) fp32 scratch)
+//   D   = rowsum(P o dP)  (= rowsum(dO o O), (B, H, Sq) fp32 scratch)
 //   dV  = P^T dO
 //   dS  = P o (dP - D)
 //   dK  = scale * dS^T Q
 //   dQ  = scale * dS K
 //
-// over keys j < s_valid (and j <= i when causal); q, dQ: (B, S, H, hd);
-// dO: (B, S, H, hv); k, dK: (B, S, KV, hd); v, dV: (B, S, KV, hv), the
+// over keys j < s_valid (and j <= i when causal); q, dQ: (B, Sq, H, hd);
+// dO: (B, Sq, H, hv); k, dK: (B, Sk, KV, hd); v, dV: (B, Sk, KV, hv), the
 // value width hv apart from the q/k width hd (MLA's expanded form: hd
-// 192, hv 128); lse: (B, H, S) fp32 from the forward
+// 192, hv 128) and the key length Sk apart from the query length Sq (a
+// cross attention; Sk = Sq when causal); lse: (B, H, Sq) fp32 from the
+// forward
 // (flash_attention.cu's *_lse entries); fp32 or bf16 in, fp32 sums,
 // gradients written in q's type.  A query head h reads and writes the
 // gradients of KV head h / (H / KV) in place: no repeated-KV copy.
@@ -64,8 +66,12 @@
 // warp keeps a 3-stage ring of TMA copies in flight behind full / empty
 // mbarriers and gives up its registers (24), and two consumers of 64 rows
 // each (240 registers).  Tiles land 128-byte swizzled (rows of 64 bf16;
-// columns past hd and rows past S zero-filled by the TMA), the layout the
-// wgmma descriptors read.  In the dK/dV kernel the block holds its 128
+// columns past hd and rows past Sq or Sk zero-filled by the TMA), the
+// layout the wgmma descriptors read.  K, V, dK and dV are mapped at their
+// own length Sk, Q, dO, dQ, lse and D at Sq: the dQ kernel sweeps Sk
+// keys, the dK/dV grid's key tiles run over Sk and their (query head,
+// query step) steps over Sq, and a cross attention's K and V are read as
+// they are, never padded to Sq.  In the dK/dV kernel the block holds its 128
 // keys' K and V; each stage brings one 64-query Q and dO tile with its lse
 // and D, and each consumer forms S^T = K Q^T and dP^T = V dO^T (SS
 // products, both operands from shared memory), P^T and dS^T in fp32
@@ -81,8 +87,8 @@
 // equal shares, so the grid fills the card (256 blocks at the training
 // shape, where one block per key tile gave 128 with the work spread 16:1);
 // the dQ kernel's query tiles run longest first.  Fully masked causal
-// steps are skipped; only a step that holds the diagonal, s_valid or S is
-// masked element by element.  At (192, 128) a consumer holding both a 64 x
+// steps are skipped; only a step that holds the diagonal, s_valid, Sq or
+// Sk is masked element by element.  At (192, 128) a consumer holding both a 64 x
 // 192 dK and a 64 x 128 dV in fp32 would need 160 registers a thread for
 // them alone, and would spill past setmaxnreg's 240 once S^T, dP^T and the
 // bf16 halves are live; so there a dK/dV block holds 64 keys, and its two
@@ -197,8 +203,9 @@ __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-               int hd, int hv_arg, int s_valid, int causal, float scale) {
+               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
+               int KV, int hd, int hv_arg, int s_valid, int causal,
+               float scale) {
   const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;
   extern __shared__ float4 smem4[];
@@ -215,14 +222,14 @@ __global__ void __launch_bounds__(kThreads)
   const int group = H / KV;
   const int k0 = blockIdx.y * kT;  // causal: the low key tiles work longest
   const int tid = threadIdx.x, row = tid / 8, lane8 = tid % 8;
-  const int kv_lim = min(S, s_valid);
+  const int kv_lim = min(Sk, s_valid);
   const size_t q_row = static_cast<size_t>(H) * hd;
   const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const size_t kv_row = static_cast<size_t>(KV) * hd;
   const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
-  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
+  const size_t kv_off = static_cast<size_t>(b) * Sk * kv_row +
                         static_cast<size_t>(kvh) * hd;
-  const size_t v_off = kOwnV ? static_cast<size_t>(b) * S * v_row +
+  const size_t v_off = kOwnV ? static_cast<size_t>(b) * Sk * v_row +
                                    static_cast<size_t>(kvh) * hv
                              : kv_off;
   const int hd4 = (hd + 3) / 4, hv4 = kOwnV ? (hv + 3) / 4 : hd4;
@@ -235,24 +242,24 @@ __global__ void __launch_bounds__(kThreads)
     stage<HDMAX>(k_s, k + kv_off, kv_row, k0, kv_lim, hd);
     stage<HDMAX>(v_s, v + v_off, v_row, k0, kv_lim, hv);
     const int qt_first = causal ? k0 / kT : 0;
-    const int n_qt = (S + kT - 1) / kT;
+    const int n_qt = (Sq + kT - 1) / kT;
     for (int hh = 0; hh < group; ++hh) {
       const int h = kvh * group + hh;
-      const size_t q_off = static_cast<size_t>(b) * S * q_row +
+      const size_t q_off = static_cast<size_t>(b) * Sq * q_row +
                            static_cast<size_t>(h) * hd;
-      const size_t o_off = kOwnV ? static_cast<size_t>(b) * S * o_row +
+      const size_t o_off = kOwnV ? static_cast<size_t>(b) * Sq * o_row +
                                        static_cast<size_t>(h) * hv
                                  : q_off;
-      const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
-      const float* d_h = delta + (static_cast<size_t>(b) * H + h) * S;
+      const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * Sq;
+      const float* d_h = delta + (static_cast<size_t>(b) * H + h) * Sq;
       for (int qt = qt_first; qt < n_qt; ++qt) {
         const int q0 = qt * kT;
         __syncthreads();  // the previous tile's reads are done
-        stage<HDMAX>(q_s, q + q_off, q_row, q0, S, hd);
-        stage<HDMAX>(do_s, dout + o_off, o_row, q0, S, hv);
+        stage<HDMAX>(q_s, q + q_off, q_row, q0, Sq, hd);
+        stage<HDMAX>(do_s, dout + o_off, o_row, q0, Sq, hv);
         if (tid < kT) {
-          lse_s[tid] = q0 + tid < S ? lse_h[q0 + tid] : 0.f;
-          d_s[tid] = q0 + tid < S ? d_h[q0 + tid] : 0.f;
+          lse_s[tid] = q0 + tid < Sq ? lse_h[q0 + tid] : 0.f;
+          d_s[tid] = q0 + tid < Sq ? d_h[q0 + tid] : 0.f;
         }
         __syncthreads();
         // key `row`, queries lane8 + 8 * j
@@ -261,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
           const int qq = lane8 + 8 * j;
           const int key = k0 + row, qi = q0 + qq;
           float p = 0.f, ds = 0.f;
-          if (key < kv_lim && qi < S && !(causal && key > qi)) {
+          if (key < kv_lim && qi < Sq && !(causal && key > qi)) {
             const float s = dot4(k_s + row * kStride, q_s + qq * kStride,
                                  hd4);
             const float dp = dot4(v_s + row * kStride, do_s + qq * kStride,
@@ -283,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   const int key = k0 + row;
-  if (key < S) {
+  if (key < Sk) {
     write_row<HDMAX>(dk + kv_off + static_cast<size_t>(key) * kv_row, dk_acc,
                      scale, lane8, hd);
     write_row<HDMAX>(dv + v_off + static_cast<size_t>(key) * v_row, dv_acc,
@@ -298,8 +305,8 @@ __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta,
-              T* __restrict__ dq, int S, int H, int KV, int hd, int hv_arg,
-              int s_valid, int causal, float scale) {
+              T* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd,
+              int hv_arg, int s_valid, int causal, float scale) {
   const int hv = kOwnV ? hv_arg : hd;
   constexpr int kStride = HDMAX + 4;
   extern __shared__ float4 smem4[];
@@ -315,29 +322,29 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kT;  // longest rows first
   const int tid = threadIdx.x, row = tid / 8, lane8 = tid % 8;
   const int qi = q0 + row;
-  const int kv_lim = min(S, s_valid);
+  const int kv_lim = min(Sk, s_valid);
   const int kv_end = causal ? min(kv_lim, q0 + kT) : kv_lim;
   const size_t q_row = static_cast<size_t>(H) * hd;
   const size_t o_row = kOwnV ? static_cast<size_t>(H) * hv : q_row;
   const size_t kv_row = static_cast<size_t>(KV) * hd;
   const size_t v_row = kOwnV ? static_cast<size_t>(KV) * hv : kv_row;
-  const size_t q_off = static_cast<size_t>(b) * S * q_row +
+  const size_t q_off = static_cast<size_t>(b) * Sq * q_row +
                        static_cast<size_t>(h) * hd;
-  const size_t o_off = kOwnV ? static_cast<size_t>(b) * S * o_row +
+  const size_t o_off = kOwnV ? static_cast<size_t>(b) * Sq * o_row +
                                    static_cast<size_t>(h) * hv
                              : q_off;
-  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
+  const size_t kv_off = static_cast<size_t>(b) * Sk * kv_row +
                         static_cast<size_t>(kvh) * hd;
-  const size_t v_off = kOwnV ? static_cast<size_t>(b) * S * v_row +
+  const size_t v_off = kOwnV ? static_cast<size_t>(b) * Sk * v_row +
                                    static_cast<size_t>(kvh) * hv
                              : kv_off;
-  const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
-  float* d_h = delta + (static_cast<size_t>(b) * H + h) * S;
+  const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  float* d_h = delta + (static_cast<size_t>(b) * H + h) * Sq;
   const int hd4 = (hd + 3) / 4, hv4 = kOwnV ? (hv + 3) / 4 : hd4;
 
-  stage<HDMAX>(q_s, q + q_off, q_row, q0, S, hd);
-  stage<HDMAX>(do_s, dout + o_off, o_row, q0, S, hv);
-  if (tid < kT) lse_s[tid] = q0 + tid < S ? lse_h[q0 + tid] : 0.f;
+  stage<HDMAX>(q_s, q + q_off, q_row, q0, Sq, hd);
+  stage<HDMAX>(do_s, dout + o_off, o_row, q0, Sq, hv);
+  if (tid < kT) lse_s[tid] = q0 + tid < Sq ? lse_h[q0 + tid] : 0.f;
   float dq_acc[HDMAX / 8];
 #pragma unroll
   for (int j = 0; j < HDMAX / 8; ++j) dq_acc[j] = 0.f;
@@ -356,7 +363,7 @@ __global__ void __launch_bounds__(kThreads)
         const int kk = lane8 + 8 * j;
         const int key = k0 + kk;
         float p = 0.f, dp = 0.f;
-        if (key < kv_lim && qi < S && !(causal && key > qi)) {
+        if (key < kv_lim && qi < Sq && !(causal && key > qi)) {
           const float s = dot4(q_s + row * kStride, k_s + kk * kStride, hd4);
           dp = dot4(do_s + row * kStride, v_s + kk * kStride, hv4);
           p = expf(s * scale - lse_s[row]);
@@ -378,10 +385,10 @@ __global__ void __launch_bounds__(kThreads)
       dsum += __shfl_xor_sync(kFull, dsum, 2);
       dsum += __shfl_xor_sync(kFull, dsum, 4);
       d_row = dsum;
-      if (lane8 == 0 && qi < S) d_h[qi] = dsum;
+      if (lane8 == 0 && qi < Sq) d_h[qi] = dsum;
     }
   }
-  if (qi < S)
+  if (qi < Sq)
     write_row<HDMAX>(dq + q_off + static_cast<size_t>(qi) * q_row, dq_acc,
                      scale, lane8, hd);
 }
@@ -389,8 +396,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int HDMAX, typename T, bool kOwnV = false>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
-           int B, int S, int H, int KV, int hd, int hv, int s_valid,
-           int causal, float scale, cudaStream_t stream) {
+           int B, int Sq, int Sk, int H, int KV, int hd, int hv,
+           int s_valid, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDMAX>();
   auto dkv = dkv_kernel<HDMAX, T, kOwnV>;
   auto dqk = dq_kernel<HDMAX, T, kOwnV>;
@@ -404,44 +411,43 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int tiles = (S + kT - 1) / kT;
-  dqk<<<dim3(B * H, tiles), kThreads, smem, stream>>>(
+  dqk<<<dim3(B * H, (Sq + kT - 1) / kT), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, KV, hd, hv, s_valid, causal, scale);
+      static_cast<T*>(dq), Sq, Sk, H, KV, hd, hv, s_valid, causal, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv<<<dim3(B * KV, tiles), kThreads, smem, stream>>>(
+  dkv<<<dim3(B * KV, (Sk + kT - 1) / kT), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, hd, hv, s_valid,
-      causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KV, hd, hv,
+      s_valid, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, float* delta, void* dq,
-                 void* dk, void* dv, int B, int S, int H, int KV, int hd,
-                 int hv, int s_valid, int causal, float scale,
+                 void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                 int hd, int hv, int s_valid, int causal, float scale,
                  cudaStream_t stream) {
   if (hd < 1 || hv < 1 || hd > 256 || hv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd != hv)  // a value width of its own: one instantiation takes all
-    return launch<256, T, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, S,
-                                H, KV, hd, hv, s_valid, causal, scale,
+    return launch<256, T, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
+                                Sk, H, KV, hd, hv, s_valid, causal, scale,
                                 stream);
   if (hd <= 32)
-    return launch<32, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                         hd, hv, s_valid, causal, scale, stream);
+    return launch<32, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk,
+                         H, KV, hd, hv, s_valid, causal, scale, stream);
   if (hd <= 64)
-    return launch<64, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                         hd, hv, s_valid, causal, scale, stream);
+    return launch<64, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk,
+                         H, KV, hd, hv, s_valid, causal, scale, stream);
   if (hd <= 128)
-    return launch<128, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+    return launch<128, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H,
                           KV, hd, hv, s_valid, causal, scale, stream);
-  return launch<256, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                        hd, hv, s_valid, causal, scale, stream);
+  return launch<256, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H,
+                        KV, hd, hv, s_valid, causal, scale, stream);
 }
 
 }  // namespace simt
@@ -700,9 +706,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, float* __restrict__ ws,
-                     int* __restrict__ counters, int B, int S, int H, int KV,
-                     int hd, int hv_arg, int s_valid, int causal,
-                     float scale, float scale_log2, int chunk) {
+                     int* __restrict__ counters, int B, int Sq, int Sk,
+                     int H, int KV, int hd, int hv_arg, int s_valid,
+                     int causal, float scale, float scale_log2, int chunk) {
   // at HDP = HVP the value width is hd (the dense family's calls)
   const int hv = HDP == HVP ? hd : hv_arg;
   constexpr bool kRoles = split_roles<HDP, HVP>();
@@ -724,8 +730,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ int last;
 
   const int group = H / KV;
-  const int n_qt = (S + kStep - 1) / kStep;
-  const int n_kt = (S + kKeys - 1) / kKeys;
+  const int n_qt = (Sq + kStep - 1) / kStep;
+  const int n_kt = (Sk + kKeys - 1) / kKeys;
   constexpr int kTilesPerKey = kKeys / kStep;
   int idx = blockIdx.x, kt = 0, steps = 0, ns = 1;
   for (;; ++kt) {
@@ -743,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                        steps / ns);
   const int t_end = static_cast<int>(static_cast<long long>(split_i + 1) *
                                      steps / ns);
-  const int kv_lim = min(S, s_valid);
+  const int kv_lim = min(Sk, s_valid);
   const int wg = warpgroup();
 
   if (threadIdx.x == 0) {
@@ -774,12 +780,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
       const int h = kvh * group + t / per_head;
       const int q0 = (qt_first + t % per_head) * kStep;
-      const size_t st = (static_cast<size_t>(b) * H + h) * S;
+      const size_t st = (static_cast<size_t>(b) * H + h) * Sq;
 #pragma unroll
       for (int e = 0; e < kStep / 32; ++e) {
         const int r = lane + 32 * e, qi = q0 + r;
-        lse_s[s][r] = qi < S ? lse[st + qi] * kLog2e : 0.f;
-        d_s[s][r] = qi < S ? delta[st + qi] : 0.f;
+        lse_s[s][r] = qi < Sq ? lse[st + qi] * kLog2e : 0.f;
+        d_s[s][r] = qi < Sq ? delta[st + qi] : 0.f;
       }
       if (lane == 0) {
         tcore::mbar_arrive_expect_tx(&full[s], (kQ + kO) * sizeof(bf16));
@@ -826,7 +832,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tcore::wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
-      const bool edge = q0 + kStep > S || kw0 + kRows > kv_lim ||
+      const bool edge = q0 + kStep > Sq || kw0 + kRows > kv_lim ||
                         (causal && q0 < kw0 + kRows - 1);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
@@ -834,7 +840,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int key = key_a + 8 * ((e >> 1) & 1);
         float p = exp2f(st[e] * scale_log2 - lse_s[s][col]);
         if (edge &&
-            (key >= kv_lim || q0 + col >= S || (causal && key > q0 + col)))
+            (key >= kv_lim || q0 + col >= Sq || (causal && key > q0 + col)))
           p = 0.f;
         st[e] = p;                                  // P^T
         dpt[e] = p * (dpt[e] - d_s[s][col]);  // dS^T
@@ -876,18 +882,18 @@ __global__ void __launch_bounds__(kThreads, 1)
             kRoles ? 0 : kAv, reinterpret_cast<float4*>(ws), kSlot4, split_i,
             ns, &counters[kt * B * KV + bkv], &last, wg, t_in))
     return;
-  bf16* dk_t = dk + (static_cast<size_t>(b) * S * KV + kvh) * hd;
-  bf16* dv_t = dv + (static_cast<size_t>(b) * S * KV + kvh) * hv;
+  bf16* dk_t = dk + (static_cast<size_t>(b) * Sk * KV + kvh) * hd;
+  bf16* dv_t = dv + (static_cast<size_t>(b) * Sk * KV + kvh) * hv;
   if (want_dk)
     store_rows<kAd>(dk_t, static_cast<size_t>(KV) * hd, dk_acc, scale,
-                    key_a, S, hd, tq);
+                    key_a, Sk, hd, tq);
   if (want_dv) {
     if constexpr (kRoles)
       store_rows<kAv>(dv_t, static_cast<size_t>(KV) * hv, dk_acc, 1.f,
-                      key_a, S, hv, tq);
+                      key_a, Sk, hv, tq);
     else
       store_rows<kAv>(dv_t, static_cast<size_t>(KV) * hv, dv_acc, 1.f,
-                      key_a, S, hv, tq);
+                      key_a, Sk, hv, tq);
   }
 }
 
@@ -905,8 +911,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap map_v,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     bf16* __restrict__ dq, int* __restrict__ counters,
-                    int n_counters, int B, int S, int H, int KV, int hd,
-                    int s_valid, int causal, float scale, float scale_log2) {
+                    int n_counters, int B, int Sq, int Sk, int H, int KV,
+                    int hd, int s_valid, int causal, float scale,
+                    float scale_log2) {
   constexpr int kAd = HDP / kAtom, kAv = HVP / kAtom;
   constexpr int kQ = kBlockRows * HDP;  // bf16 of the Q tile
   constexpr int kO = kBlockRows * HVP;  // bf16 of the dO tile
@@ -920,12 +927,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float lse_s[kBlockRows];
   __shared__ uint64_t qd_bar, full[kStages], empty[kStages];
 
-  const int n_qt = (S + kBlockRows - 1) / kBlockRows;
+  const int n_qt = (Sq + kBlockRows - 1) / kBlockRows;
   const int bh = blockIdx.x % (B * H);
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / (B * H)) *
                  kBlockRows;  // longest rows first
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int kv_lim = min(S, s_valid);
+  const int kv_lim = min(Sk, s_valid);
   const int kv_end = causal ? min(kv_lim, q0 + kBlockRows) : kv_lim;
   const int n_kt = (kv_end + kStep - 1) / kStep;
   const int wg = warpgroup();
@@ -946,11 +953,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x % 32;
     if (blockIdx.x == 0)
       for (int c = lane; c < n_counters; c += 32) counters[c] = 0;
-    const size_t st = (static_cast<size_t>(b) * H + h) * S;
+    const size_t st = (static_cast<size_t>(b) * H + h) * Sq;
 #pragma unroll
     for (int e = 0; e < kBlockRows / 32; ++e) {
       const int r = lane + 32 * e, qi = q0 + r;
-      lse_s[r] = qi < S ? lse[st + qi] * kLog2e : 0.f;
+      lse_s[r] = qi < Sq ? lse[st + qi] * kLog2e : 0.f;
     }
     if (lane != 0) {
       tcore::mbar_arrive(&qd_bar);
@@ -995,7 +1002,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool second = i >= n_kt;
     mbar_wait(&full[s], (i / kStages) & 1);
     const int k0 = (i % n_kt) * kStep;
-    if (qw0 < S && !(causal && k0 > qw0 + kRows - 1)) {
+    if (qw0 < Sq && !(causal && k0 > qw0 + kRows - 1)) {
       const bf16* ks = k_s + s * kK;
       const bf16* vs = v_s + s * kV;
       float sc[32], dp[32];  // S = Q K^T, dP = dO V^T
@@ -1006,7 +1013,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tcore::wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
-      const bool edge = qw0 + kRows > S || k0 + kStep > kv_lim ||
+      const bool edge = qw0 + kRows > Sq || k0 + kStep > kv_lim ||
                         (causal && k0 + kStep - 1 > qw0);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
@@ -1014,7 +1021,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = (e >> 1) & 1;
         const int qi = qi_a + 8 * r;
         float p = exp2f(sc[e] * scale_log2 - l2[r]);
-        if (edge && (key >= kv_lim || qi >= S || (causal && key > qi)))
+        if (edge && (key >= kv_lim || qi >= Sq || (causal && key > qi)))
           p = 0.f;
         if (second)
           sc[e] = p * (dp[e] - dr[r]);  // dS
@@ -1039,16 +1046,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         dr[r] += __shfl_xor_sync(kFull, dr[r], 1);
         dr[r] += __shfl_xor_sync(kFull, dr[r], 2);
         const int qi = qi_a + 8 * r;
-        if (tq == 0 && qi < S)
-          delta[(static_cast<size_t>(b) * H + h) * S + qi] = dr[r];
+        if (tq == 0 && qi < Sq)
+          delta[(static_cast<size_t>(b) * H + h) * Sq + qi] = dr[r];
       }
     }
     __syncwarp();
     if (lane == 0) tcore::mbar_arrive(&empty[s]);
   }
   const size_t ld = static_cast<size_t>(H) * hd;
-  store_rows<kAd>(dq + (static_cast<size_t>(b) * S * H + h) * hd, ld,
-                  dq_acc, scale, qi_a, S, hd, tq);
+  store_rows<kAd>(dq + (static_cast<size_t>(b) * Sq * H + h) * hd, ld,
+                  dq_acc, scale, qi_a, Sq, hd, tq);
 }
 
 // A (B, S, heads, w) bf16 tensor's map for the TMA: boxes of 64 columns
@@ -1075,10 +1082,10 @@ bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
 // blocks of the dK/dV grid: every `keys`-key tile of every (b, KV head)
 // cut into max(1, ceil(steps / chunk)) shares
 // (kernels/flash_attention.py::plan)
-int dkv_blocks(int B, int S, int H, int KV, int causal, int chunk,
+int dkv_blocks(int B, int Sq, int Sk, int H, int KV, int causal, int chunk,
                int keys) {
-  const int group = H / KV, n_qt = (S + kStep - 1) / kStep;
-  const int n_kt = (S + keys - 1) / keys;
+  const int group = H / KV, n_qt = (Sq + kStep - 1) / kStep;
+  const int n_kt = (Sk + keys - 1) / keys;
   int blocks = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int steps = group * (n_qt - (causal ? kt * (keys / kStep) : 0));
@@ -1090,8 +1097,8 @@ int dkv_blocks(int B, int S, int H, int KV, int causal, int chunk,
 template <int HDP, int HVP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
-           float* ws, int* counters, int B, int S, int H, int KV, int hd,
-           int hv, int s_valid, int causal, float scale, int chunk,
+           float* ws, int* counters, int B, int Sq, int Sk, int H, int KV,
+           int hd, int hv, int s_valid, int causal, float scale, int chunk,
            int device, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HDP, HVP>();
   constexpr int kKeys = dkv_keys<HDP, HVP>();
@@ -1112,40 +1119,41 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     ready[device] = true;
   }
   const float scale_log2 = scale * kLog2e;
-  const int n_counters = B * KV * ((S + kKeys - 1) / kKeys);
+  const int n_counters = B * KV * ((Sk + kKeys - 1) / kKeys);
   CUtensorMap mq{}, mdo{}, mk{}, mv{};
   // dQ: the block's 128 queries held, 64-key stages
-  if (!encode(&mq, q, B, S, H, hd, kBlockRows) ||
-      !encode(&mdo, dout, B, S, H, hv, kBlockRows) ||
-      !encode(&mk, k, B, S, KV, hd, kStep) ||
-      !encode(&mv, v, B, S, KV, hv, kStep))
+  if (!encode(&mq, q, B, Sq, H, hd, kBlockRows) ||
+      !encode(&mdo, dout, B, Sq, H, hv, kBlockRows) ||
+      !encode(&mk, k, B, Sk, KV, hd, kStep) ||
+      !encode(&mv, v, B, Sk, KV, hv, kStep))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int q_tiles = (S + kBlockRows - 1) / kBlockRows;
+  const int q_tiles = (Sq + kBlockRows - 1) / kBlockRows;
   dqk<<<B * H * q_tiles, kThreads, smem, stream>>>(
       mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), counters,
-      n_counters, B, S, H, KV, hd, s_valid, causal, scale, scale_log2);
+      n_counters, B, Sq, Sk, H, KV, hd, s_valid, causal, scale,
+      scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // dK/dV: the block's kKeys keys held, 64-query stages
-  if (!encode(&mq, q, B, S, H, hd, kStep) ||
-      !encode(&mdo, dout, B, S, H, hv, kStep) ||
-      !encode(&mk, k, B, S, KV, hd, kKeys) ||
-      !encode(&mv, v, B, S, KV, hv, kKeys))
+  if (!encode(&mq, q, B, Sq, H, hd, kStep) ||
+      !encode(&mdo, dout, B, Sq, H, hv, kStep) ||
+      !encode(&mk, k, B, Sk, KV, hd, kKeys) ||
+      !encode(&mv, v, B, Sk, KV, hv, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  dkv<<<dkv_blocks(B, S, H, KV, causal, chunk, kKeys), kThreads, smem,
+  dkv<<<dkv_blocks(B, Sq, Sk, H, KV, causal, chunk, kKeys), kThreads, smem,
         stream>>>(mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv), ws, counters, B, S, H, KV, hd, hv,
-                  s_valid, causal, scale, scale_log2, chunk);
+                  static_cast<bf16*>(dv), ws, counters, B, Sq, Sk, H, KV, hd,
+                  hv, s_valid, causal, scale, scale_log2, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 }  // namespace
 
-// The tensor-core entry point: q, dq: (B, S, H, hd); dout: (B, S, H, hv);
-// k, dk: (B, S, KV, hd); v, dv: (B, S, KV, hv); contiguous bf16 with
-// 16-byte aligned bases; lse: (B, H, S) fp32 from
-// flash_attention_mma_bf16_lse; delta: (B, H, S) fp32 scratch; H a
+// The tensor-core entry point: q, dq: (B, Sq, H, hd); dout: (B, Sq, H,
+// hv); k, dk: (B, Sk, KV, hd); v, dv: (B, Sk, KV, hv); contiguous bf16
+// with 16-byte aligned bases; Sk = Sq when causal; lse: (B, H, Sq) fp32
+// from flash_attention_mma_bf16_lse; delta: (B, H, Sq) fp32 scratch; H a
 // multiple of KV; hd and hv multiples of 16, hd up to 192 and hv up to
 // 128, compiled at (64, 64) or (128, 128) for hd = hv and (192, 128) for
 // any hv != hd.
@@ -1153,14 +1161,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // (kernels/flash_attention.py::plan); ws: fp32 scratch of 2 * 128 * 32 *
 // atoms floats per dK/dV block (atoms = 2 * hd_p / 64 at (64, 64) and
 // (128, 128), 3 at (192, 128)), read only where a key tile is split;
-// counters: B * KV * ceil(S / keys) ints (keys = 128, or 64 at (192,
+// counters: B * KV * ceil(Sk / keys) ints (keys = 128, or 64 at (192,
 // 128)), zeroed by the dQ kernel.  Launches the dQ then the dK/dV kernel
 // on `stream` of `device`; returns the first failing launch's cudaError_t
 // (0 when both launched).
 extern "C" int flash_attention_bwd_mma_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, void* ws,
-    void* counters, int B, int S, int H, int KV, int hd, int hv,
+    void* counters, int B, int Sq, int Sk, int H, int KV, int hd, int hv,
     int s_valid, int causal, float scale, int chunk, int device,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -1174,25 +1182,25 @@ extern "C" int flash_attention_bwd_mma_bf16(
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   if (hd != hv)  // a value width of its own: the (192, 128) pair
-    return tc::launch<192, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
-                                H, KV, hd, hv, s_valid, causal, scale, chunk,
-                                device, st);
+    return tc::launch<192, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B,
+                                Sq, Sk, H, KV, hd, hv, s_valid, causal,
+                                scale, chunk, device, st);
   if (hd <= 64)
-    return tc::launch<64, 64>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
-                              H, KV, hd, hv, s_valid, causal, scale, chunk,
-                              device, st);
-  return tc::launch<128, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, S,
-                              H, KV, hd, hv, s_valid, causal, scale, chunk,
-                              device, st);
+    return tc::launch<64, 64>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, Sq,
+                              Sk, H, KV, hd, hv, s_valid, causal, scale,
+                              chunk, device, st);
+  return tc::launch<128, 128>(q, k, v, dout, l, d, dq, dk, dv, w, c, B, Sq,
+                              Sk, H, KV, hd, hv, s_valid, causal, scale,
+                              chunk, device, st);
 }
 
 // The CUDA-core entry point: the same arguments, all fp32 (bf16 = 0) or all
 // bf16 (bf16 = 1), 1 <= hd, hv <= 256, lse from flash_attention_fwd_lse.
 extern "C" int flash_attention_bwd_simt(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S,
-    int H, int KV, int hd, int hv, int s_valid, int causal, float scale,
-    int bf16, int device, void* stream) {
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+    int Sq, int Sk, int H, int KV, int hd, int hv, int s_valid, int causal,
+    float scale, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1200,8 +1208,9 @@ extern "C" int flash_attention_bwd_simt(
   const float* l = static_cast<const float*>(lse);
   if (bf16)
     return simt::launch_typed<__nv_bfloat16>(q, k, v, dout, l, d, dq, dk, dv,
-                                             B, S, H, KV, hd, hv, s_valid,
-                                             causal, scale, st);
-  return simt::launch_typed<float>(q, k, v, dout, l, d, dq, dk, dv, B, S, H,
-                                   KV, hd, hv, s_valid, causal, scale, st);
+                                             B, Sq, Sk, H, KV, hd, hv,
+                                             s_valid, causal, scale, st);
+  return simt::launch_typed<float>(q, k, v, dout, l, d, dq, dk, dv, B, Sq,
+                                   Sk, H, KV, hd, hv, s_valid, causal, scale,
+                                   st);
 }

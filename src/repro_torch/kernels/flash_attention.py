@@ -7,12 +7,15 @@ Counterpart of ``repro.kernels.flash_attention`` (a Pallas kernel, forward
 only; the reference differentiates its pure-jnp ``chunked_attention``);
 the kernels are in ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``.  They take the reference's
-``ops.flash_attention`` layout directly, q (B, S, H, hd), k (B, S, KV, hd)
-and v (B, S, KV, hv), with a value width hv that may differ from the q/k
-width hd (MLA's expanded form: hd 192, hv 128, as the reference's
-``chunked_attention`` takes it), and read (and the backward writes) KV
-head ``h // (H // KV)`` in place, so neither the reference's repeated-KV
-copy nor its head-major transposes exist here.
+``chunked_attention`` layout directly, q (B, Sq, H, hd), k (B, Sk, KV, hd)
+and v (B, Sk, KV, hv), with a value width hv that may differ from the q/k
+width hd (MLA's expanded form: hd 192, hv 128) and a key length Sk that
+may differ from the query length Sq (an encoder-decoder's cross
+attention, not causal: whisper's text tokens over its audio frames; a
+causal call needs Sk = Sq), and read (and the backward writes) KV head
+``h // (H // KV)`` in place at its own length, so neither the
+reference's repeated-KV copy, its head-major transposes nor any padding
+of k and v to Sq exist here.
 
 Two routes each way, picked by dtype and widths (``uses_tensor_cores``):
 bf16 with hd and hv multiples of 16, hd up to 192 and hv up to 128, goes
@@ -78,17 +81,21 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             s_valid: int | None) -> int:
-    """Raise unless the kernels take q, k, v; returns s_valid, clipped."""
+             s_valid: int | None, causal: bool) -> int:
+    """Raise unless the kernels take q, k, v; returns s_valid, clipped
+    to the key length."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be one of {_DTYPES}, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check(name, t, 4, q.dtype)
-    b, s, h, hd = q.shape
-    kv, hv = k.shape[2], v.shape[-1]
-    if k.shape != (b, s, kv, hd) or v.shape != (b, s, kv, hv):
+    b, sq, h, hd = q.shape
+    sk, kv, hv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (b, sk, kv, hd) or v.shape != (b, sk, kv, hv):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if causal and sk != sq:
+        raise ValueError(f"a causal call needs as many keys as queries: "
+                         f"q {sq}, k {sk}")
     if kv == 0 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
     if not 1 <= hd <= MAX_HEAD_DIM:
@@ -97,10 +104,10 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"value head dim {hv} outside 1..{MAX_HEAD_DIM}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    s_valid = s if s_valid is None else int(s_valid)
+    s_valid = sk if s_valid is None else int(s_valid)
     if s_valid < 1:
         raise ValueError(f"s_valid must be >= 1, got {s_valid}")
-    return min(s_valid, s)
+    return min(s_valid, sk)
 
 
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
@@ -126,9 +133,9 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if lse is not None:
         name, ptrs = name + "_lse", ptrs + (lse.data_ptr(),)
-    _build.launch(name, *ptrs, b, s, h, k.shape[2], hd, hv, s_valid,
-                  int(causal), 1.0 / math.sqrt(hd), *extra, q.device.index,
-                  stream)
+    _build.launch(name, *ptrs, b, s, k.shape[1], h, k.shape[2], hd, hv,
+                  s_valid, int(causal), 1.0 / math.sqrt(hd), *extra,
+                  q.device.index, stream)
     return out
 
 
@@ -140,13 +147,14 @@ def _lse_out(q: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, s_valid: int | None = None,
                     with_lse: bool = False):
-    """q: (B, S, H, hd); k: (B, S, KV, hd); v: (B, S, KV, hv) CUDA, all
-    fp32 or all bf16, H a multiple of KV -> (B, S, H, hv) in q's dtype.
-    Keys at or after ``s_valid`` (default S) carry no mass.  ``with_lse``
-    also returns the (B, H, S) fp32 natural-log sum of exp(q.k / sqrt(hd))
-    over each row's keys, the backward's residual: ``(out, lse)``."""
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, hv) CUDA,
+    all fp32 or all bf16, H a multiple of KV, Sk = Sq when ``causal`` ->
+    (B, Sq, H, hv) in q's dtype.  Keys at or after ``s_valid`` (default
+    Sk) carry no mass.  ``with_lse`` also returns the (B, H, Sq) fp32
+    natural-log sum of exp(q.k / sqrt(hd)) over each row's keys, the
+    backward's residual: ``(out, lse)``."""
     global launches
-    s_valid = _checked(q, k, v, s_valid)
+    s_valid = _checked(q, k, v, s_valid, causal)
     if not uses_tensor_cores(q, k, v):
         return flash_attention_simt(q, k, v, causal=causal, s_valid=s_valid,
                                     with_lse=with_lse)
@@ -165,7 +173,7 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The CUDA-core kernel alone, for any input ``flash_attention`` takes
     (fp32 or bf16, hd and hv up to 256)."""
     global simt_launches
-    s_valid = _checked(q, k, v, s_valid)
+    s_valid = _checked(q, k, v, s_valid, causal)
     lse = _lse_out(q) if with_lse else None
     if q.numel() == 0:
         out = q.new_empty((*q.shape[:3], v.shape[-1]))
@@ -245,16 +253,24 @@ class Plan:
 
 
 def plan(b: int, s: int, h: int, kv: int, hd: int, causal: bool, *,
-         hv: int | None = None, sms: int = H100_SMS) -> Plan:
-    """The dK/dV grid of ``flash_attention_bwd``'s tensor-core route for a
-    q/k width hd and a value width hv (default hd): the step limit
-    ``chunk`` with the least waves x longest block (in modelled steps, the
-    fold's copies counted; ties to fewer blocks)."""
+         hv: int | None = None, sk: int | None = None,
+         sms: int = H100_SMS) -> Plan:
+    """The dK/dV grid of ``flash_attention_bwd``'s tensor-core route for
+    ``s`` queries over ``sk`` keys (default s; a causal call has sk = s),
+    a q/k width hd and a value width hv (default hd): key tiles over the
+    sk keys, each with its (query head, query step) steps over the s
+    queries, and the step limit ``chunk`` with the least waves x longest
+    block (in modelled steps, the fold's copies counted; ties to fewer
+    blocks)."""
+    sk = s if sk is None else sk
+    if causal and sk != s:
+        raise ValueError(f"a causal call needs as many keys as queries: "
+                         f"q {s}, k {sk}")
     group = h // kv
     hd_p, hv_p = _hd_p(hd, hv), _hv_p(hd, hv)
     tile = key_tile(hd, hv)
     n_qt = -(-s // QUERY_STEP)
-    n_kt = -(-s // tile)
+    n_kt = -(-sk // tile)
     steps = tuple(group * (n_qt - (kt * tile // QUERY_STEP
                                    if causal else 0)) for kt in range(n_kt))
     # a step's products, in units of 64 x 64 x 1: each consumer's S^T and
@@ -303,8 +319,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
     output gradient ``dout``, given the forward's ``lse`` (from
-    ``with_lse=True``): q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV,
-    hv) and dout (B, S, H, hv) in one dtype, lse (B, H, S) fp32.  The
+    ``with_lse=True``): q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV,
+    hv) and dout (B, Sq, H, hv) in one dtype (Sk = Sq when causal), lse
+    (B, H, Sq) fp32; dq comes out like q, dk and dv like k and v.  The
     probabilities are recomputed from lse, and D = rowsum(dout o out) as
     rowsum(P o dP) from them in fp32, so the forward's output is not read
     (its rounding to q's dtype would enter every dS).  Every gradient
@@ -312,10 +329,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 at the tensor-core widths takes the tensor-core kernels (grid
     from ``plan``), anything else the CUDA-core ones."""
     global bwd_launches, bwd_simt_launches
-    s_valid = _checked(q, k, v, s_valid)
+    s_valid = _checked(q, k, v, s_valid, causal)
     _build.check("dout", dout, 4, q.dtype)
     b, s, h, hd = q.shape
-    hv = v.shape[-1]
+    sk, hv = k.shape[1], v.shape[-1]
     if dout.shape != (b, s, h, hv):
         raise ValueError(f"dout {tuple(dout.shape)} != {(b, s, h, hv)}")
     _build.check("lse", lse, 3)
@@ -332,9 +349,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr()]
-    ints = [b, s, h, kv, hd, hv, s_valid, int(causal), 1.0 / math.sqrt(hd)]
+    ints = [b, s, sk, h, kv, hd, hv, s_valid, int(causal),
+            1.0 / math.sqrt(hd)]
     if tc:
-        p = plan(b, s, h, kv, hd, causal, hv=hv, sms=_sms(q.device.index))
+        p = plan(b, s, h, kv, hd, causal, hv=hv, sk=sk,
+                 sms=_sms(q.device.index))
         ws = torch.empty(p.workspace_floats, dtype=torch.float32,
                          device=q.device)
         counters = torch.empty(p.counters, dtype=torch.int32,

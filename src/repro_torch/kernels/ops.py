@@ -155,8 +155,11 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
                     ) -> Tensor:
-    """q: (B, S, H, hd); k: (B, S, KV, hd); v: (B, S, KV, hv) GQA -> (B,
-    S, H, hv); the value width hv may differ from hd (MLA).
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, hv) GQA -> (B,
+    Sq, H, hv); the value width hv may differ from hd (MLA), the key length
+    Sk from Sq where the call is not causal (a cross attention; a causal
+    call with Sk != Sq raises ``ValueError`` on either device).  k and v
+    go to the kernels at their own length, never padded to Sq.
 
     fp32 or bf16 in, computed in fp32 (scaled by 1/sqrt(hd) in fp32),
     written in q's dtype.  The reference's ``q_tile`` and ``kv_tile`` are
@@ -171,6 +174,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
     ``torch.autograd.Function``); without a gradient the forward kernel
     runs alone, as serving calls it.  CPU tensors take the plain version,
     which autograd differentiates as it is."""
+    if causal and k.shape[1] != q.shape[1]:
+        raise ValueError(f"a causal call needs as many keys as queries: "
+                         f"q {q.shape[1]}, k {k.shape[1]}")
     if _on_cuda(q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and any(t.requires_grad

@@ -1,7 +1,7 @@
 """Family dispatch: one API over the ported backbones (``repro.models.api``).
 
-    init_params(cfg, gen, device)       -> params (with head table)
-    init_module(cfg, gen, device)       -> the same as an ``nn.Module``
+    init_params(cfg, gen, device, max_len) -> params (with head table)
+    init_module(cfg, gen, device, max_len) -> the same as an ``nn.Module``
     backbone_hidden(params, batch, cfg) -> (h (T, d_h), labels (T,), aux)
     head_table(params, cfg)             -> (n, d_h) class-embedding table
 
@@ -11,8 +11,10 @@ and the decoder LMs, ``dense`` (llama3-8b, starcoder2-3b, ...), ``moe``
 (dbrx-132b; deepseek-v3-671b with MLA and multi-token prediction), ``ssm``
 (falcon-mamba-7b) and ``hybrid`` (jamba-v0.1-52b): params are the
 reference's nested dict of stacked tensors (``models/transformer.py``),
-and for training a ``StackedLM`` module over the same tensors.  encdec
-raises ``NotImplementedError`` until its slice lands (ROADMAP.md A16).
+and for training a ``StackedLM`` module over the same tensors; and the
+encoder-decoder, ``encdec`` (whisper-large-v3, ``models/encdec.py``):
+the reference's tree with its two block stacks and two learned position
+tables of ``max_len`` rows, an ``EncDec`` module for training.
 
 ``backbone_hidden`` and ``head_table`` carry gradients: the train step
 differentiates its loss through both (the dense family's attention
@@ -25,10 +27,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lstm_lm, recsys, transformer
+from repro_torch.models import encdec, lstm_lm, recsys, transformer
 from repro_torch.utils.misc import resolve_device
 
-PORTED_FAMILIES = ("recsys", "lstm") + transformer.LM_FAMILIES
+PORTED_FAMILIES = ("recsys", "lstm") + transformer.LM_FAMILIES + (
+    "encdec",)
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -39,42 +42,55 @@ def _require_ported(cfg: ArchConfig) -> None:
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None,
+                max_len: int = encdec.DEFAULT_MAX_LEN):
     """Random weights from ``gen`` on ``device`` — the card unless
-    ``device="cpu"``; no device and no CUDA raises."""
+    ``device="cpu"``; no device and no CUDA raises.  ``max_len`` sizes an
+    encoder-decoder's learned position tables (the other families have
+    none)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.init_lm(gen, cfg, dev)
+    if cfg.family == "encdec":
+        return encdec.init_encdec(gen, cfg, dev, max_len=max_len)
     if cfg.family == "lstm":
         return lstm_lm.init_lstm_lm(gen, cfg, dev)
     return recsys.init_recsys(gen, cfg, dev)
 
 
 def init_module(cfg: ArchConfig, gen: torch.Generator,
-                device: str | torch.device | None = None) -> torch.nn.Module:
+                device: str | torch.device | None = None,
+                max_len: int = encdec.DEFAULT_MAX_LEN) -> torch.nn.Module:
     """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
-    an LM's tree wrapped in a ``StackedLM`` (no copy)."""
-    params = init_params(cfg, gen, device)
+    an LM's tree wrapped in a ``StackedLM``, an encoder-decoder's in an
+    ``EncDec`` (no copy)."""
+    params = init_params(cfg, gen, device, max_len)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.StackedLM(cfg, resolve_device(device),
                                      tree=params)
+    if cfg.family == "encdec":
+        return encdec.EncDec(cfg, resolve_device(device), tree=params)
     return params
 
 
 #: family -> the module of its params
 PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM,
                  **dict.fromkeys(transformer.LM_FAMILIES,
-                                 transformer.StackedLM)}
+                                 transformer.StackedLM),
+                 "encdec": encdec.EncDec}
 
 
-def abstract_params(cfg: ArchConfig):
+def abstract_params(cfg: ArchConfig,
+                    max_len: int = encdec.DEFAULT_MAX_LEN):
     """The parameters on the ``meta`` device, as the family's module:
-    their names, shapes and dtypes, nothing allocated or drawn."""
+    their names, shapes and dtypes, nothing allocated or drawn (an
+    encoder-decoder's position tables of ``max_len`` rows)."""
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
-            f"abstract params of family '{cfg.family}' are not ported yet "
-            "(ROADMAP.md A16)")
+            f"abstract params of family '{cfg.family}' are not ported")
+    if cfg.family == "encdec":
+        return encdec.EncDec(cfg, torch.device("meta"), max_len=max_len)
     return PARAM_MODULES[cfg.family](cfg, torch.device("meta"))
 
 
@@ -82,8 +98,9 @@ def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     """The class-embedding table the sampler/loss/index operate on: the
     parameter itself, so a loss through it reaches its gradient."""
     _require_ported(cfg)
-    if cfg.family in transformer.LM_FAMILIES:
-        params = transformer._top(params)
+    if cfg.family in transformer.LM_FAMILIES + ("encdec",):
+        params = (encdec._top(params) if cfg.family == "encdec"
+                  else transformer._top(params))
         if cfg.tie_embeddings or "head" not in params:
             return params["embed"]["table"]
         return params["head"]["w"]
@@ -105,7 +122,8 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
     """Forward to the last hidden layer; flatten (example, feature).
 
     batch keys: recsys — history (B, H), user_feats (B, F), labels (B,);
-    the LMs and lstm — tokens (B, S), labels (B, S).  aux is the MoE
+    the LMs and lstm — tokens (B, S), labels (B, S); encdec — frames (B,
+    Sf, d), tokens (B, S), labels (B, S), Sf apart from S.  aux is the MoE
     layers' load-balance loss (0 for the other families).  With
     ``cfg.mtp`` the multi-token-prediction rows follow the B * S rows in
     the reference's order: ``mtp_hidden``'s h[:, :-1] (predicting token
@@ -121,6 +139,11 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
             hf = torch.cat([hf, h_mtp[:, :-1].reshape(-1, d)], dim=0)
             labels = torch.cat([labels, batch["labels"][:, 2:].reshape(-1)])
         return hf, labels, aux
+    if cfg.family == "encdec":
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+        h = encdec.decode_train(params, batch["tokens"], enc_out, cfg)
+        return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
+                torch.zeros((), dtype=torch.float32, device=h.device))
     h, aux = recsys.hidden_states(params, batch["history"],
                                   batch["user_feats"])
     return h, batch["labels"].reshape(-1), aux

@@ -1,0 +1,289 @@
+"""Encoder-decoder backbone of the port, whisper-style
+(``repro.models.encdec``).
+
+The audio frontend (mel + conv downsampling) is a stub, as in the
+reference: precomputed frame embeddings (B, S, d_model) go to the encoder
+directly.  The rest is the reference's wiring: learned positions (no
+RoPE), a pre-norm encoder of non-causal self-attention and GELU MLPs, and
+a decoder whose blocks run causal self-attention, cross attention over the
+encoder's states and the MLP.
+
+Params are the reference's tree, each block stack on a leading layer axis:
+``{"embed": {"table"}, "head": {"w"}, "enc_pos": {"table"}, "dec_pos":
+{"table"}, "enc_blocks": {"norm1", "attn", "norm_mlp", "mlp"},
+"enc_norm", "dec_blocks": {... , "norm_x", "xattn"}, "dec_norm"}``; the
+decoder's cache is ``{"self_k", "self_v", "cross_k", "cross_v"}``, each
+(L, B, S, KV, hd).  The reference scans a stack with ``lax.scan``; here a
+Python loop runs its layers, each a view of the stacked tensors.  Training
+holds the tree as an ``EncDec`` module whose layers are parameters of their
+own, views of the stacked tensors (as ``transformer.StackedLM`` holds an
+LM); every function here takes either form.  With ``cfg.remat`` set and
+grad enabled each layer runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference wraps each layer's body in
+``jax.checkpoint``.
+
+Every full-sequence attention goes through ``kernels.ops.flash_attention``
+(the CUDA kernels for CUDA tensors, under autograd with their backward;
+the plain version for CPU tensors): the encoder's self-attention (not
+causal), the decoder's self-attention (causal) and its cross attention
+(not causal, the frames' length Sk apart from the tokens' Sq).  The
+decoder's one-token step attends with plain tensor ops, as the reference
+does: its self cache written in place, the cross K/V precomputed once from
+the encoder's output (``init_dec_cache``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.utils.checkpoint
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import (
+    _Tree,
+    _layer,
+    _map,
+    _positions,
+    _stacked,
+    padded_vocab,
+)
+from repro_torch.serve.retrieval import require_unsharded
+from repro_torch.utils.misc import resolve_device
+
+Tensor = torch.Tensor
+Params = dict
+
+#: the reference's position-table length when no ``max_len`` is given
+DEFAULT_MAX_LEN = 4096
+#: the two block stacks, in the tree's order
+STACKS = ("enc_blocks", "dec_blocks")
+
+
+def _init_block(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
+                tp: int, cross: bool) -> Params:
+    p = {"norm1": L.init_norm(cfg, device),
+         "attn": L.init_attention(gen, cfg, device, tp),
+         "norm_mlp": L.init_norm(cfg, device),
+         "mlp": L.init_mlp(gen, cfg, device)}
+    if cross:
+        p["norm_x"] = L.init_norm(cfg, device)
+        p["xattn"] = L.init_attention(gen, cfg, device, tp)
+    return p
+
+
+def init_encdec(gen: torch.Generator | None, cfg: ArchConfig,
+                device: str | torch.device | None = None, tp: int = 1,
+                max_len: int = 0) -> Params:
+    """Random weights from ``gen`` on ``device`` (the card unless
+    ``device="cpu"``), both position tables of ``max_len`` rows (default
+    DEFAULT_MAX_LEN).  Vocab rows at and after ``vocab_size`` are zero, as
+    in the reference.  On the ``meta`` device nothing is drawn."""
+    dev = resolve_device(device)
+    max_len = max_len or DEFAULT_MAX_LEN
+    nvp = padded_vocab(cfg, tp)
+    pd = L._pdtype(cfg)
+    emb = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
+    emb[cfg.vocab_size:] = 0
+    head = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
+    head[cfg.vocab_size:] = 0
+    return {
+        "embed": {"table": emb},
+        "head": {"w": head},
+        "enc_pos": L.init_pos_embed(gen, cfg, max_len, dev),
+        "dec_pos": L.init_pos_embed(gen, cfg, max_len, dev),
+        "enc_blocks": _stacked(cfg.n_enc_layers, lambda: _init_block(
+            gen, cfg, dev, tp, cross=False)),
+        "enc_norm": L.init_norm(cfg, dev),
+        "dec_blocks": _stacked(cfg.n_dec_layers, lambda: _init_block(
+            gen, cfg, dev, tp, cross=True)),
+        "dec_norm": L.init_norm(cfg, dev),
+    }
+
+
+class EncDec(nn.Module):
+    """An encoder-decoder's parameters as a module, for training.
+
+    ``tree`` is ``init_encdec``'s (or ``convert.params_from_jax``'s)
+    stacked tree; each encoder and decoder layer becomes a submodule whose
+    parameters are views of the stacked tensors, so nothing is copied.
+    Without a tree the parameters are allocated (``torch.empty``, position
+    tables of ``max_len`` rows; on the ``meta`` device nothing at all).
+    Parameter names follow the tree: ``embed.table``, ``enc_pos.table``,
+    ``enc_blocks.<i>.attn.wq``, ``dec_blocks.<i>.xattn.wk``,
+    ``dec_norm.scale``...  ``convert`` stacks them back into the
+    reference's layout."""
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device,
+                 tree: Params | None = None, tp: int = 1,
+                 max_len: int = 0):
+        super().__init__()
+        if tree is None:
+            dev = torch.device(device)
+            tree = _map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=dev),
+                        init_encdec(None, cfg, "meta", tp, max_len))
+        counts = _counts(cfg)
+        for key, val in tree.items():
+            self.add_module(key, nn.ModuleList(
+                _Tree(_layer(val, i)) for i in range(counts[key]))
+                if key in counts else _Tree(val))
+
+    def tree(self) -> Params:
+        """The parameters as the reference's tree, each block stack a list
+        of per-layer dicts."""
+        return {key: ([layer.tree() for layer in mod]
+                      if key in STACKS else mod.tree())
+                for key, mod in self.named_children()}
+
+
+def _counts(cfg: ArchConfig) -> dict[str, int]:
+    return dict(zip(STACKS, (cfg.n_enc_layers, cfg.n_dec_layers)))
+
+
+def _top(params) -> Params:
+    return params.tree() if isinstance(params, EncDec) else params
+
+
+def _blocks(top: Params, key: str, cfg: ArchConfig) -> list[Params]:
+    """Per layer, its param dict: an ``EncDec``'s own (``top`` from its
+    ``tree()``), or views of a stacked tree."""
+    stack = top[key]
+    if isinstance(stack, list):
+        return stack
+    return [_layer(stack, i) for i in range(_counts(cfg)[key])]
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed under ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _mlp(blk: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    return x + L.apply_mlp(blk["mlp"], L.apply_norm(blk["norm_mlp"], x, cfg),
+                           cfg)
+
+
+def _enc_block(blk: Params, x: Tensor, positions: Tensor, cfg: ArchConfig
+               ) -> Tensor:
+    h = L.apply_norm(blk["norm1"], x, cfg)
+    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=False)
+    return _mlp(blk, x, cfg)
+
+
+def encode(params, frames: Tensor, cfg: ArchConfig, ctx=None) -> Tensor:
+    """frames: (B, S, d) precomputed embeddings (the frontend stub) ->
+    the encoder's states (B, S, d) in the compute dtype; differentiable."""
+    require_unsharded(ctx)
+    top = _top(params)
+    b, s, _ = frames.shape
+    x = frames.to(L._dtype(cfg))
+    x = x + top["enc_pos"]["table"][:s][None].to(x.dtype)
+    positions = _positions(b, s, frames.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk in _blocks(top, "enc_blocks", cfg):
+        x = _run(_enc_block, remat, blk, x, positions, cfg)
+    return L.apply_norm(top["enc_norm"], x, cfg)
+
+
+def cross_attention(p: Params, x: Tensor, enc_out: Tensor, cfg: ArchConfig
+                    ) -> Tensor:
+    """The decoder's cross attention, full sequence: q from x (B, Sq, d),
+    k and v from the encoder's states (B, Sk, d) (``layers.cross_kv``),
+    one ``ops.flash_attention`` call, not causal, at the two lengths.
+    Only q is projected from x (the reference's ``_qkv`` also projects k
+    and v there and drops them)."""
+    dt = L._dtype(cfg)
+    b, s = x.shape[0], x.shape[1]
+    k, v = L.cross_kv(p, enc_out, cfg)
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    q = q.reshape(b, s, -1, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm_only(q, p["q_norm"]["scale"])
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"].to(dt)
+
+
+def _dec_block(blk: Params, x: Tensor, enc_out: Tensor, positions: Tensor,
+               cfg: ArchConfig) -> Tensor:
+    h = L.apply_norm(blk["norm1"], x, cfg)
+    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=True)
+    hx = L.apply_norm(blk["norm_x"], x, cfg)
+    x = x + cross_attention(blk["xattn"], hx, enc_out, cfg)
+    return _mlp(blk, x, cfg)
+
+
+def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
+                 ctx=None) -> Tensor:
+    """The teacher-forced decoder: tokens (B, S) over the encoder's states
+    (B, Sf, d) -> hidden states (B, S, d); differentiable."""
+    require_unsharded(ctx)
+    top = _top(params)
+    b, s = tokens.shape
+    x = L.apply_embed(top["embed"], tokens, cfg)
+    x = x + top["dec_pos"]["table"][:s][None].to(x.dtype)
+    positions = _positions(b, s, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk in _blocks(top, "dec_blocks", cfg):
+        x = _run(_dec_block, remat, blk, x, enc_out, positions, cfg)
+    return L.apply_norm(top["dec_norm"], x, cfg)
+
+
+@torch.no_grad()
+def init_dec_cache(params, cfg: ArchConfig, batch: int, max_len: int,
+                   enc_out: Tensor, ctx=None) -> dict[str, Tensor]:
+    """The decoder's cache on ``enc_out``'s device: a zero self-attention
+    K/V of ``max_len`` positions and the cross attention's K/V of every
+    layer from the encoder's states (B, Sf, d), each (L, B, S, KV, hd) in
+    the compute dtype; each layer's cross K/V is written into its slot of
+    the stack as it is projected, so no second copy is held."""
+    require_unsharded(ctx)
+    dt = L._dtype(cfg)
+    _, nkv = L.padded_heads(cfg)
+    hd = cfg.resolved_head_dim
+    blocks = _blocks(_top(params), "dec_blocks", cfg)
+    n, dev = len(blocks), enc_out.device
+    cache = {name: torch.zeros((n, batch, max_len, nkv, hd), dtype=dt,
+                               device=dev) for name in ("self_k", "self_v")}
+    cross = (n, *enc_out.shape[:2], nkv, hd)
+    cache["cross_k"] = torch.empty(cross, dtype=dt, device=dev)
+    cache["cross_v"] = torch.empty(cross, dtype=dt, device=dev)
+    for i, blk in enumerate(blocks):
+        k, v = L.cross_kv(blk["xattn"], enc_out, cfg)
+        cache["cross_k"][i] = k
+        cache["cross_v"][i] = v
+    return cache
+
+
+@torch.no_grad()
+def decode_step(params, token: Tensor, cache: dict[str, Tensor],
+                pos: Tensor, cfg: ArchConfig, ctx=None
+                ) -> tuple[Tensor, dict[str, Tensor]]:
+    """One decoder token.  token: (B, 1) ids; pos: (B,) positions.
+    Returns (h (B, 1, d), cache): each layer's self K/V written at ``pos``
+    IN PLACE (the same dict returned; the reference returns a new one),
+    the cross K/V read whole, in fp32, by ``layers.attn_decode`` with
+    ``update_cache=False``."""
+    require_unsharded(ctx)
+    top = _top(params)
+    b = token.shape[0]
+    x = L.apply_embed(top["embed"], token, cfg)
+    x = x + top["dec_pos"]["table"][pos][:, None].to(x.dtype)
+    every = torch.full((b,), cache["cross_k"].shape[2] - 1,
+                       dtype=torch.long, device=token.device)
+    for i, blk in enumerate(_blocks(top, "dec_blocks", cfg)):
+        h = L.apply_norm(blk["norm1"], x, cfg)
+        y, _, _ = L.attn_decode(blk["attn"], h, cache["self_k"][i],
+                                cache["self_v"][i], pos, cfg, rope_on=False)
+        x = x + y
+        hx = L.apply_norm(blk["norm_x"], x, cfg)
+        y2, _, _ = L.attn_decode(blk["xattn"], hx, cache["cross_k"][i],
+                                 cache["cross_v"][i], every, cfg,
+                                 update_cache=False, rope_on=False)
+        x = _mlp(blk, x + y2, cfg)
+    return L.apply_norm(top["dec_norm"], x, cfg), cache

@@ -14,8 +14,9 @@ backward kernel under autograd), its plain version for CPU tensors; both
 are differentiable, so ``attn_forward`` trains.  ``chunked_attention``
 keeps the reference's name and signature for that plain version
 (``ref.flash_attention_ref``, which also takes hv != hd and a query
-offset).  MLA, cross attention and learned
-positions arrive with their families (ROADMAP.md A16).
+offset).  Learned positions (``init_pos_embed``) and the cross
+attention's K/V over an encoder's states (``cross_kv``) serve the
+encoder-decoder family (``models/encdec.py``); MLA is ``models/mla.py``.
 """
 from __future__ import annotations
 
@@ -105,6 +106,14 @@ def apply_embed(p: Params, ids: Tensor, cfg: ArchConfig) -> Tensor:
     """Rows of the table, cast to the compute dtype (gathered first, then
     cast: the same values as the reference's cast-then-gather)."""
     return p["table"][ids].to(_dtype(cfg))
+
+
+def init_pos_embed(gen: torch.Generator, cfg: ArchConfig, max_pos: int,
+                   device: torch.device) -> Params:
+    """A learned position table of ``max_pos`` rows (whisper's), drawn as
+    the embedding is (std 0.02)."""
+    return {"table": dense_init(gen, (max_pos, cfg.d_model), _pdtype(cfg),
+                                device, scale=0.02)}
 
 
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
@@ -211,6 +220,19 @@ def attn_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
     """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d);
     differentiable in x and every parameter of ``p``."""
     return attn_prefill(p, x, positions, cfg, causal=causal)[0]
+
+
+def cross_kv(p: Params, enc: Tensor, cfg: ArchConfig
+             ) -> tuple[Tensor, Tensor]:
+    """K and V of a cross attention from an encoder's states: enc (B, Sk,
+    d) -> (B, Sk, KV, hd) each, no RoPE and no bias, as the reference
+    projects them."""
+    dt = _dtype(cfg)
+    hd = cfg.resolved_head_dim
+    b, s = enc.shape[0], enc.shape[1]
+    k = (enc @ p["wk"].to(dt)).reshape(b, s, -1, hd)
+    v = (enc @ p["wv"].to(dt)).reshape(b, s, -1, hd)
+    return k, v
 
 
 def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,

@@ -26,8 +26,10 @@ function here takes either form.  With ``cfg.remat`` set and grad enabled,
 ``hidden_states`` runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), as the reference rematerializes each layer's body with
 ``jax.checkpoint``: a layer keeps its input for the backward and runs its
-forward again there.  Learned positions and encdec arrive with ROADMAP.md
-A16.
+forward again there.  With ``cfg.learned_pos`` RoPE is off and a tree's
+``pos_embed`` table, where it has one, is added to the embeddings, as in
+the reference (whose ``init_lm`` draws none).  The encoder-decoder family
+is ``models/encdec.py``.
 
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
 GQA and MLA's expanded form alike) goes through
@@ -61,16 +63,17 @@ LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise for the parts of an LM the port has not reached yet."""
-    unported = [name for name, on in (
-        ("learned_pos", cfg.learned_pos),
-        ("encdec", cfg.family == "encdec")) if on]
-    if cfg.family not in LM_FAMILIES or unported:
+    """Raise for a config this module does not run: the decoder LMs are
+    its families; the encoder-decoder family has a module of its own."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"'{cfg.name}' (family '{cfg.family}', {unported or 'no'} "
-            "unported parts) is not ported yet: only attention (GQA and "
-            "MLA), mamba, MLP and MoE layers and the mtp trunk of the "
-            "dense, moe, ssm and hybrid families are (ROADMAP.md A16)")
+            f"'{cfg.name}' is an encoder-decoder (family 'encdec'): "
+            "models/encdec.py runs it, not the decoder LM of "
+            "models/transformer.py")
+    if cfg.family not in LM_FAMILIES:
+        raise NotImplementedError(
+            f"'{cfg.name}' (family '{cfg.family}') is not a decoder LM: "
+            f"this module runs the {', '.join(LM_FAMILIES)} families")
 
 
 def cache_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
@@ -155,6 +158,8 @@ class StackedLM(nn.Module):
                         init_lm(None, cfg, "meta", tp))
         self.counts = [count for _, count in segments_of(cfg)]
         self.embed = _Tree(tree["embed"])
+        if "pos_embed" in tree:
+            self.pos_embed = _Tree(tree["pos_embed"])
         self.final_norm = _Tree(tree["final_norm"])
         if "head" in tree:
             self.head = _Tree(tree["head"])
@@ -169,6 +174,8 @@ class StackedLM(nn.Module):
         per-layer dicts."""
         out = {"embed": self.embed.tree(),
                "final_norm": self.final_norm.tree()}
+        if hasattr(self, "pos_embed"):
+            out["pos_embed"] = self.pos_embed.tree()
         if hasattr(self, "head"):
             out["head"] = self.head.tree()
         out["segments"] = [[layer.tree() for layer in seg]
@@ -214,20 +221,23 @@ def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig,
     return p
 
 
-def _init_segment(gen: torch.Generator, kind: str, count: int,
-                  cfg: ArchConfig, device: torch.device, tp: int) -> Params:
-    """``count`` layers drawn one at a time into stacked tensors (no
-    second copy of the segment is ever held; a one-layer segment is its
-    layer's tensors with a leading axis, no copy at all)."""
-    first = _init_layer(gen, kind, cfg, device, tp)
+def _stacked(count: int, make) -> Params:
+    """``count`` layers from ``make()``, drawn one at a time into stacked
+    tensors (no second copy of the stack is ever held; a one-layer stack
+    is its layer's tensors with a leading axis, no copy at all)."""
+    first = make()
     if count == 1:
         return _map(lambda t: t[None], first)
     stacked = _map(lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
                                          device=t.device), first)
     for i in range(count):
-        layer = first if i == 0 else _init_layer(gen, kind, cfg, device, tp)
-        _copy_into(_layer(stacked, i), layer)
+        _copy_into(_layer(stacked, i), first if i == 0 else make())
     return stacked
+
+
+def _init_segment(gen: torch.Generator, kind: str, count: int,
+                  cfg: ArchConfig, device: torch.device, tp: int) -> Params:
+    return _stacked(count, lambda: _init_layer(gen, kind, cfg, device, tp))
 
 
 def _copy_into(dst, src) -> None:
@@ -302,6 +312,20 @@ def _positions(b: int, s: int, device: torch.device) -> Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
+def _embed(top: Params, tokens: Tensor, cfg: ArchConfig,
+           pos: Tensor | None = None) -> Tensor:
+    """The tokens' embeddings, plus the learned position table's rows
+    where ``cfg.learned_pos`` and the tree has one: positions 0..S-1, or
+    ``pos`` (B,) for a one-token step."""
+    x = L.apply_embed(top["embed"], tokens, cfg)
+    if cfg.learned_pos and "pos_embed" in top:
+        table = top["pos_embed"]["table"]
+        rows = table[pos][:, None] if pos is not None \
+            else table[:tokens.shape[1]][None]
+        x = x + rows.to(x.dtype)
+    return x
+
+
 def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
                   ctx=None) -> tuple[Tensor, Tensor]:
     """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss: the MoE
@@ -312,7 +336,7 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     require_unsharded(ctx)
     b, s = tokens.shape
     top = _top(params)
-    x = L.apply_embed(top["embed"], tokens, cfg)
+    x = _embed(top, tokens, cfg)
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -396,7 +420,7 @@ def decode_step(params, token: Tensor, caches: list[Params],
     require_ported(cfg)
     require_unsharded(ctx)
     top = _top(params)
-    x = L.apply_embed(top["embed"], token, cfg)
+    x = _embed(top, token, cfg, pos)
     new_caches = []
     for (kind, _), layers, cache in zip(segments_of(cfg),
                                         _layers_of(params, cfg), caches):
@@ -434,7 +458,7 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
     max_len = max_len or s
     dt = L._dtype(cfg)
     top = _top(params)
-    x = L.apply_embed(top["embed"], tokens, cfg)
+    x = _embed(top, tokens, cfg)
     positions = _positions(b, s, tokens.device)
     caches = init_cache(cfg, b, max_len, dtype=dt, device=tokens.device)
     nkv_c = cache_kv_heads(cfg)

@@ -8,11 +8,13 @@ last), any other leaf the full ``v``; the update's RMS is taken over the
 whole leaf.
 
 The reference factors each STACKED leaf of an LM (a segment's layers on a
-leading axis).  The port trains a ``StackedLM``, whose parameter
-``segments.<s>.<i>.<path>`` is layer i's view of the stacked leaf
-``segments.<s>.<path>``; this transform groups the views back into their
-stack by that name and keeps the state in the reference's shapes, keyed
-by stack (``{"v": {stack: {"vr", "vc"} or {"v"}}, "step"}``; a parameter
+leading axis; an encoder-decoder's encoder and decoder blocks).  The port
+trains a ``StackedLM``, whose parameter ``segments.<s>.<i>.<path>`` is
+layer i's view of the stacked leaf ``segments.<s>.<path>``, or an
+``EncDec``, whose ``enc_blocks.<i>.<path>`` (``dec_blocks`` likewise) is
+layer i's view of ``enc_blocks.<path>``; this transform groups the views
+back into their stack by that name and keeps the state in the
+reference's shapes, keyed by stack (``{"v": {stack: {"vr", "vc"} or {"v"}}, "step"}``; a parameter
 outside a segment is its own stack).  So a (count, a, b) leaf keeps
 (count, a) and (count, b) statistics, layer by layer; a (count, d) leaf
 (a norm scale, mamba's ``d``) is factored ACROSS its layers, ``vr``
@@ -37,13 +39,15 @@ import torch
 from repro_torch.optim import transform
 from repro_torch.optim.transform import GradientTransform
 
-_LAYER = re.compile(r"^(segments\.\d+)\.(\d+)\.(.+)$")
+_LAYER = re.compile(r"^(segments\.\d+|enc_blocks|dec_blocks)\.(\d+)\.(.+)$")
 
 
 def stacks(names) -> dict[str, list[str]]:
     """Parameter names grouped by the stacked leaf they are views of,
     layers in order: ``segments.<s>.<i>.<path>`` under
-    ``segments.<s>.<path>``, any other name alone under itself."""
+    ``segments.<s>.<path>``, ``enc_blocks.<i>.<path>`` under
+    ``enc_blocks.<path>`` (and ``dec_blocks`` so), any other name alone
+    under itself."""
     out: dict[str, dict[int, str]] = {}
     for name in names:
         m = _LAYER.match(name)

@@ -8,27 +8,31 @@ hierarchy-backed beam retrieval over a ``RetrievalIndex``
 ``QuantizedRetrievalIndex`` (``serve/quantized_index.py``), picked by the
 index's type as the reference picks by its treedef.  The step
 constructors serve the decoder LMs (``models/transformer.py``: the dense,
-moe, ssm and hybrid families): ``make_prefill_step`` runs the prompt
-through every layer (attention through the flash kernel, mamba through its
+moe, ssm and hybrid families) and the encoder-decoder
+(``models/encdec.py``): ``make_prefill_step`` runs the prompt through
+every layer (attention through the flash kernel, mamba through its
 chunked scan, MoE through its capacity dispatch) and picks the first
-token, ``make_decode_step`` takes one greedy step against the caches (K/V
-or MLA's latent rows written in place, mamba states replaced) and
-``make_topk_step`` one step with a top-k over the vocabulary.  The
-encoder-decoder family and the mesh path arrive with their slices.
+token, or for the encoder-decoder encodes the frames (the encoder's
+self-attention through the flash kernel), projects every decoder layer's
+cross K/V into the cache and takes the first decoder step from token 0
+at position 0; ``make_decode_step`` takes one greedy step against the
+caches (K/V or MLA's latent rows written in place, mamba states
+replaced) and ``make_topk_step`` one step with a top-k over the
+vocabulary.  The mesh path arrives with its slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import api, transformer
+from repro_torch.models import api, encdec, transformer
 from repro_torch.serve import quantized_index, retrieval
 
 
-def _require_decoder(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported yet (ROADMAP.md A16)")
+def _decode_step(cfg: ArchConfig):
+    """The family's one-token decoder step."""
+    return encdec.decode_step if cfg.family == "encdec" \
+        else transformer.decode_step
 
 
 def _argmax_island(cfg: ArchConfig, ctx, head, h2d):
@@ -95,13 +99,12 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
     (either type; the dense head when ``index`` is None).  ``ids[:, 0]``
     equals ``make_decode_step``'s greedy token when the beam is full (or
     the index absent), ties aside."""
-    _require_decoder(cfg)
     retrieval.require_unsharded(ctx)
+    decode_step = _decode_step(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        h, caches = transformer.decode_step(params, token, caches, pos, cfg,
-                                            ctx)
+        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
         head = api.head_table(params, cfg)
         ids, logits = decode_topk(cfg, ctx, head, h[:, 0, :], k,
                                   index=index, beam=beam)
@@ -113,13 +116,12 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
 def make_decode_step(cfg: ArchConfig, ctx):
     """decode_step(params, token (B, 1), caches, pos (B,)) ->
     (next_token (B,), caches)."""
-    _require_decoder(cfg)
     retrieval.require_unsharded(ctx)
+    decode_step = _decode_step(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        h, caches = transformer.decode_step(params, token, caches, pos, cfg,
-                                            ctx)
+        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
         head = api.head_table(params, cfg)
         return _argmax_island(cfg, ctx, head, h[:, 0, :]), caches
 
@@ -128,14 +130,29 @@ def make_decode_step(cfg: ArchConfig, ctx):
 
 def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
     """prefill(params, {"tokens": (B, S)}) -> (first generated token (B,),
-    caches of length ``max_len``)."""
-    _require_decoder(cfg)
+    caches of length ``max_len``); for the encoder-decoder
+    prefill(params, {"frames": (B, Sf, d)}) -> (the token after token 0
+    at position 0, the decoder's cache: its self K/V of ``max_len``
+    positions and every layer's cross K/V over the Sf frames)."""
     retrieval.require_unsharded(ctx)
 
     @torch.no_grad()
     def step(params, batch):
-        h, caches = transformer.prefill(params, batch["tokens"], cfg, ctx,
-                                        max_len=max_len)
+        if cfg.family == "encdec":
+            frames = batch["frames"]
+            b = frames.shape[0]
+            enc_out = encdec.encode(params, frames, cfg, ctx)
+            caches = encdec.init_dec_cache(params, cfg, b, max_len, enc_out,
+                                           ctx)
+            del enc_out
+            tok0 = torch.zeros((b, 1), dtype=torch.long,
+                               device=frames.device)
+            pos0 = torch.zeros((b,), dtype=torch.long, device=frames.device)
+            h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg,
+                                           ctx)
+        else:
+            h, caches = transformer.prefill(params, batch["tokens"], cfg,
+                                            ctx, max_len=max_len)
         head = api.head_table(params, cfg)
         return _argmax_island(cfg, ctx, head, h[:, -1, :]), caches
 

@@ -196,8 +196,8 @@ def fit(cfg: ArchConfig, ctx, opt: GradientTransform,
     """Train up to step ``steps`` on ``device`` (the card unless
     ``device="cpu"``): from the latest checkpoint in ``checkpoint_dir`` if
     there is one, else from a fresh state drawn from ``seed``.
-    ``max_len`` sizes learned positions in the reference; the ported
-    families have none."""
+    ``max_len`` sizes an encoder-decoder's learned position tables, as in
+    the reference (the other families have none)."""
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, ctx, opt)
     island = RefreshIsland(cfg, ctx, dev) \

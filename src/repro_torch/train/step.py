@@ -57,7 +57,8 @@ class TrainState:
     """Carried training state.
 
     ``params`` is the model (an ``nn.Module``: ``RecsysTower``,
-    ``LSTMLM`` or ``StackedLM``, updated in place by each step);
+    ``LSTMLM``, ``StackedLM`` or ``EncDec``, updated in place by each
+    step);
     ``opt_state`` the optimizer's state; ``sampler_state`` the
     sampler-owned ``SamplerState``; ``step`` the host step count."""
 
@@ -97,7 +98,8 @@ def make_refresh_fn(cfg: ArchConfig, ctx=None
 
 def _split_microbatches(batch: dict, mu: int) -> list[dict]:
     """(B, ...) -> mu microbatches of B/mu rows, row j of microbatch i being
-    row j*mu + i, as the reference interleaves them."""
+    row j*mu + i, as the reference interleaves them; every key alike (an
+    encoder-decoder's frames with its tokens and labels)."""
     b = next(iter(batch.values())).shape[0]
     assert b % mu == 0, f"batch {b} % microbatches {mu} != 0"
     return [{k: x[i::mu] for k, x in batch.items()} for i in range(mu)]
@@ -221,14 +223,15 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
     weights drawn from the generator ``key``, the optimizer's zero state,
     and the sampler's statistics built from the initial head.  The
     sampler's constants come from a generator seeded off ``key``'s seed, as
-    the reference folds 7 into its key.  ``max_len`` sizes learned
-    positions in the reference; the ported families have none."""
+    the reference folds 7 into its key.  ``max_len`` sizes an
+    encoder-decoder's learned position tables, as in the reference (the
+    other families have none)."""
     retrieval.require_unsharded(ctx)
     cfg.validate()
     dev = resolve_device(device)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.init_module(cfg, key, device=dev)
+    model = api.init_module(cfg, key, device=dev, max_len=max_len)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
@@ -246,12 +249,13 @@ def abstract_train_state(cfg: ArchConfig, ctx, opt: GradientTransform,
                          max_len: int = 4096) -> TrainState:
     """The train state's structure on the ``meta`` device, nothing
     allocated: the restore template of ``CheckpointManager.restore``.
-    Shapes and dtypes are those ``init_train_state`` gives."""
+    Shapes and dtypes are those ``init_train_state`` gives at the same
+    ``max_len``."""
     retrieval.require_unsharded(ctx)
     cfg.validate()
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.abstract_params(cfg)
+    model = api.abstract_params(cfg, max_len)
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
         sstate = sampler.state_shapes(cfg)

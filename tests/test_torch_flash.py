@@ -150,26 +150,26 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_other_dtypes():
 
 
 def test_build_signatures_hold_both_flash_entry_points():
-    """The tensor-core entry point takes q, k, v, o, eight ints (B, S, H,
-    KV, hd, hv, s_valid, causal), the scale, the device and the stream; the
-    CUDA-core one also its bf16 flag.  Both live in one source.  The
+    """The tensor-core entry point takes q, k, v, o, nine ints (B, Sq, Sk,
+    H, KV, hd, hv, s_valid, causal), the scale, the device and the stream;
+    the CUDA-core one also its bf16 flag.  Both live in one source.  The
     backward's tensor-core entry takes q, k, v, dout, lse, delta, dq, dk,
-    dv, its fold workspace and counters, the same eight ints and scale,
+    dv, its fold workspace and counters, the same nine ints and scale,
     the plan's chunk, the device and the stream; its CUDA-core entry the
     nine tensors, the ints, the scale and the bf16 flag."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert _build.SIGNATURES["flash_attention"] == (
         "flash_attention", "flash_attention_mma_bf16",
-        (p,) * 4 + (i,) * 8 + (f, i, p))
+        (p,) * 4 + (i,) * 9 + (f, i, p))
     assert _build.SIGNATURES["flash_attention_simt"] == (
         "flash_attention", "flash_attention_fwd",
-        (p,) * 4 + (i,) * 8 + (f, i, i, p))
+        (p,) * 4 + (i,) * 9 + (f, i, i, p))
     assert _build.SIGNATURES["flash_attention_bwd"] == (
         "flash_attention_bwd", "flash_attention_bwd_mma_bf16",
-        (p,) * 11 + (i,) * 8 + (f, i, i, p))
+        (p,) * 11 + (i,) * 9 + (f, i, i, p))
     assert _build.SIGNATURES["flash_attention_bwd_simt"] == (
         "flash_attention_bwd", "flash_attention_bwd_simt",
-        (p,) * 9 + (i,) * 8 + (f, i, i, p))
+        (p,) * 9 + (i,) * 9 + (f, i, i, p))
 
 
 def _misaligned(shape, dtype):
@@ -209,7 +209,7 @@ def test_flash_dispatch_picks_the_entry_point_by_dtype_and_width(
     assert [c[0] for c in calls] == [entry]
     args = calls[0][5:]
     scale = 1.0 / math.sqrt(hd)
-    want = (2, 40, 8, 2, hd, hd, 30, 0, scale)
+    want = (2, 40, 40, 8, 2, hd, hd, 30, 0, scale)
     want += (None, 5) if entry == "flash_attention" else (
         int(dtype == torch.bfloat16), None, 5)
     assert args == want

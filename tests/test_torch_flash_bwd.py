@@ -287,9 +287,10 @@ def test_bwd_dispatch_passes_the_plan(hd, split, monkeypatch):
     p = fa.plan(b, s, h, kv, hd, True)
     assert [c[0] for c in calls] == ["flash_attention_bwd"]
     args = calls[0][1:]
-    assert len(args) == 11 + 8 + 1 + 1 + 1 + 1
-    assert args[11:20] == (b, s, h, kv, hd, hd, s, 1, 1.0 / math.sqrt(hd))
-    assert args[20:] == (p.chunk, None, 5)
+    assert len(args) == 11 + 9 + 1 + 1 + 1 + 1
+    assert args[11:21] == (b, s, s, h, kv, hd, hd, s, 1,
+                           1.0 / math.sqrt(hd))
+    assert args[21:] == (p.chunk, None, 5)
     assert ((p.workspace_floats,), torch.float32) in seen
     assert ((p.counters,), torch.int32) in seen
     assert (p.workspace_floats > 0) == split

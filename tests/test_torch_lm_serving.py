@@ -130,9 +130,25 @@ def test_argmax_island_breaks_ties_to_the_lowest_id():
 
 
 def test_encdec_steps_raise():
-    cfg = CFG.reduced(family="encdec")
-    for make in (lambda: engine.make_prefill_step(cfg, None, 4),
-                 lambda: engine.make_decode_step(cfg, None),
-                 lambda: engine.make_topk_step(cfg, None, 2)):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            make()
+    """The encoder-decoder family's three steps no longer raise: on
+    whisper-large-v3 reduced, the prefill encodes the frames, fills every
+    decoder layer's cross K/V and picks the token after token 0; a greedy
+    step and a top-k step follow, the greedy token the top-k's first (the
+    steps against the reference engine: ``test_torch_encdec.py``)."""
+    cfg = get_config("whisper-large-v3").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", max_len=16)
+    frames = torch.randn((B, 10, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    tok, cache = engine.make_prefill_step(cfg, None, 16)(
+        params, {"frames": frames})
+    assert tok.shape == (B,) and tok.dtype == torch.int32
+    assert cache["cross_k"].shape == (cfg.n_dec_layers, B, 10,
+                                      cfg.n_kv_heads, cfg.resolved_head_dim)
+    assert cache["self_k"].shape[2] == 16 and cache["self_k"][:, :, 0].any()
+    pos = torch.ones((B,), dtype=torch.long)
+    nxt, cache = engine.make_decode_step(cfg, None)(
+        params, tok[:, None].long(), cache, pos)
+    ids, _, _ = engine.make_topk_step(cfg, None, 2)(
+        params, tok[:, None].long(), cache, pos)
+    assert ids.shape == (B, 2) and torch.equal(ids[:, 0], nxt)

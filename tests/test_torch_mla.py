@@ -277,8 +277,8 @@ def test_forward_route_and_arguments_at_a_value_width(dtype, hd, hv, entry,
                                                       monkeypatch):
     """bf16 with hd and hv multiples of 16, hd <= 192 and hv <= 128 takes
     the tensor-core entry (MLA's (192, 128) among them); anything else the
-    CUDA-core one.  Both get (B, S, H, KV, hd, hv, s_valid, causal, scale)
-    and write a (B, S, H, hv) output."""
+    CUDA-core one.  Both get (B, Sq, Sk, H, KV, hd, hv, s_valid, causal,
+    scale) and write a (B, S, H, hv) output."""
     calls = _recording(monkeypatch)
     q = torch.zeros((2, 40, 8, hd), dtype=dtype)
     k = torch.zeros((2, 40, 2, hd), dtype=dtype)
@@ -286,7 +286,7 @@ def test_forward_route_and_arguments_at_a_value_width(dtype, hd, hv, entry,
     out = fa.flash_attention(q, k, v, causal=True, s_valid=33)
     assert out.shape == (2, 40, 8, hv) and out.dtype == dtype
     assert [c[0] for c in calls] == [entry]
-    want = (2, 40, 8, 2, hd, hv, 33, 1, 1.0 / math.sqrt(hd))
+    want = (2, 40, 40, 8, 2, hd, hv, 33, 1, 1.0 / math.sqrt(hd))
     want += (None, 5) if entry == "flash_attention" else (
         int(dtype == torch.bfloat16), None, 5)
     assert calls[0][5:] == want
@@ -336,12 +336,12 @@ def test_backward_route_plan_and_arguments_at_mla_widths(b, s, monkeypatch):
                                             torch.zeros((b, h, s)))
         assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
         assert calls[-1][0] == entry
-        ints = calls[-1][12:21] if entry == "flash_attention_bwd" else \
-            calls[-1][10:19]
-        assert ints == (b, s, h, h, 192, 128, s, 1, 1.0 / math.sqrt(192))
+        ints = calls[-1][12:22] if entry == "flash_attention_bwd" else \
+            calls[-1][10:20]
+        assert ints == (b, s, s, h, h, 192, 128, s, 1, 1.0 / math.sqrt(192))
     p = fa.plan(b, s, h, h, 192, True, hv=128)
     assert p.key_tile == fa.WIDE_KEY_TILE
-    assert calls[0][21:] == (p.chunk, None, 5)
+    assert calls[0][22:] == (p.chunk, None, 5)
     assert ((p.workspace_floats,), torch.float32) in seen
     assert ((p.counters,), torch.int32) in seen
     counts = kernels.launch_counts()
@@ -352,9 +352,9 @@ def test_backward_route_plan_and_arguments_at_mla_widths(b, s, monkeypatch):
 def test_build_signatures_carry_the_value_width():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert _build.SIGNATURES["flash_attention_lse"][2] == (
-        (p,) * 5 + (i,) * 8 + (f, i, p))
+        (p,) * 5 + (i,) * 9 + (f, i, p))
     assert _build.SIGNATURES["flash_attention_simt_lse"][2] == (
-        (p,) * 5 + (i,) * 8 + (f, i, i, p))
+        (p,) * 5 + (i,) * 9 + (f, i, i, p))
 
 
 #: every shape chip_smoke.py runs the tensor-core backward at with a value

@@ -135,13 +135,25 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 
 def test_unported_families_raise():
-    encdec = dataclasses.replace(get_config("llama3-8b").reduced(),
-                                 family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        api.init_params(encdec, torch.Generator().manual_seed(0),
+    """encdec is ported: ``init_params`` and ``convert.params_from_jax``
+    take whisper-large-v3 (its stacks checked against the config); a
+    family the reference does not have still raises."""
+    cfg = get_config("whisper-large-v3").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", max_len=8)
+    assert params["enc_pos"]["table"].shape == (8, cfg.d_model)
+    back = convert.params_from_jax(convert.params_to_jax(params), cfg,
+                                   device="cpu")
+    assert torch.equal(back["dec_blocks"]["xattn"]["wq"],
+                       params["dec_blocks"]["xattn"]["wq"])
+    with pytest.raises(ValueError, match="stacks"):
+        convert.params_from_jax({}, cfg, device="cpu")
+    other = dataclasses.replace(cfg, family="vision")
+    with pytest.raises(NotImplementedError, match="vision"):
+        api.init_params(other, torch.Generator().manual_seed(0),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        convert.params_from_jax({}, encdec, device="cpu")
+    with pytest.raises(NotImplementedError, match="vision"):
+        convert.params_from_jax({}, other, device="cpu")
 
 
 def test_index_from_jax_refuses_sharded_indexes():

@@ -433,13 +433,17 @@ def test_unported_training_options_raise():
             types.SimpleNamespace(mesh="m"))
     with pytest.raises(NotImplementedError, match="mesh"):
         step.make_train_step(cfg, types.SimpleNamespace(mesh="m"), opt)
-    encdec = dataclasses.replace(get_config("llama3-8b").reduced(),
-                                 family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        step.init_train_state(torch.Generator(), encdec, None, opt,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        batch_iterator_for(encdec, None, 4, 8, device="cpu")
+    # the encoder-decoder family trains now: its state and its batches
+    encdec = get_config("whisper-large-v3").reduced()
+    state = step.init_train_state(torch.Generator(), encdec, None, opt,
+                                  max_len=8, device="cpu")
+    assert type(state.params).__name__ == "EncDec"
+    assert state.params.dec_pos.table.shape == (8, encdec.d_model)
+    batch = next(batch_iterator_for(encdec, None, 4, 8, device="cpu"))
+    assert batch["frames"].shape == (4, 8, encdec.d_model)
+    other = dataclasses.replace(encdec, family="vision")
+    with pytest.raises(NotImplementedError, match="vision"):
+        batch_iterator_for(other, None, 4, 8, device="cpu")
 
 
 def test_validate_checks_ported_names_and_knobs():

@@ -278,20 +278,26 @@ MLA = dict(mla=True, q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
     ids=["moe", "mla", "mtp", "family-moe", "family-hybrid", "learned_pos",
          "encdec"])
 def test_unported_transformer_parts_raise(change):
-    """Learned positions and encdec still raise; MoE layers, MLA layers,
-    the mtp subtree and the moe and hybrid families run, against the
-    reference (1e-4 x max: four fp32 layers)."""
+    """The decoder LM refuses only the encdec family, naming the module
+    that runs it (``models/encdec.py``); MoE layers, MLA layers, the mtp
+    subtree, the moe and hybrid families and learned positions (RoPE off,
+    a ``pos_embed`` table added where the tree has one, on both sides)
+    run, against the reference (1e-4 x max: four fp32 layers)."""
     cfg = dataclasses.replace(CFG, **change)
-    if cfg.learned_pos or cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match="A16"):
+    if cfg.family == "encdec":
+        with pytest.raises(NotImplementedError, match="models/encdec.py"):
             transformer.hidden_states(
                 {}, torch.zeros((1, 2), dtype=torch.long), cfg)
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(NotImplementedError, match="models/encdec.py"):
             transformer.init_cache(cfg, 1, 4, device="cpu")
         return
     jcfg = dataclasses.replace(JCFG, **change)
     jp = jax.jit(lambda k: japi.init_params(k, jcfg, CTX))(
         jax.random.PRNGKey(0))
+    if cfg.learned_pos:
+        # the reference's init_lm draws no table; one is added to both
+        jp = dict(jp, pos_embed={"table": jnp.asarray(_normal(
+            13, (S + 4, cfg.d_model), 0.5))})
     tp = convert.params_from_jax(_np_tree(jp), cfg, device="cpu")
     tok = _tokens(12)
     jh, jaux = jax.jit(lambda p, t: jtf.hidden_states(p, t, jcfg, CTX))(
@@ -304,6 +310,34 @@ def test_unported_transformer_parts_raise(change):
     got = transformer.init_cache(cfg, B, 4, device="cpu")
     assert jax.tree_util.tree_map(lambda v: tuple(v.shape), got) == \
         jax.tree_util.tree_map(lambda v: v.shape, want)
+    if cfg.learned_pos:  # the table's rows at prefill and at a decode step
+        jhp, jc = jax.jit(lambda p, t: jtf.prefill(p, t, jcfg, CTX,
+                                                   max_len=S + 1))(
+            jp, jnp.asarray(tok[:, :S]))
+        hp, caches = transformer.prefill(tp, torch.from_numpy(
+            tok[:, :S]).long(), cfg, max_len=S + 1)
+        np.testing.assert_allclose(hp.numpy(), np.asarray(jhp), rtol=0,
+                                   atol=1e-4 * float(np.abs(jhp).max()))
+        pos = np.full((B,), S, np.int32)
+        jhd, _ = jax.jit(lambda p, t, c, q: jtf.decode_step(
+            p, t, c, q, jcfg, CTX))(jp, jnp.asarray(tok[:, S:]), jc,
+                                    jnp.asarray(pos))
+        hd, _ = transformer.decode_step(
+            tp, torch.from_numpy(tok[:, S:]).long(), caches,
+            torch.from_numpy(pos).long(), cfg)
+        np.testing.assert_allclose(hd.numpy(), np.asarray(jhd), rtol=0,
+                                   atol=1e-4 * float(np.abs(jhd).max()))
+        np.testing.assert_allclose(hd[:, 0].numpy(), h[:, S].numpy(),
+                                   rtol=0, atol=1e-4 * float(
+                                       np.abs(jh).max()))
+        module = transformer.StackedLM(cfg, "cpu", tree=tp)
+        assert module.pos_embed.table.data_ptr() == \
+            tp["pos_embed"]["table"].data_ptr()
+        hm, _ = transformer.hidden_states(module, torch.from_numpy(
+            tok).long(), cfg)
+        assert torch.equal(hm, h)
+        np.testing.assert_array_equal(convert.params_to_jax(module)[
+            "pos_embed"]["table"], np.asarray(jp["pos_embed"]["table"]))
 
 
 def test_backbone_hidden_flattens_tokens(params):
