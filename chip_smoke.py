@@ -11,7 +11,9 @@ Adafactor and remat, deepseek-v3-671b's MLA and multi-token
 prediction, served and trained at 4 of its 61 layers, and
 whisper-large-v3's encoder-decoder, served and trained whole, its
 cross attention through both attention kernels at a key length apart
-from the query length.
+from the query length, and youtube-dnn trained and served through the
+vocab-parallel head over a (data, model) mesh: NCCL at (1, 1), and four
+rank processes sharing the card over gloo at (1, 4) and (2, 2).
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -348,9 +350,27 @@ result line):
                  4 clips, exact launches (flash_attention 192 and
                  flash_attention_bwd 96 a step), a falling pool loss,
                  peak memory, a profile of one step.
+ 23. mesh      — the vocab-parallel head over a (data, model) mesh at
+                 youtube-dnn's full width (``phase_mesh``): (a) NCCL on a
+                 (1, 1) mesh in this process, one full-softmax fit step
+                 with clip + SGD equal to the unsharded one
+                 (MESH_STEP_RTOL: the loss, each parameter over its own
+                 max) and a block-quadratic step's launches exact; (b)
+                 MESH_WORLD rank processes of this script sharing the
+                 card over gloo, at (1, 4) and (2, 2): zstats,
+                 block_scores and leaf_scores at the rank's shard shapes
+                 against their plain versions (RTOL, as phase 3), the
+                 sharded full and sampled (given negatives, the fused
+                 head) losses and gradients
+                 against the unsharded ones on the card, MESH_STEPS fit
+                 steps (exact launches per rank, falling pool loss, step
+                 ms, collectives), the trained head's sharded index
+                 decoded at full beam equal to the sharded and the dense
+                 top-k; any rank's failure fails the phase.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
-22's serving runs and fits are main paths: the kernel
+22's serving runs and fits, 23's steps and fits on each rank are main
+paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -380,7 +400,8 @@ follows the engine's batching), each path's count under
 "jamba-v0.1-52b", phase 20's as "falcon-mamba-7b training" and
 "jamba-v0.1-52b training", phase 21's as "deepseek-v3-671b" and
 "deepseek-v3-671b training", phase 22's as "whisper-large-v3" and
-"whisper-large-v3 training"); the other shapes' numbers under serving_*,
+"whisper-large-v3 training", phase 23's as "mesh nccl (1, 1)", "mesh gloo
+(1, 4)" and "mesh gloo (2, 2)", each gloo mesh summed over its ranks); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
@@ -474,9 +495,12 @@ from repro_torch.models import (  # noqa: E402
     moe,
     transformer,
 )
+from repro_torch.core import distributed  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.transform import apply_updates  # noqa: E402
 from repro_torch.serve import engine, quantized_index, retrieval  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.serve.server import (  # noqa: E402
     IndexRefresher,
     ServingEngine,
@@ -676,7 +700,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
             rtol: float = RTOL, elem_rtol: float = 0.0) -> float:
     """max |got - want|, each element held to ``elem_rtol`` x |want| plus
     ``rtol`` x max |want| (in fp32)."""
-    torch.cuda.synchronize()
+    sync()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -5521,6 +5545,439 @@ def phase_whisper_train() -> dict[str, dict[str, int]]:
     return {f"{tag} training": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the vocab-parallel head over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: the gloo meshes the rank processes run, in turn, over one world of
+#: MESH_WORLD ranks sharing the card
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_WORLD = 4
+MESH_STEPS = 8
+MESH_POOL = 4
+#: queries per rank of the sharded index's full-beam decode: at tp 4 a
+#: shard's 256 leaves of 128 rows are gathered per query (268 MB at 16)
+MESH_QUERIES = 16
+MESH_TOPK = 10
+#: the gloo checks' tolerance (max |err| / max |want|) and the NCCL (1, 1)
+#: step's against the unsharded step
+MESH_RTOL = 1e-5
+MESH_STEP_RTOL = 1e-6
+#: seconds the parent waits for the rank processes
+MESH_TIMEOUT_S = 300
+#: the (1, 1) step comparison's optimizer: clip + SGD.  Its update is
+#: the clipped gradient times lr, so each parameter's error over its own
+#: max shows its gradient's (a bias that starts at 0 holds lr times its
+#: gradient).  AdamW's first update, lr g / (|g| + eps), hides a
+#: gradient's scale where |g| >> eps (a psum off by tp passes) and
+#: multiplies summation-order differences by up to lr / eps where
+#: |g| << eps
+MESH_STEP_OPT = ("sgd", 1e-2)
+#: the directory the rank processes write their logs and results to
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+#: the command of a rank process, before its ``--mesh-*`` arguments
+MESH_RANK_CMD = (sys.executable, __file__)
+
+
+class GivenNegatives:
+    """A sampler stub: each shard's negatives drawn once on the host,
+    whatever the generator (``sample_batch`` returns ``state``'s ids and
+    LOCAL log q)."""
+
+    shares_negatives = False
+    two_stage = False
+
+    def sample_batch(self, state, h, m, gen):
+        if state["ids"].shape[-1] != m:
+            raise ValueError(f"{state['ids'].shape} given for m={m}")
+        return state["ids"], state["logq"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.detach().float()
+    return float((got.detach().float() - want).abs().max()
+                 / want.abs().max())
+
+
+def gate(tag: str, errs: dict[str, float], tol: float) -> None:
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{tag}: relative errors {bad} > {tol}")
+
+
+def mesh_full_check(ctx, w, h, labels, abs_mode: bool) -> dict[str, float]:
+    """The sharded full softmax's loss and gradients (this rank's head
+    shard, its h block) against the unsharded loss on the card."""
+    mg, j = ctx.model_group, ctx.model_index
+    w_l = rules.shard_rows(w, ctx).requires_grad_(True)
+    h_l = rules.batch_rows(h, ctx).clone().requires_grad_(True)
+    lab = rules.batch_rows(labels, ctx)
+    loss = distributed.sharded_full_softmax_loss(
+        w_l, distributed.replicated(h_l, mg), lab, group=mg,
+        abs_mode=abs_mode)
+    loss.sum().backward()
+    wf = w.clone().requires_grad_(True)
+    hf = h_l.detach().clone().requires_grad_(True)
+    want = full_softmax_loss(wf, hf, lab, abs_mode=abs_mode)
+    want.sum().backward()
+    v_l = w_l.shape[0]
+    return {"loss": rel_err(loss, want),
+            "dw": rel_err(w_l.grad, wf.grad[j * v_l:(j + 1) * v_l]),
+            "dh": rel_err(h_l.grad, hf.grad)}
+
+
+def mesh_sampled_check(ctx, w, h, labels, m: int, abs_mode: bool,
+                       seed: int) -> dict[str, float]:
+    """The sharded sampled softmax (the fused head on the card) at given
+    negatives (each shard's ids and local logq drawn once on the host,
+    an accidental hit on the owning shard every fifth token) against a
+    one-device replay of the stratified eq. 2 over the union of the
+    shards' negatives, loss and gradients."""
+    tp, j, mg = ctx.tp, ctx.model_index, ctx.model_group
+    v_l, m_l = w.shape[0] // tp, m // tp
+    t = h.shape[0]
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, v_l, size=(t, tp, m_l))
+    lab = labels.cpu().numpy()
+    for k in range(0, t, 5):
+        ids[k, lab[k] // v_l, 0] = lab[k] % v_l
+    logq = np.log(rng.uniform(1e-6, 1e-4, size=ids.shape))
+    rows = rules.batch_rows(torch.arange(t, device=DEV), ctx)
+    ids_t = torch.from_numpy(ids).to(DEV)[rows]
+    logq_t = torch.from_numpy(logq).float().to(DEV)[rows]
+    w_l = rules.shard_rows(w, ctx).requires_grad_(True)
+    h_l = rules.batch_rows(h, ctx).clone().requires_grad_(True)
+    lab_l = labels[rows]
+    loss = distributed.sharded_sampled_softmax_loss(
+        w_l, distributed.replicated(h_l, mg), lab_l, GivenNegatives(),
+        {"ids": ids_t[:, j], "logq": logq_t[:, j]}, m,
+        torch.Generator(DEV), group=mg, abs_mode=abs_mode)
+    loss.sum().backward()
+    # the replay: every shard's draws as global ids with q~ = q_local / tp
+    gids = (ids_t + torch.arange(tp, device=DEV)[None, :, None] * v_l
+            ).reshape(len(rows), m)
+    lq = logq_t.reshape(len(rows), m) - math.log(tp)
+    wf = w.clone().requires_grad_(True)
+    hf = h_l.detach().clone().requires_grad_(True)
+    o = torch.einsum("td,tmd->tm", hf, wf[gids])
+    o = (o.abs() if abs_mode else o) - lq - math.log(m)
+    o = torch.where(gids == lab_l[:, None], -math.inf, o)
+    pos = torch.einsum("td,td->t", hf, wf[lab_l])
+    pos = pos.abs() if abs_mode else pos
+    want = torch.logsumexp(torch.cat([pos[:, None], o], dim=1), dim=1) - pos
+    want.sum().backward()
+    return {"loss": rel_err(loss, want),
+            "dw": rel_err(w_l.grad, wf.grad[j * v_l:(j + 1) * v_l]),
+            "dh": rel_err(h_l.grad, hf.grad)}
+
+
+def mesh_kernel_check(ctx, cfg, w, h) -> dict[str, float]:
+    """The three sampler kernels at this rank's shard shapes, each against
+    its plain version within RTOL (as phase 3 holds them): zstats over the
+    blocks of its head rows (its n_valid), block_scores over its data
+    block's T tokens and those blocks, leaf_scores over T m/tp draws of a
+    block each."""
+    bsz, alpha = cfg.sampler_block, cfg.sampler_alpha
+    m_l = cfg.m_negatives // ctx.tp
+    stats = blocks.build(rules.shard_rows(w, ctx), bsz,
+                         n_valid=step.shard_n_valid(cfg, ctx))
+    wq, cnt = stats.wq, stats.cnt
+    nb, r = wq.shape[0], wq.shape[2]
+    hq = rules.batch_rows(h, ctx)
+    t = hq.shape[0]
+    tag = f"rank ({ctx.data_index}, {ctx.model_index})"
+    z = zstats(wq)
+    errs = {"zstats": compare(f"{tag} zstats ({nb}, {bsz}, {r})", z,
+                              ref.zstats_ref(wq))}
+    errs["block_scores"] = compare(
+        f"{tag} block_scores T={t} N={nb}",
+        block_scores(hq, z, cnt, alpha=alpha),
+        ref.block_scores_ref(hq, z, cnt, alpha))
+    gen = torch.Generator(DEV).manual_seed(31)
+    rows = wq[torch.randint(0, nb, (t * m_l,), generator=gen, device=DEV)]
+    hg = hq.repeat_interleave(m_l, dim=0)
+    errs["leaf_scores"] = compare(
+        f"{tag} leaf_scores ({t * m_l}, {bsz}, {r})",
+        leaf_scores(hg, rows, alpha=alpha),
+        ref.leaf_scores_ref(hg, rows, alpha))
+    return errs
+
+
+def mesh_fit(cfg, ctx, tag: str) -> dict:
+    """MESH_STEPS fit steps on a pool of MESH_POOL batches (the rank's
+    rows), launches exact, the pool loss falling; then the step's ms over
+    5 more steps and one step's collectives."""
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    data = batch_iterator_for(cfg, ctx, TRAIN_BATCH, 1, seed=0, device=DEV)
+    pool = [next(data) for _ in range(MESH_POOL)]
+    sync()
+    kernels.reset_launch_counts()
+    distributed.reset_collective_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, ctx, opt, itertools.cycle(pool), MESH_STEPS,
+                   seed=0, log_every=0, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(cfg, MESH_STEPS) if DEV.type == "cuda" \
+        else dict.fromkeys(REPLACES, 0)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    losses = res.losses
+    first = statistics.mean(losses[:MESH_POOL])
+    last = statistics.mean(losses[-MESH_POOL:])
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"{tag}: the pool loss did not fall: {losses}")
+    fit_coll = distributed.collective_counts()
+    step_fn = step.make_train_step(cfg, ctx, opt)
+    state, ms = res.state, []
+    for k in range(5):
+        if k == 4:
+            distributed.reset_collective_counts()
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, pool[k % MESH_POOL],
+                                 loop.step_generator(0, 1000 + k, DEV))
+        float(metrics["loss"])
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return {"losses": losses, "first": first, "last": last,
+            "fit_s": wall, "launches": counts, "fit_collectives": fit_coll,
+            "step_ms": ms, "step_collectives":
+                distributed.collective_counts(), "state": state}
+
+
+def mesh_decode(cfg, ctx, state) -> dict:
+    """The trained head as a sharded index: full-beam decode through the
+    engine equal to ``sharded_logits_topk`` and to the dense top-k over
+    the gathered head, ids exactly."""
+    held = next(batch_iterator_for(cfg, ctx, MESH_QUERIES * ctx.dp, 1,
+                                   seed=1000, device=DEV))
+    with torch.no_grad():
+        hq, _, _ = api.backbone_hidden(state.params, held, cfg)
+        head = api.head_table(state.params, cfg).detach()
+    sync()
+    kernels.reset_launch_counts()
+    index = step.export_retrieval_index(state, cfg, ctx)
+    decode = engine.make_decode_fn(cfg, ctx, head, MESH_TOPK)
+    ids_b, log_b = decode(index, hq)
+    sync()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    ids_s, log_s = decode(None, hq)
+    full = distributed.all_gather_tiled(head, ctx.model_group)
+    ids_d, log_d = retrieval.dense_topk(full, hq, MESH_TOPK,
+                                        n_valid=cfg.vocab_size)
+    for tag, ids in (("sharded_logits_topk", ids_s), ("dense", ids_d)):
+        if not torch.equal(ids_b, ids):
+            raise AssertionError(f"full-beam decode ids != {tag} ids")
+    err = max(rel_err(log_b, log_d), rel_err(log_s, log_d))
+    if not err <= MESH_RTOL:
+        raise AssertionError(f"decode logits off the dense ones by {err}")
+    return {"index_leaves_per_shard": index.num_leaves_shard,
+            "leaf": index.leaf_size, "queries": hq.shape[0],
+            "logit_err": err, "launches": counts}
+
+
+def sync() -> None:
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_checks(ctx) -> dict:
+    """One mesh's gates on this rank (see ``phase_mesh``)."""
+    cfg = get_config("youtube-dnn")
+    gen = torch.Generator(DEV).manual_seed(23)  # alike on every rank
+    n, d = cfg.vocab_size, cfg.tower_dims[-1]
+    w = torch.randn((n, d), generator=gen, device=DEV) * 0.05
+    h = torch.randn((TRAIN_BATCH, d), generator=gen, device=DEV)
+    labels = torch.randint(0, n, (TRAIN_BATCH,), generator=gen, device=DEV)
+    tag = f"mesh ({ctx.dp}, {ctx.tp}) rank ({ctx.data_index}, " \
+          f"{ctx.model_index})"
+    kern = mesh_kernel_check(ctx, cfg, w, h)
+    full = mesh_full_check(ctx, w, h, labels, cfg.abs_softmax)
+    gate(f"{tag} full softmax", full, MESH_RTOL)
+    sampled = mesh_sampled_check(ctx, w, h, labels, cfg.m_negatives,
+                                 cfg.abs_softmax, seed=29)
+    gate(f"{tag} sampled softmax at given negatives", sampled, MESH_RTOL)
+    del w, h, labels
+    fit = mesh_fit(cfg, ctx, tag)
+    dec = mesh_decode(cfg, ctx, fit.pop("state"))
+    return {"kernels": kern, "full": full, "sampled": sampled, "fit": fit,
+            "decode": dec,
+            "v_l": rules.vocab_shard(n, ctx.tp),
+            "blocks": -(-rules.vocab_shard(n, ctx.tp) // cfg.sampler_block),
+            "n_valid": step.shard_n_valid(cfg, ctx)}
+
+
+def mesh_rank(rank: int, world: int, addr: str, out: Path) -> int:
+    """One rank process of phase 23b: the gloo world over the shared card,
+    each of MESH_SHAPES in turn; its results to ``out/rank<r>.json``."""
+    if DEV.type == "cuda":
+        torch.cuda.set_device(0)
+    launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
+                                 world_size=world)
+    try:
+        results = {}
+        for dp, tp in MESH_SHAPES:
+            ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                dp, tp, device_type=DEV.type))
+            t0 = time.perf_counter()
+            results[f"{dp}x{tp}"] = {**mesh_checks(ctx),
+                                     "s": time.perf_counter() - t0}
+        if DEV.type == "cuda":
+            results["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        (out / f"rank{rank}.json").write_text(json.dumps(results))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh_nccl(cfg) -> dict[str, int]:
+    """Phase 23a: NCCL on a (1, 1) mesh in this process: one fit step with
+    estimator "full" and MESH_STEP_OPT equal to the mesh=None step within
+    MESH_STEP_RTOL (the loss, and every parameter on its own over its own
+    max), and a block-quadratic step's launches exact.  Returns that
+    step's launches."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(1, 1))
+        full = dataclasses.replace(cfg, estimator="full")
+        res = {}
+        for tag, c in (("mesh", ctx), ("unsharded", None)):
+            res[tag] = loop.fit(
+                full, c, make_optimizer(*MESH_STEP_OPT),
+                batch_iterator_for(full, c, TRAIN_BATCH, 1, seed=0,
+                                   device=DEV), 1, seed=0, log_every=0,
+                device=DEV)
+        want = dict(res["unsharded"].state.params.named_parameters())
+        got = dict(res["mesh"].state.params.named_parameters())
+        errs = {"loss": abs(res["mesh"].losses[0]
+                            - res["unsharded"].losses[0])
+                / abs(res["unsharded"].losses[0]),
+                **{k: rel_err(p, want[k]) for k, p in got.items()}}
+        log(f"[mesh] {backend} (1, 1): one full-softmax fit step "
+            f"({MESH_STEP_OPT}) against the unsharded step, the loss's "
+            f"relative error and each parameter's over its own max {errs}")
+        gate(f"{backend} (1, 1) full step", errs, MESH_STEP_RTOL)
+        del res, want
+        sync()
+        kernels.reset_launch_counts()
+        distributed.reset_collective_counts()
+        t0 = time.perf_counter()
+        loop.fit(cfg, ctx, make_optimizer("adamw", 1e-2, weight_decay=0.0),
+                 batch_iterator_for(cfg, ctx, TRAIN_BATCH, 1, seed=0,
+                                    device=DEV), 1, seed=0, log_every=0,
+                 device=DEV)
+        sync()
+        counts = kernels.launch_counts()
+        want = expected_launches(cfg, 1) if DEV.type == "cuda" \
+            else dict.fromkeys(REPLACES, 0)
+        if counts != want:
+            raise AssertionError(f"{backend} (1, 1) block-quadratic step: "
+                                 f"launches {counts} != {want}")
+        log(f"[mesh] {backend} (1, 1): a block-quadratic fit step (init "
+            f"included) in {time.perf_counter() - t0:.3f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, collectives "
+            f"{distributed.collective_counts()}")
+        return counts
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_mesh() -> dict[str, dict[str, int]]:
+    """Phase 23 (youtube-dnn at full width: 100,000 items, tower (256,
+    128), T 256, m 128, fp32, block-quadratic in blocks of 256, clip +
+    AdamW): 23a over NCCL in this process (``phase_mesh_nccl``); 23b
+    MESH_WORLD rank processes on the card over gloo, each mesh of
+    MESH_SHAPES in turn, every rank: the full softmax's loss and
+    gradients and the sampled softmax's at given negatives against the
+    unsharded loss on the card (MESH_RTOL), MESH_STEPS fit steps (exact
+    launches, falling pool loss), step ms and collectives, the trained
+    head's sharded index decoded at full beam through the engine equal to
+    the sharded and the dense top-k.  The kernels were built by phase 2,
+    so the ranks only load them.  Any rank's failure or timeout fails the
+    phase.  Returns the launches of each path (a mesh's summed over its
+    ranks)."""
+    cfg = get_config("youtube-dnn")
+    t_start = time.perf_counter()
+    by_path = {"mesh nccl (1, 1)": phase_mesh_nccl(cfg)}
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    addr = f"tcp://localhost:{free_port()}"
+    logs = [open(MESH_DIR / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen(
+        [*MESH_RANK_CMD, "--mesh-rank", str(r), "--mesh-addr", addr,
+         "--mesh-device", DEV.type], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    for r in range(MESH_WORLD):
+        for line in (MESH_DIR / f"rank{r}.log").read_text().splitlines():
+            log(f"  [rank {r}] {line}")
+    if codes != [0] * MESH_WORLD:
+        raise AssertionError(f"mesh rank processes failed or timed out: "
+                             f"exit codes {codes}")
+    ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    for dp, tp in MESH_SHAPES:
+        key = f"{dp}x{tp}"
+        total = dict.fromkeys(REPLACES, 0)
+        for r, res in enumerate(ranks):
+            m = res[key]
+            fit = m["fit"]
+            log(f"[mesh] gloo ({dp}, {tp}) rank {r} (data {r // tp}, model "
+                f"{r % tp}): {m['v_l']} head rows, n_valid {m['n_valid']}, "
+                f"{m['blocks']} blocks; kernels at the shard's shapes, "
+                f"max abs err {m['kernels']}; "
+                f"full softmax rel errors {m['full']}"
+                f"; sampled at given negatives {m['sampled']}")
+            log(f"[mesh] gloo ({dp}, {tp}) rank {r}: {MESH_STEPS} fit steps "
+                f"in {fit['fit_s']:.3f} s, pool loss {fit['first']} -> "
+                f"{fit['last']}, launches "
+                f"{ {k: v for k, v in fit['launches'].items() if v} }; "
+                f"step ms {[round(x, 3) for x in fit['step_ms']]} (median "
+                f"{statistics.median(fit['step_ms']):.3f}); one step's "
+                f"collectives {fit['step_collectives']}; the fit's "
+                f"{fit['fit_collectives']}")
+            log(f"[mesh] gloo ({dp}, {tp}) rank {r}: sharded index "
+                f"{m['decode']['index_leaves_per_shard']} leaves of "
+                f"{m['decode']['leaf']} a shard, full-beam decode of "
+                f"{m['decode']['queries']} queries = sharded_logits_topk = "
+                f"dense top-{MESH_TOPK} (logit err "
+                f"{m['decode']['logit_err']}), launches "
+                f"{m['decode']['launches']}; the mesh's checks "
+                f"{m['s']:.3f} s")
+            add_counts(total, fit["launches"])
+        by_path[f"mesh gloo ({dp}, {tp})"] = total
+    log(f"[mesh] rank peak memory GB "
+        f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}; phase 23 "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return by_path
+
+
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
                  by_path: dict[str, dict[str, int]]) -> list[dict]:
     """The kernels line: every kernel's training-shape numbers, its
@@ -5550,7 +6007,16 @@ def main() -> int:
     ap.add_argument("--fresh", action="store_true",
                     help="also train on fresh batches with the sampled and "
                          "the full-softmax loss (phase 6b)")
+    # phase 23's rank processes: the parent starts this script with these
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-addr", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        global DEV
+        DEV = torch.device(args.mesh_device)
+        return mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_addr,
+                         MESH_DIR)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 2
@@ -5675,6 +6141,9 @@ def main() -> int:
     lap("whisper-large-v3 serving (phase 22b)")
     by_path.update(phase_whisper_train())
     lap("whisper-large-v3 training (phase 22c)")
+    torch.cuda.empty_cache()
+    by_path.update(phase_mesh())
+    lap("the vocab-parallel head on a mesh (phase 23)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

@@ -6,9 +6,10 @@ encdec / lstm / recsys); family-specific fields default to "off".  Configs
 are frozen and hashable.  ``reduced()`` derives the CPU smoke-test variant:
 same family and wiring, tiny dims.
 
-``validate()`` checks names against the port's own registries (sampler,
-estimator, head impl), the knob ranges and the rff, tapas and midx knobs;
-the sharding modes' checks join with the mesh (ROADMAP.md A17).
+``validate(tp=...)`` checks names against the port's own registries
+(sampler, estimator, head impl, sharding mode), the knob ranges, the rff,
+tapas and midx knobs, and at a vocab-parallel degree tp that m and the
+tapas pool divide by it.
 """
 from __future__ import annotations
 
@@ -153,6 +154,7 @@ class ArchConfig:
             make_estimator,
         )
         from repro_torch.core.samplers import sampler_from_config
+        from repro_torch.sharding.rules import MODES
 
         def bad(msg: str):
             raise ValueError(f"ArchConfig '{self.name}': {msg}")
@@ -167,6 +169,9 @@ class ArchConfig:
         if self.head_impl not in self.HEAD_IMPLS:
             bad(f"unknown head_impl '{self.head_impl}'; "
                 f"have {list(self.HEAD_IMPLS)}")
+        if self.train_sharding not in MODES:
+            bad(f"unknown train_sharding '{self.train_sharding}'; "
+                f"have {list(MODES)}")
         if self.sampler == "rff" and (self.rff_dim <= 0 or self.rff_tau <= 0):
             bad(f"sampler='rff' needs rff_dim > 0 and rff_tau > 0, "
                 f"got rff_dim={self.rff_dim} rff_tau={self.rff_tau}")

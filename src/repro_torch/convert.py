@@ -21,7 +21,8 @@ Both functions take plain numpy arrays (the JAX side converts with
     encoder-decoder's one dict ``{"self_k", "self_v", "cross_k",
     "cross_v"}``) into the port's.
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
-    ``QuantizedRetrievalIndex``, field by field, into the port's.
+    ``QuantizedRetrievalIndex``, field by field, into the port's (of a
+    sharded one, a mesh rank's own shard).
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
     lstm, LM or encoder-decoder model (params, the ``chain(clip, adamw)``
     or ``chain(clip, adafactor)`` state, the sampler's carried state and
@@ -42,7 +43,8 @@ And back, numpy out:
     the same tree with the port's own tensors as leaves (no copy; a
     ``StackedLM`` layer stack as a ``Stacked`` of its layers' tensors):
     what the checkpoint manager flattens into the reference's keys.
-  * ``index_to_jax`` — a port index's fields as numpy.
+  * ``index_to_jax`` — a port index's fields as numpy (a sharded one
+    gathered over its mesh's model group).
 
 bf16 tensors cross as numpy's 2-byte void type (``|V2``), their raw bits:
 what numpy writes for the reference's bf16 arrays in an ``.npz``.
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
 from repro_torch.models.encdec import STACKS as ENCDEC_STACKS
@@ -70,6 +73,7 @@ from repro_torch.optim import adafactor, adamw, chain, clip_by_global_norm
 from repro_torch.optim.adafactor import stacks as adafactor_stacks
 from repro_torch.serve.quantized_index import QuantizedRetrievalIndex
 from repro_torch.serve.retrieval import RetrievalIndex
+from repro_torch.sharding import rules
 from repro_torch.train.step import TrainState
 from repro_torch.utils.misc import resolve_device
 
@@ -461,25 +465,53 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
 
 
 def index_from_jax(np_fields: dict,
-                   device: str | torch.device | None = None
+                   device: str | torch.device | None = None, ctx=None
                    ) -> RetrievalIndex | QuantizedRetrievalIndex:
     """Reference ``RetrievalIndex`` or ``QuantizedRetrievalIndex`` fields
     (numpy tensors plus the ints ``n``, ``tp``, ``v_shard`` and, for the
-    quantized one, ``bits``) -> the port's index on ``device``."""
+    quantized one, ``bits``) -> the port's index on ``device``.  Of a
+    sharded (tp > 1) ``RetrievalIndex``, whose tensors hold the shards'
+    heaps one after another, a rank of a mesh ``ctx`` of that tp keeps its
+    own shard; without one it raises.  A sharded quantized index is not
+    ported (ROADMAP.md A17)."""
     dev = resolve_device(device)
-    if int(np_fields["tp"]) != 1:
-        raise NotImplementedError("sharded (tp > 1) indexes are not ported "
-                                  "yet")
     cls = QuantizedRetrievalIndex if "bits" in np_fields else RetrievalIndex
+    tp = int(np_fields["tp"])
+    if cls is QuantizedRetrievalIndex and tp != 1:
+        raise NotImplementedError("sharded (tp > 1) quantized indexes are "
+                                  "not ported (ROADMAP.md A17)")
     statics = {f: int(np_fields[f]) for f in ("n", "tp", "v_shard", "bits")
                if f in np_fields}
-    return cls(**{f: _tensor(np_fields[f], dev) for f in cls.TENSORS},
-               **statics)
+    if tp == 1:
+        return cls(**{f: _tensor(np_fields[f], dev) for f in cls.TENSORS},
+                   **statics)
+    if not rules.on_mesh(ctx) or ctx.tp != tp:
+        raise ValueError(f"an index sharded over tp={tp} crosses onto a "
+                         f"rank of a mesh of that tp (ctx)")
+    j = ctx.model_index
+    return cls(**{f: _tensor(np.split(np.asarray(np_fields[f]), tp)[j], dev)
+                  for f in cls.TENSORS}, **statics, shard_index=j)
 
 
-def index_to_jax(index: RetrievalIndex | QuantizedRetrievalIndex) -> dict:
+def index_to_jax(index: RetrievalIndex | QuantizedRetrievalIndex,
+                 ctx=None) -> dict:
     """A port index's fields as host copies (numpy tensors, ints): the
-    keyword arguments of the reference's index class."""
-    return {f.name: host_copy(getattr(index, f.name))
+    keyword arguments of the reference's index class.  A sharded index's
+    tensors are gathered over the model group of its mesh ``ctx``, every
+    rank of which calls this, shard after shard as the reference packs
+    them."""
+    host = host_copy
+    if index.tp != 1:
+        if not rules.on_mesh(ctx) or (ctx.tp, ctx.model_index) != (
+                index.tp, index.shard_index):
+            raise ValueError(f"shard {index.shard_index} of an index "
+                             f"sharded over tp={index.tp} gathers over its "
+                             f"mesh (ctx)")
+
+        def host(x):
+            return host_copy(distributed.all_gather_tiled(
+                x, ctx.model_group))
+    return {f.name: host(getattr(index, f.name))
             if f.name in index.TENSORS else getattr(index, f.name)
-            for f in dataclasses.fields(index)}
+            for f in dataclasses.fields(index) if f.name != "shard_index"}
+

@@ -109,6 +109,9 @@ class Sampler:
     #: True for multi-stage samplers whose runtime state needs the head
     #: table itself (tapas' pool re-scoring) on top of any carried state.
     two_stage: bool = False
+    #: False where the family's statistics on a (data, model) mesh are not
+    #: ported (``check_mesh`` raises).
+    mesh_ready: bool = True
 
     def sample(self, state: Any, h: Tensor, m: int, gen: torch.Generator
                ) -> tuple[Tensor, Tensor]:
@@ -158,6 +161,23 @@ class Sampler:
         if not self.carries_state:
             return empty_state()
         raise NotImplementedError
+
+    def shard_state_shapes(self, cfg, tp: int) -> SamplerState:
+        """One shard's slice of ``state_shapes(cfg, tp)``: the statistics'
+        leading (tp-stacked) axis divided by tp, the constants whole."""
+        full = self.state_shapes(cfg, tp)
+        return SamplerState(
+            stats={k: torch.empty((v.shape[0] // tp, *v.shape[1:]),
+                                  dtype=v.dtype, device="meta")
+                   for k, v in full.stats.items()},
+            const=dict(full.const))
+
+    def check_mesh(self) -> None:
+        """Raise where the family's vocab-sharded form is not ported."""
+        if not self.mesh_ready:
+            raise NotImplementedError(
+                f"sampler '{self.name}' on a mesh (its statistics over the "
+                "model group) is not ported (ROADMAP.md A17)")
 
     def island_state(self, head_full: Tensor, n_valid) -> Any:
         """Runtime state of a NON-carrying sampler, rebuilt from the head."""
@@ -408,6 +428,7 @@ class TreeSampler(Sampler):
     proj_rank: int | None = None
     name: str = "tree-quadratic"
     carries_state = True
+    mesh_ready = False
 
     def _carried_leaf(self, n: int, d: int) -> int:
         if self.leaf_size is not None:
@@ -473,6 +494,7 @@ class RFFSampler(Sampler):
     leaf_size: int | None = None
     name: str = "rff"
     carries_state = True
+    mesh_ready = False
 
     def _leaf_size(self, n: int, d: int) -> int:
         """ONE fallback formula for build_stats and state_shapes."""
@@ -538,6 +560,7 @@ class MIDXSampler(Sampler):
     list_size: int | None = None
     name: str = "midx"
     carries_state = True
+    mesh_ready = False
 
     def build_stats(self, w, n_valid, const):
         s = midx.build(w, codewords=self.codewords, codebooks=self.codebooks,
@@ -718,6 +741,9 @@ class TapasSampler(Sampler):
 
     def supports_head_loss(self) -> bool:
         return self.base.supports_head_loss()
+
+    def check_mesh(self) -> None:
+        self.base.check_mesh()
 
     def island_runtime(self, state, head_full, n_valid):
         return {"base": self.base.island_runtime(state, head_full, n_valid),

@@ -1,9 +1,14 @@
-"""Checkpointable input pipeline, unsharded (``repro.data.pipeline``).
+"""Checkpointable input pipeline (``repro.data.pipeline``).
 
 The iterator is a pure function of (seed, step): restoring ``state_dict()``
 resumes the exact batch sequence.  Each batch gets its own generator,
 seeded from (seed, step) as the reference folds the step into its key.
-The mesh (data-sharded) placement arrives with the multi-device slice.
+
+On a ``(data, model)`` mesh every rank draws the same GLOBAL batch (a pure
+function of (seed, step), so the sequence is the same at any mesh shape)
+and keeps its data block of the rows (``sharding.rules.batch_rows``: data
+rank i holds rows [i B/dp, (i + 1) B/dp), the reference's device order);
+the ranks of one model column hold the same rows.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import SyntheticLM, SyntheticRecsys
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import fold_in, resolve_device
 
 #: the families whose batches are ``SyntheticLM`` token chains
@@ -24,9 +30,7 @@ class ShardedBatchIterator:
     def __init__(self, sample_fn: Callable[[torch.Generator], dict],
                  ctx=None, seed: int = 0, start_step: int = 0,
                  device: str | torch.device | None = None):
-        if ctx is not None and getattr(ctx, "mesh", None) is not None:
-            raise NotImplementedError(
-                "mesh batch placement is not ported yet (ROADMAP.md A17)")
+        self._ctx = ctx if rules.on_mesh(ctx) else None
         self._sample_fn = sample_fn
         self._device = resolve_device(device)
         self._seed = seed
@@ -39,7 +43,11 @@ class ShardedBatchIterator:
         gen = torch.Generator(self._device).manual_seed(
             fold_in(self._seed, self._step))
         self._step += 1
-        return self._sample_fn(gen)
+        batch = self._sample_fn(gen)
+        if self._ctx is None:
+            return batch
+        return {k: rules.batch_rows(x, self._ctx).contiguous()
+                for k, x in batch.items()}
 
     # -- checkpointable state --------------------------------------------
     def state_dict(self) -> dict[str, Any]:

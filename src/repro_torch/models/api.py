@@ -109,6 +109,22 @@ def head_table(params, cfg: ArchConfig) -> torch.Tensor:
     return params.head_w
 
 
+def set_head_table(params: torch.nn.Module, cfg: ArchConfig,
+                   table: torch.nn.Parameter) -> None:
+    """Put ``table`` in the module in place of its head table (a mesh
+    rank's vocab shard).  A head tied to the embedding is also the
+    backbone's input table, which this part holds whole: it raises."""
+    _require_ported(cfg)
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            "a head tied to the embedding table on a mesh (the table "
+            "sharded over the model group) is not ported (ROADMAP.md A17)")
+    if cfg.family in transformer.LM_FAMILIES + ("encdec",):
+        params.head.w = table
+    else:
+        params.head_w = table
+
+
 def hidden_width(cfg: ArchConfig) -> int:
     if cfg.family == "recsys":
         return cfg.tower_dims[-1]

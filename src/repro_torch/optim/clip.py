@@ -21,9 +21,33 @@ def _pieces(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return x.view(-1).split(transform.PIECE)
 
 
+class ShardedGrads(dict):
+    """A mesh rank's gradients: the names in ``sharded`` are its shard of
+    a table split over ``group`` (the head's vocab rows), the rest are
+    whole and alike on the group's ranks.  ``global_norm`` sums the
+    shards' squares over the group, so every rank clips by the norm of the
+    whole model."""
+
+    def __init__(self, grads: dict[str, torch.Tensor], sharded, group):
+        super().__init__(grads)
+        self.sharded = frozenset(sharded)
+        self.group = group
+
+
+def _sum_squares(xs) -> torch.Tensor:
+    return sum(torch.sum(torch.square(p.float()))
+               for x in xs for p in _pieces(x))
+
+
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(p.float()))
-                          for x in tree.values() for p in _pieces(x)))
+    sharded = getattr(tree, "sharded", frozenset())
+    if not sharded:
+        return torch.sqrt(_sum_squares(tree.values()))
+    from repro_torch.core import distributed
+
+    own = _sum_squares(x for k, x in tree.items() if k in sharded)
+    whole = _sum_squares(x for k, x in tree.items() if k not in sharded)
+    return torch.sqrt(whole + distributed.psum(own, tree.group))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransform:

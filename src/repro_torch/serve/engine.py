@@ -18,15 +18,24 @@ cross K/V into the cache and takes the first decoder step from token 0
 at position 0; ``make_decode_step`` takes one greedy step against the
 caches (K/V or MLA's latent rows written in place, mamba states
 replaced) and ``make_topk_step`` one step with a top-k over the
-vocabulary.  The mesh path arrives with its slice.
+vocabulary.
+
+On a ``(data, model)`` mesh (``sharding/rules.py``) each rank runs the
+backbone whole on its data block and holds its vocab shard of the head:
+the dense path merges the shards' candidates through
+``core/distributed.py::sharded_logits_topk`` (padding rows masked), the
+index path through the sharded ``retrieval.decode_topk``; the greedy
+token is the dense path's k = 1.  The quantized index stays unsharded.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.models import api, encdec, transformer
 from repro_torch.serve import quantized_index, retrieval
+from repro_torch.sharding import rules
 
 
 def _decode_step(cfg: ArchConfig):
@@ -41,8 +50,10 @@ def _argmax_island(cfg: ArchConfig, ctx, head, h2d):
     head: (n, d); h2d: (B, d) -> (B,) int32 argmax ids of the fp32 logits
     ``h @ head^T`` over the true vocab — the k = 1 case of the dense
     ``decode_topk`` path, with its tie-breaking: the lowest class id
-    wins (``torch.argmax`` returns the first maximal index)."""
-    retrieval.require_unsharded(ctx)
+    wins (``torch.argmax`` returns the first maximal index).  On a mesh:
+    the sharded dense top-k at k = 1."""
+    if rules.on_mesh(ctx):
+        return decode_topk(cfg, ctx, head, h2d, 1)[0][:, 0]
     logits = h2d.float() @ head.float().T
     if cfg.vocab_size < head.shape[0]:
         logits[:, cfg.vocab_size:] = -torch.inf
@@ -64,10 +75,18 @@ def decode_topk(cfg: ArchConfig, ctx, head, h2d, k: int, *,
     ties to the lowest class id.  With an ``index`` its beam path runs: a
     ``RetrievalIndex``'s hierarchy descent or a ``QuantizedRetrievalIndex``'s
     two stages (exact at full beam, up to row quantization for int8 rows;
-    ``beam`` = recall knob)."""
-    retrieval.require_unsharded(ctx)
-    if index is None:
+    ``beam`` = recall knob).  On a mesh ``head`` is this rank's (v_l, d)
+    shard and ``h2d`` its data block."""
+    mesh = rules.on_mesh(ctx)
+    if index is None and not mesh:
         return retrieval.dense_topk(head, h2d, k, n_valid=cfg.vocab_size)
+    if index is None:
+        v_l = head.shape[0]
+        n_valid = rules.local_n_valid(cfg.vocab_size, v_l, ctx.model_index)
+        bias = torch.where(torch.arange(v_l, device=head.device) < n_valid,
+                           0.0, -torch.inf)
+        return distributed.sharded_logits_topk(
+            head, h2d, k, group=ctx.model_group, bias_local=bias)
     decoder = _DECODERS.get(type(index))
     if decoder is None:
         raise NotImplementedError(
@@ -82,7 +101,7 @@ def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
     (``serve/server.py``): the index is an argument, so the engine's
     double-buffered swap re-binds it per microbatch.  ``index=None`` serves
     the dense head path."""
-    retrieval.require_unsharded(ctx)
+    rules.on_mesh(ctx)
 
     def decode(index, h2d):
         return decode_topk(cfg, ctx, head, h2d, k, index=index, beam=beam)
@@ -99,12 +118,13 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
     (either type; the dense head when ``index`` is None).  ``ids[:, 0]``
     equals ``make_decode_step``'s greedy token when the beam is full (or
     the index absent), ties aside."""
-    retrieval.require_unsharded(ctx)
+    rules.on_mesh(ctx)
     decode_step = _decode_step(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
+        # the backbone is held whole on each rank of a mesh
+        h, caches = decode_step(params, token, caches, pos, cfg)
         head = api.head_table(params, cfg)
         ids, logits = decode_topk(cfg, ctx, head, h[:, 0, :], k,
                                   index=index, beam=beam)
@@ -116,12 +136,13 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
 def make_decode_step(cfg: ArchConfig, ctx):
     """decode_step(params, token (B, 1), caches, pos (B,)) ->
     (next_token (B,), caches)."""
-    retrieval.require_unsharded(ctx)
+    rules.on_mesh(ctx)
     decode_step = _decode_step(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
+        # the backbone is held whole on each rank of a mesh
+        h, caches = decode_step(params, token, caches, pos, cfg)
         head = api.head_table(params, cfg)
         return _argmax_island(cfg, ctx, head, h[:, 0, :]), caches
 
@@ -134,25 +155,23 @@ def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
     prefill(params, {"frames": (B, Sf, d)}) -> (the token after token 0
     at position 0, the decoder's cache: its self K/V of ``max_len``
     positions and every layer's cross K/V over the Sf frames)."""
-    retrieval.require_unsharded(ctx)
+    rules.on_mesh(ctx)
 
     @torch.no_grad()
     def step(params, batch):
         if cfg.family == "encdec":
             frames = batch["frames"]
             b = frames.shape[0]
-            enc_out = encdec.encode(params, frames, cfg, ctx)
-            caches = encdec.init_dec_cache(params, cfg, b, max_len, enc_out,
-                                           ctx)
+            enc_out = encdec.encode(params, frames, cfg)
+            caches = encdec.init_dec_cache(params, cfg, b, max_len, enc_out)
             del enc_out
             tok0 = torch.zeros((b, 1), dtype=torch.long,
                                device=frames.device)
             pos0 = torch.zeros((b,), dtype=torch.long, device=frames.device)
-            h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg,
-                                           ctx)
+            h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg)
         else:
             h, caches = transformer.prefill(params, batch["tokens"], cfg,
-                                            ctx, max_len=max_len)
+                                            max_len=max_len)
         head = api.head_table(params, cfg)
         return _argmax_island(cfg, ctx, head, h[:, -1, :]), caches
 

@@ -24,8 +24,17 @@ and wide levels use the rank-s spectral compression of [gram],
 
 ``use_kernels=None`` means "the tensors are on CUDA", as the reference's
 means "the backend is TPU".  Every top-k breaks ties by the lowest index
-(``utils.misc.top_k``), as ``lax.top_k`` does.  The mesh (vocab-sharded)
-forms arrive with the multi-device slice; a ``ctx`` with a mesh raises.
+(``utils.misc.top_k``), as ``lax.top_k`` does.
+
+On a ``(data, model)`` mesh (``sharding/rules.py``) the index is
+vocab-sharded: ``build_index`` builds one local hierarchy on each rank of
+the model group from its head rows, and the rank keeps only that shard
+(``shard_index``), as the reference's P('model') arrays keep one shard a
+device.  ``decode_topk`` runs the beam over this rank's subtree (the top
+log2(tp) levels of the global hierarchy ARE the shard index) and merges
+the shards' k candidates with one (T, tp k) all-gather and a top-k.  A
+sharded index decodes only on its mesh; ``convert.index_to_jax`` gathers
+the shards into the reference's shard-after-shard layout.
 """
 from __future__ import annotations
 
@@ -34,10 +43,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import hierarchy
+from repro_torch.core import distributed, hierarchy
 from repro_torch.core.hierarchy import HierarchyStats
 from repro_torch.core.midx import pc_bisect_perm
 from repro_torch.kernels import ops
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import log2_int, next_pow2, resolve_device, top_k
 
 Tensor = torch.Tensor
@@ -52,7 +62,10 @@ def require_unsharded(ctx) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class RetrievalIndex:
-    """Packed serving index (unsharded: ``tp == 1``).
+    """Packed serving index; with ``tp > 1`` the tensors hold ONE shard's
+    heap: shard ``shard_index`` of ``tp``, built from head rows
+    [shard_index v_shard, (shard_index + 1) v_shard) (the sizes below are
+    the shard's).
 
     z:       (2L, r, r) fp32 heap-packed per-level Gram sums.
     cnt:     (2L,) fp32 heap-packed per-node true-class counts.
@@ -64,8 +77,9 @@ class RetrievalIndex:
     evals:   (2L, s + 1) fp32 top-s eigenvalues plus the residual cap.
     perm:    (L * leaf,) int32 — packed position -> original row id.
     n:       true class count (rows at/after it are padding).
-    tp:      vocab-parallel degree the heap was packed for (1 here).
+    tp:      vocab-parallel degree the heap was packed for.
     v_shard: embedding rows per shard (>= n when tp == 1).
+    shard_index: the shard these tensors hold (0 when tp == 1).
     """
 
     z: Tensor
@@ -79,12 +93,13 @@ class RetrievalIndex:
     n: int
     tp: int
     v_shard: int
+    shard_index: int = 0
 
     TENSORS = ("z", "cnt", "wq", "mu", "rad", "evecs", "evals", "perm")
 
     @property
     def num_leaves_shard(self) -> int:
-        return self.wq.shape[0] // self.tp
+        return self.wq.shape[0]
 
     @property
     def leaf_size(self) -> int:
@@ -178,29 +193,44 @@ def build_index(w, ctx=None, *, leaf_size: int | None = None,
                 device: str | torch.device | None = None) -> RetrievalIndex:
     """Build the serving index from a class-embedding table.
 
-    w: (n, d) head table (numpy or tensor), UNPROJECTED.  A numpy table is
-    moved to ``device`` (the card unless ``device="cpu"``; no device and no
-    CUDA raises); a tensor stays on its device unless ``device`` is given.
+    w: (n, d) head table (numpy or tensor), UNPROJECTED; with a mesh ctx
+    this rank's (v_l, d) vocab shard (a mesh train state's head).  A numpy
+    table is moved to ``device`` (the card unless ``device="cpu"``; no
+    device and no CUDA raises); a tensor stays on its device unless
+    ``device`` is given.
     vocab_size: true class count when ``w`` carries divisibility padding.
-    cluster: PC-bisection co-clustering of the rows (recommended)."""
-    require_unsharded(ctx)
+    cluster: PC-bisection co-clustering of the rows (recommended; on a
+    mesh each shard clusters its own rows)."""
     if isinstance(w, np.ndarray):
         w = torch.from_numpy(w).to(resolve_device(device))
     elif device is not None:
         w = w.to(device)
     n_rows, d = w.shape
-    n = vocab_size if vocab_size is not None else n_rows
+    if not rules.on_mesh(ctx):
+        n = vocab_size if vocab_size is not None else n_rows
+        leaf = leaf_size or default_leaf_size(n_rows, d)
+        z, cnt, wq, mu, rad, evc, evl, perm = _build_local(w, leaf, n,
+                                                           cluster)
+        return RetrievalIndex(z, cnt, wq, mu, rad, evc, evl, perm, n=n,
+                              tp=1, v_shard=n_rows)
+    n = vocab_size if vocab_size is not None else n_rows * ctx.tp
     leaf = leaf_size or default_leaf_size(n_rows, d)
-    z, cnt, wq, mu, rad, evc, evl, perm = _build_local(w, leaf, n, cluster)
-    return RetrievalIndex(z, cnt, wq, mu, rad, evc, evl, perm, n=n, tp=1,
-                          v_shard=n_rows)
+    j = ctx.model_index
+    return RetrievalIndex(
+        *_build_local(w, leaf, rules.local_n_valid(n, n_rows, j), cluster),
+        n=n, tp=ctx.tp, v_shard=n_rows, shard_index=j)
 
 
-def index_stats(index: RetrievalIndex, shard: int = 0,
+def index_stats(index: RetrievalIndex, shard: int | None = None,
                 n_valid: Tensor | int | None = None) -> HierarchyStats:
-    """Rehydrate the heap tensors into ``HierarchyStats``."""
+    """Rehydrate the heap tensors into ``HierarchyStats``: the index's own
+    shard (``shard``, when given, must name it)."""
+    if shard is not None and shard != index.shard_index:
+        raise ValueError(f"the index holds shard {index.shard_index}, "
+                         f"not {shard}")
     if n_valid is None:
-        n_valid = min(max(index.n - shard * index.v_shard, 0), index.v_shard)
+        n_valid = rules.local_n_valid(index.n, index.v_shard,
+                                      index.shard_index)
     return hierarchy.from_heap(index.z, index.cnt, index.wq, n_valid)
 
 
@@ -347,6 +377,22 @@ def topk(stats: HierarchyStats, h: Tensor, k: int, beam: int | None = None,
     return leaf_topk(stats, h, leaves, k, use_kernels=use_kernels)
 
 
+def _shard_topk(index: RetrievalIndex, h: Tensor, k: int,
+                beam: int | None, **knobs) -> tuple[Tensor, Tensor]:
+    """The index's own shard's beam retrieval: (GLOBAL ids (T, k) int32,
+    logits)."""
+    depth = log2_int(index.num_leaves_shard)
+    stats = index_stats(index)
+    ball = (hierarchy.unpack_levels(index.mu, depth),
+            hierarchy.unpack_levels(index.rad, depth))
+    spec = (hierarchy.unpack_levels(index.evecs, depth),
+            hierarchy.unpack_levels(index.evals, depth))
+    pos, logits = topk(stats, h, k, beam, ball=ball, spec=spec, **knobs)
+    # packed -> original local -> global
+    return (index.perm[pos.long()] + index.shard_index * index.v_shard,
+            logits)
+
+
 @torch.no_grad()
 def decode_topk(index: RetrievalIndex, h: Tensor, k: int,
                 beam: int | None = None, ctx=None, *,
@@ -356,18 +402,28 @@ def decode_topk(index: RetrievalIndex, h: Tensor, k: int,
     """Top-k ids + logits over the full vocab through the packed index.
 
     h: (T, d) hidden states on the index's device -> (ids (T, k) int32
-    class ids, logits (T, k) fp32 exact dots), sorted descending."""
-    require_unsharded(ctx)
-    depth = log2_int(index.num_leaves_shard)
-    stats = index_stats(index)
-    ball = (hierarchy.unpack_levels(index.mu, depth),
-            hierarchy.unpack_levels(index.rad, depth))
-    spec = (hierarchy.unpack_levels(index.evecs, depth),
-            hierarchy.unpack_levels(index.evals, depth))
-    pos, logits = topk(stats, h, k, beam, ball=ball, spec=spec,
-                       use_kernels=use_kernels, dense_cap=dense_cap,
-                       gram_cap=gram_cap)
-    return index.perm[pos.long()], logits
+    class ids, logits (T, k) fp32 exact dots), sorted descending.
+
+    On a mesh this rank retrieves from its own shard's subtree and the
+    model group merges every shard's k candidates (one all-gather of (T,
+    tp k)).  A sharded index without its mesh raises."""
+    knobs = dict(use_kernels=use_kernels, dense_cap=dense_cap,
+                 gram_cap=gram_cap)
+    if not rules.on_mesh(ctx):
+        if index.tp != 1:
+            raise ValueError(f"an index sharded over tp={index.tp} decodes "
+                             f"on its mesh (ctx)")
+        return _shard_topk(index, h, k, beam, **knobs)
+    if (index.tp, index.shard_index) != (ctx.tp, ctx.model_index):
+        raise ValueError(f"shard {index.shard_index} of an index packed for "
+                         f"tp={index.tp} on model position "
+                         f"{ctx.model_index} of tp={ctx.tp}")
+    ids, logits = _shard_topk(index, h, k, beam, **knobs)
+    group = ctx.model_group
+    all_ids = distributed.all_gather_tiled(ids, group, dim=1)
+    all_logits = distributed.all_gather_tiled(logits, group, dim=1)
+    logits, sel = top_k(all_logits, k)
+    return torch.gather(all_ids, 1, sel), logits
 
 
 # --- measurement -------------------------------------------------------------

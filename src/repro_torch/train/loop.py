@@ -21,6 +21,11 @@ iterator and the steps' generators are pure functions of (seed, step).
 ``refresh_mode="overlap"``: a ``RefreshIsland`` rebuilds the sampler's
 statistics from snapshots on a side CUDA stream and swaps them in a fixed
 ``refresh_stale_steps`` later.
+
+On a ``(data, model)`` mesh ``fit`` runs on every rank with the same
+arguments and ``data`` built with the same ctx: the sync refresh, the
+losses alike on every rank.  Overlap and checkpoints on a mesh raise
+(ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.samplers import SamplerState
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.models import api
 from repro_torch.optim.transform import GradientTransform
+from repro_torch.sharding import rules
 from repro_torch.train.step import (
     TrainState,
     init_train_state,
@@ -198,6 +204,10 @@ def fit(cfg: ArchConfig, ctx, opt: GradientTransform,
     there is one, else from a fresh state drawn from ``seed``.
     ``max_len`` sizes an encoder-decoder's learned position tables, as in
     the reference (the other families have none)."""
+    if checkpoint_dir and rules.on_mesh(ctx):
+        raise NotImplementedError(
+            "checkpoints on a mesh (per-process shards) are not ported "
+            "(ROADMAP.md A17)")
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, ctx, opt)
     island = RefreshIsland(cfg, ctx, dev) \

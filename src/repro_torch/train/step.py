@@ -22,7 +22,20 @@ The refresh branches on the host (the reference computes both sides and
 selects with ``jnp.where``; the result is the same).  Under
 ``refresh_mode="overlap"`` the step never rebuilds: the loop's
 ``RefreshIsland`` rebuilds from a snapshot of the head on a side stream
-and swaps the result in.  A mesh raises ``NotImplementedError``.
+and swaps the result in.
+
+On a ``(data, model)`` mesh (``sharding/rules.py::mesh_ctx``) each rank
+holds the backbone whole, its vocab shard of the head (``shard_head``) and
+its shard of the sampler's statistics, and trains on its data block of
+the batch: the refresh rebuilds the shard's statistics from its rows with
+its ``n_valid``; the loss goes through
+``core/distributed.py::sharded_estimator_loss`` over the model group with
+the step's generator folded by the data position (the shard index is
+folded in below it); the loss sum is a psum over the data group; after
+the backward every gradient is all-reduced over the data group, and
+clipping's global norm sums the head shards' squares over the model group.
+The overlap island, the tree, rff and midx statistics, expert
+parallelism, a tied head and Adafactor on a mesh raise (ROADMAP.md A17).
 
 ``serving_index_source`` is the seam between training and serving: it
 restores the newest complete checkpoint and exports a fresh serving index
@@ -38,16 +51,18 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import estimators
+from repro_torch.core import distributed, estimators
 from repro_torch.core.samplers import (
     SamplerState,
     empty_state,
     sampler_from_config,
 )
 from repro_torch.models import api
+from repro_torch.optim.clip import ShardedGrads
 from repro_torch.optim.transform import GradientTransform, apply_updates
 from repro_torch.serve import quantized_index, retrieval
-from repro_torch.utils.misc import fold_in, resolve_device
+from repro_torch.sharding import rules
+from repro_torch.utils.misc import fold_generator, fold_in, resolve_device
 
 Tensor = torch.Tensor
 
@@ -73,22 +88,74 @@ def param_dict(model: torch.nn.Module) -> dict[str, Tensor]:
     return dict(model.named_parameters())
 
 
+_A17 = "(ROADMAP.md A17)"
+
+
+def _on_mesh(cfg: ArchConfig, ctx) -> bool:
+    """True on a mesh, after refusing what this part does not port: the
+    sampler families whose statistics are not sharded, expert parallelism,
+    a head tied to the embedding, the overlap island."""
+    if not rules.on_mesh(ctx):
+        return False
+    sampler_from_config(cfg).check_mesh()
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"expert parallelism (models/moe.py) on a mesh is not ported "
+            f"{_A17}")
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"a head tied to the embedding on a mesh is not ported {_A17}")
+    if cfg.refresh_mode == "overlap":
+        raise NotImplementedError(
+            f"refresh_mode='overlap' on a mesh is not ported {_A17}")
+    return True
+
+
+def _factored(opt_state) -> bool:
+    """True when the optimizer's state holds Adafactor's factored second
+    moments (``{"v", "step"}``), which reduce over the head's rows."""
+    states = opt_state if isinstance(opt_state, tuple) else (opt_state,)
+    return any(isinstance(s, dict) and set(s) == {"v", "step"}
+               for s in states)
+
+
+def shard_n_valid(cfg: ArchConfig, ctx) -> int:
+    """True classes among this rank's head rows (all of them unsharded)."""
+    if not rules.on_mesh(ctx):
+        return cfg.vocab_size
+    v_l = rules.vocab_shard(cfg.vocab_size, ctx.tp)
+    return rules.local_n_valid(cfg.vocab_size, v_l, ctx.model_index)
+
+
+def shard_head(model: torch.nn.Module, cfg: ArchConfig, ctx
+               ) -> torch.nn.Module:
+    """Keep this rank's V-rule rows of the model's head (in place): the
+    whole table padded with zero rows to tp * v_l, rows [j v_l, (j + 1)
+    v_l) for model position j.  Returns the model."""
+    head = api.head_table(model, cfg).detach()
+    api.set_head_table(model, cfg,
+                       torch.nn.Parameter(rules.shard_rows(head, ctx)))
+    return model
+
+
 def make_refresh_fn(cfg: ArchConfig, ctx=None
                     ) -> Callable[[Tensor, SamplerState], SamplerState]:
-    """Unconditional sampler-stat rebuild from the head table.  A no-op
-    (state passes through) for stateless samplers or dense estimators."""
-    retrieval.require_unsharded(ctx)
-    cfg.validate()
+    """Unconditional sampler-stat rebuild from the head table (on a mesh,
+    this rank's shard from its rows and ``n_valid``).  A no-op (state
+    passes through) for stateless samplers or dense estimators."""
+    mesh = _on_mesh(cfg, ctx)
+    cfg.validate(tp=ctx.tp if mesh else 1)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     carries_stats = sampler.carries_state and estimator.needs_sampling
+    n_valid = shard_n_valid(cfg, ctx)
 
     @torch.no_grad()
     def refresh_fn(head: Tensor, sampler_state: SamplerState
                    ) -> SamplerState:
         if not carries_stats:
             return sampler_state
-        stats = sampler.build_stats(head.detach(), cfg.vocab_size,
+        stats = sampler.build_stats(head.detach(), n_valid,
                                     sampler_state.const)
         return SamplerState(stats=stats, const=dict(sampler_state.const))
 
@@ -119,9 +186,10 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
                     ) -> Callable[[TrainState, dict, torch.Generator],
                                   tuple[TrainState, dict]]:
     """``train_step(state, batch, gen) -> (state, metrics)``; ``gen``
-    draws the step's negatives."""
-    retrieval.require_unsharded(ctx)
-    cfg.validate()
+    draws the step's negatives.  On a mesh ``batch`` is this rank's data
+    block and ``gen`` the step's generator, alike on every rank."""
+    mesh = _on_mesh(cfg, ctx)
+    cfg.validate(tp=ctx.tp if mesh else 1)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     m = cfg.m_negatives
@@ -129,8 +197,12 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
     every = max(cfg.sampler_refresh_every, 1)
     # overlap: the loop's RefreshIsland rebuilds and swaps the statistics in
     in_step_refresh = cfg.refresh_mode != "overlap"
+    n_valid = shard_n_valid(cfg, ctx)
+    mg = ctx.model_group if mesh else None
+    dg = ctx.data_group if mesh else None
+    dp = ctx.dp if mesh else 1
 
-    def loss_fn(model, mb, sstate, gen):
+    def local_loss(model, mb, sstate, gen):
         h2d, labels, aux = api.backbone_hidden(model, mb, cfg)
         head = api.head_table(model, cfg)
         lsum = torch.sum(estimators.local_sampled_loss(
@@ -140,6 +212,27 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         loss = lsum / h2d.shape[0]
         return loss + aux_coef * aux, loss, aux
 
+    def mesh_loss(model, mb, sstate, gen):
+        """The head island of the reference's shard_map: this rank's rows
+        and head shard; the returned loss is the GLOBAL mean, alike on
+        every rank."""
+        h2d, labels, aux = api.backbone_hidden(model, mb, cfg)
+        head = api.head_table(model, cfg)
+        state_local = None
+        if estimator.needs_sampling:
+            with torch.no_grad():
+                state_local = sampler.island_runtime(sstate, head.detach(),
+                                                     n_valid)
+        losses = distributed.sharded_estimator_loss(
+            estimator, head, distributed.replicated(h2d, mg), labels,
+            sampler, state_local, m, fold_generator(gen, ctx.data_index),
+            group=mg, abs_mode=cfg.abs_softmax, impl=cfg.head_impl)
+        lsum = distributed.psum(torch.sum(losses), dg)
+        loss = lsum / (h2d.shape[0] * dp)
+        return loss + aux_coef * aux, loss, aux
+
+    loss_fn = mesh_loss if mesh else local_loss
+
     def accumulate(model, params, mb, sstate, gen):
         """One (micro)batch's loss, its gradients ADDED into each
         parameter's ``.grad`` (autograd frees each incoming gradient as
@@ -148,8 +241,19 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         torch.autograd.backward(total, inputs=list(params.values()))
         return total.detach(), loss.detach(), aux.detach()
 
+    head_names: tuple[str, ...] = ()
+
     def train_step(state: TrainState, batch: dict, gen: torch.Generator
                    ) -> tuple[TrainState, dict]:
+        nonlocal head_names
+        if mesh and not head_names:
+            if _factored(state.opt_state):
+                raise NotImplementedError(
+                    "Adafactor on a mesh (the head shard's factored "
+                    f"statistics summed over the model group) {_A17}")
+            head = api.head_table(state.params, cfg)
+            head_names = tuple(k for k, p in param_dict(state.params).items()
+                               if p is head)
         sstate = state.sampler_state
         if in_step_refresh and state.step % every == 0:
             sstate = refresh_fn(api.head_table(state.params, cfg), sstate)
@@ -166,12 +270,20 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
             # fp32 parameters; for bf16 ones an fp32 sum would be twice
             # the parameters' bytes).
             total = loss = aux = 0.0
-            for mb in _split_microbatches(batch, mu):
-                t_i, l_i, a_i = accumulate(state.params, params, mb, sstate,
-                                           gen)
+            for i, mb in enumerate(_split_microbatches(batch, mu)):
+                # on a mesh each microbatch's negatives from its own key,
+                # as the reference splits it
+                t_i, l_i, a_i = accumulate(
+                    state.params, params, mb, sstate,
+                    fold_generator(gen, i) if mesh else gen)
                 total, loss, aux = total + t_i, loss + l_i, aux + a_i
             total, loss, aux = total / mu, loss / mu, aux / mu
         grads = {k: _take_grad(p, mu) for k, p in params.items()}
+        if mesh:
+            if dp > 1:
+                for g in grads.values():
+                    distributed.all_reduce_(g, "sum", dg)
+            grads = ShardedGrads(grads, head_names, mg)
         updates, opt_state = opt.update(grads, state.opt_state, params)
         del grads
         apply_updates(params, updates)
@@ -225,13 +337,21 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
     sampler's constants come from a generator seeded off ``key``'s seed, as
     the reference folds 7 into its key.  ``max_len`` sizes an
     encoder-decoder's learned position tables, as in the reference (the
-    other families have none)."""
-    retrieval.require_unsharded(ctx)
-    cfg.validate()
+    other families have none).
+
+    On a mesh every rank draws the same whole model from ``key`` (so the
+    weights are those of the unsharded init) and keeps its head shard
+    (``shard_head``); its statistics are built from that shard's rows (the
+    reference allocates zeros, which the first step's refresh
+    overwrites)."""
+    mesh = _on_mesh(cfg, ctx)
+    cfg.validate(tp=ctx.tp if mesh else 1)
     dev = resolve_device(device)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     model = api.init_module(cfg, key, device=dev, max_len=max_len)
+    if mesh:
+        shard_head(model, cfg, ctx)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
@@ -240,7 +360,7 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
         with torch.no_grad():
             sstate = sampler.init_state(const_gen,
                                         api.head_table(model, cfg).detach(),
-                                        n_valid=cfg.vocab_size)
+                                        n_valid=shard_n_valid(cfg, ctx))
     return TrainState(params=model, opt_state=opt_state,
                       sampler_state=sstate, step=0)
 
@@ -250,15 +370,18 @@ def abstract_train_state(cfg: ArchConfig, ctx, opt: GradientTransform,
     """The train state's structure on the ``meta`` device, nothing
     allocated: the restore template of ``CheckpointManager.restore``.
     Shapes and dtypes are those ``init_train_state`` gives at the same
-    ``max_len``."""
-    retrieval.require_unsharded(ctx)
-    cfg.validate()
+    ``max_len``: on a mesh this rank's head shard and statistics shard."""
+    mesh = _on_mesh(cfg, ctx)
+    cfg.validate(tp=ctx.tp if mesh else 1)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
     model = api.abstract_params(cfg, max_len)
+    if mesh:
+        shard_head(model, cfg, ctx)
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
-        sstate = sampler.state_shapes(cfg)
+        sstate = (sampler.shard_state_shapes(cfg, ctx.tp) if mesh
+                  else sampler.state_shapes(cfg))
     return TrainState(params=model, opt_state=opt.init(param_dict(model)),
                       sampler_state=sstate, step=0)
 
@@ -287,6 +410,9 @@ def serving_index_source(checkpoint_dir: str, cfg: ArchConfig, ctx,
     step served untouched, so the next poll retries it."""
     from repro_torch.checkpoint.manager import CheckpointManager
 
+    if rules.on_mesh(ctx):
+        raise NotImplementedError(
+            f"per-process shard checkpoints are not ported {_A17}")
     dev = resolve_device(device)
     mgr = CheckpointManager(checkpoint_dir)
     like = abstract_train_state(cfg, ctx, opt, max_len=max_len)

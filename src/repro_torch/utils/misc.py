@@ -48,3 +48,12 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def fold_generator(gen: torch.Generator, i: int) -> torch.Generator:
+    """A fresh generator on ``gen``'s device seeded from (``gen``'s seed,
+    i): the counterpart of ``jax.random.fold_in(key, i)`` on a step's
+    key.  A pure function of the seed ``gen`` was made with, like a JAX
+    key, whatever ``gen`` has drawn since."""
+    return torch.Generator(gen.device).manual_seed(
+        fold_in(gen.initial_seed(), i))

@@ -1,0 +1,489 @@
+"""The port's train step on a (data, model) mesh (``train/step.py``,
+``train/loop.py``, ``data/pipeline.py``, ``sharding/rules.py``,
+``launch/mesh.py``) against the reference's single-host results.
+
+The ranks run on gloo (``torch_mesh_util``) at (1, 2), (2, 2) and (1, 4);
+the reference runs here, on one host device, since what is held is
+computed shard by shard or equals the unsharded step:
+
+  * the sharded refresh's statistics of each shard against the
+    reference's ``sampler.build_stats`` on that shard's rows and n_valid
+    (vocab 250: the last shard padded), with and without a projection;
+  * batch placement: each data rank's rows of the global batch;
+  * one step with ``estimator="full"`` (clip + AdamW) against the
+    reference's ``mesh=None`` step and the port's own, on
+    ``youtube-dnn.reduced()`` and ``llama3-8b.reduced(vocab_size=500)``:
+    the loss and every updated parameter, the head gathered from its
+    shards, fp32 within 1e-5;
+  * the clip's global norm of a rank's ``ShardedGrads`` (its head shard,
+    the rest whole) equal to the norm of the whole gradients, and the
+    clipped shards equal to the whole clip's rows, at a norm above the
+    clip threshold;
+  * three ``fit`` steps of block-quadratic and tapas: finite losses alike
+    on every rank, the backbone alike on every rank;
+  * the parts left for later raise ``NotImplementedError`` naming A17.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from torch_mesh_util import MESHES, close, mesh_id, start_meshes
+
+torch.set_num_threads(1)
+
+VOCAB_R, PROJ = 250, 8
+FIT_STEPS = 3
+FIT_FAMILIES = ("block-quadratic", "tapas")
+REFRESH_FAMILIES = ("block-quadratic", "block-quadratic-shared")
+STEP_CONFIGS = ("youtube-dnn", "llama3-8b")
+BATCH = {"youtube-dnn": (16, 1), "llama3-8b": (4, 8)}
+#: AdamW's eps at 1e-3, as the port's dense step tests: at 1e-8 the first
+#: step's update g / (|g| + eps) turns a 1e-13 difference of a ~1e-8
+#: gradient into a visible one
+STEP_OPT = dict(lr=1e-2, eps=1e-3)
+
+
+def _cfg(name: str, **changes):
+    from repro_torch.configs import get_config
+
+    if name == "llama3-8b":
+        changes.setdefault("vocab_size", 500)
+    return get_config(name).reduced(**changes)
+
+
+def _refresh_cfg(family: str):
+    return _cfg("youtube-dnn", vocab_size=VOCAB_R, sampler=family,
+                sampler_block=16, sampler_proj_rank=(
+                    PROJ if family == "block-quadratic" else None))
+
+
+def _numpy(named: dict) -> dict:
+    return {k: v.detach().numpy().copy() for k, v in named.items()}
+
+
+def _unsharded_step(cfg, np_params, batch: dict) -> tuple:
+    """The port's mesh=None step from the reference's parameters."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import step
+
+    model = _module(cfg, np_params)
+    opt = make_optimizer("adamw", **STEP_OPT)
+    state = step.TrainState(model, opt.init(step.param_dict(model)),
+                            step.empty_state(), 0)
+    state, metrics = step.make_train_step(cfg, None, opt)(
+        state, {k: torch.from_numpy(v.copy()) for k, v in batch.items()},
+        torch.Generator().manual_seed(1))
+    return float(metrics["loss"]), _numpy(dict(model.named_parameters()))
+
+
+def _module(cfg, np_params):
+    from repro_torch import convert
+    from repro_torch.models.transformer import StackedLM
+
+    p = convert.params_from_jax(np_params, cfg, device="cpu")
+    return p if isinstance(p, torch.nn.Module) else StackedLM(
+        cfg, "cpu", tree=p)
+
+
+def _train_worker(ctx, inp: dict) -> dict:
+    from repro_torch.core.samplers import SamplerState
+    from repro_torch.data.pipeline import batch_iterator_for
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding import rules
+    from repro_torch.train import loop, step
+
+    out: dict = {"refresh": {}, "steps": {}, "fit": {}}
+    head = torch.from_numpy(inp["head"])
+    for fam in REFRESH_FAMILIES:
+        cfg = _refresh_cfg(fam)
+        const = ({"proj": torch.from_numpy(inp["proj"])}
+                 if cfg.sampler_proj_rank else {})
+        new = step.make_refresh_fn(cfg, ctx)(rules.shard_rows(head, ctx),
+                                             SamplerState({}, const))
+        out["refresh"][fam] = _numpy(new.stats)
+
+    cfg = _cfg("youtube-dnn")
+    data = batch_iterator_for(cfg, ctx, 8, 1, seed=4, device="cpu")
+    out["batches"] = [_numpy(next(data)) for _ in range(2)]
+
+    for name in STEP_CONFIGS:
+        cfg = _cfg(name, estimator="full")
+        model = step.shard_head(_module(cfg, inp[f"{name}_params"]), cfg,
+                                ctx)
+        opt = make_optimizer("adamw", **STEP_OPT)
+        state = step.TrainState(model, opt.init(step.param_dict(model)),
+                                step.empty_state(), 0)
+        batch = {k: rules.batch_rows(torch.from_numpy(v.copy()), ctx)
+                 for k, v in inp[f"{name}_batch"].items()}
+        state, metrics = step.make_train_step(cfg, ctx, opt)(
+            state, batch, torch.Generator().manual_seed(1))
+        out["steps"][name] = (float(metrics["loss"]),
+                              _numpy(dict(model.named_parameters())))
+
+    for fam in FIT_FAMILIES:
+        cfg = _cfg("youtube-dnn", sampler=fam)
+        res = loop.fit(cfg, ctx, make_optimizer("adamw", 1e-2),
+                       batch_iterator_for(cfg, ctx, 16, 1, device="cpu"),
+                       FIT_STEPS, log_every=0, device="cpu")
+        out["fit"][fam] = (res.losses,
+                           _numpy(dict(res.state.params.named_parameters())),
+                           {k: tuple(v.shape) for k, v in
+                            res.state.sampler_state.stats.items()})
+    out["clip"] = _sharded_clip(ctx, _clip_grads())
+    out["raises"] = _raises(ctx, inp["tmp"])
+    out["abstract"] = _abstract_vs_init(ctx)
+    return out
+
+
+def _clip_grads() -> dict:
+    """Gradients of a whole model: a head table and two backbone tensors,
+    their global norm well above the clip threshold of 1."""
+    g = torch.Generator().manual_seed(9)
+    return {"head_w": torch.randn((VOCAB_R, 8), generator=g),
+            "tower": torch.randn((5, 8), generator=g),
+            "bias": torch.randn((3,), generator=g)}
+
+
+def _sharded_clip(ctx, whole: dict) -> tuple:
+    """(global norm, clipped gradients) of this rank's ``ShardedGrads``:
+    its head shard, the backbone whole."""
+    from repro_torch.optim.clip import (
+        ShardedGrads,
+        clip_by_global_norm,
+        global_norm,
+    )
+    from repro_torch.sharding import rules
+
+    grads = ShardedGrads({k: rules.shard_rows(v, ctx) if k == "head_w"
+                          else v.clone() for k, v in whole.items()},
+                         ("head_w",), ctx.model_group)
+    norm = float(global_norm(grads))
+    clipped, _ = clip_by_global_norm(1.0).update(grads, (), None)
+    return norm, _numpy(clipped)
+
+
+def _abstract_vs_init(ctx) -> tuple:
+    """(abstract, concrete) train-state shapes of one rank: parameters,
+    AdamW moments and the sampler's statistics."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import step
+
+    cfg = _cfg("youtube-dnn")
+    opt = make_optimizer("adamw", 1e-2)
+
+    def shapes(state):
+        return ({k: tuple(p.shape)
+                 for k, p in state.params.named_parameters()},
+                {k: tuple(v.shape)
+                 for k, v in state.opt_state[1]["m"].items()},
+                {k: tuple(v.shape)
+                 for k, v in state.sampler_state.stats.items()})
+
+    return (shapes(step.abstract_train_state(cfg, ctx, opt)),
+            shapes(step.init_train_state(torch.Generator(), cfg, ctx, opt,
+                                         device="cpu")))
+
+
+def _raises(ctx, tmp: str) -> dict:
+    """Each part left for later, and what it raised."""
+    from repro_torch.data.pipeline import batch_iterator_for
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding import rules
+    from repro_torch.train import loop, step
+
+    opt = make_optimizer("adamw", 1e-2)
+    cfg = _cfg("youtube-dnn")
+    state = step.init_train_state(torch.Generator().manual_seed(0), cfg, ctx,
+                                  opt, device="cpu")
+    cases = {
+        **{f"sampler {s}": lambda s=s: step.make_train_step(
+            dataclasses.replace(cfg, sampler=s), ctx, opt)
+           for s in ("tree-quadratic", "rff", "midx")},
+        "overlap": lambda: step.make_train_step(dataclasses.replace(
+            cfg, refresh_mode="overlap", sampler_refresh_every=4), ctx, opt),
+        "checkpoint": lambda: loop.fit(
+            cfg, ctx, opt, batch_iterator_for(cfg, ctx, 16, 1,
+                                              device="cpu"), 1,
+            checkpoint_dir=tmp, device="cpu"),
+        "pure_fsdp": lambda: rules.mesh_ctx(ctx.mesh, mode="pure_fsdp"),
+        "seq_residuals": lambda: rules.mesh_ctx(ctx.mesh,
+                                                seq_residuals=True),
+        "backbone specs": lambda: rules.param_specs_for(state.params, ctx),
+        "experts": lambda: step.make_train_step(
+            _cfg("dbrx-132b"), ctx, opt),
+        "tied head": lambda: step.init_train_state(
+            torch.Generator(), _cfg("llama3-8b", tie_embeddings=True), ctx,
+            opt, device="cpu"),
+        "quantized index": lambda: step.export_quantized_index(state, cfg,
+                                                              ctx),
+        "checkpoint source": lambda: step.serving_index_source(
+            tmp, cfg, ctx, opt, device="cpu"),
+        "adafactor": lambda: step.make_train_step(
+            cfg, ctx, make_optimizer("adafactor", 1e-2))(
+                step.init_train_state(torch.Generator(), cfg, ctx,
+                                      make_optimizer("adafactor", 1e-2),
+                                      device="cpu"),
+                next(batch_iterator_for(cfg, ctx, 16, 1, device="cpu")),
+                torch.Generator()),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = None
+        except Exception as e:  # noqa: BLE001 - the test reads the type
+            out[name] = (type(e).__name__, str(e))
+    head_spec = rules.param_specs_for({"head_w": state.params.head_w}, ctx)
+    out["head spec"] = head_spec["head_w"]
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The reference's results and each mesh's ranks' results: the ranks
+    start first, the reference's steps run here meanwhile, from the same
+    initial parameters and batches (drawn by the port, as numpy)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.core.samplers import empty_state as jempty_state
+    from repro.optim import make_optimizer as jmake_optimizer
+    from repro.sharding.rules import local_ctx
+    from repro.train import step as jstep
+    from repro_torch import convert
+    from repro_torch.data.pipeline import batch_iterator_for
+    from repro_torch.models import api
+
+    base = tmp_path_factory.mktemp("mesh_train")
+    rng = np.random.default_rng(41)
+    d = _cfg("youtube-dnn").tower_dims[-1]
+    inp = {"head": (rng.normal(size=(VOCAB_R, d)) * 0.3).astype(np.float32),
+           "proj": (rng.normal(size=(PROJ, d)) / np.sqrt(PROJ)).astype(
+               np.float32),
+           "tmp": str(base / "ckpt")}
+    for name in STEP_CONFIGS:
+        cfg = _cfg(name, estimator="full")
+        inp[f"{name}_params"] = convert.params_to_jax(api.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        inp[f"{name}_batch"] = _numpy(next(batch_iterator_for(
+            cfg, None, *BATCH[name], seed=3, device="cpu")))
+    started = start_meshes(_train_worker, base, inp)
+    ref: dict = {}
+    for name in STEP_CONFIGS:
+        kw = {"vocab_size": 500} if name == "llama3-8b" else {}
+        jcfg = jget_config(name).reduced(estimator="full", **kw)
+        jopt = jmake_optimizer("adamw", **STEP_OPT)
+        params = jax.tree_util.tree_map(jnp.asarray, inp[f"{name}_params"])
+        state = jstep.TrainState(params=params, opt_state=jopt.init(params),
+                                 sampler_state=jempty_state(),
+                                 step=jnp.zeros((), jnp.int32))
+        new, metrics = jax.jit(jstep.make_train_step(jcfg, local_ctx(),
+                                                     jopt))(
+            state, inp[f"{name}_batch"], jax.random.PRNGKey(1))
+        ref[name] = (float(metrics["loss"]),
+                     jax.tree_util.tree_map(np.asarray, new.params))
+    return inp, ref, {mesh: r.result() for mesh, r in started.items()}
+
+
+def test_mesh_shape_for_matches_reference():
+    from repro.launch.mesh import mesh_shape_for as jmesh_shape_for
+    from repro_torch.launch.mesh import mesh_shape_for
+
+    for devices in range(1, 17):
+        for tp in range(0, 5):
+            try:
+                want = jmesh_shape_for(devices, tp)
+            except ValueError as e:
+                with pytest.raises(ValueError, match="does not divide"):
+                    mesh_shape_for(devices, tp)
+                assert "does not divide" in str(e)
+                continue
+            assert mesh_shape_for(devices, tp) == want
+
+
+def test_validate_tp_checks():
+    cfg = _cfg("youtube-dnn")
+    cfg.validate(tp=4)
+    with pytest.raises(ValueError, match="m_negatives=32 must divide"):
+        cfg.validate(tp=3)
+    with pytest.raises(ValueError, match="tapas_pool=128 must divide"):
+        dataclasses.replace(cfg, sampler="tapas", m_negatives=24).validate(
+            tp=3)
+    with pytest.raises(ValueError, match="train_sharding"):
+        dataclasses.replace(cfg, train_sharding="zero").validate()
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+@pytest.mark.parametrize("family", REFRESH_FAMILIES)
+def test_sharded_refresh_matches_build_stats(runs, mesh, family):
+    """Each shard's statistics against the reference's build on that
+    shard's rows (padded to v_l) with its n_valid."""
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.core.samplers import sampler_from_config
+    from repro_torch.sharding import rules
+
+    inp, _, ranks = runs
+    dp, tp = mesh
+    cfg = _refresh_cfg(family)
+    jcfg = jget_config("youtube-dnn").reduced(
+        vocab_size=VOCAB_R, sampler=family, sampler_block=16,
+        sampler_proj_rank=cfg.sampler_proj_rank)
+    smp = sampler_from_config(jcfg)
+    v_l = rules.vocab_shard(VOCAB_R, tp)
+    pad = np.zeros((tp * v_l - VOCAB_R, inp["head"].shape[1]), np.float32)
+    head = np.concatenate([inp["head"], pad])
+    const = {"proj": jnp.asarray(inp["proj"])} if cfg.sampler_proj_rank \
+        else {}
+    for r, res in enumerate(ranks[mesh]):
+        j = r % tp
+        want = smp.build_stats(jnp.asarray(head[j * v_l:(j + 1) * v_l]),
+                               rules.local_n_valid(VOCAB_R, v_l, j), const)
+        got = res["refresh"][family]
+        assert set(got) == set(want)
+        for k in want:
+            close(got[k], np.asarray(want[k]), what=f"{k} shard {j}")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+def test_batch_placement(runs, mesh):
+    """Data rank i holds rows [i B/dp, (i + 1) B/dp) of the global batch;
+    the ranks of one model column alike."""
+    from repro_torch.data.pipeline import batch_iterator_for
+
+    _, _, ranks = runs
+    dp, tp = mesh
+    data = batch_iterator_for(_cfg("youtube-dnn"), None, 8, 1, seed=4,
+                              device="cpu")
+    full = [next(data) for _ in range(2)]
+    per = 8 // dp
+    for r, res in enumerate(ranks[mesh]):
+        i = r // tp
+        for got, want in zip(res["batches"], full):
+            for k, v in want.items():
+                np.testing.assert_array_equal(
+                    got[k], v[i * per:(i + 1) * per].numpy())
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+@pytest.mark.parametrize("name", STEP_CONFIGS)
+def test_full_estimator_step_matches_unsharded(runs, mesh, name):
+    """The mesh step's loss and every updated parameter against the
+    reference's mesh=None step and the port's own mesh=None step."""
+    inp, ref, ranks = runs
+    dp, tp = mesh
+    cfg = _cfg(name, estimator="full")
+    want_loss, want_tree = ref[name]
+    want = _numpy(dict(_module(cfg, want_tree).named_parameters()))
+    own_loss, own = _unsharded_step(cfg, inp[f"{name}_params"],
+                                    inp[f"{name}_batch"])
+    close(own_loss, want_loss, what="the port's unsharded loss")
+    for k, v in want.items():
+        close(own[k], v, what=f"the port's unsharded {k}")
+    head = next(k for k in want if k in ("head_w", "head.w"))
+    for r, res in enumerate(ranks[mesh]):
+        loss, params = res["steps"][name]
+        close(loss, want_loss, what=f"rank {r} loss")
+        close(loss, own_loss, what=f"rank {r} loss vs the port's")
+        for k, v in want.items():
+            if k != head:
+                close(params[k], v, what=f"rank {r} {k}")
+    shards = np.concatenate([ranks[mesh][j]["steps"][name][1][head]
+                             for j in range(tp)])
+    close(shards[:cfg.vocab_size], want[head], what="the head's shards")
+    close(shards[:cfg.vocab_size], own[head], what="the head vs the port's")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+def test_sharded_clip_is_the_whole_models(runs, mesh):
+    """Every rank clips by the whole model's norm: the head shards'
+    squares summed once over the model group (a psum dropped or repeated
+    moves the norm by a factor near tp), and the clipped shards are the
+    whole clip's rows."""
+    from repro_torch.optim.clip import clip_by_global_norm, global_norm
+
+    _, _, ranks = runs
+    dp, tp = mesh
+    whole = _clip_grads()
+    want_norm = float(global_norm(whole))
+    assert want_norm > 1.0
+    want, _ = clip_by_global_norm(1.0).update(
+        {k: v.clone() for k, v in whole.items()}, (), None)
+    want = _numpy(want)
+    for r, res in enumerate(ranks[mesh]):
+        norm, clipped = res["clip"]
+        assert abs(norm - want_norm) <= 1e-6 * want_norm, (r, norm,
+                                                           want_norm)
+        for k in ("tower", "bias"):
+            close(clipped[k], want[k], rtol=1e-6, what=f"rank {r} {k}")
+    for i in range(dp):
+        shards = np.concatenate([ranks[mesh][i * tp + j]["clip"][1]["head_w"]
+                                 for j in range(tp)])
+        close(shards[:VOCAB_R], want["head_w"], rtol=1e-6,
+              what=f"data rank {i}'s head shards")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+@pytest.mark.parametrize("family", FIT_FAMILIES)
+def test_fit_on_the_mesh(runs, mesh, family):
+    """Three fit steps: finite losses alike on every rank; the backbone
+    alike on every rank; each rank's statistics its shard's."""
+    from repro_torch.core.samplers import sampler_from_config
+
+    _, _, ranks = runs
+    dp, tp = mesh
+    cfg = _cfg("youtube-dnn", sampler=family)
+    losses0, params0, _ = ranks[mesh][0]["fit"][family]
+    assert len(losses0) == FIT_STEPS and np.isfinite(losses0).all()
+    shapes = sampler_from_config(cfg).shard_state_shapes(cfg, tp).stats
+    for r, res in enumerate(ranks[mesh]):
+        losses, params, stats = res["fit"][family]
+        assert losses == losses0, (r, losses, losses0)
+        for k, v in params.items():
+            if k != "head_w":
+                np.testing.assert_array_equal(v, params0[k], err_msg=k)
+        assert params["head_w"].shape == (cfg.vocab_size // tp,
+                                          cfg.tower_dims[-1])
+        assert stats == {k: tuple(v.shape) for k, v in shapes.items()}
+    for i in range(dp):  # head shards alike over data, apart over model
+        for j in range(tp):
+            np.testing.assert_array_equal(
+                ranks[mesh][i * tp + j]["fit"][family][1]["head_w"],
+                ranks[mesh][j]["fit"][family][1]["head_w"])
+    if tp > 1:
+        assert not np.array_equal(ranks[mesh][0]["fit"][family][1]["head_w"],
+                                  ranks[mesh][1]["fit"][family][1]["head_w"])
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+def test_abstract_state_is_the_ranks_shard(runs, mesh):
+    """``abstract_train_state`` on a mesh has the shapes
+    ``init_train_state`` gives the rank: its head shard, its moments, its
+    statistics shard."""
+    dp, tp = mesh
+    cfg = _cfg("youtube-dnn")
+    for res in runs[2][mesh]:
+        abstract, concrete = res["abstract"]
+        assert abstract == concrete
+        assert concrete[0]["head_w"] == (cfg.vocab_size // tp,
+                                         cfg.tower_dims[-1])
+        assert concrete[2]["z"][0] == -(-cfg.vocab_size // tp //
+                                        cfg.sampler_block)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+def test_parts_left_for_later_raise(runs, mesh):
+    _, _, ranks = runs
+    for res in ranks[mesh]:
+        raises = res["raises"]
+        assert raises.pop("head spec") == ("model", None)
+        for name, got in raises.items():
+            assert got is not None, f"{name} did not raise"
+            assert got[0] == "NotImplementedError" and "A17" in got[1], (
+                name, got)

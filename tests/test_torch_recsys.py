@@ -157,8 +157,13 @@ def test_unported_families_raise():
 
 
 def test_index_from_jax_refuses_sharded_indexes():
-    with pytest.raises(NotImplementedError):
+    # a sharded Gram index crosses onto a rank of its mesh (its test is
+    # in test_torch_mesh_serving.py), never off one; a sharded quantized
+    # one does not cross
+    with pytest.raises(ValueError, match="mesh"):
         convert.index_from_jax({"tp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A17"):
+        convert.index_from_jax({"tp": 2, "bits": 8}, device="cpu")
 
 
 #: modules of the training slice, which the walk below must reach
@@ -171,7 +176,8 @@ TRAINING_MODULES = (
     "repro_torch.optim.schedule", "repro_torch.data.synthetic",
     "repro_torch.data.pipeline", "repro_torch.train.step",
     "repro_torch.train.loop", "repro_torch.api",
-    "repro_torch.checkpoint.manager")
+    "repro_torch.checkpoint.manager", "repro_torch.launch.mesh",
+    "repro_torch.sharding.rules", "repro_torch.core.distributed")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
