@@ -225,7 +225,8 @@ result line):
                  bitwise equal, the route the launch counts show; then
                  ops.flash_attention on inputs that require grad returns a
                  graph whose gradients match.  (b) starcoder2-3b at full
-                 width (30 layers, d 3,072, vocab 49,152, bf16, seeded random
+                 width (DENSE_LAYERS = 8 of its 30 layers, d 3,072, vocab
+                 49,152, bf16, seeded random
                  weights): the first fit step's gradients at its own fixed
                  shared negatives through the kernels against the plain
                  attention's, within DENSE_GRAD_FLOOR_FACTOR x the
@@ -233,10 +234,10 @@ result line):
                  with its default sampler (block-quadratic-shared, m 2,048,
                  rank 64, blocks of 512) on a cycled pool of 4 batches of 4
                  x 1,024, checkpointing the last (DENSE_CKPT_EVERY: the
-                 disk cap): exact launches (flash_attention and
-                 flash_attention_bwd 30 a step, flash_attention 60: the
-                 config's remat runs each layer's forward again in the
-                 backward; zstats 31), a falling loss, peak memory under
+                 disk cap): exact launches (flash_attention_bwd a layer a
+                 step, flash_attention two: the config's remat runs each
+                 layer's forward again in the backward; zstats 31), a
+                 falling loss, peak memory under
                  the card's; a profile of two steps; (c)
                  serving_index_source(quantized=True) polled by an
                  IndexRefresher into a ServingEngine: the payload gauge
@@ -279,7 +280,8 @@ result line):
                  evaluation of the same kept assignments (MOE_RTOL), the
                  drops logged.  jamba's attention shape is phase 10's.
  20. MoE, SSM and hybrid training — (a) falcon-mamba-7b at full width and
-                 depth, then (b) jamba-v0.1-52b at full width and 8 of its
+                 FALCON_TRAIN_LAYERS = 32 of its 64 layers, then (b)
+                 jamba-v0.1-52b at full width and 8 of its
                  32 layers (its first attention period: every layer kind;
                  13.30 B parameters), each through fit with its default
                  sampler (block-quadratic-shared), clip + Adafactor and the
@@ -365,12 +367,35 @@ result line):
                  against the unsharded ones on the card, MESH_STEPS fit
                  steps (exact launches per rank, falling pool loss, step
                  ms, collectives), the trained head's sharded index
-                 decoded at full beam equal to the sharded and the dense
-                 top-k; any rank's failure fails the phase.
+                 decoded at full beam, and the sharded top-k, each equal
+                 to the dense top-k (a swap only where the dense logit
+                 ties a neighbour: check_topk_ties); any
+                 rank's failure fails the phase.  Since phase 24 the
+                 ranks hold youtube-dnn's tables by the reference's rules
+                 (the head's and the watch embedding's rows over model,
+                 their features over data).
+ 24. mesh dense — the backbone's storage layouts on the mesh
+                 (``phase_mesh_dense``), starcoder2-3b at full width and
+                 MESH_DENSE_LAYERS = 4 of its 30 layers: (a) NCCL on a
+                 (1, 1) mesh in this process, one fp32 full-softmax step
+                 in each mode equal to the unsharded one (MESH_STEP_RTOL);
+                 (b) the unsharded fp32 parity steps (KV heads padded to 4
+                 and 2) saved for the ranks; (c) MESH_WORLD rank processes
+                 over gloo, tp_fsdp at (1, 4) and (2, 2), pure_fsdp at
+                 (2, 2): the fp32 parity step's loss, gradient shards and
+                 Adafactor-updated shards against the slices of the
+                 unsharded ones (MESH_RTOL of each whole tensor's max),
+                 flash_attention and its backward at the rank's shard
+                 shapes against their plain versions (phase 10's and 18a's
+                 gates; timed on rank 0), MESH_DENSE_STEPS bf16 fit steps
+                 on a pool of 2 batches of 4 x 1,024 (exact launches per
+                 rank, falling pool loss alike on every rank), a timed
+                 step whose collectives equal the prediction from the
+                 specs key for key; any rank's failure fails the phase.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
-22's serving runs and fits, 23's steps and fits on each rank are main
-paths: the kernel
+22's serving runs and fits, 23's and 24's steps and fits on each rank
+are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -401,12 +426,16 @@ follows the engine's batching), each path's count under
 "jamba-v0.1-52b training", phase 21's as "deepseek-v3-671b" and
 "deepseek-v3-671b training", phase 22's as "whisper-large-v3" and
 "whisper-large-v3 training", phase 23's as "mesh nccl (1, 1)", "mesh gloo
-(1, 4)" and "mesh gloo (2, 2)", each gloo mesh summed over its ranks); the other shapes' numbers under serving_*,
+(1, 4)" and "mesh gloo (2, 2)", phase 24's as "mesh dense tp_fsdp (1, 4)",
+"mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", each gloo
+mesh summed over its ranks); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
 whisper_enc_serving_*, whisper_enc_train_*, whisper_dec_train_*,
 whisper_cross_train_* (phase 22a),
+mesh_tp_fsdp_1x4_*, mesh_tp_fsdp_2x2_*, mesh_pure_fsdp_2x2_* (both
+attention kernels at phase 24's shard shapes, timed on rank 0),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -498,7 +527,16 @@ from repro_torch.models import (  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
-from repro_torch.optim.transform import apply_updates  # noqa: E402
+from repro_torch.optim.adafactor import adafactor  # noqa: E402
+from repro_torch.optim.clip import (  # noqa: E402
+    ShardedGrads,
+    clip_by_global_norm,
+)
+from repro_torch.optim.transform import (  # noqa: E402
+    GradientTransform,
+    apply_updates,
+    chain,
+)
 from repro_torch.serve import engine, quantized_index, retrieval  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.serve.server import (  # noqa: E402
@@ -3021,15 +3059,20 @@ def phase_samplers(cfg, gen: torch.Generator) -> dict[str, dict[str, int]]:
 
 # --- llama3-8b serving (prefill -> KV-cache decode -> top-k) -------------------
 
-#: the dense training path (phase 18): starcoder2-3b at full width, 4
-#: sequences of 1,024 tokens a step, a cycled pool of 4 batches
+#: the dense training path (phase 18): starcoder2-3b at full width and
+#: DENSE_LAYERS of its 30 layers (since phase 24 joined the script: at 30
+#: its checkpoint's save and restore, 31.8 GB, took ~150 s of the run's
+#: 1,200; at 8 the whole script ran in 1,084.9 s on an H100 80GB HBM3 at
+#: 700 W), 4 sequences of 1,024 tokens a step, a cycled pool of 4 batches
 DENSE_ARCH = "starcoder2-3b"
+DENSE_LAYERS = 8
 DENSE_BATCH = 4
 DENSE_SEQ = 1024
 DENSE_STEPS = 30
 DENSE_POOL = 4
 #: the dense run checkpoints once, at its last step: a full-width save
-#: writes 31.8 GB (bf16 parameters and fp32 AdamW moments), and the whole
+#: of all 30 layers writes 31.8 GB (bf16 parameters and fp32 AdamW
+#: moments; 4 layers, 6.9 GB), and the whole
 #: script keeps its disk writes under 45 GiB, the most the H100 machines
 #: it is run on accept (a run saving at steps 10 and 20 was ended there
 #: during the second save)
@@ -3114,13 +3157,14 @@ def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
 
 
 def flash_row(gen: torch.Generator, b: int, s: int,
-              kernel=flash_attention) -> dict:
+              kernel=flash_attention, h: int = 32, kv: int = 8,
+              timed: bool = True) -> dict:
     """A flash kernel (the tensor-core one through ``flash_attention``'s
     dispatch, or ``flash_attention_simt``) at llama3-8b's heads (32 / 8,
-    hd 128), causal bf16: held against the plain version, then timed
-    beside it and SDPA.  ``flash_attention`` must reach the tensor-core
-    entry point."""
-    h, kv, hd = 32, 8, 128
+    hd 128; or ``h`` / ``kv``), causal bf16: held against the plain
+    version, then (``timed``) timed beside it and SDPA.
+    ``flash_attention`` must reach the tensor-core entry point."""
+    hd = 128
     q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
     before = kernels.launch_counts()
     got = kernel(q, k, v)
@@ -3135,6 +3179,9 @@ def flash_row(gen: torch.Generator, b: int, s: int,
                   f"KV {kv}, hd {hd})", got,
                   ref.flash_attention_ref(q, k, v, causal=True),
                   elem_rtol=BF16_ELEM_RTOL)
+    if not timed:
+        del q, k, v, got
+        return {"max_abs_err": err}
     bms, by, floor = flash_bound(b, s, h, kv, hd, True, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4766,13 +4813,14 @@ def copy_params(model, values) -> None:
 
 
 def phase_dense() -> dict[str, int]:
-    """Phase 18: starcoder2-3b at full width (30 layers, d 3,072, 24 / 2
-    heads of 128, d_ff 12,288, vocab 49,152, bf16, layernorm, tanh gelu,
+    """Phase 18: starcoder2-3b at full width (DENSE_LAYERS of its 30
+    layers, d 3,072, 24 / 2 heads of 128, d_ff 12,288, vocab 49,152, bf16, layernorm, tanh gelu,
     QKV bias) trained through ``fit`` with its default sampler
     (block-quadratic-shared, m 2,048, rank 64, blocks of 512) on a cycled
     pool of DENSE_POOL batches of DENSE_BATCH x DENSE_SEQ, checkpointing,
     then served through the quantized index.  Returns the fit's counts."""
-    cfg = get_config(DENSE_ARCH)
+    cfg = dataclasses.replace(get_config(DENSE_ARCH),
+                              n_layers=DENSE_LAYERS)
     torch.cuda.empty_cache()
     before = allocated_gb()
     log(f"[dense] {before:.3f} GB allocated before the phase")
@@ -5023,6 +5071,10 @@ def phase_hybrid_serving(gen: torch.Generator, rng: np.random.Generator
 #: mamba+moe, the attention at 4); 13.30 B parameters, 26.6 GB of bf16
 #: weights and as much again of gradients
 JAMBA_TRAIN_LAYERS = 8
+#: falcon-mamba-7b's training depth: 32 of its 64 layers (whole until
+#: phase 24 joined the script; its 8 steps at 64 took ~56 s of the run's
+#: 1,200)
+FALCON_TRAIN_LAYERS = 32
 #: the gradient checks' depths: falcon-mamba's first 2 layers; jamba's
 #: first 5, whose last is its attention layer, so no MoE routing after the
 #: attention can turn the plain attention's rounding into a routing flip
@@ -5048,8 +5100,9 @@ REMAT_RTOL = 2.0 ** -8
 
 def hybrid_cfg(tag: str, layers: int | None = None):
     cfg = get_config(tag)
-    if tag == "jamba-v0.1-52b":
-        cfg = dataclasses.replace(cfg, n_layers=JAMBA_TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=JAMBA_TRAIN_LAYERS
+                              if tag == "jamba-v0.1-52b"
+                              else FALCON_TRAIN_LAYERS)
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
 
@@ -5200,7 +5253,8 @@ def hybrid_fit(cfg, pool, tag: str, opt_name: str = "adafactor",
 
 
 def phase_hybrid_train() -> dict[str, dict[str, int]]:
-    """Phase 20: falcon-mamba-7b whole, then jamba-v0.1-52b at
+    """Phase 20: falcon-mamba-7b at FALCON_TRAIN_LAYERS, then
+    jamba-v0.1-52b at
     JAMBA_TRAIN_LAYERS of its layers (the first freed before the second is
     built), each trained through ``fit`` with its default sampler
     (block-quadratic-shared, zstats each refresh) and clip + Adafactor,
@@ -5751,18 +5805,20 @@ def mesh_fit(cfg, ctx, tag: str) -> dict:
     return {"losses": losses, "first": first, "last": last,
             "fit_s": wall, "launches": counts, "fit_collectives": fit_coll,
             "step_ms": ms, "step_collectives":
-                distributed.collective_counts(), "state": state}
+                distributed.collective_counts(by_group=True),
+            "state": state}
 
 
 def mesh_decode(cfg, ctx, state) -> dict:
     """The trained head as a sharded index: full-beam decode through the
-    engine equal to ``sharded_logits_topk`` and to the dense top-k over
-    the gathered head, ids exactly."""
+    engine and ``sharded_logits_topk``, each equal id for id to the dense
+    top-k over the gathered head except at a tie of the dense logits
+    (``check_topk_ties``), their logits within MESH_RTOL."""
     held = next(batch_iterator_for(cfg, ctx, MESH_QUERIES * ctx.dp, 1,
                                    seed=1000, device=DEV))
     with torch.no_grad():
-        hq, _, _ = api.backbone_hidden(state.params, held, cfg)
-        head = api.head_table(state.params, cfg).detach()
+        hq, _, _ = api.backbone_hidden(state.params, held, cfg, ctx)
+        head = api.head_table(state.params, cfg, ctx).detach()
     sync()
     kernels.reset_launch_counts()
     index = step.export_retrieval_index(state, cfg, ctx)
@@ -5772,17 +5828,20 @@ def mesh_decode(cfg, ctx, state) -> dict:
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     ids_s, log_s = decode(None, hq)
     full = distributed.all_gather_tiled(head, ctx.model_group)
-    ids_d, log_d = retrieval.dense_topk(full, hq, MESH_TOPK,
+    # one rank more than the beam: a tie at its last rank has a neighbour
+    ids_d, log_d = retrieval.dense_topk(full, hq, MESH_TOPK + 1,
                                         n_valid=cfg.vocab_size)
-    for tag, ids in (("sharded_logits_topk", ids_s), ("dense", ids_d)):
-        if not torch.equal(ids_b, ids):
-            raise AssertionError(f"full-beam decode ids != {tag} ids")
-    err = max(rel_err(log_b, log_d), rel_err(log_s, log_d))
+    err = max(rel_err(log_b, log_d[:, :MESH_TOPK]),
+              rel_err(log_s, log_d[:, :MESH_TOPK]))
     if not err <= MESH_RTOL:
         raise AssertionError(f"decode logits off the dense ones by {err}")
+    swaps = {tag: check_topk_ties(f"{tag} vs the dense top-k", ids, ids_d,
+                                  log_d, MESH_TOPK)
+             for tag, ids in (("full-beam decode", ids_b),
+                              ("sharded_logits_topk", ids_s))}
     return {"index_leaves_per_shard": index.num_leaves_shard,
             "leaf": index.leaf_size, "queries": hq.shape[0],
-            "logit_err": err, "launches": counts}
+            "logit_err": err, "tie_swaps": swaps, "launches": counts}
 
 
 def sync() -> None:
@@ -5816,21 +5875,30 @@ def mesh_checks(ctx) -> dict:
             "n_valid": step.shard_n_valid(cfg, ctx)}
 
 
-def mesh_rank(rank: int, world: int, addr: str, out: Path) -> int:
-    """One rank process of phase 23b: the gloo world over the shared card,
-    each of MESH_SHAPES in turn; its results to ``out/rank<r>.json``."""
+def mesh_rank(rank: int, world: int, addr: str, out: Path,
+              phase: str = "23") -> int:
+    """One rank process of phase 23b (each of MESH_SHAPES in turn) or of
+    phase 24 (each of MESH_DENSE_RUNS): the gloo world over the shared
+    card; its results to ``out/rank<r>.json``."""
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
     launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
                                  world_size=world)
     try:
         results = {}
-        for dp, tp in MESH_SHAPES:
-            ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
-                dp, tp, device_type=DEV.type))
-            t0 = time.perf_counter()
-            results[f"{dp}x{tp}"] = {**mesh_checks(ctx),
-                                     "s": time.perf_counter() - t0}
+        if phase == "24":
+            for mode, (dp, tp), opt_name, lr in MESH_DENSE_RUNS:
+                ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type), mode=mode)
+                results[f"{mode} {dp}x{tp}"] = mesh_dense_rank(
+                    ctx, mode, opt_name, lr)
+        else:
+            for dp, tp in MESH_SHAPES:
+                ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type))
+                t0 = time.perf_counter()
+                results[f"{dp}x{tp}"] = {**mesh_checks(ctx),
+                                         "s": time.perf_counter() - t0}
         if DEV.type == "cuda":
             results["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         (out / f"rank{rank}.json").write_text(json.dumps(results))
@@ -5894,30 +5962,17 @@ def phase_mesh_nccl(cfg) -> dict[str, int]:
         torch.distributed.destroy_process_group()
 
 
-def phase_mesh() -> dict[str, dict[str, int]]:
-    """Phase 23 (youtube-dnn at full width: 100,000 items, tower (256,
-    128), T 256, m 128, fp32, block-quadratic in blocks of 256, clip +
-    AdamW): 23a over NCCL in this process (``phase_mesh_nccl``); 23b
-    MESH_WORLD rank processes on the card over gloo, each mesh of
-    MESH_SHAPES in turn, every rank: the full softmax's loss and
-    gradients and the sampled softmax's at given negatives against the
-    unsharded loss on the card (MESH_RTOL), MESH_STEPS fit steps (exact
-    launches, falling pool loss), step ms and collectives, the trained
-    head's sharded index decoded at full beam through the engine equal to
-    the sharded and the dense top-k.  The kernels were built by phase 2,
-    so the ranks only load them.  Any rank's failure or timeout fails the
-    phase.  Returns the launches of each path (a mesh's summed over its
-    ranks)."""
-    cfg = get_config("youtube-dnn")
-    t_start = time.perf_counter()
-    by_path = {"mesh nccl (1, 1)": phase_mesh_nccl(cfg)}
+def run_mesh_ranks(phase: str) -> list[dict]:
+    """MESH_WORLD rank processes of this script (``mesh_rank``) for
+    ``phase``, their logs relayed: each rank's results.  A rank that fails
+    or outlives MESH_TIMEOUT_S fails the phase (the others are killed)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
     addr = f"tcp://localhost:{free_port()}"
     logs = [open(MESH_DIR / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
     procs = [subprocess.Popen(
         [*MESH_RANK_CMD, "--mesh-rank", str(r), "--mesh-addr", addr,
-         "--mesh-device", DEV.type], stdout=logs[r],
+         "--mesh-device", DEV.type, "--mesh-phase", phase], stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
     deadline = time.monotonic() + MESH_TIMEOUT_S
     try:
@@ -5940,8 +5995,28 @@ def phase_mesh() -> dict[str, dict[str, int]]:
     if codes != [0] * MESH_WORLD:
         raise AssertionError(f"mesh rank processes failed or timed out: "
                              f"exit codes {codes}")
-    ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
-             for r in range(MESH_WORLD)]
+    return [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+            for r in range(MESH_WORLD)]
+
+
+def phase_mesh() -> dict[str, dict[str, int]]:
+    """Phase 23 (youtube-dnn at full width: 100,000 items, tower (256,
+    128), T 256, m 128, fp32, block-quadratic in blocks of 256, clip +
+    AdamW): 23a over NCCL in this process (``phase_mesh_nccl``); 23b
+    MESH_WORLD rank processes on the card over gloo, each mesh of
+    MESH_SHAPES in turn, every rank: the full softmax's loss and
+    gradients and the sampled softmax's at given negatives against the
+    unsharded loss on the card (MESH_RTOL), MESH_STEPS fit steps (exact
+    launches, falling pool loss), step ms and collectives, the trained
+    head's sharded index decoded at full beam through the engine equal to
+    the sharded and the dense top-k.  The kernels were built by phase 2,
+    so the ranks only load them.  Any rank's failure or timeout fails the
+    phase.  Returns the launches of each path (a mesh's summed over its
+    ranks)."""
+    cfg = get_config("youtube-dnn")
+    t_start = time.perf_counter()
+    by_path = {"mesh nccl (1, 1)": phase_mesh_nccl(cfg)}
+    ranks = run_mesh_ranks("23")
     for dp, tp in MESH_SHAPES:
         key = f"{dp}x{tp}"
         total = dict.fromkeys(REPLACES, 0)
@@ -5965,9 +6040,10 @@ def phase_mesh() -> dict[str, dict[str, int]]:
             log(f"[mesh] gloo ({dp}, {tp}) rank {r}: sharded index "
                 f"{m['decode']['index_leaves_per_shard']} leaves of "
                 f"{m['decode']['leaf']} a shard, full-beam decode of "
-                f"{m['decode']['queries']} queries = sharded_logits_topk = "
-                f"dense top-{MESH_TOPK} (logit err "
-                f"{m['decode']['logit_err']}), launches "
+                f"{m['decode']['queries']} queries and sharded_logits_topk "
+                f"= the dense top-{MESH_TOPK} but for ties (logit err "
+                f"{m['decode']['logit_err']}; tie swaps "
+                f"{m['decode']['tie_swaps']}), launches "
                 f"{m['decode']['launches']}; the mesh's checks "
                 f"{m['s']:.3f} s")
             add_counts(total, fit["launches"])
@@ -5976,6 +6052,536 @@ def phase_mesh() -> dict[str, dict[str, int]]:
         f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}; phase 23 "
         f"{time.perf_counter() - t_start:.1f} s")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the backbone's storage layouts on the mesh (starcoder2-3b)
+# ---------------------------------------------------------------------------
+
+#: starcoder2-3b at full width, its depth cut to this many of 30 layers
+MESH_DENSE_LAYERS = 4
+#: each gloo mesh's (mode, (dp, tp), optimizer of its bf16 fit, lr)
+MESH_DENSE_RUNS = (("tp_fsdp", (1, 4), "adamw", 3e-4),
+                   ("tp_fsdp", (2, 2), "adafactor", 1e-4),
+                   ("pure_fsdp", (2, 2), "adamw", 3e-4))
+MESH_DENSE_BATCH = 4
+MESH_DENSE_SEQ = 1024
+MESH_DENSE_STEPS = 4
+MESH_DENSE_POOL = 2
+#: steps timed after the fit (the last one's collectives recorded)
+MESH_DENSE_TIMED = 1
+#: the fp32 parity step's batch: 4 sequences of 256 tokens (T 1,024; the
+#: full softmax's logits (T, 49,152))
+MESH_PARITY_BATCH = 4
+MESH_PARITY_SEQ = 256
+#: the parity step's optimizer, after the gradients are kept: clip +
+#: Adafactor at this lr (``parity_optimizer``), its eps by leaf: the
+#: reference's 1e-30 on the matrices, whose row and column means of g^2
+#: (psum'd where the other dim is sharded) sit far above it, and 1e-6 (a
+#: floor of 1e-3 under |g|) on the vectors, whose statistics are their few
+#: elements' own squares, so that at 1e-30 an element whose gradient is
+#: near 0 turns a sharded sum's summation-order noise into an update of
+#: lr's size (tests/test_torch_mesh_backbone.py sets the same)
+MESH_PARITY_LR = 1e-4
+MESH_PARITY_EPS = {"matrices": 1e-30, "vectors": 1e-6}
+#: the seed of the parity step's weights and batch
+MESH_DENSE_SEED = 24
+#: where the parent leaves the unsharded parity step's results
+MESH_DENSE_DIR = MESH_DIR.parent / "chip_smoke_mesh_dense"
+
+
+def mesh_dense_cfg(mode: str, dtype: str = "bfloat16", **changes):
+    """starcoder2-3b at full width and MESH_DENSE_LAYERS layers, trained
+    in ``mode``, in ``dtype``."""
+    return dataclasses.replace(
+        get_config(DENSE_ARCH), n_layers=MESH_DENSE_LAYERS,
+        train_sharding=mode, dtype=dtype, param_dtype=dtype, **changes)
+
+
+def mesh_dense_model(cfg, tp_b: int):
+    """The parity step's whole model from MESH_DENSE_SEED, its heads
+    padded for a backbone of TP degree ``tp_b`` (``init_lm``'s rule)."""
+    tree = transformer.init_lm(
+        torch.Generator(DEV).manual_seed(MESH_DENSE_SEED), cfg, DEV,
+        tp=tp_b)
+    return transformer.StackedLM(cfg, DEV, tree=tree)
+
+
+def mesh_dense_kv(cfg, tp_b: int) -> int:
+    """The padded KV heads that name the parity file of ``tp_b``."""
+    return layers.padded_heads(cfg, tp_b)[1]
+
+
+def parity_batch(cfg) -> dict[str, torch.Tensor]:
+    return next(batch_iterator_for(cfg, None, MESH_PARITY_BATCH,
+                                   MESH_PARITY_SEQ, seed=MESH_DENSE_SEED,
+                                   device=DEV))
+
+
+def by_ndim(matrices: GradientTransform, vectors: GradientTransform
+            ) -> GradientTransform:
+    """``matrices`` on the leaves of two or more dims, ``vectors`` on the
+    rest (a mesh rank's ``ShardedGrads`` split alike)."""
+    def split(d, params):
+        mat = {k: v for k, v in d.items() if params[k].dim() >= 2}
+        vec = {k: v for k, v in d.items() if k not in mat}
+        if isinstance(d, ShardedGrads):
+            return tuple(ShardedGrads(x, d.specs, d.ctx) for x in (mat, vec))
+        return mat, vec
+
+    def init(params):
+        return tuple(t.init(x) for t, x in zip((matrices, vectors),
+                                               split(params, params)))
+
+    def update(grads, state, params):
+        out = [t.update(g, s, p) for t, g, s, p in zip(
+            (matrices, vectors), split(grads, params), state,
+            split(params, params))]
+        return {**out[0][0], **out[1][0]}, (out[0][1], out[1][1])
+
+    return GradientTransform(init, update)
+
+
+def parity_optimizer() -> GradientTransform:
+    """clip at global norm 1 + Adafactor at MESH_PARITY_LR, its eps by
+    leaf (MESH_PARITY_EPS)."""
+    return chain(clip_by_global_norm(1.0), by_ndim(
+        adafactor(MESH_PARITY_LR, eps=MESH_PARITY_EPS["matrices"]),
+        adafactor(MESH_PARITY_LR, eps=MESH_PARITY_EPS["vectors"])))
+
+
+def keeping_grads(opt):
+    """``opt`` that first keeps a copy of the gradients it is given
+    (before the clip scales them in place): (transform, the copies)."""
+    kept: dict[str, torch.Tensor] = {}
+
+    def update(grads, state, params):
+        kept.update({k: g.detach().clone() for k, g in grads.items()})
+        return opt.update(grads, state, params)
+
+    return GradientTransform(opt.init, update), kept
+
+
+def parity_step(cfg, ctx, model, batch) -> tuple[float, dict, dict]:
+    """One step with estimator "full" and ``parity_optimizer``: (the loss,
+    the gradients, the updated parameters), the rank's on a mesh."""
+    opt, grads = keeping_grads(parity_optimizer())
+    state = step.TrainState(model, opt.init(step.param_dict(model)),
+                            step.empty_state(), 0)
+    _, metrics = step.make_train_step(cfg, ctx, opt)(
+        state, batch, torch.Generator(DEV).manual_seed(1))
+    return float(metrics["loss"]), grads, step.param_dict(model)
+
+
+def mesh_dense_reference() -> dict[int, float]:
+    """The unsharded fp32 parity step of each padding the meshes need (KV
+    heads 4 for tp_fsdp at tp 4, 2 otherwise), saved for the ranks:
+    loss, gradients, updated parameters and each tensor's max |x|.
+    Returns {kv heads: seconds}."""
+    shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
+    MESH_DENSE_DIR.mkdir(parents=True)
+    cfg = mesh_dense_cfg("tp_fsdp", "float32", estimator="full")
+    out = {}
+    for tp_b in sorted({1 if mode == "pure_fsdp" else tp
+                        for mode, (_, tp), _, _ in MESH_DENSE_RUNS}):
+        kv = mesh_dense_kv(cfg, tp_b)
+        if kv in out:
+            continue
+        t0 = time.perf_counter()
+        loss, grads, params = parity_step(cfg, None,
+                                          mesh_dense_model(cfg, tp_b),
+                                          parity_batch(cfg))
+        maxes = {f"{kind} {k}": float(v.abs().max())
+                 for kind, d in (("grad", grads), ("param", params))
+                 for k, v in d.items()}
+        share = eps_floor_share(grads)
+        torch.save({"loss": loss, "max": maxes,
+                    "grads": {k: v.cpu() for k, v in grads.items()},
+                    "params": {k: v.detach().cpu()
+                               for k, v in params.items()}},
+                   MESH_DENSE_DIR / f"unsharded_kv{kv}.pt")
+        del grads, params
+        torch.cuda.empty_cache()
+        out[kv] = time.perf_counter() - t0
+        log(f"[mesh dense] the unsharded fp32 parity step (KV heads {kv}): "
+            f"loss {loss}, {out[kv]:.1f} s with its save; shares of its "
+            f"clipped gradients above Adafactor's eps {share}")
+    return out
+
+
+def eps_floor_share(grads: dict[str, torch.Tensor]) -> dict[str, float]:
+    """How much of the parity step's Adafactor update its statistics
+    decide, after the clip at global norm 1: the share of the matrices'
+    elements with g^2 above their eps (MESH_PARITY_EPS) and above the
+    vectors' 1e-6; of the matrices' row and column means of g^2 (what a
+    mesh psums where the other dim is sharded), the share above 1e-6; of
+    the vectors' elements, the share above their eps (below it an update
+    is about g / sqrt(eps)); and the global norm the clip divides by."""
+    floor = MESH_PARITY_EPS["vectors"]
+    norm = math.sqrt(sum(float(torch.sum(torch.square(g.float())))
+                         for g in grads.values()))
+    scale = min(1.0, 1.0 / max(norm, 1e-9))
+    n: dict[str, int] = dict.fromkeys(
+        ("mat", "mat_eps", "mat_floor", "rows", "rows_floor", "cols",
+         "cols_floor", "vec", "vec_floor"), 0)
+    for g in grads.values():
+        g2 = torch.square(g.float() * scale)
+        if g.dim() >= 2:
+            n["mat"] += g.numel()
+            n["mat_eps"] += int((g2 > MESH_PARITY_EPS["matrices"]).sum())
+            n["mat_floor"] += int((g2 > floor).sum())
+            for key, means in (("rows", g2.mean(-1)), ("cols", g2.mean(-2))):
+                n[key] += means.numel()
+                n[key + "_floor"] += int((means > floor).sum())
+        else:
+            n["vec"] += g.numel()
+            n["vec_floor"] += int((g2 > floor).sum())
+        del g2
+    return {"matrices_above_eps": n["mat_eps"] / n["mat"],
+            "matrices_above_1e-6": n["mat_floor"] / n["mat"],
+            "row_means_above_1e-6": n["rows_floor"] / n["rows"],
+            "col_means_above_1e-6": n["cols_floor"] / n["cols"],
+            "vectors_above_1e-6": n["vec_floor"] / n["vec"],
+            "grad_norm": norm}
+
+
+def mesh_dense_parity(ctx) -> dict[str, float]:
+    """This rank's fp32 parity step (``parity_step`` on its shards and
+    batch rows) against the unsharded one the parent saved: the loss, and
+    each gradient shard and updated shard against its slice, over the
+    whole tensor's max (MESH_RTOL)."""
+    cfg = mesh_dense_cfg(ctx.mode, "float32", estimator="full")
+    tp_b = ctx.tp_backbone
+    want = torch.load(MESH_DENSE_DIR /
+                      f"unsharded_kv{mesh_dense_kv(cfg, tp_b)}.pt",
+                      mmap=True, weights_only=True)
+    model = step.shard_params(mesh_dense_model(cfg, tp_b), cfg, ctx)
+    batch = {k: rules.batch_rows(v, ctx) for k, v in
+             parity_batch(cfg).items()}
+    loss, grads, params = parity_step(cfg, ctx, model, batch)
+    specs = model.param_specs
+    errs = {"loss": abs(loss - want["loss"]) / abs(want["loss"])}
+    for kind, got in (("grad", grads), ("param", params)):
+        for k, x in got.items():
+            block = rules.shard_by_spec(want[kind + "s"][k], specs[k],
+                                        ctx).to(DEV)
+            scale = max(want["max"][f"{kind} {k}"], 1e-30)
+            errs[f"{kind} {k}"] = float((x.detach().float()
+                                         - block.float()).abs().max()
+                                        / scale)
+    del want, grads, params, model
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mesh_dense_kernels(ctx, timed: bool) -> dict:
+    """Both attention kernels at this rank's shard shapes (its batch rows,
+    its heads: nh / tp_backbone q over nkv / tp_backbone kv, hd 128,
+    causal bf16) against their plain versions with phase 10's and row
+    10b's gates; ``timed`` adds their device times."""
+    cfg = mesh_dense_cfg(ctx.mode)
+    nh, nkv = layers.padded_heads(cfg, ctx.tp_backbone)
+    h, kv = nh // ctx.tp_backbone, nkv // ctx.tp_backbone
+    b = MESH_DENSE_BATCH // ctx.dp
+    gen = torch.Generator(DEV).manual_seed(MESH_DENSE_SEED)
+    return {"shape": [b, MESH_DENSE_SEQ, h, kv, 128],
+            "flash_attention": flash_row(gen, b, MESH_DENSE_SEQ, h=h, kv=kv,
+                                         timed=timed),
+            "flash_attention_bwd": flash_bwd_case(
+                gen, b, MESH_DENSE_SEQ, h, kv, 128, torch.bfloat16,
+                timed=timed)}
+
+
+def _gather_calls(ctx, shape, spec, keep, esize: int
+                  ) -> list[tuple[str, int, int]]:
+    """(group, gathered bytes, scattered-back bytes) of each all-gather
+    ``rules.gather_by_spec`` makes of a shard of ``shape``: one a dim over
+    its axes unless they are kept or of one rank."""
+    numel, out = math.prod(shape), []
+    for entry in spec:
+        axes = rules._axes(entry)
+        n = ctx.axis_size(axes)
+        if axes and not set(axes) <= set(keep) and n > 1:
+            out.append((",".join(axes), numel * n * esize, numel * esize))
+            numel *= n
+    return out
+
+
+def predict_dense_collectives(cfg, ctx, model, opt_name: str, rows: int
+                              ) -> dict[str, dict[str, int]]:
+    """One bf16 fit step's collectives on this rank ("<op> <group>":
+    calls, bytes of each call's result), from the specs: the refresh's
+    head gather; the embedding's ZeRO-3 gathers (and under TP its psum);
+    each layer's gathers once a forward run (twice under remat) and their
+    reduce-scatters once, Megatron's g psums (the attention's each forward
+    run, the MLP's once) and f all-reduces once; the head island's (tp_fsdp: the
+    replicated h's all-reduce; pure_fsdp: h and the labels gathered over
+    model, h's reduce-scatter), the loss's two psums and one pmax of (T,)
+    fp32 (batch-shared negatives: the einsum route), the loss sum's psum
+    over data; each gradient replicated over a batch axis all-reduced;
+    the clip's one psum per set of sharding axes; Adafactor's psums of
+    the statistics whose dims are sharded and of each stack's RMS."""
+    out: dict[str, dict[str, int]] = {}
+
+    def add(op: str, group: str, nbytes: int, calls: int = 1) -> None:
+        e = out.setdefault(f"{op} {group}", {"calls": 0, "bytes": 0})
+        e["calls"] += calls
+        e["bytes"] += calls * nbytes
+
+    specs = model.param_specs
+    params = dict(model.named_parameters())
+    keep = rules.compute_axes(ctx)
+    fwd = forwards(cfg)
+    d, tp = cfg.d_model, ctx.tp
+    act = rows * d * 2  # a bf16 (rows, d) activation
+
+    def gathers(name, keep_axes, forward_runs, backward_runs):
+        p = params[name]
+        for group, got, back in _gather_calls(ctx, p.shape, specs[name],
+                                              keep_axes, p.element_size()):
+            add("all_gather", group, got, forward_runs)
+            if backward_runs:
+                add("reduce_scatter", group, back, backward_runs)
+
+    head = api.head_name(cfg)
+    gathers(head, (ctx.model_axis,), 1, 0)  # the refresh's head
+    gathers(head, (ctx.model_axis,), 1, 1)  # the island's head
+    gathers("embed.table", keep, 1, 1)
+    tp_group = rules.tp_group(ctx) is not None
+    if tp_group:
+        add("all_reduce_sum", "model", act)  # the vocab-parallel lookup
+    for name in params:
+        if name.startswith("segments."):
+            gathers(name, keep, fwd, 1)
+    if tp_group:
+        # attention's g each forward run; the MLP's g once (the remat
+        # recompute stops early, after the last op that saved a tensor:
+        # the MLP's down projection); f's backward once each
+        add("all_reduce_sum", "model", act, cfg.n_layers * (fwd + 3))
+    t = rows
+    if ctx.mode == "pure_fsdp":
+        t = rows * tp
+        add("all_gather", "model", t * d * 2)
+        add("all_gather", "model", t * 8)  # the labels, int64
+        add("reduce_scatter", "model", act)
+    else:
+        add("all_reduce_sum", "model", act)  # the replicated h
+    add("all_reduce_sum", "model", t * 4, 2)
+    add("all_reduce_max", "model", t * 4)
+    add("all_reduce_sum", "data", 4)
+    for name, p in params.items():
+        axes = rules.grad_reduce_axes(specs[name], ctx)
+        if axes:
+            add("all_reduce_sum", ",".join(axes),
+                p.numel() * p.element_size())
+    sg = ShardedGrads(params, specs, ctx)
+    for axes in sorted({sg.leaf_axes(k) for k in params} - {()}):
+        add("all_reduce_sum", ",".join(axes), 4)
+    if opt_name == "adafactor":
+        from repro_torch.optim.adafactor import stacks
+
+        for key, members in stacks(params).items():
+            layer = params[members[0]]
+            nd = layer.dim()
+            stacked = key != members[0]
+            rows_ax = sg.dim_axes(members[0], nd - 2) if nd >= 2 else ()
+            cols_ax = sg.dim_axes(members[0], nd - 1)
+            # an unfactored leaf (1-D, unstacked) takes the RMS's only
+            if nd == 1 and stacked and cols_ax:
+                # a (count, d) stack: each layer's mean over its row
+                add("all_reduce_sum", ",".join(cols_ax), 4, len(members))
+            elif nd >= 2:  # each matrix's row and column statistics
+                if cols_ax:
+                    add("all_reduce_sum", ",".join(cols_ax),
+                        layer.shape[-2] * 4, len(members))
+                if rows_ax:
+                    add("all_reduce_sum", ",".join(rows_ax),
+                        layer.shape[-1] * 4, len(members))
+                    add("all_reduce_sum", ",".join(rows_ax), 4,
+                        len(members))
+            if sg.leaf_axes(members[0]):
+                add("all_reduce_sum", ",".join(sg.leaf_axes(members[0])),
+                    4)
+    return out
+
+
+def mesh_dense_fit(ctx, opt_name: str, lr: float, tag: str) -> dict:
+    """MESH_DENSE_STEPS bf16 ``fit`` steps on a pool of MESH_DENSE_POOL
+    batches of the rank's rows: exact launches (zstats once a refresh,
+    flash_attention once a layer and forward run, flash_attention_bwd once
+    a layer and step), the pool loss falling; then MESH_DENSE_TIMED timed
+    steps, the last one's collectives against
+    ``predict_dense_collectives``, and the rank's peak memory."""
+    cfg = mesh_dense_cfg(ctx.mode)
+    opt = make_optimizer(opt_name, lr)
+    data = batch_iterator_for(cfg, ctx, MESH_DENSE_BATCH, MESH_DENSE_SEQ,
+                              seed=0, device=DEV)
+    pool = [next(data) for _ in range(MESH_DENSE_POOL)]
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, ctx, opt, CycledPool(pool), MESH_DENSE_STEPS,
+                   seed=0, log_every=0, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(REPLACES, 0)
+    if DEV.type == "cuda":
+        want.update(zstats=MESH_DENSE_STEPS + 1,
+                    flash_attention=MESH_DENSE_STEPS * cfg.n_layers
+                    * forwards(cfg),
+                    flash_attention_bwd=MESH_DENSE_STEPS * cfg.n_layers)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    losses = res.losses
+    first = statistics.mean(losses[:MESH_DENSE_POOL])
+    last = statistics.mean(losses[-MESH_DENSE_POOL:])
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"{tag}: the pool loss did not fall: {losses}")
+    step_fn = step.make_train_step(cfg, ctx, opt)
+    state, ms = res.state, []
+    for k in range(MESH_DENSE_TIMED):
+        if k == MESH_DENSE_TIMED - 1:
+            distributed.reset_collective_counts()
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, pool[k % MESH_DENSE_POOL],
+                                 loop.step_generator(0, 1000 + k, DEV))
+        float(metrics["loss"])
+        ms.append((time.perf_counter() - t1) * 1e3)
+    got = distributed.collective_counts(by_group=True)
+    predicted = predict_dense_collectives(
+        cfg, ctx, state.params, opt_name,
+        pool[0]["tokens"].numel())
+    if got != predicted:
+        raise AssertionError(f"{tag}: one step's collectives {got} != the "
+                             f"prediction {predicted}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEV.type == "cuda" else 0.0
+    return {"losses": losses, "first": first, "last": last, "fit_s": wall,
+            "launches": counts, "step_ms": ms, "collectives": got,
+            "peak_gb": peak}
+
+
+def mesh_dense_rank(ctx, mode: str, opt_name: str, lr: float) -> dict:
+    """One mesh of phase 24 on this rank: the fp32 parity step, both
+    attention kernels at the shard's shapes (timed by the world's rank 0
+    while the others wait), the bf16 fit."""
+    tag = (f"{mode} ({ctx.axis_size('data')}, {ctx.tp}) rank "
+           f"({ctx.data_index}, {ctx.model_index})")
+    t0 = time.perf_counter()
+    parity = mesh_dense_parity(ctx)
+    gate(f"{tag} fp32 parity step", parity, MESH_RTOL)
+    first = torch.distributed.get_rank() == 0
+    kern = mesh_dense_kernels(ctx, timed=False) if not first else None
+    torch.distributed.barrier()
+    if first:
+        kern = mesh_dense_kernels(ctx, timed=True)
+    torch.distributed.barrier()
+    fit = mesh_dense_fit(ctx, opt_name, lr, tag)
+    return {"parity": parity, "kernels": kern, "fit": fit,
+            "s": time.perf_counter() - t0}
+
+
+def mesh_dense_nccl() -> dict[str, float]:
+    """Phase 24a: NCCL on a (1, 1) mesh in this process, in each mode: one
+    fp32 fit step with estimator "full" and MESH_STEP_OPT on the parity
+    batch equal to the mesh=None step within MESH_STEP_RTOL (the loss, and
+    every parameter over its own max).  Returns the errors."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = launch_mesh.make_debug_mesh(1, 1)
+        errs = {}
+        for mode in ("tp_fsdp", "pure_fsdp"):
+            cfg = mesh_dense_cfg(mode, "float32", estimator="full")
+            res = {}
+            for tag, c in (("mesh", rules.mesh_ctx(mesh, mode=mode)),
+                           ("unsharded", None)):
+                res[tag] = loop.fit(
+                    cfg, c, make_optimizer(*MESH_STEP_OPT),
+                    batch_iterator_for(cfg, c, MESH_PARITY_BATCH,
+                                       MESH_PARITY_SEQ, seed=0, device=DEV),
+                    1, seed=0, log_every=0, device=DEV)
+            want = dict(res["unsharded"].state.params.named_parameters())
+            got = dict(res["mesh"].state.params.named_parameters())
+            e = {"loss": abs(res["mesh"].losses[0]
+                             - res["unsharded"].losses[0])
+                 / abs(res["unsharded"].losses[0]),
+                 **{k: rel_err(p, want[k]) for k, p in got.items()}}
+            del res, want, got
+            worst = max(e, key=e.get)
+            log(f"[mesh dense] {backend} (1, 1) {mode}: one fp32 "
+                f"full-softmax fit step ({MESH_STEP_OPT}) against the "
+                f"unsharded one: loss {e['loss']}, worst parameter "
+                f"{worst} {e[worst]} over its own max")
+            gate(f"{backend} (1, 1) {mode} step", e, MESH_STEP_RTOL)
+            errs[mode] = e[worst]
+        return errs
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_mesh_dense() -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 24 (starcoder2-3b at full width, 4 of its 30 layers: d 3,072,
+    24 / 2 heads of 128, d_ff 12,288, vocab 49,152): 24a over NCCL in this
+    process (``mesh_dense_nccl``); the unsharded fp32 parity steps
+    (``mesh_dense_reference``); then MESH_WORLD rank processes over gloo
+    sharing the card, each of MESH_DENSE_RUNS in turn
+    (``mesh_dense_rank``): tp_fsdp at (1, 4) (KV heads padded 2 -> 4) and
+    (2, 2), pure_fsdp at (2, 2).  Returns the bf16 fits' launches of each
+    mesh, summed over its ranks, and both attention kernels' rows at each
+    mesh's shard shapes (timed on rank 0) as kernels-line shapes
+    ``mesh_<mode>_<dp>x<tp>``."""
+    t_start = time.perf_counter()
+    nccl = mesh_dense_nccl()
+    ref_s = mesh_dense_reference()
+    ranks = run_mesh_ranks("24")
+    by_path, shapes = {}, {}
+    for mode, (dp, tp), opt_name, lr in MESH_DENSE_RUNS:
+        key = f"{mode} {dp}x{tp}"
+        kern = ranks[0][key]["kernels"]
+        shapes[f"mesh_{mode}_{dp}x{tp}"] = {
+            name: {**kern[name], "shape": kern["shape"]}
+            for name in ("flash_attention", "flash_attention_bwd")}
+        total = dict.fromkeys(REPLACES, 0)
+        losses0 = ranks[0][key]["fit"]["losses"]
+        for r, res in enumerate(ranks):
+            m, fit = res[key], res[key]["fit"]
+            worst = max(m["parity"], key=m["parity"].get)
+            log(f"[mesh dense] gloo {mode} ({dp}, {tp}) rank {r}: fp32 "
+                f"parity loss {m['parity']['loss']}, worst {worst} "
+                f"{m['parity'][worst]} (of {len(m['parity'])} tensors, "
+                f"over each whole tensor's max); attention at "
+                f"{m['kernels']['shape']}: flash_attention "
+                f"{m['kernels']['flash_attention']}, flash_attention_bwd "
+                f"{m['kernels']['flash_attention_bwd']}")
+            log(f"[mesh dense] gloo {mode} ({dp}, {tp}) rank {r}: "
+                f"{MESH_DENSE_STEPS} bf16 fit steps (clip + {opt_name} "
+                f"{lr}) in {fit['fit_s']:.3f} s, losses {fit['losses']} "
+                f"(pool {fit['first']} -> {fit['last']}), launches "
+                f"{ {k: v for k, v in fit['launches'].items() if v} }; "
+                f"step ms {[round(x, 3) for x in fit['step_ms']]}; peak "
+                f"{fit['peak_gb']:.3f} GB; one step's collectives (= the "
+                f"prediction) {fit['collectives']}; the mesh "
+                f"{m['s']:.1f} s")
+            for a, b in zip(fit["losses"], losses0):
+                if abs(a - b) > MESH_STEP_RTOL * abs(b):
+                    raise AssertionError(
+                        f"{key}: rank {r}'s losses {fit['losses']} != rank "
+                        f"0's {losses0}")
+            add_counts(total, fit["launches"])
+        by_path[f"mesh dense {mode} ({dp}, {tp})"] = total
+    log(f"[mesh dense] NCCL (1, 1) worst errors {nccl}; unsharded parity "
+        f"steps {ref_s} s; rank peak memory GB "
+        f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}; phase 24 "
+        f"{time.perf_counter() - t_start:.1f} s")
+    shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
+    return by_path, shapes
 
 
 def kernels_line(rows: dict[str, dict], shapes: dict[str, dict[str, dict]],
@@ -6011,12 +6617,13 @@ def main() -> int:
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-addr", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-phase", default="23", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:
         global DEV
         DEV = torch.device(args.mesh_device)
         return mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_addr,
-                         MESH_DIR)
+                         MESH_DIR, args.mesh_phase)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 2
@@ -6144,6 +6751,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase_mesh())
     lap("the vocab-parallel head on a mesh (phase 23)")
+    torch.cuda.empty_cache()
+    dense_paths, dense_shapes = phase_mesh_dense()
+    by_path.update(dense_paths)
+    shapes.update(dense_shapes)
+    lap("the backbone's layouts on a mesh (phase 24)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

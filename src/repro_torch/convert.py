@@ -39,7 +39,12 @@ And back, numpy out:
     leaf.
   * ``caches_to_jax`` — the port's decode caches as numpy.
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
-    arguments ``train_state_from_jax`` takes.  ``reference_tree`` gives
+    arguments ``train_state_from_jax`` takes.
+  * On a mesh (a ``ShardCtx``), ``train_state_from_jax(..., ctx=)`` puts
+    the reference's params and optimizer state onto this rank's shards by
+    ``rules.param_specs_for`` (``shard_train_state``), and
+    ``train_state_to_jax(state, ctx=)`` gathers them back
+    (``gather_train_state``): both ways bitwise.  ``reference_tree`` gives
     the same tree with the port's own tensors as leaves (no copy; a
     ``StackedLM`` layer stack as a ``Stacked`` of its layers' tensors):
     what the checkpoint manager flattens into the reference's keys.
@@ -298,11 +303,15 @@ def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
     return _map_tree(host_copy, _to_reference(named, model))
 
 
-def train_state_to_jax(state: TrainState
-                       ) -> tuple[dict, tuple, dict, int]:
+def train_state_to_jax(state: TrainState, cfg: ArchConfig | None = None,
+                       ctx=None) -> tuple[dict, tuple, dict, int]:
     """The port's ``TrainState`` -> ``(np_params, np_opt_state,
     np_sampler, step)``, numpy copies on the host: the arguments
-    ``train_state_from_jax`` takes."""
+    ``train_state_from_jax`` takes.  On a mesh (``cfg`` and ``ctx``) a
+    rank's shards gathered whole first (the sampler's state stays the
+    rank's)."""
+    if rules.on_mesh(ctx):
+        state = gather_train_state(state, cfg, ctx)
     tree = reference_tree(state)
     return (_map_tree(host_copy, tree.params),
             _map_tree(host_copy, tree.opt_state),
@@ -425,10 +434,112 @@ _OPTIMIZERS = {frozenset({"m", "v", "step"}): adamw,
                frozenset({"v", "step"}): adafactor}
 
 
+def _stat_spec(spec: tuple, which: str) -> tuple:
+    """The spec of an optimizer leaf of a leaf of spec ``spec``: Adafactor's
+    ``vr`` keeps all dims but the last, ``vc`` all but the second to last;
+    a moment (or the unfactored ``v``) is the leaf's shape."""
+    if which == "vr":
+        return spec[:-1]
+    if which == "vc":
+        return spec[:-2] + spec[-1:]
+    return spec
+
+
+def _opt_specs(node, specs: dict, stack_of: dict):
+    """The spec of each tensor of a port-form optimizer state (None for
+    the step counts): a dict keyed by parameter names by their specs, one
+    keyed by Adafactor's stack keys by ``_stat_spec`` of the stack's (its
+    layer dim unsharded)."""
+    if isinstance(node, dict):
+        stats = all(isinstance(v, dict) and v and set(v) <= {"vr", "vc", "v"}
+                    for v in node.values())
+        if node and not stats and set(node) <= set(specs):
+            return {k: specs[k] for k in node}
+        if node and stats and set(node) <= set(stack_of):
+            out = {}
+            for key, stats in node.items():
+                members = stack_of[key]
+                spec = specs[members[0]]
+                if key != members[0]:
+                    spec = (None,) + spec
+                out[key] = {w: _stat_spec(spec, w) for w in stats}
+            return out
+        return {k: _opt_specs(v, specs, stack_of) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_opt_specs(v, specs, stack_of) for v in node)
+    return None
+
+
+def _vocab_padded(cfg: ArchConfig, spec, ctx) -> bool:
+    """True for a leaf whose rows are the vocab of a recsys table that the
+    mesh pads to a multiple of tp (``train.step.shard_params``)."""
+    return (cfg.family == "recsys" and bool(spec)
+            and spec[0] == ctx.model_axis)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return tree if specs is None else fn(tree, specs)
+
+
+def shard_train_state(state: TrainState, cfg: ArchConfig, ctx
+                      ) -> TrainState:
+    """A whole ``TrainState`` -> this rank's: its parameters sharded by
+    ``train.step.shard_params`` (in place), every optimizer tensor by the
+    spec of the parameter it follows (``_opt_specs``), a recsys table's
+    moments padded as its rows are.  Bitwise: each shard is a slice."""
+    from repro_torch.train.step import shard_params
+
+    model = shard_params(state.params, cfg, ctx)
+    stack_of = adafactor_stacks(model.param_specs)
+
+    def shard(t, spec):
+        if _vocab_padded(cfg, spec, ctx):
+            t = rules.pad_rows(t, ctx.tp)
+        return rules.shard_by_spec(t, spec, ctx)
+
+    opt_state = _zip_map(shard, state.opt_state,
+                         _opt_specs(state.opt_state, model.param_specs,
+                                    stack_of))
+    return TrainState(params=model, opt_state=opt_state,
+                      sampler_state=state.sampler_state, step=state.step)
+
+
+def gather_train_state(state: TrainState, cfg: ArchConfig, ctx
+                       ) -> TrainState:
+    """The inverse of ``shard_train_state``: a rank's ``TrainState`` with
+    every parameter and optimizer tensor gathered whole over the mesh (a
+    recsys table's padded rows dropped), a new module without specs; the
+    sampler's state is the rank's."""
+    from repro_torch.train.step import gather_params, set_params
+
+    model = state.params
+    specs = model.param_specs
+    stack_of = adafactor_stacks(specs)
+
+    def gather(t, spec):
+        with torch.no_grad():
+            t = rules.gather_by_spec(t.detach(), spec, ctx)
+        return t[:cfg.vocab_size] if _vocab_padded(cfg, spec, ctx) else t
+
+    whole = copy.deepcopy(model)
+    whole.param_specs = None
+    set_params(whole, {k: t[:cfg.vocab_size] if _vocab_padded(
+        cfg, specs[k], ctx) else t for k, t in gather_params(
+            model, ctx).items()})
+    opt_state = _zip_map(gather, state.opt_state,
+                         _opt_specs(state.opt_state, specs, stack_of))
+    return TrainState(params=whole, opt_state=opt_state,
+                      sampler_state=state.sampler_state, step=state.step)
+
+
 def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
                          step: int, cfg: ArchConfig,
-                         device: str | torch.device | None = None
-                         ) -> TrainState:
+                         device: str | torch.device | None = None,
+                         ctx=None) -> TrainState:
     """A reference ``TrainState`` as numpy -> the port's, on ``device``.
 
     np_params: the recsys, lstm or LM param tree; np_opt_state: the state
@@ -436,7 +547,14 @@ def train_state_from_jax(np_params: dict, np_opt_state, np_sampler: dict,
     tree, "step": int32})``, or of ``make_optimizer("adafactor", ...)``,
     ``((), {"v": tree of {"vr", "vc"} or {"v"}, "step": int32})``;
     np_sampler: ``{"stats": {...}, "const": {...}}`` of the sampler's
-    carried state (``{}`` dicts for none); step: the train step count."""
+    carried state (``{}`` dicts for none; on a mesh the rank's own); step:
+    the train step count.  On a mesh (``ctx``) the params and the
+    optimizer's state go onto this rank's shards (``shard_train_state``;
+    an LM's tree padded for the mesh as ``init_lm`` pads it)."""
+    if rules.on_mesh(ctx):
+        return shard_train_state(train_state_from_jax(
+            np_params, np_opt_state, np_sampler, step, cfg, device), cfg,
+            ctx)
     dev = resolve_device(device)
     model = params_from_jax(np_params, cfg, device=dev)
     if cfg.family in LM_FAMILIES:

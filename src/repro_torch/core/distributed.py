@@ -31,8 +31,11 @@ Functions below:
               cotangent to each rank's local part unchanged.
   pmax, pmin  all-reduces of values that carry no gradient.
   all_gather_tiled  forward the ranks' parts concatenated in rank order;
-              backward sums the cotangent over the group and keeps this
-              rank's slice.
+              backward its transpose, ``reduce_scatter_tiled``: the
+              cotangent summed over the group, this rank's slice kept (a
+              reduce-scatter, 1/n of an all-reduce's result).  ZeRO-3's
+              gather before use (``sharding/rules.py::compute_view``), so
+              a sharded parameter's gradient arrives summed and sharded.
   replicated  the entry of a tensor that every rank of the group holds
               (h): identity forward, its cotangent summed over the group
               backward, as shard_map's transpose does for a replicated
@@ -67,21 +70,42 @@ Tensor = torch.Tensor
 
 # --- collectives --------------------------------------------------------------
 
-_COUNTS: dict[str, list[int]] = {}
+_COUNTS: dict[tuple[str, str], list[int]] = {}
+#: id(group) -> its name (``label_group``; a mesh's axes)
+_GROUP_NAMES: dict[int, str] = {}
 
 
-def collective_counts() -> dict[str, dict[str, int]]:
+def label_group(group, name: str):
+    """Name ``group`` in ``collective_counts(by_group=True)`` (the mesh's
+    axes it runs over: ``sharding.rules.ShardCtx.group``); returns it."""
+    if group is not None:
+        _GROUP_NAMES[id(group)] = name
+    return group
+
+
+def collective_counts(by_group: bool = False
+                      ) -> dict[str, dict[str, int]]:
     """Collectives since the last reset: {op: {"calls", "bytes"}}, bytes
-    being the size of each call's result on this rank."""
-    return {op: {"calls": c, "bytes": b} for op, (c, b) in _COUNTS.items()}
+    being the size of each call's result on this rank; ``by_group``
+    keys them ``"<op> <group>"`` by the group's name (``label_group``;
+    else its global ranks): ``"all_gather data"``."""
+    out: dict[str, dict[str, int]] = {}
+    for (op, group), (c, b) in _COUNTS.items():
+        key = f"{op} {group}" if by_group else op
+        got = out.setdefault(key, {"calls": 0, "bytes": 0})
+        got["calls"] += c
+        got["bytes"] += b
+    return out
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
 
 
-def _count(op: str, t: Tensor) -> None:
-    c = _COUNTS.setdefault(op, [0, 0])
+def _count(op: str, t: Tensor, group) -> None:
+    name = _GROUP_NAMES.get(id(group)) or ",".join(
+        map(str, dist.get_process_group_ranks(group)))
+    c = _COUNTS.setdefault((op, name), [0, 0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
 
@@ -92,7 +116,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 
 def all_reduce_(x: Tensor, op: str, group) -> Tensor:
     """In-place all-reduce of a contiguous ``x`` over ``group``, counted."""
-    _count(f"all_reduce_{op}", x)
+    _count(f"all_reduce_{op}", x, group)
     dist.all_reduce(x, op=_OPS[op], group=group)
     return x
 
@@ -101,7 +125,7 @@ def _gather(x: Tensor, group, dim: int) -> Tensor:
     parts = [torch.empty_like(x) for _ in range(axis_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     out = torch.cat(parts, dim=dim)
-    _count("all_gather", out)
+    _count("all_gather", out, group)
     return out
 
 
@@ -126,17 +150,27 @@ class _Replicated(torch.autograd.Function):
         return all_reduce_(g.contiguous().clone(), "sum", ctx.group), None
 
 
+def _reduce_scatter(x: Tensor, group, dim: int) -> Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    n = axis_size(group)
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks")
+    out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    _count("reduce_scatter", out, group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _AllGatherTiled(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        ctx.group, ctx.dim = group, dim
         return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce_(g.contiguous().clone(), "sum", ctx.group)
-        i = axis_index(ctx.group)
-        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 def psum(x: Tensor, group) -> Tensor:
@@ -166,6 +200,15 @@ def all_gather_tiled(x: Tensor, group, dim: int = 0) -> Tensor:
     if x.is_floating_point() and x.requires_grad:
         return _AllGatherTiled.apply(x, group, dim)
     return _gather(x.detach(), group, dim)
+
+
+def reduce_scatter_tiled(x: Tensor, group, dim: int = 0) -> Tensor:
+    """The sum of ``x`` over the group, of which this rank keeps its
+    ``dim``-slice in rank order (the transpose of ``all_gather_tiled``);
+    no gradient."""
+    if group is None:
+        return x
+    return _reduce_scatter(x.detach(), group, dim)
 
 
 def replicated(x: Tensor, group) -> Tensor:
@@ -220,16 +263,22 @@ def sharded_negative_sample(sampler: Sampler, state_local: Any, h: Tensor,
 
 
 def _positive_logit(w_local: Tensor, h: Tensor, labels: Tensor, group,
-                    bias_local: Tensor | None = None) -> Tensor:
+                    bias_local: Tensor | None = None,
+                    logits: Tensor | None = None) -> Tensor:
     """Logit of each example's positive class, summed over the shards:
-    exactly one shard owns each label, the others contribute zero."""
+    exactly one shard owns each label, the others contribute zero.  Read
+    off this shard's (T, n/tp) ``logits`` where given (as the one-device
+    full softmax gathers it), else from the owned rows of ``w_local``."""
     n_local = w_local.shape[0]
     off = local_vocab_offset(n_local, group)
     local = (labels >= off) & (labels < off + n_local)
     idx = torch.clamp(labels - off, 0, n_local - 1).long()
-    logit = torch.einsum("td,td->t", h.float(), w_local[idx].float())
-    if bias_local is not None:
-        logit = logit + bias_local[idx]
+    if logits is not None:
+        logit = torch.gather(logits, 1, idx[:, None])[:, 0]
+    else:
+        logit = torch.einsum("td,td->t", h.float(), w_local[idx].float())
+        if bias_local is not None:
+            logit = logit + bias_local[idx]
     logit = torch.where(local, logit, 0.0)
     return psum(logit, group)
 
@@ -459,12 +508,14 @@ def sharded_full_softmax_loss(w_local: Tensor, h: Tensor, labels: Tensor,
                               *, group, abs_mode: bool = False,
                               bias_local: Tensor | None = None) -> Tensor:
     """Full softmax over the sharded vocab (the dense oracle): only (T,
-    n/tp) logits per shard."""
-    logits = transform_logits(_local_logits(w_local, h, bias_local),
-                              abs_mode)
+    n/tp) logits per shard.  The positive logit is read off the owning
+    shard's logits, so a group of one shard computes what
+    ``full_softmax_loss`` computes, op for op."""
+    raw = _local_logits(w_local, h, bias_local)
+    logits = transform_logits(raw, abs_mode)
     c = pmax(torch.amax(logits.detach(), dim=-1), group)
     sumexp = psum(torch.sum(torch.exp(logits - c[:, None]), dim=-1), group)
-    pos = _positive_logit(w_local, h, labels, group, bias_local)
+    pos = _positive_logit(w_local, h, labels, group, logits=raw)
     return torch.log(sumexp) + c - transform_logits(pos, abs_mode)
 
 

@@ -151,7 +151,10 @@ def full_softmax_loss(w: Tensor, h: Tensor, labels: Tensor, *,
     if bias is not None:
         logits = logits + bias[None, :]
     logits = transform_logits(logits, abs_mode)
-    lse = torch.logsumexp(logits, dim=-1)
+    # the log-sum-exp taken as the vocab-sharded loss takes it (a shift by
+    # the detached max, a sum, a log), so one shard of it is this, op for op
+    c = torch.amax(logits.detach(), dim=-1)
+    lse = torch.log(torch.sum(torch.exp(logits - c[:, None]), dim=-1)) + c
     pos = torch.gather(logits, 1, labels[:, None].long())[:, 0]
     return lse - pos
 

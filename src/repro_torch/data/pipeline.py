@@ -69,7 +69,11 @@ def batch_iterator_for(cfg: ArchConfig, ctx, global_batch: int,
     batch's generator in ``cfg.dtype`` (the frontend stub's embeddings;
     the reference's encdec branch).  Frames and tokens of two lengths
     come from a ``ShardedBatchIterator`` over a sample function of the
-    caller's."""
+    caller's.  On a mesh each rank gets its block of every global batch
+    under ``cfg``'s own mode (``rules.ctx_for_train``, as ``fit`` takes
+    it): over ``data``, or data x model, data-major, in ``pure_fsdp``."""
+    if rules.on_mesh(ctx):
+        ctx = rules.ctx_for_train(ctx.mesh, cfg)
     if cfg.family not in ("recsys", "encdec") + TOKEN_FAMILIES:
         raise NotImplementedError(
             f"synthetic data for family '{cfg.family}' is not ported "

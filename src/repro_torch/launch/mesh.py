@@ -8,6 +8,9 @@ by ``tp`` columns, dims ``("data", "model")``: rank ``i * tp + j`` sits at
 data position ``i`` and model position ``j``.  The caller names the
 backend when it starts the world (``init_distributed``): ``nccl`` with
 one device a rank, ``gloo`` on the CPU and for ranks that share a card.
+``DeviceMesh`` gives a group per dim; ``pure_fsdp``'s batch runs over
+both, so ``make_debug_mesh`` also starts one group over every rank of the
+mesh, data-major (``flat_group``).
 The 3-D ``("host", "data", "model")`` mesh and the production meshes are
 not ported (ROADMAP.md A17).
 """
@@ -80,8 +83,20 @@ def make_debug_mesh(dp: int = 2, tp: int = 4, *,
             f"{dist.get_world_size()}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dp, tp),
-                            mesh_dim_names=MESH_DIMS)
+    mesh = init_device_mesh(device_type, (dp, tp), mesh_dim_names=MESH_DIMS)
+    # every rank starts it, in the same order, as it does the dims' groups
+    mesh.repro_flat_group = dist.new_group(mesh.mesh.flatten().tolist())
+    return mesh
+
+
+def flat_group(mesh):
+    """The group over every rank of a ``make_debug_mesh`` mesh, group rank
+    i * tp + j at data position i and model position j."""
+    group = getattr(mesh, "repro_flat_group", None)
+    if group is None:
+        raise ValueError("this mesh has no flat group: build it with "
+                         "launch.mesh.make_debug_mesh")
+    return group
 
 
 def make_mesh_for(devices: int, tp: int = 0, *,

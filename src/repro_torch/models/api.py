@@ -21,6 +21,13 @@ differentiates its loss through both (the dense family's attention
 through the flash kernel's backward on the card), while serving and the
 sampler's statistics call them under ``torch.no_grad()`` or detach the
 result.
+
+On a ``(data, model)`` mesh (a ``ShardCtx``) the recsys and dense
+families' modules hold a rank's shards (``train.step.shard_params``):
+``backbone_hidden(..., ctx)`` gathers them before use, and ``head_table``
+gives this rank's vocab rows with their feature dim gathered over
+``data`` (``rules.gather_head_fd``); a head tied to the embedding is the
+embedding's shard.  The other families raise there (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, lstm_lm, recsys, transformer
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
 PORTED_FAMILIES = ("recsys", "lstm") + transformer.LM_FAMILIES + (
@@ -41,17 +49,25 @@ def _require_ported(cfg: ArchConfig) -> None:
             f"{', '.join(PORTED_FAMILIES)})")
 
 
+def require_mesh_layout(cfg: ArchConfig) -> None:
+    """Raise for a family whose parameters this port does not yet store by
+    the reference's rules on a mesh (all but recsys and dense)."""
+    if cfg.family != "recsys":
+        transformer.require_mesh_layout(cfg)
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device: str | torch.device | None = None,
-                max_len: int = encdec.DEFAULT_MAX_LEN):
+                max_len: int = encdec.DEFAULT_MAX_LEN, ctx=None):
     """Random weights from ``gen`` on ``device`` — the card unless
     ``device="cpu"``; no device and no CUDA raises.  ``max_len`` sizes an
     encoder-decoder's learned position tables (the other families have
-    none)."""
+    none).  A mesh ``ctx`` pads an LM's heads and vocab as the
+    reference's ``init_lm`` does for it; the weights are whole."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family in transformer.LM_FAMILIES:
-        return transformer.init_lm(gen, cfg, dev)
+        return transformer.init_lm(gen, cfg, dev, ctx=ctx)
     if cfg.family == "encdec":
         return encdec.init_encdec(gen, cfg, dev, max_len=max_len)
     if cfg.family == "lstm":
@@ -61,11 +77,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 def init_module(cfg: ArchConfig, gen: torch.Generator,
                 device: str | torch.device | None = None,
-                max_len: int = encdec.DEFAULT_MAX_LEN) -> torch.nn.Module:
+                max_len: int = encdec.DEFAULT_MAX_LEN,
+                ctx=None) -> torch.nn.Module:
     """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
     an LM's tree wrapped in a ``StackedLM``, an encoder-decoder's in an
     ``EncDec`` (no copy)."""
-    params = init_params(cfg, gen, device, max_len)
+    params = init_params(cfg, gen, device, max_len, ctx=ctx)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.StackedLM(cfg, resolve_device(device),
                                      tree=params)
@@ -82,47 +99,50 @@ PARAM_MODULES = {"recsys": recsys.RecsysTower, "lstm": lstm_lm.LSTMLM,
 
 
 def abstract_params(cfg: ArchConfig,
-                    max_len: int = encdec.DEFAULT_MAX_LEN):
+                    max_len: int = encdec.DEFAULT_MAX_LEN, ctx=None):
     """The parameters on the ``meta`` device, as the family's module:
     their names, shapes and dtypes, nothing allocated or drawn (an
-    encoder-decoder's position tables of ``max_len`` rows)."""
+    encoder-decoder's position tables of ``max_len`` rows; an LM's padded
+    for a mesh ``ctx`` as ``init_params`` pads it)."""
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
             f"abstract params of family '{cfg.family}' are not ported")
     if cfg.family == "encdec":
         return encdec.EncDec(cfg, torch.device("meta"), max_len=max_len)
+    if cfg.family in transformer.LM_FAMILIES:
+        return transformer.StackedLM(cfg, torch.device("meta"), ctx=ctx)
     return PARAM_MODULES[cfg.family](cfg, torch.device("meta"))
 
 
-def head_table(params, cfg: ArchConfig) -> torch.Tensor:
+def head_name(cfg: ArchConfig) -> str:
+    """The parameter name of the class-embedding table: the embedding's
+    where the head is tied to it."""
+    _require_ported(cfg)
+    lm = cfg.family in transformer.LM_FAMILIES + ("encdec",)
+    if cfg.tie_embeddings:
+        return "embed.table" if lm else "embed_table"
+    return "head.w" if lm else "head_w"
+
+
+def head_table(params, cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """The class-embedding table the sampler/loss/index operate on: the
-    parameter itself, so a loss through it reaches its gradient."""
+    parameter itself, so a loss through it reaches its gradient.  On a
+    mesh, a module of a rank's shards gives its vocab rows with the
+    feature dim gathered over ``data`` (``rules.gather_head_fd``: the
+    gradient reduce-scattered back)."""
     _require_ported(cfg)
     if cfg.family in transformer.LM_FAMILIES + ("encdec",):
-        params = (encdec._top(params) if cfg.family == "encdec"
-                  else transformer._top(params))
-        if cfg.tie_embeddings or "head" not in params:
-            return params["embed"]["table"]
-        return params["head"]["w"]
-    if cfg.tie_embeddings:
-        return params.embed_table
-    return params.head_w
-
-
-def set_head_table(params: torch.nn.Module, cfg: ArchConfig,
-                   table: torch.nn.Parameter) -> None:
-    """Put ``table`` in the module in place of its head table (a mesh
-    rank's vocab shard).  A head tied to the embedding is also the
-    backbone's input table, which this part holds whole: it raises."""
-    _require_ported(cfg)
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "a head tied to the embedding table on a mesh (the table "
-            "sharded over the model group) is not ported (ROADMAP.md A17)")
-    if cfg.family in transformer.LM_FAMILIES + ("encdec",):
-        params.head.w = table
+        top = (encdec._top(params) if cfg.family == "encdec"
+               else transformer._top(params))
+        head = (top["embed"]["table"]
+                if cfg.tie_embeddings or "head" not in top
+                else top["head"]["w"])
     else:
-        params.head_w = table
+        head = params.embed_table if cfg.tie_embeddings else params.head_w
+    specs = getattr(params, "param_specs", None)
+    if rules.on_mesh(ctx) and specs is not None:
+        return rules.gather_head_fd(ctx, head, specs[head_name(cfg)])
+    return head
 
 
 def hidden_width(cfg: ArchConfig) -> int:
@@ -133,7 +153,8 @@ def hidden_width(cfg: ArchConfig) -> int:
     return cfg.d_model
 
 
-def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
+def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
+                    ctx=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward to the last hidden layer; flatten (example, feature).
 
@@ -143,11 +164,18 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
     layers' load-balance loss (0 for the other families).  With
     ``cfg.mtp`` the multi-token-prediction rows follow the B * S rows in
     the reference's order: ``mtp_hidden``'s h[:, :-1] (predicting token
-    t+2) flattened, with labels[:, 2:], so T = B * (2S - 2)."""
+    t+2) flattened, with labels[:, 2:], so T = B * (2S - 2).  On a mesh
+    (``ctx``) the rank's batch block through its shards: the recsys and
+    dense families."""
     _require_ported(cfg)
+    if rules.on_mesh(ctx):
+        require_mesh_layout(cfg)
     if cfg.family in transformer.LM_FAMILIES + ("lstm",):
-        mod = lstm_lm if cfg.family == "lstm" else transformer
-        h, aux = mod.hidden_states(params, batch["tokens"], cfg)
+        if cfg.family == "lstm":
+            h, aux = lstm_lm.hidden_states(params, batch["tokens"], cfg)
+        else:
+            h, aux = transformer.hidden_states(params, batch["tokens"], cfg,
+                                               ctx)
         d = h.shape[-1]
         hf, labels = h.reshape(-1, d), batch["labels"].reshape(-1)
         if cfg.mtp and cfg.family != "lstm":
@@ -161,5 +189,5 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig
         return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
                 torch.zeros((), dtype=torch.float32, device=h.device))
     h, aux = recsys.hidden_states(params, batch["history"],
-                                  batch["user_feats"])
+                                  batch["user_feats"], ctx)
     return h, batch["labels"].reshape(-1), aux

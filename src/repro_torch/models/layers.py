@@ -5,8 +5,18 @@ Conventions, as in the reference:
   * params are nested dicts of tensors; init functions return them;
   * compute dtype = cfg.dtype; storage dtype = cfg.param_dtype; norms,
     softmax statistics and logits in fp32;
-  * unsharded: the reference's ``ShardCtx`` activation constraints have no
-    counterpart on one device, so these functions take no ``ctx``.
+  * the reference's ``ShardCtx`` activation constraints have no
+    counterpart: a mesh rank holds its own tensors.  Under Megatron TP
+    (``tp_fsdp``; ``sharding.rules.tp_group``) the attention and the MLP
+    take ``group``, the model group, and this rank's column-parallel
+    ``wq/wk/wv/w_gate/w_up`` (and ``bq/bk/bv``) and row-parallel
+    ``wo/w_down`` slices: the input enters through
+    ``distributed.replicated`` (Megatron's f: its cotangent summed over
+    the group), the output leaves through ``distributed.psum`` (g), and
+    ``bo``/``b_down`` are added after it.  The attention then runs over
+    this rank's heads.  ``apply_embed`` with ``group`` is the
+    vocab-parallel lookup of a V-sharded table.  ``group=None``: one
+    device's computation.
 
 Full-sequence attention (``attn_forward``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors (with its
@@ -26,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
@@ -102,10 +113,30 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig,
                                 _pdtype(cfg), device, scale=0.02)}
 
 
-def apply_embed(p: Params, ids: Tensor, cfg: ArchConfig) -> Tensor:
+def embed_rows(table: Tensor, ids: Tensor, group=None,
+               dtype: torch.dtype | None = None) -> Tensor:
+    """``table[ids]`` (cast to ``dtype`` where given).  With ``group``,
+    ``table`` is this rank's vocab shard: ids outside it give zero rows,
+    and the psum over the group gives each id its owner's row (the
+    gradient reaches the owner's rows only)."""
+    if group is None:
+        rows = table[ids]
+        return rows if dtype is None else rows.to(dtype)
+    n_l = table.shape[0]
+    off = distributed.axis_index(group) * n_l
+    own = (ids >= off) & (ids < off + n_l)
+    rows = table[torch.clamp(ids - off, 0, n_l - 1)]
+    if dtype is not None:
+        rows = rows.to(dtype)
+    return distributed.psum(torch.where(own[..., None], rows, 0.0), group)
+
+
+def apply_embed(p: Params, ids: Tensor, cfg: ArchConfig,
+                group=None) -> Tensor:
     """Rows of the table, cast to the compute dtype (gathered first, then
-    cast: the same values as the reference's cast-then-gather)."""
-    return p["table"][ids].to(_dtype(cfg))
+    cast: the same values as the reference's cast-then-gather); with
+    ``group`` a vocab shard's (``embed_rows``)."""
+    return embed_rows(p["table"], ids, group, _dtype(cfg))
 
 
 def init_pos_embed(gen: torch.Generator, cfg: ArchConfig, max_pos: int,
@@ -205,21 +236,36 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                                    q_offset=q_offset)
 
 
+def _row_parallel_out(y: Tensor, p: Params, bias: str, cfg: ArchConfig,
+                      group) -> Tensor:
+    """A row-parallel projection's partial sums over ``group`` (g), then
+    its replicated bias, where the layer has one."""
+    y = distributed.psum(y, group)
+    if bias in p:
+        y = y + p[bias].to(_dtype(cfg))
+    return y
+
+
 def attn_prefill(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
-                 *, causal: bool = True) -> tuple[Tensor, Tensor, Tensor]:
+                 *, causal: bool = True, group=None
+                 ) -> tuple[Tensor, Tensor, Tensor]:
     """Full-sequence self-attention through ``ops.flash_attention``.
-    x: (B, S, d) -> (y (B, S, d), k and v (B, S, KV, hd) for a cache)."""
+    x: (B, S, d) -> (y (B, S, d), k and v (B, S, KV, hd) for a cache);
+    under TP (``group``) over this rank's heads, k and v its own."""
+    x = distributed.replicated(x, group)
     q, k, v = _qkv(p, x, cfg, positions, rope_on=not cfg.learned_pos)
     out = ops.flash_attention(q, k, v, causal=causal)
     b, s = x.shape[0], x.shape[1]
-    return out.reshape(b, s, -1) @ p["wo"].to(_dtype(cfg)), k, v
+    y = out.reshape(b, s, -1) @ p["wo"].to(_dtype(cfg))
+    return _row_parallel_out(y, p, "bo", cfg, group), k, v
 
 
 def attn_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
-                 *, causal: bool = True) -> Tensor:
+                 *, causal: bool = True, group=None) -> Tensor:
     """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d);
     differentiable in x and every parameter of ``p``."""
-    return attn_prefill(p, x, positions, cfg, causal=causal)[0]
+    return attn_prefill(p, x, positions, cfg, causal=causal,
+                        group=group)[0]
 
 
 def cross_kv(p: Params, enc: Tensor, cfg: ArchConfig
@@ -298,13 +344,16 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
     return p
 
 
-def apply_mlp(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+def apply_mlp(p: Params, x: Tensor, cfg: ArchConfig, group=None) -> Tensor:
     """SwiGLU (with ``w_gate``) or a plain MLP with the TANH-approximated
-    gelu, which is ``jax.nn.gelu``'s default."""
+    gelu, which is ``jax.nn.gelu``'s default; under TP (``group``) over
+    this rank's d_ff columns."""
     dt = _dtype(cfg)
+    x = distributed.replicated(x, group)
     up = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    return _row_parallel_out(h @ p["w_down"].to(dt), p, "b_down", cfg,
+                             group)

@@ -8,6 +8,15 @@ separate item output-embedding table (``head_w``).
 Weights keep the reference's layout: the tower's ``w{i}`` are (in, out) and
 apply as ``x @ w + b`` (no ``nn.Linear``), so ``convert.params_from_jax``
 is a plain copy.
+
+On a ``(data, model)`` mesh a rank's tower holds its shards by the
+reference's rules (``train.step.shard_params`` sets ``param_specs``): the
+watch embedding's rows over ``model`` (V, padded to a multiple of tp) and
+its features over ``data`` (Fd), the head likewise, the tower weights'
+rows over ``data`` (F).  ``hidden_states(..., ctx)`` gathers each before
+use (``rules.compute_view``): under TP the embedding stays vocab-parallel
+(the ids' rows from their owners, a psum over the model group) and every
+model rank computes the same tower; in pure_fsdp all of it is gathered.
 """
 from __future__ import annotations
 
@@ -15,7 +24,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _pdtype, dense_init
+from repro_torch.sharding import rules
 
 
 class RecsysTower(nn.Module):
@@ -25,6 +36,9 @@ class RecsysTower(nn.Module):
     The constructor only allocates them (``torch.empty``; on the ``meta``
     device nothing at all); ``init_recsys`` draws them and
     ``convert.params_from_jax`` copies them in."""
+
+    #: {name: spec} of a mesh rank's shards; None: every parameter whole
+    param_specs: dict | None = None
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -41,14 +55,26 @@ class RecsysTower(nn.Module):
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=pd, device=device)))
 
-    def forward(self, history: torch.Tensor,
-                user_feats: torch.Tensor) -> torch.Tensor:
-        """history: (B, H) item ids; user_feats: (B, F) -> h (B, d_h)."""
-        watch = torch.mean(self.embed_table[history], dim=1)
+    def forward(self, history: torch.Tensor, user_feats: torch.Tensor,
+                ctx=None) -> torch.Tensor:
+        """history: (B, H) item ids; user_feats: (B, F) -> h (B, d_h).  On
+        a mesh each parameter is used through its ``rules.compute_view``
+        and the watch embedding is looked up vocab-parallel where its view
+        keeps the rows sharded (the module docstring)."""
+        specs = self.param_specs if rules.on_mesh(ctx) else None
+
+        def view(name: str) -> torch.Tensor:
+            p = getattr(self, name)
+            return p if specs is None else \
+                rules.compute_view(p, specs[name], ctx)
+
+        group = None if specs is None else \
+            rules.vocab_group(specs["embed_table"], ctx)
+        watch = torch.mean(L.embed_rows(view("embed_table"), history, group),
+                           dim=1)
         x = torch.cat([watch, user_feats.to(watch.dtype)], dim=-1)
         for i in range(self.n_layers):
-            x = x @ getattr(self, f"tower_w{i}") + getattr(self,
-                                                           f"tower_b{i}")
+            x = x @ view(f"tower_w{i}") + view(f"tower_b{i}")
             if i < self.n_layers - 1:
                 x = torch.relu(x)
         return x
@@ -71,8 +97,9 @@ def init_recsys(gen: torch.Generator, cfg: ArchConfig,
 
 
 def hidden_states(model: RecsysTower, history: torch.Tensor,
-                  user_feats: torch.Tensor
+                  user_feats: torch.Tensor, ctx=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """history: (B, H) item ids; user_feats: (B, F).  Returns (h (B, d), 0)."""
-    h = model(history, user_feats)
+    """history: (B, H) item ids; user_feats: (B, F).  Returns (h (B, d), 0).
+    On a mesh the rank's rows through its shards (the module docstring)."""
+    h = model(history, user_feats, ctx)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)

@@ -31,6 +31,17 @@ forward again there.  With ``cfg.learned_pos`` RoPE is off and a tree's
 the reference (whose ``init_lm`` draws none).  The encoder-decoder family
 is ``models/encdec.py``.
 
+On a ``(data, model)`` mesh (``sharding/rules.py``) a ``StackedLM`` of the
+dense family holds this rank's shard of every parameter by the
+reference's rules (``shard_params`` of ``train/step.py`` sets its
+``param_specs``), and ``hidden_states(..., ctx)`` runs each layer on
+``rules.compute_view`` of its shards, gathered inside the layer's remat
+region so a recompute gathers again: whole in ``pure_fsdp`` (the rank's
+own batch rows), the Megatron slices in ``tp_fsdp`` (``layers``' TP
+attention and MLP over the model group, the embedding vocab-parallel).
+The other families, the caches, prefill and decode stay single-device on
+a mesh (ROADMAP.md A17).
+
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
 GQA and MLA's expanded form alike) goes through
 ``kernels.ops.flash_attention``: the CUDA kernels for CUDA tensors (under
@@ -53,6 +64,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.serve.retrieval import require_unsharded
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
 Tensor = torch.Tensor
@@ -60,6 +72,18 @@ Params = dict
 
 #: the families this module serves
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def require_mesh_layout(cfg: ArchConfig) -> None:
+    """Raise for a config whose layers this port does not yet store by the
+    reference's rules on a mesh: every family but the dense one without
+    MLA or multi-token prediction."""
+    if cfg.family != "dense" or cfg.mla or cfg.mtp:
+        what = ("MLA and multi-token prediction" if cfg.mla or cfg.mtp
+                else f"the {cfg.family} family")
+        raise NotImplementedError(
+            f"'{cfg.name}' on a mesh: {what}'s storage layouts are not "
+            "ported (ROADMAP.md A17)")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -126,11 +150,16 @@ class _Tree(nn.Module):
             else:
                 self.register_parameter(key, nn.Parameter(val))
 
-    def tree(self) -> Params:
+    def tree(self, leaf=None, prefix: str = "") -> Params:
+        """The nested dict of parameters, or of ``leaf(name, parameter)``
+        with the parameter's full name ``prefix + key``."""
         out = {}
         for key in self._keys:
             val = getattr(self, key)
-            out[key] = val.tree() if isinstance(val, _Tree) else val
+            if isinstance(val, _Tree):
+                out[key] = val.tree(leaf, f"{prefix}{key}.")
+            else:
+                out[key] = val if leaf is None else leaf(prefix + key, val)
         return out
 
 
@@ -147,15 +176,19 @@ class StackedLM(nn.Module):
     ``final_norm.scale``, ``head.w``, ``segments.<s>.<layer>.attn.wq``...
     ``convert`` stacks them back into the reference's layout."""
 
+    #: {name: spec} of a mesh rank's shards (``train.step.shard_params``);
+    #: None: every parameter whole
+    param_specs: dict | None = None
+
     def __init__(self, cfg: ArchConfig, device: str | torch.device,
-                 tree: Params | None = None, tp: int = 1):
+                 tree: Params | None = None, tp: int = 1, ctx=None):
         super().__init__()
         require_ported(cfg)
         if tree is None:
             dev = torch.device(device)
             tree = _map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device=dev),
-                        init_lm(None, cfg, "meta", tp))
+                        init_lm(None, cfg, "meta", tp, ctx=ctx))
         self.counts = [count for _, count in segments_of(cfg)]
         self.embed = _Tree(tree["embed"])
         if "pos_embed" in tree:
@@ -169,20 +202,26 @@ class StackedLM(nn.Module):
         if "mtp" in tree:
             self.mtp = _Tree(tree["mtp"])
 
-    def tree(self) -> Params:
+    def tree(self, leaf=None) -> Params:
         """The parameters as the reference's tree, each segment a list of
-        per-layer dicts."""
-        out = {"embed": self.embed.tree(),
-               "final_norm": self.final_norm.tree()}
-        if hasattr(self, "pos_embed"):
-            out["pos_embed"] = self.pos_embed.tree()
-        if hasattr(self, "head"):
-            out["head"] = self.head.tree()
-        out["segments"] = [[layer.tree() for layer in seg]
-                           for seg in self.segments]
+        per-layer dicts; with ``leaf``, ``leaf(name, parameter)`` in each
+        parameter's place."""
+        out = {key: getattr(self, key).tree(leaf, f"{key}.")
+               for key in ("embed", "final_norm", "pos_embed", "head")
+               if hasattr(self, key)}
+        out["segments"] = [[layer.tree(leaf, f"segments.{s}.{i}.")
+                            for i, layer in enumerate(seg)]
+                           for s, seg in enumerate(self.segments)]
         if hasattr(self, "mtp"):
-            out["mtp"] = self.mtp.tree()
+            out["mtp"] = self.mtp.tree(leaf, "mtp.")
         return out
+
+    def spec_tree(self) -> Params | None:
+        """``tree()`` with each parameter's spec in its place (None when
+        the parameters are whole)."""
+        if self.param_specs is None:
+            return None
+        return self.tree(lambda name, _: self.param_specs[name])
 
 
 def _top(params) -> Params:
@@ -249,14 +288,21 @@ def _copy_into(dst, src) -> None:
 
 
 def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
-            device: str | torch.device | None = None, tp: int = 1) -> Params:
+            device: str | torch.device | None = None, tp: int = 1,
+            ctx=None) -> Params:
     """Random weights from ``gen`` on ``device`` (the card unless
-    ``device="cpu"``).  Vocab rows at and after ``vocab_size`` (TP padding)
-    are zero, as in the reference.  On the ``meta`` device nothing is drawn
-    (``gen`` may be None): the tree's shapes and dtypes."""
+    ``device="cpu"``).  Heads are padded to a multiple of ``tp`` and the
+    vocab to ``tp`` rows; with a mesh ``ctx`` the heads to its backbone's
+    TP degree and the vocab to its head's (``ctx.tp_backbone``,
+    ``ctx.tp``: 1 and the model axis in pure_fsdp), as the reference's
+    ``init_lm``.  Vocab rows at and after ``vocab_size`` are zero, as in
+    the reference.  On the ``meta`` device nothing is drawn (``gen`` may
+    be None): the tree's shapes and dtypes."""
     require_ported(cfg)
     dev = resolve_device(device)
-    nvp = padded_vocab(cfg, tp)
+    nvp = padded_vocab(cfg, ctx.tp if rules.on_mesh(ctx) else tp)
+    if rules.on_mesh(ctx):
+        tp = ctx.tp_backbone
     pd = L._pdtype(cfg)
     emb = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
     emb[cfg.vocab_size:] = 0
@@ -283,29 +329,39 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
 # --- apply -------------------------------------------------------------------
 
 
-def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig
-               ) -> tuple[Tensor, Tensor | None]:
+def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig,
+               group=None) -> tuple[Tensor, Tensor | None]:
     """x + the layer's FFN (MLP, MoE or none) of norm2(x), and the MoE's
-    aux loss (None for the others)."""
+    aux loss (None for the others); the MLP tensor-parallel over
+    ``group``."""
     if ffn == "none":
         return x, None
     h = L.apply_norm(p["norm2"], x, cfg)
     if ffn == "moe":
         y, aux = MOE.apply_moe(p["moe"], h, cfg)
         return x + y, aux
-    return x + L.apply_mlp(p["mlp"], h, cfg), None
+    return x + L.apply_mlp(p["mlp"], h, cfg, group=group), None
 
 
 def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
-                 cfg: ArchConfig) -> tuple[Tensor, Tensor | None]:
+                 cfg: ArchConfig, ctx=None, specs: Params | None = None
+                 ) -> tuple[Tensor, Tensor | None]:
+    """One layer; on a mesh (``specs``, the layer's; the dense family)
+    its shards are gathered here first (``rules.compute_view``) and the
+    attention and MLP run tensor-parallel over ``rules.tp_group(ctx)``."""
     mixer, ffn = kind.split("+")
+    group = None
+    if specs is not None:
+        p = rules.gather_tree(p, specs, ctx)
+        group = rules.tp_group(ctx)
     h = L.apply_norm(p["norm1"], x, cfg)
     if mixer == "attn":
         x = x + (MLA.mla_forward(p["attn"], h, positions, cfg) if cfg.mla
-                 else L.attn_forward(p["attn"], h, positions, cfg))
+                 else L.attn_forward(p["attn"], h, positions, cfg,
+                                     group=group))
     else:
         x = x + M.apply_mamba(p["mamba"], h, cfg)
-    return _apply_ffn(ffn, p, x, cfg)
+    return _apply_ffn(ffn, p, x, cfg, group)
 
 
 def _positions(b: int, s: int, device: torch.device) -> Tensor:
@@ -313,10 +369,18 @@ def _positions(b: int, s: int, device: torch.device) -> Tensor:
 
 
 def _embed(top: Params, tokens: Tensor, cfg: ArchConfig,
-           pos: Tensor | None = None) -> Tensor:
+           pos: Tensor | None = None, ctx=None,
+           specs: Params | None = None) -> Tensor:
     """The tokens' embeddings, plus the learned position table's rows
     where ``cfg.learned_pos`` and the tree has one: positions 0..S-1, or
-    ``pos`` (B,) for a one-token step."""
+    ``pos`` (B,) for a one-token step.  On a mesh (``specs``; the dense
+    family, no position table) the table's ``compute_view``:
+    vocab-parallel under TP, whole in pure_fsdp."""
+    if specs is not None:
+        spec = specs["embed"]["table"]
+        return L.apply_embed(
+            {"table": rules.compute_view(top["embed"]["table"], spec, ctx)},
+            tokens, cfg, rules.vocab_group(spec, ctx))
     x = L.apply_embed(top["embed"], tokens, cfg)
     if cfg.learned_pos and "pos_embed" in top:
         table = top["pos_embed"]["table"]
@@ -331,23 +395,38 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     """Backbone forward: tokens (B, S) -> (h (B, S, d), aux_loss: the MoE
     layers' summed, 0 without them).  ``params``: the stacked tree or a
     ``StackedLM``; differentiable.  With ``cfg.remat`` and grad enabled
-    each layer is checkpointed: its forward runs again in the backward."""
+    each layer is checkpointed: its forward runs again in the backward.
+
+    On a mesh ``params`` is a sharded ``StackedLM`` of the dense family
+    and ``tokens`` this rank's batch rows; h is its rows' states (alike
+    over the model group under TP)."""
     require_ported(cfg)
-    require_unsharded(ctx)
+    specs = None
+    if rules.on_mesh(ctx):
+        require_mesh_layout(cfg)
+        if isinstance(params, StackedLM):
+            specs = params.spec_tree()
+        if specs is None:
+            raise ValueError("on a mesh hidden_states takes a StackedLM "
+                             "of the rank's shards (train.step."
+                             "shard_params)")
     b, s = tokens.shape
     top = _top(params)
-    x = _embed(top, tokens, cfg)
+    x = _embed(top, tokens, cfg, ctx=ctx, specs=specs)
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for (kind, _), layers in zip(segments_of(cfg), _layers_of(params, cfg)):
-        for lp in layers:
+    layer_specs = specs["segments"] if specs else [
+        [None] * count for _, count in segments_of(cfg)]
+    for (kind, _), layers, lspecs in zip(
+            segments_of(cfg), _layers_of(params, cfg), layer_specs):
+        for lp, ls in zip(layers, lspecs):
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    _apply_layer, kind, lp, x, positions, cfg,
+                    _apply_layer, kind, lp, x, positions, cfg, ctx, ls,
                     use_reentrant=False)
             else:
-                x, a = _apply_layer(kind, lp, x, positions, cfg)
+                x, a = _apply_layer(kind, lp, x, positions, cfg, ctx, ls)
             if a is not None:
                 aux = aux + a
     x = L.apply_norm(top["final_norm"], x, cfg)

@@ -29,7 +29,14 @@ matrix's fp32 temporaries a piece of its rows at a time
 computed twice, once for the stack's sum of squares and once to apply,
 and ``update`` adds it to the parameters IN PLACE (an fp32 update of
 falcon-mamba-7b's ``in_proj`` stack would take 17 GB) and returns no
-updates, so ``apply_updates`` after it adds nothing."""
+updates, so ``apply_updates`` after it adds nothing.
+
+On a mesh (gradients as ``clip.ShardedGrads``, each leaf a rank's
+shard) the state takes the shards' shapes, and every mean is the whole
+leaf's: ``vr``'s over its columns, ``vc``'s and the row statistics' mean
+over its rows, the RMS over all of it, each a local sum psum'd over the
+axes that shard the reduced dim and divided by the global count.  A dim
+no axis shards is reduced locally, so a replicated leaf counts once."""
 from __future__ import annotations
 
 import re
@@ -37,6 +44,7 @@ import re
 import torch
 
 from repro_torch.optim import transform
+from repro_torch.optim.clip import ShardedGrads
 from repro_torch.optim.transform import GradientTransform
 
 _LAYER = re.compile(r"^(segments\.\d+|enc_blocks|dec_blocks)\.(\d+)\.(.+)$")
@@ -103,6 +111,32 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
     def sq(g: torch.Tensor) -> torch.Tensor:
         return torch.square(g.float()) + eps
 
+    def mesh_of(grads, name):
+        """(the mean over a dim of the whole leaf, psum over axes, the
+        rank count of axes, the axes sharding the leaf's rows, its columns
+        and all of it); no axes unsharded."""
+        if not isinstance(grads, ShardedGrads):
+            return ((lambda x, dim, axes: x.mean() if dim is None
+                     else x.mean(dim)),
+                    (lambda x, axes: x), (lambda axes: 1), (), (), ())
+        nd = len(grads.specs[name])
+        rows = grads.dim_axes(name, nd - 2) if nd >= 2 else ()
+        cols = grads.dim_axes(name, nd - 1) if nd >= 1 else ()
+
+        def mean(x, dim, axes):
+            """x's mean over ``dim`` (None: all of it) of the whole
+            leaf, whose ``dim`` is sharded over ``axes``."""
+            if not axes:
+                return x.mean() if dim is None else x.mean(dim)
+            if dim is None:
+                return grads.psum(x.sum(), axes) / (x.numel()
+                                                    * grads.size(axes))
+            return grads.psum(x.sum(dim), axes) / (x.shape[dim]
+                                                   * grads.size(axes))
+
+        return (mean, grads.psum, grads.size, rows, cols,
+                grads.leaf_axes(name))
+
     def layer_parts(key, members, grads, params, v, cross):
         """The stack in pieces, each (g, p, state views): per layer
         ``(g, p, v)`` of an unfactored stack; per layer ``(g, p, vr[i],
@@ -130,6 +164,8 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
         # a (count, d) stack: its rows factored across the layers
         cross = "vr" in v and v["vr"].dim() == 1 and key != members[0]
         parts = list(layer_parts(key, members, grads, params, v, cross))
+        mean, psum, size, row_ax, col_ax, all_ax = mesh_of(grads,
+                                                           members[0])
         # 1. the statistics
         if "v" in v:
             for g, _, vv in parts:
@@ -138,17 +174,23 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
             col = torch.zeros_like(v["vc"])
             for g, _, r, _ in parts:
                 g2 = sq(g)
-                ema(r, g2.mean())
+                ema(r, mean(g2, None, col_ax))
                 col += g2
             ema(v["vc"], col / len(parts))
         else:
             for g, _, r, c in parts:
                 col = torch.zeros_like(c)
+                rmean = torch.empty_like(r)
                 for rows in _row_pieces(g):
                     g2 = sq(g[rows])
-                    ema(r[rows], g2.mean(-1))
+                    # a shard's row sums, psum'd below where cols shard
+                    rmean[rows] = g2.mean(-1) if not col_ax else g2.sum(-1)
                     col += g2.sum(-2)
-                ema(c, col / g.shape[0])
+                if col_ax:
+                    rmean = psum(rmean, col_ax) / (g.shape[-1]
+                                                   * size(col_ax))
+                ema(r, rmean)
+                ema(c, psum(col, row_ax) / (g.shape[0] * size(row_ax)))
         # the update's pieces, each (g, p, its preconditioner): a matrix's
         # rows a piece at a time, its row statistics over their mean
         if "v" in v:
@@ -159,7 +201,8 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
         else:
             pieces = []
             for g, p, r, c in parts:
-                rs = r / torch.clamp(r.mean(-1, keepdim=True), min=eps)
+                rs = r / torch.clamp(mean(r, -1, row_ax)[..., None],
+                                     min=eps)
                 pieces += [(g[rows], p[rows], (rs, rows, c))
                            for rows in _row_pieces(g)]
 
@@ -171,8 +214,9 @@ def adafactor(lr, decay: float = 0.99, eps: float = 1e-30,
             return g.float() * torch.rsqrt(torch.clamp(pre, min=eps))
 
         # 2. the stack's RMS; 3. the clipped update, into the parameters
-        sumsq = sum(torch.sum(torch.square(upd_of(pc))) for pc in pieces)
-        numel = sum(part[0].numel() for part in parts)
+        sumsq = psum(sum(torch.sum(torch.square(upd_of(pc)))
+                         for pc in pieces), all_ax)
+        numel = sum(part[0].numel() for part in parts) * size(all_ax)
         rms = torch.sqrt(sumsq / numel + 1e-30)
         div = torch.clamp(rms / clip_threshold, min=1.0)
         for piece in pieces:

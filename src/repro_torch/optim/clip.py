@@ -22,16 +22,44 @@ def _pieces(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 
 class ShardedGrads(dict):
-    """A mesh rank's gradients: the names in ``sharded`` are its shard of
-    a table split over ``group`` (the head's vocab rows), the rest are
-    whole and alike on the group's ranks.  ``global_norm`` sums the
-    shards' squares over the group, so every rank clips by the norm of the
-    whole model."""
+    """A mesh rank's gradients: ``specs[name]`` is the leaf's spec (one
+    entry a dim: None, a mesh axis or a tuple of them; its gradient is
+    alike on the ranks along every axis it does not name), ``ctx`` the
+    rank's ``ShardCtx``.  ``global_norm`` sums each leaf's squares over
+    exactly the axes that shard it, so every rank clips by the norm of the
+    whole model and a leaf replicated over an axis counts once; Adafactor
+    takes its means over a dim the same way (``dim_axes``)."""
 
-    def __init__(self, grads: dict[str, torch.Tensor], sharded, group):
+    def __init__(self, grads: dict[str, torch.Tensor], specs: dict, ctx):
         super().__init__(grads)
-        self.sharded = frozenset(sharded)
-        self.group = group
+        self.specs = {k: tuple(specs[k]) for k in grads}
+        self.ctx = ctx
+
+    def dim_axes(self, name: str, dim: int) -> tuple[str, ...]:
+        """The axes of more than one rank that shard dim ``dim`` of the
+        leaf ``name``, in the mesh's order."""
+        entry = self.specs[name][dim]
+        named = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        return tuple(a for a in self.ctx.mesh.mesh_dim_names
+                     if a in named and self.ctx.axis_size(a) > 1)
+
+    def leaf_axes(self, name: str) -> tuple[str, ...]:
+        """Every axis of more than one rank that shards the leaf."""
+        axes = {a for d in range(len(self.specs[name]))
+                for a in self.dim_axes(name, d)}
+        return tuple(a for a in self.ctx.mesh.mesh_dim_names if a in axes)
+
+    def psum(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+        """``x`` summed over ``axes`` (as ``dim_axes`` gives them)."""
+        if not axes:
+            return x
+        from repro_torch.core import distributed
+
+        return distributed.psum(x, self.ctx.group(axes))
+
+    def size(self, axes: tuple[str, ...]) -> int:
+        return self.ctx.axis_size(axes)
 
 
 def _sum_squares(xs) -> torch.Tensor:
@@ -40,14 +68,13 @@ def _sum_squares(xs) -> torch.Tensor:
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    sharded = getattr(tree, "sharded", frozenset())
-    if not sharded:
+    if not isinstance(tree, ShardedGrads):
         return torch.sqrt(_sum_squares(tree.values()))
-    from repro_torch.core import distributed
-
-    own = _sum_squares(x for k, x in tree.items() if k in sharded)
-    whole = _sum_squares(x for k, x in tree.items() if k not in sharded)
-    return torch.sqrt(whole + distributed.psum(own, tree.group))
+    by_axes: dict[tuple[str, ...], list[torch.Tensor]] = {}
+    for k, x in tree.items():
+        by_axes.setdefault(tree.leaf_axes(k), []).append(x)
+    return torch.sqrt(sum(tree.psum(_sum_squares(xs), axes)
+                          for axes, xs in sorted(by_axes.items())))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransform:

@@ -203,11 +203,15 @@ def fit(cfg: ArchConfig, ctx, opt: GradientTransform,
     ``device="cpu"``): from the latest checkpoint in ``checkpoint_dir`` if
     there is one, else from a fresh state drawn from ``seed``.
     ``max_len`` sizes an encoder-decoder's learned position tables, as in
-    the reference (the other families have none)."""
+    the reference (the other families have none).  On a mesh the mode is
+    ``cfg``'s (``rules.ctx_for_train``), whatever ``ctx``'s, as ``data``
+    (``batch_iterator_for``) takes it."""
     if checkpoint_dir and rules.on_mesh(ctx):
         raise NotImplementedError(
             "checkpoints on a mesh (per-process shards) are not ported "
             "(ROADMAP.md A17)")
+    if rules.on_mesh(ctx):
+        ctx = rules.ctx_for_train(ctx.mesh, cfg)
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, ctx, opt)
     island = RefreshIsland(cfg, ctx, dev) \

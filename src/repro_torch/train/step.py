@@ -25,17 +25,27 @@ selects with ``jnp.where``; the result is the same).  Under
 and swaps the result in.
 
 On a ``(data, model)`` mesh (``sharding/rules.py::mesh_ctx``) each rank
-holds the backbone whole, its vocab shard of the head (``shard_head``) and
-its shard of the sampler's statistics, and trains on its data block of
-the batch: the refresh rebuilds the shard's statistics from its rows with
-its ``n_valid``; the loss goes through
-``core/distributed.py::sharded_estimator_loss`` over the model group with
-the step's generator folded by the data position (the shard index is
-folded in below it); the loss sum is a psum over the data group; after
-the backward every gradient is all-reduced over the data group, and
-clipping's global norm sums the head shards' squares over the model group.
-The overlap island, the tree, rff and midx statistics, expert
-parallelism, a tied head and Adafactor on a mesh raise (ROADMAP.md A17).
+holds its shard of every parameter by the reference's rules
+(``shard_params``: the head's vocab rows over ``model``, ZeRO-3 over
+``data``, Megatron's slices over ``model``) and its shard of the
+sampler's statistics, and trains on its block of the batch (over data,
+or data x model in ``pure_fsdp``).  The backbone gathers each shard
+before use (``api.backbone_hidden(..., ctx)``); the head island gathers
+the head's feature dim over data, rebuilds the shard's statistics from
+its rows with its ``n_valid``, and takes the loss through
+``core/distributed.py::sharded_estimator_loss`` over the model group
+with the step's generator folded by the data position only (the shard
+index is folded in below it).  In ``pure_fsdp`` the island first
+all-gathers h and the labels over ``model``, so each model column holds
+its data row's tokens; the loss sum is a psum over the data group.  A
+sharded parameter's gradient arrives summed and sharded through its
+gather's backward (a reduce-scatter); the gradient of one replicated
+over a batch axis is all-reduced over it (``rules.grad_reduce_axes``);
+clipping's global norm and Adafactor's statistics sum each leaf over the
+axes that shard it (``ShardedGrads``).  The overlap island, the tree,
+rff and midx statistics, expert parallelism and the families whose
+layouts are not ported (lstm, ssm, hybrid, MLA / mtp, encdec) raise
+(ROADMAP.md A17).
 
 ``serving_index_source`` is the seam between training and serving: it
 restores the newest complete checkpoint and exports a fresh serving index
@@ -58,6 +68,8 @@ from repro_torch.core.samplers import (
     sampler_from_config,
 )
 from repro_torch.models import api
+from repro_torch.models.layers import padded_heads
+from repro_torch.models.transformer import LM_FAMILIES
 from repro_torch.optim.clip import ShardedGrads
 from repro_torch.optim.transform import GradientTransform, apply_updates
 from repro_torch.serve import quantized_index, retrieval
@@ -94,7 +106,7 @@ _A17 = "(ROADMAP.md A17)"
 def _on_mesh(cfg: ArchConfig, ctx) -> bool:
     """True on a mesh, after refusing what this part does not port: the
     sampler families whose statistics are not sharded, expert parallelism,
-    a head tied to the embedding, the overlap island."""
+    the families whose layouts are not ported, the overlap island."""
     if not rules.on_mesh(ctx):
         return False
     sampler_from_config(cfg).check_mesh()
@@ -102,21 +114,11 @@ def _on_mesh(cfg: ArchConfig, ctx) -> bool:
         raise NotImplementedError(
             f"expert parallelism (models/moe.py) on a mesh is not ported "
             f"{_A17}")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"a head tied to the embedding on a mesh is not ported {_A17}")
+    api.require_mesh_layout(cfg)
     if cfg.refresh_mode == "overlap":
         raise NotImplementedError(
             f"refresh_mode='overlap' on a mesh is not ported {_A17}")
     return True
-
-
-def _factored(opt_state) -> bool:
-    """True when the optimizer's state holds Adafactor's factored second
-    moments (``{"v", "step"}``), which reduce over the head's rows."""
-    states = opt_state if isinstance(opt_state, tuple) else (opt_state,)
-    return any(isinstance(s, dict) and set(s) == {"v", "step"}
-               for s in states)
 
 
 def shard_n_valid(cfg: ArchConfig, ctx) -> int:
@@ -127,15 +129,62 @@ def shard_n_valid(cfg: ArchConfig, ctx) -> int:
     return rules.local_n_valid(cfg.vocab_size, v_l, ctx.model_index)
 
 
-def shard_head(model: torch.nn.Module, cfg: ArchConfig, ctx
-               ) -> torch.nn.Module:
-    """Keep this rank's V-rule rows of the model's head (in place): the
-    whole table padded with zero rows to tp * v_l, rows [j v_l, (j + 1)
-    v_l) for model position j.  Returns the model."""
-    head = api.head_table(model, cfg).detach()
-    api.set_head_table(model, cfg,
-                       torch.nn.Parameter(rules.shard_rows(head, ctx)))
+def shard_params(model: torch.nn.Module, cfg: ArchConfig, ctx
+                 ) -> torch.nn.Module:
+    """Keep this rank's shard of every parameter of a whole model (in
+    place), by ``rules.param_specs_for``, and set ``model.param_specs``.
+    A recsys model's tables are padded with zero rows to a multiple of tp
+    first (the V rule; an LM's vocab is padded by ``init_lm``).  Returns
+    the model."""
+    if cfg.family in LM_FAMILIES:
+        _require_heads_padded(model, cfg, ctx)
+    whole = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if cfg.family == "recsys" and name in ("embed_table", "head_w"):
+            t = rules.pad_rows(t, ctx.tp)
+        whole[name] = t
+    specs = rules.param_specs_for(whole, ctx)
+    set_params(model, {name: rules.shard_by_spec(t, specs[name], ctx)
+                       for name, t in whole.items()})
+    model.param_specs = specs
     return model
+
+
+def set_params(model: torch.nn.Module, named: dict[str, Tensor]) -> None:
+    """Put each tensor of ``named`` in the module as the parameter of its
+    name (a new ``Parameter``, whatever its shape)."""
+    for name, t in named.items():
+        mod_name, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(mod_name), leaf, torch.nn.Parameter(t))
+
+
+def _require_heads_padded(model: torch.nn.Module, cfg: ArchConfig, ctx
+                          ) -> None:
+    """Raise unless the LM's head counts are the ones ``init_lm`` pads to
+    for the mesh (``padded_heads`` at ``ctx.tp_backbone``): the M rule
+    would otherwise split a head across ranks."""
+    hd = cfg.resolved_head_dim
+    want = padded_heads(cfg, ctx.tp_backbone)
+    for name, p in model.named_parameters():
+        if name.endswith("attn.wk"):
+            wq = model.get_parameter(name[:-2] + "wq")
+            got = (wq.shape[1] // hd, p.shape[1] // hd)
+            if got != want:
+                raise ValueError(
+                    f"{name}: {got} q / kv heads, the mesh's backbone "
+                    f"(tp {ctx.tp_backbone}) needs {want}: init the model "
+                    "for the mesh (init_lm(..., ctx=ctx))")
+            return
+
+
+def gather_params(model: torch.nn.Module, ctx) -> dict[str, Tensor]:
+    """Every parameter of a rank's sharded model gathered whole (the
+    inverse of ``shard_params``; the padded rows kept), no gradient."""
+    specs = model.param_specs
+    with torch.no_grad():
+        return {k: rules.gather_by_spec(p.detach(), specs[k], ctx)
+                for k, p in model.named_parameters()}
 
 
 def make_refresh_fn(cfg: ArchConfig, ctx=None
@@ -200,7 +249,8 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
     n_valid = shard_n_valid(cfg, ctx)
     mg = ctx.model_group if mesh else None
     dg = ctx.data_group if mesh else None
-    dp = ctx.dp if mesh else 1
+    n_data = ctx.axis_size(ctx.data_axes) if mesh else 1
+    pure_fsdp = mesh and ctx.mode == "pure_fsdp"
 
     def local_loss(model, mb, sstate, gen):
         h2d, labels, aux = api.backbone_hidden(model, mb, cfg)
@@ -213,22 +263,29 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         return loss + aux_coef * aux, loss, aux
 
     def mesh_loss(model, mb, sstate, gen):
-        """The head island of the reference's shard_map: this rank's rows
-        and head shard; the returned loss is the GLOBAL mean, alike on
-        every rank."""
-        h2d, labels, aux = api.backbone_hidden(model, mb, cfg)
-        head = api.head_table(model, cfg)
+        """The head island of the reference's shard_map: this rank's head
+        shard (its feature dim gathered) over its data row's tokens; the
+        returned loss is the GLOBAL mean, alike on every rank."""
+        h2d, labels, aux = api.backbone_hidden(model, mb, cfg, ctx)
+        head = api.head_table(model, cfg, ctx)
         state_local = None
         if estimator.needs_sampling:
             with torch.no_grad():
                 state_local = sampler.island_runtime(sstate, head.detach(),
                                                      n_valid)
+        if pure_fsdp:
+            # the model column's tokens, every one on each of its ranks:
+            # the gather's backward sums each rank's shard terms of dL/dh
+            h_in = distributed.all_gather_tiled(h2d, mg)
+            labels = distributed.all_gather_tiled(labels, mg)
+        else:
+            h_in = distributed.replicated(h2d, mg)
         losses = distributed.sharded_estimator_loss(
-            estimator, head, distributed.replicated(h2d, mg), labels,
-            sampler, state_local, m, fold_generator(gen, ctx.data_index),
-            group=mg, abs_mode=cfg.abs_softmax, impl=cfg.head_impl)
+            estimator, head, h_in, labels, sampler, state_local, m,
+            fold_generator(gen, ctx.data_index), group=mg,
+            abs_mode=cfg.abs_softmax, impl=cfg.head_impl)
         lsum = distributed.psum(torch.sum(losses), dg)
-        loss = lsum / (h2d.shape[0] * dp)
+        loss = lsum / (h_in.shape[0] * n_data)
         return loss + aux_coef * aux, loss, aux
 
     loss_fn = mesh_loss if mesh else local_loss
@@ -241,22 +298,14 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         torch.autograd.backward(total, inputs=list(params.values()))
         return total.detach(), loss.detach(), aux.detach()
 
-    head_names: tuple[str, ...] = ()
-
     def train_step(state: TrainState, batch: dict, gen: torch.Generator
                    ) -> tuple[TrainState, dict]:
-        nonlocal head_names
-        if mesh and not head_names:
-            if _factored(state.opt_state):
-                raise NotImplementedError(
-                    "Adafactor on a mesh (the head shard's factored "
-                    f"statistics summed over the model group) {_A17}")
-            head = api.head_table(state.params, cfg)
-            head_names = tuple(k for k, p in param_dict(state.params).items()
-                               if p is head)
         sstate = state.sampler_state
         if in_step_refresh and state.step % every == 0:
-            sstate = refresh_fn(api.head_table(state.params, cfg), sstate)
+            with torch.no_grad():
+                head = api.head_table(state.params, cfg,
+                                      ctx if mesh else None)
+            sstate = refresh_fn(head, sstate)
         params = param_dict(state.params)
         for p in params.values():
             p.grad = None
@@ -280,10 +329,12 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
             total, loss, aux = total / mu, loss / mu, aux / mu
         grads = {k: _take_grad(p, mu) for k, p in params.items()}
         if mesh:
-            if dp > 1:
-                for g in grads.values():
-                    distributed.all_reduce_(g, "sum", dg)
-            grads = ShardedGrads(grads, head_names, mg)
+            specs = state.params.param_specs
+            for k, g in grads.items():
+                axes = rules.grad_reduce_axes(specs[k], ctx)
+                if axes:
+                    distributed.all_reduce_(g, "sum", ctx.group(axes))
+            grads = ShardedGrads(grads, specs, ctx)
         updates, opt_state = opt.update(grads, state.opt_state, params)
         del grads
         apply_updates(params, updates)
@@ -305,8 +356,9 @@ def export_retrieval_index(state: TrainState, cfg: ArchConfig, ctx,
     """Packed serving index from a trained state: UNPROJECTED statistics
     of the current head table (``serve/retrieval.py::build_index``), never
     the carried sampler state, which may be projected and is one update
-    stale."""
-    head = api.head_table(state.params, cfg).detach()
+    stale.  On a mesh the rank's vocab shard, its features gathered."""
+    with torch.no_grad():
+        head = api.head_table(state.params, cfg, ctx).detach()
     return retrieval.build_index(head, ctx, leaf_size=leaf_size,
                                  vocab_size=cfg.vocab_size)
 
@@ -339,27 +391,29 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
     encoder-decoder's learned position tables, as in the reference (the
     other families have none).
 
-    On a mesh every rank draws the same whole model from ``key`` (so the
-    weights are those of the unsharded init) and keeps its head shard
-    (``shard_head``); its statistics are built from that shard's rows (the
-    reference allocates zeros, which the first step's refresh
-    overwrites)."""
+    On a mesh every rank draws the same whole model from ``key``, padded
+    as the reference pads it for the mesh (so the weights are those of
+    the reference's init at that padding), and keeps its shards
+    (``shard_params``); the optimizer's state takes the shards' shapes;
+    its statistics are built from the head shard's rows (the reference
+    allocates zeros, which the first step's refresh overwrites)."""
     mesh = _on_mesh(cfg, ctx)
     cfg.validate(tp=ctx.tp if mesh else 1)
     dev = resolve_device(device)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.init_module(cfg, key, device=dev, max_len=max_len)
+    model = api.init_module(cfg, key, device=dev, max_len=max_len,
+                            ctx=ctx if mesh else None)
     if mesh:
-        shard_head(model, cfg, ctx)
+        shard_params(model, cfg, ctx)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
         const_gen = torch.Generator(dev).manual_seed(
             fold_in(key.initial_seed(), 7))
         with torch.no_grad():
-            sstate = sampler.init_state(const_gen,
-                                        api.head_table(model, cfg).detach(),
+            head = api.head_table(model, cfg, ctx if mesh else None)
+            sstate = sampler.init_state(const_gen, head.detach(),
                                         n_valid=shard_n_valid(cfg, ctx))
     return TrainState(params=model, opt_state=opt_state,
                       sampler_state=sstate, step=0)
@@ -370,14 +424,14 @@ def abstract_train_state(cfg: ArchConfig, ctx, opt: GradientTransform,
     """The train state's structure on the ``meta`` device, nothing
     allocated: the restore template of ``CheckpointManager.restore``.
     Shapes and dtypes are those ``init_train_state`` gives at the same
-    ``max_len``: on a mesh this rank's head shard and statistics shard."""
+    ``max_len``: on a mesh this rank's shards and statistics shard."""
     mesh = _on_mesh(cfg, ctx)
     cfg.validate(tp=ctx.tp if mesh else 1)
     sampler = sampler_from_config(cfg)
     estimator = estimators.make_estimator(cfg.estimator)
-    model = api.abstract_params(cfg, max_len)
+    model = api.abstract_params(cfg, max_len, ctx=ctx if mesh else None)
     if mesh:
-        shard_head(model, cfg, ctx)
+        shard_params(model, cfg, ctx)
     sstate = empty_state()
     if sampler.carries_state and estimator.needs_sampling:
         sstate = (sampler.shard_state_shapes(cfg, ctx.tp) if mesh

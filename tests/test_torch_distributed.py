@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_mesh_util import MESHES, Reference, close, mesh_id, \
+from torch_mesh_util import MESHES, Ranks, Reference, close, mesh_id, \
     start_meshes
 
 V, D, T, M, POOL, K = 64, 16, 16, 8, 16, 5
@@ -607,3 +607,48 @@ def test_single_shard_needs_no_group():
                                 kind="stable")[:, :K])
     assert dist.collective_counts() == {}
     assert (dist.axis_size(None), dist.axis_index(None)) == (1, 0)
+
+
+def _one_rank_worker(ctx, inp: dict) -> dict:
+    """The sharded full softmax over this world's one-rank model group and
+    the one-device loss, each with its gradients and the collectives the
+    sharded one made."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.sampled_softmax import full_softmax_loss
+
+    labels = torch.from_numpy(inp["labels"]).long()
+    bias = torch.from_numpy(inp["bias"])
+    out = {}
+    for name, abs_mode, b in (("full", False, None),
+                              ("full_bias_abs", True, bias)):
+        pair = []
+        for sharded in (True, False):
+            w = torch.from_numpy(inp["w"]).requires_grad_(True)
+            h = torch.from_numpy(inp["h"]).requires_grad_(True)
+            dist.reset_collective_counts()
+            if sharded:
+                loss = dist.sharded_full_softmax_loss(
+                    w, h, labels, group=ctx.model_group, abs_mode=abs_mode,
+                    bias_local=b)
+            else:
+                loss = full_softmax_loss(w, h, labels, abs_mode=abs_mode,
+                                         bias=b)
+            loss.sum().backward()
+            pair.append((loss.detach(), w.grad, h.grad,
+                         dist.collective_counts()))
+        out[name] = pair
+    return out
+
+
+def test_one_rank_group_runs_the_collectives_bitwise(tmp_path):
+    """A model group of one rank (a (1, 1) mesh) still runs the sharded
+    formula, its pmax and both psums, and equals the one-device loss and
+    its gradients bitwise."""
+    res = Ranks(_one_rank_worker, (1, 1), tmp_path, _inputs()).result()[0]
+    for name, (sharded, plain) in res.items():
+        for got, want, what in zip(sharded[:3], plain[:3],
+                                   ("loss", "dL/dw", "dL/dh")):
+            assert torch.equal(got, want), f"{name} {what}"
+        assert {op: c["calls"] for op, c in sharded[3].items()} == {
+            "all_reduce_sum": 2, "all_reduce_max": 1}, name
+        assert plain[3] == {}, name

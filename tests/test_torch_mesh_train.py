@@ -12,16 +12,19 @@ computed shard by shard or equals the unsharded step:
   * batch placement: each data rank's rows of the global batch;
   * one step with ``estimator="full"`` (clip + AdamW) against the
     reference's ``mesh=None`` step and the port's own, on
-    ``youtube-dnn.reduced()`` and ``llama3-8b.reduced(vocab_size=500)``:
-    the loss and every updated parameter, the head gathered from its
+    ``youtube-dnn.reduced()`` and ``llama3-8b.reduced(vocab_size=500)``
+    (its KV heads padded to 4 at tp 4, as ``init_lm`` pads them for the
+    mesh): the loss and every updated parameter gathered from the rank's
     shards, fp32 within 1e-5;
   * the clip's global norm of a rank's ``ShardedGrads`` (its head shard,
     the rest whole) equal to the norm of the whole gradients, and the
     clipped shards equal to the whole clip's rows, at a norm above the
     clip threshold;
   * three ``fit`` steps of block-quadratic and tapas: finite losses alike
-    on every rank, the backbone alike on every rank;
-  * the parts left for later raise ``NotImplementedError`` naming A17.
+    on every rank, every parameter gathered alike on every rank;
+  * what the head-only mesh refused and now runs (``pure_fsdp``, the
+    backbone's specs, a tied head, Adafactor), and the parts left for
+    later, which raise ``NotImplementedError`` naming A17.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ FIT_FAMILIES = ("block-quadratic", "tapas")
 REFRESH_FAMILIES = ("block-quadratic", "block-quadratic-shared")
 STEP_CONFIGS = ("youtube-dnn", "llama3-8b")
 BATCH = {"youtube-dnn": (16, 1), "llama3-8b": (4, 8)}
+#: the meshes' model widths: an LM's tree is padded for each (init_lm)
+TPS = sorted({tp for _, tp in MESHES})
 #: AdamW's eps at 1e-3, as the port's dense step tests: at 1e-8 the first
 #: step's update g / (|g| + eps) turns a 1e-13 difference of a ~1e-8
 #: gradient into a visible one
@@ -112,8 +117,8 @@ def _train_worker(ctx, inp: dict) -> dict:
 
     for name in STEP_CONFIGS:
         cfg = _cfg(name, estimator="full")
-        model = step.shard_head(_module(cfg, inp[f"{name}_params"]), cfg,
-                                ctx)
+        model = step.shard_params(
+            _module(cfg, inp[f"{name}_params_tp{ctx.tp}"]), cfg, ctx)
         opt = make_optimizer("adamw", **STEP_OPT)
         state = step.TrainState(model, opt.init(step.param_dict(model)),
                                 step.empty_state(), 0)
@@ -122,7 +127,7 @@ def _train_worker(ctx, inp: dict) -> dict:
         state, metrics = step.make_train_step(cfg, ctx, opt)(
             state, batch, torch.Generator().manual_seed(1))
         out["steps"][name] = (float(metrics["loss"]),
-                              _numpy(dict(model.named_parameters())))
+                              _numpy(step.gather_params(model, ctx)))
 
     for fam in FIT_FAMILIES:
         cfg = _cfg("youtube-dnn", sampler=fam)
@@ -130,11 +135,13 @@ def _train_worker(ctx, inp: dict) -> dict:
                        batch_iterator_for(cfg, ctx, 16, 1, device="cpu"),
                        FIT_STEPS, log_every=0, device="cpu")
         out["fit"][fam] = (res.losses,
-                           _numpy(dict(res.state.params.named_parameters())),
+                           _numpy(step.gather_params(res.state.params, ctx)),
                            {k: tuple(v.shape) for k, v in
-                            res.state.sampler_state.stats.items()})
+                            res.state.sampler_state.stats.items()},
+                           tuple(res.state.params.head_w.shape))
     out["clip"] = _sharded_clip(ctx, _clip_grads())
     out["raises"] = _raises(ctx, inp["tmp"])
+    out["ported"] = _ported(ctx)
     out["abstract"] = _abstract_vs_init(ctx)
     return out
 
@@ -160,7 +167,8 @@ def _sharded_clip(ctx, whole: dict) -> tuple:
 
     grads = ShardedGrads({k: rules.shard_rows(v, ctx) if k == "head_w"
                           else v.clone() for k, v in whole.items()},
-                         ("head_w",), ctx.model_group)
+                         {"head_w": (ctx.model_axis, None),
+                          "tower": (None, None), "bias": (None,)}, ctx)
     norm = float(global_norm(grads))
     clipped, _ = clip_by_global_norm(1.0).update(grads, (), None)
     return norm, _numpy(clipped)
@@ -209,26 +217,20 @@ def _raises(ctx, tmp: str) -> dict:
             cfg, ctx, opt, batch_iterator_for(cfg, ctx, 16, 1,
                                               device="cpu"), 1,
             checkpoint_dir=tmp, device="cpu"),
-        "pure_fsdp": lambda: rules.mesh_ctx(ctx.mesh, mode="pure_fsdp"),
         "seq_residuals": lambda: rules.mesh_ctx(ctx.mesh,
                                                 seq_residuals=True),
-        "backbone specs": lambda: rules.param_specs_for(state.params, ctx),
         "experts": lambda: step.make_train_step(
             _cfg("dbrx-132b"), ctx, opt),
-        "tied head": lambda: step.init_train_state(
-            torch.Generator(), _cfg("llama3-8b", tie_embeddings=True), ctx,
-            opt, device="cpu"),
         "quantized index": lambda: step.export_quantized_index(state, cfg,
                                                               ctx),
         "checkpoint source": lambda: step.serving_index_source(
             tmp, cfg, ctx, opt, device="cpu"),
-        "adafactor": lambda: step.make_train_step(
-            cfg, ctx, make_optimizer("adafactor", 1e-2))(
-                step.init_train_state(torch.Generator(), cfg, ctx,
-                                      make_optimizer("adafactor", 1e-2),
-                                      device="cpu"),
-                next(batch_iterator_for(cfg, ctx, 16, 1, device="cpu")),
-                torch.Generator()),
+        **{f"family {name}": lambda name=name: step.make_train_step(
+            _cfg(name), ctx, opt)
+           for name in ("ptb-lstm", "falcon-mamba-7b", "jamba-v0.1-52b",
+                        "deepseek-v3-671b", "whisper-large-v3")},
+        "mtp": lambda: step.make_train_step(
+            _cfg("llama3-8b", mtp=True), ctx, opt),
     }
     out = {}
     for name, fn in cases.items():
@@ -237,8 +239,42 @@ def _raises(ctx, tmp: str) -> dict:
             out[name] = None
         except Exception as e:  # noqa: BLE001 - the test reads the type
             out[name] = (type(e).__name__, str(e))
-    head_spec = rules.param_specs_for({"head_w": state.params.head_w}, ctx)
-    out["head spec"] = head_spec["head_w"]
+    out["head spec"] = state.params.param_specs["head_w"]
+    return out
+
+
+def _ported(ctx) -> dict:
+    """What the head-only mesh refused and now runs: ``pure_fsdp``'s ctx,
+    the backbone's specs (the abstract whole model's against the rank's
+    state), a tied head's init and step, and an Adafactor step; each the
+    loss it took, or the specs."""
+    from repro_torch.data.pipeline import batch_iterator_for
+    from repro_torch.models import api
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding import rules
+    from repro_torch.train import step
+
+    cfg = _cfg("youtube-dnn")
+    pure = rules.mesh_ctx(ctx.mesh, mode="pure_fsdp")
+    out = {"pure_fsdp": (pure.mode, pure.tp_backbone, pure.dp)}
+    lm = _cfg("llama3-8b", tie_embeddings=True)
+    state = step.init_train_state(torch.Generator().manual_seed(0), lm, ctx,
+                                  make_optimizer("adamw", 1e-2),
+                                  device="cpu")
+    whole = api.abstract_params(lm, ctx=ctx)
+    out["backbone specs"] = (rules.param_specs_for(whole, ctx),
+                             state.params.param_specs)
+    _, metrics = step.make_train_step(lm, ctx, make_optimizer(
+        "adamw", 1e-2))(state, next(batch_iterator_for(
+            lm, ctx, 4, 8, device="cpu")), torch.Generator())
+    out["tied head"] = float(metrics["loss"])
+    ada = make_optimizer("adafactor", 1e-2)
+    _, metrics = step.make_train_step(cfg, ctx, ada)(
+        step.init_train_state(torch.Generator(), cfg, ctx, ada,
+                              device="cpu"),
+        next(batch_iterator_for(cfg, ctx, 16, 1, device="cpu")),
+        torch.Generator())
+    out["adafactor"] = float(metrics["loss"])
     return out
 
 
@@ -257,7 +293,7 @@ def runs(tmp_path_factory):
     from repro.train import step as jstep
     from repro_torch import convert
     from repro_torch.data.pipeline import batch_iterator_for
-    from repro_torch.models import api
+    from repro_torch.models import api, transformer
 
     base = tmp_path_factory.mktemp("mesh_train")
     rng = np.random.default_rng(41)
@@ -268,8 +304,12 @@ def runs(tmp_path_factory):
            "tmp": str(base / "ckpt")}
     for name in STEP_CONFIGS:
         cfg = _cfg(name, estimator="full")
-        inp[f"{name}_params"] = convert.params_to_jax(api.init_params(
-            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        for tp in TPS:  # a tree padded as init_lm pads it for tp_fsdp
+            gen = torch.Generator().manual_seed(0)
+            inp[f"{name}_params_tp{tp}"] = convert.params_to_jax(
+                transformer.init_lm(gen, cfg, "cpu", tp=tp)
+                if cfg.family == "dense" else
+                api.init_params(cfg, gen, device="cpu"))
         inp[f"{name}_batch"] = _numpy(next(batch_iterator_for(
             cfg, None, *BATCH[name], seed=3, device="cpu")))
     started = start_meshes(_train_worker, base, inp)
@@ -278,16 +318,19 @@ def runs(tmp_path_factory):
         kw = {"vocab_size": 500} if name == "llama3-8b" else {}
         jcfg = jget_config(name).reduced(estimator="full", **kw)
         jopt = jmake_optimizer("adamw", **STEP_OPT)
-        params = jax.tree_util.tree_map(jnp.asarray, inp[f"{name}_params"])
-        state = jstep.TrainState(params=params, opt_state=jopt.init(params),
-                                 sampler_state=jempty_state(),
-                                 step=jnp.zeros((), jnp.int32))
-        new, metrics = jax.jit(jstep.make_train_step(jcfg, local_ctx(),
-                                                     jopt))(
-            state, inp[f"{name}_batch"], jax.random.PRNGKey(1))
-        ref[name] = (float(metrics["loss"]),
-                     jax.tree_util.tree_map(np.asarray, new.params))
+        jfn = jax.jit(jstep.make_train_step(jcfg, local_ctx(), jopt))
+        for tp in TPS:
+            params = jax.tree_util.tree_map(jnp.asarray,
+                                            inp[f"{name}_params_tp{tp}"])
+            state = jstep.TrainState(
+                params=params, opt_state=jopt.init(params),
+                sampler_state=jempty_state(), step=jnp.zeros((), jnp.int32))
+            new, metrics = jfn(state, inp[f"{name}_batch"],
+                               jax.random.PRNGKey(1))
+            ref[name, tp] = (float(metrics["loss"]),
+                             jax.tree_util.tree_map(np.asarray, new.params))
     return inp, ref, {mesh: r.result() for mesh, r in started.items()}
+
 
 
 def test_mesh_shape_for_matches_reference():
@@ -379,25 +422,21 @@ def test_full_estimator_step_matches_unsharded(runs, mesh, name):
     inp, ref, ranks = runs
     dp, tp = mesh
     cfg = _cfg(name, estimator="full")
-    want_loss, want_tree = ref[name]
+    want_loss, want_tree = ref[name, tp]
     want = _numpy(dict(_module(cfg, want_tree).named_parameters()))
-    own_loss, own = _unsharded_step(cfg, inp[f"{name}_params"],
+    own_loss, own = _unsharded_step(cfg, inp[f"{name}_params_tp{tp}"],
                                     inp[f"{name}_batch"])
     close(own_loss, want_loss, what="the port's unsharded loss")
     for k, v in want.items():
         close(own[k], v, what=f"the port's unsharded {k}")
-    head = next(k for k in want if k in ("head_w", "head.w"))
     for r, res in enumerate(ranks[mesh]):
         loss, params = res["steps"][name]
         close(loss, want_loss, what=f"rank {r} loss")
         close(loss, own_loss, what=f"rank {r} loss vs the port's")
-        for k, v in want.items():
-            if k != head:
-                close(params[k], v, what=f"rank {r} {k}")
-    shards = np.concatenate([ranks[mesh][j]["steps"][name][1][head]
-                             for j in range(tp)])
-    close(shards[:cfg.vocab_size], want[head], what="the head's shards")
-    close(shards[:cfg.vocab_size], own[head], what="the head vs the port's")
+        for k, v in want.items():  # gathered from the shards
+            close(params[k][:v.shape[0]], v, what=f"rank {r} {k}")
+            close(params[k][:v.shape[0]], own[k],
+                  what=f"rank {r} {k} vs the port's")
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
@@ -432,39 +471,30 @@ def test_sharded_clip_is_the_whole_models(runs, mesh):
 @pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
 @pytest.mark.parametrize("family", FIT_FAMILIES)
 def test_fit_on_the_mesh(runs, mesh, family):
-    """Three fit steps: finite losses alike on every rank; the backbone
-    alike on every rank; each rank's statistics its shard's."""
+    """Three fit steps: finite losses alike on every rank; every
+    parameter gathered from the shards alike on every rank; each rank's
+    head its (vocab / tp, d / dp) shard, its statistics its shard's."""
     from repro_torch.core.samplers import sampler_from_config
 
     _, _, ranks = runs
     dp, tp = mesh
     cfg = _cfg("youtube-dnn", sampler=family)
-    losses0, params0, _ = ranks[mesh][0]["fit"][family]
+    losses0, params0, _, _ = ranks[mesh][0]["fit"][family]
     assert len(losses0) == FIT_STEPS and np.isfinite(losses0).all()
     shapes = sampler_from_config(cfg).shard_state_shapes(cfg, tp).stats
     for r, res in enumerate(ranks[mesh]):
-        losses, params, stats = res["fit"][family]
+        losses, params, stats, head = res["fit"][family]
         assert losses == losses0, (r, losses, losses0)
         for k, v in params.items():
-            if k != "head_w":
-                np.testing.assert_array_equal(v, params0[k], err_msg=k)
-        assert params["head_w"].shape == (cfg.vocab_size // tp,
-                                          cfg.tower_dims[-1])
+            np.testing.assert_array_equal(v, params0[k], err_msg=k)
+        assert head == (cfg.vocab_size // tp, cfg.tower_dims[-1] // dp)
         assert stats == {k: tuple(v.shape) for k, v in shapes.items()}
-    for i in range(dp):  # head shards alike over data, apart over model
-        for j in range(tp):
-            np.testing.assert_array_equal(
-                ranks[mesh][i * tp + j]["fit"][family][1]["head_w"],
-                ranks[mesh][j]["fit"][family][1]["head_w"])
-    if tp > 1:
-        assert not np.array_equal(ranks[mesh][0]["fit"][family][1]["head_w"],
-                                  ranks[mesh][1]["fit"][family][1]["head_w"])
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
 def test_abstract_state_is_the_ranks_shard(runs, mesh):
     """``abstract_train_state`` on a mesh has the shapes
-    ``init_train_state`` gives the rank: its head shard, its moments, its
+    ``init_train_state`` gives the rank: its shards, its moments, its
     statistics shard."""
     dp, tp = mesh
     cfg = _cfg("youtube-dnn")
@@ -472,7 +502,11 @@ def test_abstract_state_is_the_ranks_shard(runs, mesh):
         abstract, concrete = res["abstract"]
         assert abstract == concrete
         assert concrete[0]["head_w"] == (cfg.vocab_size // tp,
-                                         cfg.tower_dims[-1])
+                                         cfg.tower_dims[-1] // dp)
+        # the reference's tower rule needs a path component before
+        # "tower": its recsys tree's top-level tower stays whole
+        assert concrete[0]["tower_w0"][0] == (
+            cfg.d_model + cfg.user_feature_dim)
         assert concrete[2]["z"][0] == -(-cfg.vocab_size // tp //
                                         cfg.sampler_block)
 
@@ -482,8 +516,27 @@ def test_parts_left_for_later_raise(runs, mesh):
     _, _, ranks = runs
     for res in ranks[mesh]:
         raises = res["raises"]
-        assert raises.pop("head spec") == ("model", None)
+        assert raises.pop("head spec") == ("model", "data")
         for name, got in raises.items():
             assert got is not None, f"{name} did not raise"
             assert got[0] == "NotImplementedError" and "A17" in got[1], (
                 name, got)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
+def test_parts_ported_since_run(runs, mesh):
+    """What the head-only mesh refused now runs: ``pure_fsdp``'s ctx (the
+    batch over every rank, no backbone TP), the backbone's specs (a rank
+    holds what ``param_specs_for`` gives the whole model), a head tied to
+    the embedding and an Adafactor step (finite losses alike on every
+    rank)."""
+    dp, tp = mesh
+    ranks = runs[2][mesh]
+    for res in ranks:
+        got = res["ported"]
+        assert got["pure_fsdp"] == ("pure_fsdp", 1, dp * tp)
+        want, held = got["backbone specs"]
+        assert want == held
+        assert want["segments.0.0.attn.wq"] == ("data", "model")
+        for k in ("tied head", "adafactor"):
+            assert np.isfinite(got[k]) and got[k] == ranks[0]["ported"][k]
