@@ -13,7 +13,9 @@ whisper-large-v3's encoder-decoder, served and trained whole, its
 cross attention through both attention kernels at a key length apart
 from the query length, and youtube-dnn trained and served through the
 vocab-parallel head over a (data, model) mesh: NCCL at (1, 1), and four
-rank processes sharing the card over gloo at (1, 4) and (2, 2).
+rank processes sharing the card over gloo at (1, 4) and (2, 2), with
+starcoder2-3b, falcon-mamba-7b, whisper-large-v3 and ptb-lstm trained
+there by the reference's storage layouts.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -280,7 +282,7 @@ result line):
                  evaluation of the same kept assignments (MOE_RTOL), the
                  drops logged.  jamba's attention shape is phase 10's.
  20. MoE, SSM and hybrid training — (a) falcon-mamba-7b at full width and
-                 FALCON_TRAIN_LAYERS = 32 of its 64 layers, then (b)
+                 FALCON_TRAIN_LAYERS = 16 of its 64 layers, then (b)
                  jamba-v0.1-52b at full width and 8 of its
                  32 layers (its first attention period: every layer kind;
                  13.30 B parameters), each through fit with its default
@@ -375,7 +377,7 @@ result line):
                  (the head's and the watch embedding's rows over model,
                  their features over data).
  24. mesh dense — the backbone's storage layouts on the mesh
-                 (``phase_mesh_dense``), starcoder2-3b at full width and
+                 (``phase_mesh_layouts``), starcoder2-3b at full width and
                  MESH_DENSE_LAYERS = 4 of its 30 layers: (a) NCCL on a
                  (1, 1) mesh in this process, one fp32 full-softmax step
                  in each mode equal to the unsharded one (MESH_STEP_RTOL);
@@ -387,15 +389,40 @@ result line):
                  unsharded ones (MESH_RTOL of each whole tensor's max),
                  flash_attention and its backward at the rank's shard
                  shapes against their plain versions (phase 10's and 18a's
-                 gates; timed on rank 0), MESH_DENSE_STEPS bf16 fit steps
+                 gates; timed on rank 0 at MESH_DENSE_TIMED_RUN's),
+                 MESH_DENSE_STEPS bf16 fit steps
                  on a pool of 2 batches of 4 x 1,024 (exact launches per
                  rank, falling pool loss alike on every rank), a timed
                  step whose collectives equal the prediction from the
                  specs key for key; any rank's failure fails the phase.
+ 25. mesh families — the ssm, encdec and lstm families' layouts on the
+                 mesh, in phase 24's rank processes after its runs
+                 (``phase_mesh_layouts``): falcon-mamba-7b at full width
+                 and 2 of its 64 layers (the mamba block channel-parallel
+                 under tp_fsdp), whisper-large-v3 at 2 + 2 of its 32 + 32
+                 (vocab padded to 51,868 at tp 4), ptb-lstm whole (its
+                 embedding vocab-parallel): (a) NCCL on a (1, 1) mesh in
+                 this process, each family's fp32 full-softmax step in its
+                 config's mode equal to the unsharded one
+                 (MESH_STEP_RTOL); (b) the ranks, falcon and whisper at
+                 tp_fsdp (1, 4) and pure_fsdp (2, 2), ptb-lstm at tp_fsdp
+                 (1, 4) and (2, 2) (MESH_FAMILY_RUNS): the fp32 parity
+                 step on the shards against the rank's own unsharded step
+                 (the loss within MESH_STEP_RTOL, each shard within
+                 MESH_RTOL of its whole tensor's max), whisper's
+                 attention kernels at its shard shapes (5 of 20 heads a
+                 rank at tp 4; checked on rank 0, the encoder's timed
+                 at tp_fsdp (1, 4)), 2 fit steps
+                 (bf16; ptb-lstm fp32) with exact launches a rank, losses
+                 alike on every rank, step ms, the rank's peak, and zstats
+                 (ptb-lstm: the sampler's three kernels, and the fused
+                 head's two in abs mode at given negatives, as phase 23
+                 holds them) at the rank's shard shapes against their
+                 plain versions.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
-22's serving runs and fits, 23's and 24's steps and fits on each rank
-are main paths: the kernel
+22's serving runs and fits, 23's, 24's and 25's steps and fits on each
+rank are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -427,15 +454,18 @@ follows the engine's batching), each path's count under
 "deepseek-v3-671b training", phase 22's as "whisper-large-v3" and
 "whisper-large-v3 training", phase 23's as "mesh nccl (1, 1)", "mesh gloo
 (1, 4)" and "mesh gloo (2, 2)", phase 24's as "mesh dense tp_fsdp (1, 4)",
-"mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", each gloo
-mesh summed over its ranks); the other shapes' numbers under serving_*,
+"mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", phase 25's
+as "mesh <config> <mode> (dp, tp)", each gloo mesh summed over its
+ranks); the other shapes' numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
 whisper_enc_serving_*, whisper_enc_train_*, whisper_dec_train_*,
 whisper_cross_train_* (phase 22a),
 mesh_tp_fsdp_1x4_*, mesh_tp_fsdp_2x2_*, mesh_pure_fsdp_2x2_* (both
-attention kernels at phase 24's shard shapes, timed on rank 0),
+attention kernels at phase 24's shard shapes, the first timed on rank 0),
+mesh_whisper_<mode>_<dp>x<tp>_<enc|dec|cross>_* (both at phase 25's
+whisper shard shapes),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -452,6 +482,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -521,6 +552,7 @@ from repro_torch.models import (  # noqa: E402
     api,
     encdec,
     layers,
+    lstm_lm,
     moe,
     transformer,
 )
@@ -3063,7 +3095,8 @@ def phase_samplers(cfg, gen: torch.Generator) -> dict[str, dict[str, int]]:
 #: DENSE_LAYERS of its 30 layers (since phase 24 joined the script: at 30
 #: its checkpoint's save and restore, 31.8 GB, took ~150 s of the run's
 #: 1,200; at 8 the whole script ran in 1,084.9 s on an H100 80GB HBM3 at
-#: 700 W), 4 sequences of 1,024 tokens a step, a cycled pool of 4 batches
+#: 700 W, and this phase took 66.2 s of it where 4 layers took 44.8 s),
+#: 4 sequences of 1,024 tokens a step, a cycled pool of 4 batches
 DENSE_ARCH = "starcoder2-3b"
 DENSE_LAYERS = 8
 DENSE_BATCH = 4
@@ -5071,10 +5104,11 @@ def phase_hybrid_serving(gen: torch.Generator, rng: np.random.Generator
 #: mamba+moe, the attention at 4); 13.30 B parameters, 26.6 GB of bf16
 #: weights and as much again of gradients
 JAMBA_TRAIN_LAYERS = 8
-#: falcon-mamba-7b's training depth: 32 of its 64 layers (whole until
-#: phase 24 joined the script; its 8 steps at 64 took ~56 s of the run's
-#: 1,200)
-FALCON_TRAIN_LAYERS = 32
+#: falcon-mamba-7b's training depth: 16 of its 64 layers (whole until
+#: phase 24 joined the script, 32 until phase 25 did; its 8 steps at 64
+#: took ~56 s of the run's 1,200; phase 20 took 120.0 s at 32, 86.5 s at
+#: 16 and 74.3 s at 8 on an H100 80GB HBM3 at 700 W)
+FALCON_TRAIN_LAYERS = 16
 #: the gradient checks' depths: falcon-mamba's first 2 layers; jamba's
 #: first 5, whose last is its attention layer, so no MoE routing after the
 #: attention can turn the plain attention's rounding into a routing flip
@@ -5551,21 +5585,21 @@ def phase_whisper_serving(gen: torch.Generator) -> dict[str, int]:
     return counts
 
 
-def whisper_pool(cfg, seed: int = 0) -> list[dict]:
-    """HYBRID_POOL training batches of WHISPER_TRAIN_BATCH clips: frames (B,
-    WHISPER_FRAMES, d) and SyntheticLM's tokens and labels (B,
-    WHISPER_TEXT), from a ``ShardedBatchIterator`` over this sample
-    function (``batch_iterator_for`` gives frames and tokens one
-    length)."""
+def whisper_pool(cfg, seed: int = 0, b: int = WHISPER_TRAIN_BATCH,
+                 n: int = HYBRID_POOL, ctx=None) -> list[dict]:
+    """``n`` training batches of ``b`` clips: frames (B, WHISPER_FRAMES,
+    d) and SyntheticLM's tokens and labels (B, WHISPER_TEXT), from a
+    ``ShardedBatchIterator`` over this sample function
+    (``batch_iterator_for`` gives frames and tokens one length); on a mesh
+    ``ctx`` the rank's rows."""
     lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed, device=str(DEV))
 
     def sample(g: torch.Generator) -> dict:
-        batch = lm.sample_batch(g, WHISPER_TRAIN_BATCH, WHISPER_TEXT)
-        return {"frames": whisper_frames(g, cfg, WHISPER_TRAIN_BATCH),
-                **batch}
+        batch = lm.sample_batch(g, b, WHISPER_TEXT)
+        return {"frames": whisper_frames(g, cfg, b), **batch}
 
-    data = ShardedBatchIterator(sample, None, seed=seed, device=DEV)
-    return [next(data) for _ in range(HYBRID_POOL)]
+    data = ShardedBatchIterator(sample, ctx, seed=seed, device=DEV)
+    return [next(data) for _ in range(n)]
 
 
 def phase_whisper_train() -> dict[str, dict[str, int]]:
@@ -5877,22 +5911,32 @@ def mesh_checks(ctx) -> dict:
 
 def mesh_rank(rank: int, world: int, addr: str, out: Path,
               phase: str = "23") -> int:
-    """One rank process of phase 23b (each of MESH_SHAPES in turn) or of
-    phase 24 (each of MESH_DENSE_RUNS): the gloo world over the shared
-    card; its results to ``out/rank<r>.json``."""
+    """One rank process of phase 23b (each of MESH_SHAPES in turn), or of
+    phases 24 and 25 (``phase`` "24,25": each of MESH_DENSE_RUNS, then each
+    of MESH_FAMILY_RUNS): the gloo world over the shared card; its results
+    to ``out/rank<r>.json``."""
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
     launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
                                  world_size=world)
+    phases = phase.split(",")
     try:
         results = {}
-        if phase == "24":
+        if "24" in phases:
             for mode, (dp, tp), opt_name, lr in MESH_DENSE_RUNS:
                 ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
                     dp, tp, device_type=DEV.type), mode=mode)
                 results[f"{mode} {dp}x{tp}"] = mesh_dense_rank(
                     ctx, mode, opt_name, lr)
-        else:
+        if "25" in phases:
+            for name, mode, (dp, tp) in MESH_FAMILY_RUNS:
+                ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type), mode=mode)
+                if DEV.type == "cuda":
+                    torch.cuda.empty_cache()
+                results[f"{name} {mode} {dp}x{tp}"] = mesh_family_rank(
+                    ctx, name)
+        if phases == ["23"]:
             for dp, tp in MESH_SHAPES:
                 ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
                     dp, tp, device_type=DEV.type))
@@ -5962,10 +6006,11 @@ def phase_mesh_nccl(cfg) -> dict[str, int]:
         torch.distributed.destroy_process_group()
 
 
-def run_mesh_ranks(phase: str) -> list[dict]:
+def run_mesh_ranks(phase: str, timeout_s: float = MESH_TIMEOUT_S
+                   ) -> list[dict]:
     """MESH_WORLD rank processes of this script (``mesh_rank``) for
     ``phase``, their logs relayed: each rank's results.  A rank that fails
-    or outlives MESH_TIMEOUT_S fails the phase (the others are killed)."""
+    or outlives ``timeout_s`` fails the phase (the others are killed)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
     addr = f"tcp://localhost:{free_port()}"
@@ -5974,7 +6019,7 @@ def run_mesh_ranks(phase: str) -> list[dict]:
         [*MESH_RANK_CMD, "--mesh-rank", str(r), "--mesh-addr", addr,
          "--mesh-device", DEV.type, "--mesh-phase", phase], stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
-    deadline = time.monotonic() + MESH_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) or \
@@ -6070,6 +6115,10 @@ MESH_DENSE_STEPS = 4
 MESH_DENSE_POOL = 2
 #: steps timed after the fit (the last one's collectives recorded)
 MESH_DENSE_TIMED = 1
+#: the run whose attention shard shapes phase 24 times on rank 0, (mode,
+#: (dp, tp)); the others' are checked only (timings of all three are in
+#: PERF.md row 10)
+MESH_DENSE_TIMED_RUN = ("tp_fsdp", (1, 4))
 #: the fp32 parity step's batch: 4 sequences of 256 tokens (T 1,024; the
 #: full softmax's logits (T, 49,152))
 MESH_PARITY_BATCH = 4
@@ -6467,8 +6516,8 @@ def mesh_dense_fit(ctx, opt_name: str, lr: float, tag: str) -> dict:
 
 def mesh_dense_rank(ctx, mode: str, opt_name: str, lr: float) -> dict:
     """One mesh of phase 24 on this rank: the fp32 parity step, both
-    attention kernels at the shard's shapes (timed by the world's rank 0
-    while the others wait), the bf16 fit."""
+    attention kernels at the shard's shapes (in MESH_DENSE_TIMED_RUN timed
+    by the world's rank 0 while the others wait), the bf16 fit."""
     tag = (f"{mode} ({ctx.axis_size('data')}, {ctx.tp}) rank "
            f"({ctx.data_index}, {ctx.model_index})")
     t0 = time.perf_counter()
@@ -6478,7 +6527,8 @@ def mesh_dense_rank(ctx, mode: str, opt_name: str, lr: float) -> dict:
     kern = mesh_dense_kernels(ctx, timed=False) if not first else None
     torch.distributed.barrier()
     if first:
-        kern = mesh_dense_kernels(ctx, timed=True)
+        kern = mesh_dense_kernels(ctx, timed=(mode, (
+            ctx.axis_size("data"), ctx.tp)) == MESH_DENSE_TIMED_RUN)
     torch.distributed.barrier()
     fit = mesh_dense_fit(ctx, opt_name, lr, tag)
     return {"parity": parity, "kernels": kern, "fit": fit,
@@ -6526,21 +6576,25 @@ def mesh_dense_nccl() -> dict[str, float]:
         torch.distributed.destroy_process_group()
 
 
-def phase_mesh_dense() -> tuple[dict[str, dict[str, int]], dict]:
-    """Phase 24 (starcoder2-3b at full width, 4 of its 30 layers: d 3,072,
-    24 / 2 heads of 128, d_ff 12,288, vocab 49,152): 24a over NCCL in this
-    process (``mesh_dense_nccl``); the unsharded fp32 parity steps
-    (``mesh_dense_reference``); then MESH_WORLD rank processes over gloo
-    sharing the card, each of MESH_DENSE_RUNS in turn
-    (``mesh_dense_rank``): tp_fsdp at (1, 4) (KV heads padded 2 -> 4) and
-    (2, 2), pure_fsdp at (2, 2).  Returns the bf16 fits' launches of each
-    mesh, summed over its ranks, and both attention kernels' rows at each
-    mesh's shard shapes (timed on rank 0) as kernels-line shapes
+def gate_losses_alike(key: str, ranks: list[dict]) -> None:
+    """Every rank's fit losses of ``key`` equal to rank 0's within
+    MESH_STEP_RTOL."""
+    want = ranks[0][key]["fit"]["losses"]
+    for r, res in enumerate(ranks):
+        got = res[key]["fit"]["losses"]
+        if any(abs(a - b) > MESH_STEP_RTOL * abs(b)
+               for a, b in zip(got, want)):
+            raise AssertionError(f"{key}: rank {r}'s losses {got} != rank "
+                                 f"0's {want}")
+
+
+def mesh_dense_report(ranks: list[dict], nccl: dict, ref_s: dict
+                      ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 24's rank results logged and gated (losses alike on every
+    rank): the bf16 fits' launches of each mesh, summed over its ranks,
+    and both attention kernels' rows at each mesh's shard shapes (rank
+    0's; MESH_DENSE_TIMED_RUN's timed) as kernels-line shapes
     ``mesh_<mode>_<dp>x<tp>``."""
-    t_start = time.perf_counter()
-    nccl = mesh_dense_nccl()
-    ref_s = mesh_dense_reference()
-    ranks = run_mesh_ranks("24")
     by_path, shapes = {}, {}
     for mode, (dp, tp), opt_name, lr in MESH_DENSE_RUNS:
         key = f"{mode} {dp}x{tp}"
@@ -6549,7 +6603,6 @@ def phase_mesh_dense() -> tuple[dict[str, dict[str, int]], dict]:
             name: {**kern[name], "shape": kern["shape"]}
             for name in ("flash_attention", "flash_attention_bwd")}
         total = dict.fromkeys(REPLACES, 0)
-        losses0 = ranks[0][key]["fit"]["losses"]
         for r, res in enumerate(ranks):
             m, fit = res[key], res[key]["fit"]
             worst = max(m["parity"], key=m["parity"].get)
@@ -6569,18 +6622,436 @@ def phase_mesh_dense() -> tuple[dict[str, dict[str, int]], dict]:
                 f"{fit['peak_gb']:.3f} GB; one step's collectives (= the "
                 f"prediction) {fit['collectives']}; the mesh "
                 f"{m['s']:.1f} s")
-            for a, b in zip(fit["losses"], losses0):
-                if abs(a - b) > MESH_STEP_RTOL * abs(b):
-                    raise AssertionError(
-                        f"{key}: rank {r}'s losses {fit['losses']} != rank "
-                        f"0's {losses0}")
             add_counts(total, fit["launches"])
+        gate_losses_alike(key, ranks)
         by_path[f"mesh dense {mode} ({dp}, {tp})"] = total
+    secs = [round(sum(r[f"{mode} {dp}x{tp}"]["s"]
+                      for mode, (dp, tp), _, _ in MESH_DENSE_RUNS), 1)
+            for r in ranks]
     log(f"[mesh dense] NCCL (1, 1) worst errors {nccl}; unsharded parity "
-        f"steps {ref_s} s; rank peak memory GB "
-        f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}; phase 24 "
-        f"{time.perf_counter() - t_start:.1f} s")
-    shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
+        f"steps {ref_s} s; the ranks' phase 24 {secs} s")
+    return by_path, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the ssm, encdec and lstm families' layouts on the mesh
+# ---------------------------------------------------------------------------
+
+#: each gloo run of phase 25, after phase 24's in the same rank processes:
+#: (config, mode, (dp, tp)); falcon-mamba-7b and whisper-large-v3 in
+#: tp_fsdp (the mamba block channel-parallel, whisper's self attention and
+#: MLP Megatron's) and in their configs' pure_fsdp, ptb-lstm in its
+#: config's tp_fsdp at both shapes
+MESH_FAMILY_RUNS = (("falcon-mamba-7b", "tp_fsdp", (1, 4)),
+                    ("falcon-mamba-7b", "pure_fsdp", (2, 2)),
+                    ("whisper-large-v3", "tp_fsdp", (1, 4)),
+                    ("whisper-large-v3", "pure_fsdp", (2, 2)),
+                    ("ptb-lstm", "tp_fsdp", (1, 4)),
+                    ("ptb-lstm", "tp_fsdp", (2, 2)))
+MESH_FAMILIES = tuple(dict.fromkeys(name for name, _, _ in MESH_FAMILY_RUNS))
+#: the depth on the mesh, full width: falcon-mamba-7b's 2 of 64 layers,
+#: whisper-large-v3's 2 + 2 of 32 + 32 (ptb-lstm whole)
+MESH_FAMILY_LAYERS = {"falcon-mamba-7b": 2, "whisper-large-v3": 2}
+#: (sequences, tokens) of the bf16 fit's batches (whisper: clips of
+#: WHISPER_FRAMES frames and WHISPER_TEXT tokens; ptb-lstm's in fp32)
+MESH_FAMILY_BATCH = {"falcon-mamba-7b": (4, 512),
+                     "whisper-large-v3": (4, WHISPER_TEXT),
+                     "ptb-lstm": (PTB_BATCH, PTB_SEQ)}
+#: the fp32 parity step's batch
+MESH_FAMILY_PARITY = {"falcon-mamba-7b": (4, 256),
+                      "whisper-large-v3": (4, WHISPER_TEXT),
+                      "ptb-lstm": (PTB_BATCH, PTB_SEQ)}
+MESH_FAMILY_STEPS = 2
+#: the fit's optimizer and lr: phase 20's, phase 22c's and phase 9b's
+MESH_FAMILY_OPT = {"falcon-mamba-7b": ("adafactor", HYBRID_LR),
+                   "whisper-large-v3": ("adamw", WHISPER_LR),
+                   "ptb-lstm": ("adamw", 1e-2)}
+MESH_FAMILY_SEED = 25
+#: the parity step's loss takes the plain softmax: ptb-lstm's config takes
+#: the logits' absolute values (abs_softmax), whose kink at 0 turns a
+#: last-bit change of h (a data block's GEMM shapes) into a flipped
+#: gradient of a logit near 0; its fp32 step is off from float64 by up to
+#: ~1e-4 of a gradient's max there, 5e-7 without
+#: (tools/abs_softmax_fp32_floor.py), against MESH_RTOL's 1e-5
+MESH_PARITY_ABS = False
+#: the whisper shard shape phase 25 times, (mode, attention kind); the
+#: others are checked only.  tp_fsdp's encoder, 4 clips of 5 of 20 heads
+#: a rank, is the largest shape no other phase runs (the decoder's is a
+#: tenth of its work; the cross attention and pure_fsdp's are phase
+#: 22a's shapes at a smaller batch).  Timing all six took 90 s of the
+#: script on one H100, timing three 23.5-61.5 s
+MESH_WHISPER_TIMED = ("tp_fsdp", "enc")
+#: seconds the parent waits for the rank processes of phases 24 and 25
+MESH_LAYOUTS_TIMEOUT_S = 700
+
+
+def mesh_family_cfg(name: str, mode: str, dtype: str | None = None,
+                    **changes):
+    """``name`` at full width and MESH_FAMILY_LAYERS, trained in ``mode``,
+    in ``dtype`` (default the config's)."""
+    cfg = get_config(name)
+    n = MESH_FAMILY_LAYERS.get(name)
+    if n and cfg.family == "encdec":
+        changes.update(n_enc_layers=n, n_dec_layers=n, n_layers=2 * n)
+    elif n:
+        changes.update(n_layers=n)
+    if dtype:
+        changes.update(dtype=dtype, param_dtype=dtype)
+    return dataclasses.replace(cfg, train_sharding=mode, **changes)
+
+
+def mesh_family_model(cfg, ctx) -> torch.nn.Module:
+    """The whole model from MESH_FAMILY_SEED, padded as the init pads it
+    for this rank's mesh ``ctx`` (the vocab to the head's vocab-parallel
+    degree, the heads to the backbone's TP degree; ptb-lstm's table is
+    padded by ``step.shard_params``)."""
+    gen = torch.Generator(DEV).manual_seed(MESH_FAMILY_SEED)
+    if cfg.family == "encdec":
+        return encdec.EncDec(cfg, DEV, tree=encdec.init_encdec(
+            gen, cfg, DEV, ctx=ctx))
+    if cfg.family == "lstm":
+        return lstm_lm.init_lstm_lm(gen, cfg, DEV)
+    return transformer.StackedLM(cfg, DEV, tree=transformer.init_lm(
+        gen, cfg, DEV, ctx=ctx))
+
+
+def mesh_family_batches(cfg, ctx, shape: tuple[int, int], n: int,
+                        seed: int) -> list[dict]:
+    """``n`` batches of ``shape`` (whisper's with frames; on a mesh the
+    rank's rows)."""
+    b, s = shape
+    if cfg.family == "encdec":
+        return whisper_pool(cfg, seed, b, n, ctx)
+    data = batch_iterator_for(cfg, ctx, b, s, seed=seed, device=DEV)
+    return [next(data) for _ in range(n)]
+
+
+def mesh_family_parity(ctx, name: str) -> tuple[dict[str, float], float]:
+    """This rank's fp32 parity step (``parity_step``: estimator "full" in
+    plain softmax mode (MESH_PARITY_ABS), clip + Adafactor) on its shards
+    and batch rows against the unsharded
+    step, which the rank runs first on its own copy of the whole model:
+    the loss's relative error, and each gradient shard and updated shard
+    against its slice over the whole tensor's max; and the unsharded
+    step's seconds."""
+    t0 = time.perf_counter()
+    cfg = mesh_family_cfg(name, ctx.mode, "float32", estimator="full",
+                          abs_softmax=MESH_PARITY_ABS)
+    batch = mesh_family_batches(cfg, None, MESH_FAMILY_PARITY[name], 1,
+                                MESH_FAMILY_SEED)[0]
+    model = step.shard_params(mesh_family_model(cfg, ctx), cfg, ctx)
+    specs = model.param_specs
+    pad = step.PADDED_TABLES.get(cfg.family, ())
+    loss, grads, params = parity_step(cfg, None,
+                                      mesh_family_model(cfg, ctx), batch)
+    want = {}
+    for kind, got in (("grad", grads), ("param", params)):
+        for k, x in got.items():
+            x = x.detach()
+            whole = rules.pad_rows(x, ctx.tp) if k in pad else x
+            want[f"{kind} {k}"] = (rules.shard_by_spec(whole, specs[k], ctx),
+                                   max(float(x.abs().max()), 1e-30))
+    del grads, params, got, x, whole
+    sync()
+    torch.cuda.empty_cache()
+    unsharded_s = time.perf_counter() - t0
+    got_loss, grads, params = parity_step(
+        cfg, ctx, model, {k: rules.batch_rows(v, ctx)
+                          for k, v in batch.items()})
+    errs = {"loss": abs(got_loss - loss) / abs(loss)}
+    for kind, got in (("grad", grads), ("param", params)):
+        for k, x in got.items():
+            block, scale = want[f"{kind} {k}"]
+            errs[f"{kind} {k}"] = float((x.detach().float() - block.float())
+                                        .abs().max() / scale)
+    del want, grads, params, model, batch
+    torch.cuda.empty_cache()
+    return errs, unsharded_s
+
+
+def mesh_zstats_check(ctx, cfg, head_local: torch.Tensor, tag: str
+                      ) -> float:
+    """zstats at this rank's head shard's blocks (projected to
+    ``sampler_proj_rank`` as the shared sampler's are, by a seeded random
+    projection), against its plain version."""
+    r = cfg.sampler_proj_rank
+    gen = torch.Generator(DEV).manual_seed(MESH_FAMILY_SEED)
+    proj = None if not r else torch.randn(
+        (r, head_local.shape[1]), generator=gen, device=DEV) / math.sqrt(r)
+    stats = blocks.build(head_local.detach().float(), cfg.sampler_block,
+                         proj=proj, n_valid=step.shard_n_valid(cfg, ctx))
+    wq = stats.wq
+    return compare(f"{tag} zstats {tuple(wq.shape)}", zstats(wq),
+                   ref.zstats_ref(wq))
+
+
+def mesh_whisper_kernels(ctx, cfg) -> dict[str, dict]:
+    """Both attention kernels at whisper's shard shapes on this rank: the
+    encoder's and the decoder's self attention over its heads
+    (n_heads / tp_backbone) and the cross attention's whole 20 heads (its
+    weights are replicated), its batch rows; against their plain versions
+    with phase 22a's gates, MESH_WHISPER_TIMED's shape also timed.  Rows
+    by attention kind."""
+    gen = torch.Generator(DEV).manual_seed(MESH_FAMILY_SEED)
+    b = MESH_FAMILY_BATCH[cfg.name][0] // ctx.dp
+    own = cfg.n_heads // ctx.tp_backbone
+    rows = {}
+    for kind, s, sk, causal, h in (
+            ("enc", WHISPER_FRAMES, WHISPER_FRAMES, False, own),
+            ("dec", WHISPER_TEXT, WHISPER_TEXT, True, own),
+            ("cross", WHISPER_TEXT, WHISPER_FRAMES, False, cfg.n_heads)):
+        shape = [b, s, sk, h, h, WHISPER_HD]
+        timed = (ctx.mode, kind) == MESH_WHISPER_TIMED
+        rows[kind] = {
+            "flash_attention": {**flash_cross_row(
+                gen, b, s, sk, causal, h=h, kv=h, timed=timed),
+                "shape": shape},
+            "flash_attention_bwd": {**flash_bwd_case(
+                gen, b, s, h, h, WHISPER_HD, torch.bfloat16, causal=causal,
+                timed=timed, sk=sk), "shape": shape}}
+    return rows
+
+
+def mesh_family_fit(ctx, name: str, tag: str) -> dict:
+    """MESH_FAMILY_STEPS ``fit`` steps (the config's dtype: bf16, ptb-lstm
+    fp32) on a pool of MESH_DENSE_POOL batches of the rank's rows: exact
+    launches (the sampler's as ``expected_launches``; whisper's attention
+    twice a call under remat, its backward once), finite losses; the
+    steps' ms as ``fit`` logs them, the fit's collectives and the rank's
+    peak; then zstats at the trained head shard's blocks (falcon,
+    whisper) or, for ptb-lstm, the sampler's three kernels at the rank's
+    shard shapes (``mesh_kernel_check``) against their plain versions and
+    the fused head (``fused_lse``, ``fused_lse_bwd``) at them, in the
+    config's abs mode at given negatives (``mesh_sampled_check``: loss and
+    gradients against a one-device replay, MESH_RTOL)."""
+    cfg = mesh_family_cfg(name, ctx.mode)
+    opt_name, lr = MESH_FAMILY_OPT[name]
+    opt = make_optimizer(opt_name, lr)
+    pool = mesh_family_batches(cfg, ctx, MESH_FAMILY_BATCH[name],
+                               MESH_DENSE_POOL, seed=0)
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    distributed.reset_collective_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = loop.fit(cfg, ctx, opt, CycledPool(pool), MESH_FAMILY_STEPS,
+                       seed=0, log_every=1, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    collectives = distributed.collective_counts(by_group=True)
+    want = dict.fromkeys(REPLACES, 0)
+    if DEV.type == "cuda":
+        want = expected_launches(cfg, MESH_FAMILY_STEPS)
+        calls = attn_calls(cfg) if cfg.family == "encdec" else 0
+        want.update(flash_attention=MESH_FAMILY_STEPS * calls
+                    * forwards(cfg),
+                    flash_attention_bwd=MESH_FAMILY_STEPS * calls)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"{tag}: losses {res.losses}")
+    step_ms = [float(x) for x in re.findall(r"\((\d+) ms\)",
+                                            printed.getvalue())]
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEV.type == "cuda" else 0.0
+    with torch.no_grad():
+        head = api.head_table(res.state.params, cfg, ctx)
+    sampled = None
+    if cfg.family == "lstm":
+        gen = torch.Generator(DEV).manual_seed(MESH_FAMILY_SEED)
+        d = head.shape[1]
+        w = torch.randn((cfg.vocab_size, d), generator=gen, device=DEV) * 0.05
+        t = pool[0]["tokens"].numel() * ctx.dp
+        h = torch.randn((t, d), generator=gen, device=DEV)
+        labels = torch.randint(0, cfg.vocab_size, (t,), generator=gen,
+                               device=DEV)
+        kern = mesh_kernel_check(ctx, cfg, w, h)
+        sampled = {"errors": mesh_sampled_check(
+            ctx, w, h, labels, cfg.m_negatives, cfg.abs_softmax,
+            seed=MESH_FAMILY_SEED),
+            "shard (T, V, m, d)": [t // ctx.dp, cfg.vocab_size // ctx.tp,
+                                   cfg.m_negatives // ctx.tp, d],
+            "abs_mode": cfg.abs_softmax}
+        gate(f"{tag} sampled softmax at given negatives", sampled["errors"],
+             MESH_RTOL)
+        del w, h, labels
+    else:
+        kern = {"zstats": mesh_zstats_check(ctx, cfg, head, tag)}
+    losses = res.losses
+    del head, res, pool
+    return {"losses": losses, "fit_s": wall, "launches": counts,
+            "step_ms": step_ms, "collectives": collectives, "peak_gb": peak,
+            "kernels": kern, "sampled": sampled}
+
+
+def mesh_family_rank(ctx, name: str) -> dict:
+    """One run of phase 25 on this rank: the fp32 parity step (the loss
+    within MESH_STEP_RTOL, each shard within MESH_RTOL), whisper's
+    attention kernels at the shard's shapes (checked, and at
+    MESH_WHISPER_TIMED's shape timed, by the world's rank 0 while the
+    others wait), the fit."""
+    tag = (f"{name} {ctx.mode} ({ctx.axis_size('data')}, {ctx.tp}) rank "
+           f"({ctx.data_index}, {ctx.model_index})")
+    t0 = time.perf_counter()
+    parity, unsharded_s = mesh_family_parity(ctx, name)
+    gate(f"{tag} fp32 parity loss", {"loss": parity["loss"]},
+         MESH_STEP_RTOL)
+    gate(f"{tag} fp32 parity step", parity, MESH_RTOL)
+    secs = {"parity": time.perf_counter() - t0, "unsharded": unsharded_s}
+    attn = None
+    if get_config(name).family == "encdec":
+        t1 = time.perf_counter()
+        torch.distributed.barrier()
+        if torch.distributed.get_rank() == 0:
+            attn = mesh_whisper_kernels(ctx, mesh_family_cfg(name, ctx.mode))
+        torch.distributed.barrier()
+        secs["attention"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fit = mesh_family_fit(ctx, name, tag)
+    secs["fit"] = time.perf_counter() - t1
+    secs = {k: round(v, 1) for k, v in secs.items()}
+    log(f"{tag}: seconds {secs}")
+    return {"parity": parity, "attention": attn, "fit": fit, "secs": secs,
+            "s": time.perf_counter() - t0}
+
+
+def mesh_family_nccl() -> dict[str, float]:
+    """Phase 25a: NCCL on a (1, 1) mesh in this process, each family in its
+    config's mode: one fp32 fit step with estimator "full" and
+    MESH_STEP_OPT on its parity batch equal to the mesh=None step within
+    MESH_STEP_RTOL (the loss, and every parameter over its own max).
+    Returns each family's worst error."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = launch_mesh.make_debug_mesh(1, 1)
+        errs = {}
+        for name in MESH_FAMILIES:
+            mode = get_config(name).train_sharding
+            cfg = mesh_family_cfg(name, mode, "float32", estimator="full")
+            batch = mesh_family_batches(cfg, None, MESH_FAMILY_PARITY[name],
+                                        1, MESH_FAMILY_SEED)
+            res = {}
+            for tag, c in (("mesh", rules.mesh_ctx(mesh, mode=mode)),
+                           ("unsharded", None)):
+                res[tag] = loop.fit(
+                    cfg, c, make_optimizer(*MESH_STEP_OPT), CycledPool(batch),
+                    1, seed=0, log_every=0, device=DEV)
+            want = dict(res["unsharded"].state.params.named_parameters())
+            got = dict(res["mesh"].state.params.named_parameters())
+            e = {"loss": abs(res["mesh"].losses[0]
+                             - res["unsharded"].losses[0])
+                 / abs(res["unsharded"].losses[0]),
+                 **{k: rel_err(p, want[k]) for k, p in got.items()}}
+            del res, want, got, batch
+            sync()
+            if DEV.type == "cuda":
+                torch.cuda.empty_cache()
+            worst = max(e, key=e.get)
+            log(f"[mesh families] {backend} (1, 1) {name} {mode}: one fp32 "
+                f"full-softmax fit step ({MESH_STEP_OPT}) against the "
+                f"unsharded one: loss {e['loss']}, worst parameter {worst} "
+                f"{e[worst]} over its own max ({len(e) - 1} parameters)")
+            gate(f"{backend} (1, 1) {name} step", e, MESH_STEP_RTOL)
+            errs[name] = e[worst]
+        return errs
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_family_report(ranks: list[dict], nccl: dict
+                       ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 25's rank results logged and gated (losses alike on every
+    rank): each run's launches summed over its ranks, and whisper's
+    attention rows at each mesh's shard shapes (rank 0's) as kernels-line
+    shapes ``mesh_whisper_<mode>_<dp>x<tp>_<enc|dec|cross>``."""
+    by_path, shapes = {}, {}
+    for name, mode, (dp, tp) in MESH_FAMILY_RUNS:
+        key = f"{name} {mode} {dp}x{tp}"
+        attn = ranks[0][key]["attention"]
+        for kind, row in (attn or {}).items():
+            shapes[f"mesh_whisper_{mode}_{dp}x{tp}_{kind}"] = row
+            log(f"[mesh families] {key}: {kind} attention at the shard "
+                f"shape {row['flash_attention']['shape']}: flash_attention "
+                f"{row['flash_attention']}, flash_attention_bwd "
+                f"{row['flash_attention_bwd']}")
+        total = dict.fromkeys(REPLACES, 0)
+        for r, res in enumerate(ranks):
+            m, fit = res[key], res[key]["fit"]
+            worst = max(m["parity"], key=m["parity"].get)
+            log(f"[mesh families] gloo {key} rank {r}: fp32 parity loss "
+                f"{m['parity']['loss']}, worst {worst} {m['parity'][worst]} "
+                f"(of {len(m['parity'])} tensors, over each whole tensor's "
+                f"max); {MESH_FAMILY_STEPS} fit steps (clip + "
+                f"{MESH_FAMILY_OPT[name]}) in {fit['fit_s']:.3f} s, losses "
+                f"{fit['losses']}, step ms {fit['step_ms']}, launches "
+                f"{ {k: v for k, v in fit['launches'].items() if v} }; peak "
+                f"{fit['peak_gb']:.3f} GB; kernels at the shard's shapes, "
+                f"max abs err {fit['kernels']}; the sampled softmax at "
+                f"given negatives (fused_lse, fused_lse_bwd) {fit['sampled']}"
+                f"; the fit's collectives "
+                f"{fit['collectives']}; the run {m['s']:.1f} s "
+                f"({m['secs']})")
+            add_counts(total, fit["launches"])
+        gate_losses_alike(key, ranks)
+        by_path[f"mesh {name} {mode} ({dp}, {tp})"] = total
+    secs = [round(sum(r[f"{name} {mode} {dp}x{tp}"]["s"]
+                      for name, mode, (dp, tp) in MESH_FAMILY_RUNS), 1)
+            for r in ranks]
+    log(f"[mesh families] NCCL (1, 1) worst errors {nccl}; the ranks' "
+        f"phase 25 {secs} s")
+    return by_path, shapes
+
+
+def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25")
+                       ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phases 24 and 25, the backbone's storage layouts on the mesh, in
+    one set of rank processes.  Phase 24 (starcoder2-3b at full width, 4
+    of its 30 layers: d 3,072, 24 / 2 heads of 128, d_ff 12,288, vocab
+    49,152): 24a over NCCL in this process (``mesh_dense_nccl``) and the
+    unsharded fp32 parity steps saved for the ranks
+    (``mesh_dense_reference``).  Phase 25 (falcon-mamba-7b at 2 of its 64
+    layers, whisper-large-v3 at 2 + 2 of its 32 + 32, ptb-lstm whole, each
+    at full width): 25a over NCCL in this process
+    (``mesh_family_nccl``).  Then MESH_WORLD rank processes over gloo
+    sharing the card run each of MESH_DENSE_RUNS (``mesh_dense_rank``:
+    tp_fsdp at (1, 4) (KV heads padded 2 -> 4) and (2, 2), pure_fsdp at
+    (2, 2)) and each of MESH_FAMILY_RUNS (``mesh_family_rank``).
+    ``phases`` runs one of the two alone.  Returns the bf16 fits' launches
+    of each mesh, summed over its ranks, and the attention kernels' rows
+    at the shard shapes."""
+    t_start = time.perf_counter()
+    t24 = t25 = 0.0
+    if "24" in phases:
+        nccl24 = mesh_dense_nccl()
+        ref_s = mesh_dense_reference()
+        t24 = time.perf_counter() - t_start
+    if "25" in phases:
+        t0 = time.perf_counter()
+        nccl25 = mesh_family_nccl()
+        t25 = time.perf_counter() - t0
+    try:
+        ranks = run_mesh_ranks(",".join(phases), MESH_LAYOUTS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
+    by_path, shapes = {}, {}
+    for ph, report in (("24", lambda: mesh_dense_report(ranks, nccl24,
+                                                        ref_s)),
+                       ("25", lambda: mesh_family_report(ranks, nccl25))):
+        if ph in phases:
+            got_paths, got_shapes = report()
+            by_path.update(got_paths)
+            shapes.update(got_shapes)
+    log(f"[mesh layouts] in this process: phase 24 {t24:.1f} s, phase 25 "
+        f"{t25:.1f} s; phases 24 and 25 {time.perf_counter() - t_start:.1f}"
+        f" s; each rank's peak memory since its last fit began, GB "
+        f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}")
     return by_path, shapes
 
 
@@ -6752,10 +7223,10 @@ def main() -> int:
     by_path.update(phase_mesh())
     lap("the vocab-parallel head on a mesh (phase 23)")
     torch.cuda.empty_cache()
-    dense_paths, dense_shapes = phase_mesh_dense()
-    by_path.update(dense_paths)
-    shapes.update(dense_shapes)
-    lap("the backbone's layouts on a mesh (phase 24)")
+    layout_paths, layout_shapes = phase_mesh_layouts()
+    by_path.update(layout_paths)
+    shapes.update(layout_shapes)
+    lap("the backbone's layouts on a mesh (phases 24-25)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))

@@ -471,9 +471,11 @@ def _opt_specs(node, specs: dict, stack_of: dict):
 
 
 def _vocab_padded(cfg: ArchConfig, spec, ctx) -> bool:
-    """True for a leaf whose rows are the vocab of a recsys table that the
-    mesh pads to a multiple of tp (``train.step.shard_params``)."""
-    return (cfg.family == "recsys" and bool(spec)
+    """True for a leaf whose rows are the vocab of a recsys or lstm table
+    that the mesh pads to a multiple of tp (``train.step.shard_params``)."""
+    from repro_torch.train.step import PADDED_TABLES
+
+    return (cfg.family in PADDED_TABLES and bool(spec)
             and spec[0] == ctx.model_axis)
 
 
@@ -489,8 +491,9 @@ def shard_train_state(state: TrainState, cfg: ArchConfig, ctx
                       ) -> TrainState:
     """A whole ``TrainState`` -> this rank's: its parameters sharded by
     ``train.step.shard_params`` (in place), every optimizer tensor by the
-    spec of the parameter it follows (``_opt_specs``), a recsys table's
-    moments padded as its rows are.  Bitwise: each shard is a slice."""
+    spec of the parameter it follows (``_opt_specs``), a recsys or lstm
+    table's moments padded as its rows are.  Bitwise: each shard is a
+    slice."""
     from repro_torch.train.step import shard_params
 
     model = shard_params(state.params, cfg, ctx)
@@ -512,8 +515,8 @@ def gather_train_state(state: TrainState, cfg: ArchConfig, ctx
                        ) -> TrainState:
     """The inverse of ``shard_train_state``: a rank's ``TrainState`` with
     every parameter and optimizer tensor gathered whole over the mesh (a
-    recsys table's padded rows dropped), a new module without specs; the
-    sampler's state is the rank's."""
+    recsys or lstm table's padded rows dropped), a new module without
+    specs; the sampler's state is the rank's."""
     from repro_torch.train.step import gather_params, set_params
 
     model = state.params

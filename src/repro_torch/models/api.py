@@ -22,12 +22,13 @@ through the flash kernel's backward on the card), while serving and the
 sampler's statistics call them under ``torch.no_grad()`` or detach the
 result.
 
-On a ``(data, model)`` mesh (a ``ShardCtx``) the recsys and dense
-families' modules hold a rank's shards (``train.step.shard_params``):
-``backbone_hidden(..., ctx)`` gathers them before use, and ``head_table``
-gives this rank's vocab rows with their feature dim gathered over
-``data`` (``rules.gather_head_fd``); a head tied to the embedding is the
-embedding's shard.  The other families raise there (ROADMAP.md A17).
+On a ``(data, model)`` mesh (a ``ShardCtx``) the recsys, lstm, dense,
+ssm and encdec families' modules hold a rank's shards
+(``train.step.shard_params``): ``backbone_hidden(..., ctx)`` gathers them
+before use, and ``head_table`` gives this rank's vocab rows with their
+feature dim gathered over ``data`` (``rules.gather_head_fd``); a head
+tied to the embedding is the embedding's shard.  The moe and hybrid
+families, MLA and multi-token prediction raise there (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -50,9 +51,10 @@ def _require_ported(cfg: ArchConfig) -> None:
 
 
 def require_mesh_layout(cfg: ArchConfig) -> None:
-    """Raise for a family whose parameters this port does not yet store by
-    the reference's rules on a mesh (all but recsys and dense)."""
-    if cfg.family != "recsys":
+    """Raise for a config whose parameters this port does not yet store by
+    the reference's rules on a mesh: the moe and hybrid families, MLA and
+    multi-token prediction (``transformer.require_mesh_layout``)."""
+    if cfg.family in transformer.LM_FAMILIES:
         transformer.require_mesh_layout(cfg)
 
 
@@ -62,14 +64,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     """Random weights from ``gen`` on ``device`` — the card unless
     ``device="cpu"``; no device and no CUDA raises.  ``max_len`` sizes an
     encoder-decoder's learned position tables (the other families have
-    none).  A mesh ``ctx`` pads an LM's heads and vocab as the
-    reference's ``init_lm`` does for it; the weights are whole."""
+    none).  A mesh ``ctx`` pads an LM's or an encoder-decoder's heads and
+    vocab as the reference's ``init_lm`` / ``init_encdec`` do for it; the
+    weights are whole."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.init_lm(gen, cfg, dev, ctx=ctx)
     if cfg.family == "encdec":
-        return encdec.init_encdec(gen, cfg, dev, max_len=max_len)
+        return encdec.init_encdec(gen, cfg, dev, max_len=max_len, ctx=ctx)
     if cfg.family == "lstm":
         return lstm_lm.init_lstm_lm(gen, cfg, dev)
     return recsys.init_recsys(gen, cfg, dev)
@@ -102,13 +105,15 @@ def abstract_params(cfg: ArchConfig,
                     max_len: int = encdec.DEFAULT_MAX_LEN, ctx=None):
     """The parameters on the ``meta`` device, as the family's module:
     their names, shapes and dtypes, nothing allocated or drawn (an
-    encoder-decoder's position tables of ``max_len`` rows; an LM's padded
-    for a mesh ``ctx`` as ``init_params`` pads it)."""
+    encoder-decoder's position tables of ``max_len`` rows; an LM or an
+    encoder-decoder padded for a mesh ``ctx`` as ``init_params`` pads
+    it)."""
     if cfg.family not in PARAM_MODULES:
         raise NotImplementedError(
             f"abstract params of family '{cfg.family}' are not ported")
     if cfg.family == "encdec":
-        return encdec.EncDec(cfg, torch.device("meta"), max_len=max_len)
+        return encdec.EncDec(cfg, torch.device("meta"), max_len=max_len,
+                             ctx=ctx)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.StackedLM(cfg, torch.device("meta"), ctx=ctx)
     return PARAM_MODULES[cfg.family](cfg, torch.device("meta"))
@@ -165,14 +170,15 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
     ``cfg.mtp`` the multi-token-prediction rows follow the B * S rows in
     the reference's order: ``mtp_hidden``'s h[:, :-1] (predicting token
     t+2) flattened, with labels[:, 2:], so T = B * (2S - 2).  On a mesh
-    (``ctx``) the rank's batch block through its shards: the recsys and
-    dense families."""
+    (``ctx``) the rank's batch block through its shards (an
+    encoder-decoder's frames and tokens of the same rows)."""
     _require_ported(cfg)
     if rules.on_mesh(ctx):
         require_mesh_layout(cfg)
     if cfg.family in transformer.LM_FAMILIES + ("lstm",):
         if cfg.family == "lstm":
-            h, aux = lstm_lm.hidden_states(params, batch["tokens"], cfg)
+            h, aux = lstm_lm.hidden_states(params, batch["tokens"], cfg,
+                                           ctx)
         else:
             h, aux = transformer.hidden_states(params, batch["tokens"], cfg,
                                                ctx)
@@ -184,8 +190,8 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
             labels = torch.cat([labels, batch["labels"][:, 2:].reshape(-1)])
         return hf, labels, aux
     if cfg.family == "encdec":
-        enc_out = encdec.encode(params, batch["frames"], cfg)
-        h = encdec.decode_train(params, batch["tokens"], enc_out, cfg)
+        enc_out = encdec.encode(params, batch["frames"], cfg, ctx)
+        h = encdec.decode_train(params, batch["tokens"], enc_out, cfg, ctx)
         return (h.reshape(-1, h.shape[-1]), batch["labels"].reshape(-1),
                 torch.zeros((), dtype=torch.float32, device=h.device))
     h, aux = recsys.hidden_states(params, batch["history"],

@@ -30,6 +30,25 @@ causal), the decoder's self-attention (causal) and its cross attention
 decoder's one-token step attends with plain tensor ops, as the reference
 does: its self cache written in place, the cross K/V precomputed once from
 the encoder's output (``init_dec_cache``).
+
+On a ``(data, model)`` mesh an ``EncDec`` holds this rank's shard of every
+parameter by the reference's rules (``train.step.shard_params`` sets its
+``param_specs``; ``init_encdec(..., ctx=)`` pads the vocab to the head's
+vocab-parallel degree and the heads to the backbone's TP degree, as the
+reference's does), and ``encode`` / ``decode_train`` run each block on
+``rules.compute_view`` of its shards, gathered inside the block's remat
+region: whole in ``pure_fsdp``, the Megatron slices in ``tp_fsdp`` (the
+self attention and the MLP over ``rules.tp_group``, the embedding
+vocab-parallel).  The norms and two kinds of leaves no rule of the
+reference matches stay whole on every rank in every mode, as there, and
+are used as they are: the cross attention's (``/attn/wq$`` needs a ``/``
+where the path has ``xattn``) and the position tables (the rule names
+``pos_embed/table``).  Under TP the cross attention therefore
+runs whole on every model rank, on the replicated residual stream and
+encoder states: no f or g brackets it, and its weights' gradient, alike
+over the model group, is summed over the batch axes only
+(``rules.grad_reduce_axes``).  The decoder's cache and its one-token
+step stay single-device (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -49,6 +68,7 @@ from repro_torch.models.transformer import (
     padded_vocab,
 )
 from repro_torch.serve.retrieval import require_unsharded
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
 Tensor = torch.Tensor
@@ -74,14 +94,20 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
 
 def init_encdec(gen: torch.Generator | None, cfg: ArchConfig,
                 device: str | torch.device | None = None, tp: int = 1,
-                max_len: int = 0) -> Params:
+                max_len: int = 0, ctx=None) -> Params:
     """Random weights from ``gen`` on ``device`` (the card unless
     ``device="cpu"``), both position tables of ``max_len`` rows (default
-    DEFAULT_MAX_LEN).  Vocab rows at and after ``vocab_size`` are zero, as
-    in the reference.  On the ``meta`` device nothing is drawn."""
+    DEFAULT_MAX_LEN).  Heads and vocab are padded to a multiple of ``tp``;
+    with a mesh ``ctx`` the heads to its backbone's TP degree and the
+    vocab to its head's (``ctx.tp_backbone``, ``ctx.tp``), as the
+    reference's ``init_encdec``.  Vocab rows at and after ``vocab_size``
+    are zero, as in the reference.  On the ``meta`` device nothing is
+    drawn."""
     dev = resolve_device(device)
     max_len = max_len or DEFAULT_MAX_LEN
-    nvp = padded_vocab(cfg, tp)
+    nvp = padded_vocab(cfg, ctx.tp if rules.on_mesh(ctx) else tp)
+    if rules.on_mesh(ctx):
+        tp = ctx.tp_backbone
     pd = L._pdtype(cfg)
     emb = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
     emb[cfg.vocab_size:] = 0
@@ -114,27 +140,40 @@ class EncDec(nn.Module):
     ``dec_norm.scale``...  ``convert`` stacks them back into the
     reference's layout."""
 
+    #: {name: spec} of a mesh rank's shards (``train.step.shard_params``);
+    #: None: every parameter whole
+    param_specs: dict | None = None
+
     def __init__(self, cfg: ArchConfig, device: str | torch.device,
                  tree: Params | None = None, tp: int = 1,
-                 max_len: int = 0):
+                 max_len: int = 0, ctx=None):
         super().__init__()
         if tree is None:
             dev = torch.device(device)
             tree = _map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device=dev),
-                        init_encdec(None, cfg, "meta", tp, max_len))
+                        init_encdec(None, cfg, "meta", tp, max_len, ctx))
         counts = _counts(cfg)
         for key, val in tree.items():
             self.add_module(key, nn.ModuleList(
                 _Tree(_layer(val, i)) for i in range(counts[key]))
                 if key in counts else _Tree(val))
 
-    def tree(self) -> Params:
+    def tree(self, leaf=None) -> Params:
         """The parameters as the reference's tree, each block stack a list
-        of per-layer dicts."""
-        return {key: ([layer.tree() for layer in mod]
-                      if key in STACKS else mod.tree())
+        of per-layer dicts; with ``leaf``, ``leaf(name, parameter)`` in
+        each parameter's place."""
+        return {key: ([layer.tree(leaf, f"{key}.{i}.")
+                       for i, layer in enumerate(mod)]
+                      if key in STACKS else mod.tree(leaf, f"{key}."))
                 for key, mod in self.named_children()}
+
+    def spec_tree(self) -> Params | None:
+        """``tree()`` with each parameter's spec in its place (None when
+        the parameters are whole)."""
+        if self.param_specs is None:
+            return None
+        return self.tree(lambda name, _: self.param_specs[name])
 
 
 def _counts(cfg: ArchConfig) -> dict[str, int]:
@@ -162,30 +201,59 @@ def _run(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _mlp(blk: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+def _mlp(blk: Params, x: Tensor, cfg: ArchConfig, group=None) -> Tensor:
     return x + L.apply_mlp(blk["mlp"], L.apply_norm(blk["norm_mlp"], x, cfg),
-                           cfg)
+                           cfg, group=group)
 
 
-def _enc_block(blk: Params, x: Tensor, positions: Tensor, cfg: ArchConfig
-               ) -> Tensor:
+def _mesh_specs(params, ctx) -> Params | None:
+    """The spec tree of an ``EncDec`` of a rank's shards on a mesh
+    ``ctx``; None off a mesh."""
+    if not rules.on_mesh(ctx):
+        return None
+    specs = params.spec_tree() if isinstance(params, EncDec) else None
+    if specs is None:
+        raise ValueError("on a mesh the encoder-decoder takes an EncDec of "
+                         "the rank's shards (train.step.shard_params)")
+    return specs
+
+
+def _stack_specs(specs: Params | None, key: str, cfg: ArchConfig) -> list:
+    return specs[key] if specs is not None else [None] * _counts(cfg)[key]
+
+
+def _gathered(blk: Params, ctx, specs: Params | None):
+    """A block's params as compute uses them and the TP group: its shards'
+    ``compute_view`` on a mesh (``specs``), else itself and None."""
+    if specs is None:
+        return blk, None
+    return rules.gather_tree(blk, specs, ctx), rules.tp_group(ctx)
+
+
+def _enc_block(blk: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
+               ctx=None, specs: Params | None = None) -> Tensor:
+    blk, group = _gathered(blk, ctx, specs)
     h = L.apply_norm(blk["norm1"], x, cfg)
-    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=False)
-    return _mlp(blk, x, cfg)
+    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=False,
+                           group=group)
+    return _mlp(blk, x, cfg, group)
 
 
 def encode(params, frames: Tensor, cfg: ArchConfig, ctx=None) -> Tensor:
     """frames: (B, S, d) precomputed embeddings (the frontend stub) ->
-    the encoder's states (B, S, d) in the compute dtype; differentiable."""
-    require_unsharded(ctx)
+    the encoder's states (B, S, d) in the compute dtype; differentiable.
+    On a mesh ``params`` is an ``EncDec`` of the rank's shards and
+    ``frames`` its batch rows (the module docstring)."""
+    specs = _mesh_specs(params, ctx)
     top = _top(params)
     b, s, _ = frames.shape
     x = frames.to(L._dtype(cfg))
     x = x + top["enc_pos"]["table"][:s][None].to(x.dtype)
     positions = _positions(b, s, frames.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for blk in _blocks(top, "enc_blocks", cfg):
-        x = _run(_enc_block, remat, blk, x, positions, cfg)
+    for blk, bs in zip(_blocks(top, "enc_blocks", cfg),
+                       _stack_specs(specs, "enc_blocks", cfg)):
+        x = _run(_enc_block, remat, blk, x, positions, cfg, ctx, bs)
     return L.apply_norm(top["enc_norm"], x, cfg)
 
 
@@ -210,27 +278,41 @@ def cross_attention(p: Params, x: Tensor, enc_out: Tensor, cfg: ArchConfig
 
 
 def _dec_block(blk: Params, x: Tensor, enc_out: Tensor, positions: Tensor,
-               cfg: ArchConfig) -> Tensor:
+               cfg: ArchConfig, ctx=None, specs: Params | None = None
+               ) -> Tensor:
+    blk, group = _gathered(blk, ctx, specs)
     h = L.apply_norm(blk["norm1"], x, cfg)
-    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=True)
+    x = x + L.attn_forward(blk["attn"], h, positions, cfg, causal=True,
+                           group=group)
     hx = L.apply_norm(blk["norm_x"], x, cfg)
+    # whole on every rank (replicated weights; the module docstring)
     x = x + cross_attention(blk["xattn"], hx, enc_out, cfg)
-    return _mlp(blk, x, cfg)
+    return _mlp(blk, x, cfg, group)
 
 
 def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
                  ctx=None) -> Tensor:
     """The teacher-forced decoder: tokens (B, S) over the encoder's states
-    (B, Sf, d) -> hidden states (B, S, d); differentiable."""
-    require_unsharded(ctx)
+    (B, Sf, d) -> hidden states (B, S, d); differentiable.  On a mesh the
+    rank's batch rows through its shards, the embedding vocab-parallel
+    under TP."""
+    specs = _mesh_specs(params, ctx)
     top = _top(params)
     b, s = tokens.shape
-    x = L.apply_embed(top["embed"], tokens, cfg)
+    if specs is None:
+        x = L.apply_embed(top["embed"], tokens, cfg)
+    else:
+        spec = specs["embed"]["table"]
+        x = L.apply_embed(
+            {"table": rules.compute_view(top["embed"]["table"], spec, ctx)},
+            tokens, cfg, rules.vocab_group(spec, ctx))
     x = x + top["dec_pos"]["table"][:s][None].to(x.dtype)
     positions = _positions(b, s, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for blk in _blocks(top, "dec_blocks", cfg):
-        x = _run(_dec_block, remat, blk, x, enc_out, positions, cfg)
+    for blk, bs in zip(_blocks(top, "dec_blocks", cfg),
+                       _stack_specs(specs, "dec_blocks", cfg)):
+        x = _run(_dec_block, remat, blk, x, enc_out, positions, cfg, ctx,
+                 bs)
     return L.apply_norm(top["dec_norm"], x, cfg)
 
 

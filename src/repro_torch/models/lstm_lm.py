@@ -9,6 +9,18 @@ i, f, g, o, so ``convert.params_from_jax`` is a plain copy.  The reference
 ``lax.scan``s each layer over the sequence; here a Python loop runs its
 steps, each a handful of small tensor ops under autograd (the JAX package
 computes them outside any Pallas kernel, so none is a kernel here).
+
+On a ``(data, model)`` mesh a rank's ``LSTMLM`` holds its shards by the
+reference's rules (``train.step.shard_params`` sets ``param_specs``): the
+embedding and the head ``(V, Fd)``, their rows over ``model`` (padded to
+a multiple of tp) and their features over ``data``.  The cells' kernel,
+recurrent and bias stay whole on every rank in every mode, and are used
+as they are: the reference's ``lstm<i>/kernel`` rule needs a path
+component before ``lstm<i>``, which the tree's top-level layers lack.
+``hidden_states(..., ctx)`` takes the embedding through
+``rules.compute_view``: under TP it is looked up vocab-parallel
+(``layers.embed_rows`` over the model group) and every model rank runs
+the same cells on its data row's tokens; in pure_fsdp it is whole.
 """
 from __future__ import annotations
 
@@ -16,7 +28,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import _pdtype, dense_init
+from repro_torch.models.layers import _pdtype, dense_init, embed_rows
+from repro_torch.sharding import rules
 
 Tensor = torch.Tensor
 
@@ -28,6 +41,9 @@ class LSTMLM(nn.Module):
     The constructor only allocates the parameters (``torch.empty``; on the
     ``meta`` device nothing at all); ``init_lstm_lm`` draws them and
     ``convert.params_from_jax`` copies them in."""
+
+    #: {name: spec} of a mesh rank's shards; None: every parameter whole
+    param_specs: dict | None = None
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -49,11 +65,17 @@ class LSTMLM(nn.Module):
         return {k: getattr(self, f"lstm{i}_{k}")
                 for k in ("kernel", "recurrent", "bias")}
 
-    def forward(self, tokens: Tensor) -> Tensor:
-        """tokens: (B, S) ids -> h: (B, S, u)."""
+    def forward(self, tokens: Tensor, ctx=None) -> Tensor:
+        """tokens: (B, S) ids -> h: (B, S, u); on a mesh the rank's rows
+        through its shards (the module docstring)."""
         b = tokens.shape[0]
-        u = self.embed_table.shape[1]
-        xs = list(self.embed_table[tokens].unbind(1))  # S x (B, u)
+        table, group = self.embed_table, None
+        if rules.on_mesh(ctx):
+            spec = self.param_specs["embed_table"]
+            table = rules.compute_view(table, spec, ctx)
+            group = rules.vocab_group(spec, ctx)
+        u = table.shape[1]
+        xs = list(embed_rows(table, tokens, group).unbind(1))  # S x (B, u)
         for i in range(self.n_layers):
             p = self.layer(i)
             h = c = xs[0].new_zeros((b, u))
@@ -91,8 +113,9 @@ def _cell(p: dict[str, Tensor], x: Tensor, h: Tensor, c: Tensor
     return h_new, c_new
 
 
-def hidden_states(model: LSTMLM, tokens: Tensor, cfg: ArchConfig
-                  ) -> tuple[Tensor, Tensor]:
-    """tokens: (B, S) -> (h: (B, S, units), aux = 0)."""
-    h = model(tokens)
+def hidden_states(model: LSTMLM, tokens: Tensor, cfg: ArchConfig,
+                  ctx=None) -> tuple[Tensor, Tensor]:
+    """tokens: (B, S) -> (h: (B, S, units), aux = 0); on a mesh (``ctx``)
+    the rank's batch rows through its shards."""
+    h = model(tokens, ctx)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)

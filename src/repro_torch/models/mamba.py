@@ -21,6 +21,21 @@ the port's last chunk is the remainder, so the state it returns (what
 token (ROADMAP.md C).  Every output ``y`` is the same either way.
 
 Decode carries (conv window, ssm state) in the cache: O(1) per token.
+
+On a ``(data, model)`` mesh under Megatron TP (``tp_fsdp``) the block runs
+channel-parallel over the model group (``group``): a rank holds the
+channels ``[j di / tp, (j + 1) di / tp)`` of every d_inner-wide leaf, as
+the reference's rules store them (``conv_w``, ``conv_b``, ``dt_proj``'s
+columns, ``dt_bias``, ``a_log``, ``d``; ``x_proj``'s and ``out_proj``'s
+rows), and the scan runs on those channels alone.  ``in_proj`` is stored
+over its 2 di columns ``[x_in | z]``, so a rank's stored block is not its
+channels: ``mesh_view`` gathers it whole and keeps the rank's columns of
+both halves (the gather's backward reduce-scatters the gradient).  The
+block's input enters through Megatron's f; ``x_proj`` is row-parallel,
+and since every channel then reads the whole (dt, B, C), its partial sums
+are all-reduced in the forward AND the backward (g, then f);
+``out_proj``'s partial sums leave through g.  The collectives run outside
+the scan's chunk checkpoints, so a chunk's recompute runs none.
 """
 from __future__ import annotations
 
@@ -38,7 +53,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.models.layers import _pdtype, dense_init
+from repro_torch.sharding import rules
 
 Tensor = torch.Tensor
 Params = dict
@@ -93,13 +110,15 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor, prev: Tensor | None = None
     return y, xp[:, -(k - 1):] if k > 1 else prev
 
 
-def _ssm_params(p: Params, xc: Tensor, cfg: ArchConfig
+def _ssm_params(p: Params, xc: Tensor, cfg: ArchConfig, group=None
                 ) -> tuple[Tensor, Tensor, Tensor]:
     """Input-dependent (delta, B, C), each fp32, from the conv output xc:
-    (B, L, di)."""
+    (B, L, di); with ``group`` xc is this rank's channels, and the
+    row-parallel ``x_proj``'s partial sums are all-reduced both ways."""
     n = cfg.ssm_state
     dtr = cfg.dt_rank
     dbc = xc @ p["x_proj"].to(xc.dtype)  # (B, L, dtr + 2n)
+    dbc = distributed.replicated(distributed.psum(dbc, group), group)
     dt, b_ssm, c_ssm = torch.split(dbc, [dtr, n, n], dim=-1)
     # a bf16 product plus the fp32 bias promotes to fp32, as in the
     # reference; softplus is jax.nn.softplus's logaddexp(x, 0)
@@ -149,19 +168,19 @@ def _chunk_body(h: Tensor, delta: Tensor, dx: Tensor, b_ssm: Tensor,
 
 
 def _scan_noskip(p: Params, xc: Tensor, cfg: ArchConfig,
-                 h0: Tensor | None = None, chunk: int = 256
+                 h0: Tensor | None = None, chunk: int = 256, group=None
                  ) -> tuple[Tensor, Tensor]:
     """The selective scan minus the skip term (D * x is added outside).
 
-    xc: (B, S, di).  Returns (y (B, S, di) fp32, the state after the last
-    token (B, di, n) fp32).  Each chunk is checkpointed when autograd
-    records it."""
+    xc: (B, S, di) (a rank's channels with ``group``).  Returns (y (B, S,
+    di) fp32, the state after the last token (B, di, n) fp32).  Each chunk
+    is checkpointed when autograd records it."""
     b, s, di = xc.shape
     n = cfg.ssm_state
     a_mat = -torch.exp(p["a_log"])
     h = h0 if h0 is not None else torch.zeros(
         (b, di, n), dtype=torch.float32, device=xc.device)
-    delta, b_ssm, c_ssm = _ssm_params(p, xc, cfg)
+    delta, b_ssm, c_ssm = _ssm_params(p, xc, cfg, group)
     dx = delta * xc.float()
     chunk = min(chunk, s)
     remat = torch.is_grad_enabled() and (delta.requires_grad
@@ -180,33 +199,64 @@ def _scan_noskip(p: Params, xc: Tensor, cfg: ArchConfig,
     return torch.cat(ys, dim=1), h
 
 
-def _gate_out(p: Params, y: Tensor, xc: Tensor, z: Tensor) -> Tensor:
-    """(y + D * xc) * silu(z) @ out_proj, in z's dtype."""
+def _gate_out(p: Params, y: Tensor, xc: Tensor, z: Tensor,
+              group=None) -> Tensor:
+    """(y + D * xc) * silu(z) @ out_proj, in z's dtype; with ``group`` the
+    row-parallel projection's partial sums summed over it (g)."""
     dt = z.dtype
     y = y + p["d"] * xc.float()
-    return (y.to(dt) * F.silu(z)) @ _out_proj(p).to(dt)
+    return distributed.psum((y.to(dt) * F.silu(z)) @ _out_proj(p).to(dt),
+                            group)
 
 
 def apply_mamba(p: Params, x: Tensor, cfg: ArchConfig,
-                chunk: int = 256) -> Tensor:
-    """Full-sequence mamba block (train / prefill).  x: (B, S, d)."""
-    return mamba_prefill(p, x, cfg, chunk)[0]
+                chunk: int = 256, group=None) -> Tensor:
+    """Full-sequence mamba block (train / prefill).  x: (B, S, d); with
+    ``group`` channel-parallel over it (``p`` from ``mesh_view``)."""
+    return mamba_prefill(p, x, cfg, chunk, group)[0]
 
 
-def mamba_prefill(p: Params, x: Tensor, cfg: ArchConfig, chunk: int = 256
-                  ) -> tuple[Tensor, Params]:
+def mamba_prefill(p: Params, x: Tensor, cfg: ArchConfig, chunk: int = 256,
+                  group=None) -> tuple[Tensor, Params]:
     """``apply_mamba`` with the cache it leaves: (y (B, S, d), {"conv": the
     last K-1 inputs of the conv (B, K-1, di), "ssm": the state after the
     last token (B, di, n) fp32}): the reference's inline prefill branch
-    (``repro.models.transformer.prefill``)."""
+    (``repro.models.transformer.prefill``).  With ``group`` (the module
+    docstring) y is whole and the cache holds this rank's channels."""
     dt = x.dtype
-    di = cfg.d_inner
+    x = distributed.replicated(x, group)
     xz = x @ p["in_proj"].to(dt)
+    di = xz.shape[-1] // 2  # the rank's channels under TP
     x_in, z = xz[..., :di], xz[..., di:]
     xc, window = _causal_conv(x_in, p["conv_w"].to(dt), p["conv_b"].to(dt))
     xc = F.silu(xc)
-    y, h_last = _scan_noskip(p, xc, cfg, chunk=chunk)
-    return _gate_out(p, y, xc, z), {"conv": window, "ssm": h_last}
+    y, h_last = _scan_noskip(p, xc, cfg, chunk=chunk, group=group)
+    return _gate_out(p, y, xc, z, group), {"conv": window, "ssm": h_last}
+
+
+def channel_columns(in_proj: Tensor, group) -> Tensor:
+    """This rank's columns of a whole ``in_proj`` (d, 2 di): its channels'
+    of both halves, ``[x_in | z]`` (d, 2 di / tp)."""
+    n, j = distributed.axis_size(group), distributed.axis_index(group)
+    di = in_proj.shape[1] // 2
+    c = di // n
+    return torch.cat([in_proj[:, j * c:(j + 1) * c],
+                      in_proj[:, di + j * c:di + (j + 1) * c]], dim=1)
+
+
+def mesh_view(p: Params, specs: Params, ctx, group=None) -> Params:
+    """A mamba block's shards as the block computes on them
+    (``rules.compute_view`` of each): whole in pure_fsdp; under TP
+    (``group``) this rank's channels, ``in_proj`` gathered whole and cut
+    to them (``channel_columns``)."""
+    out = {}
+    for k, v in p.items():
+        if k == "in_proj" and group is not None:
+            out[k] = channel_columns(rules.gather_by_spec(v, specs[k], ctx),
+                                     group)
+        else:
+            out[k] = rules.compute_view(v, specs[k], ctx)
+    return out
 
 
 def _out_proj(p: Params) -> Tensor:

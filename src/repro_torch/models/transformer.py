@@ -32,14 +32,16 @@ the reference (whose ``init_lm`` draws none).  The encoder-decoder family
 is ``models/encdec.py``.
 
 On a ``(data, model)`` mesh (``sharding/rules.py``) a ``StackedLM`` of the
-dense family holds this rank's shard of every parameter by the
-reference's rules (``shard_params`` of ``train/step.py`` sets its
-``param_specs``), and ``hidden_states(..., ctx)`` runs each layer on
-``rules.compute_view`` of its shards, gathered inside the layer's remat
-region so a recompute gathers again: whole in ``pure_fsdp`` (the rank's
-own batch rows), the Megatron slices in ``tp_fsdp`` (``layers``' TP
-attention and MLP over the model group, the embedding vocab-parallel).
-The other families, the caches, prefill and decode stay single-device on
+dense or the ssm family (without MLA or multi-token prediction) holds
+this rank's shard of every parameter by the reference's rules
+(``shard_params`` of ``train/step.py`` sets its ``param_specs``), and
+``hidden_states(..., ctx)`` runs each layer on ``rules.compute_view`` of
+its shards, gathered inside the layer's remat region so a recompute
+gathers again: whole in ``pure_fsdp`` (the rank's own batch rows), the
+Megatron slices in ``tp_fsdp`` (``layers``' TP attention and MLP over the
+model group, ``mamba``'s channel-parallel block, the embedding
+vocab-parallel).  The moe and hybrid families, MLA and mtp (every such
+config has experts), the caches, prefill and decode stay single-device on
 a mesh (ROADMAP.md A17).
 
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
@@ -74,11 +76,15 @@ Params = dict
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
+#: the decoder LMs whose layers a mesh stores by the reference's rules
+MESH_FAMILIES = ("dense", "ssm")
+
+
 def require_mesh_layout(cfg: ArchConfig) -> None:
     """Raise for a config whose layers this port does not yet store by the
-    reference's rules on a mesh: every family but the dense one without
-    MLA or multi-token prediction."""
-    if cfg.family != "dense" or cfg.mla or cfg.mtp:
+    reference's rules on a mesh: the moe and hybrid families, MLA and
+    multi-token prediction."""
+    if cfg.family not in MESH_FAMILIES or cfg.mla or cfg.mtp:
         what = ("MLA and multi-token prediction" if cfg.mla or cfg.mtp
                 else f"the {cfg.family} family")
         raise NotImplementedError(
@@ -346,21 +352,23 @@ def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig,
 def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
                  cfg: ArchConfig, ctx=None, specs: Params | None = None
                  ) -> tuple[Tensor, Tensor | None]:
-    """One layer; on a mesh (``specs``, the layer's; the dense family)
-    its shards are gathered here first (``rules.compute_view``) and the
-    attention and MLP run tensor-parallel over ``rules.tp_group(ctx)``."""
+    """One layer; on a mesh (``specs``, the layer's; the dense and ssm
+    families) its shards are gathered here first (``rules.compute_view``;
+    a mamba block's by ``mamba.mesh_view``) and the attention, MLP and
+    mamba block run tensor-parallel over ``rules.tp_group(ctx)``."""
     mixer, ffn = kind.split("+")
     group = None
     if specs is not None:
-        p = rules.gather_tree(p, specs, ctx)
         group = rules.tp_group(ctx)
+        p = {k: M.mesh_view(v, specs[k], ctx, group) if k == "mamba"
+             else rules.gather_tree(v, specs[k], ctx) for k, v in p.items()}
     h = L.apply_norm(p["norm1"], x, cfg)
     if mixer == "attn":
         x = x + (MLA.mla_forward(p["attn"], h, positions, cfg) if cfg.mla
                  else L.attn_forward(p["attn"], h, positions, cfg,
                                      group=group))
     else:
-        x = x + M.apply_mamba(p["mamba"], h, cfg)
+        x = x + M.apply_mamba(p["mamba"], h, cfg, group=group)
     return _apply_ffn(ffn, p, x, cfg, group)
 
 
@@ -373,8 +381,8 @@ def _embed(top: Params, tokens: Tensor, cfg: ArchConfig,
            specs: Params | None = None) -> Tensor:
     """The tokens' embeddings, plus the learned position table's rows
     where ``cfg.learned_pos`` and the tree has one: positions 0..S-1, or
-    ``pos`` (B,) for a one-token step.  On a mesh (``specs``; the dense
-    family, no position table) the table's ``compute_view``:
+    ``pos`` (B,) for a one-token step.  On a mesh (``specs``; no position
+    table) the table's ``compute_view``:
     vocab-parallel under TP, whole in pure_fsdp."""
     if specs is not None:
         spec = specs["embed"]["table"]
@@ -397,9 +405,9 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     ``StackedLM``; differentiable.  With ``cfg.remat`` and grad enabled
     each layer is checkpointed: its forward runs again in the backward.
 
-    On a mesh ``params`` is a sharded ``StackedLM`` of the dense family
-    and ``tokens`` this rank's batch rows; h is its rows' states (alike
-    over the model group under TP)."""
+    On a mesh ``params`` is a sharded ``StackedLM`` of the dense or ssm
+    family and ``tokens`` this rank's batch rows; h is its rows' states
+    (alike over the model group under TP)."""
     require_ported(cfg)
     specs = None
     if rules.on_mesh(ctx):

@@ -42,10 +42,10 @@ sharded parameter's gradient arrives summed and sharded through its
 gather's backward (a reduce-scatter); the gradient of one replicated
 over a batch axis is all-reduced over it (``rules.grad_reduce_axes``);
 clipping's global norm and Adafactor's statistics sum each leaf over the
-axes that shard it (``ShardedGrads``).  The overlap island, the tree,
-rff and midx statistics, expert parallelism and the families whose
-layouts are not ported (lstm, ssm, hybrid, MLA / mtp, encdec) raise
-(ROADMAP.md A17).
+axes that shard it (``ShardedGrads``).  The recsys, lstm, dense, ssm and
+encdec families train there; the overlap island, the tree, rff and midx
+statistics, expert parallelism and the layouts not ported (the moe and
+hybrid families, MLA / mtp) raise (ROADMAP.md A17).
 
 ``serving_index_source`` is the seam between training and serving: it
 restores the newest complete checkpoint and exports a fresh serving index
@@ -133,15 +133,15 @@ def shard_params(model: torch.nn.Module, cfg: ArchConfig, ctx
                  ) -> torch.nn.Module:
     """Keep this rank's shard of every parameter of a whole model (in
     place), by ``rules.param_specs_for``, and set ``model.param_specs``.
-    A recsys model's tables are padded with zero rows to a multiple of tp
-    first (the V rule; an LM's vocab is padded by ``init_lm``).  Returns
-    the model."""
-    if cfg.family in LM_FAMILIES:
+    A recsys or lstm model's tables are padded with zero rows to a
+    multiple of tp first (the V rule; an LM's or an encoder-decoder's
+    vocab is padded by its init).  Returns the model."""
+    if cfg.family in LM_FAMILIES + ("encdec",):
         _require_heads_padded(model, cfg, ctx)
     whole = {}
     for name, p in model.named_parameters():
         t = p.detach()
-        if cfg.family == "recsys" and name in ("embed_table", "head_w"):
+        if name in PADDED_TABLES.get(cfg.family, ()):
             t = rules.pad_rows(t, ctx.tp)
         whole[name] = t
     specs = rules.param_specs_for(whole, ctx)
@@ -159,11 +159,20 @@ def set_params(model: torch.nn.Module, named: dict[str, Tensor]) -> None:
         setattr(model.get_submodule(mod_name), leaf, torch.nn.Parameter(t))
 
 
+#: family -> its tables whose rows ``shard_params`` pads to a multiple of
+#: tp (the others' inits pad them)
+PADDED_TABLES = {"recsys": ("embed_table", "head_w"),
+                 "lstm": ("embed_table", "head_w")}
+
+
 def _require_heads_padded(model: torch.nn.Module, cfg: ArchConfig, ctx
                           ) -> None:
-    """Raise unless the LM's head counts are the ones ``init_lm`` pads to
-    for the mesh (``padded_heads`` at ``ctx.tp_backbone``): the M rule
-    would otherwise split a head across ranks."""
+    """Raise unless the LM's or encoder-decoder's head counts are the ones
+    its init pads to for the mesh (``padded_heads`` at
+    ``ctx.tp_backbone``; every self and cross attention), and its vocab
+    the rows it pads to (a multiple of ``ctx.tp``): the M rule would
+    otherwise split a head across ranks, the V rule leave the vocab
+    whole."""
     hd = cfg.resolved_head_dim
     want = padded_heads(cfg, ctx.tp_backbone)
     for name, p in model.named_parameters():
@@ -175,7 +184,11 @@ def _require_heads_padded(model: torch.nn.Module, cfg: ArchConfig, ctx
                     f"{name}: {got} q / kv heads, the mesh's backbone "
                     f"(tp {ctx.tp_backbone}) needs {want}: init the model "
                     "for the mesh (init_lm(..., ctx=ctx))")
-            return
+    rows = model.get_parameter("embed.table").shape[0]
+    if rows % ctx.tp or rows - cfg.vocab_size >= ctx.tp:
+        raise ValueError(f"embed.table: {rows} rows, the mesh's head (tp "
+                         f"{ctx.tp}) needs {cfg.vocab_size} padded to a "
+                         "multiple of it: init the model for the mesh")
 
 
 def gather_params(model: torch.nn.Module, ctx) -> dict[str, Tensor]:

@@ -45,13 +45,21 @@ OPS_SHAPES = [(2, 9, 20, 4, 2, 16), (2, 20, 9, 4, 2, 16),
 #: chip_smoke.py's whisper phases: the encoder's and the decoder's
 #: self-attention, the cross attention in training, the decode check's
 #: cross attention, a ragged key length below the queries, an s_valid
-#: inside the keys at hd 128
+#: inside the keys at hd 128; and the mesh phase's shard shapes (a rank's
+#: 4 clips and 5 of 20 heads at tp 4 with the cross attention's 20 whole,
+#: one clip of 20 heads at pure_fsdp (2, 2))
 WHISPER_CHIP_SHAPES = [(8, 1500, 1500, 20, 20, 64, False),
                        (8, 448, 448, 20, 20, 64, True),
                        (8, 448, 1500, 20, 20, 64, False),
                        (4, 33, 1500, 20, 20, 64, False),
                        (2, 300, 77, 8, 2, 64, False),
-                       (2, 200, 500, 8, 2, 128, False)]
+                       (2, 200, 500, 8, 2, 128, False),
+                       (4, 1500, 1500, 5, 5, 64, False),
+                       (4, 448, 448, 5, 5, 64, True),
+                       (4, 448, 1500, 20, 20, 64, False),
+                       (1, 1500, 1500, 20, 20, 64, False),
+                       (1, 448, 448, 20, 20, 64, True),
+                       (1, 448, 1500, 20, 20, 64, False)]
 TOL = 1e-5
 
 

@@ -48,6 +48,8 @@ FIT_STEPS = 2
 #: trap as AdamW's
 STEP_OPTS = {"adamw": dict(lr=1e-2, eps=1e-3),
              "adafactor": dict(lr=1e-2, eps=1e-30, vector_eps=1e-6)}
+#: the families that train on a mesh
+MESH_FAMILIES = ("recsys", "lstm", "dense", "ssm", "encdec")
 CONFIGS = ("youtube-dnn", "ptb-lstm", "llama3-8b", "starcoder2-3b",
            "mistral-nemo-12b", "qwen2-72b", "chameleon-34b", "dbrx-132b",
            "deepseek-v3-671b", "falcon-mamba-7b", "jamba-v0.1-52b",
@@ -371,8 +373,9 @@ def _ref_leaves(jcfg, jctx) -> dict:
 @pytest.mark.parametrize("name", CONFIGS)
 def test_param_specs_match_reference(name, mesh):
     """Every leaf of the port's module (on the meta device) gets the
-    reference's spec of its path, in every mode; the recsys and dense
-    families' whole shapes are the reference's at the mesh's padding."""
+    reference's spec of its path, in every mode; the whole shapes of the
+    families that train on a mesh are the reference's at the mesh's
+    padding."""
     from jax.sharding import AbstractMesh
 
     from repro.configs import get_config as jget_config
@@ -388,7 +391,7 @@ def test_param_specs_match_reference(name, mesh):
         ctx = rules.ShardCtx(mesh=_SizesOnly(dp, tp), mode=mode)
         jctx = jmesh_ctx(AbstractMesh((dp, tp), ("data", "model")), mode)
         want = _ref_leaves(jcfg, jctx)
-        if cfg.family in ("recsys", "dense"):
+        if cfg.family in MESH_FAMILIES:
             module = api.abstract_params(cfg, max_len=64, ctx=ctx)
         else:
             module = api.abstract_params(cfg, max_len=64)
@@ -403,12 +406,12 @@ def test_param_specs_match_reference(name, mesh):
             spec = spec + (None,) * (len(shape) - len(spec))
             got = rules.spec_for(k, shape, ctx)
             assert got == spec, (mode, k, got, spec)
-            if cfg.family in ("recsys", "dense"):
+            if cfg.family in MESH_FAMILIES:
                 assert tuple(module.get_parameter(k).shape) == shape, (
                     mode, k)
             seen.add(path)
         assert seen == set(want), (mode, set(want) - seen)
-        if cfg.family in ("recsys", "dense"):
+        if cfg.family in MESH_FAMILIES:
             specs = rules.param_specs_for(module, ctx)
             assert specs == {k: rules.spec_for(
                 k, module.get_parameter(k).shape, ctx) for k in names}
@@ -545,12 +548,12 @@ def test_shard_and_gather_by_spec(runs, mesh):
 def test_family_gates_name_a17():
     """The families whose layouts are not ported raise on a mesh before
     any collective, naming A17; a tied or untied dense config and recsys
-    pass the gate."""
+    pass the gate (the lstm, ssm and encdec families too:
+    ``test_torch_mesh_families.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    for name in ("ptb-lstm", "falcon-mamba-7b", "jamba-v0.1-52b",
-                 "deepseek-v3-671b", "whisper-large-v3", "dbrx-132b"):
+    for name in ("jamba-v0.1-52b", "deepseek-v3-671b", "dbrx-132b"):
         with pytest.raises(NotImplementedError, match="A17"):
             api.require_mesh_layout(get_config(name).reduced())
     with pytest.raises(NotImplementedError, match="A17"):

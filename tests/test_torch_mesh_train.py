@@ -227,8 +227,7 @@ def _raises(ctx, tmp: str) -> dict:
             tmp, cfg, ctx, opt, device="cpu"),
         **{f"family {name}": lambda name=name: step.make_train_step(
             _cfg(name), ctx, opt)
-           for name in ("ptb-lstm", "falcon-mamba-7b", "jamba-v0.1-52b",
-                        "deepseek-v3-671b", "whisper-large-v3")},
+           for name in ("jamba-v0.1-52b", "deepseek-v3-671b")},
         "mtp": lambda: step.make_train_step(
             _cfg("llama3-8b", mtp=True), ctx, opt),
     }
