@@ -375,7 +375,26 @@ result line):
                  rank's failure fails the phase.  Since phase 24 the
                  ranks hold youtube-dnn's tables by the reference's rules
                  (the head's and the watch embedding's rows over model,
-                 their features over data).
+                 their features over data).  The same for
+                 tree-quadratic, rff and midx (MESH_SAMPLERS): (a) one
+                 fit step each on the NCCL (1, 1) mesh, launches exact,
+                 its refreshed statistics bitwise build_stats on the
+                 unsharded head; (b) on every rank, each family's kernels
+                 at the rank's shard shapes (the tree's zstats,
+                 block_scores on its dense levels and leaf_scores; rff's
+                 rff_features and leaf_scores' dot mode; midx's
+                 midx_pair_masses codes entry and midx_member_scores)
+                 against their plain versions, MESH_STEPS fit steps
+                 (exact launches, falling pool loss, step ms,
+                 collectives) and the eq. 2 contract per shard (logq =
+                 the shard's all_class_logq - log tp within 1e-4, no id
+                 past its n_valid); at (2, 2) the overlap island
+                 (MESH_OVERLAP: midx, cadence 2, k 1) beside the same
+                 steps in sync mode: swaps counted, each bitwise the main
+                 stream's rebuild of its snapshots, its launches apart,
+                 its only collective the snapshot's all-gather over data
+                 on a cadence step, each step's collectives the sync
+                 step's.
  24. mesh dense — the backbone's storage layouts on the mesh
                  (``phase_mesh_layouts``), starcoder2-3b at full width and
                  MESH_DENSE_LAYERS = 4 of its 30 layers: (a) NCCL on a
@@ -453,7 +472,9 @@ follows the engine's batching), each path's count under
 "jamba-v0.1-52b training", phase 21's as "deepseek-v3-671b" and
 "deepseek-v3-671b training", phase 22's as "whisper-large-v3" and
 "whisper-large-v3 training", phase 23's as "mesh nccl (1, 1)", "mesh gloo
-(1, 4)" and "mesh gloo (2, 2)", phase 24's as "mesh dense tp_fsdp (1, 4)",
+(1, 4)" and "mesh gloo (2, 2)" (block-quadratic), each of those followed
+by " <family>" for MESH_SAMPLERS, and "mesh gloo (2, 2) overlap midx",
+phase 24's as "mesh dense tp_fsdp (1, 4)",
 "mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", phase 25's
 as "mesh <config> <mode> (dp, tp)", each gloo mesh summed over its
 ranks); the other shapes' numbers under serving_*,
@@ -496,6 +517,7 @@ import threading
 import time
 import types
 from pathlib import Path
+from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -503,6 +525,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.utils.checkpoint  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.autograd.profiler_util import Interval  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
@@ -527,7 +550,10 @@ from repro_torch.core.sampled_softmax import (  # noqa: E402
     fused_plan,
 )
 from repro_torch.bench import bias_vs_samples  # noqa: E402
-from repro_torch.core.samplers import sampler_from_config  # noqa: E402
+from repro_torch.core.samplers import (  # noqa: E402
+    SamplerState,
+    sampler_from_config,
+)
 from repro_torch.data.pipeline import (  # noqa: E402
     ShardedBatchIterator,
     batch_iterator_for,
@@ -542,6 +568,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.leaf_scores import leaf_scores  # noqa: E402
 from repro_torch.kernels.midx_scores import (  # noqa: E402
+    midx_list_masses,
     midx_member_scores,
     midx_pair_masses,
 )
@@ -636,10 +663,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def device_events(prof) -> list:
+class DeviceEvent(NamedTuple):
+    """A device activity of a trace: its name and its interval in us, as
+    a ``FunctionEvent`` has them."""
+
+    name: str
+    time_range: Interval
+
+
+def device_events(prof) -> list[DeviceEvent]:
     """The device-side activities of a torch.profiler trace: kernels,
-    memsets and copies (the aten ops that launch them are host events)."""
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    memsets and copies (the aten ops that launch them are host events),
+    read off the profiler's raw kineto events, times from the first one's
+    start.  ``prof.events()`` first builds a Python ``FunctionEvent`` of
+    every event the trace holds: on the H100 that took 96 of the kernel
+    checks' 181 s, more than the traced calls and the profiler's start and
+    stop together."""
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    t0 = min((e.start_ns() for e in evs), default=0)
+    return [DeviceEvent(e.name(), Interval((e.start_ns() - t0) / 1e3,
+                                           (e.end_ns() - t0) / 1e3))
+            for e in evs]
 
 
 def busy_us(events) -> float:
@@ -651,6 +697,29 @@ def busy_us(events) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+#: where the timing helpers spend the script's wall time, by helper:
+#: calls, profiler traces taken, seconds in all, seconds inside the traces
+#: (the profiler's start and stop included), seconds of the timed calls
+#: themselves (warm-up, reps and brackets), seconds reading the traces'
+#: events (``timing_report``)
+TIMING: dict[str, dict[str, float]] = {}
+
+
+def timing_add(name: str, **amounts: float) -> None:
+    row = TIMING.setdefault(name, dict.fromkeys(
+        ("calls", "traces", "s", "trace_s", "calls_s", "events_s"), 0.0))
+    for k, v in amounts.items():
+        row[k] += v
+
+
+def timing_report(stage: str) -> None:
+    """Log TIMING for the stage just ended, then start it afresh."""
+    rows = {k: {n: round(v, 3) for n, v in row.items()}
+            for k, row in TIMING.items()}
+    log(f"[time] {stage}: timing helpers {rows}")
+    TIMING.clear()
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -670,6 +739,7 @@ def device_ms(fn, reps: int = REPS) -> float:
     calls held none), the time per call is
     taken by CUDA events around single calls instead, and the log says
     so."""
+    t_start = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -679,7 +749,9 @@ def device_ms(fn, reps: int = REPS) -> float:
         time.sleep(GAP_S)
 
     for attempt in range(3):
+        t_trace = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_calls = time.perf_counter()
             fn()
             pause()
             for _ in range(reps):
@@ -687,8 +759,14 @@ def device_ms(fn, reps: int = REPS) -> float:
             pause()
             fn()
             torch.cuda.synchronize()
+            t_calls = time.perf_counter() - t_calls
+        t_events = time.perf_counter()
         events = sorted(device_events(prof),
                         key=lambda e: e.time_range.start)
+        t_events = time.perf_counter() - t_events
+        timing_add("device_ms", traces=1,
+                   trace_s=time.perf_counter() - t_trace - t_events,
+                   calls_s=t_calls, events_s=t_events)
         stretches, end = [], -math.inf
         for e in events:
             if not stretches or e.time_range.start - end >= 0.8 * GAP_S * 1e6:
@@ -705,13 +783,16 @@ def device_ms(fn, reps: int = REPS) -> float:
     else:
         ms = event_ms(fn, reps, 1)
         log(f"  no whole trace in 3: {ms} ms per call by CUDA events")
+        timing_add("device_ms", calls=1, s=time.perf_counter() - t_start)
         return ms
+    timing_add("device_ms", calls=1, s=time.perf_counter() - t_start)
     return busy_us(middle) / reps / 1e3
 
 
 def event_ms(fn, reps: int = REPS, calls: int = EVENT_CALLS) -> float:
     """Time per call as a caller sees it, host work included: CUDA events
     around ``calls`` back-to-back calls, median of ``reps``, per call."""
+    t_start = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -725,6 +806,7 @@ def event_ms(fn, reps: int = REPS, calls: int = EVENT_CALLS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    timing_add("event_ms", calls=1, s=time.perf_counter() - t_start)
     return statistics.median(times)
 
 
@@ -732,12 +814,15 @@ def device_split(fn, reps: int = REPS) -> dict[str, float]:
     """Device ms per call of each kernel ``fn`` launches, by name
     (torch.profiler's device activities over ``reps`` calls, summed per
     name and divided by ``reps``): where an entry point's time goes."""
+    t_start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    timing_add("device_split", calls=1, traces=1,
+               s=time.perf_counter() - t_start)
     split: dict[str, float] = {}
     for e in device_events(prof):
         found = re.search(r"(\w+_kernel)\b", e.name)
@@ -1799,20 +1884,24 @@ def phase_fresh(cfg) -> None:
             f"ln(n) = {math.log(cfg.vocab_size)}")
 
 
-def sampler_launches(cfg) -> tuple[dict[str, int], dict[str, int]]:
+def sampler_launches(cfg, tp: int = 1
+                     ) -> tuple[dict[str, int], dict[str, int]]:
     """(launches of one refresh, of one ``sample_batch``) of ``cfg``'s
-    sampler at full width.  The block sampler scores its root once
+    sampler at full width, on one shard of ``tp`` (its vocab / tp rows,
+    m / tp draws).  The block sampler scores its root once
     (block_scores) and the drawn blocks once (leaf_scores); the tree's
     descent scores each level with at most ``dense_cap = max(256, 4m)``
     nodes through block_scores: levels 1-9 (2 to 512 nodes) of the
-    512-leaf tree at full width; midx rebuilds with no hand-written
+    512-leaf tree at full width, levels 1-7 of a tp 4 shard's 128 leaves,
+    1-8 of a tp 2 shard's 256; midx rebuilds with no hand-written
     kernel.  The batch-shared family refreshes through zstats and samples
     by einsums (no kernel); tapas refreshes and draws its pool as its base
     does and resamples by a product; the oracles rebuild and score in plain
     products."""
     if cfg.sampler == "tapas":
         return sampler_launches(dataclasses.replace(cfg,
-                                                    sampler=cfg.tapas_base))
+                                                    sampler=cfg.tapas_base),
+                                tp)
     if cfg.sampler == "block-quadratic-shared":
         return {"zstats": 1}, {}
     if cfg.sampler in ORACLE_FAMILIES:
@@ -1820,10 +1909,10 @@ def sampler_launches(cfg) -> tuple[dict[str, int], dict[str, int]]:
     if cfg.sampler == "block-quadratic":
         return {"zstats": 1}, {"block_scores": 1, "leaf_scores": 1}
     if cfg.sampler == "tree-quadratic":
-        leaves = 1 << (-(-cfg.vocab_size // cfg.sampler_block) - 1
-                       ).bit_length()
+        v_l = rules.vocab_shard(cfg.vocab_size, tp)
+        leaves = 1 << (-(-v_l // cfg.sampler_block) - 1).bit_length()
         dense = sum(1 for lvl in range(1, leaves.bit_length())
-                    if (1 << lvl) <= max(256, 4 * cfg.m_negatives))
+                    if (1 << lvl) <= max(256, 4 * cfg.m_negatives // tp))
         return {"zstats": 1}, {"block_scores": dense, "leaf_scores": 1}
     if cfg.sampler == "rff":
         return {"rff_features": 1}, {"leaf_scores": 1}
@@ -1833,14 +1922,16 @@ def sampler_launches(cfg) -> tuple[dict[str, int], dict[str, int]]:
 
 
 def expected_launches(cfg, steps: int = TRAIN_STEPS,
-                      refreshes: int | None = None) -> dict[str, int]:
-    """Exact launches of ``steps`` steps of ``fit`` with a kernel sampler:
+                      refreshes: int | None = None, tp: int = 1
+                      ) -> dict[str, int]:
+    """Exact launches of ``steps`` steps of ``fit`` with a kernel sampler
+    (on a rank of a mesh of model width ``tp``):
     ``init_train_state`` builds the statistics once and every step
     refreshes them (refresh every step; ``refreshes`` overrides the
     count), samples once and runs the fused head forward and backward
     once (``sampler_launches``) — but for shared (m,) negatives, which take
     the loss's einsum path."""
-    refresh, sample = sampler_launches(cfg)
+    refresh, sample = sampler_launches(cfg, tp)
     counts = dict.fromkeys(REPLACES, 0)
     head = 0 if sampler_from_config(cfg).shares_negatives else steps
     counts.update(fused_lse=head, fused_lse_bwd=head)
@@ -5661,6 +5752,13 @@ MESH_TIMEOUT_S = 300
 #: multiplies summation-order differences by up to lr / eps where
 #: |g| << eps
 MESH_STEP_OPT = ("sgd", 1e-2)
+#: the sampler families phase 23 trains on each mesh beside
+#: block-quadratic: each rank builds, refreshes, samples and corrects from
+#: its own vocab shard
+MESH_SAMPLERS = FAMILIES
+#: the overlap island on the mesh: (family, mesh, cadence, k); at (2, 2)
+#: the head's feature dim is sharded over data, so the snapshot gathers it
+MESH_OVERLAP = ("midx", (2, 2), 2, 1)
 #: the directory the rank processes write their logs and results to
 MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
 #: the command of a rank process, before its ``--mesh-*`` arguments
@@ -5799,6 +5897,221 @@ def mesh_kernel_check(ctx, cfg, w, h) -> dict[str, float]:
     return errs
 
 
+def mesh_sampler_kernel_check(ctx, cfg, w, h) -> dict[str, float]:
+    """The kernels ``cfg``'s sampler (tree-quadratic, rff or midx)
+    launches, at this rank's shard shapes, each against its plain version
+    within MESH_RTOL (phase 3's ``compare``): the statistics are the
+    sampler's own build from the rank's head rows with its n_valid
+    (``build_stats``), the queries its data block's T tokens, the leaf or
+    list steps T m/tp draws among the live leaves or lists (the last live
+    one holds padding rows).  The tree: zstats over its leaves,
+    block_scores over each level the descent scores densely (at most
+    max(256, 4 m/tp) nodes), leaf_scores; rff: rff_features (against the
+    float64 evaluation of its plain version, as phase 8 holds it) and
+    leaf_scores' dot mode; midx: midx_pair_masses' codes entry (empty
+    lists exactly 0) and midx_member_scores."""
+    sampler = sampler_from_config(cfg)
+    n_valid = step.shard_n_valid(cfg, ctx)
+    rows = rules.shard_rows(w, ctx)
+    const = sampler.init_const(torch.Generator(DEV).manual_seed(7),
+                               rows.shape[1])
+    st = sampler.hydrate(SamplerState(
+        sampler.build_stats(rows, n_valid, const), const), n_valid)
+    alpha, tp = cfg.sampler_alpha, ctx.tp
+    m_l = cfg.m_negatives // tp
+    hq = rules.batch_rows(h, ctx)
+    t = hq.shape[0]
+    hg = hq.repeat_interleave(m_l, dim=0)
+    gen = torch.Generator(DEV).manual_seed(31)
+    tag = f"rank ({ctx.data_index}, {ctx.model_index}) {cfg.sampler}"
+
+    def drawn(table):
+        live = -(-n_valid // table.shape[1])
+        pick = torch.randint(0, live, (t * m_l,), generator=gen, device=DEV)
+        pick[::97] = live - 1
+        return table[pick]
+
+    errs = {}
+    if cfg.sampler == "tree-quadratic":
+        ts = st["stats"]
+        wq = ts.wq
+        errs["zstats"] = compare(f"{tag} zstats {tuple(wq.shape)}",
+                                 zstats(wq), ref.zstats_ref(wq))
+        err = 0.0
+        for z, c in zip(ts.levels_z[1:], ts.levels_cnt[1:]):
+            if z.shape[0] <= max(256, 4 * m_l):
+                err = max(err, compare(
+                    f"{tag} block_scores T={t} N={z.shape[0]}",
+                    block_scores(hq, z, c, alpha=alpha),
+                    ref.block_scores_ref(hq, z, c, alpha)))
+        errs["block_scores"] = err
+        r = drawn(wq)
+        errs["leaf_scores"] = compare(
+            f"{tag} leaf_scores {tuple(r.shape)}",
+            leaf_scores(hg, r, alpha=alpha),
+            ref.leaf_scores_ref(hg, r, alpha))
+    elif cfg.sampler == "rff":
+        fs, omega = st["stats"], st["proj"]
+        mask = (torch.arange(fs.n_pad, device=DEV) < n_valid).float(
+            ).reshape(fs.num_leaves, fs.leaf_size)
+        shift = fs.logshift
+        errs["rff_features"] = compare(
+            f"{tag} rff_features {tuple(fs.wq.shape)} D={omega.shape[0]} "
+            f"(against float64)",
+            rff_features(fs.wq, omega, mask, shift, tau=cfg.rff_tau),
+            ref.rff_features_ref(fs.wq, omega, mask, shift, cfg.rff_tau,
+                                 torch.float64), MESH_RTOL)
+        r = drawn(fs.wq)
+        errs["leaf_scores"] = compare(
+            f"{tag} leaf_scores dot {tuple(r.shape)}",
+            leaf_scores(hg, r, square=False), ref.leaf_dots_ref(hg, r),
+            MESH_RTOL)
+    else:
+        got = midx_list_masses(hq, st.c1, st.c2, st.codes, st.cnt,
+                               alpha=alpha)
+        errs["midx_pair_masses"] = compare(
+            f"{tag} midx_pair_masses codes entry T={t} P={st.num_lists} "
+            f"({int((st.cnt == 0).sum())} empty)", got,
+            ref.midx_list_masses_ref(hq, st.c1, st.c2, st.codes, st.cnt,
+                                     alpha), MESH_RTOL)
+        if bool(got[:, st.cnt == 0].any()):
+            raise AssertionError(f"{tag}: an empty list has mass")
+        r = drawn(st.wq)
+        errs["midx_member_scores"] = compare(
+            f"{tag} midx_member_scores {tuple(r.shape)}",
+            midx_member_scores(hg, r, alpha=alpha),
+            ref.midx_member_scores_ref(hg, r, alpha), MESH_RTOL)
+    return errs
+
+
+def mesh_draw_logq(cfg, ctx, state) -> dict:
+    """The eq. 2 exactness contract on this rank (``check_draw_logq``,
+    held per shard): on 4 held-out queries of its data block, each of the
+    m/tp draws ``sharded_negative_sample`` returns has logq equal to its
+    shard's ``all_class_logq`` at the drawn id, less log tp, within
+    LOGQ_TOL, and no id is at or past the shard's n_valid."""
+    sampler = sampler_from_config(cfg)
+    n_valid = step.shard_n_valid(cfg, ctx)
+    held = next(batch_iterator_for(cfg, ctx, 4 * ctx.dp, 1, seed=1000,
+                                   device=DEV))
+    gen = torch.Generator(DEV).manual_seed(17)
+    with torch.no_grad():
+        h, _, _ = api.backbone_hidden(state.params, held, cfg, ctx)
+        head = api.head_table(state.params, cfg, ctx).detach()
+        rt = sampler.island_runtime(state.sampler_state, head, n_valid)
+        ids, logq = distributed.sharded_negative_sample(
+            sampler, rt, h, cfg.m_negatives, gen, ctx.model_group)
+        worst = 0.0
+        for t in range(h.shape[0]):
+            oracle = sampler.all_class_logq(rt, h[t]) - math.log(ctx.tp)
+            worst = max(worst, float((logq[t] - oracle[ids[t]]).abs().max()))
+    top = int(ids.max())
+    if not torch.isfinite(logq).all() or top >= n_valid:
+        raise AssertionError(f"{cfg.sampler}: a draw has a non-finite logq "
+                             f"or an id at or past n_valid {n_valid}")
+    if not worst <= LOGQ_TOL:
+        raise AssertionError(f"{cfg.sampler}: logq differs from the shard's "
+                             f"all_class_logq - log tp by {worst}")
+    return {"queries": h.shape[0], "draws": ids.shape[1], "worst": worst,
+            "max_id": top, "n_valid": n_valid}
+
+
+def mesh_overlap(cfg, ctx, tag: str) -> dict:
+    """The overlap island on the mesh (MESH_OVERLAP: midx at cadence 2,
+    k 1), driven by hand over MESH_STEPS steps of the pool beside the same
+    steps in sync mode, each step's collectives by group counted.  Gates:
+    a swap one step after each dispatch (the island's count too); each
+    swapped-in state bitwise equal to the main stream's rebuild
+    (``make_refresh_fn``) of the snapshots it was dispatched with; the
+    island's launches apart from the step's (a midx rebuild launches no
+    hand-written kernel) and the step's exact; the island issues one
+    all-gather over data (the snapshot's, of the head's rows) on a cadence
+    step and nothing else, and each step's collectives with the island's
+    equal the sync step's."""
+    family, _, cadence, k = MESH_OVERLAP
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    data = batch_iterator_for(cfg, ctx, TRAIN_BATCH, 1, seed=0, device=DEV)
+    pool = [next(data) for _ in range(MESH_POOL)]
+    out = {}
+    for mode in ("sync", "overlap"):
+        c = dataclasses.replace(cfg, sampler=family, refresh_mode=mode,
+                                sampler_refresh_every=cadence,
+                                refresh_stale_steps=k)
+        state = step.init_train_state(torch.Generator(DEV).manual_seed(0), c,
+                                      ctx, opt, device=DEV)
+        step_fn = step.make_train_step(c, ctx, opt)
+        island = loop.RefreshIsland(c, ctx, DEV) if mode == "overlap" \
+            else None
+        if island is not None:
+            state = island.prime(state)
+        sync()
+        kernels.reset_launch_counts()
+        steps, block_ms, island_coll = [], [], []
+        sent, swapped = {}, {}  # step -> snapshots; step -> state swapped in
+        for i in range(MESH_STEPS):
+            distributed.reset_collective_counts()
+            if island is not None:
+                before = state.sampler_state
+                state, rm = island.before_step(i, state)
+                island_coll.append(
+                    distributed.collective_counts(by_group=True))
+                distributed.reset_collective_counts()
+                block_ms.append(rm["refresh_block_ms"])
+                if state.sampler_state is not before:
+                    swapped[i] = state.sampler_state
+                if island._inflight is not None and island._inflight[0] == i:
+                    sent[i] = island._inflight[1:3]
+            state, metrics = step_fn(state, pool[i % MESH_POOL],
+                                     loop.step_generator(0, i, DEV))
+            float(metrics["loss"])
+            steps.append(distributed.collective_counts(by_group=True))
+        sync()
+        counts = kernels.launch_counts()
+        out[mode] = {"steps": steps, "counts": counts}
+        if island is None:
+            continue
+        swaps = sorted(swapped)
+        for i, got in swapped.items():  # rebuilt on the main stream
+            want = step.make_refresh_fn(c, ctx)(*sent[i - k])
+            check_bitwise(f"{tag} overlap swap at step {i}", got.stats,
+                          want.stats)
+        want_swaps = [i for i in range(MESH_STEPS) if i % cadence == k]
+        if swaps != want_swaps or island.swaps != len(want_swaps):
+            raise AssertionError(f"{tag} overlap: swaps at {swaps} (island "
+                                 f"count {island.swaps}) != {want_swaps}")
+        if any(island.launches.values()):
+            raise AssertionError(f"{tag} overlap: the island launched "
+                                 f"{island.launches}")
+        step_counts = {n: v - island.launches[n] for n, v in counts.items()}
+        want = expected_launches(c, MESH_STEPS, refreshes=0, tp=ctx.tp) \
+            if DEV.type == "cuda" else dict.fromkeys(REPLACES, 0)
+        if step_counts != want:
+            raise AssertionError(f"{tag} overlap: step launches "
+                                 f"{step_counts} != {want}")
+        v_l = rules.vocab_shard(cfg.vocab_size, ctx.tp)
+        gather = {"all_gather data": {
+            "calls": 1, "bytes": 4 * v_l * api.hidden_width(cfg)}}
+        for i, got in enumerate(island_coll):
+            if got != (gather if i % cadence == 0 else {}):
+                raise AssertionError(f"{tag} overlap: the island's "
+                                     f"collectives at step {i}: {got}")
+        for i, (got, snap) in enumerate(zip(steps, island_coll)):
+            total = {key: dict(v) for key, v in got.items()}
+            for key, v in snap.items():
+                e = total.setdefault(key, {"calls": 0, "bytes": 0})
+                e["calls"] += v["calls"]
+                e["bytes"] += v["bytes"]
+            if total != out["sync"]["steps"][i]:
+                raise AssertionError(
+                    f"{tag} overlap: step {i}'s collectives with the "
+                    f"island's {total} != the sync step's "
+                    f"{out['sync']['steps'][i]}")
+        out["overlap"].update(swaps=swaps, block_ms=block_ms,
+                              island_launches=dict(island.launches),
+                              island_collectives=island_coll)
+    return out
+
+
 def mesh_fit(cfg, ctx, tag: str) -> dict:
     """MESH_STEPS fit steps on a pool of MESH_POOL batches (the rank's
     rows), launches exact, the pool loss falling; then the step's ms over
@@ -5815,8 +6128,8 @@ def mesh_fit(cfg, ctx, tag: str) -> dict:
     sync()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = expected_launches(cfg, MESH_STEPS) if DEV.type == "cuda" \
-        else dict.fromkeys(REPLACES, 0)
+    want = expected_launches(cfg, MESH_STEPS, tp=ctx.tp) \
+        if DEV.type == "cuda" else dict.fromkeys(REPLACES, 0)
     if counts != want:
         raise AssertionError(f"{tag}: launches {counts} != {want}")
     losses = res.losses
@@ -5894,6 +6207,9 @@ def mesh_checks(ctx) -> dict:
     tag = f"mesh ({ctx.dp}, {ctx.tp}) rank ({ctx.data_index}, " \
           f"{ctx.model_index})"
     kern = mesh_kernel_check(ctx, cfg, w, h)
+    fams = {fam: {"kernels": mesh_sampler_kernel_check(
+                ctx, dataclasses.replace(cfg, sampler=fam), w, h)}
+            for fam in MESH_SAMPLERS}
     full = mesh_full_check(ctx, w, h, labels, cfg.abs_softmax)
     gate(f"{tag} full softmax", full, MESH_RTOL)
     sampled = mesh_sampled_check(ctx, w, h, labels, cfg.m_negatives,
@@ -5902,11 +6218,22 @@ def mesh_checks(ctx) -> dict:
     del w, h, labels
     fit = mesh_fit(cfg, ctx, tag)
     dec = mesh_decode(cfg, ctx, fit.pop("state"))
-    return {"kernels": kern, "full": full, "sampled": sampled, "fit": fit,
-            "decode": dec,
-            "v_l": rules.vocab_shard(n, ctx.tp),
-            "blocks": -(-rules.vocab_shard(n, ctx.tp) // cfg.sampler_block),
-            "n_valid": step.shard_n_valid(cfg, ctx)}
+    for fam, got in fams.items():
+        fcfg = dataclasses.replace(cfg, sampler=fam)
+        t0 = time.perf_counter()
+        got["fit"] = mesh_fit(fcfg, ctx, f"{tag} {fam}")
+        got["logq"] = mesh_draw_logq(fcfg, ctx, got["fit"].pop("state"))
+        got["s"] = time.perf_counter() - t0
+    out = {"kernels": kern, "full": full, "sampled": sampled, "fit": fit,
+           "decode": dec, "samplers": fams,
+           "v_l": rules.vocab_shard(n, ctx.tp),
+           "blocks": -(-rules.vocab_shard(n, ctx.tp) // cfg.sampler_block),
+           "n_valid": step.shard_n_valid(cfg, ctx)}
+    if (ctx.dp, ctx.tp) == MESH_OVERLAP[1]:
+        t0 = time.perf_counter()
+        out["overlap"] = mesh_overlap(cfg, ctx, tag)
+        out["overlap"]["s"] = time.perf_counter() - t0
+    return out
 
 
 def mesh_rank(rank: int, world: int, addr: str, out: Path,
@@ -5951,12 +6278,13 @@ def mesh_rank(rank: int, world: int, addr: str, out: Path,
     return 0
 
 
-def phase_mesh_nccl(cfg) -> dict[str, int]:
+def phase_mesh_nccl(cfg) -> dict[str, dict[str, int]]:
     """Phase 23a: NCCL on a (1, 1) mesh in this process: one fit step with
     estimator "full" and MESH_STEP_OPT equal to the mesh=None step within
     MESH_STEP_RTOL (the loss, and every parameter on its own over its own
-    max), and a block-quadratic step's launches exact.  Returns that
-    step's launches."""
+    max), a block-quadratic step's launches exact, and each of
+    MESH_SAMPLERS (``mesh_nccl_family``).  Returns each step's launches by
+    path."""
     backend = "nccl" if DEV.type == "cuda" else "gloo"
     launch_mesh.init_distributed(
         backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
@@ -6001,9 +6329,51 @@ def phase_mesh_nccl(cfg) -> dict[str, int]:
             f"included) in {time.perf_counter() - t0:.3f} s, launches "
             f"{ {k: v for k, v in counts.items() if v} }, collectives "
             f"{distributed.collective_counts()}")
-        return counts
+        by_path = {"mesh nccl (1, 1)": counts}
+        for fam in MESH_SAMPLERS:
+            by_path[f"mesh nccl (1, 1) {fam}"] = mesh_nccl_family(
+                dataclasses.replace(cfg, sampler=fam), ctx, backend)
+        return by_path
     finally:
         torch.distributed.destroy_process_group()
+
+
+def mesh_nccl_family(cfg, ctx, backend: str) -> dict[str, int]:
+    """Phase 23a for one of MESH_SAMPLERS: one fit step on the (1, 1)
+    mesh, its launches exact (``expected_launches``), and the statistics
+    it refreshed bitwise equal to ``build_stats`` on the unsharded head
+    at the step's start (the unsharded init from the same seed) with the
+    mesh state's constants, on the card.  Returns the step's launches."""
+    opt = make_optimizer("adamw", 1e-2, weight_decay=0.0)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, ctx, opt, batch_iterator_for(
+        cfg, ctx, TRAIN_BATCH, 1, seed=0, device=DEV), 1, seed=0,
+        log_every=0, device=DEV)
+    sync()
+    s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(cfg, 1) if DEV.type == "cuda" \
+        else dict.fromkeys(REPLACES, 0)
+    if counts != want:
+        raise AssertionError(f"{backend} (1, 1) {cfg.sampler} step: "
+                             f"launches {counts} != {want}")
+    got = res.state.sampler_state
+    init = step.init_train_state(torch.Generator(DEV).manual_seed(0), cfg,
+                                 None, opt, device=DEV)
+    with torch.no_grad():
+        head = api.head_table(init.params, cfg).detach()
+        stats = sampler_from_config(cfg).build_stats(head, cfg.vocab_size,
+                                                     got.const)
+    check_bitwise(f"{backend} (1, 1) {cfg.sampler} refreshed statistics",
+                  got.stats, stats)
+    log(f"[mesh] {backend} (1, 1): a {cfg.sampler} fit step (init "
+        f"included) in {s:.3f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; its refreshed "
+        f"statistics {[(k, tuple(v.shape)) for k, v in stats.items()]} "
+        f"bitwise equal to build_stats on the unsharded head")
+    return counts
 
 
 def run_mesh_ranks(phase: str, timeout_s: float = MESH_TIMEOUT_S
@@ -6046,21 +6416,26 @@ def run_mesh_ranks(phase: str, timeout_s: float = MESH_TIMEOUT_S
 
 def phase_mesh() -> dict[str, dict[str, int]]:
     """Phase 23 (youtube-dnn at full width: 100,000 items, tower (256,
-    128), T 256, m 128, fp32, block-quadratic in blocks of 256, clip +
-    AdamW): 23a over NCCL in this process (``phase_mesh_nccl``); 23b
-    MESH_WORLD rank processes on the card over gloo, each mesh of
-    MESH_SHAPES in turn, every rank: the full softmax's loss and
+    128), T 256, m 128, fp32, block-quadratic in blocks of 256, and each of
+    MESH_SAMPLERS, clip + AdamW): 23a over NCCL in this process
+    (``phase_mesh_nccl``, ``mesh_nccl_family``); 23b MESH_WORLD rank
+    processes on the card over gloo, each mesh of MESH_SHAPES in turn,
+    every rank: the sampler kernels of every family at the rank's shard
+    shapes against their plain versions, the full softmax's loss and
     gradients and the sampled softmax's at given negatives against the
-    unsharded loss on the card (MESH_RTOL), MESH_STEPS fit steps (exact
-    launches, falling pool loss), step ms and collectives, the trained
-    head's sharded index decoded at full beam through the engine equal to
-    the sharded and the dense top-k.  The kernels were built by phase 2,
+    unsharded loss on the card (MESH_RTOL), MESH_STEPS fit steps of each
+    family (exact launches, falling pool loss), step ms and collectives,
+    the eq. 2 contract of each family's draws on the rank's shard, the
+    trained head's sharded index decoded at full beam through the engine
+    equal to the sharded and the dense top-k, and at MESH_OVERLAP's mesh
+    the overlap island (``mesh_overlap``).  The kernels were built by
+    phase 2,
     so the ranks only load them.  Any rank's failure or timeout fails the
     phase.  Returns the launches of each path (a mesh's summed over its
     ranks)."""
     cfg = get_config("youtube-dnn")
     t_start = time.perf_counter()
-    by_path = {"mesh nccl (1, 1)": phase_mesh_nccl(cfg)}
+    by_path = phase_mesh_nccl(cfg)
     ranks = run_mesh_ranks("23")
     for dp, tp in MESH_SHAPES:
         key = f"{dp}x{tp}"
@@ -6092,6 +6467,42 @@ def phase_mesh() -> dict[str, dict[str, int]]:
                 f"{m['decode']['launches']}; the mesh's checks "
                 f"{m['s']:.3f} s")
             add_counts(total, fit["launches"])
+            for fam, got in m["samplers"].items():
+                f_fit, lq = got["fit"], got["logq"]
+                log(f"[mesh] gloo ({dp}, {tp}) rank {r} {fam}: kernels at "
+                    f"the shard's shapes, max abs err {got['kernels']}; "
+                    f"{MESH_STEPS} fit steps in {f_fit['fit_s']:.3f} s, "
+                    f"pool loss {f_fit['first']} -> {f_fit['last']}, "
+                    f"launches "
+                    f"{ {k: v for k, v in f_fit['launches'].items() if v} }"
+                    f"; step ms {[round(x, 3) for x in f_fit['step_ms']]} "
+                    f"(median {statistics.median(f_fit['step_ms']):.3f}); "
+                    f"one step's collectives {f_fit['step_collectives']}; "
+                    f"eq. 2 on {lq['queries']} queries x {lq['draws']} "
+                    f"draws: max |logq - (all_class_logq - log tp)| "
+                    f"{lq['worst']}, max id {lq['max_id']} (n_valid "
+                    f"{lq['n_valid']}); {got['s']:.3f} s")
+                add_counts(by_path.setdefault(
+                    f"mesh gloo ({dp}, {tp}) {fam}",
+                    dict.fromkeys(REPLACES, 0)), f_fit["launches"])
+            if "overlap" in m:
+                ov = m["overlap"]
+                family, _, cadence, k = MESH_OVERLAP
+                log(f"[mesh] gloo ({dp}, {tp}) rank {r} overlap island "
+                    f"({family}, cadence {cadence}, k {k}, {MESH_STEPS} "
+                    f"steps): swaps at {ov['overlap']['swaps']}, each "
+                    f"bitwise the main stream's rebuild of its snapshots; "
+                    f"island launches "
+                    f"{ {k: v for k, v in ov['overlap']['island_launches'].items() if v} } "
+                    f"apart from the step's (exact); the island's "
+                    f"collectives a step {ov['overlap']['island_collectives']}"
+                    f" (the snapshot's all-gather over data on a cadence "
+                    f"step), each step's with them equal to the sync "
+                    f"step's; block ms {ov['overlap']['block_ms']}; "
+                    f"{ov['s']:.3f} s")
+                add_counts(by_path.setdefault(
+                    f"mesh gloo ({dp}, {tp}) overlap {family}",
+                    dict.fromkeys(REPLACES, 0)), ov["overlap"]["counts"])
         by_path[f"mesh gloo ({dp}, {tp})"] = total
     log(f"[mesh] rank peak memory GB "
         f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}; phase 23 "
@@ -7108,21 +7519,27 @@ def main() -> int:
     lap("device and build (phases 1-2)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     serving_rows = phase_kernels(gen)
+    lap("phase 3 at the serving shapes")
     cfg = get_config("youtube-dnn")
     rows, fused_shapes = phase_kernels_training(gen, cfg)
+    lap("phase 3 at the training shapes")
     llama_rows, llama_shapes = phase_kernels_llama(gen)
     rows.update(llama_rows)
+    lap("phase 10")
     # its own generator: the other phases draw the inputs they drew
     # before phase 18 existed
     bwd_rows, bwd_shapes = phase_flash_bwd(
         torch.Generator(device="cuda").manual_seed(18))
     rows.update(bwd_rows)
     llama_shapes.update(bwd_shapes)
+    lap("phase 18a")
     llama_shapes.update(phase_flash_mla(
         torch.Generator(device="cuda").manual_seed(21)))
+    lap("phase 21a")
     llama_shapes.update(phase_flash_whisper(
         torch.Generator(device="cuda").manual_seed(22)))
     lap("kernel checks (phases 3, 10, 18a, 21a, 22a)")
+    timing_report("kernel checks")
 
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
@@ -7228,6 +7645,7 @@ def main() -> int:
     shapes.update(layout_shapes)
     lap("the backbone's layouts on a mesh (phases 24-25)")
 
+    timing_report("phases 4-25")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))
     log(smi)

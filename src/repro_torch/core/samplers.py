@@ -109,9 +109,6 @@ class Sampler:
     #: True for multi-stage samplers whose runtime state needs the head
     #: table itself (tapas' pool re-scoring) on top of any carried state.
     two_stage: bool = False
-    #: False where the family's statistics on a (data, model) mesh are not
-    #: ported (``check_mesh`` raises).
-    mesh_ready: bool = True
 
     def sample(self, state: Any, h: Tensor, m: int, gen: torch.Generator
                ) -> tuple[Tensor, Tensor]:
@@ -171,13 +168,6 @@ class Sampler:
                                   dtype=v.dtype, device="meta")
                    for k, v in full.stats.items()},
             const=dict(full.const))
-
-    def check_mesh(self) -> None:
-        """Raise where the family's vocab-sharded form is not ported."""
-        if not self.mesh_ready:
-            raise NotImplementedError(
-                f"sampler '{self.name}' on a mesh (its statistics over the "
-                "model group) is not ported (ROADMAP.md A17)")
 
     def island_state(self, head_full: Tensor, n_valid) -> Any:
         """Runtime state of a NON-carrying sampler, rebuilt from the head."""
@@ -428,7 +418,6 @@ class TreeSampler(Sampler):
     proj_rank: int | None = None
     name: str = "tree-quadratic"
     carries_state = True
-    mesh_ready = False
 
     def _carried_leaf(self, n: int, d: int) -> int:
         if self.leaf_size is not None:
@@ -494,7 +483,6 @@ class RFFSampler(Sampler):
     leaf_size: int | None = None
     name: str = "rff"
     carries_state = True
-    mesh_ready = False
 
     def _leaf_size(self, n: int, d: int) -> int:
         """ONE fallback formula for build_stats and state_shapes."""
@@ -560,7 +548,6 @@ class MIDXSampler(Sampler):
     list_size: int | None = None
     name: str = "midx"
     carries_state = True
-    mesh_ready = False
 
     def build_stats(self, w, n_valid, const):
         s = midx.build(w, codewords=self.codewords, codebooks=self.codebooks,
@@ -741,9 +728,6 @@ class TapasSampler(Sampler):
 
     def supports_head_loss(self) -> bool:
         return self.base.supports_head_loss()
-
-    def check_mesh(self) -> None:
-        self.base.check_mesh()
 
     def island_runtime(self, state, head_full, n_valid):
         return {"base": self.base.island_runtime(state, head_full, n_valid),

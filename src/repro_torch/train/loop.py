@@ -23,9 +23,8 @@ statistics from snapshots on a side CUDA stream and swaps them in a fixed
 ``refresh_stale_steps`` later.
 
 On a ``(data, model)`` mesh ``fit`` runs on every rank with the same
-arguments and ``data`` built with the same ctx: the sync refresh, the
-losses alike on every rank.  Overlap and checkpoints on a mesh raise
-(ROADMAP.md A17).
+arguments and ``data`` built with the same ctx: the losses alike on every
+rank, either refresh mode.  Checkpoints on a mesh raise (ROADMAP.md A17).
 """
 from __future__ import annotations
 
@@ -92,12 +91,21 @@ class RefreshIsland:
     stream, so the caching allocator never hands them out while the other
     stream may still use them.  On the CPU the rebuild runs inline.
 
+    On a mesh (``ctx`` the train ctx) each rank rebuilds its own shard:
+    the snapshot is its head shard with the feature dim all-gathered over
+    ``data`` (``api.head_table(..., ctx)``), issued on the main stream at
+    snapshot time, at the same step on every rank; the side stream then
+    runs only the rank-local build, with no collective.  Every rank
+    dispatches and swaps at the same steps, so the q sequence stays alike
+    across ranks.
+
     ``launches`` counts the kernel launches of the island's rebuilds (the
     step's are the global counters less these)."""
 
     def __init__(self, cfg: ArchConfig, ctx,
                  device: str | torch.device | None = None):
         self.cfg = cfg
+        self.ctx = ctx if rules.on_mesh(ctx) else None
         self.cadence = max(cfg.sampler_refresh_every, 1)
         self.k = max(cfg.refresh_stale_steps, 1)
         self._refresh = make_refresh_fn(cfg, ctx)
@@ -111,8 +119,12 @@ class RefreshIsland:
         self.launches = dict.fromkeys(kernels.launch_counts(), 0)
 
     def _snapshot(self, params) -> torch.Tensor:
+        """The head as the rebuild reads it, copied (the optimizer updates
+        the parameters in place); on a mesh gathered over ``data`` here,
+        on the main stream."""
         with torch.no_grad():
-            return api.head_table(params, self.cfg).detach().clone()
+            return api.head_table(params, self.cfg,
+                                  self.ctx).detach().clone()
 
     @staticmethod
     def _snap_state(sstate: SamplerState) -> SamplerState:

@@ -43,9 +43,11 @@ gather's backward (a reduce-scatter); the gradient of one replicated
 over a batch axis is all-reduced over it (``rules.grad_reduce_axes``);
 clipping's global norm and Adafactor's statistics sum each leaf over the
 axes that shard it (``ShardedGrads``).  The recsys, lstm, dense, ssm and
-encdec families train there; the overlap island, the tree, rff and midx
-statistics, expert parallelism and the layouts not ported (the moe and
-hybrid families, MLA / mtp) raise (ROADMAP.md A17).
+encdec families train there with every carrying sampler (each shard's
+block, tree, rff or midx statistics built from its own rows, padding
+rows at zero mass) and either refresh mode; expert parallelism and the
+layouts not ported (the moe and hybrid families, MLA / mtp) raise
+(ROADMAP.md A17).
 
 ``serving_index_source`` is the seam between training and serving: it
 restores the newest complete checkpoint and exports a fresh serving index
@@ -104,20 +106,15 @@ _A17 = "(ROADMAP.md A17)"
 
 
 def _on_mesh(cfg: ArchConfig, ctx) -> bool:
-    """True on a mesh, after refusing what this part does not port: the
-    sampler families whose statistics are not sharded, expert parallelism,
-    the families whose layouts are not ported, the overlap island."""
+    """True on a mesh, after refusing what this part does not port:
+    expert parallelism and the families whose layouts are not ported."""
     if not rules.on_mesh(ctx):
         return False
-    sampler_from_config(cfg).check_mesh()
     if cfg.n_experts:
         raise NotImplementedError(
             f"expert parallelism (models/moe.py) on a mesh is not ported "
             f"{_A17}")
     api.require_mesh_layout(cfg)
-    if cfg.refresh_mode == "overlap":
-        raise NotImplementedError(
-            f"refresh_mode='overlap' on a mesh is not ported {_A17}")
     return True
 
 

@@ -23,8 +23,9 @@ computed shard by shard or equals the unsharded step:
   * three ``fit`` steps of block-quadratic and tapas: finite losses alike
     on every rank, every parameter gathered alike on every rank;
   * what the head-only mesh refused and now runs (``pure_fsdp``, the
-    backbone's specs, a tied head, Adafactor), and the parts left for
-    later, which raise ``NotImplementedError`` naming A17.
+    backbone's specs, a tied head, Adafactor, the tree, rff and midx
+    samplers, the overlap island), and the parts left for later, which
+    raise ``NotImplementedError`` naming A17.
 """
 from __future__ import annotations
 
@@ -208,11 +209,6 @@ def _raises(ctx, tmp: str) -> dict:
     state = step.init_train_state(torch.Generator().manual_seed(0), cfg, ctx,
                                   opt, device="cpu")
     cases = {
-        **{f"sampler {s}": lambda s=s: step.make_train_step(
-            dataclasses.replace(cfg, sampler=s), ctx, opt)
-           for s in ("tree-quadratic", "rff", "midx")},
-        "overlap": lambda: step.make_train_step(dataclasses.replace(
-            cfg, refresh_mode="overlap", sampler_refresh_every=4), ctx, opt),
         "checkpoint": lambda: loop.fit(
             cfg, ctx, opt, batch_iterator_for(cfg, ctx, 16, 1,
                                               device="cpu"), 1,
@@ -274,6 +270,20 @@ def _ported(ctx) -> dict:
         next(batch_iterator_for(cfg, ctx, 16, 1, device="cpu")),
         torch.Generator())
     out["adafactor"] = float(metrics["loss"])
+    # the tree, rff and midx statistics and the overlap island: one step
+    # each
+    opt = make_optimizer("adamw", 1e-2)
+    for name, c in (
+            *((f"sampler {s}", dataclasses.replace(cfg, sampler=s))
+              for s in ("tree-quadratic", "rff", "midx")),
+            ("overlap", dataclasses.replace(
+                cfg, refresh_mode="overlap", sampler_refresh_every=4))):
+        _, metrics = step.make_train_step(c, ctx, opt)(
+            step.init_train_state(torch.Generator(), c, ctx, opt,
+                                  device="cpu"),
+            next(batch_iterator_for(c, ctx, 16, 1, device="cpu")),
+            torch.Generator())
+        out[name] = float(metrics["loss"])
     return out
 
 
@@ -527,8 +537,9 @@ def test_parts_ported_since_run(runs, mesh):
     """What the head-only mesh refused now runs: ``pure_fsdp``'s ctx (the
     batch over every rank, no backbone TP), the backbone's specs (a rank
     holds what ``param_specs_for`` gives the whole model), a head tied to
-    the embedding and an Adafactor step (finite losses alike on every
-    rank)."""
+    the embedding and an Adafactor step; since then a step with each of
+    the tree-quadratic, rff and midx samplers and with
+    ``refresh_mode="overlap"`` (finite losses alike on every rank)."""
     dp, tp = mesh
     ranks = runs[2][mesh]
     for res in ranks:
@@ -537,5 +548,6 @@ def test_parts_ported_since_run(runs, mesh):
         want, held = got["backbone specs"]
         assert want == held
         assert want["segments.0.0.attn.wq"] == ("data", "model")
-        for k in ("tied head", "adafactor"):
+        for k in ("tied head", "adafactor", "sampler tree-quadratic",
+                  "sampler rff", "sampler midx", "overlap"):
             assert np.isfinite(got[k]) and got[k] == ranks[0]["ported"][k]
