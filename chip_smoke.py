@@ -438,10 +438,44 @@ result line):
                  head's two in abs mode at given negatives, as phase 23
                  holds them) at the rank's shard shapes against their
                  plain versions.
+ 26. mesh experts — expert parallelism and the S-sharded residual
+                 stream, in the same rank processes after phase 25's runs
+                 (``phase_mesh_layouts``), every config at full width in
+                 tp_fsdp with its own seq_residuals: (a) NCCL on a (1, 1)
+                 mesh in this process, dbrx-132b at 1 layer, one fp32
+                 full-softmax step equal to the unsharded one
+                 (MESH_STEP_RTOL); (b) the unsharded fp32 references of
+                 dbrx-132b at 1 layer (4.49 B parameters) saved for the
+                 ranks: the step on the whole batch, and its MoE layer
+                 alone on each (2, 2) data shard's rows (each its own
+                 capacity, its drops logged); (c) the ranks
+                 (MESH_EXPERT_RUNS): dbrx-132b at (1, 4) (2 layers, 4
+                 experts a rank) and (2, 2) (1 layer, 8 experts a rank,
+                 ZeRO-3 over data), deepseek-v3-671b's 3 dense MLA layers
+                 and mtp block and jamba-v0.1-52b's first 5 layers at
+                 (1, 4): dbrx's fp32 parity on the shards (drawn
+                 straight into them) against the saved one (at (1, 4)
+                 the step's loss and every gradient shard, at (2, 2) the
+                 MoE layer's y, dL/dx and gradient shards, within
+                 MESH_RTOL of each whole tensor's max); zstats at the head shard's blocks and
+                 both attention kernels at the shard's shapes (12 / 2
+                 heads, MLA's 32 at (192, 128), jamba's 8 / 2) against
+                 their plain versions on rank 0 (timed for dbrx (1, 4),
+                 deepseek and jamba); at (1, 4) MESH_EXPERT_STEPS = 2
+                 bf16 fit steps with remat and Adafactor on a pool of one
+                 batch (the (2, 2) run's fit is cut for the script's
+                 time: its expert gathers over data move 16 GB a rank a
+                 step through gloo) (exact
+                 launches a rank, the loss falling, alike on every rank;
+                 the first MoE dispatch's drops on the rank's experts
+                 equal to the unsharded layer's on the same rows, a data
+                 row's model ranks summing to its rows' total; the last
+                 step's collectives by op and group; step ms; the rank's
+                 peak) and zstats at the trained head shard.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
-22's serving runs and fits, 23's, 24's and 25's steps and fits on each
-rank are main paths: the kernel
+22's serving runs and fits, 23's, 24's, 25's and 26's steps and fits on
+each rank are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -476,8 +510,9 @@ follows the engine's batching), each path's count under
 by " <family>" for MESH_SAMPLERS, and "mesh gloo (2, 2) overlap midx",
 phase 24's as "mesh dense tp_fsdp (1, 4)",
 "mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", phase 25's
-as "mesh <config> <mode> (dp, tp)", each gloo mesh summed over its
-ranks); the other shapes' numbers under serving_*,
+as "mesh <config> <mode> (dp, tp)", phase 26's as "mesh experts <config>
+(dp, tp)", each gloo mesh summed over its ranks); the other shapes'
+numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
 mla_serving_*, mla_train_*, mla_train_mtp_* (phase 21a),
@@ -486,7 +521,8 @@ whisper_cross_train_* (phase 22a),
 mesh_tp_fsdp_1x4_*, mesh_tp_fsdp_2x2_*, mesh_pure_fsdp_2x2_* (both
 attention kernels at phase 24's shard shapes, the first timed on rank 0),
 mesh_whisper_<mode>_<dp>x<tp>_<enc|dec|cross>_* (both at phase 25's
-whisper shard shapes),
+whisper shard shapes), mesh_experts_<config>_<dp>x<tp>_* (zstats and
+both attention kernels at phase 26's shard shapes),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -4268,12 +4304,13 @@ def sdpa_backend(qt, kt, vt, causal: bool) -> str:
     return torch.nn.attention.SDPBackend(choice).name
 
 
-def flash_mla_row(gen: torch.Generator, b: int, s: int) -> dict:
-    """``flash_attention`` at MLA's widths, causal bf16: it must take the
-    tensor-core entry point; held against the plain version element by
-    element (BF16_ELEM_RTOL), then timed beside it and SDPA (whose backend
-    is named)."""
-    h, hd, hv = MLA_HEADS, MLA_HD, MLA_HV
+def flash_mla_row(gen: torch.Generator, b: int, s: int,
+                  h: int = MLA_HEADS, timed: bool = True) -> dict:
+    """``flash_attention`` at MLA's widths over ``h`` heads, causal bf16:
+    it must take the tensor-core entry point; held against the plain
+    version element by element (BF16_ELEM_RTOL), then (``timed``) timed
+    beside it and SDPA (whose backend is named)."""
+    hd, hv = MLA_HD, MLA_HV
     q, k, v = attn_inputs(gen, b, s, h, h, hd, torch.bfloat16, hv)
     before = kernels.launch_counts()
     got = flash_attention(q, k, v)
@@ -4287,6 +4324,9 @@ def flash_mla_row(gen: torch.Generator, b: int, s: int) -> dict:
                   f" hd {hd}, hv {hv})", got,
                   ref.flash_attention_ref(q, k, v, causal=True),
                   elem_rtol=BF16_ELEM_RTOL)
+    if not timed:
+        del q, k, v, got
+        return {"max_abs_err": err}
     bms, by, _ = flash_bound(b, s, h, h, hd, True, torch.bfloat16, hv)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -5041,10 +5081,10 @@ def moe_layer_checks(cfg, params, prompts: torch.Tensor, tag: str) -> None:
     seen = []
     real = moe.apply_moe
 
-    def spy(p, x, cfg_, ctx=None):
+    def spy(p, x, cfg_, ctx=None, seq=False):
         if len(seen) < len(calls):
             seen.append((p, x.detach().clone()))
-        return real(p, x, cfg_, ctx)
+        return real(p, x, cfg_, ctx, seq)
 
     calls = []
     moe.apply_moe = spy
@@ -6239,9 +6279,9 @@ def mesh_checks(ctx) -> dict:
 def mesh_rank(rank: int, world: int, addr: str, out: Path,
               phase: str = "23") -> int:
     """One rank process of phase 23b (each of MESH_SHAPES in turn), or of
-    phases 24 and 25 (``phase`` "24,25": each of MESH_DENSE_RUNS, then each
-    of MESH_FAMILY_RUNS): the gloo world over the shared card; its results
-    to ``out/rank<r>.json``."""
+    phases 24 to 26 (``phase`` "24,25,26": each of MESH_DENSE_RUNS, then
+    each of MESH_FAMILY_RUNS, then each of MESH_EXPERT_RUNS): the gloo
+    world over the shared card; its results to ``out/rank<r>.json``."""
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
     launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
@@ -6263,6 +6303,20 @@ def mesh_rank(rank: int, world: int, addr: str, out: Path,
                     torch.cuda.empty_cache()
                 results[f"{name} {mode} {dp}x{tp}"] = mesh_family_rank(
                     ctx, name)
+        if "26" in phases:
+            if DEV.type == "cuda":
+                # four ranks' fp32 parity steps fill the shared card at
+                # (2, 2): growable segments leave no reserved block idle
+                torch.cuda.memory._set_allocator_settings(
+                    "expandable_segments:True")
+            for name, (dp, tp), n_layers in MESH_EXPERT_RUNS:
+                ctx = rules.ctx_for_train(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type),
+                    mesh_expert_cfg(name, n_layers))
+                if DEV.type == "cuda":
+                    torch.cuda.empty_cache()
+                results[f"{name} {dp}x{tp}"] = mesh_expert_rank(
+                    ctx, name, n_layers)
         if phases == ["23"]:
             for dp, tp in MESH_SHAPES:
                 ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
@@ -7092,8 +7146,8 @@ MESH_PARITY_ABS = False
 #: 22a's shapes at a smaller batch).  Timing all six took 90 s of the
 #: script on one H100, timing three 23.5-61.5 s
 MESH_WHISPER_TIMED = ("tp_fsdp", "enc")
-#: seconds the parent waits for the rank processes of phases 24 and 25
-MESH_LAYOUTS_TIMEOUT_S = 700
+#: seconds the parent waits for the rank processes of phases 24 to 26
+MESH_LAYOUTS_TIMEOUT_S = 900
 
 
 def mesh_family_cfg(name: str, mode: str, dtype: str | None = None,
@@ -7420,7 +7474,596 @@ def mesh_family_report(ranks: list[dict], nccl: dict
     return by_path, shapes
 
 
-def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25")
+# ---------------------------------------------------------------------------
+# Phase 26: expert parallelism and the sequence-sharded residual stream
+# ---------------------------------------------------------------------------
+
+#: each gloo run of phase 26, after phase 25's in the same rank processes:
+#: (config, (dp, tp), layers), tp_fsdp with the configs' seq_residuals.
+#: dbrx-132b, the slice's path, at (1, 4) (4 of its 16 experts a rank,
+#: 2 of its 40 layers) and at (2, 2) (8 a rank, ZeRO-3 over data: a
+#: forward run gathers 3.17 GB of experts a rank, so 1 layer);
+#: deepseek-v3-671b at its 3 dense MLA layers and the mtp block (its
+#: 256-expert layers stay off the card: one holds 11.3 B parameters);
+#: jamba-v0.1-52b at 5 of its 32 layers (mamba+mlp, mamba+moe, mamba+mlp,
+#: mamba+moe, attn+mlp)
+MESH_EXPERT_RUNS = (("dbrx-132b", (1, 4), 2), ("dbrx-132b", (2, 2), 1),
+                    ("deepseek-v3-671b", (1, 4), 3),
+                    ("jamba-v0.1-52b", (1, 4), 5))
+#: (sequences, tokens) of a fit's batch, in the configs' microbatches
+#: (dbrx and deepseek 2, jamba 8): tp 4 divides S, so the residual
+#: stream is S-sharded (mtp's S - 1 rows stay replicated)
+MESH_EXPERT_BATCH = {"dbrx-132b": (4, 1024), "deepseek-v3-671b": (4, 512),
+                     "jamba-v0.1-52b": (8, 512)}
+#: fit steps on a pool of one batch, the fewest a falling loss needs, by
+#: mesh; the (2, 2) run takes its fp32 parity and its kernel checks and
+#: no fit: its ZeRO-3 gathers of the experts over data move 16.1 GB a
+#: rank a step (2 microbatches, remat) through gloo, and 2 steps took
+#: 216 s of the script's 1,200 (H100 80GB HBM3, 700 W)
+MESH_EXPERT_STEPS = {(1, 4): 2, (2, 2): 0}
+#: Adafactor's lr of the fits: a few steps at 2 to 5 layers
+MESH_EXPERT_LR = 1e-3
+#: the fp32 parity step: dbrx-132b at 1 layer (4.49 B parameters, 18 GB,
+#: and as much again of gradients) on 4 sequences of 256 tokens, at
+#: (1, 4)
+MESH_EXPERT_PARITY = ("dbrx-132b", 1, (4, 256))
+#: the mesh whose fp32 parity holds dbrx's MoE layer alone (its experts
+#: gathered over data, each data shard's capacity from its own rows, the
+#: router's gradient summed over both axes) on the same rows: the whole
+#: model's step there holds ~20 GB a rank (the gathered experts, the
+#: head's and the embedding's gathers and gradients), more than a quarter
+#: of the card the four ranks share: it ran out of memory on an H100
+#: 80GB HBM3
+MESH_EXPERT_MOE_PARITY = (2, 2)
+#: the runs whose attention and zstats shard shapes rank 0 times (the
+#: others are checked only)
+MESH_EXPERT_TIMED = (("dbrx-132b", (1, 4)), ("deepseek-v3-671b", (1, 4)),
+                     ("jamba-v0.1-52b", (1, 4)))
+MESH_EXPERT_SEED = 26
+#: where the parent leaves the unsharded parity step's gradients
+MESH_EXPERT_DIR = MESH_DIR.parent / "chip_smoke_mesh_experts"
+
+
+def mesh_expert_cfg(name: str, layers: int, dtype: str | None = None,
+                    **changes):
+    """``name`` at full width and ``layers`` layers in tp_fsdp (its own
+    seq_residuals), in ``dtype`` (default the config's)."""
+    if dtype:
+        changes.update(dtype=dtype, param_dtype=dtype)
+    return dataclasses.replace(get_config(name), n_layers=layers,
+                               train_sharding="tp_fsdp", **changes)
+
+
+def mesh_expert_parity_cfg():
+    name, layers, _ = MESH_EXPERT_PARITY
+    return mesh_expert_cfg(name, layers, "float32", estimator="full",
+                           abs_softmax=MESH_PARITY_ABS, remat=False)
+
+
+def mesh_expert_model(cfg, ctx=None) -> torch.nn.Module:
+    """The model from MESH_EXPERT_SEED: whole, or on a mesh drawn straight
+    into the rank's shards (the same weights)."""
+    return api.init_module(cfg, torch.Generator(DEV).manual_seed(
+        MESH_EXPERT_SEED), device=DEV, ctx=ctx)
+
+
+def mesh_expert_batch(cfg, shape: tuple[int, int], ctx=None) -> dict:
+    b, s = shape
+    return next(batch_iterator_for(cfg, ctx, b, s, seed=MESH_EXPERT_SEED,
+                                   device=DEV))
+
+
+class DropProbe:
+    """While on: the first MoE dispatch's drops on this rank's experts as
+    the layer slots them (its capacity), against the unsharded layer's on
+    the same rows (``moe._route`` and ``moe.capacity`` of those rows), and
+    the unsharded layer's drops on all its experts.  ``rows`` keeps the
+    dispatch's tokens and router for other splits of them."""
+
+    def __init__(self):
+        self.got, self.rows = None, None
+
+    def __enter__(self):
+        self._apply, self._dcc = moe.apply_moe, moe._dispatch_compute_combine
+        probe = self
+
+        def apply(p, x, cfg, ctx=None, seq=False):
+            probe._p = p
+            return probe._apply(p, x, cfg, ctx, seq)
+
+        def dcc(x2d, ids, w, wg, wu, wd, cfg, cap, e_lo=0):
+            if probe.got is None:
+                with torch.no_grad():
+                    e_l = wg.shape[0]
+                    ids_u = moe._route(probe._p, x2d, cfg)[0]
+                    cap_u = moe.capacity(x2d.shape[0], cfg)
+                    probe.got = {
+                        "rows": x2d.shape[0], "capacity": cap,
+                        "unsharded_capacity": cap_u,
+                        "experts": [e_lo, e_l],
+                        "mesh": moe.dropped(ids, cfg, cap, e_lo, e_l),
+                        "unsharded": moe.dropped(ids_u, cfg, cap_u, e_lo,
+                                                 e_l),
+                        "unsharded_all": moe.dropped(ids_u, cfg, cap_u)}
+                    probe.rows = (x2d.detach().clone(),
+                                  {k: probe._p[k] for k in
+                                   ("router", "router_bias")
+                                   if k in probe._p})
+            return probe._dcc(x2d, ids, w, wg, wu, wd, cfg, cap, e_lo)
+
+        moe.apply_moe, moe._dispatch_compute_combine = apply, dcc
+        return self
+
+    def __exit__(self, *exc):
+        moe.apply_moe, moe._dispatch_compute_combine = self._apply, self._dcc
+        self._p = None
+
+
+@contextlib.contextmanager
+def ranks_draw_in_turn():
+    """While on, ``api.init_module`` runs on one rank of the world at a
+    time (a barrier after each): the four ranks share one card, and each
+    draws one layer whole before it keeps its shards of it (a dbrx-132b
+    layer is 13 GB in fp32), so only one rank's layer is whole at a
+    time."""
+    real = api.init_module
+
+    def init(*args, **kwargs):
+        out = None
+        for r in range(torch.distributed.get_world_size()):
+            if torch.distributed.get_rank() == r:
+                out = real(*args, **kwargs)
+                sync()
+                if DEV.type == "cuda":
+                    torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        return out
+
+    api.init_module = init
+    try:
+        yield
+    finally:
+        api.init_module = real
+
+
+class LastStepCollectives(CycledPool):
+    """``CycledPool`` that resets the collective counts as ``fit`` draws
+    its last step's batch: after the fit they hold that step's."""
+
+    def __init__(self, pool: list, steps: int):
+        super().__init__(pool)
+        self.steps = steps
+
+    def __next__(self) -> dict:
+        if self.i == self.steps - 1:
+            distributed.reset_collective_counts()
+        return super().__next__()
+
+
+def mesh_expert_nccl() -> dict[str, float]:
+    """Phase 26a: NCCL on a (1, 1) mesh in this process: dbrx-132b at
+    MESH_EXPERT_PARITY's 1 layer, one fp32 full-softmax fit step with
+    MESH_STEP_OPT on the parity batch against the unsharded step (the
+    one-rank group's collectives leave every number as it is: within
+    MESH_STEP_RTOL, as phases 24a and 25a).  Returns the worst error."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = launch_mesh.make_debug_mesh(1, 1)
+        cfg = dataclasses.replace(mesh_expert_parity_cfg(), remat=True)
+        batch = mesh_expert_batch(cfg, MESH_EXPERT_PARITY[2])
+        res = {}
+        for tag, c in (("mesh", rules.ctx_for_train(mesh, cfg)),
+                       ("unsharded", None)):
+            res[tag] = loop.fit(cfg, c, make_optimizer(*MESH_STEP_OPT),
+                                CycledPool([batch]), 1,
+                                seed=MESH_EXPERT_SEED, log_every=0,
+                                device=DEV)
+            if tag == "mesh":  # keep its parameters, free the rest
+                res[tag] = (res[tag].losses, dict(
+                    res[tag].state.params.named_parameters()))
+            sync()
+        want = dict(res["unsharded"].state.params.named_parameters())
+        losses, got = res["mesh"]
+        e = {"loss": abs(losses[0] - res["unsharded"].losses[0])
+             / abs(res["unsharded"].losses[0]),
+             **{k: rel_err(p, want[k]) for k, p in got.items()}}
+        exact = sum(torch.equal(p, want[k]) for k, p in got.items())
+        del res, want, got, batch
+        sync()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+        worst = max(e, key=e.get)
+        log(f"[mesh experts] {backend} (1, 1) {cfg.name} at {cfg.n_layers} "
+            f"layer(s), fp32, remat: one full-softmax fit step "
+            f"({MESH_STEP_OPT}) against the unsharded one: loss "
+            f"{e['loss']}, worst parameter {worst} {e[worst]} over its own "
+            f"max; {exact} of {len(e) - 1} parameters bitwise equal")
+        gate(f"{backend} (1, 1) {cfg.name} step", e, MESH_STEP_RTOL)
+        return {"worst": e[worst], "bitwise": exact, "of": len(e) - 1}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_expert_reference() -> dict:
+    """The unsharded fp32 parity references (``mesh_expert_parity_cfg``),
+    saved for the ranks: (a) the whole model's step on the parity batch
+    (the (1, 4) mesh's one data shard): its loss, each gradient and its
+    max |g|; (b) its MoE layer alone on random rows x of the batch's shape
+    against a random cotangent, L = sum(y * ct): for each of the
+    MESH_EXPERT_MOE_PARITY mesh's data shards the mesh-free layer on that
+    shard's rows (its own capacity), the experts' and the router's
+    gradients summed over the shards, dL/dx and y.  Each run's drops on
+    the layer are logged.  Returns its seconds, loss and drops."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_EXPERT_DIR, ignore_errors=True)
+    MESH_EXPERT_DIR.mkdir(parents=True)
+    cfg = mesh_expert_parity_cfg()
+    for name, (_, tp), _ in MESH_EXPERT_RUNS:
+        if name == MESH_EXPERT_PARITY[0] and \
+                layers.padded_heads(cfg, tp) != layers.padded_heads(cfg):
+            raise ValueError(f"{cfg.name}'s heads pad at tp {tp}: its "
+                             "shards are not of the unsharded tree")
+    model = mesh_expert_model(cfg)
+    batch = mesh_expert_batch(cfg, MESH_EXPERT_PARITY[2])
+    grads: dict[str, torch.Tensor] = {}
+
+    def keep(g, state, params):
+        grads.update({k: x.cpu() for k, x in g.items()})
+        return {}, state
+
+    with DropProbe() as probe:
+        metrics = step.make_train_step(
+            cfg, None, GradientTransform(lambda p: (), keep))(
+            step.TrainState(model, (), step.empty_state(), 0), batch,
+            torch.Generator(DEV).manual_seed(1))[1]
+    loss, drops = float(metrics["loss"]), probe.got["unsharded_all"]
+    del probe, metrics
+    torch.save({"loss": loss, "grads": grads,
+                "max": {k: float(g.abs().max()) for k, g in grads.items()}},
+               MESH_EXPERT_DIR / "unsharded.pt")
+    grads.clear()
+    log(f"[mesh experts] the unsharded fp32 parity step of {cfg.name} at "
+        f"{cfg.n_layers} layer(s) on {MESH_EXPERT_PARITY[2]}: loss {loss}, "
+        f"the MoE layer's drops {drops} (of "
+        f"{batch['tokens'].numel() * cfg.moe_top_k} assignments); saved, "
+        f"{time.perf_counter() - t0:.1f} s")
+    p = model.tree()["segments"][0][0]["moe"]
+    x, ct = moe_parity_rows(cfg)
+    dp = MESH_EXPERT_MOE_PARITY[0]
+    per = x.shape[0] // dp
+    moe_drops, ys, dxs = [], [], []
+    for i in range(dp):
+        xi = x[i * per:(i + 1) * per].clone().requires_grad_()
+        with DropProbe() as probe:
+            y, _ = moe.apply_moe(p, xi, cfg)
+        got = torch.autograd.grad(torch.sum(y * ct[i * per:(i + 1) * per]),
+                                  [xi, *p.values()])
+        for k, g in zip(p, got[1:]):
+            grads[k] = g if k not in grads else grads[k].add_(g)
+        moe_drops.append(probe.got["unsharded_all"])
+        ys.append(y.detach())
+        dxs.append(got[0])
+        del probe, got, y
+    torch.save({"y": torch.cat(ys).cpu(), "dx": torch.cat(dxs).cpu(),
+                "grads": {k: g.cpu() for k, g in grads.items()},
+                "max": {k: float(g.abs().max()) for k, g in grads.items()}},
+               MESH_EXPERT_DIR / "moe.pt")
+    del grads, model, batch, p, ys, dxs, x, ct, xi
+    sync()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[mesh experts] the mesh-free MoE layer of {cfg.name} on each of "
+        f"{dp} data shards' rows of {MESH_EXPERT_PARITY[2]}: drops by shard "
+        f"{moe_drops}; saved, {secs:.1f} s in all")
+    return {"s": secs, "loss": loss, "drops": drops, "moe_drops": moe_drops}
+
+
+def moe_parity_rows(cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer parity's rows x and cotangent ct, (B, S, d) fp32 at
+    MESH_EXPERT_PARITY's batch shape, from MESH_EXPERT_SEED: x shares one
+    random direction (twice a row's own scale), so the router sends many
+    rows to the same experts and each data shard's capacity drops some."""
+    gen = torch.Generator(DEV).manual_seed(MESH_EXPERT_SEED + 1)
+    b, s = MESH_EXPERT_PARITY[2]
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+    x += 2.0 * torch.randn((cfg.d_model,), generator=gen, device=DEV)
+    return x, torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+
+
+def mesh_expert_parity(ctx) -> dict[str, float]:
+    """This rank's fp32 parity step on its shards (drawn from the same
+    seed) and batch rows against the parent's unsharded step
+    (``mesh_expert_reference``): the loss's relative error and each
+    gradient shard's error over the whole gradient's max, compared leaf
+    by leaf as the step hands them to the optimizer (no second copy of
+    the gradients)."""
+    cfg = mesh_expert_parity_cfg()
+    want = torch.load(MESH_EXPERT_DIR / "unsharded.pt", mmap=True,
+                      weights_only=True)
+    model = mesh_expert_model(cfg, ctx)
+    specs = model.param_specs
+    batch = {k: rules.batch_rows(v, ctx) for k, v in
+             mesh_expert_batch(cfg, MESH_EXPERT_PARITY[2]).items()}
+    errs: dict[str, float] = {}
+
+    def update(grads, state, params):
+        for k, g in grads.items():
+            block = rules.shard_by_spec(want["grads"][k], specs[k],
+                                        ctx).to(DEV)
+            errs[k] = float((g.float() - block).abs().max()) / max(
+                want["max"][k], 1e-30)
+            del block
+        return {}, state
+
+    metrics = step.make_train_step(
+        cfg, ctx, GradientTransform(lambda p: (), update))(
+        step.TrainState(model, (), step.empty_state(), 0), batch,
+        torch.Generator(DEV).manual_seed(1))[1]
+    errs["loss"] = abs(float(metrics["loss"]) - want["loss"]) / abs(
+        want["loss"])
+    del want, model, batch
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    return errs
+
+
+def mesh_expert_moe_parity(ctx) -> dict[str, float]:
+    """dbrx's MoE layer alone on this rank in fp32 (``apply_moe`` on the
+    mesh: its expert shards gathered over data, its data rows' S-shard in
+    and out) against the parent's mesh-free layer on each data shard's
+    rows: y's and dL/dx's S-shards, and each leaf's gradient shard as the
+    train step reduces it (the experts' by their gather's backward, the
+    router's summed over both axes: ``rules.model_partial``), each over
+    the whole tensor's max."""
+    cfg = mesh_expert_parity_cfg()
+    want = torch.load(MESH_EXPERT_DIR / "moe.pt", mmap=True,
+                      weights_only=True)
+    model = mesh_expert_model(cfg, ctx)
+    names = {k: f"segments.0.0.moe.{k}" for k in want["grads"]}
+    p = {k: model.get_parameter(n) for k, n in names.items()}
+    specs = {k: model.param_specs[n] for k, n in names.items()}
+    del model
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    x, ct = (rules.batch_rows(t, ctx) for t in moe_parity_rows(cfg))
+    seq = rules.seq_sharded(ctx, x.shape[1])
+    spec = (None, ctx.model_axis) if seq else (None,)
+    x, ct = (rules.shard_by_spec(t, spec, ctx) for t in (x, ct))
+    x.requires_grad_()
+    y, _ = moe.apply_moe(rules.gather_tree(p, specs, ctx), x, cfg, ctx, seq)
+    got = torch.autograd.grad(torch.sum(y * ct), [x, *p.values()])
+    rows = {k: rules.shard_by_spec(rules.batch_rows(want[k], ctx), spec,
+                                   ctx).to(DEV) for k in ("y", "dx")}
+    errs = {"y": rel_err(y, rows["y"]), "dx": rel_err(got[0], rows["dx"])}
+    for (k, leaf), g in zip(p.items(), got[1:]):
+        axes = rules.grad_reduce_axes(specs[k], ctx, rules.model_partial(
+            names[k], specs[k], ctx, seq))
+        if axes:
+            distributed.all_reduce_(g, "sum", ctx.group(axes))
+        block = rules.shard_by_spec(want["grads"][k], specs[k], ctx).to(DEV)
+        errs[k] = float((g - block).abs().max()) / max(want["max"][k], 1e-30)
+        del block
+    del want, got, y, p
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    return errs
+
+
+def zstats_row(gen: torch.Generator, nb: int, b: int, r: int,
+               timed: bool) -> dict:
+    """zstats on (nb, b, r) random blocks against its plain version;
+    ``timed`` adds its times beside the plain version's and ``bmm``'s and
+    its bound (phase 3's)."""
+    w = torch.randn((nb, b, r), generator=gen, device=DEV)
+    err = compare(f"zstats {(nb, b, r)}", zstats(w), ref.zstats_ref(w))
+    row = {"max_abs_err": err, "shape": [nb, b, r]}
+    if timed:
+        wt = w.transpose(1, 2)
+        bms, by = bound_ms(4 * (nb * b * r + nb * r * r), nb * b * r * (r + 1))
+        row.update(bound_ms=bms, bound_by=by, **times(
+            lambda: zstats(w), lambda: ref.zstats_ref(w),
+            lambda: torch.bmm(wt, w)))
+    return row
+
+
+def mesh_expert_kernels(ctx, cfg, timed: bool) -> dict:
+    """zstats at this rank's head shard's blocks (v_l / sampler_block
+    blocks of sampler_block rows, its sampler's projection width) and both
+    attention kernels at the shard's shapes (a microbatch's rows of the
+    data shard; n_heads / tp q heads over n_kv / tp, hd 128; MLA's 128 /
+    tp heads at (192, 128)), against their plain versions; ``timed`` adds
+    their times (SDPA beside the attention)."""
+    gen = torch.Generator(DEV).manual_seed(MESH_EXPERT_SEED)
+    b, s = MESH_EXPERT_BATCH[cfg.name]
+    b //= ctx.dp * max(cfg.microbatches, 1)
+    v_l = rules.vocab_shard(cfg.vocab_size, ctx.tp)
+    rows = {"zstats": zstats_row(
+        gen, -(-v_l // cfg.sampler_block), cfg.sampler_block,
+        cfg.sampler_proj_rank or cfg.d_model, timed)}
+    if cfg.mla:
+        h = layers.padded_heads(cfg, ctx.tp)[0] // ctx.tp
+        shape = [b, s, h, h, MLA_HD, MLA_HV]
+        rows["flash_attention"] = flash_mla_row(gen, b, s, h=h,
+                                                timed=timed)
+        rows["flash_attention_bwd"] = flash_bwd_case(
+            gen, b, s, h, h, MLA_HD, torch.bfloat16, timed=timed,
+            hv=MLA_HV)
+    else:
+        nh, nkv = layers.padded_heads(cfg, ctx.tp)
+        h, kv = nh // ctx.tp, nkv // ctx.tp
+        hd = cfg.resolved_head_dim
+        shape = [b, s, h, kv, hd, hd]
+        rows["flash_attention"] = flash_row(gen, b, s, h=h, kv=kv,
+                                            timed=timed)
+        rows["flash_attention_bwd"] = flash_bwd_case(
+            gen, b, s, h, kv, hd, torch.bfloat16, timed=timed)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        rows[name]["shape"] = shape
+    return rows
+
+
+def mesh_expert_fit(ctx, name: str, n_layers: int, tag: str) -> dict:
+    """The bf16 ``fit`` of a run (remat, clip + Adafactor at
+    MESH_EXPERT_LR) for MESH_EXPERT_STEPS steps on a pool of one batch of
+    the rank's rows: exact launches (zstats once a refresh; each attention
+    call's flash_attention once a microbatch and forward run, its backward
+    once a microbatch; the mtp block's once each, never rematerialized),
+    finite losses falling from the first step to the last, the first MoE
+    dispatch's drops equal to the unsharded layer's on the same rows
+    (``DropProbe``), the last step's collectives by op and group, the
+    steps' ms as ``fit`` logs them and the rank's peak; then zstats at the
+    trained head shard's blocks against its plain version."""
+    cfg = mesh_expert_cfg(name, n_layers, remat=True)
+    steps = MESH_EXPERT_STEPS[(ctx.axis_size("data"), ctx.tp)]
+    opt = make_optimizer("adafactor", MESH_EXPERT_LR)
+    pool = [mesh_expert_batch(cfg, MESH_EXPERT_BATCH[name], ctx)]
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), DropProbe() as probe, \
+            ranks_draw_in_turn():
+        res = loop.fit(cfg, ctx, opt, LastStepCollectives(pool, steps),
+                       steps, seed=0, log_every=1, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    collectives = distributed.collective_counts(by_group=True)
+    want = dict.fromkeys(REPLACES, 0)
+    if DEV.type == "cuda":
+        mu = max(cfg.microbatches, 1)
+        attn, mtp = attn_layers(cfg), int(cfg.mtp)
+        want = expected_launches(cfg, steps, tp=ctx.tp)
+        want.update(flash_attention=steps * mu * (attn * forwards(cfg)
+                                                  + mtp),
+                    flash_attention_bwd=steps * mu * (attn + mtp))
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    losses = res.losses
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the pool loss did not fall: {losses}")
+    drops = probe.got
+    if drops is not None and (drops["mesh"] != drops["unsharded"]
+                              or drops["capacity"]
+                              != drops["unsharded_capacity"]):
+        raise AssertionError(f"{tag}: the MoE drops {drops}")
+    step_ms = [float(x) for x in re.findall(r"\((\d+) ms\)",
+                                            printed.getvalue())]
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEV.type == "cuda" else 0.0
+    with torch.no_grad():
+        head = api.head_table(res.state.params, cfg, ctx)
+    kern = {"zstats": mesh_zstats_check(ctx, cfg, head, tag)}
+    n_params = sum(p.numel() for p in res.state.params.parameters())
+    del head, res, pool, probe
+    return {"losses": losses, "fit_s": wall, "launches": counts,
+            "step_ms": step_ms, "collectives": collectives,
+            "peak_gb": peak, "kernels": kern, "drops": drops,
+            "params": n_params}
+
+
+def mesh_expert_rank(ctx, name: str, n_layers: int) -> dict:
+    """One run of phase 26 on this rank: the fp32 parity (the parity
+    config's runs: at (1, 4) the step's loss and each gradient shard, at
+    MESH_EXPERT_MOE_PARITY the MoE layer's, within MESH_RTOL), zstats and
+    the attention kernels at the shard's shapes
+    (checked, MESH_EXPERT_TIMED's also timed, by the world's rank 0 while
+    the others wait), the bf16 fit."""
+    dp, tp = ctx.axis_size("data"), ctx.tp
+    tag = f"{name} ({dp}, {tp}) rank ({ctx.data_index}, {ctx.model_index})"
+    t0 = time.perf_counter()
+    secs, parity = {}, None
+    if name == MESH_EXPERT_PARITY[0]:
+        with ranks_draw_in_turn():
+            parity = (mesh_expert_moe_parity(ctx)
+                      if (dp, tp) == MESH_EXPERT_MOE_PARITY
+                      else mesh_expert_parity(ctx))
+        gate(f"{tag} fp32 parity", parity, MESH_RTOL)
+        secs["parity"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    kern = None
+    torch.distributed.barrier()
+    if torch.distributed.get_rank() == 0:
+        kern = mesh_expert_kernels(ctx, mesh_expert_cfg(name, n_layers),
+                                   (name, (dp, tp)) in MESH_EXPERT_TIMED)
+    torch.distributed.barrier()
+    secs["kernels"] = time.perf_counter() - t1
+    fit = None
+    if MESH_EXPERT_STEPS[(dp, tp)]:
+        t1 = time.perf_counter()
+        fit = mesh_expert_fit(ctx, name, n_layers, tag)
+        secs["fit"] = time.perf_counter() - t1
+    secs = {k: round(v, 1) for k, v in secs.items()}
+    log(f"{tag}: seconds {secs}")
+    return {"parity": parity, "kernels": kern, "fit": fit, "secs": secs,
+            "s": time.perf_counter() - t0}
+
+
+def mesh_expert_report(ranks: list[dict], nccl: dict, ref_run: dict
+                       ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 26's rank results logged and gated: losses alike on every
+    rank, each data row's drops over its model ranks equal to the
+    unsharded layer's on its rows; each run's launches summed over its
+    ranks, and rank 0's kernel rows at each run's shard shapes as
+    kernels-line shapes ``mesh_experts_<config>_<dp>x<tp>``."""
+    by_path, shapes = {}, {}
+    for name, (dp, tp), n_layers in MESH_EXPERT_RUNS:
+        key = f"{name} {dp}x{tp}"
+        kern = ranks[0][key]["kernels"]
+        shapes[f"mesh_experts_{name}_{dp}x{tp}"] = kern
+        log(f"[mesh experts] {key}: kernels at the shard shapes {kern}")
+        total = dict.fromkeys(REPLACES, 0)
+        row_drops: dict[int, list] = {}
+        for r, res in enumerate(ranks):
+            m, fit = res[key], res[key]["fit"]
+            parity = m["parity"]
+            worst = max(parity, key=parity.get) if parity else None
+            log(f"[mesh experts] gloo {key} rank {r}: "
+                + (f"fp32 parity {parity}, worst {worst} {parity[worst]} "
+                   f"(of {len(parity)}, over each whole tensor's max); "
+                   if parity else "")
+                + (f"{len(fit['losses'])} bf16 fit steps ({n_layers} "
+                   f"layers, {fit['params']} parameters a rank; clip + "
+                   f"adafactor {MESH_EXPERT_LR}, remat) in "
+                   f"{fit['fit_s']:.3f} s, losses {fit['losses']}, step ms "
+                   f"{fit['step_ms']}, launches "
+                   f"{({k: v for k, v in fit['launches'].items() if v})}; "
+                   f"peak {fit['peak_gb']:.3f} GB; the first MoE "
+                   f"dispatch's drops {fit['drops']}; zstats at the head "
+                   f"shard {fit['kernels']}; the last step's collectives "
+                   f"{fit['collectives']}; " if fit else "no fit; ")
+                + f"the run {m['s']:.1f} s ({m['secs']})")
+            if fit is None:
+                continue
+            add_counts(total, fit["launches"])
+            if fit["drops"] is not None:
+                row_drops.setdefault(r // tp, []).append(fit["drops"])
+        for row, got in row_drops.items():
+            mesh_sum = sum(d["mesh"] for d in got)
+            if mesh_sum != got[0]["unsharded_all"]:
+                raise AssertionError(
+                    f"{key}: data row {row}'s drops over its model ranks "
+                    f"{mesh_sum} != the unsharded layer's "
+                    f"{got[0]['unsharded_all']} on its rows")
+        if ranks[0][key]["fit"]:
+            gate_losses_alike(key, ranks)
+            by_path[f"mesh experts {name} ({dp}, {tp})"] = total
+    secs = [round(sum(r[f"{name} {dp}x{tp}"]["s"]
+                      for name, (dp, tp), _ in MESH_EXPERT_RUNS), 1)
+            for r in ranks]
+    log(f"[mesh experts] NCCL (1, 1) {nccl}; the unsharded parity step "
+        f"{ref_run}; the ranks' phase 26 {secs} s")
+    return by_path, shapes
+
+
+def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26")
                        ) -> tuple[dict[str, dict[str, int]], dict]:
     """Phases 24 and 25, the backbone's storage layouts on the mesh, in
     one set of rank processes.  Phase 24 (starcoder2-3b at full width, 4
@@ -7433,12 +8076,19 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25")
     (``mesh_family_nccl``).  Then MESH_WORLD rank processes over gloo
     sharing the card run each of MESH_DENSE_RUNS (``mesh_dense_rank``:
     tp_fsdp at (1, 4) (KV heads padded 2 -> 4) and (2, 2), pure_fsdp at
-    (2, 2)) and each of MESH_FAMILY_RUNS (``mesh_family_rank``).
-    ``phases`` runs one of the two alone.  Returns the bf16 fits' launches
-    of each mesh, summed over its ranks, and the attention kernels' rows
-    at the shard shapes."""
+    (2, 2)) and each of MESH_FAMILY_RUNS (``mesh_family_rank``).  Phase 26
+    (expert parallelism and the S-sharded residual stream: dbrx-132b at
+    full width, 2 of its 40 layers at (1, 4) and 1 at (2, 2);
+    deepseek-v3-671b's 3 dense MLA layers and mtp block and
+    jamba-v0.1-52b's first 5 layers at (1, 4)): 26a over NCCL in this
+    process (``mesh_expert_nccl``) and the unsharded fp32 parity step
+    saved for the ranks (``mesh_expert_reference``), then each of
+    MESH_EXPERT_RUNS on the ranks after phase 25's (``mesh_expert_rank``).
+    ``phases`` runs some of the three alone.  Returns the bf16 fits'
+    launches of each mesh, summed over its ranks, and the kernels' rows at
+    the shard shapes."""
     t_start = time.perf_counter()
-    t24 = t25 = 0.0
+    t24 = t25 = t26 = 0.0
     if "24" in phases:
         nccl24 = mesh_dense_nccl()
         ref_s = mesh_dense_reference()
@@ -7448,20 +8098,36 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25")
         nccl25 = mesh_family_nccl()
         t25 = time.perf_counter() - t0
     try:
+        if "26" in phases:
+            t0 = time.perf_counter()
+            nccl26 = mesh_expert_nccl()
+            ref26 = mesh_expert_reference()
+            t26 = time.perf_counter() - t0
+            if DEV.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+                log(f"[mesh experts] this process holds "
+                    f"{torch.cuda.memory_allocated() / 1e9:.3f} GB "
+                    f"({torch.cuda.memory_reserved() / 1e9:.3f} GB "
+                    "reserved) as the ranks start")
         ranks = run_mesh_ranks(",".join(phases), MESH_LAYOUTS_TIMEOUT_S)
     finally:
         shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
+        shutil.rmtree(MESH_EXPERT_DIR, ignore_errors=True)
     by_path, shapes = {}, {}
     for ph, report in (("24", lambda: mesh_dense_report(ranks, nccl24,
                                                         ref_s)),
-                       ("25", lambda: mesh_family_report(ranks, nccl25))):
+                       ("25", lambda: mesh_family_report(ranks, nccl25)),
+                       ("26", lambda: mesh_expert_report(ranks, nccl26,
+                                                         ref26))):
         if ph in phases:
             got_paths, got_shapes = report()
             by_path.update(got_paths)
             shapes.update(got_shapes)
     log(f"[mesh layouts] in this process: phase 24 {t24:.1f} s, phase 25 "
-        f"{t25:.1f} s; phases 24 and 25 {time.perf_counter() - t_start:.1f}"
-        f" s; each rank's peak memory since its last fit began, GB "
+        f"{t25:.1f} s, phase 26 {t26:.1f} s; phases 24 to 26 "
+        f"{time.perf_counter() - t_start:.1f} s; each rank's peak memory "
+        f"since its last fit began, GB "
         f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}")
     return by_path, shapes
 
@@ -7643,9 +8309,9 @@ def main() -> int:
     layout_paths, layout_shapes = phase_mesh_layouts()
     by_path.update(layout_paths)
     shapes.update(layout_shapes)
-    lap("the backbone's layouts on a mesh (phases 24-25)")
+    lap("the backbone's layouts and experts on a mesh (phases 24-26)")
 
-    timing_report("phases 4-25")
+    timing_report("phases 4-26")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))
     log(smi)

@@ -36,11 +36,20 @@ Functions below:
               reduce-scatter, 1/n of an all-reduce's result).  ZeRO-3's
               gather before use (``sharding/rules.py::compute_view``), so
               a sharded parameter's gradient arrives summed and sharded.
+  reduce_scatter_tiled  forward the sum over the group, this rank's
+              slice kept; backward ``all_gather_tiled`` of the cotangent.
+              The exit of a row-parallel product under sequence
+              parallelism (the residual stream's S over ``model``).
   replicated  the entry of a tensor that every rank of the group holds
               (h): identity forward, its cotangent summed over the group
               backward, as shard_map's transpose does for a replicated
               input.  Without it each rank's dL/dh holds only its own
               shard's terms.
+  all_gather_replicated, split_tiled  the tiled all-gather and its
+              inverse between S-shards and a tensor every rank holds
+              whole with a whole cotangent (replicated compute after it):
+              the first's backward keeps this rank's slice of the
+              cotangent, the second's all-gathers it.
 
 Every call is counted (``collective_counts``: calls and bytes per op).
 Random draws take a ``torch.Generator`` where the reference takes a key;
@@ -173,6 +182,48 @@ class _AllGatherTiled(torch.autograd.Function):
         return _reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
+class _ReduceScatterTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+def _own_slice(x: Tensor, group, dim: int) -> Tensor:
+    n = axis_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(group) * size, size).contiguous()
+
+
+class _AllGatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.group, ctx.dim), None, None
+
+
+class _SplitTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
 def psum(x: Tensor, group) -> Tensor:
     """Sum over the group; the backward passes the cotangent through."""
     return x if group is None else _PSum.apply(x, group)
@@ -205,10 +256,35 @@ def all_gather_tiled(x: Tensor, group, dim: int = 0) -> Tensor:
 def reduce_scatter_tiled(x: Tensor, group, dim: int = 0) -> Tensor:
     """The sum of ``x`` over the group, of which this rank keeps its
     ``dim``-slice in rank order (the transpose of ``all_gather_tiled``);
-    no gradient."""
+    differentiable for float x (the backward all-gathers the cotangent)."""
     if group is None:
         return x
+    if x.is_floating_point() and x.requires_grad:
+        return _ReduceScatterTiled.apply(x, group, dim)
     return _reduce_scatter(x.detach(), group, dim)
+
+
+def all_gather_replicated(x: Tensor, group, dim: int = 0) -> Tensor:
+    """``all_gather_tiled`` into a tensor that every rank then computes on
+    alike: its cotangent is whole on every rank, so the backward keeps
+    this rank's slice of it and communicates nothing (Megatron's
+    sequence-parallel gather with a split backward)."""
+    if group is None:
+        return x
+    if x.is_floating_point() and x.requires_grad:
+        return _AllGatherReplicated.apply(x, group, dim)
+    return _gather(x.detach(), group, dim)
+
+
+def split_tiled(x: Tensor, group, dim: int = 0) -> Tensor:
+    """This rank's ``dim``-slice of a tensor every rank holds alike (the
+    inverse of ``all_gather_replicated``): no collective forward, the
+    cotangent's slices all-gathered backward."""
+    if group is None:
+        return x
+    if x.is_floating_point() and x.requires_grad:
+        return _SplitTiled.apply(x, group, dim)
+    return _own_slice(x, group, dim)
 
 
 def replicated(x: Tensor, group) -> Tensor:

@@ -22,13 +22,15 @@ through the flash kernel's backward on the card), while serving and the
 sampler's statistics call them under ``torch.no_grad()`` or detach the
 result.
 
-On a ``(data, model)`` mesh (a ``ShardCtx``) the recsys, lstm, dense,
-ssm and encdec families' modules hold a rank's shards
-(``train.step.shard_params``): ``backbone_hidden(..., ctx)`` gathers them
-before use, and ``head_table`` gives this rank's vocab rows with their
-feature dim gathered over ``data`` (``rules.gather_head_fd``); a head
-tied to the embedding is the embedding's shard.  The moe and hybrid
-families, MLA and multi-token prediction raise there (ROADMAP.md A17).
+On a ``(data, model)`` mesh (a ``ShardCtx``) every family's module holds
+a rank's shards (``train.step.shard_params``): ``backbone_hidden(...,
+ctx)`` gathers them before use (the moe and hybrid families' experts
+over the model group, MLA over heads, the mtp rows beside the
+backbone's, the expert configs' residual stream S-sharded:
+``models/transformer.py``), and ``head_table`` gives this rank's vocab
+rows with their feature dim gathered over ``data``
+(``rules.gather_head_fd``); a head tied to the embedding is the
+embedding's shard.
 """
 from __future__ import annotations
 
@@ -51,11 +53,11 @@ def _require_ported(cfg: ArchConfig) -> None:
 
 
 def require_mesh_layout(cfg: ArchConfig) -> None:
-    """Raise for a config whose parameters this port does not yet store by
-    the reference's rules on a mesh: the moe and hybrid families, MLA and
-    multi-token prediction (``transformer.require_mesh_layout``)."""
-    if cfg.family in transformer.LM_FAMILIES:
-        transformer.require_mesh_layout(cfg)
+    """Raise for a config whose parameters this port does not store by the
+    reference's rules on a mesh: a family not ported (every ported
+    family's layouts are, experts, MLA and multi-token prediction
+    included)."""
+    _require_ported(cfg)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -84,7 +86,17 @@ def init_module(cfg: ArchConfig, gen: torch.Generator,
                 ctx=None) -> torch.nn.Module:
     """``init_params`` as an ``nn.Module``, what a ``TrainState`` holds:
     an LM's tree wrapped in a ``StackedLM``, an encoder-decoder's in an
-    ``EncDec`` (no copy)."""
+    ``EncDec`` (no copy).  An LM on a mesh ``ctx`` is drawn straight into
+    this rank's shards (``transformer.init_lm(..., shard=True)``; its
+    ``param_specs`` set as ``train.step.shard_params`` sets them); the
+    other families' modules are whole."""
+    if cfg.family in transformer.LM_FAMILIES and rules.on_mesh(ctx):
+        dev = resolve_device(device)
+        model = transformer.StackedLM(cfg, dev, tree=transformer.init_lm(
+            gen, cfg, dev, ctx=ctx, shard=True))
+        model.param_specs = rules.param_specs_for(
+            abstract_params(cfg, ctx=ctx), ctx)
+        return model
     params = init_params(cfg, gen, device, max_len, ctx=ctx)
     if cfg.family in transformer.LM_FAMILIES:
         return transformer.StackedLM(cfg, resolve_device(device),
@@ -173,8 +185,6 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
     (``ctx``) the rank's batch block through its shards (an
     encoder-decoder's frames and tokens of the same rows)."""
     _require_ported(cfg)
-    if rules.on_mesh(ctx):
-        require_mesh_layout(cfg)
     if cfg.family in transformer.LM_FAMILIES + ("lstm",):
         if cfg.family == "lstm":
             h, aux = lstm_lm.hidden_states(params, batch["tokens"], cfg,
@@ -185,7 +195,8 @@ def backbone_hidden(params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
         d = h.shape[-1]
         hf, labels = h.reshape(-1, d), batch["labels"].reshape(-1)
         if cfg.mtp and cfg.family != "lstm":
-            h_mtp = transformer.mtp_hidden(params, h, batch["tokens"], cfg)
+            h_mtp = transformer.mtp_hidden(params, h, batch["tokens"], cfg,
+                                           ctx)
             hf = torch.cat([hf, h_mtp[:, :-1].reshape(-1, d)], dim=0)
             labels = torch.cat([labels, batch["labels"][:, 2:].reshape(-1)])
         return hf, labels, aux

@@ -16,7 +16,14 @@ Conventions, as in the reference:
     ``bo``/``b_down`` are added after it.  The attention then runs over
     this rank's heads.  ``apply_embed`` with ``group`` is the
     vocab-parallel lookup of a V-sharded table.  ``group=None``: one
-    device's computation.
+    device's computation.  With ``seq`` (``sharding.rules.seq_sharded``:
+    the residual stream's sequence over the model group, Megatron's
+    sequence parallelism) x arrives as this rank's (B, S / tp, d) rows:
+    the input enters through ``distributed.all_gather_tiled`` over S
+    (its backward a reduce-scatter of the heads' partial cotangents), the
+    row-parallel output leaves through ``reduce_scatter_tiled`` over S,
+    and the embedding's lookup is reduce-scattered over S in place of its
+    psum (``tp_enter`` / ``tp_exit``).
 
 Full-sequence attention (``attn_forward``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors (with its
@@ -113,12 +120,32 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig,
                                 _pdtype(cfg), device, scale=0.02)}
 
 
+def tp_enter(x: Tensor, group, seq: bool = False) -> Tensor:
+    """A tensor-parallel block's input: Megatron's f
+    (``distributed.replicated``), or with ``seq`` this rank's S-shard
+    all-gathered over S."""
+    if seq:
+        return distributed.all_gather_tiled(x, group, dim=1)
+    return distributed.replicated(x, group)
+
+
+def tp_exit(y: Tensor, group, seq: bool = False) -> Tensor:
+    """A row-parallel output's partial sums over ``group``: Megatron's g
+    (``distributed.psum``), or with ``seq`` their sum reduce-scattered
+    over S (this rank's S-shard of it)."""
+    if seq:
+        return distributed.reduce_scatter_tiled(y, group, dim=1)
+    return distributed.psum(y, group)
+
+
 def embed_rows(table: Tensor, ids: Tensor, group=None,
-               dtype: torch.dtype | None = None) -> Tensor:
+               dtype: torch.dtype | None = None, seq: bool = False
+               ) -> Tensor:
     """``table[ids]`` (cast to ``dtype`` where given).  With ``group``,
     ``table`` is this rank's vocab shard: ids outside it give zero rows,
     and the psum over the group gives each id its owner's row (the
-    gradient reaches the owner's rows only)."""
+    gradient reaches the owner's rows only); with ``seq`` the sum is
+    reduce-scattered over S (``tp_exit``)."""
     if group is None:
         rows = table[ids]
         return rows if dtype is None else rows.to(dtype)
@@ -128,15 +155,15 @@ def embed_rows(table: Tensor, ids: Tensor, group=None,
     rows = table[torch.clamp(ids - off, 0, n_l - 1)]
     if dtype is not None:
         rows = rows.to(dtype)
-    return distributed.psum(torch.where(own[..., None], rows, 0.0), group)
+    return tp_exit(torch.where(own[..., None], rows, 0.0), group, seq)
 
 
 def apply_embed(p: Params, ids: Tensor, cfg: ArchConfig,
-                group=None) -> Tensor:
+                group=None, seq: bool = False) -> Tensor:
     """Rows of the table, cast to the compute dtype (gathered first, then
     cast: the same values as the reference's cast-then-gather); with
     ``group`` a vocab shard's (``embed_rows``)."""
-    return embed_rows(p["table"], ids, group, _dtype(cfg))
+    return embed_rows(p["table"], ids, group, _dtype(cfg), seq)
 
 
 def init_pos_embed(gen: torch.Generator, cfg: ArchConfig, max_pos: int,
@@ -237,35 +264,38 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
 
 def _row_parallel_out(y: Tensor, p: Params, bias: str, cfg: ArchConfig,
-                      group) -> Tensor:
-    """A row-parallel projection's partial sums over ``group`` (g), then
-    its replicated bias, where the layer has one."""
-    y = distributed.psum(y, group)
+                      group, seq: bool = False) -> Tensor:
+    """A row-parallel projection's partial sums over ``group``
+    (``tp_exit``), then its replicated bias, where the layer has one."""
+    y = tp_exit(y, group, seq)
     if bias in p:
         y = y + p[bias].to(_dtype(cfg))
     return y
 
 
 def attn_prefill(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
-                 *, causal: bool = True, group=None
+                 *, causal: bool = True, group=None, seq: bool = False
                  ) -> tuple[Tensor, Tensor, Tensor]:
     """Full-sequence self-attention through ``ops.flash_attention``.
     x: (B, S, d) -> (y (B, S, d), k and v (B, S, KV, hd) for a cache);
-    under TP (``group``) over this rank's heads, k and v its own."""
-    x = distributed.replicated(x, group)
+    under TP (``group``) over this rank's heads, k and v its own; with
+    ``seq`` x and y are this rank's S-shards (positions stay the whole
+    sequence's)."""
+    x = tp_enter(x, group, seq)
     q, k, v = _qkv(p, x, cfg, positions, rope_on=not cfg.learned_pos)
     out = ops.flash_attention(q, k, v, causal=causal)
     b, s = x.shape[0], x.shape[1]
     y = out.reshape(b, s, -1) @ p["wo"].to(_dtype(cfg))
-    return _row_parallel_out(y, p, "bo", cfg, group), k, v
+    return _row_parallel_out(y, p, "bo", cfg, group, seq), k, v
 
 
 def attn_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
-                 *, causal: bool = True, group=None) -> Tensor:
+                 *, causal: bool = True, group=None,
+                 seq: bool = False) -> Tensor:
     """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d);
     differentiable in x and every parameter of ``p``."""
     return attn_prefill(p, x, positions, cfg, causal=causal,
-                        group=group)[0]
+                        group=group, seq=seq)[0]
 
 
 def cross_kv(p: Params, enc: Tensor, cfg: ArchConfig
@@ -344,16 +374,17 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
     return p
 
 
-def apply_mlp(p: Params, x: Tensor, cfg: ArchConfig, group=None) -> Tensor:
+def apply_mlp(p: Params, x: Tensor, cfg: ArchConfig, group=None,
+              seq: bool = False) -> Tensor:
     """SwiGLU (with ``w_gate``) or a plain MLP with the TANH-approximated
     gelu, which is ``jax.nn.gelu``'s default; under TP (``group``) over
-    this rank's d_ff columns."""
+    this rank's d_ff columns, with ``seq`` on S-shards."""
     dt = _dtype(cfg)
-    x = distributed.replicated(x, group)
+    x = tp_enter(x, group, seq)
     up = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")
     return _row_parallel_out(h @ p["w_down"].to(dt), p, "b_down", cfg,
-                             group)
+                             group, seq)

@@ -34,8 +34,12 @@ both halves (the gather's backward reduce-scatters the gradient).  The
 block's input enters through Megatron's f; ``x_proj`` is row-parallel,
 and since every channel then reads the whole (dt, B, C), its partial sums
 are all-reduced in the forward AND the backward (g, then f);
-``out_proj``'s partial sums leave through g.  The collectives run outside
-the scan's chunk checkpoints, so a chunk's recompute runs none.
+``out_proj``'s partial sums leave through g.  Under sequence parallelism
+(``seq``) the block's input is this rank's S-shard, all-gathered over S
+before ``in_proj`` (the scan runs over the whole sequence of the rank's
+channels), and ``out_proj``'s partial sums are reduce-scattered over S
+(``layers.tp_enter`` / ``tp_exit``).  The collectives run outside the
+scan's chunk checkpoints, so a chunk's recompute runs none.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import distributed
-from repro_torch.models.layers import _pdtype, dense_init
+from repro_torch.models.layers import _pdtype, dense_init, tp_enter, tp_exit
 from repro_torch.sharding import rules
 
 Tensor = torch.Tensor
@@ -200,38 +204,39 @@ def _scan_noskip(p: Params, xc: Tensor, cfg: ArchConfig,
 
 
 def _gate_out(p: Params, y: Tensor, xc: Tensor, z: Tensor,
-              group=None) -> Tensor:
+              group=None, seq: bool = False) -> Tensor:
     """(y + D * xc) * silu(z) @ out_proj, in z's dtype; with ``group`` the
-    row-parallel projection's partial sums summed over it (g)."""
+    row-parallel projection's partial sums summed over it (``tp_exit``)."""
     dt = z.dtype
     y = y + p["d"] * xc.float()
-    return distributed.psum((y.to(dt) * F.silu(z)) @ _out_proj(p).to(dt),
-                            group)
+    return tp_exit((y.to(dt) * F.silu(z)) @ _out_proj(p).to(dt), group, seq)
 
 
 def apply_mamba(p: Params, x: Tensor, cfg: ArchConfig,
-                chunk: int = 256, group=None) -> Tensor:
+                chunk: int = 256, group=None, seq: bool = False) -> Tensor:
     """Full-sequence mamba block (train / prefill).  x: (B, S, d); with
-    ``group`` channel-parallel over it (``p`` from ``mesh_view``)."""
-    return mamba_prefill(p, x, cfg, chunk, group)[0]
+    ``group`` channel-parallel over it (``p`` from ``mesh_view``), with
+    ``seq`` on S-shards."""
+    return mamba_prefill(p, x, cfg, chunk, group, seq)[0]
 
 
 def mamba_prefill(p: Params, x: Tensor, cfg: ArchConfig, chunk: int = 256,
-                  group=None) -> tuple[Tensor, Params]:
+                  group=None, seq: bool = False) -> tuple[Tensor, Params]:
     """``apply_mamba`` with the cache it leaves: (y (B, S, d), {"conv": the
     last K-1 inputs of the conv (B, K-1, di), "ssm": the state after the
     last token (B, di, n) fp32}): the reference's inline prefill branch
     (``repro.models.transformer.prefill``).  With ``group`` (the module
     docstring) y is whole and the cache holds this rank's channels."""
     dt = x.dtype
-    x = distributed.replicated(x, group)
+    x = tp_enter(x, group, seq)
     xz = x @ p["in_proj"].to(dt)
     di = xz.shape[-1] // 2  # the rank's channels under TP
     x_in, z = xz[..., :di], xz[..., di:]
     xc, window = _causal_conv(x_in, p["conv_w"].to(dt), p["conv_b"].to(dt))
     xc = F.silu(xc)
     y, h_last = _scan_noskip(p, xc, cfg, chunk=chunk, group=group)
-    return _gate_out(p, y, xc, z, group), {"conv": window, "ssm": h_last}
+    return (_gate_out(p, y, xc, z, group, seq),
+            {"conv": window, "ssm": h_last})
 
 
 def channel_columns(in_proj: Tensor, group) -> Tensor:

@@ -10,6 +10,16 @@ token one latent row of ``kv_lora_rank + qk_rope_dim`` values, against
 which the query, absorbed through ``wkv_b``'s key half, attends like
 GQA with one latent "KV head"; plain tensor ops in fp32, as the
 reference computes it (no Pallas kernel backs it there either).
+
+On a ``(data, model)`` mesh under TP (``mla_forward(..., group=)``, the
+reference's rules) the expanded form runs over this rank's heads:
+``wq_b`` and ``wkv_b`` are column-parallel over heads, ``wo``
+row-parallel, and the latent projections ``wq_a`` / ``wkv_a`` and their
+norms whole on every model rank (gathered over ``data``).  The input
+enters and the output leaves as the other tensor-parallel blocks'
+(``layers.tp_enter`` / ``tp_exit``; with ``seq`` on S-shards).  The
+latents feed this rank's heads alone, so each model rank holds a part of
+their leaves' gradients (``rules.model_partial``).
 """
 from __future__ import annotations
 
@@ -77,11 +87,15 @@ def _latent(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
 
 
 def mla_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
-                *, causal: bool = True) -> Tensor:
+                *, causal: bool = True, group=None,
+                seq: bool = False) -> Tensor:
     """Expanded-form MLA for training and prefill: x (B, S, d) -> (B, S,
     d), differentiable.  q and k (B, S, H, nope + rope) and v (B, S, H, v)
     go through ``ops.flash_attention`` in one call (no KV sharing: k's rope
-    half is the one latent rope row, copied to every head)."""
+    half is the one latent rope row, copied to every head).  Under TP
+    (``group``) over this rank's heads (the module docstring), with
+    ``seq`` on S-shards."""
+    x = L.tp_enter(x, group, seq)
     dt = x.dtype
     b, s = x.shape[0], x.shape[1]
     nope, rpe, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -94,7 +108,8 @@ def mla_forward(p: Params, x: Tensor, positions: Tensor, cfg: ArchConfig,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, nh, rpe)],
                   dim=-1)
     out = ops.flash_attention(q, k, v, causal=causal)
-    return out.reshape(b, s, nh * vh) @ p["wo"].to(dt)
+    return L.tp_exit(out.reshape(b, s, nh * vh) @ p["wo"].to(dt), group,
+                     seq)
 
 
 def mla_latent_cache(p: Params, x: Tensor, positions: Tensor,

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN of the port (``repro.models.moe``), the
-mesh-free path.
+"""Mixture-of-Experts FFN of the port (``repro.models.moe``).
 
 Dispatch is capacity-based, as in the reference (GShard semantics): each
 expert takes at most ``capacity`` assignments, ranked in the order of
@@ -8,8 +7,27 @@ are dropped.  Kept slots are unique, so dispatch copies each kept token
 into its slot (no float atomics).  The experts run as batched products over
 their (E, capacity, d) slots, every expert every call, empty slots
 included.  Combine adds the k contributions in the order j = 0..k-1 in
-x's dtype, a dropped assignment adding 0.  Expert parallelism over a mesh
-arrives with ROADMAP.md A17.
+x's dtype, a dropped assignment adding 0.
+
+On a ``(data, model)`` mesh in tp_fsdp (``apply_moe(..., ctx)``; the
+reference's shard_map branch) a model rank owns the experts
+``[e_lo, e_lo + E / tp)``, ``e_lo = model position * E / tp``: their
+``w_gate`` / ``w_up`` / ``w_down`` shards (the ``M`` rule on the expert
+dim), gathered whole over ``data`` by ``rules.compute_view`` (ZeRO-3).
+The layer's input enters as the tensor-parallel blocks' does
+(``layers.tp_enter``: Megatron's f, or the all-gather of S under sequence
+parallelism), so every model rank routes the same whole token set of its
+data rows; the capacity comes from those rows alone (``t_local``), so the
+mesh drops per data shard exactly as the mesh-free layer would on that
+shard's rows.  Each rank dispatches to, runs and combines its own experts
+(the same slots the whole layer gives them), the shared experts' Megatron
+column/row-parallel partial sums join that partial output, and ONE
+reduction over ``model`` (``layers.tp_exit``: a psum, or a reduce-scatter
+over S) combines both.  aux is the mean over ``data`` of each data
+shard's (alike on its model ranks).  Each model rank's router gradient
+is a part (its experts' combine weights only): the train step sums it
+over ``model`` as well as ``data`` (``rules.model_partial``).
+pure_fsdp with experts raises, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -19,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import _pdtype, dense_init
+from repro_torch.core import distributed
+from repro_torch.models.layers import _pdtype, dense_init, tp_enter, tp_exit
+from repro_torch.sharding import rules
 from repro_torch.utils.misc import top_k
 
 Tensor = torch.Tensor
@@ -106,12 +126,19 @@ def _expert_compute(xe: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
 
 def _dispatch_compute_combine(x2d: Tensor, ids: Tensor, w: Tensor,
                               wg: Tensor, wu: Tensor, wd: Tensor,
-                              cfg: ArchConfig, cap: int) -> Tensor:
-    """Slot tokens into the experts' (E, cap) slots, run them, combine
-    back: (T, d) in x's dtype."""
+                              cfg: ArchConfig, cap: int, e_lo: int = 0
+                              ) -> Tensor:
+    """Slot tokens into the (E_l, cap) slots of the experts ``[e_lo, e_lo
+    + E_l)`` (E_l = ``wg.shape[0]``; the whole layer's slots, those
+    experts' share of them), run them, combine back: those experts'
+    contribution (T, d) in x's dtype, the layer's output where they are
+    all of them."""
     t, d = x2d.shape
     e = wg.shape[0]
-    slot, keep = _slots(ids, e, cap)
+    slot, keep = _slots(ids, cfg.n_experts, cap)
+    if e != cfg.n_experts:
+        keep = keep & (ids >= e_lo) & (ids < e_lo + e)
+        slot = torch.where(keep, slot - e_lo * cap, e * cap)
     xe = x2d.new_zeros((e * cap + 1, d))
     kept = keep.reshape(-1).nonzero()[:, 0]
     xe[slot.reshape(-1)[kept]] = x2d[kept // cfg.moe_top_k]
@@ -124,25 +151,65 @@ def _dispatch_compute_combine(x2d: Tensor, ids: Tensor, w: Tensor,
     return y
 
 
-def apply_moe(p: Params, x: Tensor, cfg: ArchConfig, ctx=None
-              ) -> tuple[Tensor, Tensor]:
-    """MoE FFN.  x: (B, S, d).  Returns (y (B, S, d), aux_loss)."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet (ROADMAP.md A17)")
+def dropped(ids: Tensor, cfg: ArchConfig, cap: int, e_lo: int = 0,
+            e_l: int | None = None) -> int:
+    """Assignments of a routing ``ids`` (T, k) to the experts ``[e_lo,
+    e_lo + e_l)`` (all of them by default) that the capacity ``cap``
+    drops."""
+    _, keep = _slots(ids, cfg.n_experts, cap)
+    e_l = cfg.n_experts if e_l is None else e_l
+    mine = (ids >= e_lo) & (ids < e_lo + e_l)
+    return int((mine & ~keep).sum())
+
+
+def _shared(sh: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The shared experts' FFN of x (B, S, d); under TP this rank's
+    columns' partial sums."""
+    dt = x.dtype
+    up = x @ sh["w_up"].to(dt)
+    if cfg.act == "silu":
+        h = F.silu(x @ sh["w_gate"].to(dt)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ sh["w_down"].to(dt)
+
+
+def _mesh_aux(aux: Tensor, ctx) -> Tensor:
+    """aux's mean over the data shards (the reference's pmean over
+    ``model``, whose ranks hold it alike, and ``data``), its gradient the
+    rank's own aux over tp * dp: the train step sums the router's and x's
+    gradients over both, which gives the mean's gradient."""
+    n = ctx.tp * ctx.axis_size(ctx.data_axes)
+    mean = distributed.psum(aux.detach(), ctx.data_group) / ctx.axis_size(
+        ctx.data_axes)
+    own = aux / n
+    return own + (mean - own).detach()
+
+
+def apply_moe(p: Params, x: Tensor, cfg: ArchConfig, ctx=None,
+              seq: bool = False) -> tuple[Tensor, Tensor]:
+    """MoE FFN.  x: (B, S, d).  Returns (y (B, S, d), aux_loss).  On a
+    mesh (a ``ShardCtx``; the module docstring) ``p`` is the layer's
+    compute view, its experts this rank's, and x this rank's data rows
+    (with ``seq`` their S-shard: y is too)."""
+    mesh = rules.on_mesh(ctx)
+    if mesh and ctx.mode == "pure_fsdp":
+        raise ValueError("MoE archs must use tp_fsdp sharding (experts live "
+                         "on `model`)")
+    group = rules.tp_group(ctx)
+    e_l = p["w_gate"].shape[0]
+    if mesh and e_l * ctx.tp != cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts over tp {ctx.tp}: a "
+                         f"rank holds {e_l}")
+    x = tp_enter(x, group, seq)
     b, s, d = x.shape
     dt = x.dtype
     x2d = x.reshape(b * s, d)
     ids, w, aux = _route(p, x2d, cfg)
     y = _dispatch_compute_combine(
         x2d, ids, w, p["w_gate"].to(dt), p["w_up"].to(dt),
-        p["w_down"].to(dt), cfg, capacity(b * s, cfg)).reshape(b, s, d)
+        p["w_down"].to(dt), cfg, capacity(b * s, cfg),
+        e_lo=ctx.model_index * e_l if mesh else 0).reshape(b, s, d)
     if cfg.n_shared_experts:
-        sh = p["shared"]
-        up = x @ sh["w_up"].to(dt)
-        if cfg.act == "silu":
-            h = F.silu(x @ sh["w_gate"].to(dt)) * up
-        else:
-            h = F.gelu(up, approximate="tanh")
-        y = y + h @ sh["w_down"].to(dt)
-    return y, aux
+        y = y + _shared(p["shared"], x, cfg)
+    return tp_exit(y, group, seq), _mesh_aux(aux, ctx) if mesh else aux

@@ -31,17 +31,24 @@ forward again there.  With ``cfg.learned_pos`` RoPE is off and a tree's
 the reference (whose ``init_lm`` draws none).  The encoder-decoder family
 is ``models/encdec.py``.
 
-On a ``(data, model)`` mesh (``sharding/rules.py``) a ``StackedLM`` of the
-dense or the ssm family (without MLA or multi-token prediction) holds
-this rank's shard of every parameter by the reference's rules
-(``shard_params`` of ``train/step.py`` sets its ``param_specs``), and
-``hidden_states(..., ctx)`` runs each layer on ``rules.compute_view`` of
-its shards, gathered inside the layer's remat region so a recompute
-gathers again: whole in ``pure_fsdp`` (the rank's own batch rows), the
-Megatron slices in ``tp_fsdp`` (``layers``' TP attention and MLP over the
-model group, ``mamba``'s channel-parallel block, the embedding
-vocab-parallel).  The moe and hybrid families, MLA and mtp (every such
-config has experts), the caches, prefill and decode stay single-device on
+On a ``(data, model)`` mesh (``sharding/rules.py``) a ``StackedLM`` of any
+of the four families holds this rank's shard of every parameter by the
+reference's rules (``shard_params`` of ``train/step.py`` sets its
+``param_specs``), and ``hidden_states(..., ctx)`` runs each layer on
+``rules.compute_view`` of its shards, gathered inside the layer's remat
+region so a recompute gathers again: whole in ``pure_fsdp`` (the rank's
+own batch rows), the Megatron slices in ``tp_fsdp`` (``layers``' TP
+attention and MLP and ``mla``'s head-parallel MLA over the model group,
+``mamba``'s channel-parallel block, ``moe``'s experts over the model
+group, the embedding vocab-parallel).  With ``ctx.seq_residuals`` (the
+expert configs') the residual stream between the layers is this rank's
+S-shard, (B, S / tp, d), wherever tp divides S (``rules.seq_sharded``,
+the reference's ``fit_spec`` of its ``"bO."`` spec): norms run on the
+shard, each block all-gathers S on entry and reduce-scatters its output
+over S, the embedding's lookup is reduce-scattered over S, and h is
+gathered whole after the final norm (``distributed.all_gather_replicated``),
+as the reference returns it.  ``mtp_hidden``'s S - 1 rows take the same
+rule on their own.  The caches, prefill and decode stay single-device on
 a mesh (ROADMAP.md A17).
 
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
@@ -61,6 +68,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
@@ -75,21 +83,6 @@ Params = dict
 #: the families this module serves
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
-
-#: the decoder LMs whose layers a mesh stores by the reference's rules
-MESH_FAMILIES = ("dense", "ssm")
-
-
-def require_mesh_layout(cfg: ArchConfig) -> None:
-    """Raise for a config whose layers this port does not yet store by the
-    reference's rules on a mesh: the moe and hybrid families, MLA and
-    multi-token prediction."""
-    if cfg.family not in MESH_FAMILIES or cfg.mla or cfg.mtp:
-        what = ("MLA and multi-token prediction" if cfg.mla or cfg.mtp
-                else f"the {cfg.family} family")
-        raise NotImplementedError(
-            f"'{cfg.name}' on a mesh: {what}'s storage layouts are not "
-            "ported (ROADMAP.md A17)")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -281,8 +274,25 @@ def _stacked(count: int, make) -> Params:
 
 
 def _init_segment(gen: torch.Generator, kind: str, count: int,
-                  cfg: ArchConfig, device: torch.device, tp: int) -> Params:
-    return _stacked(count, lambda: _init_layer(gen, kind, cfg, device, tp))
+                  cfg: ArchConfig, device: torch.device, tp: int,
+                  keep=None, prefix: str = "") -> Params:
+    """A segment's stacked layers; ``keep(name, tensor)``, where given,
+    takes each layer's leaves as soon as the layer is drawn (names
+    ``<prefix><layer>.<path>``)."""
+    i = iter(range(count))
+
+    def make():
+        layer = _init_layer(gen, kind, cfg, device, tp)
+        return layer if keep is None else _keep_tree(
+            keep, f"{prefix}{next(i)}.", layer)
+
+    return _stacked(count, make)
+
+
+def _keep_tree(keep, prefix: str, tree: Params) -> Params:
+    """``keep(prefix + path, leaf)`` in place of each leaf of ``tree``."""
+    return {k: _keep_tree(keep, f"{prefix}{k}.", v) if isinstance(v, dict)
+            else keep(prefix + k, v) for k, v in tree.items()}
 
 
 def _copy_into(dst, src) -> None:
@@ -295,7 +305,7 @@ def _copy_into(dst, src) -> None:
 
 def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
             device: str | torch.device | None = None, tp: int = 1,
-            ctx=None) -> Params:
+            ctx=None, shard: bool = False) -> Params:
     """Random weights from ``gen`` on ``device`` (the card unless
     ``device="cpu"``).  Heads are padded to a multiple of ``tp`` and the
     vocab to ``tp`` rows; with a mesh ``ctx`` the heads to its backbone's
@@ -303,8 +313,16 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
     ``ctx.tp``: 1 and the model axis in pure_fsdp), as the reference's
     ``init_lm``.  Vocab rows at and after ``vocab_size`` are zero, as in
     the reference.  On the ``meta`` device nothing is drawn (``gen`` may
-    be None): the tree's shapes and dtypes."""
+    be None): the tree's shapes and dtypes.  With ``shard`` (and a mesh
+    ``ctx``) the same weights are drawn, and each leaf is cut to this
+    rank's shard (``rules.spec_for``) as soon as its layer is drawn, so a
+    rank never holds more than one layer whole."""
     require_ported(cfg)
+    keep = None
+    if shard and rules.on_mesh(ctx):
+        def keep(name, t):
+            return rules.shard_by_spec(
+                t, rules.spec_for(name, t.shape, ctx), ctx)
     dev = resolve_device(device)
     nvp = padded_vocab(cfg, ctx.tp if rules.on_mesh(ctx) else tp)
     if rules.on_mesh(ctx):
@@ -318,10 +336,15 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
         head = L.dense_init(gen, (nvp, cfg.d_model), pd, dev, scale=0.02)
         head[cfg.vocab_size:] = 0
         params["head"] = {"w": head}
-    params["segments"] = [_init_segment(gen, kind, count, cfg, dev, tp)
-                          for kind, count in segments_of(cfg)]
+    if keep is not None:
+        params = _keep_tree(keep, "", params)
+        emb = head = None  # only the tables' shards are kept
+    params["segments"] = [
+        _init_segment(gen, kind, count, cfg, dev, tp, keep,
+                      f"segments.{s}.")
+        for s, (kind, count) in enumerate(segments_of(cfg))]
     if cfg.mtp:
-        params["mtp"] = {
+        mtp = {
             "proj": L.dense_init(gen, (2 * cfg.d_model, cfg.d_model), pd,
                                  dev),
             "norm_h": L.init_norm(cfg, dev),
@@ -329,6 +352,8 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
             "block": _init_layer(gen, "attn+mlp", cfg, dev, tp),
             "final_norm": L.init_norm(cfg, dev),
         }
+        params["mtp"] = mtp if keep is None else _keep_tree(keep, "mtp.",
+                                                            mtp)
     return params
 
 
@@ -336,40 +361,47 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
 
 
 def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig,
-               group=None) -> tuple[Tensor, Tensor | None]:
+               group=None, ctx=None, seq: bool = False
+               ) -> tuple[Tensor, Tensor | None]:
     """x + the layer's FFN (MLP, MoE or none) of norm2(x), and the MoE's
-    aux loss (None for the others); the MLP tensor-parallel over
-    ``group``."""
+    aux loss (None for the others); on a mesh (``ctx``) the MLP
+    tensor-parallel over ``group`` and the MoE's experts over the model
+    group, with ``seq`` on S-shards."""
     if ffn == "none":
         return x, None
     h = L.apply_norm(p["norm2"], x, cfg)
     if ffn == "moe":
-        y, aux = MOE.apply_moe(p["moe"], h, cfg)
+        y, aux = MOE.apply_moe(p["moe"], h, cfg, ctx, seq)
         return x + y, aux
-    return x + L.apply_mlp(p["mlp"], h, cfg, group=group), None
+    return x + L.apply_mlp(p["mlp"], h, cfg, group=group, seq=seq), None
 
 
 def _apply_layer(kind: str, p: Params, x: Tensor, positions: Tensor,
-                 cfg: ArchConfig, ctx=None, specs: Params | None = None
-                 ) -> tuple[Tensor, Tensor | None]:
-    """One layer; on a mesh (``specs``, the layer's; the dense and ssm
-    families) its shards are gathered here first (``rules.compute_view``;
-    a mamba block's by ``mamba.mesh_view``) and the attention, MLP and
-    mamba block run tensor-parallel over ``rules.tp_group(ctx)``."""
+                 cfg: ArchConfig, ctx=None, specs: Params | None = None,
+                 seq: bool = False) -> tuple[Tensor, Tensor | None]:
+    """One layer; on a mesh (``specs``, the layer's) its shards are
+    gathered here first (``rules.compute_view``; a mamba block's by
+    ``mamba.mesh_view``) and the attention (GQA or MLA), MLP, MoE and
+    mamba block run tensor-parallel over ``rules.tp_group(ctx)``; with
+    ``seq`` x is this rank's S-shard and positions the whole sequence's."""
     mixer, ffn = kind.split("+")
     group = None
     if specs is not None:
         group = rules.tp_group(ctx)
         p = {k: M.mesh_view(v, specs[k], ctx, group) if k == "mamba"
              else rules.gather_tree(v, specs[k], ctx) for k, v in p.items()}
-    h = L.apply_norm(p["norm1"], x, cfg)
-    if mixer == "attn":
-        x = x + (MLA.mla_forward(p["attn"], h, positions, cfg) if cfg.mla
-                 else L.attn_forward(p["attn"], h, positions, cfg,
-                                     group=group))
     else:
-        x = x + M.apply_mamba(p["mamba"], h, cfg, group=group)
-    return _apply_ffn(ffn, p, x, cfg, group)
+        ctx = None
+    h = L.apply_norm(p["norm1"], x, cfg)
+    if mixer == "attn" and cfg.mla:
+        x = x + MLA.mla_forward(p["attn"], h, positions, cfg, group=group,
+                                seq=seq)
+    elif mixer == "attn":
+        x = x + L.attn_forward(p["attn"], h, positions, cfg, group=group,
+                               seq=seq)
+    else:
+        x = x + M.apply_mamba(p["mamba"], h, cfg, group=group, seq=seq)
+    return _apply_ffn(ffn, p, x, cfg, group, ctx, seq)
 
 
 def _positions(b: int, s: int, device: torch.device) -> Tensor:
@@ -378,17 +410,17 @@ def _positions(b: int, s: int, device: torch.device) -> Tensor:
 
 def _embed(top: Params, tokens: Tensor, cfg: ArchConfig,
            pos: Tensor | None = None, ctx=None,
-           specs: Params | None = None) -> Tensor:
+           specs: Params | None = None, seq: bool = False) -> Tensor:
     """The tokens' embeddings, plus the learned position table's rows
     where ``cfg.learned_pos`` and the tree has one: positions 0..S-1, or
     ``pos`` (B,) for a one-token step.  On a mesh (``specs``; no position
-    table) the table's ``compute_view``:
-    vocab-parallel under TP, whole in pure_fsdp."""
+    table) the table's ``compute_view``: vocab-parallel under TP (with
+    ``seq`` this rank's S-shard of the rows), whole in pure_fsdp."""
     if specs is not None:
         spec = specs["embed"]["table"]
         return L.apply_embed(
             {"table": rules.compute_view(top["embed"]["table"], spec, ctx)},
-            tokens, cfg, rules.vocab_group(spec, ctx))
+            tokens, cfg, rules.vocab_group(spec, ctx), seq)
     x = L.apply_embed(top["embed"], tokens, cfg)
     if cfg.learned_pos and "pos_embed" in top:
         table = top["pos_embed"]["table"]
@@ -405,22 +437,16 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
     ``StackedLM``; differentiable.  With ``cfg.remat`` and grad enabled
     each layer is checkpointed: its forward runs again in the backward.
 
-    On a mesh ``params`` is a sharded ``StackedLM`` of the dense or ssm
-    family and ``tokens`` this rank's batch rows; h is its rows' states
-    (alike over the model group under TP)."""
+    On a mesh ``params`` is a sharded ``StackedLM`` and ``tokens`` this
+    rank's batch rows; h is its rows' states, whole and alike over the
+    model group under TP (gathered over S after the final norm where the
+    residual stream is S-sharded)."""
     require_ported(cfg)
-    specs = None
-    if rules.on_mesh(ctx):
-        require_mesh_layout(cfg)
-        if isinstance(params, StackedLM):
-            specs = params.spec_tree()
-        if specs is None:
-            raise ValueError("on a mesh hidden_states takes a StackedLM "
-                             "of the rank's shards (train.step."
-                             "shard_params)")
+    specs = _mesh_specs(params, ctx)
     b, s = tokens.shape
+    seq = rules.seq_sharded(ctx, s)
     top = _top(params)
-    x = _embed(top, tokens, cfg, ctx=ctx, specs=specs)
+    x = _embed(top, tokens, cfg, ctx=ctx, specs=specs, seq=seq)
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -431,14 +457,34 @@ def hidden_states(params, tokens: Tensor, cfg: ArchConfig,
         for lp, ls in zip(layers, lspecs):
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    _apply_layer, kind, lp, x, positions, cfg, ctx, ls,
+                    _apply_layer, kind, lp, x, positions, cfg, ctx, ls, seq,
                     use_reentrant=False)
             else:
-                x, a = _apply_layer(kind, lp, x, positions, cfg, ctx, ls)
+                x, a = _apply_layer(kind, lp, x, positions, cfg, ctx, ls,
+                                    seq)
             if a is not None:
                 aux = aux + a
     x = L.apply_norm(top["final_norm"], x, cfg)
+    if seq:
+        x = distributed.all_gather_replicated(x, ctx.model_group, dim=1)
     return x, aux
+
+
+def _mesh_specs(params, ctx) -> Params | None:
+    """The spec tree of a mesh rank's ``StackedLM`` (None off a mesh)."""
+    if not rules.on_mesh(ctx):
+        return None
+    specs = params.spec_tree() if isinstance(params, StackedLM) else None
+    if specs is None:
+        raise ValueError("on a mesh the LM takes a StackedLM of the rank's "
+                         "shards (train.step.shard_params)")
+    return specs
+
+
+def residual_rows(name: str, s: int) -> int:
+    """The rows of the residual stream a parameter ``name`` of the LM acts
+    on at sequence length ``s``: the mtp trunk's S - 1, the rest's S."""
+    return s - 1 if name.startswith("mtp.") else s
 
 
 def mtp_hidden(params, h: Tensor, tokens: Tensor, cfg: ArchConfig,
@@ -446,18 +492,35 @@ def mtp_hidden(params, h: Tensor, tokens: Tensor, cfg: ArchConfig,
     """DeepSeek-style multi-token-prediction trunk: h_t (the backbone's
     final hidden state) with the embedding of token t+1, to predict token
     t+2.  h: (B, S, d); tokens: (B, S) -> (B, S-1, d); differentiable (its
-    block is never rematerialized, as in the reference)."""
-    require_unsharded(ctx)
+    block is never rematerialized, as in the reference).  On a mesh its
+    block runs as the backbone's layers do, over the S - 1 rows'
+    own ``rules.seq_sharded`` rule (h is whole: its rows are split here
+    where the rule shards them, and the result gathered back)."""
+    specs = _mesh_specs(params, ctx)
     top = _top(params)
     p = top["mtp"]
     b, s = tokens.shape
-    emb_next = L.apply_embed(top["embed"], tokens[:, 1:], cfg)
-    hh = L.apply_norm(p["norm_h"], h[:, :-1], cfg)
+    seq = rules.seq_sharded(ctx, s - 1)
+    sp = specs["mtp"] if specs else None
+    emb_next = (_embed(top, tokens[:, 1:], cfg, ctx=ctx, specs=specs,
+                       seq=seq) if specs
+                else L.apply_embed(top["embed"], tokens[:, 1:], cfg))
+    h_in = h[:, :-1]
+    if seq:
+        h_in = distributed.split_tiled(h_in, ctx.model_group, dim=1)
+    if specs is not None:
+        p = {k: p[k] if k == "block" else rules.gather_tree(p[k], sp[k], ctx)
+             for k in p}
+    hh = L.apply_norm(p["norm_h"], h_in, cfg)
     ee = L.apply_norm(p["norm_e"], emb_next, cfg)
     x = torch.cat([hh, ee], dim=-1) @ p["proj"].to(h.dtype)
     positions = _positions(b, s - 1, tokens.device)
-    x, _ = _apply_layer("attn+mlp", p["block"], x, positions, cfg)
-    return L.apply_norm(p["final_norm"], x, cfg)
+    x, _ = _apply_layer("attn+mlp", p["block"], x, positions, cfg, ctx,
+                        sp["block"] if sp else None, seq)
+    x = L.apply_norm(p["final_norm"], x, cfg)
+    if seq:
+        x = distributed.all_gather_replicated(x, ctx.model_group, dim=1)
+    return x
 
 
 # --- caches / serving --------------------------------------------------------

@@ -30,6 +30,10 @@ this rank's block and back.  ``compute_view`` is ZeRO-3's gather before
 use: every spec axis but the ones compute keeps sharded (``model`` where
 the backbone is tensor-parallel) is all-gathered, differentiably, so the
 gradient comes back through the gather's backward, a reduce-scatter.
+``seq_sharded`` says where the residual stream's sequence lies over
+``model`` (``seq_residuals``, the expert configs'), and
+``model_partial`` which replicated leaves' gradients each model rank
+holds only a part of, so the step sums them over ``model`` as well.
 """
 from __future__ import annotations
 
@@ -187,13 +191,9 @@ def local_ctx() -> ShardCtx:
 def mesh_ctx(mesh, mode: str = "tp_fsdp",
              seq_residuals: bool = False) -> ShardCtx:
     """The ctx of a ``(data, model)`` mesh (``launch.mesh``) in ``mode``.
-    ``seq_residuals`` (the residual stream's sequence over ``model``) is
-    only set by configs with experts and raises."""
+    ``seq_residuals``: the residual stream's sequence over ``model`` in
+    tp_fsdp (``seq_sharded``)."""
     assert mode in MODES, mode
-    if seq_residuals:
-        raise NotImplementedError(
-            "seq_residuals (the S-sharded residual stream of the expert "
-            f"configs) is not ported: it goes with expert parallelism {_A17}")
     axes = tuple(mesh.mesh_dim_names)
     if axes != ("data", "model"):
         raise NotImplementedError(
@@ -218,6 +218,17 @@ def on_mesh(ctx) -> bool:
             "build it with sharding.rules.mesh_ctx (the mesh forms not "
             f"yet ported are listed under {_A17})")
     return True
+
+
+def seq_sharded(ctx, s: int) -> bool:
+    """Whether a (B, S, d) residual-stream activation of ``s`` rows is
+    S-sharded over ``model`` (Megatron's sequence parallelism): the
+    reference's ``"bO."`` spec, which names ``model`` for the sequence
+    where ``seq_residuals`` is set in tp_fsdp, fitted to the shape by
+    ``fit_spec``, which drops the axis where it does not divide S (there
+    the activation stays replicated over ``model``)."""
+    return (on_mesh(ctx) and ctx.seq_residuals and ctx.mode == "tp_fsdp"
+            and ctx.tp > 1 and s % ctx.tp == 0)
 
 
 def head_fd_axes(ctx: ShardCtx):
@@ -465,12 +476,42 @@ def tp_group(ctx):
     return ctx.model_group
 
 
-def grad_reduce_axes(spec, ctx: ShardCtx) -> tuple[str, ...]:
-    """The batch axes a parameter's gradient still has to be summed over
-    after the backward: those it is replicated over (a leaf sharded over a
-    batch axis is gathered over it in compute, and the gather's backward,
-    a reduce-scatter, already summed its gradient; the head's vocab rows
-    see the whole of their data row's tokens)."""
+#: leaves replicated over ``model`` that act on this rank's heads or
+#: experts alone under TP, so each model rank holds a part of their
+#: gradient: the per-head q/k norms, MLA's latent projections and norms
+#: (the latents feed this rank's heads), the router (its combine weights
+#: reach this rank's experts)
+_HEAD_LOCAL = re.compile(
+    r"/attn/(q_norm|k_norm|q_a_norm|kv_a_norm)/scale$"
+    r"|/attn/(wq_a|wkv_a)$|/moe/router(_bias)?$")
+
+
+def model_partial(name: str, spec, ctx: ShardCtx,
+                  on_seq_shards: bool) -> bool:
+    """Whether the gradient of parameter ``name`` (of ``spec``) is a part
+    on each model rank, to be summed over ``model``: a leaf replicated
+    over ``model`` under a tensor-parallel backbone that acts on this
+    rank's heads or experts alone (``_HEAD_LOCAL``), or on its S-shard of
+    the residual stream (``on_seq_shards``: a norm, ``bo``, ``b_down``
+    under sequence parallelism).  Replicated compute on replicated rows
+    gives every rank the whole gradient, as plain TP does."""
+    if ctx.tp_backbone == 1 or ctx.model_axis in spec_axes(spec):
+        return False
+    return on_seq_shards or bool(_HEAD_LOCAL.search(ref_path(name)))
+
+
+def grad_reduce_axes(spec, ctx: ShardCtx,
+                     partial: bool = False) -> tuple[str, ...]:
+    """The axes a parameter's gradient still has to be summed over after
+    the backward: the batch axes it is replicated over (a leaf sharded
+    over a batch axis is gathered over it in compute, and the gather's
+    backward, a reduce-scatter, already summed its gradient; the head's
+    vocab rows see the whole of their data row's tokens), then ``model``
+    where each model rank holds a part of it (``partial``:
+    ``model_partial``)."""
     have = set(spec_axes(spec))
-    return tuple(a for a in ctx.batch_axes
+    axes = tuple(a for a in ctx.batch_axes
                  if a not in have and ctx.axis_size(a) > 1)
+    if partial and ctx.model_axis not in axes:
+        axes += (ctx.model_axis,)
+    return axes

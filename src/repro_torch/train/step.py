@@ -40,14 +40,19 @@ all-gathers h and the labels over ``model``, so each model column holds
 its data row's tokens; the loss sum is a psum over the data group.  A
 sharded parameter's gradient arrives summed and sharded through its
 gather's backward (a reduce-scatter); the gradient of one replicated
-over a batch axis is all-reduced over it (``rules.grad_reduce_axes``);
-clipping's global norm and Adafactor's statistics sum each leaf over the
-axes that shard it (``ShardedGrads``).  The recsys, lstm, dense, ssm and
-encdec families train there with every carrying sampler (each shard's
-block, tree, rff or midx statistics built from its own rows, padding
-rows at zero mass) and either refresh mode; expert parallelism and the
-layouts not ported (the moe and hybrid families, MLA / mtp) raise
-(ROADMAP.md A17).
+over a batch axis is all-reduced over it (``rules.grad_reduce_axes``),
+and over ``model`` too where each model rank holds a part of it
+(``rules.model_partial``: the router, MLA's latent leaves, the per-head
+q/k norms, and under sequence parallelism the replicated leaves that act
+on S-shards: norms, ``bo``, ``b_down``); clipping's global norm and
+Adafactor's statistics sum each leaf over the axes that shard it
+(``ShardedGrads``).  Every family trains there with every carrying
+sampler (each shard's block, tree, rff or midx statistics built from its
+own rows, padding rows at zero mass) and either refresh mode: the moe and
+hybrid families with their experts over ``model`` (each microbatch's
+capacity from its own rows), MLA over heads, the mtp rows, and the expert
+configs' residual stream S-sharded (``cfg.seq_sharded_residuals``).
+Experts in ``pure_fsdp`` raise, as the reference asserts.
 
 ``serving_index_source`` is the seam between training and serving: it
 restores the newest complete checkpoint and exports a fresh serving index
@@ -69,7 +74,7 @@ from repro_torch.core.samplers import (
     empty_state,
     sampler_from_config,
 )
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 from repro_torch.models.layers import padded_heads
 from repro_torch.models.transformer import LM_FAMILIES
 from repro_torch.optim.clip import ShardedGrads
@@ -106,16 +111,25 @@ _A17 = "(ROADMAP.md A17)"
 
 
 def _on_mesh(cfg: ArchConfig, ctx) -> bool:
-    """True on a mesh, after refusing what this part does not port:
-    expert parallelism and the families whose layouts are not ported."""
+    """True on a mesh, after refusing a family with no mesh layouts and
+    experts outside tp_fsdp (the reference's assertion: the experts live
+    on ``model``)."""
     if not rules.on_mesh(ctx):
         return False
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"expert parallelism (models/moe.py) on a mesh is not ported "
-            f"{_A17}")
     api.require_mesh_layout(cfg)
+    if cfg.n_experts and ctx.mode == "pure_fsdp":
+        raise ValueError(f"'{cfg.name}': MoE archs must use tp_fsdp "
+                         "sharding (experts live on `model`)")
     return True
+
+
+def _partial_leaves(model, cfg: ArchConfig, ctx, s: int | None) -> set:
+    """The parameters whose gradient each model rank holds a part of
+    (``rules.model_partial``), for an LM at sequence length ``s``."""
+    lm = cfg.family in LM_FAMILIES and s is not None
+    return {k for k, spec in model.param_specs.items()
+            if rules.model_partial(k, spec, ctx, lm and rules.seq_sharded(
+                ctx, transformer.residual_rows(k, s)))}
 
 
 def shard_n_valid(cfg: ArchConfig, ctx) -> int:
@@ -340,8 +354,11 @@ def make_train_step(cfg: ArchConfig, ctx, opt: GradientTransform,
         grads = {k: _take_grad(p, mu) for k, p in params.items()}
         if mesh:
             specs = state.params.param_specs
+            partial = _partial_leaves(state.params, cfg, ctx,
+                                      batch["tokens"].shape[1]
+                                      if "tokens" in batch else None)
             for k, g in grads.items():
-                axes = rules.grad_reduce_axes(specs[k], ctx)
+                axes = rules.grad_reduce_axes(specs[k], ctx, k in partial)
                 if axes:
                     distributed.all_reduce_(g, "sum", ctx.group(axes))
             grads = ShardedGrads(grads, specs, ctx)
@@ -414,7 +431,7 @@ def init_train_state(key: torch.Generator, cfg: ArchConfig, ctx,
     estimator = estimators.make_estimator(cfg.estimator)
     model = api.init_module(cfg, key, device=dev, max_len=max_len,
                             ctx=ctx if mesh else None)
-    if mesh:
+    if mesh and model.param_specs is None:
         shard_params(model, cfg, ctx)
     opt_state = opt.init(param_dict(model))
     sstate = empty_state()

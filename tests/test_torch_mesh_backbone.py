@@ -546,19 +546,18 @@ def test_shard_and_gather_by_spec(runs, mesh):
 
 
 def test_family_gates_name_a17():
-    """The families whose layouts are not ported raise on a mesh before
-    any collective, naming A17; a tied or untied dense config and recsys
-    pass the gate (the lstm, ssm and encdec families too:
-    ``test_torch_mesh_families.py``)."""
+    """Every family passes the mesh's family gate: the hybrid and moe
+    configs (MLA and the mtp block included, since expert parallelism
+    was ported: ``test_torch_mesh_experts.py``), mtp on a dense config, a
+    tied or untied dense config and recsys (the lstm, ssm and encdec
+    families too: ``test_torch_mesh_families.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
 
     for name in ("jamba-v0.1-52b", "deepseek-v3-671b", "dbrx-132b"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            api.require_mesh_layout(get_config(name).reduced())
-    with pytest.raises(NotImplementedError, match="A17"):
-        api.require_mesh_layout(dataclasses.replace(
-            get_config("llama3-8b").reduced(), mtp=True))
+        api.require_mesh_layout(get_config(name).reduced())
+    api.require_mesh_layout(dataclasses.replace(
+        get_config("llama3-8b").reduced(), mtp=True))
     for name in ("youtube-dnn", "starcoder2-3b", "llama3-8b"):
         api.require_mesh_layout(get_config(name).reduced(
             tie_embeddings=name != "youtube-dnn"))

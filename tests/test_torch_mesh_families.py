@@ -25,8 +25,8 @@ ptb-lstm, each ``.reduced()`` in fp32:
     ``apply_mamba``, and the same block with the backward all-reduce of
     ``x_proj``'s sum taken out, which must miss.
 
-The refusals that stay (MLA / mtp, the hybrid family, experts, mesh
-serving) are held here too.
+The refusals that stay (mesh serving) are held here too, beside the
+gates that MLA / mtp, the hybrid family and experts now pass.
 """
 from __future__ import annotations
 
@@ -659,12 +659,12 @@ def _refusals() -> dict:
     return {
         "MLA": lambda: api.require_mesh_layout(dataclasses.replace(
             dense, mla=True)),
-        "mtp": lambda: step.make_train_step(dataclasses.replace(
-            dense, mtp=True), ctx, opt),
+        "mtp": lambda: step._on_mesh(dataclasses.replace(
+            dense, mtp=True), ctx),
         "hybrid": lambda: api.require_mesh_layout(
             get_config("jamba-v0.1-52b").reduced()),
-        "experts": lambda: step.make_train_step(
-            get_config("dbrx-132b").reduced(), ctx, opt),
+        "experts": lambda: step._on_mesh(
+            get_config("dbrx-132b").reduced(), ctx),
         "encdec init_dec_cache": lambda: encdec.init_dec_cache(
             None, whisper, 2, 8, torch.zeros(2, 4, whisper.d_model), ctx),
         "encdec decode_step": lambda: encdec.decode_step(
@@ -680,24 +680,30 @@ def _refusals() -> dict:
     }
 
 
+#: refusals that expert parallelism lifted: these cases pass the gates
+PORTED_SINCE = ("MLA", "mtp", "hybrid", "experts")
+
+
 @pytest.mark.parametrize("case", tuple(_refusals()))
 def test_refusals_name_a17(case):
-    """MLA / mtp, the hybrid family, experts and serving on a mesh (the
-    encoder-decoder's cache and one-token step, the LM's caches, prefill
-    and decode) still raise ``NotImplementedError`` naming A17 on a mesh
-    ctx, before any collective."""
+    """Serving on a mesh (the encoder-decoder's cache and one-token step,
+    the LM's caches, prefill and decode) still raises
+    ``NotImplementedError`` naming A17 on a mesh ctx, before any
+    collective; MLA, mtp, the hybrid family and experts pass the mesh's
+    gates since expert parallelism was ported."""
+    if case in PORTED_SINCE:
+        assert _refusals()[case]() in (None, True)
+        return
     with pytest.raises(NotImplementedError, match="A17"):
         _refusals()[case]()
 
 
 def test_the_three_families_pass_the_gate():
-    """The ssm, encdec and lstm families pass the mesh's family gate; the
-    moe and hybrid ones do not."""
+    """The ssm, encdec and lstm families pass the mesh's family gate, and
+    so do the moe and hybrid ones."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    for name in FAMILIES:
+    for name in FAMILIES + ("jamba-v0.1-52b", "dbrx-132b",
+                            "deepseek-v3-671b"):
         api.require_mesh_layout(get_config(name))
-    for name in ("jamba-v0.1-52b", "dbrx-132b"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            api.require_mesh_layout(get_config(name))
