@@ -15,7 +15,10 @@ from the query length, and youtube-dnn trained and served through the
 vocab-parallel head over a (data, model) mesh: NCCL at (1, 1), and four
 rank processes sharing the card over gloo at (1, 4) and (2, 2), with
 starcoder2-3b, falcon-mamba-7b, whisper-large-v3 and ptb-lstm trained
-there by the reference's storage layouts.
+there by the reference's storage layouts, dbrx-132b, deepseek-v3-671b
+and jamba-v0.1-52b with their experts over the model axis, and
+llama3-8b and falcon-mamba-7b served there with sequence-sharded KV
+caches and channel-sharded states.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -472,10 +475,48 @@ result line):
                  row's model ranks summing to its rows' total; the last
                  step's collectives by op and group; step ms; the rank's
                  peak) and zstats at the trained head shard.
+ 27. mesh serving — the decoder LMs' serving engine under the
+                 reference's ctx_for_serve (tp: parameters replicated over
+                 data; KV caches with the sequence over model, mamba
+                 states with their channels over model), in the same rank
+                 processes after phase 26's runs: (a) NCCL on a (1, 1)
+                 mesh in this process, llama3-8b at 2 layers in bf16:
+                 prefill, 4 decode steps and a top-10 step bitwise the
+                 unsharded engine's; phase 11 saved its llama3-8b run
+                 (32 and the first 8 layers, 16 steps, the unsharded int8
+                 index's recall@10), and here the unsharded fp32 runs of
+                 llama3-8b and falcon-mamba-7b at 2 layers and falcon's
+                 bf16 run at 8 are saved for the ranks; (b) on the ranks
+                 (MESH_SERVE_RUNS), every model drawn straight into the
+                 rank's shards from the reference's seed: llama3-8b and
+                 falcon-mamba-7b at full width and 2 layers in fp32 at
+                 (1, 4) and (2, 2), prefill h, every cache gathered whole,
+                 3 decode steps' h within MESH_RTOL of each tensor's max,
+                 tokens and the top-10 equal but at ties; (c) llama3-8b in
+                 bf16, 32 layers at (1, 4) and 8 at (2, 2), a 4 x 512
+                 prompt and 16 decode steps fed the unsharded tokens: h
+                 within phase 11's DECODE_RTOL and decode_rel_rms, tokens
+                 and the top-10 equal but where the unsharded gap is
+                 within twice the row's bf16 logit error, the sharded
+                 RetrievalIndex at full beam = the dense top-10 but at
+                 ties, the sharded int8 quantized index's recall@10 at
+                 exhaustive beam within MESH_SERVE_RECALL_TOL of the
+                 unsharded one's; (d) falcon-mamba-7b at 8 layers in bf16
+                 at (1, 4) likewise.  Each run's main path (index build,
+                 prefill, decode, top-k steps) launches exactly zstats
+                 once, flash_attention (27b: flash_attention_simt) once a
+                 layer and leaf_scores once a rank, and one decode step's
+                 collectives equal ``predict_serve_collectives``;
+                 on the world's rank 0, held against their plain versions
+                 and timed at each llama3-8b run's shard shapes:
+                 flash_attention_simt (27b, fp32) and flash_attention
+                 (27c, bf16) at each mesh's prefill shard, and at each
+                 27c mesh zstats at a shard's index blocks and
+                 leaf_scores at its full beam.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
-22's serving runs and fits, 23's, 24's, 25's and 26's steps and fits on
-each rank are main paths: the kernel
+22's serving runs and fits, 23's, 24's, 25's and 26's steps and fits and
+27's serving runs on each rank are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -511,7 +552,8 @@ by " <family>" for MESH_SAMPLERS, and "mesh gloo (2, 2) overlap midx",
 phase 24's as "mesh dense tp_fsdp (1, 4)",
 "mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", phase 25's
 as "mesh <config> <mode> (dp, tp)", phase 26's as "mesh experts <config>
-(dp, tp)", each gloo mesh summed over its ranks); the other shapes'
+(dp, tp)", phase 27's as "mesh serving <config> (dp, tp) <dtype>", each
+gloo mesh summed over its ranks); the other shapes'
 numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
@@ -523,6 +565,9 @@ attention kernels at phase 24's shard shapes, the first timed on rank 0),
 mesh_whisper_<mode>_<dp>x<tp>_<enc|dec|cross>_* (both at phase 25's
 whisper shard shapes), mesh_experts_<config>_<dp>x<tp>_* (zstats and
 both attention kernels at phase 26's shard shapes),
+mesh_serving_<dp>x<tp>_* (flash_attention at phase 27c's prefill shard
+shapes, zstats and leaf_scores at a shard's index),
+mesh_serving_fp32_<dp>x<tp>_* (flash_attention_simt at 27b's),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -564,7 +609,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.autograd.profiler_util import Interval  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import convert, kernels  # noqa: E402
 from repro_torch.api import SoftmaxHead  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
@@ -3318,31 +3363,35 @@ def flash_bound(b: int, s: int, h: int, kv: int, hd: int, causal: bool,
 
 def flash_row(gen: torch.Generator, b: int, s: int,
               kernel=flash_attention, h: int = 32, kv: int = 8,
-              timed: bool = True) -> dict:
+              timed: bool = True, dtype: torch.dtype = torch.bfloat16
+              ) -> dict:
     """A flash kernel (the tensor-core one through ``flash_attention``'s
     dispatch, or ``flash_attention_simt``) at llama3-8b's heads (32 / 8,
-    hd 128; or ``h`` / ``kv``), causal bf16: held against the plain
-    version, then (``timed``) timed beside it and SDPA.
-    ``flash_attention`` must reach the tensor-core entry point."""
+    hd 128; or ``h`` / ``kv``), causal in ``dtype`` (bf16, or fp32 for
+    the CUDA-core kernel): held against the plain version, then
+    (``timed``) timed beside it and SDPA.  The call must launch the
+    kernel's own entry point once and the other flash entry not at all."""
     hd = 128
-    q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
     before = kernels.launch_counts()
     got = kernel(q, k, v)
     after = kernels.launch_counts()
-    if kernel is flash_attention and (
-            after["flash_attention"] != before["flash_attention"] + 1
-            or after["flash_attention_simt"]
-            != before["flash_attention_simt"]):
-        raise AssertionError("bf16 hd 128 flash did not take the "
-                             "tensor-core entry point")
-    err = compare(f"{kernel.__name__} bf16 causal (B {b}, S {s}, H {h}, "
+    entry = kernel.__name__
+    other = ({"flash_attention", "flash_attention_simt"} - {entry}).pop()
+    if (after[entry] != before[entry] + 1
+            or after[other] != before[other]):
+        raise AssertionError(f"{entry} at hd {hd} in {dtype} did not "
+                             f"launch its own entry point once")
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    err = compare(f"{entry} {tag} causal (B {b}, S {s}, H {h}, "
                   f"KV {kv}, hd {hd})", got,
                   ref.flash_attention_ref(q, k, v, causal=True),
-                  elem_rtol=BF16_ELEM_RTOL)
+                  **(dict(elem_rtol=BF16_ELEM_RTOL) if tag == "bf16"
+                     else {}))
     if not timed:
         del q, k, v, got
         return {"max_abs_err": err}
-    bms, by, floor = flash_bound(b, s, h, kv, hd, True, torch.bfloat16)
+    bms, by, floor = flash_bound(b, s, h, kv, hd, True, dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times(
@@ -3871,6 +3920,7 @@ def phase_llama_serving(gen: torch.Generator, rng: np.random.Generator
         f"not gated)")
     index_rows = index_kernel_rows(run.index, run.h)
     log_timing("llama", run.timing)
+    mesh_serve_llama_reference(cfg, params, prompts)
     out = {"h": h_full[:, :-1].reshape(-1, cfg.d_model),
            "labels": run.tokens[:, 1:].reshape(-1), "head": run.head}
     counts = run.counts
@@ -6279,9 +6329,10 @@ def mesh_checks(ctx) -> dict:
 def mesh_rank(rank: int, world: int, addr: str, out: Path,
               phase: str = "23") -> int:
     """One rank process of phase 23b (each of MESH_SHAPES in turn), or of
-    phases 24 to 26 (``phase`` "24,25,26": each of MESH_DENSE_RUNS, then
-    each of MESH_FAMILY_RUNS, then each of MESH_EXPERT_RUNS): the gloo
-    world over the shared card; its results to ``out/rank<r>.json``."""
+    phases 24 to 27 (``phase`` "24,25,26,27": each of MESH_DENSE_RUNS,
+    then each of MESH_FAMILY_RUNS, then each of MESH_EXPERT_RUNS, then
+    each of MESH_SERVE_RUNS): the gloo world over the shared card; its
+    results to ``out/rank<r>.json``."""
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
     launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
@@ -6317,6 +6368,12 @@ def mesh_rank(rank: int, world: int, addr: str, out: Path,
                     torch.cuda.empty_cache()
                 results[f"{name} {dp}x{tp}"] = mesh_expert_rank(
                     ctx, name, n_layers)
+        if "27" in phases:
+            for part, name, (dp, tp), n_layers, dtype in MESH_SERVE_RUNS:
+                ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type), mode="tp")
+                results[f"{part} {name} {dp}x{tp}"] = mesh_serve_rank(
+                    ctx, part, name, n_layers, dtype)
         if phases == ["23"]:
             for dp, tp in MESH_SHAPES:
                 ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
@@ -8063,7 +8120,711 @@ def mesh_expert_report(ranks: list[dict], nccl: dict, ref_run: dict
     return by_path, shapes
 
 
-def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26")
+# --- phase 27: the decoder LMs' serving engine on the mesh -----------------
+
+#: phase 27's rank runs in order: (part, config, mesh, layers, dtype).
+#: 27b holds fp32 parity at full width; 27c llama3-8b in bf16 against
+#: phase 11's run of the same weights (all 32 layers at (1, 4), the first
+#: 8 at (2, 2)); 27d falcon-mamba-7b in bf16 at 8 of its 64 layers
+MESH_SERVE_RUNS = (
+    ("27b", "llama3-8b", (1, 4), 2, "float32"),
+    ("27b", "llama3-8b", (2, 2), 2, "float32"),
+    ("27b", "falcon-mamba-7b", (1, 4), 2, "float32"),
+    ("27b", "falcon-mamba-7b", (2, 2), 2, "float32"),
+    ("27c", "llama3-8b", (1, 4), 32, "bfloat16"),
+    ("27c", "llama3-8b", (2, 2), 8, "bfloat16"),
+    ("27d", "falcon-mamba-7b", (1, 4), 8, "bfloat16"),
+)
+#: 27b's batch, prompt, decode steps and cache length: at tp 4 a rank's
+#: range of the 72 positions is 18, so the decode steps (positions 52-54)
+#: cross from rank 2's range into rank 3's
+MESH_SERVE_PARITY = (4, 52, 3, 72)
+#: 27c's and 27d's: phase 11's 4 prompts of 512, 16 decode steps, a cache
+#: of 528 positions (132 a rank at tp 4, 264 at tp 2)
+MESH_SERVE_BF16 = (LLAMA_BATCH, LLAMA_PROMPT, 16, LLAMA_PROMPT + 16)
+#: each part's decode steps
+MESH_SERVE_STEPS = {"27b": MESH_SERVE_PARITY[2], "27c": MESH_SERVE_BF16[2],
+                    "27d": MESH_SERVE_BF16[2]}
+#: 27a's (NCCL (1, 1)) llama3-8b depth, batch, prompt and decode steps
+MESH_SERVE_NCCL = (2, 2, 128, 4)
+MESH_SERVE_TOPK = 10
+#: phase 11's llama3-8b weights (its generator's seed), drawn again straight
+#: into each rank's shards
+MESH_SERVE_LLAMA_SEED = 15
+#: 27a's, 27b's and 27d's weights and prompts
+MESH_SERVE_SEED = 27
+#: the sharded int8 quantized index's recall@10 at exhaustive beam against
+#: the unsharded int8 index's on the same queries
+MESH_SERVE_RECALL_TOL = 0.01
+MESH_SERVE_DIR = MESH_DIR.parent / "chip_smoke_mesh_serving"
+
+
+def serve_cfg(name: str, n_layers: int, dtype: str):
+    """A phase 27 config: ``name`` at full width and ``n_layers``, its
+    weights and compute in ``dtype``."""
+    return dataclasses.replace(get_config(name), n_layers=n_layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def serve_prompts(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s))).to(DEV)
+
+
+def _host(x):
+    """A copy on the host of every tensor of ``x`` (a copy on a CPU run
+    too: decode writes the caches in place)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_host(v) for v in x]
+    return x
+
+
+@torch.no_grad()
+def serve_reference(cfg, params, prompts: torch.Tensor, n_dec: int,
+                    max_len: int, caches: bool = False) -> dict:
+    """The unsharded engine's run that phase 27's ranks are held against,
+    on the host: prefill of ``prompts`` (``make_prefill_step``'s token, the
+    last position's h), then ``n_dec`` greedy steps, each step's fed
+    token, h (B, d) in fp32 and the top-(k + 1) ids and logits of its h
+    (the next fed token is its top-1: the greedy token, ties to the lowest
+    id); with ``caches`` also prefill's whole h and the caches after the
+    prefill and after the last step."""
+    b, s = prompts.shape
+    head = api.head_table(params, cfg)
+    k = MESH_SERVE_TOPK + 1
+    tok, cache = engine.make_prefill_step(cfg, None, max_len)(
+        params, {"tokens": prompts})
+    h, _ = transformer.prefill(params, prompts, cfg, max_len=max_len)
+    out = {"prompts": prompts.cpu(), "prefill_tok": tok.cpu(),
+           "prefill_top": _host(retrieval.dense_topk(
+               head, h[:, -1], k, n_valid=cfg.vocab_size)),
+           "prefill_h_last": h[:, -1].float().cpu(), "fed": [], "h": [],
+           "top": []}
+    if caches:
+        out["prefill_h"] = h.float().cpu()
+        out["prefill_caches"] = _host(cache)
+    del h
+    fed = tok
+    for i in range(n_dec):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+        hi, cache = transformer.decode_step(params, fed[:, None].long(),
+                                            cache, pos, cfg)
+        ids, logits = retrieval.dense_topk(head, hi[:, 0], k,
+                                           n_valid=cfg.vocab_size)
+        out["fed"].append(fed.cpu())
+        out["h"].append(hi[:, 0].float().cpu())
+        out["top"].append((ids.cpu(), logits.cpu()))
+        fed = ids[:, 0]
+    if caches:
+        out["decode_caches"] = _host(cache)
+    return out
+
+
+def mesh_serve_llama_reference(cfg, params, prompts: torch.Tensor) -> float:
+    """27c's references from phase 11's llama3-8b weights, saved for the
+    ranks: the unsharded run (``serve_reference``) at each of 27c's
+    depths (``mesh_serve_llama_key``: 32 layers and the first 8, the same
+    tree's views), and the unsharded int8 quantized
+    index's recall@10 at exhaustive beam on the 32-layer run's decode h.
+    Returns its seconds."""
+    t0 = time.perf_counter()
+    b, s, n_dec, max_len = MESH_SERVE_BF16
+    prompts = prompts[:b, :s]
+    refs = {}
+    for depth in mesh_serve_llama_key()[0]:
+        view = dict(params, segments=[_map_tree(lambda t: t[:depth], seg)
+                                      for seg in params["segments"]])
+        refs[depth] = serve_reference(
+            dataclasses.replace(cfg, n_layers=depth), view, prompts, n_dec,
+            max_len)
+    head = api.head_table(params, cfg)
+    queries = torch.cat(refs[cfg.n_layers]["h"]).to(DEV)
+    idx = quantized_index.build_quantized_index(
+        head, vocab_size=cfg.vocab_size, **serve_qknobs(cfg))
+    recall = quantized_index.recall_at_k(idx, head, queries,
+                                         MESH_SERVE_TOPK, None)
+    del idx
+    MESH_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save({"refs": refs, "queries": queries.cpu(), "recall": recall,
+                "key": mesh_serve_llama_key()},
+               MESH_SERVE_DIR / "llama3-8b.pt")
+    secs = time.perf_counter() - t0
+    log(f"[mesh serving] 27c's references from phase 11's llama3-8b "
+        f"weights (depths {sorted(refs)}, 4 prompts of {s}, {n_dec} "
+        f"steps) and the unsharded int8 index's recall@"
+        f"{MESH_SERVE_TOPK} at exhaustive beam on {queries.shape[0]} "
+        f"queries {recall}: {secs:.1f} s")
+    return secs
+
+
+def mesh_serve_llama_key() -> tuple:
+    """What 27c's saved llama3-8b references are drawn for: their depths
+    (27c's runs'), MESH_SERVE_BF16 and the weights' seed.  A file saved
+    for another key is drawn again."""
+    return (tuple(sorted({n for part, _, _, n, _ in MESH_SERVE_RUNS
+                          if part == "27c"})), MESH_SERVE_BF16,
+            MESH_SERVE_LLAMA_SEED)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def serve_qknobs(cfg) -> dict:
+    """The int8 quantized index's knobs, as ``export_quantized_index``
+    takes them from the config."""
+    return dict(codewords=cfg.midx_codewords, codebooks=cfg.midx_codebooks,
+                list_size=cfg.sampler_block, bits=8)
+
+
+def mesh_serve_references() -> dict:
+    """27b's and 27d's unsharded references, saved for the ranks: each
+    config of those runs drawn whole from MESH_SERVE_SEED on the card,
+    its ``serve_reference`` run (27b's with the caches), then freed; and
+    27c's (``mesh_serve_llama_reference``) where phase 11 left none, or
+    left one for another ``mesh_serve_llama_key``.
+    Returns each reference's seconds."""
+    MESH_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    secs = {}
+    for part, name, n_layers, dtype in dict.fromkeys(
+            (p, n, l, d) for p, n, _, l, d in MESH_SERVE_RUNS
+            if p != "27c"):
+        t0 = time.perf_counter()
+        cfg = serve_cfg(name, n_layers, dtype)
+        params = api.init_params(cfg, torch.Generator(DEV).manual_seed(
+            MESH_SERVE_SEED), device=DEV)
+        b, s, n_dec, max_len = (MESH_SERVE_PARITY if part == "27b"
+                                else MESH_SERVE_BF16)
+        ref = serve_reference(cfg, params, serve_prompts(
+            cfg, b, s, MESH_SERVE_SEED), n_dec, max_len,
+            caches=part == "27b")
+        torch.save(ref, MESH_SERVE_DIR / f"{part}_{name}.pt")
+        del params, ref
+        sync()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+        secs[f"{part} {name}"] = round(time.perf_counter() - t0, 1)
+    saved = MESH_SERVE_DIR / "llama3-8b.pt"
+    if not saved.exists() or \
+            torch.load(saved)["key"] != mesh_serve_llama_key():
+        cfg = serve_cfg("llama3-8b", mesh_serve_llama_key()[0][-1],
+                        "bfloat16")
+        params = api.init_params(cfg, torch.Generator(DEV).manual_seed(
+            MESH_SERVE_LLAMA_SEED), device=DEV)
+        secs["27c llama3-8b"] = round(mesh_serve_llama_reference(
+            cfg, params, serve_prompts(cfg, *MESH_SERVE_BF16[:2],
+                                       MESH_SERVE_LLAMA_SEED)), 1)
+        del params
+        sync()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"[mesh serving] unsharded references saved for the ranks, "
+        f"seconds {secs}")
+    return secs
+
+
+@torch.no_grad()
+def mesh_serve_nccl() -> dict:
+    """Phase 27a: NCCL on a (1, 1) mesh in this process, llama3-8b at full
+    width and MESH_SERVE_NCCL's depth in bf16 under ``ctx_for_serve``:
+    prefill h and token, each decode step's h and token (on its own
+    tokens) and a top-k step's ids and logits bitwise the unsharded
+    engine's on the same weights (the model drawn into its (1, 1)
+    shards, which are whole)."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        depth, b, s, n_dec = MESH_SERVE_NCCL
+        cfg = serve_cfg("llama3-8b", depth, "bfloat16")
+        sctx = rules.ctx_for_serve(launch_mesh.make_debug_mesh(1, 1), cfg)
+        prompts = serve_prompts(cfg, b, s, MESH_SERVE_SEED)
+        got = {}
+        for tag, ctx in (("mesh", sctx), ("unsharded", None)):
+            gen = torch.Generator(DEV).manual_seed(MESH_SERVE_SEED)
+            params = (api.init_module(cfg, gen, DEV, ctx=ctx) if ctx
+                      else api.init_params(cfg, gen, device=DEV))
+            got[tag] = serve_steps(cfg, ctx, params, prompts, n_dec,
+                                   s + n_dec)
+            del params
+            sync()
+        diff = [k for k in got["mesh"]
+                if not torch.equal(got["mesh"][k], got["unsharded"][k])]
+        log(f"[mesh serving] {backend} (1, 1) llama3-8b at {depth} layers "
+            f"(bf16, {b} prompts of {s}, {n_dec} steps, top-"
+            f"{MESH_SERVE_TOPK}): {len(got['mesh']) - len(diff)} of "
+            f"{len(got['mesh'])} tensors bitwise the unsharded engine's")
+        if diff:
+            raise AssertionError(f"27a: {diff} differ from the unsharded "
+                                 "engine's")
+        return {"bitwise": len(got["mesh"])}
+    finally:
+        torch.distributed.destroy_process_group()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def serve_steps(cfg, ctx, params, prompts, n_dec: int, max_len: int
+                ) -> dict[str, torch.Tensor]:
+    """27a's run of the engine: prefill (h and token), ``n_dec`` decode
+    steps on their own tokens (h and token each), a top-k step."""
+    b, s = prompts.shape
+    prefill = engine.make_prefill_step(cfg, ctx, max_len)
+    decode = engine.make_decode_step(cfg, ctx, max_len)
+    out = {"prefill h": transformer.prefill(params, prompts, cfg, ctx,
+                                            max_len)[0]}
+    tok, caches = prefill(params, {"tokens": prompts})
+    out["prefill tok"] = tok
+    for i in range(n_dec):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+        last = tok[:, None].long()
+        out[f"decode {i} h"] = transformer.decode_step(
+            params, last, caches, pos, cfg, ctx, max_len)[0]
+        tok, caches = decode(params, last, caches, pos)
+        out[f"decode {i} tok"] = tok
+    ids, logits, _ = engine.make_topk_step(cfg, ctx, MESH_SERVE_TOPK,
+                                           max_len=max_len)(
+        params, last, caches, pos)
+    out["topk ids"], out["topk logits"] = ids, logits
+    return out
+
+
+def predict_serve_collectives(cfg, ctx, b_l: int, seq_split: bool
+                              ) -> dict[str, dict[str, int]]:
+    """One decode step's collectives on a rank (``make_decode_step``;
+    "<op> model": calls, bytes of each call's result), from the layer
+    structure: the embedding's vocab-parallel psum; per attention layer
+    one all-gather of the step's q / k / v heads, where the cache's
+    sequence is split the softmax merge's pmax and psum (fp32), and the
+    ``wo`` psum; per mamba layer the ``x_proj`` and ``out_proj`` psums;
+    per MLP its psum; the greedy token's two all-gathers of (B, tp)
+    candidates (fp32 logits, int32 ids)."""
+    esize = torch.finfo(layers._dtype(cfg)).bits // 8
+    tp, d, hd = ctx.tp, cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = layers.padded_heads(cfg, tp)
+    want: dict[str, dict[str, int]] = {}
+
+    def add(op: str, n_bytes: int) -> None:
+        got = want.setdefault(f"{op} model", {"calls": 0, "bytes": 0})
+        got["calls"] += 1
+        got["bytes"] += n_bytes
+
+    add("all_reduce_sum", b_l * d * esize)
+    for kind in cfg.layer_kinds():
+        mixer, ffn = kind.split("+")
+        if mixer == "attn":
+            add("all_gather", b_l * (nh + 2 * nkv) * hd * esize)
+            if seq_split:
+                add("all_reduce_max", b_l * nh * 4)
+                add("all_reduce_sum", b_l * nh * (hd + 1) * 4)
+        else:
+            add("all_reduce_sum",
+                b_l * (cfg.dt_rank + 2 * cfg.ssm_state) * esize)
+        add("all_reduce_sum", b_l * d * esize)
+        if ffn == "mlp":
+            add("all_reduce_sum", b_l * d * esize)
+    for _ in range(2):
+        add("all_gather", b_l * tp * 4)
+    return want
+
+
+def _logit_err(h, ref_h, ids, head_l, sctx) -> torch.Tensor:
+    """Per row, max_j |<h - ref_h, w_j>| over the row's ids j: the logit
+    error this rank's h carries against the unsharded h (on a mesh each
+    rank dots the rows of its head shard, merged by a pmax over model)."""
+    v_l = head_l.shape[0]
+    off = sctx.model_index * v_l if rules.on_mesh(sctx) else 0
+    own = (ids >= off) & (ids < off + v_l)
+    rows = head_l[(ids - off).clamp(0, v_l - 1).long()].float()
+    d = torch.einsum("tkd,td->tk", rows, h.float() - ref_h.float())
+    d = torch.where(own, d.abs(), 0.0).amax(dim=-1)
+    return distributed.pmax(d, sctx.model_group) \
+        if rules.on_mesh(sctx) else d
+
+
+def check_topk_near(tag: str, ids, dids, dlog, k: int, err) -> int:
+    """``check_topk_ties`` with a row's own tolerance: ids equal the
+    unsharded top-k rank by rank, except where the unsharded logit at
+    that rank is within 2 ``err[t]`` (row t's logit error, bf16's) of a
+    neighbour's.  Returns the swaps."""
+    ids_c, dids_c = ids.cpu(), dids.cpu()
+    dlog_c, err_c = dlog.cpu().tolist(), err.cpu().tolist()
+    swaps = 0
+    for t in range(ids_c.shape[0]):
+        near = lambda a, b: abs(a - b) <= 2 * err_c[t]  # noqa: E731
+        for j in range(k):
+            if ids_c[t, j] == dids_c[t, j]:
+                continue
+            lt = dlog_c[t]
+            if not (near(lt[j], lt[j - 1]) if j else False) and \
+                    not near(lt[j], lt[j + 1]):
+                raise AssertionError(
+                    f"{tag}: id {int(ids_c[t, j])} != unsharded "
+                    f"{int(dids_c[t, j])} at row {t} rank {j}, beyond the "
+                    f"logit error {err_c[t]}")
+            swaps += 1
+    return swaps
+
+
+def _tokens_gate(tag: str, got, top, h, ref_h, head, sctx, fp32: bool
+                 ) -> tuple[int, float]:
+    """A step's greedy tokens (B,) against the unsharded ones (``top``:
+    the unsharded top-(k + 1) of the same step): fp32 through
+    ``check_topk_ties`` (equal but at a tie within 1e-5), bf16 through
+    ``check_topk_near`` at the row's logit error of h against the
+    unsharded h (``_logit_err``), which must itself stay within
+    DECODE_RTOL of the row's top logit.  Returns (swaps, the worst logit
+    error over the row's top logit)."""
+    ids, logits = (t.to(DEV) for t in top)
+    err = _logit_err(h, ref_h, ids, head, sctx)
+    worst = float((err / logits[:, 0].abs()).max())
+    if fp32:
+        return check_topk_ties(tag, got[:, None], ids, logits, 1), worst
+    if worst > DECODE_RTOL:
+        raise AssertionError(f"{tag}: logit error {worst} of the top "
+                             f"logit > {DECODE_RTOL}")
+    return check_topk_near(tag, got[:, None], ids, logits, 1, err), worst
+
+
+def _serve_cache_errs(got, want, cfg, sctx, batch: int, max_len: int,
+                      tag: str) -> dict[str, float]:
+    """Each cache leaf gathered whole from the ranks
+    (``convert.caches_to_jax``) against the unsharded one: max |diff|
+    over its own max."""
+    whole = convert.caches_to_jax(got, cfg, sctx, batch=batch,
+                                  max_len=max_len)
+    out = {}
+    for s_i, (g, w) in enumerate(zip(whole, want)):
+        for key in g:
+            wt = w[key].float()
+            out[f"{tag} cache {s_i} {key}"] = float(
+                (torch.from_numpy(g[key]).float() - wt).abs().max()
+                / wt.abs().max())
+    return out
+
+
+@contextlib.contextmanager
+def keeping_hidden(seen: dict, caches: bool = False):
+    """While on, ``transformer.prefill`` keeps its h in ``seen["prefill"]``
+    (and with ``caches`` a host copy of its caches in ``seen["prefill
+    caches"]``), and a decode step built meanwhile by
+    ``engine.make_decode_step`` (which binds ``transformer.decode_step``)
+    appends each call's h (B, d) to ``seen["decode"]``: the engine's own
+    steps' h, read with no second run and no launch of a hand kernel."""
+    real_prefill, real_decode = transformer.prefill, transformer.decode_step
+
+    def prefill(*args, **kwargs):
+        h, got = real_prefill(*args, **kwargs)
+        seen["prefill"] = h
+        if caches:
+            seen["prefill caches"] = _host(got)
+        return h, got
+
+    def decode_step(*args, **kwargs):
+        h, got = real_decode(*args, **kwargs)
+        seen["decode"].append(h[:, 0])
+        return h, got
+
+    transformer.prefill, transformer.decode_step = prefill, decode_step
+    try:
+        yield seen
+    finally:
+        transformer.prefill, transformer.decode_step = real_prefill, \
+            real_decode
+
+
+def mesh_serve_run(ctx, part: str, name: str, n_layers: int, dtype: str,
+                   tag: str) -> tuple[dict, object, torch.Tensor]:
+    """One phase 27 run on this rank: the config drawn straight into the
+    rank's shards under ``ctx_for_serve`` (27c: phase 11's weights), and
+    the counted main path through the engine: (27c) the sharded
+    ``RetrievalIndex`` of the rank's head shard, the prefill of its rows
+    of the reference's prompts, the decode steps fed the unsharded
+    engine's tokens (the last one's collectives against
+    ``predict_serve_collectives``), a dense top-k step and (27c) a
+    full-beam index top-k step: exact launches (zstats once,
+    flash_attention once a layer, leaf_scores once; 27b's fp32 attention
+    through flash_attention_simt).  Then, outside the count: prefill's h
+    and each decode step's h, as the engine's steps computed them
+    (``keeping_hidden``), against the reference's (27b within MESH_RTOL of
+    each tensor's max; bf16 within phase 11's DECODE_RTOL and
+    ``decode_rel_rms``), the tokens (``_tokens_gate``), 27b's caches
+    gathered whole after the prefill and after the last step, the dense
+    top-k against the unsharded one, the full beam against the dense
+    top-k, and (27c) the sharded int8 quantized index's recall@k at
+    exhaustive beam.  Returns (the numbers, the index, the last step's
+    h)."""
+    cfg = serve_cfg(name, n_layers, dtype)
+    sctx = rules.ctx_for_serve(ctx.mesh, cfg)
+    fp32, k = dtype == "float32", MESH_SERVE_TOPK
+    saved = None
+    if part == "27c":
+        saved = torch.load(MESH_SERVE_DIR / f"{name}.pt")
+        ref, seed = saved["refs"][n_layers], MESH_SERVE_LLAMA_SEED
+    else:
+        ref = torch.load(MESH_SERVE_DIR / f"{part}_{name}.pt")
+        seed = MESH_SERVE_SEED
+    b, s, n_dec, max_len = (MESH_SERVE_PARITY if part == "27b"
+                            else MESH_SERVE_BF16)
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_module(cfg, torch.Generator(DEV).manual_seed(seed),
+                            DEV, ctx=sctx)
+    sync()
+    secs = {"draw": time.perf_counter() - t0}
+    rows = rules.serve_rows(torch.arange(b), sctx)
+    prompts = ref["prompts"][rows].to(DEV)
+    fed = [f[rows].to(DEV) for f in ref["fed"]]
+    b_l = prompts.shape[0]
+    seen: dict = {"decode": []}
+    prefill = engine.make_prefill_step(cfg, sctx, max_len)
+    with keeping_hidden(seen, caches=fp32):
+        decode = engine.make_decode_step(cfg, sctx, max_len)
+
+    # -- the counted main path ---------------------------------------------
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    head = api.head_table(model, cfg, sctx)
+    index = None
+    if part == "27c":
+        index = retrieval.build_index(head, sctx, vocab_size=cfg.vocab_size)
+        sync()
+        secs["index"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with keeping_hidden(seen, caches=fp32):
+        tok0, caches = prefill(model, {"tokens": prompts})
+    sync()
+    secs["prefill"] = time.perf_counter() - t0
+    toks, before, collectives = [], caches, {}
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        pos = torch.full((b_l,), s + i, dtype=torch.long, device=DEV)
+        if i == n_dec - 1:
+            sync()
+            distributed.reset_collective_counts()
+            before = caches  # a mamba step returns new states
+        nxt, caches = decode(model, fed[i][:, None].long(), caches, pos)
+        if i == n_dec - 1:
+            sync()
+            collectives = distributed.collective_counts(by_group=True)
+        toks.append(nxt)
+    sync()
+    secs["decode"] = time.perf_counter() - t0
+    last = fed[n_dec - 1][:, None].long()
+    dids, dlog, _ = engine.make_topk_step(cfg, sctx, k + 1,
+                                          max_len=max_len)(
+        model, last, before, pos)
+    ids = logits = None
+    if index is not None:
+        ids, logits, _ = engine.make_topk_step(cfg, sctx, k, index=index,
+                                               max_len=max_len)(
+            model, last, before, pos)
+    sync()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(REPLACES, 0)
+    if DEV.type == "cuda":
+        want["flash_attention_simt" if fp32 else "flash_attention"] = \
+            attn_layers(cfg)
+        if index is not None:
+            want.update(zstats=1, leaf_scores=1)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    seq_split = "k" in caches[0] and rules.seq_shards(sctx, max_len) > 1
+    predicted = predict_serve_collectives(cfg, sctx, b_l, seq_split)
+    if collectives != predicted:
+        raise AssertionError(f"{tag}: a decode step's collectives "
+                             f"{collectives} != the prediction "
+                             f"{predicted}")
+
+    # -- checks outside the count --------------------------------------------
+    errs, rms, swaps, logit_err = {}, {}, 0, 0.0
+    h_pre = seen["prefill"]
+    if fp32:
+        errs["prefill h"] = rel_err(h_pre, ref["prefill_h"][rows].to(DEV))
+        errs.update(_serve_cache_errs(seen["prefill caches"],
+                                      ref["prefill_caches"], cfg, sctx, b,
+                                      max_len, "prefill"))
+    ref_h = ref["prefill_h_last"][rows].to(DEV)
+    errs["prefill h last"] = rel_err(h_pre[:, -1], ref_h)
+    rms["prefill"] = float(_rel_rms(h_pre[:, -1].float(), ref_h))
+    got_swaps, got_err = _tokens_gate(
+        f"{tag} prefill token", tok0, [t[rows] for t in ref["prefill_top"]],
+        h_pre[:, -1], ref_h, head, sctx, fp32)
+    swaps, logit_err = swaps + got_swaps, max(logit_err, got_err)
+    del h_pre
+    # the decode steps' h as the engine's steps computed them
+    for i, h in enumerate(seen["decode"]):
+        ref_h = ref["h"][i][rows].to(DEV)
+        errs[f"decode {i} h"] = rel_err(h, ref_h)
+        rms[f"decode {i}"] = float(_rel_rms(h.float(), ref_h))
+        got_swaps, got_err = _tokens_gate(
+            f"{tag} decode {i} token", toks[i],
+            [t[rows] for t in ref["top"][i]], h, ref_h, head, sctx, fp32)
+        swaps, logit_err = swaps + got_swaps, max(logit_err, got_err)
+    if fp32:
+        errs.update(_serve_cache_errs(caches, ref["decode_caches"], cfg,
+                                      sctx, b, max_len, "decode"))
+        gate(f"{tag} fp32 parity", errs, MESH_RTOL)
+    else:
+        gate(f"{tag} h", errs, DECODE_RTOL)
+        gate(f"{tag} h relative RMS", rms, decode_rel_rms(cfg))
+    rid, rlog = (t[rows].to(DEV) for t in ref["top"][n_dec - 1])
+    if fp32:
+        topk_swaps = check_topk_ties(f"{tag} dense top-{k}", dids[:, :k],
+                                     rid, rlog, k)
+    else:
+        topk_swaps = check_topk_near(
+            f"{tag} dense top-{k}", dids[:, :k], rid, rlog, k,
+            _logit_err(h, ref_h, rid, head, sctx))
+    out = {"secs": secs, "launches": counts, "collectives": collectives,
+           "b_l": b_l, "seq_split": seq_split, "errs": errs, "rel_rms": rms,
+           "token_swaps": swaps, "logit_err": logit_err,
+           "topk_swaps": topk_swaps,
+           "params": sum(p.numel() for p in model.parameters())}
+    if index is not None:
+        if not torch.allclose(logits, dlog[:, :k], rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{tag}: the full-beam logits differ from "
+                                 "the dense top-k's")
+        out["index_swaps"] = check_topk_ties(f"{tag} full beam", ids, dids,
+                                             dlog, k)
+        t0 = time.perf_counter()
+        qidx = quantized_index.build_quantized_index(
+            head, sctx, vocab_size=cfg.vocab_size, **serve_qknobs(cfg))
+        sync()
+        secs["quantized_index"] = time.perf_counter() - t0
+        q = rules.serve_rows(saved["queries"].to(DEV), sctx)
+        out.update(recall=quantized_index.recall_at_k(qidx, head, q, k,
+                                                      None, sctx),
+                   recall_unsharded=saved["recall"],
+                   lists=qidx.num_lists_shard, queries=q.shape[0])
+        del qidx
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if DEV.type == "cuda" else 0.0)
+    out["secs"] = {key: round(v, 3) for key, v in secs.items()}
+    return out, index, h
+
+
+def mesh_serve_kernels(ctx, cfg, part: str, index, h: torch.Tensor
+                       ) -> dict:
+    """The attention kernel of the run's prefill at this rank's shard
+    shape (its rows of the part's prompts, n_heads / tp q over n_kv / tp
+    kv heads of 128): 27b's fp32 flash_attention_simt at S 52, 27c's bf16
+    flash_attention at S 512; and, with the rank's index, zstats at its
+    blocks and leaf_scores at its full beam (``index_kernel_rows``); each
+    against its plain version and timed (SDPA beside the attention)."""
+    gen = torch.Generator(DEV).manual_seed(MESH_SERVE_SEED)
+    fp32 = cfg.dtype == "float32"
+    b, s = (MESH_SERVE_PARITY if part == "27b" else MESH_SERVE_BF16)[:2]
+    b = b // ctx.dp if b % ctx.dp == 0 else b
+    nh, nkv = layers.padded_heads(cfg, ctx.tp)
+    hq, kv = nh // ctx.tp, nkv // ctx.tp
+    kernel = flash_attention_simt if fp32 else flash_attention
+    rows = {kernel.__name__: flash_row(
+        gen, b, s, kernel, h=hq, kv=kv,
+        dtype=torch.float32 if fp32 else torch.bfloat16)}
+    rows[kernel.__name__]["shape"] = [b, s, hq, kv, 128]
+    if index is not None:
+        tag = f"llama3-8b shard ({ctx.axis_size('data')}, {ctx.tp})"
+        got = index_kernel_rows(index, h, tag)
+        got["zstats"]["shape"] = list(index.wq.shape)
+        got["leaf_scores"]["shape"] = [h.shape[0] * index.wq.shape[0],
+                                       *index.wq.shape[1:]]
+        rows.update(got)
+    return rows
+
+
+def mesh_serve_rank(ctx, part: str, name: str, n_layers: int,
+                    dtype: str) -> dict:
+    """One phase 27 run on this rank (``mesh_serve_run``), then, on the
+    world's rank 0 while the others wait, the kernels at the run's shard
+    shapes (``mesh_serve_kernels``) for each run with attention."""
+    dp, tp = ctx.axis_size("data"), ctx.tp
+    tag = f"{part} {name} ({dp}, {tp}) {dtype} rank ({ctx.data_index}, " \
+          f"{ctx.model_index})"
+    t0 = time.perf_counter()
+    out, index, h = mesh_serve_run(ctx, part, name, n_layers, dtype, tag)
+    t1 = time.perf_counter()
+    torch.distributed.barrier()
+    cfg = serve_cfg(name, n_layers, dtype)
+    if torch.distributed.get_rank() == 0 and attn_layers(cfg):
+        out["kernels"] = mesh_serve_kernels(ctx, cfg, part, index, h)
+    torch.distributed.barrier()
+    del index, h
+    out["secs"]["kernels"] = round(time.perf_counter() - t1, 1)
+    out["s"] = time.perf_counter() - t0
+    log(f"{tag}: seconds {out['secs']}")
+    return out
+
+
+def mesh_serve_report(ranks: list[dict], nccl: dict, ref_s: dict
+                      ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 27's rank results logged and gated: the quantized index's
+    recall, averaged over the data rows, within MESH_SERVE_RECALL_TOL of
+    the unsharded one's; each run's launches summed over its ranks, and
+    rank 0's kernel rows as kernels-line shapes
+    ``mesh_serving_<dp>x<tp>`` (27c) and ``mesh_serving_fp32_<dp>x<tp>``
+    (27b)."""
+    by_path, shapes = {}, {}
+    for part, name, (dp, tp), n_layers, dtype in MESH_SERVE_RUNS:
+        key = f"{part} {name} {dp}x{tp}"
+        total = dict.fromkeys(REPLACES, 0)
+        for r, res in enumerate(ranks):
+            m = res[key]
+            worst = max(m["errs"], key=m["errs"].get)
+            log(f"[mesh serving] gloo {key} {dtype} rank {r} ({n_layers} "
+                f"layers, {m['params']} parameters a rank, {m['b_l']} rows, "
+                f"the cache's sequence "
+                f"{'split' if m['seq_split'] else 'whole'}): worst h / cache "
+                f"error {worst} {m['errs'][worst]} over its max, relative "
+                f"RMS {max(m['rel_rms'].values())}, token swaps "
+                f"{m['token_swaps']} (logit error {m['logit_err']} of the "
+                f"top logit), top-{MESH_SERVE_TOPK} swaps {m['topk_swaps']}"
+                + (f", full beam = dense but {m['index_swaps']} ties, int8 "
+                   f"recall@{MESH_SERVE_TOPK} {m['recall']} ({m['lists']} "
+                   f"lists a shard, {m['queries']} queries; unsharded "
+                   f"{m['recall_unsharded']})" if "recall" in m else "")
+                + f"; launches "
+                f"{({k: v for k, v in m['launches'].items() if v})}, a "
+                f"decode step's collectives {m['collectives']} (= the "
+                f"prediction), seconds {m['secs']}, prefill "
+                f"{m['secs']['prefill'] * 1e3:.1f} ms, decode "
+                f"{m['secs']['decode'] / MESH_SERVE_STEPS[part] * 1e3:.1f} "
+                f"ms a token, peak {m['peak_gb']:.3f} GB")
+            add_counts(total, m["launches"])
+        if "recall" in ranks[0][key]:
+            recall = statistics.mean(res[key]["recall"] for res in ranks)
+            want = ranks[0][key]["recall_unsharded"]
+            if abs(recall - want) > MESH_SERVE_RECALL_TOL:
+                raise AssertionError(
+                    f"{key}: the sharded int8 index's recall {recall} is "
+                    f"more than {MESH_SERVE_RECALL_TOL} from the unsharded "
+                    f"one's {want}")
+        kern = ranks[0][key].get("kernels")
+        if kern:
+            fp32 = "fp32_" if dtype == "float32" else ""
+            shapes[f"mesh_serving_{fp32}{dp}x{tp}"] = kern
+            log(f"[mesh serving] {key}: kernels at the shard shapes {kern}")
+        by_path[f"mesh serving {name} ({dp}, {tp}) {dtype}"] = total
+    secs = [round(sum(r[f"{p} {n} {dp}x{tp}"]["s"]
+                      for p, n, (dp, tp), _, _ in MESH_SERVE_RUNS), 1)
+            for r in ranks]
+    log(f"[mesh serving] NCCL (1, 1) {nccl}; the unsharded references "
+        f"{ref_s} s; the ranks' phase 27 {secs} s")
+    return by_path, shapes
+
+
+def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27")
                        ) -> tuple[dict[str, dict[str, int]], dict]:
     """Phases 24 and 25, the backbone's storage layouts on the mesh, in
     one set of rank processes.  Phase 24 (starcoder2-3b at full width, 4
@@ -8084,11 +8845,15 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26")
     process (``mesh_expert_nccl``) and the unsharded fp32 parity step
     saved for the ranks (``mesh_expert_reference``), then each of
     MESH_EXPERT_RUNS on the ranks after phase 25's (``mesh_expert_rank``).
-    ``phases`` runs some of the three alone.  Returns the bf16 fits'
-    launches of each mesh, summed over its ranks, and the kernels' rows at
-    the shard shapes."""
+    Phase 27 (the decoder LMs' serving engine under ``ctx_for_serve``):
+    27a over NCCL in this process (``mesh_serve_nccl``) and the unsharded
+    references saved for the ranks (``mesh_serve_references``; 27c's from
+    phase 11's run), then each of MESH_SERVE_RUNS on the ranks after phase
+    26's (``mesh_serve_rank``).  ``phases`` runs some of the four alone.
+    Returns the bf16 fits' launches of each mesh, summed over its ranks,
+    and the kernels' rows at the shard shapes."""
     t_start = time.perf_counter()
-    t24 = t25 = t26 = 0.0
+    t24 = t25 = t26 = t27 = 0.0
     if "24" in phases:
         nccl24 = mesh_dense_nccl()
         ref_s = mesh_dense_reference()
@@ -8110,22 +8875,31 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26")
                     f"{torch.cuda.memory_allocated() / 1e9:.3f} GB "
                     f"({torch.cuda.memory_reserved() / 1e9:.3f} GB "
                     "reserved) as the ranks start")
+        if "27" in phases:
+            t0 = time.perf_counter()
+            nccl27 = mesh_serve_nccl()
+            ref27 = mesh_serve_references()
+            t27 = time.perf_counter() - t0
         ranks = run_mesh_ranks(",".join(phases), MESH_LAYOUTS_TIMEOUT_S)
     finally:
         shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
         shutil.rmtree(MESH_EXPERT_DIR, ignore_errors=True)
+        shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
     by_path, shapes = {}, {}
     for ph, report in (("24", lambda: mesh_dense_report(ranks, nccl24,
                                                         ref_s)),
                        ("25", lambda: mesh_family_report(ranks, nccl25)),
                        ("26", lambda: mesh_expert_report(ranks, nccl26,
-                                                         ref26))):
+                                                         ref26)),
+                       ("27", lambda: mesh_serve_report(ranks, nccl27,
+                                                        ref27))):
         if ph in phases:
             got_paths, got_shapes = report()
             by_path.update(got_paths)
             shapes.update(got_shapes)
     log(f"[mesh layouts] in this process: phase 24 {t24:.1f} s, phase 25 "
-        f"{t25:.1f} s, phase 26 {t26:.1f} s; phases 24 to 26 "
+        f"{t25:.1f} s, phase 26 {t26:.1f} s, phase 27 {t27:.1f} s; phases "
+        f"24 to 27 "
         f"{time.perf_counter() - t_start:.1f} s; each rank's peak memory "
         f"since its last fit began, GB "
         f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}")
@@ -8309,9 +9083,10 @@ def main() -> int:
     layout_paths, layout_shapes = phase_mesh_layouts()
     by_path.update(layout_paths)
     shapes.update(layout_shapes)
-    lap("the backbone's layouts and experts on a mesh (phases 24-26)")
+    lap("the backbone's layouts, experts and serving on a mesh (phases "
+        "24-27)")
 
-    timing_report("phases 4-26")
+    timing_report("phases 4-27")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))
     log(smi)

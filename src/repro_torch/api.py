@@ -26,7 +26,11 @@ defaults are the reference's; a ``key`` is a ``torch.Generator``.  The
 train-step factories and ``fit`` (re-exported here) consume the same
 config and carry the same ``SamplerState``.
 
-A mesh ``ctx`` raises (ROADMAP.md A17).
+On a ``(data, model)`` mesh (a ``ShardCtx``) ``w`` is this rank's vocab
+shard of the head: ``export_index(w, ctx)`` builds the rank's shard of
+the index and ``decode_topk(..., ctx=ctx)`` merges the shards' top-k over
+the model group (dense: through ``serve.engine.decode_topk``, as the
+reference's facade does).
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ from repro_torch.core.samplers import (  # noqa: F401  (re-export)
     sampler_from_config,
     sampler_names,
 )
-from repro_torch.serve import retrieval
+from repro_torch.serve import engine, retrieval
+from repro_torch.sharding import rules
 from repro_torch.train.loop import fit  # noqa: F401  (re-export)
 from repro_torch.train.step import (  # noqa: F401  (re-export)
     TrainState,
@@ -200,8 +205,10 @@ class SoftmaxHead:
     def export_index(self, w: Tensor, ctx: Any = None,
                      leaf_size: int | None = None
                      ) -> retrieval.RetrievalIndex:
-        """Pack ``w`` into the hierarchy-backed MIPS index."""
-        self._check_table(w)
+        """Pack ``w`` into the hierarchy-backed MIPS index (on a mesh
+        ``ctx`` this rank's shard of it, from its head shard ``w``)."""
+        if not rules.on_mesh(ctx):
+            self._check_table(w)
         return retrieval.build_index(w.detach(), ctx, leaf_size=leaf_size,
                                      vocab_size=self.cfg.vocab_size)
 
@@ -209,8 +216,10 @@ class SoftmaxHead:
                     index: Any = None, beam: int | None = None,
                     ctx: Any = None) -> tuple[Tensor, Tensor]:
         """Top-k (ids, logits) per query: beam retrieval through ``index``
-        when given (exact at full beam), dense scoring otherwise."""
-        retrieval.require_unsharded(ctx)
+        when given (exact at full beam), dense scoring otherwise.  With a
+        mesh ``ctx`` the dense path runs vocab-sharded through
+        ``engine.decode_topk`` (``w`` this rank's head shard: per-shard
+        top-k and one (T, k) all-gather, never a (T, n) logit tensor)."""
         if index is not None:
             return retrieval.decode_topk(index, h, k, beam, ctx)
         if beam is not None:
@@ -218,5 +227,7 @@ class SoftmaxHead:
                 "beam is a retrieval-index knob; without an index the "
                 "dense path scores every class — pass "
                 "index=head.export_index(w) to use a beam")
+        if rules.on_mesh(ctx):
+            return engine.decode_topk(self.cfg, ctx, w, h, k)
         self._check_table(w)
         return retrieval.dense_topk(w, h, k, n_valid=self.cfg.vocab_size)

@@ -23,6 +23,8 @@ Both functions take plain numpy arrays (the JAX side converts with
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's (of a
     sharded one, a mesh rank's own shard).
+  * ``lm_shards_from_jax`` — the reference's LM params onto a mesh rank's
+    shards (a ``StackedLM``; the serving engine's on a mesh).
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
     lstm, LM or encoder-decoder model (params, the ``chain(clip, adamw)``
     or ``chain(clip, adafactor)`` state, the sampler's carried state and
@@ -37,7 +39,9 @@ And back, numpy out:
     split at their first ``_``; a ``StackedLM``'s layers stacked per
     segment, an ``EncDec``'s per block stack); a stacked tree leaf for
     leaf.
-  * ``caches_to_jax`` — the port's decode caches as numpy.
+  * ``caches_to_jax`` — the port's decode caches as numpy (on a serving
+    mesh each rank's blocks gathered; ``caches_from_jax(..., ctx=)`` cuts
+    the reference's caches into them, by ``transformer.cache_specs``).
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.
   * On a mesh (a ``ShardCtx``), ``train_state_from_jax(..., ctx=)`` puts
@@ -68,6 +72,7 @@ from repro_torch.core.samplers import SamplerState
 from repro_torch.models import api
 from repro_torch.models.encdec import STACKS as ENCDEC_STACKS
 from repro_torch.models.encdec import EncDec
+from repro_torch.models import transformer
 from repro_torch.models.transformer import (
     LM_FAMILIES,
     StackedLM,
@@ -375,31 +380,100 @@ def _first_dim(tree) -> int | None:
 
 
 def caches_from_jax(np_caches, cfg: ArchConfig,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None, ctx=None):
     """Reference decode caches (``transformer.init_cache`` / ``prefill``'s
     list, one dict per segment; an encoder-decoder's one dict of four
     (L, B, S, KV, hd) arrays; numpy leaves) -> the port's on ``device``
-    (the card unless ``device="cpu"``), leaf for leaf."""
+    (the card unless ``device="cpu"``), leaf for leaf.  With a serving
+    mesh ``ctx`` each leaf is cut to this rank's block by
+    ``transformer.cache_specs`` (K/V its data rows and sequence range, a
+    mamba leaf its data rows and channels)."""
     dev = resolve_device(device)
     if cfg.family == "encdec":
         want = {"self_k", "self_v", "cross_k", "cross_v"}
         if set(np_caches) != want:
             raise ValueError(f"an encoder-decoder's cache holds "
                              f"{sorted(want)}, not {sorted(np_caches)}")
+        rules.require_unsharded(ctx, "the encoder-decoder's caches on a "
+                                "mesh")
         return _tensor_tree(dict(np_caches), dev)
     n_segs = len(segments_of(cfg))
     if len(np_caches) != n_segs:
         raise ValueError(f"{cfg.name} has {n_segs} segments, the caches "
                          f"{len(np_caches)}")
-    return _tensor_tree(list(np_caches), dev)
+    caches = _tensor_tree(list(np_caches), dev)
+    if not rules.on_mesh(ctx):
+        return caches
+    batch, max_len = _cache_dims(caches)
+    specs = transformer.cache_specs(cfg, batch, max_len, ctx)
+    out = []
+    for c, spec in zip(caches, specs):
+        if isinstance(c, dict):
+            c = {k: rules.shard_by_spec(t, spec[k], ctx)
+                 for k, t in c.items()}
+        else:
+            c = rules.shard_by_spec(c, spec, ctx)
+        out.append(c)
+    return out
 
 
-def caches_to_jax(caches):
+def _cache_dims(caches) -> tuple[int, int | None]:
+    """(batch, max_len) of a whole LM cache list (max_len None without an
+    attention segment)."""
+    batch, max_len = None, None
+    for c in caches:
+        t = c["k"] if isinstance(c, dict) and "k" in c else c
+        if isinstance(t, dict):
+            batch = t["conv"].shape[1]
+        else:
+            batch, max_len = t.shape[1], t.shape[2]
+    return batch, max_len
+
+
+def caches_to_jax(caches, cfg: ArchConfig | None = None, ctx=None,
+                  batch: int | None = None, max_len: int | None = None):
     """The port's decode caches -> numpy copies, the reference's layout
-    (a list per segment, or an encoder-decoder's dict)."""
+    (a list per segment, or an encoder-decoder's dict).  A serving mesh
+    rank's blocks (``cfg`` and ``ctx``) are gathered whole, every rank of
+    the mesh calling this: ``batch`` is the whole batch (a rank's rows
+    alone do not tell a block of dp from a whole batch that dp does not
+    divide), ``max_len`` the whole sequence where the caches hold
+    attention (neither does a rank's range: ``rules.seq_shards``)."""
     if isinstance(caches, dict):
         return _map_tree(host_copy, caches)
-    return _map_tree(host_copy, list(caches))
+    if not rules.on_mesh(ctx):
+        return _map_tree(host_copy, list(caches))
+    if batch is None:
+        raise ValueError("caches on a mesh gather with their whole batch "
+                         "(batch=)")
+    if max_len is None and _cache_dims(caches)[1] is not None:
+        raise ValueError("attention caches on a mesh gather with their "
+                         "whole length (max_len=)")
+    specs = transformer.cache_specs(cfg, batch, max_len or 1, ctx)
+    out = []
+    for c, spec in zip(caches, specs):
+        if isinstance(c, dict):
+            out.append({k: host_copy(rules.gather_by_spec(t, spec[k], ctx))
+                        for k, t in c.items()})
+        else:
+            out.append(host_copy(rules.gather_by_spec(c, spec, ctx)))
+    return out
+
+
+def lm_shards_from_jax(np_params: dict, cfg: ArchConfig, ctx,
+                       device: str | torch.device | None = None
+                       ) -> StackedLM:
+    """Reference LM params (the whole tree, padded for the mesh as the
+    reference's ``init_lm`` pads it for ``ctx``) -> a ``StackedLM`` of
+    this rank's shards by ``rules.param_specs_for`` in ``ctx``'s mode
+    (``train.step.shard_params``: ``shard_by_spec`` of each leaf), with
+    its ``param_specs`` set: what the serving engine takes on a mesh
+    (``rules.ctx_for_serve``) and the train step in the training modes."""
+    from repro_torch.train.step import shard_params
+
+    dev = resolve_device(device)
+    model = StackedLM(cfg, dev, tree=lm_params_from_jax(np_params, cfg, dev))
+    return shard_params(model, cfg, ctx)
 
 
 def params_from_jax(np_params: dict, cfg: ArchConfig,
@@ -593,14 +667,12 @@ def index_from_jax(np_fields: dict,
     quantized one, ``bits``) -> the port's index on ``device``.  Of a
     sharded (tp > 1) ``RetrievalIndex``, whose tensors hold the shards'
     heaps one after another, a rank of a mesh ``ctx`` of that tp keeps its
-    own shard; without one it raises.  A sharded quantized index is not
-    ported (ROADMAP.md A17)."""
+    own shard; without one it raises.  So does a sharded
+    ``QuantizedRetrievalIndex``, whose tensors hold the shards' lists one
+    after another."""
     dev = resolve_device(device)
     cls = QuantizedRetrievalIndex if "bits" in np_fields else RetrievalIndex
     tp = int(np_fields["tp"])
-    if cls is QuantizedRetrievalIndex and tp != 1:
-        raise NotImplementedError("sharded (tp > 1) quantized indexes are "
-                                  "not ported (ROADMAP.md A17)")
     statics = {f: int(np_fields[f]) for f in ("n", "tp", "v_shard", "bits")
                if f in np_fields}
     if tp == 1:

@@ -51,6 +51,10 @@ Functions below:
               the first's backward keeps this rank's slice of the
               cotangent, the second's all-gathers it.
 
+``merge_softmax`` joins the parts of a softmax whose keys are split over
+the group (decode's attention over a sequence-sharded KV cache): one pmax
+of the parts' maxima and one psum of their rescaled [sum | output].
+
 Every call is counted (``collective_counts``: calls and bytes per op).
 Random draws take a ``torch.Generator`` where the reference takes a key;
 ``utils.misc.fold_generator`` folds the shard index in as the reference
@@ -291,6 +295,24 @@ def replicated(x: Tensor, group) -> Tensor:
     """Mark ``x`` as held alike by every rank of ``group``: its gradient
     is summed over the group (see the module docstring)."""
     return x if group is None else _Replicated.apply(x, group)
+
+
+@torch.no_grad()
+def merge_softmax(m: Tensor, l: Tensor, o: Tensor, group) -> Tensor:
+    """A softmax-weighted sum whose keys lie split over ``group``: each
+    rank holds, over its own keys, the max score m (...,) (-inf where it
+    has no valid key), the sum l (...,) of exp(score - m) and the output
+    o (..., hv) = sum exp(score - m) v.  One pmax gives the global max M,
+    and one psum of [l | o] rescaled by exp(m - M) gives the global sum and
+    output: returns output / sum.  Off a group (None) o / l."""
+    if group is None:
+        return o / l[..., None]
+    big = pmax(m, group)
+    scale = torch.exp(torch.where(torch.isneginf(m), -torch.inf, m - big))
+    parts = torch.cat([(l * scale)[..., None], o * scale[..., None]],
+                      dim=-1)
+    parts = psum(parts, group)
+    return parts[..., 1:] / parts[..., :1]
 
 
 # --- shard geometry -----------------------------------------------------------

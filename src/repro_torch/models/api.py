@@ -30,7 +30,9 @@ backbone's, the expert configs' residual stream S-sharded:
 ``models/transformer.py``), and ``head_table`` gives this rank's vocab
 rows with their feature dim gathered over ``data``
 (``rules.gather_head_fd``); a head tied to the embedding is the
-embedding's shard.
+embedding's shard.  Serving on a mesh takes the same shards in
+``rules.ctx_for_serve``'s mode (``require_serve_mesh`` names the families
+that serve there).
 """
 from __future__ import annotations
 
@@ -58,6 +60,16 @@ def require_mesh_layout(cfg: ArchConfig) -> None:
     family's layouts are, experts, MLA and multi-token prediction
     included)."""
     _require_ported(cfg)
+
+
+def require_serve_mesh(cfg: ArchConfig) -> None:
+    """The serving family gate on a mesh (``rules.ctx_for_serve``): the
+    dense and ssm families' backbones serve there
+    (``transformer.SERVE_MESH_FAMILIES``); the moe and hybrid families,
+    MLA's latent caches and the encoder-decoder raise, naming ROADMAP.md
+    A17.  The head's top-k (``engine.decode_topk``) serves every family."""
+    _require_ported(cfg)
+    transformer.require_serve_mesh(cfg)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,

@@ -67,7 +67,7 @@ from repro_torch.models.transformer import (
     _stacked,
     padded_vocab,
 )
-from repro_torch.serve.retrieval import require_unsharded
+from repro_torch.sharding.rules import require_unsharded
 from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
@@ -324,7 +324,8 @@ def init_dec_cache(params, cfg: ArchConfig, batch: int, max_len: int,
     layer from the encoder's states (B, Sf, d), each (L, B, S, KV, hd) in
     the compute dtype; each layer's cross K/V is written into its slot of
     the stack as it is projected, so no second copy is held."""
-    require_unsharded(ctx)
+    require_unsharded(ctx, "the encoder-decoder's caches and decode on "
+                      "a mesh")
     dt = L._dtype(cfg)
     _, nkv = L.padded_heads(cfg)
     hd = cfg.resolved_head_dim
@@ -351,7 +352,8 @@ def decode_step(params, token: Tensor, cache: dict[str, Tensor],
     IN PLACE (the same dict returned; the reference returns a new one),
     the cross K/V read whole, in fp32, by ``layers.attn_decode`` with
     ``update_cache=False``."""
-    require_unsharded(ctx)
+    require_unsharded(ctx, "the encoder-decoder's caches and decode on "
+                      "a mesh")
     top = _top(params)
     b = token.shape[0]
     x = L.apply_embed(top["embed"], token, cfg)

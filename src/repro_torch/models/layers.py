@@ -23,7 +23,10 @@ Conventions, as in the reference:
     (its backward a reduce-scatter of the heads' partial cotangents), the
     row-parallel output leaves through ``reduce_scatter_tiled`` over S,
     and the embedding's lookup is reduce-scattered over S in place of its
-    psum (``tp_enter`` / ``tp_exit``).
+    psum (``tp_enter`` / ``tp_exit``).  ``attn_decode`` under TP serves
+    the reference's sequence-sharded KV cache: the step's heads gathered
+    over the group (``gather_heads``), each rank's range attended, the
+    ranges' softmax merged (``distributed.merge_softmax``).
 
 Full-sequence attention (``attn_forward``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors (with its
@@ -311,19 +314,52 @@ def cross_kv(p: Params, enc: Tensor, cfg: ArchConfig
     return k, v
 
 
+def gather_heads(parts: list[Tensor], group) -> list[Tensor]:
+    """Tensors of (B, S, heads_i, hd) over this rank's heads, each with
+    every rank's heads in head order, in ONE all-gather over ``group``
+    (their heads packed side by side, gathered, then unpacked); the
+    tensors themselves off a group."""
+    if group is None:
+        return parts
+    b, s, hd = parts[0].shape[0], parts[0].shape[1], parts[0].shape[-1]
+    widths = [t.shape[2] for t in parts]
+    packed = torch.cat([t.reshape(b, s, -1, hd) for t in parts], dim=2)
+    n = distributed.axis_size(group)
+    whole = distributed.all_gather_tiled(packed, group, dim=2).reshape(
+        b, s, n, sum(widths), hd)
+    out, at = [], 0
+    for w in widths:
+        out.append(whole[:, :, :, at:at + w].reshape(b, s, n * w, hd))
+        at += w
+    return out
+
+
 def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
                 pos: Tensor, cfg: ArchConfig, *, update_cache: bool = True,
-                rope_on: bool = True) -> tuple[Tensor, Tensor, Tensor]:
+                rope_on: bool = True, group=None,
+                cache_sharded: bool = False
+                ) -> tuple[Tensor, Tensor, Tensor]:
     """One-token decode against a KV cache.
 
     x: (B, 1, d); cache_k/v: (B, S, KV, hd); pos: (B,) current positions.
     Returns (y, cache_k, cache_v).  With ``update_cache`` the new token's
     K/V are written into the caches IN PLACE (the reference returns
     updated copies; writing in place saves a copy of the cache per layer
-    and step), and the same tensors are returned."""
+    and step), and the same tensors are returned.
+
+    Under TP (``group``) the reference's semantics over a cache of every
+    KV head: this rank's q / k / v heads are all-gathered over the group
+    in one call; with ``cache_sharded`` the cache holds this rank's
+    sequence range (positions [j S, (j + 1) S) on model rank j), the
+    rank that holds ``pos`` writes the new K/V, each rank attends its
+    range for every head and ``distributed.merge_softmax`` joins the
+    ranges (else every rank holds, writes and attends the whole cache);
+    then this rank's heads of the output go through its ``wo`` rows and
+    leave through ``tp_exit``."""
     dt = _dtype(cfg)
     hd = cfg.resolved_head_dim
     b = x.shape[0]
+    x = tp_enter(x, group)
     q = (x @ p["wq"].to(dt)).reshape(b, 1, -1, hd)
     k = (x @ p["wk"].to(dt)).reshape(b, 1, -1, hd)
     v = (x @ p["wv"].to(dt)).reshape(b, 1, -1, hd)
@@ -337,26 +373,52 @@ def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     if rope_on and not cfg.learned_pos and cfg.rope_theta > 0:
         q = rope(q, pos[:, None], cfg.rope_theta)
         k = rope(k, pos[:, None], cfg.rope_theta)
+    h_own = q.shape[2]
+    q, k, v = gather_heads([q, k, v], group)
+    sharded = group is not None and cache_sharded
+    s_len = cache_k.shape[1]
+    off = distributed.axis_index(group) * s_len if sharded else 0
 
     if update_cache:
         # the cache may hold fewer KV heads than a TP-padded projection
         nkv_c = cache_k.shape[2]
         bidx = torch.arange(b, device=x.device)
-        cache_k[bidx, pos] = k[:, 0, :nkv_c].to(cache_k.dtype)
-        cache_v[bidx, pos] = v[:, 0, :nkv_c].to(cache_v.dtype)
+        if sharded:
+            # every rank writes its slot; a slot outside its range keeps
+            # the value it held
+            at = pos - off
+            own = ((at >= 0) & (at < s_len))[:, None, None]
+            at = torch.clamp(at, 0, s_len - 1)
+            cache_k[bidx, at] = torch.where(
+                own, k[:, 0, :nkv_c].to(cache_k.dtype), cache_k[bidx, at])
+            cache_v[bidx, at] = torch.where(
+                own, v[:, 0, :nkv_c].to(cache_v.dtype), cache_v[bidx, at])
+        else:
+            cache_k[bidx, pos] = k[:, 0, :nkv_c].to(cache_k.dtype)
+            cache_v[bidx, pos] = v[:, 0, :nkv_c].to(cache_v.dtype)
 
     kv = cache_k.shape[2]
     h = q.shape[2]
-    group = h // kv
-    qf = q.float().reshape(b, kv, group, hd) / math.sqrt(hd)
+    qf = q.float().reshape(b, kv, h // kv, hd) / math.sqrt(hd)
     s = torch.einsum("bkgh,bskh->bkgs", qf, cache_k.float())
-    valid = (torch.arange(cache_k.shape[1], device=x.device)[None, :]
+    valid = (off + torch.arange(s_len, device=x.device)[None, :]
              <= pos[:, None])
     s = torch.where(valid[:, None, None, :], s, -torch.inf)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", w, cache_v.float())
-    y = o.reshape(b, 1, h * hd).to(dt) @ p["wo"].to(dt)
-    return y, cache_k, cache_v
+    if sharded:
+        m = torch.amax(s, dim=-1)
+        e = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+        o = distributed.merge_softmax(
+            m, torch.sum(e, dim=-1),
+            torch.einsum("bkgs,bskh->bkgh", e, cache_v.float()), group)
+    else:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskh->bkgh", w, cache_v.float())
+    o = o.reshape(b, 1, h * hd)
+    if group is not None:
+        j = distributed.axis_index(group)
+        o = o[..., j * h_own * hd:(j + 1) * h_own * hd]
+    y = o.to(dt) @ p["wo"].to(dt)
+    return _row_parallel_out(y, p, "bo", cfg, group), cache_k, cache_v
 
 
 # --- MLP ----------------------------------------------------------------------

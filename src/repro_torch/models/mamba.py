@@ -20,7 +20,9 @@ the port's last chunk is the remainder, so the state it returns (what
 ``prefill`` stores in the SSM cache) is the state after the last real
 token (ROADMAP.md C).  Every output ``y`` is the same either way.
 
-Decode carries (conv window, ssm state) in the cache: O(1) per token.
+Decode carries (conv window, ssm state) in the cache: O(1) per token; on
+a mesh a rank's cache holds its channels (the reference's ``".b.f"`` and
+``".bf."``), and ``mamba_decode`` runs channel-parallel as the block does.
 
 On a ``(data, model)`` mesh under Megatron TP (``tp_fsdp``) the block runs
 channel-parallel over the model group (``group``): a rank holds the
@@ -280,21 +282,26 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
     }
 
 
-def mamba_decode(p: Params, x: Tensor, cache: Params, cfg: ArchConfig
-                 ) -> tuple[Tensor, Params]:
+def mamba_decode(p: Params, x: Tensor, cache: Params, cfg: ArchConfig,
+                 group=None) -> tuple[Tensor, Params]:
     """Single-token step.  x: (B, 1, d).  Returns (y (B, 1, d), the new
-    cache): new tensors, the given cache is left as it was."""
+    cache): new tensors, the given cache is left as it was.  With
+    ``group`` channel-parallel over it, as ``apply_mamba``: ``p`` this
+    rank's channel view (``mesh_view``), the cache its channels'
+    conv window and state; y is whole."""
     dt = x.dtype
-    di = cfg.d_inner
+    x = tp_enter(x, group)
     xz = x @ p["in_proj"].to(dt)
+    di = xz.shape[-1] // 2  # the rank's channels under TP
     x_in, z = xz[..., :di], xz[..., di:]
     xc, conv_new = _causal_conv(x_in, p["conv_w"].to(dt), p["conv_b"].to(dt),
                                 prev=cache["conv"])
     xc = F.silu(xc)  # (B, 1, di)
-    delta, b_ssm, c_ssm = _ssm_params(p, xc, cfg)
+    delta, b_ssm, c_ssm = _ssm_params(p, xc, cfg, group)
     a_mat = -torch.exp(p["a_log"])
     da = torch.exp(delta[:, 0, :, None] * a_mat)  # (B, di, n)
     dbx = (delta[:, 0] * xc[:, 0].float())[..., None] * b_ssm[:, 0, None, :]
     h = da * cache["ssm"] + dbx
     y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0])
-    return _gate_out(p, y[:, None], xc, z), {"conv": conv_new, "ssm": h}
+    return _gate_out(p, y[:, None], xc, z, group), {"conv": conv_new,
+                                                     "ssm": h}

@@ -48,8 +48,22 @@ shard, each block all-gathers S on entry and reduce-scatters its output
 over S, the embedding's lookup is reduce-scattered over S, and h is
 gathered whole after the final norm (``distributed.all_gather_replicated``),
 as the reference returns it.  ``mtp_hidden``'s S - 1 rows take the same
-rule on their own.  The caches, prefill and decode stay single-device on
-a mesh (ROADMAP.md A17).
+rule on their own.
+
+Serving on a mesh (``rules.ctx_for_serve``: tp mode, the parameters
+replicated over ``data``; the dense and ssm families,
+``require_serve_mesh``) takes a rank's sharded ``StackedLM`` and its rows
+of the batch: ``init_cache``, ``prefill`` and ``decode_step`` lay the
+caches out as the reference's ``init_cache`` constrains them
+(``cache_specs``): K/V with the sequence over ``model`` where tp divides
+``max_len`` (``rules.seq_shards``; ``decode_step`` takes ``max_len`` to
+tell it), the mamba window and state with their channels over
+``model``.  The prefill runs each attention layer over the rank's heads
+and keeps the rank's sequence range of every KV head; the decode gathers
+the step's q / k / v heads, attends each rank's range and merges the
+ranges' softmax over ``model``; a mamba layer runs channel-parallel, its
+``in_proj`` channel view built once per parameter (``_in_proj_view``),
+not per step.
 
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
 GQA and MLA's expanded form alike) goes through
@@ -73,7 +87,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.serve.retrieval import require_unsharded
 from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
@@ -525,6 +538,115 @@ def mtp_hidden(params, h: Tensor, tokens: Tensor, cfg: ArchConfig,
 
 # --- caches / serving --------------------------------------------------------
 
+#: the LM families whose caches, prefill and decode run on a serving mesh
+SERVE_MESH_FAMILIES = ("dense", "ssm")
+
+
+def require_serve_mesh(cfg: ArchConfig) -> None:
+    """Raise for a config whose serving has no mesh form yet: MoE layers,
+    MLA's latent cache and the encoder-decoder come in A17's next part."""
+    if cfg.family not in SERVE_MESH_FAMILIES or cfg.mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"'{cfg.name}' (family '{cfg.family}'"
+            f"{', MLA' if cfg.mla else ''}"
+            f"{', experts' if cfg.n_experts else ''}) does not serve on a "
+            f"mesh yet: only the {', '.join(SERVE_MESH_FAMILIES)} families "
+            "(ROADMAP.md A17)")
+
+
+def _serve_specs(params, cfg: ArchConfig, ctx) -> Params | None:
+    """The spec tree of a rank's ``StackedLM`` on a serving mesh (None off
+    a mesh), after refusing what has no serving mesh form."""
+    if not rules.on_mesh(ctx):
+        return None
+    require_serve_mesh(cfg)
+    if ctx.mode == "pure_fsdp" or ctx.seq_residuals:
+        raise ValueError(
+            f"serving takes the ctx of rules.ctx_for_serve (tp, or tp_fsdp "
+            f"without seq_residuals), not mode {ctx.mode} with "
+            f"seq_residuals={ctx.seq_residuals}")
+    return _mesh_specs(params, ctx)
+
+
+def _in_proj_view(params: StackedLM, name: str, p: Tensor, spec, ctx,
+                  group) -> Tensor:
+    """A mamba layer's ``in_proj`` cut to this rank's channels
+    (``mamba.mesh_view``), built once per parameter and kept on the
+    module: rebuilt only when the parameter is replaced or written in
+    place (its version counter moves)."""
+    views = params.__dict__.setdefault("_serve_in_proj", {})
+    key = (id(ctx.mesh), p._version, p.data_ptr())
+    got = views.get(name)
+    if got is None or got[0] != key:
+        view = M.mesh_view({"in_proj": p}, {"in_proj": spec}, ctx,
+                           group)["in_proj"]
+        views[name] = got = (key, view)
+    return got[1]
+
+
+def _serve_layer(params, s: int, i: int, lp: Params, specs: Params | None,
+                 ctx, group) -> Params:
+    """Layer i of segment s as serving computes on it: off a mesh its own
+    tensors; on a mesh ``rules.compute_view`` of each shard (nothing to
+    gather in tp mode) and a mamba block's ``in_proj`` channel view from
+    ``_in_proj_view``."""
+    if specs is None:
+        return lp
+    ls = specs["segments"][s][i]
+    out = {k: rules.gather_tree(v, ls[k], ctx) for k, v in lp.items()
+           if k != "mamba"}
+    if "mamba" in lp:
+        mp, ms = lp["mamba"], ls["mamba"]
+        out["mamba"] = {
+            k: _in_proj_view(params, f"segments.{s}.{i}.mamba.in_proj", v,
+                             ms[k], ctx, group)
+            if k == "in_proj" and group is not None
+            else rules.compute_view(v, ms[k], ctx)
+            for k, v in mp.items()}
+    return out
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, ctx=None
+                ) -> list:
+    """Per segment, the spec of each cache leaf of a WHOLE batch of
+    ``batch`` and ``max_len`` positions (``rules.cache_spec``: the
+    reference's ``init_cache`` constraints, fitted): ``{"k", "v"}``, one
+    latent spec, or ``{"conv", "ssm"}``."""
+    out = []
+    for kind, shape in _cache_shapes(cfg, batch, max_len, _cache_tp(ctx)):
+        if kind == "latent":
+            out.append(rules.cache_spec("latent", shape, ctx))
+        else:
+            out.append({k: rules.cache_spec(k, sh, ctx)
+                        for k, sh in shape.items()})
+    return out
+
+
+def _cache_tp(ctx) -> int:
+    """The backbone's TP degree the caches' KV heads are padded for (an
+    MHA config's; a GQA cache keeps the true count)."""
+    return ctx.tp_backbone if rules.on_mesh(ctx) else 1
+
+
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                  tp: int = 1) -> list:
+    """Per segment (its cache kind, the whole shapes of its leaves)."""
+    nkv = cache_kv_heads(cfg, tp)
+    hd = cfg.resolved_head_dim
+    out = []
+    for kind, count in segments_of(cfg):
+        if kind.startswith("attn") and cfg.mla:
+            out.append(("latent", (count, batch, max_len,
+                                   cfg.kv_lora_rank + cfg.qk_rope_dim)))
+        elif kind.startswith("attn"):
+            kv = (count, batch, max_len, nkv, hd)
+            out.append(("kv", {"k": kv, "v": kv}))
+        else:
+            out.append(("mamba", {
+                "conv": (count, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                "ssm": (count, batch, cfg.d_inner, cfg.ssm_state)}))
+    return out
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
                dtype: torch.dtype | None = None,
@@ -532,62 +654,97 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
     """Per-segment stacked zero caches sized for max_len tokens, on
     ``device`` (the card unless ``device="cpu"``): K/V in ``dtype`` for
     attention (one latent tensor of kv_lora_rank + qk_rope_dim a token for
-    MLA), the conv window in ``dtype`` and the fp32 state for mamba."""
+    MLA), the conv window in ``dtype`` and the fp32 state for mamba.  On a
+    serving mesh ``batch`` is the whole batch and each leaf this rank's
+    block of it by ``cache_specs``: K/V its data rows and sequence range,
+    the mamba leaves its data rows and channels."""
     require_ported(cfg)
-    require_unsharded(ctx)
+    if rules.on_mesh(ctx):
+        require_serve_mesh(cfg)
     dev = resolve_device(device)
     dt = dtype or L._dtype(cfg)
-    nkv = cache_kv_heads(cfg)
-    hd = cfg.resolved_head_dim
     caches = []
-    for kind, count in segments_of(cfg):
-        if kind.startswith("attn") and cfg.mla:
-            caches.append(torch.zeros(
-                (count, batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_dim),
-                dtype=dt, device=dev))
-        elif kind.startswith("attn"):
-            caches.append({
-                "k": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
-                                 device=dev),
-                "v": torch.zeros((count, batch, max_len, nkv, hd), dtype=dt,
-                                 device=dev)})
-        else:
-            one = M.init_mamba_cache(cfg, batch, dt, dev)
-            caches.append({k: v.new_zeros((count, *v.shape))
-                           for k, v in one.items()})
+    for (kind, shapes), spec in zip(
+            _cache_shapes(cfg, batch, max_len, _cache_tp(ctx)),
+            cache_specs(cfg, batch, max_len, ctx)):
+        if kind == "latent":
+            caches.append(torch.zeros(rules.local_shape(shapes, spec, ctx),
+                                      dtype=dt, device=dev))
+            continue
+        caches.append({k: torch.zeros(rules.local_shape(sh, spec[k], ctx),
+                                      dtype=torch.float32 if k == "ssm"
+                                      else dt, device=dev)
+                       for k, sh in shapes.items()})
     return caches
+
+
+def _kv_seq_shards(cfg: ArchConfig, caches: list[Params], ctx,
+                   max_len: int | None) -> int:
+    """The model ranks ``decode_step``'s K/V caches split their sequence
+    over (``rules.seq_shards`` of their whole length ``max_len``); 1 off a
+    mesh, at tp 1 and without K/V caches.  On a mesh that could split it,
+    ``max_len`` is required and must match the rank's cache length."""
+    kv = [c for (kind, _), c in zip(segments_of(cfg), caches)
+          if kind.startswith("attn") and not cfg.mla]
+    if not rules.on_mesh(ctx) or ctx.tp == 1 or not kv:
+        return 1
+    if max_len is None:
+        raise ValueError(
+            "decode_step on a mesh takes its K/V caches' whole length "
+            "(max_len=, as given to prefill or init_cache): a rank's range "
+            "of a sequence split over the model group is not told from a "
+            "whole sequence by its length")
+    n = rules.seq_shards(ctx, max_len)
+    if kv[0]["k"].shape[2] * n != max_len:
+        raise ValueError(f"a rank's K/V cache of {kv[0]['k'].shape[2]} "
+                         f"positions is not a block of max_len={max_len} "
+                         f"split over {n}")
+    return n
 
 
 @torch.no_grad()
 def decode_step(params, token: Tensor, caches: list[Params],
-                pos: Tensor, cfg: ArchConfig, ctx=None
-                ) -> tuple[Tensor, list[Params]]:
+                pos: Tensor, cfg: ArchConfig, ctx=None,
+                max_len: int | None = None) -> tuple[Tensor, list[Params]]:
     """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
     d), caches): attention segments' K/V (MLA's latent rows) written at
     ``pos`` IN PLACE (the same dicts or tensors returned; the given list
     itself without mamba segments), mamba segments' states in new tensors
-    (the given ones untouched)."""
+    (the given ones untouched).
+
+    On a serving mesh (``ctx``: ``rules.ctx_for_serve``'s) ``params`` is a
+    rank's sharded ``StackedLM``, ``token`` and ``pos`` its rows and
+    ``caches`` its blocks (``init_cache``) and ``max_len`` their whole
+    length (needed where they hold K/V and tp > 1): the embedding
+    vocab-parallel, each attention layer over the sequence-sharded cache
+    (``layers.attn_decode``), each mamba layer channel-parallel
+    (``mamba.mamba_decode``), the MLP Megatron's; h is whole."""
     require_ported(cfg)
-    require_unsharded(ctx)
+    specs = _serve_specs(params, cfg, ctx)
+    group = rules.tp_group(ctx) if specs is not None else None
+    split = _kv_seq_shards(cfg, caches, ctx, max_len) > 1
     top = _top(params)
-    x = _embed(top, token, cfg, pos)
+    x = _embed(top, token, cfg, pos, ctx=ctx, specs=specs)
     new_caches = []
-    for (kind, _), layers, cache in zip(segments_of(cfg),
-                                        _layers_of(params, cfg), caches):
+    for s, ((kind, _), layers, cache) in enumerate(zip(
+            segments_of(cfg), _layers_of(params, cfg), caches)):
         mixer, ffn = kind.split("+")
         if mixer == "mamba":
             new = {k: torch.empty_like(v) for k, v in cache.items()}
         for i, lp in enumerate(layers):
+            lp = _serve_layer(params, s, i, lp, specs, ctx, group)
             h = L.apply_norm(lp["norm1"], x, cfg)
             if mixer == "attn" and cfg.mla:
                 y, _ = MLA.mla_decode(lp["attn"], h, cache[i], pos, cfg)
             elif mixer == "attn":
-                y, _, _ = L.attn_decode(lp["attn"], h, cache["k"][i],
-                                        cache["v"][i], pos, cfg)
+                y, _, _ = L.attn_decode(
+                    lp["attn"], h, cache["k"][i], cache["v"][i], pos, cfg,
+                    group=group, cache_sharded=split)
             else:
-                y, c = M.mamba_decode(lp["mamba"], h, _layer(cache, i), cfg)
+                y, c = M.mamba_decode(lp["mamba"], h, _layer(cache, i), cfg,
+                                      group)
                 _copy_into(_layer(new, i), c)
-            x, _ = _apply_ffn(ffn, lp, x + y, cfg)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group)
         new_caches.append(cache if mixer == "attn" else new)
     if all(n is c for n, c in zip(new_caches, caches)):
         new_caches = caches
@@ -601,32 +758,52 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
     after it, of length ``max_len`` (default S)).  Every attention layer is
     one ``ops.flash_attention`` call (an MLA layer's cache its latent
     rows); a mamba layer's cache is its conv window and its state after
-    the last token."""
+    the last token.
+
+    On a serving mesh (``decode_step``) ``tokens`` are this rank's rows:
+    each attention layer runs its own heads through the flash kernel, and
+    its cache takes this rank's sequence range of every KV head (k and v
+    all-gathered over the model group on the head dim in one call); each
+    mamba layer runs channel-parallel and keeps its channels' window and
+    state; h is whole."""
     require_ported(cfg)
-    require_unsharded(ctx)
+    specs = _serve_specs(params, cfg, ctx)
+    group = rules.tp_group(ctx) if specs is not None else None
     b, s = tokens.shape
     max_len = max_len or s
     dt = L._dtype(cfg)
     top = _top(params)
-    x = _embed(top, tokens, cfg)
+    x = _embed(top, tokens, cfg, ctx=ctx, specs=specs)
     positions = _positions(b, s, tokens.device)
-    caches = init_cache(cfg, b, max_len, dtype=dt, device=tokens.device)
-    nkv_c = cache_kv_heads(cfg)
-    for (kind, _), layers, cache in zip(segments_of(cfg),
-                                        _layers_of(params, cfg), caches):
+    # the whole batch these rows are a block of: b x dp, or b itself where
+    # they are a whole batch dp does not divide; either gives this rank's
+    # cache shapes
+    caches = init_cache(cfg, b * ctx.dp if specs is not None else b,
+                        max_len, ctx if specs is not None else None,
+                        dtype=dt, device=tokens.device)
+    nkv_c = cache_kv_heads(cfg, _cache_tp(ctx))
+    for si, ((kind, _), layers, cache) in enumerate(zip(
+            segments_of(cfg), _layers_of(params, cfg), caches)):
         mixer, ffn = kind.split("+")
         for i, lp in enumerate(layers):
+            lp = _serve_layer(params, si, i, lp, specs, ctx, group)
             h = L.apply_norm(lp["norm1"], x, cfg)
             if mixer == "attn" and cfg.mla:
                 y = MLA.mla_forward(lp["attn"], h, positions, cfg)
                 cache[i, :, :s] = MLA.mla_latent_cache(lp["attn"], h,
                                                        positions, cfg).to(dt)
             elif mixer == "attn":
-                y, k, v = L.attn_prefill(lp["attn"], h, positions, cfg)
-                cache["k"][i, :, :s] = k[:, :, :nkv_c].to(dt)
-                cache["v"][i, :, :s] = v[:, :, :nkv_c].to(dt)
+                y, k, v = L.attn_prefill(lp["attn"], h, positions, cfg,
+                                         group=group)
+                k, v = L.gather_heads([k, v], group)
+                s_len = cache["k"].shape[2]
+                off = (distributed.axis_index(group) * s_len
+                       if rules.seq_shards(ctx, max_len) > 1 else 0)
+                n = min(max(s - off, 0), s_len)
+                cache["k"][i, :, :n] = k[:, off:off + n, :nkv_c].to(dt)
+                cache["v"][i, :, :n] = v[:, off:off + n, :nkv_c].to(dt)
             else:
-                y, c = M.mamba_prefill(lp["mamba"], h, cfg)
+                y, c = M.mamba_prefill(lp["mamba"], h, cfg, group=group)
                 _copy_into(_layer(cache, i), c)
-            x, _ = _apply_ffn(ffn, lp, x + y, cfg)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group)
     return L.apply_norm(top["final_norm"], x, cfg), caches

@@ -20,28 +20,48 @@ caches (K/V or MLA's latent rows written in place, mamba states
 replaced) and ``make_topk_step`` one step with a top-k over the
 vocabulary.
 
-On a ``(data, model)`` mesh (``sharding/rules.py``) each rank runs the
-backbone whole on its data block and holds its vocab shard of the head:
-the dense path merges the shards' candidates through
-``core/distributed.py::sharded_logits_topk`` (padding rows masked), the
-index path through the sharded ``retrieval.decode_topk``; the greedy
-token is the dense path's k = 1.  The quantized index stays unsharded.
+On a ``(data, model)`` mesh under the reference's ``ctx_for_serve``
+(``sharding/rules.py``: ``tp``, parameters replicated over ``data``) each
+rank holds its shards of every parameter (``param_specs_for`` in that
+mode: a ``StackedLM`` drawn by ``transformer.init_lm(..., shard=True)``
+or carried by ``convert``) and serves its rows of the batch
+(``rules.serve_rows``): the decoder LMs' backbone runs tensor-parallel
+over the model group with sequence-sharded KV caches and channel-sharded
+mamba states (``models/transformer.py``), and the head is this rank's
+vocab shard: the dense path merges the shards' candidates through
+``retrieval.dense_topk`` (``distributed.sharded_logits_topk``, padding
+rows masked), the index paths through the sharded
+``retrieval.decode_topk`` and ``quantized_index.decode_topk``; the greedy
+token is the dense path's k = 1.  ``make_decode_fn`` serves any family's
+head on a mesh; the step constructors serve the dense and ssm families
+there (``api.require_serve_mesh``).  ``make_decode_step`` and
+``make_topk_step`` take the caches' whole length there (``max_len``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import distributed
 from repro_torch.models import api, encdec, transformer
 from repro_torch.serve import quantized_index, retrieval
 from repro_torch.sharding import rules
 
 
-def _decode_step(cfg: ArchConfig):
-    """The family's one-token decoder step."""
-    return encdec.decode_step if cfg.family == "encdec" \
-        else transformer.decode_step
+def _decode_step(cfg: ArchConfig, max_len: int | None = None):
+    """The family's one-token decoder step (a decoder LM's told its caches'
+    whole length, ``transformer.decode_step``'s ``max_len``)."""
+    if cfg.family == "encdec":
+        return encdec.decode_step
+    return functools.partial(transformer.decode_step, max_len=max_len)
+
+
+def _require_serve(cfg: ArchConfig, ctx) -> None:
+    """Refuse a config whose backbone does not serve on the mesh ``ctx``
+    (``api.require_serve_mesh``)."""
+    if rules.on_mesh(ctx):
+        api.require_serve_mesh(cfg)
 
 
 def _argmax_island(cfg: ArchConfig, ctx, head, h2d):
@@ -77,16 +97,9 @@ def decode_topk(cfg: ArchConfig, ctx, head, h2d, k: int, *,
     two stages (exact at full beam, up to row quantization for int8 rows;
     ``beam`` = recall knob).  On a mesh ``head`` is this rank's (v_l, d)
     shard and ``h2d`` its data block."""
-    mesh = rules.on_mesh(ctx)
-    if index is None and not mesh:
-        return retrieval.dense_topk(head, h2d, k, n_valid=cfg.vocab_size)
     if index is None:
-        v_l = head.shape[0]
-        n_valid = rules.local_n_valid(cfg.vocab_size, v_l, ctx.model_index)
-        bias = torch.where(torch.arange(v_l, device=head.device) < n_valid,
-                           0.0, -torch.inf)
-        return distributed.sharded_logits_topk(
-            head, h2d, k, group=ctx.model_group, bias_local=bias)
+        return retrieval.dense_topk(head, h2d, k, n_valid=cfg.vocab_size,
+                                    ctx=ctx)
     decoder = _DECODERS.get(type(index))
     if decoder is None:
         raise NotImplementedError(
@@ -110,22 +123,21 @@ def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
 
 
 def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
-                   beam: int | None = None):
+                   beam: int | None = None, max_len: int | None = None):
     """topk_step(params, token (B, 1), caches, pos (B,)) ->
     (ids (B, k), logits (B, k), caches).
 
     One decoder step, then top-k over the vocab through the serving index
     (either type; the dense head when ``index`` is None).  ``ids[:, 0]``
     equals ``make_decode_step``'s greedy token when the beam is full (or
-    the index absent), ties aside."""
-    rules.on_mesh(ctx)
-    decode_step = _decode_step(cfg)
+    the index absent), ties aside.  ``max_len``: ``make_decode_step``'s."""
+    _require_serve(cfg, ctx)
+    decode_step = _decode_step(cfg, max_len)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        # the backbone is held whole on each rank of a mesh
-        h, caches = decode_step(params, token, caches, pos, cfg)
-        head = api.head_table(params, cfg)
+        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
+        head = api.head_table(params, cfg, ctx)
         ids, logits = decode_topk(cfg, ctx, head, h[:, 0, :], k,
                                   index=index, beam=beam)
         return ids, logits, caches
@@ -133,17 +145,18 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
     return step
 
 
-def make_decode_step(cfg: ArchConfig, ctx):
+def make_decode_step(cfg: ArchConfig, ctx, max_len: int | None = None):
     """decode_step(params, token (B, 1), caches, pos (B,)) ->
-    (next_token (B,), caches)."""
-    rules.on_mesh(ctx)
-    decode_step = _decode_step(cfg)
+    (next_token (B,), caches).  ``max_len``: the caches' whole length
+    (``make_prefill_step``'s), needed on a mesh where they hold K/V
+    (``transformer.decode_step``)."""
+    _require_serve(cfg, ctx)
+    decode_step = _decode_step(cfg, max_len)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
-        # the backbone is held whole on each rank of a mesh
-        h, caches = decode_step(params, token, caches, pos, cfg)
-        head = api.head_table(params, cfg)
+        h, caches = decode_step(params, token, caches, pos, cfg, ctx)
+        head = api.head_table(params, cfg, ctx)
         return _argmax_island(cfg, ctx, head, h[:, 0, :]), caches
 
     return step
@@ -155,7 +168,7 @@ def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
     prefill(params, {"frames": (B, Sf, d)}) -> (the token after token 0
     at position 0, the decoder's cache: its self K/V of ``max_len``
     positions and every layer's cross K/V over the Sf frames)."""
-    rules.on_mesh(ctx)
+    _require_serve(cfg, ctx)
 
     @torch.no_grad()
     def step(params, batch):
@@ -171,8 +184,8 @@ def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
             h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg)
         else:
             h, caches = transformer.prefill(params, batch["tokens"], cfg,
-                                            max_len=max_len)
-        head = api.head_table(params, cfg)
+                                            ctx, max_len=max_len)
+        head = api.head_table(params, cfg, ctx)
         return _argmax_island(cfg, ctx, head, h[:, -1, :]), caches
 
     return step

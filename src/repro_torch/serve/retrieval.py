@@ -53,13 +53,6 @@ from repro_torch.utils.misc import log2_int, next_pow2, resolve_device, top_k
 Tensor = torch.Tensor
 
 
-def require_unsharded(ctx) -> None:
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "the mesh (vocab-sharded) path is not ported yet (ROADMAP.md "
-            "A17)")
-
-
 @dataclasses.dataclass(frozen=True)
 class RetrievalIndex:
     """Packed serving index; with ``tp > 1`` the tensors hold ONE shard's
@@ -430,9 +423,21 @@ def decode_topk(index: RetrievalIndex, h: Tensor, k: int,
 
 
 @torch.no_grad()
-def dense_topk(w: Tensor, h: Tensor, k: int,
-               n_valid: int | None = None) -> tuple[Tensor, Tensor]:
-    """O(n d) reference: exact top-k by dense logits (a plain fp32 matmul)."""
+def dense_topk(w: Tensor, h: Tensor, k: int, n_valid: int | None = None,
+               ctx=None) -> tuple[Tensor, Tensor]:
+    """O(n d) reference: exact top-k by dense logits (a plain fp32 matmul).
+    On a mesh ``w`` is this rank's (v_l, d) vocab shard and ``n_valid`` the
+    whole vocabulary: the shard's padding rows are masked and the shards'
+    candidates merged over the model group
+    (``distributed.sharded_logits_topk``)."""
+    if rules.on_mesh(ctx):
+        v_l = w.shape[0]
+        n_l = rules.local_n_valid(n_valid if n_valid is not None
+                                  else v_l * ctx.tp, v_l, ctx.model_index)
+        bias = torch.where(torch.arange(v_l, device=w.device) < n_l,
+                           0.0, -torch.inf)
+        return distributed.sharded_logits_topk(
+            w, h, k, group=ctx.model_group, bias_local=bias)
     logits = h.float() @ w.float().T
     if n_valid is not None and n_valid < w.shape[0]:
         logits = torch.where(
@@ -444,9 +449,10 @@ def dense_topk(w: Tensor, h: Tensor, k: int,
 
 def recall_at_k(index: RetrievalIndex, w: Tensor, h: Tensor, k: int,
                 beam: int, ctx=None) -> float:
-    """Measured recall knob: |retrieved ∩ true top-k| / k, averaged over T."""
+    """Measured recall knob: |retrieved ∩ true top-k| / k, averaged over T
+    (on a mesh ``w`` is this rank's head shard)."""
     ids, _ = decode_topk(index, h, k, beam, ctx)
-    true_ids, _ = dense_topk(w, h, k, n_valid=index.n)
+    true_ids, _ = dense_topk(w, h, k, n_valid=index.n, ctx=ctx)
     hits = (ids[:, :, None] == true_ids[:, None, :]).any(dim=1)
     return float(torch.mean(torch.sum(hits, dim=-1) / k))
 

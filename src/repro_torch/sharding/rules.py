@@ -34,6 +34,17 @@ gradient comes back through the gather's backward, a reduce-scatter.
 ``model`` (``seq_residuals``, the expert configs'), and
 ``model_partial`` which replicated leaves' gradients each model rank
 holds only a part of, so the step sums them over ``model`` as well.
+
+Serving (``ctx_for_serve``: ``tp``, or ``tp_fsdp`` where the config sets
+``serve_fsdp``) lays the decode caches out as the reference's
+``init_cache`` constrains them (``CACHE_KINDS``, resolved by
+``cache_spec``): K/V and MLA's latent rows with the batch over ``data`` and
+the SEQUENCE over ``model``, the mamba conv window and state with their
+channels over ``model``; each fitted to the shape, so the sequence stays
+whole on every model rank where tp does not divide ``max_len`` and the
+batch whole on every data rank where dp does not divide it
+(``serve_rows``).  ``on_mesh`` tells a mesh ctx from none and
+``require_unsharded`` refuses one where a part is not ported.
 """
 from __future__ import annotations
 
@@ -207,6 +218,12 @@ def ctx_for_train(mesh, cfg) -> ShardCtx:
                     seq_residuals=cfg.seq_sharded_residuals)
 
 
+def ctx_for_serve(mesh, cfg) -> ShardCtx:
+    """The serving ctx: plain TP (parameters replicated over ``data``), or
+    tp_fsdp where the config sets ``serve_fsdp`` (the 132B / 671B MoEs)."""
+    return mesh_ctx(mesh, mode="tp_fsdp" if cfg.serve_fsdp else "tp")
+
+
 def on_mesh(ctx) -> bool:
     """True for a ``ShardCtx`` with a mesh, False for None or an unsharded
     ctx; a ctx that carries a mesh but is not a ``ShardCtx`` raises."""
@@ -220,6 +237,13 @@ def on_mesh(ctx) -> bool:
     return True
 
 
+def require_unsharded(ctx, what: str = "the mesh (vocab-sharded) path"
+                      ) -> None:
+    """Raise for a mesh ctx where ``what`` has no mesh form yet."""
+    if on_mesh(ctx):
+        raise NotImplementedError(f"{what} is not ported yet {_A17}")
+
+
 def seq_sharded(ctx, s: int) -> bool:
     """Whether a (B, S, d) residual-stream activation of ``s`` rows is
     S-sharded over ``model`` (Megatron's sequence parallelism): the
@@ -229,6 +253,55 @@ def seq_sharded(ctx, s: int) -> bool:
     the activation stays replicated over ``model``)."""
     return (on_mesh(ctx) and ctx.seq_residuals and ctx.mode == "tp_fsdp"
             and ctx.tp > 1 and s % ctx.tp == 0)
+
+
+#: the reference's ``init_cache`` constraints, by cache leaf: K/V (count,
+#: B, S, KV, hd), MLA's latent rows (count, B, S, r), the mamba conv
+#: window (count, B, K - 1, di) and state (count, B, di, N)
+CACHE_KINDS = {"k": ".bS..", "v": ".bS..", "latent": ".bS.",
+               "conv": ".b.f", "ssm": ".bf."}
+
+
+def cache_spec(leaf: str, shape, ctx: ShardCtx) -> tuple:
+    """The spec of a decode cache leaf (``CACHE_KINDS``) of WHOLE
+    ``shape``, as the reference's ``ShardCtx.spec`` resolves its kind (b
+    the batch axes, S ``model``, f ``model`` under a tensor-parallel
+    backbone, . none) and ``fit_spec`` fits it; nothing sharded off a
+    mesh."""
+    if not on_mesh(ctx):
+        return (None,) * len(shape)
+    batch = ctx.batch_axes if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+    resolve = {"b": batch, "S": ctx.model_axis,
+               "f": ctx.model_axis if ctx.tp_backbone > 1 else None}
+    return ctx.fit_spec(tuple(shape), tuple(
+        resolve.get(ch) for ch in CACHE_KINDS[leaf]))
+
+
+def seq_shards(ctx, max_len: int) -> int:
+    """The model ranks a decode cache's sequence of ``max_len`` positions
+    is split over: its fitted ``"S"`` entry (``cache_spec``), tp where tp
+    divides ``max_len``, else 1; 1 off a mesh.  A rank's cache length
+    alone does not tell a range of a split sequence from a whole one."""
+    if not on_mesh(ctx):
+        return 1
+    return ctx.axis_size(cache_spec("latent", (1, 1, max_len, 1), ctx)[2])
+
+
+def local_shape(shape, spec, ctx: ShardCtx) -> tuple:
+    """A whole ``shape``'s block on this rank under ``spec`` (the shape
+    itself off a mesh)."""
+    if not on_mesh(ctx):
+        return tuple(shape)
+    return tuple(d // ctx.axis_size(e) for d, e in zip(shape, spec))
+
+
+def serve_rows(x: torch.Tensor, ctx) -> torch.Tensor:
+    """This rank's rows of a serving batch: its block over ``data`` where
+    dp divides the batch, else the whole batch (the reference's fitted
+    ``"b"`` spec: a batch of 1 stays whole on every data rank)."""
+    if not on_mesh(ctx) or x.shape[0] % ctx.dp:
+        return x
+    return batch_rows(x, ctx)
 
 
 def head_fd_axes(ctx: ShardCtx):

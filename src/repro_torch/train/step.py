@@ -398,8 +398,10 @@ def export_quantized_index(state: TrainState, cfg: ArchConfig, ctx,
     state), with ``cfg.midx_bits``-wide member rows unless ``bits`` says
     otherwise.  The knobs ride the config (``midx_codewords``,
     ``midx_codebooks``, ``sampler_block``), so the serving index mirrors the
-    training-time midx sampler's structure."""
-    head = api.head_table(state.params, cfg).detach()
+    training-time midx sampler's structure.  On a mesh the rank's vocab
+    shard, its features gathered, builds the rank's shard of the index."""
+    with torch.no_grad():
+        head = api.head_table(state.params, cfg, ctx).detach()
     return quantized_index.build_quantized_index(
         head, ctx, codewords=cfg.midx_codewords,
         codebooks=cfg.midx_codebooks, list_size=cfg.sampler_block,

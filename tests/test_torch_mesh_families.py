@@ -670,27 +670,45 @@ def _refusals() -> dict:
         "encdec decode_step": lambda: encdec.decode_step(
             None, torch.zeros(2, 1, dtype=torch.long), {}, torch.zeros(2),
             whisper, ctx),
-        "ssm init_cache": lambda: transformer.init_cache(
-            falcon, 2, 8, ctx, device="cpu"),
-        "ssm prefill": lambda: transformer.prefill(
-            None, torch.zeros(2, 4, dtype=torch.long), falcon, ctx),
-        "ssm decode_step": lambda: transformer.decode_step(
+        "ssm init_cache": lambda: _channel_blocks(
+            transformer.init_cache(falcon, 2, 8, ctx, device="cpu"), falcon),
+        "ssm prefill": lambda: api.require_serve_mesh(falcon),
+        "ssm decode_step": lambda: api.require_serve_mesh(falcon),
+        "hybrid init_cache": lambda: transformer.init_cache(
+            get_config("jamba-v0.1-52b").reduced(), 2, 8, ctx,
+            device="cpu"),
+        "hybrid prefill": lambda: transformer.prefill(
+            None, torch.zeros(2, 4, dtype=torch.long),
+            get_config("jamba-v0.1-52b").reduced(), ctx),
+        "moe decode_step": lambda: transformer.decode_step(
             None, torch.zeros(2, 1, dtype=torch.long), [], torch.zeros(2),
-            falcon, ctx),
+            get_config("dbrx-132b").reduced(), ctx),
     }
 
 
-#: refusals that expert parallelism lifted: these cases pass the gates
-PORTED_SINCE = ("MLA", "mtp", "hybrid", "experts")
+def _channel_blocks(caches, cfg) -> bool:
+    """Whether a (1, 4) rank's mamba caches hold its quarter of the
+    channels."""
+    c = caches[0]
+    return c["conv"].shape[-1] == c["ssm"].shape[-2] == cfg.d_inner // 4
+
+
+#: refusals that expert parallelism lifted (these cases pass the gates),
+#: and the ssm family's serving on the mesh (its caches hold a rank's
+#: channels; it passes the serving gate; its prefill and decode are held
+#: in test_torch_mesh_lm_serving.py)
+PORTED_SINCE = ("MLA", "mtp", "hybrid", "experts", "ssm init_cache",
+                "ssm prefill", "ssm decode_step")
 
 
 @pytest.mark.parametrize("case", tuple(_refusals()))
 def test_refusals_name_a17(case):
     """Serving on a mesh (the encoder-decoder's cache and one-token step,
-    the LM's caches, prefill and decode) still raises
+    the hybrid and moe families' caches, prefill and decode) still raises
     ``NotImplementedError`` naming A17 on a mesh ctx, before any
     collective; MLA, mtp, the hybrid family and experts pass the mesh's
-    gates since expert parallelism was ported."""
+    gates since expert parallelism was ported, and the ssm family's
+    serving since the decoder LMs' serving engine was."""
     if case in PORTED_SINCE:
         assert _refusals()[case]() in (None, True)
         return

@@ -13,7 +13,9 @@
     never returned), a narrow beam never returning padding;
   * the engine's top-k: youtube-dnn's ``decode_topk`` / ``make_decode_fn``
     both paths, and llama3-8b's prefill, decode and top-k steps (dense and
-    index) against the unsharded engine on the same weights;
+    index) against the unsharded engine on the same weights, each rank
+    holding its shards of them under ``rules.ctx_for_serve`` (8 / 4 heads,
+    so no tp of these meshes pads a head: the same weights on every mesh);
   * ``convert.py`` both ways: the port's sharded index gathered as the
     reference's fields, and the reference's fields crossing onto each
     rank (its own shard), decoded on the mesh and gathered back; a
@@ -45,7 +47,8 @@ def _inputs() -> dict:
 def _lm_cfg():
     from repro_torch.configs import get_config
 
-    return get_config("llama3-8b").reduced(vocab_size=LM_VOCAB)
+    return get_config("llama3-8b").reduced(vocab_size=LM_VOCAB, n_heads=8,
+                                           n_kv_heads=4)
 
 
 def _lm_params():
@@ -64,14 +67,15 @@ def _lm_serve(params, ctx, tokens: torch.Tensor, index=None) -> dict:
     prefill = engine.make_prefill_step(cfg, ctx, LM_MAX)
     pos = torch.full((tokens.shape[0],), LM_PROMPT, dtype=torch.long)
     tok, caches = prefill(params, {"tokens": tokens})
-    nxt, _ = engine.make_decode_step(cfg, ctx)(params, tok[:, None].long(),
-                                                caches, pos)
+    nxt, _ = engine.make_decode_step(cfg, ctx, LM_MAX)(
+        params, tok[:, None].long(), caches, pos)
     out = {"prefill": tok.numpy(), "decode": nxt.numpy()}
     paths = {"dense": None, **({"index": index} if index is not None
                                else {})}
     for tag, idx in paths.items():
         tok, caches = prefill(params, {"tokens": tokens})
-        ids, logits, _ = engine.make_topk_step(cfg, ctx, K, index=idx)(
+        ids, logits, _ = engine.make_topk_step(cfg, ctx, K, index=idx,
+                                               max_len=LM_MAX)(
             params, tok[:, None].long(), caches, pos)
         out[tag] = (ids.numpy(), logits.numpy())
     return out
@@ -118,11 +122,16 @@ def _serve_worker(ctx, inp: dict) -> dict:
         except ValueError as e:
             out["refused"].append(str(e))
 
-    params = _lm_params()
-    params["head"]["w"] = rules.shard_rows(params["head"]["w"], ctx)
-    lm_index = retrieval.build_index(params["head"]["w"], ctx,
-                                     vocab_size=LM_VOCAB)
-    out["lm"] = _lm_serve(params, ctx, rules.batch_rows(
+    from repro_torch.models import api, transformer
+    from repro_torch.train import step
+
+    lm_cfg = _lm_cfg()
+    sctx = rules.ctx_for_serve(ctx.mesh, lm_cfg)
+    model = step.shard_params(transformer.StackedLM(
+        lm_cfg, "cpu", tree=_lm_params()), lm_cfg, sctx)
+    lm_index = retrieval.build_index(api.head_table(model, lm_cfg, sctx),
+                                     sctx, vocab_size=LM_VOCAB)
+    out["lm"] = _lm_serve(model, sctx, rules.batch_rows(
         tt(inp["tokens"]), ctx), lm_index)
     return out
 

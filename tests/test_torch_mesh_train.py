@@ -521,23 +521,25 @@ def test_abstract_state_is_the_ranks_shard(runs, mesh):
 
 
 #: cases of ``_raises`` that raised until expert parallelism and the
-#: sequence-sharded residual stream were ported, and now pass the gates
+#: sequence-sharded residual stream were ported, and now pass the gates;
+#: and the quantized index's export, which runs on the mesh since the
+#: sharded quantized index was ported
 PORTED_SINCE = ("seq_residuals", "experts", "family jamba-v0.1-52b",
-                "family deepseek-v3-671b", "mtp")
+                "family deepseek-v3-671b", "mtp", "quantized index")
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=mesh_id)
 def test_parts_left_for_later_raise(runs, mesh):
-    """Checkpoints and the quantized index on a mesh still raise naming
-    A17; the ctx with ``seq_residuals``, experts, the hybrid family, MLA
-    and mtp now build their train steps."""
+    """Checkpoints on a mesh still raise naming A17; the ctx with
+    ``seq_residuals``, experts, the hybrid family, MLA and mtp now build
+    their train steps, and the quantized index exports."""
     _, _, ranks = runs
     for res in ranks[mesh]:
         raises = dict(res["raises"])
         assert raises.pop("head spec") == ("model", "data")
         for name in PORTED_SINCE:
             assert raises.pop(name) is None, name
-        assert len(raises) == 3, raises
+        assert len(raises) == 2, raises
         for name, got in raises.items():
             assert got is not None, f"{name} did not raise"
             assert got[0] == "NotImplementedError" and "A17" in got[1], (

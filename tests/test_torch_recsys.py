@@ -157,12 +157,12 @@ def test_unported_families_raise():
 
 
 def test_index_from_jax_refuses_sharded_indexes():
-    # a sharded Gram index crosses onto a rank of its mesh (its test is
-    # in test_torch_mesh_serving.py), never off one; a sharded quantized
-    # one does not cross
+    # a sharded Gram or quantized index crosses onto a rank of its mesh
+    # (their tests are in test_torch_mesh_serving.py and
+    # test_torch_mesh_lm_serving.py), never off one
     with pytest.raises(ValueError, match="mesh"):
         convert.index_from_jax({"tp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="mesh"):
         convert.index_from_jax({"tp": 2, "bits": 8}, device="cpu")
 
 
