@@ -18,7 +18,8 @@ starcoder2-3b, falcon-mamba-7b, whisper-large-v3 and ptb-lstm trained
 there by the reference's storage layouts, dbrx-132b, deepseek-v3-671b
 and jamba-v0.1-52b with their experts over the model axis, and
 llama3-8b and falcon-mamba-7b served there with sequence-sharded KV
-caches and channel-sharded states.
+caches and channel-sharded states, and jamba-v0.1-52b, dbrx-132b,
+deepseek-v3-671b and whisper-large-v3 served there too.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--fresh]
 
@@ -400,7 +401,7 @@ result line):
                  step's.
  24. mesh dense — the backbone's storage layouts on the mesh
                  (``phase_mesh_layouts``), starcoder2-3b at full width and
-                 MESH_DENSE_LAYERS = 4 of its 30 layers: (a) NCCL on a
+                 MESH_DENSE_LAYERS = 2 of its 30 layers: (a) NCCL on a
                  (1, 1) mesh in this process, one fp32 full-softmax step
                  in each mode equal to the unsharded one (MESH_STEP_RTOL);
                  (b) the unsharded fp32 parity steps (KV heads padded to 4
@@ -513,10 +514,38 @@ result line):
                  (27c, bf16) at each mesh's prefill shard, and at each
                  27c mesh zstats at a shard's index blocks and
                  leaf_scores at its full beam.
+ 28. mesh family serving — the rest of serving under ``ctx_for_serve``
+                 (jamba-v0.1-52b in tp, its experts whole on their model
+                 rank; dbrx-132b and deepseek-v3-671b in tp_fsdp, their F
+                 leaves gathered over data per layer, MLA's latent cache
+                 with the sequence over model; whisper-large-v3's self and
+                 cross caches likewise), in the same rank processes after
+                 phase 27's runs: (a) NCCL on a (1, 1) mesh in this
+                 process, jamba at 5 layers, deepseek at 1 and whisper at
+                 2 + 2 in bf16: prefill, 4 decode steps and a top-10 step
+                 bitwise the unsharded engine's; the unsharded references
+                 saved for the ranks; (b) on the ranks
+                 (MESH_FAMILY_SERVE_RUNS) fp32 parity at full width and
+                 small depth, jamba (2 layers) and deepseek (1) and
+                 whisper (2 + 2, 1,500 frames) at (1, 4) and (2, 2), dbrx
+                 (1) at (1, 4), as 27b's; (c) bf16 at (1, 4): jamba's
+                 first 5 layers, dbrx at 2, deepseek's 3 dense MLA layers,
+                 whisper at 2 + 2, 4 prompts of 512 (clips of 1,500
+                 frames) and 8 decode steps fed the unsharded tokens, the
+                 MoE configs with the unsharded routing imposed
+                 (``FamilyRoutes``), gated as 27c; exact launches a rank
+                 (zstats once in (c), flash_attention (fp32:
+                 flash_attention_simt) once an attention layer of the
+                 prefill, whisper's encoder layers, leaf_scores once in
+                 (c)), one decode step's collectives equal
+                 ``predict_serve_collectives``; on the world's rank 0 each
+                 run's attention entry at its shard shape, and (c)'s
+                 zstats and leaf_scores at its index, held against their
+                 plain versions and timed.
 Phases 4-5, 6, each family of 9, 9b, 11, 12, 13, 15, each family of 16,
 each run of 17, 18's fit, both runs of 19, both fits of 20, 21's and
 22's serving runs and fits, 23's, 24's, 25's and 26's steps and fits and
-27's serving runs on each rank are main paths: the kernel
+27's and 28's serving runs on each rank are main paths: the kernel
 launch counters are zeroed just before each and read just after; serving
 must launch zstats, block_scores and leaf_scores, block-quadratic training
 (youtube-dnn and ptb-lstm) and each family its own kernels exactly
@@ -552,8 +581,8 @@ by " <family>" for MESH_SAMPLERS, and "mesh gloo (2, 2) overlap midx",
 phase 24's as "mesh dense tp_fsdp (1, 4)",
 "mesh dense tp_fsdp (2, 2)" and "mesh dense pure_fsdp (2, 2)", phase 25's
 as "mesh <config> <mode> (dp, tp)", phase 26's as "mesh experts <config>
-(dp, tp)", phase 27's as "mesh serving <config> (dp, tp) <dtype>", each
-gloo mesh summed over its ranks); the other shapes'
+(dp, tp)", phase 27's and 28's as "mesh serving <config> (dp, tp)
+<dtype>", each gloo mesh summed over its ranks); the other shapes'
 numbers under serving_*,
 tree_levels_*, rff_leaf_dots_*, long_*, r4096_*, youtube_*,
 llama_entry_*, llama_index_*, falcon_index_* (phase 19's index),
@@ -568,6 +597,10 @@ both attention kernels at phase 26's shard shapes),
 mesh_serving_<dp>x<tp>_* (flash_attention at phase 27c's prefill shard
 shapes, zstats and leaf_scores at a shard's index),
 mesh_serving_fp32_<dp>x<tp>_* (flash_attention_simt at 27b's),
+mesh_family_serving_<config>_<dp>x<tp>_* (flash_attention at phase
+28c's prefill shard shapes, zstats and leaf_scores at a shard's index),
+mesh_family_serving_fp32_<config>_<dp>x<tp>_* (flash_attention_simt at
+28b's),
 ptb_* (the five kernels at ptb-lstm's
 step), midx_ct_entry_*, midx_bf16_*, midx_expanded_* (midx_pair_masses'
 ct entry, bf16, and the call with the expansion outside the kernel), and
@@ -5131,10 +5164,10 @@ def moe_layer_checks(cfg, params, prompts: torch.Tensor, tag: str) -> None:
     seen = []
     real = moe.apply_moe
 
-    def spy(p, x, cfg_, ctx=None, seq=False):
+    def spy(p, x, cfg_, *args, **kwargs):
         if len(seen) < len(calls):
             seen.append((p, x.detach().clone()))
-        return real(p, x, cfg_, ctx, seq)
+        return real(p, x, cfg_, *args, **kwargs)
 
     calls = []
     moe.apply_moe = spy
@@ -6329,10 +6362,11 @@ def mesh_checks(ctx) -> dict:
 def mesh_rank(rank: int, world: int, addr: str, out: Path,
               phase: str = "23") -> int:
     """One rank process of phase 23b (each of MESH_SHAPES in turn), or of
-    phases 24 to 27 (``phase`` "24,25,26,27": each of MESH_DENSE_RUNS,
+    phases 24 to 28 (``phase`` "24,25,26,27,28": each of MESH_DENSE_RUNS,
     then each of MESH_FAMILY_RUNS, then each of MESH_EXPERT_RUNS, then
-    each of MESH_SERVE_RUNS): the gloo world over the shared card; its
-    results to ``out/rank<r>.json``."""
+    each of MESH_SERVE_RUNS, then each of MESH_FAMILY_SERVE_RUNS): the
+    gloo world over the shared card; its results to
+    ``out/rank<r>.json``."""
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
     launch_mesh.init_distributed("gloo", init_method=addr, rank=rank,
@@ -6374,6 +6408,13 @@ def mesh_rank(rank: int, world: int, addr: str, out: Path,
                     dp, tp, device_type=DEV.type), mode="tp")
                 results[f"{part} {name} {dp}x{tp}"] = mesh_serve_rank(
                     ctx, part, name, n_layers, dtype)
+        if "28" in phases:
+            for part, name, (dp, tp), n_layers, dtype in \
+                    MESH_FAMILY_SERVE_RUNS:
+                ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
+                    dp, tp, device_type=DEV.type), mode="tp")
+                results[f"{part} {name} {dp}x{tp}"] = \
+                    mesh_family_serve_rank(ctx, part, name, n_layers, dtype)
         if phases == ["23"]:
             for dp, tp in MESH_SHAPES:
                 ctx = rules.mesh_ctx(launch_mesh.make_debug_mesh(
@@ -6626,7 +6667,9 @@ def phase_mesh() -> dict[str, dict[str, int]]:
 # ---------------------------------------------------------------------------
 
 #: starcoder2-3b at full width, its depth cut to this many of 30 layers
-MESH_DENSE_LAYERS = 4
+#: (4 until phase 28 needed the time: 88-123 s of ranks at 4, 58.6 s at 2;
+#: PERF.md section 4)
+MESH_DENSE_LAYERS = 2
 #: each gloo mesh's (mode, (dp, tp), optimizer of its bf16 fit, lr)
 MESH_DENSE_RUNS = (("tp_fsdp", (1, 4), "adamw", 3e-4),
                    ("tp_fsdp", (2, 2), "adafactor", 1e-4),
@@ -7624,9 +7667,9 @@ class DropProbe:
         self._apply, self._dcc = moe.apply_moe, moe._dispatch_compute_combine
         probe = self
 
-        def apply(p, x, cfg, ctx=None, seq=False):
+        def apply(p, x, cfg, *args, **kwargs):
             probe._p = p
-            return probe._apply(p, x, cfg, ctx, seq)
+            return probe._apply(p, x, cfg, *args, **kwargs)
 
         def dcc(x2d, ids, w, wg, wu, wd, cfg, cap, e_lo=0):
             if probe.got is None:
@@ -8183,47 +8226,6 @@ def _host(x):
     return x
 
 
-@torch.no_grad()
-def serve_reference(cfg, params, prompts: torch.Tensor, n_dec: int,
-                    max_len: int, caches: bool = False) -> dict:
-    """The unsharded engine's run that phase 27's ranks are held against,
-    on the host: prefill of ``prompts`` (``make_prefill_step``'s token, the
-    last position's h), then ``n_dec`` greedy steps, each step's fed
-    token, h (B, d) in fp32 and the top-(k + 1) ids and logits of its h
-    (the next fed token is its top-1: the greedy token, ties to the lowest
-    id); with ``caches`` also prefill's whole h and the caches after the
-    prefill and after the last step."""
-    b, s = prompts.shape
-    head = api.head_table(params, cfg)
-    k = MESH_SERVE_TOPK + 1
-    tok, cache = engine.make_prefill_step(cfg, None, max_len)(
-        params, {"tokens": prompts})
-    h, _ = transformer.prefill(params, prompts, cfg, max_len=max_len)
-    out = {"prompts": prompts.cpu(), "prefill_tok": tok.cpu(),
-           "prefill_top": _host(retrieval.dense_topk(
-               head, h[:, -1], k, n_valid=cfg.vocab_size)),
-           "prefill_h_last": h[:, -1].float().cpu(), "fed": [], "h": [],
-           "top": []}
-    if caches:
-        out["prefill_h"] = h.float().cpu()
-        out["prefill_caches"] = _host(cache)
-    del h
-    fed = tok
-    for i in range(n_dec):
-        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
-        hi, cache = transformer.decode_step(params, fed[:, None].long(),
-                                            cache, pos, cfg)
-        ids, logits = retrieval.dense_topk(head, hi[:, 0], k,
-                                           n_valid=cfg.vocab_size)
-        out["fed"].append(fed.cpu())
-        out["h"].append(hi[:, 0].float().cpu())
-        out["top"].append((ids.cpu(), logits.cpu()))
-        fed = ids[:, 0]
-    if caches:
-        out["decode_caches"] = _host(cache)
-    return out
-
-
 def mesh_serve_llama_reference(cfg, params, prompts: torch.Tensor) -> float:
     """27c's references from phase 11's llama3-8b weights, saved for the
     ranks: the unsharded run (``serve_reference``) at each of 27c's
@@ -8371,64 +8373,73 @@ def mesh_serve_nccl() -> dict:
             torch.cuda.empty_cache()
 
 
-def serve_steps(cfg, ctx, params, prompts, n_dec: int, max_len: int
-                ) -> dict[str, torch.Tensor]:
-    """27a's run of the engine: prefill (h and token), ``n_dec`` decode
-    steps on their own tokens (h and token each), a top-k step."""
-    b, s = prompts.shape
-    prefill = engine.make_prefill_step(cfg, ctx, max_len)
-    decode = engine.make_decode_step(cfg, ctx, max_len)
-    out = {"prefill h": transformer.prefill(params, prompts, cfg, ctx,
-                                            max_len)[0]}
-    tok, caches = prefill(params, {"tokens": prompts})
-    out["prefill tok"] = tok
-    for i in range(n_dec):
-        pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
-        last = tok[:, None].long()
-        out[f"decode {i} h"] = transformer.decode_step(
-            params, last, caches, pos, cfg, ctx, max_len)[0]
-        tok, caches = decode(params, last, caches, pos)
-        out[f"decode {i} tok"] = tok
-    ids, logits, _ = engine.make_topk_step(cfg, ctx, MESH_SERVE_TOPK,
-                                           max_len=max_len)(
-        params, last, caches, pos)
-    out["topk ids"], out["topk logits"] = ids, logits
-    return out
-
-
-def predict_serve_collectives(cfg, ctx, b_l: int, seq_split: bool
+def predict_serve_collectives(cfg, ctx, b_l: int, seq_split: bool,
+                              model=None, cross_split: bool = False,
+                              batch: int | None = None
                               ) -> dict[str, dict[str, int]]:
     """One decode step's collectives on a rank (``make_decode_step``;
-    "<op> model": calls, bytes of each call's result), from the layer
+    "<op> <group>": calls, bytes of each call's result), from the layer
     structure: the embedding's vocab-parallel psum; per attention layer
     one all-gather of the step's q / k / v heads, where the cache's
     sequence is split the softmax merge's pmax and psum (fp32), and the
-    ``wo`` psum; per mamba layer the ``x_proj`` and ``out_proj`` psums;
-    per MLP its psum; the greedy token's two all-gathers of (B, tp)
-    candidates (fp32 logits, int32 ids)."""
+    ``wo`` psum; per MLA layer, where its latent cache's sequence is
+    split, one all-gather of the heads' absorbed queries ``[q_lat |
+    q_rope]`` (fp32) and the merge over the latent width, then the ``wo``
+    psum; per mamba layer the ``x_proj`` and ``out_proj`` psums; per MLP
+    or MoE its psum (a MoE's shared experts inside it), and in tp mode at
+    dp > 1 the MoE's all-gather of its tokens over ``data``
+    (``moe.moe_rows``, ``batch`` the whole batch); per encoder-decoder
+    layer the self attention's, the cross attention's merge alone where
+    its frames are split (``cross_split``: whole weights, no gather, no
+    psum) and the MLP's; in tp_fsdp at dp > 1 one all-gather over
+    ``data`` of each F-sharded leaf the step computes with (``model``'s
+    specs: the embedding, every layer's, the head's feature dim); the
+    greedy token's two all-gathers of (B, tp) candidates (fp32 logits,
+    int32 ids)."""
     esize = torch.finfo(layers._dtype(cfg)).bits // 8
     tp, d, hd = ctx.tp, cfg.d_model, cfg.resolved_head_dim
     nh, nkv = layers.padded_heads(cfg, tp)
     want: dict[str, dict[str, int]] = {}
 
-    def add(op: str, n_bytes: int) -> None:
-        got = want.setdefault(f"{op} model", {"calls": 0, "bytes": 0})
+    def add(op: str, n_bytes: int, group: str = "model") -> None:
+        got = want.setdefault(f"{op} {group}", {"calls": 0, "bytes": 0})
         got["calls"] += 1
         got["bytes"] += n_bytes
 
+    def merge(heads: int, width: int) -> None:
+        add("all_reduce_max", b_l * heads * 4)
+        add("all_reduce_sum", b_l * heads * (width + 1) * 4)
+
+    if model is not None and ctx.axis_size(ctx.data_axes) > 1:
+        for name, p in model.named_parameters():
+            if "data" in rules.spec_axes(model.param_specs[name]) and \
+                    not name.startswith("mtp."):
+                add("all_gather", p.numel() * ctx.dp * p.element_size(),
+                    "data")
     add("all_reduce_sum", b_l * d * esize)
-    for kind in cfg.layer_kinds():
+    kinds = (["self+mlp"] * cfg.n_dec_layers if cfg.family == "encdec"
+             else cfg.layer_kinds())
+    for kind in kinds:
         mixer, ffn = kind.split("+")
-        if mixer == "attn":
+        if mixer == "attn" and cfg.mla:
+            if seq_split:
+                nh_m = -(-cfg.n_heads // tp) * tp
+                add("all_gather",
+                    b_l * nh_m * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4)
+                merge(nh_m, cfg.kv_lora_rank)
+        elif mixer in ("attn", "self"):
             add("all_gather", b_l * (nh + 2 * nkv) * hd * esize)
             if seq_split:
-                add("all_reduce_max", b_l * nh * 4)
-                add("all_reduce_sum", b_l * nh * (hd + 1) * 4)
+                merge(nh, hd)
         else:
             add("all_reduce_sum",
                 b_l * (cfg.dt_rank + 2 * cfg.ssm_state) * esize)
         add("all_reduce_sum", b_l * d * esize)
-        if ffn == "mlp":
+        if mixer == "self" and cross_split:
+            merge(nh, hd)
+        if ffn == "moe" and moe.moe_rows(ctx, b_l, batch):
+            add("all_gather", ctx.dp * b_l * d * esize, "data")
+        if ffn in ("mlp", "moe"):
             add("all_reduce_sum", b_l * d * esize)
     for _ in range(2):
         add("all_gather", b_l * tp * 4)
@@ -8491,23 +8502,6 @@ def _tokens_gate(tag: str, got, top, h, ref_h, head, sctx, fp32: bool
         raise AssertionError(f"{tag}: logit error {worst} of the top "
                              f"logit > {DECODE_RTOL}")
     return check_topk_near(tag, got[:, None], ids, logits, 1, err), worst
-
-
-def _serve_cache_errs(got, want, cfg, sctx, batch: int, max_len: int,
-                      tag: str) -> dict[str, float]:
-    """Each cache leaf gathered whole from the ranks
-    (``convert.caches_to_jax``) against the unsharded one: max |diff|
-    over its own max."""
-    whole = convert.caches_to_jax(got, cfg, sctx, batch=batch,
-                                  max_len=max_len)
-    out = {}
-    for s_i, (g, w) in enumerate(zip(whole, want)):
-        for key in g:
-            wt = w[key].float()
-            out[f"{tag} cache {s_i} {key}"] = float(
-                (torch.from_numpy(g[key]).float() - wt).abs().max()
-                / wt.abs().max())
-    return out
 
 
 @contextlib.contextmanager
@@ -8654,7 +8648,7 @@ def mesh_serve_run(ctx, part: str, name: str, n_layers: int, dtype: str,
         errs["prefill h"] = rel_err(h_pre, ref["prefill_h"][rows].to(DEV))
         errs.update(_serve_cache_errs(seen["prefill caches"],
                                       ref["prefill_caches"], cfg, sctx, b,
-                                      max_len, "prefill"))
+                                      max_len, None, "prefill"))
     ref_h = ref["prefill_h_last"][rows].to(DEV)
     errs["prefill h last"] = rel_err(h_pre[:, -1], ref_h)
     rms["prefill"] = float(_rel_rms(h_pre[:, -1].float(), ref_h))
@@ -8674,7 +8668,7 @@ def mesh_serve_run(ctx, part: str, name: str, n_layers: int, dtype: str,
         swaps, logit_err = swaps + got_swaps, max(logit_err, got_err)
     if fp32:
         errs.update(_serve_cache_errs(caches, ref["decode_caches"], cfg,
-                                      sctx, b, max_len, "decode"))
+                                      sctx, b, max_len, None, "decode"))
         gate(f"{tag} fp32 parity", errs, MESH_RTOL)
     else:
         gate(f"{tag} h", errs, DECODE_RTOL)
@@ -8824,7 +8818,753 @@ def mesh_serve_report(ranks: list[dict], nccl: dict, ref_s: dict
     return by_path, shapes
 
 
-def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27")
+# --- phase 28: the rest of serving on the mesh ------------------------------
+
+#: phase 28's rank runs in order: (part, config, mesh, layers, dtype);
+#: whisper-large-v3's layers are its encoder's and its decoder's each.
+#: 28b holds fp32 parity at full width (dbrx-132b at (1, 4) only: its (2,
+#: 2) serving gathers its experts over data, ~3.2 GB a rank a forward
+#: through gloo, and is held by tests/test_torch_mesh_family_serving.py);
+#: 28c serves in bf16 at (1, 4) against unsharded runs of the same weights,
+#: jamba at its first 5 layers (attention, 2 MoE, 4 mamba) and whisper at
+#: 2 + 2, cut from 8 and 4 + 4 to fit the script's 1,200 s (PERF.md
+#: section 4 gives each cut's measured saving)
+MESH_FAMILY_SERVE_RUNS = (
+    ("28b", "jamba-v0.1-52b", (1, 4), 2, "float32"),
+    ("28b", "jamba-v0.1-52b", (2, 2), 2, "float32"),
+    ("28b", "deepseek-v3-671b", (1, 4), 1, "float32"),
+    ("28b", "deepseek-v3-671b", (2, 2), 1, "float32"),
+    ("28b", "whisper-large-v3", (1, 4), 2, "float32"),
+    ("28b", "whisper-large-v3", (2, 2), 2, "float32"),
+    ("28b", "dbrx-132b", (1, 4), 1, "float32"),
+    ("28c", "jamba-v0.1-52b", (1, 4), 5, "bfloat16"),
+    ("28c", "dbrx-132b", (1, 4), 2, "bfloat16"),
+    ("28c", "deepseek-v3-671b", (1, 4), 3, "bfloat16"),
+    ("28c", "whisper-large-v3", (1, 4), 2, "bfloat16"),
+)
+#: 28b's batch, prompt, decode steps and cache length (phase 27b's; a
+#: whisper clip is WHISPER_FRAMES frames, its prompt token 0)
+FAMILY_SERVE_PARITY = MESH_SERVE_PARITY
+#: 28c's: 4 prompts of 512 (4 clips of 1,500 frames), 8 decode steps, a
+#: cache of 520 positions (130 a rank at tp 4)
+FAMILY_SERVE_BF16 = (4, 512, 8, 520)
+FAMILY_SERVE_STEPS = {"28b": FAMILY_SERVE_PARITY[2],
+                      "28c": FAMILY_SERVE_BF16[2]}
+#: 28a's (NCCL (1, 1)) configs and depths (jamba's first 5 layers reach
+#: its attention), its batch, prompt and decode steps
+FAMILY_SERVE_NCCL = ({"jamba-v0.1-52b": 5, "deepseek-v3-671b": 1,
+                      "whisper-large-v3": 2}, 2, 128, 4)
+MESH_FAMILY_SERVE_SEED = 28
+MESH_FAMILY_SERVE_DIR = MESH_DIR.parent / "chip_smoke_mesh_family_serving"
+#: the configs whose layers are drawn one rank at a time (a MoE layer is
+#: 11-13 GB whole in fp32; ``ranks_draw_in_turn``)
+FAMILY_DRAW_IN_TURN = ("jamba-v0.1-52b", "dbrx-132b")
+
+
+class FamilyRoutes:
+    """An unsharded run's MoE routing (``moe._route``'s ids and weights,
+    call by call: the prefill's layers, then each decode step's),
+    recorded, and imposed on a rank's run of the same tokens (28c's bf16
+    MoE configs).  Where two experts' scores nearly tie, bf16 rounding
+    differences between the sharded and the unsharded products flip a
+    top-k choice and move that token's output by O(|y|), as ``Routes``
+    says of decode against forward; with the unsharded routing imposed the
+    runs differ by rounding alone.  ``flips`` counts the (token, layer)
+    pairs whose own top-k differed; ``at`` is the next call imposed (the
+    top-k steps replay the last decode step's calls)."""
+
+    def __init__(self, calls=None):
+        self.calls = [] if calls is None else calls
+        self.flips = self.routed = self.at = 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = moe._route
+
+        def spy(p, x2d, cfg):
+            ids, w, aux = real(p, x2d, cfg)
+            self.calls.append((ids.cpu(), w.cpu()))
+            return ids, w, aux
+
+        moe._route = spy
+        try:
+            yield self
+        finally:
+            moe._route = real
+
+    @contextlib.contextmanager
+    def imposing(self):
+        real = moe._route
+
+        def spy(p, x2d, cfg):
+            ids, w, aux = real(p, x2d, cfg)
+            f_ids, f_w = self.calls[self.at]
+            self.at += 1
+            f_ids = f_ids.to(ids.device)
+            self.flips += int((ids != f_ids).any(dim=-1).sum())
+            self.routed += ids.shape[0]
+            return f_ids, f_w.to(device=w.device, dtype=w.dtype), aux
+
+        moe._route = spy
+        try:
+            yield self
+        finally:
+            moe._route = real
+
+
+def family_serve_cfg(name: str, n_layers: int, dtype: str,
+                     capacity_div: int = 1):
+    """A phase 28 config: ``name`` at full width and ``n_layers`` (each
+    stack's for whisper), weights and compute in ``dtype``; deepseek's
+    mtp trunk, which serving never runs, left out.  ``capacity_div``
+    divides the capacity factor (``family_ref_variant``)."""
+    cfg = get_config(name)
+    depth = (dict(n_enc_layers=n_layers, n_dec_layers=n_layers,
+                  n_layers=2 * n_layers) if cfg.family == "encdec"
+             else dict(n_layers=n_layers, mtp=False))
+    return dataclasses.replace(
+        cfg, dtype=dtype, param_dtype=dtype,
+        capacity_factor=cfg.capacity_factor / capacity_div, **depth)
+
+
+def family_ref_variant(name: str, mesh) -> tuple[int, int]:
+    """(tp, capacity divisor) of the unsharded reference a run on ``mesh``
+    is held against: whisper's weights are drawn padded for the mesh's tp
+    (its vocab of 51,866 to 51,868 at tp 4), as its ranks draw them; a
+    MoE config in tp mode (jamba) at dp > 1 routes every data block's
+    tokens with one block's capacity (the reference's tp-mode layer,
+    ``moe.moe_rows``), which is the unsharded layer at the capacity
+    factor over dp."""
+    dp, tp = mesh
+    cfg = get_config(name)
+    pad = tp if cfg.family == "encdec" else 1
+    div = dp if cfg.n_experts and not cfg.serve_fsdp else 1
+    return pad, div
+
+
+def family_ref_path(part: str, name: str, mesh) -> Path:
+    pad, div = family_ref_variant(name, mesh)
+    return MESH_FAMILY_SERVE_DIR / f"{part}_{name}_pad{pad}_cap{div}.pt"
+
+
+def family_params(cfg, seed: int, ctx=None, tp: int = 1):
+    """``cfg``'s weights from ``seed`` on the card: whole (an LM's tree;
+    whisper's padded for ``tp``), or with a mesh ``ctx`` this rank's
+    shards of the same draws (an LM drawn straight into them,
+    ``api.init_module``; whisper drawn whole, then cut:
+    ``step.shard_params``)."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    if cfg.family == "encdec":
+        tree = encdec.init_encdec(gen, cfg, DEV, tp=tp, ctx=ctx)
+        if ctx is None:
+            return tree
+        return step.shard_params(encdec.EncDec(cfg, DEV, tree=tree), cfg,
+                                 ctx)
+    if ctx is None:
+        return api.init_params(cfg, gen, device=DEV)
+    return api.init_module(cfg, gen, DEV, ctx=ctx)
+
+
+def family_prompts(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    """An LM's (B, S) prompt ids, or whisper's (B, WHISPER_FRAMES, d)
+    unit-normal frames in the compute dtype."""
+    if cfg.family == "encdec":
+        gen = torch.Generator(DEV).manual_seed(seed)
+        return whisper_frames(gen, cfg, b)
+    return serve_prompts(cfg, b, s, seed)
+
+
+def _family_batch(cfg, prompt: torch.Tensor) -> dict:
+    return {"frames" if cfg.family == "encdec" else "tokens": prompt}
+
+
+def family_lengths(cfg, prompt: torch.Tensor) -> tuple[int, int | None]:
+    """(the position of the first decode step, the cross caches' whole
+    length): an LM's prompt length and None; whisper's 1 (its prefill
+    step decoded token 0 at position 0) and its frames."""
+    if cfg.family == "encdec":
+        return 1, prompt.shape[1]
+    return prompt.shape[1], None
+
+
+@contextlib.contextmanager
+def keeping_family_hidden(cfg, seen: dict):
+    """``keeping_hidden`` for any family: an LM's through
+    ``transformer``; whisper's through ``encdec.decode_step``, whose
+    first call in a prefill step (position 0) is its h (B, 1, d) and whose
+    later calls are the decode steps'."""
+    if cfg.family != "encdec":
+        with keeping_hidden(seen):
+            yield seen
+        return
+    real = encdec.decode_step
+
+    def decode_step(*args, **kwargs):
+        h, got = real(*args, **kwargs)
+        if "prefill" not in seen:
+            seen["prefill"] = h
+        else:
+            seen["decode"].append(h[:, 0])
+        return h, got
+
+    encdec.decode_step = decode_step
+    try:
+        yield seen
+    finally:
+        encdec.decode_step = real
+
+
+@torch.no_grad()
+def serve_reference(cfg, params, prompt: torch.Tensor, n_dec: int,
+                    max_len: int, caches: bool = False) -> dict:
+    """The unsharded engine's run that phases 27's and 28's ranks are held
+    against, on the host: prefill of ``prompt`` (``make_prefill_step``'s
+    token, the last position's h; whisper's step from token 0 over its
+    frames), then ``n_dec`` greedy steps, each step's fed token, h (B, d)
+    in fp32 and the top-(k + 1) ids and logits of its h (the next fed
+    token is its top-1: the greedy token, ties to the lowest id); with
+    ``caches`` also prefill's whole h and the caches after the prefill
+    and after the last step; in bf16 with experts its MoE routing
+    (``FamilyRoutes``).  The h are the engine's own steps'
+    (``keeping_family_hidden``)."""
+    b = prompt.shape[0]
+    s, frames = family_lengths(cfg, prompt)
+    head = api.head_table(params, cfg)
+    k = MESH_SERVE_TOPK + 1
+    seen: dict = {"decode": []}
+    routes = FamilyRoutes()
+
+    def record():
+        return routes.recording() if cfg.n_experts and \
+            cfg.dtype == "bfloat16" else contextlib.nullcontext()
+
+    with keeping_family_hidden(cfg, seen), record():
+        decode = engine.make_decode_step(cfg, None, max_len)
+        tok, cache = engine.make_prefill_step(cfg, None, max_len)(
+            params, _family_batch(cfg, prompt))
+    h = seen["prefill"]
+    out = {"prompts": prompt.cpu(), "prefill_tok": tok.cpu(),
+           "prefill_top": _host(retrieval.dense_topk(
+               head, h[:, -1], k, n_valid=cfg.vocab_size)),
+           "prefill_h_last": h[:, -1].float().cpu(), "fed": [], "h": [],
+           "top": []}
+    if caches:
+        out["prefill_h"] = h.float().cpu()
+        out["prefill_caches"] = _host(cache)
+    del h
+    fed = tok
+    with keeping_family_hidden(cfg, seen), record():
+        for i in range(n_dec):
+            pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+            _, cache = decode(params, fed[:, None].long(), cache, pos)
+            hi = seen["decode"][-1]
+            ids, logits = retrieval.dense_topk(head, hi, k,
+                                               n_valid=cfg.vocab_size)
+            out["fed"].append(fed.cpu())
+            out["h"].append(hi.float().cpu())
+            out["top"].append((ids.cpu(), logits.cpu()))
+            fed = ids[:, 0]
+    if caches:
+        out["decode_caches"] = _host(cache)
+    out["routes"] = routes.calls
+    return out
+
+
+def mesh_family_serve_references() -> dict:
+    """28b's and 28c's unsharded references, saved for the ranks: each
+    (config, depth, dtype, ``family_ref_variant``) of
+    MESH_FAMILY_SERVE_RUNS drawn whole from MESH_FAMILY_SERVE_SEED on the
+    card, its ``serve_reference`` run (28b's with the caches),
+    then freed.  Returns each reference's seconds."""
+    MESH_FAMILY_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    secs = {}
+    done = set()
+    for part, name, mesh, n_layers, dtype in MESH_FAMILY_SERVE_RUNS:
+        path = family_ref_path(part, name, mesh)
+        if path in done:
+            continue
+        done.add(path)
+        t0 = time.perf_counter()
+        pad, div = family_ref_variant(name, mesh)
+        cfg = family_serve_cfg(name, n_layers, dtype, div)
+        params = family_params(cfg, MESH_FAMILY_SERVE_SEED, tp=pad)
+        b, s, n_dec, max_len = (FAMILY_SERVE_PARITY if part == "28b"
+                                else FAMILY_SERVE_BF16)
+        ref = serve_reference(
+            cfg, params, family_prompts(cfg, b, s, MESH_FAMILY_SERVE_SEED),
+            n_dec, max_len, caches=part == "28b")
+        torch.save(ref, path)
+        del params, ref
+        sync()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+        secs[path.stem] = round(time.perf_counter() - t0, 1)
+    log(f"[mesh family serving] unsharded references saved for the ranks, "
+        f"seconds {secs}")
+    return secs
+
+
+def serve_steps(cfg, ctx, params, prompt, n_dec: int, max_len: int
+                ) -> dict[str, torch.Tensor]:
+    """27a's and 28a's run of the engine: prefill (h and token), ``n_dec``
+    decode steps on their own tokens (h and token each), a top-k step;
+    the h are the engine's own steps' (``keeping_family_hidden``)."""
+    b = prompt.shape[0]
+    s, frames = family_lengths(cfg, prompt)
+    seen: dict = {"decode": []}
+    with keeping_family_hidden(cfg, seen):
+        prefill = engine.make_prefill_step(cfg, ctx, max_len)
+        decode = engine.make_decode_step(cfg, ctx, max_len, frames=frames)
+        tok, caches = prefill(params, _family_batch(cfg, prompt))
+        out = {"prefill h": seen["prefill"], "prefill tok": tok}
+        for i in range(n_dec):
+            pos = torch.full((b,), s + i, dtype=torch.long, device=DEV)
+            last = tok[:, None].long()
+            tok, caches = decode(params, last, caches, pos)
+            out[f"decode {i} h"] = seen["decode"][-1]
+            out[f"decode {i} tok"] = tok
+    ids, logits, _ = engine.make_topk_step(
+        cfg, ctx, MESH_SERVE_TOPK, max_len=max_len, frames=frames)(
+        params, last, caches, pos)
+    out["topk ids"], out["topk logits"] = ids, logits
+    return out
+
+
+@torch.no_grad()
+def mesh_family_serve_nccl() -> dict:
+    """Phase 28a: NCCL on a (1, 1) mesh in this process, each of
+    FAMILY_SERVE_NCCL's configs at full width and its depth in bf16 under
+    ``ctx_for_serve``: prefill h and token, each decode step's h and token
+    (on its own tokens) and a top-10 step's ids and logits bitwise the
+    unsharded engine's on the same weights (the model drawn into its (1,
+    1) shards, which are whole)."""
+    backend = "nccl" if DEV.type == "cuda" else "gloo"
+    launch_mesh.init_distributed(
+        backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    depths, b, s, n_dec = FAMILY_SERVE_NCCL
+    out = {}
+    try:
+        mesh = launch_mesh.make_debug_mesh(1, 1)
+        for name, depth in depths.items():
+            t0 = time.perf_counter()
+            cfg = family_serve_cfg(name, depth, "bfloat16")
+            sctx = rules.ctx_for_serve(mesh, cfg)
+            prompt = family_prompts(cfg, b, s, MESH_FAMILY_SERVE_SEED)
+            max_len = s + n_dec if cfg.family != "encdec" else n_dec + 1
+            got = {}
+            for tag, ctx in (("mesh", sctx), ("unsharded", None)):
+                params = family_params(cfg, MESH_FAMILY_SERVE_SEED, ctx)
+                got[tag] = serve_steps(cfg, ctx, params, prompt,
+                                              n_dec, max_len)
+                del params
+                sync()
+                if DEV.type == "cuda":
+                    torch.cuda.empty_cache()
+            diff = [k for k in got["mesh"]
+                    if not torch.equal(got["mesh"][k], got["unsharded"][k])]
+            log(f"[mesh family serving] {backend} (1, 1) {name} at {depth} "
+                f"layers{' each' if cfg.family == 'encdec' else ''} (bf16, "
+                f"{b} {'clips' if cfg.family == 'encdec' else 'prompts'} of "
+                f"{prompt.shape[1]}, {n_dec} steps, top-{MESH_SERVE_TOPK}): "
+                f"{len(got['mesh']) - len(diff)} of {len(got['mesh'])} "
+                f"tensors bitwise the unsharded engine's, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if diff:
+                raise AssertionError(f"28a {name}: {diff} differ from the "
+                                     "unsharded engine's")
+            out[name] = len(got["mesh"])
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _serve_cache_errs(got, want, cfg, sctx, batch: int, max_len: int,
+                       frames: int | None, tag: str) -> dict[str, float]:
+    """Each cache leaf gathered whole from the ranks
+    (``convert.caches_to_jax``: K/V, latent rows, mamba's window and
+    state, whisper's self and cross K/V) against the unsharded one: max
+    |diff| over its own max."""
+    whole = convert.caches_to_jax(got, cfg, sctx, batch=batch,
+                                  max_len=max_len, frames=frames)
+    out = {}
+
+    def walk(g, w, key):
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{key} {k}")
+        elif isinstance(w, (list, tuple)):
+            for i, (gi, wi) in enumerate(zip(g, w)):
+                walk(gi, wi, f"{key} {i}")
+        else:
+            wt = w.float()
+            out[key] = float((torch.from_numpy(np.asarray(g)).float() - wt)
+                             .abs().max() / wt.abs().max())
+
+    walk(whole, want, f"{tag} cache")
+    return out
+
+
+def family_attn_shape(cfg, ctx, part: str) -> dict:
+    """The shard shape of a run's prefill attention on a rank: its rows
+    of the prompts (``serve_rows``), its heads (q / kv over tp), the
+    widths (MLA's 192 / 128), the key length (whisper's encoder: the
+    frames, not causal)."""
+    b, s = (FAMILY_SERVE_PARITY if part == "28b" else FAMILY_SERVE_BF16)[:2]
+    b = b // ctx.dp if b % ctx.dp == 0 else b
+    if cfg.family == "encdec":
+        h = cfg.n_heads // ctx.tp
+        return dict(b=b, s=WHISPER_FRAMES, h=h, kv=h,
+                    hd=cfg.resolved_head_dim, hv=cfg.resolved_head_dim,
+                    causal=False)
+    if cfg.mla:
+        h = cfg.n_heads // ctx.tp
+        return dict(b=b, s=s, h=h, kv=h, hd=cfg.qk_nope_dim + cfg.qk_rope_dim,
+                    hv=cfg.v_head_dim, causal=True)
+    nh, nkv = layers.padded_heads(cfg, ctx.tp)
+    return dict(b=b, s=s, h=nh // ctx.tp, kv=nkv // ctx.tp,
+                hd=cfg.resolved_head_dim, hv=cfg.resolved_head_dim,
+                causal=True)
+
+
+def family_flash_row(gen: torch.Generator, dtype: torch.dtype, b: int,
+                     s: int, h: int, kv: int, hd: int, hv: int,
+                     causal: bool) -> dict:
+    """``flash_attention`` at a shard shape: bf16 must take the
+    tensor-core entry point, fp32 the CUDA-core one
+    (``flash_attention_simt``); held against the plain version
+    (BF16_ELEM_RTOL element by element in bf16, RTOL in fp32), timed
+    beside it and SDPA (its backend named), with its bound."""
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype, hv)
+    tc = dtype == torch.bfloat16
+    entry = "flash_attention" if tc else "flash_attention_simt"
+    before = kernels.launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    after = kernels.launch_counts()
+    took = {n: after[n] - before[n]
+            for n in ("flash_attention", "flash_attention_simt")}
+    if took != {n: int(n == entry) for n in took}:
+        raise AssertionError(f"flash (B {b}, S {s}, H {h}, KV {kv}, hd "
+                             f"{hd}, hv {hv}) {dtype} took {took}, not "
+                             f"{entry}")
+    tag = (f"{entry} {dtype} causal={causal} (B {b}, S {s}, H {h}, KV {kv},"
+           f" hd {hd}, hv {hv})")
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    err = compare(tag, got, plain(), elem_rtol=BF16_ELEM_RTOL if tc else 0.0)
+    bms, by, floor = flash_bound(b, s, h, kv, hd, causal, dtype, hv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+               library=f"SDPA {sdpa_backend(qt, kt, vt, causal)}",
+               shape=[b, s, h, kv, hd, hv], **times(
+                   lambda: flash_attention(q, k, v, causal=causal), plain,
+                   lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                enable_gqa=kv != h)))
+    if not tc:
+        row["cuda_core_floor_ms"] = floor
+    log(f"  {tag}: {json.dumps(row)}")
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_family_serve_kernels(ctx, cfg, part: str, index, h: torch.Tensor
+                              ) -> dict:
+    """The attention kernel entry of the run's prefill at this rank's
+    shard shape (``family_attn_shape``; 28b's fp32 through
+    flash_attention_simt, 28c's bf16 through flash_attention), and, with
+    the rank's index, zstats at its blocks and leaf_scores at its full
+    beam (``index_kernel_rows``); each against its plain version and
+    timed."""
+    gen = torch.Generator(DEV).manual_seed(MESH_FAMILY_SERVE_SEED)
+    dtype = layers._dtype(cfg)
+    entry = "flash_attention" if dtype == torch.bfloat16 else \
+        "flash_attention_simt"
+    rows = {entry: family_flash_row(gen, dtype, **family_attn_shape(
+        cfg, ctx, part))}
+    if index is not None:
+        tag = f"{cfg.name} shard ({ctx.axis_size('data')}, {ctx.tp})"
+        got = index_kernel_rows(index, h, tag)
+        got["zstats"]["shape"] = list(index.wq.shape)
+        got["leaf_scores"]["shape"] = [h.shape[0] * index.wq.shape[0],
+                                       *index.wq.shape[1:]]
+        rows.update(got)
+    return rows
+
+
+def family_prefill_launches(cfg) -> int:
+    """flash_attention's launches in a prefill: once an attention layer
+    (whisper: once an encoder layer; its decoder's first step decodes)."""
+    return cfg.n_enc_layers if cfg.family == "encdec" else attn_layers(cfg)
+
+
+def mesh_family_serve_run(ctx, part: str, name: str, n_layers: int,
+                          dtype: str, tag: str
+                          ) -> tuple[dict, object, torch.Tensor]:
+    """One phase 28 run on this rank (``mesh_serve_run`` for the moe,
+    hybrid, MLA and encoder-decoder configs): the config drawn into the
+    rank's shards under ``ctx_for_serve`` (tp, or tp_fsdp where
+    ``serve_fsdp``), and the counted main path through the engine: (28c)
+    the sharded ``RetrievalIndex`` of the rank's head shard, the prefill
+    of its rows of the reference's prompts or clips, the decode steps fed
+    the unsharded engine's tokens (the last one's collectives against
+    ``predict_serve_collectives``), a dense top-k step and (28c) a
+    full-beam index top-k step: exact launches (zstats once,
+    flash_attention once an attention layer of the prefill (whisper's
+    encoder layers), leaf_scores once; 28b's fp32 attention through
+    flash_attention_simt).  Then, outside the count, the checks of
+    ``mesh_serve_run``: prefill's and each decode step's h (28b within
+    MESH_RTOL of each tensor's max, with every cache gathered whole after
+    the prefill and after the last step; 28c within DECODE_RTOL and
+    ``decode_rel_rms``), the tokens, the dense top-k and the full beam.
+    Returns (the numbers, the index, the last step's h)."""
+    dp, tp = ctx.axis_size("data"), ctx.tp
+    cfg = family_serve_cfg(name, n_layers, dtype)
+    sctx = rules.ctx_for_serve(ctx.mesh, cfg)
+    fp32, k = dtype == "float32", MESH_SERVE_TOPK
+    ref = torch.load(family_ref_path(part, name, (dp, tp)))
+    b, s, n_dec, max_len = (FAMILY_SERVE_PARITY if part == "28b"
+                            else FAMILY_SERVE_BF16)
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    draw = ranks_draw_in_turn() if name in FAMILY_DRAW_IN_TURN \
+        else contextlib.nullcontext()
+    with draw:
+        model = family_params(cfg, MESH_FAMILY_SERVE_SEED, sctx)
+    sync()
+    secs = {"draw": time.perf_counter() - t0}
+    rows = rules.serve_rows(torch.arange(b), sctx)
+    prompt = ref["prompts"][rows].to(DEV)
+    s, frames = family_lengths(cfg, prompt)
+    fed = [f[rows].to(DEV) for f in ref["fed"]]
+    b_l = prompt.shape[0]
+    seen: dict = {"decode": []}
+    with keeping_family_hidden(cfg, seen):
+        prefill = engine.make_prefill_step(cfg, sctx, max_len, batch=b)
+        decode = engine.make_decode_step(cfg, sctx, max_len, frames=frames,
+                                         batch=b)
+    routes = FamilyRoutes(ref["routes"])
+    impose = routes.imposing() if routes.calls else contextlib.nullcontext()
+    n_moe = sum(kind.endswith("+moe") for kind in cfg.layer_kinds()) \
+        if cfg.family != "encdec" else 0
+
+    # -- the counted main path ---------------------------------------------
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    head = api.head_table(model, cfg, sctx)
+    index = None
+    if part == "28c":
+        index = retrieval.build_index(head, sctx, vocab_size=cfg.vocab_size)
+        sync()
+        secs["index"] = time.perf_counter() - t0
+    with impose:
+        t0 = time.perf_counter()
+        with keeping_family_hidden(cfg, seen):
+            tok0, caches = prefill(model, _family_batch(cfg, prompt))
+        sync()
+        secs["prefill"] = time.perf_counter() - t0
+        pre_caches = _host(caches) if fp32 else None
+        toks, before, collectives = [], caches, {}
+        t0 = time.perf_counter()
+        with keeping_family_hidden(cfg, seen):
+            for i in range(n_dec):
+                pos = torch.full((b_l,), s + i, dtype=torch.long, device=DEV)
+                if i == n_dec - 1:
+                    sync()
+                    distributed.reset_collective_counts()
+                    before = caches  # a mamba step returns new states
+                nxt, caches = decode(model, fed[i][:, None].long(), caches,
+                                     pos)
+                if i == n_dec - 1:
+                    sync()
+                    collectives = distributed.collective_counts(by_group=True)
+                toks.append(nxt)
+        sync()
+        secs["decode"] = time.perf_counter() - t0
+        last = fed[n_dec - 1][:, None].long()
+        # each top-k step runs the last decode step again: its routes again
+        routes.at = len(routes.calls) - n_moe
+        dids, dlog, _ = engine.make_topk_step(
+            cfg, sctx, k + 1, max_len=max_len, frames=frames, batch=b)(
+            model, last, before, pos)
+        ids = logits = None
+        if index is not None:
+            routes.at = len(routes.calls) - n_moe
+            ids, logits, _ = engine.make_topk_step(
+                cfg, sctx, k, index=index, max_len=max_len, frames=frames,
+                batch=b)(model, last, before, pos)
+        sync()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(REPLACES, 0)
+    if DEV.type == "cuda":
+        want["flash_attention_simt" if fp32 else "flash_attention"] = \
+            family_prefill_launches(cfg)
+        if index is not None:
+            want.update(zstats=1, leaf_scores=1)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    split = tp > 1 and rules.seq_shards(sctx, max_len) > 1
+    cross = tp > 1 and frames is not None and \
+        rules.seq_shards(sctx, frames) > 1
+    predicted = predict_serve_collectives(cfg, sctx, b_l, split, model=model,
+                                          cross_split=cross, batch=b)
+    if collectives != predicted:
+        raise AssertionError(f"{tag}: a decode step's collectives "
+                             f"{collectives} != the prediction "
+                             f"{predicted}")
+
+    # -- checks outside the count --------------------------------------------
+    errs, rms, swaps, logit_err = {}, {}, 0, 0.0
+    h_pre = seen["prefill"]
+    if fp32:
+        errs["prefill h"] = rel_err(h_pre, ref["prefill_h"][rows].to(DEV))
+        errs.update(_serve_cache_errs(pre_caches, ref["prefill_caches"],
+                                       cfg, sctx, b, max_len, frames,
+                                       "prefill"))
+    ref_h = ref["prefill_h_last"][rows].to(DEV)
+    errs["prefill h last"] = rel_err(h_pre[:, -1], ref_h)
+    rms["prefill"] = float(_rel_rms(h_pre[:, -1].float(), ref_h))
+    got_swaps, got_err = _tokens_gate(
+        f"{tag} prefill token", tok0, [t[rows] for t in ref["prefill_top"]],
+        h_pre[:, -1], ref_h, head, sctx, fp32)
+    swaps, logit_err = swaps + got_swaps, max(logit_err, got_err)
+    del h_pre
+    for i, h in enumerate(seen["decode"]):
+        ref_h = ref["h"][i][rows].to(DEV)
+        errs[f"decode {i} h"] = rel_err(h, ref_h)
+        rms[f"decode {i}"] = float(_rel_rms(h.float(), ref_h))
+        got_swaps, got_err = _tokens_gate(
+            f"{tag} decode {i} token", toks[i],
+            [t[rows] for t in ref["top"][i]], h, ref_h, head, sctx, fp32)
+        swaps, logit_err = swaps + got_swaps, max(logit_err, got_err)
+    if fp32:
+        # the top-k steps wrote the same K/V at pos again
+        errs.update(_serve_cache_errs(caches, ref["decode_caches"], cfg,
+                                       sctx, b, max_len, frames, "decode"))
+        gate(f"{tag} fp32 parity", errs, MESH_RTOL)
+    else:
+        gate(f"{tag} h", errs, DECODE_RTOL)
+        gate(f"{tag} h relative RMS", rms, decode_rel_rms(cfg))
+    rid, rlog = (t[rows].to(DEV) for t in ref["top"][n_dec - 1])
+    if fp32:
+        topk_swaps = check_topk_ties(f"{tag} dense top-{k}", dids[:, :k],
+                                     rid, rlog, k)
+    else:
+        topk_swaps = check_topk_near(
+            f"{tag} dense top-{k}", dids[:, :k], rid, rlog, k,
+            _logit_err(h, ref_h, rid, head, sctx))
+    out = {"secs": secs, "launches": counts, "collectives": collectives,
+           "b_l": b_l, "seq_split": split, "cross_split": cross,
+           "mode": sctx.mode, "errs": errs, "rel_rms": rms,
+           "token_swaps": swaps, "logit_err": logit_err,
+           "topk_swaps": topk_swaps,
+           "route_flips": (routes.flips, routes.routed),
+           "params": sum(p.numel() for p in model.parameters())}
+    if index is not None:
+        if not torch.allclose(logits, dlog[:, :k], rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{tag}: the full-beam logits differ from "
+                                 "the dense top-k's")
+        out["index_swaps"] = check_topk_ties(f"{tag} full beam", ids, dids,
+                                             dlog, k)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if DEV.type == "cuda" else 0.0)
+    out["secs"] = {key: round(v, 3) for key, v in secs.items()}
+    del model
+    return out, index, h
+
+
+def mesh_family_serve_rank(ctx, part: str, name: str, n_layers: int,
+                           dtype: str) -> dict:
+    """One phase 28 run on this rank (``mesh_family_serve_run``), then, on
+    the world's rank 0 while the others wait, every kernel entry the run
+    launched at its shard shapes (``mesh_family_serve_kernels``)."""
+    dp, tp = ctx.axis_size("data"), ctx.tp
+    tag = f"{part} {name} ({dp}, {tp}) {dtype} rank ({ctx.data_index}, " \
+          f"{ctx.model_index})"
+    t0 = time.perf_counter()
+    out, index, h = mesh_family_serve_run(ctx, part, name, n_layers, dtype,
+                                          tag)
+    t1 = time.perf_counter()
+    torch.distributed.barrier()
+    cfg = family_serve_cfg(name, n_layers, dtype)
+    if torch.distributed.get_rank() == 0:
+        out["kernels"] = mesh_family_serve_kernels(ctx, cfg, part, index, h)
+    torch.distributed.barrier()
+    del index, h
+    sync()
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    out["secs"]["kernels"] = round(time.perf_counter() - t1, 1)
+    out["s"] = time.perf_counter() - t0
+    log(f"{tag}: seconds {out['secs']}")
+    return out
+
+
+def mesh_family_serve_report(ranks: list[dict], nccl: dict, ref_s: dict
+                             ) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 28's rank results logged: each run's launches summed over its
+    ranks (``launches_by_path`` "mesh serving <config> (dp, tp) <dtype>"),
+    and rank 0's kernel rows as kernels-line shapes
+    ``mesh_family_serving_<config>_<dp>x<tp>`` (28c) and
+    ``mesh_family_serving_fp32_<config>_<dp>x<tp>`` (28b)."""
+    by_path, shapes = {}, {}
+    for part, name, (dp, tp), n_layers, dtype in MESH_FAMILY_SERVE_RUNS:
+        key = f"{part} {name} {dp}x{tp}"
+        total = dict.fromkeys(REPLACES, 0)
+        for r, res in enumerate(ranks):
+            m = res[key]
+            worst = max(m["errs"], key=m["errs"].get)
+            log(f"[mesh family serving] gloo {key} {dtype} {m['mode']} rank "
+                f"{r} ({n_layers} layers, {m['params']} parameters a rank, "
+                f"{m['b_l']} rows, the cache's sequence "
+                f"{'split' if m['seq_split'] else 'whole'}"
+                + (f", the cross caches' "
+                   f"{'split' if m['cross_split'] else 'whole'}"
+                   if name == "whisper-large-v3" else "")
+                + f"): worst h / cache error {worst} {m['errs'][worst]} "
+                f"over its max, relative RMS {max(m['rel_rms'].values())}, "
+                f"token swaps {m['token_swaps']} (logit error "
+                f"{m['logit_err']} of the top logit), top-{MESH_SERVE_TOPK} "
+                f"swaps {m['topk_swaps']}"
+                + (f", full beam = dense but {m['index_swaps']} ties"
+                   if "index_swaps" in m else "")
+                + (f", the unsharded routing imposed (its own top-k "
+                   f"differed in {m['route_flips'][0]} of "
+                   f"{m['route_flips'][1]} routed tokens)"
+                   if m["route_flips"][1] else "")
+                + f"; launches "
+                f"{({k: v for k, v in m['launches'].items() if v})}, a "
+                f"decode step's collectives {m['collectives']} (= the "
+                f"prediction), seconds {m['secs']}, prefill "
+                f"{m['secs']['prefill'] * 1e3:.1f} ms, decode "
+                f"{m['secs']['decode'] / FAMILY_SERVE_STEPS[part] * 1e3:.1f}"
+                f" ms a token, peak {m['peak_gb']:.3f} GB")
+            add_counts(total, m["launches"])
+        kern = ranks[0][key].get("kernels")
+        fp32 = "fp32_" if dtype == "float32" else ""
+        shapes[f"mesh_family_serving_{fp32}{name}_{dp}x{tp}"] = kern
+        log(f"[mesh family serving] {key}: kernels at the shard shapes "
+            f"{kern}")
+        by_path[f"mesh serving {name} ({dp}, {tp}) {dtype}"] = total
+    secs = [round(sum(r[f"{p} {n} {dp}x{tp}"]["s"]
+                      for p, n, (dp, tp), _, _ in MESH_FAMILY_SERVE_RUNS), 1)
+            for r in ranks]
+    log(f"[mesh family serving] NCCL (1, 1) {nccl}; the unsharded "
+        f"references {ref_s} s; the ranks' phase 28 {secs} s")
+    return by_path, shapes
+
+
+def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27",
+                                                 "28")
                        ) -> tuple[dict[str, dict[str, int]], dict]:
     """Phases 24 and 25, the backbone's storage layouts on the mesh, in
     one set of rank processes.  Phase 24 (starcoder2-3b at full width, 4
@@ -8849,11 +9589,18 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27")
     27a over NCCL in this process (``mesh_serve_nccl``) and the unsharded
     references saved for the ranks (``mesh_serve_references``; 27c's from
     phase 11's run), then each of MESH_SERVE_RUNS on the ranks after phase
-    26's (``mesh_serve_rank``).  ``phases`` runs some of the four alone.
+    26's (``mesh_serve_rank``).  Phase 28 (the rest of serving: the
+    moe, hybrid, MLA and encoder-decoder configs under ``ctx_for_serve``):
+    28a over NCCL in this process (``mesh_family_serve_nccl``) and the
+    unsharded references saved for the ranks
+    (``mesh_family_serve_references``), then each of
+    MESH_FAMILY_SERVE_RUNS on the ranks after phase 27's
+    (``mesh_family_serve_rank``).  ``phases`` runs some of the five
+    alone.
     Returns the bf16 fits' launches of each mesh, summed over its ranks,
     and the kernels' rows at the shard shapes."""
     t_start = time.perf_counter()
-    t24 = t25 = t26 = t27 = 0.0
+    t24 = t25 = t26 = t27 = t28 = 0.0
     if "24" in phases:
         nccl24 = mesh_dense_nccl()
         ref_s = mesh_dense_reference()
@@ -8880,11 +9627,17 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27")
             nccl27 = mesh_serve_nccl()
             ref27 = mesh_serve_references()
             t27 = time.perf_counter() - t0
+        if "28" in phases:
+            t0 = time.perf_counter()
+            nccl28 = mesh_family_serve_nccl()
+            ref28 = mesh_family_serve_references()
+            t28 = time.perf_counter() - t0
         ranks = run_mesh_ranks(",".join(phases), MESH_LAYOUTS_TIMEOUT_S)
     finally:
         shutil.rmtree(MESH_DENSE_DIR, ignore_errors=True)
         shutil.rmtree(MESH_EXPERT_DIR, ignore_errors=True)
         shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
+        shutil.rmtree(MESH_FAMILY_SERVE_DIR, ignore_errors=True)
     by_path, shapes = {}, {}
     for ph, report in (("24", lambda: mesh_dense_report(ranks, nccl24,
                                                         ref_s)),
@@ -8892,14 +9645,16 @@ def phase_mesh_layouts(phases: tuple[str, ...] = ("24", "25", "26", "27")
                        ("26", lambda: mesh_expert_report(ranks, nccl26,
                                                          ref26)),
                        ("27", lambda: mesh_serve_report(ranks, nccl27,
-                                                        ref27))):
+                                                        ref27)),
+                       ("28", lambda: mesh_family_serve_report(
+                           ranks, nccl28, ref28))):
         if ph in phases:
             got_paths, got_shapes = report()
             by_path.update(got_paths)
             shapes.update(got_shapes)
     log(f"[mesh layouts] in this process: phase 24 {t24:.1f} s, phase 25 "
-        f"{t25:.1f} s, phase 26 {t26:.1f} s, phase 27 {t27:.1f} s; phases "
-        f"24 to 27 "
+        f"{t25:.1f} s, phase 26 {t26:.1f} s, phase 27 {t27:.1f} s, phase 28 "
+        f"{t28:.1f} s; phases 24 to 28 "
         f"{time.perf_counter() - t_start:.1f} s; each rank's peak memory "
         f"since its last fit began, GB "
         f"{[round(r.get('peak_gb', 0.0), 3) for r in ranks]}")
@@ -9084,9 +9839,9 @@ def main() -> int:
     by_path.update(layout_paths)
     shapes.update(layout_shapes)
     lap("the backbone's layouts, experts and serving on a mesh (phases "
-        "24-27)")
+        "24-28)")
 
-    timing_report("phases 4-27")
+    timing_report("phases 4-28")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels_line(rows, shapes, by_path)}))
     log(smi)

@@ -23,8 +23,9 @@ Both functions take plain numpy arrays (the JAX side converts with
   * ``index_from_jax`` — a reference ``RetrievalIndex`` or
     ``QuantizedRetrievalIndex``, field by field, into the port's (of a
     sharded one, a mesh rank's own shard).
-  * ``lm_shards_from_jax`` — the reference's LM params onto a mesh rank's
-    shards (a ``StackedLM``; the serving engine's on a mesh).
+  * ``lm_shards_from_jax`` — the reference's LM or encoder-decoder params
+    onto a mesh rank's shards (a ``StackedLM`` or an ``EncDec``; the
+    serving engine's on a mesh, in tp or tp_fsdp).
   * ``train_state_from_jax`` — a reference ``TrainState`` of a recsys,
     lstm, LM or encoder-decoder model (params, the ``chain(clip, adamw)``
     or ``chain(clip, adafactor)`` state, the sampler's carried state and
@@ -41,7 +42,8 @@ And back, numpy out:
     leaf.
   * ``caches_to_jax`` — the port's decode caches as numpy (on a serving
     mesh each rank's blocks gathered; ``caches_from_jax(..., ctx=)`` cuts
-    the reference's caches into them, by ``transformer.cache_specs``).
+    the reference's caches into them, by ``transformer.cache_specs``, an
+    encoder-decoder's by ``encdec.cache_specs``).
   * ``train_state_to_jax`` — the port's ``TrainState`` into the four
     arguments ``train_state_from_jax`` takes.
   * On a mesh (a ``ShardCtx``), ``train_state_from_jax(..., ctx=)`` puts
@@ -69,7 +71,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import distributed
 from repro_torch.core.samplers import SamplerState
-from repro_torch.models import api
+from repro_torch.models import api, encdec
 from repro_torch.models.encdec import STACKS as ENCDEC_STACKS
 from repro_torch.models.encdec import EncDec
 from repro_torch.models import transformer
@@ -382,21 +384,26 @@ def _first_dim(tree) -> int | None:
 def caches_from_jax(np_caches, cfg: ArchConfig,
                     device: str | torch.device | None = None, ctx=None):
     """Reference decode caches (``transformer.init_cache`` / ``prefill``'s
-    list, one dict per segment; an encoder-decoder's one dict of four
-    (L, B, S, KV, hd) arrays; numpy leaves) -> the port's on ``device``
-    (the card unless ``device="cpu"``), leaf for leaf.  With a serving
-    mesh ``ctx`` each leaf is cut to this rank's block by
-    ``transformer.cache_specs`` (K/V its data rows and sequence range, a
-    mamba leaf its data rows and channels)."""
+    list, one dict per segment or one latent array per MLA segment; an
+    encoder-decoder's one dict of four (L, B, S, KV, hd) arrays; numpy
+    leaves) -> the port's on ``device`` (the card unless
+    ``device="cpu"``), leaf for leaf.  With a serving mesh ``ctx`` each
+    leaf is cut to this rank's block by ``transformer.cache_specs`` (K/V
+    and latent rows their data rows and sequence range, a mamba leaf its
+    data rows and channels) or ``encdec.cache_specs`` (each of the four
+    its data rows and sequence range)."""
     dev = resolve_device(device)
     if cfg.family == "encdec":
         want = {"self_k", "self_v", "cross_k", "cross_v"}
         if set(np_caches) != want:
             raise ValueError(f"an encoder-decoder's cache holds "
                              f"{sorted(want)}, not {sorted(np_caches)}")
-        rules.require_unsharded(ctx, "the encoder-decoder's caches on a "
-                                "mesh")
-        return _tensor_tree(dict(np_caches), dev)
+        cache = _tensor_tree(dict(np_caches), dev)
+        if not rules.on_mesh(ctx):
+            return cache
+        specs = encdec.cache_specs(cfg, *_dec_cache_dims(cache), ctx)
+        return {k: rules.shard_by_spec(t, specs[k], ctx)
+                for k, t in cache.items()}
     n_segs = len(segments_of(cfg))
     if len(np_caches) != n_segs:
         raise ValueError(f"{cfg.name} has {n_segs} segments, the caches "
@@ -430,22 +437,37 @@ def _cache_dims(caches) -> tuple[int, int | None]:
     return batch, max_len
 
 
+def _dec_cache_dims(cache: dict) -> tuple[int, int, int]:
+    """(batch, max_len, frames) of a whole encoder-decoder cache."""
+    _, batch, max_len = cache["self_k"].shape[:3]
+    return batch, max_len, cache["cross_k"].shape[2]
+
+
 def caches_to_jax(caches, cfg: ArchConfig | None = None, ctx=None,
-                  batch: int | None = None, max_len: int | None = None):
+                  batch: int | None = None, max_len: int | None = None,
+                  frames: int | None = None):
     """The port's decode caches -> numpy copies, the reference's layout
     (a list per segment, or an encoder-decoder's dict).  A serving mesh
     rank's blocks (``cfg`` and ``ctx``) are gathered whole, every rank of
     the mesh calling this: ``batch`` is the whole batch (a rank's rows
     alone do not tell a block of dp from a whole batch that dp does not
     divide), ``max_len`` the whole sequence where the caches hold
-    attention (neither does a rank's range: ``rules.seq_shards``)."""
-    if isinstance(caches, dict):
-        return _map_tree(host_copy, caches)
+    attention (neither does a rank's range: ``rules.seq_shards``), and
+    ``frames`` an encoder-decoder's cross caches' whole length."""
     if not rules.on_mesh(ctx):
+        if isinstance(caches, dict):
+            return _map_tree(host_copy, caches)
         return _map_tree(host_copy, list(caches))
     if batch is None:
         raise ValueError("caches on a mesh gather with their whole batch "
                          "(batch=)")
+    if isinstance(caches, dict):
+        if max_len is None or frames is None:
+            raise ValueError("an encoder-decoder's caches on a mesh gather "
+                             "with their whole lengths (max_len=, frames=)")
+        specs = encdec.cache_specs(cfg, batch, max_len, frames, ctx)
+        return {k: host_copy(rules.gather_by_spec(t, specs[k], ctx))
+                for k, t in caches.items()}
     if max_len is None and _cache_dims(caches)[1] is not None:
         raise ValueError("attention caches on a mesh gather with their "
                          "whole length (max_len=)")
@@ -462,17 +484,20 @@ def caches_to_jax(caches, cfg: ArchConfig | None = None, ctx=None,
 
 def lm_shards_from_jax(np_params: dict, cfg: ArchConfig, ctx,
                        device: str | torch.device | None = None
-                       ) -> StackedLM:
+                       ) -> StackedLM | EncDec:
     """Reference LM params (the whole tree, padded for the mesh as the
-    reference's ``init_lm`` pads it for ``ctx``) -> a ``StackedLM`` of
-    this rank's shards by ``rules.param_specs_for`` in ``ctx``'s mode
+    reference's ``init_lm`` pads it for ``ctx``; or an encoder-decoder's,
+    as ``init_encdec`` pads it) -> a ``StackedLM`` (an ``EncDec``) of this
+    rank's shards by ``rules.param_specs_for`` in ``ctx``'s mode
     (``train.step.shard_params``: ``shard_by_spec`` of each leaf), with
     its ``param_specs`` set: what the serving engine takes on a mesh
-    (``rules.ctx_for_serve``) and the train step in the training modes."""
+    (``rules.ctx_for_serve``: tp, or tp_fsdp where ``serve_fsdp``) and the
+    train step in the training modes."""
     from repro_torch.train.step import shard_params
 
     dev = resolve_device(device)
-    model = StackedLM(cfg, dev, tree=lm_params_from_jax(np_params, cfg, dev))
+    module = EncDec if cfg.family == "encdec" else StackedLM
+    model = module(cfg, dev, tree=lm_params_from_jax(np_params, cfg, dev))
     return shard_params(model, cfg, ctx)
 
 

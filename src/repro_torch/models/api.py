@@ -31,8 +31,10 @@ backbone's, the expert configs' residual stream S-sharded:
 rows with their feature dim gathered over ``data``
 (``rules.gather_head_fd``); a head tied to the embedding is the
 embedding's shard.  Serving on a mesh takes the same shards in
-``rules.ctx_for_serve``'s mode (``require_serve_mesh`` names the families
-that serve there).
+``rules.ctx_for_serve``'s mode (tp, or tp_fsdp where ``serve_fsdp``), for
+every ported family: the decoder LMs' (``models/transformer.py``) and
+the encoder-decoder's (``models/encdec.py``) caches, prefill and
+decode.
 """
 from __future__ import annotations
 
@@ -63,13 +65,9 @@ def require_mesh_layout(cfg: ArchConfig) -> None:
 
 
 def require_serve_mesh(cfg: ArchConfig) -> None:
-    """The serving family gate on a mesh (``rules.ctx_for_serve``): the
-    dense and ssm families' backbones serve there
-    (``transformer.SERVE_MESH_FAMILIES``); the moe and hybrid families,
-    MLA's latent caches and the encoder-decoder raise, naming ROADMAP.md
-    A17.  The head's top-k (``engine.decode_topk``) serves every family."""
+    """The serving family gate on a mesh (``rules.ctx_for_serve``): every
+    ported family serves there, so it refuses only a family not ported."""
     _require_ported(cfg)
-    transformer.require_serve_mesh(cfg)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,

@@ -47,8 +47,21 @@ where the path has ``xattn``) and the position tables (the rule names
 runs whole on every model rank, on the replicated residual stream and
 encoder states: no f or g brackets it, and its weights' gradient, alike
 over the model group, is summed over the batch axes only
-(``rules.grad_reduce_axes``).  The decoder's cache and its one-token
-step stay single-device (ROADMAP.md A17).
+(``rules.grad_reduce_axes``).
+
+Serving on a mesh (``rules.ctx_for_serve``: tp) takes an ``EncDec`` of
+a rank's shards and its rows of the batch: ``encode`` runs as above, and
+the decoder's cache lays its four leaves out as the reference's
+``init_dec_cache`` constrains them (``cache_specs``, ``".bS.."``): the
+self K/V of ``max_len`` positions and the cross K/V over the encoder's
+frames, each with its sequence over ``model`` where tp divides it.  A
+rank projects only its own range of the frames into the cross K/V.  The
+one-token step (``decode_step``, told both whole lengths) runs the self
+attention Megatron's way over its sequence-sharded cache, the cross
+attention with its whole weights over its range of the frames, the
+ranges' softmax merged over ``model`` (``layers.attn_decode`` with a
+``cache_group`` and no ``group``), the MLP Megatron's and the embedding
+vocab-parallel; the ``dec_pos`` table is whole.
 """
 from __future__ import annotations
 
@@ -67,7 +80,7 @@ from repro_torch.models.transformer import (
     _stacked,
     padded_vocab,
 )
-from repro_torch.sharding.rules import require_unsharded
+from repro_torch.core import distributed
 from repro_torch.sharding import rules
 from repro_torch.utils.misc import resolve_device
 
@@ -290,6 +303,18 @@ def _dec_block(blk: Params, x: Tensor, enc_out: Tensor, positions: Tensor,
     return _mlp(blk, x, cfg, group)
 
 
+def _dec_embed(top: Params, tokens: Tensor, cfg: ArchConfig, ctx,
+               specs: Params | None) -> Tensor:
+    """The decoder's token embeddings; on a mesh (``specs``) the table's
+    ``compute_view``, vocab-parallel under TP."""
+    if specs is None:
+        return L.apply_embed(top["embed"], tokens, cfg)
+    spec = specs["embed"]["table"]
+    return L.apply_embed(
+        {"table": rules.compute_view(top["embed"]["table"], spec, ctx)},
+        tokens, cfg, rules.vocab_group(spec, ctx))
+
+
 def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
                  ctx=None) -> Tensor:
     """The teacher-forced decoder: tokens (B, S) over the encoder's states
@@ -299,13 +324,7 @@ def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
     specs = _mesh_specs(params, ctx)
     top = _top(params)
     b, s = tokens.shape
-    if specs is None:
-        x = L.apply_embed(top["embed"], tokens, cfg)
-    else:
-        spec = specs["embed"]["table"]
-        x = L.apply_embed(
-            {"table": rules.compute_view(top["embed"]["table"], spec, ctx)},
-            tokens, cfg, rules.vocab_group(spec, ctx))
+    x = _dec_embed(top, tokens, cfg, ctx, specs)
     x = x + top["dec_pos"]["table"][:s][None].to(x.dtype)
     positions = _positions(b, s, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -316,6 +335,34 @@ def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
     return L.apply_norm(top["dec_norm"], x, cfg)
 
 
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int, frames: int,
+                  tp: int = 1) -> dict[str, tuple]:
+    """The decoder cache's WHOLE leaf shapes: (L, B, S, KV, hd), S being
+    ``max_len`` for the self K/V and ``frames`` for the cross K/V, KV the
+    heads padded for the backbone's TP degree ``tp``, as the reference's
+    ``init_dec_cache``."""
+    _, nkv = L.padded_heads(cfg, tp)
+    own = (cfg.n_dec_layers, batch, max_len, nkv, cfg.resolved_head_dim)
+    cross = (cfg.n_dec_layers, batch, frames, nkv, cfg.resolved_head_dim)
+    return {"self_k": own, "self_v": own, "cross_k": cross,
+            "cross_v": cross}
+
+
+def _tp(ctx) -> int:
+    return ctx.tp_backbone if rules.on_mesh(ctx) else 1
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, frames: int,
+                ctx=None) -> dict[str, tuple]:
+    """The spec of each leaf of the decoder's cache of a WHOLE batch of
+    ``batch``, ``max_len`` positions and ``frames`` encoder frames: the
+    reference's ``".bS.."`` for all four (``rules.cache_spec``, fitted:
+    each sequence over ``model`` where tp divides it, the batch over
+    ``data`` where dp does); nothing sharded off a mesh."""
+    return {k: rules.cache_spec("k", sh, ctx) for k, sh in _cache_shapes(
+        cfg, batch, max_len, frames, _tp(ctx)).items()}
+
+
 @torch.no_grad()
 def init_dec_cache(params, cfg: ArchConfig, batch: int, max_len: int,
                    enc_out: Tensor, ctx=None) -> dict[str, Tensor]:
@@ -323,21 +370,32 @@ def init_dec_cache(params, cfg: ArchConfig, batch: int, max_len: int,
     K/V of ``max_len`` positions and the cross attention's K/V of every
     layer from the encoder's states (B, Sf, d), each (L, B, S, KV, hd) in
     the compute dtype; each layer's cross K/V is written into its slot of
-    the stack as it is projected, so no second copy is held."""
-    require_unsharded(ctx, "the encoder-decoder's caches and decode on "
-                      "a mesh")
+    the stack as it is projected, so no second copy is held.
+
+    On a serving mesh ``params`` is an ``EncDec`` of the rank's shards,
+    ``batch`` the WHOLE batch and ``enc_out`` the states of the rank's
+    rows: each leaf is the rank's block by ``cache_specs``, and the rank
+    projects only its own range of the frames (with the cross attention's
+    whole ``wk`` / ``wv``)."""
+    specs = _mesh_specs(params, ctx)
     dt = L._dtype(cfg)
-    _, nkv = L.padded_heads(cfg)
-    hd = cfg.resolved_head_dim
-    blocks = _blocks(_top(params), "dec_blocks", cfg)
-    n, dev = len(blocks), enc_out.device
-    cache = {name: torch.zeros((n, batch, max_len, nkv, hd), dtype=dt,
-                               device=dev) for name in ("self_k", "self_v")}
-    cross = (n, *enc_out.shape[:2], nkv, hd)
-    cache["cross_k"] = torch.empty(cross, dtype=dt, device=dev)
-    cache["cross_v"] = torch.empty(cross, dtype=dt, device=dev)
-    for i, blk in enumerate(blocks):
-        k, v = L.cross_kv(blk["xattn"], enc_out, cfg)
+    frames = enc_out.shape[1]
+    shapes = _cache_shapes(cfg, batch, max_len, frames, _tp(ctx))
+    cspecs = cache_specs(cfg, batch, max_len, frames, ctx)
+    dev = enc_out.device
+    cache = {k: (torch.zeros if k.startswith("self") else torch.empty)(
+        rules.local_shape(shapes[k], cspecs[k], ctx), dtype=dt, device=dev)
+        for k in shapes}
+    f_l = cache["cross_k"].shape[2]
+    if f_l != frames:
+        off = distributed.axis_index(ctx.model_group) * f_l
+        enc_out = enc_out[:, off:off + f_l]
+    for i, (blk, bs) in enumerate(zip(
+            _blocks(_top(params), "dec_blocks", cfg),
+            _stack_specs(specs, "dec_blocks", cfg))):
+        xattn = blk["xattn"] if bs is None else rules.gather_tree(
+            blk["xattn"], bs["xattn"], ctx)
+        k, v = L.cross_kv(xattn, enc_out, cfg)
         cache["cross_k"][i] = k
         cache["cross_v"][i] = v
     return cache
@@ -345,29 +403,54 @@ def init_dec_cache(params, cfg: ArchConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode_step(params, token: Tensor, cache: dict[str, Tensor],
-                pos: Tensor, cfg: ArchConfig, ctx=None
+                pos: Tensor, cfg: ArchConfig, ctx=None,
+                max_len: int | None = None, frames: int | None = None
                 ) -> tuple[Tensor, dict[str, Tensor]]:
     """One decoder token.  token: (B, 1) ids; pos: (B,) positions.
     Returns (h (B, 1, d), cache): each layer's self K/V written at ``pos``
     IN PLACE (the same dict returned; the reference returns a new one),
     the cross K/V read whole, in fp32, by ``layers.attn_decode`` with
-    ``update_cache=False``."""
-    require_unsharded(ctx, "the encoder-decoder's caches and decode on "
-                      "a mesh")
+    ``update_cache=False``.
+
+    On a serving mesh ``params`` is an ``EncDec`` of the rank's shards,
+    ``token`` and ``pos`` its rows and ``cache`` its blocks
+    (``init_dec_cache``); ``max_len`` and ``frames`` are the self and
+    cross caches' whole lengths (needed at tp > 1: they tell a rank's
+    range from a whole sequence).  The self attention runs over the
+    rank's heads against its range of the self cache, the cross attention
+    every head against its range of the frames, each merged over
+    ``model`` where its sequence is split (the module docstring)."""
+    specs = _mesh_specs(params, ctx)
     top = _top(params)
     b = token.shape[0]
-    x = L.apply_embed(top["embed"], token, cfg)
+    own_group = cross_group = None
+    if specs is not None and ctx.tp > 1:
+        if rules.seq_split(ctx, cache["self_k"].shape[2], max_len,
+                           "the decoder's self caches (max_len=)") > 1:
+            own_group = ctx.model_group
+        if rules.seq_split(ctx, cache["cross_k"].shape[2], frames,
+                           "the decoder's cross caches (frames=)") > 1:
+            cross_group = ctx.model_group
+    x = _dec_embed(top, token, cfg, ctx, specs)
     x = x + top["dec_pos"]["table"][pos][:, None].to(x.dtype)
-    every = torch.full((b,), cache["cross_k"].shape[2] - 1,
-                       dtype=torch.long, device=token.device)
-    for i, blk in enumerate(_blocks(top, "dec_blocks", cfg)):
+    # every frame is valid: the last whole position
+    n_frames = cache["cross_k"].shape[2] if frames is None else frames
+    every = torch.full((b,), n_frames - 1, dtype=torch.long,
+                       device=token.device)
+    for i, (blk, bs) in enumerate(zip(_blocks(top, "dec_blocks", cfg),
+                                      _stack_specs(specs, "dec_blocks",
+                                                   cfg))):
+        blk, group = _gathered(blk, ctx, bs)
         h = L.apply_norm(blk["norm1"], x, cfg)
         y, _, _ = L.attn_decode(blk["attn"], h, cache["self_k"][i],
-                                cache["self_v"][i], pos, cfg, rope_on=False)
+                                cache["self_v"][i], pos, cfg, rope_on=False,
+                                group=group, cache_group=own_group)
         x = x + y
         hx = L.apply_norm(blk["norm_x"], x, cfg)
+        # whole weights on every rank (the module docstring)
         y2, _, _ = L.attn_decode(blk["xattn"], hx, cache["cross_k"][i],
                                  cache["cross_v"][i], every, cfg,
-                                 update_cache=False, rope_on=False)
-        x = _mlp(blk, x + y2, cfg)
+                                 update_cache=False, rope_on=False,
+                                 cache_group=cross_group)
+        x = _mlp(blk, x + y2, cfg, group)
     return L.apply_norm(top["dec_norm"], x, cfg), cache

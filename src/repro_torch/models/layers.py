@@ -26,7 +26,9 @@ Conventions, as in the reference:
     psum (``tp_enter`` / ``tp_exit``).  ``attn_decode`` under TP serves
     the reference's sequence-sharded KV cache: the step's heads gathered
     over the group (``gather_heads``), each rank's range attended, the
-    ranges' softmax merged (``distributed.merge_softmax``).
+    ranges' softmax merged (``distributed.merge_softmax``); with whole
+    weights over such a cache it serves the encoder-decoder's cross
+    attention (every head on every rank, the ranges merged).
 
 Full-sequence attention (``attn_forward``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors (with its
@@ -336,8 +338,7 @@ def gather_heads(parts: list[Tensor], group) -> list[Tensor]:
 
 def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
                 pos: Tensor, cfg: ArchConfig, *, update_cache: bool = True,
-                rope_on: bool = True, group=None,
-                cache_sharded: bool = False
+                rope_on: bool = True, group=None, cache_group=None
                 ) -> tuple[Tensor, Tensor, Tensor]:
     """One-token decode against a KV cache.
 
@@ -349,13 +350,17 @@ def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
 
     Under TP (``group``) the reference's semantics over a cache of every
     KV head: this rank's q / k / v heads are all-gathered over the group
-    in one call; with ``cache_sharded`` the cache holds this rank's
-    sequence range (positions [j S, (j + 1) S) on model rank j), the
-    rank that holds ``pos`` writes the new K/V, each rank attends its
-    range for every head and ``distributed.merge_softmax`` joins the
-    ranges (else every rank holds, writes and attends the whole cache);
-    then this rank's heads of the output go through its ``wo`` rows and
-    leave through ``tp_exit``."""
+    in one call, and after the attention this rank's heads of the output
+    go through its ``wo`` rows and leave through ``tp_exit``.  With
+    ``cache_group`` the cache holds this rank's range of a sequence split
+    over that group (positions [j S, (j + 1) S) on its rank j): the rank
+    that holds ``pos`` writes the new K/V, each rank attends its range for
+    every head and ``distributed.merge_softmax`` joins the ranges (else
+    the cache is whole and so attended).  ``cache_group`` without
+    ``group`` is an attention of whole (replicated) weights over a
+    sequence-sharded cache, the encoder-decoder's cross attention: every
+    head's q from the whole ``wq``, the ranges merged, the whole ``wo``,
+    no gather and no ``tp_exit``."""
     dt = _dtype(cfg)
     hd = cfg.resolved_head_dim
     b = x.shape[0]
@@ -375,9 +380,9 @@ def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
         k = rope(k, pos[:, None], cfg.rope_theta)
     h_own = q.shape[2]
     q, k, v = gather_heads([q, k, v], group)
-    sharded = group is not None and cache_sharded
+    sharded = cache_group is not None
     s_len = cache_k.shape[1]
-    off = distributed.axis_index(group) * s_len if sharded else 0
+    off = distributed.axis_index(cache_group) * s_len
 
     if update_cache:
         # the cache may hold fewer KV heads than a TP-padded projection
@@ -409,7 +414,8 @@ def attn_decode(p: Params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
         e = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
         o = distributed.merge_softmax(
             m, torch.sum(e, dim=-1),
-            torch.einsum("bkgs,bskh->bkgh", e, cache_v.float()), group)
+            torch.einsum("bkgs,bskh->bkgh", e, cache_v.float()),
+            cache_group)
     else:
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgs,bskh->bkgh", w, cache_v.float())

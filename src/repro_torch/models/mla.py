@@ -19,7 +19,9 @@ norms whole on every model rank (gathered over ``data``).  The input
 enters and the output leaves as the other tensor-parallel blocks'
 (``layers.tp_enter`` / ``tp_exit``; with ``seq`` on S-shards).  The
 latents feed this rank's heads alone, so each model rank holds a part of
-their leaves' gradients (``rules.model_partial``).
+their leaves' gradients (``rules.model_partial``).  Serving on such a
+mesh (``mla_decode(..., group=, cache_group=)``) keeps the latent cache
+with its sequence over the model group, the reference's ``".bS."``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import distributed
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -120,14 +123,29 @@ def mla_latent_cache(p: Params, x: Tensor, positions: Tensor,
 
 
 def mla_decode(p: Params, x: Tensor, cache: Tensor, pos: Tensor,
-               cfg: ArchConfig) -> tuple[Tensor, Tensor]:
+               cfg: ArchConfig, *, group=None, cache_group=None
+               ) -> tuple[Tensor, Tensor]:
     """Absorbed-form one-token decode.  x: (B, 1, d); cache: (B, S,
     kv_lora + rope) latent rows; pos: (B,).  The new token's latent row is
     written into ``cache`` at ``pos`` IN PLACE (the reference returns an
     updated copy), and (y (B, 1, d), cache) is returned.  The scores and
     the weighted sum run in fp32 over the latent rows: q_nope is absorbed
     through wkv_b's key half into the latent space, the context taken back
-    out through its value half."""
+    out through its value half.
+
+    Under TP (``group``) this rank's heads' queries are absorbed through
+    its ``wkv_b`` key columns, and its heads of the context go out through
+    its value columns and its ``wo`` rows, then ``layers.tp_exit``; the
+    latent row is whole on every rank (``wkv_a`` replicated).  With
+    ``cache_group`` (the group itself) the cache holds this rank's range
+    of a sequence split over the group (positions [j S, (j + 1) S) on rank
+    j): the rank that holds ``pos`` writes the row, the heads' absorbed
+    queries ``[q_lat | q_rope]`` are all-gathered over the group in one
+    call, each rank scores every head against its range, and
+    ``distributed.merge_softmax`` joins the ranges (one pmax, one psum).
+    Without it every rank holds, writes and attends the whole cache for
+    its own heads: no gather, no merge."""
+    x = L.tp_enter(x, group)
     dt = x.dtype
     b = x.shape[0]
     nope, rpe, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -135,23 +153,48 @@ def mla_decode(p: Params, x: Tensor, cache: Tensor, pos: Tensor,
     q_nope, q_rope = _queries(p, x, pos[:, None], cfg, dt)
     nh = q_nope.shape[2]
     new_entry = mla_latent_cache(p, x, pos[:, None], cfg)  # (B, 1, kvl+rpe)
-    cache[torch.arange(b, device=x.device), pos] = new_entry[:, 0].to(
-        cache.dtype)
+    s_len = cache.shape[1]
+    off = distributed.axis_index(cache_group) * s_len
+    bidx = torch.arange(b, device=x.device)
+    row = new_entry[:, 0].to(cache.dtype)
+    if cache_group is not None:
+        # every rank writes its slot; a slot outside its range keeps the
+        # value it held
+        at = pos - off
+        own = ((at >= 0) & (at < s_len))[:, None]
+        at = torch.clamp(at, 0, s_len - 1)
+        cache[bidx, at] = torch.where(own, row, cache[bidx, at])
+    else:
+        cache[bidx, pos] = row
 
     wkv_b = p["wkv_b"].to(dt).reshape(kvl, nh, nope + vh)
     wk = wkv_b[..., :nope].float()  # (kvl, H, nope)
     wv = wkv_b[..., nope:].float()  # (kvl, H, v)
     q_lat = torch.einsum("bqhn,khn->bqhk", q_nope.float(), wk)
+    q_rope = q_rope.float()
+    if cache_group is not None:
+        q_all = distributed.all_gather_tiled(
+            torch.cat([q_lat, q_rope], dim=-1), cache_group, dim=2)
+        q_lat, q_rope = q_all[..., :kvl], q_all[..., kvl:]
     c_kv = cache[..., :kvl].float()
     k_rope = cache[..., kvl:].float()
     s = (torch.einsum("bqhk,bsk->bhqs", q_lat, c_kv)
-         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope))
+         + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope))
     s = s * (1.0 / math.sqrt(nope + rpe))
-    valid = (torch.arange(cache.shape[1], device=x.device)[None, :]
+    valid = (off + torch.arange(s_len, device=x.device)[None, :]
              <= pos[:, None])
     s = torch.where(valid[:, None, None, :], s, -torch.inf)
-    w = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)  # (B, 1, H, kvl)
+    if cache_group is not None:
+        m = torch.amax(s, dim=-1)
+        e = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+        ctx_lat = distributed.merge_softmax(
+            m, torch.sum(e, dim=-1), torch.einsum("bhqs,bsk->bhqk", e, c_kv),
+            cache_group)
+        j = distributed.axis_index(cache_group)
+        ctx_lat = ctx_lat[:, j * nh:(j + 1) * nh].transpose(1, 2)
+    else:
+        w = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)  # (B, 1, H, kvl)
     out = torch.einsum("bqhk,khv->bqhv", ctx_lat, wv)
     y = out.reshape(b, 1, nh * vh).to(dt) @ p["wo"].to(dt)
-    return y, cache
+    return L.tp_exit(y, group), cache

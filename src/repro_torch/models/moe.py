@@ -28,6 +28,19 @@ shard's (alike on its model ranks).  Each model rank's router gradient
 is a part (its experts' combine weights only): the train step sums it
 over ``model`` as well as ``data`` (``rules.model_partial``).
 pure_fsdp with experts raises, as the reference asserts.
+
+Serving (``rules.ctx_for_serve``) runs the same layer in its two modes:
+in ``tp`` (jamba-v0.1-52b) the experts' stored shards are whole along
+``Fd`` (the reference's ``_allgather_fsdp`` is a no-op there), so
+nothing is gathered; in tp_fsdp (``serve_fsdp``: dbrx-132b,
+deepseek-v3-671b) they are gathered over ``data`` per layer as in
+training.  A batch that dp does not divide is whole on every data rank
+(``rules.serve_rows``), so its capacity comes from the whole batch, as
+the reference's replicated-token branch takes it.  In tp mode the
+reference's layer takes its tokens replicated over ``data`` (its token
+spec is the weights' ``Fd``, none there) with the capacity of a data
+block's tokens, so a rank there routes every data block's tokens
+(``gather_rows``).
 """
 from __future__ import annotations
 
@@ -174,6 +187,25 @@ def _shared(sh: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     return h @ sh["w_down"].to(dt)
 
 
+def moe_rows(ctx, rows: int, batch: int | None) -> bool:
+    """Whether a serving rank's MoE layers gather their tokens over
+    ``data`` (``apply_moe``'s ``gather_rows``): in tp mode at dp > 1 where
+    its ``rows`` are its block of a batch of ``batch`` split over ``data``
+    (``rules.serve_rows``).  ``batch`` may be None where ``rows`` tells
+    it: dp dividing ``rows`` means a block (a whole batch is split
+    wherever dp divides it)."""
+    if not rules.on_mesh(ctx) or ctx.mode != "tp" or ctx.dp == 1:
+        return False
+    if batch is None:
+        if rows % ctx.dp:
+            raise ValueError(
+                f"{rows} rows a data rank in tp mode: a block of a batch "
+                f"of {rows * ctx.dp} or a whole batch of {rows}?  The MoE "
+                "layers take the whole batch (batch=)")
+        return True
+    return batch % ctx.dp == 0
+
+
 def _mesh_aux(aux: Tensor, ctx) -> Tensor:
     """aux's mean over the data shards (the reference's pmean over
     ``model``, whose ranks hold it alike, and ``data``), its gradient the
@@ -187,11 +219,19 @@ def _mesh_aux(aux: Tensor, ctx) -> Tensor:
 
 
 def apply_moe(p: Params, x: Tensor, cfg: ArchConfig, ctx=None,
-              seq: bool = False) -> tuple[Tensor, Tensor]:
+              seq: bool = False, mesh_aux: bool = True,
+              gather_rows: bool = False) -> tuple[Tensor, Tensor]:
     """MoE FFN.  x: (B, S, d).  Returns (y (B, S, d), aux_loss).  On a
     mesh (a ``ShardCtx``; the module docstring) ``p`` is the layer's
     compute view, its experts this rank's, and x this rank's data rows
-    (with ``seq`` their S-shard: y is too)."""
+    (with ``seq`` their S-shard: y is too).  ``mesh_aux=False`` (serving,
+    which drops aux) returns this rank's own aux, not its mean over
+    ``data``.  ``gather_rows`` (serving in tp mode, x this rank's block of
+    a batch split over ``data``): the tokens of every data block are
+    routed, as the reference's tp-mode layer replicates its tokens over
+    ``data`` (its ``dataspec`` is the weights' ``Fd``, none in tp), with
+    the capacity of this rank's block: x is all-gathered over ``data``
+    (``moe_rows``) and this rank's block of the output kept."""
     mesh = rules.on_mesh(ctx)
     if mesh and ctx.mode == "pure_fsdp":
         raise ValueError("MoE archs must use tp_fsdp sharding (experts live "
@@ -204,12 +244,18 @@ def apply_moe(p: Params, x: Tensor, cfg: ArchConfig, ctx=None,
     x = tp_enter(x, group, seq)
     b, s, d = x.shape
     dt = x.dtype
-    x2d = x.reshape(b * s, d)
+    x_in = (distributed.all_gather_tiled(x, ctx.data_group, dim=0)
+            if gather_rows else x)
+    x2d = x_in.reshape(-1, d)
     ids, w, aux = _route(p, x2d, cfg)
     y = _dispatch_compute_combine(
         x2d, ids, w, p["w_gate"].to(dt), p["w_up"].to(dt),
         p["w_down"].to(dt), cfg, capacity(b * s, cfg),
-        e_lo=ctx.model_index * e_l if mesh else 0).reshape(b, s, d)
+        e_lo=ctx.model_index * e_l if mesh else 0).reshape(-1, s, d)
+    if gather_rows:
+        y = y[ctx.data_index * b:(ctx.data_index + 1) * b]
     if cfg.n_shared_experts:
         y = y + _shared(p["shared"], x, cfg)
-    return tp_exit(y, group, seq), _mesh_aux(aux, ctx) if mesh else aux
+    if mesh and mesh_aux:
+        aux = _mesh_aux(aux, ctx)
+    return tp_exit(y, group, seq), aux

@@ -51,19 +51,23 @@ as the reference returns it.  ``mtp_hidden``'s S - 1 rows take the same
 rule on their own.
 
 Serving on a mesh (``rules.ctx_for_serve``: tp mode, the parameters
-replicated over ``data``; the dense and ssm families,
-``require_serve_mesh``) takes a rank's sharded ``StackedLM`` and its rows
-of the batch: ``init_cache``, ``prefill`` and ``decode_step`` lay the
-caches out as the reference's ``init_cache`` constrains them
-(``cache_specs``): K/V with the sequence over ``model`` where tp divides
+replicated over ``data``, or tp_fsdp where the config sets
+``serve_fsdp``, its F leaves gathered over ``data`` per layer; every
+family here) takes a rank's sharded ``StackedLM`` and its rows of the
+batch: ``init_cache``, ``prefill`` and ``decode_step`` lay the caches out
+as the reference's ``init_cache`` constrains them (``cache_specs``): K/V
+and MLA's latent rows with the sequence over ``model`` where tp divides
 ``max_len`` (``rules.seq_shards``; ``decode_step`` takes ``max_len`` to
 tell it), the mamba window and state with their channels over
 ``model``.  The prefill runs each attention layer over the rank's heads
-and keeps the rank's sequence range of every KV head; the decode gathers
-the step's q / k / v heads, attends each rank's range and merges the
-ranges' softmax over ``model``; a mamba layer runs channel-parallel, its
-``in_proj`` channel view built once per parameter (``_in_proj_view``),
-not per step.
+and keeps the rank's sequence range of every KV head (of the latent
+rows, which every rank projects whole); the decode gathers the step's
+q / k / v heads (MLA's absorbed queries), attends each rank's range and
+merges the ranges' softmax over ``model``; a mamba layer runs
+channel-parallel, its ``in_proj`` channel view built once per parameter
+(``_in_proj_view``), not per step; a MoE layer dispatches to the rank's
+experts (``moe.apply_moe``), its one reduction over ``model`` joined by
+the shared experts' partial sums.
 
 Full-sequence attention (``hidden_states``, ``prefill``, ``mtp_hidden``;
 GQA and MLA's expanded form alike) goes through
@@ -374,17 +378,20 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig,
 
 
 def _apply_ffn(ffn: str, p: Params, x: Tensor, cfg: ArchConfig,
-               group=None, ctx=None, seq: bool = False
+               group=None, ctx=None, seq: bool = False,
+               mesh_aux: bool = True, gather_rows: bool = False
                ) -> tuple[Tensor, Tensor | None]:
     """x + the layer's FFN (MLP, MoE or none) of norm2(x), and the MoE's
     aux loss (None for the others); on a mesh (``ctx``) the MLP
     tensor-parallel over ``group`` and the MoE's experts over the model
-    group, with ``seq`` on S-shards."""
+    group, with ``seq`` on S-shards (``mesh_aux``, ``gather_rows``:
+    ``moe.apply_moe``'s)."""
     if ffn == "none":
         return x, None
     h = L.apply_norm(p["norm2"], x, cfg)
     if ffn == "moe":
-        y, aux = MOE.apply_moe(p["moe"], h, cfg, ctx, seq)
+        y, aux = MOE.apply_moe(p["moe"], h, cfg, ctx, seq, mesh_aux,
+                               gather_rows)
         return x + y, aux
     return x + L.apply_mlp(p["mlp"], h, cfg, group=group, seq=seq), None
 
@@ -538,28 +545,11 @@ def mtp_hidden(params, h: Tensor, tokens: Tensor, cfg: ArchConfig,
 
 # --- caches / serving --------------------------------------------------------
 
-#: the LM families whose caches, prefill and decode run on a serving mesh
-SERVE_MESH_FAMILIES = ("dense", "ssm")
-
-
-def require_serve_mesh(cfg: ArchConfig) -> None:
-    """Raise for a config whose serving has no mesh form yet: MoE layers,
-    MLA's latent cache and the encoder-decoder come in A17's next part."""
-    if cfg.family not in SERVE_MESH_FAMILIES or cfg.mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"'{cfg.name}' (family '{cfg.family}'"
-            f"{', MLA' if cfg.mla else ''}"
-            f"{', experts' if cfg.n_experts else ''}) does not serve on a "
-            f"mesh yet: only the {', '.join(SERVE_MESH_FAMILIES)} families "
-            "(ROADMAP.md A17)")
-
-
-def _serve_specs(params, cfg: ArchConfig, ctx) -> Params | None:
+def _serve_specs(params, ctx) -> Params | None:
     """The spec tree of a rank's ``StackedLM`` on a serving mesh (None off
-    a mesh), after refusing what has no serving mesh form."""
+    a mesh), after refusing a ctx that is not a serving one."""
     if not rules.on_mesh(ctx):
         return None
-    require_serve_mesh(cfg)
     if ctx.mode == "pure_fsdp" or ctx.seq_residuals:
         raise ValueError(
             f"serving takes the ctx of rules.ctx_for_serve (tp, or tp_fsdp "
@@ -588,8 +578,9 @@ def _serve_layer(params, s: int, i: int, lp: Params, specs: Params | None,
                  ctx, group) -> Params:
     """Layer i of segment s as serving computes on it: off a mesh its own
     tensors; on a mesh ``rules.compute_view`` of each shard (nothing to
-    gather in tp mode) and a mamba block's ``in_proj`` channel view from
-    ``_in_proj_view``."""
+    gather in tp mode; in tp_fsdp each F leaf, the experts' ``Fd`` dims
+    included, all-gathered over ``data``) and a mamba block's ``in_proj``
+    channel view from ``_in_proj_view``."""
     if specs is None:
         return lp
     ls = specs["segments"][s][i]
@@ -659,8 +650,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
     block of it by ``cache_specs``: K/V its data rows and sequence range,
     the mamba leaves its data rows and channels."""
     require_ported(cfg)
-    if rules.on_mesh(ctx):
-        require_serve_mesh(cfg)
     dev = resolve_device(device)
     dt = dtype or L._dtype(cfg)
     caches = []
@@ -680,32 +669,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, ctx=None,
 
 def _kv_seq_shards(cfg: ArchConfig, caches: list[Params], ctx,
                    max_len: int | None) -> int:
-    """The model ranks ``decode_step``'s K/V caches split their sequence
-    over (``rules.seq_shards`` of their whole length ``max_len``); 1 off a
-    mesh, at tp 1 and without K/V caches.  On a mesh that could split it,
-    ``max_len`` is required and must match the rank's cache length."""
-    kv = [c for (kind, _), c in zip(segments_of(cfg), caches)
-          if kind.startswith("attn") and not cfg.mla]
-    if not rules.on_mesh(ctx) or ctx.tp == 1 or not kv:
+    """The model ranks ``decode_step``'s attention caches (K/V or MLA's
+    latent rows) split their sequence over (``rules.seq_shards`` of their
+    whole length ``max_len``); 1 off a mesh, at tp 1 and without attention
+    caches."""
+    attn = [c["k"] if isinstance(c, dict) else c
+            for (kind, _), c in zip(segments_of(cfg), caches)
+            if kind.startswith("attn")]
+    if not rules.on_mesh(ctx) or ctx.tp == 1 or not attn:
         return 1
-    if max_len is None:
-        raise ValueError(
-            "decode_step on a mesh takes its K/V caches' whole length "
-            "(max_len=, as given to prefill or init_cache): a rank's range "
-            "of a sequence split over the model group is not told from a "
-            "whole sequence by its length")
-    n = rules.seq_shards(ctx, max_len)
-    if kv[0]["k"].shape[2] * n != max_len:
-        raise ValueError(f"a rank's K/V cache of {kv[0]['k'].shape[2]} "
-                         f"positions is not a block of max_len={max_len} "
-                         f"split over {n}")
-    return n
+    return rules.seq_split(ctx, attn[0].shape[2], max_len,
+                           "decode_step's attention caches (max_len=)")
 
 
 @torch.no_grad()
 def decode_step(params, token: Tensor, caches: list[Params],
                 pos: Tensor, cfg: ArchConfig, ctx=None,
-                max_len: int | None = None) -> tuple[Tensor, list[Params]]:
+                max_len: int | None = None, batch: int | None = None
+                ) -> tuple[Tensor, list[Params]]:
     """One-token decode.  token: (B, 1) ids; pos: (B,).  Returns (h (B, 1,
     d), caches): attention segments' K/V (MLA's latent rows) written at
     ``pos`` IN PLACE (the same dicts or tensors returned; the given list
@@ -715,14 +696,19 @@ def decode_step(params, token: Tensor, caches: list[Params],
     On a serving mesh (``ctx``: ``rules.ctx_for_serve``'s) ``params`` is a
     rank's sharded ``StackedLM``, ``token`` and ``pos`` its rows and
     ``caches`` its blocks (``init_cache``) and ``max_len`` their whole
-    length (needed where they hold K/V and tp > 1): the embedding
+    length (needed where they hold attention and tp > 1): the embedding
     vocab-parallel, each attention layer over the sequence-sharded cache
-    (``layers.attn_decode``), each mamba layer channel-parallel
-    (``mamba.mamba_decode``), the MLP Megatron's; h is whole."""
+    (``layers.attn_decode``; MLA's ``mla.mla_decode`` over its latent
+    rows), each mamba layer channel-parallel (``mamba.mamba_decode``), the
+    MLP Megatron's, a MoE layer over the rank's experts (``batch``: the
+    whole batch its rows are of, ``moe.moe_rows``); h is whole."""
     require_ported(cfg)
-    specs = _serve_specs(params, cfg, ctx)
+    specs = _serve_specs(params, ctx)
     group = rules.tp_group(ctx) if specs is not None else None
+    mesh_ctx = ctx if specs is not None else None
+    gather = _moe_rows(cfg, mesh_ctx, token.shape[0], batch)
     split = _kv_seq_shards(cfg, caches, ctx, max_len) > 1
+    cache_group = group if split else None
     top = _top(params)
     x = _embed(top, token, cfg, pos, ctx=ctx, specs=specs)
     new_caches = []
@@ -735,25 +721,42 @@ def decode_step(params, token: Tensor, caches: list[Params],
             lp = _serve_layer(params, s, i, lp, specs, ctx, group)
             h = L.apply_norm(lp["norm1"], x, cfg)
             if mixer == "attn" and cfg.mla:
-                y, _ = MLA.mla_decode(lp["attn"], h, cache[i], pos, cfg)
+                y, _ = MLA.mla_decode(lp["attn"], h, cache[i], pos, cfg,
+                                      group=group, cache_group=cache_group)
             elif mixer == "attn":
                 y, _, _ = L.attn_decode(
                     lp["attn"], h, cache["k"][i], cache["v"][i], pos, cfg,
-                    group=group, cache_sharded=split)
+                    group=group, cache_group=cache_group)
             else:
                 y, c = M.mamba_decode(lp["mamba"], h, _layer(cache, i), cfg,
                                       group)
                 _copy_into(_layer(new, i), c)
-            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group, mesh_ctx,
+                              mesh_aux=False, gather_rows=gather)
         new_caches.append(cache if mixer == "attn" else new)
     if all(n is c for n, c in zip(new_caches, caches)):
         new_caches = caches
     return L.apply_norm(top["final_norm"], x, cfg), new_caches
 
 
+def _moe_rows(cfg: ArchConfig, ctx, rows: int, batch: int | None) -> bool:
+    """``moe.moe_rows`` where the LM has experts (False without them or
+    off a mesh)."""
+    return bool(cfg.n_experts) and MOE.moe_rows(ctx, rows, batch)
+
+
+def _own_range(group, split: bool, s: int, s_len: int) -> tuple[int, int]:
+    """(offset, rows) of a prompt of ``s`` positions that a rank's cache
+    of ``s_len`` positions keeps: its range where the sequence is split
+    over ``group``, else the start of the whole."""
+    off = distributed.axis_index(group) * s_len if split else 0
+    return off, min(max(s - off, 0), s_len)
+
+
 @torch.no_grad()
 def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
-            max_len: int | None = None) -> tuple[Tensor, list[Params]]:
+            max_len: int | None = None, batch: int | None = None
+            ) -> tuple[Tensor, list[Params]]:
     """Full-sequence prefill: (h (B, S, d), caches filled to S and zero
     after it, of length ``max_len`` (default S)).  Every attention layer is
     one ``ops.flash_attention`` call (an MLA layer's cache its latent
@@ -763,13 +766,17 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
     On a serving mesh (``decode_step``) ``tokens`` are this rank's rows:
     each attention layer runs its own heads through the flash kernel, and
     its cache takes this rank's sequence range of every KV head (k and v
-    all-gathered over the model group on the head dim in one call); each
-    mamba layer runs channel-parallel and keeps its channels' window and
-    state; h is whole."""
+    all-gathered over the model group on the head dim in one call; an MLA
+    layer's latent rows, which every rank projects whole); each mamba
+    layer runs channel-parallel and keeps its channels' window and state;
+    each MoE layer runs the rank's experts (``batch``: ``decode_step``'s);
+    h is whole."""
     require_ported(cfg)
-    specs = _serve_specs(params, cfg, ctx)
+    specs = _serve_specs(params, ctx)
     group = rules.tp_group(ctx) if specs is not None else None
+    mesh_ctx = ctx if specs is not None else None
     b, s = tokens.shape
+    gather = _moe_rows(cfg, mesh_ctx, b, batch)
     max_len = max_len or s
     dt = L._dtype(cfg)
     top = _top(params)
@@ -782,6 +789,7 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
                         max_len, ctx if specs is not None else None,
                         dtype=dt, device=tokens.device)
     nkv_c = cache_kv_heads(cfg, _cache_tp(ctx))
+    split = rules.seq_shards(ctx, max_len) > 1
     for si, ((kind, _), layers, cache) in enumerate(zip(
             segments_of(cfg), _layers_of(params, cfg), caches)):
         mixer, ffn = kind.split("+")
@@ -789,21 +797,21 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig, ctx=None,
             lp = _serve_layer(params, si, i, lp, specs, ctx, group)
             h = L.apply_norm(lp["norm1"], x, cfg)
             if mixer == "attn" and cfg.mla:
-                y = MLA.mla_forward(lp["attn"], h, positions, cfg)
-                cache[i, :, :s] = MLA.mla_latent_cache(lp["attn"], h,
-                                                       positions, cfg).to(dt)
+                y = MLA.mla_forward(lp["attn"], h, positions, cfg,
+                                    group=group)
+                lat = MLA.mla_latent_cache(lp["attn"], h, positions, cfg)
+                off, n = _own_range(group, split, s, cache.shape[2])
+                cache[i, :, :n] = lat[:, off:off + n].to(dt)
             elif mixer == "attn":
                 y, k, v = L.attn_prefill(lp["attn"], h, positions, cfg,
                                          group=group)
                 k, v = L.gather_heads([k, v], group)
-                s_len = cache["k"].shape[2]
-                off = (distributed.axis_index(group) * s_len
-                       if rules.seq_shards(ctx, max_len) > 1 else 0)
-                n = min(max(s - off, 0), s_len)
+                off, n = _own_range(group, split, s, cache["k"].shape[2])
                 cache["k"][i, :, :n] = k[:, off:off + n, :nkv_c].to(dt)
                 cache["v"][i, :, :n] = v[:, off:off + n, :nkv_c].to(dt)
             else:
                 y, c = M.mamba_prefill(lp["mamba"], h, cfg, group=group)
                 _copy_into(_layer(cache, i), c)
-            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group)
+            x, _ = _apply_ffn(ffn, lp, x + y, cfg, group, mesh_ctx,
+                              mesh_aux=False, gather_rows=gather)
     return L.apply_norm(top["final_norm"], x, cfg), caches

@@ -21,21 +21,25 @@ replaced) and ``make_topk_step`` one step with a top-k over the
 vocabulary.
 
 On a ``(data, model)`` mesh under the reference's ``ctx_for_serve``
-(``sharding/rules.py``: ``tp``, parameters replicated over ``data``) each
+(``sharding/rules.py``: ``tp``, parameters replicated over ``data``, or
+tp_fsdp where the config sets ``serve_fsdp``, dbrx-132b and
+deepseek-v3-671b, their F leaves gathered over ``data`` per layer) each
 rank holds its shards of every parameter (``param_specs_for`` in that
 mode: a ``StackedLM`` drawn by ``transformer.init_lm(..., shard=True)``
-or carried by ``convert``) and serves its rows of the batch
-(``rules.serve_rows``): the decoder LMs' backbone runs tensor-parallel
-over the model group with sequence-sharded KV caches and channel-sharded
-mamba states (``models/transformer.py``), and the head is this rank's
-vocab shard: the dense path merges the shards' candidates through
-``retrieval.dense_topk`` (``distributed.sharded_logits_topk``, padding
-rows masked), the index paths through the sharded
-``retrieval.decode_topk`` and ``quantized_index.decode_topk``; the greedy
-token is the dense path's k = 1.  ``make_decode_fn`` serves any family's
-head on a mesh; the step constructors serve the dense and ssm families
-there (``api.require_serve_mesh``).  ``make_decode_step`` and
-``make_topk_step`` take the caches' whole length there (``max_len``).
+or carried by ``convert``, an ``EncDec`` carried by ``convert``) and
+serves its rows of the batch (``rules.serve_rows``): every family's
+backbone runs tensor-parallel over the model group, with
+sequence-sharded KV and latent caches, channel-sharded mamba states and
+experts dispatched on their model rank (``models/transformer.py``), or
+the encoder-decoder's self and cross caches sequence-sharded
+(``models/encdec.py``); the head is this rank's vocab shard: the dense
+path merges the shards' candidates through ``retrieval.dense_topk``
+(``distributed.sharded_logits_topk``, padding rows masked), the index
+paths through the sharded ``retrieval.decode_topk`` and
+``quantized_index.decode_topk``; the greedy token is the dense path's
+k = 1.  ``make_decode_step`` and ``make_topk_step`` take the caches'
+whole length there (``max_len``) and, for the encoder-decoder, the
+encoder's frames (``frames``).
 """
 from __future__ import annotations
 
@@ -49,12 +53,16 @@ from repro_torch.serve import quantized_index, retrieval
 from repro_torch.sharding import rules
 
 
-def _decode_step(cfg: ArchConfig, max_len: int | None = None):
-    """The family's one-token decoder step (a decoder LM's told its caches'
-    whole length, ``transformer.decode_step``'s ``max_len``)."""
+def _decode_step(cfg: ArchConfig, max_len: int | None = None,
+                 frames: int | None = None, batch: int | None = None):
+    """The family's one-token decoder step, told its caches' whole lengths
+    (``transformer.decode_step``'s ``max_len`` and its whole ``batch``;
+    ``encdec.decode_step``'s ``max_len`` and ``frames``)."""
     if cfg.family == "encdec":
-        return encdec.decode_step
-    return functools.partial(transformer.decode_step, max_len=max_len)
+        return functools.partial(encdec.decode_step, max_len=max_len,
+                                 frames=frames)
+    return functools.partial(transformer.decode_step, max_len=max_len,
+                             batch=batch)
 
 
 def _require_serve(cfg: ArchConfig, ctx) -> None:
@@ -123,16 +131,18 @@ def make_decode_fn(cfg: ArchConfig, ctx, head, k: int, *,
 
 
 def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
-                   beam: int | None = None, max_len: int | None = None):
+                   beam: int | None = None, max_len: int | None = None,
+                   frames: int | None = None, batch: int | None = None):
     """topk_step(params, token (B, 1), caches, pos (B,)) ->
     (ids (B, k), logits (B, k), caches).
 
     One decoder step, then top-k over the vocab through the serving index
     (either type; the dense head when ``index`` is None).  ``ids[:, 0]``
     equals ``make_decode_step``'s greedy token when the beam is full (or
-    the index absent), ties aside.  ``max_len``: ``make_decode_step``'s."""
+    the index absent), ties aside.  ``max_len``, ``frames``, ``batch``:
+    ``make_decode_step``'s."""
     _require_serve(cfg, ctx)
-    decode_step = _decode_step(cfg, max_len)
+    decode_step = _decode_step(cfg, max_len, frames, batch)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
@@ -145,13 +155,18 @@ def make_topk_step(cfg: ArchConfig, ctx, k: int, *, index=None,
     return step
 
 
-def make_decode_step(cfg: ArchConfig, ctx, max_len: int | None = None):
+def make_decode_step(cfg: ArchConfig, ctx, max_len: int | None = None,
+                     frames: int | None = None, batch: int | None = None):
     """decode_step(params, token (B, 1), caches, pos (B,)) ->
     (next_token (B,), caches).  ``max_len``: the caches' whole length
-    (``make_prefill_step``'s), needed on a mesh where they hold K/V
-    (``transformer.decode_step``)."""
+    (``make_prefill_step``'s), needed on a mesh where they hold attention
+    (``transformer.decode_step``); ``frames``: an encoder-decoder's
+    encoder frames, the cross caches' whole length, needed there too
+    (``encdec.decode_step``); ``batch``: the whole batch a rank's rows are
+    of, needed by a MoE layer in tp mode at dp > 1 where the rows do not
+    tell it (``moe.moe_rows``)."""
     _require_serve(cfg, ctx)
-    decode_step = _decode_step(cfg, max_len)
+    decode_step = _decode_step(cfg, max_len, frames, batch)
 
     @torch.no_grad()
     def step(params, token, caches, pos):
@@ -162,29 +177,40 @@ def make_decode_step(cfg: ArchConfig, ctx, max_len: int | None = None):
     return step
 
 
-def make_prefill_step(cfg: ArchConfig, ctx, max_len: int):
+def make_prefill_step(cfg: ArchConfig, ctx, max_len: int,
+                      batch: int | None = None):
     """prefill(params, {"tokens": (B, S)}) -> (first generated token (B,),
     caches of length ``max_len``); for the encoder-decoder
     prefill(params, {"frames": (B, Sf, d)}) -> (the token after token 0
     at position 0, the decoder's cache: its self K/V of ``max_len``
-    positions and every layer's cross K/V over the Sf frames)."""
+    positions and every layer's cross K/V over the Sf frames).  On a mesh
+    the batch is this rank's rows (``rules.serve_rows``); ``batch``:
+    ``make_decode_step``'s."""
     _require_serve(cfg, ctx)
+    whole_batch = batch
 
     @torch.no_grad()
     def step(params, batch):
         if cfg.family == "encdec":
             frames = batch["frames"]
             b = frames.shape[0]
-            enc_out = encdec.encode(params, frames, cfg)
-            caches = encdec.init_dec_cache(params, cfg, b, max_len, enc_out)
+            enc_out = encdec.encode(params, frames, cfg, ctx)
+            # the whole batch these rows are a block of (b x dp), or b
+            # itself where they are a whole batch dp does not divide:
+            # either gives this rank's cache shapes
+            whole = b * ctx.dp if rules.on_mesh(ctx) else b
+            caches = encdec.init_dec_cache(params, cfg, whole, max_len,
+                                           enc_out, ctx)
             del enc_out
             tok0 = torch.zeros((b, 1), dtype=torch.long,
                                device=frames.device)
             pos0 = torch.zeros((b,), dtype=torch.long, device=frames.device)
-            h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg)
+            h, caches = encdec.decode_step(params, tok0, caches, pos0, cfg,
+                                           ctx, max_len, frames.shape[1])
         else:
             h, caches = transformer.prefill(params, batch["tokens"], cfg,
-                                            ctx, max_len=max_len)
+                                            ctx, max_len=max_len,
+                                            batch=whole_batch)
         head = api.head_table(params, cfg, ctx)
         return _argmax_island(cfg, ctx, head, h[:, -1, :]), caches
 

@@ -43,8 +43,9 @@ the SEQUENCE over ``model``, the mamba conv window and state with their
 channels over ``model``; each fitted to the shape, so the sequence stays
 whole on every model rank where tp does not divide ``max_len`` and the
 batch whole on every data rank where dp does not divide it
-(``serve_rows``).  ``on_mesh`` tells a mesh ctx from none and
-``require_unsharded`` refuses one where a part is not ported.
+(``serve_rows``; ``seq_split`` tells a rank's range of a decode cache
+from a whole one by the whole length).  ``on_mesh`` tells a mesh ctx
+from none.
 """
 from __future__ import annotations
 
@@ -237,13 +238,6 @@ def on_mesh(ctx) -> bool:
     return True
 
 
-def require_unsharded(ctx, what: str = "the mesh (vocab-sharded) path"
-                      ) -> None:
-    """Raise for a mesh ctx where ``what`` has no mesh form yet."""
-    if on_mesh(ctx):
-        raise NotImplementedError(f"{what} is not ported yet {_A17}")
-
-
 def seq_sharded(ctx, s: int) -> bool:
     """Whether a (B, S, d) residual-stream activation of ``s`` rows is
     S-sharded over ``model`` (Megatron's sequence parallelism): the
@@ -285,6 +279,24 @@ def seq_shards(ctx, max_len: int) -> int:
     if not on_mesh(ctx):
         return 1
     return ctx.axis_size(cache_spec("latent", (1, 1, max_len, 1), ctx)[2])
+
+
+def seq_split(ctx, local_len: int, whole: int | None, what: str) -> int:
+    """``seq_shards`` of a decode cache whose rank holds ``local_len``
+    positions of ``whole`` (required: a rank's range of a sequence split
+    over the model group is not told from a whole sequence by its
+    length), checked against ``local_len``; ``what`` names the cache and
+    the argument that gives ``whole`` in the errors."""
+    if whole is None:
+        raise ValueError(
+            f"{what} on a mesh take their whole length: a rank's range of "
+            "a sequence split over the model group is not told from a "
+            "whole sequence by its length")
+    n = seq_shards(ctx, whole)
+    if local_len * n != whole:
+        raise ValueError(f"{what}: a rank's {local_len} positions are not "
+                         f"a block of {whole} split over {n}")
+    return n
 
 
 def local_shape(shape, spec, ctx: ShardCtx) -> tuple:

@@ -25,8 +25,9 @@ ptb-lstm, each ``.reduced()`` in fp32:
     ``apply_mamba``, and the same block with the backward all-reduce of
     ``x_proj``'s sum taken out, which must miss.
 
-The refusals that stay (mesh serving) are held here too, beside the
-gates that MLA / mtp, the hybrid family and experts now pass.
+The refusals that stay (shard checkpoints, the 3-D mesh) are held here
+too, beside the gates that MLA / mtp, the hybrid family, experts and
+every family's serving now pass.
 """
 from __future__ import annotations
 
@@ -646,14 +647,16 @@ class _SizesOnly:
 
 def _refusals() -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.models import api, encdec, transformer
+    from repro_torch.models import api, transformer
     from repro_torch.optim import make_optimizer
+    from repro_torch.serve import engine
     from repro_torch.sharding import rules
     from repro_torch.train import step
 
     ctx = rules.ShardCtx(mesh=_SizesOnly(1, 4))
     opt = make_optimizer("adamw", 1e-2)
     falcon = get_config("falcon-mamba-7b").reduced()
+    jamba = get_config("jamba-v0.1-52b").reduced()
     whisper = _cfg("whisper-large-v3")
     dense = get_config("llama3-8b").reduced()
     return {
@@ -665,25 +668,28 @@ def _refusals() -> dict:
             get_config("jamba-v0.1-52b").reduced()),
         "experts": lambda: step._on_mesh(
             get_config("dbrx-132b").reduced(), ctx),
-        "encdec init_dec_cache": lambda: encdec.init_dec_cache(
-            None, whisper, 2, 8, torch.zeros(2, 4, whisper.d_model), ctx),
-        "encdec decode_step": lambda: encdec.decode_step(
-            None, torch.zeros(2, 1, dtype=torch.long), {}, torch.zeros(2),
-            whisper, ctx),
+        "encdec init_dec_cache": lambda: _dec_cache_blocks(whisper, ctx),
+        "encdec decode_step": lambda: callable(engine.make_decode_step(
+            whisper, ctx, 8, frames=4)),
         "ssm init_cache": lambda: _channel_blocks(
             transformer.init_cache(falcon, 2, 8, ctx, device="cpu"), falcon),
         "ssm prefill": lambda: api.require_serve_mesh(falcon),
         "ssm decode_step": lambda: api.require_serve_mesh(falcon),
-        "hybrid init_cache": lambda: transformer.init_cache(
-            get_config("jamba-v0.1-52b").reduced(), 2, 8, ctx,
-            device="cpu"),
-        "hybrid prefill": lambda: transformer.prefill(
-            None, torch.zeros(2, 4, dtype=torch.long),
-            get_config("jamba-v0.1-52b").reduced(), ctx),
-        "moe decode_step": lambda: transformer.decode_step(
-            None, torch.zeros(2, 1, dtype=torch.long), [], torch.zeros(2),
-            get_config("dbrx-132b").reduced(), ctx),
+        "hybrid init_cache": lambda: _hybrid_blocks(
+            transformer.init_cache(jamba, 2, 8, ctx, device="cpu"), jamba),
+        "hybrid prefill": lambda: api.require_serve_mesh(jamba),
+        "moe decode_step": lambda: api.require_serve_mesh(
+            get_config("dbrx-132b").reduced()),
+        "shard checkpoints": lambda: step.serving_index_source(
+            "unused", dense, ctx, opt, device="cpu"),
+        "3-D mesh": lambda: rules.mesh_ctx(_ThreeAxes(1, 4)),
     }
+
+
+class _ThreeAxes(_SizesOnly):
+    """A mesh of the reference's 3-D host layout, by its dims' names."""
+
+    mesh_dim_names = ("replica", "data", "model")
 
 
 def _channel_blocks(caches, cfg) -> bool:
@@ -693,22 +699,55 @@ def _channel_blocks(caches, cfg) -> bool:
     return c["conv"].shape[-1] == c["ssm"].shape[-2] == cfg.d_inner // 4
 
 
+def _hybrid_blocks(caches, cfg) -> bool:
+    """Whether a (1, 4) rank's hybrid caches hold its blocks: a quarter
+    of the attention's sequence, a quarter of the mamba channels."""
+    for (kind, _), c in zip(_segments(cfg), caches):
+        if kind.startswith("attn"):
+            assert c["k"].shape[2] == 2, c["k"].shape
+        else:
+            assert c["conv"].shape[-1] == cfg.d_inner // 4
+    return True
+
+
+def _segments(cfg):
+    from repro_torch.models import transformer
+
+    return transformer.segments_of(cfg)
+
+
+def _dec_cache_blocks(cfg, ctx) -> bool:
+    """Whether a (1, 4) rank's encoder-decoder cache holds its blocks
+    (``encdec.cache_specs``): a quarter of the self and cross sequences."""
+    from repro_torch.models import encdec
+    from repro_torch.sharding import rules
+
+    specs = encdec.cache_specs(cfg, 2, 8, 4, ctx)
+    whole = encdec._cache_shapes(cfg, 2, 8, 4, ctx.tp_backbone)
+    held = {k: rules.local_shape(sh, specs[k], ctx)
+            for k, sh in whole.items()}
+    return held["self_k"][2] == 2 and held["cross_k"][2] == 1
+
+
 #: refusals that expert parallelism lifted (these cases pass the gates),
-#: and the ssm family's serving on the mesh (its caches hold a rank's
-#: channels; it passes the serving gate; its prefill and decode are held
-#: in test_torch_mesh_lm_serving.py)
+#: and the ssm, hybrid, moe and encoder-decoder families' serving on the
+#: mesh (their caches hold a rank's blocks; they pass the serving gate;
+#: their prefill and decode are held in test_torch_mesh_lm_serving.py and
+#: test_torch_mesh_family_serving.py)
 PORTED_SINCE = ("MLA", "mtp", "hybrid", "experts", "ssm init_cache",
-                "ssm prefill", "ssm decode_step")
+                "ssm prefill", "ssm decode_step", "encdec init_dec_cache",
+                "encdec decode_step", "hybrid init_cache", "hybrid prefill",
+                "moe decode_step")
 
 
 @pytest.mark.parametrize("case", tuple(_refusals()))
 def test_refusals_name_a17(case):
-    """Serving on a mesh (the encoder-decoder's cache and one-token step,
-    the hybrid and moe families' caches, prefill and decode) still raises
-    ``NotImplementedError`` naming A17 on a mesh ctx, before any
-    collective; MLA, mtp, the hybrid family and experts pass the mesh's
-    gates since expert parallelism was ported, and the ssm family's
-    serving since the decoder LMs' serving engine was."""
+    """What stays refused on a mesh raises ``NotImplementedError`` naming
+    A17, before any collective; MLA, mtp, the hybrid family and experts
+    pass the mesh's gates since expert parallelism was ported, the ssm
+    family's serving since the decoder LMs' serving engine was, and the
+    hybrid, moe and encoder-decoder families' serving (caches, prefill,
+    decode) since the rest of serving was."""
     if case in PORTED_SINCE:
         assert _refusals()[case]() in (None, True)
         return

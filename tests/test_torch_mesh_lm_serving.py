@@ -34,7 +34,9 @@ decode ids.  Also: ``convert``'s caches and quantized index onto the
 shards and back, bitwise; one decode step's collectives against a count
 derived from the layer structure; the facade's mesh ``decode_topk``
 equal to ``engine.decode_topk``; the ``in_proj`` channel view built once;
-moe, MLA and encoder-decoder configs on a serve mesh raising A17.
+the moe, MLA, hybrid and encoder-decoder configs passing the serving
+gate, a rank's caches its blocks (their serving is held in
+test_torch_mesh_family_serving.py).
 """
 from __future__ import annotations
 
@@ -654,33 +656,44 @@ class _SizesOnly:
 
 @pytest.mark.parametrize("name", ("dbrx-132b", "deepseek-v3-671b",
                                   "jamba-v0.1-52b", "whisper-large-v3"))
-def test_unported_families_raise_a17_on_a_serve_mesh(name):
-    """The moe, MLA, hybrid and encoder-decoder configs' serving on a
-    serve mesh raises ``NotImplementedError`` naming A17, before any
-    collective: the family gate, the engine's three steps and the LM's
-    caches, prefill and decode."""
+def test_serve_gate_passes_and_init_cache_holds_blocks(name):
+    """The moe, MLA, hybrid and encoder-decoder configs pass the serving
+    gate on a serve mesh (the family gate and the engine's three step
+    constructors, before any collective), and a (1, 4) rank's caches hold
+    its blocks: K/V and MLA's latent rows a quarter of the sequence,
+    mamba's window and state a quarter of the channels, the
+    encoder-decoder's self and cross K/V a quarter of each sequence
+    (``encdec.cache_specs``).  Their serving itself is held in
+    test_torch_mesh_family_serving.py."""
     from repro_torch.configs import get_config
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api, encdec, transformer
     from repro_torch.serve import engine
     from repro_torch.sharding import rules
 
     cfg = get_config(name).reduced()
     ctx = rules.ctx_for_serve(_SizesOnly(1, 4), cfg)
     assert ctx.mode == ("tp_fsdp" if cfg.serve_fsdp else "tp")
-    calls = [lambda: api.require_serve_mesh(cfg),
-             lambda: engine.make_prefill_step(cfg, ctx, 8),
-             lambda: engine.make_decode_step(cfg, ctx),
-             lambda: engine.make_topk_step(cfg, ctx, 2)]
-    if cfg.family != "encdec":
-        tok = torch.zeros((2, 1), dtype=torch.long)
-        calls += [
-            lambda: transformer.init_cache(cfg, 2, 8, ctx, device="cpu"),
-            lambda: transformer.prefill(None, tok, cfg, ctx),
-            lambda: transformer.decode_step(None, tok, [], torch.zeros(2),
-                                            cfg, ctx)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A17"):
-            call()
+    assert api.require_serve_mesh(cfg) is None
+    for step in (engine.make_prefill_step(cfg, ctx, 8),
+                 engine.make_decode_step(cfg, ctx, 8, frames=12),
+                 engine.make_topk_step(cfg, ctx, 2, max_len=8, frames=12)):
+        assert callable(step)
+    if cfg.family == "encdec":
+        specs = encdec.cache_specs(cfg, 2, 8, 12, ctx)
+        held = {k: rules.local_shape(sh, specs[k], ctx) for k, sh in
+                encdec._cache_shapes(cfg, 2, 8, 12, ctx.tp_backbone).items()}
+        assert held["self_k"][2] == 2 and held["cross_v"][2] == 3, held
+        return
+    caches = transformer.init_cache(cfg, 2, 8, ctx, device="cpu")
+    for (kind, count), c in zip(transformer.segments_of(cfg), caches):
+        if kind.startswith("attn") and cfg.mla:
+            assert c.shape == (count, 2, 2, cfg.kv_lora_rank
+                               + cfg.qk_rope_dim)
+        elif kind.startswith("attn"):
+            assert c["k"].shape[2] == c["v"].shape[2] == 2
+        else:
+            assert c["conv"].shape[-1] == c["ssm"].shape[-2] == \
+                cfg.d_inner // 4
 
 
 def test_serve_ctx_and_cache_specs():
